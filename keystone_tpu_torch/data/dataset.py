@@ -1,0 +1,214 @@
+"""Dataset: the collection abstraction replacing RDDs.
+
+Port of ``keystone_tpu/data/dataset.py``, single device:
+
+  - **Array form** (the common case): ``data`` is a ``torch.Tensor`` with a
+    leading example axis, or a (nested) tuple of them — the output of a
+    gather. It may carry zero padding rows past the true count ``n``;
+    padding rows are all-zero so Gramians and moment sums are unaffected.
+  - **Host form**: a Python list of arbitrary objects for stages that must
+    run host-side.
+
+The reference's shard form (out-of-core disk segments) and mesh sharding
+come with later slices; here there is one device and no mesh. Numpy
+arrays handed to ``Dataset.of`` stay numpy until a node moves them to its
+device, exactly as the reference leaves host arrays to ``jnp.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+import torch
+
+
+def _is_arraylike(x: Any) -> bool:
+    return isinstance(x, (np.ndarray, torch.Tensor)) or (
+        hasattr(x, "shape") and hasattr(x, "dtype")
+    )
+
+
+def tree_leaves(data: Any) -> List[Any]:
+    """The arrays of an array-form payload, in order."""
+    if isinstance(data, tuple):
+        return [leaf for d in data for leaf in tree_leaves(d)]
+    return [data]
+
+
+def tree_map(fn: Callable[[Any], Any], data: Any) -> Any:
+    """``fn`` applied to every array of an array-form payload."""
+    if isinstance(data, tuple):
+        return tuple(tree_map(fn, d) for d in data)
+    return fn(data)
+
+
+def as_tensor(x: Any, device=None) -> torch.Tensor:
+    """``x`` as a tensor on ``device`` (default: where it already lives,
+    or the CPU for host arrays). float64 host arrays become float32: the
+    port computes in float32, as the reference does outside its x64 tests."""
+    if isinstance(x, torch.Tensor):
+        t = x
+    else:
+        arr = np.asarray(x)
+        if arr.dtype == np.float64:
+            arr = arr.astype(np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device is not None and t.device != torch.device(device):
+        t = t.to(device)
+    return t
+
+
+class Dataset:
+    """A batch of n examples, in tensor or host-list form."""
+
+    def __init__(self, data: Any, n: Optional[int] = None):
+        if isinstance(data, Dataset):
+            raise TypeError("Dataset(data) may not wrap another Dataset")
+        self.data = data
+        if isinstance(data, list):
+            self.n = len(data) if n is None else n
+        else:
+            leaves = tree_leaves(data)
+            if not leaves:
+                raise ValueError("Array dataset must contain at least one array")
+            self.n = int(leaves[0].shape[0]) if n is None else n
+
+    # -- constructors -------------------------------------------------------
+
+    @staticmethod
+    def of(data: Any) -> "Dataset":
+        """Wrap a list (host form) or array / tuple of arrays (array form)."""
+        if isinstance(data, Dataset):
+            return data
+        if isinstance(data, list) and not (data and _is_arraylike(data[0])):
+            return Dataset(list(data))
+        if isinstance(data, list):
+            # list of per-example arrays with identical shapes -> stack;
+            # ragged -> host form
+            shapes = {tuple(np.shape(x)) for x in data}
+            if len(shapes) == 1:
+                if isinstance(data[0], torch.Tensor):
+                    return Dataset(torch.stack(data))
+                return Dataset(np.stack([np.asarray(x) for x in data]))
+            return Dataset(list(data))
+        return Dataset(data)
+
+    @staticmethod
+    def gather(branches: List["Dataset"]) -> "Dataset":
+        """Zip branches into a dataset of tuples (GatherTransformerOperator.scala:9-18)."""
+        ns = {b.n for b in branches}
+        if len(ns) != 1:
+            raise ValueError(f"Gathered branches must have equal sizes, got {ns}")
+        if all(not b.is_host for b in branches):
+            return Dataset(tuple(b.data for b in branches), n=branches[0].n)
+        items = [b.to_list() for b in branches]
+        return Dataset([tuple(vals) for vals in zip(*items)])
+
+    # -- properties ---------------------------------------------------------
+
+    @property
+    def is_host(self) -> bool:
+        return isinstance(self.data, list)
+
+    @property
+    def array(self):
+        """The single underlying array (errors for tuple datasets)."""
+        if self.is_host:
+            return np.stack([np.asarray(x) for x in self.data])
+        if isinstance(self.data, tuple):
+            raise ValueError("Dataset holds a tuple of arrays; use .data")
+        return self.data
+
+    @property
+    def num_padded(self) -> int:
+        if self.is_host:
+            return len(self.data)
+        return int(tree_leaves(self.data)[0].shape[0])
+
+    def __len__(self) -> int:
+        return self.n
+
+    # -- transforms ---------------------------------------------------------
+
+    def map(self, fn: Callable[[Any], Any]) -> "Dataset":
+        """Apply `fn` per example (a host loop: the port has no vmap on the
+        slice's path, and every node there declares a batched form)."""
+        return Dataset.of([fn(x) for x in self.to_list()])
+
+    def map_batch(self, fn: Callable[[Any], Any]) -> "Dataset":
+        """Apply a whole-batch (vectorized) function to the array form."""
+        return Dataset(fn(self.data), n=self.n)._rezero_padding()
+
+    def _rezero_padding(self) -> "Dataset":
+        """Restore the all-zero-padding invariant after a non-zero-preserving
+        transform (padding rows must not pollute Gramians/moment sums)."""
+        if self.is_host or self.num_padded == self.n:
+            return self
+
+        def zero(leaf):
+            leaf = as_tensor(leaf).clone()
+            leaf[self.n:] = 0
+            return leaf
+
+        return Dataset(tree_map(zero, self.data), n=self.n)
+
+    def to_list(self) -> List[Any]:
+        """Materialize as a host list of per-example values (padding dropped)."""
+        if self.is_host:
+            return list(self.data)
+        if isinstance(self.data, tuple):
+            parts = [_to_numpy(leaf)[: self.n] for leaf in self.data]
+            return [tuple(p[i] for p in parts) for i in range(self.n)]
+        return list(_to_numpy(self.array)[: self.n])
+
+    def to_numpy(self) -> np.ndarray:
+        """The underlying array with padding rows dropped, as numpy."""
+        return _to_numpy(self.array)[: self.n]
+
+    def cache(self) -> "Dataset":
+        """Force materialization now (the Cacher analog): wait for the
+        device work that produced this dataset."""
+        if not self.is_host:
+            for leaf in tree_leaves(self.data):
+                if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                    torch.cuda.synchronize(leaf.device)
+                    break
+        return self
+
+    def __repr__(self) -> str:
+        if self.is_host:
+            return f"Dataset(host, n={self.n})"
+        shapes = tree_map(lambda x: tuple(x.shape), self.data)
+        return f"Dataset(array, n={self.n}, shapes={shapes})"
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def one_hot_pm1(labels: np.ndarray, num_classes: int) -> np.ndarray:
+    """Integer class labels -> the ±1 one-hot regression targets every LS
+    pipeline here fits against (the host-side twin of
+    ``ClassLabelIndicatorsFromIntLabels``)."""
+    return (
+        2.0 * np.eye(num_classes, dtype=np.float32)[
+            np.asarray(labels, dtype=np.int64).reshape(-1)
+        ] - 1.0
+    )
+
+
+class LabeledData:
+    """A (data, labels) pair of aligned Datasets (loaders/LabeledData.scala:12-15)."""
+
+    def __init__(self, data: Any, labels: Any):
+        self.data = Dataset.of(data)
+        self.labels = Dataset.of(labels)
+        if self.data.n != self.labels.n:
+            raise ValueError(
+                f"data ({self.data.n}) and labels ({self.labels.n}) must align"
+            )

@@ -1,0 +1,154 @@
+"""Evaluators (reference: evaluation/ — Evaluator.scala:19-35,
+MulticlassClassifierEvaluator.scala:23-161).
+
+Port of ``keystone_tpu/evaluation/metrics.py`` (the multiclass evaluator
+of the TIMIT slice). The confusion matrix is one device pass (a bincount
+over ``label * C + prediction``), read back to the host as numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Generic, TypeVar
+
+import numpy as np
+import torch
+
+from keystone_tpu_torch.data import Dataset
+from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.workflow import PipelineDataset
+
+P = TypeVar("P")
+L = TypeVar("L")
+E = TypeVar("E")
+
+
+def _as_dataset(x) -> Dataset:
+    if isinstance(x, PipelineDataset):
+        return x.get()
+    return Dataset.of(x)
+
+
+class Evaluator(Generic[P, L, E]):
+    """Computes a metric of predictions vs labels (Evaluator.scala:19-35)."""
+
+    def evaluate(self, predictions: Any, labels: Any) -> E:
+        return self._evaluate(_as_dataset(predictions), _as_dataset(labels))
+
+    def _evaluate(self, predictions: Dataset, labels: Dataset) -> E:
+        raise NotImplementedError
+
+
+class MulticlassMetrics:
+    """Derived metrics over a confusion matrix
+    (reference: MulticlassClassifierEvaluator.scala:44-161).
+
+    confusion[i, j] = count of items with true class i predicted as class j.
+    """
+
+    def __init__(self, confusion: np.ndarray):
+        self.confusion = np.asarray(confusion, dtype=np.float64)
+        self.num_classes = self.confusion.shape[0]
+        self.total = self.confusion.sum()
+
+    # -- per-class --
+
+    def class_precision(self, c: int) -> float:
+        denom = self.confusion[:, c].sum()
+        return float(self.confusion[c, c] / denom) if denom > 0 else 0.0
+
+    def class_recall(self, c: int) -> float:
+        denom = self.confusion[c, :].sum()
+        return float(self.confusion[c, c] / denom) if denom > 0 else 0.0
+
+    def class_f1(self, c: int) -> float:
+        return self.class_fscore(c)
+
+    def class_fscore(self, c: int, beta: float = 1.0) -> float:
+        """F_β (the reference's ``classMetrics(c).fScore(beta)``,
+        MulticlassClassifierEvaluator.scala:56-66)."""
+        p, r = self.class_precision(c), self.class_recall(c)
+        b2 = beta * beta
+        denom = b2 * p + r
+        return (1 + b2) * p * r / denom if denom > 0 else 0.0
+
+    def macro_fscore(self, beta: float = 1.0) -> float:
+        return float(
+            np.mean([self.class_fscore(c, beta) for c in range(self.num_classes)])
+        )
+
+    def micro_fscore(self, beta: float = 1.0) -> float:
+        # Micro P == micro R == accuracy for single-label multiclass, so
+        # every F_β equals the accuracy too.
+        return self.accuracy
+
+    # -- aggregate --
+
+    @property
+    def accuracy(self) -> float:
+        return float(np.trace(self.confusion) / self.total) if self.total > 0 else 0.0
+
+    @property
+    def total_error(self) -> float:
+        return 1.0 - self.accuracy
+
+    @property
+    def macro_precision(self) -> float:
+        return float(np.mean([self.class_precision(c) for c in range(self.num_classes)]))
+
+    @property
+    def macro_recall(self) -> float:
+        return float(np.mean([self.class_recall(c) for c in range(self.num_classes)]))
+
+    @property
+    def macro_f1(self) -> float:
+        return self.macro_fscore()
+
+    @property
+    def micro_precision(self) -> float:
+        return self.accuracy
+
+    micro_recall = micro_precision
+
+    @property
+    def micro_f1(self) -> float:
+        return self.micro_fscore()
+
+    def summary(self, class_names=None) -> str:
+        """Mahout-style pretty print (MulticlassClassifierEvaluator.scala:85-105)."""
+        names = class_names or [str(i) for i in range(self.num_classes)]
+        lines = [
+            "=" * 48,
+            "Summary Statistics",
+            "-" * 48,
+            f"Accuracy          {self.accuracy:.4f}",
+            f"Total Error       {self.total_error:.4f}",
+            f"Macro Precision   {self.macro_precision:.4f}",
+            f"Macro Recall      {self.macro_recall:.4f}",
+            f"Macro F1          {self.macro_f1:.4f}",
+            "-" * 48,
+            "Per-class (precision / recall / f1):",
+        ]
+        for c in range(self.num_classes):
+            lines.append(
+                f"  {names[c]:>8}: {self.class_precision(c):.4f} / "
+                f"{self.class_recall(c):.4f} / {self.class_f1(c):.4f}"
+            )
+        lines.append("=" * 48)
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return f"MulticlassMetrics(accuracy={self.accuracy:.4f}, n={int(self.total)})"
+
+
+class MulticlassClassifierEvaluator(Evaluator):
+    """Single-pass confusion matrix from predicted/true int labels."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+
+    def _evaluate(self, predictions: Dataset, labels: Dataset) -> MulticlassMetrics:
+        preds = as_tensor(predictions.array).reshape(-1)[: predictions.n].long()
+        labs = as_tensor(labels.array, preds.device).reshape(-1)[: labels.n].long()
+        C = self.num_classes
+        conf = torch.bincount(labs * C + preds, minlength=C * C).reshape(C, C)
+        return MulticlassMetrics(conf.cpu().numpy())

@@ -1,0 +1,231 @@
+"""Linear algebra for the block solvers: the in-tree replacement for mlmatrix.
+
+Port of ``keystone_tpu/parallel/linalg.py`` for one device: the ridge
+normal-equations solve, the stepwise block coordinate descent, and the
+stacked fused BCD whose first-epoch Gramian + correlation runs through the
+``gram_corr_sym`` CUDA kernel.
+
+Conventions (matching the reference solvers):
+  - ridge solve is ``(AᵀA + λI) x = AᵀB`` with *raw* λ (not scaled by n)
+    (reference: nodes/learning/LinearMapper.scala:80-98 via mlmatrix
+    NormalEquations; BlockWeightedLeastSquares.scala:270-276).
+  - block coordinate descent is Gauss-Seidel over feature blocks maintaining
+    the residual ``R = B - Σ_b A_b W_b`` (the in-tree pattern at
+    BlockWeightedLeastSquares.scala:177-313, subsuming mlmatrix
+    BlockCoordinateDescent.solveLeastSquaresWithL2 / solveOnePassL2).
+
+The reference's ``lax.scan`` sweeps become Python loops over the blocks
+and epochs; its ``lax.cond`` rescue of a failed Cholesky solve is decided
+on the host (one scalar read per solve). Products outside the kernels —
+the residual update, later-epoch correlations, the small solves — are
+plain ``torch`` contractions, as the reference leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops import cuda_ops
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """At-least-f32 accumulation dtype (f64 stays f64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _corr(a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """AᵀR with at-least-f32 accumulation — the correlation contraction
+    shared by every BCD path. R is rounded to A's dtype first, as in the
+    reference."""
+    acc = _acc_dtype(a.dtype)
+    return a.T.to(acc) @ r.to(a.dtype).to(acc)
+
+
+def _psd_factor(gram: torch.Tensor, lam: float) -> torch.Tensor:
+    """Cholesky factor of (gram + lam I) — loop-invariant across BCD epochs
+    for a fixed block, so multi-epoch sweeps stash it next to the Gramian.
+    A failed factorization is not raised here: its (non-finite or garbage)
+    factor is caught by :func:`_solve_psd`'s acceptance check."""
+    eye = torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)
+    chol, _ = torch.linalg.cholesky_ex(gram + lam * eye)
+    return chol
+
+
+def _solve_psd(gram, rhs, lam: float, chol=None):
+    """Solve (gram + lam I) x = rhs via Cholesky (gram PSD).
+
+    Rank-deficient Gramians (fewer rows than block columns) with zero/tiny
+    lam defeat the f32 Cholesky. Those solves rescue through a second
+    Cholesky with a strong scale-relative jitter, and as a last resort a
+    diagonal-preconditioned step; healthy Gramians keep the exact path.
+    Acceptance is by the linear system's relative residual, not factor
+    finiteness (a failed f32 factorization can also be finite garbage).
+    Pass ``chol`` (from :func:`_psd_factor` on the same gram/lam) to skip
+    the factorization.
+    """
+    d = gram.shape[0]
+    if chol is None:
+        chol = _psd_factor(gram, lam)
+    sol = torch.cholesky_solve(rhs, chol)
+    lin_res = gram @ sol + lam * sol - rhs
+    ok = bool(
+        torch.isfinite(sol).all()
+        & (torch.linalg.norm(lin_res) <= 1e-2 * (torch.linalg.norm(rhs) + 1e-30))
+    )
+    if ok:
+        return sol
+    # 1e-3·(tr/d) keeps the condition number within f32 Cholesky's
+    # reliable range (~1e6) while shrinking the fit by ~0.1%.
+    mean_diag = torch.trace(gram) / d
+    jitter = mean_diag * 1e-3 + lam
+    eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
+    chol_j, _ = torch.linalg.cholesky_ex(gram + jitter * eye)
+    sol_j = torch.cholesky_solve(rhs, chol_j)
+    if bool(torch.isfinite(sol_j).all()):
+        return sol_j
+    return rhs / (mean_diag + lam + 1e-30)
+
+
+def normal_equations_solve(A, B, lam: float = 0.0):
+    """Exact least-squares / ridge solve via normal equations.
+
+    A: (n, d) rows (zero-padding rows are harmless). B: (n, k). Returns (d, k).
+    """
+    A = as_tensor(A)
+    B = as_tensor(B, A.device)
+    return _solve_psd(A.T @ A, A.T @ B, float(lam))
+
+
+# ---------------------------------------------------------------------------
+# Block coordinate descent least squares
+# ---------------------------------------------------------------------------
+
+
+def _gram_cache_ok(num_iter: int, gram_bytes: int) -> bool:
+    """Stash per-block Gramians across epochs only when the stash is small
+    beside device memory (at most 1 GiB)."""
+    return num_iter > 1 and gram_bytes <= (1 << 30)
+
+
+def bcd_least_squares(
+    A_blocks: Sequence,
+    B,
+    lam: float = 0.0,
+    num_iter: int = 1,
+) -> List:
+    """Block coordinate descent ridge regression over feature blocks.
+
+    A_blocks: list of (n, d_b) tensors (feature-axis blocks of the design
+    matrix). B: (n, k). Returns the list of per-block weights W_b, each
+    (d_b, k), minimizing ``||B - Σ_b A_b W_b||² + λ Σ_b ||W_b||²``.
+
+    The stepwise form: each block step is plain tensor code (the reference
+    runs it as one jitted XLA step, not through a Pallas kernel, on one
+    device). Loop-invariant per-block Gramians are stashed across epochs
+    when the stash is small.
+    """
+    B = as_tensor(B)
+    k = B.shape[1]
+    Ws = [torch.zeros((Ab.shape[1], k), dtype=B.dtype, device=B.device) for Ab in A_blocks]
+    R = B
+    gram_bytes = sum(
+        int(a.shape[1]) ** 2 * _acc_dtype(as_tensor(a).dtype).itemsize
+        for a in A_blocks
+    )
+    cache_grams = _gram_cache_ok(max(num_iter, 1), gram_bytes)
+    grams: List = [None] * len(A_blocks)
+    lam = float(lam)
+
+    for _ in range(max(num_iter, 1)):
+        for b, Ab in enumerate(A_blocks):
+            Ab = as_tensor(Ab, B.device)
+            gram = grams[b] if grams[b] is not None else Ab.T @ Ab
+            rhs = Ab.T @ R + gram @ Ws[b]
+            Wb_new = _solve_psd(gram, rhs, lam)
+            R = R - Ab @ (Wb_new - Ws[b])
+            Ws[b] = Wb_new
+            if cache_grams:
+                grams[b] = gram
+    return Ws
+
+
+def _residual_dtype(feat_dtype, label_dtype):
+    """Residual/solve dtype: at least f32 (bf16 features still accumulate in
+    f32), promoted to f64 when either operand is double."""
+    return torch.promote_types(_acc_dtype(feat_dtype), _acc_dtype(label_dtype))
+
+
+def _bcd_block_update(Ab, R, Wb, lam: float, gram=None, chol=None):
+    """One Gauss-Seidel block update shared by the fused solvers.
+
+    Solves (AbᵀAb + λI) Wb' = AbᵀR + (AbᵀAb) Wb and returns
+    (R - Ab (Wb' - Wb), Wb', AbᵀAb, cholesky). The residual delta is
+    accumulated in f32 regardless of the feature dtype so bf16 features
+    never quantize the running residual. Pass ``gram`` (and ``chol``) to
+    reuse the loop-invariant Gramian/factor — only the correlation then
+    recomputes. The first-epoch Gramian + correlation of f32/bf16 blocks
+    is the ``gram_corr_sym`` kernel (its plain version on the CPU); f64
+    blocks keep plain contractions, as the reference keeps them on XLA.
+    """
+    feat_dtype = Ab.dtype
+    acc_dtype = _acc_dtype(feat_dtype)
+    if gram is None and acc_dtype == torch.float32:
+        gram, corr = cuda_ops.gram_corr_sym(Ab, R)
+    else:
+        if gram is None:
+            gram = Ab.T.to(acc_dtype) @ Ab.to(acc_dtype)
+        corr = _corr(Ab, R)
+    if chol is None:
+        chol = _psd_factor(gram, lam)
+    rhs = corr + gram @ Wb
+    Wb_new = _solve_psd(gram, rhs, lam, chol=chol)
+    delta = Ab.to(acc_dtype) @ (Wb_new - Wb).to(feat_dtype).to(acc_dtype)
+    return R - delta, Wb_new, gram, chol
+
+
+def bcd_least_squares_fused(
+    A_stack,
+    B,
+    lam: float = 0.0,
+    num_iter: int = 1,
+):
+    """Block coordinate descent over equal-sized stacked blocks.
+
+    A_stack: (num_blocks, n, d_b) stacked feature blocks — may be bfloat16,
+    in which case the products accumulate in float32 (the solve and
+    residual stay float32). The (epochs × blocks) Gauss-Seidel sweep runs
+    as a host loop; the first epoch computes each block's Gramian and
+    correlation with the ``gram_corr_sym`` kernel and, for multi-epoch
+    sweeps whose stash fits (``_gram_cache_ok``), stashes the Gramian and
+    its Cholesky factor so later epochs pay only the correlation, the two
+    triangular solves and the residual update.
+    """
+    A_stack = as_tensor(A_stack)
+    B = as_tensor(B, A_stack.device)
+    B = B.to(_residual_dtype(A_stack.dtype, B.dtype))
+    if A_stack.dtype != torch.bfloat16:
+        # Unify operand dtypes up front (except the intentional bf16 feature
+        # layout) so the block updates run entirely in the residual dtype.
+        A_stack = A_stack.to(B.dtype)
+    nb, _, db = A_stack.shape
+    k = B.shape[1]
+    W = [torch.zeros((db, k), dtype=B.dtype, device=B.device) for _ in range(nb)]
+    acc_itemsize = _acc_dtype(A_stack.dtype).itemsize
+    # x2: the stash holds Gramians AND their Cholesky factors.
+    cache_stash = _gram_cache_ok(int(num_iter), 2 * nb * db * db * acc_itemsize)
+    lam = float(lam)
+
+    R = B
+    stash: List = [None] * nb
+    for epoch in range(max(int(num_iter), 1)):
+        for b in range(nb):
+            gram, chol = stash[b] if stash[b] is not None else (None, None)
+            R, W[b], gram, chol = _bcd_block_update(
+                A_stack[b], R, W[b], lam, gram=gram, chol=chol
+            )
+            if epoch == 0 and cache_stash:
+                stash[b] = (gram, chol)
+    return torch.stack(W)

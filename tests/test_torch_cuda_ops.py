@@ -1,0 +1,228 @@
+"""The port's CUDA-kernel module (keystone_tpu_torch/ops/cuda_ops.py)
+against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers compute their plain PyTorch versions; those
+are held here against the Pallas kernels run in interpret mode on the same
+inputs (made with a seeded numpy generator, cast to float32 on both sides
+because tests/conftest.py turns on x64). The kernels themselves run only
+on a CUDA card: the ``cuda`` tests compare each kernel with its plain
+version there and skip elsewhere. The JAX package is imported inside a
+fixture, so that on a machine with the card and without JAX the ``cuda``
+tests still run (``python -m pytest tests/test_torch_cuda_ops.py -m cuda
+--noconftest``) while the parity tests skip.
+
+Tolerances:
+  - cosine features, f32 or bf16 operands with f32 output: 1e-5 absolute.
+    The polynomial cosine is within 3.8e-7 of cos for these |x|, and the
+    two float32 GEMMs sum d products in different orders.
+  - cosine features with bf16 output: 2**-7 absolute, one bf16 step for
+    values near 1 plus the f32 differences above.
+  - Gramian + correlation: 1e-4 relative to the largest entry (the sums
+    run over n rows in different orders).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from keystone_tpu_torch.ops import cuda_ops
+
+
+@pytest.fixture
+def jax_ref():
+    """(pallas_ops, jax.numpy) of the JAX package, the reference."""
+    jnp = pytest.importorskip("jax.numpy")
+    from keystone_tpu.ops import pallas_ops
+
+    return pallas_ops, jnp
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _cosine_inputs(m, d, n, seed=0):
+    rng = _rng(seed)
+    X = rng.normal(size=(m, d)).astype(np.float32)
+    W = (0.3 * rng.normal(size=(n, d))).astype(np.float32)
+    b = rng.uniform(0.0, 2 * np.pi, size=n).astype(np.float32)
+    return X, W, b
+
+
+def _gram_inputs(n, d, k, seed=0):
+    rng = _rng(seed)
+    A = rng.normal(size=(n, d)).astype(np.float32)
+    R = rng.normal(size=(n, k)).astype(np.float32)
+    return A, R
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _rel(got, want):
+    return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30)
+
+
+COSINE_SHAPES = [(8, 16, 8), (37, 23, 45), (300, 70, 260)]
+GRAM_SHAPES = [(64, 40, 7), (600, 300, 147), (130, 129, 1)]
+
+
+class TestCosineFeaturesAgainstPallas:
+    @pytest.mark.parametrize("m,d,n", COSINE_SHAPES)
+    def test_f32(self, jax_ref, m, d, n):
+        pallas_ops, _ = jax_ref
+        X, W, b = _cosine_inputs(m, d, n)
+        want = np.asarray(pallas_ops.cosine_features(X, W, b, interpret=True))
+        got = cuda_ops.cosine_features_ref(_t(X), _t(W), _t(b)).numpy()
+        assert got.shape == (m, n) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("m,d,n", COSINE_SHAPES[1:])
+    def test_bf16_operands(self, jax_ref, m, d, n):
+        pallas_ops, jnp = jax_ref
+        X, W, b = _cosine_inputs(m, d, n, seed=1)
+        want = np.asarray(pallas_ops.cosine_features(
+            X, W, b, compute_dtype=jnp.bfloat16, interpret=True
+        ))
+        got = cuda_ops.cosine_features_ref(
+            _t(X), _t(W), _t(b), compute_dtype=torch.bfloat16
+        ).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+    def test_bf16_output(self, jax_ref):
+        pallas_ops, jnp = jax_ref
+        X, W, b = _cosine_inputs(37, 23, 45, seed=2)
+        want = np.asarray(pallas_ops.cosine_features(
+            X, W, b, out_dtype=jnp.bfloat16, interpret=True
+        ).astype(jnp.float32))
+        got = cuda_ops.cosine_features_ref(
+            _t(X), _t(W), _t(b), out_dtype=torch.bfloat16
+        )
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2**-7)
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        X, W, b = _cosine_inputs(37, 23, 45, seed=3)
+        before = dict(cuda_ops.launches)
+        got = cuda_ops.cosine_features(_t(X), _t(W), _t(b))
+        want = cuda_ops.cosine_features_ref(_t(X), _t(W), _t(b))
+        assert torch.equal(got, want)
+        assert cuda_ops.launches == before  # no kernel was launched
+
+
+class TestGramCorrSymAgainstPallas:
+    @pytest.mark.parametrize("n,d,k", GRAM_SHAPES)
+    def test_f32(self, jax_ref, n, d, k):
+        pallas_ops, _ = jax_ref
+        A, R = _gram_inputs(n, d, k)
+        gram_j, corr_j = pallas_ops.gram_corr_sym(A, R, interpret=True)
+        gram, corr = cuda_ops.gram_corr_sym_ref(_t(A), _t(R))
+        assert gram.shape == (d, d) and corr.shape == (d, k)
+        assert _rel(gram.numpy(), np.asarray(gram_j)) < 1e-4
+        assert _rel(corr.numpy(), np.asarray(corr_j)) < 1e-4
+        assert torch.equal(gram, gram.T)
+
+    def test_bf16_operand(self, jax_ref):
+        pallas_ops, jnp = jax_ref
+        # The Pallas kernel rounds R to the operand dtype for its bf16
+        # matrix unit; the port keeps R in f32. With R already
+        # bf16-representable the two compute the same products.
+        A, R = _gram_inputs(600, 300, 147, seed=1)
+        A16 = torch.from_numpy(A).to(torch.bfloat16)
+        R = _t(R).to(torch.bfloat16).float().numpy()
+        gram_j, corr_j = pallas_ops.gram_corr_sym(
+            jnp.asarray(A16.float().numpy(), dtype=jnp.bfloat16), R, interpret=True
+        )
+        gram, corr = cuda_ops.gram_corr_sym_ref(A16, _t(R))
+        assert _rel(gram.numpy(), np.asarray(gram_j)) < 1e-4
+        assert _rel(corr.numpy(), np.asarray(corr_j)) < 1e-4
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        A, R = _gram_inputs(64, 40, 7, seed=2)
+        before = dict(cuda_ops.launches)
+        got = cuda_ops.gram_corr_sym(_t(A), _t(R))
+        want = cuda_ops.gram_corr_sym_ref(_t(A), _t(R))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert cuda_ops.launches == before
+
+
+class TestWrapperContract:
+    def test_non_cpu_non_cuda_tensors_raise(self):
+        X = torch.empty((4, 3), device="meta")
+        W = torch.empty((5, 3), device="meta")
+        b = torch.empty((5,), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_ops.cosine_features(X, W, b)
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_ops.gram_corr_sym(X, torch.empty((4, 2), device="meta"))
+
+    def test_reset_launch_counts(self):
+        cuda_ops.launches["gram_corr_sym"] += 3
+        cuda_ops.reset_launch_counts()
+        assert set(cuda_ops.launches.values()) == {0}
+
+    def test_library_name_tracks_the_source(self):
+        path = cuda_ops._library_path("cosine_features")
+        assert path.parent.name == "keystone_tpu_torch"
+        assert path.parent.parent.name == "build"
+        assert path.name.startswith("libcosine_features-")
+        assert path == cuda_ops._library_path("cosine_features")
+
+
+# ---------------------------------------------------------------------------
+# Kernel against plain version: needs the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    @pytest.mark.parametrize("m,d,n", COSINE_SHAPES + [(1030, 440, 513)])
+    @pytest.mark.parametrize("compute,out,atol", [
+        (torch.float32, torch.float32, 1e-5),
+        (torch.bfloat16, torch.float32, 1e-5),
+        (torch.float32, torch.bfloat16, 2**-7),
+    ])
+    def test_cosine_features(self, cuda_device, m, d, n, compute, out, atol):
+        X, W, b = (_t(a).to(cuda_device) for a in _cosine_inputs(m, d, n))
+        before = cuda_ops.launches["cosine_features"]
+        got = cuda_ops.cosine_features(X, W, b, compute_dtype=compute, out_dtype=out)
+        torch.cuda.synchronize()
+        assert cuda_ops.launches["cosine_features"] == before + 1
+        want = cuda_ops.cosine_features_ref(X, W, b, compute, out)
+        assert got.dtype == out
+        assert (got.float() - want.float()).abs().max().item() <= atol
+
+    @pytest.mark.parametrize("n,d,k", GRAM_SHAPES + [(1000, 520, 147)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_gram_corr_sym(self, cuda_device, n, d, k, dtype):
+        A, R = (_t(a).to(cuda_device) for a in _gram_inputs(n, d, k))
+        A = A.to(dtype)
+        before = cuda_ops.launches["gram_corr_sym"]
+        gram, corr = cuda_ops.gram_corr_sym(A, R)
+        torch.cuda.synchronize()
+        assert cuda_ops.launches["gram_corr_sym"] == before + 1
+        gram_r, corr_r = cuda_ops.gram_corr_sym_ref(A, R)
+        assert torch.equal(gram, gram.T)
+        assert _rel(gram.cpu().numpy(), gram_r.cpu().numpy()) < 1e-4
+        assert _rel(corr.cpu().numpy(), corr_r.cpu().numpy()) < 1e-4
+
+    def test_column_window_is_read_in_place(self, cuda_device):
+        A, R = (_t(a).to(cuda_device) for a in _gram_inputs(700, 384, 147))
+        window = A[:, 128:256]
+        gram, corr = cuda_ops.gram_corr_sym(window, R)
+        gram_r, corr_r = cuda_ops.gram_corr_sym_ref(window, R)
+        assert _rel(gram.cpu().numpy(), gram_r.cpu().numpy()) < 1e-4
+        assert _rel(corr.cpu().numpy(), corr_r.cpu().numpy()) < 1e-4
+
+    def test_wrong_dtype_raises_instead_of_falling_back(self, cuda_device):
+        A = torch.zeros((8, 4), dtype=torch.float16, device=cuda_device)
+        with pytest.raises(TypeError):
+            cuda_ops.gram_corr_sym(A, torch.zeros((8, 2), device=cuda_device))
