@@ -26,43 +26,19 @@
 // rest; instead the correlation tiles (row tile i of A^T x column tile of
 // R) are blocks of their own in the same launch, each as much work as a
 // Gramian tile. The 147-wide R takes two 128-wide column tiles, the second
-// masked past column 147. Each thread keeps 8 x 8 outputs in registers and
-// feeds 16 FMAs from each float4 shared-memory load, as in
-// cosine_features.cu. bf16 A is widened to float32 on its way into shared
-// memory; R stays float32 in the product (the TPU kernel rounds R to the
-// operand dtype for its bf16 matrix unit; the FMA path has no such need).
+// masked past column 147. The register tile is fma_tile.cuh's: each
+// thread keeps 8 x 8 outputs in registers and feeds 16 FMAs from each
+// float4 shared-memory load. bf16 A is widened to float32 on its way into
+// shared memory; R stays float32 in the product (the TPU kernel rounds R
+// to the operand dtype for its bf16 matrix unit; the FMA path has no such
+// need).
 // Ragged edges of n, d and k are masked in the kernel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "fma_tile.cuh"
 
 namespace {
 
-constexpr int T = 128;  // output tile width (both dimensions)
-constexpr int BK = 8;   // rows of A per shared-memory stage
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Stage rows [r0, r0 + BK) of the column window [c0, c0 + T) of a row-major
-// matrix M (rows < rows, columns < cols, row stride ld) into S[BK][T].
-// Element e of the 1024 is (row e / T, column e % T): a warp reads 128
-// contiguous bytes of one row.
-template <typename TM>
-__device__ __forceinline__ void stage(float (*S)[T], const TM* __restrict__ M,
-                                      long long r0, long long c0, long long rows,
-                                      long long cols, long long ld) {
-#pragma unroll
-  for (int i = 0; i < (T * BK) / THREADS; ++i) {
-    const int e = threadIdx.x + i * THREADS;
-    const int kk = e / T;
-    const int c = e % T;
-    const long long gr = r0 + kk;
-    const long long gc = c0 + c;
-    S[kk][c] = (gr < rows && gc < cols) ? to_float(M[gr * ld + gc]) : 0.f;
-  }
-}
+using namespace kt;
 
 // Blocks [0, npairs) are the Gramian tile pairs (ti <= tj), row-major over
 // the upper triangle; blocks [npairs, npairs + nt * nr) are the correlation
@@ -72,8 +48,8 @@ __global__ void __launch_bounds__(THREADS)
 gram_corr_sym_kernel(const TA* __restrict__ A, const float* __restrict__ R,
                      float* __restrict__ G, float* __restrict__ C, int n, int d,
                      int k, long long lda, long long ldr, int nt, int npairs) {
-  __shared__ __align__(16) float Xs[BK][T];
-  __shared__ __align__(16) float Ys[BK][T];
+  __shared__ __align__(16) float Xs[BK][LDS];
+  __shared__ __align__(16) float Ys[BK][LDS];
 
   const int p = blockIdx.x;
   const bool corr = p >= npairs;
@@ -95,36 +71,16 @@ gram_corr_sym_kernel(const TA* __restrict__ A, const float* __restrict__ R,
   const long long i0 = (long long)ti * T;
   const long long j0 = (long long)tj * T;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
+  zero(acc);
   for (long long r0 = 0; r0 < n; r0 += BK) {
-    stage<TA>(Xs, A, r0, i0, n, d, lda);
+    stage_rows<TA>(Xs, A, r0, i0, n, d, lda);
     if (corr)
-      stage<float>(Ys, R, r0, j0, n, k, ldr);
+      stage_rows<float>(Ys, R, r0, j0, n, k, ldr);
     else
-      stage<TA>(Ys, A, r0, j0, n, d, lda);
+      stage_rows<TA>(Ys, A, r0, j0, n, d, lda);
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&Xs[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&Xs[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Ys[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Ys[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
+    fma_stage(Xs, Ys, acc);
     __syncthreads();
   }
 
@@ -133,11 +89,11 @@ gram_corr_sym_kernel(const TA* __restrict__ A, const float* __restrict__ R,
   const long long ldo = corr ? k : d;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long r = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
+    const long long r = i0 + tile_row(i);
     if (r >= d) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const long long c = j0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+      const long long c = j0 + tile_col(j);
       if (c >= ncols) continue;
       out[r * ldo + c] = acc[i][j];
       // Off-diagonal Gramian tiles also fill their mirror tile. (A diagonal

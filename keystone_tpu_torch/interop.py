@@ -13,6 +13,10 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
   - ``StandardScalerModel``: ``{"mean": (d,), "std": (d,) or None}``
   - ``BlockLinearMapper``: ``{"xs": [(d_b, k), ...], "block_size": int,
     "b_opt": (k,) or None, "feature_scalers": [{"mean", "std"}, ...] or None}``
+    — a fused flat fit's model has one mean-only scaler per block (its
+    slice of the feature means) and ``b_opt`` the label means;
+  - ``LinearMapper``: ``{"x": (d, k), "b_opt": (k,) or None,
+    "feature_scaler": {"mean", "std"} or None}``
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+from keystone_tpu_torch.ops.learning.linear import LinearMapper
 from keystone_tpu_torch.ops.stats import CosineRandomFeaturesModel, StandardScalerModel
 
 
@@ -66,6 +71,18 @@ def block_linear_mapper(
     )
 
 
+def linear_mapper(
+    x, b_opt=None, feature_scaler: Optional[Mapping[str, Any]] = None, device=None
+) -> LinearMapper:
+    device = resolve_device(device)
+    scaler = None
+    if feature_scaler is not None:
+        scaler = standard_scaler_model(feature_scaler["mean"], feature_scaler.get("std"), device)
+    return LinearMapper(
+        _f32(x, device), None if b_opt is None else _f32(b_opt, device), scaler
+    )
+
+
 def params_from_jax(params: Mapping[str, Any], device=None):
     """Build the port's module from one reference module's parameters (see
     the module docstring for the keys of each)."""
@@ -76,6 +93,10 @@ def params_from_jax(params: Mapping[str, Any], device=None):
         return block_linear_mapper(
             params["xs"], params["block_size"], params.get("b_opt"),
             params.get("feature_scalers"), device,
+        )
+    if "x" in keys:
+        return linear_mapper(
+            params["x"], params.get("b_opt"), params.get("feature_scaler"), device
         )
     if "mean" in keys:
         return standard_scaler_model(params["mean"], params.get("std"), device)

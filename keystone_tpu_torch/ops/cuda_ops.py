@@ -2,14 +2,23 @@
 PyTorch versions.
 
 Port of the kernels of ``keystone_tpu/ops/pallas_ops.py`` that the TIMIT
-block slice runs:
+block slice and the fused flat fit run:
 
   - :func:`cosine_features` ↔ ``pallas_ops.cosine_features``
     (``csrc/cosine_features.cu``): ``cos(X Wᵀ + b)`` with the cosine fused
     into the GEMM epilogue;
   - :func:`gram_corr_sym` ↔ ``pallas_ops.gram_corr_sym``
     (``csrc/gram_corr_sym.cu``): ``(AᵀA, AᵀR)`` in one launch, upper
-    Gramian tiles only.
+    Gramian tiles only;
+  - :func:`block_gram_sym`, :func:`block_corr`,
+    :func:`block_residual_update` ↔ their ``pallas_ops`` namesakes
+    (``csrc/block_*.cu``): the flat solver's Gramian, correlation and
+    residual update over the column window ``F[:, s:s+b]``, read in place
+    through F's row stride (never copied). :func:`strided_gram_ok` is the
+    guard that sends the solver to them.
+
+The GEMM-shaped kernels share one FP32-FMA register tile
+(``csrc/fma_tile.cuh``).
 
 Each wrapper keeps its Pallas twin's name and operand contract. For a
 tensor on the CPU it computes the plain PyTorch version (``*_ref``); for a
@@ -21,7 +30,8 @@ main path went through the kernels.
 The kernels are built at first use: ``nvcc`` compiles each source under
 ``csrc/`` for ``sm_90a`` into a shared library with a plain C interface
 under ``build/keystone_tpu_torch/`` at the repository root (one library per
-source, named by a hash of the source and flags), and ``ctypes`` loads it.
+source, named by a hash of the source, the shared headers and the flags),
+and ``ctypes`` loads it.
 :func:`build` compiles every kernel at once, one ``nvcc`` per source, all
 started together.
 """
@@ -39,7 +49,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 # Kernel launches per wrapper since the last reset_launch_counts().
-launches: Dict[str, int] = {"cosine_features": 0, "gram_corr_sym": 0}
+launches: Dict[str, int] = {
+    "cosine_features": 0, "gram_corr_sym": 0,
+    "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
+}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent.parent / "build" / "keystone_tpu_torch"
@@ -55,6 +68,16 @@ _ENTRY_POINTS = {
     ),
     "gram_corr_sym": (
         "kt_gram_corr_sym", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]
+    ),
+    "block_gram_sym": (
+        "kt_block_gram_sym", [_P, _P, _I, _I, _I, _L, _I, _P]
+    ),
+    "block_corr": (
+        "kt_block_corr", [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P]
+    ),
+    "block_residual_update": (
+        "kt_block_residual_update",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _P],
     ),
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -81,8 +104,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    # The shared headers count too: a header edit must not load a library
+    # built from the old one.
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (_CSRC / f"{name}.cu").read_bytes() + " ".join(_NVCC_FLAGS).encode()
+        (_CSRC / f"{name}.cu").read_bytes() + headers + " ".join(_NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return _BUILD / f"lib{name}-{digest}.so"
 
@@ -183,7 +209,7 @@ def cosine_features_ref(X, W, b, compute_dtype=torch.float32, out_dtype=None):
     return torch.cos(Xf @ Wf.T + b.to(torch.float32)).to(out_dtype)
 
 
-def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None):
+def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=None):
     """cos(X @ Wᵀ + b) fused into the matmul epilogue.
 
     X: (m, d), W: (num_out, d), b: (num_out,). The featurized (m, num_out)
@@ -191,13 +217,22 @@ def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None):
     memory (reference: CosineRandomFeatures.scala:19-45).
     ``compute_dtype=torch.bfloat16`` rounds the operands to bf16 (products
     still accumulate in f32); ``out_dtype=torch.bfloat16`` writes the
-    features at half the footprint.
+    features at half the footprint. ``out``: an (m, num_out) buffer with
+    contiguous rows to write into instead, e.g. a column window of a wider
+    feature matrix (written in place through its row stride); its dtype is
+    the output dtype.
     """
+    if out is not None:
+        if out_dtype is not None and out_dtype != out.dtype:
+            raise TypeError(f"cosine_features: out is {out.dtype}, out_dtype {out_dtype}")
+        out_dtype = out.dtype
     out_dtype = torch.float32 if out_dtype is None else out_dtype
-    if X.device.type == "cpu" and W.device.type == "cpu" and b.device.type == "cpu":
-        return cosine_features_ref(X, W, b, compute_dtype, out_dtype)
+    operands = (X, W, b) if out is None else (X, W, b, out)
+    if all(t.device.type == "cpu" for t in operands):
+        ref = cosine_features_ref(X, W, b, compute_dtype, out_dtype)
+        return ref if out is None else out.copy_(ref)
     name = "cosine_features"
-    device = _cuda_operands(name, (X, W, b))
+    device = _cuda_operands(name, operands)
     _check_rows(name, X, "X")
     _check_rows(name, W, "W")
     if X.shape[1] != W.shape[1] or b.shape != (W.shape[0],):
@@ -215,7 +250,12 @@ def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None):
     bk = b.to(torch.float32).contiguous()
     m, d = Xk.shape
     n = Wk.shape[0]
-    out = torch.empty((m, n), dtype=out_dtype, device=device)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=device)
+    else:
+        _check_rows(name, out, "out")
+        if out.shape != (m, n):
+            raise ValueError(f"{name}: out is {tuple(out.shape)}, expected {(m, n)}")
     if out.numel() == 0:
         return out
     fn = _lib(name).kt_cosine_features
@@ -282,3 +322,180 @@ def gram_corr_sym(A, R):
         )
     _check_launch(name, err)
     return gram, corr
+
+
+# ---------------------------------------------------------------------------
+# Column-window kernels of the flat solver: F[:, s:s+b] read in place
+# ---------------------------------------------------------------------------
+
+
+def strided_gram_ok(F, block: int) -> bool:
+    """Whether the flat solver may take the column-window kernels for F
+    (counterpart of ``pallas_ops.strided_gram_ok``). The TPU kernels need
+    tile-aligned rows and windows; these mask ragged edges, so the guard
+    asks only for whole windows (``d % block == 0``), a 2-D F with
+    contiguous rows (the window is read through the row stride), and an
+    f32 accumulation dtype (F float32 or bfloat16)."""
+    return (
+        F.dim() == 2
+        and block > 0
+        and F.shape[1] % block == 0
+        and (F.shape[1] <= 1 or F.stride(1) == 1)
+        and F.dtype in _KERNEL_DTYPES
+    )
+
+
+def _window(F, col_start: int, block: int):
+    return F[:, col_start:col_start + block].to(torch.float32)
+
+
+def _check_window(name: str, F, col_start: int, block: int) -> None:
+    _check_rows(name, F, "F")
+    if F.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: F must be float32 or bfloat16, got {F.dtype}")
+    if col_start < 0 or block < 0 or col_start + block > F.shape[1]:
+        raise ValueError(
+            f"{name}: window [{col_start}, {col_start + block}) is not inside F's "
+            f"{F.shape[1]} columns"
+        )
+
+
+def block_gram_sym_ref(F, col_start: int, block: int):
+    """Plain PyTorch version of :func:`block_gram_sym`: ``FwᵀFw`` in float32
+    for the window ``Fw = F[:, col_start:col_start+block]``, its upper
+    triangle mirrored (exactly symmetric, as the kernel's output is)."""
+    Fw = _window(F, col_start, block)
+    G = Fw.T @ Fw
+    return torch.triu(G) + torch.triu(G, 1).T
+
+
+def block_gram_sym(F, col_start: int, block: int):
+    """Symmetric Gramian of the column window ``F[:, col_start:col_start+block]``,
+    read in place (no window copy), upper-triangle tiles only. F: (n, d)
+    float32 or bfloat16 with contiguous rows. Returns (block, block) float32."""
+    col_start, block = int(col_start), int(block)
+    if F.device.type == "cpu":
+        return block_gram_sym_ref(F, col_start, block)
+    name = "block_gram_sym"
+    device = _cuda_operands(name, (F,))
+    _check_window(name, F, col_start, block)
+    gram = torch.empty((block, block), dtype=torch.float32, device=device)
+    if block == 0:
+        return gram
+    fn = _lib(name).kt_block_gram_sym
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            F.data_ptr(), gram.data_ptr(), F.shape[0], col_start, block, F.stride(0),
+            int(F.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return gram
+
+
+def _corr_operand(F, R):
+    """R as the correlation sees it: float32, rounded to bf16 first when F is
+    bf16 (the reference's kernel computes in F's dtype)."""
+    Rf = R.to(torch.float32)
+    return Rf.to(torch.bfloat16).to(torch.float32) if F.dtype == torch.bfloat16 else Rf
+
+
+def block_corr_ref(F, col_start: int, block: int, R):
+    """Plain PyTorch version of :func:`block_corr`: ``FwᵀR`` in float32."""
+    return _window(F, col_start, block).T @ _corr_operand(F, R)
+
+
+def _corr_splits(n: int, block: int, k: int, device) -> int:
+    """Row chunks of one block_corr launch: enough (tile, chunk) blocks for
+    about four per SM, each chunk at least 1024 rows. Fixed by the shapes,
+    so the summation order never changes from run to run."""
+    tiles = -(-block // 128) * -(-k // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-4 * sms // tiles), n // 1024))
+
+
+def block_corr(F, col_start: int, block: int, R):
+    """``F[:, col_start:col_start+block]ᵀ R`` with the window read in place.
+    F: (n, d) float32 or bfloat16 with contiguous rows; R: (n, k), taken as
+    float32 (rounded to bf16 in the product when F is bf16, as the
+    reference computes in F's dtype). Returns (block, k) float32. The sum
+    over rows is split into chunks whose partial sums add in a fixed order:
+    no atomics, the same bits every run."""
+    col_start, block = int(col_start), int(block)
+    if F.device.type == "cpu" and R.device.type == "cpu":
+        return block_corr_ref(F, col_start, block, R)
+    name = "block_corr"
+    device = _cuda_operands(name, (F, R))
+    _check_window(name, F, col_start, block)
+    Rk = R if R.dtype == torch.float32 else R.to(torch.float32)
+    _check_rows(name, Rk, "R")
+    n, k = F.shape[0], Rk.shape[1]
+    if Rk.shape[0] != n:
+        raise ValueError(
+            f"{name}: F {tuple(F.shape)} and R {tuple(R.shape)} must have the same rows"
+        )
+    corr = torch.empty((block, k), dtype=torch.float32, device=device)
+    if corr.numel() == 0:
+        return corr
+    splits = _corr_splits(n, block, k, device)
+    partials = None
+    if splits > 1:
+        partials = torch.empty((splits, block, k), dtype=torch.float32, device=device)
+    fn = _lib(name).kt_block_corr
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            F.data_ptr(), Rk.data_ptr(), None if partials is None else partials.data_ptr(),
+            corr.data_ptr(), n, col_start, block, k, F.stride(0), Rk.stride(0), splits,
+            int(F.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return corr
+
+
+def block_residual_update_ref(F, col_start: int, block: int, dW, R):
+    """Plain PyTorch version of :func:`block_residual_update`:
+    ``R - Fw @ dW`` in float32, dW rounded to F's dtype first."""
+    dWf = dW.to(F.dtype).to(torch.float32)
+    return R.to(torch.float32) - _window(F, col_start, block) @ dWf
+
+
+def block_residual_update(F, col_start: int, block: int, dW, R):
+    """``R - F[:, col_start:col_start+block] @ dW`` with the window read in
+    place: the Gauss-Seidel residual update without a window copy. F: (n, d)
+    float32 or bfloat16 with contiguous rows; dW: (block, k), cast to F's
+    dtype (as the reference's kernel casts it); R: (n, k), taken as
+    float32. Returns a new (n, k) float32 residual."""
+    col_start, block = int(col_start), int(block)
+    if all(t.device.type == "cpu" for t in (F, dW, R)):
+        return block_residual_update_ref(F, col_start, block, dW, R)
+    name = "block_residual_update"
+    device = _cuda_operands(name, (F, dW, R))
+    _check_window(name, F, col_start, block)
+    dWk = dW.to(F.dtype).contiguous()
+    Rk = R if R.dtype == torch.float32 else R.to(torch.float32)
+    _check_rows(name, Rk, "R")
+    n, k = F.shape[0], Rk.shape[1]
+    if Rk.shape[0] != n or dWk.shape != (block, k):
+        raise ValueError(
+            f"{name}: F {tuple(F.shape)}, dW {tuple(dW.shape)}, R {tuple(R.shape)} do not "
+            f"match R - F[:, s:s+{block}] @ dW"
+        )
+    out = torch.empty((n, k), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    if block == 0:
+        return out.copy_(Rk)
+    fn = _lib(name).kt_block_residual_update
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            F.data_ptr(), dWk.data_ptr(), Rk.data_ptr(), out.data_ptr(), n, col_start,
+            block, k, F.stride(0), dWk.stride(0), Rk.stride(0), out.stride(0),
+            int(F.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return out

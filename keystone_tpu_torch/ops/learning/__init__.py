@@ -2,5 +2,8 @@
 ``keystone_tpu/ops/learning/__init__.py``)."""
 
 from .block import BlockLeastSquaresEstimator, BlockLinearMapper
+from .linear import LinearMapEstimator, LinearMapper
 
-__all__ = ["BlockLeastSquaresEstimator", "BlockLinearMapper"]
+__all__ = [
+    "BlockLeastSquaresEstimator", "BlockLinearMapper", "LinearMapEstimator", "LinearMapper",
+]

@@ -4,11 +4,11 @@ Port of ``keystone_tpu/ops/learning/block.py`` (reference:
 nodes/learning/BlockLinearMapper.scala). The model is a sequence of
 per-feature-block weight matrices; applying it sums per-block GEMM partial
 products plus an intercept; fitting runs block coordinate descent with L2
-through :mod:`keystone_tpu_torch.parallel.linalg`.
+through :mod:`keystone_tpu_torch.parallel.linalg`: the stacked solver for
+materialized feature blocks (``fit``), and the flat solver when the
+optimizer fuses the fit with its featurizer (``device_fit_fn``).
 
-Not in this slice: the fit-fusion contract ``device_fit_fn`` (the fused
-flat fit of the port's second slice) and the analytic cost model of the
-solver selector.
+Not ported yet: the analytic cost model of the solver selector.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from keystone_tpu_torch.ops.stats import StandardScaler, StandardScalerModel
 from keystone_tpu_torch.ops.util import VectorSplitter
 from keystone_tpu_torch.parallel import linalg
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
+from keystone_tpu_torch.workflow.fusion import DeviceFit, masked_center
 
 
 class BlockLinearMapper(Transformer):
@@ -55,6 +56,35 @@ class BlockLinearMapper(Transformer):
         if self.b_opt is not None:
             out = out + self.b_opt
         return out
+
+    def device_fn(self):
+        """Stage-fusion contract: the whole blockwise model as one row-local
+        tensor function — center by the concatenated means, one flat GEMM,
+        add the intercept."""
+        W_flat = torch.cat(list(self.xs), dim=0)
+        mean = std = None
+        if self.feature_scalers is not None:
+            if any(getattr(s, "mean", None) is None for s in self.feature_scalers):
+                return None  # non-scaler transformers: keep the block path
+            mean = torch.cat([s.mean for s in self.feature_scalers])
+            stds = [getattr(s, "std", None) for s in self.feature_scalers]
+            if any(s is not None for s in stds):
+                std = torch.cat([
+                    torch.ones_like(s.mean) if sd is None else sd
+                    for s, sd in zip(self.feature_scalers, stds)
+                ])
+        b = self.b_opt
+
+        def fn(X):
+            X = as_tensor(X, W_flat.device)
+            if mean is not None:
+                X = X - mean
+            if std is not None:
+                X = X / std
+            out = X @ W_flat
+            return out if b is None else out + b
+
+        return fn
 
     def batch_apply(self, data: Dataset) -> Dataset:
         return self.apply_blocks(self.splitter.apply(data))
@@ -110,6 +140,36 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     @property
     def weight(self) -> int:
         return 3 * self.num_iter + 1
+
+    def device_fit_fn(self):
+        """Fit-fusion contract (workflow/fusion.py): feature/label
+        mean-centering + the flat BCD sweep on the featurized matrix, so the
+        optimizer can featurize straight into the fit. The featurized F is
+        the fused fit's own: it is centred in place and its column windows
+        are read where they lie, so the features are held once."""
+        bs = self.block_size
+
+        def fit_fn(F, Y, n_true: int):
+            Fc, Yc, fmean, ymean = masked_center(F, Y, n_true)
+            W_stack = linalg.bcd_least_squares_fused_flat(
+                Fc, Yc, bs, lam=self.lam, num_iter=self.num_iter
+            )
+            return W_stack, fmean, ymean
+
+        def build(params):
+            W_stack, fmean, ymean = params
+            scalers = [
+                StandardScalerModel(fmean[i * bs:(i + 1) * bs])
+                for i in range(W_stack.shape[0])
+            ]
+            return BlockLinearMapper(
+                list(W_stack), bs, b_opt=ymean, feature_scalers=scalers
+            )
+
+        def supports(d_feat: int) -> bool:
+            return d_feat % bs == 0 and self.num_features in (None, d_feat)
+
+        return DeviceFit(fit_fn, build, supports)
 
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         splitter = VectorSplitter(self.block_size, self.num_features)

@@ -1,7 +1,8 @@
 """Statistical featurization nodes (reference: nodes/stats/).
 
 Port of ``keystone_tpu/ops/stats.py`` (the nodes the TIMIT slice runs:
-StandardScaler and the cosine random features). Dense nodes operate
+StandardScaler and the cosine random features, with the latter's
+stage-fusion function). Dense nodes operate
 whole-batch on (n, d) tensors. Randomized nodes take explicit integer
 seeds and draw from a ``torch.Generator`` seeded with them on the CPU, so
 a seed gives the same draws on every device. (They are not the
@@ -79,9 +80,13 @@ class CosineRandomFeaturesModel(Transformer):
     """x -> cos(x Wᵀ + b): Rahimi-Recht random features
     (reference: nodes/stats/CosineRandomFeatures.scala:19-45).
 
-    The batch path is the fused CUDA kernel ``cuda_ops.cosine_features``
-    (its plain version for CPU tensors); the single-datum ``apply`` stays
-    plain ``torch.cos``, as the reference's stays ``jnp.cos``.
+    The batch path, and the stage-fusion function ``device_fn``, is the
+    fused CUDA kernel ``cuda_ops.cosine_features`` (its plain version for
+    CPU tensors). The reference's ``device_fn`` is XLA's ``cos(X Wᵀ + b)``
+    because XLA fuses the cosine into the GEMM epilogue; eager PyTorch has
+    no such fusion, and the hand-written kernel is this card's form of the
+    same function. The single-datum ``apply`` stays plain ``torch.cos``, as
+    the reference's stays ``jnp.cos``.
     """
 
     def __init__(self, W, b):
@@ -93,12 +98,20 @@ class CosineRandomFeaturesModel(Transformer):
     def apply(self, x):
         return torch.cos(as_tensor(x, self.W.device) @ self.W.T + self.b)
 
-    def batch_apply(self, data: Dataset) -> Dataset:
-        return data.map_batch(
-            lambda X: cuda_ops.cosine_features(
-                as_tensor(X, self.W.device).contiguous(), self.W, self.b
-            )
+    def _batch_fn(self, X, out=None):
+        return cuda_ops.cosine_features(
+            as_tensor(X, self.W.device).contiguous(), self.W, self.b, out=out
         )
+
+    def device_fn(self):
+        """Stage-fusion contract (workflow/fusion.py): row-local cos-GEMM."""
+        return self._batch_fn
+
+    def device_fn_into(self):
+        """Gather-fusion contract for column-concatenated branches: the
+        features are (width, dtype, device) and ``fn(X, out)`` writes them
+        into ``out``, a column window of the gather's one feature matrix."""
+        return self.W.shape[0], torch.float32, self.W.device, self._batch_fn
 
 
 def CosineRandomFeatures(

@@ -102,6 +102,12 @@ class VectorCombiner(Transformer):
             return Dataset(out, n=data.n)
         return Dataset.of([self.apply(x) for x in data.to_list()])
 
+    def device_combine_fn(self):
+        """Gather-fusion contract: merge branch tensors inside one composed
+        function (workflow/fusion.py::GatherFusionRule). A fused gather whose
+        branches can write into column windows skips this concatenation."""
+        return lambda arrays: torch.cat([as_tensor(a) for a in arrays], dim=-1)
+
 
 class VectorSplitter(FunctionNode):
     """Split a (n, d) dataset into feature-axis blocks — the model-parallel

@@ -1,9 +1,11 @@
 """Linear algebra for the block solvers: the in-tree replacement for mlmatrix.
 
 Port of ``keystone_tpu/parallel/linalg.py`` for one device: the ridge
-normal-equations solve, the stepwise block coordinate descent, and the
+normal-equations solve, the stepwise block coordinate descent, the
 stacked fused BCD whose first-epoch Gramian + correlation runs through the
-``gram_corr_sym`` CUDA kernel.
+``gram_corr_sym`` CUDA kernel, and the flat fused BCD, whose block updates
+read each column window of one (n, d) feature matrix in place through the
+``block_gram_sym`` / ``block_corr`` / ``block_residual_update`` kernels.
 
 Conventions (matching the reference solvers):
   - ridge solve is ``(AᵀA + λI) x = AᵀB`` with *raw* λ (not scaled by n)
@@ -14,8 +16,8 @@ Conventions (matching the reference solvers):
     BlockWeightedLeastSquares.scala:177-313, subsuming mlmatrix
     BlockCoordinateDescent.solveLeastSquaresWithL2 / solveOnePassL2).
 
-The reference's ``lax.scan`` sweeps become Python loops over the blocks
-and epochs; its ``lax.cond`` rescue of a failed Cholesky solve is decided
+The reference's ``lax.scan`` / ``fori_loop`` sweeps become Python loops
+over the blocks and epochs (a block's window start is a Python int); its ``lax.cond`` rescue of a failed Cholesky solve is decided
 on the host (one scalar read per solve). Products outside the kernels —
 the residual update, later-epoch correlations, the small solves — are
 plain ``torch`` contractions, as the reference leaves them to XLA.
@@ -229,3 +231,88 @@ def bcd_least_squares_fused(
             if epoch == 0 and cache_stash:
                 stash[b] = (gram, chol)
     return torch.stack(W)
+
+
+def _strided_update(F, col_start: int, block: int, R, Wb, lam: float,
+                    gram=None, chol=None):
+    """Block update whose every access to F reads the column window
+    ``F[:, col_start:col_start+block]`` in place through the kernels — no
+    (n, block) copy of the window per block, which would be pure memory
+    traffic. Pass ``gram`` and ``chol`` to reuse the stashed Gramian and
+    factor; only the correlation then recomputes."""
+    if gram is None:
+        gram = cuda_ops.block_gram_sym(F, col_start, block)
+    corr = cuda_ops.block_corr(F, col_start, block, R)
+    if chol is None:
+        chol = _psd_factor(gram, lam)
+    rhs = corr + gram @ Wb
+    Wb_new = _solve_psd(gram, rhs, lam, chol=chol)
+    R_new = cuda_ops.block_residual_update(
+        F, col_start, block, (Wb_new - Wb).to(F.dtype), R
+    )
+    return R_new, Wb_new, gram, chol
+
+
+def bcd_least_squares_fused_flat(
+    F,
+    B,
+    block_size: int,
+    lam: float = 0.0,
+    num_iter: int = 1,
+    return_residual: bool = False,
+):
+    """Block coordinate descent over a *flat* (n, d) feature matrix.
+
+    Functionally identical to :func:`bcd_least_squares_fused` on the column
+    blocks ``F[:, i*block : (i+1)*block]``, but the features live in one
+    buffer: at large n the stacked layout cannot be produced without a
+    second full-size copy, which is the difference between fitting in
+    device memory and not. Multi-epoch runs stash each block's Gramian and
+    Cholesky factor when the stash is small beside device memory
+    (``_gram_cache_ok``), so later epochs pay only the correlation, the
+    two triangular solves and the residual update.
+
+    Float32 and bfloat16 features that pass ``cuda_ops.strided_gram_ok``
+    take the column-window kernels. Anything else (float64 features) takes
+    the generic block update on a window view, as the reference does when
+    its guard says no. Returns the (nb, block, k) weight stack (and the
+    final residual when ``return_residual``).
+    """
+    F = as_tensor(F)
+    B = as_tensor(B, F.device)
+    B = B.to(_residual_dtype(F.dtype, B.dtype))
+    if F.dtype != torch.bfloat16:
+        F = F.to(B.dtype)
+    n, d = F.shape
+    if d % block_size != 0:
+        raise ValueError(f"feature dim {d} not divisible by block {block_size}")
+    nb = d // block_size
+    k = B.shape[1]
+    acc_itemsize = _acc_dtype(F.dtype).itemsize
+    # x2: the stash holds Gramians AND their Cholesky factors.
+    cache_grams = _gram_cache_ok(
+        int(num_iter), 2 * nb * block_size * block_size * acc_itemsize
+    )
+    strided = _acc_dtype(F.dtype) == torch.float32 and cuda_ops.strided_gram_ok(
+        F, block_size
+    )
+    lam = float(lam)
+    W = [torch.zeros((block_size, k), dtype=B.dtype, device=B.device) for _ in range(nb)]
+    stash: List = [None] * nb
+    R = B
+    for epoch in range(max(int(num_iter), 1)):
+        for bi in range(nb):
+            gram, chol = stash[bi] if stash[bi] is not None else (None, None)
+            start = bi * block_size
+            if strided:
+                R, W[bi], gram, chol = _strided_update(
+                    F, start, block_size, R, W[bi], lam, gram=gram, chol=chol
+                )
+            else:
+                R, W[bi], gram, chol = _bcd_block_update(
+                    F[:, start:start + block_size], R, W[bi], lam, gram=gram, chol=chol
+                )
+            if epoch == 0 and cache_grams:
+                stash[bi] = (gram, chol)
+    W_stack = torch.stack(W)
+    return (W_stack, R) if return_residual else W_stack

@@ -7,10 +7,12 @@ strategy (Once or FixedPoint) until convergence or iteration cap; rule
 applications that change the plan are trace-logged as DOT diffs.
 
 ``DefaultOptimizer`` carries the saved-state, CSE and node-optimization
-batches. The reference's Stage Fusion and Tree & Fit Fusion batches
-(``keystone_tpu/workflow/optimizer.py:181-187``, ``workflow/fusion.py``)
-and the static plan verifier come with the port's second slice; until
-then every node runs unfused through its own ``batch_apply``.
+batches, then the Stage Fusion and Tree & Fit Fusion batches of
+``workflow/fusion.py``, in the reference's order. The Tree & Fit batch has
+the gather and estimator fusion rules; the reference's third rule there,
+``StreamedFitFusionRule``, comes with the streamed fit (slice 3). The
+reference's static plan verifier pre-pass and autocache optimizer are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -110,10 +112,12 @@ class Optimizer(RuleExecutor):
 
 
 class DefaultOptimizer(Optimizer):
-    """Standard batches: saved-state load, CSE to fixpoint, node-level optimization
-    (reference: workflow/DefaultOptimizer.scala:8-14)."""
+    """Standard batches: saved-state load, CSE to fixpoint, node-level
+    optimization (reference: workflow/DefaultOptimizer.scala:8-14), then
+    stage fusion and gather/fit fusion."""
 
     def __init__(self) -> None:
+        from .fusion import EstimatorFusionRule, GatherFusionRule, StageFusionRule
         from .rules import (
             EquivalentNodeMergeRule,
             ExtractSaveablePrefixes,
@@ -134,4 +138,9 @@ class DefaultOptimizer(Optimizer):
                 [EquivalentNodeMergeRule()],
             ),
             Batch("Node Level Optimization", Once(), [NodeOptimizationRule()]),
+            # Fuse chains of row-local device transformers, then gather trees
+            # and trailing estimator fits (workflow/fusion.py). Last, so CSE
+            # and prefix extraction see the original node granularity.
+            Batch("Stage Fusion", Once(), [StageFusionRule()]),
+            Batch("Tree & Fit Fusion", Once(), [GatherFusionRule(), EstimatorFusionRule()]),
         ]

@@ -326,8 +326,9 @@ class Transformer(TransformerOperator, Chainable[A, B]):
         """Pure batched tensor function equivalent to ``batch_apply`` on
         array-form datasets, or None when the node is not expressible as
         one. Contract: row-local (output row i depends only on input row i)
-        and side-effect free. (The reference's stage fusion compiles chains
-        of these into one program; the port's fusion rules come later.)"""
+        and side-effect free. The fusion rules (``workflow/fusion.py``)
+        compose chains and gathers of these into one function and feed
+        them straight into estimator fits."""
         return None
 
     def __call__(self, x: Any) -> Any:

@@ -49,7 +49,8 @@ def _forbidden(module: str) -> bool:
 def test_port_has_modules():
     rels = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
     for rel in ("__init__.py", "ops/cuda_ops.py", "ops/stats.py", "parallel/linalg.py",
-                "ops/learning/block.py", "pipelines/timit.py", "interop.py", "run.py"):
+                "ops/learning/block.py", "ops/learning/linear.py", "workflow/fusion.py",
+                "pipelines/timit.py", "interop.py", "run.py"):
         assert rel in rels
 
 
@@ -77,7 +78,10 @@ def test_module_names_its_counterpart(path):
 
 def test_kernel_sources_sit_beside_the_package():
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
-    assert sources == ["cosine_features.cu", "gram_corr_sym.cu"]
+    assert sources == [
+        "block_corr.cu", "block_gram_sym.cu", "block_residual_update.cu",
+        "cosine_features.cu", "gram_corr_sym.cu",
+    ]
     for src in sources:
         text = (PORT / "csrc" / src).read_text()
         assert "Replaces the TPU kernel keystone_tpu/ops/pallas_ops.py" in text
