@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port's TIMIT ``--solver block`` paths from
+Builds every CUDA kernel of the port's TIMIT paths from
 ``keystone_tpu_torch/csrc/`` (one ``nvcc`` per source, all started
 together), then:
 
@@ -10,13 +10,13 @@ together), then:
      shapes the TIMIT slice gives it, with float32 and bfloat16 operands, and
      times the kernel, the plain version and one PyTorch library call that
      computes the same function;
-  2. checks that a small run of both TIMIT routes on the card agrees with
-     the plain-PyTorch run of it on the CPU, then drives the slice end to
-     end through its entry point, ``keystone_tpu_torch.pipelines.timit.run``,
-     at the full width of the reference's bench headline (440 inputs,
-     4 x 4096 cosine features, 147 classes, 65,536 training rows, 3 epochs)
-     by both routes, each with every kernel's launch count set to 0 just
-     before and read just after:
+  2. checks that a small run of the three TIMIT routes on the card agrees
+     with the plain-PyTorch run of it on the CPU, then drives the
+     ``--solver block`` slice end to end through its entry point,
+     ``keystone_tpu_torch.pipelines.timit.run``, at the full width of the
+     reference's bench headline (440 inputs, 4 x 4096 cosine features,
+     147 classes, 65,536 training rows, 3 epochs) by both routes, each with
+     every kernel's launch count set to 0 just before and read just after:
        - the stacked route (``fit_first=False``: apply before fit, as the
          reference's ``run`` does), through ``cosine_features`` and
          ``gram_corr_sym``;
@@ -25,7 +25,15 @@ together), then:
          ``block_residual_update``;
   3. fits and applies the README quick-start composition (one 440 -> 4096
      cosine featurizer, block least squares with block 1024, 3 iterations,
-     λ 1e-4, then MaxClassifier) on the same rows, through the fused fit.
+     λ 1e-4, then MaxClassifier) on the same rows, through the fused fit;
+  4. drives ``--solver streaming`` at the same width on 275,000 training
+     rows (8 full row tiles of 32,768 and a ragged one), launches counted
+     from 0: the tile fold through ``gram_sym_acc`` and the tile-wise
+     featurizer through ``cosine_features``;
+  5. fits and applies the optimizer-bound streamed fit (the TIMIT
+     featurizer composed with ``StreamingLeastSquaresChoice``, which
+     ``StreamedFitFusionRule`` binds into the fit) on 65,536 rows, and
+     holds its errors against ``--solver streaming`` on the same rows.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -58,8 +66,13 @@ QS_WIDTH, QS_BLOCK = 4096, 1024
 # slice's features, the third of its four blocks.
 D_FEAT, COL_START = NUM_COSINES * BLOCK, 2 * BLOCK
 
+# The streamed route: 275,000 training rows, tiles of 32,768 rows
+# (pick_tile_rows(16384)): 8 full tiles and a ragged 12,856-row one.
+STREAM_N, STREAM_TILE = 275000, 32768
+
 # Each kernel, and the main-path route whose launches the JSON line reports.
 FLAT, STACKED = "timit fused flat fit (fit first)", "timit stacked fit (apply first)"
+STREAMED = "timit streamed fit (--solver streaming)"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -81,13 +94,26 @@ KERNELS = {
         source="keystone_tpu_torch/csrc/block_residual_update.cu",
         replaces="keystone_tpu/ops/pallas_ops.py:1030", path=FLAT,
     ),
+    "gram_sym_acc": dict(
+        source="keystone_tpu_torch/csrc/gram_sym_acc.cu",
+        replaces="keystone_tpu/ops/pallas_ops.py:769", path=STREAMED,
+    ),
 }
 # Launches of the flat route: 4 blocks, 3 epochs, Gramians stashed after
 # the first epoch; 4 cosine branches in the fit and in each of two applies.
 FLAT_LAUNCHES = {
     "cosine_features": 3 * NUM_COSINES, "gram_corr_sym": 0,
     "block_gram_sym": D_FEAT // BLOCK, "block_corr": EPOCHS * D_FEAT // BLOCK,
-    "block_residual_update": EPOCHS * D_FEAT // BLOCK,
+    "block_residual_update": EPOCHS * D_FEAT // BLOCK, "gram_sym_acc": 0,
+}
+# Launches of the streamed route: one fold per row tile (9), one cosine bank
+# launch per tile in the fit (9), the train apply (9) and the test apply of
+# 68,750 rows (3).
+STREAM_TILES = -(-STREAM_N // STREAM_TILE)
+STREAMED_LAUNCHES = {
+    "cosine_features": 2 * STREAM_TILES + -(-(STREAM_N // 4) // STREAM_TILE),
+    "gram_corr_sym": 0, "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
+    "gram_sym_acc": STREAM_TILES,
 }
 
 
@@ -206,6 +232,7 @@ def phase_kernels(cuda_ops):
     del A, A16, R
     torch.cuda.empty_cache()
     results.update(phase_window_kernels(cuda_ops, gen))
+    results.update(phase_gram_sym_acc(cuda_ops, gen))
     return results
 
 
@@ -294,14 +321,68 @@ def phase_window_kernels(cuda_ops, gen):
     return results
 
 
+def phase_gram_sym_acc(cuda_ops, gen):
+    """The streamed fold's kernel on one full row tile of the streamed fit:
+    F 32,768 x 16,384, a random G0, in place and into a new buffer."""
+    dev = torch.device("cuda")
+    n, d = STREAM_TILE, D_FEAT
+    F = torch.randn((n, d), generator=gen, device=dev)
+    G0 = torch.randn((d, d), generator=gen, device=dev)
+    tiles = torch.arange(d, device=dev) // 128
+    upper = tiles[:, None] <= tiles[None, :]
+    results = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        Fk = F.to(dtype)
+        want = cuda_ops.gram_sym_acc_ref(G0, Fk)
+        Ff = Fk.float()
+        # Errors relative to the scale of the sums, |G0| + sum |f_i||f_j|: two
+        # f32 sums of 32,768 terms in different orders differ by about
+        # sqrt(n) * 2^-24 of it.
+        scale = torch.addmm(G0.abs(), Ff.abs().T, Ff.abs())
+        del Ff
+        G = G0.clone()
+        for how, got in (("new buffer", cuda_ops.gram_sym_acc(G0, Fk)),
+                         ("in place", cuda_ops.gram_sym_acc(G, Fk, out=G))):
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = diff[upper].max().item()
+            rel = (diff / scale)[upper].max().item()
+            ok = rel <= 1e-4 and (how == "new buffer" or torch.equal(G[~upper], G0[~upper]))
+            check(f"gram_sym_acc {label} {how}, G0 {d}x{d}, F {n}x{d}", ok,
+                  f"upper tiles max_abs_err {err:.3e} ({rel:.2e} of scale), tol 1e-4 of "
+                  f"scale" + (", lower tiles untouched" if how == "in place" else ""))
+            if label == "f32" and how == "in place":
+                results["gram_sym_acc"] = dict(max_abs_err=err)
+            del diff, got
+        del Fk, want, scale, G
+    G = G0.clone()
+    r = results["gram_sym_acc"]
+    r["ms"] = time_ms(lambda: cuda_ops.gram_sym_acc(G, F, out=G), 5)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.gram_sym_acc_ref(G0, F), 5)
+    r["library_ms"] = time_ms(lambda: torch.addmm(G0, F.T, F), 5)
+    flops = n * d * (d + 1)  # the upper triangle (syrk)
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * (n * d + 2 * d * d), flops, PEAK_F32_FLOPS)
+    F16 = F.to(torch.bfloat16)
+    bf16_ms = time_ms(lambda: cuda_ops.gram_sym_acc(G, F16, out=G), 3)
+    bf16_bound, _ = bound_ms(2 * n * d + 8 * d * d, flops, PEAK_BF16_FLOPS)
+    log(f"  gram_sym_acc f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+        f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
+        f"bf16 F: {bf16_ms:.3f} ms (bound {bf16_bound:.3f})")
+    del F, F16, G, G0, upper
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_small_reference(timit, TimitConfig):
-    """Both routes at a small size on the card (kernels) and on the CPU
-    (plain versions), same data and weights: errors must agree."""
+    """The three routes at a small size on the card (kernels) and on the
+    CPU (plain versions), same data and weights: errors must agree."""
     from keystone_tpu_torch.ops.stats import CosineRandomFeatures
     from keystone_tpu_torch.workflow import PipelineEnv
 
-    config = TimitConfig(num_cosines=2, block_size=256, synthetic_n=2048, num_epochs=2)
-    for fit_first, route in ((True, FLAT), (False, STACKED)):
+    for solver, fit_first, route in (("block", True, FLAT), ("block", False, STACKED),
+                                     ("streaming", True, STREAMED)):
+        config = TimitConfig(solver=solver, num_cosines=2, block_size=256, synthetic_n=2048,
+                             num_epochs=2)
         runs = {}
         for device in ("cuda", "cpu"):
             PipelineEnv.get_or_create().reset()
@@ -412,6 +493,114 @@ def phase_quickstart(cuda_ops):
     check_metrics("quick start", train_eval, test_eval, N_TRAIN)
 
 
+def phase_streamed(cuda_ops, timit, TimitConfig):
+    """--solver streaming at full width on 275,000 rows, launches counted
+    from 0."""
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    PipelineEnv.get_or_create().reset()
+    config = TimitConfig(solver="streaming", num_cosines=NUM_COSINES, block_size=BLOCK,
+                         synthetic_n=STREAM_N, num_epochs=EPOCHS)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = timit.run(config, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    PipelineEnv.get_or_create().reset()
+    train_err, test_err = result.train_eval.total_error, result.test_eval.total_error
+    log(f"  {STREAMED}, n={STREAM_N}, d={D_FEAT}, k={K}, block {BLOCK}, tile {STREAM_TILE}, "
+        f"{EPOCHS} epochs: train error {100 * train_err:.3f}%, test error "
+        f"{100 * test_err:.3f}%, fit {result.fit_seconds:.3f} s, apply (train + test) "
+        f"{result.apply_seconds:.3f} s, run {wall:.3f} s (data generation included), "
+        f"peak allocated {peak / 2**30:.2f} GiB, launches {counts}")
+    check(f"{STREAMED} launches", counts == STREAMED_LAUNCHES,
+          f"{counts}, expected {STREAMED_LAUNCHES}")
+    check_metrics(STREAMED, result.train_eval, result.test_eval, STREAM_N)
+    return counts, dict(fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
+                        peak_allocated_bytes=peak, train_error=train_err, test_error=test_err)
+
+
+def phase_optimizer_bound(cuda_ops, timit, TimitConfig):
+    """The TIMIT featurizer composed with StreamingLeastSquaresChoice: the
+    optimizer binds the featurizer into a streamed fit. Held against
+    --solver streaming on the same rows and draws."""
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.ops.learning.streaming_ls import (
+        StreamingFeaturizedLinearModel,
+        StreamingLeastSquaresChoice,
+    )
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+    from keystone_tpu_torch.workflow import DefaultOptimizer, PipelineEnv
+
+    config = TimitConfig(solver="streaming", num_cosines=NUM_COSINES, block_size=BLOCK,
+                         synthetic_n=N_TRAIN, num_epochs=EPOCHS)
+    PipelineEnv.get_or_create().reset()
+    flag = timit.run(config, device="cuda")
+    PipelineEnv.get_or_create().reset()
+    train = synthetic_timit(N_TRAIN, seed=config.seed, device="cuda")
+    test = synthetic_timit(N_TRAIN // 4, seed=config.seed + 1, device="cuda")
+    labels = ClassLabelIndicatorsFromIntLabels(K)(train.labels)
+    pipeline = timit.build_featurizer(config, "cuda").and_then(
+        StreamingLeastSquaresChoice(num_iter=EPOCHS, lam=0.0, block_size_hint=BLOCK),
+        train.data, labels,
+    ).and_then(MaxClassifier())
+    plan, _ = DefaultOptimizer().execute(pipeline.executor.graph, {})
+    streamed = [op.label for op in plan.operators.values() if op.label.startswith("StreamedFit[")]
+    check("optimizer binds the featurizer into a streamed fit", len(streamed) == 1,
+          f"plan labels {sorted(op.label for op in plan.operators.values())}")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted = pipeline.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_pred, test_pred = fitted.apply(train.data), fitted.apply(test.data)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    evaluator = MulticlassClassifierEvaluator(K)
+    train_eval = evaluator.evaluate(train_pred, train.labels)
+    test_eval = evaluator.evaluate(test_pred, test.labels)
+    PipelineEnv.get_or_create().reset()
+    errs = (train_eval.total_error, test_eval.total_error)
+    flag_errs = (flag.train_eval.total_error, flag.test_eval.total_error)
+    log(f"  optimizer-bound streamed fit ({streamed[0]}), n={N_TRAIN}: train error "
+        f"{100 * errs[0]:.3f}%, test error {100 * errs[1]:.3f}%, fit {fit_s:.3f} s, apply "
+        f"{apply_s:.3f} s, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {counts}; --solver streaming on the same rows: fit "
+        f"{flag.fit_seconds:.3f} s, errors {flag_errs}")
+    tiles = -(-N_TRAIN // STREAM_TILE)
+    check("optimizer-bound fit went through the streamed fold",
+          counts["gram_sym_acc"] == tiles and counts["cosine_features"] > 0
+          and all(counts[name] == 0 for name in ("gram_corr_sym", "block_gram_sym",
+                                                 "block_corr", "block_residual_update")),
+          f"launches {counts}: gram_sym_acc {tiles}, cosine_features > 0, the others 0")
+    check("optimizer-bound errors match --solver streaming",
+          all(abs(a - b) <= 0.005 for a, b in zip(errs, flag_errs)),
+          f"{errs} against {flag_errs} (within 0.5 points)")
+    # The two routes fold the same bank over the same rows in the same
+    # tiles: the fitted models agree to rounding.
+    (got,), (want,) = (
+        [op for op in f.transformer_graph.operators.values()
+         if isinstance(op, StreamingFeaturizedLinearModel)]
+        for f in (fitted, flag.fitted)
+    )
+    rel = {
+        name: float((getattr(got, name) - getattr(want, name)).norm()
+                    / getattr(want, name).norm())
+        for name in ("W_stack", "fmean", "ymean")
+    }
+    log(f"  optimizer-bound model against --solver streaming, relative Frobenius: {rel}")
+    check("optimizer-bound model matches --solver streaming",
+          all(v <= 1e-4 for v in rel.values()), f"{rel} (each within 1e-4)")
+    check_metrics("optimizer-bound streamed fit", train_eval, test_eval, N_TRAIN)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -439,20 +628,24 @@ def main():
     cuda_ops.reset_launch_counts()
     results = phase_kernels(cuda_ops)
     log(f"  phase 1 launches (checks and timing, not the main path): {cuda_ops.launches}")
-    log("[phase 2] TIMIT --solver block slice, both routes")
+    log("[phase 2] TIMIT slice: three routes small against the CPU; --solver block at full width")
     phase_small_reference(timit, TimitConfig)
     stacked_counts, stacked = phase_timit_route(cuda_ops, timit, TimitConfig, fit_first=False)
     flat_counts, flat = phase_timit_route(cuda_ops, timit, TimitConfig, fit_first=True)
     log("[phase 3] README quick-start composition")
     phase_quickstart(cuda_ops)
+    log("[phase 4] TIMIT --solver streaming at full width")
+    streamed_counts, streamed = phase_streamed(cuda_ops, timit, TimitConfig)
+    log("[phase 5] optimizer-bound streamed fit")
+    phase_optimizer_bound(cuda_ops, timit, TimitConfig)
 
-    route_counts = {FLAT: flat_counts, STACKED: stacked_counts}
+    route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts}
     kernels = [
         dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
              launches=route_counts[meta["path"]][name], path=meta["path"], **results[name])
         for name, meta in KERNELS.items()
     ]
-    log(f"main path: {json.dumps({FLAT: flat, STACKED: stacked})}")
+    log(f"main path: {json.dumps({FLAT: flat, STACKED: stacked, STREAMED: streamed})}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

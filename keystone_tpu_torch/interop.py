@@ -17,6 +17,9 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
     slice of the feature means) and ``b_opt`` the label means;
   - ``LinearMapper``: ``{"x": (d, k), "b_opt": (k,) or None,
     "feature_scaler": {"mean", "std"} or None}``
+  - ``StreamingFeaturizedLinearModel`` over a ``CosineBankFeaturize``:
+    ``{"W_stack": (nb, block, k), "fmean": (d,) or None, "ymean": (k,) or
+    None, "Wrf": (d, d_in), "brf": (d,), "tile_rows": int}``
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
 from keystone_tpu_torch.ops.learning.linear import LinearMapper
+from keystone_tpu_torch.ops.learning.streaming_ls import (
+    CosineBankFeaturize,
+    StreamingFeaturizedLinearModel,
+)
 from keystone_tpu_torch.ops.stats import CosineRandomFeaturesModel, StandardScalerModel
 
 
@@ -83,10 +90,30 @@ def linear_mapper(
     )
 
 
+def streaming_linear_model(
+    W_stack, fmean, ymean, Wrf, brf, tile_rows: int, device=None
+) -> StreamingFeaturizedLinearModel:
+    """The reference's fitted streamed model (a ``StreamingFeaturizedLinearModel``
+    over a ``CosineBankFeaturize``), rebuilt in the port."""
+    device = resolve_device(device)
+    return StreamingFeaturizedLinearModel(
+        CosineBankFeaturize(_f32(Wrf, device), _f32(brf, device)),
+        _f32(W_stack, device),
+        int(tile_rows),
+        fmean=None if fmean is None else _f32(fmean, device),
+        ymean=None if ymean is None else _f32(ymean, device),
+    )
+
+
 def params_from_jax(params: Mapping[str, Any], device=None):
     """Build the port's module from one reference module's parameters (see
     the module docstring for the keys of each)."""
     keys = set(params)
+    if "W_stack" in keys:
+        return streaming_linear_model(
+            params["W_stack"], params.get("fmean"), params.get("ymean"), params["Wrf"],
+            params["brf"], params["tile_rows"], device,
+        )
     if {"W", "b"} <= keys:
         return cosine_features_model(params["W"], params["b"], device)
     if {"xs", "block_size"} <= keys:

@@ -2,7 +2,7 @@
 PyTorch versions.
 
 Port of the kernels of ``keystone_tpu/ops/pallas_ops.py`` that the TIMIT
-block slice and the fused flat fit run:
+block slice, the fused flat fit and the streamed fit run:
 
   - :func:`cosine_features` ↔ ``pallas_ops.cosine_features``
     (``csrc/cosine_features.cu``): ``cos(X Wᵀ + b)`` with the cosine fused
@@ -15,9 +15,13 @@ block slice and the fused flat fit run:
     (``csrc/block_*.cu``): the flat solver's Gramian, correlation and
     residual update over the column window ``F[:, s:s+b]``, read in place
     through F's row stride (never copied). :func:`strided_gram_ok` is the
-    guard that sends the solver to them.
+    guard that sends the solver to them;
+  - :func:`gram_sym_acc` ↔ ``pallas_ops.gram_sym_acc``
+    (``csrc/gram_sym_acc.cu``): ``G + FᵀF`` on the upper-triangle tiles,
+    the streamed fit's per-tile Gramian fold, accumulating in place.
+    :func:`gram_acc_ok` is its guard.
 
-The GEMM-shaped kernels share one FP32-FMA register tile
+All but the cosine kernel share one FP32-FMA register tile
 (``csrc/fma_tile.cuh``).
 
 Each wrapper keeps its Pallas twin's name and operand contract. For a
@@ -52,6 +56,7 @@ import torch
 launches: Dict[str, int] = {
     "cosine_features": 0, "gram_corr_sym": 0,
     "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
+    "gram_sym_acc": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -78,6 +83,9 @@ _ENTRY_POINTS = {
     "block_residual_update": (
         "kt_block_residual_update",
         [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    ),
+    "gram_sym_acc": (
+        "kt_gram_sym_acc", [_P, _P, _P, _I, _I, _L, _L, _L, _I, _P]
     ),
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -496,6 +504,83 @@ def block_residual_update(F, col_start: int, block: int, dW, R):
             F.data_ptr(), dWk.data_ptr(), Rk.data_ptr(), out.data_ptr(), n, col_start,
             block, k, F.stride(0), dWk.stride(0), Rk.stride(0), out.stride(0),
             int(F.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Accumulating symmetric Gramian of the streamed fold: G + FᵀF
+# ---------------------------------------------------------------------------
+
+
+def gram_acc_ok(F) -> bool:
+    """Whether :func:`gram_sym_acc`'s kernel can read the feature tile F
+    as it is (counterpart of ``pallas_ops.gram_acc_ok``). The TPU kernel
+    needs rows in whole 512-row tiles and d in whole 512- or 1024-wide
+    column tiles; this one masks ragged edges, so the guard asks only for
+    a 2-D F with contiguous rows and an f32 accumulation dtype (F float32
+    or bfloat16). The streamed fold copies a card tile that fails it to
+    contiguous rows; the fold's carry G is float32 (d, d) with contiguous
+    rows by construction."""
+    return (
+        F.dim() == 2
+        and (F.shape[1] <= 1 or F.stride(1) == 1)
+        and F.dtype in _KERNEL_DTYPES
+    )
+
+
+def gram_sym_acc_ref(G, F):
+    """Plain PyTorch version of :func:`gram_sym_acc`: ``G + FᵀF`` as
+    float32, every entry computed in float32 (bf16 F is exact in f32), or
+    in F's own precision where that is wider."""
+    acc = torch.promote_types(F.dtype, torch.float32)
+    Ff = F.to(acc)
+    return (G.to(acc) + Ff.T @ Ff).to(torch.float32)
+
+
+def gram_sym_acc(G, F, out=None):
+    """``G + FᵀF`` on the upper-triangle 128 x 128 tiles of the Gramian.
+
+    G: (d, d) float32 with a meaningful upper triangle; F: (n, d) float32
+    or bfloat16 with contiguous rows (ragged n and d are masked in the
+    kernel). Writes the upper-triangle tiles of ``out`` — a new (d, d)
+    float32 buffer, or the one given, which may be G itself to accumulate
+    in place — and returns it. The strictly-lower tiles are undefined
+    (left as they were when ``out`` is G): callers mirror once after the
+    last accumulation (``triu(G) + triu(G, 1).T``), as the reference's
+    contract has it.
+    """
+    operands = (G, F) if out is None else (G, F, out)
+    if all(t.device.type == "cpu" for t in operands):
+        ref = gram_sym_acc_ref(G, F)
+        return ref if out is None else out.copy_(ref)
+    name = "gram_sym_acc"
+    device = _cuda_operands(name, operands)
+    _check_rows(name, F, "F")
+    _check_rows(name, G, "G")
+    if F.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: F must be float32 or bfloat16, got {F.dtype}")
+    n, d = F.shape
+    if G.dtype != torch.float32 or G.shape != (d, d):
+        raise ValueError(f"{name}: G must be ({d}, {d}) float32, got {tuple(G.shape)} {G.dtype}")
+    if out is None:
+        out = torch.empty((d, d), dtype=torch.float32, device=device)
+    else:
+        _check_rows(name, out, "out")
+        if out.dtype != torch.float32 or out.shape != (d, d):
+            raise ValueError(
+                f"{name}: out must be ({d}, {d}) float32, got {tuple(out.shape)} {out.dtype}"
+            )
+    if d == 0:
+        return out
+    fn = _lib(name).kt_gram_sym_acc
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            F.data_ptr(), G.data_ptr(), out.data_ptr(), n, d, F.stride(0), G.stride(0),
+            out.stride(0), int(F.dtype == torch.bfloat16), stream,
         )
     _check_launch(name, err)
     return out

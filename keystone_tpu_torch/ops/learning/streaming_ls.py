@@ -1,0 +1,412 @@
+"""Estimator API over the out-of-core streaming least-squares tier.
+
+Port of ``keystone_tpu/ops/learning/streaming_ls.py``, single device.
+``StreamingFeaturizedLeastSquares`` is the pipeline-facing form of
+:mod:`keystone_tpu_torch.parallel.streaming`: the featurizer lives inside
+the estimator, so the fit makes features one row tile at a time and folds
+them into the (d, d) normal equations; the feature matrix never
+materializes. The fitted model applies the same featurizer tile-wise.
+``StreamingLeastSquaresChoice`` is the same tier as the cost model's
+choice, and ``StreamedFitEstimator`` the form the optimizer's
+``StreamedFitFusionRule`` gives it when it binds the upstream featurizer
+into the fit.
+
+Default semantics match ``BlockLeastSquaresEstimator``
+(BlockLinearMapper.scala:224-243): features and labels are mean-centered
+(the column sums accumulate in the same tile pass as the Gramian, a rank-1
+correction, not a second data pass) and the model carries the intercept.
+``center=False`` gives the raw-BCD semantics instead.
+
+Not ported yet: the cost-model side of the choice (``cost``,
+``resident_bytes`` and the budget fields the ``cost.py`` selector sets,
+which pick between the gram tier and the block-streamed tier) comes with
+that selector after the sparse slice (ROADMAP A.7); until then
+``build_estimator`` always builds the gram tier. The block-streamed tier
+itself (``BlockStreamedLeastSquares``, a mesh program) waits for A.15, the
+shard-backed disk tier (``fit_source``, which raises
+``NotImplementedError``) for A.13, and the cost-decision audit
+(``obs.record_cost_decision``) for the control plane (A.17).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from keystone_tpu_torch.data import Dataset
+from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops import cuda_ops
+from keystone_tpu_torch.parallel import streaming
+from keystone_tpu_torch.workflow import LabelEstimator, Transformer
+from keystone_tpu_torch.workflow.fusion import DeviceFit
+
+
+class StreamingFeaturizedLinearModel(Transformer):
+    """Apply featurize + block weights tile-wise (features never resident).
+
+    A centered fit supplies (fmean, ymean); predictions are then
+    (F − fmean) @ W + ymean, which folds into the single affine offset
+    ymean − fmean @ W_flat: BlockLinearMapper's model shape without a
+    second pass over the features.
+
+    ``d_in`` (when known) makes the model tolerant of graph position: fed
+    raw rows (width d_in) it featurizes tile-wise; fed already-featurized
+    rows (width d_feat) it applies the weights directly. The optimizer's
+    streamed-fit rewrite needs this, because the same fitted transformer
+    serves both rewired (raw-input) and original (featurized-input) apply
+    sites.
+    """
+
+    def __init__(self, featurize, W_stack, tile_rows: int, fmean=None, ymean=None,
+                 d_in: Optional[int] = None):
+        self.featurize = featurize
+        self.W_stack = as_tensor(W_stack)
+        self.tile_rows = tile_rows
+        self.d_in = d_in
+        dev = self.W_stack.device
+        self.fmean = None if fmean is None else as_tensor(fmean, dev)
+        self.ymean = None if ymean is None else as_tensor(ymean, dev)
+        Wf = self.W_stack.reshape(-1, self.W_stack.shape[2])
+        self.offset = (
+            None if self.ymean is None
+            else self.ymean - self.fmean.to(torch.float32) @ Wf
+        )
+
+    @property
+    def d_feat(self) -> int:
+        return self.W_stack.shape[0] * self.W_stack.shape[1]
+
+    def _featurize_for(self, width: int):
+        if self.d_in is None or width == self.d_in:
+            return self.featurize
+        if width == self.d_feat:
+            return _identity_featurize
+        raise ValueError(
+            f"input width {width} matches neither raw d_in={self.d_in} "
+            f"nor d_feat={self.d_feat}"
+        )
+
+    def apply(self, x):
+        x = as_tensor(x, self.W_stack.device)
+        F = self._featurize_for(x.shape[-1])(x[None, :])
+        Wf = self.W_stack.reshape(-1, self.W_stack.shape[2])
+        out = (F.to(torch.float32) @ Wf)[0]
+        return out if self.offset is None else out + self.offset
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        X = as_tensor(data.array, self.W_stack.device)
+        preds = streaming.streaming_predict(
+            X, self.W_stack, self._featurize_for(X.shape[-1]), self.tile_rows
+        )
+        if self.offset is not None:
+            preds += self.offset
+        return Dataset(preds, n=data.n)._rezero_padding()
+
+
+class StreamingFeaturizedLeastSquares(LabelEstimator):
+    """Featurize-inside-the-fit block least squares (the streaming tier).
+
+    ``featurize``: ``(rows, d_in) -> (rows, d_feat)`` tensor function (e.g.
+    a cosine random-feature bank). The fit folds the tiles into the normal
+    equations (``gram_sym_acc``) and runs the BCD epochs on them;
+    ``tile_rows=None`` sizes tiles to a 2 GiB feature slab.
+    """
+
+    def __init__(
+        self,
+        featurize: Callable,
+        d_feat: int,
+        block_size: int,
+        num_iter: int = 1,
+        lam: float = 0.0,
+        tile_rows: Optional[int] = None,
+        center: bool = True,
+    ):
+        self.featurize = featurize
+        self.d_feat = d_feat
+        self.block_size = block_size
+        self.num_iter = num_iter
+        self.lam = lam
+        self.tile_rows = tile_rows or streaming.pick_tile_rows(d_feat)
+        self.center = center
+
+    @property
+    def weight(self) -> int:
+        return self.num_iter + 1
+
+    def device_fit_fn(self):
+        """Fit-fusion contract (workflow/fusion.py): F here is the
+        estimator's input, the upstream transformers' output (typically
+        narrow raw-ish rows); the internal features still exist one tile
+        slab at a time. The reference's operands and program key (a
+        compiled program shared across banks and λ) have no eager
+        counterpart."""
+
+        def fit_fn(F, Y, n_true: int):
+            tile = min(self.tile_rows, F.shape[0])
+            W, _, _, fmean, ymean = streaming._fit_core(
+                F, Y, self.featurize, self.d_feat, tile, self.block_size, self.lam,
+                self.num_iter, n_true if n_true != F.shape[0] else None, None, self.center,
+            )
+            return W, fmean, ymean
+
+        def build(params):
+            W, fmean, ymean = params
+            return StreamingFeaturizedLinearModel(
+                self.featurize, W, self.tile_rows, fmean=fmean, ymean=ymean,
+            )
+
+        return DeviceFit(fit_fn, build)
+
+    def fit(self, data: Dataset, labels: Dataset) -> StreamingFeaturizedLinearModel:
+        X = as_tensor(data.array)
+        Y = as_tensor(labels.array, X.device)
+        kw = dict(
+            featurize=self.featurize, d_feat=self.d_feat,
+            tile_rows=min(self.tile_rows, X.shape[0]),
+            block_size=self.block_size, lam=self.lam, num_iter=self.num_iter,
+            valid=int(data.n) if data.n != X.shape[0] else None,
+        )
+        fmean = ymean = None
+        if self.center:
+            W, fmean, ymean, _ = streaming.streaming_bcd_fit_centered(X, Y, **kw)
+        else:
+            W, _, _ = streaming.streaming_bcd_fit(X, Y, **kw)
+        return StreamingFeaturizedLinearModel(
+            self.featurize, W, self.tile_rows, fmean=fmean, ymean=ymean,
+        )
+
+
+class CosineBankFeaturize:
+    """Cosine random-feature bank as a featurize callable: ``cos(X Wrfᵀ +
+    brf)`` in float32 through the ``cosine_features`` CUDA kernel (its
+    plain version on the CPU), one launch per row tile."""
+
+    def __init__(self, Wrf_flat, brf_flat):
+        self.Wrf = as_tensor(Wrf_flat)
+        self.brf = as_tensor(brf_flat, self.Wrf.device)
+
+    def __call__(self, X_t):
+        return cuda_ops.cosine_features(
+            as_tensor(X_t, self.Wrf.device).contiguous(), self.Wrf, self.brf,
+        )
+
+
+def _identity_featurize(X_t):
+    """Module-level identity featurize: the already-featurized (resident)
+    path of the streaming choice, picklable by reference."""
+    return X_t
+
+
+def pick_block_size(d_feat: int, hint: int) -> int:
+    """Largest divisor of d_feat that is <= hint (BCD needs d % bs == 0)."""
+    for b in range(min(hint, d_feat), 0, -1):
+        if d_feat % b == 0:
+            return b
+    return 1
+
+
+class ComposedDeviceFeaturize:
+    """Composition of device-fusable transformers as a featurize callable.
+
+    Holds the member transformers (picklable, the save contract) and
+    rebuilds the composed function on unpickle.
+    """
+
+    def __init__(self, members):
+        self.members = list(members)
+        self._build()
+
+    def _build(self):
+        fns = [m.device_fn() for m in self.members]
+
+        def composed(X_t):
+            for f in fns:
+                X_t = f(X_t)
+            return X_t
+
+        self._fn = composed
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_fn", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._build()
+
+    def __call__(self, X_t):
+        return self._fn(X_t)
+
+
+def _extract_bank(members) -> Optional[CosineBankFeaturize]:
+    """Recognize the cosine-featurizer shapes the optimizer produces and
+    turn them into one :class:`CosineBankFeaturize` (the TIMIT composition,
+    a gather of CosineRandomFeatures branches + VectorCombiner, is exactly
+    this after GatherFusionRule)."""
+    from keystone_tpu_torch.ops.stats import CosineRandomFeaturesModel
+    from keystone_tpu_torch.ops.util import VectorCombiner
+    from keystone_tpu_torch.workflow.fusion import FusedGatherTransformer
+
+    if len(members) != 1:
+        return None
+    m = members[0]
+    if isinstance(m, CosineRandomFeaturesModel):
+        return CosineBankFeaturize(m.W, m.b)
+    if isinstance(m, FusedGatherTransformer):
+        if not isinstance(m.combiner, VectorCombiner):
+            return None
+        rfs = []
+        for br in m.branches:
+            if len(br) != 1 or not isinstance(br[0], CosineRandomFeaturesModel):
+                return None
+            rfs.append(br[0])
+        return CosineBankFeaturize(
+            torch.cat([rf.W for rf in rfs]), torch.cat([rf.b for rf in rfs])
+        )
+    return None
+
+
+class StreamingLeastSquaresChoice(LabelEstimator):
+    """The cost model's streaming-tier selection.
+
+    When the resident solvers' operands exceed device memory, the cost
+    model returns this choice; the optimizer's StreamedFitFusionRule then
+    binds the upstream featurizer into the fit (``fuse_with_members``),
+    giving the out-of-core tier: featurize per row tile, Gramian fold,
+    centered BCD (BlockLeastSquaresEstimator semantics). Fitting it
+    directly (no fusable upstream) tile-streams the already-resident
+    features through the same solver: correct, but without the memory win.
+    """
+
+    streamed_fit_fusable = True
+
+    def __init__(
+        self,
+        num_iter: int = 3,
+        lam: float = 0.0,
+        block_size_hint: int = 4096,
+        center: bool = True,
+    ):
+        self.num_iter = num_iter
+        self.lam = lam
+        self.block_size_hint = block_size_hint
+        self.center = center
+
+    @property
+    def label(self) -> str:
+        return f"StreamingLeastSquaresChoice({self.num_iter},{self.lam})"
+
+    @property
+    def weight(self) -> int:
+        return self.num_iter + 1
+
+    def build_estimator(self, featurize, d_feat: int) -> StreamingFeaturizedLeastSquares:
+        """The gram tier, with float32 feature tiles of a 2 GiB slab. (The
+        reference audits this decision, ``obs.record_cost_decision``; the
+        obs plane comes with the control plane, ROADMAP A.17.)"""
+        return StreamingFeaturizedLeastSquares(
+            featurize, d_feat=d_feat, block_size=pick_block_size(d_feat, self.block_size_hint),
+            num_iter=self.num_iter, lam=self.lam, center=self.center,
+        )
+
+    def fuse_with_members(self, members) -> "StreamedFitEstimator":
+        return StreamedFitEstimator(members, self)
+
+    def fit_source(self, data: Dataset, labels: Dataset, featurize, d_feat: int):
+        """The disk tier (segment folds over prefetched shards)."""
+        raise NotImplementedError(
+            "the shard-backed disk tier (streaming_bcd_fit_segments) is not "
+            "ported yet: it comes with the data plane, ROADMAP A.13"
+        )
+
+    def fit(self, data: Dataset, labels: Dataset):
+        d_feat = int(as_tensor(data.array).shape[-1])
+        return self.build_estimator(_identity_featurize, d_feat).fit(data, labels)
+
+
+class StreamedFitEstimator(LabelEstimator):
+    """A streaming fit bound to its upstream featurizer (the rewrite
+    StreamedFitFusionRule performs).
+
+    The members' composed ``device_fn`` becomes the tile featurizer of a
+    :class:`StreamingFeaturizedLeastSquares`: featurize + Gramian fold +
+    centered BCD, and the feature matrix never materializes (reference
+    analog: LeastSquaresEstimator.scala:59-84 picking BlockLeastSquares,
+    whose per-partition featurize + solve never materializes the global
+    matrix either). Cosine featurizer shapes become one cosine bank.
+    """
+
+    def __init__(self, members, choice: StreamingLeastSquaresChoice):
+        self.members = list(members)
+        self.choice = choice
+        self._featurize = _extract_bank(self.members) or ComposedDeviceFeaturize(self.members)
+
+    @property
+    def can_serve_raw_input(self) -> bool:
+        """True when the fitted model can provably tell raw from featurized
+        input by width, the gate StreamedFitFusionRule checks before
+        rewiring apply sites to feed raw rows: a bank featurizer (widths
+        known statically) with d_in != d_feat."""
+        Wrf = getattr(self._featurize, "Wrf", None)
+        return Wrf is not None and Wrf.shape[0] != Wrf.shape[1]
+
+    @property
+    def label(self) -> str:
+        inner = " > ".join(m.label for m in self.members)
+        return f"StreamedFit[{inner} -> {self.choice.label}]"
+
+    @property
+    def weight(self) -> int:
+        return self.choice.weight
+
+    def _fallback(self, data: Dataset, labels: Dataset):
+        raw_width = self._raw_width(data)
+        for m in self.members:
+            data = m.batch_apply(data)
+        model = self.choice.fit(data, labels)
+        # Apply sites may have been rewired to feed raw rows (the rule
+        # rewires only when can_serve_raw_input): make the fallback model
+        # width-adaptive too, or those sites would fail on a raw batch.
+        if (
+            self.can_serve_raw_input
+            and isinstance(model, StreamingFeaturizedLinearModel)
+            and raw_width is not None
+        ):
+            model.featurize = self._featurize
+            model.d_in = raw_width
+        return model
+
+    @staticmethod
+    def _raw_width(data: Dataset):
+        items = data.to_list() if data.is_host else None
+        if items is not None:
+            return int(as_tensor(items[0]).shape[-1]) if items else None
+        return int(as_tensor(data.array).shape[-1])
+
+    def fit(self, data: Dataset, labels: Dataset):
+        if data.is_host or labels.is_host:
+            return self._fallback(data, labels)
+        X = as_tensor(data.array)
+        # The feature width: the bank's rows, or else one featurized row
+        # (the reference asks jax.eval_shape; a shape-only meta tensor
+        # would fail the kernels' device check).
+        Wrf = getattr(self._featurize, "Wrf", None)
+        d_feat = int(Wrf.shape[0]) if Wrf is not None else int(self._featurize(X[:1]).shape[-1])
+        d_in = int(X.shape[-1])
+        model = self.choice.build_estimator(self._featurize, d_feat).fit(data, labels)
+        if d_in == d_feat:
+            # Width cannot tell raw from featurized input. The rule never
+            # rewires apply sites in this case (can_serve_raw_input is
+            # False), so every apply site featurizes upstream: the model
+            # always takes the identity path.
+            model.featurize = _identity_featurize
+            model.d_in = None
+        else:
+            # Rewired apply sites feed raw rows (featurized tile-wise);
+            # saved-state reuse in later pipelines with intact featurize
+            # nodes feeds featurized rows.
+            model.d_in = d_in
+        return model

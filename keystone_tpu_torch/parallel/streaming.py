@@ -1,0 +1,363 @@
+"""Out-of-core (streaming / tiled) least squares: the memory-wall crosser.
+
+Port of ``keystone_tpu/parallel/streaming.py``, single device. The
+reference's substrate streams by construction (a lazy ``textFile``,
+CsvDataLoader.scala:10-31; per-partition Gramians summed by a
+``treeReduce``, BlockWeightedLeastSquares.scala:177-313): the full feature
+matrix never exists. Here features are made one row tile at a time, and
+each tile is folded into the normal equations
+
+    G  += FₜᵀFₜ          (the ``gram_sym_acc`` CUDA kernel, in place)
+    FY += FₜᵀYₜ
+    yty += ΣYₜ²
+
+so the (tile_rows, d) feature slab is the only feature storage that ever
+exists. At TIMIT's scale (n = 2.2e6, d = 16384) the materialized features
+would be 144 GB in float32; the streamed state is G (1.07 GB) + one slab
+(2.15 GB) + the raw input (3.9 GB).
+
+The solve then runs block Gauss-Seidel directly on the normal equations:
+
+    W_b ← (G_bb + λI)⁻¹ (FY_b − Σ_{j≠b} G_bj W_j)
+
+the same iterate sequence as residual-maintaining BCD
+(``linalg.bcd_least_squares_fused_flat``) with the residual eliminated
+through R = Y − F W. Extra epochs cost only (d, block) × (block, k)
+products on the cached Gramian, no data pass.
+
+Differences from the reference:
+  - its ``lax.scan`` over tiles and ``fori_loop`` over blocks become Python
+    loops; the fold updates its carry in place (the carry is the fold's
+    own), where the reference's functional update lets XLA reuse buffers;
+  - a ragged last tile is folded as it is, without the reference's padding
+    to its kernel's 512-row alignment: the kernel masks ragged rows;
+  - rows at and past ``valid`` are dropped from the feature tile after
+    featurizing (a view of the first rows), which contributes exactly what
+    the reference's zeroed rows contribute;
+  - there is no ``use_pallas`` switch: on the card the fold always takes
+    ``gram_sym_acc``, and on the CPU its plain version (the reference's
+    pipeline passes ``use_pallas=False`` and folds with XLA's ``FᵀF``; both
+    compute the same function on the upper tiles);
+  - the jit dispatchers (``_streaming_fit_closure``, ``_streaming_fit_bank``,
+    ``_dispatch_fit``, ``_solve_from_stats``) exist in the reference only
+    to share compiled programs across fits; eager PyTorch compiles nothing,
+    so they collapse to plain calls of ``_fit_core`` and
+    ``_solve_from_stats_core``, and only a static ``valid`` is taken.
+
+Not ported yet: the segment / disk fold (``streaming_bcd_fit_segments``,
+``BoundedInflight``; ROADMAP A.13) and the mesh and block-streamed forms
+(``gram_stats_mesh``, ``streaming_bcd_fit_mesh[_centered]``,
+``streaming_block_bcd_mesh[_2d]``; A.15).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops import cuda_ops
+
+from .linalg import _corr, _solve_psd
+
+# Device-memory budget for one feature slab (the streamed working set).
+_SLAB_BYTES = 2 << 30
+# Row alignment of the reference's Pallas kernel (its k-tile). The port's
+# kernel needs none; tiles keep it so that both fold the same rows in the
+# same order.
+_ROW_ALIGN = 512
+
+
+def pick_tile_rows(d_feat: int) -> int:
+    """Largest _ROW_ALIGN-multiple tile whose float32 feature slab fits the
+    budget (the reference's ``pick_tile_rows(d_feat, 4)``)."""
+    rows = max(_SLAB_BYTES // max(d_feat * 4, 1), _ROW_ALIGN)
+    return max((rows // _ROW_ALIGN) * _ROW_ALIGN, _ROW_ALIGN)
+
+
+def _row_mask(M: torch.Tensor, valid: Optional[int]) -> torch.Tensor:
+    """M without its rows at index >= valid (padding rows must not touch
+    G/FY): a view of the first ``valid`` rows, never a copy."""
+    return M if valid is None else M[:valid]
+
+
+def _tile_update(G, FY, yty, fsum, ysum, X_t, Y_t, featurize, valid: Optional[int]):
+    """Fold one row tile into (G, FY, yty, fsum, ysum), updating G, FY,
+    fsum and ysum in place; returns the carry. ``valid`` drops rows >=
+    valid; None means the whole tile is valid.
+
+    Masking applies to the *feature* rows, not just X rows: a zero input
+    row still featurizes to cos(b), a nonzero constant, so padding must be
+    excluded after featurization. The column sums ride the same pass, so
+    the centered solvers get their means for free.
+    """
+    F_t = _row_mask(featurize(X_t), valid)
+    Y_t = _row_mask(Y_t, valid)
+    if F_t.device.type != "cpu" and not cuda_ops.gram_acc_ok(F_t):
+        # The kernel reads contiguous rows: a tile with strided columns is
+        # copied. A dtype it cannot take (float64) raises in the wrapper.
+        F_t = F_t.contiguous()
+    cuda_ops.gram_sym_acc(G, F_t, out=G)
+    FY += _corr(F_t, Y_t).to(torch.float32)
+    Yf = Y_t.to(torch.float32)
+    # dtype=f32 so bf16 feature slabs accumulate their column sums at the
+    # same precision as the G/FY folds (cos features have near-zero means:
+    # a bf16 sum would bias the centered solve).
+    fsum += F_t.sum(dim=0, dtype=torch.float32)
+    ysum += Yf.sum(dim=0)
+    return G, FY, yty + (Yf * Yf).sum(), fsum, ysum
+
+
+def gram_stats(
+    X,
+    Y,
+    featurize: Callable,
+    d_feat: int,
+    tile_rows: int,
+    valid: Optional[int] = None,
+    labelize: Optional[Callable] = None,
+    moments: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Accumulate (G = FᵀF, FY = FᵀY, yty = ΣY²) over row tiles of X.
+
+    With ``moments=True`` also returns the per-column sums (fsum = Σᵢ fᵢ,
+    ysum = Σᵢ yᵢ) accumulated in the same pass, the centered solvers'
+    means (the streamed analog of BlockLinearMapper.scala:224-243's
+    per-block StandardScalers). Returns (G, FY, yty) or
+    (G, FY, yty, fsum, ysum).
+
+    X: (n, d_in), or pre-tiled (T, tile_rows, d_in). Y: (n, k) /
+    (T, tile_rows, k), or raw per-row labels of any trailing shape when
+    ``labelize`` maps a label slice to the (rows, k) regression target per
+    tile (a one-hot target then never exists at full n).
+
+    The feature matrix F = featurize(X), (n, d_feat) conceptually, is made
+    one (tile_rows, d_feat) slab at a time and never materialized. A ragged
+    last tile is folded as it is: the kernel masks ragged rows, so unlike
+    the reference's fold it is not padded to 512 rows.
+
+    ``valid`` (an int) excludes trailing padding rows: tiles entirely
+    inside it run unmasked, the boundary tile drops its rows past it
+    (after featurizing: a zero input row still featurizes to cos(b) ≠ 0),
+    and tiles past it are skipped. Returns G with both triangles valid.
+    """
+    X = as_tensor(X)
+    Y = as_tensor(Y, X.device)
+    if X.dim() == 3:
+        num_tiles, tile_rows = int(X.shape[0]), int(X.shape[1])
+        n = num_tiles * tile_rows
+        tiles = [(X[t], Y[t], t * tile_rows) for t in range(num_tiles)]
+    else:
+        n = int(X.shape[0])
+        tiles = [
+            (X[s:s + tile_rows], Y[s:s + tile_rows], s) for s in range(0, n, tile_rows)
+        ]
+    if labelize is None:
+        labelize = lambda y_t: y_t  # noqa: E731 — identity target map
+    # The target width, from one row (the reference asks jax.eval_shape).
+    k = int(labelize(tiles[0][1][:1]).shape[-1]) if tiles else int(Y.shape[-1])
+    valid = n if valid is None else int(valid)
+
+    dev = X.device
+    carry = (
+        torch.zeros((d_feat, d_feat), dtype=torch.float32, device=dev),
+        torch.zeros((d_feat, k), dtype=torch.float32, device=dev),
+        torch.zeros((), dtype=torch.float32, device=dev),
+        torch.zeros((d_feat,), dtype=torch.float32, device=dev),
+        torch.zeros((k,), dtype=torch.float32, device=dev),
+    )
+    for X_t, y_t, start in tiles:
+        rows = int(X_t.shape[0])
+        if start >= valid:
+            break
+        tile_valid = None if start + rows <= valid else valid - start
+        carry = _tile_update(*carry, X_t, labelize(y_t), featurize, tile_valid)
+
+    G, FY, yty, fsum, ysum = carry
+    # The kernel writes upper-triangle tiles only; mirroring from triu is
+    # also exact for the plain path (G symmetric). In place but for one
+    # (d, d) temporary: the strict upper triangle.
+    upper = torch.triu(G, 1)
+    G.triu_().add_(upper.T)
+    del upper
+    if moments:
+        return G, FY, yty, fsum, ysum
+    return G, FY, yty
+
+
+def bcd_from_gram(G, FY, block_size: int, lam: float, num_iter: int) -> torch.Tensor:
+    """Block Gauss-Seidel ridge solve on accumulated normal equations.
+
+    Returns W as (nb, block_size, k): the same iterate sequence as
+    residual-form BCD (the residual is eliminated algebraically; see the
+    module docstring). The per-block Cholesky factors are computed once,
+    batched over the (nb, bs, bs) stack of diagonal blocks; every epoch
+    costs nb (d, block) × (block, k) products against the cached G, no
+    data.
+    """
+    d, k = FY.shape
+    if num_iter < 1:
+        raise ValueError(f"num_iter must be >= 1, got {num_iter}")
+    if d % block_size:
+        raise ValueError(f"feature dim {d} not divisible by {block_size}")
+    nb = d // block_size
+    lam = float(lam)
+
+    # (nb, bs, bs) stack of diagonal blocks + factors (loop-invariant).
+    diag = torch.stack([
+        G[b * block_size:(b + 1) * block_size, b * block_size:(b + 1) * block_size]
+        for b in range(nb)
+    ])
+    eye = torch.eye(block_size, dtype=G.dtype, device=G.device)
+    chols, _ = torch.linalg.cholesky_ex(diag + lam * eye)
+
+    W = torch.zeros((nb, block_size, k), dtype=G.dtype, device=G.device)
+    S = torch.zeros((d, k), dtype=G.dtype, device=G.device)  # S = G @ W_flat, maintained
+    for _ in range(num_iter):
+        for b in range(nb):
+            rows = slice(b * block_size, (b + 1) * block_size)
+            Wb, Gbb = W[b], diag[b]
+            # S_b = Σ_j G_bj W_j includes j = b; add G_bb W_b back to exclude it.
+            rhs = FY[rows] - S[rows] + Gbb @ Wb
+            Wb_new = _solve_psd(Gbb, rhs, lam, chol=chols[b])
+            # Column block of G via the transposed row block (G symmetric):
+            # the row block is contiguous, a column block a strided read.
+            S += G[rows].T @ (Wb_new - Wb)
+            W[b] = Wb_new
+    return W
+
+
+def _fit_core(X, Y, featurize, d_feat, tile_rows, block_size, lam, num_iter, valid,
+              labelize, center):
+    """Shared fit body: tile folds → (optional rank-1 centering) → BCD on
+    the normal equations. Returns (W, loss, yty, fmean, ymean);
+    fmean/ymean are None when ``center`` is False."""
+    X = as_tensor(X)
+    n_true = valid if valid is not None else (
+        X.shape[0] if X.dim() == 2 else X.shape[0] * X.shape[1]
+    )
+    stats = gram_stats(X, Y, featurize, d_feat, tile_rows, valid=valid, labelize=labelize,
+                       moments=center)
+    G, FY, yty = stats[:3]
+    fsum, ysum = stats[3:] if center else (None, None)
+    W, loss, fmean, ymean = _solve_from_stats_core(
+        G, FY, yty, fsum, ysum, n_true, lam, block_size, num_iter, center
+    )
+    return W, loss, yty, fmean, ymean
+
+
+def streaming_bcd_fit(
+    X,
+    Y,
+    *,
+    featurize: Callable,
+    d_feat: int,
+    tile_rows: int,
+    block_size: int,
+    lam: float,
+    num_iter: int,
+    valid: Optional[int] = None,
+    labelize: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Streamed fit: tiles → (G, FY, yty) → BCD epochs.
+
+    X may be (n, d_in) or pre-tiled (T, tile_rows, d_in); see
+    :func:`gram_stats` for the ``valid`` / ``labelize`` contracts. Returns
+    (W, train_loss, yty) with W: (nb, block_size, k). The train loss
+    ||Y − FW||²/n comes algebraically from the accumulated stats,
+    (yty − 2·tr(Wᵀ FY) + tr(Wᵀ G W))/n: two small products, no data pass.
+    """
+    W, loss, yty, _, _ = _fit_core(X, Y, featurize, d_feat, tile_rows, block_size, lam,
+                                   num_iter, valid, labelize, False)
+    return W, loss, yty
+
+
+def _solve_from_stats_core(G, FY, yty, fsum, ysum, n_true, lam, block_size, num_iter,
+                           center):
+    """Solve tail shared by the fit entry points: (optional rank-1
+    centering) → BCD on the normal equations → loss. ``G`` must have both
+    triangles valid, and is centred in place when ``center``. Returns
+    (W, loss, fmean, ymean), fmean/ymean None when not centering."""
+    fmean = ymean = None
+    if center:
+        G, FY, yty, fmean, ymean = center_gram_stats(G, FY, yty, fsum, ysum, n_true)
+    W = bcd_from_gram(G, FY, block_size, lam, num_iter)
+    Wf = W.reshape(G.shape[0], W.shape[2])
+    loss = (yty - 2.0 * torch.vdot(Wf.flatten(), FY.flatten())
+            + torch.vdot(Wf.flatten(), (G @ Wf).flatten())) / n_true
+    return W, loss, fmean, ymean
+
+
+def center_gram_stats(G, FY, yty, fsum, ysum, n):
+    """Rank-1-correct accumulated stats to their mean-centered form.
+
+    With μ = fsum/n and ȳ = ysum/n over the n valid rows (padding rows
+    contribute zero to every accumulator):
+
+        Gc   = Σ(fᵢ−μ)(fᵢ−μ)ᵀ = G  − fsum·fsumᵀ/n
+        FYc  = Σ(fᵢ−μ)(yᵢ−ȳ)ᵀ = FY − fsum·ysumᵀ/n
+        ytyc = Σ‖yᵢ−ȳ‖²        = yty − ysum·ysum/n
+
+    exactly: centering costs two rank-1 updates instead of a second data
+    pass. G and FY are corrected in place (the reference returns new
+    arrays; the fit owns its stats, and at d = 16384 a centred copy of G is
+    another 1.07 GB). Returns (Gc, FYc, ytyc, fmean, ymean).
+    """
+    n = float(n)
+    fmean = fsum / n
+    ymean = ysum / n
+    G.addr_(fsum, fmean, alpha=-1)
+    FY.addr_(fsum, ymean, alpha=-1)
+    ytyc = yty - torch.dot(ysum, ymean)
+    return G, FY, ytyc, fmean, ymean
+
+
+def streaming_bcd_fit_centered(
+    X,
+    Y,
+    *,
+    featurize: Callable,
+    d_feat: int,
+    tile_rows: int,
+    block_size: int,
+    lam,
+    num_iter: int,
+    valid: Optional[int] = None,
+    labelize: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mean-centered streamed fit, the streamed form of
+    ``BlockLeastSquaresEstimator`` semantics (per-block feature centering +
+    label centering + intercept, BlockLinearMapper.scala:224-243): column
+    sums accumulate in the same tile pass as G/FY, the normal equations get
+    rank-1 centering corrections, and BCD runs on the centered system.
+
+    Returns (W, fmean, ymean, loss): predictions are
+    (F − fmean) @ W_flat + ymean, the affine model BlockLinearMapper
+    applies.
+    """
+    W, loss, _, fmean, ymean = _fit_core(X, Y, featurize, d_feat, tile_rows, block_size,
+                                         lam, num_iter, valid, labelize, True)
+    return W, fmean, ymean, loss
+
+
+def streaming_predict(X, W, featurize: Callable, tile_rows: int) -> torch.Tensor:
+    """Predictions F @ W_flat computed tile-wise (F never materialized).
+
+    W: (nb, block, k) from the fit. X may be (n, d_in) or pre-tiled
+    (T, tile_rows, d_in); predictions come back as (n, k) float32 either
+    way, each tile's written into its rows of one output buffer.
+    """
+    X = as_tensor(X)
+    Wf = W.reshape(-1, W.shape[2])
+    if X.dim() == 3:
+        X = X.reshape(X.shape[0] * X.shape[1], X.shape[2])
+    n = int(X.shape[0])
+    out = torch.empty((n, Wf.shape[1]), dtype=torch.float32, device=X.device)
+    for s in range(0, n, tile_rows):
+        F_t = featurize(X[s:s + tile_rows])
+        out[s:s + tile_rows] = F_t @ Wf.to(F_t.dtype)
+        # Free this slab before the next is made: rebinding F_t would hold
+        # two slabs (4 GiB at the TIMIT geometry) for the next featurize.
+        del F_t
+    return out

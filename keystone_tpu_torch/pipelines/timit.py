@@ -1,17 +1,29 @@
 """TimitPipeline: cosine random features + block least squares on TIMIT
 (reference: pipelines/speech/TimitPipeline.scala:37-130).
 
-Port of ``keystone_tpu/pipelines/timit.py``, ``--solver block``:
-gather(numCosines × CosineRandomFeatures(440→blockSize, γ, gaussian|cauchy))
-→ VectorCombiner → BlockLeastSquares(blockSize, numEpochs, λ) → MaxClassifier.
+Port of ``keystone_tpu/pipelines/timit.py``, ``--solver block`` and
+``--solver streaming``:
 
-Differences from the reference: the default solver is ``block``, the only
-one ported so far (``auto`` and ``streaming`` raise NotImplementedError
-until the ROADMAP slices that bring them), and :func:`run` fits the
-pipeline explicitly before applying it, so that it can report fit and
-apply wall times apart (``fit_first=False`` keeps the reference's order).
+  - ``block``: gather(numCosines × CosineRandomFeatures(440→blockSize, γ,
+    gaussian|cauchy)) → VectorCombiner → BlockLeastSquares(blockSize,
+    numEpochs, λ) → MaxClassifier;
+  - ``streaming`` (or ``streaming=True``): one cosine bank over the
+    branches' concatenated W, b → StreamingFeaturizedLeastSquares(bank,
+    numCosines·blockSize, blockSize, numEpochs, λ) → MaxClassifier. The fit
+    makes the features one row tile at a time and folds each tile into the
+    normal equations through the ``gram_sym_acc`` kernel; the applies
+    featurize tile-wise too, so the (n, d) feature matrix never exists.
 
-The call order decides the route, the same way in both packages:
+Differences from the reference: the default solver is ``block``, because
+``auto`` (the cost-model selector, ``cost.py::LeastSquaresEstimator``)
+raises NotImplementedError until the slice that brings it, and :func:`run`
+fits the pipeline explicitly before applying it, so that it can report
+fit and apply wall times apart (``fit_first=False`` keeps the reference's
+order).
+
+``--solver streaming`` takes the same route in either call order: its
+pipeline has no featurizer node for CSE to merge. For ``--solver block``
+the call order decides the route, the same way in both packages:
 
   - ``pipeline.fit()`` first (this module's default): the optimizer fuses
     the four cosine branches and the combiner into one gather
@@ -50,6 +62,10 @@ from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data.loaders import TimitFeaturesDataLoader, synthetic_timit
 from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator, MulticlassMetrics
 from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+from keystone_tpu_torch.ops.learning.streaming_ls import (
+    CosineBankFeaturize,
+    StreamingFeaturizedLeastSquares,
+)
 from keystone_tpu_torch.ops.stats import CosineRandomFeatures, CosineRandomFeaturesModel
 from keystone_tpu_torch.ops.util import (
     ClassLabelIndicatorsFromIntLabels,
@@ -62,12 +78,6 @@ logger = logging.getLogger("keystone_tpu_torch.pipelines.timit")
 
 NUM_CLASSES = TimitFeaturesDataLoader.num_classes  # 147
 NUM_INPUT_FEATURES = TimitFeaturesDataLoader.num_features  # 440
-
-# The port's slice (ROADMAP queue A) that brings each solver it lacks.
-_SOLVER_SLICES = {
-    "auto": "slice 3 (main path, streamed form, with the cost-model selector)",
-    "streaming": "slice 3 (main path, streamed form)",
-}
 
 
 @dataclass
@@ -104,6 +114,20 @@ class TimitRun:
     apply_seconds: float
 
 
+def _cosine_models(config: TimitConfig, device) -> List[CosineRandomFeaturesModel]:
+    return [
+        CosineRandomFeatures(
+            NUM_INPUT_FEATURES,
+            config.block_size,
+            config.gamma,
+            seed=config.seed + i,
+            cauchy=(config.rf_type == "cauchy"),
+            device=device,
+        )
+        for i in range(config.num_cosines)
+    ]
+
+
 def build_featurizer(
     config: TimitConfig,
     device=None,
@@ -113,17 +137,7 @@ def build_featurizer(
     (TimitPipeline.scala:61-78). ``models`` replaces the seeded draws (one
     per branch), e.g. weights carried across from the reference."""
     if models is None:
-        models = [
-            CosineRandomFeatures(
-                NUM_INPUT_FEATURES,
-                config.block_size,
-                config.gamma,
-                seed=config.seed + i,
-                cauchy=(config.rf_type == "cauchy"),
-                device=device,
-            )
-            for i in range(config.num_cosines)
-        ]
+        models = _cosine_models(config, device)
     return Pipeline.gather([m.to_pipeline() for m in models]).and_then(VectorCombiner())
 
 
@@ -147,12 +161,14 @@ def run(
     the unfitted pipeline to the training rows, which fits it on first use,
     as the reference's ``run`` does: the stacked route. Its ``fit_seconds``
     then covers the fit and the training rows' apply, and ``apply_seconds``
-    the test rows' apply."""
+    the test rows' apply. ``--solver streaming`` takes the same route in
+    either order."""
     solver = "streaming" if config.streaming else config.solver
-    if solver != "block":
+    if solver == "auto":
         raise NotImplementedError(
-            f"--solver {solver} is not ported yet; it arrives with the port's "
-            f"{_SOLVER_SLICES.get(solver, 'later slices')}. Use --solver block."
+            "--solver auto (the cost-model selector) is not ported yet: its "
+            "candidates include the sparse L-BFGS solvers, so it comes after the "
+            "sparse slice, ROADMAP A.7. Use --solver block or streaming."
         )
     device = resolve_device(device)
     start = time.perf_counter()
@@ -183,11 +199,22 @@ def run(
                 cosine_models = cosine_models[:max_branches]
 
     labels = ClassLabelIndicatorsFromIntLabels(NUM_CLASSES)(train.labels)
-    pipeline = build_featurizer(config, device, cosine_models).and_then(
-        BlockLeastSquaresEstimator(config.block_size, config.num_epochs, config.lam),
-        train.data,
-        labels,
-    ).and_then(MaxClassifier())
+    if solver == "streaming":
+        rfs = cosine_models if cosine_models is not None else _cosine_models(config, device)
+        bank = CosineBankFeaturize(
+            torch.cat([rf.W for rf in rfs]), torch.cat([rf.b for rf in rfs])
+        )
+        est = StreamingFeaturizedLeastSquares(
+            bank, d_feat=config.num_cosines * config.block_size,
+            block_size=config.block_size, num_iter=config.num_epochs, lam=config.lam,
+        )
+        pipeline = est.with_data(train.data, labels).and_then(MaxClassifier())
+    else:
+        pipeline = build_featurizer(config, device, cosine_models).and_then(
+            BlockLeastSquaresEstimator(config.block_size, config.num_epochs, config.lam),
+            train.data,
+            labels,
+        ).and_then(MaxClassifier())
 
     _sync(device)
     if fit_first:
@@ -223,6 +250,11 @@ def run(
         "Fit %.3f s, apply %.3f s, pipeline took %.1f s",
         fit_seconds, apply_seconds, time.perf_counter() - start,
     )
+    if device.type == "cuda":
+        logger.info(
+            "Peak allocated device memory %.2f GiB (since the process started or "
+            "its last reset)", torch.cuda.max_memory_allocated(device) / 2**30,
+        )
     return TimitRun(pipeline, fitted, train_eval, test_eval, fit_seconds, apply_seconds)
 
 
@@ -244,11 +276,13 @@ def main(argv=None):
                         help="training rows of the synthetic data (no CSVs given)")
     parser.add_argument(
         "--streaming", action="store_true",
-        help="force the out-of-core fit (equivalent to --solver streaming; not ported yet)",
+        help="force the out-of-core fit (equivalent to --solver streaming)",
     )
     parser.add_argument(
         "--solver", default="block", choices=["auto", "block", "streaming"],
-        help="block = reference-literal BlockLeastSquares (the only solver ported so far)",
+        help="block = reference-literal BlockLeastSquares; streaming = the "
+        "out-of-core tile-streamed fit; auto (the cost-model selector) is not "
+        "ported yet",
     )
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device; pass cpu explicitly)")

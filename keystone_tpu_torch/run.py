@@ -1,7 +1,9 @@
 """Command-line entry point: ``python -m keystone_tpu_torch.run <Pipeline> [flags]``.
 
-Port of ``keystone_tpu/run.py``; only TimitPipeline (``--solver block``) is
-ported so far. Pipelines run on the CUDA device unless given
+Port of ``keystone_tpu/run.py``; only TimitPipeline is ported so far,
+with ``--solver block`` (the resident block solver, the default) and
+``--solver streaming`` (the out-of-core tile-streamed fit); ``--solver
+auto`` is not ported yet. Pipelines run on the CUDA device unless given
 ``--device cpu``.
 """
 

@@ -21,6 +21,10 @@ pipeline takes the same route in both packages:
   - :class:`EstimatorFusionRule` fuses an estimator exposing
     ``device_fit_fn()`` (a :class:`DeviceFit`) with the fusable node
     feeding it, unless that node has another consumer.
+  - :class:`StreamedFitFusionRule` binds the fusable node feeding a
+    streaming choice (``streamed_fit_fusable``) into the fit, so that the
+    streamed fit makes its features one row tile at a time, and rewires
+    the estimator's apply sites to feed it raw rows.
 
 Chains never fuse across: estimator fits, multi-input nodes (gather/
 combiner), sinks, prefix-published nodes (their intermediate result must
@@ -31,14 +35,14 @@ Row-local contract for ``device_fn``: output row i depends only on input row
 i, so zero padding rows cannot leak into valid rows and a single trailing
 re-zeroing is equivalent to per-stage re-zeroing.
 
-Not in this slice: ``StreamedFitFusionRule`` (the streamed fit, slice 3),
-``cache_would_split_fusion`` / ``fusion_splitting_nodes`` (the autocache
-optimizer), and the packed-FFT lowering of gathers in
+Not ported yet: ``cache_would_split_fusion`` / ``fusion_splitting_nodes``
+(the autocache optimizer) and the packed-FFT lowering of gathers in
 ``FusedGatherTransformer._build_composed`` (the MNIST slice).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Sequence
 
 import torch
@@ -48,7 +52,7 @@ from keystone_tpu_torch.data.dataset import as_tensor
 
 from .env import Prefix
 from .graph import Graph, NodeId, SinkId
-from .operators import GatherTransformerOperator
+from .operators import DelegatingOperator, GatherTransformerOperator
 from .optimizer import Plan, Rule
 from .pipeline import LabelEstimator, Transformer
 
@@ -60,6 +64,7 @@ __all__ = [
     "StageFusionRule",
     "GatherFusionRule",
     "EstimatorFusionRule",
+    "StreamedFitFusionRule",
     "fusable",
     "fused_members",
     "masked_center",
@@ -618,4 +623,134 @@ class EstimatorFusionRule(Rule):
             )
             plan = plan.remove_node(dnode)
             consumers = _consumers(plan)
+        return plan, prefixes
+
+
+_logger = logging.getLogger("keystone_tpu_torch.fusion")
+
+
+class StreamedFitFusionRule(Rule):
+    """Bind the upstream featurizer into a streaming estimator's fit.
+
+    Applies when a node's operator declares ``streamed_fit_fusable`` (the
+    streaming choice, ``StreamingLeastSquaresChoice``) and its DATA input
+    is a fusable transformer consumed only by it, or also by this
+    estimator's own apply sites. The rewrite calls the choice's
+    ``fuse_with_members(members)``, whose fit makes features per row tile
+    inside the solver: the feature matrix never materializes, which is the
+    point of the streaming tier. Runs after Stage/Gather fusion (the
+    upstream is one node) and after NodeOptimizationRule (the choice has
+    been swapped in). Fused estimators are memoized by (members, choice)
+    identity.
+    """
+
+    def __init__(self) -> None:
+        self._memo = _IdentityMemo()
+
+    def _fused(self, members, choice):
+        return self._memo.get(
+            list(members) + [choice],
+            lambda hit: hit.choice is choice
+            and len(hit.members) == len(members)
+            and all(a is b for a, b in zip(hit.members, members)),
+            lambda: choice.fuse_with_members(members),
+        )
+
+    def apply(self, plan: Graph, prefixes: Dict[NodeId, Prefix]) -> Plan:
+        consumers = _consumers(plan)
+        for node in sorted(plan.nodes, key=lambda n: n.id):
+            if node not in plan.nodes:
+                continue
+            op = plan.get_operator(node)
+            if not getattr(op, "streamed_fit_fusable", False):
+                continue
+            deps = plan.get_dependencies(node)
+            if len(deps) != 2:
+                continue
+            dnode = deps[0]
+            unbindable = None
+            dop = None
+            if not isinstance(dnode, NodeId) or dnode in prefixes:
+                unbindable = "its data input is a source/prefix-published node"
+            else:
+                dop = plan.get_operator(dnode)
+                if not fusable(dop) or len(plan.get_dependencies(dnode)) != 1:
+                    unbindable = "its upstream transformer is not device-fusable"
+            if unbindable:
+                _logger.warning(
+                    "streaming fit at %s cannot bind its featurizer (%s): the "
+                    "fit will tile-stream MATERIALIZED features",
+                    getattr(op, "label", op), unbindable,
+                )
+                continue
+
+            # The featurize node may have other consumers only when they
+            # are this estimator's own apply sites (delegating nodes fed by
+            # the same featurizer: CSE merges the train and apply chains
+            # when the pipeline is applied to its training data). Those get
+            # rewired to raw input below; any other consumer needs the
+            # featurized result, and fusing would recompute it: decline.
+            def _is_own_delegate(c):
+                return (
+                    isinstance(c, NodeId)
+                    and isinstance(plan.get_operator(c), DelegatingOperator)
+                    and list(plan.get_dependencies(c)) == [node, dnode]
+                )
+
+            shared_delegates = [c for c in consumers.get(dnode, []) if c != node]
+            if not all(_is_own_delegate(c) for c in shared_delegates):
+                _logger.warning(
+                    "streaming fit at %s cannot bind its featurizer (the "
+                    "featurized result has other consumers): the fit will "
+                    "tile-stream MATERIALIZED features",
+                    getattr(op, "label", op),
+                )
+                continue
+            members = dop.members if isinstance(dop, FusedBatchTransformer) else [dop]
+            fused = self._fused(members, op)
+            # Rewiring apply sites to feed raw rows needs the fitted model
+            # to tell raw from featurized input by width: provable only for
+            # bank featurizers with d_in != d_feat.
+            can_rewire = getattr(fused, "can_serve_raw_input", False)
+            raw_in = plan.get_dependencies(dnode)[0]
+            plan = plan.set_operator(node, fused)
+            plan = plan.set_dependencies(node, [raw_in, deps[1]])
+            if can_rewire:
+                for c in shared_delegates:
+                    plan = plan.set_dependencies(c, [node, raw_in])
+            if can_rewire or not shared_delegates:
+                plan = plan.remove_node(dnode)
+            # else: dnode stays; the shared delegates keep featurizing
+            # upstream and the width-adaptive model takes the identity path
+            # on their featurized input.
+
+            # Other apply sites may featurize through a twin node holding
+            # the same operator (the fusion memos give train/apply twins
+            # one object; the non-merged case, e.g. applying to held-out
+            # data). Rewire them to raw input too: the fitted model carries
+            # the featurizer and applies it tile-wise, so inference never
+            # materializes the feature matrix either.
+            consumers = _consumers(plan)
+            if can_rewire:
+                delegates = [
+                    c for c in consumers.get(node, [])
+                    if isinstance(c, NodeId)
+                    and isinstance(plan.get_operator(c), DelegatingOperator)
+                ]
+                for c in delegates:
+                    cdeps = plan.get_dependencies(c)
+                    ain = cdeps[1] if len(cdeps) == 2 else None
+                    if ain == raw_in:
+                        continue  # rewired above (merged case)
+                    if (
+                        isinstance(ain, NodeId)
+                        and plan.get_operator(ain) is dop
+                        and len(plan.get_dependencies(ain)) == 1
+                    ):
+                        plan = plan.set_dependencies(
+                            c, [cdeps[0], plan.get_dependencies(ain)[0]]
+                        )
+                        if consumers.get(ain, []) == [c]:
+                            plan = plan.remove_node(ain)
+                consumers = _consumers(plan)
         return plan, prefixes

@@ -9,10 +9,8 @@ applications that change the plan are trace-logged as DOT diffs.
 ``DefaultOptimizer`` carries the saved-state, CSE and node-optimization
 batches, then the Stage Fusion and Tree & Fit Fusion batches of
 ``workflow/fusion.py``, in the reference's order. The Tree & Fit batch has
-the gather and estimator fusion rules; the reference's third rule there,
-``StreamedFitFusionRule``, comes with the streamed fit (slice 3). The
-reference's static plan verifier pre-pass and autocache optimizer are not
-ported yet.
+the gather, estimator and streamed-fit fusion rules. The reference's static
+plan verifier pre-pass and autocache optimizer are not ported yet.
 """
 
 from __future__ import annotations
@@ -117,7 +115,12 @@ class DefaultOptimizer(Optimizer):
     stage fusion and gather/fit fusion."""
 
     def __init__(self) -> None:
-        from .fusion import EstimatorFusionRule, GatherFusionRule, StageFusionRule
+        from .fusion import (
+            EstimatorFusionRule,
+            GatherFusionRule,
+            StageFusionRule,
+            StreamedFitFusionRule,
+        )
         from .rules import (
             EquivalentNodeMergeRule,
             ExtractSaveablePrefixes,
@@ -142,5 +145,9 @@ class DefaultOptimizer(Optimizer):
             # and trailing estimator fits (workflow/fusion.py). Last, so CSE
             # and prefix extraction see the original node granularity.
             Batch("Stage Fusion", Once(), [StageFusionRule()]),
-            Batch("Tree & Fit Fusion", Once(), [GatherFusionRule(), EstimatorFusionRule()]),
+            Batch(
+                "Tree & Fit Fusion",
+                Once(),
+                [GatherFusionRule(), EstimatorFusionRule(), StreamedFitFusionRule()],
+            ),
         ]

@@ -50,6 +50,7 @@ def test_port_has_modules():
     rels = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
     for rel in ("__init__.py", "ops/cuda_ops.py", "ops/stats.py", "parallel/linalg.py",
                 "ops/learning/block.py", "ops/learning/linear.py", "workflow/fusion.py",
+                "parallel/streaming.py", "ops/learning/streaming_ls.py",
                 "pipelines/timit.py", "interop.py", "run.py"):
         assert rel in rels
 
@@ -80,7 +81,7 @@ def test_kernel_sources_sit_beside_the_package():
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
     assert sources == [
         "block_corr.cu", "block_gram_sym.cu", "block_residual_update.cu",
-        "cosine_features.cu", "gram_corr_sym.cu",
+        "cosine_features.cu", "gram_corr_sym.cu", "gram_sym_acc.cu",
     ]
     for src in sources:
         text = (PORT / "csrc" / src).read_text()

@@ -1,6 +1,9 @@
 """The port's column-window kernels (block_gram_sym, block_corr,
 block_residual_update in keystone_tpu_torch/ops/cuda_ops.py) against the
-JAX package's Pallas kernels of the same names.
+JAX package's Pallas kernels of the same names; and, on the card, those
+kernels and the streamed fold's gram_sym_acc against their plain versions
+(gram_sym_acc's plain version is held against its Pallas twin in
+tests/test_torch_streaming.py).
 
 On the CPU the wrappers compute their plain PyTorch versions; those are held
 here against the Pallas kernels run in interpret mode on the same inputs
@@ -244,3 +247,77 @@ class TestKernelsOnCard:
             cuda_ops.block_gram_sym(F, 200, 128)
         with pytest.raises(TypeError):
             cuda_ops.block_corr(F.double(), 0, 128, R)
+
+
+# The streamed fold's accumulating Gramian (gram_sym_acc).
+
+
+def _upper_tiles(d):
+    idx = torch.arange(d) // 128
+    return idx[:, None] <= idx[None, :]
+
+
+@pytest.mark.cuda
+class TestGramSymAccOnCard:
+    # (n, d): ragged rows and width, aligned, one row.
+    @pytest.mark.parametrize("n,d", [(1000, 300), (4096, 512), (1, 130)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("in_place", [False, True])
+    def test_against_plain_version(self, cuda_device, n, d, dtype, in_place):
+        rng = np.random.default_rng(0)
+        F = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda_device).to(dtype)
+        G0 = torch.from_numpy(rng.normal(size=(d, d)).astype(np.float32)).to(cuda_device)
+        want = cuda_ops.gram_sym_acc_ref(G0, F)
+        before = cuda_ops.launches["gram_sym_acc"]
+        G = G0.clone()
+        got = cuda_ops.gram_sym_acc(G, F, out=G if in_place else None)
+        torch.cuda.synchronize()
+        assert cuda_ops.launches["gram_sym_acc"] == before + 1
+        assert (got is G) == in_place
+        Ff = F.float()
+        scale = G0.abs() + Ff.abs().T @ Ff.abs()
+        upper = _upper_tiles(d).to(cuda_device)
+        assert float(((got - want).abs() / scale)[upper].max()) <= 1e-5
+        if in_place:  # the lower tiles keep G's values
+            assert torch.equal(got[~upper], G0[~upper])
+
+    def test_same_bits_every_run(self, cuda_device):
+        rng = np.random.default_rng(1)
+        F = torch.from_numpy(rng.normal(size=(5000, 384)).astype(np.float32)).to(cuda_device)
+        G0 = torch.zeros((384, 384), device=cuda_device)
+        first = cuda_ops.gram_sym_acc(G0, F)
+        upper = _upper_tiles(384).to(cuda_device)
+        assert all(torch.equal(first[upper], cuda_ops.gram_sym_acc(G0, F)[upper])
+                   for _ in range(3))
+
+    def test_bad_operands_raise(self, cuda_device):
+        F = torch.zeros((8, 16), device=cuda_device)
+        with pytest.raises(ValueError):
+            cuda_ops.gram_sym_acc(torch.zeros((8, 8), device=cuda_device), F)
+        with pytest.raises(TypeError):
+            cuda_ops.gram_sym_acc(torch.zeros((16, 16), device=cuda_device), F.double())
+
+    def test_streamed_fold_launches_for_every_tile(self, cuda_device):
+        # On the card the fold takes the kernel for every tile: a tile with
+        # strided columns is copied to contiguous rows, and a float64 tile
+        # raises instead of taking the plain version.
+        from keystone_tpu_torch.parallel import streaming
+
+        rng = np.random.default_rng(2)
+        X = torch.from_numpy(rng.normal(size=(1300, 16)).astype(np.float32))
+        Y = torch.from_numpy(rng.normal(size=(1300, 5)).astype(np.float32))
+        W = torch.from_numpy(rng.normal(size=(300, 16)).astype(np.float32))
+
+        def column_major(X_t):
+            return torch.cos(X_t @ W.to(X_t.device).T).T.contiguous().T
+
+        want = streaming.gram_stats(X, Y, column_major, 300, 512, valid=1200)
+        before = cuda_ops.launches["gram_sym_acc"]
+        got = streaming.gram_stats(X.to(cuda_device), Y.to(cuda_device), column_major, 300,
+                                   512, valid=1200)
+        assert cuda_ops.launches["gram_sym_acc"] == before + 3
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-3)
+        with pytest.raises(TypeError):
+            streaming.gram_stats(X.to(cuda_device), Y.to(cuda_device),
+                                 lambda X_t: column_major(X_t).double(), 300, 512)
