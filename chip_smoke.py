@@ -2,14 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port's TIMIT paths from
+Builds every CUDA kernel of the port's TIMIT and CIFAR paths from
 ``keystone_tpu_torch/csrc/`` (one ``nvcc`` per source, all started
 together), then:
 
   1. holds each kernel against its plain PyTorch version on the card, at the
-     shapes the TIMIT slice gives it, with float32 and bfloat16 operands, and
-     times the kernel, the plain version and one PyTorch library call that
-     computes the same function;
+     shapes the TIMIT and CIFAR slices give it, with float32 and (except the
+     convolution) bfloat16 operands, and times the kernel, the plain version
+     and a PyTorch library yardstick that computes the same function;
   2. checks that a small run of the three TIMIT routes on the card agrees
      with the plain-PyTorch run of it on the CPU, then drives the
      ``--solver block`` slice end to end through its entry point,
@@ -33,7 +33,22 @@ together), then:
   5. fits and applies the optimizer-bound streamed fit (the TIMIT
      featurizer composed with ``StreamingLeastSquaresChoice``, which
      ``StreamedFitFusionRule`` binds into the fit) on 65,536 rows, and
-     holds its errors against ``--solver streaming`` on the same rows.
+     holds its errors against ``--solver streaming`` on the same rows;
+  6. runs RandomPatchCifarKernel small on the card against its plain run on
+     the CPU (equal errors), then through its entry point
+     ``keystone_tpu_torch.pipelines.cifar.run_random_patch_cifar_kernel``
+     at full width: 50,000 synthetic training and 12,500 test images, 100
+     whitened 6 x 6 x 3 filters, rectifier and pool to 1,800 features,
+     Gaussian kernel ridge regression with block 512 (98 blocks, the last
+     one 336 rows), 1 epoch; launches counted from 0 and checked against
+     their expected counts: ``conv_featurize`` once per row chunk of each
+     featurization, ``gaussian_kernel_block`` once per block in the
+     diagonal pre-pass and in each apply, ``gaussian_resid_block`` once
+     per sweep step, every TIMIT kernel 0;
+  7. measures where that fit's time goes: its Gauss-Seidel sweep with and
+     without the per-step host sync of the solve's rescue decision, and a
+     warm fit and apply under ``torch.profiler`` (device time by name, the
+     device's busy share).
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -70,9 +85,21 @@ D_FEAT, COL_START = NUM_COSINES * BLOCK, 2 * BLOCK
 # (pick_tile_rows(16384)): 8 full tiles and a ragged 12,856-row one.
 STREAM_N, STREAM_TILE = 275000, 32768
 
+# The CIFAR slice at its own width (keystone_tpu/pipelines/cifar.py): 50,000
+# training and 12,500 test images of 32 x 32 x 3, 100 filters of 6 x 6 x 3
+# (d = 108), 27 x 27 outputs, 2 x 100 rectified channels pooled 3 x 3:
+# 1,800 features; 10 classes; KRR block 512, 1 epoch.
+CIFAR_N, CIFAR_TEST, CIFAR_FILTERS, CIFAR_D, CIFAR_K = 50000, 12500, 100, 1800, 10
+CIFAR_BLOCK, CIFAR_GAMMA = 512, 5e-4
+CIFAR_BLOCKS = -(-CIFAR_N // CIFAR_BLOCK)  # 98: 97 full and one of 336 rows
+# Bytes per image of the fused featurizer's input and intermediates
+# (images, convolution, rectifier, pool, vector), which size its row chunks.
+CONV_ROW_BYTES = 4 * (32 * 32 * 3 + 27 * 27 * 100 + 27 * 27 * 200 + 2 * 3 * 3 * 200)
+
 # Each kernel, and the main-path route whose launches the JSON line reports.
 FLAT, STACKED = "timit fused flat fit (fit first)", "timit stacked fit (apply first)"
 STREAMED = "timit streamed fit (--solver streaming)"
+CIFAR = "cifar RandomPatchCifarKernel (fit, then train and test apply)"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -98,6 +125,18 @@ KERNELS = {
         source="keystone_tpu_torch/csrc/gram_sym_acc.cu",
         replaces="keystone_tpu/ops/pallas_ops.py:769", path=STREAMED,
     ),
+    "gaussian_kernel_block": dict(
+        source="keystone_tpu_torch/csrc/gaussian_kernel_block.cu",
+        replaces="keystone_tpu/ops/pallas_ops.py:164", path=CIFAR,
+    ),
+    "gaussian_resid_block": dict(
+        source="keystone_tpu_torch/csrc/gaussian_resid_block.cu",
+        replaces="keystone_tpu/ops/pallas_ops.py:266", path=CIFAR,
+    ),
+    "conv_featurize": dict(
+        source="keystone_tpu_torch/csrc/conv_featurize.cu",
+        replaces="keystone_tpu/ops/pallas_images.py:118", path=CIFAR,
+    ),
 }
 # Launches of the flat route: 4 blocks, 3 epochs, Gramians stashed after
 # the first epoch; 4 cosine branches in the fit and in each of two applies.
@@ -105,6 +144,7 @@ FLAT_LAUNCHES = {
     "cosine_features": 3 * NUM_COSINES, "gram_corr_sym": 0,
     "block_gram_sym": D_FEAT // BLOCK, "block_corr": EPOCHS * D_FEAT // BLOCK,
     "block_residual_update": EPOCHS * D_FEAT // BLOCK, "gram_sym_acc": 0,
+    "gaussian_kernel_block": 0, "gaussian_resid_block": 0, "conv_featurize": 0,
 }
 # Launches of the streamed route: one fold per row tile (9), one cosine bank
 # launch per tile in the fit (9), the train apply (9) and the test apply of
@@ -113,7 +153,8 @@ STREAM_TILES = -(-STREAM_N // STREAM_TILE)
 STREAMED_LAUNCHES = {
     "cosine_features": 2 * STREAM_TILES + -(-(STREAM_N // 4) // STREAM_TILE),
     "gram_corr_sym": 0, "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
-    "gram_sym_acc": STREAM_TILES,
+    "gram_sym_acc": STREAM_TILES, "gaussian_kernel_block": 0, "gaussian_resid_block": 0,
+    "conv_featurize": 0,
 }
 
 
@@ -601,14 +642,286 @@ def phase_optimizer_bound(cuda_ops, timit, TimitConfig):
     check_metrics("optimizer-bound streamed fit", train_eval, test_eval, N_TRAIN)
 
 
+def _conv_chunk_rows(fusion):
+    """Images per row chunk of the fused CIFAR featurizer (after its first,
+    one-image chunk): the chunk budget over the bytes per image."""
+    return fusion.CHUNK_BUDGET_BYTES // CONV_ROW_BYTES
+
+
+def _conv_launches(fusion, n):
+    return 1 + -(-(n - 1) // _conv_chunk_rows(fusion))
+
+
+def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
+    """The CIFAR slice's kernels at its shapes: the Gaussian kernel block of
+    one train block against all 50,000 standardized training rows (the
+    apply's shape; a diagonal block is timed beside it), the residual of
+    one sweep step, and the convolution of one row chunk of images."""
+    dev = torch.device("cuda")
+    m, n, d, k, g = CIFAR_N, CIFAR_BLOCK, CIFAR_D, CIFAR_K, CIFAR_GAMMA
+    X = torch.randn((m, d), generator=gen, device=dev)  # standardized features
+    xn = (X * X).sum(1)
+    Y, yn = X[2 * n:3 * n], xn[2 * n:3 * n]
+    W = torch.randn((m, k), generator=gen, device=dev) * 0.01
+    results = {}
+    for label, dtype in (("f32", torch.float32), ("bf16 operands", torch.bfloat16)):
+        got = cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g, compute_dtype=dtype)
+        want = cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(f"gaussian_kernel_block {label} X {m}x{d} @ Y {n}x{d}", err <= 1e-5,
+              f"max_abs_err {err:.3e} (tol 1e-5; K in [{want.min().item():.3f}, "
+              f"{want.max().item():.3f}])")
+        if label == "f32":
+            results["gaussian_kernel_block"] = dict(max_abs_err=err)
+        # Errors relative to the scale of the sums, max over entries of
+        # K^T |W|: 50,000 f32 terms summed in other orders.
+        got = cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g, compute_dtype=dtype)
+        again = cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g, compute_dtype=dtype)
+        want_r = cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g, compute_dtype=dtype)
+        scale = (want.T @ W.abs()).max().item()
+        torch.cuda.synchronize()
+        err = (got - want_r).abs().max().item()
+        check(f"gaussian_resid_block {label} X {m}x{d}, Y {n}x{d}, W {m}x{k}",
+              err <= 1e-4 * scale and torch.equal(got, again),
+              f"max_abs_err {err:.3e} ({err / scale:.2e} of scale), tol 1e-4 of scale, "
+              f"the same bits on a second call")
+        if label == "f32":
+            results["gaussian_resid_block"] = dict(max_abs_err=err)
+        del got, again, want, want_r
+    xyn = xn[:, None] + yn[None, :]
+    yardsticks = {
+        # (kernel, plain, library yardstick, bytes, flops)
+        "gaussian_kernel_block": (
+            lambda: cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g),
+            lambda: cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g),
+            lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_(),
+            4 * (m * d + n * d + m + n + m * n), 2 * m * n * d + 6 * m * n,
+        ),
+        "gaussian_resid_block": (
+            lambda: cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g),
+            lambda: cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g),
+            lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_().T @ W,
+            4 * (m * d + n * d + m + n + m * k + n * k), 2 * m * n * d + 6 * m * n + 2 * m * n * k,
+        ),
+    }
+    X16, Y16 = X.to(torch.bfloat16), Y.to(torch.bfloat16)
+    bf16_calls = {
+        "gaussian_kernel_block": lambda: cuda_ops.gaussian_kernel_block(X16, Y16, xn, yn, g),
+        "gaussian_resid_block": lambda: cuda_ops.gaussian_resid_block(X16, Y16, xn, yn, W, g),
+    }
+    for name, (kernel, plain, library, nbytes, flops) in yardsticks.items():
+        r = results[name]
+        r["ms"] = time_ms(kernel, 10)
+        r["plain_ms"] = time_ms(plain, 10)
+        r["library_ms"] = time_ms(library, 10)
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+        bf16_ms = time_ms(bf16_calls[name], 5)
+        log(f"  {name} f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
+            f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
+            f"bf16 operands: {bf16_ms:.3f} ms")
+    Xb, xb = X[:n], xn[:n]
+    diag_ms = time_ms(lambda: cuda_ops.gaussian_kernel_block(Xb, Xb, xb, xb, g), 20)
+    diag_bound, _ = bound_ms(4 * (n * d + n + n * n), 2 * n * n * d, PEAK_F32_FLOPS)
+    log(f"  gaussian_kernel_block diagonal block {n}x{d}: {diag_ms:.3f} ms "
+        f"(bound {diag_bound:.3f})")
+    del X, Y, W, X16, Y16, xyn, xn, yn, Xb, xb
+    torch.cuda.empty_cache()
+
+    # conv_featurize: one row chunk of the featurization, CIFAR images
+    # (pixels in [0, 255]), 100 unit filters of 6 x 6 x 3, whitening means.
+    c = _conv_chunk_rows(fusion)
+    p, f, dp = 6, CIFAR_FILTERS, 108
+    images = torch.rand((c, 32, 32, 3), generator=gen, device=dev) * 255
+    filters = torch.randn((f, dp), generator=gen, device=dev)
+    filters /= filters.norm(dim=1, keepdim=True)
+    means = torch.randn((dp,), generator=gen, device=dev) * 0.1
+
+    def conv():
+        return cuda_images.conv_featurize(images, filters, means, patch_size=p)
+
+    def plain():
+        return cuda_images.conv_featurize_ref(images, filters, means, patch_size=p)
+
+    def library():  # F.unfold (NCHW im2col) + normalise + matmul
+        cols = torch.nn.functional.unfold(images.permute(0, 3, 1, 2), p)  # (c, 3*36, 729)
+        cols = cols.view(c, 3, p, p, -1).permute(0, 4, 2, 3, 1).reshape(c, -1, dp)
+        cols = cuda_images.normalize_patch_rows(cols, 10.0) - means
+        return (cols @ filters.T).view(c, 27, 27, f)
+
+    got, want = conv(), plain()
+    patches = cuda_images.normalize_patch_rows(cuda_images.im2col(images, p), 10.0) - means
+    scale = (patches.abs() @ filters.abs().T).max().item()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    lib_err = (library() - want).abs().max().item()
+    check(f"conv_featurize f32 images {c}x32x32x3, filters {f}x{dp}",
+          err <= 1e-4 * scale and lib_err <= 1e-4 * scale,
+          f"max_abs_err {err:.3e} ({err / scale:.2e} of scale), tol 1e-4 of scale; "
+          f"the library yardstick's {lib_err:.3e}")
+    del got, want, patches
+    npix = c * 27 * 27
+    r = results["conv_featurize"] = dict(max_abs_err=err)
+    r["ms"] = time_ms(conv, 10)
+    r["plain_ms"] = time_ms(plain, 5)
+    r["library_ms"] = time_ms(library, 5)
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        4 * (c * 32 * 32 * 3 + f * dp + dp + npix * f),
+        2 * npix * dp * f + 5 * npix * dp,  # filter product + patch mean, variance, scaling
+        PEAK_F32_FLOPS,
+    )
+    log(f"  conv_featurize f32 ({c} images): {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+        f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']})")
+    del images, filters, means
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_cifar(cuda_ops, fusion):
+    """RandomPatchCifarKernel: small on the card against the CPU plain run,
+    then at full width through its entry point, launches counted from 0."""
+    from keystone_tpu_torch.pipelines import cifar
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    small = cifar.CifarConfig(synthetic_n=640, num_filters=32, whitener_size=400,
+                              block_size=256)
+    errs = {}
+    for device in ("cuda", "cpu"):
+        PipelineEnv.get_or_create().reset()
+        run = cifar.run_random_patch_cifar_kernel(small, device=device)
+        errs[device] = (run.train_eval.total_error, run.test_eval.total_error)
+    PipelineEnv.get_or_create().reset()
+    check("small RandomPatchCifarKernel (640 images, 32 filters, 3 blocks), card against "
+          "CPU plain versions", errs["cuda"] == errs["cpu"],
+          f"train/test error cuda {errs['cuda']}, cpu {errs['cpu']} (equal)")
+
+    config = cifar.CifarConfig(synthetic_n=CIFAR_N, num_filters=CIFAR_FILTERS,
+                               block_size=CIFAR_BLOCK, kernel_gamma=CIFAR_GAMMA, num_epochs=1)
+    expected = {name: 0 for name in cuda_ops.launches}
+    expected.update(
+        conv_featurize=2 * _conv_launches(fusion, CIFAR_N) + _conv_launches(fusion, CIFAR_TEST),
+        gaussian_kernel_block=3 * CIFAR_BLOCKS,  # diagonal pre-pass, train apply, test apply
+        gaussian_resid_block=CIFAR_BLOCKS,  # one per sweep step, 1 epoch
+    )
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cifar.run_random_patch_cifar_kernel(config, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    PipelineEnv.get_or_create().reset()
+    train_err, test_err = result.train_eval.total_error, result.test_eval.total_error
+    log(f"  {CIFAR}, n={CIFAR_N}, test {CIFAR_TEST}, d={CIFAR_D}, block {CIFAR_BLOCK} "
+        f"({CIFAR_BLOCKS} blocks), 1 epoch: train error {100 * train_err:.3f}%, test error "
+        f"{100 * test_err:.3f}%, fit {result.fit_seconds:.3f} s, apply (train + test) "
+        f"{result.apply_seconds:.3f} s, run {wall:.3f} s (data generation included), "
+        f"peak allocated {peak / 2**30:.2f} GiB, launches {counts}")
+    check(f"{CIFAR} launches", counts == expected, f"{counts}, expected {expected}")
+    check(f"{CIFAR} metrics",
+          0.0 <= train_err <= 1.0 and 0.0 <= test_err < 0.9
+          and result.train_eval.total == CIFAR_N and result.test_eval.total == CIFAR_TEST,
+          "errors in [0, 1], test error below chance (90%), every image scored")
+    return counts, dict(fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
+                        peak_allocated_bytes=peak, train_error=train_err,
+                        test_error=test_err), result, config
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def phase_cifar_time(result, config):
+    """Where the full-width CIFAR fit's time goes. (a) The Gauss-Seidel
+    sweep on the run's own train features, timed as it is (each step's
+    solve reads its rescue decision on the host: one sync a step) and with
+    the solve's acceptance check taken out (the same Cholesky solve, no
+    sync), in turns; the two give the same weights. (b) A warm fit and
+    apply under ``torch.profiler``: device time by name and the device's
+    busy share of the wall time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from keystone_tpu_torch.ops.learning import kernel
+    from keystone_tpu_torch.pipelines import cifar
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    (mapper,) = [op for op in result.fitted.transformer_graph.operators.values()
+                 if isinstance(op, kernel.KernelBlockLinearMapper)]
+    kt, bs, lam = mapper.kernel_transformer, mapper.block_size, float(config.lam)
+    n = kt.n_train
+    nb = -(-n // bs)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    labels = torch.randint(0, CIFAR_K, (n,), generator=gen, device=dev)
+    Y = 2.0 * torch.nn.functional.one_hot(labels, CIFAR_K).float() - 1.0
+    grams, chols = kernel._diag_factor_prepass(kt, lam, bs, nb)
+    order = np.arange(nb)
+    with_sync = kernel._solve_psd
+
+    def without_sync(gram, rhs, lam, chol=None):
+        return torch.cholesky_solve(rhs, chol)
+
+    times, stacks = {"with sync": [], "without": []}, {}
+    for label in ("with sync", "without", "without", "with sync"):
+        kernel._solve_psd = with_sync if label == "with sync" else without_sync
+        try:
+            stack = torch.zeros((nb, bs, CIFAR_K), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stacks[label] = kernel._krr_sweep(kt, Y, order, grams, chols, lam, bs, stack)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+        finally:
+            kernel._solve_psd = with_sync
+    sync_s, free_s = (statistics.median(times[k]) for k in ("with sync", "without"))
+    log(f"  sweep of {nb} steps: {sync_s:.4f} s with the per-step host sync, {free_s:.4f} s "
+        f"without (runs {times}); the syncs cost {1e3 * (sync_s - free_s) / nb:.3f} ms a step")
+    check("sweep without the host sync gives the same weights",
+          torch.equal(stacks["with sync"], stacks["without"]), "bitwise equal")
+    del grams, chols, stacks, Y
+
+    PipelineEnv.get_or_create().reset()
+    pipeline, train, test = cifar.build_pipeline(config, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fitted = pipeline.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fitted.apply(train.data)
+        fitted.apply(test.data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    PipelineEnv.get_or_create().reset()
+    rows = sorted(
+        ((e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
+         if str(getattr(e, "device_type", "")).endswith("CUDA")),
+        key=lambda row: -row[1],
+    )
+    rows = [row for row in rows if row[1] > 0]
+    busy_ms = sum(row[1] for row in rows)
+    log(f"  profiled warm fit {fit_s:.3f} s, fit + apply {wall:.3f} s; device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / 1e3 / wall:.1f}% of fit + apply)")
+    for name, ms, count in rows[:14]:
+        log(f"    {ms:10.3f} ms  {count:6d}x  {name[:90]}")
+    return dict(sweep_seconds_with_sync=sync_s, sweep_seconds_without_sync=free_s,
+                profiled_fit_seconds=fit_s, profiled_fit_apply_seconds=wall,
+                device_busy_ms=busy_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from keystone_tpu_torch.ops import cuda_ops
+    from keystone_tpu_torch.ops import cuda_images, cuda_ops
     from keystone_tpu_torch.pipelines import timit
     from keystone_tpu_torch.pipelines.timit import TimitConfig
+    from keystone_tpu_torch.workflow import fusion
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -627,6 +940,8 @@ def main():
     log("[phase 1] kernels against their plain versions")
     cuda_ops.reset_launch_counts()
     results = phase_kernels(cuda_ops)
+    results.update(phase_cifar_kernels(
+        cuda_ops, cuda_images, fusion, torch.Generator(device="cuda").manual_seed(1)))
     log(f"  phase 1 launches (checks and timing, not the main path): {cuda_ops.launches}")
     log("[phase 2] TIMIT slice: three routes small against the CPU; --solver block at full width")
     phase_small_reference(timit, TimitConfig)
@@ -638,14 +953,20 @@ def main():
     streamed_counts, streamed = phase_streamed(cuda_ops, timit, TimitConfig)
     log("[phase 5] optimizer-bound streamed fit")
     phase_optimizer_bound(cuda_ops, timit, TimitConfig)
+    log("[phase 6] RandomPatchCifarKernel: small against the CPU; full width")
+    cifar_counts, cifar_run, cifar_result, cifar_config = phase_cifar(cuda_ops, fusion)
+    log("[phase 7] where the full-width CIFAR fit's time goes")
+    cifar_run["time"] = phase_cifar_time(cifar_result, cifar_config)
 
-    route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts}
+    route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
+                    CIFAR: cifar_counts}
     kernels = [
         dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
              launches=route_counts[meta["path"]][name], path=meta["path"], **results[name])
         for name, meta in KERNELS.items()
     ]
-    log(f"main path: {json.dumps({FLAT: flat, STACKED: stacked, STREAMED: streamed})}")
+    main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run}
+    log(f"main path: {json.dumps(main_path)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Data loaders for the TIMIT slice.
+"""Data loaders for the TIMIT and CIFAR slices.
 
-Port of ``keystone_tpu/data/loaders.py`` (the TIMIT loader and the
-synthetic generators). The synthetic draws are numpy's and are copied bit
-for bit, so the port and the reference see the same rows from the same
-seed. CSV files are parsed with numpy instead of the reference's native
-parser. Every loader takes an explicit ``device``; None means the CUDA
-device (raising without one). Features arrive as float32, labels as int64.
+Port of ``keystone_tpu/data/loaders.py`` (the TIMIT and CIFAR-10 binary
+loaders and the synthetic generators). The synthetic draws are numpy's and
+are copied bit for bit, so the port and the reference see the same rows
+from the same seed. CSV files are parsed with numpy instead of the
+reference's native parser, and CIFAR records are split with numpy (the
+reference's numpy path; its native record splitter is not ported). Every
+loader takes an explicit ``device``; None means the CUDA device (raising
+without one). Features and images arrive as float32, labels as int64.
 """
 
 from __future__ import annotations
@@ -31,6 +33,26 @@ def read_csv_matrix(path: str) -> np.ndarray:
     if mat.size == 0:
         raise ValueError(f"{path}: no data rows")
     return mat
+
+
+CIFAR_LABEL_SIZE = 1
+CIFAR_IMAGE_BYTES = 3072  # 32*32*3
+CIFAR_RECORD_BYTES = CIFAR_LABEL_SIZE + CIFAR_IMAGE_BYTES
+
+
+def load_cifar_binary(path: str, device=None) -> LabeledData:
+    """CIFAR-10 binary format: 3073-byte records of [label, 3072 pixel bytes]
+    (reference: loaders/CifarLoader.scala:14-53). Images come out as
+    (n, 32, 32, 3) float32 in [0, 255] (pixel bytes are exact in float32),
+    converted from CIFAR's channel-planar records to HWC."""
+    with open(path, "rb") as f:
+        raw_bytes = f.read()
+    if len(raw_bytes) % CIFAR_RECORD_BYTES != 0:
+        raise ValueError(f"{path}: not a multiple of {CIFAR_RECORD_BYTES} bytes")
+    records = np.frombuffer(raw_bytes, dtype=np.uint8).reshape(-1, CIFAR_RECORD_BYTES)
+    labels = records[:, 0].astype(np.int64)
+    images = records[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return _labeled(images, labels, device)
 
 
 class TimitFeaturesDataLoader:
@@ -87,3 +109,27 @@ def synthetic_timit(n: int = 8192, seed: int = 0, device=None) -> LabeledData:
         n, TimitFeaturesDataLoader.num_features, TimitFeaturesDataLoader.num_classes,
         seed=seed, class_sep=0.6, device=device,
     )
+
+
+def synthetic_cifar(n: int = 256, seed: int = 0, num_classes: int = 10,
+                    device=None) -> LabeledData:
+    """CIFAR-shaped synthetic images: (n, 32, 32, 3) in [0, 255] with a
+    class-dependent low-frequency pattern plus noise, so convolutional
+    featurizers have signal to find. The reference's float64 draws,
+    narrowed to float32 on the way to the device."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, size=n)
+    yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    # One spatial frequency/phase pattern per class (fixed across splits).
+    pat_rng = np.random.default_rng(1234)
+    freqs = pat_rng.uniform(0.2, 1.2, size=(num_classes, 2))
+    phases = pat_rng.uniform(0, 2 * np.pi, size=(num_classes, 3))
+    images = np.empty((n, 32, 32, 3), dtype=np.float64)
+    for c in range(num_classes):
+        base = np.stack(
+            [np.sin(freqs[c, 0] * xx + freqs[c, 1] * yy + phases[c, ch]) for ch in range(3)],
+            axis=-1,
+        )
+        images[labels == c] = 127.5 + 90.0 * base
+    images += rng.normal(scale=25.0, size=images.shape)
+    return _labeled(np.clip(images, 0, 255), labels, device)

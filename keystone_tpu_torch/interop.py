@@ -20,6 +20,14 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
   - ``StreamingFeaturizedLinearModel`` over a ``CosineBankFeaturize``:
     ``{"W_stack": (nb, block, k), "fmean": (d,) or None, "ymean": (k,) or
     None, "Wrf": (d, d_in), "brf": (d,), "tile_rows": int}``
+  - ``ZCAWhitener``: ``{"whitener": (d, d), "means": (d,)}``
+  - ``Convolver``: ``{"filters": (k, p²·c), "img_channels": int,
+    "whitener": {"whitener", "means"} or None, "normalize_patches": bool,
+    "var_constant": float}``
+  - ``KernelBlockLinearMapper``: ``{"w_locals": [(block_size, k), ...],
+    "block_size": int, "train_X": (n_train, d), "gamma": float,
+    "kernel_dtype": "f32" or "bf16"}`` (the reference's train rows may
+    carry padding rows past ``n_train``; pass the first ``n_train``)
 """
 
 from __future__ import annotations
@@ -31,8 +39,14 @@ import torch
 
 from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops.images.conv import Convolver
 from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+from keystone_tpu_torch.ops.learning.kernel import (
+    GaussianKernelTransformer,
+    KernelBlockLinearMapper,
+)
 from keystone_tpu_torch.ops.learning.linear import LinearMapper
+from keystone_tpu_torch.ops.learning.pca import ZCAWhitener
 from keystone_tpu_torch.ops.learning.streaming_ls import (
     CosineBankFeaturize,
     StreamingFeaturizedLinearModel,
@@ -105,10 +119,53 @@ def streaming_linear_model(
     )
 
 
+def zca_whitener(whitener, means, device=None) -> ZCAWhitener:
+    device = resolve_device(device)
+    return ZCAWhitener(_f32(whitener, device), _f32(means, device))
+
+
+def convolver(filters, img_channels: int, whitener: Optional[Mapping[str, Any]] = None,
+              normalize_patches: bool = True, var_constant: float = 10.0,
+              device=None) -> Convolver:
+    """The reference's ``Convolver`` (its packed filters and whitener)."""
+    device = resolve_device(device)
+    return Convolver(
+        _f32(filters, device), img_x=-1, img_y=-1, img_channels=int(img_channels),
+        whitener=None if whitener is None else zca_whitener(
+            whitener["whitener"], whitener["means"], device),
+        normalize_patches=bool(normalize_patches), var_constant=float(var_constant),
+    )
+
+
+def kernel_block_linear_mapper(w_locals: Sequence, block_size: int, train_X, gamma: float,
+                               kernel_dtype: str = "f32",
+                               device=None) -> KernelBlockLinearMapper:
+    """The reference's fitted kernel ridge model: its block weights, the
+    true train rows and γ."""
+    device = resolve_device(device)
+    X = _f32(train_X, device)
+    transformer = GaussianKernelTransformer(float(gamma), X, X.shape[0], kernel_dtype)
+    return KernelBlockLinearMapper(
+        [_f32(w, device) for w in w_locals], int(block_size), transformer, X.shape[0]
+    )
+
+
 def params_from_jax(params: Mapping[str, Any], device=None):
     """Build the port's module from one reference module's parameters (see
     the module docstring for the keys of each)."""
     keys = set(params)
+    if "w_locals" in keys:
+        return kernel_block_linear_mapper(
+            params["w_locals"], params["block_size"], params["train_X"], params["gamma"],
+            params.get("kernel_dtype", "f32"), device,
+        )
+    if "filters" in keys:
+        return convolver(
+            params["filters"], params["img_channels"], params.get("whitener"),
+            params.get("normalize_patches", True), params.get("var_constant", 10.0), device,
+        )
+    if {"whitener", "means"} <= keys:
+        return zca_whitener(params["whitener"], params["means"], device)
     if "W_stack" in keys:
         return streaming_linear_model(
             params["W_stack"], params.get("fmean"), params.get("ymean"), params["Wrf"],

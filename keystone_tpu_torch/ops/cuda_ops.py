@@ -19,10 +19,20 @@ block slice, the fused flat fit and the streamed fit run:
   - :func:`gram_sym_acc` ↔ ``pallas_ops.gram_sym_acc``
     (``csrc/gram_sym_acc.cu``): ``G + FᵀF`` on the upper-triangle tiles,
     the streamed fit's per-tile Gramian fold, accumulating in place.
-    :func:`gram_acc_ok` is its guard.
+    :func:`gram_acc_ok` is its guard;
+  - :func:`gaussian_kernel_block` ↔ ``pallas_ops.gaussian_kernel_block``
+    (``csrc/gaussian_kernel_block.cu``): ``exp(−γ·max(‖x‖²+‖y‖²−2x·y, 0))``
+    with the distance and exp epilogue on the register tile, for kernel
+    ridge regression's diagonal blocks and its apply;
+  - :func:`gaussian_resid_block` ↔ ``pallas_ops.gaussian_resid_block``
+    (``csrc/gaussian_resid_block.cu``): ``K(X, Y)ᵀ W`` with the kernel
+    block contracted tile by tile and never stored, every step of the
+    kernel ridge regression sweep.
 
 All but the cosine kernel share one FP32-FMA register tile
-(``csrc/fma_tile.cuh``).
+(``csrc/fma_tile.cuh``). The image featurizer's kernel
+(``csrc/conv_featurize.cu``) has its wrapper in ``ops/cuda_images.py``; it
+is built, loaded and counted here with the others.
 
 Each wrapper keeps its Pallas twin's name and operand contract. For a
 tensor on the CPU it computes the plain PyTorch version (``*_ref``); for a
@@ -56,7 +66,8 @@ import torch
 launches: Dict[str, int] = {
     "cosine_features": 0, "gram_corr_sym": 0,
     "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
-    "gram_sym_acc": 0,
+    "gram_sym_acc": 0, "gaussian_kernel_block": 0, "gaussian_resid_block": 0,
+    "conv_featurize": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -65,7 +76,7 @@ _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point of each source: name -> (symbol, argtypes).
 _ENTRY_POINTS = {
     "cosine_features": (
@@ -86,6 +97,18 @@ _ENTRY_POINTS = {
     ),
     "gram_sym_acc": (
         "kt_gram_sym_acc", [_P, _P, _P, _I, _I, _L, _L, _L, _I, _P]
+    ),
+    "gaussian_kernel_block": (
+        "kt_gaussian_kernel_block",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _I, _P],
+    ),
+    "gaussian_resid_block": (
+        "kt_gaussian_resid_block",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _F, _I, _P],
+    ),
+    "conv_featurize": (
+        "kt_conv_featurize",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -581,6 +604,151 @@ def gram_sym_acc(G, F, out=None):
         err = fn(
             F.data_ptr(), G.data_ptr(), out.data_ptr(), n, d, F.stride(0), G.stride(0),
             out.stride(0), int(F.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Gaussian kernel block and the fused residual: exp(−γ‖x − y‖²)
+# ---------------------------------------------------------------------------
+
+
+def _kernel_operand(X, compute_dtype):
+    """X as the Gaussian kernels read it: float32, rounded to bf16 when
+    ``compute_dtype`` is bf16 (the reference casts to f32 first, then to
+    the compute dtype inside its kernel). Other compute dtypes raise."""
+    if compute_dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    return X if X.dtype == compute_dtype else X.to(torch.float32).to(compute_dtype)
+
+
+def gaussian_kernel_block_ref(X, Y, x_norms, y_norms, gamma: float,
+                              compute_dtype=torch.float32):
+    """Plain PyTorch version of :func:`gaussian_kernel_block`:
+    ``exp(−γ·max(xn_i + yn_j − 2 X_i·Y_j, 0))`` in float32, the cross term
+    from the operands rounded to ``compute_dtype``."""
+    Xf = _kernel_operand(X, compute_dtype).to(torch.float32)
+    Yf = _kernel_operand(Y, compute_dtype).to(torch.float32)
+    sq = (x_norms.to(torch.float32)[:, None] + y_norms.to(torch.float32)[None, :]
+          - 2.0 * (Xf @ Yf.T))
+    return torch.exp(-float(gamma) * torch.clamp_min(sq, 0.0))
+
+
+def _check_gaussian(name, X, Y, x_norms, y_norms):
+    _check_rows(name, X, "X")
+    _check_rows(name, Y, "Y")
+    if X.shape[1] != Y.shape[1] or x_norms.shape != (X.shape[0],) or (
+        y_norms.shape != (Y.shape[0],)
+    ):
+        raise ValueError(
+            f"{name}: shapes X {tuple(X.shape)}, Y {tuple(Y.shape)}, norms "
+            f"{tuple(x_norms.shape)}, {tuple(y_norms.shape)} do not match"
+        )
+    if X.dtype != Y.dtype or X.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: X and Y must both be float32 or bfloat16, got "
+                        f"{X.dtype}, {Y.dtype}")
+
+
+def gaussian_kernel_block(X, Y, x_norms, y_norms, gamma: float,
+                          compute_dtype=torch.float32):
+    """K[i, j] = exp(−γ‖X_i − Y_j‖²) as one fused kernel, the squared
+    distances never in device memory.
+
+    X: (m, d), Y: (n, d) with contiguous rows (a row slice of a larger
+    matrix is read in place); x_norms (m,), y_norms (n,) their squared row
+    norms. ``compute_dtype=torch.bfloat16`` rounds X and Y to bf16 (the
+    products still accumulate in f32; bf16 operands are used as they are).
+    Returns (m, n) float32. Ragged m, n and d are masked in the kernel.
+    """
+    if all(t.device.type == "cpu" for t in (X, Y, x_norms, y_norms)):
+        return gaussian_kernel_block_ref(X, Y, x_norms, y_norms, gamma, compute_dtype)
+    name = "gaussian_kernel_block"
+    device = _cuda_operands(name, (X, Y, x_norms, y_norms))
+    Xk, Yk = _kernel_operand(X, compute_dtype), _kernel_operand(Y, compute_dtype)
+    xn = x_norms.to(torch.float32).contiguous()
+    yn = y_norms.to(torch.float32).contiguous()
+    _check_gaussian(name, Xk, Yk, xn, yn)
+    m, d = Xk.shape
+    n = Yk.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    fn = _lib(name).kt_gaussian_kernel_block
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            Xk.data_ptr(), Yk.data_ptr(), xn.data_ptr(), yn.data_ptr(), out.data_ptr(),
+            m, n, d, Xk.stride(0), Yk.stride(0), out.stride(0), float(gamma),
+            int(Xk.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return out
+
+
+def gaussian_resid_block_ref(X, Y, x_norms, y_norms, W, gamma: float,
+                             compute_dtype=torch.float32):
+    """Plain PyTorch version of :func:`gaussian_resid_block`:
+    ``K(X, Y)ᵀ W`` in float32, K from :func:`gaussian_kernel_block_ref`."""
+    K = gaussian_kernel_block_ref(X, Y, x_norms, y_norms, gamma, compute_dtype)
+    return K.T @ W.to(torch.float32)
+
+
+def _resid_splits(m: int, n: int, device) -> int:
+    """Row chunks of one gaussian_resid_block launch: enough (column tile,
+    chunk) blocks for about four per SM, each chunk at least one 128-row
+    tile. Fixed by the shapes, so the summation order never changes from
+    run to run."""
+    tiles = -(-n // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-4 * sms // tiles), -(-m // 128)))
+
+
+def gaussian_resid_block(X, Y, x_norms, y_norms, W, gamma: float,
+                         compute_dtype=torch.float32):
+    """``K(X, Y)ᵀ W`` with the Gaussian kernel block made tile by tile and
+    contracted at once: the (m, n) block never exists in device memory.
+
+    X: (m, d) training rows, Y: (n, d) one block's rows, both with
+    contiguous rows; x_norms (m,), y_norms (n,); W: (m, k) the dual model,
+    taken as float32. Returns (n, k) float32. Rows of X past m are masked
+    in the kernel, not read, so W needs no ghost rows. The sum over the m
+    rows is split into chunks whose partial sums add in a fixed order: no
+    atomics, the same bits every run.
+    """
+    if all(t.device.type == "cpu" for t in (X, Y, x_norms, y_norms, W)):
+        return gaussian_resid_block_ref(X, Y, x_norms, y_norms, W, gamma, compute_dtype)
+    name = "gaussian_resid_block"
+    device = _cuda_operands(name, (X, Y, x_norms, y_norms, W))
+    Xk, Yk = _kernel_operand(X, compute_dtype), _kernel_operand(Y, compute_dtype)
+    xn = x_norms.to(torch.float32).contiguous()
+    yn = y_norms.to(torch.float32).contiguous()
+    _check_gaussian(name, Xk, Yk, xn, yn)
+    Wk = W if W.dtype == torch.float32 else W.to(torch.float32)
+    _check_rows(name, Wk, "W")
+    m, d = Xk.shape
+    n, k = Yk.shape[0], Wk.shape[1]
+    if Wk.shape[0] != m:
+        raise ValueError(f"{name}: W {tuple(W.shape)} must have X's {m} rows")
+    out = torch.empty((n, k), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    if m == 0:
+        return out.zero_()
+    splits = _resid_splits(m, n, device)
+    partials = None
+    if splits > 1:
+        partials = torch.empty((splits, n, k), dtype=torch.float32, device=device)
+    fn = _lib(name).kt_gaussian_resid_block
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            Xk.data_ptr(), Yk.data_ptr(), xn.data_ptr(), yn.data_ptr(), Wk.data_ptr(),
+            None if partials is None else partials.data_ptr(), out.data_ptr(),
+            m, n, d, k, Xk.stride(0), Yk.stride(0), Wk.stride(0), splits, float(gamma),
+            int(Xk.dtype == torch.bfloat16), stream,
         )
     _check_launch(name, err)
     return out

@@ -49,9 +49,10 @@ def _corr(a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def _psd_factor(gram: torch.Tensor, lam: float) -> torch.Tensor:
     """Cholesky factor of (gram + lam I) — loop-invariant across BCD epochs
     for a fixed block, so multi-epoch sweeps stash it next to the Gramian.
+    ``gram`` may be a (batch, d, d) stack, factored in one batched call.
     A failed factorization is not raised here: its (non-finite or garbage)
     factor is caught by :func:`_solve_psd`'s acceptance check."""
-    eye = torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)
+    eye = torch.eye(gram.shape[-1], dtype=gram.dtype, device=gram.device)
     chol, _ = torch.linalg.cholesky_ex(gram + lam * eye)
     return chol
 

@@ -4,4 +4,4 @@ Launch by name via ``python -m keystone_tpu_torch.run <Name>``; modules are
 imported lazily.
 """
 
-__all__ = ["timit"]
+__all__ = ["cifar", "timit"]

@@ -1,10 +1,16 @@
 """Command-line entry point: ``python -m keystone_tpu_torch.run <Pipeline> [flags]``.
 
-Port of ``keystone_tpu/run.py``; only TimitPipeline is ported so far,
-with ``--solver block`` (the resident block solver, the default) and
-``--solver streaming`` (the out-of-core tile-streamed fit); ``--solver
-auto`` is not ported yet. Pipelines run on the CUDA device unless given
-``--device cpu``.
+Port of ``keystone_tpu/run.py``. Ported so far:
+
+  - TimitPipeline, with ``--solver block`` (the resident block solver, the
+    default) and ``--solver streaming`` (the out-of-core tile-streamed
+    fit); ``--solver auto`` is not ported yet;
+  - RandomPatchCifarKernel (the CIFAR random-patch featurizer and Gaussian
+    kernel ridge regression), with the reference's flags plus
+    ``--syntheticN`` (training images of the synthetic data), e.g.
+    ``python -m keystone_tpu_torch.run RandomPatchCifarKernel --syntheticN 50000``.
+
+Pipelines run on the CUDA device unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,9 +25,16 @@ def _timit(argv):
     timit.main(argv)
 
 
+def _cifar_kernel(argv):
+    from keystone_tpu_torch.pipelines import cifar
+
+    cifar.main(argv)
+
+
 PIPELINES: Dict[str, Callable] = {
     "TimitPipeline": _timit,
     "Timit": _timit,
+    "RandomPatchCifarKernel": _cifar_kernel,
 }
 
 

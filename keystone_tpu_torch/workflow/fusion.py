@@ -95,13 +95,51 @@ def _compose(fns, X):
     return X
 
 
+# Bytes of one chunk's intermediates in FusedBatchTransformer.batch_apply,
+# the counterpart of the streamed fit's 2 GiB feature slab.
+CHUNK_BUDGET_BYTES = 2 << 30
+
+
+def _row_bytes(t) -> int:
+    return t.element_size() * t.numel() // max(t.shape[0], 1)
+
+
+def _compose_in_chunks(fns, X):
+    """``_compose(fns, X)`` over row chunks whose intermediates take about
+    :data:`CHUNK_BUDGET_BYTES` together.
+
+    Eager PyTorch materialises every member's output, and a chain can widen
+    its rows many times over (the CIFAR featurizer's convolution and
+    rectifier make 0.9 MB per image before the pool shrinks it to 7 KB),
+    so the whole batch at once may not fit the device. The first row runs
+    alone and measures the bytes per row of every intermediate; the rest
+    run in chunks of ``CHUNK_BUDGET_BYTES // that`` rows. The members are
+    row-local by contract, so the result equals the unchunked composition."""
+    X = as_tensor(X)
+    n = X.shape[0]
+    if n <= 1:
+        return _compose(fns, X)
+    per_row, Z = _row_bytes(X), X[:1]
+    for f in fns:
+        Z = f(Z)
+        per_row += _row_bytes(Z)
+    out = torch.empty((n,) + tuple(Z.shape[1:]), dtype=Z.dtype, device=Z.device)
+    out[:1] = Z
+    rows = max(1, CHUNK_BUDGET_BYTES // max(per_row, 1))
+    for s in range(1, n, rows):
+        out[s:s + rows] = _compose(fns, X[s:s + rows])
+    return out
+
+
 class FusedBatchTransformer(Transformer):
     """A chain of row-local transformers run as one composed function.
 
     Single-datum ``apply`` keeps exact per-node semantics (composition of
     the members' ``apply``); the batch path composes the members'
-    ``device_fn`` functions. Host-form datasets fall back to the sequential
-    member chain.
+    ``device_fn`` functions over row chunks sized by a byte budget
+    (:func:`_compose_in_chunks`): the reference's one XLA program fuses the
+    intermediates away, eager PyTorch holds each of them whole. Host-form
+    datasets fall back to the sequential member chain.
     """
 
     def __init__(self, members: Sequence[Transformer]):
@@ -146,7 +184,8 @@ class FusedBatchTransformer(Transformer):
             for m in self.members:
                 data = m.batch_apply(data)
             return data
-        return data.map_batch(self._composed)
+        fns = [m.device_fn() for m in self.members]
+        return data.map_batch(lambda X: _compose_in_chunks(fns, X))
 
 
 class DeviceFit:

@@ -17,9 +17,9 @@ import pytest
 import torch
 
 import keystone_tpu_torch
-from keystone_tpu_torch.data.loaders import synthetic_timit
+from keystone_tpu_torch.data.loaders import synthetic_cifar, synthetic_timit
 from keystone_tpu_torch.ops.stats import CosineRandomFeatures
-from keystone_tpu_torch.pipelines import timit
+from keystone_tpu_torch.pipelines import cifar, timit
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "keystone_tpu_torch"
@@ -27,6 +27,7 @@ PORT_FILES = sorted(PORT.rglob("*.py"))
 # Port modules without a same-named reference module, and what they name.
 COUNTERPARTS = {
     "ops/cuda_ops.py": "keystone_tpu/ops/pallas_ops.py",
+    "ops/cuda_images.py": "keystone_tpu/ops/pallas_images.py",
     "interop.py": None,
 }
 
@@ -51,7 +52,10 @@ def test_port_has_modules():
     for rel in ("__init__.py", "ops/cuda_ops.py", "ops/stats.py", "parallel/linalg.py",
                 "ops/learning/block.py", "ops/learning/linear.py", "workflow/fusion.py",
                 "parallel/streaming.py", "ops/learning/streaming_ls.py",
-                "pipelines/timit.py", "interop.py", "run.py"):
+                "pipelines/timit.py", "interop.py", "run.py",
+                "utils/images.py", "ops/images/core.py", "ops/images/conv.py",
+                "ops/cuda_images.py", "ops/learning/pca.py", "ops/learning/kernel.py",
+                "pipelines/cifar.py"):
         assert rel in rels
 
 
@@ -81,11 +85,15 @@ def test_kernel_sources_sit_beside_the_package():
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
     assert sources == [
         "block_corr.cu", "block_gram_sym.cu", "block_residual_update.cu",
-        "cosine_features.cu", "gram_corr_sym.cu", "gram_sym_acc.cu",
+        "conv_featurize.cu", "cosine_features.cu", "gaussian_kernel_block.cu",
+        "gaussian_resid_block.cu", "gram_corr_sym.cu", "gram_sym_acc.cu",
     ]
     for src in sources:
         text = (PORT / "csrc" / src).read_text()
-        assert "Replaces the TPU kernel keystone_tpu/ops/pallas_ops.py" in text
+        assert any(
+            f"Replaces the TPU kernel keystone_tpu/ops/{ref}" in text
+            for ref in ("pallas_ops.py", "pallas_images.py")
+        )
         assert "Bound on an H100" in text
 
 
@@ -108,6 +116,11 @@ class TestDeviceRules:
             CosineRandomFeatures(4, 4, 1.0, seed=0)
         with pytest.raises(RuntimeError):
             timit.run(timit.TimitConfig(num_cosines=1, block_size=8, synthetic_n=16))
+        with pytest.raises(RuntimeError):
+            synthetic_cifar(4, seed=0)
+        with pytest.raises(RuntimeError):
+            cifar.run_random_patch_cifar_kernel(
+                cifar.CifarConfig(synthetic_n=16, num_filters=2, whitener_size=20))
 
     def test_cpu_must_be_asked_for(self):
         data = synthetic_timit(16, seed=0, device="cpu")
