@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port's TIMIT and CIFAR paths from
+Builds every CUDA kernel of the port's TIMIT, CIFAR and sparse paths from
 ``keystone_tpu_torch/csrc/`` (one ``nvcc`` per source, all started
 together), then:
 
   1. holds each kernel against its plain PyTorch version on the card, at the
-     shapes the TIMIT and CIFAR slices give it, with float32 and (except the
-     convolution) bfloat16 operands, and times the kernel, the plain version
-     and a PyTorch library yardstick that computes the same function;
+     shapes the TIMIT, CIFAR and sparse slices give it, with float32 and
+     (except the convolution) bfloat16 operands, and times the kernel, the
+     plain version and a PyTorch library yardstick that computes the same
+     function; ``gram_corr_sym_acc`` on the Amazon chunk (65,536 x 16,385,
+     k = 2) and on the ragged last chunk of 41,248 rows, in place and into
+     a new buffer;
   2. checks that a small run of the three TIMIT routes on the card agrees
      with the plain-PyTorch run of it on the CPU, then drives the
      ``--solver block`` slice end to end through its entry point,
@@ -48,7 +51,20 @@ together), then:
   7. measures where that fit's time goes: its Gauss-Seidel sweep with and
      without the per-step host sync of the solve's rescue decision, and a
      warm fit and apply under ``torch.profiler`` (device time by name, the
-     device's busy share).
+     device's busy share);
+  8. runs the sparse ridge slice (``SparseLBFGSwithL2``): small on the card
+     against its plain run on the CPU (the same weights and final loss),
+     then at the Amazon geometry of the reference's bench row (n = 500,000
+     rows of d = 16,384 features with 82 active a row, k = 2, λ 1e-3, 20
+     L-BFGS iterations; labels from a planted sparse model), fitted through
+     a ``Sparsify`` pipeline and applied to the training and 125,000 test
+     rows by four engines — gather, gram with bf16 slabs, gram with f32
+     slabs, gram over the compressed-resident int16 + bf16 COO — each with
+     the launch counts set to 0 before and read after: every gram fit
+     launches ``gram_corr_sym_acc`` once per chunk (8) and nothing else,
+     the gather fit no kernel; the compressed engine gives the bits of the
+     bf16 one. Last, ``run_lbfgs_gram_streamed`` over 524,288 resident
+     rows (8 chunks) whole and in segments of 3 chunks: the same bits.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -63,6 +79,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): float32 outside
@@ -96,10 +113,24 @@ CIFAR_BLOCKS = -(-CIFAR_N // CIFAR_BLOCK)  # 98: 97 full and one of 336 rows
 # (images, convolution, rectifier, pool, vector), which size its row chunks.
 CONV_ROW_BYTES = 4 * (32 * 32 * 3 + 27 * 27 * 100 + 27 * 27 * 200 + 2 * 3 * 3 * 200)
 
+# The sparse slice at the Amazon geometry of the reference's bench row
+# (bench.py:1212-1300): d = 16,384 features and the intercept lane, 82
+# active features a row, k = 2 (±1 one-hot), λ 1e-3, 20 L-BFGS iterations
+# (the AmazonReviewsPipeline default), 500,000 resident rows in chunks of
+# 65,536: 7 full chunks and a ragged one of 41,248 rows.
+AMAZON_N, AMAZON_D, AMAZON_NNZ, AMAZON_K = 500000, 16384, 82, 2
+AMAZON_LAM, AMAZON_ITERS, AMAZON_CHUNK = 1e-3, 20, 65536
+AMAZON_CHUNKS = -(-AMAZON_N // AMAZON_CHUNK)
+AMAZON_RAGGED = AMAZON_N - (AMAZON_CHUNKS - 1) * AMAZON_CHUNK
+# The streamed fit: 8 resident chunks (524,288 rows), folded whole and in
+# segments of 3 (the last segment two live chunks and one past the end).
+STREAM_CHUNKS, STREAM_SEG = 8, 3
+
 # Each kernel, and the main-path route whose launches the JSON line reports.
 FLAT, STACKED = "timit fused flat fit (fit first)", "timit stacked fit (apply first)"
 STREAMED = "timit streamed fit (--solver streaming)"
 CIFAR = "cifar RandomPatchCifarKernel (fit, then train and test apply)"
+SPARSE = "amazon sparse ridge, SparseLBFGSwithL2 gram engine with bf16 slabs (fit, then apply)"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -137,6 +168,10 @@ KERNELS = {
         source="keystone_tpu_torch/csrc/conv_featurize.cu",
         replaces="keystone_tpu/ops/pallas_images.py:118", path=CIFAR,
     ),
+    "gram_corr_sym_acc": dict(
+        source="keystone_tpu_torch/csrc/gram_corr_sym_acc.cu",
+        replaces="keystone_tpu/ops/pallas_ops.py:881", path=SPARSE,
+    ),
 }
 # Launches of the flat route: 4 blocks, 3 epochs, Gramians stashed after
 # the first epoch; 4 cosine branches in the fit and in each of two applies.
@@ -145,6 +180,7 @@ FLAT_LAUNCHES = {
     "block_gram_sym": D_FEAT // BLOCK, "block_corr": EPOCHS * D_FEAT // BLOCK,
     "block_residual_update": EPOCHS * D_FEAT // BLOCK, "gram_sym_acc": 0,
     "gaussian_kernel_block": 0, "gaussian_resid_block": 0, "conv_featurize": 0,
+    "gram_corr_sym_acc": 0,
 }
 # Launches of the streamed route: one fold per row tile (9), one cosine bank
 # launch per tile in the fit (9), the train apply (9) and the test apply of
@@ -154,7 +190,7 @@ STREAMED_LAUNCHES = {
     "cosine_features": 2 * STREAM_TILES + -(-(STREAM_N // 4) // STREAM_TILE),
     "gram_corr_sym": 0, "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
     "gram_sym_acc": STREAM_TILES, "gaussian_kernel_block": 0, "gaussian_resid_block": 0,
-    "conv_featurize": 0,
+    "conv_featurize": 0, "gram_corr_sym_acc": 0,
 }
 
 
@@ -274,6 +310,7 @@ def phase_kernels(cuda_ops):
     torch.cuda.empty_cache()
     results.update(phase_window_kernels(cuda_ops, gen))
     results.update(phase_gram_sym_acc(cuda_ops, gen))
+    results.update(phase_gram_corr_sym_acc(cuda_ops, gen))
     return results
 
 
@@ -410,6 +447,81 @@ def phase_gram_sym_acc(cuda_ops, gen):
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
         f"bf16 F: {bf16_ms:.3f} ms (bound {bf16_bound:.3f})")
     del F, F16, G, G0, upper
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_gram_corr_sym_acc(cuda_ops, gen):
+    """The sparse fold's kernel on one Amazon chunk: F 65,536 x 16,385 (d
+    and the intercept lane), R 65,536 x 2, a random G0 and C0; F in f32 and
+    bf16, and the ragged last chunk of 41,248 rows; in place and into a new
+    buffer. F is dense standard normal, so every product is nonzero (a
+    densified chunk has 83 nonzeros a row; the kernel's time does not
+    depend on it). The JSON line reports the bf16 numbers: the bench's
+    engine folds bf16 slabs."""
+    dev = torch.device("cuda")
+    c, d1, k = AMAZON_CHUNK, AMAZON_D + 1, AMAZON_K
+    F = torch.randn((c, d1), generator=gen, device=dev)
+    R = torch.randn((c, k), generator=gen, device=dev)
+    G0 = torch.randn((d1, d1), generator=gen, device=dev)
+    C0 = torch.randn((d1, k), generator=gen, device=dev)
+    tiles = torch.arange(d1, device=dev) // 128
+    upper = tiles[:, None] <= tiles[None, :]
+    results = {}
+    for label, dtype, rows in (("f32", torch.float32, c), ("bf16", torch.bfloat16, c),
+                               ("bf16 ragged chunk", torch.bfloat16, AMAZON_RAGGED)):
+        Fk, Rk = F[:rows].to(dtype), R[:rows]
+        want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G0, C0, Fk, Rk)
+        Ff = Fk.float()
+        Rq = Rk.to(torch.bfloat16).float() if dtype == torch.bfloat16 else Rk
+        # Errors relative to the scale of the sums, |G0| + sum |f_i||f_j| and
+        # |C0| + sum |f||r|: two f32 sums of 65,536 terms in different orders
+        # differ by about sqrt(rows) * 2^-24 of it.
+        g_scale = torch.addmm(G0.abs(), Ff.abs().T, Ff.abs())
+        c_scale = torch.addmm(C0.abs(), Ff.abs().T, Rq.abs())
+        del Ff
+        fresh = cuda_ops.gram_corr_sym_acc(G0, C0, Fk, Rk)
+        G, C = G0.clone(), C0.clone()
+        cuda_ops.gram_corr_sym_acc(G, C, Fk, Rk, out=(G, C))
+        torch.cuda.synchronize()
+        g_diff = (fresh[0] - want_g).abs()
+        g_err = g_diff[upper].max().item()
+        g_rel = (g_diff.div_(g_scale))[upper].max().item()
+        c_diff = (fresh[1] - want_c).abs()
+        c_err, c_rel = c_diff.max().item(), (c_diff / c_scale).max().item()
+        same = (torch.equal(G[upper], fresh[0][upper]) and torch.equal(C, fresh[1])
+                and torch.equal(G[~upper], G0[~upper]))
+        check(f"gram_corr_sym_acc {label} F {rows}x{d1}, R {rows}x{k}",
+              g_rel <= 1e-4 and c_rel <= 1e-4 and same,
+              f"upper tiles max_abs_err {g_err:.3e} ({g_rel:.2e} of scale), corr "
+              f"max_abs_err {c_err:.3e} ({c_rel:.2e} of scale), tol 1e-4 of scale; in place "
+              f"the bits of a new buffer, lower tiles untouched")
+        if label == "bf16":
+            results["gram_corr_sym_acc"] = dict(max_abs_err=max(g_err, c_err))
+        del Fk, want_g, want_c, g_scale, c_scale, fresh, G, C, g_diff, c_diff
+    del upper
+    torch.cuda.empty_cache()
+    flops = c * d1 * (d1 + 1) + 2 * c * d1 * k  # upper triangle (syrk) + correlation
+    G, C = G0.clone(), C0.clone()
+    F16, R16 = F.to(torch.bfloat16), R.to(torch.bfloat16)
+    r = results["gram_corr_sym_acc"]
+    r["ms"] = time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, F16, R, out=(G, C)), 3)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.gram_corr_sym_acc_ref(G0, C0, F16, R), 3)
+    # One addmm for G and one for C in the operand dtype: bf16 on the
+    # tensor cores, accumulating and returning float32.
+    r["library_ms"] = time_ms(lambda: (
+        torch.addmm(G0, F16.T, F16, out_dtype=torch.float32),
+        torch.addmm(C0, F16.T, R16, out_dtype=torch.float32),
+    ), 3)
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        2 * c * d1 + 4 * (c * k + 2 * d1 * d1 + 2 * d1 * k), flops, PEAK_BF16_FLOPS)
+    f32_ms = time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, F, R, out=(G, C)), 2)
+    f32_bound, _ = bound_ms(4 * (c * d1 + c * k + 2 * d1 * d1 + 2 * d1 * k), flops,
+                            PEAK_F32_FLOPS)
+    log(f"  gram_corr_sym_acc bf16 F {c}x{d1}, R {c}x{k}: {r['ms']:.3f} ms (plain "
+        f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
+        f"{r['bound_by']}); f32 F: {f32_ms:.3f} ms (FP32 bound {f32_bound:.3f})")
+    del F, R, F16, R16, G0, C0, G, C
     torch.cuda.empty_cache()
     return results
 
@@ -913,6 +1025,221 @@ def phase_cifar_time(result, config):
                 device_busy_ms=busy_ms)
 
 
+def amazon_rows(n, d, nnz, k, seed, w_true):
+    """Padded-COO rows as the reference's bench row makes them
+    (bench.py:1234-1243: ``nnz`` uniform column indices a row, sorted, and
+    standard normal values; duplicates within a row stay), with labels from
+    a planted sparse linear model plus noise, so that accuracy means
+    something. Returns (indices, values, class labels, ±1 one-hot Y)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, size=(n, nnz)).astype(np.int32)
+    idx.sort(axis=1)
+    vals = rng.normal(size=(n, nnz)).astype(np.float32)
+    score = (vals * w_true[idx]).sum(axis=1) + 0.5 * rng.normal(size=n).astype(np.float32)
+    labels = (score > 0).astype(np.int64)
+    Y = 2.0 * np.eye(k, dtype=np.float32)[labels] - 1.0
+    return idx, vals, labels, Y
+
+
+def planted_model(d, seed):
+    """A sparse true model: 5% of the features carry a standard normal weight."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=d) * (rng.random(d) < 0.05)).astype(np.float32)
+
+
+def _fitted_mapper(fitted):
+    from keystone_tpu_torch.ops.learning.linear import SparseLinearMapper
+
+    (mapper,) = [op for op in fitted.transformer_graph.operators.values()
+                 if isinstance(op, SparseLinearMapper)]
+    return mapper
+
+
+def _ridge_loss(mapper, idx, vals, Y, lam, n):
+    """½‖XW + b − Y‖²/n + ½λ(‖W‖² + ‖b‖²): the objective the sparse fits
+    minimise (the intercept is the append-ones lane's weight)."""
+    from keystone_tpu_torch.ops.sparse import sparse_matmul
+
+    r = sparse_matmul(idx, vals, mapper.x) + mapper.b_opt - Y
+    reg = (mapper.x * mapper.x).sum() + (mapper.b_opt * mapper.b_opt).sum()
+    return float(0.5 * (r * r).sum() / n + 0.5 * lam * reg)
+
+
+def _accuracy(pred, labels):
+    return float((pred.array[: pred.n].argmax(dim=1) == labels).float().mean())
+
+
+def _sparse_fit(cuda_ops, est, train, labels):
+    """Fit ``est`` through a Sparsify pipeline, launches counted from 0.
+    Returns (fitted pipeline, fit seconds, launches, peak allocated bytes)."""
+    from keystone_tpu_torch.ops.sparse import Sparsify
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    PipelineEnv.get_or_create().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fitted = Sparsify().and_then(est, train, labels).fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    PipelineEnv.get_or_create().reset()
+    return fitted, fit_s, counts, peak
+
+
+def phase_sparse_small(cuda_ops):
+    """The sparse slice small (n 4,096, d 1,000, 16 active a row, chunk 512)
+    on the card against its plain run on the CPU: the same weights within
+    1e-4 relative (float32 sums in other orders) and the same final loss
+    within 1e-5 relative, for the gather engine and the gram engine with
+    f32 and bf16 slabs."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.lbfgs import SparseLBFGSwithL2
+
+    n, d, nnz, k = 4096, 1000, 16, AMAZON_K
+    idx, vals, _, Y = amazon_rows(n, d, nnz, k, seed=11, w_true=planted_model(d, 12))
+    for engine in (dict(solver="gather"), dict(solver="gram", gram_dtype="f32"),
+                   dict(solver="gram", gram_dtype="bf16")):
+        runs = {}
+        for where, device in (("card", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+            t = [torch.from_numpy(a).to(device) for a in (idx, vals, Y)]
+            est = SparseLBFGSwithL2(lam=AMAZON_LAM, num_iterations=AMAZON_ITERS,
+                                    num_features=d, gram_chunk_rows=512, **engine)
+            fitted, *_ = _sparse_fit(cuda_ops, est, Dataset({"indices": t[0], "values": t[1]},
+                                                            n=n), Dataset(t[2]))
+            mapper = _fitted_mapper(fitted)
+            W = torch.cat([mapper.x, mapper.b_opt[None]]).cpu()
+            runs[where] = (W, _ridge_loss(mapper, t[0], t[1], t[2], AMAZON_LAM, n))
+        (Wg, lg), (Wc, lc) = runs["card"], runs["cpu"]
+        rel = float((Wg - Wc).norm() / Wc.norm())
+        check(f"small sparse {engine}, card against CPU plain versions",
+              rel <= 1e-4 and abs(lg - lc) <= 1e-5 * abs(lc),
+              f"weights relative Frobenius {rel:.2e} (tol 1e-4), final loss {lg:.7f} on the "
+              f"card, {lc:.7f} on the CPU (tol 1e-5 relative)")
+
+
+def phase_sparse(cuda_ops):
+    """The sparse slice at the Amazon geometry through four engines, then the
+    streamed fit whole and segmented."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.lbfgs import SparseLBFGSwithL2
+
+    dev = torch.device("cuda")
+    n, d, nnz, k = AMAZON_N, AMAZON_D, AMAZON_NNZ, AMAZON_K
+    n_test = n // 4
+    t0 = time.perf_counter()
+    w_true = planted_model(d, 2)
+    rows = {name: [torch.from_numpy(a).to(dev) for a in amazon_rows(m, d, nnz, k, seed, w_true)]
+            for name, m, seed in (("train", n, 1), ("test", n_test, 3))}
+    train = Dataset({"indices": rows["train"][0], "values": rows["train"][1]}, n=n)
+    test = Dataset({"indices": rows["test"][0], "values": rows["test"][1]}, n=n_test)
+    labels = Dataset(rows["train"][3])
+    log(f"  data: {n} train and {n_test} test rows of d={d}, {nnz} active a row, made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    engines = {
+        "gather": dict(solver="gather"),
+        "gram bf16": dict(solver="gram", gram_dtype="bf16"),
+        "gram f32": dict(solver="gram", gram_dtype="f32"),
+        "gram compressed int16+bf16": dict(solver="gram", compress="int16_bf16"),
+    }
+    models, report, sparse_counts = {}, {}, None
+    for name, kw in engines.items():
+        est = SparseLBFGSwithL2(lam=AMAZON_LAM, num_iterations=AMAZON_ITERS, num_features=d,
+                                gram_chunk_rows=AMAZON_CHUNK, **kw)
+        fitted, fit_s, counts, peak = _sparse_fit(cuda_ops, est, train, labels)
+        t0 = time.perf_counter()
+        train_pred, test_pred = fitted.apply(train), fitted.apply(test)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        models[name] = _fitted_mapper(fitted)
+        acc = (_accuracy(train_pred, rows["train"][2]), _accuracy(test_pred, rows["test"][2]))
+        report[name] = dict(fit_seconds=fit_s, apply_seconds=apply_s, peak_allocated_bytes=peak,
+                            train_accuracy=acc[0], test_accuracy=acc[1])
+        log(f"  {name}: fit {fit_s:.3f} s, apply (train + test) {apply_s:.3f} s, peak allocated "
+            f"{peak / 2**30:.2f} GiB, accuracy train {100 * acc[0]:.3f}% test "
+            f"{100 * acc[1]:.3f}%, launches {counts}")
+        expected = {kernel: 0 for kernel in cuda_ops.launches}
+        if kw["solver"] == "gram":
+            expected["gram_corr_sym_acc"] = AMAZON_CHUNKS
+        check(f"{name} launches", counts == expected, f"{counts}, expected {expected}")
+        check(f"{name} accuracy", acc[0] > 0.75 and acc[1] > 0.75,
+              "train and test accuracy above 75% (chance is 50%; the labels follow a planted "
+              "sparse model with noise)")
+        if name == "gram bf16":
+            sparse_counts = counts
+    base = models["gather"]
+    deltas = {name: max(float((m.x - base.x).abs().max()), float((m.b_opt - base.b_opt).abs().max()))
+              for name, m in models.items() if name != "gather"}
+    log(f"  engines_max_abs_model_delta against gather: {deltas}")
+    check("gram engines agree with the gather engine",
+          all(v <= 5e-3 * float(base.x.abs().max()) for v in deltas.values()),
+          f"{deltas} (each within 5e-3 of the gather model's largest weight "
+          f"{float(base.x.abs().max()):.4f}: bf16 slabs quantize the data)")
+    comp, b16 = models["gram compressed int16+bf16"], models["gram bf16"]
+    check("compressed engine has the bits of the bf16 gram engine",
+          torch.equal(comp.x, b16.x) and torch.equal(comp.b_opt, b16.b_opt), "bitwise equal")
+    report["engines_max_abs_model_delta"] = deltas
+    del rows, train, test, labels, models, base, comp, b16
+    torch.cuda.empty_cache()
+    report["streamed"] = phase_sparse_streamed(cuda_ops, w_true)
+    return sparse_counts, report
+
+
+def _clamped_chunk(cid, idx_t, val_t, y_t):
+    """Resident chunk ``cid``; ids past the end slice the last chunk, whose
+    values and labels the segmented fold zeroes."""
+    cid = min(cid, idx_t.shape[0] - 1)
+    return idx_t[cid], val_t[cid], y_t[cid]
+
+
+def phase_sparse_streamed(cuda_ops, w_true):
+    """``run_lbfgs_gram_streamed`` over 8 resident chunks of 65,536 rows
+    (made on the card: 82 uniform indices a row and the intercept lane,
+    standard normal values, planted-model labels), bf16 slabs, folded whole
+    and in segments of 3 chunks: the same bits."""
+    from keystone_tpu_torch.ops.learning.lbfgs import run_lbfgs_gram_streamed
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nc, c, d, nnz, k = STREAM_CHUNKS, AMAZON_CHUNK, AMAZON_D, AMAZON_NNZ, AMAZON_K
+    idx = torch.randint(0, d, (nc, c, nnz), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.cat([idx.sort(dim=2).values,
+                     torch.full((nc, c, 1), d, dtype=torch.int32, device=dev)], dim=2)
+    vals = torch.randn((nc, c, nnz + 1), generator=gen, device=dev)
+    vals[:, :, nnz] = 1.0
+    w = torch.from_numpy(w_true).to(dev)
+    score = (vals[:, :, :nnz] * w[idx[:, :, :nnz].long()]).sum(dim=2)
+    score += 0.5 * torch.randn(score.shape, generator=gen, device=dev)
+    Y = 2.0 * torch.nn.functional.one_hot((score > 0).long(), k).float() - 1.0
+    n = nc * c
+    runs = {}
+    for label, seg in (("whole", None), (f"segments of {STREAM_SEG}", STREAM_SEG)):
+        cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W, loss = run_lbfgs_gram_streamed(
+            _clamped_chunk, nc, d + 1, k, lam=AMAZON_LAM, num_iterations=AMAZON_ITERS, n=n,
+            val_dtype=torch.bfloat16, operands=(idx, vals, Y), max_chunks_per_dispatch=seg,
+        )
+        torch.cuda.synchronize()
+        runs[label] = dict(W=W, loss=loss, seconds=time.perf_counter() - t0,
+                           launches=cuda_ops.launches["gram_corr_sym_acc"])
+    whole, segmented = runs.values()
+    log(f"  streamed fit, n={n} ({nc} chunks), d={d + 1}, bf16 slabs: whole "
+        f"{whole['seconds']:.3f} s ({whole['launches']} launches), segments of {STREAM_SEG} "
+        f"{segmented['seconds']:.3f} s ({segmented['launches']} launches), final loss "
+        f"{float(whole['loss']):.7f}")
+    check("segmented streamed fit has the bits of the whole one",
+          torch.equal(whole["W"], segmented["W"]) and torch.equal(whole["loss"], segmented["loss"])
+          and whole["launches"] == nc and segmented["launches"] == -(-nc // STREAM_SEG) * STREAM_SEG,
+          f"bitwise equal weights and loss; launches {whole['launches']} and "
+          f"{segmented['launches']} (a chunk id past the end folds zeros)")
+    return {label: dict(seconds=r["seconds"], launches=r["launches"], final_loss=float(r["loss"]))
+            for label, r in runs.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -957,15 +1284,19 @@ def main():
     cifar_counts, cifar_run, cifar_result, cifar_config = phase_cifar(cuda_ops, fusion)
     log("[phase 7] where the full-width CIFAR fit's time goes")
     cifar_run["time"] = phase_cifar_time(cifar_result, cifar_config)
+    log("[phase 8] sparse ridge slice: small against the CPU; Amazon geometry by four engines")
+    phase_sparse_small(cuda_ops)
+    sparse_counts, sparse_run = phase_sparse(cuda_ops)
 
     route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
-                    CIFAR: cifar_counts}
+                    CIFAR: cifar_counts, SPARSE: sparse_counts}
     kernels = [
         dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
              launches=route_counts[meta["path"]][name], path=meta["path"], **results[name])
         for name, meta in KERNELS.items()
     ]
-    main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run}
+    main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
+                 SPARSE: sparse_run}
     log(f"main path: {json.dumps(main_path)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,11 @@
 Port of ``keystone_tpu/data/dataset.py``, single device:
 
   - **Array form** (the common case): ``data`` is a ``torch.Tensor`` with a
-    leading example axis, or a (nested) tuple of them — the output of a
-    gather. It may carry zero padding rows past the true count ``n``;
-    padding rows are all-zero so Gramians and moment sums are unaffected.
+    leading example axis, a (nested) tuple of them — the output of a
+    gather — or a dict of them (the padded-COO sparse batch
+    ``{"indices", "values"}`` of ``ops/sparse.py``). It may carry zero
+    padding rows past the true count ``n``; padding rows are all-zero so
+    Gramians and moment sums are unaffected.
   - **Host form**: a Python list of arbitrary objects for stages that must
     run host-side.
 
@@ -30,9 +32,12 @@ def _is_arraylike(x: Any) -> bool:
 
 
 def tree_leaves(data: Any) -> List[Any]:
-    """The arrays of an array-form payload, in order."""
+    """The arrays of an array-form payload, in order (a dict's in sorted key
+    order, as JAX flattens one)."""
     if isinstance(data, tuple):
         return [leaf for d in data for leaf in tree_leaves(d)]
+    if isinstance(data, dict):
+        return [leaf for key in sorted(data) for leaf in tree_leaves(data[key])]
     return [data]
 
 
@@ -40,6 +45,8 @@ def tree_map(fn: Callable[[Any], Any], data: Any) -> Any:
     """``fn`` applied to every array of an array-form payload."""
     if isinstance(data, tuple):
         return tuple(tree_map(fn, d) for d in data)
+    if isinstance(data, dict):
+        return {key: tree_map(fn, value) for key, value in data.items()}
     return fn(data)
 
 
@@ -116,8 +123,8 @@ class Dataset:
         """The single underlying array (errors for tuple datasets)."""
         if self.is_host:
             return np.stack([np.asarray(x) for x in self.data])
-        if isinstance(self.data, tuple):
-            raise ValueError("Dataset holds a tuple of arrays; use .data")
+        if isinstance(self.data, (tuple, dict)):
+            raise ValueError("Dataset holds a tuple or dict of arrays; use .data")
         return self.data
 
     @property

@@ -28,6 +28,12 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
     "block_size": int, "train_X": (n_train, d), "gamma": float,
     "kernel_dtype": "f32" or "bf16"}`` (the reference's train rows may
     carry padding rows past ``n_train``; pass the first ``n_train``)
+  - ``SparseLinearMapper`` (a sparse L-BFGS fit): :func:`sparse_linear_mapper`
+    with ``x (d, k)`` and ``b_opt (k,)``;
+  - ``CompressedCOOChunks``: :func:`coo_chunks` takes the reference object
+    itself and reads its int16 indices, its bf16 values as their 16-bit
+    patterns (so no ``ml_dtypes`` import is needed), its labels, ``n_true``
+    and ``d``.
 """
 
 from __future__ import annotations
@@ -39,13 +45,14 @@ import torch
 
 from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.data.resident import CompressedCOOChunks
 from keystone_tpu_torch.ops.images.conv import Convolver
 from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
 from keystone_tpu_torch.ops.learning.kernel import (
     GaussianKernelTransformer,
     KernelBlockLinearMapper,
 )
-from keystone_tpu_torch.ops.learning.linear import LinearMapper
+from keystone_tpu_torch.ops.learning.linear import LinearMapper, SparseLinearMapper
 from keystone_tpu_torch.ops.learning.pca import ZCAWhitener
 from keystone_tpu_torch.ops.learning.streaming_ls import (
     CosineBankFeaturize,
@@ -147,6 +154,27 @@ def kernel_block_linear_mapper(w_locals: Sequence, block_size: int, train_X, gam
     transformer = GaussianKernelTransformer(float(gamma), X, X.shape[0], kernel_dtype)
     return KernelBlockLinearMapper(
         [_f32(w, device) for w in w_locals], int(block_size), transformer, X.shape[0]
+    )
+
+
+def sparse_linear_mapper(x, b_opt=None, device=None) -> SparseLinearMapper:
+    """The reference's fitted ``SparseLinearMapper`` (its ``x`` and
+    ``b_opt`` as arrays)."""
+    device = resolve_device(device)
+    return SparseLinearMapper(_f32(x, device), None if b_opt is None else _f32(b_opt, device))
+
+
+def coo_chunks(ref, device=None) -> CompressedCOOChunks:
+    """A reference ``CompressedCOOChunks`` as the port's: the same int16
+    indices, bf16 values (the same bits, read through a 16-bit view of the
+    reference's numpy buffer) and float32 labels, on ``device``."""
+    device = resolve_device(device)
+    bits = np.ascontiguousarray(np.asarray(ref.val_t).view(np.int16))
+    return CompressedCOOChunks(
+        torch.from_numpy(np.ascontiguousarray(np.asarray(ref.idx_t, np.int16))).to(device),
+        torch.from_numpy(bits).view(torch.bfloat16).to(device),
+        _f32(ref.y_t, device),
+        n_true=ref.n_true, d=ref.d,
     )
 
 

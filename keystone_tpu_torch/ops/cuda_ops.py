@@ -2,7 +2,8 @@
 PyTorch versions.
 
 Port of the kernels of ``keystone_tpu/ops/pallas_ops.py`` that the TIMIT
-block slice, the fused flat fit and the streamed fit run:
+block slice, the fused flat fit, the streamed fit, the CIFAR kernel ridge
+regression and the sparse gram fit run:
 
   - :func:`cosine_features` ↔ ``pallas_ops.cosine_features``
     (``csrc/cosine_features.cu``): ``cos(X Wᵀ + b)`` with the cosine fused
@@ -20,6 +21,10 @@ block slice, the fused flat fit and the streamed fit run:
     (``csrc/gram_sym_acc.cu``): ``G + FᵀF`` on the upper-triangle tiles,
     the streamed fit's per-tile Gramian fold, accumulating in place.
     :func:`gram_acc_ok` is its guard;
+  - :func:`gram_corr_sym_acc` ↔ ``pallas_ops.gram_corr_sym_acc``
+    (``csrc/gram_corr_sym_acc.cu``): ``(G + FᵀF, C + FᵀR)`` in one pass
+    over F, the sparse gram fold's chunk step (``ops/sparse.py``),
+    accumulating in place. :func:`gram_corr_acc_ok` is its guard;
   - :func:`gaussian_kernel_block` ↔ ``pallas_ops.gaussian_kernel_block``
     (``csrc/gaussian_kernel_block.cu``): ``exp(−γ·max(‖x‖²+‖y‖²−2x·y, 0))``
     with the distance and exp epilogue on the register tile, for kernel
@@ -67,7 +72,7 @@ launches: Dict[str, int] = {
     "cosine_features": 0, "gram_corr_sym": 0,
     "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
     "gram_sym_acc": 0, "gaussian_kernel_block": 0, "gaussian_resid_block": 0,
-    "conv_featurize": 0,
+    "conv_featurize": 0, "gram_corr_sym_acc": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -109,6 +114,10 @@ _ENTRY_POINTS = {
     "conv_featurize": (
         "kt_conv_featurize",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "gram_corr_sym_acc": (
+        "kt_gram_corr_sym_acc",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P],
     ),
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -207,7 +216,7 @@ def _cuda_operands(name: str, tensors) -> torch.device:
 def _check_rows(name: str, t: torch.Tensor, what: str) -> None:
     if t.dim() != 2:
         raise ValueError(f"{name}: {what} must be 2-D, got shape {tuple(t.shape)}")
-    if t.shape[1] > 1 and t.stride(1) != 1:
+    if t.shape[1] > 1 and t.stride(1) != 1 and t.numel() > 0:
         raise ValueError(f"{name}: {what} must have contiguous rows (stride(1) == 1)")
 
 
@@ -604,6 +613,104 @@ def gram_sym_acc(G, F, out=None):
         err = fn(
             F.data_ptr(), G.data_ptr(), out.data_ptr(), n, d, F.stride(0), G.stride(0),
             out.stride(0), int(F.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Accumulating symmetric Gramian + correlation of the sparse gram fold
+# ---------------------------------------------------------------------------
+
+
+def gram_corr_acc_ok(F) -> bool:
+    """Whether :func:`gram_corr_sym_acc`'s kernel can read the chunk slab F
+    as it is (counterpart of ``pallas_ops.gram_corr_acc_ok``): the same
+    guard as :func:`gram_acc_ok`, since the kernel masks ragged rows,
+    columns and label columns — a 2-D F with contiguous rows, float32 or
+    bfloat16 (an empty one whatever its strides). The fold makes its slab
+    contiguous, so every chunk passes."""
+    return gram_acc_ok(F) or (F.dim() == 2 and F.numel() == 0 and F.dtype in _KERNEL_DTYPES)
+
+
+def gram_corr_sym_acc_ref(G, C, F, R):
+    """Plain PyTorch version of :func:`gram_corr_sym_acc`:
+    ``(G + FᵀF, C + FᵀR)`` as float32, every entry computed in float32
+    (bf16 F is exact in f32) or in F's own precision where that is wider;
+    R rounded to bf16 first when F is bf16."""
+    acc = torch.promote_types(F.dtype, torch.float32)
+    Ff = F.to(acc)
+    Rq = _corr_operand(F, R).to(acc)
+    return (
+        (G.to(acc) + Ff.T @ Ff).to(torch.float32),
+        (C.to(acc) + Ff.T @ Rq).to(torch.float32),
+    )
+
+
+def gram_corr_sym_acc(G, C, F, R, out=None):
+    """``(G + FᵀF, C + FᵀR)`` in one pass over F, the Gramian on the
+    upper-triangle 128 x 128 tiles only.
+
+    G: (d, d) float32 with a meaningful upper triangle; C: (d, k) float32;
+    F: (n, d) float32 or bfloat16 with contiguous rows; R: (n, k), taken as
+    float32 and rounded to bf16 in the product when F is bf16 (the
+    reference quantizes R to F's compute dtype). Ragged n, d and k are
+    masked in the kernel. Writes ``out = (gout, cout)`` — new float32
+    buffers, or the pair given, which may be ``(G, C)`` themselves to
+    accumulate in place — and returns it. The strictly-lower tiles of gout
+    are undefined (left as they were when gout is G): callers mirror once
+    after the last accumulation, as :func:`gram_sym_acc`'s contract has it.
+    """
+    operands = (G, C, F, R) if out is None else (G, C, F, R, *out)
+    if all(t.device.type == "cpu" for t in operands):
+        gram, corr = gram_corr_sym_acc_ref(G, C, F, R)
+        if out is None:
+            return gram, corr
+        out[0].copy_(gram)
+        out[1].copy_(corr)
+        return out
+    name = "gram_corr_sym_acc"
+    device = _cuda_operands(name, operands)
+    if not gram_corr_acc_ok(F):
+        raise TypeError(
+            f"{name}: F must be 2-D float32 or bfloat16 with contiguous rows, got "
+            f"shape {tuple(F.shape)}, {F.dtype}, strides {F.stride()}"
+        )
+    Rk = R if R.dtype == torch.float32 else R.to(torch.float32)
+    _check_rows(name, Rk, "R")
+    n, d = F.shape
+    k = Rk.shape[1]
+    if Rk.shape[0] != n:
+        raise ValueError(f"{name}: F {tuple(F.shape)} and R {tuple(R.shape)} must have the same rows")
+    for what, t, shape in (("G", G, (d, d)), ("C", C, (d, k))):
+        _check_rows(name, t, what)
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(
+                f"{name}: {what} must be {shape} float32, got {tuple(t.shape)} {t.dtype}"
+            )
+    if out is None:
+        out = (
+            torch.empty((d, d), dtype=torch.float32, device=device),
+            torch.empty((d, k), dtype=torch.float32, device=device),
+        )
+    else:
+        for what, t, shape in (("gout", out[0], (d, d)), ("cout", out[1], (d, k))):
+            _check_rows(name, t, what)
+            if t.dtype != torch.float32 or t.shape != shape:
+                raise ValueError(
+                    f"{name}: {what} must be {shape} float32, got {tuple(t.shape)} {t.dtype}"
+                )
+    if d == 0:
+        return out
+    gout, cout = out
+    fn = _lib(name).kt_gram_corr_sym_acc
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            F.data_ptr(), Rk.data_ptr(), G.data_ptr(), C.data_ptr(), gout.data_ptr(),
+            cout.data_ptr(), n, d, k, F.stride(0), Rk.stride(0), G.stride(0), C.stride(0),
+            gout.stride(0), cout.stride(0), int(F.dtype == torch.bfloat16), stream,
         )
     _check_launch(name, err)
     return out

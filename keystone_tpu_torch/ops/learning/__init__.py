@@ -8,11 +8,13 @@ from .kernel import (
     KernelBlockLinearMapper,
     KernelRidgeRegression,
 )
-from .linear import LinearMapEstimator, LinearMapper
+from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
+from .linear import LinearMapEstimator, LinearMapper, SparseLinearMapper
 from .pca import ZCAWhitener, ZCAWhitenerEstimator
 
 __all__ = [
-    "BlockLeastSquaresEstimator", "BlockLinearMapper", "GaussianKernelGenerator",
-    "GaussianKernelTransformer", "KernelBlockLinearMapper", "KernelRidgeRegression",
-    "LinearMapEstimator", "LinearMapper", "ZCAWhitener", "ZCAWhitenerEstimator",
+    "BlockLeastSquaresEstimator", "BlockLinearMapper", "DenseLBFGSwithL2",
+    "GaussianKernelGenerator", "GaussianKernelTransformer", "KernelBlockLinearMapper",
+    "KernelRidgeRegression", "LinearMapEstimator", "LinearMapper", "SparseLBFGSwithL2",
+    "SparseLinearMapper", "ZCAWhitener", "ZCAWhitenerEstimator",
 ]

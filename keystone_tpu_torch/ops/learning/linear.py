@@ -3,13 +3,17 @@
 Port of ``keystone_tpu/ops/learning/linear.py`` (reference:
 nodes/learning/LinearMapper.scala, apply + NormalEquations solve):
 :class:`LinearMapper` and :class:`LinearMapEstimator`, whose fit also
-offers the fit-fusion contract (``device_fit_fn``). The sparse, local and
-sketched estimators of the reference module come with later slices.
+offers the fit-fusion contract (``device_fit_fn``), and
+:class:`SparseLinearMapper`, the model the sparse L-BFGS fits return. The
+local and sketched estimators of the reference module come with later
+slices.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
@@ -40,6 +44,41 @@ class LinearMapper(Transformer):
 
     def device_fn(self):
         return self.apply
+
+
+class SparseLinearMapper(Transformer):
+    """Sparse-input dense-model apply: ``out = X W + b`` over padded-COO
+    batches through a model-row gather + nnz reduction, the design matrix
+    never densified (reference: SparseLinearMapper.scala:13-50, the apply
+    of SparseLBFGS's fitted models). Dense input falls through to a plain
+    product, so the mapper slots in wherever a LinearMapper does."""
+
+    def __init__(self, x, b_opt=None):
+        self.x = as_tensor(x)
+        self.b_opt = None if b_opt is None else as_tensor(b_opt, self.x.device)
+
+    def apply(self, v):
+        if isinstance(v, dict) and set(v.keys()) == {"indices", "values"}:
+            idx = as_tensor(v["indices"], self.x.device).to(torch.int64)
+            val = as_tensor(v["values"], self.x.device).to(self.x.dtype)
+            # Out-of-range lanes are dropped, as sparse_matmul drops them.
+            m = (idx >= 0) & (idx < self.x.shape[0])
+            out = val[m] @ self.x[idx[m]]
+        else:
+            out = as_tensor(v, self.x.device) @ self.x
+        if self.b_opt is not None:
+            out = out + self.b_opt
+        return out
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        from keystone_tpu_torch.ops.sparse import is_sparse_dataset, sparse_matmul
+
+        if is_sparse_dataset(data):
+            out = sparse_matmul(data.data["indices"], data.data["values"], self.x)
+            if self.b_opt is not None:
+                out = out + self.b_opt
+            return Dataset(out, n=data.n)._rezero_padding()
+        return data.map_batch(self.apply)
 
 
 class LinearMapEstimator(LabelEstimator):

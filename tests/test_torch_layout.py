@@ -13,10 +13,12 @@
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import keystone_tpu_torch
+from keystone_tpu_torch import interop
 from keystone_tpu_torch.data.loaders import synthetic_cifar, synthetic_timit
 from keystone_tpu_torch.ops.stats import CosineRandomFeatures
 from keystone_tpu_torch.pipelines import cifar, timit
@@ -55,7 +57,8 @@ def test_port_has_modules():
                 "pipelines/timit.py", "interop.py", "run.py",
                 "utils/images.py", "ops/images/core.py", "ops/images/conv.py",
                 "ops/cuda_images.py", "ops/learning/pca.py", "ops/learning/kernel.py",
-                "pipelines/cifar.py"):
+                "pipelines/cifar.py", "data/resident.py", "ops/sparse.py",
+                "ops/learning/lbfgs.py"):
         assert rel in rels
 
 
@@ -86,7 +89,7 @@ def test_kernel_sources_sit_beside_the_package():
     assert sources == [
         "block_corr.cu", "block_gram_sym.cu", "block_residual_update.cu",
         "conv_featurize.cu", "cosine_features.cu", "gaussian_kernel_block.cu",
-        "gaussian_resid_block.cu", "gram_corr_sym.cu", "gram_sym_acc.cu",
+        "gaussian_resid_block.cu", "gram_corr_sym.cu", "gram_corr_sym_acc.cu", "gram_sym_acc.cu",
     ]
     for src in sources:
         text = (PORT / "csrc" / src).read_text()
@@ -121,6 +124,8 @@ class TestDeviceRules:
         with pytest.raises(RuntimeError):
             cifar.run_random_patch_cifar_kernel(
                 cifar.CifarConfig(synthetic_n=16, num_filters=2, whitener_size=20))
+        with pytest.raises(RuntimeError):
+            interop.sparse_linear_mapper(np.zeros((4, 2)), np.zeros(2))
 
     def test_cpu_must_be_asked_for(self):
         data = synthetic_timit(16, seed=0, device="cpu")

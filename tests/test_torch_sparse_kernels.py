@@ -1,0 +1,261 @@
+"""The sparse gram fold's CUDA kernel, gram_corr_sym_acc
+(keystone_tpu_torch/ops/cuda_ops.py, csrc/gram_corr_sym_acc.cu), against its
+plain version, its wrapper's contract, and the fold around it on the card.
+
+This file imports no JAX, so that it runs on the machine with the card,
+which has none: ``python -m pytest tests/test_torch_sparse_kernels.py -m cuda
+--noconftest``. The ``cuda`` tests skip without a card; the plain version
+is held against the JAX package's Pallas kernel in
+tests/test_torch_sparse.py.
+
+Tolerances (kernel against plain version, same inputs on the card): the
+upper-triangle tiles of the Gramian within 1e-5 of the sums' scale
+|G₀| + Σ|fᵢ||fⱼ|, the correlation within 1e-5 of |C₀| + Σ|f||r| (float32
+products summed in other orders; bf16 operands and their products are exact
+in float32). In place and into a new buffer give the same bits; the
+strictly-lower tiles are left as they were in place.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from keystone_tpu_torch.data import Dataset
+from keystone_tpu_torch.data.resident import raw_chunk_tiles
+from keystone_tpu_torch.ops import cuda_ops, sparse
+from keystone_tpu_torch.ops.learning.lbfgs import (
+    SparseLBFGSwithL2,
+    _resident_chunk_fn,
+    run_lbfgs_gram_streamed,
+)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _operands(n, d, k, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    F = _t(rng.normal(size=(n, d)).astype(np.float32)).to(device)
+    R = _t(rng.normal(size=(n, k)).astype(np.float32)).to(device)
+    G = _t(rng.normal(size=(d, d)).astype(np.float32)).to(device)
+    C = _t(rng.normal(size=(d, k)).astype(np.float32)).to(device)
+    return G, C, F, R
+
+
+def _upper(d, device):
+    tiles = torch.arange(d, device=device) // 128
+    return tiles[:, None] <= tiles[None, :]
+
+
+def _coo(n, d, w, k, seed=0):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, size=(n, w)).astype(np.int32)
+    idx[rng.random(size=(n, w)) < 0.1] = -1
+    vals = rng.normal(size=(n, w)).astype(np.float32)
+    Y = (2.0 * np.eye(k, dtype=np.float32)[rng.integers(0, k, size=n)] - 1.0)
+    return idx, vals, Y
+
+
+# ---------------------------------------------------------------------------
+# Contract, on the CPU
+# ---------------------------------------------------------------------------
+
+
+class TestContract:
+    def test_counter_and_entry_point(self):
+        assert isinstance(cuda_ops.launches["gram_corr_sym_acc"], int)
+        assert "gram_corr_sym_acc" in cuda_ops._ENTRY_POINTS
+        cuda_ops.launches["gram_corr_sym_acc"] += 3
+        cuda_ops.reset_launch_counts()
+        assert cuda_ops.launches["gram_corr_sym_acc"] == 0
+
+    def test_cpu_wrapper_takes_the_plain_version(self):
+        G, C, F, R = _operands(50, 20, 3)
+        before = dict(cuda_ops.launches)
+        gram, corr = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+        want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G, C, F, R)
+        assert torch.equal(gram, want_g) and torch.equal(corr, want_c)
+        Gi, Ci = G.clone(), C.clone()
+        out = cuda_ops.gram_corr_sym_acc(Gi, Ci, F, R, out=(Gi, Ci))
+        assert out[0] is Gi and out[1] is Ci
+        assert torch.equal(Gi, want_g) and torch.equal(Ci, want_c)
+        assert cuda_ops.launches == before
+
+    def test_plain_version_rounds_labels_to_bf16_f(self):
+        G, C, F, R = _operands(40, 10, 2, seed=1)
+        F16 = F.to(torch.bfloat16)
+        _, corr = cuda_ops.gram_corr_sym_acc_ref(G, C, F16, R)
+        Rq = R.to(torch.bfloat16).float()
+        torch.testing.assert_close(corr, C + F16.float().T @ Rq, rtol=0, atol=1e-5)
+        _, corr32 = cuda_ops.gram_corr_sym_acc_ref(G, C, F, R)
+        torch.testing.assert_close(corr32, C + F.T @ R, rtol=0, atol=1e-5)
+
+    def test_guard(self):
+        assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 5)))
+        assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 5), dtype=torch.bfloat16))
+        assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 9))[:, :5])  # contiguous rows
+        assert not cuda_ops.gram_corr_acc_ok(torch.empty((5, 8)).T)
+        assert not cuda_ops.gram_corr_acc_ok(torch.empty((8, 5), dtype=torch.float64))
+        assert not cuda_ops.gram_corr_acc_ok(torch.empty((8,)))
+        assert cuda_ops.gram_corr_acc_ok(torch.empty((0, 5)).as_strided((0, 5), (0, 0)))
+
+    def test_non_cpu_non_cuda_tensors_raise(self):
+        def meta(*shape):
+            return torch.empty(shape, device="meta")
+
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_ops.gram_corr_sym_acc(meta(4, 4), meta(4, 2), meta(6, 4), meta(6, 2))
+
+
+# ---------------------------------------------------------------------------
+# Kernel against plain version: needs the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+# (n, d, k): aligned, ragged rows and columns, one-column last tile (the
+# Amazon d₁ = 16,385 in small), and label widths across the 8-wide passes.
+SHAPES = [(512, 256, 2), (1000, 300, 2), (333, 129, 1), (64, 385, 8), (200, 140, 9),
+          (150, 257, 17), (96, 130, 130), (1, 1, 1), (0, 130, 2), (4096, 1025, 2)]
+
+
+def _check(got, want, G, C, F, R, upper):
+    Ff = F.float()
+    Rq = R.to(torch.bfloat16).float() if F.dtype == torch.bfloat16 else R
+    g_scale = torch.addmm(G.abs(), Ff.abs().T, Ff.abs())
+    c_scale = torch.addmm(C.abs(), Ff.abs().T, Rq.abs())
+    g_rel = ((got[0] - want[0]).abs() / g_scale)[upper]
+    c_rel = (got[1] - want[1]).abs() / c_scale
+    assert g_rel.numel() == 0 or g_rel.max().item() <= 1e-5
+    assert c_rel.numel() == 0 or c_rel.max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+class TestKernelOnCard:
+    @pytest.mark.parametrize("n,d,k", SHAPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_against_plain_version(self, cuda_device, n, d, k, dtype):
+        G, C, F, R = _operands(n, d, k, device=cuda_device)
+        F = F.to(dtype)
+        before = cuda_ops.launches["gram_corr_sym_acc"]
+        got = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+        torch.cuda.synchronize()
+        assert cuda_ops.launches["gram_corr_sym_acc"] == before + 1
+        want = cuda_ops.gram_corr_sym_acc_ref(G, C, F, R)
+        assert got[0].shape == (d, d) and got[1].shape == (d, k)
+        _check(got, want, G, C, F, R, _upper(d, cuda_device))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_in_place_has_the_bits_of_a_new_buffer(self, cuda_device, dtype):
+        G, C, F, R = _operands(700, 300, 3, seed=2, device=cuda_device)
+        F = F.to(dtype)
+        fresh = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+        Gi, Ci = G.clone(), C.clone()
+        out = cuda_ops.gram_corr_sym_acc(Gi, Ci, F, R, out=(Gi, Ci))
+        torch.cuda.synchronize()
+        upper = _upper(300, cuda_device)
+        assert out[0] is Gi and out[1] is Ci
+        assert torch.equal(Gi[upper], fresh[0][upper]) and torch.equal(Ci, fresh[1])
+        assert torch.equal(Gi[~upper], G[~upper])  # lower tiles untouched
+
+    def test_labels_are_rounded_to_bf16_with_bf16_f(self, cuda_device):
+        # Labels with bits below bf16's mantissa: the correlation must be
+        # the one of the rounded labels (F is a 0/1 indicator, so the sums
+        # are exact and the comparison can be bitwise).
+        n, d = 64, 16
+        F = torch.zeros((n, d), device=cuda_device)
+        F[torch.arange(n), torch.arange(n) % d] = 1.0
+        R = (1.0 + torch.arange(n, device=cuda_device, dtype=torch.float32)[:, None]
+             * 2.0 ** -12).repeat(1, 2)
+        G, C = torch.zeros((d, d), device=cuda_device), torch.zeros((d, 2), device=cuda_device)
+        _, corr16 = cuda_ops.gram_corr_sym_acc(G, C, F.to(torch.bfloat16), R)
+        _, corr32 = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+        Rq = R.to(torch.bfloat16).float()
+        assert torch.equal(corr16, F.T @ Rq)
+        assert torch.equal(corr32, F.T @ R)
+        assert not torch.equal(corr16, corr32)
+
+    def test_column_window_is_read_through_its_row_stride(self, cuda_device):
+        G, C, F, R = _operands(300, 200, 2, seed=3, device=cuda_device)
+        wide = torch.zeros((300, 260), device=cuda_device)
+        wide[:, 30:230] = F
+        got = cuda_ops.gram_corr_sym_acc(G, C, wide[:, 30:230], R)
+        want = cuda_ops.gram_corr_sym_acc_ref(G, C, F, R)
+        _check(got, want, G, C, F, R, _upper(200, cuda_device))
+
+    def test_what_the_kernel_refuses_raises(self, cuda_device):
+        G, C, F, R = _operands(30, 20, 2, device=cuda_device)
+        with pytest.raises(TypeError):
+            cuda_ops.gram_corr_sym_acc(G, C, F.double(), R)
+        with pytest.raises(TypeError):
+            cuda_ops.gram_corr_sym_acc(G, C, F.T.contiguous().T, R)
+        with pytest.raises(ValueError):
+            cuda_ops.gram_corr_sym_acc(G[:10, :10], C, F, R)
+        with pytest.raises(ValueError):
+            cuda_ops.gram_corr_sym_acc(G, C, F, R[:10])
+
+
+@pytest.mark.cuda
+class TestFoldOnCard:
+    def test_fold_launches_once_a_chunk_and_matches_the_cpu(self, cuda_device):
+        n, d, w, k, c = 2000, 300, 12, 2, 512
+        idx, vals, Y = _coo(n, d, w, k)
+        runs = {}
+        for device in ("cpu", cuda_device):
+            ops = raw_chunk_tiles(_t(idx).to(device), _t(vals).to(device), _t(Y).to(device), c)
+            before = cuda_ops.launches["gram_corr_sym_acc"]
+            G, AtY, yty = sparse.sparse_gram_stream(
+                lambda cid: _resident_chunk_fn(cid, *ops), ops[0].shape[0], d, k)
+            runs[str(device)] = (G.cpu(), AtY.cpu(), float(yty))
+            launched = cuda_ops.launches["gram_corr_sym_acc"] - before
+            assert launched == (4 if device == cuda_device else 0)
+        (Gc, Ac, yc), (Gg, Ag, yg) = runs["cpu"], runs[str(cuda_device)]
+        assert torch.equal(Gg, Gg.T)
+        torch.testing.assert_close(Gg, Gc, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(Ag, Ac, rtol=1e-5, atol=1e-4)
+        assert yg == pytest.approx(yc, rel=1e-6)
+
+    def test_densify_has_the_same_bits_on_card_and_cpu(self, cuda_device):
+        rng = np.random.default_rng(4)
+        idx = _t(rng.integers(-1, 50, size=(300, 40)).astype(np.int32))  # many duplicates
+        vals = _t(rng.normal(size=(300, 40)).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            cpu = sparse._dense_rows(idx, vals, 48, dtype)
+            card = sparse._dense_rows(idx.to(cuda_device), vals.to(cuda_device), 48, dtype)
+            again = sparse._dense_rows(idx.to(cuda_device), vals.to(cuda_device), 48, dtype)
+            assert torch.equal(card.cpu(), cpu) and torch.equal(card, again)
+
+    def test_compressed_engine_has_the_bits_of_the_bf16_engine(self, cuda_device):
+        n, d, w, k = 3000, 300, 8, 2
+        idx, vals, Y = _coo(n, d, w, k, seed=5)
+        data = Dataset({"indices": _t(idx).to(cuda_device), "values": _t(vals).to(cuda_device)},
+                       n=n)
+        labels = Dataset(_t(Y).to(cuda_device))
+        kw = dict(lam=1e-3, num_iterations=15, num_features=d, solver="gram",
+                  gram_chunk_rows=512)
+        m16 = SparseLBFGSwithL2(gram_dtype="bf16", **kw).fit(data, labels)
+        mc = SparseLBFGSwithL2(compress="int16_bf16", **kw).fit(data, labels)
+        assert torch.equal(m16.x, mc.x) and torch.equal(m16.b_opt, mc.b_opt)
+
+    def test_segmented_fold_has_the_bits_of_the_single_one(self, cuda_device):
+        n, d, w, k, c = 2500, 200, 10, 2, 500
+        idx, vals, Y = _coo(n, d, w, k, seed=6)
+        tiles = [_t(a).to(cuda_device).reshape(n // c, c, -1) for a in (idx, vals, Y)]
+
+        def chunk(cid, it, vt, yt):
+            cid = min(cid, it.shape[0] - 1)  # ids past the end slice safely
+            return it[cid], vt[cid], yt[cid]
+
+        kw = dict(lam=1e-3, num_iterations=15, n=n, operands=tuple(tiles))
+        before = cuda_ops.launches["gram_corr_sym_acc"]
+        W1, loss1 = run_lbfgs_gram_streamed(chunk, n // c, d, k, **kw)
+        W2, loss2 = run_lbfgs_gram_streamed(chunk, n // c, d, k, max_chunks_per_dispatch=2, **kw)
+        assert cuda_ops.launches["gram_corr_sym_acc"] - before == 5 + 6
+        assert torch.equal(W1, W2) and torch.equal(loss1, loss2)
