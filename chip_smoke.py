@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port's TIMIT, CIFAR and sparse paths from
+Builds every CUDA kernel of the port (all twelve: the TIMIT, CIFAR, sparse
+and sketched paths and the block update's ``sym=False`` route) from
 ``keystone_tpu_torch/csrc/`` (one ``nvcc`` per source, all started
 together), then:
 
@@ -12,7 +13,11 @@ together), then:
      plain version and a PyTorch library yardstick that computes the same
      function; ``gram_corr_sym_acc`` on the Amazon chunk (65,536 x 16,385,
      k = 2) and on the ragged last chunk of 41,248 rows, in place and into
-     a new buffer;
+     a new buffer; ``gram_corr`` at the Gramian shape beside
+     ``gram_corr_sym``; ``countsketch_scatter`` at the reference's small
+     check geometry and at the sketched tier's Amazon chunk (65,536 rows of
+     83 slots into 32,770 x 16,385), in place and fresh, against its plain
+     version run on the CPU (bit for bit);
   2. checks that a small run of the three TIMIT routes on the card agrees
      with the plain-PyTorch run of it on the CPU, then drives the
      ``--solver block`` slice end to end through its entry point,
@@ -65,6 +70,21 @@ together), then:
      the gather fit no kernel; the compressed engine gives the bits of the
      bf16 one. Last, ``run_lbfgs_gram_streamed`` over 524,288 resident
      rows (8 chunks) whole and in segments of 3 chunks: the same bits.
+  9. runs the sketched tier: small on the card against its plain run on the
+     CPU (sparse, compressed and SRHT fits; SRHT, IHS and the sketch-and-
+     solve estimator on a dense problem), then on phase 8's Amazon rows the
+     reference's frontier sweep (bench.py:1401-1415, seed 7) through a
+     ``Sparsify`` pipeline: ``IterativeHessianSketch`` raw and compressed
+     at m = 32,770 (pinned: the guard rolls back after 2 passes) and 65,540
+     (pinned: 3 passes, 3 steps kept; compressed within the bf16 tolerance
+     of raw), ``SketchedLeastSquares`` at 32,770 with 12 PCG iterations;
+     launches counted from 0 for each fit (``countsketch_scatter`` 8 a
+     fold pass for IHS, nothing for SRHT), and where one IHS fit's time
+     goes (fold, gradient operand, SAᵀSA, Cholesky), timed with CUDA
+     events;
+ 10. runs one stacked block update at TIMIT width (A 65,536 x 4,096, R
+     65,536 x 147) with ``sym=False`` (one ``gram_corr`` launch, counted
+     from 0) and with ``sym=True``: the same weights and residual.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -126,11 +146,21 @@ AMAZON_RAGGED = AMAZON_N - (AMAZON_CHUNKS - 1) * AMAZON_CHUNK
 # segments of 3 (the last segment two live chunks and one past the end).
 STREAM_CHUNKS, STREAM_SEG = 8, 3
 
+# The sketched tier on the same rows: the reference's frontier sweep
+# (bench.py:1401-1415): sketch sizes 2(d+1) and 4(d+1), 3 outer IHS
+# iterations, 12 SRHT PCG iterations, seed 7. IHS folds chunks of 65,536
+# rows (8 a pass), SRHT sketches chunks of 8,192 (62).
+SKETCH_M, SKETCH_OUTER, SKETCH_PCG, SKETCH_SEED = 2 * (AMAZON_D + 1), 3, 12, 7
+# The CountSketch kernel's small check geometry (bench.py:1445-1481).
+CS_SMALL = (2048, 16, 512, 256)
+
 # Each kernel, and the main-path route whose launches the JSON line reports.
 FLAT, STACKED = "timit fused flat fit (fit first)", "timit stacked fit (apply first)"
 STREAMED = "timit streamed fit (--solver streaming)"
 CIFAR = "cifar RandomPatchCifarKernel (fit, then train and test apply)"
 SPARSE = "amazon sparse ridge, SparseLBFGSwithL2 gram engine with bf16 slabs (fit, then apply)"
+SKETCH = "amazon sketched tier, IterativeHessianSketch m = 65,540, 3 outer (fit, then apply)"
+SYM_FALSE = "stacked BCD block update with sym=False at TIMIT width"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -172,6 +202,14 @@ KERNELS = {
         source="keystone_tpu_torch/csrc/gram_corr_sym_acc.cu",
         replaces="keystone_tpu/ops/pallas_ops.py:881", path=SPARSE,
     ),
+    "gram_corr": dict(
+        source="keystone_tpu_torch/csrc/gram_corr.cu",
+        replaces="keystone_tpu/ops/pallas_ops.py:485", path=SYM_FALSE,
+    ),
+    "countsketch_scatter": dict(
+        source="keystone_tpu_torch/csrc/countsketch_scatter.cu",
+        replaces="keystone_tpu/ops/pallas_ops.py:1120", path=SKETCH,
+    ),
 }
 # Launches of the flat route: 4 blocks, 3 epochs, Gramians stashed after
 # the first epoch; 4 cosine branches in the fit and in each of two applies.
@@ -180,7 +218,7 @@ FLAT_LAUNCHES = {
     "block_gram_sym": D_FEAT // BLOCK, "block_corr": EPOCHS * D_FEAT // BLOCK,
     "block_residual_update": EPOCHS * D_FEAT // BLOCK, "gram_sym_acc": 0,
     "gaussian_kernel_block": 0, "gaussian_resid_block": 0, "conv_featurize": 0,
-    "gram_corr_sym_acc": 0,
+    "gram_corr_sym_acc": 0, "gram_corr": 0, "countsketch_scatter": 0,
 }
 # Launches of the streamed route: one fold per row tile (9), one cosine bank
 # launch per tile in the fit (9), the train apply (9) and the test apply of
@@ -190,7 +228,7 @@ STREAMED_LAUNCHES = {
     "cosine_features": 2 * STREAM_TILES + -(-(STREAM_N // 4) // STREAM_TILE),
     "gram_corr_sym": 0, "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
     "gram_sym_acc": STREAM_TILES, "gaussian_kernel_block": 0, "gaussian_resid_block": 0,
-    "conv_featurize": 0, "gram_corr_sym_acc": 0,
+    "conv_featurize": 0, "gram_corr_sym_acc": 0, "gram_corr": 0, "countsketch_scatter": 0,
 }
 
 
@@ -306,12 +344,140 @@ def phase_kernels(cuda_ops):
     log(f"  gram_corr_sym f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
         f"bf16 operands: {bf16_ms:.3f} ms (bound {bf16_bound:.3f})")
+    results["gram_corr"] = phase_gram_corr(cuda_ops, A, R)
     del A, A16, R
     torch.cuda.empty_cache()
     results.update(phase_window_kernels(cuda_ops, gen))
     results.update(phase_gram_sym_acc(cuda_ops, gen))
     results.update(phase_gram_corr_sym_acc(cuda_ops, gen))
+    results["countsketch_scatter"] = phase_countsketch(cuda_ops)
     return results
+
+
+def phase_gram_corr(cuda_ops, A, R):
+    """The dense Gramian kernel on gram_corr_sym's operands (one centered
+    4096-wide block, the residual): every tile computed, f32 and bf16 A."""
+    m, d = A.shape
+    k = R.shape[1]
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        Ak = A.to(dtype)
+        gram, corr = cuda_ops.gram_corr(Ak, R)
+        gram_r, corr_r = cuda_ops.gram_corr_ref(Ak, R)
+        sym_gram, _ = cuda_ops.gram_corr_sym(Ak, R)
+        torch.cuda.synchronize()
+        g_err = (gram - gram_r).abs().max().item()
+        c_err = (corr - corr_r).abs().max().item()
+        # Errors relative to the scale of the sums, as for gram_corr_sym.
+        g_rel = g_err / gram_r.diagonal().max().item()
+        c_rel = c_err / (Ak.float().abs().T @ R.abs()).max().item()
+        check(f"gram_corr {label} A {m}x{d}, R {m}x{k}",
+              g_rel <= 1e-4 and c_rel <= 1e-4 and torch.equal(gram, gram.T)
+              and torch.equal(gram, sym_gram),
+              f"gram max_abs_err {g_err:.3e} ({g_rel:.2e} of scale), corr max_abs_err "
+              f"{c_err:.3e} ({c_rel:.2e} of scale), tol 1e-4 of scale; symmetric, and the "
+              f"bits of gram_corr_sym's mirrored Gramian")
+        if label == "f32":
+            r = dict(max_abs_err=max(g_err, c_err))
+        del Ak, gram, corr, gram_r, corr_r, sym_gram
+    r["ms"] = time_ms(lambda: cuda_ops.gram_corr(A, R), 5)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.gram_corr_ref(A, R), 5)
+    r["library_ms"] = time_ms(lambda: (A.T @ A, A.T @ R), 5)
+    # The bound of the function, (AᵀA, AᵀR), not of this kernel's way of
+    # computing it: the symmetric Gramian needs only its upper triangle, as
+    # for gram_corr_sym.
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * d + m * k + d * d + d * k),
+                                            m * d * (d + 1) + 2 * m * d * k, PEAK_F32_FLOPS)
+    A16 = A.to(torch.bfloat16)
+    bf16_ms = time_ms(lambda: cuda_ops.gram_corr(A16, R), 3)
+    log(f"  gram_corr f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
+        f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); bf16 "
+        f"operands: {bf16_ms:.3f} ms")
+    return r
+
+
+def countsketch_chunk(c, nnz, m, d, gen):
+    """A CountSketch chunk made on the card: ``nnz`` sorted uniform column
+    indices a row in [0, d) and standard normal values (phase 8's rows),
+    then the intercept lane (column d, value 1); a uniform bucket in
+    [0, m) and a ±1 sign a row."""
+    dev = torch.device("cuda")
+    idx = torch.randint(0, d, (c, nnz), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.cat([idx.sort(dim=1).values,
+                     torch.full((c, 1), d, dtype=torch.int32, device=dev)], dim=1)
+    val = torch.cat([torch.randn((c, nnz), generator=gen, device=dev),
+                     torch.ones((c, 1), device=dev)], dim=1)
+    bucket = torch.randint(0, m, (c,), generator=gen, device=dev, dtype=torch.int32)
+    sign = torch.randint(0, 2, (c,), generator=gen, device=dev).float() * 2 - 1
+    return idx, val, bucket, sign
+
+
+def phase_countsketch(cuda_ops):
+    """countsketch_scatter against its plain version run on the CPU (which
+    adds lane after lane in (row, slot) order, the kernel's order: bit for
+    bit), fresh and in place, at the reference's small check geometry and
+    at the sketched tier's Amazon chunk; then its time beside the plain
+    version on the card, one flattened ``index_add_`` and the bound of the
+    in-place form the fold uses."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dev = torch.device("cuda")
+    c, s, m, d1 = CS_SMALL
+    small = (torch.randint(0, d1, (c, s), generator=gen, device=dev, dtype=torch.int32),
+             torch.randn((c, s), generator=gen, device=dev),
+             torch.randint(0, m, (c,), generator=gen, device=dev, dtype=torch.int32),
+             torch.randint(0, 2, (c,), generator=gen, device=dev).float() * 2 - 1)
+    cases = [("small check", small, m, d1)]
+    c, nnz, m, d = AMAZON_CHUNK, AMAZON_NNZ, SKETCH_M, AMAZON_D
+    chunk = countsketch_chunk(c, nnz, m, d, gen)
+    cases.append(("Amazon chunk", chunk, m, d + 1))
+    r = {}
+    for label, ops, m, d1 in cases:
+        c, s = ops[0].shape
+        cpu_ops = [t.cpu() for t in ops]
+        out0 = torch.randn((m, d1), generator=gen, device=dev)
+        fresh = cuda_ops.countsketch_scatter(*ops, m, d1)
+        acc = out0.clone()
+        cuda_ops.countsketch_scatter(*ops, m, d1, out=acc)
+        torch.cuda.synchronize()
+        want_fresh = cuda_ops.countsketch_scatter_ref(*cpu_ops, m, d1)
+        same_fresh = torch.equal(fresh.cpu(), want_fresh)
+        err = (fresh.cpu() - want_fresh).abs().max().item()
+        del fresh, want_fresh
+        want_acc = cuda_ops.countsketch_scatter_ref(*cpu_ops, m, d1, out=out0.cpu())
+        same_acc = torch.equal(acc.cpu(), want_acc)
+        del want_acc, acc, out0
+        check(f"countsketch_scatter {label}, c {c}, s {s}, m {m}, d1 {d1}",
+              same_fresh and same_acc,
+              f"fresh and in place the bits of the plain version run on the CPU "
+              f"(max_abs_err {err:.3e})")
+        if label == "Amazon chunk":
+            r["max_abs_err"] = err
+    idx, val, bucket, sign = chunk
+    c, s = idx.shape
+    m, d1 = SKETCH_M, AMAZON_D + 1
+    acc = torch.zeros((m, d1), device=dev)
+    seg = (bucket.long()[:, None] * d1 + idx.long()).reshape(-1)
+    src = (sign[:, None] * val).reshape(-1)
+    touched = int(torch.unique(seg).numel())
+    r["ms"] = time_ms(lambda: cuda_ops.countsketch_scatter(*chunk, m, d1, out=acc), 10)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.countsketch_scatter_ref(*chunk, m, d1, out=acc),
+                            10)
+    r["library_ms"] = time_ms(lambda: acc.view(-1).index_add_(0, seg, src), 10)
+    # In place, as the fold runs it: the operands read once, each touched
+    # entry of the accumulator read and written once; no arithmetic bound.
+    nbytes = 4 * (2 * c * s + 2 * c) + 8 * touched
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, c * s, PEAK_F32_FLOPS)
+    del acc
+    fresh_ms = time_ms(lambda: cuda_ops.countsketch_scatter(*chunk, m, d1), 3)
+    prep_ms = time_ms(lambda: cuda_ops.countsketch_order(bucket, m), 10)
+    fresh_bound, _ = bound_ms(nbytes + 4 * m * d1, c * s, PEAK_F32_FLOPS)
+    log(f"  countsketch_scatter in place, c {c}, s {s}, m {m}, d1 {d1} ({touched} entries "
+        f"touched): {r['ms']:.3f} ms (of it the bucket order {prep_ms:.3f}; plain "
+        f"{r['plain_ms']:.3f}, library index_add_ {r['library_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f} by {r['bound_by']}); fresh buffer {fresh_ms:.3f} ms "
+        f"(bound {fresh_bound:.3f})")
+    del chunk, idx, val, bucket, sign, seg, src
+    torch.cuda.empty_cache()
+    return r
 
 
 def phase_window_kernels(cuda_ops, gen):
@@ -1181,10 +1347,13 @@ def phase_sparse(cuda_ops):
     check("compressed engine has the bits of the bf16 gram engine",
           torch.equal(comp.x, b16.x) and torch.equal(comp.b_opt, b16.b_opt), "bitwise equal")
     report["engines_max_abs_model_delta"] = deltas
-    del rows, train, test, labels, models, base, comp, b16
+    amazon = dict(rows=rows, train=train, test=test, labels=labels, gather=base,
+                  gather_accuracy=(report["gather"]["train_accuracy"],
+                                   report["gather"]["test_accuracy"]))
+    del models, comp, b16
     torch.cuda.empty_cache()
     report["streamed"] = phase_sparse_streamed(cuda_ops, w_true)
-    return sparse_counts, report
+    return sparse_counts, report, amazon
 
 
 def _clamped_chunk(cid, idx_t, val_t, y_t):
@@ -1240,6 +1409,305 @@ def phase_sparse_streamed(cuda_ops, w_true):
             for label, r in runs.items()}
 
 
+def _w1(mapper):
+    return torch.cat([mapper.x, mapper.b_opt[None]])
+
+
+def _dense_objective(mapper, A, Y, lam, n):
+    """½‖f(A) − Y‖²/n + ½λ‖x‖² of a fitted dense model: the same formula for
+    the card's and the CPU's fit of one problem."""
+    r = mapper.apply(A) - Y
+    return float(0.5 * (r * r).sum() / n + 0.5 * lam * (mapper.x * mapper.x).sum())
+
+
+def phase_sketch_small(cuda_ops):
+    """The sketched tier small on the card against its plain run on the CPU,
+    the port's own draws (made on the CPU, the same on both): the sparse,
+    compressed and SRHT fits of phase 8's small rows (n 4,096, d 1,000, 16
+    active a row), and SRHT, IHS and the sketch-and-solve estimator on a
+    dense 4,096 x 256 problem. Weights within 1e-4 relative (float32 sums
+    in other orders; on the card the gradient operand's and the dense
+    segment sums' ``index_add_`` add in atomic order), the final ridge
+    objective within 1e-5 relative."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.linear import SketchedLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.sketch import (
+        IterativeHessianSketch,
+        SketchedLeastSquares,
+    )
+
+    n, d, nnz, k, lam = 4096, 1000, 16, AMAZON_K, AMAZON_LAM
+    idx, vals, _, Y = amazon_rows(n, d, nnz, k, seed=11, w_true=planted_model(d, 12))
+    rng = np.random.default_rng(13)
+    A = rng.normal(size=(n, 256)).astype(np.float32)
+    score = A @ rng.normal(size=256).astype(np.float32) + 0.5 * rng.normal(size=n)
+    YA = (2.0 * np.eye(k, dtype=np.float32)[(score > 0).astype(int)] - 1.0)
+    # IHS at its default m = 4(d+1): at 2(d+1) this problem's first step
+    # raises the gradient norm and the guard returns the zero model, which
+    # would compare nothing.
+    m = 2 * (d + 1)
+    sparse_fits = {
+        "IHS": lambda: IterativeHessianSketch(lam=lam, outer_iters=SKETCH_OUTER,
+                                              seed=SKETCH_SEED, num_features=d, chunk_rows=512),
+        "IHS compressed": lambda: IterativeHessianSketch(
+            lam=lam, outer_iters=SKETCH_OUTER, seed=SKETCH_SEED, num_features=d,
+            chunk_rows=512, compress="int16_bf16"),
+        "SRHT": lambda: SketchedLeastSquares(lam=lam, sketch_size=m, pcg_iters=SKETCH_PCG,
+                                             seed=SKETCH_SEED, num_features=d, chunk_rows=512),
+    }
+    dense_fits = {
+        "dense SRHT": lambda: SketchedLeastSquares(lam=lam, sketch_factor=2,
+                                                   pcg_iters=SKETCH_PCG, seed=SKETCH_SEED,
+                                                   chunk_rows=512),
+        "dense IHS": lambda: IterativeHessianSketch(lam=lam, outer_iters=SKETCH_OUTER,
+                                                    seed=SKETCH_SEED),
+        "sketch-and-solve estimator": lambda: SketchedLeastSquaresEstimator(
+            lam=lam, seed=SKETCH_SEED),
+    }
+    for name, make in {**sparse_fits, **dense_fits}.items():
+        runs = {}
+        for where, device in (("card", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+            if name in sparse_fits:
+                t = [torch.from_numpy(a).to(device) for a in (idx, vals, Y)]
+                data, labels = Dataset({"indices": t[0], "values": t[1]}, n=n), Dataset(t[2])
+            else:
+                t = [torch.from_numpy(a).to(device) for a in (A, YA)]
+                data, labels = Dataset(t[0]), Dataset(t[1])
+            est = make()
+            model = est.fit(data, labels)
+            if name in sparse_fits:
+                obj = _ridge_loss(model, t[0], t[1], t[2], lam, n)
+            else:
+                obj = _dense_objective(model, t[0], t[1], lam, n)
+            runs[where] = (_w1(model).cpu(), obj, getattr(est, "steps", None))
+        (Wg, og, sg), (Wc, oc, sc) = runs["card"], runs["cpu"]
+        rel = float((Wg - Wc).norm() / Wc.norm())
+        check(f"small {name}, card against CPU plain versions",
+              rel <= 1e-4 and abs(og - oc) <= 1e-5 * abs(oc) and sg == sc != 0
+              and bool(torch.isfinite(Wg).all()),
+              f"weights relative Frobenius {rel:.2e} (tol 1e-4), final objective {og:.7f} on "
+              f"the card, {oc:.7f} on the CPU (tol 1e-5 relative)"
+              + (f", {sg} Newton steps kept on both" if sg is not None else ""))
+
+
+def phase_sketch(cuda_ops, amazon):
+    """The reference's frontier sweep on phase 8's Amazon rows, each fit
+    through a Sparsify pipeline with the launch counts set to 0 before it
+    and read after; then where one IHS fit's time goes.
+
+    Each IHS fit's fold passes and kept Newton steps are pinned. At m =
+    2(d+1) the first step raises the exact gradient norm and the guard
+    returns the zero model after 2 passes (the reference does the same on
+    this geometry cut to a quarter, CPU runs of both packages); at 4(d+1)
+    every step is kept (3 passes), so that fit is the kernel's main path
+    and the one the compressed fold is held against."""
+    from keystone_tpu_torch.ops.learning.sketch import (
+        IterativeHessianSketch,
+        SketchedLeastSquares,
+    )
+
+    d, lam, n = AMAZON_D, AMAZON_LAM, AMAZON_N
+    rows, train, test, labels = (amazon[key] for key in ("rows", "train", "test", "labels"))
+    gather = amazon["gather"]
+    ihs = dict(lam=lam, outer_iters=SKETCH_OUTER, seed=SKETCH_SEED, num_features=d,
+               chunk_rows=AMAZON_CHUNK)  # the estimator's default chunk
+    m1, m2 = SKETCH_M, 2 * SKETCH_M
+    # name: (estimator, pinned (fold passes, Newton steps kept) or None)
+    fits = {
+        f"IHS m={m1}": (IterativeHessianSketch(sketch_size=m1, **ihs), (2, 0)),
+        f"IHS m={m2}": (IterativeHessianSketch(sketch_size=m2, **ihs), (SKETCH_OUTER,) * 2),
+        f"IHS compressed int16+bf16 m={m1}": (IterativeHessianSketch(
+            sketch_size=m1, compress="int16_bf16", **ihs), (2, 0)),
+        f"IHS compressed int16+bf16 m={m2}": (IterativeHessianSketch(
+            sketch_size=m2, compress="int16_bf16", **ihs), (SKETCH_OUTER,) * 2),
+        f"SRHT m={m1}": (SketchedLeastSquares(
+            lam=lam, sketch_size=m1, pcg_iters=SKETCH_PCG, seed=SKETCH_SEED,
+            num_features=d), None),
+    }
+    gather_obj = _ridge_loss(gather, rows["train"][0], rows["train"][1], rows["train"][3], lam, n)
+    log(f"  L-BFGS gather fit (phase 8): accuracy train {100 * amazon['gather_accuracy'][0]:.3f}% "
+        f"test {100 * amazon['gather_accuracy'][1]:.3f}%, ridge objective {gather_obj:.7f}")
+    report, models, sketch_counts = {"gather_objective": gather_obj}, {}, None
+    for name, (est, pinned) in fits.items():
+        fitted, fit_s, counts, peak = _sparse_fit(cuda_ops, est, train, labels)
+        t0 = time.perf_counter()
+        train_pred, test_pred = fitted.apply(train), fitted.apply(test)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        mapper = models[name] = _fitted_mapper(fitted)
+        acc = (_accuracy(train_pred, rows["train"][2]), _accuracy(test_pred, rows["test"][2]))
+        obj = _ridge_loss(mapper, rows["train"][0], rows["train"][1], rows["train"][3], lam, n)
+        delta = float((_w1(mapper) - _w1(gather)).abs().max())
+        passes, steps = getattr(est, "passes", None), getattr(est, "steps", None)
+        report[name] = dict(fit_seconds=fit_s, apply_seconds=apply_s, peak_allocated_bytes=peak,
+                            train_accuracy=acc[0], test_accuracy=acc[1], objective=obj,
+                            max_abs_delta_vs_gather=delta, passes=passes, steps=steps,
+                            launches=counts)
+        log(f"  {name}: fit {fit_s:.3f} s, apply (train + test) {apply_s:.3f} s, peak "
+            f"allocated {peak / 2**30:.2f} GiB, accuracy train {100 * acc[0]:.3f}% test "
+            f"{100 * acc[1]:.3f}%, ridge objective {obj:.7f}, max |W - W_gather| {delta:.3e}, "
+            f"fold passes {passes}, Newton steps kept {steps}, launches {counts}")
+        expected = {kernel: 0 for kernel in cuda_ops.launches}
+        if pinned is not None:
+            check(f"{name} passes and steps", (passes, steps) == pinned,
+                  f"{passes} fold passes and {steps} Newton steps kept, expected {pinned[0]} "
+                  f"and {pinned[1]}")
+            expected["countsketch_scatter"] = AMAZON_CHUNKS * pinned[0]
+        check(f"{name} launches", counts == expected, f"{counts}, expected {expected}")
+        check(f"{name} finiteness", np.isfinite(obj) and bool(torch.isfinite(_w1(mapper)).all()),
+              "finite weights and objective")
+        if pinned is not None and pinned[1] == 0:
+            check(f"{name} guard", not mapper.x.any() and not mapper.b_opt.any(),
+                  "the first Newton step raised the exact gradient norm; the fit rolled it "
+                  "back and returned the zero model")
+        else:
+            check(f"{name} accuracy", acc[0] > 0.75 and acc[1] > 0.75,
+                  "train and test accuracy above 75% (chance is 50%)")
+        if name == f"IHS m={m2}":
+            sketch_counts = counts
+    raw, comp = (_w1(models[key]) for key in (f"IHS m={m2}",
+                                              f"IHS compressed int16+bf16 m={m2}"))
+    comp_delta, scale = float((comp - raw).abs().max()), float(raw.abs().max())
+    check(f"compressed IHS within the bf16 tolerance of raw IHS at m={m2}",
+          0 < scale and comp_delta <= 5e-3 * scale,
+          f"max |W_compressed - W_raw| {comp_delta:.3e}, within 5e-3 of the largest weight "
+          f"{scale:.4f} (bf16 values quantize the data; the draws are the same; 3 steps kept "
+          f"by both)")
+    report["compressed_max_abs_delta_vs_raw"] = comp_delta
+    del models, raw, comp
+    torch.cuda.empty_cache()
+    report["time"] = phase_sketch_time(cuda_ops, rows)
+    return sketch_counts, report
+
+
+def phase_sketch_time(cuda_ops, rows):
+    """Where one IHS fit's time goes (m = 32,770): one outer iteration's
+    stages as the fit runs them, each timed with CUDA events — the fold
+    pass (zeroing the accumulator and 8 ``countsketch_scatter`` launches),
+    the gradient operand (8 gather + scatter passes), SAᵀSA, and the
+    Cholesky factor and solve — and the one-time AᵀB pass. The pass's
+    draws (CPU generator, then a copy to the card) are made before its
+    start event and timed on the host clock, so no stage's device time
+    includes the stream waiting on the host."""
+    from keystone_tpu_torch.data.resident import raw_chunk_tiles
+    from keystone_tpu_torch.ops.learning import sketch
+    from keystone_tpu_torch.ops.sparse import sparse_matmul, sparse_matmul_t
+
+    d1, m, n, c, k = AMAZON_D + 1, SKETCH_M, AMAZON_N, AMAZON_CHUNK, AMAZON_K
+    dev = torch.device("cuda")
+    est = sketch.IterativeHessianSketch(lam=AMAZON_LAM, sketch_size=m, seed=SKETCH_SEED,
+                                        num_features=AMAZON_D)
+    idx1, val1 = sketch._append_intercept(rows["train"][0], rows["train"][1], n, AMAZON_D)
+    Y = rows["train"][3]
+    idx_t, val_t, _ = raw_chunk_tiles(idx1, val1, Y, c)
+    X = torch.zeros((d1, k), device=dev)
+    times = {}
+
+    def stage(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end)
+        return out
+
+    AtB = stage("AtB pass (once a fit)", lambda: sparse_matmul_t(idx1, val1, Y, d1))
+    for rep in range(2):  # the first round warms the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws = [est._draw((0, cid), c, m, dev) for cid in range(idx_t.shape[0])]
+        torch.cuda.synchronize()
+        draws_ms = 1e3 * (time.perf_counter() - t0)
+
+        def fold():
+            SA = torch.zeros((m, d1), device=dev)
+            for cid, (bucket, sign) in enumerate(draws):
+                cuda_ops.countsketch_scatter(idx_t[cid], val_t[cid], bucket, sign, m, d1, out=SA)
+            return SA
+
+        def gradient():
+            AtAX = torch.zeros_like(X)
+            for cid in range(idx_t.shape[0]):
+                r = sparse_matmul(idx_t[cid], val_t[cid], X)
+                AtAX += sparse_matmul_t(idx_t[cid], val_t[cid], r, d1)
+            return AtAX
+
+        SA = stage("fold pass (countsketch_scatter)", fold)
+        AtAX = stage("gradient operand", gradient)
+        g = AtAX / n - AtB / n + AMAZON_LAM * X
+
+        def gram():
+            H = SA.T @ SA
+            H /= n
+            H.diagonal().add_(AMAZON_LAM + 1e-8)
+            return H
+
+        H = stage("SA^T SA", gram)
+        stage("Cholesky factor and solve",
+              lambda: torch.cholesky_solve(g, torch.linalg.cholesky(H)))
+        del SA, H, draws
+    once = times.pop("AtB pass (once a fit)")
+    outer = sum(times.values())
+    log(f"  one IHS outer iteration, m {m}: {outer:.3f} ms of device time: " + ", ".join(
+        f"{key} {v:.3f} ms ({100 * v / outer:.1f}%)" for key, v in times.items())
+        + f"; AtB pass (once a fit) {once:.3f} ms; the pass's draws {draws_ms:.3f} ms of host "
+        f"time before it")
+    del idx1, val1, idx_t, val_t
+    torch.cuda.empty_cache()
+    return dict(stage_ms=times, outer_ms=outer, atb_ms=once, draws_host_ms=draws_ms)
+
+
+def phase_sym_false(cuda_ops):
+    """One stacked block update at TIMIT width through the reference's
+    ``sym`` switch: ``sym=False`` (``gram_corr``, every Gramian tile) with
+    the launch counts set to 0 just before and read just after, then
+    ``sym=True`` (``gram_corr_sym``). The two give the same weights and
+    residual: the dense kernel computes each lower tile with the same
+    products in the same order as the mirrored upper one."""
+    from keystone_tpu_torch.parallel import linalg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    X = torch.randn((N_TRAIN, D_IN), generator=gen, device=dev) * 0.6
+    W = torch.randn((BLOCK, D_IN), generator=gen, device=dev) * 0.05555
+    b = torch.rand((BLOCK,), generator=gen, device=dev) * 6.283185307179586
+    A = cuda_ops.cosine_features(X, W, b)
+    A -= A.mean(dim=0)
+    labels = torch.randint(0, K, (N_TRAIN,), generator=gen, device=dev)
+    R = 2.0 * torch.nn.functional.one_hot(labels, K).float() - 1.0
+    R -= R.mean(dim=0)
+    Wb = torch.zeros((BLOCK, K), device=dev)
+    del X, W, b
+    runs = {}
+    for sym in (False, True):
+        torch.cuda.synchronize()
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        R_new, W_new, _, _ = linalg._bcd_block_update(A, R, Wb, 0.0, sym=sym)
+        torch.cuda.synchronize()
+        runs[sym] = (R_new, W_new, dict(cuda_ops.launches), time.perf_counter() - t0)
+    (Rd, Wd, counts, dense_s), (Rs, Ws, sym_counts, sym_s) = runs[False], runs[True]
+    rel_W = float((Wd - Ws).norm() / Ws.norm())
+    rel_R = float((Rd - Rs).norm() / Rs.norm())
+    same = torch.equal(Wd, Ws) and torch.equal(Rd, Rs)
+    log(f"  block update A {N_TRAIN}x{BLOCK}, R {N_TRAIN}x{K}: sym=False {dense_s:.3f} s "
+        f"(launches {counts}), sym=True {sym_s:.3f} s; weights differ by {rel_W:.2e}, residual "
+        f"by {rel_R:.2e} relative ({'the same bits' if same else 'not the same bits'})")
+    expected = {kernel: 0 for kernel in cuda_ops.launches}
+    expected["gram_corr"] = 1
+    check("sym=False launches", counts == expected, f"{counts}, expected {expected}")
+    check("sym=True launches gram_corr_sym once",
+          sym_counts["gram_corr_sym"] == 1 and sym_counts["gram_corr"] == 0, f"{sym_counts}")
+    check("sym=False gives sym=True's update", rel_W <= 1e-5 and rel_R <= 1e-5
+          and bool(torch.isfinite(Wd).all()),
+          f"weights {rel_W:.2e}, residual {rel_R:.2e} relative (tol 1e-5)")
+    del A, R, Wb, runs, Rd, Wd, Rs, Ws
+    torch.cuda.empty_cache()
+    return counts, dict(sym_false_seconds=dense_s, sym_true_seconds=sym_s,
+                        weights_rel_diff=rel_W, residual_rel_diff=rel_R, same_bits=same)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1286,17 +1754,26 @@ def main():
     cifar_run["time"] = phase_cifar_time(cifar_result, cifar_config)
     log("[phase 8] sparse ridge slice: small against the CPU; Amazon geometry by four engines")
     phase_sparse_small(cuda_ops)
-    sparse_counts, sparse_run = phase_sparse(cuda_ops)
+    sparse_counts, sparse_run, amazon = phase_sparse(cuda_ops)
+    log("[phase 9] sketched tier: small against the CPU; the frontier sweep at the Amazon "
+        "geometry")
+    phase_sketch_small(cuda_ops)
+    sketch_counts, sketch_run = phase_sketch(cuda_ops, amazon)
+    del amazon
+    torch.cuda.empty_cache()
+    log("[phase 10] the block update's sym=False route at TIMIT width")
+    sym_counts, sym_run = phase_sym_false(cuda_ops)
 
     route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
-                    CIFAR: cifar_counts, SPARSE: sparse_counts}
+                    CIFAR: cifar_counts, SPARSE: sparse_counts, SKETCH: sketch_counts,
+                    SYM_FALSE: sym_counts}
     kernels = [
         dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
              launches=route_counts[meta["path"]][name], path=meta["path"], **results[name])
         for name, meta in KERNELS.items()
     ]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
-                 SPARSE: sparse_run}
+                 SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run}
     log(f"main path: {json.dumps(main_path)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

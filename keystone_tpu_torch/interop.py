@@ -34,11 +34,21 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
     itself and reads its int16 indices, its bf16 values as their 16-bit
     patterns (so no ``ml_dtypes`` import is needed), its labels, ``n_true``
     and ``d``.
+
+Random draws, not weights, are what the sketched estimators
+(``SketchedLeastSquares``, ``IterativeHessianSketch``,
+``SketchedLeastSquaresEstimator``) take from the reference: each has a
+``draws=`` injection point, a callable returning the draws the reference
+makes at that step. :func:`numpy_draws` wraps a callable that returns
+numpy arrays (a caller's ``jax.random`` draws read out as numpy) into one
+that returns tensors of the dtypes the estimators consume. Their fitted
+models are ``LinearMapper`` / ``SparseLinearMapper``, carried across by
+:func:`linear_mapper` and :func:`sparse_linear_mapper`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -176,6 +186,23 @@ def coo_chunks(ref, device=None) -> CompressedCOOChunks:
         _f32(ref.y_t, device),
         n_true=ref.n_true, d=ref.d,
     )
+
+
+def numpy_draws(fn: Callable) -> Callable:
+    """``fn(*step)`` returns a tuple of numpy arrays (the reference's draws
+    at one step: SRHT signs and bins, or CountSketch buckets and signs);
+    the result returns them as CPU tensors, integers as int64 and floats
+    as float32. The estimators move them to the data's device."""
+
+    def draws(*step):
+        out = []
+        for a in fn(*step):
+            a = np.array(a)  # a writable copy
+            dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+            out.append(torch.from_numpy(a).to(dtype))
+        return tuple(out)
+
+    return draws
 
 
 def params_from_jax(params: Mapping[str, Any], device=None):

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for the port's hot ops, with their plain
 PyTorch versions.
 
-Port of the kernels of ``keystone_tpu/ops/pallas_ops.py`` that the TIMIT
-block slice, the fused flat fit, the streamed fit, the CIFAR kernel ridge
-regression and the sparse gram fit run:
+Port of the kernels of ``keystone_tpu/ops/pallas_ops.py``, all of them:
+the ones the TIMIT block slice, the fused flat fit, the streamed fit, the
+CIFAR kernel ridge regression, the sparse gram fit and the sketched tier
+run:
 
   - :func:`cosine_features` ↔ ``pallas_ops.cosine_features``
     (``csrc/cosine_features.cu``): ``cos(X Wᵀ + b)`` with the cosine fused
@@ -11,6 +12,9 @@ regression and the sparse gram fit run:
   - :func:`gram_corr_sym` ↔ ``pallas_ops.gram_corr_sym``
     (``csrc/gram_corr_sym.cu``): ``(AᵀA, AᵀR)`` in one launch, upper
     Gramian tiles only;
+  - :func:`gram_corr` ↔ ``pallas_ops.gram_corr`` (``csrc/gram_corr.cu``):
+    the same pair with every Gramian tile computed, the block update's
+    ``sym=False`` form;
   - :func:`block_gram_sym`, :func:`block_corr`,
     :func:`block_residual_update` ↔ their ``pallas_ops`` namesakes
     (``csrc/block_*.cu``): the flat solver's Gramian, correlation and
@@ -32,9 +36,14 @@ regression and the sparse gram fit run:
   - :func:`gaussian_resid_block` ↔ ``pallas_ops.gaussian_resid_block``
     (``csrc/gaussian_resid_block.cu``): ``K(X, Y)ᵀ W`` with the kernel
     block contracted tile by tile and never stored, every step of the
-    kernel ridge regression sweep.
+    kernel ridge regression sweep;
+  - :func:`countsketch_scatter` ↔ ``pallas_ops.countsketch_scatter``
+    (``csrc/countsketch_scatter.cu``): one row chunk's CountSketch ``S A``
+    added into an (m, d₁) accumulator, the Iterative Hessian Sketch's fold
+    step; each thread owns one bucket's output row, so the adds land in a
+    fixed order without atomics.
 
-All but the cosine kernel share one FP32-FMA register tile
+All but the cosine and CountSketch kernels share one FP32-FMA register tile
 (``csrc/fma_tile.cuh``). The image featurizer's kernel
 (``csrc/conv_featurize.cu``) has its wrapper in ``ops/cuda_images.py``; it
 is built, loaded and counted here with the others.
@@ -72,7 +81,8 @@ launches: Dict[str, int] = {
     "cosine_features": 0, "gram_corr_sym": 0,
     "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
     "gram_sym_acc": 0, "gaussian_kernel_block": 0, "gaussian_resid_block": 0,
-    "conv_featurize": 0, "gram_corr_sym_acc": 0,
+    "conv_featurize": 0, "gram_corr_sym_acc": 0, "gram_corr": 0,
+    "countsketch_scatter": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -89,6 +99,9 @@ _ENTRY_POINTS = {
     ),
     "gram_corr_sym": (
         "kt_gram_corr_sym", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]
+    ),
+    "gram_corr": (
+        "kt_gram_corr", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]
     ),
     "block_gram_sym": (
         "kt_block_gram_sym", [_P, _P, _I, _I, _I, _L, _I, _P]
@@ -118,6 +131,10 @@ _ENTRY_POINTS = {
     "gram_corr_sym_acc": (
         "kt_gram_corr_sym_acc",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P],
+    ),
+    "countsketch_scatter": (
+        "kt_countsketch_scatter",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     ),
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -333,7 +350,33 @@ def gram_corr_sym(A, R):
     """
     if A.device.type == "cpu" and R.device.type == "cpu":
         return gram_corr_sym_ref(A, R)
-    name = "gram_corr_sym"
+    return _gram_corr_launch("gram_corr_sym", A, R)
+
+
+def gram_corr_ref(A, R):
+    """Plain PyTorch version of :func:`gram_corr`: the same function as
+    :func:`gram_corr_sym_ref`, whose Gramian is whole too."""
+    return gram_corr_sym_ref(A, R)
+
+
+def gram_corr(A, R):
+    """(AᵀA, AᵀR) in one pass over A, every tile of AᵀA computed (the dense
+    form the block update takes with ``sym=False``).
+
+    A: (n, d) float32 or bfloat16, rows contiguous (a column window of a
+    wider matrix is read in place through its row stride). R: (n, k),
+    taken as float32. Returns the (d, d) Gramian and the (d, k)
+    correlation, both float32; the two triangles come out bit for bit
+    symmetric.
+    """
+    if A.device.type == "cpu" and R.device.type == "cpu":
+        return gram_corr_ref(A, R)
+    return _gram_corr_launch("gram_corr", A, R)
+
+
+def _gram_corr_launch(name: str, A, R):
+    """Launch ``gram_corr_sym`` or ``gram_corr`` (the same operand guards
+    and C interface) on CUDA operands, or raise."""
     device = _cuda_operands(name, (A, R))
     _check_rows(name, A, "A")
     _check_rows(name, R, "R")
@@ -351,7 +394,7 @@ def gram_corr_sym(A, R):
     corr = torch.empty((d, k), dtype=torch.float32, device=device)
     if d == 0:
         return gram, corr
-    fn = _lib(name).kt_gram_corr_sym
+    fn = getattr(_lib(name), _ENTRY_POINTS[name][0])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         launches[name] += 1
@@ -856,6 +899,124 @@ def gaussian_resid_block(X, Y, x_norms, y_norms, W, gamma: float,
             None if partials is None else partials.data_ptr(), out.data_ptr(),
             m, n, d, k, Xk.stride(0), Yk.stride(0), Wk.stride(0), splits, float(gamma),
             int(Xk.dtype == torch.bfloat16), stream,
+        )
+    _check_launch(name, err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CountSketch of one row chunk: SA[b, j] += Σ_{bucket_i = b} sign_i Σ_{idx[i,t] = j} val[i,t]
+# ---------------------------------------------------------------------------
+
+
+def _countsketch_check(name, idx, val, bucket, sign, m: int, d1: int):
+    if idx.dim() != 2 or val.shape != idx.shape:
+        raise ValueError(
+            f"{name}: idx and val must both be (c, s), got {tuple(idx.shape)}, "
+            f"{tuple(val.shape)}"
+        )
+    c = idx.shape[0]
+    if bucket.shape != (c,) or sign.shape != (c,):
+        raise ValueError(
+            f"{name}: bucket and sign must be ({c},), got {tuple(bucket.shape)}, "
+            f"{tuple(sign.shape)}"
+        )
+    if m < 0 or d1 < 0:
+        raise ValueError(f"{name}: m and d1 must be non-negative, got {m}, {d1}")
+
+
+def _countsketch_out(name, out, m: int, d1: int, device):
+    if out is None:
+        return torch.zeros((m, d1), dtype=torch.float32, device=device)
+    _check_rows(name, out, "out")
+    if out.dtype != torch.float32 or out.shape != (m, d1):
+        raise ValueError(
+            f"{name}: out must be ({m}, {d1}) float32, got {tuple(out.shape)} {out.dtype}"
+        )
+    return out
+
+
+def countsketch_scatter_ref(idx, val, bucket, sign, m: int, d1: int, out=None):
+    """Plain PyTorch version of :func:`countsketch_scatter`: one flattened
+    scatter-add (``index_add_``) of ``sign_i · val[i, t]`` into
+    ``out.view(-1)`` at ``bucket_i · d1 + idx[i, t]``, over the live lanes
+    in (row, slot) order — the reference's own fallback
+    (keystone_tpu/ops/learning/sketch.py). On a CPU tensor the scatter adds
+    one lane after another in that order."""
+    m, d1 = int(m), int(d1)
+    _countsketch_check("countsketch_scatter", idx, val, bucket, sign, m, d1)
+    device = val.device
+    out = _countsketch_out("countsketch_scatter", out, m, d1, device)
+    j = idx.to(device=device, dtype=torch.int64)
+    b = bucket.to(device=device, dtype=torch.int64)
+    live = (j >= 0) & (j < d1) & ((b >= 0) & (b < m))[:, None]
+    seg = (b[:, None] * d1 + j)[live]
+    src = (sign.to(device=device, dtype=torch.float32)[:, None]
+           * val.to(torch.float32))[live]
+    flat = out if out.is_contiguous() else out.contiguous()
+    flat.view(-1).index_add_(0, seg, src)
+    return out if flat is out else out.copy_(flat)
+
+
+def countsketch_order(bucket, m: int):
+    """A chunk's rows ordered by bucket and, within a bucket, by row (a
+    stable sort; rows whose bucket lies outside [0, m) come last), and
+    ``starts`` (m + 1,): the position in that order of each bucket's first
+    row, ``starts[m]`` the end of the live rows. Both int32 on the bucket's
+    device, with no read on the host. This is the index preparation of the
+    CountSketch kernel, not the product."""
+    b = bucket.to(torch.int64)
+    key = torch.where((b >= 0) & (b < m), b, m)
+    sorted_key, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(sorted_key, torch.arange(m + 1, device=b.device))
+    return order.to(torch.int32), starts.to(torch.int32)
+
+
+def countsketch_scatter(idx, val, bucket, sign, m: int, d1: int, out=None):
+    """One row chunk's CountSketch ``S A`` as an (m, d1) float32 sum:
+    ``SA[b, j] = Σ_{i: bucket_i = b} sign_i · Σ_{t: idx[i,t] = j} val[i,t]``.
+
+    idx: (c, s) integer column ids (−1, or anything outside [0, d1), marks
+    a masked lane, which adds nothing); val: (c, s) float32; bucket: (c,)
+    integer, a row whose bucket lies outside [0, m) adds nothing; sign: (c,)
+    float32, ±1 (0 on pad rows). Duplicate columns within a row and across
+    the rows of one bucket add up. ``out``: an (m, d1) float32 buffer with
+    contiguous rows to add into in place (the fold's accumulator), instead
+    of a new zeroed one; returned either way.
+
+    On the card each bucket's row of the output is one thread's: the
+    contributions to an entry add in (row, slot) order, so the result has
+    the bits of the plain version run on the CPU, run after run.
+    """
+    m, d1 = int(m), int(d1)
+    operands = (idx, val, bucket, sign) if out is None else (idx, val, bucket, sign, out)
+    if all(t.device.type == "cpu" for t in operands):
+        return countsketch_scatter_ref(idx, val, bucket, sign, m, d1, out=out)
+    name = "countsketch_scatter"
+    device = _cuda_operands(name, operands)
+    _countsketch_check(name, idx, val, bucket, sign, m, d1)
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{name}: idx must be int32, got {idx.dtype}")
+    if val.dtype != torch.float32 or sign.dtype != torch.float32:
+        raise TypeError(f"{name}: val and sign must be float32, got {val.dtype}, {sign.dtype}")
+    if bucket.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: bucket must be int32 or int64, got {bucket.dtype}")
+    _check_rows(name, idx, "idx")
+    _check_rows(name, val, "val")
+    out = _countsketch_out(name, out, m, d1, device)
+    c, s = idx.shape
+    if m == 0 or d1 == 0 or c == 0 or s == 0:
+        return out
+    order, starts = countsketch_order(bucket, m)
+    signk = sign.contiguous()
+    fn = _lib(name).kt_countsketch_scatter
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launches[name] += 1
+        err = fn(
+            idx.data_ptr(), val.data_ptr(), signk.data_ptr(), order.data_ptr(),
+            starts.data_ptr(), out.data_ptr(), m, s, d1, idx.stride(0), val.stride(0),
+            out.stride(0), stream,
         )
     _check_launch(name, err)
     return out

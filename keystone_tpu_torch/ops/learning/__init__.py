@@ -9,12 +9,20 @@ from .kernel import (
     KernelRidgeRegression,
 )
 from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
-from .linear import LinearMapEstimator, LinearMapper, SparseLinearMapper
+from .linear import (
+    LinearMapEstimator,
+    LinearMapper,
+    LocalLeastSquaresEstimator,
+    SketchedLeastSquaresEstimator,
+    SparseLinearMapper,
+)
 from .pca import ZCAWhitener, ZCAWhitenerEstimator
+from .sketch import IterativeHessianSketch, SketchedLeastSquares
 
 __all__ = [
     "BlockLeastSquaresEstimator", "BlockLinearMapper", "DenseLBFGSwithL2",
-    "GaussianKernelGenerator", "GaussianKernelTransformer", "KernelBlockLinearMapper",
-    "KernelRidgeRegression", "LinearMapEstimator", "LinearMapper", "SparseLBFGSwithL2",
-    "SparseLinearMapper", "ZCAWhitener", "ZCAWhitenerEstimator",
+    "GaussianKernelGenerator", "GaussianKernelTransformer", "IterativeHessianSketch",
+    "KernelBlockLinearMapper", "KernelRidgeRegression", "LinearMapEstimator", "LinearMapper",
+    "LocalLeastSquaresEstimator", "SketchedLeastSquares", "SketchedLeastSquaresEstimator",
+    "SparseLBFGSwithL2", "SparseLinearMapper", "ZCAWhitener", "ZCAWhitenerEstimator",
 ]

@@ -20,7 +20,7 @@ correction, not a second data pass) and the model carries the intercept.
 Not ported yet: the cost-model side of the choice (``cost``,
 ``resident_bytes`` and the budget fields the ``cost.py`` selector sets,
 which pick between the gram tier and the block-streamed tier) comes with
-that selector after the sparse slice (ROADMAP A.7); until then
+that selector (ROADMAP A.5b); until then
 ``build_estimator`` always builds the gram tier. The block-streamed tier
 itself (``BlockStreamedLeastSquares``, a mesh program) waits for A.15, the
 shard-backed disk tier (``fit_source``, which raises

@@ -2,7 +2,9 @@
 
 Port of ``keystone_tpu/ops/stats.py`` (the nodes the TIMIT slice runs:
 StandardScaler and the cosine random features, with the latter's
-stage-fusion function). Dense nodes operate
+stage-fusion function; and the padded real-FFT helpers of the block-SRHT
+sketch, :func:`padded_pow2`, :func:`rfft_real_half` and
+:func:`srht_chunk_sketch`, on ``torch.fft.rfft``). Dense nodes operate
 whole-batch on (n, d) tensors. Randomized nodes take explicit integer
 seeds and draw from a ``torch.Generator`` seeded with them on the CPU, so
 a seed gives the same draws on every device. (They are not the
@@ -133,3 +135,44 @@ def CosineRandomFeatures(
         W = torch.randn(shape, generator=gen) * gamma
     b = torch.rand((num_output_features,), generator=gen) * (2 * math.pi)
     return CosineRandomFeaturesModel(W.to(device), b.to(device))
+
+
+# ---------------------------------------------------------------------------
+# Padded real FFT: the block-SRHT sketch's mixing step
+# ---------------------------------------------------------------------------
+
+
+def padded_pow2(n: int) -> int:
+    """The FFT padding width every padded-FFT path shares: the next power
+    of two ≥ n (minimum 2, so a width-1 input still has a non-trivial
+    transform)."""
+    return 1 << max(int(n - 1).bit_length(), 1)
+
+
+def rfft_real_half(x: torch.Tensor, p: int, dim: int = -1) -> torch.Tensor:
+    """Re(rfft(x))[bins 0..p/2) along ``dim``: the input is real and already
+    padded to ``p``, and only the real parts of the first ``p // 2`` bins
+    survive (DC included, Nyquist dropped), the reference's bin convention.
+    On the card this is cuFFT through ``torch.fft``, as the reference's is
+    XLA's FFT: no hand-written kernel stands behind either."""
+    return torch.fft.rfft(x, dim=dim).real.narrow(dim, 0, p // 2)
+
+
+def srht_chunk_sketch(dense_rows: torch.Tensor, signs: torch.Tensor,
+                      sample_bins: torch.Tensor, scale: float) -> torch.Tensor:
+    """One block-SRHT fold step (Drineas et al., "Faster Least Squares
+    Approximation"): sign-flip the chunk's rows, zero-pad the row axis to a
+    power of two, mix with the real FFT, keep Re of the first p/2 bins
+    (:func:`rfft_real_half`) and gather the sampled bins.
+
+    ``dense_rows (c, d)``, ``signs (c,)`` ±1, ``sample_bins (m_c,)`` in
+    ``[0, p//2)``; returns ``scale · (m_c, d)`` float32. Stacking every
+    chunk's sampled bins gives the block-diagonal SRHT ``S A`` of the whole
+    row stream (``ops/learning/sketch.py``)."""
+    c = dense_rows.shape[0]
+    p = padded_pow2(c)
+    Z = dense_rows * signs.to(dense_rows.dtype)[:, None]
+    if p > c:
+        Z = torch.cat([Z, Z.new_zeros((p - c, Z.shape[1]))])
+    H = rfft_real_half(Z, p, dim=0)  # (p // 2, d)
+    return scale * H[sample_bins.to(device=H.device, dtype=torch.int64)]

@@ -6,6 +6,8 @@ stacked fused BCD whose first-epoch Gramian + correlation runs through the
 ``gram_corr_sym`` CUDA kernel, and the flat fused BCD, whose block updates
 read each column window of one (n, d) feature matrix in place through the
 ``block_gram_sym`` / ``block_corr`` / ``block_residual_update`` kernels.
+The shared block update keeps the reference's ``sym`` switch: ``False``
+takes the dense ``gram_corr`` kernel instead of ``gram_corr_sym``.
 
 Conventions (matching the reference solvers):
   - ridge solve is ``(AᵀA + λI) x = AᵀB`` with *raw* λ (not scaled by n)
@@ -161,7 +163,7 @@ def _residual_dtype(feat_dtype, label_dtype):
     return torch.promote_types(_acc_dtype(feat_dtype), _acc_dtype(label_dtype))
 
 
-def _bcd_block_update(Ab, R, Wb, lam: float, gram=None, chol=None):
+def _bcd_block_update(Ab, R, Wb, lam: float, gram=None, chol=None, sym: bool = True):
     """One Gauss-Seidel block update shared by the fused solvers.
 
     Solves (AbᵀAb + λI) Wb' = AbᵀR + (AbᵀAb) Wb and returns
@@ -170,13 +172,17 @@ def _bcd_block_update(Ab, R, Wb, lam: float, gram=None, chol=None):
     never quantize the running residual. Pass ``gram`` (and ``chol``) to
     reuse the loop-invariant Gramian/factor — only the correlation then
     recomputes. The first-epoch Gramian + correlation of f32/bf16 blocks
-    is the ``gram_corr_sym`` kernel (its plain version on the CPU); f64
-    blocks keep plain contractions, as the reference keeps them on XLA.
+    is a kernel (its plain version on the CPU): ``gram_corr_sym``, upper
+    tiles only, or with ``sym=False`` ``gram_corr``, every tile — the
+    reference's switch; both fused solvers pass ``True``, as the
+    reference's public callers do. f64 blocks keep plain contractions, as
+    the reference keeps them on XLA.
     """
     feat_dtype = Ab.dtype
     acc_dtype = _acc_dtype(feat_dtype)
     if gram is None and acc_dtype == torch.float32:
-        gram, corr = cuda_ops.gram_corr_sym(Ab, R)
+        fn = cuda_ops.gram_corr_sym if sym else cuda_ops.gram_corr
+        gram, corr = fn(Ab, R)
     else:
         if gram is None:
             gram = Ab.T.to(acc_dtype) @ Ab.to(acc_dtype)

@@ -166,9 +166,9 @@ def run(
     solver = "streaming" if config.streaming else config.solver
     if solver == "auto":
         raise NotImplementedError(
-            "--solver auto (the cost-model selector) is not ported yet: its "
-            "candidates include the sparse L-BFGS solvers, so it comes after the "
-            "sparse slice, ROADMAP A.7. Use --solver block or streaming."
+            "--solver auto (the cost-model selector) is not ported yet: it "
+            "comes with the cost model, ROADMAP A.5b. Use --solver block or "
+            "streaming."
         )
     device = resolve_device(device)
     start = time.perf_counter()

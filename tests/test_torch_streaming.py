@@ -587,5 +587,5 @@ class TestTimitStreaming:
         assert "TRAIN Error is" in out and "TEST Error is" in out
 
     def test_auto_still_raises(self):
-        with pytest.raises(NotImplementedError, match="A.7"):
+        with pytest.raises(NotImplementedError, match="A.5b"):
             t_timit.run(t_timit.TimitConfig(solver="auto", **SLICE), device="cpu")

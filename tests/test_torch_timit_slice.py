@@ -356,7 +356,7 @@ class TestPortPipelineBehaviour:
 
     @pytest.mark.parametrize("solver", ["auto"])
     def test_unported_solvers_name_their_slice(self, solver):
-        with pytest.raises(NotImplementedError, match="A.7"):
+        with pytest.raises(NotImplementedError, match="A.5b"):
             t_timit.run(t_timit.TimitConfig(solver=solver, **SLICE), device="cpu")
 
     def test_interop_builds_the_block_mapper(self):
