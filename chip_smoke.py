@@ -12,12 +12,15 @@ together), then:
      (except the convolution) bfloat16 operands, and times the kernel, the
      plain version and a PyTorch library yardstick that computes the same
      function; ``gram_corr_sym_acc`` on the Amazon chunk (65,536 x 16,385,
-     k = 2) and on the ragged last chunk of 41,248 rows, in place and into
-     a new buffer; ``gram_corr`` at the Gramian shape beside
-     ``gram_corr_sym``; ``countsketch_scatter`` at the reference's small
-     check geometry and at the sketched tier's Amazon chunk (65,536 rows of
-     83 slots into 32,770 x 16,385), in place and fresh, against its plain
-     version run on the CPU (bit for bit);
+     k = 2; bf16 F at the fold's 64-element row stride, on the tensor
+     cores, with the count of HGMMA instructions in its SASS checked at
+     build time; f32 F beside two float32 ``addmm``) and on the ragged last
+     chunk of 41,248 rows, in place and into a new buffer; ``gram_corr``
+     at the Gramian shape beside ``gram_corr_sym``; ``countsketch_scatter``
+     at the reference's small check geometry and at the sketched tier's
+     Amazon chunk (65,536 rows of 83 slots into 32,770 x 16,385), in place
+     and fresh, against its plain version run on the CPU (bit for bit),
+     timed whole and as its index preparation and scatter kernel apart;
   2. checks that a small run of the three TIMIT routes on the card agrees
      with the plain-PyTorch run of it on the CPU, then drives the
      ``--solver block`` slice end to end through its entry point,
@@ -257,6 +260,17 @@ def bound_ms(nbytes, flops, peak_flops):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def sass_count(cuda_ops, name, opcode):
+    """The number of SASS instructions naming ``opcode`` in a built kernel
+    library (``cuobjdump -sass``), or None where the toolkit lacks it."""
+    tool = os.path.join(os.path.dirname(cuda_ops._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(cuda_ops._library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(1 for line in sass.splitlines() if opcode in line)
+
+
 def check(name, ok, detail):
     log(f"  {'PASS' if ok else 'FAIL'} {name}: {detail}")
     if not ok:
@@ -466,13 +480,21 @@ def phase_countsketch(cuda_ops):
     # entry of the accumulator read and written once; no arithmetic bound.
     nbytes = 4 * (2 * c * s + 2 * c) + 8 * touched
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, c * s, PEAK_F32_FLOPS)
-    del acc
+    # The wrapper's two steps apart: the index preparation (histogram, scan,
+    # placement) and the warp-a-bucket scatter on the prepared indices; and
+    # the stable torch.sort order that the preparation replaced.
+    order, starts = cuda_ops.countsketch_prepare(bucket, m)
+    r["prepare_ms"] = time_ms(lambda: cuda_ops.countsketch_prepare(bucket, m), 10)
+    r["scatter_ms"] = time_ms(
+        lambda: cuda_ops.countsketch_rows(idx, val, sign, order, starts, acc), 10)
+    sort_ms = time_ms(lambda: cuda_ops.countsketch_order(bucket, m), 10)
+    del acc, order, starts
     fresh_ms = time_ms(lambda: cuda_ops.countsketch_scatter(*chunk, m, d1), 3)
-    prep_ms = time_ms(lambda: cuda_ops.countsketch_order(bucket, m), 10)
     fresh_bound, _ = bound_ms(nbytes + 4 * m * d1, c * s, PEAK_F32_FLOPS)
     log(f"  countsketch_scatter in place, c {c}, s {s}, m {m}, d1 {d1} ({touched} entries "
-        f"touched): {r['ms']:.3f} ms (of it the bucket order {prep_ms:.3f}; plain "
-        f"{r['plain_ms']:.3f}, library index_add_ {r['library_ms']:.3f}, bound "
+        f"touched): {r['ms']:.4f} ms (preparation {r['prepare_ms']:.4f}, scatter kernel "
+        f"{r['scatter_ms']:.4f}; the torch.sort order it replaced {sort_ms:.4f}; plain "
+        f"{r['plain_ms']:.3f}, library index_add_ {r['library_ms']:.4f}, bound "
         f"{r['bound_ms']:.4f} by {r['bound_by']}); fresh buffer {fresh_ms:.3f} ms "
         f"(bound {fresh_bound:.3f})")
     del chunk, idx, val, bucket, sign, seg, src
@@ -617,17 +639,28 @@ def phase_gram_sym_acc(cuda_ops, gen):
     return results
 
 
+def tma_slab(F):
+    """F in bf16 at a row stride rounded up to 64 elements: the layout of
+    the sparse fold's bf16 slabs, which the kernel's TMA loads read in
+    place."""
+    n, d = F.shape
+    out = torch.zeros((n, -(-d // 64) * 64), dtype=torch.bfloat16, device=F.device)[:, :d]
+    return out.copy_(F)
+
+
 def phase_gram_corr_sym_acc(cuda_ops, gen):
     """The sparse fold's kernel on one Amazon chunk: F 65,536 x 16,385 (d
     and the intercept lane), R 65,536 x 2, a random G0 and C0; F in f32 and
-    bf16, and the ragged last chunk of 41,248 rows; in place and into a new
-    buffer. F is dense standard normal, so every product is nonzero (a
-    densified chunk has 83 nonzeros a row; the kernel's time does not
-    depend on it). The JSON line reports the bf16 numbers: the bench's
-    engine folds bf16 slabs."""
+    bf16 (at the fold's row stride of 16,448), and the ragged last chunk of
+    41,248 rows; in place and into a new buffer. F is dense standard
+    normal, so every product is nonzero (a densified chunk has 83 nonzeros
+    a row; the kernel's time does not depend on it). The JSON line reports
+    the bf16 numbers (TMA + wgmma): the bench's engine folds bf16 slabs;
+    the f32 kernel (FP32 FMA) is timed beside two float32 addmm."""
     dev = torch.device("cuda")
     c, d1, k = AMAZON_CHUNK, AMAZON_D + 1, AMAZON_K
     F = torch.randn((c, d1), generator=gen, device=dev)
+    F16 = tma_slab(F)
     R = torch.randn((c, k), generator=gen, device=dev)
     G0 = torch.randn((d1, d1), generator=gen, device=dev)
     C0 = torch.randn((d1, k), generator=gen, device=dev)
@@ -636,7 +669,7 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
     results = {}
     for label, dtype, rows in (("f32", torch.float32, c), ("bf16", torch.bfloat16, c),
                                ("bf16 ragged chunk", torch.bfloat16, AMAZON_RAGGED)):
-        Fk, Rk = F[:rows].to(dtype), R[:rows]
+        Fk, Rk = (F16 if dtype == torch.bfloat16 else F)[:rows], R[:rows]
         want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G0, C0, Fk, Rk)
         Ff = Fk.float()
         Rq = Rk.to(torch.bfloat16).float() if dtype == torch.bfloat16 else Rk
@@ -669,7 +702,7 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
     torch.cuda.empty_cache()
     flops = c * d1 * (d1 + 1) + 2 * c * d1 * k  # upper triangle (syrk) + correlation
     G, C = G0.clone(), C0.clone()
-    F16, R16 = F.to(torch.bfloat16), R.to(torch.bfloat16)
+    R16 = R.to(torch.bfloat16)
     r = results["gram_corr_sym_acc"]
     r["ms"] = time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, F16, R, out=(G, C)), 3)
     r["plain_ms"] = time_ms(lambda: cuda_ops.gram_corr_sym_acc_ref(G0, C0, F16, R), 3)
@@ -682,11 +715,16 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
     r["bound_ms"], r["bound_by"] = bound_ms(
         2 * c * d1 + 4 * (c * k + 2 * d1 * d1 + 2 * d1 * k), flops, PEAK_BF16_FLOPS)
     f32_ms = time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, F, R, out=(G, C)), 2)
+    # The same two products in float32 on cuBLAS (no TF32: the package sets
+    # float32 matmuls to "highest" when it is imported).
+    f32_library_ms = time_ms(lambda: (torch.addmm(G0, F.T, F), torch.addmm(C0, F.T, R)), 2)
     f32_bound, _ = bound_ms(4 * (c * d1 + c * k + 2 * d1 * d1 + 2 * d1 * k), flops,
                             PEAK_F32_FLOPS)
-    log(f"  gram_corr_sym_acc bf16 F {c}x{d1}, R {c}x{k}: {r['ms']:.3f} ms (plain "
-        f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
-        f"{r['bound_by']}); f32 F: {f32_ms:.3f} ms (FP32 bound {f32_bound:.3f})")
+    r["f32_ms"], r["f32_library_ms"] = f32_ms, f32_library_ms
+    log(f"  gram_corr_sym_acc bf16 F {c}x{d1} (row stride {F16.stride(0)}), R {c}x{k}: "
+        f"{r['ms']:.3f} ms, {flops / r['ms'] / 1e9:.1f} TFLOP/s (plain {r['plain_ms']:.3f}, "
+        f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
+        f"f32 F: {f32_ms:.3f} ms (library {f32_library_ms:.3f}, FP32 bound {f32_bound:.3f})")
     del F, R, F16, R16, G0, C0, G, C
     torch.cuda.empty_cache()
     return results
@@ -1729,8 +1767,14 @@ def main():
     log(f"[build] {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(word in line for word in ("registers", "spill", "error", "warning")):
                 log(f"  {name}: {line.strip()}")
+    hgmma = sass_count(cuda_ops, "gram_corr_sym_acc", "HGMMA")
+    if hgmma is None:
+        log("  gram_corr_sym_acc: cuobjdump not found, SASS not read")
+    else:
+        check("gram_corr_sym_acc runs on the tensor cores", hgmma > 0,
+              f"{hgmma} HGMMA instructions in its SASS (cuobjdump -sass)")
 
     log("[phase 1] kernels against their plain versions")
     cuda_ops.reset_launch_counts()

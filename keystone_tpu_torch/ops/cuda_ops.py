@@ -40,11 +40,12 @@ run:
   - :func:`countsketch_scatter` ↔ ``pallas_ops.countsketch_scatter``
     (``csrc/countsketch_scatter.cu``): one row chunk's CountSketch ``S A``
     added into an (m, d₁) accumulator, the Iterative Hessian Sketch's fold
-    step; each thread owns one bucket's output row, so the adds land in a
+    step; each warp owns one bucket's output row, so the adds land in a
     fixed order without atomics.
 
-All but the cosine and CountSketch kernels share one FP32-FMA register tile
-(``csrc/fma_tile.cuh``). The image featurizer's kernel
+All but the cosine and CountSketch kernels, and ``gram_corr_sym_acc`` with
+bf16 F (TMA loads into ``wgmma`` on the tensor cores), share one FP32-FMA
+register tile (``csrc/fma_tile.cuh``). The image featurizer's kernel
 (``csrc/conv_featurize.cu``) has its wrapper in ``ops/cuda_images.py``; it
 is built, loaded and counted here with the others.
 
@@ -137,6 +138,10 @@ _ENTRY_POINTS = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     ),
 }
+# Further C entry points of a source, beside its launching one.
+_EXTRA_SYMBOLS = {
+    "countsketch_scatter": [("kt_countsketch_prepare", [_P, _I, _I, _I, _P, _P, _P, _P])],
+}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -209,10 +214,10 @@ def _lib(name: str) -> ctypes.CDLL:
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        symbol, argtypes = _ENTRY_POINTS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in [_ENTRY_POINTS[name], *_EXTRA_SYMBOLS.get(name, [])]:
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -668,12 +673,18 @@ def gram_sym_acc(G, F, out=None):
 
 def gram_corr_acc_ok(F) -> bool:
     """Whether :func:`gram_corr_sym_acc`'s kernel can read the chunk slab F
-    as it is (counterpart of ``pallas_ops.gram_corr_acc_ok``): the same
-    guard as :func:`gram_acc_ok`, since the kernel masks ragged rows,
-    columns and label columns — a 2-D F with contiguous rows, float32 or
-    bfloat16 (an empty one whatever its strides). The fold makes its slab
-    contiguous, so every chunk passes."""
-    return gram_acc_ok(F) or (F.dim() == 2 and F.numel() == 0 and F.dtype in _KERNEL_DTYPES)
+    as it is (counterpart of ``pallas_ops.gram_corr_acc_ok``). The kernel
+    masks ragged rows, columns and label columns, so the guard asks for a
+    2-D F with contiguous rows, float32 or bfloat16 (an empty one whatever
+    its strides), and for bf16 F what its TMA loads need: a 16-byte-aligned
+    base and a row stride that is a multiple of 8 elements (16 bytes), so
+    that every row starts on a 16-byte boundary. The fold pads its bf16
+    slab's rows to 64 elements (``ops/sparse.py``), so every chunk passes."""
+    if F.dim() == 2 and F.numel() == 0 and F.dtype in _KERNEL_DTYPES:
+        return True
+    return gram_acc_ok(F) and (
+        F.dtype != torch.bfloat16 or (F.data_ptr() % 16 == 0 and F.stride(0) % 8 == 0)
+    )
 
 
 def gram_corr_sym_acc_ref(G, C, F, R):
@@ -695,7 +706,9 @@ def gram_corr_sym_acc(G, C, F, R, out=None):
     upper-triangle 128 x 128 tiles only.
 
     G: (d, d) float32 with a meaningful upper triangle; C: (d, k) float32;
-    F: (n, d) float32 or bfloat16 with contiguous rows; R: (n, k), taken as
+    F: (n, d) float32 or bfloat16 with contiguous rows (bf16 F on the card
+    also 16-byte aligned with a row stride of a multiple of 8 elements, as
+    :func:`gram_corr_acc_ok` says, or it raises); R: (n, k), taken as
     float32 and rounded to bf16 in the product when F is bf16 (the
     reference quantizes R to F's compute dtype). Ragged n, d and k are
     masked in the kernel. Writes ``out = (gout, cout)`` — new float32
@@ -703,6 +716,10 @@ def gram_corr_sym_acc(G, C, F, R, out=None):
     accumulate in place — and returns it. The strictly-lower tiles of gout
     are undefined (left as they were when gout is G): callers mirror once
     after the last accumulation, as :func:`gram_sym_acc`'s contract has it.
+
+    On the card bf16 F runs on the tensor cores (TMA + ``wgmma``, float32
+    accumulators) and float32 F on the FP32 FMA units; either way the sums
+    have one fixed order, so runs and in-place calls give the same bits.
     """
     operands = (G, C, F, R) if out is None else (G, C, F, R, *out)
     if all(t.device.type == "cpu" for t in operands):
@@ -716,8 +733,11 @@ def gram_corr_sym_acc(G, C, F, R, out=None):
     device = _cuda_operands(name, operands)
     if not gram_corr_acc_ok(F):
         raise TypeError(
-            f"{name}: F must be 2-D float32 or bfloat16 with contiguous rows, got "
-            f"shape {tuple(F.shape)}, {F.dtype}, strides {F.stride()}"
+            f"{name}: F must be 2-D float32 or bfloat16 with contiguous rows, and for "
+            f"bfloat16 a 16-byte-aligned base and a row stride that is a multiple of 8 "
+            f"elements (the kernel's TMA loads read it in place; pad the rows, F is never "
+            f"copied), got shape {tuple(F.shape)}, {F.dtype}, strides {F.stride()}, "
+            f"base address {F.data_ptr():#x}"
         )
     Rk = R if R.dtype == torch.float32 else R.to(torch.float32)
     _check_rows(name, Rk, "R")
@@ -755,6 +775,9 @@ def gram_corr_sym_acc(G, C, F, R, out=None):
             cout.data_ptr(), n, d, k, F.stride(0), Rk.stride(0), G.stride(0), C.stride(0),
             gout.stride(0), cout.stride(0), int(F.dtype == torch.bfloat16), stream,
         )
+    if err == -1:
+        raise RuntimeError(f"{name}: the TMA tensor map of F could not be made "
+                           f"(cuTensorMapEncodeTiled failed or is missing)")
     _check_launch(name, err)
     return out
 
@@ -963,13 +986,42 @@ def countsketch_order(bucket, m: int):
     stable sort; rows whose bucket lies outside [0, m) come last), and
     ``starts`` (m + 1,): the position in that order of each bucket's first
     row, ``starts[m]`` the end of the live rows. Both int32 on the bucket's
-    device, with no read on the host. This is the index preparation of the
-    CountSketch kernel, not the product."""
+    device, with no read on the host. The plain form of the CountSketch
+    kernel's index preparation (:func:`countsketch_prepare`), which on the
+    card places the rows unstably and leaves the order within a bucket to
+    the kernel."""
     b = bucket.to(torch.int64)
     key = torch.where((b >= 0) & (b < m), b, m)
     sorted_key, order = torch.sort(key, stable=True)
     starts = torch.searchsorted(sorted_key, torch.arange(m + 1, device=b.device))
     return order.to(torch.int32), starts.to(torch.int32)
+
+
+def countsketch_prepare(bucket, m: int):
+    """The CountSketch kernel's index preparation on the card: a histogram
+    of the live buckets, its exclusive scan into ``starts`` (m + 1,) and a
+    placement of each live row into its bucket's segment of ``order`` (c,)
+    — hand-written kernels, no host read. Rows whose bucket lies outside
+    [0, m) are not placed (``order`` past ``starts[m]`` is undefined), and
+    within a bucket the rows come in any order: the scatter kernel takes
+    them by increasing row. bucket: (c,) int32 or int64 on a CUDA device;
+    m > 0. Returns (order, starts), int32."""
+    name = "countsketch_scatter"
+    device = _cuda_operands(name, (bucket,))
+    if bucket.dtype not in (torch.int32, torch.int64) or bucket.dim() != 1:
+        raise TypeError(f"{name}: bucket must be 1-D int32 or int64, got {bucket.dtype}, "
+                        f"shape {tuple(bucket.shape)}")
+    bk = bucket.contiguous()
+    c = bk.shape[0]
+    scratch = torch.empty((c + 2 * m + 1,), dtype=torch.int32, device=device)
+    order, starts, counts = scratch[:c], scratch[c:c + m + 1], scratch[c + m + 1:]
+    fn = _lib(name).kt_countsketch_prepare
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(bk.data_ptr(), int(bk.dtype == torch.int64), c, m, order.data_ptr(),
+                 starts.data_ptr(), counts.data_ptr(), stream)
+    _check_launch(name, err)
+    return order, starts
 
 
 def countsketch_scatter(idx, val, bucket, sign, m: int, d1: int, out=None):
@@ -984,9 +1036,10 @@ def countsketch_scatter(idx, val, bucket, sign, m: int, d1: int, out=None):
     contiguous rows to add into in place (the fold's accumulator), instead
     of a new zeroed one; returned either way.
 
-    On the card each bucket's row of the output is one thread's: the
-    contributions to an entry add in (row, slot) order, so the result has
-    the bits of the plain version run on the CPU, run after run.
+    On the card each bucket's row of the output is one warp's (after
+    :func:`countsketch_prepare`): the contributions to an entry add in
+    (row, slot) order, so the result has the bits of the plain version run
+    on the CPU, run after run.
     """
     m, d1 = int(m), int(d1)
     operands = (idx, val, bucket, sign) if out is None else (idx, val, bucket, sign, out)
@@ -1007,16 +1060,28 @@ def countsketch_scatter(idx, val, bucket, sign, m: int, d1: int, out=None):
     c, s = idx.shape
     if m == 0 or d1 == 0 or c == 0 or s == 0:
         return out
-    order, starts = countsketch_order(bucket, m)
+    order, starts = countsketch_prepare(bucket, m)
+    return countsketch_rows(idx, val, sign, order, starts, out)
+
+
+def countsketch_rows(idx, val, sign, order, starts, out):
+    """The CountSketch kernel alone, on prepared indices: ``out`` (m, d1)
+    += the chunk's sketch, with (order, starts) from
+    :func:`countsketch_prepare` (or :func:`countsketch_order`) for the same
+    buckets. Operands as :func:`countsketch_scatter` checks them; m, s and
+    d1 > 0. Counts one launch."""
+    name = "countsketch_scatter"
+    m, d1 = out.shape
     signk = sign.contiguous()
     fn = _lib(name).kt_countsketch_scatter
+    device = out.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         launches[name] += 1
         err = fn(
             idx.data_ptr(), val.data_ptr(), signk.data_ptr(), order.data_ptr(),
-            starts.data_ptr(), out.data_ptr(), m, s, d1, idx.stride(0), val.stride(0),
-            out.stride(0), stream,
+            starts.data_ptr(), out.data_ptr(), m, idx.shape[1], d1, idx.stride(0),
+            val.stride(0), out.stride(0), stream,
         )
     _check_launch(name, err)
     return out

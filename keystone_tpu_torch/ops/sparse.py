@@ -21,7 +21,9 @@ The gram engine (:func:`sparse_gram_fold`) densifies each row chunk into a
 (c, d) slab and folds it into (G = AᵀA, AᵀY, ΣY²) through the hand-written
 ``cuda_ops.gram_corr_sym_acc`` kernel, accumulating in place: a tensor on
 the CPU takes the kernel's plain version, a CUDA tensor launches the kernel
-or raises — there is no ``use_pallas`` knob. The densify adds duplicate
+or raises — there is no ``use_pallas`` knob. A bf16 slab's row stride is
+d rounded up to 64 elements (the pad columns are never read): the kernel
+reads bf16 F in place through TMA. The densify adds duplicate
 (row, index) lanes in lane order and writes each column once, so a slab
 has the same bits on every run and device; the compressed-resident and
 bf16 gram engines therefore give the same bits on the card too.
@@ -107,17 +109,23 @@ def densify_dataset(data: Dataset, num_features: Optional[int] = None) -> Datase
     return Dataset(_dense_rows(indices, values, d, values.dtype), n=data.n)
 
 
-def _dense_rows(indices, values, d: int, dtype) -> torch.Tensor:
+def _dense_rows(indices, values, d: int, dtype, row_align: int = 1) -> torch.Tensor:
     """(c, w) padded-COO rows -> a dense, contiguous (c, d) slab of
     ``dtype``. Lanes outside [0, d) are dropped; values are cast to
     ``dtype`` first and duplicates of a column within a row add in lane
     order in ``dtype`` (the reference's scatter-add into zeros). Each column
     is then written once by a plain scatter, so the slab has the same bits
     on every run and device, where a scatter-add would add duplicates in
-    whatever order its atomics land."""
+    whatever order its atomics land.
+
+    ``row_align`` > 1 gives the slab a row stride of d rounded up to a
+    multiple of ``row_align`` elements instead: the (c, d) view of a wider
+    zeroed buffer, whose pad columns are never read. The values are the
+    same."""
     c, w = indices.shape
     device = values.device
-    dense = torch.zeros((c, d), dtype=dtype, device=device)
+    ld = -(-d // row_align) * row_align
+    dense = torch.zeros((c, ld), dtype=dtype, device=device)[:, :d]
     if c == 0 or w == 0:
         return dense
     idx = indices.to(device=device, dtype=torch.int64)
@@ -257,6 +265,11 @@ def sparse_gram_stream(chunk_fn, num_chunks: int, d: int, k: int,
     return gram_finalize(G), AtY, yty
 
 
+# Row alignment, in elements, of the gram fold's bf16 slabs: 64 bf16 are
+# one 128-byte TMA box row of the kernel.
+_SLAB_ROW_ALIGN = 64
+
+
 def sparse_gram_fold(carry, cids, chunk_fn, d: int, k: int, val_dtype=torch.float32,
                      pipeline: bool = True):
     """Fold the chunk ids ``cids`` into the (G_raw, AtY, yty) carry.
@@ -276,9 +289,13 @@ def sparse_gram_fold(carry, cids, chunk_fn, d: int, k: int, val_dtype=torch.floa
     """
     cids = [int(c) for c in cids]
 
+    # A bf16 slab is read by the kernel's TMA loads in place: its rows
+    # start on 16-byte boundaries (``cuda_ops.gram_corr_acc_ok``).
+    row_align = _SLAB_ROW_ALIGN if val_dtype == torch.bfloat16 else 1
+
     def densify(cid):
         indices, values, Yc = chunk_fn(cid)
-        return _dense_rows(indices, values, d, val_dtype), Yc
+        return _dense_rows(indices, values, d, val_dtype, row_align), Yc
 
     def fold(carry, slab, Yc):
         if carry is None:

@@ -210,6 +210,41 @@ class TestCountSketchOnCard:
             cuda_ops.countsketch_scatter_ref(i32.cpu(), f32.cpu(), bucket, sign, m, d1, out=want)
         assert torch.equal(acc.cpu(), want)
 
+    # Shapes past the warp's 32 lanes: buckets of ~170 rows (the warp takes a
+    # bucket's rows in order through several 32-row scans), 83 slots all on
+    # one column (one group of 32 lanes, then one of 32, then 19), and a run
+    # of equal columns across the slot passes 0-31 / 32-63.
+    @pytest.mark.parametrize("case", ["big buckets", "one column a row", "runs across passes"])
+    @pytest.mark.parametrize("in_place", [False, True])
+    def test_bits_past_the_warp_width(self, cuda_device, case, in_place):
+        c, s, m, d1 = {"big buckets": (512, 20, 3, 97), "one column a row": (300, 83, 40, 300),
+                       "runs across passes": (400, 70, 50, 200)}[case]
+        idx, val, bucket, sign = _chunk(c, s, m, d1, seed=len(case))
+        if case == "one column a row":
+            idx[:] = idx[:, :1].clamp(min=0)
+        elif case == "runs across passes":
+            idx[:, 25:45] = idx[:, 25:26].clamp(min=0)
+        out0 = torch.randn((m, d1)) if in_place else None
+        got = cuda_ops.countsketch_scatter(
+            idx.to(cuda_device), val.to(cuda_device), bucket.to(cuda_device),
+            sign.to(cuda_device), m, d1, out=None if out0 is None else out0.to(cuda_device))
+        want = cuda_ops.countsketch_scatter_ref(idx, val, bucket, sign, m, d1,
+                                                out=None if out0 is None else out0.clone())
+        assert torch.equal(got.cpu(), want)
+
+    @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+    def test_preparation_groups_the_rows_of_the_stable_order(self, cuda_device, dtype):
+        m = 300
+        bucket = torch.randint(-2, m + 3, (5000,), generator=torch.Generator().manual_seed(9))
+        order, starts = cuda_ops.countsketch_prepare(bucket.to(dtype).to(cuda_device), m)
+        want_order, want_starts = cuda_ops.countsketch_order(bucket, m)
+        assert torch.equal(starts.cpu(), want_starts)
+        live = int(want_starts[m])
+        for b in range(m):
+            lo, hi = int(want_starts[b]), int(want_starts[b + 1])
+            assert torch.equal(order[lo:hi].cpu().sort().values, want_order[lo:hi])
+        assert live < 5000
+
     def test_what_the_kernel_refuses_raises(self, cuda_device):
         idx, val, bucket, sign = (t.to(cuda_device) for t in _chunk(20, 4, 5, 9))
         with pytest.raises(TypeError):

@@ -12,8 +12,15 @@ Tolerances (kernel against plain version, same inputs on the card): the
 upper-triangle tiles of the Gramian within 1e-5 of the sums' scale
 |G₀| + Σ|fᵢ||fⱼ|, the correlation within 1e-5 of |C₀| + Σ|f||r| (float32
 products summed in other orders; bf16 operands and their products are exact
-in float32). In place and into a new buffer give the same bits; the
-strictly-lower tiles are left as they were in place.
+in float32). That holds for bf16 F too, on the tensor cores: their adds
+into an f32 accumulator do not round to nearest, so the kernel sums only
+two 64-row stages on them and adds those partial sums in FP32 (measured on
+an H100: at most 3.5e-6 of scale at these shapes, 1.4e-5 at the 65,536-row
+Amazon chunk, which chip_smoke.py holds to 1e-4). bf16 F must lie at a row
+stride of a multiple of 8 elements on a 16-byte boundary (the kernel's TMA
+loads); ``_operands`` lays it at the fold's stride. In place and into a new
+buffer give the same bits, and so do repeated runs; the strictly-lower
+tiles are left as they were in place.
 """
 
 import numpy as np
@@ -34,9 +41,20 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def _operands(n, d, k, seed=0, device="cpu"):
+def _aligned(F, dtype):
+    """F in ``dtype``; bf16 at a row stride rounded up to 64 elements, as
+    the fold lays its slabs out for the kernel's TMA loads."""
+    if dtype != torch.bfloat16:
+        return F.to(dtype)
+    n, d = F.shape
+    out = torch.zeros((n, -(-d // 64) * 64), dtype=dtype, device=F.device)[:, :d]
+    out.copy_(F)
+    return out
+
+
+def _operands(n, d, k, seed=0, device="cpu", dtype=torch.float32):
     rng = np.random.default_rng(seed)
-    F = _t(rng.normal(size=(n, d)).astype(np.float32)).to(device)
+    F = _aligned(_t(rng.normal(size=(n, d)).astype(np.float32)).to(device), dtype)
     R = _t(rng.normal(size=(n, k)).astype(np.float32)).to(device)
     G = _t(rng.normal(size=(d, d)).astype(np.float32)).to(device)
     C = _t(rng.normal(size=(d, k)).astype(np.float32)).to(device)
@@ -93,7 +111,12 @@ class TestContract:
 
     def test_guard(self):
         assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 5)))
-        assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 5), dtype=torch.bfloat16))
+        # bf16 F is read by TMA: a 16-byte-aligned base and a row stride of
+        # a multiple of 8 elements.
+        assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 8), dtype=torch.bfloat16))
+        assert not cuda_ops.gram_corr_acc_ok(torch.empty((8, 5), dtype=torch.bfloat16))
+        assert not cuda_ops.gram_corr_acc_ok(torch.empty((8, 16), dtype=torch.bfloat16)[:, 1:6])
+        assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 64), dtype=torch.bfloat16)[:, 8:13])
         assert cuda_ops.gram_corr_acc_ok(torch.empty((8, 9))[:, :5])  # contiguous rows
         assert not cuda_ops.gram_corr_acc_ok(torch.empty((5, 8)).T)
         assert not cuda_ops.gram_corr_acc_ok(torch.empty((8, 5), dtype=torch.float64))
@@ -106,6 +129,41 @@ class TestContract:
 
         with pytest.raises(ValueError, match="CUDA"):
             cuda_ops.gram_corr_sym_acc(meta(4, 4), meta(4, 2), meta(6, 4), meta(6, 2))
+
+    def test_row_aligned_densify_keeps_the_values(self):
+        rng = np.random.default_rng(7)
+        idx = _t(rng.integers(-1, 70, size=(30, 12)).astype(np.int32))
+        vals = _t(rng.normal(size=(30, 12)).astype(np.float32))
+        for d in (1, 65, 67, 128):
+            plain = sparse._dense_rows(idx, vals, d, torch.bfloat16)
+            aligned = sparse._dense_rows(idx, vals, d, torch.bfloat16, row_align=64)
+            assert aligned.shape == plain.shape == (30, d)
+            assert aligned.stride() == (-(-d // 64) * 64, 1) and plain.stride() == (d, 1)
+            assert torch.equal(aligned, plain)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_fold_slab_passes_the_guard_with_the_values_of_the_densify(self, monkeypatch,
+                                                                         dtype):
+        n, d, w, k, c = 700, 131, 9, 2, 256
+        idx, vals, Y = _coo(n, d, w, k, seed=8)
+        ops = raw_chunk_tiles(_t(idx), _t(vals), _t(Y), c)
+        seen = []
+        fold = cuda_ops.gram_corr_sym_acc
+
+        def spy(G, C, F, R, out=None):
+            seen.append(F)
+            return fold(G, C, F, R, out=out)
+
+        monkeypatch.setattr(sparse.cuda_ops, "gram_corr_sym_acc", spy)
+        sparse.sparse_gram_stream(lambda cid: _resident_chunk_fn(cid, *ops), ops[0].shape[0],
+                                  d, k, val_dtype=dtype)
+        assert len(seen) == ops[0].shape[0] == 3
+        for cid, F in enumerate(seen):
+            chunk_idx, chunk_vals, _ = _resident_chunk_fn(cid, *ops)
+            want = sparse._dense_rows(chunk_idx, chunk_vals, d, dtype)
+            assert F.shape == (c, d) and torch.equal(F, want)
+            assert cuda_ops.gram_corr_acc_ok(F)
+            assert F.stride(0) == (192 if dtype == torch.bfloat16 else d)
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +200,7 @@ class TestKernelOnCard:
     @pytest.mark.parametrize("n,d,k", SHAPES)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_against_plain_version(self, cuda_device, n, d, k, dtype):
-        G, C, F, R = _operands(n, d, k, device=cuda_device)
-        F = F.to(dtype)
+        G, C, F, R = _operands(n, d, k, device=cuda_device, dtype=dtype)
         before = cuda_ops.launches["gram_corr_sym_acc"]
         got = cuda_ops.gram_corr_sym_acc(G, C, F, R)
         torch.cuda.synchronize()
@@ -154,8 +211,7 @@ class TestKernelOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_in_place_has_the_bits_of_a_new_buffer(self, cuda_device, dtype):
-        G, C, F, R = _operands(700, 300, 3, seed=2, device=cuda_device)
-        F = F.to(dtype)
+        G, C, F, R = _operands(700, 300, 3, seed=2, device=cuda_device, dtype=dtype)
         fresh = cuda_ops.gram_corr_sym_acc(G, C, F, R)
         Gi, Ci = G.clone(), C.clone()
         out = cuda_ops.gram_corr_sym_acc(Gi, Ci, F, R, out=(Gi, Ci))
@@ -189,6 +245,33 @@ class TestKernelOnCard:
         got = cuda_ops.gram_corr_sym_acc(G, C, wide[:, 30:230], R)
         want = cuda_ops.gram_corr_sym_acc_ref(G, C, F, R)
         _check(got, want, G, C, F, R, _upper(200, cuda_device))
+        # bf16: a window on a 16-byte boundary of rows 8-element aligned.
+        wide16 = torch.zeros((300, 264), dtype=torch.bfloat16, device=cuda_device)
+        wide16[:, 32:232] = F
+        F16 = wide16[:, 32:232]
+        got = cuda_ops.gram_corr_sym_acc(G, C, F16, R)
+        want = cuda_ops.gram_corr_sym_acc_ref(G, C, F16, R)
+        _check(got, want, G, C, F16, R, _upper(200, cuda_device))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_repeated_runs_give_equal_bits(self, cuda_device, dtype):
+        G, C, F, R = _operands(1500, 520, 9, seed=4, device=cuda_device, dtype=dtype)
+        first = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+        upper = _upper(520, cuda_device)
+        for _ in range(3):
+            again = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+            assert torch.equal(again[0][upper], first[0][upper])
+            assert torch.equal(again[1], first[1])
+
+    def test_misaligned_bf16_f_raises_and_is_not_copied(self, cuda_device):
+        G, C, F, R = _operands(64, 20, 2, device=cuda_device)
+        before = cuda_ops.launches["gram_corr_sym_acc"]
+        with pytest.raises(TypeError, match="multiple of 8"):
+            cuda_ops.gram_corr_sym_acc(G, C, F.to(torch.bfloat16), R)  # row stride 20
+        wide = torch.zeros((64, 32), dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(TypeError, match="16-byte"):
+            cuda_ops.gram_corr_sym_acc(G, C, wide[:, 1:21], R)  # base 2 bytes off
+        assert cuda_ops.launches["gram_corr_sym_acc"] == before
 
     def test_what_the_kernel_refuses_raises(self, cuda_device):
         G, C, F, R = _operands(30, 20, 2, device=cuda_device)
