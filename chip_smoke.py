@@ -16,7 +16,12 @@ together), then:
      cores, with the count of HGMMA instructions in its SASS checked at
      build time; f32 F beside two float32 ``addmm``) and on the ragged last
      chunk of 41,248 rows, in place and into a new buffer; ``gram_corr``
-     at the Gramian shape beside ``gram_corr_sym``; ``countsketch_scatter``
+     at the Gramian shape beside ``gram_corr_sym`` (both outputs its bits);
+     for ``block_corr`` and ``gram_corr`` (the pipelined tile of
+     ``csrc/fma_pipe.cuh``) also each grid: label tile and masked share,
+     blocks (and ``block_corr``'s row chunks), resident blocks an SM, waves,
+     registers and spills;
+     ``countsketch_scatter``
      at the reference's small check geometry and at the sketched tier's
      Amazon chunk (65,536 rows of 83 slots into 32,770 x 16,385), in place
      and fresh, against its plain version run on the CPU (bit for bit),
@@ -271,6 +276,41 @@ def sass_count(cuda_ops, name, opcode):
     return sum(1 for line in sass.splitlines() if opcode in line)
 
 
+def without_parameters(name):
+    """A demangled function name without its trailing parameter list (the
+    last balanced ``(...)``), template arguments such as ``(int)10`` kept."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i].rstrip() if name[i] == "(" else name
+    return name
+
+
+def ptxas_lines(cuda_ops, report):
+    """One line a kernel function of an ``nvcc -Xptxas -v`` report: its
+    name (demangled by the toolkit's ``cu++filt`` where there is one, its
+    parameter list cut), registers and spill bytes; and every error or
+    warning line."""
+    filt = os.path.join(os.path.dirname(cuda_ops._nvcc()), "cu++filt")
+    lines, name, spills = [], None, ""
+    for line in report.splitlines():
+        if "error" in line or "warning" in line:
+            lines.append(line.strip())
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+            if os.path.exists(filt):
+                name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip()
+            name = without_parameters(name)
+        elif "spill stores" in line:
+            spills = ", ".join(part.strip() for part in line.split(",")[1:])
+        elif "registers" in line and name is not None:
+            regs = line.split("Used ")[1].split(",")[0]
+            lines.append(f"{name}: {regs}, {spills}")
+            name = None
+    return lines
+
+
 def check(name, ok, detail):
     log(f"  {'PASS' if ok else 'FAIL'} {name}: {detail}")
     if not ok:
@@ -377,7 +417,7 @@ def phase_gram_corr(cuda_ops, A, R):
         Ak = A.to(dtype)
         gram, corr = cuda_ops.gram_corr(Ak, R)
         gram_r, corr_r = cuda_ops.gram_corr_ref(Ak, R)
-        sym_gram, _ = cuda_ops.gram_corr_sym(Ak, R)
+        sym_gram, sym_corr = cuda_ops.gram_corr_sym(Ak, R)
         torch.cuda.synchronize()
         g_err = (gram - gram_r).abs().max().item()
         c_err = (corr - corr_r).abs().max().item()
@@ -386,13 +426,13 @@ def phase_gram_corr(cuda_ops, A, R):
         c_rel = c_err / (Ak.float().abs().T @ R.abs()).max().item()
         check(f"gram_corr {label} A {m}x{d}, R {m}x{k}",
               g_rel <= 1e-4 and c_rel <= 1e-4 and torch.equal(gram, gram.T)
-              and torch.equal(gram, sym_gram),
+              and torch.equal(gram, sym_gram) and torch.equal(corr, sym_corr),
               f"gram max_abs_err {g_err:.3e} ({g_rel:.2e} of scale), corr max_abs_err "
               f"{c_err:.3e} ({c_rel:.2e} of scale), tol 1e-4 of scale; symmetric, and the "
-              f"bits of gram_corr_sym's mirrored Gramian")
+              f"bits of gram_corr_sym's mirrored Gramian and correlation")
         if label == "f32":
             r = dict(max_abs_err=max(g_err, c_err))
-        del Ak, gram, corr, gram_r, corr_r, sym_gram
+        del Ak, gram, corr, gram_r, corr_r, sym_gram, sym_corr
     r["ms"] = time_ms(lambda: cuda_ops.gram_corr(A, R), 5)
     r["plain_ms"] = time_ms(lambda: cuda_ops.gram_corr_ref(A, R), 5)
     r["library_ms"] = time_ms(lambda: (A.T @ A, A.T @ R), 5)
@@ -406,7 +446,26 @@ def phase_gram_corr(cuda_ops, A, R):
     log(f"  gram_corr f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
         f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); bf16 "
         f"operands: {bf16_ms:.3f} ms")
+    r["grid"] = {}
+    for label, Ak in (("f32", A), ("bf16", A16)):
+        grid = cuda_ops.gram_corr_grid(Ak, k)
+        r["grid"][label] = grid
+        log(f"  gram_corr {label} grid: {grid['corr_blocks']} correlation blocks "
+            f"({grid['ktile']}-wide label tile, {grid['masked']:.1%} masked), then "
+            f"{grid['gram_blocks']} Gramian tiles: {grid_line(grid)}")
+    grid = r["grid"]["f32"]
+    check("gram_corr computes the upper tiles only and k in one label tile",
+          grid["gram_blocks"] == (d // 128) * (d // 128 + 1) // 2 and grid["masked"] <= 0.10,
+          f"{grid['gram_blocks']} Gramian blocks, {grid['masked']:.1%} masked at k = {k}")
     return r
+
+
+def grid_line(grid):
+    """A kernel grid's blocks, resident blocks an SM, waves, registers and
+    spilled bytes a thread."""
+    return (f"{grid['blocks']} blocks, {grid['blocks_per_sm']} an SM on {grid['sms']} SMs "
+            f"({grid['waves']:.3f} waves), {grid['registers']} registers, "
+            f"{grid['local_bytes']} local bytes a thread")
 
 
 def countsketch_chunk(c, nnz, m, d, gen):
@@ -582,6 +641,16 @@ def phase_window_kernels(cuda_ops, gen):
         log(f"  {name} f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
             f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
             f"bf16 F: {bf16_ms:.3f} ms")
+    r = results["block_corr"]
+    r["grid"] = {}
+    for label, bf16 in (("f32", False), ("bf16", True)):
+        grid = cuda_ops.block_corr_grid(n, b, k, bf16, dev)
+        r["grid"][label] = grid
+        log(f"  block_corr {label} F grid: {grid['ktile']}-wide label tile "
+            f"({grid['masked']:.1%} masked), {grid['tiles']} tiles x {grid['splits']} row "
+            f"chunks, {grid_line(grid)}")
+    check("block_corr masks at most 10% of its label FMAs", r["grid"]["f32"]["masked"] <= 0.10,
+          f"{r['grid']['f32']['masked']:.1%} at k = {k}")
     del F, F16, Fw, R, dW
     torch.cuda.empty_cache()
     return results
@@ -1766,9 +1835,8 @@ def main():
     reports = cuda_ops.build()
     log(f"[build] {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if any(word in line for word in ("registers", "spill", "error", "warning")):
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(cuda_ops, report):
+            log(f"  {name}: {line}")
     hgmma = sass_count(cuda_ops, "gram_corr_sym_acc", "HGMMA")
     if hgmma is None:
         log("  gram_corr_sym_acc: cuobjdump not found, SASS not read")

@@ -1,0 +1,336 @@
+// The pipelined FP32-FMA tile of block_corr.cu and gram_corr.cu.
+//
+// One block of 256 threads (16 x 16) owns an output tile of 16 MI rows x
+// 16 NJ columns: out[i][j] = sum over rows r of P[r][i0 + i] * Q[r][j0 + j],
+// P and Q row-major. Each thread keeps MI x NJ outputs in registers (8 x 8
+// for a 128 x 128 Gramian tile, 8 x 10 for 128 window columns x 160 label
+// columns). Rows go through shared memory BK at a time, in a ring of
+// STAGES stages filled with cp.async: while the block multiplies stage s,
+// the copies of stages s + 1 ... s + STAGES - 1 are in flight, and one
+// __syncthreads a stage both publishes stage s and frees the slot that the
+// next copy refills.
+//
+// Operands are copied as they are stored: bf16 stays bf16 in shared memory
+// and is widened to float when a thread reads it (a shift), so products and
+// sums stay float32 ("f32 means f32": no TF32, no tensor cores). A tile
+// whose rows and columns are 16-byte aligned (the base pointer, the row
+// stride and the column count in whole 16-byte chunks) is copied in
+// 16-byte cp.async.cg chunks (VEC); otherwise element by element: float32
+// through 4-byte cp.async.ca, bfloat16 (2-byte aligned only) through
+// registers. Copies past the last row or column zero-fill, so ragged edges
+// add nothing.
+//
+// Every output is one fmaf chain over its rows in order, whatever BK,
+// STAGES or the thread map: acc = fmaf(p, q, acc) for r = rbeg, rbeg + 1,
+// ... (the zero rows past rend leave it as it is). So a Gramian computed
+// here has the bits of one computed on fma_tile.cuh.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace kt_pipe {
+
+constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int TM = 128;       // output tile rows at 8 a thread (16 threads x 8)
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Four (two) consecutive shared-memory elements, widened to float.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+template <typename TE>
+__host__ __device__ constexpr int vec_elems() {
+  return 16 / static_cast<int>(sizeof(TE));
+}
+
+// Host: whether a tile of M (base pointer, row stride ld, cols columns) can
+// be copied in 16-byte chunks: every chunk then lies wholly inside or
+// wholly past the columns.
+template <typename TE>
+inline bool vec_ok(const TE* base, long long ld, long long cols) {
+  constexpr int e = vec_elems<TE>();
+  return reinterpret_cast<std::uintptr_t>(base) % 16 == 0 && ld % e == 0 && cols % e == 0;
+}
+
+// The copies one thread makes of a row-major operand M (row stride ld),
+// tile columns [c0, c0 + W) of rows [rbeg, rend), one BK-row stage at a
+// time, in stage order, into a row-major BK x W tile of TE in shared
+// memory; zero at rows >= rend and columns >= cols. Addresses are set up
+// once: a stage's copy is a pointer step and a row test.
+//
+// VEC, 16-byte chunks: CPR chunks a row, so THREADS / CPR rows a pass; a
+// thread copies the same chunk column of rows kk0, kk0 + RPP, ... and a
+// warp consecutive chunks of one row.
+// Element-wise: TPR = THREADS / BK threads a row, so a thread copies one row
+// kk0 of every stage, columns tc, tc + TPR, ..., and a warp TPR consecutive
+// elements of each of two rows (4-byte cp.async for float32, registers for
+// bf16).
+template <typename TE, int BK, int W, bool VEC>
+struct Stager;
+
+template <typename TE, int BK, int W>
+struct Stager<TE, BK, W, true> {
+  static constexpr int EPC = vec_elems<TE>();
+  static constexpr int CPR = W / EPC;       // chunks a row
+  static constexpr int RPP = THREADS / CPR;  // rows a pass
+  static constexpr int PASSES = BK > RPP ? BK / RPP : 1;  // (threads past row BK idle)
+  static_assert(W % EPC == 0 && THREADS % CPR == 0 && (BK % RPP == 0 || RPP % BK == 0),
+                "a stage must be whole passes of whole 16-byte chunks");
+  const TE* p;     // this thread's chunk in its first row of the next stage
+  long long ld;
+  int left;        // rows left from that row on
+  int soff;        // its offset in the shared tile
+  bool col_ok;
+
+  __device__ __forceinline__ Stager(const TE* M, long long ld_, long long rbeg, long long rend,
+                                    long long c0, long long cols) {
+    const int kk0 = threadIdx.x / CPR;
+    const int c = (threadIdx.x % CPR) * EPC;
+    p = M + (rbeg + kk0) * ld_ + c0 + c;
+    ld = ld_;
+    left = static_cast<int>(rend - rbeg) - kk0;
+    soff = kk0 * W + c;
+    col_ok = c0 + c < cols && kk0 < BK;
+  }
+  __device__ __forceinline__ void copy(TE* S) {
+#pragma unroll
+    for (int m = 0; m < PASSES; ++m)
+      if (RPP <= BK || col_ok)
+        cp_async16(S + soff + m * RPP * W, p + m * RPP * ld, col_ok && m * RPP < left);
+    p += BK * ld;
+    left -= BK;
+  }
+};
+
+template <typename TE, int BK, int W>
+struct Stager<TE, BK, W, false> {
+  static constexpr int TPR = THREADS / BK;  // threads a row
+  static_assert(THREADS % BK == 0 && W % TPR == 0, "a stage row must be whole thread rows");
+  const TE* p;     // this thread's first element in its row of the next stage
+  long long ld;
+  int left;        // rows left from that row on
+  int soff;        // its offset in the shared tile
+  int col_lim;     // its element e lies inside the columns when e * TPR < col_lim
+
+  __device__ __forceinline__ Stager(const TE* M, long long ld_, long long rbeg, long long rend,
+                                    long long c0, long long cols) {
+    const int kk0 = threadIdx.x / TPR;
+    const int tc = threadIdx.x % TPR;
+    p = M + (rbeg + kk0) * ld_ + c0 + tc;
+    ld = ld_;
+    left = static_cast<int>(rend - rbeg) - kk0;
+    soff = kk0 * W + tc;
+    const long long lim = cols - c0 - tc;
+    col_lim = static_cast<int>(lim < W ? lim : W);
+  }
+  __device__ __forceinline__ void copy(TE* S) {
+    const bool row_ok = left > 0;
+#pragma unroll
+    for (int e = 0; e < W / TPR; ++e) {
+      const bool ok = row_ok && e * TPR < col_lim;
+      if constexpr (sizeof(TE) == 4)
+        cp_async4(S + soff + e * TPR, p + e * TPR, ok);
+      else
+        S[soff + e * TPR] = ok ? p[e * TPR] : __ushort_as_bfloat16(0);
+    }
+    p += BK * ld;
+    left -= BK;
+  }
+  // Round the float32 elements this thread copied into S to bf16, in place:
+  // a bf16 operand's partner, as the TPU's bf16 matrix unit sees it. Runs
+  // after the thread's copies of S landed and before the barrier that
+  // publishes them.
+  __device__ __forceinline__ void round_own(float* S) const {
+#pragma unroll
+    for (int e = 0; e < W / TPR; ++e) S[soff + e * TPR] = round_bf16(S[soff + e * TPR]);
+  }
+};
+
+// Tile-local row of a thread's i-th output row (MI a thread: 2 neighbours,
+// or groups of four, 64 apart) and column of its j-th output column (NJ a
+// thread: groups of four, 64 apart, then NJ % 4 = 2 more past the last
+// group).
+template <int MI>
+__device__ __forceinline__ int out_row(int i) {
+  const int ty = threadIdx.x / 16;
+  return MI == 2 ? ty * 2 + i : (i / 4) * 64 + ty * 4 + i % 4;
+}
+template <int NJ>
+__device__ __forceinline__ int out_col(int j) {
+  constexpr int Q4 = NJ / 4;
+  constexpr int REM = NJ % 4;
+  const int tx = threadIdx.x % 16;
+  return j < 4 * Q4 ? (j / 4) * 64 + tx * 4 + j % 4 : Q4 * 64 + tx * REM + (j - 4 * Q4);
+}
+
+// acc[i][j] += sum over the BK rows kk of X[kk][out_row<MI>(i)] * Y[kk][out_col<NJ>(j)].
+template <int BK, int MI, int NJ, typename TP, typename TQ>
+__device__ __forceinline__ void fma_stage(const TP* X, const TQ* Y, float (&acc)[MI][NJ]) {
+  static_assert(MI == 2 || MI == 4 || MI == 8, "MI must be 2, 4 or 8");
+  constexpr int XT = 16 * MI;
+  constexpr int KT = 16 * NJ;
+  constexpr int Q4 = NJ / 4;
+  constexpr int REM = NJ % 4;
+  static_assert(REM == 0 || REM == 2, "NJ must be a multiple of 2 with NJ % 4 in {0, 2}");
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    float a[MI];
+    if constexpr (MI == 2) {
+      const float2 v = ld2(X + kk * XT + ty * 2);
+      a[0] = v.x;
+      a[1] = v.y;
+    }
+#pragma unroll
+    for (int q = 0; q < MI / 4; ++q) {
+      const float4 v = ld4(X + kk * XT + q * 64 + ty * 4);
+      a[4 * q] = v.x;
+      a[4 * q + 1] = v.y;
+      a[4 * q + 2] = v.z;
+      a[4 * q + 3] = v.w;
+    }
+    float b[NJ];
+#pragma unroll
+    for (int q = 0; q < Q4; ++q) {
+      const float4 v = ld4(Y + kk * KT + q * 64 + tx * 4);
+      b[4 * q] = v.x;
+      b[4 * q + 1] = v.y;
+      b[4 * q + 2] = v.z;
+      b[4 * q + 3] = v.w;
+    }
+    if constexpr (REM == 2) {
+      const float2 v = ld2(Y + kk * KT + Q4 * 64 + tx * 2);
+      b[4 * Q4] = v.x;
+      b[4 * Q4 + 1] = v.y;
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Shared memory of one block: STAGES stages of a BK x 16 MI P tile and a
+// BK x 16 NJ Q tile.
+template <typename TP, typename TQ, int BK, int STAGES, int MI, int NJ>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * BK * 16 *
+         (MI * static_cast<int>(sizeof(TP)) + NJ * static_cast<int>(sizeof(TQ)));
+}
+
+// acc[i][j] = sum over rows r in [rbeg, rend) of P[r][i0 + out_row<MI>(i)] *
+// Q[r][j0 + out_col(j)], columns past pcols / qcols reading as zero.
+// round_q rounds Q's values to bf16 as they arrive (float32 Q staged
+// element-wise only).
+template <int BK, int STAGES, int MI, int NJ, bool VP, bool VQ, typename TP, typename TQ>
+__device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restrict__ P,
+                                         long long ldp, long long i0, long long pcols,
+                                         const TQ* __restrict__ Q, long long ldq,
+                                         long long j0, long long qcols, long long rbeg,
+                                         long long rend, bool round_q,
+                                         float (&acc)[MI][NJ]) {
+  static_assert(STAGES >= 2, "the ring needs two stages at least");
+  constexpr int XT = 16 * MI;
+  constexpr int KT = 16 * NJ;
+  TP* Xs = reinterpret_cast<TP*>(smem);
+  TQ* Ys = reinterpret_cast<TQ*>(smem + STAGES * BK * XT * sizeof(TP));
+  const int nst = rend > rbeg ? static_cast<int>((rend - rbeg + BK - 1) / BK) : 0;
+  Stager<TP, BK, XT, VP> xs(P, ldp, rbeg, rend, i0, pcols);
+  Stager<TQ, BK, KT, VQ> ys(Q, ldq, rbeg, rend, j0, qcols);
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) {
+      xs.copy(Xs + s * BK * XT);
+      ys.copy(Ys + s * BK * KT);
+    }
+    cp_async_commit();
+  }
+  int slot = 0;       // stage s's slot, s % STAGES
+  int fill = STAGES - 1;  // the slot of stage s + STAGES - 1
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage s landed
+    if constexpr (!VQ && sizeof(TQ) == 4) {
+      if (round_q) ys.round_own(reinterpret_cast<float*>(Ys + slot * BK * KT));
+    }
+    // Stage s is complete for every thread, and every thread is done with
+    // stage s - 1, whose slot the next copy refills.
+    __syncthreads();
+    if (s + STAGES - 1 < nst) {
+      xs.copy(Xs + fill * BK * XT);
+      ys.copy(Ys + fill * BK * KT);
+    }
+    cp_async_commit();
+    fma_stage<BK, MI, NJ>(Xs + slot * BK * XT, Ys + slot * BK * KT, acc);
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
+    fill = fill + 1 == STAGES ? 0 : fill + 1;
+  }
+  cp_async_wait<0>();
+}
+
+// Store a thread's outputs of the tile at (i0, j0) into the row-major
+// (rows, cols) matrix out, inside its edges.
+template <int MI, int NJ>
+__device__ __forceinline__ void store_tile(float* __restrict__ out, long long rows,
+                                           long long cols, long long i0, long long j0,
+                                           const float (&acc)[MI][NJ]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const long long r = i0 + out_row<MI>(i);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const long long c = j0 + out_col<NJ>(j);
+      if (c < cols) out[r * cols + c] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace kt_pipe

@@ -13,8 +13,8 @@ run:
     (``csrc/gram_corr_sym.cu``): ``(AᵀA, AᵀR)`` in one launch, upper
     Gramian tiles only;
   - :func:`gram_corr` ↔ ``pallas_ops.gram_corr`` (``csrc/gram_corr.cu``):
-    the same pair with every Gramian tile computed, the block update's
-    ``sym=False`` form;
+    the same pair for the block update's ``sym=False`` form (the TPU kernel
+    computes every Gramian tile; this one the upper tiles, mirrored);
   - :func:`block_gram_sym`, :func:`block_corr`,
     :func:`block_residual_update` ↔ their ``pallas_ops`` namesakes
     (``csrc/block_*.cu``): the flat solver's Gramian, correlation and
@@ -44,8 +44,12 @@ run:
     fixed order without atomics.
 
 All but the cosine and CountSketch kernels, and ``gram_corr_sym_acc`` with
-bf16 F (TMA loads into ``wgmma`` on the tensor cores), share one FP32-FMA
-register tile (``csrc/fma_tile.cuh``). The image featurizer's kernel
+bf16 F (TMA loads into ``wgmma`` on the tensor cores), are FP32-FMA
+register tiles: ``block_corr`` and ``gram_corr`` on the pipelined one of
+``csrc/fma_pipe.cuh`` (a cp.async ring, label tiles sized to k; row
+chunks that fill whole waves for ``block_corr``: :func:`corr_splits`), the
+others on
+``csrc/fma_tile.cuh``. The image featurizer's kernel
 (``csrc/conv_featurize.cu``) has its wrapper in ``ops/cuda_images.py``; it
 is built, loaded and counted here with the others.
 
@@ -141,6 +145,8 @@ _ENTRY_POINTS = {
 # Further C entry points of a source, beside its launching one.
 _EXTRA_SYMBOLS = {
     "countsketch_scatter": [("kt_countsketch_prepare", [_P, _I, _I, _I, _P, _P, _P, _P])],
+    "block_corr": [("kt_block_corr_config", [_I, _I, _P])],
+    "gram_corr": [("kt_gram_corr_config", [_P, _I, _I, _L, _I, _P])],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -365,18 +371,40 @@ def gram_corr_ref(A, R):
 
 
 def gram_corr(A, R):
-    """(AᵀA, AᵀR) in one pass over A, every tile of AᵀA computed (the dense
-    form the block update takes with ``sym=False``).
+    """(AᵀA, AᵀR), the whole (d, d) Gramian returned (the dense form the
+    block update takes with ``sym=False``): its upper tiles computed and
+    mirrored, each entry of both outputs one float32 FMA chain over the
+    rows in order, so the Gramian is exactly symmetric and both outputs
+    have the bits of :func:`gram_corr_sym`'s (:func:`gram_corr_grid` gives
+    the launch's grid).
 
     A: (n, d) float32 or bfloat16, rows contiguous (a column window of a
     wider matrix is read in place through its row stride). R: (n, k),
     taken as float32. Returns the (d, d) Gramian and the (d, k)
-    correlation, both float32; the two triangles come out bit for bit
-    symmetric.
+    correlation, both float32.
     """
     if A.device.type == "cpu" and R.device.type == "cpu":
         return gram_corr_ref(A, R)
     return _gram_corr_launch("gram_corr", A, R)
+
+
+def gram_corr_grid(A, k: int) -> Dict[str, float]:
+    """The grid :func:`gram_corr` launches for A (on a card) and k label
+    columns: its blocks (the correlation's first, each ``corr_cols``
+    columns of A, then the Gramian's upper tiles), the correlation's
+    label-tile width and share of masked label FMAs, the kernel's resident
+    blocks an SM, registers and local (spilled) bytes a thread, and the
+    waves."""
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(A.device):
+        err = _lib("gram_corr").kt_gram_corr_config(
+            A.data_ptr(), A.shape[1], k, A.stride(0), int(A.dtype == torch.bfloat16), out)
+    _check_launch("gram_corr", err)
+    gram, corr, ktile, bps, regs, local, sms, corr_cols = out
+    return _grid(dict(blocks=gram + corr, gram_blocks=gram, corr_blocks=corr,
+                      corr_cols=corr_cols, ktile=ktile,
+                      masked=1 - k / max(-(-k // ktile) * ktile, 1), blocks_per_sm=bps,
+                      registers=regs, local_bytes=local), sms)
 
 
 def _gram_corr_launch(name: str, A, R):
@@ -494,13 +522,69 @@ def block_corr_ref(F, col_start: int, block: int, R):
     return _window(F, col_start, block).T @ _corr_operand(F, R)
 
 
-def _corr_splits(n: int, block: int, k: int, device) -> int:
-    """Row chunks of one block_corr launch: enough (tile, chunk) blocks for
-    about four per SM, each chunk at least 1024 rows. Fixed by the shapes,
-    so the summation order never changes from run to run."""
-    tiles = -(-block // 128) * -(-k // 128)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // tiles), n // 1024))
+# Fewest rows a block_corr row chunk sums: shorter chunks would spend
+# more of their time filling and draining the cp.async ring.
+_MIN_SPLIT_ROWS = 1024
+
+
+def corr_splits(n: int, tiles: int, sms: int, blocks_per_sm: int) -> int:
+    """Row chunks of a :func:`block_corr` launch: the fewest that bring the
+    (tile, chunk) grid within 5% of a whole number of waves of the card's
+    resident blocks (``sms * blocks_per_sm``), each chunk at least
+    ``_MIN_SPLIT_ROWS`` rows; where none does, the count that fills most. A
+    function of the shapes and the card alone, so the chunks' partial sums
+    add in the same order every run."""
+    if tiles <= 0:
+        return 1
+    resident = sms * max(blocks_per_sm, 1)
+    best, best_fill = 1, 0.0
+    for s in range(1, max(n // _MIN_SPLIT_ROWS, 1) + 1):
+        blocks = tiles * s
+        fill = blocks / (-(-blocks // resident) * resident)
+        if fill >= 0.95:
+            return s
+        if fill > best_fill:
+            best, best_fill = s, fill
+    return best
+
+
+def _grid(config, sms: int) -> Dict[str, float]:
+    """A grid description with the card's SM count and its waves: blocks
+    over resident blocks (``sms * blocks_per_sm``)."""
+    config["sms"] = sms
+    config["waves"] = config["blocks"] / (sms * max(config["blocks_per_sm"], 1))
+    return config
+
+
+# block_corr_grid's answers by (device index, n, block, k, bf16 F): fixed
+# for a card and a build, so worked out once.
+_BLOCK_CORR_GRIDS: Dict[tuple, Dict[str, float]] = {}
+
+
+def block_corr_grid(n: int, block: int, k: int, bf16: bool, device) -> Dict[str, float]:
+    """The grid :func:`block_corr` launches for an n-row, block-wide window
+    and k label columns on ``device`` (a card): its label-tile width, tiles,
+    row chunks, blocks, the kernel's resident blocks an SM, registers and
+    local (spilled) bytes a thread, the waves and the share of masked label
+    FMAs."""
+    device = torch.device(device)
+    key = (device.index, n, block, k, bool(bf16))
+    grid = _BLOCK_CORR_GRIDS.get(key)
+    if grid is None:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(device):
+            err = _lib("block_corr").kt_block_corr_config(k, int(bf16), out)
+        _check_launch("block_corr", err)
+        ktile, bps, regs, local = out
+        label_tiles = -(-k // ktile)
+        tiles = -(-block // 128) * label_tiles
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        splits = corr_splits(n, tiles, sms, bps)
+        grid = _grid(dict(ktile=ktile, tiles=tiles, splits=splits, blocks=tiles * splits,
+                          blocks_per_sm=bps, registers=regs, local_bytes=local,
+                          masked=1 - k / (label_tiles * ktile)), sms)
+        _BLOCK_CORR_GRIDS[key] = grid
+    return grid
 
 
 def block_corr(F, col_start: int, block: int, R):
@@ -526,7 +610,7 @@ def block_corr(F, col_start: int, block: int, R):
     corr = torch.empty((block, k), dtype=torch.float32, device=device)
     if corr.numel() == 0:
         return corr
-    splits = _corr_splits(n, block, k, device)
+    splits = block_corr_grid(n, block, k, F.dtype == torch.bfloat16, device)["splits"]
     partials = None
     if splits > 1:
         partials = torch.empty((splits, block, k), dtype=torch.float32, device=device)

@@ -138,3 +138,21 @@ def test_float32_products_stay_float32():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("demangled,want", [
+    ("void <unnamed>::corr_kernel<float, (int)10, (bool)1>(float const*, float*, int)",
+     "void <unnamed>::corr_kernel<float, (int)10, (bool)1>"),
+    ("void (anonymous namespace)::gram_kernel<float>(float const*)",
+     "void (anonymous namespace)::gram_kernel<float>"),
+    ("<unnamed>::histogram_kernel(int const*, int*)", "<unnamed>::histogram_kernel"),
+    ("_ZN7kt_pipe11corr_kernel", "_ZN7kt_pipe11corr_kernel"),
+])
+def test_chip_smoke_kernel_names_keep_template_arguments(demangled, want):
+    """chip_smoke.py prints ptxas registers a kernel instance: only the
+    parameter list is cut from its name, so instances stay apart."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.without_parameters(demangled) == want

@@ -17,8 +17,9 @@ Tolerances (kernel against plain version, same inputs):
     no fixed order) is held within 1e-6 of the sums' scale Σ|val| instead.
   - gram_corr: within 1e-5 of the sums' scale (Σ|aᵢ||aⱼ| for the Gramian,
     Σ|a||r| for the correlation: float32 products summed in other orders;
-    bf16 operands and their products are exact in float32), and exactly
-    symmetric.
+    bf16 operands and their products are exact in float32), exactly
+    symmetric, and both outputs bit for bit gram_corr_sym's (both kernels
+    sum each entry as one fmaf chain over the rows in order).
   - a sketched fit on the card against the same fit on the CPU: 1e-4
     relative Frobenius (the gradient operand's ``index_add_`` adds in
     atomic order on the card).
@@ -284,6 +285,43 @@ class TestGramCorrOnCard:
         assert ((gram - want_g).abs() <= 1e-5 * g_scale).all()
         assert ((corr - want_c).abs() <= 1e-5 * c_scale).all()
         assert torch.equal(gram, gram.T)
+
+    @pytest.mark.parametrize("n,d,k", GC_SHAPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_bits_of_gram_corr_sym(self, cuda_device, n, d, k, dtype):
+        # Both kernels sum each output entry as one fmaf chain over the rows
+        # in order; gram_corr computes the upper Gramian tiles and mirrors them.
+        rng = np.random.default_rng(n + 2 * d + k)
+        A = _t(rng.normal(size=(n, d)).astype(np.float32)).to(cuda_device).to(dtype)
+        R = _t(rng.normal(size=(n, k)).astype(np.float32)).to(cuda_device)
+        gram, corr = cuda_ops.gram_corr(A, R)
+        sym_gram, sym_corr = cuda_ops.gram_corr_sym(A, R)
+        assert torch.equal(gram, sym_gram) and torch.equal(corr, sym_corr)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_correlation_at_k_147(self, cuda_device, dtype):
+        rng = np.random.default_rng(147)
+        A = _t(rng.normal(size=(20000, 512)).astype(np.float32)).to(cuda_device).to(dtype)
+        R = _t(rng.normal(size=(20000, 147)).astype(np.float32)).to(cuda_device)
+        grid = cuda_ops.gram_corr_grid(A, 147)
+        assert grid["ktile"] == 160 and grid["corr_blocks"] == 512 // grid["corr_cols"]
+        runs = [cuda_ops.gram_corr(A, R)[1] for _ in range(3)]
+        assert all(torch.equal(runs[0], c) for c in runs[1:])
+        Af = A.float()
+        want = cuda_ops.gram_corr_ref(A, R)[1]
+        assert ((runs[0] - want).abs() <= 1e-5 * (Af.abs().T @ R.abs())).all()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_timit_grid(self, cuda_device, dtype):
+        # A 65,536 x 4,096, R 65,536 x 147: the correlation in blocks of one
+        # 160-wide label tile (8% masked), then the 528 upper tiles.
+        A = torch.empty((65536, 4096), dtype=dtype, device=cuda_device)
+        grid = cuda_ops.gram_corr_grid(A, 147)
+        assert grid["gram_blocks"] == 528 and grid["corr_blocks"] == 4096 // grid["corr_cols"]
+        assert grid["blocks"] == 528 + grid["corr_blocks"]
+        assert grid["ktile"] == 160 and grid["masked"] <= 0.10
+        assert grid["local_bytes"] == 0  # no spills
+        assert grid["blocks_per_sm"] < 2 or grid["registers"] <= 128
 
     def test_column_window_is_read_through_its_row_stride(self, cuda_device):
         A, R = torch.randn(300, 200, device=cuda_device), torch.randn(300, 3, device=cuda_device)

@@ -185,6 +185,62 @@ class TestWrappersOnTheCpu:
         after = {name: cuda_ops._library_path(name) for name in cuda_ops._ENTRY_POINTS}
         assert all(before[name] != after[name] for name in before)
 
+    def test_library_name_hashes_the_pipelined_header(self, tmp_path, monkeypatch):
+        # block_corr and gram_corr include fma_pipe.cuh: an edit rebuilds them.
+        for src in (cuda_ops._CSRC).iterdir():
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+        monkeypatch.setattr(cuda_ops, "_CSRC", tmp_path)
+        before = {name: cuda_ops._library_path(name) for name in ("block_corr", "gram_corr")}
+        header = tmp_path / "fma_pipe.cuh"
+        header.write_text(header.read_text() + "\n// edited\n")
+        assert all(cuda_ops._library_path(name) != path for name, path in before.items())
+
+
+def _fill(blocks, resident):
+    """The share of its waves' slots a grid of ``blocks`` fills: blocks over
+    whole waves x resident blocks."""
+    return blocks / (-(-blocks // resident) * resident)
+
+
+class TestCorrSplits:
+    """The row-chunk arithmetic of block_corr (``cuda_ops.corr_splits``), a
+    pure function of the shapes and the card."""
+
+    @pytest.mark.parametrize("blocks_per_sm,want", [(1, 4), (2, 8)])
+    def test_timit_window_fills_whole_waves_of_132_sms(self, blocks_per_sm, want):
+        # 4096 window columns x one 160-wide label tile: 32 tiles.
+        splits = cuda_ops.corr_splits(65536, 32, 132, blocks_per_sm)
+        assert splits == want
+        assert _fill(32 * splits, 132 * blocks_per_sm) >= 0.95
+        assert -(-65536 // splits) >= 1024
+
+    @pytest.mark.parametrize("blocks_per_sm", [1, 2])
+    @pytest.mark.parametrize("tiles", [1, 7, 32, 33, 264, 300])
+    @pytest.mark.parametrize("n", [1000, 2047, 5000, 65536, 500000])
+    def test_whole_waves_or_the_most_fill_with_1024_rows_a_chunk(self, n, tiles,
+                                                                 blocks_per_sm):
+        resident = 132 * blocks_per_sm
+        splits = cuda_ops.corr_splits(n, tiles, 132, blocks_per_sm)
+        most = max(n // 1024, 1)
+        assert 1 <= splits <= most
+        assert splits == 1 or n // splits >= 1024
+        fills = [_fill(tiles * s, resident) for s in range(1, most + 1)]
+        if max(fills) >= 0.95:  # the fewest chunks that come within 5% of whole waves
+            assert _fill(tiles * splits, resident) >= 0.95
+            assert all(f < 0.95 for f in fills[:splits - 1])
+        else:  # else the count that fills most
+            assert _fill(tiles * splits, resident) == max(fills)
+
+    def test_same_answer_on_every_call(self):
+        first = [cuda_ops.corr_splits(n, 32, 132, 2) for n in (4096, 65536, 70000)]
+        assert all([cuda_ops.corr_splits(n, 32, 132, 2) for n in (4096, 65536, 70000)] == first
+                   for _ in range(3))
+
+    def test_no_tiles_or_few_rows_take_one_chunk(self):
+        assert cuda_ops.corr_splits(65536, 0, 132, 2) == 1
+        assert cuda_ops.corr_splits(2047, 32, 132, 2) == 1
+        assert cuda_ops.corr_splits(0, 32, 132, 2) == 1
+
 
 # ---------------------------------------------------------------------------
 # Kernel against plain version: needs the card
@@ -247,6 +303,72 @@ class TestKernelsOnCard:
             cuda_ops.block_gram_sym(F, 200, 128)
         with pytest.raises(TypeError):
             cuda_ops.block_corr(F.double(), 0, 128, R)
+
+
+# block_corr's pipelined kernel: label tiles sized to k (32 for k <= 32, else
+# 160 a tile), row chunks that fill whole waves, aligned and unaligned windows.
+KTILES = (32, 160)
+BC_KS = sorted({1, 147} | {w + e for w in KTILES for e in (-1, 0, 1)})
+
+
+def _corr_check(F, s, b, R, runs=3):
+    """block_corr against its plain version within 1e-4 of |Fw|ᵀ|R| (R
+    rounded to bf16 for bf16 F), one launch a call, and the same bits on
+    every run."""
+    before = cuda_ops.launches["block_corr"]
+    got = [cuda_ops.block_corr(F, s, b, R) for _ in range(runs)]
+    torch.cuda.synchronize()
+    assert cuda_ops.launches["block_corr"] == before + runs
+    assert all(torch.equal(got[0], g) for g in got[1:])
+    want = cuda_ops.block_corr_ref(F, s, b, R)
+    Rs = cuda_ops._corr_operand(F, R)
+    scale = F[:, s:s + b].float().abs().T @ Rs.abs()
+    assert got[0].shape == (b, R.shape[1])
+    assert ((got[0] - want).abs() <= 1e-4 * scale.max()).all()
+
+
+@pytest.mark.cuda
+class TestBlockCorrOnCard:
+    @pytest.mark.parametrize("k", BC_KS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_label_widths_around_each_tile(self, cuda_device, k, dtype):
+        F, R, _ = _card_inputs(3000, 512, k, cuda_device, seed=k)
+        grid = cuda_ops.block_corr_grid(3000, 256, k, dtype == torch.bfloat16, cuda_device)
+        assert grid["ktile"] == (32 if k <= 32 else 160)
+        assert grid["tiles"] == 2 * -(-k // grid["ktile"])
+        _corr_check(F.to(dtype), 128, 256, R)
+
+    # Rows below one chunk's 1,024, at one, and across several; windows at an
+    # unaligned start (3, 201) and an aligned one.
+    @pytest.mark.parametrize("n", [1000, 1024, 70000])
+    @pytest.mark.parametrize("s", [3, 201, 256])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_rows_and_window_starts(self, cuda_device, n, s, dtype):
+        F, R, _ = _card_inputs(n, 640, 147, cuda_device, seed=n + s)
+        grid = cuda_ops.block_corr_grid(n, 256, 147, dtype == torch.bfloat16, cuda_device)
+        assert (grid["splits"] > 1) == (n >= 2048)
+        _corr_check(F.to(dtype), s, 256, R)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_non_contiguous_r_row_stride(self, cuda_device, dtype):
+        F, _, _ = _card_inputs(5000, 384, 1, cuda_device, seed=7)
+        wide = torch.randn((5000, 153), device=cuda_device)
+        R = wide[:, 3:150]  # row stride 153 floats, base 12 bytes in
+        assert R.stride(0) == 153 and not R.is_contiguous()
+        _corr_check(F.to(dtype), 128, 256, R)
+
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_timit_grid(self, cuda_device, bf16):
+        # F 65,536 x 16,384, a 4096-wide window, k = 147: one 160-wide label
+        # tile (8% masked), and chunks that fill whole waves.
+        grid = cuda_ops.block_corr_grid(65536, 4096, 147, bf16, cuda_device)
+        assert grid["ktile"] == 160 and grid["tiles"] == 32 and grid["masked"] <= 0.10
+        bps = grid["blocks_per_sm"]
+        assert grid["splits"] == cuda_ops.corr_splits(65536, 32, grid["sms"], bps)
+        assert _fill(grid["blocks"], grid["sms"] * bps) >= 0.95
+        assert grid["local_bytes"] == 0  # no spills
+        if bps >= 2:
+            assert grid["registers"] <= 128
 
 
 # The streamed fold's accumulating Gramian (gram_sym_acc).
@@ -316,8 +438,15 @@ class TestGramSymAccOnCard:
         got = streaming.gram_stats(X.to(cuda_device), Y.to(cuda_device), column_major, 300,
                                    512, valid=1200)
         assert cuda_ops.launches["gram_sym_acc"] == before + 3
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-3)
+        # Each statistic against its own sums' scale (|F|ᵀ|F|, |F|ᵀ|Y|, ΣY²
+        # over the 1,200 valid rows, featurized on the CPU), as the other
+        # gram_sym_acc tests hold theirs: the card and the CPU sum the rows
+        # in different orders, and entries that cancel to near zero say
+        # nothing of that rounding.
+        F, Yv = column_major(X[:1200]).abs(), Y[:1200]
+        scales = (F.T @ F, F.T @ Yv.abs(), (Yv * Yv).sum())
+        for g, w, scale in zip(got, want, scales, strict=True):
+            assert ((g.cpu() - w).abs() <= 1e-5 * scale).all()
         with pytest.raises(TypeError):
             streaming.gram_stats(X.to(cuda_device), Y.to(cuda_device),
                                  lambda X_t: column_major(X_t).double(), 300, 512)
