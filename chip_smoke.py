@@ -17,10 +17,14 @@ together), then:
      build time; f32 F beside two float32 ``addmm``) and on the ragged last
      chunk of 41,248 rows, in place and into a new buffer; ``gram_corr``
      at the Gramian shape beside ``gram_corr_sym`` (both outputs its bits);
-     for ``block_corr`` and ``gram_corr`` (the pipelined tile of
-     ``csrc/fma_pipe.cuh``) also each grid: label tile and masked share,
-     blocks (and ``block_corr``'s row chunks), resident blocks an SM, waves,
-     registers and spills;
+     for the four kernels on the pipelined tile of ``csrc/fma_pipe.cuh``
+     (``block_corr``, ``gram_corr``, ``block_residual_update``,
+     ``gaussian_kernel_block``) also each grid: label tile and masked share,
+     blocks (and ``block_corr``'s row chunks, ``gaussian_kernel_block``'s
+     feature chunks), resident blocks an SM, waves, registers and spills;
+     ``gaussian_kernel_block`` at each shape of the CIFAR route (train
+     apply, test apply, diagonal block, ragged last diagonal block), each
+     with its bound and its ``exp(addmm)`` yardstick;
      ``countsketch_scatter``
      at the reference's small check geometry and at the sketched tier's
      Amazon chunk (65,536 rows of 83 slots into 32,770 x 16,385), in place
@@ -257,6 +261,40 @@ def time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps):
+    """Device time of ``fn`` a call: the kernels it launches, summed by
+    ``torch.profiler`` over ``reps`` calls after a warm-up call, without the
+    host's time between them (which decides a short call's ``time_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / reps
+
+
+def cifar_gaussian_shapes(X, xn, Xt, xtn):
+    """gaussian_kernel_block's shapes on the CIFAR route, label -> (X, Y,
+    X's norms, Y's norms, whether it is a diagonal block), from the
+    training rows X and test rows Xt with their squared norms: one 512-row
+    train block against all training rows (the train apply) and against
+    the test rows (the test apply), a diagonal block of the pre-pass, and
+    the ragged last one (336 rows)."""
+    n = CIFAR_BLOCK
+    Y, yn = X[2 * n:3 * n], xn[2 * n:3 * n]
+    last = (CIFAR_BLOCKS - 1) * n
+    return {
+        "train apply": (X, Y, xn, yn, False),
+        "test apply": (Xt, Y, xtn, yn, False),
+        "diagonal": (X[:n], X[:n], xn[:n], xn[:n], True),
+        "ragged diagonal": (X[last:], X[last:], xn[last:], xn[last:], True),
+    }
 
 
 def bound_ms(nbytes, flops, peak_flops):
@@ -651,6 +689,18 @@ def phase_window_kernels(cuda_ops, gen):
             f"chunks, {grid_line(grid)}")
     check("block_corr masks at most 10% of its label FMAs", r["grid"]["f32"]["masked"] <= 0.10,
           f"{r['grid']['f32']['masked']:.1%} at k = {k}")
+    r = results["block_residual_update"]
+    r["grid"] = {}
+    for label, bf16 in (("f32", False), ("bf16", True)):
+        grid = cuda_ops.block_residual_update_grid(n, k, bf16, dev)
+        r["grid"][label] = grid
+        log(f"  block_residual_update {label} F grid: {grid['ktile']}-wide label tile "
+            f"({grid['masked']:.1%} masked), {grid['row_tiles']} row tiles x "
+            f"{grid['label_tiles']} label tile, {grid_line(grid)}")
+    grid = r["grid"]["f32"]
+    check("block_residual_update stages each window tile once and masks at most 10% of its "
+          "label FMAs", grid["label_tiles"] == 1 and grid["masked"] <= 0.10,
+          f"{grid['label_tiles']} label tile, {grid['masked']:.1%} masked at k = {k}")
     del F, F16, Fw, R, dW
     torch.cuda.empty_cache()
     return results
@@ -1037,30 +1087,75 @@ def _conv_launches(fusion, n):
     return 1 + -(-(n - 1) // _conv_chunk_rows(fusion))
 
 
+def gaussian_shape(cuda_ops, label, X, Y, xn, yn, diagonal):
+    """gaussian_kernel_block at one shape of the CIFAR route: f32 and bf16
+    operands against the plain version (1e-5 absolute; on a diagonal block
+    also the clamp: max <= 1, and with f32 operands diagonal >= 1 - 1e-5),
+    its grid, and the kernel, plain version, library yardstick and bound in
+    ms."""
+    m, d = X.shape
+    n, g = Y.shape[0], CIFAR_GAMMA
+    err = {}
+    for dlabel, dtype in (("f32", torch.float32), ("bf16 operands", torch.bfloat16)):
+        got = cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g, compute_dtype=dtype)
+        want = cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        err[dlabel] = (got - want).abs().max().item()
+        ok = err[dlabel] <= 1e-5
+        detail = (f"max_abs_err {err[dlabel]:.3e} (tol 1e-5; K in [{want.min().item():.3f}, "
+                  f"{want.max().item():.3f}])")
+        if diagonal:  # bf16 operands against f32 norms leave the diagonal below 1
+            ok = ok and got.max().item() <= 1.0 and (
+                dtype == torch.bfloat16 or got.diagonal().min().item() >= 1.0 - 1e-5)
+            detail += f"; diagonal >= {got.diagonal().min().item():.7f}, max {got.max().item()}"
+        check(f"gaussian_kernel_block {label} {dlabel} X {m}x{d} @ Y {n}x{d}", ok, detail)
+        del got, want
+    xyn = xn[:, None] + yn[None, :]
+    r = dict(max_abs_err=err["f32"])
+    reps = 10 if m * n > 1e6 else 50
+    r["ms"] = time_ms(lambda: cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g), reps)
+    r["device_ms"] = device_ms(lambda: cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g), reps)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g), reps)
+    r["library_ms"] = time_ms(
+        lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_(), reps)
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * d + n * d + m + n + m * n),
+                                            2 * m * n * d + 6 * m * n, PEAK_F32_FLOPS)
+    X16, Y16 = X.to(torch.bfloat16), Y.to(torch.bfloat16)
+    r["bf16_ms"] = time_ms(lambda: cuda_ops.gaussian_kernel_block(X16, Y16, xn, yn, g), reps)
+    grid = r["grid"] = cuda_ops.gaussian_kernel_block_grid(m, n, d, False, X.device)
+    log(f"  gaussian_kernel_block {label} f32 {m}x{n}x{d}: {r['ms']:.3f} ms a call, "
+        f"{r['device_ms']:.3f} ms on the device (plain "
+        f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
+        f"{r['bound_by']}); bf16 operands: {r['bf16_ms']:.3f} ms; grid {grid['tiles']} tiles x "
+        f"{grid['splits']} feature chunks, {grid_line(grid)}")
+    return r
+
+
 def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
-    """The CIFAR slice's kernels at its shapes: the Gaussian kernel block of
-    one train block against all 50,000 standardized training rows (the
-    apply's shape; a diagonal block is timed beside it), the residual of
-    one sweep step, and the convolution of one row chunk of images."""
+    """The CIFAR slice's kernels at its shapes: the Gaussian kernel block at
+    the three shapes of the route (one train block against all 50,000
+    standardized training rows and against the 12,500 test rows, each apply;
+    a diagonal block of the pre-pass, full and ragged), the residual of one
+    sweep step, and the convolution of one row chunk of images."""
     dev = torch.device("cuda")
     m, n, d, k, g = CIFAR_N, CIFAR_BLOCK, CIFAR_D, CIFAR_K, CIFAR_GAMMA
     X = torch.randn((m, d), generator=gen, device=dev)  # standardized features
     xn = (X * X).sum(1)
     Y, yn = X[2 * n:3 * n], xn[2 * n:3 * n]
     W = torch.randn((m, k), generator=gen, device=dev) * 0.01
-    results = {}
+    Xt = torch.randn((CIFAR_TEST, d), generator=gen, device=dev)
+    xtn = (Xt * Xt).sum(1)
+    shapes = cifar_gaussian_shapes(X, xn, Xt, xtn)
+    per_shape = {label: gaussian_shape(cuda_ops, label, *args)
+                 for label, args in shapes.items()}
+    results = {"gaussian_kernel_block": dict(per_shape["train apply"], shapes=per_shape)}
+    grid = per_shape["diagonal"]["grid"]
+    check("gaussian_kernel_block's diagonal grid fills one wave of resident blocks",
+          grid["waves"] >= 0.95, f"{grid['blocks']} blocks, {grid['waves']:.3f} waves")
     for label, dtype in (("f32", torch.float32), ("bf16 operands", torch.bfloat16)):
-        got = cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g, compute_dtype=dtype)
-        want = cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g, compute_dtype=dtype)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        check(f"gaussian_kernel_block {label} X {m}x{d} @ Y {n}x{d}", err <= 1e-5,
-              f"max_abs_err {err:.3e} (tol 1e-5; K in [{want.min().item():.3f}, "
-              f"{want.max().item():.3f}])")
-        if label == "f32":
-            results["gaussian_kernel_block"] = dict(max_abs_err=err)
         # Errors relative to the scale of the sums, max over entries of
         # K^T |W|: 50,000 f32 terms summed in other orders.
+        want = cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g, compute_dtype=dtype)
         got = cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g, compute_dtype=dtype)
         again = cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g, compute_dtype=dtype)
         want_r = cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g, compute_dtype=dtype)
@@ -1075,42 +1170,20 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
             results["gaussian_resid_block"] = dict(max_abs_err=err)
         del got, again, want, want_r
     xyn = xn[:, None] + yn[None, :]
-    yardsticks = {
-        # (kernel, plain, library yardstick, bytes, flops)
-        "gaussian_kernel_block": (
-            lambda: cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g),
-            lambda: cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g),
-            lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_(),
-            4 * (m * d + n * d + m + n + m * n), 2 * m * n * d + 6 * m * n,
-        ),
-        "gaussian_resid_block": (
-            lambda: cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g),
-            lambda: cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g),
-            lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_().T @ W,
-            4 * (m * d + n * d + m + n + m * k + n * k), 2 * m * n * d + 6 * m * n + 2 * m * n * k,
-        ),
-    }
+    r = results["gaussian_resid_block"]
+    r["ms"] = time_ms(lambda: cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g), 10)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g), 10)
+    r["library_ms"] = time_ms(
+        lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_().T @ W, 10)
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        4 * (m * d + n * d + m + n + m * k + n * k), 2 * m * n * d + 6 * m * n + 2 * m * n * k,
+        PEAK_F32_FLOPS)
     X16, Y16 = X.to(torch.bfloat16), Y.to(torch.bfloat16)
-    bf16_calls = {
-        "gaussian_kernel_block": lambda: cuda_ops.gaussian_kernel_block(X16, Y16, xn, yn, g),
-        "gaussian_resid_block": lambda: cuda_ops.gaussian_resid_block(X16, Y16, xn, yn, W, g),
-    }
-    for name, (kernel, plain, library, nbytes, flops) in yardsticks.items():
-        r = results[name]
-        r["ms"] = time_ms(kernel, 10)
-        r["plain_ms"] = time_ms(plain, 10)
-        r["library_ms"] = time_ms(library, 10)
-        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
-        bf16_ms = time_ms(bf16_calls[name], 5)
-        log(f"  {name} f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
-            f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-            f"bf16 operands: {bf16_ms:.3f} ms")
-    Xb, xb = X[:n], xn[:n]
-    diag_ms = time_ms(lambda: cuda_ops.gaussian_kernel_block(Xb, Xb, xb, xb, g), 20)
-    diag_bound, _ = bound_ms(4 * (n * d + n + n * n), 2 * n * n * d, PEAK_F32_FLOPS)
-    log(f"  gaussian_kernel_block diagonal block {n}x{d}: {diag_ms:.3f} ms "
-        f"(bound {diag_bound:.3f})")
-    del X, Y, W, X16, Y16, xyn, xn, yn, Xb, xb
+    bf16_ms = time_ms(lambda: cuda_ops.gaussian_resid_block(X16, Y16, xn, yn, W, g), 5)
+    log(f"  gaussian_resid_block f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
+        f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
+        f"bf16 operands: {bf16_ms:.3f} ms")
+    del X, Y, W, X16, Y16, Xt, xtn, xyn, xn, yn, shapes
     torch.cuda.empty_cache()
 
     # conv_featurize: one row chunk of the featurization, CIFAR images

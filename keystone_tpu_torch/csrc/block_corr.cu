@@ -49,8 +49,6 @@ using namespace kt_pipe;
 constexpr int BK = 16;         // rows a stage
 constexpr int STAGES = 2;      // stages in the cp.async ring
 constexpr int MINB = 2;        // blocks an SM the registers are capped for (128 a thread)
-constexpr int KT_NARROW = 32;  // label tile for k <= 32
-constexpr int KT_WIDE = 160;   // label tile for wider k
 
 // blockIdx.x: output tile (ti, tj), ti over the window's 128-column tiles,
 // tj over R's KT-column tiles (KT = 16 * NJ); blockIdx.y: the row chunk
@@ -125,11 +123,10 @@ int launch_tile(const void* F, const float* R, float* P, float* C, int n, int co
 template <typename TF>
 int launch(const void* F, const float* R, float* P, float* C, int n, int col_start, int b,
            int k, long long ldf, long long ldr, int splits, cudaStream_t stream) {
-  return k <= KT_NARROW
-             ? launch_tile<TF, KT_NARROW / 16>(F, R, P, C, n, col_start, b, k, ldf, ldr,
-                                               splits, stream)
-             : launch_tile<TF, KT_WIDE / 16>(F, R, P, C, n, col_start, b, k, ldf, ldr,
-                                             splits, stream);
+  return with_label_tile(k, [&](auto nj) {
+    return launch_tile<TF, decltype(nj)::value>(F, R, P, C, n, col_start, b, k, ldf, ldr,
+                                                splits, stream);
+  });
 }
 
 // The aligned instance's resident blocks an SM, registers and local
@@ -152,9 +149,10 @@ cudaError_t occupancy(int* out) {
 
 template <typename TF>
 int config(int k, int* out) {
-  out[0] = k <= KT_NARROW ? KT_NARROW : KT_WIDE;
-  return static_cast<int>(k <= KT_NARROW ? occupancy<TF, KT_NARROW / 16>(out + 1)
-                                         : occupancy<TF, KT_WIDE / 16>(out + 1));
+  return with_label_tile(k, [&](auto nj) {
+    out[0] = 16 * decltype(nj)::value;
+    return static_cast<int>(occupancy<TF, decltype(nj)::value>(out + 1));
+  });
 }
 
 }  // namespace

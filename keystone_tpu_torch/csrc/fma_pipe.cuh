@@ -1,29 +1,48 @@
-// The pipelined FP32-FMA tile of block_corr.cu and gram_corr.cu.
+// The pipelined FP32-FMA tile of block_corr.cu, gram_corr.cu,
+// block_residual_update.cu and gaussian_kernel_block.cu.
 //
 // One block of 256 threads (16 x 16) owns an output tile of 16 MI rows x
-// 16 NJ columns: out[i][j] = sum over rows r of P[r][i0 + i] * Q[r][j0 + j],
-// P and Q row-major. Each thread keeps MI x NJ outputs in registers (8 x 8
-// for a 128 x 128 Gramian tile, 8 x 10 for 128 window columns x 160 label
-// columns). Rows go through shared memory BK at a time, in a ring of
-// STAGES stages filled with cp.async: while the block multiplies stage s,
-// the copies of stages s + 1 ... s + STAGES - 1 are in flight, and one
-// __syncthreads a stage both publishes stage s and frees the slot that the
-// next copy refills.
+// 16 NJ columns: out[i][j] = sum over the reduction index r of
+// P[i0 + i, r] * Q[j0 + j, r]. Each thread keeps MI x NJ outputs in
+// registers (8 x 8 for a 128 x 128 tile, 8 x 10 for 128 rows x 160 label
+// columns). Each operand is one of two kinds:
+//   - row-major (the reduction runs along its rows): P[i, r] is M[r][i],
+//     as the window in F_w^T R and A in A^T A;
+//   - K-major (the reduction runs along its contiguous columns): P[i, r]
+//     is M[i][r], as the window in F_w dW and both X and Y in X Y^T.
+// The reduction goes through shared memory BK at a time, in a ring of
+// STAGES stages filled with cp.async (or register stores, below): while
+// the block multiplies stage s, the copies of stages s + 1 ... s + STAGES
+// - 1 are in flight, and one __syncthreads a stage both publishes stage s
+// and frees the slot that the next copy refills.
 //
 // Operands are copied as they are stored: bf16 stays bf16 in shared memory
 // and is widened to float when a thread reads it (a shift), so products and
-// sums stay float32 ("f32 means f32": no TF32, no tensor cores). A tile
-// whose rows and columns are 16-byte aligned (the base pointer, the row
-// stride and the column count in whole 16-byte chunks) is copied in
-// 16-byte cp.async.cg chunks (VEC); otherwise element by element: float32
-// through 4-byte cp.async.ca, bfloat16 (2-byte aligned only) through
-// registers. Copies past the last row or column zero-fill, so ragged edges
-// add nothing.
+// sums stay float32 ("f32 means f32": no TF32, no tensor cores). An operand
+// whose base pointer, row stride and extent along its contiguous axis are
+// whole 16-byte chunks is copied in 16-byte cp.async.cg chunks (VEC);
+// otherwise element by element: float32 through 4-byte cp.async.ca,
+// bfloat16 (2-byte aligned only) through registers. Copies past the last
+// row or column zero-fill, so ragged edges add nothing.
 //
-// Every output is one fmaf chain over its rows in order, whatever BK,
-// STAGES or the thread map: acc = fmaf(p, q, acc) for r = rbeg, rbeg + 1,
-// ... (the zero rows past rend leave it as it is). So a Gramian computed
-// here has the bits of one computed on fma_tile.cuh.
+// A K-major operand goes through registers (KStager): each thread loads
+// its 16-byte chunks (or elements) of a stage along k one stage ahead and,
+// once the stage's slot is free, stores them transposed into a row-major
+// stage, so the FMA loop reads both kinds the same way. cp.async cannot
+// transpose; a stage copied as stored (rows of BK contiguous elements)
+// would have the FMA loop read along k, where a warp's 16 tx threads read
+// rows 4 apart and, with BK = 16 floats a row, hit one bank group unless
+// every 4 rows carry a 16-byte pad. That form was built and measured slower
+// than this one for both kernels that take a K-major operand, and spilled
+// (PERF.md, PR 9). Here a warp loads one chunk column of 32 consecutive
+// rows and stores each of its values to 32 consecutive words of one stage
+// row: no bank conflicts, and the reads are those of a row-major stage.
+//
+// Every output is one fmaf chain over the reduction index in increasing
+// order, whatever BK, STAGES, the operand kinds or the thread map:
+// acc = fmaf(p, q, acc) for r = rbeg, rbeg + 1, ... (the zero entries past
+// rend leave it as it is). So a Gramian computed here has the bits of one
+// computed on fma_tile.cuh.
 
 #pragma once
 
@@ -31,11 +50,27 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace kt_pipe {
 
 constexpr int THREADS = 256;  // 16 x 16 threads
 constexpr int TM = 128;       // output tile rows at 8 a thread (16 threads x 8)
+
+// Label tiles, for a Q that is R or dW (k label columns): one tile holds
+// all of them up to KT_WIDE (10 a thread), so k = 147 masks 8% of its
+// FMAs; k <= KT_NARROW takes a 32-wide tile (2 a thread), and k > 160
+// further 160-wide tiles.
+constexpr int KT_NARROW = 32;
+constexpr int KT_WIDE = 160;
+
+// fn(std::integral_constant<int, NJ>) for the label tile of k columns,
+// 16 * NJ wide.
+template <typename Fn>
+inline auto with_label_tile(int k, Fn&& fn) {
+  return k <= KT_NARROW ? fn(std::integral_constant<int, KT_NARROW / 16>{})
+                        : fn(std::integral_constant<int, KT_WIDE / 16>{});
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -77,6 +112,14 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   const unsigned u = *reinterpret_cast<const unsigned*>(p);
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+template <typename TE>
+__device__ __forceinline__ TE zero() {
+  if constexpr (sizeof(TE) == 4)
+    return 0.f;
+  else
+    return __ushort_as_bfloat16(0);
 }
 
 template <typename TE>
@@ -187,6 +230,85 @@ struct Stager<TE, BK, W, false> {
   }
 };
 
+// The loads and stores one thread makes of a K-major operand M (row-major,
+// row stride ld) through registers: rows [r0, r0 + W) of its reduction
+// columns [kbeg, kend), each BK-column stage stored transposed into a
+// row-major BK x W stage (element (k, row) at k * W + row, Stager's
+// layout), so the FMA loop reads it as a row-major operand; zero at rows
+// >= rows and columns >= kend. A thread keeps one row: load (16-byte chunk,
+// or element) e = t + q THREADS of a stage is row e % W, column e / W, so
+// a warp loads one column of 32 consecutive rows and stores each value to
+// 32 consecutive words of one stage row, free of bank conflicts.
+// VEC, 16-byte chunks: each stage is loaded one copy ahead: copy(S) stores
+// the stage loaded before (by the constructor or the previous copy) into
+// S, then loads the next, whose loads are in flight while the block
+// multiplies. Element-wise (a ragged or unaligned operand): copy(S) loads
+// its stage and stores it at once, holding no registers across the FMA
+// loop (a stage held would be 8 loads a thread at BK = 16, and spilled).
+template <typename TE, int BK, int W, bool VEC>
+struct KStager {
+  static constexpr int EPL = VEC ? vec_elems<TE>() : 1;   // elements a load
+  static constexpr int LPR = BK / EPL;                     // loads a stage row
+  static constexpr int SPAN = THREADS / W;                 // a thread's load columns apart
+  static constexpr int N = (W * LPR + THREADS - 1) / THREADS;  // loads a thread
+  static_assert(THREADS % W == 0 && BK % EPL == 0, "a stage must be whole loads of whole rows");
+  using Load = std::conditional_t<VEC, uint4, TE>;
+  const TE* p;     // this thread's first load in its row, next stage
+  int row;         // its row in the tile
+  int c0;          // its first load column
+  int kleft;       // reduction columns left from that load on; < 0 past its row
+  Load v[VEC ? N : 1];  // (VEC) the stage loaded and not yet stored
+
+  __device__ __forceinline__ KStager(const TE* M, long long ld, long long kbeg, long long kend,
+                                     long long r0, long long rows) {
+    row = threadIdx.x % W;
+    c0 = threadIdx.x / W;
+    p = M + (r0 + row) * ld + kbeg + c0 * EPL;
+    kleft = r0 + row < rows ? static_cast<int>(kend - kbeg) - c0 * EPL : -(1 << 30);
+    if constexpr (VEC) load();
+  }
+  __device__ __forceinline__ bool valid(int q) const {
+    return c0 + q * SPAN < LPR && q * SPAN * EPL < kleft;
+  }
+  __device__ __forceinline__ void load() {
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      v[q] = valid(q) ? __ldg(reinterpret_cast<const uint4*>(p + q * SPAN * EPL))
+                      : make_uint4(0, 0, 0, 0);
+    p += BK;
+    kleft -= BK;
+  }
+  __device__ __forceinline__ void copy(TE* S) {
+    if constexpr (!VEC) {
+#pragma unroll
+      for (int q = 0; q < N; ++q)
+        if (c0 + q * SPAN < LPR) S[(c0 + q * SPAN) * W + row] = valid(q) ? p[q * SPAN] : zero<TE>();
+      p += BK;
+      kleft -= BK;
+    } else {
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        if (c0 + q * SPAN >= LPR) break;
+        TE* dst = S + (c0 + q * SPAN) * EPL * W + row;
+        const unsigned u[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          if constexpr (sizeof(TE) == 4)
+            dst[e * W] = __uint_as_float(u[e]);
+          else
+            dst[e * W] = __ushort_as_bfloat16(
+                static_cast<unsigned short>(u[e / 2] >> (16 * (e % 2))));
+        }
+      }
+      load();
+    }
+  }
+};
+
+// An operand's copies: K-major (K) or row-major.
+template <typename TE, int BK, int W, bool VEC, bool K>
+using Operand = std::conditional_t<K, KStager<TE, BK, W, VEC>, Stager<TE, BK, W, VEC>>;
+
 // Tile-local row of a thread's i-th output row (MI a thread: 2 neighbours,
 // or groups of four, 64 apart) and column of its j-th output column (NJ a
 // thread: groups of four, 64 apart, then NJ % 4 = 2 more past the last
@@ -260,11 +382,13 @@ __host__ __device__ constexpr int smem_bytes() {
          (MI * static_cast<int>(sizeof(TP)) + NJ * static_cast<int>(sizeof(TQ)));
 }
 
-// acc[i][j] = sum over rows r in [rbeg, rend) of P[r][i0 + out_row<MI>(i)] *
-// Q[r][j0 + out_col(j)], columns past pcols / qcols reading as zero.
-// round_q rounds Q's values to bf16 as they arrive (float32 Q staged
-// element-wise only).
-template <int BK, int STAGES, int MI, int NJ, bool VP, bool VQ, typename TP, typename TQ>
+// acc[i][j] = sum over r in [rbeg, rend) of P(i0 + out_row<MI>(i), r) *
+// Q(j0 + out_col<NJ>(j), r): for a row-major operand M(i, r) = M[r][i],
+// for a K-major one (KP, KQ) M[i][r]; indices i past pcols (j past qcols)
+// read as zero. round_q rounds Q's values to bf16 as they arrive (float32
+// row-major Q staged element-wise only).
+template <int BK, int STAGES, int MI, int NJ, bool VP, bool VQ, bool KP = false,
+          bool KQ = false, typename TP, typename TQ>
 __device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restrict__ P,
                                          long long ldp, long long i0, long long pcols,
                                          const TQ* __restrict__ Q, long long ldq,
@@ -277,8 +401,8 @@ __device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restri
   TP* Xs = reinterpret_cast<TP*>(smem);
   TQ* Ys = reinterpret_cast<TQ*>(smem + STAGES * BK * XT * sizeof(TP));
   const int nst = rend > rbeg ? static_cast<int>((rend - rbeg + BK - 1) / BK) : 0;
-  Stager<TP, BK, XT, VP> xs(P, ldp, rbeg, rend, i0, pcols);
-  Stager<TQ, BK, KT, VQ> ys(Q, ldq, rbeg, rend, j0, qcols);
+  Operand<TP, BK, XT, VP, KP> xs(P, ldp, rbeg, rend, i0, pcols);
+  Operand<TQ, BK, KT, VQ, KQ> ys(Q, ldq, rbeg, rend, j0, qcols);
 
 #pragma unroll
   for (int i = 0; i < MI; ++i)
@@ -297,7 +421,7 @@ __device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restri
   int fill = STAGES - 1;  // the slot of stage s + STAGES - 1
   for (int s = 0; s < nst; ++s) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of stage s landed
-    if constexpr (!VQ && sizeof(TQ) == 4) {
+    if constexpr (!VQ && !KQ && sizeof(TQ) == 4) {
       if (round_q) ys.round_own(reinterpret_cast<float*>(Ys + slot * BK * KT));
     }
     // Stage s is complete for every thread, and every thread is done with

@@ -62,8 +62,6 @@ constexpr int STAGES = 3;      // stages in the cp.async ring
 constexpr int MINB = 2;        // blocks an SM the registers are capped for (128 a thread)
 constexpr int CORR_BK = 16;    // rows a stage of the correlation (block_corr.cu's)
 constexpr int CORR_MI = 4;     // columns of A a thread of a correlation block (x 16 a block)
-constexpr int KT_NARROW = 32;  // correlation label tile for k <= 32
-constexpr int KT_WIDE = 160;   // correlation label tile for wider k
 
 template <typename TA, int NJ>
 constexpr int smem_of() {
@@ -133,8 +131,7 @@ Instance<TA> instance_nj(bool vec) {
 template <typename TA>
 cudaError_t instance(const TA* A, int d, int k, long long lda, Instance<TA>* out) {
   const bool vec = vec_ok(A, lda, d);
-  *out = k <= KT_NARROW ? instance_nj<TA, KT_NARROW / 16>(vec)
-                        : instance_nj<TA, KT_WIDE / 16>(vec);
+  *out = with_label_tile(k, [&](auto nj) { return instance_nj<TA, decltype(nj)::value>(vec); });
   return cudaFuncSetAttribute(out->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               out->smem);
 }

@@ -45,13 +45,15 @@ run:
 
 All but the cosine and CountSketch kernels, and ``gram_corr_sym_acc`` with
 bf16 F (TMA loads into ``wgmma`` on the tensor cores), are FP32-FMA
-register tiles: ``block_corr`` and ``gram_corr`` on the pipelined one of
-``csrc/fma_pipe.cuh`` (a cp.async ring, label tiles sized to k; row
-chunks that fill whole waves for ``block_corr``: :func:`corr_splits`), the
-others on
-``csrc/fma_tile.cuh``. The image featurizer's kernel
-(``csrc/conv_featurize.cu``) has its wrapper in ``ops/cuda_images.py``; it
-is built, loaded and counted here with the others.
+register tiles: ``block_corr``, ``gram_corr``, ``block_residual_update``
+and ``gaussian_kernel_block`` on the pipelined one of
+``csrc/fma_pipe.cuh`` (a ring of stages, operands row-major or K-major,
+label tiles sized to k; chunks of the reduction that fill whole waves for
+``block_corr``, :func:`corr_splits`, and ``gaussian_kernel_block``,
+:func:`gaussian_splits`), the others on ``csrc/fma_tile.cuh``. The image
+featurizer's kernel (``csrc/conv_featurize.cu``) has its wrapper in
+``ops/cuda_images.py``; it is built, loaded and counted here with the
+others.
 
 Each wrapper keeps its Pallas twin's name and operand contract. For a
 tensor on the CPU it computes the plain PyTorch version (``*_ref``); for a
@@ -123,7 +125,7 @@ _ENTRY_POINTS = {
     ),
     "gaussian_kernel_block": (
         "kt_gaussian_kernel_block",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _I, _I, _P],
     ),
     "gaussian_resid_block": (
         "kt_gaussian_resid_block",
@@ -146,6 +148,8 @@ _ENTRY_POINTS = {
 _EXTRA_SYMBOLS = {
     "countsketch_scatter": [("kt_countsketch_prepare", [_P, _I, _I, _I, _P, _P, _P, _P])],
     "block_corr": [("kt_block_corr_config", [_I, _I, _P])],
+    "block_residual_update": [("kt_block_residual_update_config", [_I, _I, _P])],
+    "gaussian_kernel_block": [("kt_gaussian_kernel_block_config", [_I, _P])],
     "gram_corr": [("kt_gram_corr_config", [_P, _I, _I, _L, _I, _P])],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -527,18 +531,16 @@ def block_corr_ref(F, col_start: int, block: int, R):
 _MIN_SPLIT_ROWS = 1024
 
 
-def corr_splits(n: int, tiles: int, sms: int, blocks_per_sm: int) -> int:
-    """Row chunks of a :func:`block_corr` launch: the fewest that bring the
+def _wave_splits(length: int, minimum: int, tiles: int, sms: int, blocks_per_sm: int) -> int:
+    """Chunks of a reduction of ``length`` steps: the fewest that bring the
     (tile, chunk) grid within 5% of a whole number of waves of the card's
     resident blocks (``sms * blocks_per_sm``), each chunk at least
-    ``_MIN_SPLIT_ROWS`` rows; where none does, the count that fills most. A
-    function of the shapes and the card alone, so the chunks' partial sums
-    add in the same order every run."""
+    ``minimum`` steps; where none does, the count that fills most."""
     if tiles <= 0:
         return 1
     resident = sms * max(blocks_per_sm, 1)
     best, best_fill = 1, 0.0
-    for s in range(1, max(n // _MIN_SPLIT_ROWS, 1) + 1):
+    for s in range(1, max(length // minimum, 1) + 1):
         blocks = tiles * s
         fill = blocks / (-(-blocks // resident) * resident)
         if fill >= 0.95:
@@ -546,6 +548,16 @@ def corr_splits(n: int, tiles: int, sms: int, blocks_per_sm: int) -> int:
         if fill > best_fill:
             best, best_fill = s, fill
     return best
+
+
+def corr_splits(n: int, tiles: int, sms: int, blocks_per_sm: int) -> int:
+    """Row chunks of a :func:`block_corr` launch: the fewest that bring the
+    (tile, chunk) grid within 5% of a whole number of waves of the card's
+    resident blocks (``sms * blocks_per_sm``), each chunk at least
+    ``_MIN_SPLIT_ROWS`` rows; where none does, the count that fills most. A
+    function of the shapes and the card alone, so the chunks' partial sums
+    add in the same order every run."""
+    return _wave_splits(n, _MIN_SPLIT_ROWS, tiles, sms, blocks_per_sm)
 
 
 def _grid(config, sms: int) -> Dict[str, float]:
@@ -632,6 +644,36 @@ def block_residual_update_ref(F, col_start: int, block: int, dW, R):
     ``R - Fw @ dW`` in float32, dW rounded to F's dtype first."""
     dWf = dW.to(F.dtype).to(torch.float32)
     return R.to(torch.float32) - _window(F, col_start, block) @ dWf
+
+
+# block_residual_update_grid's answers by (device index, k, bf16 F): fixed
+# for a card and a build, so worked out once.
+_RESID_CONFIGS: Dict[tuple, Tuple[int, int, int, int]] = {}
+
+
+def block_residual_update_grid(n: int, k: int, bf16: bool, device) -> Dict[str, float]:
+    """The grid :func:`block_residual_update` launches for n rows and k label
+    columns on ``device`` (a card): its label-tile width, row tiles, label
+    tiles, blocks (one a row tile and label tile: the window's columns are
+    not split), the kernel's resident blocks an SM, registers and local
+    (spilled) bytes a thread, the waves and the share of masked label
+    FMAs."""
+    device = torch.device(device)
+    key = (device.index, k, bool(bf16))
+    if key not in _RESID_CONFIGS:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(device):
+            err = _lib("block_residual_update").kt_block_residual_update_config(
+                k, int(bf16), out)
+        _check_launch("block_residual_update", err)
+        _RESID_CONFIGS[key] = tuple(out)
+    ktile, bps, regs, local = _RESID_CONFIGS[key]
+    label_tiles = -(-k // ktile)
+    row_tiles = -(-n // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _grid(dict(ktile=ktile, row_tiles=row_tiles, label_tiles=label_tiles,
+                      blocks=row_tiles * label_tiles, blocks_per_sm=bps, registers=regs,
+                      local_bytes=local, masked=1 - k / (label_tiles * ktile)), sms)
 
 
 def block_residual_update(F, col_start: int, block: int, dW, R):
@@ -907,6 +949,59 @@ def _check_gaussian(name, X, Y, x_norms, y_norms):
                         f"{X.dtype}, {Y.dtype}")
 
 
+# Fewest features a gaussian_kernel_block feature chunk sums: 8 of its
+# 8-feature stages.
+_MIN_SPLIT_FEATURES = 64
+
+
+def gaussian_splits(m: int, n: int, d: int, sms: int, blocks_per_sm: int) -> int:
+    """Feature chunks of a :func:`gaussian_kernel_block` launch. One where
+    the (m, n) output's 128 x 128 tiles alone make a wave of the card's
+    resident blocks (``sms * blocks_per_sm``): there chunks would only add
+    the partial sums' traffic (at the CIFAR test apply, 392 tiles, 2 chunks
+    measured 4% slower than 1). Otherwise :func:`corr_splits`' rule along
+    the feature axis: the fewest chunks that bring the (tile, chunk) grid
+    within 5% of a whole number of waves, each at least
+    ``_MIN_SPLIT_FEATURES`` features; where none does, the count that
+    fills most. A function of the shapes and the card alone, so the chunks'
+    partial sums add in the same order every run. At the CIFAR shapes (d =
+    1,800, 132 SMs, 2 blocks an SM): 1 for the train and test applies
+    (50,000 and 12,500 x 512), 16 for a 512-row diagonal block and 28 for
+    the ragged 336-row one."""
+    tiles = -(-m // 128) * -(-n // 128)
+    if tiles >= sms * max(blocks_per_sm, 1):
+        return 1
+    return _wave_splits(d, _MIN_SPLIT_FEATURES, tiles, sms, blocks_per_sm)
+
+
+# gaussian_kernel_block_grid's answers by (device index, m, n, d, bf16):
+# fixed for a card and a build, so worked out once.
+_GAUSS_GRIDS: Dict[tuple, Dict[str, float]] = {}
+
+
+def gaussian_kernel_block_grid(m: int, n: int, d: int, bf16: bool, device) -> Dict[str, float]:
+    """The grid :func:`gaussian_kernel_block` launches for X (m, d) and Y
+    (n, d) on ``device`` (a card): its 128 x 128 tiles, feature chunks
+    (:func:`gaussian_splits`), blocks, the kernel's resident blocks an SM,
+    registers and local (spilled) bytes a thread, and the waves."""
+    device = torch.device(device)
+    key = (device.index, m, n, d, bool(bf16))
+    grid = _GAUSS_GRIDS.get(key)
+    if grid is None:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            err = _lib("gaussian_kernel_block").kt_gaussian_kernel_block_config(int(bf16), out)
+        _check_launch("gaussian_kernel_block", err)
+        bps, regs, local = out
+        tiles = -(-m // 128) * -(-n // 128)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        splits = gaussian_splits(m, n, d, sms, bps)
+        grid = _grid(dict(tiles=tiles, splits=splits, blocks=tiles * splits, blocks_per_sm=bps,
+                          registers=regs, local_bytes=local), sms)
+        _GAUSS_GRIDS[key] = grid
+    return grid
+
+
 def gaussian_kernel_block(X, Y, x_norms, y_norms, gamma: float,
                           compute_dtype=torch.float32):
     """K[i, j] = exp(−γ‖X_i − Y_j‖²) as one fused kernel, the squared
@@ -917,6 +1012,9 @@ def gaussian_kernel_block(X, Y, x_norms, y_norms, gamma: float,
     norms. ``compute_dtype=torch.bfloat16`` rounds X and Y to bf16 (the
     products still accumulate in f32; bf16 operands are used as they are).
     Returns (m, n) float32. Ragged m, n and d are masked in the kernel.
+    Where the output has too few tiles to fill the card (a diagonal block),
+    the feature sum is split into chunks (:func:`gaussian_splits`) whose
+    partial sums add in a fixed order: no atomics, the same bits every run.
     """
     if all(t.device.type == "cpu" for t in (X, Y, x_norms, y_norms)):
         return gaussian_kernel_block_ref(X, Y, x_norms, y_norms, gamma, compute_dtype)
@@ -931,14 +1029,19 @@ def gaussian_kernel_block(X, Y, x_norms, y_norms, gamma: float,
     out = torch.empty((m, n), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
+    bf16 = Xk.dtype == torch.bfloat16
+    splits = gaussian_kernel_block_grid(m, n, d, bf16, device)["splits"]
+    partials = None
+    if splits > 1:
+        partials = torch.empty((splits, m, n), dtype=torch.float32, device=device)
     fn = _lib(name).kt_gaussian_kernel_block
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         launches[name] += 1
         err = fn(
             Xk.data_ptr(), Yk.data_ptr(), xn.data_ptr(), yn.data_ptr(), out.data_ptr(),
-            m, n, d, Xk.stride(0), Yk.stride(0), out.stride(0), float(gamma),
-            int(Xk.dtype == torch.bfloat16), stream,
+            None if partials is None else partials.data_ptr(), m, n, d, Xk.stride(0),
+            Yk.stride(0), out.stride(0), float(gamma), splits, int(bf16), stream,
         )
     _check_launch(name, err)
     return out

@@ -1,94 +1,155 @@
 """The pipelined FP32-FMA kernels' tuning constants, measured on one GPU.
 
     python3 scripts/torch_fma_variants.py [--out build/torch_fma_variants.json]
+                                          [--kernels NAME ...]
+    python3 scripts/torch_fma_variants.py --root DIR [--out FILE]
 
-Builds variants of ``keystone_tpu_torch/csrc/block_corr.cu`` and
-``keystone_tpu_torch/csrc/gram_corr.cu`` that differ from them in one
-constant each (``STAGES``, the cp.async ring's depth; ``BK``, the rows a
-stage, of the Gramian in ``gram_corr``; ``KT_WIDE``, the label tile of
-k > 32: 128 takes k = 147 in two tiles, the second masked past column 19;
-``MINB``, the blocks an SM the registers are capped for; ``CORR_MI``, the
-columns of A a thread of a ``gram_corr`` correlation block, x 16 a block) into
-``build/keystone_tpu_torch/variants/``, one
-``nvcc`` each, all started together. Then, at the TIMIT slice's shapes
-(``block_corr``: F 65,536 x 16,384 float32, the window [8192, 12288), R
-65,536 x 147; ``gram_corr``: A 65,536 x 4,096, R 65,536 x 147), it holds each
+Builds variants of the four kernels on ``keystone_tpu_torch/csrc/fma_pipe.cuh``
+(``block_corr.cu``, ``gram_corr.cu``, ``block_residual_update.cu``,
+``gaussian_kernel_block.cu``) that differ from them in one constant (or
+two) each, of the kernel's source or of the header: ``STAGES``, the ring's
+depth; ``BK``, the reduction steps a stage (of the Gramian in
+``gram_corr``); ``KT_WIDE``, the label tile of k > 32 (128 takes k = 147 in
+two tiles, the second masked past column 19); ``MINB``, the blocks an SM
+the registers are capped for; ``CORR_MI``, the columns of A a thread of a
+``gram_corr`` correlation block, x 16 a block; ``NJ``, the output columns a
+thread of ``gaussian_kernel_block`` (16: 128 x 256 tiles, at one block an
+SM; the wider tile's block counts are printed as if it were 128 wide); and
+the order of ``gaussian_kernel_block``'s grid (column tiles first). Each
+variant is built in a directory of its own under
+``build/keystone_tpu_torch/variants/`` (beside a copy of the header where the
+variant edits it), one ``nvcc`` each, all started together. Then, at the
+main path's shapes (``chip_smoke.py``'s: ``block_corr`` and
+``block_residual_update`` at the TIMIT window, F 65,536 x 16,384 float32,
+columns [8192, 12288), R 65,536 x 147, dW 4,096 x 147; ``gram_corr``: A
+65,536 x 4,096, R 65,536 x 147; ``gaussian_kernel_block`` at the CIFAR
+route's four shapes, ``chip_smoke.cifar_gaussian_shapes``), it holds each
 variant against the plain version (the error relative to the sums' scale,
-as ``chip_smoke.py`` does; a ``gram_corr`` variant's outputs also against
-``gram_corr_sym``'s bits) and times it with CUDA events, beside the library
-yardstick (``Fw.T @ R``; ``A.T @ A`` and ``A.T @ R``). ``block_corr`` is
-also timed as built at other row-chunk counts than the one
-``cuda_ops.corr_splits`` picks. Prints one line a variant and writes the
-numbers, with the card's name and power limit, as JSON to ``--out``. Needs
-a CUDA device; exits non-zero without one.
+as ``chip_smoke.py`` does; absolute for the Gaussian kernel, whose entries
+lie in [0, 1]; a ``gram_corr`` variant's outputs also against
+``gram_corr_sym``'s bits) and times it with CUDA events, beside the
+library yardstick (``Fw.T @ R``; ``A.T @ A`` and ``A.T @ R``; ``addmm(R,
+Fw, dW, alpha=-1)``; ``exp(addmm(...))``). ``block_corr`` is also timed as
+built at other row-chunk counts than the one ``cuda_ops.corr_splits``
+picks, and ``gaussian_kernel_block`` at other feature-chunk counts than
+``cuda_ops.gaussian_splits`` picks.
+
+With ``--root DIR`` it builds no variants: it imports ``keystone_tpu_torch``
+from the checkout at DIR and times that checkout's ``block_residual_update``
+(f32 and bf16 F) and ``gaussian_kernel_block`` (each CIFAR shape) through
+their wrappers, a call with CUDA events (``ms``: the host's time to launch
+included, which decides a short call) and the kernels it launches with
+``torch.profiler`` (``device_ms``), each held against its plain version and
+beside its library yardstick. So two checkouts, say a parent commit
+unpacked under ``build/`` and this one, are compared in turns in one call
+on one card (parent, change, change, parent); each builds its kernels into
+its own ``build/`` directory.
+
+Prints one line a variant (or shape) and writes the numbers, with the
+card's name and power limit, as JSON to ``--out``. Needs a CUDA device;
+exits non-zero without one.
 """
 
 import argparse
 import ctypes
 import json
 import os
-import statistics
 import subprocess
 import sys
 
 import torch
 
-# (kernel, name, the source's line, its replacement); "as built" is the source.
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+from chip_smoke import (  # noqa: E402  (the shapes and timers chip_smoke.py uses)
+    BLOCK, CIFAR_D, CIFAR_GAMMA, CIFAR_N, CIFAR_TEST, COL_START, D_FEAT, K,
+    N_TRAIN as N, cifar_gaussian_shapes, device_ms, time_ms)
+
+HEADER = "fma_pipe.cuh"
+# (kernel, name, edits): each edit (file, the line, its replacement), the
+# file "" for the kernel's own source; "as built" has none.
 VARIANTS = [
-    ("block_corr", "as built", None, None),
-    ("block_corr", "STAGES 3", "constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),
-    ("block_corr", "STAGES 4", "constexpr int STAGES = 2;", "constexpr int STAGES = 4;"),
-    ("block_corr", "BK 8", "constexpr int BK = 16;", "constexpr int BK = 8;"),
-    ("block_corr", "BK 32", "constexpr int BK = 16;", "constexpr int BK = 32;"),
-    ("block_corr", "KT_WIDE 128", "constexpr int KT_WIDE = 160;", "constexpr int KT_WIDE = 128;"),
-    ("block_corr", "MINB 1", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),
-    ("gram_corr", "as built", None, None),
-    ("gram_corr", "STAGES 2", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),
-    ("gram_corr", "STAGES 4", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),
-    ("gram_corr", "BK 8", "constexpr int BK = 32;", "constexpr int BK = 8;"),
-    ("gram_corr", "BK 16", "constexpr int BK = 32;", "constexpr int BK = 16;"),
-    ("gram_corr", "CORR_MI 2", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 2;"),
-    ("gram_corr", "CORR_MI 8", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 8;"),
+    ("block_corr", "as built", ()),
+    ("block_corr", "STAGES 3", (("", "constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),)),
+    ("block_corr", "STAGES 4", (("", "constexpr int STAGES = 2;", "constexpr int STAGES = 4;"),)),
+    ("block_corr", "BK 8", (("", "constexpr int BK = 16;", "constexpr int BK = 8;"),)),
+    ("block_corr", "BK 32", (("", "constexpr int BK = 16;", "constexpr int BK = 32;"),)),
+    ("block_corr", "KT_WIDE 128",
+     ((HEADER, "constexpr int KT_WIDE = 160;", "constexpr int KT_WIDE = 128;"),)),
+    ("block_corr", "MINB 1", (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
+    ("gram_corr", "as built", ()),
+    ("gram_corr", "STAGES 2", (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+    ("gram_corr", "STAGES 4", (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("gram_corr", "BK 8", (("", "constexpr int BK = 32;", "constexpr int BK = 8;"),)),
+    ("gram_corr", "BK 16", (("", "constexpr int BK = 32;", "constexpr int BK = 16;"),)),
+    ("gram_corr", "CORR_MI 2",
+     (("", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 2;"),)),
+    ("gram_corr", "CORR_MI 8",
+     (("", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 8;"),)),
+    ("block_residual_update", "as built", ()),
+    ("block_residual_update", "STAGES 3",
+     (("", "constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),)),
+    ("block_residual_update", "STAGES 4",
+     (("", "constexpr int STAGES = 2;", "constexpr int STAGES = 4;"),)),
+    ("block_residual_update", "BK 8", (("", "constexpr int BK = 16;", "constexpr int BK = 8;"),)),
+    ("block_residual_update", "BK 32",
+     (("", "constexpr int BK = 16;", "constexpr int BK = 32;"),)),
+    ("block_residual_update", "KT_WIDE 128",
+     ((HEADER, "constexpr int KT_WIDE = 160;", "constexpr int KT_WIDE = 128;"),)),
+    ("block_residual_update", "MINB 1",
+     (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
+    ("gaussian_kernel_block", "as built", ()),
+    ("gaussian_kernel_block", "STAGES 2",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+    ("gaussian_kernel_block", "STAGES 4",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("gaussian_kernel_block", "BK 16", (("", "constexpr int BK = 8;", "constexpr int BK = 16;"),)),
+    ("gaussian_kernel_block", "BK 32", (("", "constexpr int BK = 8;", "constexpr int BK = 32;"),)),
+    ("gaussian_kernel_block", "MINB 1",
+     (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
+    ("gaussian_kernel_block", "NJ 16 (128 x 256 tiles), MINB 1, BK 16",
+     (("", "constexpr int NJ = 8; ", "constexpr int NJ = 16;"),
+      ("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),
+      ("", "constexpr int BK = 8;", "constexpr int BK = 16;"))),
+    ("gaussian_kernel_block", "column tiles first",
+     (("", "const long long i0 = (long long)blockIdx.x * TM;",
+       "const long long i0 = (long long)blockIdx.y * TM;"),
+      ("", "const long long j0 = (long long)blockIdx.y * TN;",
+       "const long long j0 = (long long)blockIdx.x * TN;"),
+      ("", "const dim3 grid((m + TM - 1) / TM, (n + TN - 1) / TN, splits);",
+       "const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM, splits);"))),
 ]
-N, D_FEAT, COL_START, BLOCK, K = 65536, 16384, 8192, 4096, 147
-
-
-def time_ms(fn, reps):
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def build(cuda_ops):
-    """Compile every variant; returns (kernel, name) -> the loaded library."""
+def build(cuda_ops, kernels):
+    """Compile every variant of ``kernels``; returns (kernel, name) -> the
+    loaded library."""
     out_dir = cuda_ops._BUILD / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (kernel, name, old, new) in enumerate(VARIANTS):
-        src = (cuda_ops._CSRC / f"{kernel}.cu").read_text()
-        if old is not None:
-            if old not in src:
-                raise RuntimeError(f"{kernel} {name}: {old!r} is not in the kernel source")
-            src = src.replace(old, new)
-        path = out_dir / f"fma_variant{i}.cu"
-        path.write_text(src)
+    for i, (kernel, name, edits) in enumerate(VARIANTS):
+        if kernel not in kernels:
+            continue
+        vdir = out_dir / f"v{i}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        texts = {"": (cuda_ops._CSRC / f"{kernel}.cu").read_text()}
+        for file, old, new in edits:
+            if file not in texts:
+                texts[file] = (cuda_ops._CSRC / file).read_text()
+            if old not in texts[file]:
+                raise RuntimeError(f"{kernel} {name}: {old!r} is not in {file or kernel}")
+            texts[file] = texts[file].replace(old, new)
+        # A quoted #include looks in the source's own directory first, so an
+        # edited header there takes the place of csrc's.
+        for file, text in texts.items():
+            (vdir / (file or f"{kernel}.cu")).write_text(text)
         cmd = [cuda_ops._nvcc(), *cuda_ops._NVCC_FLAGS, "-I", str(cuda_ops._CSRC), "-o",
-               str(out_dir / f"libfma_variant{i}.so"), str(path)]
-        procs[kernel, name] = (i, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                   stderr=subprocess.STDOUT, text=True))
+               str(vdir / f"lib{kernel}.so"), str(vdir / f"{kernel}.cu")]
+        procs[kernel, name] = (vdir, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for (kernel, name), (i, proc) in procs.items():
+    for (kernel, name), (vdir, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {kernel} {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"libfma_variant{i}.so"))
+        lib = ctypes.CDLL(str(vdir / f"lib{kernel}.so"))
         for symbol, argtypes in [cuda_ops._ENTRY_POINTS[kernel],
                                  *cuda_ops._EXTRA_SYMBOLS[kernel]]:
             getattr(lib, symbol).argtypes = argtypes
@@ -191,27 +252,219 @@ def gram_corr_rows(cuda_ops, libs, stream):
     return rows
 
 
+def block_residual_rows(cuda_ops, libs, stream, sms):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    F = torch.randn((N, D_FEAT), generator=gen, device=dev)
+    R = torch.randn((N, K), generator=gen, device=dev)
+    dW = torch.randn((BLOCK, K), generator=gen, device=dev) * 0.01
+    Fw = F[:, COL_START:COL_START + BLOCK]
+    want = cuda_ops.block_residual_update_ref(F, COL_START, BLOCK, dW, R)
+    scale = (R.abs() + Fw.abs() @ dW.abs()).max().item()
+    flops = 2 * N * BLOCK * K
+    rows = {}
+    for (kernel, name), lib in libs.items():
+        if kernel != "block_residual_update":
+            continue
+        out = torch.empty((N, K), device=dev)
+
+        def call():
+            err = lib.kt_block_residual_update(
+                F.data_ptr(), dW.data_ptr(), R.data_ptr(), out.data_ptr(), N, COL_START, BLOCK,
+                K, F.stride(0), dW.stride(0), R.stride(0), out.stride(0), 0, stream)
+            if err:
+                raise RuntimeError(f"block_residual_update {name}: launch failed ({err})")
+
+        call()
+        torch.cuda.synchronize()
+        cfg = (ctypes.c_int * 4)()
+        lib.kt_block_residual_update_config(K, 0, cfg)
+        ktile, bps, regs, local = cfg
+        blocks = (N // 128) * -(-K // ktile)
+        rows[name] = dict(rel_err=(out - want).abs().max().item() / scale, ktile=ktile,
+                          blocks=blocks, blocks_per_sm=bps, waves=blocks / (sms * bps),
+                          registers=regs, local_bytes=local, ms=time_ms(call, 10))
+    rows["library: addmm(R, Fw, dW, alpha=-1)"] = dict(
+        rel_err=(torch.addmm(R, Fw, dW, alpha=-1) - want).abs().max().item() / scale,
+        ms=time_ms(lambda: torch.addmm(R, Fw, dW, alpha=-1), 10))
+    for r in rows.values():
+        r["tflops"] = flops / r["ms"] / 1e9
+    del F, R, dW, Fw, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gaussian_rows(cuda_ops, libs, stream, sms):
+    """Each gaussian_kernel_block variant at the CIFAR route's four shapes,
+    with the feature chunks gaussian_splits picks for its resident blocks an
+    SM; as built also at other chunk counts."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d, g = CIFAR_D, CIFAR_GAMMA
+    X = torch.randn((CIFAR_N, d), generator=gen, device=dev)
+    Xt = torch.randn((CIFAR_TEST, d), generator=gen, device=dev)
+    xn, xtn = (X * X).sum(1), (Xt * Xt).sum(1)
+    shapes = cifar_gaussian_shapes(X, xn, Xt, xtn)
+    rows = {}
+
+    def run(lib, label, shape, splits, extra):
+        A, B, an, bn, _ = shape
+        m, nn = A.shape[0], B.shape[0]
+        out = torch.empty((m, nn), device=dev)
+        P = torch.empty((splits, m, nn), device=dev) if splits > 1 else None
+
+        def call():
+            err = lib.kt_gaussian_kernel_block(
+                A.data_ptr(), B.data_ptr(), an.data_ptr(), bn.data_ptr(), out.data_ptr(),
+                None if P is None else P.data_ptr(), m, nn, d, A.stride(0), B.stride(0),
+                out.stride(0), g, splits, 0, stream)
+            if err:
+                raise RuntimeError(f"gaussian_kernel_block {label}: launch failed ({err})")
+
+        call()
+        torch.cuda.synchronize()
+        want = cuda_ops.gaussian_kernel_block_ref(A, B, an, bn, g)
+        tiles = -(-m // 128) * -(-nn // 128)
+        ms = time_ms(call, 10 if m * nn > 1e6 else 50)
+        rows[label] = dict(abs_err=(out - want).abs().max().item(), splits=splits,
+                           blocks=tiles * splits, ms=ms, tflops=2 * m * nn * d / ms / 1e9,
+                           **extra)
+
+    for (kernel, name), lib in libs.items():
+        if kernel != "gaussian_kernel_block":
+            continue
+        cfg = (ctypes.c_int * 3)()
+        lib.kt_gaussian_kernel_block_config(0, cfg)
+        bps, regs, local = cfg
+        for shape_name, shape in shapes.items():
+            m, nn = shape[0].shape[0], shape[1].shape[0]
+            splits = cuda_ops.gaussian_splits(m, nn, d, sms, bps)
+            extra = dict(blocks_per_sm=bps, registers=regs, local_bytes=local)
+            run(lib, f"{name}, {shape_name}", shape, splits, extra)
+            if name == "as built" and shape_name in ("diagonal", "test apply"):
+                others = {1, 8, 17, 33} if shape_name == "diagonal" else {1, 2, 3}
+                for other in sorted(others - {splits}):
+                    run(lib, f"{name}, {shape_name}, {other} chunks", shape, other, extra)
+    for shape_name, (A, B, an, bn, _) in shapes.items():
+        xyn = an[:, None] + bn[None, :]
+
+        def library():
+            return torch.addmm(xyn, A, B.T, beta=-g, alpha=2 * g).exp_()
+
+        want = cuda_ops.gaussian_kernel_block_ref(A, B, an, bn, g)
+        rows[f"library: exp(addmm(...)), {shape_name}"] = dict(
+            abs_err=(library() - want).abs().max().item(),
+            ms=time_ms(library, 10 if A.shape[0] > 1000 else 50))
+    del X, Xt, xn, xtn, shapes
+    torch.cuda.empty_cache()
+    return rows
+
+
+def residual_wrapper_rows(cuda_ops):
+    """block_residual_update through its wrapper at the TIMIT window, f32
+    and bf16 F."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    F = torch.randn((N, D_FEAT), generator=gen, device=dev)
+    R = torch.randn((N, K), generator=gen, device=dev)
+    dW = torch.randn((BLOCK, K), generator=gen, device=dev) * 0.01
+    rows = {}
+    for label, dtype in (("f32 F", torch.float32), ("bf16 F", torch.bfloat16)):
+        Fk = F.to(dtype)
+        Fw = Fk[:, COL_START:COL_START + BLOCK]
+        want = cuda_ops.block_residual_update_ref(Fk, COL_START, BLOCK, dW, R)
+        got = cuda_ops.block_residual_update(Fk, COL_START, BLOCK, dW, R)
+        scale = (R.abs() + Fw.float().abs() @ dW.to(dtype).float().abs()).max().item()
+
+        def call():
+            return cuda_ops.block_residual_update(Fk, COL_START, BLOCK, dW, R)
+
+        rows[label] = dict(rel_err=(got - want).abs().max().item() / scale, ms=time_ms(call, 10),
+                           device_ms=device_ms(call, 10))
+        del Fk, Fw, want, got
+    Fw = F[:, COL_START:COL_START + BLOCK]
+    rows["library: addmm(R, Fw, dW, alpha=-1)"] = dict(
+        ms=time_ms(lambda: torch.addmm(R, Fw, dW, alpha=-1), 10))
+    del F, R, dW, Fw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gaussian_wrapper_rows(cuda_ops):
+    """gaussian_kernel_block through its wrapper at each CIFAR shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = CIFAR_GAMMA
+    X = torch.randn((CIFAR_N, CIFAR_D), generator=gen, device=dev)
+    Xt = torch.randn((CIFAR_TEST, CIFAR_D), generator=gen, device=dev)
+    xn, xtn = (X * X).sum(1), (Xt * Xt).sum(1)
+    rows = {}
+    for label, (A, B, an, bn, _) in cifar_gaussian_shapes(X, xn, Xt, xtn).items():
+        reps = 10 if A.shape[0] > 1000 else 50
+        want = cuda_ops.gaussian_kernel_block_ref(A, B, an, bn, g)
+        got = cuda_ops.gaussian_kernel_block(A, B, an, bn, g)
+        xyn = an[:, None] + bn[None, :]
+
+        def call():
+            return cuda_ops.gaussian_kernel_block(A, B, an, bn, g)
+
+        rows[label] = dict(
+            abs_err=(got - want).abs().max().item(), ms=time_ms(call, reps),
+            device_ms=device_ms(call, reps),
+            library_ms=time_ms(lambda: torch.addmm(xyn, A, B.T, beta=-g, alpha=2 * g).exp_(),
+                               reps))
+        del want, got, xyn
+    del X, Xt, xn, xtn
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Each kernel's rows: (cuda_ops, libs, stream, SM count) -> {variant: numbers}.
+ROWS = {
+    "block_corr": block_corr_rows,
+    "gram_corr": lambda cuda_ops, libs, stream, sms: gram_corr_rows(cuda_ops, libs, stream),
+    "block_residual_update": block_residual_rows,
+    "gaussian_kernel_block": gaussian_rows,
+}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="build/torch_fma_variants.json")
+    parser.add_argument("--kernels", nargs="+", default=list(ROWS),
+                        help="the kernels to build and time (default: all four)")
+    parser.add_argument("--root", help="time the wrappers of the checkout at this directory "
+                        "instead of building variants")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_fma_variants: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    root = os.path.abspath(args.root or _REPO)
+    sys.path.insert(0, root)
     from keystone_tpu_torch.ops import cuda_ops
 
+    if not os.path.abspath(cuda_ops.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {cuda_ops.__file__}, not the checkout at {root}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    libs = build(cuda_ops)
-    stream = torch.cuda.current_stream().cuda_stream
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    result = dict(card=card, block_corr=block_corr_rows(cuda_ops, libs, stream, sms),
-                  gram_corr=gram_corr_rows(cuda_ops, libs, stream))
-    for kernel in ("block_corr", "gram_corr"):
-        for name, r in result[kernel].items():
+    result = dict(card=card, root=root)
+    if args.root:
+        cuda_ops.build(["block_residual_update", "gaussian_kernel_block"])
+        result["block_residual_update"] = residual_wrapper_rows(cuda_ops)
+        result["gaussian_kernel_block"] = gaussian_wrapper_rows(cuda_ops)
+    else:
+        libs = build(cuda_ops, args.kernels)
+        stream = torch.cuda.current_stream().cuda_stream
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for kernel in args.kernels:
+            result[kernel] = ROWS[kernel](cuda_ops, libs, stream, sms)
+    for kernel, rows in result.items():
+        if not isinstance(rows, dict):
+            continue
+        for name, r in rows.items():
             extra = {key: v for key, v in r.items() if key not in ("ms", "tflops")}
-            print(f"{kernel} {name:>24}: {r['ms']:8.3f} ms, {r['tflops']:5.1f} TFLOP/s, {extra}")
+            tflops = f", {r['tflops']:5.1f} TFLOP/s" if "tflops" in r else ""
+            print(f"{root}: {kernel} {name:>24}: {r['ms']:8.3f} ms{tflops}, {extra}")
     print(card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -107,6 +107,74 @@ class TestContract:
         assert float(K.max()) <= 1.0 and float(K.min()) >= 0.0
 
 
+def _fill(blocks, resident):
+    """The share of its waves' slots a grid of ``blocks`` fills: blocks over
+    whole waves x resident blocks."""
+    return blocks / (-(-blocks // resident) * resident)
+
+
+class TestGaussianSplits:
+    """The feature-chunk arithmetic of gaussian_kernel_block
+    (``cuda_ops.gaussian_splits``), a pure function of the shapes and the
+    card."""
+
+    # (train apply, test apply, diagonal, ragged diagonal) at d = 1,800.
+    CIFAR = [(50000, 512), (12500, 512), (512, 512), (336, 336)]
+
+    @pytest.mark.parametrize("blocks_per_sm,want", [(1, (1, 1, 8, 14)), (2, (1, 1, 16, 28))])
+    def test_cifar_shapes_fill_whole_waves_of_132_sms(self, blocks_per_sm, want):
+        got = tuple(cuda_ops.gaussian_splits(m, n, 1800, 132, blocks_per_sm)
+                    for m, n in self.CIFAR)
+        assert got == want
+        for (m, n), s in zip(self.CIFAR, got, strict=True):
+            tiles = -(-m // 128) * -(-n // 128)
+            # The applies fill a wave with their tiles alone; the diagonal
+            # blocks fill one with their chunks.
+            assert tiles >= 132 * blocks_per_sm or _fill(tiles * s, 132 * blocks_per_sm) >= 0.95
+            assert s == 1 or 1800 // s >= 64
+
+    @pytest.mark.parametrize("blocks_per_sm", [1, 2])
+    def test_a_wave_of_tiles_takes_one_chunk(self, blocks_per_sm):
+        # 264 tiles at 2 blocks an SM, 132 at 1, fill a wave alone; half as
+        # many take two chunks.
+        assert cuda_ops.gaussian_splits(128 * 132 * blocks_per_sm, 128, 1800, 132,
+                                        blocks_per_sm) == 1
+        assert cuda_ops.gaussian_splits(128 * 66 * blocks_per_sm, 128, 1800, 132,
+                                        blocks_per_sm) == 2
+
+    @pytest.mark.parametrize("blocks_per_sm", [1, 2])
+    @pytest.mark.parametrize("m,n", [(1, 1), (200, 130), (512, 512), (12500, 512),
+                                     (50000, 512), (5000, 5000)])
+    @pytest.mark.parametrize("d", [1, 63, 64, 300, 1800, 1801])
+    def test_whole_waves_or_the_most_fill_with_64_features_a_chunk(self, m, n, d,
+                                                                     blocks_per_sm):
+        resident = 132 * blocks_per_sm
+        tiles = -(-m // 128) * -(-n // 128)
+        splits = cuda_ops.gaussian_splits(m, n, d, 132, blocks_per_sm)
+        most = max(d // 64, 1)
+        assert 1 <= splits <= most
+        assert splits == 1 or d // splits >= 64
+        fills = [_fill(tiles * s, resident) for s in range(1, most + 1)]
+        if tiles >= resident:  # a wave of tiles alone: no chunks
+            assert splits == 1
+        elif max(fills) >= 0.95:  # the fewest chunks that come within 5% of whole waves
+            assert _fill(tiles * splits, resident) >= 0.95
+            assert all(f < 0.95 for f in fills[:splits - 1])
+        else:  # else the count that fills most
+            assert _fill(tiles * splits, resident) == max(fills)
+
+    def test_same_answer_on_every_call(self):
+        shapes = [(512, 512, 1800), (336, 336, 1800), (12500, 512, 1800), (300, 200, 9)]
+        first = [cuda_ops.gaussian_splits(m, n, d, 132, 2) for m, n, d in shapes]
+        assert all([cuda_ops.gaussian_splits(m, n, d, 132, 2) for m, n, d in shapes] == first
+                   for _ in range(3))
+
+    def test_few_features_take_one_chunk(self):
+        assert cuda_ops.gaussian_splits(512, 512, 127, 132, 2) == 1
+        assert cuda_ops.gaussian_splits(512, 512, 0, 132, 2) == 1
+        assert cuda_ops.gaussian_splits(0, 512, 1800, 132, 2) == 1
+
+
 # ---------------------------------------------------------------------------
 # Kernel against plain version: needs the card
 # ---------------------------------------------------------------------------
@@ -123,6 +191,22 @@ GAUSS_SHAPES = [(37, 45, 23), (200, 130, 70), (129, 257, 9), (1, 1, 1), (1030, 5
 RESID_SHAPES = [(300, 40, 30, 5), (130, 129, 17, 1), (517, 200, 12, 35), (5000, 512, 300, 10)]
 CONV_SHAPES = [(3, 12, 10, 3, 5, 5), (2, 9, 9, 2, 3, 4), (2, 12, 11, 3, 6, 130),
                (37, 32, 32, 3, 6, 100)]
+
+
+def _gauss_check(X, Y, xn, yn, dtype, runs=3):
+    """gaussian_kernel_block against its plain version within 1e-5
+    absolute, one launch a call, and the same bits on every run; returns
+    the kernel's block."""
+    before = cuda_ops.launches["gaussian_kernel_block"]
+    got = [cuda_ops.gaussian_kernel_block(X, Y, xn, yn, 0.7, compute_dtype=dtype)
+           for _ in range(runs)]
+    torch.cuda.synchronize()
+    assert cuda_ops.launches["gaussian_kernel_block"] == before + runs
+    assert all(torch.equal(got[0], g) for g in got[1:])
+    want = cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, 0.7, compute_dtype=dtype)
+    assert got[0].shape == (X.shape[0], Y.shape[0]) and got[0].dtype == torch.float32
+    assert (got[0] - want).abs().max().item() <= 1e-5
+    return got[0]
 
 
 @pytest.mark.cuda
@@ -147,6 +231,48 @@ class TestKernelsOnCard:
         # The diagonal of K(X_b, X_b) stays at or below 1 (the clamp).
         diag = cuda_ops.gaussian_kernel_block(X[:512], X[:512], xn[:512], xn[:512], 0.7)
         assert float(diag.max()) <= 1.0 and float(diag.diagonal().min()) >= 1.0 - 1e-5
+
+    @pytest.mark.parametrize("d", [1, 3, 9, 1800, 1801])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_gaussian_feature_widths(self, cuda_device, d, dtype):
+        # d = 1800 takes 16-byte chunks; 1801 (and 1, 3, 9) element by element.
+        X, Y, xn, yn, _ = _gauss(300, 200, d, seed=d, device=cuda_device)
+        _gauss_check(X, Y, xn, yn, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_odd_row_slice_with_odd_d(self, cuda_device, dtype):
+        X, _, xn, _, _ = _gauss(700, 1, 301, seed=3, device=cuda_device)
+        _gauss_check(X, X[129:460], xn, xn[129:460], dtype)
+
+    @pytest.mark.parametrize("size", [512, 336])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_diagonal_block_split_into_feature_chunks(self, cuda_device, size, dtype):
+        # A KRR pre-pass block: too few tiles for the card, so the features
+        # are split (CIFAR's d = 1,800); the clamp keeps the diagonal at 1.
+        X, _, xn, _, _ = _gauss(1000, 1, 1800, seed=size, device=cuda_device)
+        Xb, xb = X[100:100 + size], xn[100:100 + size]
+        got = _gauss_check(Xb, Xb, xb, xb, dtype)
+        assert float(got.max()) <= 1.0
+        if dtype == torch.float32:  # bf16 operands against f32 norms leave it below 1
+            assert float(got.diagonal().min()) >= 1.0 - 1e-5
+        grid = cuda_ops.gaussian_kernel_block_grid(size, size, 1800, dtype == torch.bfloat16,
+                                                   cuda_device)
+        assert grid["splits"] > 1 and grid["waves"] >= 0.95
+
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_cifar_grids(self, cuda_device, bf16):
+        # The route's shapes at d = 1,800: 128 x 128 tiles, feature chunks
+        # only where the tiles alone fill too little of the card.
+        train = cuda_ops.gaussian_kernel_block_grid(50000, 512, 1800, bf16, cuda_device)
+        assert train["tiles"] == 1564 and train["splits"] == 1
+        bps, sms = train["blocks_per_sm"], train["sms"]
+        for m, n in ((50000, 512), (12500, 512), (512, 512), (336, 336)):
+            grid = cuda_ops.gaussian_kernel_block_grid(m, n, 1800, bf16, cuda_device)
+            assert grid["splits"] == cuda_ops.gaussian_splits(m, n, 1800, sms, bps)
+            assert grid["blocks"] == grid["tiles"] * grid["splits"]
+        assert train["local_bytes"] == 0  # no spills
+        if bps >= 2:
+            assert train["registers"] <= 128
 
     @pytest.mark.parametrize("m,n,d,k", RESID_SHAPES)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

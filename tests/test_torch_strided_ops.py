@@ -12,7 +12,9 @@ same round-to-nearest-even of those values on both sides). The shapes are
 the reference's aligned ones: n = 1024 rows (a multiple of its 512-row
 tile), d = 768, a 256-wide window at column 0, 256 or 512. The kernels
 themselves run only on a CUDA card: the ``cuda`` tests compare each kernel
-with its plain version there and skip elsewhere.
+with its plain version there and skip elsewhere (this file imports no JAX
+at module level, so that they run on the machine with the card:
+``python -m pytest tests/test_torch_strided_ops.py -m cuda --noconftest``).
 
 Tolerance: 1e-5 of the sums' scale (max over entries of sum |f||r|, or of
 |r| + sum |f||dw| for the residual). Both sides sum float32 products in
@@ -186,14 +188,27 @@ class TestWrappersOnTheCpu:
         assert all(before[name] != after[name] for name in before)
 
     def test_library_name_hashes_the_pipelined_header(self, tmp_path, monkeypatch):
-        # block_corr and gram_corr include fma_pipe.cuh: an edit rebuilds them.
+        # Four kernels include fma_pipe.cuh: an edit rebuilds them.
+        users = ("block_corr", "gram_corr", "block_residual_update", "gaussian_kernel_block")
+        for name in users:
+            assert '#include "fma_pipe.cuh"' in (cuda_ops._CSRC / f"{name}.cu").read_text()
         for src in (cuda_ops._CSRC).iterdir():
             (tmp_path / src.name).write_bytes(src.read_bytes())
         monkeypatch.setattr(cuda_ops, "_CSRC", tmp_path)
-        before = {name: cuda_ops._library_path(name) for name in ("block_corr", "gram_corr")}
+        before = {name: cuda_ops._library_path(name) for name in users}
         header = tmp_path / "fma_pipe.cuh"
         header.write_text(header.read_text() + "\n// edited\n")
         assert all(cuda_ops._library_path(name) != path for name, path in before.items())
+
+    @pytest.mark.parametrize("constant", ["KT_NARROW", "KT_WIDE"])
+    def test_label_tiles_are_defined_once(self, constant):
+        # block_corr, gram_corr and block_residual_update share the header's
+        # label tiles and the function that picks one (with_label_tile).
+        where = [p.name for p in sorted(cuda_ops._CSRC.iterdir())
+                 if f"constexpr int {constant} =" in p.read_text()]
+        assert where == ["fma_pipe.cuh"]
+        for name in ("block_corr", "gram_corr", "block_residual_update"):
+            assert "with_label_tile(k," in (cuda_ops._CSRC / f"{name}.cu").read_text()
 
 
 def _fill(blocks, resident):
@@ -368,6 +383,69 @@ class TestBlockCorrOnCard:
         assert _fill(grid["blocks"], grid["sms"] * bps) >= 0.95
         assert grid["local_bytes"] == 0  # no spills
         if bps >= 2:
+            assert grid["registers"] <= 128
+
+
+# block_residual_update's pipelined kernel: the window a K-major operand,
+# label tiles sized to k (32 for k <= 32, else 160 a tile), the window's
+# columns never split, aligned and unaligned windows.
+BRU_KS = [1, 31, 32, 33, 147, 160, 161, 300]
+
+
+def _resid_check(F, s, b, dW, R, runs=3):
+    """block_residual_update against its plain version within 1e-4 of
+    |R| + |Fw||dW| (dW rounded to F's dtype), one launch a call, and the
+    same bits on every run."""
+    before = cuda_ops.launches["block_residual_update"]
+    got = [cuda_ops.block_residual_update(F, s, b, dW, R) for _ in range(runs)]
+    torch.cuda.synchronize()
+    assert cuda_ops.launches["block_residual_update"] == before + runs
+    assert all(torch.equal(got[0], g) for g in got[1:])
+    want = cuda_ops.block_residual_update_ref(F, s, b, dW, R)
+    scale = R.abs() + F[:, s:s + b].float().abs() @ dW.to(F.dtype).float().abs()
+    assert got[0].shape == R.shape and got[0].dtype == torch.float32
+    assert ((got[0] - want).abs() <= 1e-4 * scale.max()).all()
+
+
+@pytest.mark.cuda
+class TestBlockResidualUpdateOnCard:
+    @pytest.mark.parametrize("k", BRU_KS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_label_widths_around_each_tile(self, cuda_device, k, dtype):
+        F, R, dW = _card_inputs(3000, 512, k, cuda_device, seed=k)
+        grid = cuda_ops.block_residual_update_grid(3000, k, dtype == torch.bfloat16,
+                                                   cuda_device)
+        assert grid["ktile"] == (32 if k <= 32 else 160)
+        assert grid["label_tiles"] == -(-k // grid["ktile"])
+        assert grid["blocks"] == -(-3000 // 128) * grid["label_tiles"]
+        _resid_check(F.to(dtype), 128, 256, dW[:256], R)
+
+    # One row, a ragged row tile, and many; windows at an unaligned start
+    # (3, 201: element by element) and an aligned one (256: 16-byte chunks).
+    @pytest.mark.parametrize("n", [1, 129, 70000])
+    @pytest.mark.parametrize("s", [3, 201, 256])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_rows_and_window_starts(self, cuda_device, n, s, dtype):
+        F, R, dW = _card_inputs(n, 640, 147, cuda_device, seed=n + s)
+        _resid_check(F.to(dtype), s, 256, dW[:256], R)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_r_row_stride_wider_than_k(self, cuda_device, dtype):
+        F, _, dW = _card_inputs(5000, 384, 147, cuda_device, seed=8)
+        wide = torch.randn((5000, 153), device=cuda_device)
+        R = wide[:, 3:150]  # row stride 153 floats, base 12 bytes in
+        assert R.stride(0) == 153 and not R.is_contiguous()
+        _resid_check(F.to(dtype), 128, 256, dW[:256], R)
+
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_timit_grid(self, cuda_device, bf16):
+        # F 65,536 x 16,384, a 4096-wide window, k = 147: 512 row tiles x one
+        # 160-wide label tile (8% masked), 1.94 waves at 2 blocks an SM.
+        grid = cuda_ops.block_residual_update_grid(65536, 147, bf16, cuda_device)
+        assert grid["ktile"] == 160 and grid["label_tiles"] == 1 and grid["masked"] <= 0.10
+        assert grid["blocks"] == 512
+        assert grid["local_bytes"] == 0  # no spills
+        if grid["blocks_per_sm"] >= 2:
             assert grid["registers"] <= 128
 
 
