@@ -264,19 +264,27 @@ def time_ms(fn, reps):
 
 
 def device_ms(fn, reps):
-    """Device time of ``fn`` a call: the kernels it launches, summed by
-    ``torch.profiler`` over ``reps`` calls after a warm-up call, without the
-    host's time between them (which decides a short call's ``time_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time of ``fn`` a call, without the host's time between its
+    launches (which decides a short call's ``time_ms``): ``reps`` calls are
+    queued behind a spin kernel of about 50 ms, so the card runs every
+    launch of every call back to back, and CUDA events around them give
+    their time over ``reps``. Raises if the spin ended before the last call
+    was queued. (``torch.profiler`` lost records of this port's kernels late
+    in this script's process, 19 of 20 launches traced while a torch kernel
+    in the same trace kept all 20, so its sums read short.)"""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / reps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    queued_in_time = not start.query()
+    end.record()
+    end.synchronize()
+    if not queued_in_time:
+        raise RuntimeError(f"device_ms: the card caught up with the host in {reps} calls")
+    return start.elapsed_time(end) / reps
 
 
 def cifar_gaussian_shapes(X, xn, Xt, xtn):
@@ -372,27 +380,43 @@ def phase_kernels(cuda_ops):
         ("bf16 output", torch.float32, torch.bfloat16, 2.0 ** -7),
     ):
         got = cuda_ops.cosine_features(X, W, b, compute_dtype=compute, out_dtype=out)
+        again = cuda_ops.cosine_features(X, W, b, compute_dtype=compute, out_dtype=out)
         want = cuda_ops.cosine_features_ref(X, W, b, compute, out)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        check(f"cosine_features {label} {m}x{d} @ {n}x{d}", err <= tol,
-              f"max_abs_err {err:.3e} (tol {tol:.1e})")
+        check(f"cosine_features {label} {m}x{d} @ {n}x{d}", err <= tol and torch.equal(got, again),
+              f"max_abs_err {err:.3e} (tol {tol:.1e}), the same bits on a second call")
         if label == "f32":
             results["cosine_features"] = dict(max_abs_err=err)
-        del got, want
+        del got, again, want
     nbytes = 4 * (m * d + n * d + n + m * n)
     flops = 2 * m * n * d + 16 * m * n  # GEMM + bias add, range reduction, polynomial
     r = results["cosine_features"]
     r["ms"] = time_ms(lambda: cuda_ops.cosine_features(X, W, b), 10)
+    r["device_ms"] = device_ms(lambda: cuda_ops.cosine_features(X, W, b), 10)
     r["plain_ms"] = time_ms(lambda: cuda_ops.cosine_features_ref(X, W, b), 10)
     r["library_ms"] = time_ms(lambda: torch.cos(torch.addmm(b, X, W.T)), 10)
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
     X16, W16 = X.to(torch.bfloat16), W.to(torch.bfloat16)
     bf16_ms = time_ms(lambda: cuda_ops.cosine_features(X16, W16, b), 5)
     bf16_bound, _ = bound_ms(2 * (m * d + n * d) + 4 * (n + m * n), flops, PEAK_BF16_FLOPS)
-    log(f"  cosine_features f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+    # The flat route's call: the branch written into its column window of
+    # the (m, 4 n) fused feature matrix.
+    fused = torch.empty((m, NUM_COSINES * n), device=dev)
+    window = fused[:, COL_START:COL_START + n]
+    r["window_ms"] = time_ms(lambda: cuda_ops.cosine_features(X, W, b, out=window), 10)
+    check("cosine_features into its column window of the fused matrix",
+          torch.equal(window, cuda_ops.cosine_features(X, W, b)),
+          "the bits of a fresh output")
+    del fused, window
+    grid = r["grid"] = cuda_ops.cosine_features_grid(m, n, d, False, False, dev)
+    log(f"  cosine_features f32: {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms on the device "
+        f"(into the fused matrix's window {r['window_ms']:.3f}; plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"bf16 operands: {bf16_ms:.3f} ms (bound {bf16_bound:.3f})")
+        f"bf16 operands: {bf16_ms:.3f} ms (bound {bf16_bound:.3f}); grid {grid['tiles']} "
+        f"tiles, {grid_line(grid)}")
+    check("cosine_features spills nothing", grid["local_bytes"] == 0,
+          f"{grid['local_bytes']} local bytes a thread, {grid['registers']} registers")
 
     # gram_corr_sym: one centered 4096-wide feature block and the residual.
     A = cuda_ops.cosine_features(X, W, b)
@@ -1178,11 +1202,20 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
     r["bound_ms"], r["bound_by"] = bound_ms(
         4 * (m * d + n * d + m + n + m * k + n * k), 2 * m * n * d + 6 * m * n + 2 * m * n * k,
         PEAK_F32_FLOPS)
+    r["device_ms"] = device_ms(lambda: cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g), 10)
     X16, Y16 = X.to(torch.bfloat16), Y.to(torch.bfloat16)
     bf16_ms = time_ms(lambda: cuda_ops.gaussian_resid_block(X16, Y16, xn, yn, W, g), 5)
-    log(f"  gaussian_resid_block f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
-        f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"bf16 operands: {bf16_ms:.3f} ms")
+    grid = r["grid"] = cuda_ops.gaussian_resid_block_grid(m, n, d, k, False, dev)
+    log(f"  gaussian_resid_block f32: {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms on the "
+        f"device (plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
+        f"{r['bound_ms']:.3f} by {r['bound_by']}); bf16 operands: {bf16_ms:.3f} ms; grid "
+        f"{grid['tiles']} column tiles x {grid['splits']} row chunks of "
+        f"{grid['chunk_tiles'][0]}-{grid['chunk_tiles'][1]} row tiles, {grid['label_tiles']} "
+        f"{grid['ktile']}-wide label pass, {grid['smem_bytes']} bytes of shared memory, "
+        f"{grid_line(grid)}")
+    check("gaussian_resid_block spills nothing and fills whole waves",
+          grid["local_bytes"] == 0 and grid["waves"] >= 0.95,
+          f"{grid['local_bytes']} local bytes a thread, {grid['waves']:.3f} waves")
     del X, Y, W, X16, Y16, Xt, xtn, xyn, xn, yn, shapes
     torch.cuda.empty_cache()
 

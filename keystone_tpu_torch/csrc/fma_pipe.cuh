@@ -1,11 +1,13 @@
 // The pipelined FP32-FMA tile of block_corr.cu, gram_corr.cu,
-// block_residual_update.cu and gaussian_kernel_block.cu.
+// block_residual_update.cu, gaussian_kernel_block.cu, gaussian_resid_block.cu
+// and cosine_features.cu.
 //
 // One block of 256 threads (16 x 16) owns an output tile of 16 MI rows x
 // 16 NJ columns: out[i][j] = sum over the reduction index r of
 // P[i0 + i, r] * Q[j0 + j, r]. Each thread keeps MI x NJ outputs in
 // registers (8 x 8 for a 128 x 128 tile, 8 x 10 for 128 rows x 160 label
-// columns). Each operand is one of two kinds:
+// columns, 8 x 1 for gaussian_resid_block's 16-wide label pass). Each
+// operand is one of two kinds:
 //   - row-major (the reduction runs along its rows): P[i, r] is M[r][i],
 //     as the window in F_w^T R and A in A^T A;
 //   - K-major (the reduction runs along its contiguous columns): P[i, r]
@@ -97,7 +99,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Four (two) consecutive shared-memory elements, widened to float.
+// Four (two, one) consecutive shared-memory elements, widened to float.
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -106,6 +108,8 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -311,8 +315,8 @@ using Operand = std::conditional_t<K, KStager<TE, BK, W, VEC>, Stager<TE, BK, W,
 
 // Tile-local row of a thread's i-th output row (MI a thread: 2 neighbours,
 // or groups of four, 64 apart) and column of its j-th output column (NJ a
-// thread: groups of four, 64 apart, then NJ % 4 = 2 more past the last
-// group).
+// thread: groups of four, 64 apart, then NJ % 4 = 1 or 2 more past the
+// last group).
 template <int MI>
 __device__ __forceinline__ int out_row(int i) {
   const int ty = threadIdx.x / 16;
@@ -334,7 +338,7 @@ __device__ __forceinline__ void fma_stage(const TP* X, const TQ* Y, float (&acc)
   constexpr int KT = 16 * NJ;
   constexpr int Q4 = NJ / 4;
   constexpr int REM = NJ % 4;
-  static_assert(REM == 0 || REM == 2, "NJ must be a multiple of 2 with NJ % 4 in {0, 2}");
+  static_assert(REM == 0 || REM == 1 || REM == 2, "NJ % 4 must be 0, 1 or 2");
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
@@ -362,6 +366,7 @@ __device__ __forceinline__ void fma_stage(const TP* X, const TQ* Y, float (&acc)
       b[4 * q + 2] = v.z;
       b[4 * q + 3] = v.w;
     }
+    if constexpr (REM == 1) b[4 * Q4] = ld1(Y + kk * KT + Q4 * 64 + tx);
     if constexpr (REM == 2) {
       const float2 v = ld2(Y + kk * KT + Q4 * 64 + tx * 2);
       b[4 * Q4] = v.x;

@@ -45,12 +45,11 @@
 // apply measured slower). With chunks, block
 // (tile, z) writes chunk z's sums to a partial buffer P[z], and a second
 // kernel in the same call adds the partials in the order z = 0, 1, ... and
-// applies the epilogue: no float atomics, the same bits every run. The
-// epilogue keeps the reference's clamp max(sq, 0) exactly: on a diagonal
-// block rounding leaves sq slightly negative or positive near 0, and the
-// Cholesky of K_bb + lambda I needs the diagonal at 1.
+// applies the epilogue (gaussian.cuh's gauss, shared with
+// gaussian_resid_block.cu): no float atomics, the same bits every run.
 
 #include "fma_pipe.cuh"
+#include "gaussian.cuh"
 
 namespace {
 
@@ -65,11 +64,6 @@ constexpr int TN = 16 * NJ;
 template <typename TIn>
 constexpr int smem_of() {
   return smem_bytes<TIn, TIn, BK, STAGES, 8, NJ>();
-}
-
-__device__ __forceinline__ float gauss(float xn, float yn, float dot, float gamma) {
-  const float sq = xn + yn - 2.0f * dot;
-  return expf(-gamma * fmaxf(sq, 0.0f));
 }
 
 // Block (blockIdx.x, blockIdx.y, blockIdx.z): output rows [128 x, +128) x

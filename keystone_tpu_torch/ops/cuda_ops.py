@@ -36,21 +36,25 @@ run:
   - :func:`gaussian_resid_block` ↔ ``pallas_ops.gaussian_resid_block``
     (``csrc/gaussian_resid_block.cu``): ``K(X, Y)ᵀ W`` with the kernel
     block contracted tile by tile and never stored, every step of the
-    kernel ridge regression sweep;
+    kernel ridge regression sweep (both Gaussian kernels share the epilogue
+    of ``csrc/gaussian.cuh``);
   - :func:`countsketch_scatter` ↔ ``pallas_ops.countsketch_scatter``
     (``csrc/countsketch_scatter.cu``): one row chunk's CountSketch ``S A``
     added into an (m, d₁) accumulator, the Iterative Hessian Sketch's fold
     step; each warp owns one bucket's output row, so the adds land in a
     fixed order without atomics.
 
-All but the cosine and CountSketch kernels, and ``gram_corr_sym_acc`` with
-bf16 F (TMA loads into ``wgmma`` on the tensor cores), are FP32-FMA
-register tiles: ``block_corr``, ``gram_corr``, ``block_residual_update``
-and ``gaussian_kernel_block`` on the pipelined one of
-``csrc/fma_pipe.cuh`` (a ring of stages, operands row-major or K-major,
-label tiles sized to k; chunks of the reduction that fill whole waves for
-``block_corr``, :func:`corr_splits`, and ``gaussian_kernel_block``,
-:func:`gaussian_splits`), the others on ``csrc/fma_tile.cuh``. The image
+All but the CountSketch kernel, and ``gram_corr_sym_acc`` with bf16 F (TMA
+loads into ``wgmma`` on the tensor cores), are FP32-FMA register tiles:
+``cosine_features``, ``block_corr``, ``gram_corr``,
+``block_residual_update``, ``gaussian_kernel_block`` and
+``gaussian_resid_block`` on the pipelined one of ``csrc/fma_pipe.cuh`` (a
+ring of stages, operands row-major or K-major, label tiles sized to k;
+chunks of the reduction that fill whole waves for ``block_corr``,
+:func:`corr_splits`, ``gaussian_kernel_block``, :func:`gaussian_splits`,
+and ``gaussian_resid_block``, :func:`gaussian_resid_splits`), the others
+(``gram_corr_sym``, ``block_gram_sym``, ``gram_sym_acc``, f32
+``gram_corr_sym_acc``) on ``csrc/fma_tile.cuh``. The image
 featurizer's kernel (``csrc/conv_featurize.cu``) has its wrapper in
 ``ops/cuda_images.py``; it is built, loaded and counted here with the
 others.
@@ -150,6 +154,8 @@ _EXTRA_SYMBOLS = {
     "block_corr": [("kt_block_corr_config", [_I, _I, _P])],
     "block_residual_update": [("kt_block_residual_update_config", [_I, _I, _P])],
     "gaussian_kernel_block": [("kt_gaussian_kernel_block_config", [_I, _P])],
+    "gaussian_resid_block": [("kt_gaussian_resid_block_config", [_I, _I, _I, _P])],
+    "cosine_features": [("kt_cosine_features_config", [_I, _I, _I, _P])],
     "gram_corr": [("kt_gram_corr_config", [_P, _I, _I, _L, _I, _P])],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -271,14 +277,75 @@ def _cosine_operands(X, W, compute_dtype):
     return torch.float32
 
 
+# The reference's cosine (pallas_ops._fast_cos): the even minimax
+# polynomial in r², highest degree first, after a one-constant reduction.
+_COS_COEFFS = (
+    1.724826627109e-09,
+    -2.707995836252e-07,
+    2.476998508524e-05,
+    -1.388780871411e-03,
+    4.166649038026e-02,
+    -4.999998919802e-01,
+    9.999999892578e-01,
+)
+_TWO_PI = 6.283185307179586
+
+
+def fast_cos(x):
+    """The cosine :func:`cosine_features` evaluates, with the reference's
+    float32 arithmetic: ``x`` reduced to [−π, π] with one 2π constant, then
+    the degree-12 even polynomial in Horner form. Within 4e-7 of cos for
+    |x| ≲ 10; the one-constant reduction's error grows with |x| (about 2e-5
+    at |x| = 300)."""
+    q = (x * (1.0 / _TWO_PI)).add_(0.5).floor_()
+    r2 = (x - q.mul_(_TWO_PI)).square_()
+    del q
+    acc = torch.full_like(x, _COS_COEFFS[0])
+    for c in _COS_COEFFS[1:]:
+        acc.mul_(r2).add_(c)
+    return acc
+
+
 def cosine_features_ref(X, W, b, compute_dtype=torch.float32, out_dtype=None):
     """Plain PyTorch version of :func:`cosine_features`:
-    ``cos(X Wᵀ + b)`` from the same operand rounding, in float32."""
+    ``fast_cos(X Wᵀ + b)`` from the same operand rounding, in float32."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     op = _cosine_operands(X, W, compute_dtype)
     Xf = X.to(op).to(torch.float32)
     Wf = W.to(op).to(torch.float32)
-    return torch.cos(Xf @ Wf.T + b.to(torch.float32)).to(out_dtype)
+    return fast_cos(Xf @ Wf.T + b.to(torch.float32)).to(out_dtype)
+
+
+# cosine_features_grid's answers by (device index, m, n, d, bf16 operands,
+# bf16 output): fixed for a card and a build, so worked out once.
+_COSINE_GRIDS: Dict[tuple, Dict[str, float]] = {}
+
+
+def cosine_features_grid(m: int, n: int, d: int, bf16: bool, out_bf16: bool,
+                         device) -> Dict[str, float]:
+    """The grid :func:`cosine_features` launches for X (m, d) and W (n, d)
+    on ``device`` (a card), bf16 operands or output as asked: its 128 x 128
+    tiles (one block each), the kernel's resident blocks an SM, registers
+    and local (spilled) bytes a thread, and the waves. d picks the instance:
+    16-byte loads where d is a whole number of 16-byte chunks (contiguous
+    operands), element-wise otherwise."""
+    device = torch.device(device)
+    key = (device.index, m, n, d, bool(bf16), bool(out_bf16))
+    grid = _COSINE_GRIDS.get(key)
+    if grid is None:
+        out = (ctypes.c_int * 3)()
+        vec = d % (8 if bf16 else 4) == 0
+        with torch.cuda.device(device):
+            err = _lib("cosine_features").kt_cosine_features_config(
+                int(bf16), int(out_bf16), int(vec), out)
+        _check_launch("cosine_features", err)
+        bps, regs, local = out
+        tiles = -(-m // 128) * -(-n // 128)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = _grid(dict(tiles=tiles, blocks=tiles, blocks_per_sm=bps, registers=regs,
+                          local_bytes=local), sms)
+        _COSINE_GRIDS[key] = grid
+    return grid
 
 
 def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=None):
@@ -286,7 +353,8 @@ def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=No
 
     X: (m, d), W: (num_out, d), b: (num_out,). The featurized (m, num_out)
     matrix is written once; the pre-activation never exists in device
-    memory (reference: CosineRandomFeatures.scala:19-45).
+    memory (reference: CosineRandomFeatures.scala:19-45). The cosine is
+    :func:`fast_cos`, the reference's polynomial.
     ``compute_dtype=torch.bfloat16`` rounds the operands to bf16 (products
     still accumulate in f32); ``out_dtype=torch.bfloat16`` writes the
     features at half the footprint. ``out``: an (m, num_out) buffer with
@@ -531,11 +599,16 @@ def block_corr_ref(F, col_start: int, block: int, R):
 _MIN_SPLIT_ROWS = 1024
 
 
-def _wave_splits(length: int, minimum: int, tiles: int, sms: int, blocks_per_sm: int) -> int:
+def _wave_splits(length: int, minimum: int, tiles: int, sms: int, blocks_per_sm: int,
+                 whole: bool = False) -> int:
     """Chunks of a reduction of ``length`` steps: the fewest that bring the
     (tile, chunk) grid within 5% of a whole number of waves of the card's
     resident blocks (``sms * blocks_per_sm``), each chunk at least
-    ``minimum`` steps; where none does, the count that fills most."""
+    ``minimum`` steps; where none does, the count that fills most.
+    ``whole``: each step is a large unit of work (a row tile), so the
+    chunks' lengths differ by a whole step and the longest,
+    ``ceil(length / s)``, sets a wave's time; the fill then counts the steps
+    that the waves' slots could hold in that time."""
     if tiles <= 0:
         return 1
     resident = sms * max(blocks_per_sm, 1)
@@ -543,6 +616,8 @@ def _wave_splits(length: int, minimum: int, tiles: int, sms: int, blocks_per_sm:
     for s in range(1, max(length // minimum, 1) + 1):
         blocks = tiles * s
         fill = blocks / (-(-blocks // resident) * resident)
+        if whole:
+            fill *= length / (s * -(-length // s))
         if fill >= 0.95:
             return s
         if fill > best_fill:
@@ -1055,14 +1130,62 @@ def gaussian_resid_block_ref(X, Y, x_norms, y_norms, W, gamma: float,
     return K.T @ W.to(torch.float32)
 
 
-def _resid_splits(m: int, n: int, device) -> int:
-    """Row chunks of one gaussian_resid_block launch: enough (column tile,
-    chunk) blocks for about four per SM, each chunk at least one 128-row
-    tile. Fixed by the shapes, so the summation order never changes from
-    run to run."""
-    tiles = -(-n // 128)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // tiles), -(-m // 128)))
+def gaussian_resid_splits(m: int, n: int, sms: int, blocks_per_sm: int) -> int:
+    """Row chunks of a :func:`gaussian_resid_block` launch: the fewest that
+    bring the (column tile, chunk) grid within 5% of whole waves of the
+    card's resident blocks (``sms * blocks_per_sm``), each chunk whole
+    128-row tiles of X and none empty (the kernel gives chunk z the row
+    tiles [z T / s, (z + 1) T / s) of T = ceil(m / 128)); where none does,
+    the count that fills most. A row tile is a sixth of a block's work at
+    the CIFAR sweep, so the fill counts the tiles the waves could hold in
+    the time of the longest chunk (:func:`_wave_splits` with ``whole``):
+    blocks alone would take 63 chunks of 6–7 tiles for 0.95 of a wave,
+    where 66 of 5–6 take a seventh less time. A function of the shapes and
+    the card alone, so the chunks' partial sums add in the same order every
+    run. At the CIFAR sweep (m = 50,000: 391 row tiles; 132 SMs, 2 blocks
+    an SM): 66 chunks x 4 column tiles = 264 blocks at a 512-row block
+    (0.99 of the wave's tile slots), 80 x 3 = 240 at the ragged 336-row one
+    (0.89, the most any count reaches)."""
+    return _wave_splits(-(-m // 128), 1, -(-n // 128), sms, blocks_per_sm, whole=True)
+
+
+# gaussian_resid_block_grid's answers by (device index, m, n, d, k, bf16):
+# fixed for a card and a build, so worked out once.
+_RESID_GRIDS: Dict[tuple, Dict[str, float]] = {}
+
+
+def gaussian_resid_block_grid(m: int, n: int, d: int, k: int, bf16: bool,
+                              device) -> Dict[str, float]:
+    """The grid :func:`gaussian_resid_block` launches for X (m, d), Y (n,
+    d) and k label columns on ``device`` (a card): its column tiles (128 of
+    Y's rows each), X's row tiles, row chunks (:func:`gaussian_resid_splits`)
+    and the row tiles a chunk (fewest, most), blocks, the label-tile width
+    and the label tiles (contraction passes a row tile), the kernel's
+    resident blocks an SM, registers and local (spilled) bytes a thread,
+    shared memory a block, and the waves. d picks the instance:
+    16-byte loads where d is a whole number of 16-byte chunks (contiguous
+    operands), element-wise otherwise."""
+    device = torch.device(device)
+    key = (device.index, m, n, d, k, bool(bf16))
+    grid = _RESID_GRIDS.get(key)
+    if grid is None:
+        out = (ctypes.c_int * 5)()
+        vec = d % (8 if bf16 else 4) == 0
+        with torch.cuda.device(device):
+            err = _lib("gaussian_resid_block").kt_gaussian_resid_block_config(
+                k, int(bf16), int(vec), out)
+        _check_launch("gaussian_resid_block", err)
+        ktile, bps, regs, local, smem = out
+        tiles, row_tiles = -(-n // 128), -(-m // 128)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        splits = gaussian_resid_splits(m, n, sms, bps)
+        grid = _grid(dict(tiles=tiles, row_tiles=row_tiles, splits=splits,
+                          chunk_tiles=(row_tiles // splits, -(-row_tiles // splits)),
+                          blocks=tiles * splits, ktile=ktile, label_tiles=-(-k // ktile),
+                          blocks_per_sm=bps,
+                          registers=regs, local_bytes=local, smem_bytes=smem), sms)
+        _RESID_GRIDS[key] = grid
+    return grid
 
 
 def gaussian_resid_block(X, Y, x_norms, y_norms, W, gamma: float,
@@ -1074,8 +1197,9 @@ def gaussian_resid_block(X, Y, x_norms, y_norms, W, gamma: float,
     contiguous rows; x_norms (m,), y_norms (n,); W: (m, k) the dual model,
     taken as float32. Returns (n, k) float32. Rows of X past m are masked
     in the kernel, not read, so W needs no ghost rows. The sum over the m
-    rows is split into chunks whose partial sums add in a fixed order: no
-    atomics, the same bits every run.
+    rows is split into chunks of whole row tiles that fill whole waves of
+    the card (:func:`gaussian_resid_splits`), whose partial sums add in a
+    fixed order: no atomics, the same bits every run.
     """
     if all(t.device.type == "cpu" for t in (X, Y, x_norms, y_norms, W)):
         return gaussian_resid_block_ref(X, Y, x_norms, y_norms, W, gamma, compute_dtype)
@@ -1096,7 +1220,7 @@ def gaussian_resid_block(X, Y, x_norms, y_norms, W, gamma: float,
         return out
     if m == 0:
         return out.zero_()
-    splits = _resid_splits(m, n, device)
+    splits = gaussian_resid_block_grid(m, n, d, k, Xk.dtype == torch.bfloat16, device)["splits"]
     partials = None
     if splits > 1:
         partials = torch.empty((splits, n, k), dtype=torch.float32, device=device)

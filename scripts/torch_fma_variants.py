@@ -2,56 +2,72 @@
 
     python3 scripts/torch_fma_variants.py [--out build/torch_fma_variants.json]
                                           [--kernels NAME ...]
-    python3 scripts/torch_fma_variants.py --root DIR [--out FILE]
+    python3 scripts/torch_fma_variants.py --root DIR [DIR ...] [--out FILE]
 
-Builds variants of the four kernels on ``keystone_tpu_torch/csrc/fma_pipe.cuh``
+Builds variants of the six kernels on ``keystone_tpu_torch/csrc/fma_pipe.cuh``
 (``block_corr.cu``, ``gram_corr.cu``, ``block_residual_update.cu``,
-``gaussian_kernel_block.cu``) that differ from them in one constant (or
-two) each, of the kernel's source or of the header: ``STAGES``, the ring's
-depth; ``BK``, the reduction steps a stage (of the Gramian in
-``gram_corr``); ``KT_WIDE``, the label tile of k > 32 (128 takes k = 147 in
-two tiles, the second masked past column 19); ``MINB``, the blocks an SM
-the registers are capped for; ``CORR_MI``, the columns of A a thread of a
-``gram_corr`` correlation block, x 16 a block; ``NJ``, the output columns a
-thread of ``gaussian_kernel_block`` (16: 128 x 256 tiles, at one block an
-SM; the wider tile's block counts are printed as if it were 128 wide); and
-the order of ``gaussian_kernel_block``'s grid (column tiles first). Each
-variant is built in a directory of its own under
+``gaussian_kernel_block.cu``, ``gaussian_resid_block.cu``,
+``cosine_features.cu``) that differ from them in one constant (or two) each,
+of the kernel's source or of the header: ``STAGES``, the ring's depth;
+``BK``, the reduction steps a stage (of the Gramian in ``gram_corr``);
+``KT_WIDE``, the label tile of k > 32 (128 takes k = 147 in two tiles, the
+second masked past column 19); ``MINB``, the blocks an SM the registers are
+capped for; ``CORR_MI``, the columns of A a thread of a ``gram_corr``
+correlation block, x 16 a block; ``NJ``, the output columns a thread of
+``gaussian_kernel_block`` (16: 128 x 256 tiles, at one block an SM; the
+wider tile's block counts are printed as if it were 128 wide); the order of
+``gaussian_kernel_block``'s grid (column tiles first); whether
+``gaussian_resid_block`` keeps a row chunk's partial in registers across
+its row tiles at k <= 16 or adds each tile's share into it in device
+memory (its k > 16 form), ``KT``, the label columns of its contraction
+pass, and the width of its row-tile counters. Each variant is built in a directory of its own under
 ``build/keystone_tpu_torch/variants/`` (beside a copy of the header where the
 variant edits it), one ``nvcc`` each, all started together. Then, at the
 main path's shapes (``chip_smoke.py``'s: ``block_corr`` and
 ``block_residual_update`` at the TIMIT window, F 65,536 x 16,384 float32,
 columns [8192, 12288), R 65,536 x 147, dW 4,096 x 147; ``gram_corr``: A
 65,536 x 4,096, R 65,536 x 147; ``gaussian_kernel_block`` at the CIFAR
-route's four shapes, ``chip_smoke.cifar_gaussian_shapes``), it holds each
-variant against the plain version (the error relative to the sums' scale,
-as ``chip_smoke.py`` does; absolute for the Gaussian kernel, whose entries
-lie in [0, 1]; a ``gram_corr`` variant's outputs also against
-``gram_corr_sym``'s bits) and times it with CUDA events, beside the
-library yardstick (``Fw.T @ R``; ``A.T @ A`` and ``A.T @ R``; ``addmm(R,
-Fw, dW, alpha=-1)``; ``exp(addmm(...))``). ``block_corr`` is also timed as
-built at other row-chunk counts than the one ``cuda_ops.corr_splits``
-picks, and ``gaussian_kernel_block`` at other feature-chunk counts than
-``cuda_ops.gaussian_splits`` picks.
+route's four shapes, ``chip_smoke.cifar_gaussian_shapes``;
+``gaussian_resid_block`` at the CIFAR sweep, X 50,000 x 1,800, a 512-row
+block and the ragged 336-row one, W 50,000 x 10; ``cosine_features`` at
+one TIMIT branch, X 65,536 x 440, W 4,096 x 440, into its column window of
+the 16,384-wide fused feature matrix), it holds each variant against the
+plain version (the error relative to the sums' scale, as ``chip_smoke.py``
+does; absolute for the Gaussian and cosine kernels, whose entries lie in
+[0, 1] and [-1, 1]; a ``gram_corr`` variant's outputs also against
+``gram_corr_sym``'s bits, a ``gaussian_resid_block`` or
+``cosine_features`` variant's against the as-built variant's) and times
+it with CUDA events, beside the library yardstick (``Fw.T @ R``; ``A.T @
+A`` and ``A.T @ R``; ``addmm(R, Fw, dW, alpha=-1)``; ``exp(addmm(...))``
+and its product with W; ``cos(addmm(b, X, W.T))``). ``block_corr`` is also
+timed as built at other row-chunk counts than the one
+``cuda_ops.corr_splits`` picks, and ``gaussian_kernel_block`` at other
+feature-chunk counts than ``cuda_ops.gaussian_splits`` picks.
 
-With ``--root DIR`` it builds no variants: it imports ``keystone_tpu_torch``
-from the checkout at DIR and times that checkout's ``block_residual_update``
-(f32 and bf16 F) and ``gaussian_kernel_block`` (each CIFAR shape) through
-their wrappers, a call with CUDA events (``ms``: the host's time to launch
-included, which decides a short call) and the kernels it launches with
-``torch.profiler`` (``device_ms``), each held against its plain version and
-beside its library yardstick. So two checkouts, say a parent commit
-unpacked under ``build/`` and this one, are compared in turns in one call
-on one card (parent, change, change, parent); each builds its kernels into
-its own ``build/`` directory.
+With ``--root DIR [DIR ...]`` it builds no variants: it loads the
+``cuda_ops`` module of each checkout under a name of its own and times
+their ``block_residual_update`` (f32 and bf16 F), ``gaussian_kernel_block``
+(each CIFAR shape), ``gaussian_resid_block`` (both sweep blocks, f32 and
+bf16 operands) and ``cosine_features`` (f32, bf16 operands, bf16 output,
+and f32 into the fused matrix's window) through their wrappers, in turns
+in one process on one card (first to last checkout and back: parent,
+change, change, parent for two), a call with CUDA events (``ms``: the
+host's time to launch included, which decides a short call) and the
+calls queued back to back on the card (``chip_smoke.device_ms``), each held
+against its plain version, beside its library yardstick, and against the
+first checkout's output on the same inputs (``bits_of_first_root``,
+``max_diff_from_first_root``). Each checkout builds its kernels into its
+own ``build/`` directory; a parent commit unpacked under ``build/`` is
+compared with this one in one call.
 
-Prints one line a variant (or shape) and writes the numbers, with the
-card's name and power limit, as JSON to ``--out``. Needs a CUDA device;
+Prints one line a variant (or shape, a turn) and writes the numbers, with
+the card's name and power limit, as JSON to ``--out``. Needs a CUDA device;
 exits non-zero without one.
 """
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -62,8 +78,9 @@ import torch
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 from chip_smoke import (  # noqa: E402  (the shapes and timers chip_smoke.py uses)
-    BLOCK, CIFAR_D, CIFAR_GAMMA, CIFAR_N, CIFAR_TEST, COL_START, D_FEAT, K,
-    N_TRAIN as N, cifar_gaussian_shapes, device_ms, time_ms)
+    BLOCK, CIFAR_BLOCK, CIFAR_BLOCKS, CIFAR_D, CIFAR_GAMMA, CIFAR_K, CIFAR_N, CIFAR_TEST,
+    COL_START, D_FEAT, D_IN, K, N_TRAIN as N, cifar_gaussian_shapes, device_ms, time_ms)
+
 
 HEADER = "fma_pipe.cuh"
 # (kernel, name, edits): each edit (file, the line, its replacement), the
@@ -118,7 +135,44 @@ VARIANTS = [
        "const long long j0 = (long long)blockIdx.x * TN;"),
       ("", "const dim3 grid((m + TM - 1) / TM, (n + TN - 1) / TN, splits);",
        "const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM, splits);"))),
+    ("gaussian_resid_block", "as built", ()),
+    ("gaussian_resid_block", "partial through device memory (the k > 16 form)",
+     (("", "return k <= KT ? resid_kernel<TIn, VEC, true>",
+       "return k < 0 ? resid_kernel<TIn, VEC, true>"),)),
+    ("gaussian_resid_block", "STAGES 2",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+    ("gaussian_resid_block", "STAGES 4",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("gaussian_resid_block", "BK 16", (("", "constexpr int BK = 8;", "constexpr int BK = 16;"),)),
+    ("gaussian_resid_block", "MINB 1",
+     (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
+    ("gaussian_resid_block", "32-wide label passes",
+     (("", "constexpr int KT = 16;", "constexpr int KT = 32;"),)),
+    ("gaussian_resid_block", "64-bit row-tile counters",
+     (("", """  const int tiles = (m + TM - 1) / TM;
+  const int t0 = static_cast<int>((long long)blockIdx.y * tiles / splits);
+  const int t1 = static_cast<int>(((long long)blockIdx.y + 1) * tiles / splits);""",
+       """  const long long tiles = ((long long)m + TM - 1) / TM;
+  const long long t0 = blockIdx.y * tiles / splits;
+  const long long t1 = (blockIdx.y + 1) * tiles / splits;"""),
+      ("", "  for (int t = t0; t < t1; ++t) {", "  for (long long t = t0; t < t1; ++t) {"))),
+    ("cosine_features", "as built", ()),
+    ("cosine_features", "STAGES 2",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+    ("cosine_features", "STAGES 4",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("cosine_features", "BK 8, STAGES 2",
+     (("", "constexpr int BK = 16;", "constexpr int BK = 8;"),
+      ("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"))),
+    ("cosine_features", "BK 8", (("", "constexpr int BK = 16;", "constexpr int BK = 8;"),)),
+    ("cosine_features", "BK 8, STAGES 4",
+     (("", "constexpr int BK = 16;", "constexpr int BK = 8;"),
+      ("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"))),
+    ("cosine_features", "MINB 1",
+     (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
 ]
+
+
 def build(cuda_ops, kernels):
     """Compile every variant of ``kernels``; returns (kernel, name) -> the
     loaded library."""
@@ -362,18 +416,18 @@ def gaussian_rows(cuda_ops, libs, stream, sms):
 
 def residual_wrapper_rows(cuda_ops):
     """block_residual_update through its wrapper at the TIMIT window, f32
-    and bf16 F."""
+    and bf16 F; returns the rows and the outputs by row."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     F = torch.randn((N, D_FEAT), generator=gen, device=dev)
     R = torch.randn((N, K), generator=gen, device=dev)
     dW = torch.randn((BLOCK, K), generator=gen, device=dev) * 0.01
-    rows = {}
+    rows, outs = {}, {}
     for label, dtype in (("f32 F", torch.float32), ("bf16 F", torch.bfloat16)):
         Fk = F.to(dtype)
         Fw = Fk[:, COL_START:COL_START + BLOCK]
         want = cuda_ops.block_residual_update_ref(Fk, COL_START, BLOCK, dW, R)
-        got = cuda_ops.block_residual_update(Fk, COL_START, BLOCK, dW, R)
+        got = outs[label] = cuda_ops.block_residual_update(Fk, COL_START, BLOCK, dW, R)
         scale = (R.abs() + Fw.float().abs() @ dW.to(dtype).float().abs()).max().item()
 
         def call():
@@ -387,22 +441,23 @@ def residual_wrapper_rows(cuda_ops):
         ms=time_ms(lambda: torch.addmm(R, Fw, dW, alpha=-1), 10))
     del F, R, dW, Fw
     torch.cuda.empty_cache()
-    return rows
+    return rows, outs
 
 
 def gaussian_wrapper_rows(cuda_ops):
-    """gaussian_kernel_block through its wrapper at each CIFAR shape."""
+    """gaussian_kernel_block through its wrapper at each CIFAR shape;
+    returns the rows and the outputs by row."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     g = CIFAR_GAMMA
     X = torch.randn((CIFAR_N, CIFAR_D), generator=gen, device=dev)
     Xt = torch.randn((CIFAR_TEST, CIFAR_D), generator=gen, device=dev)
     xn, xtn = (X * X).sum(1), (Xt * Xt).sum(1)
-    rows = {}
+    rows, outs = {}, {}
     for label, (A, B, an, bn, _) in cifar_gaussian_shapes(X, xn, Xt, xtn).items():
         reps = 10 if A.shape[0] > 1000 else 50
         want = cuda_ops.gaussian_kernel_block_ref(A, B, an, bn, g)
-        got = cuda_ops.gaussian_kernel_block(A, B, an, bn, g)
+        got = outs[label] = cuda_ops.gaussian_kernel_block(A, B, an, bn, g)
         xyn = an[:, None] + bn[None, :]
 
         def call():
@@ -416,6 +471,240 @@ def gaussian_wrapper_rows(cuda_ops):
         del want, got, xyn
     del X, Xt, xn, xtn
     torch.cuda.empty_cache()
+    return rows, outs
+
+
+def resid_wrapper_rows(cuda_ops):
+    """gaussian_resid_block through its wrapper at the CIFAR sweep's two
+    block sizes (512 rows and the ragged 336), f32 and bf16 operands;
+    returns the rows and the outputs by row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g, k = CIFAR_GAMMA, CIFAR_K
+    X = torch.randn((CIFAR_N, CIFAR_D), generator=gen, device=dev)
+    xn = (X * X).sum(1)
+    W = torch.randn((CIFAR_N, k), generator=gen, device=dev) * 0.01
+    last = (CIFAR_BLOCKS - 1) * CIFAR_BLOCK
+    rows, outs = {}, {}
+    for label, (Y, yn) in {"block": (X[2 * CIFAR_BLOCK:3 * CIFAR_BLOCK],
+                                     xn[2 * CIFAR_BLOCK:3 * CIFAR_BLOCK]),
+                           "ragged block": (X[last:], xn[last:])}.items():
+        for dlabel, dtype in (("f32", torch.float32), ("bf16 operands", torch.bfloat16)):
+            want = cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g, compute_dtype=dtype)
+            K_ = cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g, compute_dtype=dtype)
+            scale = (K_.T @ W.abs()).max().item()
+            got = outs[f"{label}, {dlabel}"] = cuda_ops.gaussian_resid_block(
+                X, Y, xn, yn, W, g, compute_dtype=dtype)
+
+            def call():
+                return cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g, compute_dtype=dtype)
+
+            rows[f"{label}, {dlabel}"] = dict(
+                rel_err=(got - want).abs().max().item() / scale, ms=time_ms(call, 10),
+                device_ms=device_ms(call, 10))
+            del want, K_
+        xyn = xn[:, None] + yn[None, :]
+        rows[f"library: exp(addmm(...)).T @ W, {label}"] = dict(
+            ms=time_ms(lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_().T @ W, 10))
+        del xyn
+    del X, W, xn
+    torch.cuda.empty_cache()
+    return rows, outs
+
+
+def cosine_wrapper_rows(cuda_ops):
+    """cosine_features through its wrapper at one TIMIT branch, f32, bf16
+    operands and bf16 output into a fresh (m, n) output, and f32 into its
+    column window of the (65,536, 16,384) fused feature matrix (the flat
+    route's call); returns the rows and the outputs by row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m, d, n = N, D_IN, BLOCK
+    X = torch.randn((m, d), generator=gen, device=dev) * 0.6
+    W = torch.randn((n, d), generator=gen, device=dev) * 0.05555
+    b = torch.rand((n,), generator=gen, device=dev) * 6.283185307179586
+    fused = torch.empty((m, D_FEAT), device=dev)
+    window = fused[:, COL_START:COL_START + n]
+    rows, outs = {}, {}
+    cases = {
+        "f32": (torch.float32, None, None),
+        "bf16 operands": (torch.bfloat16, None, None),
+        "bf16 output": (torch.float32, torch.bfloat16, None),
+        "f32 into the fused matrix's window": (torch.float32, None, window),
+    }
+    for label, (compute, out_dtype, out) in cases.items():
+        want = cuda_ops.cosine_features_ref(X, W, b, compute, out_dtype)
+
+        def call():
+            return cuda_ops.cosine_features(X, W, b, compute_dtype=compute, out_dtype=out_dtype,
+                                            out=out)
+
+        got = call()
+        outs[label] = got.clone()
+        rows[label] = dict(abs_err=(got.float() - want.float()).abs().max().item(),
+                           ms=time_ms(call, 10), device_ms=device_ms(call, 10))
+        del want, got
+    rows["library: cos(addmm(b, X, W.T))"] = dict(
+        ms=time_ms(lambda: torch.cos(torch.addmm(b, X, W.T)), 10))
+    del X, W, b, fused, window
+    torch.cuda.empty_cache()
+    return rows, outs
+
+
+# The wrappers timed in --root mode: kernel -> rows function.
+WRAPPER_ROWS = {
+    "block_residual_update": residual_wrapper_rows,
+    "gaussian_kernel_block": gaussian_wrapper_rows,
+    "gaussian_resid_block": resid_wrapper_rows,
+    "cosine_features": cosine_wrapper_rows,
+}
+
+
+def load_cuda_ops(root, index):
+    """The ``cuda_ops`` module of the checkout at ``root``, loaded under a
+    name of its own, so several checkouts' kernels run in one process (each
+    builds into its own ``build/`` directory)."""
+    path = os.path.join(root, "keystone_tpu_torch", "ops", "cuda_ops.py")
+    spec = importlib.util.spec_from_file_location(f"cuda_ops_{index}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def compare_roots(roots):
+    """Each checkout's wrappers (WRAPPER_ROWS) in turns, first to last and
+    back (parent, change, change, parent for two), in one process on one
+    card; every output held against the first checkout's first turn: the
+    same bits, or the largest difference."""
+    modules = [load_cuda_ops(root, i) for i, root in enumerate(roots)]
+    for module in modules:
+        module.build(list(WRAPPER_ROWS))
+    order = list(range(len(roots))) + list(reversed(range(len(roots))))
+    first, turns = {}, []
+    for i in order:
+        turn = dict(root=roots[i])
+        for kernel, rows_of in WRAPPER_ROWS.items():
+            rows, outs = rows_of(modules[i])
+            for label, out in outs.items():
+                if (kernel, label) not in first:
+                    first[kernel, label] = out
+                ref = first[kernel, label]
+                rows[label]["bits_of_first_root"] = bool(torch.equal(out, ref))
+                rows[label]["max_diff_from_first_root"] = (
+                    out.float() - ref.float()).abs().max().item()
+            turn[kernel] = rows
+            del outs
+        turns.append(turn)
+    return turns
+
+
+def resid_rows(cuda_ops, libs, stream, sms):
+    """Each gaussian_resid_block variant at the CIFAR sweep's shapes (one
+    512-row block, and the ragged last one of 336 rows, against the 50,000
+    training rows; k = 10), with the row chunks gaussian_resid_splits picks
+    for its resident blocks an SM; each held against the plain version (the
+    error relative to the sums' scale) and against the as-built variant's
+    bits (every variant keeps each entry's fmaf chain)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    d, g, k = CIFAR_D, CIFAR_GAMMA, CIFAR_K
+    X = torch.randn((CIFAR_N, d), generator=gen, device=dev)
+    xn = (X * X).sum(1)
+    W = torch.randn((CIFAR_N, k), generator=gen, device=dev) * 0.01
+    last = (CIFAR_BLOCKS - 1) * CIFAR_BLOCK
+    shapes = {"block": (X[2 * CIFAR_BLOCK:3 * CIFAR_BLOCK], xn[2 * CIFAR_BLOCK:3 * CIFAR_BLOCK]),
+              "ragged block": (X[last:], xn[last:])}
+    rows, built = {}, {}
+    flops = {label: 2 * CIFAR_N * Y.shape[0] * (d + k) for label, (Y, _) in shapes.items()}
+    for (kernel, name), lib in libs.items():
+        if kernel != "gaussian_resid_block":
+            continue
+        cfg = (ctypes.c_int * 5)()
+        lib.kt_gaussian_resid_block_config(k, 0, 1, cfg)
+        ktile, bps, regs, local, smem = cfg
+        for label, (Y, yn) in shapes.items():
+            n = Y.shape[0]
+            splits = cuda_ops.gaussian_resid_splits(CIFAR_N, n, sms, bps)
+            P = torch.empty((splits, n, k), device=dev)
+            C = torch.empty((n, k), device=dev)
+
+            def call():
+                err = lib.kt_gaussian_resid_block(
+                    X.data_ptr(), Y.data_ptr(), xn.data_ptr(), yn.data_ptr(), W.data_ptr(),
+                    P.data_ptr(), C.data_ptr(), CIFAR_N, n, d, k, X.stride(0), Y.stride(0),
+                    W.stride(0), splits, g, 0, stream)
+                if err:
+                    raise RuntimeError(f"gaussian_resid_block {name}: launch failed ({err})")
+
+            call()
+            torch.cuda.synchronize()
+            want = cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g)
+            scale = (cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g).T @ W.abs()).max().item()
+            if name == "as built":
+                built[label] = C.clone()
+            ms = time_ms(call, 10)
+            rows[f"{name}, {label}"] = dict(
+                rel_err=(C - want).abs().max().item() / scale,
+                bits_of_as_built=bool(torch.equal(C, built[label])), splits=splits,
+                blocks=-(-n // 128) * splits, ktile=ktile, blocks_per_sm=bps, registers=regs,
+                local_bytes=local, smem_bytes=smem, ms=ms, tflops=flops[label] / ms / 1e9)
+    for label, (Y, yn) in shapes.items():
+        xyn = xn[:, None] + yn[None, :]
+
+        def library():
+            return torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_().T @ W
+
+        ms = time_ms(library, 10)
+        rows[f"library: exp(addmm(...)).T @ W, {label}"] = dict(
+            ms=ms, tflops=flops[label] / ms / 1e9)
+    del X, W, xn, shapes
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cosine_rows(cuda_ops, libs, stream, sms):
+    """Each cosine_features variant at one TIMIT branch (X 65,536 x 440,
+    W 4,096 x 440, f32), written as the flat route writes it: into its
+    column window of the (65,536, 16,384) fused feature matrix; held
+    against the plain version and the as-built variant's bits."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m, d, n = N, D_IN, BLOCK
+    X = torch.randn((m, d), generator=gen, device=dev) * 0.6
+    W = torch.randn((n, d), generator=gen, device=dev) * 0.05555
+    b = torch.rand((n,), generator=gen, device=dev) * 6.283185307179586
+    fused = torch.empty((m, D_FEAT), device=dev)
+    out = fused[:, COL_START:COL_START + n]
+    want = cuda_ops.cosine_features_ref(X, W, b)
+    flops = 2 * m * n * d
+    rows, built = {}, None
+    for (kernel, name), lib in libs.items():
+        if kernel != "cosine_features":
+            continue
+        cfg = (ctypes.c_int * 3)()
+        lib.kt_cosine_features_config(0, 0, 1, cfg)
+        bps, regs, local = cfg
+
+        def call():
+            err = lib.kt_cosine_features(
+                X.data_ptr(), W.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d, X.stride(0),
+                W.stride(0), out.stride(0), 0, 0, stream)
+            if err:
+                raise RuntimeError(f"cosine_features {name}: launch failed ({err})")
+
+        call()
+        torch.cuda.synchronize()
+        if name == "as built":
+            built = out.clone()
+        ms = time_ms(call, 10)
+        rows[name] = dict(abs_err=(out - want).abs().max().item(),
+                          bits_of_as_built=bool(torch.equal(out, built)),
+                          blocks=-(-m // 128) * -(-n // 128), blocks_per_sm=bps, registers=regs,
+                          local_bytes=local, ms=ms, tflops=flops / ms / 1e9)
+    ms = time_ms(lambda: torch.cos(torch.addmm(b, X, W.T)), 10)
+    rows["library: cos(addmm(b, X, W.T))"] = dict(ms=ms, tflops=flops / ms / 1e9)
+    del X, W, b, fused, out, want, built
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -425,6 +714,8 @@ ROWS = {
     "gram_corr": lambda cuda_ops, libs, stream, sms: gram_corr_rows(cuda_ops, libs, stream),
     "block_residual_update": block_residual_rows,
     "gaussian_kernel_block": gaussian_rows,
+    "gaussian_resid_block": resid_rows,
+    "cosine_features": cosine_rows,
 }
 
 
@@ -432,39 +723,36 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="build/torch_fma_variants.json")
     parser.add_argument("--kernels", nargs="+", default=list(ROWS),
-                        help="the kernels to build and time (default: all four)")
-    parser.add_argument("--root", help="time the wrappers of the checkout at this directory "
-                        "instead of building variants")
+                        help="the kernels to build and time (default: all six)")
+    parser.add_argument("--root", nargs="+",
+                        help="time the wrappers of the checkouts at these directories in turns "
+                        "(first to last and back) instead of building variants")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_fma_variants: no CUDA device is available", file=sys.stderr)
         return 2
-    root = os.path.abspath(args.root or _REPO)
-    sys.path.insert(0, root)
-    from keystone_tpu_torch.ops import cuda_ops
-
-    if not os.path.abspath(cuda_ops.__file__).startswith(root + os.sep):
-        raise RuntimeError(f"imported {cuda_ops.__file__}, not the checkout at {root}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    result = dict(card=card, root=root)
     if args.root:
-        cuda_ops.build(["block_residual_update", "gaussian_kernel_block"])
-        result["block_residual_update"] = residual_wrapper_rows(cuda_ops)
-        result["gaussian_kernel_block"] = gaussian_wrapper_rows(cuda_ops)
+        turns = compare_roots([os.path.abspath(root) for root in args.root])
+        result = dict(card=card, turns=turns)
     else:
+        from keystone_tpu_torch.ops import cuda_ops
+
         libs = build(cuda_ops, args.kernels)
         stream = torch.cuda.current_stream().cuda_stream
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        for kernel in args.kernels:
-            result[kernel] = ROWS[kernel](cuda_ops, libs, stream, sms)
-    for kernel, rows in result.items():
-        if not isinstance(rows, dict):
-            continue
-        for name, r in rows.items():
-            extra = {key: v for key, v in r.items() if key not in ("ms", "tflops")}
-            tflops = f", {r['tflops']:5.1f} TFLOP/s" if "tflops" in r else ""
-            print(f"{root}: {kernel} {name:>24}: {r['ms']:8.3f} ms{tflops}, {extra}")
+        turns = [dict(root=_REPO, **{kernel: ROWS[kernel](cuda_ops, libs, stream, sms)
+                                    for kernel in args.kernels})]
+        result = dict(card=card, **turns[0])
+    for turn in turns:
+        for kernel, rows in turn.items():
+            if not isinstance(rows, dict):
+                continue
+            for name, r in rows.items():
+                extra = {key: v for key, v in r.items() if key not in ("ms", "tflops")}
+                tflops = f", {r['tflops']:5.1f} TFLOP/s" if "tflops" in r else ""
+                print(f"{turn['root']}: {kernel} {name:>24}: {r['ms']:8.3f} ms{tflops}, {extra}")
     print(card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

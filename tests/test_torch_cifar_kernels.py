@@ -175,6 +175,62 @@ class TestGaussianSplits:
         assert cuda_ops.gaussian_splits(0, 512, 1800, 132, 2) == 1
 
 
+def _tile_fill(row_tiles, col_tiles, splits, resident):
+    """The share of the tile slots of its waves that a gaussian_resid_block
+    grid fills: each wave lasts as long as the longest row chunk,
+    ceil(row_tiles / splits) row tiles."""
+    blocks = col_tiles * splits
+    waves = -(-blocks // resident)
+    return col_tiles * row_tiles / (waves * resident * -(-row_tiles // splits))
+
+
+class TestResidSplits:
+    """The row-chunk arithmetic of gaussian_resid_block
+    (``cuda_ops.gaussian_resid_splits``), a pure function of the shapes and
+    the card: chunk z of s takes X's row tiles [z T / s, (z + 1) T / s)."""
+
+    @pytest.mark.parametrize("blocks_per_sm,want", [(1, 33), (2, 66)])
+    def test_cifar_sweep_fills_one_wave_of_132_sms(self, blocks_per_sm, want):
+        # 391 row tiles x 4 column tiles (a 512-row block): 66 chunks of
+        # 5-6 tiles at 2 blocks an SM, 264 blocks; blocks alone would take
+        # 63 chunks of 6-7 tiles.
+        splits = cuda_ops.gaussian_resid_splits(50000, 512, 132, blocks_per_sm)
+        assert splits == want
+        assert 4 * splits == 132 * blocks_per_sm
+        assert _tile_fill(391, 4, splits, 132 * blocks_per_sm) >= 0.95
+
+    @pytest.mark.parametrize("blocks_per_sm", [1, 2])
+    @pytest.mark.parametrize("n", [512, 336, 128, 1])
+    @pytest.mark.parametrize("m", [50000, 49999, 12500, 1000, 129, 128, 100, 1])
+    def test_whole_row_tiles_no_empty_chunk_and_the_best_fill(self, m, n, blocks_per_sm):
+        resident = 132 * blocks_per_sm
+        T, tiles = -(-m // 128), -(-n // 128)
+        splits = cuda_ops.gaussian_resid_splits(m, n, 132, blocks_per_sm)
+        # Whole row tiles a chunk, none empty: s <= T gives every chunk
+        # [z T / s, (z + 1) T / s) at least one tile, and the chunks cover
+        # the tiles once.
+        assert 1 <= splits <= T
+        bounds = [z * T // splits for z in range(splits + 1)]
+        assert bounds[0] == 0 and bounds[-1] == T
+        assert all(b1 - b0 >= 1 for b0, b1 in zip(bounds, bounds[1:]))
+        fills = [_tile_fill(T, tiles, s, resident) for s in range(1, T + 1)]
+        if max(fills) >= 0.95:  # the fewest chunks that come within 5% of whole waves
+            assert _tile_fill(T, tiles, splits, resident) >= 0.95
+            assert all(f < 0.95 for f in fills[:splits - 1])
+        else:  # else the count that fills most
+            assert _tile_fill(T, tiles, splits, resident) == pytest.approx(max(fills))
+
+    def test_same_answer_on_every_call(self):
+        shapes = [(50000, 512), (50000, 336), (12500, 512), (300, 40)]
+        first = [cuda_ops.gaussian_resid_splits(m, n, 132, 2) for m, n in shapes]
+        assert all([cuda_ops.gaussian_resid_splits(m, n, 132, 2) for m, n in shapes] == first
+                   for _ in range(3))
+
+    def test_config_entry_point_is_bound(self):
+        assert "kt_gaussian_resid_block_config" in [
+            symbol for symbol, _ in cuda_ops._EXTRA_SYMBOLS["gaussian_resid_block"]]
+
+
 # ---------------------------------------------------------------------------
 # Kernel against plain version: needs the card
 # ---------------------------------------------------------------------------
@@ -188,7 +244,13 @@ def cuda_device():
 
 
 GAUSS_SHAPES = [(37, 45, 23), (200, 130, 70), (129, 257, 9), (1, 1, 1), (1030, 513, 1800)]
-RESID_SHAPES = [(300, 40, 30, 5), (130, 129, 17, 1), (517, 200, 12, 35), (5000, 512, 300, 10)]
+# k = 1, 10 and 16 take one 16-wide label pass and hold the partial in
+# registers; 17, 33, 35, 147 and 170 take 2 to 11 passes through device
+# memory; d % 4 != 0 (30, 17, 1801) loads element by element; m = 100 is
+# below one row tile.
+RESID_SHAPES = [(300, 40, 30, 5), (130, 129, 17, 1), (517, 200, 12, 35), (5000, 512, 300, 10),
+                (100, 60, 1801, 33), (1000, 130, 64, 147), (700, 336, 1800, 10),
+                (260, 33, 8, 170), (3000, 512, 1801, 1), (390, 70, 20, 16), (390, 70, 20, 17)]
 CONV_SHAPES = [(3, 12, 10, 3, 5, 5), (2, 9, 9, 2, 3, 4), (2, 12, 11, 3, 6, 130),
                (37, 32, 32, 3, 6, 100)]
 
@@ -289,6 +351,39 @@ class TestKernelsOnCard:
         want = cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, 0.7, compute_dtype=dtype)
         assert got.shape == (n, k)
         assert (got - want).abs().max().item() <= 1e-5 * scale
+
+    @pytest.mark.parametrize("k", [1, 10, 33, 147])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_gaussian_resid_block_odd_row_slice(self, cuda_device, k, dtype):
+        # Y a row slice of X at an odd row with odd d: not 16-byte aligned,
+        # so X and Y load element by element; W a column slice (ldw > k).
+        X, _, xn, _, W = _gauss(700, 1, 301, k=k + 3, seed=k, device=cuda_device)
+        Y, yn, W = X[129:460], xn[129:460], W[:, 1:k + 1]
+        got = cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, 0.7, compute_dtype=dtype)
+        again = cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, 0.7, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        K = cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, 0.7, compute_dtype=dtype)
+        scale = (K.T @ W.abs()).max().item()
+        want = cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, 0.7, compute_dtype=dtype)
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_resid_grids(self, cuda_device, bf16):
+        # The sweep's shapes at d = 1,800 and k = 10: one 16-wide label pass,
+        # row chunks from gaussian_resid_splits, no spills, at most 128
+        # registers at 2 blocks an SM, and under 110 KB of shared memory.
+        for n in (512, 336):
+            grid = cuda_ops.gaussian_resid_block_grid(50000, n, 1800, 10, bf16, cuda_device)
+            bps, sms = grid["blocks_per_sm"], grid["sms"]
+            assert grid["splits"] == cuda_ops.gaussian_resid_splits(50000, n, sms, bps)
+            assert grid["blocks"] == grid["tiles"] * grid["splits"]
+            assert grid["ktile"] == 16 and grid["label_tiles"] == 1 and grid["row_tiles"] == 391
+            assert grid["local_bytes"] == 0
+            assert bps >= 2 and grid["registers"] <= 128
+            assert grid["smem_bytes"] <= 110 * 1024
+        wide = cuda_ops.gaussian_resid_block_grid(50000, 512, 1800, 147, bf16, cuda_device)
+        assert wide["label_tiles"] == 10 and wide["smem_bytes"] <= 110 * 1024
 
     @pytest.mark.parametrize("n,X,Y,C,p,k", CONV_SHAPES)
     @pytest.mark.parametrize("normalize,use_means", [(True, True), (True, False), (False, True)])

@@ -13,13 +13,20 @@ tests still run (``python -m pytest tests/test_torch_cuda_ops.py -m cuda
 
 Tolerances:
   - cosine features, f32 or bf16 operands with f32 output: 1e-5 absolute.
-    The polynomial cosine is within 3.8e-7 of cos for these |x|, and the
-    two float32 GEMMs sum d products in different orders.
+    Both sides evaluate the reference's polynomial cosine with the same
+    float32 arithmetic (``cuda_ops.fast_cos`` has ``pallas_ops._fast_cos``'s
+    bits); the two float32 GEMMs sum d products in different orders. The
+    wide-|x| cases (pre-activations up to about 100, where the polynomial's
+    one-constant reduction is 10x less accurate than near 0) use inputs whose
+    products and sums are exact in float32, so the GEMMs agree exactly and
+    the cosines' arithmetic is what is compared.
   - cosine features with bf16 output: 2**-7 absolute, one bf16 step for
     values near 1 plus the f32 differences above.
   - Gramian + correlation: 1e-4 relative to the largest entry (the sums
     run over n rows in different orders).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -49,6 +56,18 @@ def _cosine_inputs(m, d, n, seed=0):
     return X, W, b
 
 
+def _exact_cosine_inputs(m, d, n, seed=0):
+    """Inputs whose pre-activations X Wᵀ + b are exact in float32 in any
+    summation order (X small integers, W and b multiples of 1/8) and reach
+    |x| of about 100: W's spread is set for a standard deviation of 25."""
+    rng = _rng(seed)
+    X = rng.integers(-4, 5, size=(m, d)).astype(np.float32)
+    top = max(1, round(8 * np.sqrt(3) * 25 / (np.sqrt(20 / 3) * np.sqrt(d))))
+    W = (rng.integers(-top, top + 1, size=(n, d)) / 8.0).astype(np.float32)
+    b = (rng.integers(0, 51, size=n) / 8.0).astype(np.float32)
+    return X, W, b
+
+
 def _gram_inputs(n, d, k, seed=0):
     rng = _rng(seed)
     A = rng.normal(size=(n, d)).astype(np.float32)
@@ -65,6 +84,7 @@ def _rel(got, want):
 
 
 COSINE_SHAPES = [(8, 16, 8), (37, 23, 45), (300, 70, 260)]
+WIDE_COSINE_SHAPES = [(37, 23, 45), (100, 441, 130), (300, 70, 260)]
 GRAM_SHAPES = [(64, 40, 7), (600, 300, 147), (130, 129, 1)]
 
 
@@ -101,6 +121,25 @@ class TestCosineFeaturesAgainstPallas:
         )
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2**-7)
+
+    @pytest.mark.parametrize("bound", [1.0, 10.0, 100.0, 300.0, 3000.0])
+    def test_fast_cos_has_the_reference_bits(self, jax_ref, bound):
+        pallas_ops, _ = jax_ref
+        x = np.linspace(-bound, bound, 20001, dtype=np.float32)
+        want = np.asarray(pallas_ops._fast_cos(x))
+        got = cuda_ops.fast_cos(_t(x)).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("m,d,n", WIDE_COSINE_SHAPES)
+    def test_wide_preactivations(self, jax_ref, m, d, n):
+        pallas_ops, _ = jax_ref
+        X, W, b = _exact_cosine_inputs(m, d, n)
+        pre = X.astype(np.float64) @ W.T.astype(np.float64) + b
+        assert np.abs(pre).max() > 50
+        want = np.asarray(pallas_ops.cosine_features(X, W, b, interpret=True))
+        got = cuda_ops.cosine_features_ref(_t(X), _t(W), _t(b)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
     def test_wrapper_takes_plain_version_on_cpu(self):
         X, W, b = _cosine_inputs(37, 23, 45, seed=3)
@@ -162,6 +201,10 @@ class TestWrapperContract:
         cuda_ops.reset_launch_counts()
         assert set(cuda_ops.launches.values()) == {0}
 
+    def test_cosine_config_entry_point_is_bound(self):
+        assert ("kt_cosine_features_config", [ctypes.c_int] * 3 + [ctypes.c_void_p]) in \
+            cuda_ops._EXTRA_SYMBOLS["cosine_features"]
+
     def test_library_name_tracks_the_source(self):
         path = cuda_ops._library_path("cosine_features")
         assert path.parent.name == "keystone_tpu_torch"
@@ -184,7 +227,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
-    @pytest.mark.parametrize("m,d,n", COSINE_SHAPES + [(1030, 440, 513)])
+    @pytest.mark.parametrize("m,d,n", COSINE_SHAPES + [(1030, 440, 513), (100, 101, 130)])
     @pytest.mark.parametrize("compute,out,atol", [
         (torch.float32, torch.float32, 1e-5),
         (torch.bfloat16, torch.float32, 1e-5),
@@ -194,11 +237,58 @@ class TestKernelsOnCard:
         X, W, b = (_t(a).to(cuda_device) for a in _cosine_inputs(m, d, n))
         before = cuda_ops.launches["cosine_features"]
         got = cuda_ops.cosine_features(X, W, b, compute_dtype=compute, out_dtype=out)
+        again = cuda_ops.cosine_features(X, W, b, compute_dtype=compute, out_dtype=out)
         torch.cuda.synchronize()
-        assert cuda_ops.launches["cosine_features"] == before + 1
+        assert cuda_ops.launches["cosine_features"] == before + 2
+        assert torch.equal(got, again)
         want = cuda_ops.cosine_features_ref(X, W, b, compute, out)
         assert got.dtype == out
         assert (got.float() - want.float()).abs().max().item() <= atol
+
+    @pytest.mark.parametrize("m,d,n", WIDE_COSINE_SHAPES)
+    @pytest.mark.parametrize("compute,out,atol", [
+        (torch.float32, torch.float32, 1e-5),
+        (torch.float32, torch.bfloat16, 2**-7),
+    ])
+    def test_cosine_features_wide_preactivations(self, cuda_device, m, d, n, compute, out, atol):
+        # Pre-activations up to about 100, exact in float32: the kernel's
+        # cosine against the reference's arithmetic in the plain version.
+        X, W, b = (_t(a).to(cuda_device) for a in _exact_cosine_inputs(m, d, n))
+        got = cuda_ops.cosine_features(X, W, b, compute_dtype=compute, out_dtype=out)
+        want = cuda_ops.cosine_features_ref(X, W, b, compute, out)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= atol
+
+    @pytest.mark.parametrize("ldo,start", [(600, 0), (600, 4), (600, 64), (600, 1), (600, 6),
+                                           (611, 0), (611, 4), (602, 2)])
+    @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+    def test_cosine_features_into_column_windows(self, cuda_device, ldo, start, out_dtype):
+        # Windows at any column and row stride leave the rest of the matrix
+        # as it was and give the bits of a fresh output. n = 513 leaves a
+        # ragged last column tile.
+        X, W, b = (_t(a).to(cuda_device) for a in _cosine_inputs(300, 70, 513, seed=4))
+        fused = torch.full((300, ldo), 7.0, dtype=out_dtype, device=cuda_device)
+        window = fused[:, start:start + 513]
+        got = cuda_ops.cosine_features(X, W, b, out=window)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == window.data_ptr()
+        assert torch.equal(window, cuda_ops.cosine_features(X, W, b, out_dtype=out_dtype))
+        rest = torch.ones_like(fused, dtype=torch.bool)
+        rest[:, start:start + 513] = False
+        assert bool((fused[rest] == 7.0).all())
+        want = cuda_ops.cosine_features_ref(X, W, b, out_dtype=out_dtype)
+        atol = 1e-5 if out_dtype == torch.float32 else 2**-7
+        assert (window.float() - want.float()).abs().max().item() <= atol
+
+    @pytest.mark.parametrize("bf16", [False, True])
+    @pytest.mark.parametrize("out_bf16", [False, True])
+    def test_cosine_grid(self, cuda_device, bf16, out_bf16):
+        # A TIMIT branch: 512 x 32 tiles of 128 x 128, one block each; no
+        # spills, and at two blocks an SM at most 128 registers.
+        grid = cuda_ops.cosine_features_grid(65536, 4096, 440, bf16, out_bf16, cuda_device)
+        assert grid["tiles"] == grid["blocks"] == 512 * 32
+        assert grid["local_bytes"] == 0
+        assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
 
     @pytest.mark.parametrize("n,d,k", GRAM_SHAPES + [(1000, 520, 147)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

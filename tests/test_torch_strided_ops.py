@@ -188,8 +188,9 @@ class TestWrappersOnTheCpu:
         assert all(before[name] != after[name] for name in before)
 
     def test_library_name_hashes_the_pipelined_header(self, tmp_path, monkeypatch):
-        # Four kernels include fma_pipe.cuh: an edit rebuilds them.
-        users = ("block_corr", "gram_corr", "block_residual_update", "gaussian_kernel_block")
+        # Six kernels include fma_pipe.cuh: an edit rebuilds them.
+        users = ("block_corr", "gram_corr", "block_residual_update", "gaussian_kernel_block",
+                 "gaussian_resid_block", "cosine_features")
         for name in users:
             assert '#include "fma_pipe.cuh"' in (cuda_ops._CSRC / f"{name}.cu").read_text()
         for src in (cuda_ops._CSRC).iterdir():
@@ -199,6 +200,22 @@ class TestWrappersOnTheCpu:
         header = tmp_path / "fma_pipe.cuh"
         header.write_text(header.read_text() + "\n// edited\n")
         assert all(cuda_ops._library_path(name) != path for name, path in before.items())
+
+    def test_gaussian_epilogue_is_defined_once(self):
+        # Both Gaussian kernels take the distance, clamp and exp from
+        # gaussian.cuh; neither keeps a copy of its own.
+        where = [p.name for p in sorted(cuda_ops._CSRC.iterdir())
+                 if "float gauss(" in p.read_text()]
+        assert where == ["gaussian.cuh"]
+        for name in ("gaussian_kernel_block", "gaussian_resid_block"):
+            assert '#include "gaussian.cuh"' in (cuda_ops._CSRC / f"{name}.cu").read_text()
+
+    def test_fma_tile_users(self):
+        # The cosine and resid kernels keep no FP32-FMA tile of their own and
+        # do not include the first-slice one.
+        for name in ("cosine_features", "gaussian_resid_block"):
+            text = (cuda_ops._CSRC / f"{name}.cu").read_text()
+            assert "fma_tile.cuh" not in text and "mainloop<" in text
 
     @pytest.mark.parametrize("constant", ["KT_NARROW", "KT_WIDE"])
     def test_label_tiles_are_defined_once(self, constant):
