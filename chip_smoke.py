@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port (all twelve: the TIMIT, CIFAR, sparse
-and sketched paths and the block update's ``sym=False`` route) from
-``keystone_tpu_torch/csrc/`` (one ``nvcc`` per source, all started
-together), then:
+Builds every CUDA kernel of the port (all twelve wrappers': the TIMIT,
+CIFAR, sparse and sketched paths and the block update's ``sym=False``
+route) from the ten sources of ``keystone_tpu_torch/csrc/`` (one ``nvcc``
+per source, all started together), then:
 
   1. holds each kernel against its plain PyTorch version on the card, at the
      shapes the TIMIT, CIFAR and sparse slices give it, with float32 and
@@ -16,12 +16,15 @@ together), then:
      cores, with the count of HGMMA instructions in its SASS checked at
      build time; f32 F beside two float32 ``addmm``) and on the ragged last
      chunk of 41,248 rows, in place and into a new buffer; ``gram_corr``
-     at the Gramian shape beside ``gram_corr_sym`` (both outputs its bits);
-     for the four kernels on the pipelined tile of ``csrc/fma_pipe.cuh``
-     (``block_corr``, ``gram_corr``, ``block_residual_update``,
-     ``gaussian_kernel_block``) also each grid: label tile and masked share,
-     blocks (and ``block_corr``'s row chunks, ``gaussian_kernel_block``'s
-     feature chunks), resident blocks an SM, waves, registers and spills;
+     at the Gramian shape beside ``gram_corr_sym`` (one kernel of
+     ``csrc/gram_corr.cu``, both outputs the same bits);
+     for the kernels on the pipelined tile of ``csrc/fma_pipe.cuh``
+     (``block_corr``, ``gram_corr``, ``block_gram_sym`` (the window's 528
+     upper tiles), ``block_residual_update``, ``gaussian_kernel_block``,
+     ``gaussian_resid_block``, ``cosine_features``) also each grid: label
+     tile and masked share, blocks (and ``block_corr``'s row chunks,
+     ``gaussian_kernel_block``'s feature chunks), resident blocks an SM,
+     waves, registers and spills;
      ``gaussian_kernel_block`` at each shape of the CIFAR route (train
      apply, test apply, diagonal block, ragged last diagonal block), each
      with its bound and its ``exp(addmm)`` yardstick;
@@ -67,8 +70,12 @@ together), then:
      per sweep step, every TIMIT kernel 0;
   7. measures where that fit's time goes: its Gauss-Seidel sweep with and
      without the per-step host sync of the solve's rescue decision, and a
-     warm fit and apply under ``torch.profiler`` (device time by name, the
-     device's busy share);
+     warm fit and apply under ``torch.profiler`` in a fresh process
+     (``python3 chip_smoke.py --cifar-profile``: device time by name, the
+     device's busy share), whose traced launches of each port kernel must
+     equal the launches the route counted, times the kernels a call
+     launches (the profiler lost records of the port's kernels late in
+     this long process, so a short profile fails the phase);
   8. runs the sparse ridge slice (``SparseLBFGSwithL2``): small on the card
      against its plain run on the CPU (the same weights and final loss),
      then at the Amazon geometry of the reference's bench row (n = 500,000
@@ -179,11 +186,11 @@ KERNELS = {
         replaces="keystone_tpu/ops/pallas_ops.py:391", path=FLAT,
     ),
     "gram_corr_sym": dict(
-        source="keystone_tpu_torch/csrc/gram_corr_sym.cu",
+        source="keystone_tpu_torch/csrc/gram_corr.cu",
         replaces="keystone_tpu/ops/pallas_ops.py:589", path=STACKED,
     ),
     "block_gram_sym": dict(
-        source="keystone_tpu_torch/csrc/block_gram_sym.cu",
+        source="keystone_tpu_torch/csrc/gram_corr.cu",
         replaces="keystone_tpu/ops/pallas_ops.py:704", path=FLAT,
     ),
     "block_corr": dict(
@@ -688,6 +695,19 @@ def phase_window_kernels(cuda_ops, gen):
         ),
     }
     F16 = F.to(torch.bfloat16)
+    r = results["block_gram_sym"]
+    r["grid"] = {}
+    for label, Fk in (("f32", F), ("bf16", F16)):
+        grid = r["grid"][label] = cuda_ops.block_gram_sym_grid(Fk, s, b)
+        log(f"  block_gram_sym {label} F grid: {grid['blocks']} upper tiles "
+            f"({'16-byte' if grid['vec'] else 'element-wise'} copies), {grid_line(grid)}")
+        check(f"block_gram_sym {label} computes the window's upper tiles only, spills nothing "
+              f"and holds 2 blocks an SM at <= 128 registers",
+              grid["blocks"] == (b // 128) * (b // 128 + 1) // 2 and grid["vec"]
+              and grid["local_bytes"] == 0 and grid["blocks_per_sm"] >= 2
+              and grid["registers"] <= 128,
+              f"{grid['blocks']} blocks, {grid['local_bytes']} local bytes, "
+              f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
     bf16_calls = {
         "block_gram_sym": lambda: cuda_ops.block_gram_sym(F16, s, b),
         "block_corr": lambda: cuda_ops.block_corr(F16, s, b, R),
@@ -1268,6 +1288,25 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
     return results
 
 
+def cifar_config(cifar):
+    """RandomPatchCifarKernel at full width: 50,000 images, 100 filters,
+    KRR block 512, 1 epoch."""
+    return cifar.CifarConfig(synthetic_n=CIFAR_N, num_filters=CIFAR_FILTERS,
+                             block_size=CIFAR_BLOCK, kernel_gamma=CIFAR_GAMMA, num_epochs=1)
+
+
+def cifar_launches(cuda_ops, fusion):
+    """Each wrapper's launches in one full-width CIFAR fit and train and
+    test apply."""
+    expected = {name: 0 for name in cuda_ops.launches}
+    expected.update(
+        conv_featurize=2 * _conv_launches(fusion, CIFAR_N) + _conv_launches(fusion, CIFAR_TEST),
+        gaussian_kernel_block=3 * CIFAR_BLOCKS,  # diagonal pre-pass, train apply, test apply
+        gaussian_resid_block=CIFAR_BLOCKS,  # one per sweep step, 1 epoch
+    )
+    return expected
+
+
 def phase_cifar(cuda_ops, fusion):
     """RandomPatchCifarKernel: small on the card against the CPU plain run,
     then at full width through its entry point, launches counted from 0."""
@@ -1286,14 +1325,8 @@ def phase_cifar(cuda_ops, fusion):
           "CPU plain versions", errs["cuda"] == errs["cpu"],
           f"train/test error cuda {errs['cuda']}, cpu {errs['cpu']} (equal)")
 
-    config = cifar.CifarConfig(synthetic_n=CIFAR_N, num_filters=CIFAR_FILTERS,
-                               block_size=CIFAR_BLOCK, kernel_gamma=CIFAR_GAMMA, num_epochs=1)
-    expected = {name: 0 for name in cuda_ops.launches}
-    expected.update(
-        conv_featurize=2 * _conv_launches(fusion, CIFAR_N) + _conv_launches(fusion, CIFAR_TEST),
-        gaussian_kernel_block=3 * CIFAR_BLOCKS,  # diagonal pre-pass, train apply, test apply
-        gaussian_resid_block=CIFAR_BLOCKS,  # one per sweep step, 1 epoch
-    )
+    config = cifar_config(cifar)
+    expected = cifar_launches(cuda_ops, fusion)
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1325,20 +1358,141 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def phase_cifar_time(result, config):
+def function_name(demangled):
+    """A demangled kernel name's bare function name: without its return
+    type, namespaces, template arguments and parameter list."""
+    depth, bare = 0, []
+    for ch in without_parameters(demangled):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif depth == 0:
+            bare.append(ch)
+    words = "".join(bare).split("::")[-1].split()
+    return words[-1] if words else ""
+
+
+# The kernel functions of the CIFAR route's wrappers (csrc/*.cu): the first
+# runs once a call, the second once more where a call splits its reduction
+# into chunks (gaussian_kernel_block's features, gaussian_resid_block's
+# rows). No other port kernel runs on this route (phase 6's counts).
+CIFAR_FUNCTIONS = {
+    "conv_featurize": ("conv_featurize_kernel",),
+    "gaussian_kernel_block": ("gauss_kernel", "sum_epilogue_kernel"),
+    "gaussian_resid_block": ("resid_kernel", "sum_partials_kernel"),
+}
+
+
+def cifar_kernel_calls(cuda_ops):
+    """The CIFAR route's Gaussian kernel calls, wrapper -> whether each call
+    splits its reduction (a second kernel), from the route's shapes: every
+    KRR block (97 of 512 rows, the last of 336) once in the diagonal
+    pre-pass, the train apply and the test apply of
+    ``gaussian_kernel_block``, and once in the sweep's
+    ``gaussian_resid_block``."""
+    dev = torch.device("cuda")
+    sizes = [min(CIFAR_BLOCK, CIFAR_N - b * CIFAR_BLOCK) for b in range(CIFAR_BLOCKS)]
+    gauss, resid = [], []
+    for nb in sizes:
+        for m, n in ((nb, nb), (CIFAR_N, nb), (CIFAR_TEST, nb)):
+            grid = cuda_ops.gaussian_kernel_block_grid(m, n, CIFAR_D, False, dev)
+            gauss.append(grid["splits"] > 1)
+        grid = cuda_ops.gaussian_resid_block_grid(CIFAR_N, nb, CIFAR_D, CIFAR_K, False, dev)
+        resid.append(grid["splits"] > 1)
+    return {"gaussian_kernel_block": gauss, "gaussian_resid_block": resid}
+
+
+def cifar_profile():
+    """The profiled half of phase 7, run in a process of its own
+    (``python3 chip_smoke.py --cifar-profile``): one full-width CIFAR fit
+    and apply to warm up, then a second under ``torch.profiler``, the
+    launch counts set to 0 just before it. Prints one JSON line: the
+    route's launches, the traced device time and count of every kernel
+    name, and the fit's and the fit + apply's wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keystone_tpu_torch.ops import cuda_ops
+    from keystone_tpu_torch.pipelines import cifar
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    config = cifar_config(cifar)
+    dev = torch.device("cuda")
+    PipelineEnv.get_or_create().reset()
+    cifar.run_random_patch_cifar_kernel(config, device="cuda")
+    PipelineEnv.get_or_create().reset()
+    pipeline, train, test = cifar.build_pipeline(config, dev)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fitted = pipeline.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fitted.apply(train.data)
+        fitted.apply(test.data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cuda_ops.launches)
+    PipelineEnv.get_or_create().reset()
+    rows = [(e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    print(json.dumps(dict(launches=launches, rows=rows, fit_seconds=fit_s,
+                          fit_apply_seconds=wall)))
+    return 0
+
+
+def check_cifar_profile(cuda_ops, fusion, prof):
+    """Hold ``cifar_profile``'s output to the route: its launch counts to
+    phase 6's, and each port kernel function's traced count to the
+    launches that the counters and the route's shapes say it made. Logs
+    the device's busy share and the largest kernels; returns the busy
+    device ms and the device ms of each CIFAR wrapper's kernels."""
+    launches, wall = prof["launches"], prof["fit_apply_seconds"]
+    expected = cifar_launches(cuda_ops, fusion)
+    check("profiled CIFAR fit and apply launches", launches == expected,
+          f"{launches}, expected {expected}")
+    traced = {}
+    for key, _, count in prof["rows"]:
+        name = function_name(key)
+        traced[name] = traced.get(name, 0) + count
+    splits = cifar_kernel_calls(cuda_ops)
+    for wrapper, functions in CIFAR_FUNCTIONS.items():
+        calls = splits.get(wrapper, [False] * launches[wrapper])
+        want = {functions[0]: launches[wrapper]}
+        if len(functions) > 1:
+            want[functions[1]] = sum(calls)
+        got = {f: traced.get(f, 0) for f in functions}
+        check(f"profile traced every {wrapper} launch",
+              len(calls) == launches[wrapper] and got == want,
+              f"traced {got}, the route launched {want} ({launches[wrapper]} calls, "
+              f"{sum(calls)} with a second kernel)")
+    rows = sorted(((key, ms, count) for key, ms, count in prof["rows"] if ms > 0),
+                  key=lambda row: -row[1])
+    busy_ms = sum(row[1] for row in rows)
+    log(f"  profiled warm fit {prof['fit_seconds']:.3f} s, fit + apply {wall:.3f} s (a fresh "
+        f"process); device busy {busy_ms:.1f} ms ({100 * busy_ms / 1e3 / wall:.1f}% of fit + "
+        f"apply)")
+    for name, ms, count in rows[:14]:
+        log(f"    {ms:10.3f} ms  {count:6d}x  {name[:90]}")
+    by_wrapper = {wrapper: sum(ms for key, ms, _ in rows if function_name(key) in functions)
+                  for wrapper, functions in CIFAR_FUNCTIONS.items()}
+    log(f"  device ms by port wrapper: {by_wrapper}")
+    return busy_ms, by_wrapper
+
+
+def phase_cifar_time(cuda_ops, fusion, result, config):
     """Where the full-width CIFAR fit's time goes. (a) The Gauss-Seidel
     sweep on the run's own train features, timed as it is (each step's
     solve reads its rescue decision on the host: one sync a step) and with
     the solve's acceptance check taken out (the same Cholesky solve, no
     sync), in turns; the two give the same weights. (b) A warm fit and
-    apply under ``torch.profiler``: device time by name and the device's
-    busy share of the wall time."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
+    apply under ``torch.profiler`` in a fresh process (``cifar_profile``):
+    device time by name and the device's busy share of the wall time. Each
+    port kernel's traced launches must equal what the route's launch
+    counters and shapes say it launched (``CIFAR_FUNCTIONS``,
+    ``cifar_kernel_calls``): a profile that lost records fails the phase."""
     from keystone_tpu_torch.ops.learning import kernel
-    from keystone_tpu_torch.pipelines import cifar
-    from keystone_tpu_torch.workflow import PipelineEnv
 
     (mapper,) = [op for op in result.fitted.transformer_graph.operators.values()
                  if isinstance(op, kernel.KernelBlockLinearMapper)]
@@ -1374,34 +1528,19 @@ def phase_cifar_time(result, config):
     check("sweep without the host sync gives the same weights",
           torch.equal(stacks["with sync"], stacks["without"]), "bitwise equal")
     del grams, chols, stacks, Y
+    torch.cuda.empty_cache()
 
-    PipelineEnv.get_or_create().reset()
-    pipeline, train, test = cifar.build_pipeline(config, dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fitted = pipeline.fit()
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        fitted.apply(train.data)
-        fitted.apply(test.data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    PipelineEnv.get_or_create().reset()
-    rows = sorted(
-        ((e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
-         if str(getattr(e, "device_type", "")).endswith("CUDA")),
-        key=lambda row: -row[1],
-    )
-    rows = [row for row in rows if row[1] > 0]
-    busy_ms = sum(row[1] for row in rows)
-    log(f"  profiled warm fit {fit_s:.3f} s, fit + apply {wall:.3f} s; device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / 1e3 / wall:.1f}% of fit + apply)")
-    for name, ms, count in rows[:14]:
-        log(f"    {ms:10.3f} ms  {count:6d}x  {name[:90]}")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--cifar-profile"],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise RuntimeError(f"the CIFAR profile's process failed (rc {child.returncode}):\n"
+                           f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    fit_s, wall = prof["fit_seconds"], prof["fit_apply_seconds"]
+    busy_ms, by_wrapper = check_cifar_profile(cuda_ops, fusion, prof)
     return dict(sweep_seconds_with_sync=sync_s, sweep_seconds_without_sync=free_s,
                 profiled_fit_seconds=fit_s, profiled_fit_apply_seconds=wall,
-                device_busy_ms=busy_ms)
+                device_busy_ms=busy_ms, device_ms_by_wrapper=by_wrapper)
 
 
 def amazon_rows(n, d, nnz, k, seed, w_true):
@@ -1926,6 +2065,8 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == ["--cifar-profile"]:
+        return cifar_profile()
     from keystone_tpu_torch.ops import cuda_images, cuda_ops
     from keystone_tpu_torch.pipelines import timit
     from keystone_tpu_torch.pipelines.timit import TimitConfig
@@ -1939,7 +2080,7 @@ def main():
 
     t0 = time.perf_counter()
     reports = cuda_ops.build()
-    log(f"[build] {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(reports)} sources in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in ptxas_lines(cuda_ops, report):
             log(f"  {name}: {line}")
@@ -1969,7 +2110,7 @@ def main():
     log("[phase 6] RandomPatchCifarKernel: small against the CPU; full width")
     cifar_counts, cifar_run, cifar_result, cifar_config = phase_cifar(cuda_ops, fusion)
     log("[phase 7] where the full-width CIFAR fit's time goes")
-    cifar_run["time"] = phase_cifar_time(cifar_result, cifar_config)
+    cifar_run["time"] = phase_cifar_time(cuda_ops, fusion, cifar_result, cifar_config)
     log("[phase 8] sparse ridge slice: small against the CPU; Amazon geometry by four engines")
     phase_sparse_small(cuda_ops)
     sparse_counts, sparse_run, amazon = phase_sparse(cuda_ops)

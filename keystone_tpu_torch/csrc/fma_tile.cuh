@@ -1,7 +1,6 @@
 // The FP32-FMA register tile of the GEMM-shaped kernels not yet on the
-// pipelined one of fma_pipe.cuh (gram_corr_sym.cu, block_gram_sym.cu,
-// gram_sym_acc.cu, gram_corr_sym_acc.cu's float32 form and
-// gaussian_resid_block.cu).
+// pipelined one of fma_pipe.cuh (gram_sym_acc.cu and gram_corr_sym_acc.cu's
+// float32 form).
 //
 // One block of 256 threads owns a 128 x 128 output tile. Each step stages
 // BK = 8 reduction rows of both operands in shared memory as float, then

@@ -16,8 +16,8 @@
 // must move (F's 2.15 GB read once, G's 1.07 GB read and written once)
 // take 1.28 ms at 3.35 TB/s. So the kernel is bound by float32 operations.
 //
-// Design: block_gram_sym.cu's Gramian tiles over the whole width with G
-// riding through. The TPU kernel walks the upper-triangle tile pairs in
+// Design: fma_tile.cuh's 128 x 128 upper Gramian tiles over the whole
+// width with G riding through. The TPU kernel walks the upper-triangle tile pairs in
 // order on one core, copying G's tile into the output at the first row
 // tile and adding each row tile's product along its sequential grid axis.
 // Here every 128 x 128 upper-triangle tile is one CUDA block that loops

@@ -9,18 +9,19 @@ run:
   - :func:`cosine_features` ↔ ``pallas_ops.cosine_features``
     (``csrc/cosine_features.cu``): ``cos(X Wᵀ + b)`` with the cosine fused
     into the GEMM epilogue;
-  - :func:`gram_corr_sym` ↔ ``pallas_ops.gram_corr_sym``
-    (``csrc/gram_corr_sym.cu``): ``(AᵀA, AᵀR)`` in one launch, upper
-    Gramian tiles only;
-  - :func:`gram_corr` ↔ ``pallas_ops.gram_corr`` (``csrc/gram_corr.cu``):
-    the same pair for the block update's ``sym=False`` form (the TPU kernel
-    computes every Gramian tile; this one the upper tiles, mirrored);
+  - :func:`gram_corr_sym` ↔ ``pallas_ops.gram_corr_sym`` and
+    :func:`gram_corr` ↔ ``pallas_ops.gram_corr``: ``(AᵀA, AᵀR)`` in one
+    launch of one kernel (``csrc/gram_corr.cu``), upper Gramian tiles
+    computed and mirrored, for the block update's ``sym=True`` and
+    ``sym=False`` forms (the second TPU kernel computes every Gramian
+    tile);
   - :func:`block_gram_sym`, :func:`block_corr`,
-    :func:`block_residual_update` ↔ their ``pallas_ops`` namesakes
-    (``csrc/block_*.cu``): the flat solver's Gramian, correlation and
-    residual update over the column window ``F[:, s:s+b]``, read in place
-    through F's row stride (never copied). :func:`strided_gram_ok` is the
-    guard that sends the solver to them;
+    :func:`block_residual_update` ↔ their ``pallas_ops`` namesakes: the
+    flat solver's Gramian (``csrc/gram_corr.cu``'s Gramian tiles alone),
+    correlation and residual update (``csrc/block_corr.cu``,
+    ``csrc/block_residual_update.cu``) over the column window
+    ``F[:, s:s+b]``, read in place through F's row stride (never copied).
+    :func:`strided_gram_ok` is the guard that sends the solver to them;
   - :func:`gram_sym_acc` ↔ ``pallas_ops.gram_sym_acc``
     (``csrc/gram_sym_acc.cu``): ``G + FᵀF`` on the upper-triangle tiles,
     the streamed fit's per-tile Gramian fold, accumulating in place.
@@ -46,15 +47,15 @@ run:
 
 All but the CountSketch kernel, and ``gram_corr_sym_acc`` with bf16 F (TMA
 loads into ``wgmma`` on the tensor cores), are FP32-FMA register tiles:
-``cosine_features``, ``block_corr``, ``gram_corr``,
+``cosine_features``, ``block_corr``, the three Gramians of
+``gram_corr.cu`` (``gram_corr_sym``, ``gram_corr``, ``block_gram_sym``),
 ``block_residual_update``, ``gaussian_kernel_block`` and
 ``gaussian_resid_block`` on the pipelined one of ``csrc/fma_pipe.cuh`` (a
 ring of stages, operands row-major or K-major, label tiles sized to k;
 chunks of the reduction that fill whole waves for ``block_corr``,
 :func:`corr_splits`, ``gaussian_kernel_block``, :func:`gaussian_splits`,
 and ``gaussian_resid_block``, :func:`gaussian_resid_splits`), the others
-(``gram_corr_sym``, ``block_gram_sym``, ``gram_sym_acc``, f32
-``gram_corr_sym_acc``) on ``csrc/fma_tile.cuh``. The image
+(``gram_sym_acc``, f32 ``gram_corr_sym_acc``) on ``csrc/fma_tile.cuh``. The image
 featurizer's kernel (``csrc/conv_featurize.cu``) has its wrapper in
 ``ops/cuda_images.py``; it is built, loaded and counted here with the
 others.
@@ -70,7 +71,9 @@ The kernels are built at first use: ``nvcc`` compiles each source under
 ``csrc/`` for ``sm_90a`` into a shared library with a plain C interface
 under ``build/keystone_tpu_torch/`` at the repository root (one library per
 source, named by a hash of the source, the shared headers and the flags),
-and ``ctypes`` loads it.
+and ``ctypes`` loads it. A source may serve several wrappers
+(``_SOURCES``): its library is built once and loaded once, with every
+wrapper's C entry points bound.
 :func:`build` compiles every kernel at once, one ``nvcc`` per source, all
 started together.
 """
@@ -109,7 +112,7 @@ _ENTRY_POINTS = {
         "kt_cosine_features", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _P]
     ),
     "gram_corr_sym": (
-        "kt_gram_corr_sym", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]
+        "kt_gram_corr", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]
     ),
     "gram_corr": (
         "kt_gram_corr", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]
@@ -157,7 +160,11 @@ _EXTRA_SYMBOLS = {
     "gaussian_resid_block": [("kt_gaussian_resid_block_config", [_I, _I, _I, _P])],
     "cosine_features": [("kt_cosine_features_config", [_I, _I, _I, _P])],
     "gram_corr": [("kt_gram_corr_config", [_P, _I, _I, _L, _I, _P])],
+    "block_gram_sym": [("kt_block_gram_sym_config", [_P, _I, _I, _L, _I, _P])],
 }
+# Wrappers whose kernel lives in another wrapper's source: name -> source.
+_SOURCES = {"gram_corr_sym": "gram_corr", "block_gram_sym": "gram_corr"}
+# Loaded libraries by source.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -181,33 +188,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _source(name: str) -> str:
+    """The source under ``csrc/`` (without ``.cu``) of a wrapper's kernel."""
+    return _SOURCES.get(name, name)
+
+
+def _symbols(source: str) -> Dict[str, list]:
+    """The C entry points of a source's library, symbol -> argtypes: the
+    launching and further ones of every wrapper whose kernel it holds."""
+    return {
+        symbol: argtypes
+        for name, entry in _ENTRY_POINTS.items() if _source(name) == source
+        for symbol, argtypes in [entry, *_EXTRA_SYMBOLS.get(name, [])]
+    }
+
+
 def _library_path(name: str) -> Path:
     # The shared headers count too: a header edit must not load a library
     # built from the old one.
+    source = _source(name)
     headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (_CSRC / f"{name}.cu").read_bytes() + headers + " ".join(_NVCC_FLAGS).encode()
+        (_CSRC / f"{source}.cu").read_bytes() + headers + " ".join(_NVCC_FLAGS).encode()
     ).hexdigest()[:12]
-    return _BUILD / f"lib{name}-{digest}.so"
+    return _BUILD / f"lib{source}-{digest}.so"
 
 
 def build(names: Optional[List[str]] = None) -> Dict[str, str]:
-    """Compile the kernels' sources that are not built yet, one ``nvcc`` per
-    source, all started together; returns each compile's ptxas report
-    (registers, shared memory, spills) by kernel name. Raises on a failed
-    build."""
+    """Compile the sources of the wrappers ``names`` (default: all) that
+    are not built yet, one ``nvcc`` per source, all started together;
+    returns each compile's ptxas report (registers, shared memory, spills)
+    by source. Raises on a failed build."""
     names = list(_ENTRY_POINTS) if names is None else names
     _BUILD.mkdir(parents=True, exist_ok=True)
     procs: List[Tuple[str, Path, Path, subprocess.Popen]] = []
     reports: Dict[str, str] = {}
-    for name in names:
-        lib = _library_path(name)
+    for source in dict.fromkeys(_source(name) for name in names):
+        lib = _library_path(source)
         if lib.exists():
-            reports[name] = "(already built)"
+            reports[source] = "(already built)"
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
-        procs.append((name, lib, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{source}.cu")]
+        procs.append((source, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     failures = []
@@ -224,17 +247,18 @@ def build(names: Optional[List[str]] = None) -> Dict[str, str]:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+    source = _source(name)
+    lib = _LIBS.get(source)
     if lib is None:
-        path = _library_path(name)
+        path = _library_path(source)
         if not path.exists():
-            build([name])
+            build([source])
         lib = ctypes.CDLL(str(path))
-        for symbol, argtypes in [_ENTRY_POINTS[name], *_EXTRA_SYMBOLS.get(name, [])]:
+        for symbol, argtypes in _symbols(source).items():
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[source] = lib
     return lib
 
 
@@ -429,7 +453,8 @@ def gram_corr_sym(A, R):
     A: (n, d) float32 or bfloat16, rows contiguous (a column window of a
     wider matrix is read in place through its row stride). R: (n, k),
     taken as float32. Returns the full symmetric (d, d) Gramian and the
-    (d, k) correlation, both float32.
+    (d, k) correlation, both float32. Launches the kernel of
+    :func:`gram_corr` (``csrc/gram_corr.cu``), counted as this wrapper's.
     """
     if A.device.type == "cpu" and R.device.type == "cpu":
         return gram_corr_sym_ref(A, R)
@@ -480,8 +505,9 @@ def gram_corr_grid(A, k: int) -> Dict[str, float]:
 
 
 def _gram_corr_launch(name: str, A, R):
-    """Launch ``gram_corr_sym`` or ``gram_corr`` (the same operand guards
-    and C interface) on CUDA operands, or raise."""
+    """Launch ``csrc/gram_corr.cu``'s kernel for the wrapper ``name``
+    (``gram_corr_sym`` or ``gram_corr``, the same function, operand guards
+    and C entry point) on CUDA operands, counted as its launch, or raise."""
     device = _cuda_operands(name, (A, R))
     _check_rows(name, A, "A")
     _check_rows(name, R, "R")
@@ -557,10 +583,32 @@ def block_gram_sym_ref(F, col_start: int, block: int):
     return torch.triu(G) + torch.triu(G, 1).T
 
 
+def block_gram_sym_grid(F, col_start: int, block: int) -> Dict[str, float]:
+    """The grid :func:`block_gram_sym` launches for the window
+    ``F[:, col_start:col_start+block]`` of F (on a card): its blocks (the
+    upper 128 x 128 tiles), whether it copies the window in 16-byte chunks
+    (``vec``: the window's base, F's row stride and ``block`` whole
+    chunks), the kernel's resident blocks an SM, registers and local
+    (spilled) bytes a thread, and the waves."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(F.device):
+        err = _lib("block_gram_sym").kt_block_gram_sym_config(
+            F.data_ptr(), int(col_start), int(block), F.stride(0),
+            int(F.dtype == torch.bfloat16), out)
+    _check_launch("block_gram_sym", err)
+    blocks, vec, bps, regs, local, sms = out
+    return _grid(dict(blocks=blocks, vec=bool(vec), blocks_per_sm=bps, registers=regs,
+                      local_bytes=local), sms)
+
+
 def block_gram_sym(F, col_start: int, block: int):
     """Symmetric Gramian of the column window ``F[:, col_start:col_start+block]``,
-    read in place (no window copy), upper-triangle tiles only. F: (n, d)
-    float32 or bfloat16 with contiguous rows. Returns (block, block) float32."""
+    read in place (no window copy), upper-triangle tiles only (the Gramian
+    tiles of ``csrc/gram_corr.cu``, no correlation; every entry one float32
+    FMA chain over the rows in order, so the bits of :func:`gram_corr_sym`
+    on a copy of the window). F: (n, d) float32 or bfloat16 with contiguous
+    rows. Returns (block, block) float32 (:func:`block_gram_sym_grid` gives
+    the launch's grid)."""
     col_start, block = int(col_start), int(block)
     if F.device.type == "cpu":
         return block_gram_sym_ref(F, col_start, block)

@@ -7,7 +7,8 @@ stacked fused BCD whose first-epoch Gramian + correlation runs through the
 read each column window of one (n, d) feature matrix in place through the
 ``block_gram_sym`` / ``block_corr`` / ``block_residual_update`` kernels.
 The shared block update keeps the reference's ``sym`` switch: ``False``
-takes the dense ``gram_corr`` kernel instead of ``gram_corr_sym``.
+takes the dense form's ``gram_corr`` wrapper instead of ``gram_corr_sym``
+(in the port both launch the one kernel of ``csrc/gram_corr.cu``).
 
 Conventions (matching the reference solvers):
   - ridge solve is ``(AᵀA + λI) x = AᵀB`` with *raw* λ (not scaled by n)
@@ -173,8 +174,10 @@ def _bcd_block_update(Ab, R, Wb, lam: float, gram=None, chol=None, sym: bool = T
     reuse the loop-invariant Gramian/factor — only the correlation then
     recomputes. The first-epoch Gramian + correlation of f32/bf16 blocks
     is a kernel (its plain version on the CPU): ``gram_corr_sym``, upper
-    tiles only, or with ``sym=False`` ``gram_corr``, every tile — the
-    reference's switch; both fused solvers pass ``True``, as the
+    tiles only, or with ``sym=False`` ``gram_corr``, every tile in the
+    reference — the reference's switch (in the port both wrappers launch
+    the one upper-tile kernel and give the same bits); both fused solvers
+    pass ``True``, as the
     reference's public callers do. f64 blocks keep plain contractions, as
     the reference keeps them on XLA.
     """

@@ -4,12 +4,14 @@
                                           [--kernels NAME ...]
     python3 scripts/torch_fma_variants.py --root DIR [DIR ...] [--out FILE]
 
-Builds variants of the six kernels on ``keystone_tpu_torch/csrc/fma_pipe.cuh``
-(``block_corr.cu``, ``gram_corr.cu``, ``block_residual_update.cu``,
+Builds variants of the kernels on ``keystone_tpu_torch/csrc/fma_pipe.cuh``
+(``block_corr.cu``, ``gram_corr.cu``, which also holds ``block_gram_sym``'s
+Gramian-only launch, ``block_residual_update.cu``,
 ``gaussian_kernel_block.cu``, ``gaussian_resid_block.cu``,
 ``cosine_features.cu``) that differ from them in one constant (or two) each,
 of the kernel's source or of the header: ``STAGES``, the ring's depth;
-``BK``, the reduction steps a stage (of the Gramian in ``gram_corr``);
+``BK``, the reduction steps a stage (of the Gramian in ``gram_corr`` and
+``block_gram_sym``);
 ``KT_WIDE``, the label tile of k > 32 (128 takes k = 147 in two tiles, the
 second masked past column 19); ``MINB``, the blocks an SM the registers are
 capped for; ``CORR_MI``, the columns of A a thread of a ``gram_corr``
@@ -23,9 +25,10 @@ memory (its k > 16 form), ``KT``, the label columns of its contraction
 pass, and the width of its row-tile counters. Each variant is built in a directory of its own under
 ``build/keystone_tpu_torch/variants/`` (beside a copy of the header where the
 variant edits it), one ``nvcc`` each, all started together. Then, at the
-main path's shapes (``chip_smoke.py``'s: ``block_corr`` and
-``block_residual_update`` at the TIMIT window, F 65,536 x 16,384 float32,
-columns [8192, 12288), R 65,536 x 147, dW 4,096 x 147; ``gram_corr``: A
+main path's shapes (``chip_smoke.py``'s: ``block_corr``,
+``block_gram_sym`` and ``block_residual_update`` at the TIMIT window, F
+65,536 x 16,384 float32, columns [8192, 12288), R 65,536 x 147, dW 4,096 x
+147; ``gram_corr``: A
 65,536 x 4,096, R 65,536 x 147; ``gaussian_kernel_block`` at the CIFAR
 route's four shapes, ``chip_smoke.cifar_gaussian_shapes``;
 ``gaussian_resid_block`` at the CIFAR sweep, X 50,000 x 1,800, a 512-row
@@ -35,10 +38,11 @@ the 16,384-wide fused feature matrix), it holds each variant against the
 plain version (the error relative to the sums' scale, as ``chip_smoke.py``
 does; absolute for the Gaussian and cosine kernels, whose entries lie in
 [0, 1] and [-1, 1]; a ``gram_corr`` variant's outputs also against
-``gram_corr_sym``'s bits, a ``gaussian_resid_block`` or
-``cosine_features`` variant's against the as-built variant's) and times
+``gram_corr_sym``'s bits, a ``block_gram_sym``, ``gaussian_resid_block``
+or ``cosine_features`` variant's against the as-built variant's) and times
 it with CUDA events, beside the library yardstick (``Fw.T @ R``; ``A.T @
-A`` and ``A.T @ R``; ``addmm(R, Fw, dW, alpha=-1)``; ``exp(addmm(...))``
+A`` and ``A.T @ R``; ``Fw.T @ Fw``; ``addmm(R, Fw, dW, alpha=-1)``;
+``exp(addmm(...))``
 and its product with W; ``cos(addmm(b, X, W.T))``). ``block_corr`` is also
 timed as built at other row-chunk counts than the one
 ``cuda_ops.corr_splits`` picks, and ``gaussian_kernel_block`` at other
@@ -46,7 +50,9 @@ feature-chunk counts than ``cuda_ops.gaussian_splits`` picks.
 
 With ``--root DIR [DIR ...]`` it builds no variants: it loads the
 ``cuda_ops`` module of each checkout under a name of its own and times
-their ``block_residual_update`` (f32 and bf16 F), ``gaussian_kernel_block``
+their ``gram_corr_sym`` (A 65,536 x 4,096, R 65,536 x 147, f32 and bf16
+A), ``block_gram_sym`` (the TIMIT window, f32 and bf16 F),
+``block_residual_update`` (f32 and bf16 F), ``gaussian_kernel_block``
 (each CIFAR shape), ``gaussian_resid_block`` (both sweep blocks, f32 and
 bf16 operands) and ``cosine_features`` (f32, bf16 operands, bf16 output,
 and f32 into the fused matrix's window) through their wrappers, in turns
@@ -103,6 +109,15 @@ VARIANTS = [
      (("", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 2;"),)),
     ("gram_corr", "CORR_MI 8",
      (("", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 8;"),)),
+    ("block_gram_sym", "as built", ()),
+    ("block_gram_sym", "STAGES 2",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+    ("block_gram_sym", "STAGES 4",
+     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("block_gram_sym", "BK 16", (("", "constexpr int BK = 32;", "constexpr int BK = 16;"),)),
+    ("block_gram_sym", "BK 16, STAGES 4",
+     (("", "constexpr int BK = 32;", "constexpr int BK = 16;"),
+      ("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"))),
     ("block_residual_update", "as built", ()),
     ("block_residual_update", "STAGES 3",
      (("", "constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),)),
@@ -183,7 +198,8 @@ def build(cuda_ops, kernels):
             continue
         vdir = out_dir / f"v{i}"
         vdir.mkdir(parents=True, exist_ok=True)
-        texts = {"": (cuda_ops._CSRC / f"{kernel}.cu").read_text()}
+        source = cuda_ops._source(kernel)
+        texts = {"": (cuda_ops._CSRC / f"{source}.cu").read_text()}
         for file, old, new in edits:
             if file not in texts:
                 texts[file] = (cuda_ops._CSRC / file).read_text()
@@ -193,9 +209,9 @@ def build(cuda_ops, kernels):
         # A quoted #include looks in the source's own directory first, so an
         # edited header there takes the place of csrc's.
         for file, text in texts.items():
-            (vdir / (file or f"{kernel}.cu")).write_text(text)
+            (vdir / (file or f"{source}.cu")).write_text(text)
         cmd = [cuda_ops._nvcc(), *cuda_ops._NVCC_FLAGS, "-I", str(cuda_ops._CSRC), "-o",
-               str(vdir / f"lib{kernel}.so"), str(vdir / f"{kernel}.cu")]
+               str(vdir / f"lib{source}.so"), str(vdir / f"{source}.cu")]
         procs[kernel, name] = (vdir, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                       stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -203,9 +219,8 @@ def build(cuda_ops, kernels):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {kernel} {name}:\n{log}")
-        lib = ctypes.CDLL(str(vdir / f"lib{kernel}.so"))
-        for symbol, argtypes in [cuda_ops._ENTRY_POINTS[kernel],
-                                 *cuda_ops._EXTRA_SYMBOLS[kernel]]:
+        lib = ctypes.CDLL(str(vdir / f"lib{cuda_ops._source(kernel)}.so"))
+        for symbol, argtypes in cuda_ops._symbols(cuda_ops._source(kernel)).items():
             getattr(lib, symbol).argtypes = argtypes
             getattr(lib, symbol).restype = ctypes.c_int
         libs[kernel, name] = lib
@@ -302,6 +317,50 @@ def gram_corr_rows(cuda_ops, libs, stream):
     for r in rows.values():
         r["tflops"] = flops / r["ms"] / 1e9
     del A, R
+    torch.cuda.empty_cache()
+    return rows
+
+
+def block_gram_sym_rows(cuda_ops, libs, stream):
+    """Each Gramian-only ring variant of block_gram_sym at the TIMIT
+    window, held against the plain version and the as-built variant's bits
+    (every variant keeps each entry's fmaf chain)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    F = torch.randn((N, D_FEAT), generator=gen, device=dev)
+    Fw = F[:, COL_START:COL_START + BLOCK]
+    want = cuda_ops.block_gram_sym_ref(F, COL_START, BLOCK)
+    scale = want.diagonal().max().item()
+    flops = N * BLOCK * (BLOCK + 1)
+    rows, built = {}, None
+    for (kernel, name), lib in libs.items():
+        if kernel != "block_gram_sym":
+            continue
+        G = torch.empty((BLOCK, BLOCK), device=dev)
+
+        def call():
+            err = lib.kt_block_gram_sym(F.data_ptr(), G.data_ptr(), N, COL_START, BLOCK,
+                                        F.stride(0), 0, stream)
+            if err:
+                raise RuntimeError(f"block_gram_sym {name}: launch failed ({err})")
+
+        call()
+        torch.cuda.synchronize()
+        if name == "as built":
+            built = G.clone()
+        cfg = (ctypes.c_int * 6)()
+        lib.kt_block_gram_sym_config(F.data_ptr(), COL_START, BLOCK, F.stride(0), 0, cfg)
+        blocks, vec, bps, regs, local, _ = cfg
+        rows[name] = dict(rel_err=(G - want).abs().max().item() / scale,
+                          bits_of_as_built=bool(torch.equal(G, built)), blocks=blocks,
+                          vec=bool(vec), blocks_per_sm=bps, registers=regs, local_bytes=local,
+                          ms=time_ms(call, 5))
+    rows["library: Fw.T @ Fw"] = dict(
+        rel_err=((Fw.T @ Fw) - want).abs().max().item() / scale,
+        ms=time_ms(lambda: Fw.T @ Fw, 5))
+    for r in rows.values():
+        r["tflops"] = flops / r["ms"] / 1e9
+    del F, Fw, want, built
     torch.cuda.empty_cache()
     return rows
 
@@ -412,6 +471,55 @@ def gaussian_rows(cuda_ops, libs, stream, sms):
     del X, Xt, xn, xtn, shapes
     torch.cuda.empty_cache()
     return rows
+
+
+def gram_corr_sym_wrapper_rows(cuda_ops):
+    """gram_corr_sym through its wrapper at the stacked route's block (A
+    65,536 x 4,096, R 65,536 x 147), f32 and bf16 A; returns the rows and
+    the outputs (Gramian, correlation) by row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    A = torch.randn((N, BLOCK), generator=gen, device=dev)
+    R = torch.randn((N, K), generator=gen, device=dev)
+    rows, outs = {}, {}
+    for label, dtype in (("f32 A", torch.float32), ("bf16 A", torch.bfloat16)):
+        Ak = A.to(dtype)
+        want_g, want_c = cuda_ops.gram_corr_sym_ref(Ak, R)
+        got = cuda_ops.gram_corr_sym(Ak, R)
+        outs[label] = torch.cat([got[0], got[1]], dim=1)
+        rows[label] = dict(
+            gram_rel_err=(got[0] - want_g).abs().max().item() / want_g.diagonal().max().item(),
+            corr_rel_err=(got[1] - want_c).abs().max().item()
+            / (Ak.float().abs().T @ R.abs()).max().item(),
+            ms=time_ms(lambda: cuda_ops.gram_corr_sym(Ak, R), 5))
+        del Ak, want_g, want_c, got
+    rows["library: A.T @ A, A.T @ R"] = dict(ms=time_ms(lambda: (A.T @ A, A.T @ R), 5))
+    del A, R
+    torch.cuda.empty_cache()
+    return rows, outs
+
+
+def block_gram_sym_wrapper_rows(cuda_ops):
+    """block_gram_sym through its wrapper at the TIMIT window (F 65,536 x
+    16,384, columns [8192, 12288)), f32 and bf16 F; returns the rows and
+    the outputs by row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    F = torch.randn((N, D_FEAT), generator=gen, device=dev)
+    rows, outs = {}, {}
+    for label, dtype in (("f32 F", torch.float32), ("bf16 F", torch.bfloat16)):
+        Fk = F.to(dtype)
+        want = cuda_ops.block_gram_sym_ref(Fk, COL_START, BLOCK)
+        got = outs[label] = cuda_ops.block_gram_sym(Fk, COL_START, BLOCK)
+        rows[label] = dict(
+            rel_err=(got - want).abs().max().item() / want.diagonal().max().item(),
+            ms=time_ms(lambda: cuda_ops.block_gram_sym(Fk, COL_START, BLOCK), 5))
+        del Fk, want, got
+    Fw = F[:, COL_START:COL_START + BLOCK]
+    rows["library: Fw.T @ Fw"] = dict(ms=time_ms(lambda: Fw.T @ Fw, 5))
+    del F, Fw
+    torch.cuda.empty_cache()
+    return rows, outs
 
 
 def residual_wrapper_rows(cuda_ops):
@@ -553,6 +661,8 @@ def cosine_wrapper_rows(cuda_ops):
 
 # The wrappers timed in --root mode: kernel -> rows function.
 WRAPPER_ROWS = {
+    "gram_corr_sym": gram_corr_sym_wrapper_rows,
+    "block_gram_sym": block_gram_sym_wrapper_rows,
     "block_residual_update": residual_wrapper_rows,
     "gaussian_kernel_block": gaussian_wrapper_rows,
     "gaussian_resid_block": resid_wrapper_rows,
@@ -712,6 +822,8 @@ def cosine_rows(cuda_ops, libs, stream, sms):
 ROWS = {
     "block_corr": block_corr_rows,
     "gram_corr": lambda cuda_ops, libs, stream, sms: gram_corr_rows(cuda_ops, libs, stream),
+    "block_gram_sym": lambda cuda_ops, libs, stream, sms: block_gram_sym_rows(cuda_ops, libs,
+                                                                            stream),
     "block_residual_update": block_residual_rows,
     "gaussian_kernel_block": gaussian_rows,
     "gaussian_resid_block": resid_rows,
@@ -723,7 +835,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="build/torch_fma_variants.json")
     parser.add_argument("--kernels", nargs="+", default=list(ROWS),
-                        help="the kernels to build and time (default: all six)")
+                        help="the kernels to build and time (default: all seven)")
     parser.add_argument("--root", nargs="+",
                         help="time the wrappers of the checkouts at these directories in turns "
                         "(first to last and back) instead of building variants")

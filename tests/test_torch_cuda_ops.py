@@ -295,10 +295,12 @@ class TestKernelsOnCard:
     def test_gram_corr_sym(self, cuda_device, n, d, k, dtype):
         A, R = (_t(a).to(cuda_device) for a in _gram_inputs(n, d, k))
         A = A.to(dtype)
-        before = cuda_ops.launches["gram_corr_sym"]
+        before = dict(cuda_ops.launches)
         gram, corr = cuda_ops.gram_corr_sym(A, R)
         torch.cuda.synchronize()
-        assert cuda_ops.launches["gram_corr_sym"] == before + 1
+        # gram_corr.cu's kernel, counted as gram_corr_sym's launch alone.
+        assert cuda_ops.launches["gram_corr_sym"] == before["gram_corr_sym"] + 1
+        assert cuda_ops.launches["gram_corr"] == before["gram_corr"]
         gram_r, corr_r = cuda_ops.gram_corr_sym_ref(A, R)
         assert torch.equal(gram, gram.T)
         assert _rel(gram.cpu().numpy(), gram_r.cpu().numpy()) < 1e-4

@@ -11,6 +11,7 @@
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -85,12 +86,14 @@ def test_module_names_its_counterpart(path):
 
 
 def test_kernel_sources_sit_beside_the_package():
+    # gram_corr.cu holds the kernels of three TPU kernels (gram_corr_sym,
+    # gram_corr and block_gram_sym).
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
     assert sources == [
-        "block_corr.cu", "block_gram_sym.cu", "block_residual_update.cu",
+        "block_corr.cu", "block_residual_update.cu",
         "conv_featurize.cu", "cosine_features.cu", "countsketch_scatter.cu",
         "gaussian_kernel_block.cu", "gaussian_resid_block.cu", "gram_corr.cu",
-        "gram_corr_sym.cu", "gram_corr_sym_acc.cu", "gram_sym_acc.cu",
+        "gram_corr_sym_acc.cu", "gram_sym_acc.cu",
     ]
     for src in sources:
         text = (PORT / "csrc" / src).read_text()
@@ -99,6 +102,33 @@ def test_kernel_sources_sit_beside_the_package():
             for ref in ("pallas_ops.py", "pallas_images.py")
         )
         assert "Bound on an H100" in text
+
+
+def _tpu_kernels():
+    """(file, function) of each reference function that reaches
+    ``pl.pallas_call``, from the JAX package's source (parsed, not
+    imported)."""
+    found = []
+    for rel in ("ops/pallas_ops.py", "ops/pallas_images.py"):
+        tree = ast.parse((ROOT / "keystone_tpu" / rel).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef) and any(
+                    isinstance(sub, ast.Attribute) and sub.attr == "pallas_call"
+                    for sub in ast.walk(node)):
+                found.append((rel.split("/")[1], node.name))
+    return found
+
+
+def test_every_tpu_kernel_is_named_by_a_source():
+    # Each of the reference's twelve Pallas kernels is replaced by a
+    # hand-written kernel whose source says so (one source may replace
+    # several).
+    kernels = _tpu_kernels()
+    assert len(kernels) == 12
+    texts = [p.read_text() for p in sorted((PORT / "csrc").glob("*.cu"))]
+    for file, name in kernels:
+        line = re.compile(rf"Replaces the TPU kernel keystone_tpu/ops/{file}:{name}\b")
+        assert any(line.search(text) for text in texts), f"no source replaces {file}:{name}"
 
 
 class TestDeviceRules:

@@ -23,6 +23,8 @@ different orders; over at most 1024 terms that differs by ~1e-7 of the
 scale.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -212,10 +214,61 @@ class TestWrappersOnTheCpu:
 
     def test_fma_tile_users(self):
         # The cosine and resid kernels keep no FP32-FMA tile of their own and
-        # do not include the first-slice one.
+        # do not include the first-slice one; the first slice's Gramian
+        # sources are gone (their wrappers launch gram_corr.cu's kernels),
+        # so the first-slice tile has two users left.
         for name in ("cosine_features", "gaussian_resid_block"):
             text = (cuda_ops._CSRC / f"{name}.cu").read_text()
             assert "fma_tile.cuh" not in text and "mainloop<" in text
+        for name in ("gram_corr_sym.cu", "block_gram_sym.cu"):
+            assert not (cuda_ops._CSRC / name).exists()
+        users = [p.name for p in sorted(cuda_ops._CSRC.glob("*.cu"))
+                 if '#include "fma_tile.cuh"' in p.read_text()]
+        assert users == ["gram_corr_sym_acc.cu", "gram_sym_acc.cu"]
+
+    def test_shared_source_builds_one_library(self):
+        # gram_corr_sym and block_gram_sym launch the kernels of gram_corr.cu:
+        # one library, with every wrapper's entry points bound.
+        path = cuda_ops._library_path("gram_corr")
+        assert cuda_ops._library_path("gram_corr_sym") == path
+        assert cuda_ops._library_path("block_gram_sym") == path
+        assert set(cuda_ops._symbols("gram_corr")) == {
+            "kt_gram_corr", "kt_gram_corr_config", "kt_block_gram_sym",
+            "kt_block_gram_sym_config"}
+
+    @pytest.mark.parametrize("name", sorted(cuda_ops.launches))
+    def test_every_wrapper_has_an_entry_point_its_library_binds(self, name):
+        source = cuda_ops._CSRC / f"{cuda_ops._source(name)}.cu"
+        symbols = cuda_ops._symbols(cuda_ops._source(name))
+        assert cuda_ops._ENTRY_POINTS[name][0] in symbols
+        text = source.read_text()
+        for symbol in symbols:
+            assert f'extern "C" int {symbol}(' in text
+
+    def test_build_compiles_a_shared_source_once(self, tmp_path, monkeypatch):
+        # One nvcc a source, however many wrappers it serves.
+        commands = []
+
+        class FakeNvcc:
+            returncode = 0
+
+            def __init__(self, cmd, **kwargs):
+                commands.append(cmd)
+                self.out = Path(cmd[cmd.index("-o") + 1])
+
+            def communicate(self):
+                self.out.write_bytes(b"")
+                return "ptxas info", None
+
+        monkeypatch.setattr(cuda_ops, "_BUILD", tmp_path)
+        monkeypatch.setattr(cuda_ops, "_nvcc", lambda: "nvcc")
+        monkeypatch.setattr(cuda_ops.subprocess, "Popen", FakeNvcc)
+        reports = cuda_ops.build(["gram_corr_sym", "block_gram_sym", "gram_corr", "block_corr"])
+        assert sorted(reports) == ["block_corr", "gram_corr"]
+        assert sorted(Path(cmd[-1]).name for cmd in commands) == ["block_corr.cu", "gram_corr.cu"]
+        assert cuda_ops._library_path("block_gram_sym").exists()
+        assert cuda_ops.build(["gram_corr_sym"]) == {"gram_corr": "(already built)"}
+        assert len(commands) == 2
 
     @pytest.mark.parametrize("constant", ["KT_NARROW", "KT_WIDE"])
     def test_label_tiles_are_defined_once(self, constant):
@@ -335,6 +388,43 @@ class TestKernelsOnCard:
             cuda_ops.block_gram_sym(F, 200, 128)
         with pytest.raises(TypeError):
             cuda_ops.block_corr(F.double(), 0, 128, R)
+
+
+# block_gram_sym on gram_corr.cu's Gramian tiles: the window read in place
+# through F's row stride gives the bits of gram_corr_sym on a copy of it
+# (each entry one fmaf chain over the rows in order, whichever path copies
+# the window); 16-byte copies where the window's base, F's row stride and
+# the window's width are whole 16-byte chunks.
+@pytest.mark.cuda
+class TestBlockGramSymOnCard:
+    @pytest.mark.parametrize("s", [0, 3, 201, 256])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_window_in_place_gives_the_bits_of_a_copy(self, cuda_device, s, dtype):
+        n, d, b = 3000, 704, 264
+        F, R, _ = _card_inputs(n, d, 3, cuda_device, seed=s)
+        F = F.to(dtype)
+        before = dict(cuda_ops.launches)
+        gram = cuda_ops.block_gram_sym(F, s, b)
+        torch.cuda.synchronize()
+        assert cuda_ops.launches["block_gram_sym"] == before["block_gram_sym"] + 1
+        assert cuda_ops.launches["gram_corr_sym"] == before["gram_corr_sym"]
+        assert cuda_ops.launches["gram_corr"] == before["gram_corr"]
+        copy, _ = cuda_ops.gram_corr_sym(F[:, s:s + b].contiguous(), R)
+        assert torch.equal(gram, copy)
+        chunk = 4 if dtype == torch.float32 else 8
+        grid = cuda_ops.block_gram_sym_grid(F, s, b)
+        assert grid["vec"] == (s % chunk == 0 and d % chunk == 0 and b % chunk == 0)
+        assert grid["blocks"] == 3 * 4 // 2  # 3 tiles of 128 across 264 columns
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_timit_grid(self, cuda_device, dtype):
+        # F 65,536 x 16,384, the window [8192, 12288): the 528 upper tiles,
+        # 16-byte copies, no spills, at most 128 registers at 2 blocks an SM.
+        F = torch.empty((65536, 16384), dtype=dtype, device=cuda_device)
+        grid = cuda_ops.block_gram_sym_grid(F, 8192, 4096)
+        assert grid["blocks"] == 528 and grid["vec"]
+        assert grid["local_bytes"] == 0
+        assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
 
 
 # block_corr's pipelined kernel: label tiles sized to k (32 for k <= 32, else
