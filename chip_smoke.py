@@ -4,7 +4,7 @@
 
 Builds every CUDA kernel of the port (all twelve wrappers': the TIMIT,
 CIFAR, sparse and sketched paths and the block update's ``sym=False``
-route) from the ten sources of ``keystone_tpu_torch/csrc/`` (one ``nvcc``
+route) from the nine sources of ``keystone_tpu_torch/csrc/`` (one ``nvcc``
 per source, all started together), then:
 
   1. holds each kernel against its plain PyTorch version on the card, at the
@@ -14,17 +14,19 @@ per source, all started together), then:
      function; ``gram_corr_sym_acc`` on the Amazon chunk (65,536 x 16,385,
      k = 2; bf16 F at the fold's 64-element row stride, on the tensor
      cores, with the count of HGMMA instructions in its SASS checked at
-     build time; f32 F beside two float32 ``addmm``) and on the ragged last
+     build time; f32 F at the fold's 4-element row stride and at 16,385,
+     the same bits, beside two float32 ``addmm``) and on the ragged last
      chunk of 41,248 rows, in place and into a new buffer; ``gram_corr``
      at the Gramian shape beside ``gram_corr_sym`` (one kernel of
      ``csrc/gram_corr.cu``, both outputs the same bits);
      for the kernels on the pipelined tile of ``csrc/fma_pipe.cuh``
      (``block_corr``, ``gram_corr``, ``block_gram_sym`` (the window's 528
-     upper tiles), ``block_residual_update``, ``gaussian_kernel_block``,
-     ``gaussian_resid_block``, ``cosine_features``) also each grid: label
-     tile and masked share, blocks (and ``block_corr``'s row chunks,
-     ``gaussian_kernel_block``'s feature chunks), resident blocks an SM,
-     waves, registers and spills;
+     upper tiles), ``gram_sym_acc`` (the streamed tile's 8,256),
+     ``gram_corr_sym_acc`` with f32 F, ``block_residual_update``,
+     ``gaussian_kernel_block``, ``gaussian_resid_block``,
+     ``cosine_features``) also each grid: label tile and masked share,
+     blocks (and ``block_corr``'s row chunks, ``gaussian_kernel_block``'s
+     feature chunks), resident blocks an SM, waves, registers and spills;
      ``gaussian_kernel_block`` at each shape of the CIFAR route (train
      apply, test apply, diagonal block, ragged last diagonal block), each
      with its bound and its ``exp(addmm)`` yardstick;
@@ -202,7 +204,7 @@ KERNELS = {
         replaces="keystone_tpu/ops/pallas_ops.py:1030", path=FLAT,
     ),
     "gram_sym_acc": dict(
-        source="keystone_tpu_torch/csrc/gram_sym_acc.cu",
+        source="keystone_tpu_torch/csrc/gram_corr.cu",
         replaces="keystone_tpu/ops/pallas_ops.py:769", path=STREAMED,
     ),
     "gaussian_kernel_block": dict(
@@ -792,11 +794,23 @@ def phase_gram_sym_acc(cuda_ops, gen):
     flops = n * d * (d + 1)  # the upper triangle (syrk)
     r["bound_ms"], r["bound_by"] = bound_ms(4 * (n * d + 2 * d * d), flops, PEAK_F32_FLOPS)
     F16 = F.to(torch.bfloat16)
-    bf16_ms = time_ms(lambda: cuda_ops.gram_sym_acc(G, F16, out=G), 3)
+    bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.gram_sym_acc(G, F16, out=G), 3)
     bf16_bound, _ = bound_ms(2 * n * d + 8 * d * d, flops, PEAK_BF16_FLOPS)
     log(f"  gram_sym_acc f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
         f"bf16 F: {bf16_ms:.3f} ms (bound {bf16_bound:.3f})")
+    r["grid"] = {}
+    for label, Fk in (("f32", F), ("bf16", F16)):
+        grid = r["grid"][label] = cuda_ops.gram_sym_acc_grid(Fk)
+        log(f"  gram_sym_acc {label} F grid: {grid['blocks']} upper tiles "
+            f"({'16-byte' if grid['vec'] else 'element-wise'} copies), {grid_line(grid)}")
+        check(f"gram_sym_acc {label} computes the upper tiles only, spills nothing and holds "
+              f"2 blocks an SM at <= 128 registers",
+              grid["blocks"] == -(-d // 128) * (-(-d // 128) + 1) // 2 and grid["vec"]
+              and grid["local_bytes"] == 0 and grid["blocks_per_sm"] >= 2
+              and grid["registers"] <= 128,
+              f"{grid['blocks']} blocks, {grid['local_bytes']} local bytes, "
+              f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
     del F, F16, G, G0, upper
     torch.cuda.empty_cache()
     return results
@@ -811,28 +825,42 @@ def tma_slab(F):
     return out.copy_(F)
 
 
+def f32_slab(F):
+    """F at a row stride rounded up to 4 elements: the layout of the sparse
+    fold's float32 slabs, which the kernel copies in 16-byte chunks."""
+    n, d = F.shape
+    return torch.zeros((n, -(-d // 4) * 4), device=F.device)[:, :d].copy_(F)
+
+
 def phase_gram_corr_sym_acc(cuda_ops, gen):
     """The sparse fold's kernel on one Amazon chunk: F 65,536 x 16,385 (d
-    and the intercept lane), R 65,536 x 2, a random G0 and C0; F in f32 and
-    bf16 (at the fold's row stride of 16,448), and the ragged last chunk of
-    41,248 rows; in place and into a new buffer. F is dense standard
-    normal, so every product is nonzero (a densified chunk has 83 nonzeros
-    a row; the kernel's time does not depend on it). The JSON line reports
-    the bf16 numbers (TMA + wgmma): the bench's engine folds bf16 slabs;
-    the f32 kernel (FP32 FMA) is timed beside two float32 addmm."""
+    and the intercept lane), R 65,536 x 2, a random G0 and C0; F in f32
+    (at the fold's row stride of 16,388, and at 16,385, which the kernel
+    copies element by element: the same bits) and bf16 (at the fold's row
+    stride of 16,448), and the ragged last chunk of 41,248 rows; in place
+    and into a new buffer. F is dense standard normal, so every product is
+    nonzero (a densified chunk has 83 nonzeros a row; the kernel's time
+    does not depend on it). The JSON line reports the bf16 numbers (TMA +
+    wgmma): the bench's engine folds bf16 slabs; and the f32 kernel's
+    (FP32 FMA, the Gramian kernel of gram_tile.cuh) beside two float32
+    addmm, ``f32_*``."""
     dev = torch.device("cuda")
     c, d1, k = AMAZON_CHUNK, AMAZON_D + 1, AMAZON_K
     F = torch.randn((c, d1), generator=gen, device=dev)
+    F32 = f32_slab(F)
     F16 = tma_slab(F)
     R = torch.randn((c, k), generator=gen, device=dev)
     G0 = torch.randn((d1, d1), generator=gen, device=dev)
     C0 = torch.randn((d1, k), generator=gen, device=dev)
     tiles = torch.arange(d1, device=dev) // 128
     upper = tiles[:, None] <= tiles[None, :]
-    results = {}
-    for label, dtype, rows in (("f32", torch.float32, c), ("bf16", torch.bfloat16, c),
-                               ("bf16 ragged chunk", torch.bfloat16, AMAZON_RAGGED)):
-        Fk, Rk = (F16 if dtype == torch.bfloat16 else F)[:rows], R[:rows]
+    results, f32_first = {}, None
+    for label, Fs, rows in (("f32 at the fold's row stride", F32, c),
+                            ("f32 at row stride 16,385", F, c),
+                            ("f32 ragged chunk", F32, AMAZON_RAGGED),
+                            ("bf16", F16, c), ("bf16 ragged chunk", F16, AMAZON_RAGGED)):
+        dtype = Fs.dtype
+        Fk, Rk = Fs[:rows], R[:rows]
         want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G0, C0, Fk, Rk)
         Ff = Fk.float()
         Rq = Rk.to(torch.bfloat16).float() if dtype == torch.bfloat16 else Rk
@@ -853,15 +881,23 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
         c_err, c_rel = c_diff.max().item(), (c_diff / c_scale).max().item()
         same = (torch.equal(G[upper], fresh[0][upper]) and torch.equal(C, fresh[1])
                 and torch.equal(G[~upper], G0[~upper]))
+        if dtype == torch.float32 and rows == c:  # both f32 layouts: the same bits
+            f32_first = f32_first or (G, C)
+            same = (same and torch.equal(G[upper], f32_first[0][upper])
+                    and torch.equal(C, f32_first[1]))
         check(f"gram_corr_sym_acc {label} F {rows}x{d1}, R {rows}x{k}",
               g_rel <= 1e-4 and c_rel <= 1e-4 and same,
               f"upper tiles max_abs_err {g_err:.3e} ({g_rel:.2e} of scale), corr "
               f"max_abs_err {c_err:.3e} ({c_rel:.2e} of scale), tol 1e-4 of scale; in place "
-              f"the bits of a new buffer, lower tiles untouched")
+              f"the bits of a new buffer, lower tiles untouched"
+              + ("; the f32 layouts' bits equal" if dtype == torch.float32 and rows == c
+                 else ""))
         if label == "bf16":
             results["gram_corr_sym_acc"] = dict(max_abs_err=max(g_err, c_err))
+        if label.startswith("f32 at the fold"):
+            f32_err = max(g_err, c_err)
         del Fk, want_g, want_c, g_scale, c_scale, fresh, G, C, g_diff, c_diff
-    del upper
+    del upper, f32_first
     torch.cuda.empty_cache()
     flops = c * d1 * (d1 + 1) + 2 * c * d1 * k  # upper triangle (syrk) + correlation
     G, C = G0.clone(), C0.clone()
@@ -877,18 +913,39 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
     ), 3)
     r["bound_ms"], r["bound_by"] = bound_ms(
         2 * c * d1 + 4 * (c * k + 2 * d1 * d1 + 2 * d1 * k), flops, PEAK_BF16_FLOPS)
-    f32_ms = time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, F, R, out=(G, C)), 2)
+    f32_ms = time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, F32, R, out=(G, C)), 3)
+    f32_unaligned_ms = time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, F, R, out=(G, C)), 2)
     # The same two products in float32 on cuBLAS (no TF32: the package sets
     # float32 matmuls to "highest" when it is imported).
     f32_library_ms = time_ms(lambda: (torch.addmm(G0, F.T, F), torch.addmm(C0, F.T, R)), 2)
-    f32_bound, _ = bound_ms(4 * (c * d1 + c * k + 2 * d1 * d1 + 2 * d1 * k), flops,
-                            PEAK_F32_FLOPS)
-    r["f32_ms"], r["f32_library_ms"] = f32_ms, f32_library_ms
+    f32_plain_ms = time_ms(lambda: cuda_ops.gram_corr_sym_acc_ref(G0, C0, F32, R), 2)
+    f32_bound, f32_bound_by = bound_ms(4 * (c * d1 + c * k + 2 * d1 * d1 + 2 * d1 * k), flops,
+                                       PEAK_F32_FLOPS)
+    r.update(f32_ms=f32_ms, f32_unaligned_ms=f32_unaligned_ms, f32_plain_ms=f32_plain_ms,
+             f32_library_ms=f32_library_ms, f32_bound_ms=f32_bound, f32_bound_by=f32_bound_by,
+             f32_max_abs_err=f32_err, f32_grid={})
     log(f"  gram_corr_sym_acc bf16 F {c}x{d1} (row stride {F16.stride(0)}), R {c}x{k}: "
         f"{r['ms']:.3f} ms, {flops / r['ms'] / 1e9:.1f} TFLOP/s (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"f32 F: {f32_ms:.3f} ms (library {f32_library_ms:.3f}, FP32 bound {f32_bound:.3f})")
-    del F, R, F16, R16, G0, C0, G, C
+        f"f32 F (row stride {F32.stride(0)}): {f32_ms:.3f} ms (at row stride {F.stride(0)} "
+        f"{f32_unaligned_ms:.3f}; plain {f32_plain_ms:.3f}, library {f32_library_ms:.3f}, "
+        f"FP32 bound {f32_bound:.3f} by {f32_bound_by})")
+    for label, Fk in (("fold's row stride", F32), ("row stride 16,385", F)):
+        grid = r["f32_grid"][label] = cuda_ops.gram_corr_sym_acc_grid(Fk, k)
+        log(f"  gram_corr_sym_acc f32 F at the {label} grid: {grid['corr_blocks']} "
+            f"correlation blocks ({grid['ktile']}-wide label tile), then {grid['gram_blocks']} "
+            f"Gramian tiles ({'16-byte' if grid['vec'] else 'element-wise'} copies): "
+            f"{grid_line(grid)}")
+    grid = r["f32_grid"]["fold's row stride"]
+    nt = -(-d1 // 128)
+    check("gram_corr_sym_acc f32 computes the upper tiles only, copies the fold's slab in "
+          "16-byte chunks, spills nothing and holds 2 blocks an SM at <= 128 registers",
+          grid["gram_blocks"] == nt * (nt + 1) // 2 and grid["vec"]
+          and grid["local_bytes"] == 0 and grid["blocks_per_sm"] >= 2
+          and grid["registers"] <= 128,
+          f"{grid['gram_blocks']} Gramian blocks, {grid['local_bytes']} local bytes, "
+          f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
+    del F, F32, R, F16, R16, G0, C0, G, C
     torch.cuda.empty_cache()
     return results
 

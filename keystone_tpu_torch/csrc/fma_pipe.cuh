@@ -1,6 +1,7 @@
-// The pipelined FP32-FMA tile of block_corr.cu, gram_corr.cu,
+// The pipelined FP32-FMA tile of block_corr.cu, the Gramians of
+// gram_tile.cuh (gram_corr.cu, gram_corr_sym_acc.cu's float32 form),
 // block_residual_update.cu, gaussian_kernel_block.cu, gaussian_resid_block.cu
-// and cosine_features.cu.
+// and cosine_features.cu: the port's one FP32-FMA tile.
 //
 // One block of 256 threads (16 x 16) owns an output tile of 16 MI rows x
 // 16 NJ columns: out[i][j] = sum over the reduction index r of
@@ -24,8 +25,13 @@
 // whose base pointer, row stride and extent along its contiguous axis are
 // whole 16-byte chunks is copied in 16-byte cp.async.cg chunks (VEC);
 // otherwise element by element: float32 through 4-byte cp.async.ca,
-// bfloat16 (2-byte aligned only) through registers. Copies past the last
-// row or column zero-fill, so ragged edges add nothing.
+// bfloat16 (2-byte aligned only) through registers. A row-major operand
+// whose base and row stride are whole chunks but whose width is not (the
+// sparse fold's d1 = 16385) takes the 16-byte copies too, the chunk that
+// holds its last column copied in part (PART): a per-thread byte count that
+// the whole-chunk instances do without (it cost them 2.5-4.5% at the
+// Gramian shapes on an H100). Copies past the last row or column
+// zero-fill, so ragged edges add nothing.
 //
 // A K-major operand goes through registers (KStager): each thread loads
 // its 16-byte chunks (or elements) of a stage along k one stage ahead and,
@@ -44,7 +50,7 @@
 // order, whatever BK, STAGES, the operand kinds or the thread map:
 // acc = fmaf(p, q, acc) for r = rbeg, rbeg + 1, ... (the zero entries past
 // rend leave it as it is). So a Gramian computed here has the bits of one
-// computed on fma_tile.cuh.
+// summed row by row, from zero, in any other tiling.
 
 #pragma once
 
@@ -77,9 +83,11 @@ inline auto with_label_tile(int k, Fn&& fn) {
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+// Copies the first `bytes` (0 ... 16) of the 16-byte chunk at src and
+// zero-fills the rest of dst's.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+               "l"(src), "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
@@ -131,13 +139,20 @@ __host__ __device__ constexpr int vec_elems() {
   return 16 / static_cast<int>(sizeof(TE));
 }
 
+// Host: whether a row-major operand M (base pointer, row stride ld) can be
+// copied by Stager in 16-byte chunks: every chunk then starts on a 16-byte
+// boundary inside its row (PART where the width is not whole chunks).
+template <typename TE>
+inline bool rows_vec_ok(const TE* base, long long ld) {
+  return reinterpret_cast<std::uintptr_t>(base) % 16 == 0 && ld % vec_elems<TE>() == 0;
+}
+
 // Host: whether a tile of M (base pointer, row stride ld, cols columns) can
-// be copied in 16-byte chunks: every chunk then lies wholly inside or
-// wholly past the columns.
+// be copied in 16-byte chunks that lie wholly inside or wholly past the
+// columns.
 template <typename TE>
 inline bool vec_ok(const TE* base, long long ld, long long cols) {
-  constexpr int e = vec_elems<TE>();
-  return reinterpret_cast<std::uintptr_t>(base) % 16 == 0 && ld % e == 0 && cols % e == 0;
+  return rows_vec_ok(base, ld) && cols % vec_elems<TE>() == 0;
 }
 
 // The copies one thread makes of a row-major operand M (row stride ld),
@@ -148,16 +163,18 @@ inline bool vec_ok(const TE* base, long long ld, long long cols) {
 //
 // VEC, 16-byte chunks: CPR chunks a row, so THREADS / CPR rows a pass; a
 // thread copies the same chunk column of rows kk0, kk0 + RPP, ... and a
-// warp consecutive chunks of one row.
+// warp consecutive chunks of one row. PART: the chunk that holds the last
+// column reads the bytes inside the columns and zero-fills the rest
+// (cp.async's src-size), so cols need not be whole chunks.
 // Element-wise: TPR = THREADS / BK threads a row, so a thread copies one row
 // kk0 of every stage, columns tc, tc + TPR, ..., and a warp TPR consecutive
 // elements of each of two rows (4-byte cp.async for float32, registers for
 // bf16).
-template <typename TE, int BK, int W, bool VEC>
+template <typename TE, int BK, int W, bool VEC, bool PART = false>
 struct Stager;
 
-template <typename TE, int BK, int W>
-struct Stager<TE, BK, W, true> {
+template <typename TE, int BK, int W, bool PART>
+struct Stager<TE, BK, W, true, PART> {
   static constexpr int EPC = vec_elems<TE>();
   static constexpr int CPR = W / EPC;       // chunks a row
   static constexpr int RPP = THREADS / CPR;  // rows a pass
@@ -169,6 +186,7 @@ struct Stager<TE, BK, W, true> {
   int left;        // rows left from that row on
   int soff;        // its offset in the shared tile
   bool col_ok;
+  int bytes;       // PART: of its chunk inside the columns, 16 but at the last column
 
   __device__ __forceinline__ Stager(const TE* M, long long ld_, long long rbeg, long long rend,
                                     long long c0, long long cols) {
@@ -179,19 +197,24 @@ struct Stager<TE, BK, W, true> {
     left = static_cast<int>(rend - rbeg) - kk0;
     soff = kk0 * W + c;
     col_ok = c0 + c < cols && kk0 < BK;
+    if constexpr (PART) {
+      const long long in_cols = cols - c0 - c;
+      bytes = static_cast<int>(in_cols < EPC ? in_cols : EPC) * static_cast<int>(sizeof(TE));
+    }
   }
   __device__ __forceinline__ void copy(TE* S) {
 #pragma unroll
     for (int m = 0; m < PASSES; ++m)
       if (RPP <= BK || col_ok)
-        cp_async16(S + soff + m * RPP * W, p + m * RPP * ld, col_ok && m * RPP < left);
+        cp_async16(S + soff + m * RPP * W, p + m * RPP * ld,
+                   col_ok && m * RPP < left ? (PART ? bytes : 16) : 0);
     p += BK * ld;
     left -= BK;
   }
 };
 
-template <typename TE, int BK, int W>
-struct Stager<TE, BK, W, false> {
+template <typename TE, int BK, int W, bool PART>
+struct Stager<TE, BK, W, false, PART> {
   static constexpr int TPR = THREADS / BK;  // threads a row
   static_assert(THREADS % BK == 0 && W % TPR == 0, "a stage row must be whole thread rows");
   const TE* p;     // this thread's first element in its row of the next stage
@@ -309,9 +332,9 @@ struct KStager {
   }
 };
 
-// An operand's copies: K-major (K) or row-major.
-template <typename TE, int BK, int W, bool VEC, bool K>
-using Operand = std::conditional_t<K, KStager<TE, BK, W, VEC>, Stager<TE, BK, W, VEC>>;
+// An operand's copies: K-major (K) or row-major (PART: Stager's).
+template <typename TE, int BK, int W, bool VEC, bool K, bool PART = false>
+using Operand = std::conditional_t<K, KStager<TE, BK, W, VEC>, Stager<TE, BK, W, VEC, PART>>;
 
 // Tile-local row of a thread's i-th output row (MI a thread: 2 neighbours,
 // or groups of four, 64 apart) and column of its j-th output column (NJ a
@@ -391,9 +414,10 @@ __host__ __device__ constexpr int smem_bytes() {
 // Q(j0 + out_col<NJ>(j), r): for a row-major operand M(i, r) = M[r][i],
 // for a K-major one (KP, KQ) M[i][r]; indices i past pcols (j past qcols)
 // read as zero. round_q rounds Q's values to bf16 as they arrive (float32
-// row-major Q staged element-wise only).
+// row-major Q staged element-wise only). PP, PQ: a row-major VEC operand's
+// last 16-byte chunk copied in part (Stager's PART).
 template <int BK, int STAGES, int MI, int NJ, bool VP, bool VQ, bool KP = false,
-          bool KQ = false, typename TP, typename TQ>
+          bool KQ = false, bool PP = false, bool PQ = false, typename TP, typename TQ>
 __device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restrict__ P,
                                          long long ldp, long long i0, long long pcols,
                                          const TQ* __restrict__ Q, long long ldq,
@@ -406,8 +430,8 @@ __device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restri
   TP* Xs = reinterpret_cast<TP*>(smem);
   TQ* Ys = reinterpret_cast<TQ*>(smem + STAGES * BK * XT * sizeof(TP));
   const int nst = rend > rbeg ? static_cast<int>((rend - rbeg + BK - 1) / BK) : 0;
-  Operand<TP, BK, XT, VP, KP> xs(P, ldp, rbeg, rend, i0, pcols);
-  Operand<TQ, BK, KT, VQ, KQ> ys(Q, ldq, rbeg, rend, j0, qcols);
+  Operand<TP, BK, XT, VP, KP, PP> xs(P, ldp, rbeg, rend, i0, pcols);
+  Operand<TQ, BK, KT, VQ, KQ, PQ> ys(Q, ldq, rbeg, rend, j0, qcols);
 
 #pragma unroll
   for (int i = 0; i < MI; ++i)

@@ -70,144 +70,29 @@
 // pass, fused with the Gramian. For k > 8 the diagonal block streams its F
 // columns again for each further 8 label columns, with no wgmma.
 //
-// float32 F keeps the FP32-FMA tile of gram_sym_acc.cu (fma_tile.cuh) with
-// G riding through: the diagonal blocks contract their staged F tile with
-// R, the four label sums of a thread live in shared memory, and
-// __launch_bounds__(256, 2) keeps 128 registers a thread and two blocks an
-// SM (the first draft, with the sums in registers, took 130 registers and
-// 809 ms against 580 ms at the Amazon chunk on one H100).
+// float32 F: gram_tile.cuh's Gramian kernel (fma_pipe.cuh's pipelined FP32
+// tile, the kernel of gram_corr.cu) with its accumulating epilogue: the
+// correlation's blocks first (64 columns of F x a label tile sized to k:
+// 32 wide at the Amazon fit's k = 2, 257 blocks, each about an eighth of a
+// Gramian block's work), then one block an upper Gramian tile (8,385 at
+// d1 = 16385, 31.8 waves of 264), each entry one fmaf chain over the rows
+// in order, to which G's (C's) entry is added once. It copies F in 16-byte
+// chunks when F's base and row stride are 16-byte aligned (the sparse fold
+// pads its float32 slab's rows to 4 elements for that; the chunk at the
+// ragged right edge is copied in part), else element by element. R is not
+// rounded: a float32 F's partner stays float32.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fma_tile.cuh"
+#include "gram_tile.cuh"
 
 namespace {
 
-using namespace kt;
-
 constexpr int KG = 4;       // label columns per thread and pass
 constexpr int KP = 2 * KG;  // label columns per pass: two threads per F column
-
-// ---------------------------------------------------------------------------
-// float32 F: the FP32-FMA kernel
-// ---------------------------------------------------------------------------
-
-// Stage rows [r0, r0 + BK) x label columns [j0, j0 + KP) of R (float32,
-// n x k, row stride ldr) into Rs, zero past the edges.
-__device__ __forceinline__ void stage_labels(float (*Rs)[KP], const float* __restrict__ R,
-                                             long long r0, int j0, long long n, int k,
-                                             long long ldr) {
-  if (threadIdx.x < BK * KP) {
-    const int kk = threadIdx.x / KP;
-    const int j = threadIdx.x % KP;
-    const long long gr = r0 + kk;
-    const int gj = j0 + j;
-    Rs[kk][j] = (gr < n && gj < k) ? R[gr * ldr + gj] : 0.f;
-  }
-}
-
-// Cs[q][t] += sum over kk of X[kk][c] * Rs[kk][g * KG + q], for this
-// thread t's F column c = t % T and label group g = t / T. Each thread
-// touches only its own Cs entries: no barrier needed around them.
-__device__ __forceinline__ void corr_stage(float (*X)[LDS], float (*Rs)[KP],
-                                           float (*Cs)[THREADS]) {
-  const int t = threadIdx.x;
-  const int c = t % T;
-  const int g = t / T;
-#pragma unroll
-  for (int q = 0; q < KG; ++q) {
-    float s = Cs[q][t];
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) s = fmaf(X[kk][c], Rs[kk][g * KG + q], s);
-    Cs[q][t] = s;
-  }
-}
-
-__device__ __forceinline__ void zero_corr(float (*Cs)[THREADS]) {
-#pragma unroll
-  for (int q = 0; q < KG; ++q) Cs[q][threadIdx.x] = 0.f;
-}
-
-// cout[i0 + c, j0 + g * KG + q] = C[...] + Cs[q][t], inside (d, k).
-__device__ __forceinline__ void write_corr(float (*Cs)[THREADS], const float* C, float* cout,
-                                           long long i0, int j0, int d, int k, long long ldc,
-                                           long long ldco) {
-  const long long r = i0 + threadIdx.x % T;
-  if (r >= d) return;
-  const int jb = j0 + (threadIdx.x / T) * KG;
-#pragma unroll
-  for (int q = 0; q < KG; ++q) {
-    const int j = jb + q;
-    if (j < k) cout[r * ldco + j] = C[r * ldc + j] + Cs[q][threadIdx.x];
-  }
-}
-
-// Block p is the p-th upper-triangle tile pair (ti <= tj), row-major. G and
-// gout may alias, and C and cout: no __restrict__ on them.
-__global__ void __launch_bounds__(THREADS, 2)
-gram_corr_sym_acc_f32_kernel(const float* __restrict__ F, const float* __restrict__ R,
-                             const float* G, const float* C, float* gout, float* cout, int n,
-                             int d, int k, long long ldf, long long ldr, long long ldg,
-                             long long ldc, long long ldgo, long long ldco, int nt) {
-  __shared__ __align__(16) float Xs[BK][LDS];
-  __shared__ __align__(16) float Ys[BK][LDS];
-  __shared__ float Rs[BK][KP];
-  __shared__ float Cs[KG][THREADS];
-
-  int ti = 0;
-  int rem = blockIdx.x;
-  while (rem >= nt - ti) {
-    rem -= nt - ti;
-    ++ti;
-  }
-  const int tj = ti + rem;
-  const bool diag = ti == tj;  // uniform over the block: safe around barriers
-  const long long i0 = (long long)ti * T;
-  const long long j0 = (long long)tj * T;
-
-  float acc[8][8];
-  zero(acc);
-  if (diag) zero_corr(Cs);
-  for (long long r0 = 0; r0 < n; r0 += BK) {
-    stage_rows<float>(Xs, F, r0, i0, n, d, ldf);
-    stage_rows<float>(Ys, F, r0, j0, n, d, ldf);
-    if (diag) stage_labels(Rs, R, r0, 0, n, k, ldr);
-    __syncthreads();
-    fma_stage(Xs, Ys, acc);
-    if (diag) corr_stage(Xs, Rs, Cs);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long r = i0 + tile_row(i);
-    if (r >= d) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long c = j0 + tile_col(j);
-      if (c >= d) continue;
-      gout[r * ldgo + c] = G[r * ldg + c] + acc[i][j];
-    }
-  }
-  if (!diag) return;
-  write_corr(Cs, C, cout, i0, 0, d, k, ldc, ldco);
-
-  // Label columns past the first KP: one more pass over F's tile each.
-  for (int lj = KP; lj < k; lj += KP) {
-    zero_corr(Cs);
-    for (long long r0 = 0; r0 < n; r0 += BK) {
-      stage_rows<float>(Xs, F, r0, i0, n, d, ldf);
-      stage_labels(Rs, R, r0, lj, n, k, ldr);
-      __syncthreads();
-      corr_stage(Xs, Rs, Cs);
-      __syncthreads();
-    }
-    write_corr(Cs, C, cout, i0, lj, d, k, ldc, ldco);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 F: TMA + wgmma
@@ -597,12 +482,9 @@ int launch_bf16(const void* F, const float* R, const float* G, const float* C, f
 int launch_f32(const void* F, const float* R, const float* G, const float* C, float* gout,
                float* cout, int n, int d, int k, long long ldf, long long ldr, long long ldg,
                long long ldc, long long ldgo, long long ldco, cudaStream_t stream) {
-  const int nt = (d + T - 1) / T;
-  const int npairs = nt * (nt + 1) / 2;
-  gram_corr_sym_acc_f32_kernel<<<npairs, THREADS, 0, stream>>>(
-      static_cast<const float*>(F), R, G, C, gout, cout, n, d, k, ldf, ldr, ldg, ldc, ldgo,
-      ldco, nt);
-  return static_cast<int>(cudaGetLastError());
+  return kt_gram::launch<float, true>(static_cast<const float*>(F), R,
+                                      kt_gram::Out{G, ldg, gout, ldgo},
+                                      kt_gram::Out{C, ldc, cout, ldco}, n, d, k, ldf, ldr, stream);
 }
 
 }  // namespace
@@ -622,4 +504,13 @@ extern "C" int kt_gram_corr_sym_acc(const void* F, const float* R, const float* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f_bf16 ? launch_bf16(F, R, G, C, gout, cout, n, d, k, ldf, ldr, ldg, ldc, ldgo, ldco, s)
                 : launch_f32(F, R, G, C, gout, cout, n, d, k, ldf, ldr, ldg, ldc, ldgo, ldco, s);
+}
+
+// The grid kt_gram_corr_sym_acc launches for float32 F (d columns, row
+// stride ldf) and k label columns on the current device (the layout of
+// gram_tile.cuh's `plan`: 9 ints). Returns the cudaError_t.
+extern "C" int kt_gram_corr_sym_acc_config(const void* F, int d, int k, long long ldf,
+                                           int* out) {
+  return static_cast<int>(
+      kt_gram::plan<float, true>(static_cast<const float*>(F), d, k, ldf, out));
 }

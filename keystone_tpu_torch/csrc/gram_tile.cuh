@@ -1,0 +1,293 @@
+// The Gramian kernels on fma_pipe.cuh's pipelined tile: A^T A of a
+// row-major A (n, d) over its upper-triangle 128 x 128 tiles, with or
+// without the correlation A^T R, and with one of two epilogues:
+//   - STORE (ACC = false): the sums into out, and off the diagonal into the
+//     mirror tile too, so out is the whole symmetric Gramian (gram_corr.cu's
+//     gram_corr, gram_corr_sym and block_gram_sym);
+//   - ACC (ACC = true): out = in + sums on the upper tiles only, nothing
+//     mirrored, the strictly-lower tiles of out never written; in and out
+//     may be the same buffer (gram_corr.cu's gram_sym_acc, the streamed
+//     fold's step, and gram_corr_sym_acc.cu's float32 form, the sparse
+//     fold's step), and so may the correlation's.
+//
+// Every output tile is one block of one launch that loops over all n rows
+// itself, so nothing carries between blocks and no atomics are needed; the
+// TPU kernels' sequential row-tile grid axis becomes that loop, and every
+// output entry is one fmaf chain over rows 0 ... n-1 in order, from zero
+// (fma_pipe.cuh), to which ACC adds in's entry once. So the Gramian is
+// exactly symmetric, all these forms give each other's bits, in place gives
+// the bits of a new buffer (each entry of out is read, then written, by the
+// thread that computed it), and a window read in place gives the bits of
+// its copy.
+//   - Blocks [0, ncorr): the correlation, 64 columns of A (4 a thread) x a
+//     label tile that holds all of R's columns up to 160 (k = 147: 8%
+//     masked; k <= 32: 32 wide; k > 160: further 160-wide tiles),
+//     block_corr.cu's label-tile rule. Splitting the correlation's rows
+//     into chunks would fill waves better, but changes its sums' order.
+//   - Blocks [ncorr, ...): one block an upper Gramian tile (ti <= tj),
+//     row-major over the upper triangle, 128 x 128 (8 x 8 outputs a
+//     thread). gram_kernel launches these alone.
+// Rows stream through a 3-stage cp.async ring of 32-row stages for the
+// Gramian and of 16-row stages for the correlation, in 16-byte chunks when
+// A's base and row stride are 16-byte aligned (VA; PA, the instance that
+// copies the chunk at a ragged right edge in part, where d is not whole
+// chunks), else element by element; bf16 A is widened to
+// float32 as it is read from shared memory; R stays float32 in the
+// product. Ragged edges of n, d and k are masked, and nothing outside A's
+// d columns is read.
+
+#pragma once
+
+#include "fma_pipe.cuh"
+
+namespace kt_gram {
+
+using namespace kt_pipe;
+
+constexpr int BK = 32;       // rows a stage of the Gramian
+constexpr int STAGES = 3;    // stages in the cp.async ring
+constexpr int MINB = 2;      // blocks an SM the registers are capped for (128 a thread)
+constexpr int CORR_BK = 16;  // rows a stage of the correlation (block_corr.cu's)
+constexpr int CORR_MI = 4;   // columns of A a thread of a correlation block (x 16 a block)
+
+template <typename TA>
+constexpr int gram_smem() {
+  return smem_bytes<TA, TA, BK, STAGES, 8, 8>();
+}
+
+template <typename TA, int NJ>
+constexpr int smem_of() {
+  constexpr int corr = smem_bytes<TA, float, CORR_BK, STAGES, CORR_MI, NJ>();
+  return gram_smem<TA>() > corr ? gram_smem<TA>() : corr;
+}
+
+// Where a product goes: out, and for ACC the matrix in it is added to (row
+// strides ldo and ldi). STORE writes a contiguous (rows, cols) out. in and
+// out may alias: no __restrict__.
+struct Out {
+  const float* in;
+  long long ldi;
+  float* out;
+  long long ldo;
+};
+
+// Write a thread's outputs of the tile at (i0, j0) inside (rows, cols):
+// out = acc (fma_pipe.cuh's store_tile), or for ACC out = in + acc, each
+// entry read and then written by this thread.
+template <bool ACC, int MI, int NJ>
+__device__ __forceinline__ void put_tile(const Out& o, long long rows, long long cols,
+                                         long long i0, long long j0,
+                                         const float (&acc)[MI][NJ]) {
+  if constexpr (!ACC) {
+    store_tile<MI, NJ>(o.out, rows, cols, i0, j0, acc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const long long r = i0 + out_row<MI>(i);
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const long long c = j0 + out_col<NJ>(j);
+        if (c < cols) o.out[r * o.ldo + c] = o.in[r * o.ldi + c] + acc[i][j];
+      }
+    }
+  }
+}
+
+// Upper Gramian tile p (ti <= tj, row-major over the upper triangle of nt
+// x nt tiles) of A's d columns over all n rows, into g; for STORE also its
+// mirror tile off the diagonal.
+template <typename TA, bool VA, bool PA, bool ACC>
+__device__ __forceinline__ void gram_tile(unsigned char* smem, const TA* __restrict__ A,
+                                          const Out& g, int n, int d, long long lda, int nt,
+                                          int p) {
+  int ti = 0;
+  int rem = p;
+  while (rem >= nt - ti) {
+    rem -= nt - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const long long i0 = (long long)ti * TM;
+  const long long j0 = (long long)tj * TM;
+  float acc[8][8];
+  mainloop<BK, STAGES, 8, 8, VA, VA, false, false, PA, PA>(smem, A, lda, i0, d, A, lda, j0, d,
+                                                          0, n, false, acc);
+  put_tile<ACC>(g, d, d, i0, j0, acc);
+  if constexpr (!ACC) {
+    if (ti == tj) return;  // a diagonal tile is computed whole
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long r = i0 + out_row<8>(i);
+      if (r >= d) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const long long c = j0 + out_col<8>(j);
+        if (c < d) g.out[c * d + r] = acc[i][j];  // the mirror tile
+      }
+    }
+  }
+}
+
+// NJ: the correlation's label tile, 16 * NJ columns; nkt of them, and ncorr
+// correlation blocks in all.
+template <typename TA, int NJ, bool VA, bool PA, bool ACC>
+__global__ void __launch_bounds__(THREADS, MINB)
+gram_corr_kernel(const TA* __restrict__ A, const float* __restrict__ R, Out g, Out c, int n,
+                 int d, int k, long long lda, long long ldr, int nt, int ncorr, int nkt) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (static_cast<int>(blockIdx.x) < ncorr) {
+    const long long i0 = (long long)(blockIdx.x / nkt) * 16 * CORR_MI;
+    const long long j0 = (long long)(blockIdx.x % nkt) * 16 * NJ;
+    float acc[CORR_MI][NJ];
+    mainloop<CORR_BK, STAGES, CORR_MI, NJ, VA, false, false, false, PA>(
+        smem, A, lda, i0, d, R, ldr, j0, k, 0, n, false, acc);
+    put_tile<ACC>(c, d, k, i0, j0, acc);
+    return;
+  }
+  gram_tile<TA, VA, PA, ACC>(smem, A, g, n, d, lda, nt, blockIdx.x - ncorr);
+}
+
+// The Gramian tiles alone: block p is upper tile p.
+template <typename TA, bool VA, bool PA, bool ACC>
+__global__ void __launch_bounds__(THREADS, MINB)
+gram_kernel(const TA* __restrict__ A, Out g, int n, int d, long long lda, int nt) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gram_tile<TA, VA, PA, ACC>(smem, A, g, n, d, lda, nt, blockIdx.x);
+}
+
+// The copy instance for A (base pointer, row stride lda, d columns):
+// element-wise, 16-byte (whole chunks), or 16-byte with the last chunk in
+// part; fn(VA, PA) as std::integral_constant<bool> pairs.
+template <typename TA, typename Fn>
+inline auto with_copies(const TA* A, long long lda, int d, Fn&& fn) {
+  using T = std::true_type;
+  using F = std::false_type;
+  if (!rows_vec_ok(A, lda)) return fn(F{}, F{});
+  return d % vec_elems<TA>() == 0 ? fn(T{}, F{}) : fn(T{}, T{});
+}
+
+// The upper tiles of a d-wide Gramian.
+inline int gram_blocks(int d) {
+  const int nt = (d + TM - 1) / TM;
+  return nt * (nt + 1) / 2;
+}
+
+// The correlation's blocks: 16 * CORR_MI columns of A x ktile label columns.
+inline int corr_blocks(int d, int k, int ktile) {
+  return (d + 16 * CORR_MI - 1) / (16 * CORR_MI) * ((k + ktile - 1) / ktile);
+}
+
+// A kernel's resources on the current device: out[0] its resident blocks
+// an SM, out[1..2] registers and local (spilled) bytes a thread, out[3] the
+// SM count.
+template <typename Kernel>
+cudaError_t resources(Kernel kernel, int smem, int* out) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The Gramian + correlation kernel instance for these operands, its shared
+// memory, and its label tile's width.
+template <typename TA, bool ACC>
+struct Instance {
+  void (*kernel)(const TA*, const float*, Out, Out, int, int, int, long long, long long, int,
+                 int, int);
+  int smem;
+  int ktile;
+};
+
+template <typename TA, bool ACC>
+cudaError_t instance(const TA* A, int d, int k, long long lda, Instance<TA, ACC>* out) {
+  *out = with_copies(A, lda, d, [&](auto va, auto pa) {
+    return with_label_tile(k, [&](auto nj) {
+      constexpr int NJ = decltype(nj)::value;
+      constexpr bool VA = decltype(va)::value, PA = decltype(pa)::value;
+      return Instance<TA, ACC>{gram_corr_kernel<TA, NJ, VA, PA, ACC>, smem_of<TA, NJ>(), 16 * NJ};
+    });
+  });
+  return cudaFuncSetAttribute(out->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              out->smem);
+}
+
+// The grid of one Gramian + correlation launch: out[0] Gramian blocks,
+// out[1] correlation blocks, out[2] the label tile's width, out[3..6] the
+// kernel's resources, out[7] the columns of A a correlation block, out[8]
+// whether A is copied in 16-byte chunks.
+template <typename TA, bool ACC>
+cudaError_t plan(const TA* A, int d, int k, long long lda, int* out) {
+  Instance<TA, ACC> inst;
+  const cudaError_t err = instance(A, d, k, lda, &inst);
+  if (err != cudaSuccess) return err;
+  out[0] = gram_blocks(d);
+  out[1] = corr_blocks(d, k, inst.ktile);
+  out[2] = inst.ktile;
+  out[7] = 16 * CORR_MI;
+  out[8] = rows_vec_ok(A, lda);
+  return resources(inst.kernel, inst.smem, out + 3);
+}
+
+template <typename TA, bool ACC>
+int launch(const TA* A, const float* R, const Out& g, const Out& c, int n, int d, int k,
+           long long lda, long long ldr, cudaStream_t stream) {
+  Instance<TA, ACC> inst;
+  const cudaError_t err = instance(A, d, k, lda, &inst);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = (d + TM - 1) / TM;
+  const int ncorr = corr_blocks(d, k, inst.ktile);
+  inst.kernel<<<ncorr + gram_blocks(d), THREADS, inst.smem, stream>>>(
+      A, R, g, c, n, d, k, lda, ldr, nt, ncorr, (k + inst.ktile - 1) / inst.ktile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TA>
+using GramKernel = void (*)(const TA*, Out, int, int, long long, int);
+
+// The Gramian-alone kernel for the operand W (base pointer, row stride ldf,
+// b columns): a 16-byte instance where rows_vec_ok (vec), else the
+// element-wise one.
+template <typename TA, bool ACC>
+cudaError_t gram_instance(const TA* W, int b, long long ldf, GramKernel<TA>* kernel,
+                          bool* vec) {
+  *vec = rows_vec_ok(W, ldf);
+  *kernel = with_copies(W, ldf, b, [](auto va, auto pa) -> GramKernel<TA> {
+    return gram_kernel<TA, decltype(va)::value, decltype(pa)::value, ACC>;
+  });
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              gram_smem<TA>());
+}
+
+// The Gramian-alone grid: out[0] blocks, out[1] whether the 16-byte path
+// is taken, out[2..5] the kernel's resources.
+template <typename TA, bool ACC>
+cudaError_t gram_plan(const TA* W, int b, long long ldf, int* out) {
+  GramKernel<TA> kernel;
+  bool vec;
+  const cudaError_t err = gram_instance<TA, ACC>(W, b, ldf, &kernel, &vec);
+  if (err != cudaSuccess) return err;
+  out[0] = gram_blocks(b);
+  out[1] = vec;
+  return resources(kernel, gram_smem<TA>(), out + 2);
+}
+
+template <typename TA, bool ACC>
+int launch_gram(const TA* W, const Out& g, int n, int b, long long ldf, cudaStream_t stream) {
+  GramKernel<TA> kernel;
+  bool vec;
+  const cudaError_t err = gram_instance<TA, ACC>(W, b, ldf, &kernel, &vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<gram_blocks(b), THREADS, gram_smem<TA>(), stream>>>(W, g, n, b, ldf,
+                                                              (b + TM - 1) / TM);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace kt_gram

@@ -23,9 +23,10 @@ run:
     ``F[:, s:s+b]``, read in place through F's row stride (never copied).
     :func:`strided_gram_ok` is the guard that sends the solver to them;
   - :func:`gram_sym_acc` ↔ ``pallas_ops.gram_sym_acc``
-    (``csrc/gram_sym_acc.cu``): ``G + FᵀF`` on the upper-triangle tiles,
-    the streamed fit's per-tile Gramian fold, accumulating in place.
-    :func:`gram_acc_ok` is its guard;
+    (``csrc/gram_corr.cu``'s Gramian tiles alone, with an accumulating
+    epilogue): ``G + FᵀF`` on the upper-triangle tiles, the streamed fit's
+    per-tile Gramian fold, accumulating in place. :func:`gram_acc_ok` is
+    its guard;
   - :func:`gram_corr_sym_acc` ↔ ``pallas_ops.gram_corr_sym_acc``
     (``csrc/gram_corr_sym_acc.cu``): ``(G + FᵀF, C + FᵀR)`` in one pass
     over F, the sparse gram fold's chunk step (``ops/sparse.py``),
@@ -45,20 +46,20 @@ run:
     step; each warp owns one bucket's output row, so the adds land in a
     fixed order without atomics.
 
-All but the CountSketch kernel, and ``gram_corr_sym_acc`` with bf16 F (TMA
-loads into ``wgmma`` on the tensor cores), are FP32-FMA register tiles:
-``cosine_features``, ``block_corr``, the three Gramians of
-``gram_corr.cu`` (``gram_corr_sym``, ``gram_corr``, ``block_gram_sym``),
-``block_residual_update``, ``gaussian_kernel_block`` and
-``gaussian_resid_block`` on the pipelined one of ``csrc/fma_pipe.cuh`` (a
-ring of stages, operands row-major or K-major, label tiles sized to k;
-chunks of the reduction that fill whole waves for ``block_corr``,
-:func:`corr_splits`, ``gaussian_kernel_block``, :func:`gaussian_splits`,
-and ``gaussian_resid_block``, :func:`gaussian_resid_splits`), the others
-(``gram_sym_acc``, f32 ``gram_corr_sym_acc``) on ``csrc/fma_tile.cuh``. The image
-featurizer's kernel (``csrc/conv_featurize.cu``) has its wrapper in
-``ops/cuda_images.py``; it is built, loaded and counted here with the
-others.
+All but the CountSketch kernel, the image featurizer's and
+``gram_corr_sym_acc`` with bf16 F (TMA loads into ``wgmma`` on the tensor
+cores) run on one FP32-FMA register tile, the pipelined one of
+``csrc/fma_pipe.cuh`` (a ring of stages, operands row-major or K-major,
+label tiles sized to k; chunks of the reduction that fill whole waves for
+``block_corr``, :func:`corr_splits`, ``gaussian_kernel_block``,
+:func:`gaussian_splits`, and ``gaussian_resid_block``,
+:func:`gaussian_resid_splits`): ``cosine_features``, ``block_corr``,
+``block_residual_update``, the two Gaussian kernels, and the Gramian
+kernels of ``csrc/gram_tile.cuh`` — ``gram_corr.cu``'s four wrappers
+(``gram_corr_sym``, ``gram_corr``, ``block_gram_sym``, ``gram_sym_acc``)
+and ``gram_corr_sym_acc`` with float32 F. The image featurizer's kernel
+(``csrc/conv_featurize.cu``) has its wrapper in ``ops/cuda_images.py``;
+it is built, loaded and counted here with the others.
 
 Each wrapper keeps its Pallas twin's name and operand contract. For a
 tensor on the CPU it computes the plain PyTorch version (``*_ref``); for a
@@ -161,9 +162,12 @@ _EXTRA_SYMBOLS = {
     "cosine_features": [("kt_cosine_features_config", [_I, _I, _I, _P])],
     "gram_corr": [("kt_gram_corr_config", [_P, _I, _I, _L, _I, _P])],
     "block_gram_sym": [("kt_block_gram_sym_config", [_P, _I, _I, _L, _I, _P])],
+    "gram_sym_acc": [("kt_gram_sym_acc_config", [_P, _I, _L, _I, _P])],
+    "gram_corr_sym_acc": [("kt_gram_corr_sym_acc_config", [_P, _I, _I, _L, _P])],
 }
 # Wrappers whose kernel lives in another wrapper's source: name -> source.
-_SOURCES = {"gram_corr_sym": "gram_corr", "block_gram_sym": "gram_corr"}
+_SOURCES = {"gram_corr_sym": "gram_corr", "block_gram_sym": "gram_corr",
+            "gram_sym_acc": "gram_corr"}
 # Loaded libraries by source.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -485,23 +489,30 @@ def gram_corr(A, R):
     return _gram_corr_launch("gram_corr", A, R)
 
 
+def _gram_corr_config(out, k: int) -> Dict[str, float]:
+    """A Gramian + correlation launch's grid from its config entry point's
+    9 ints (``csrc/gram_tile.cuh``'s ``plan``)."""
+    gram, corr, ktile, bps, regs, local, sms, corr_cols, vec = out
+    return _grid(dict(blocks=gram + corr, gram_blocks=gram, corr_blocks=corr,
+                      corr_cols=corr_cols, ktile=ktile,
+                      masked=1 - k / max(-(-k // ktile) * ktile, 1), vec=bool(vec),
+                      blocks_per_sm=bps, registers=regs, local_bytes=local), sms)
+
+
 def gram_corr_grid(A, k: int) -> Dict[str, float]:
     """The grid :func:`gram_corr` launches for A (on a card) and k label
     columns: its blocks (the correlation's first, each ``corr_cols``
     columns of A, then the Gramian's upper tiles), the correlation's
-    label-tile width and share of masked label FMAs, the kernel's resident
-    blocks an SM, registers and local (spilled) bytes a thread, and the
-    waves."""
-    out = (ctypes.c_int * 8)()
+    label-tile width and share of masked label FMAs, whether A is copied in
+    16-byte chunks (``vec``: A's base and row stride whole chunks), the
+    kernel's resident blocks an SM, registers and local (spilled) bytes a
+    thread, and the waves."""
+    out = (ctypes.c_int * 9)()
     with torch.cuda.device(A.device):
         err = _lib("gram_corr").kt_gram_corr_config(
             A.data_ptr(), A.shape[1], k, A.stride(0), int(A.dtype == torch.bfloat16), out)
     _check_launch("gram_corr", err)
-    gram, corr, ktile, bps, regs, local, sms, corr_cols = out
-    return _grid(dict(blocks=gram + corr, gram_blocks=gram, corr_blocks=corr,
-                      corr_cols=corr_cols, ktile=ktile,
-                      masked=1 - k / max(-(-k // ktile) * ktile, 1), blocks_per_sm=bps,
-                      registers=regs, local_bytes=local), sms)
+    return _gram_corr_config(out, k)
 
 
 def _gram_corr_launch(name: str, A, R):
@@ -587,9 +598,9 @@ def block_gram_sym_grid(F, col_start: int, block: int) -> Dict[str, float]:
     """The grid :func:`block_gram_sym` launches for the window
     ``F[:, col_start:col_start+block]`` of F (on a card): its blocks (the
     upper 128 x 128 tiles), whether it copies the window in 16-byte chunks
-    (``vec``: the window's base, F's row stride and ``block`` whole
-    chunks), the kernel's resident blocks an SM, registers and local
-    (spilled) bytes a thread, and the waves."""
+    (``vec``: the window's base and F's row stride whole chunks), the
+    kernel's resident blocks an SM, registers and local (spilled) bytes a
+    thread, and the waves."""
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(F.device):
         err = _lib("block_gram_sym").kt_block_gram_sym_config(
@@ -868,6 +879,22 @@ def gram_sym_acc_ref(G, F):
     return (G.to(acc) + Ff.T @ Ff).to(torch.float32)
 
 
+def gram_sym_acc_grid(F) -> Dict[str, float]:
+    """The grid :func:`gram_sym_acc` launches for the feature tile F (on a
+    card): its blocks (the upper 128 x 128 tiles), whether it copies F in
+    16-byte chunks (``vec``: F's base and row stride whole chunks), the
+    kernel's resident blocks an SM, registers and local (spilled) bytes a
+    thread, and the waves."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(F.device):
+        err = _lib("gram_sym_acc").kt_gram_sym_acc_config(
+            F.data_ptr(), F.shape[1], F.stride(0), int(F.dtype == torch.bfloat16), out)
+    _check_launch("gram_sym_acc", err)
+    blocks, vec, bps, regs, local, sms = out
+    return _grid(dict(blocks=blocks, vec=bool(vec), blocks_per_sm=bps, registers=regs,
+                      local_bytes=local), sms)
+
+
 def gram_sym_acc(G, F, out=None):
     """``G + FᵀF`` on the upper-triangle 128 x 128 tiles of the Gramian.
 
@@ -879,6 +906,12 @@ def gram_sym_acc(G, F, out=None):
     (left as they were when ``out`` is G): callers mirror once after the
     last accumulation (``triu(G) + triu(G, 1).T``), as the reference's
     contract has it.
+
+    On the card it launches the Gramian tiles of ``csrc/gram_corr.cu``
+    (:func:`block_gram_sym`'s) with an accumulating epilogue: each entry is
+    one float32 FMA chain over the rows in order, plus G's entry once, so
+    in place gives the bits of a new buffer (:func:`gram_sym_acc_grid`
+    gives the launch's grid).
     """
     operands = (G, F) if out is None else (G, F, out)
     if all(t.device.type == "cpu" for t in operands):
@@ -950,6 +983,23 @@ def gram_corr_sym_acc_ref(G, C, F, R):
     )
 
 
+def gram_corr_sym_acc_grid(F, k: int) -> Dict[str, float]:
+    """The grid :func:`gram_corr_sym_acc` launches for float32 F (on a
+    card) and k label columns, :func:`gram_corr_grid`'s keys: the
+    correlation's blocks, then the Gramian's upper tiles, and whether F is
+    copied in 16-byte chunks (F's base and row stride whole chunks). bf16 F
+    runs on the tensor cores, one block an upper tile; it has no such
+    grid."""
+    if F.dtype != torch.float32:
+        raise TypeError(f"gram_corr_sym_acc_grid: the float32 form's grid, got {F.dtype}")
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(F.device):
+        err = _lib("gram_corr_sym_acc").kt_gram_corr_sym_acc_config(
+            F.data_ptr(), F.shape[1], k, F.stride(0), out)
+    _check_launch("gram_corr_sym_acc", err)
+    return _gram_corr_config(out, k)
+
+
 def gram_corr_sym_acc(G, C, F, R, out=None):
     """``(G + FᵀF, C + FᵀR)`` in one pass over F, the Gramian on the
     upper-triangle 128 x 128 tiles only.
@@ -967,8 +1017,13 @@ def gram_corr_sym_acc(G, C, F, R, out=None):
     after the last accumulation, as :func:`gram_sym_acc`'s contract has it.
 
     On the card bf16 F runs on the tensor cores (TMA + ``wgmma``, float32
-    accumulators) and float32 F on the FP32 FMA units; either way the sums
-    have one fixed order, so runs and in-place calls give the same bits.
+    accumulators) and float32 F on the FP32 FMA units, on the Gramian
+    kernel of ``csrc/gram_tile.cuh`` (:func:`gram_sym_acc`'s tiles and
+    :func:`gram_corr`'s correlation blocks, :func:`gram_corr_sym_acc_grid`);
+    either way the sums have one fixed order, so runs and in-place calls
+    give the same bits. float32 F is copied in 16-byte chunks when its base
+    and row stride are whole chunks (the fold pads its float32 slab's rows
+    to 4 elements for that), else element by element.
     """
     operands = (G, C, F, R) if out is None else (G, C, F, R, *out)
     if all(t.device.type == "cpu" for t in operands):

@@ -265,9 +265,10 @@ def sparse_gram_stream(chunk_fn, num_chunks: int, d: int, k: int,
     return gram_finalize(G), AtY, yty
 
 
-# Row alignment, in elements, of the gram fold's bf16 slabs: 64 bf16 are
-# one 128-byte TMA box row of the kernel.
-_SLAB_ROW_ALIGN = 64
+# Row alignment, in elements, of the gram fold's slabs: 64 bf16 are one
+# 128-byte TMA box row of the kernel's bf16 form, 4 float32 one 16-byte
+# cp.async chunk of its float32 form.
+_SLAB_ROW_ALIGN = {torch.bfloat16: 64, torch.float32: 4}
 
 
 def sparse_gram_fold(carry, cids, chunk_fn, d: int, k: int, val_dtype=torch.float32,
@@ -290,8 +291,10 @@ def sparse_gram_fold(carry, cids, chunk_fn, d: int, k: int, val_dtype=torch.floa
     cids = [int(c) for c in cids]
 
     # A bf16 slab is read by the kernel's TMA loads in place: its rows
-    # start on 16-byte boundaries (``cuda_ops.gram_corr_acc_ok``).
-    row_align = _SLAB_ROW_ALIGN if val_dtype == torch.bfloat16 else 1
+    # start on 16-byte boundaries (``cuda_ops.gram_corr_acc_ok``). A float32
+    # slab's rows do too, so the kernel copies them in 16-byte chunks; the
+    # pad columns are never read.
+    row_align = _SLAB_ROW_ALIGN.get(val_dtype, 1)
 
     def densify(cid):
         indices, values, Yc = chunk_fn(cid)

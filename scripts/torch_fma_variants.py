@@ -6,12 +6,16 @@
 
 Builds variants of the kernels on ``keystone_tpu_torch/csrc/fma_pipe.cuh``
 (``block_corr.cu``, ``gram_corr.cu``, which also holds ``block_gram_sym``'s
-Gramian-only launch, ``block_residual_update.cu``,
+Gramian-only launch and ``gram_sym_acc``'s accumulating one,
+``gram_corr_sym_acc.cu``'s float32 form, both on the Gramian kernel of
+``gram_tile.cuh``, ``block_residual_update.cu``,
 ``gaussian_kernel_block.cu``, ``gaussian_resid_block.cu``,
 ``cosine_features.cu``) that differ from them in one constant (or two) each,
-of the kernel's source or of the header: ``STAGES``, the ring's depth;
-``BK``, the reduction steps a stage (of the Gramian in ``gram_corr`` and
-``block_gram_sym``);
+of the kernel's source or of a header: ``STAGES``, the ring's depth;
+``BK``, the reduction steps a stage (of the Gramian in ``gram_corr``,
+``block_gram_sym``, ``gram_sym_acc`` and ``gram_corr_sym_acc``); the
+order of the Gramians' upper tiles (row-major, or grouped
+column by column in 8 tile rows);
 ``KT_WIDE``, the label tile of k > 32 (128 takes k = 147 in two tiles, the
 second masked past column 19); ``MINB``, the blocks an SM the registers are
 capped for; ``CORR_MI``, the columns of A a thread of a ``gram_corr``
@@ -23,13 +27,16 @@ wider tile's block counts are printed as if it were 128 wide); the order of
 its row tiles at k <= 16 or adds each tile's share into it in device
 memory (its k > 16 form), ``KT``, the label columns of its contraction
 pass, and the width of its row-tile counters. Each variant is built in a directory of its own under
-``build/keystone_tpu_torch/variants/`` (beside a copy of the header where the
-variant edits it), one ``nvcc`` each, all started together. Then, at the
+``build/keystone_tpu_torch/variants/`` (beside copies of the headers, edited
+where the variant edits them), one ``nvcc`` each, all started together. Then, at the
 main path's shapes (``chip_smoke.py``'s: ``block_corr``,
 ``block_gram_sym`` and ``block_residual_update`` at the TIMIT window, F
 65,536 x 16,384 float32, columns [8192, 12288), R 65,536 x 147, dW 4,096 x
 147; ``gram_corr``: A
-65,536 x 4,096, R 65,536 x 147; ``gaussian_kernel_block`` at the CIFAR
+65,536 x 4,096, R 65,536 x 147; ``gram_sym_acc`` at the streamed fit's
+tile, F 32,768 x 16,384; ``gram_corr_sym_acc`` at the Amazon chunk, F
+65,536 x 16,385 at the fold's row stride of 16,388 (as built also at
+16,385, and ``gram_sym_acc``'s Gramian alone on it), R 65,536 x 2; ``gaussian_kernel_block`` at the CIFAR
 route's four shapes, ``chip_smoke.cifar_gaussian_shapes``;
 ``gaussian_resid_block`` at the CIFAR sweep, X 50,000 x 1,800, a 512-row
 block and the ragged 336-row one, W 50,000 x 10; ``cosine_features`` at
@@ -50,11 +57,13 @@ feature-chunk counts than ``cuda_ops.gaussian_splits`` picks.
 
 With ``--root DIR [DIR ...]`` it builds no variants: it loads the
 ``cuda_ops`` module of each checkout under a name of its own and times
-their ``gram_corr_sym`` (A 65,536 x 4,096, R 65,536 x 147, f32 and bf16
-A), ``block_gram_sym`` (the TIMIT window, f32 and bf16 F),
-``block_residual_update`` (f32 and bf16 F), ``gaussian_kernel_block``
-(each CIFAR shape), ``gaussian_resid_block`` (both sweep blocks, f32 and
-bf16 operands) and ``cosine_features`` (f32, bf16 operands, bf16 output,
+their ``gram_sym_acc`` (the streamed tile, f32 and bf16 F, in place),
+``gram_corr_sym_acc`` (the Amazon chunk: f32 F at row strides 16,388 and
+16,385, its ragged last chunk, bf16 F; in place), ``gram_corr_sym`` (A
+65,536 x 4,096, R 65,536 x 147, f32 and bf16 A), ``block_gram_sym`` (the
+TIMIT window, f32 and bf16 F), ``block_residual_update`` (f32 and bf16
+F), ``gaussian_kernel_block`` (each CIFAR shape), ``gaussian_resid_block``
+(both sweep blocks, f32 and bf16 operands) and ``cosine_features`` (f32, bf16 operands, bf16 output,
 and f32 into the fused matrix's window) through their wrappers, in turns
 in one process on one card (first to last checkout and back: parent,
 change, change, parent for two), a call with CUDA events (``ms``: the
@@ -64,7 +73,8 @@ against its plain version, beside its library yardstick, and against the
 first checkout's output on the same inputs (``bits_of_first_root``,
 ``max_diff_from_first_root``). Each checkout builds its kernels into its
 own ``build/`` directory; a parent commit unpacked under ``build/`` is
-compared with this one in one call.
+compared with this one in one call. ``--kernels`` picks the wrappers
+timed (default: all).
 
 Prints one line a variant (or shape, a turn) and writes the numbers, with
 the card's name and power limit, as JSON to ``--out``. Needs a CUDA device;
@@ -84,11 +94,71 @@ import torch
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 from chip_smoke import (  # noqa: E402  (the shapes and timers chip_smoke.py uses)
-    BLOCK, CIFAR_BLOCK, CIFAR_BLOCKS, CIFAR_D, CIFAR_GAMMA, CIFAR_K, CIFAR_N, CIFAR_TEST,
-    COL_START, D_FEAT, D_IN, K, N_TRAIN as N, cifar_gaussian_shapes, device_ms, time_ms)
+    AMAZON_CHUNK, AMAZON_D, AMAZON_K, AMAZON_RAGGED, BLOCK, CIFAR_BLOCK, CIFAR_BLOCKS, CIFAR_D,
+    CIFAR_GAMMA, CIFAR_K, CIFAR_N, CIFAR_TEST, COL_START, D_FEAT, D_IN, K, N_TRAIN as N,
+    STREAM_TILE, cifar_gaussian_shapes, device_ms, f32_slab, time_ms, tma_slab)
 
 
 HEADER = "fma_pipe.cuh"
+GRAM = "gram_tile.cuh"
+# The Gramian's tile order: upper tiles row-major (as built), or in groups of
+# GH tile rows and, inside a group, column by column (the bf16
+# gram_corr_sym_acc kernel's order), so the blocks of a wave share more of
+# F's columns.
+ROW_MAJOR_TILES = """  int ti = 0;
+  int rem = p;
+  while (rem >= nt - ti) {
+    rem -= nt - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;"""
+GROUPED_TILES = """  constexpr int GH = 8;
+  int g0 = 0;
+  for (;;) {
+    const int h = min(GH, nt - g0);
+    const int count = h * (h + 1) / 2 + h * (nt - g0 - h);
+    if (p < count) break;
+    p -= count;
+    g0 += GH;
+  }
+  const int h = min(GH, nt - g0);
+  const int tri = h * (h + 1) / 2;
+  int ti, tj;
+  if (p < tri) {
+    int c = 0;
+    while (p > c) {
+      p -= c + 1;
+      ++c;
+    }
+    tj = g0 + c;
+    ti = g0 + p;
+  } else {
+    p -= tri;
+    tj = g0 + h + p / h;
+    ti = g0 + p % h;
+  }"""
+# The 16-byte copies of a row-major Gramian operand: as built, whole chunks
+# where d is whole chunks and the partial-last-chunk instance (PART, a byte
+# count held a thread) where it is not; the partial instance at every width;
+# or whole chunks at every width, which at a ragged d reads up to 12 bytes of
+# the rows' pad (right only where the rows are padded, as the fold's are).
+WHOLE_OR_PART = "return d % vec_elems<TA>() == 0 ? fn(T{}, F{}) : fn(T{}, T{});"
+COPY_VARIANTS = [
+    ("16-byte copies in part at every width", ((GRAM, WHOLE_OR_PART, "return fn(T{}, T{});"),)),
+    ("whole 16-byte chunks at every width (reads the rows' pad)",
+     ((GRAM, WHOLE_OR_PART, "return fn(T{}, F{});"),)),
+]
+# The ring variants of the accumulating Gramians (gram_tile.cuh's constants).
+ACC_VARIANTS = [
+    ("as built", ()),
+    ("STAGES 2", ((GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+    ("STAGES 4", ((GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("BK 16", ((GRAM, "constexpr int BK = 32;", "constexpr int BK = 16;"),)),
+    ("BK 16, STAGES 4", ((GRAM, "constexpr int BK = 32;", "constexpr int BK = 16;"),
+                         (GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"))),
+    ("grouped tile order (GH 8)", ((GRAM, ROW_MAJOR_TILES, GROUPED_TILES),)),
+    *COPY_VARIANTS,
+]
 # (kernel, name, edits): each edit (file, the line, its replacement), the
 # file "" for the kernel's own source; "as built" has none.
 VARIANTS = [
@@ -101,23 +171,28 @@ VARIANTS = [
      ((HEADER, "constexpr int KT_WIDE = 160;", "constexpr int KT_WIDE = 128;"),)),
     ("block_corr", "MINB 1", (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
     ("gram_corr", "as built", ()),
-    ("gram_corr", "STAGES 2", (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
-    ("gram_corr", "STAGES 4", (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
-    ("gram_corr", "BK 8", (("", "constexpr int BK = 32;", "constexpr int BK = 8;"),)),
-    ("gram_corr", "BK 16", (("", "constexpr int BK = 32;", "constexpr int BK = 16;"),)),
+    ("gram_corr", "STAGES 2", ((GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+    ("gram_corr", "STAGES 4", ((GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("gram_corr", "BK 8", ((GRAM, "constexpr int BK = 32;", "constexpr int BK = 8;"),)),
+    ("gram_corr", "BK 16", ((GRAM, "constexpr int BK = 32;", "constexpr int BK = 16;"),)),
     ("gram_corr", "CORR_MI 2",
-     (("", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 2;"),)),
+     ((GRAM, "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 2;"),)),
     ("gram_corr", "CORR_MI 8",
-     (("", "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 8;"),)),
+     ((GRAM, "constexpr int CORR_MI = 4;", "constexpr int CORR_MI = 8;"),)),
     ("block_gram_sym", "as built", ()),
     ("block_gram_sym", "STAGES 2",
-     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
+     ((GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),)),
     ("block_gram_sym", "STAGES 4",
-     (("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
-    ("block_gram_sym", "BK 16", (("", "constexpr int BK = 32;", "constexpr int BK = 16;"),)),
+     ((GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),)),
+    ("block_gram_sym", "BK 16", ((GRAM, "constexpr int BK = 32;", "constexpr int BK = 16;"),)),
     ("block_gram_sym", "BK 16, STAGES 4",
-     (("", "constexpr int BK = 32;", "constexpr int BK = 16;"),
-      ("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"))),
+     ((GRAM, "constexpr int BK = 32;", "constexpr int BK = 16;"),
+      (GRAM, "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"))),
+    ("gram_corr", "grouped tile order (GH 8)", ((GRAM, ROW_MAJOR_TILES, GROUPED_TILES),)),
+    ("block_gram_sym", "grouped tile order (GH 8)",
+     ((GRAM, ROW_MAJOR_TILES, GROUPED_TILES),)),
+    *[("gram_corr", name, edits) for name, edits in COPY_VARIANTS[:1]],
+    *[("block_gram_sym", name, edits) for name, edits in COPY_VARIANTS[:1]],
     ("block_residual_update", "as built", ()),
     ("block_residual_update", "STAGES 3",
      (("", "constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),)),
@@ -185,6 +260,8 @@ VARIANTS = [
       ("", "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"))),
     ("cosine_features", "MINB 1",
      (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
+    *[("gram_sym_acc", name, edits) for name, edits in ACC_VARIANTS],
+    *[("gram_corr_sym_acc", name, edits) for name, edits in ACC_VARIANTS],
 ]
 
 
@@ -199,19 +276,20 @@ def build(cuda_ops, kernels):
         vdir = out_dir / f"v{i}"
         vdir.mkdir(parents=True, exist_ok=True)
         source = cuda_ops._source(kernel)
-        texts = {"": (cuda_ops._CSRC / f"{source}.cu").read_text()}
+        # The source and every header, edited or not, side by side: a quoted
+        # #include looks in the including file's own directory first, so a
+        # header that includes another (gram_tile.cuh, fma_pipe.cuh) finds the
+        # variant's copy.
+        texts = {"": (cuda_ops._CSRC / f"{source}.cu").read_text(),
+                 **{h.name: h.read_text() for h in cuda_ops._CSRC.glob("*.cuh")}}
         for file, old, new in edits:
-            if file not in texts:
-                texts[file] = (cuda_ops._CSRC / file).read_text()
             if old not in texts[file]:
                 raise RuntimeError(f"{kernel} {name}: {old!r} is not in {file or kernel}")
             texts[file] = texts[file].replace(old, new)
-        # A quoted #include looks in the source's own directory first, so an
-        # edited header there takes the place of csrc's.
         for file, text in texts.items():
             (vdir / (file or f"{source}.cu")).write_text(text)
-        cmd = [cuda_ops._nvcc(), *cuda_ops._NVCC_FLAGS, "-I", str(cuda_ops._CSRC), "-o",
-               str(vdir / f"lib{source}.so"), str(vdir / f"{source}.cu")]
+        cmd = [cuda_ops._nvcc(), *cuda_ops._NVCC_FLAGS, "-o", str(vdir / f"lib{source}.so"),
+               str(vdir / f"{source}.cu")]
         procs[kernel, name] = (vdir, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                       stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -303,7 +381,7 @@ def gram_corr_rows(cuda_ops, libs, stream):
 
         call()
         torch.cuda.synchronize()
-        cfg = (ctypes.c_int * 8)()
+        cfg = (ctypes.c_int * 9)()
         lib.kt_gram_corr_config(A.data_ptr(), BLOCK, K, A.stride(0), 0, cfg)
         rows[name] = dict(
             gram_rel_err=(G - want_g).abs().max().item() / g_scale,
@@ -361,6 +439,126 @@ def block_gram_sym_rows(cuda_ops, libs, stream):
     for r in rows.values():
         r["tflops"] = flops / r["ms"] / 1e9
     del F, Fw, want, built
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _upper(d, device):
+    """The upper-triangle 128 x 128 tiles of a (d, d) Gramian."""
+    tiles = torch.arange(d, device=device) // 128
+    return tiles[:, None] <= tiles[None, :]
+
+
+def gram_sym_acc_rows(cuda_ops, libs, stream):
+    """Each ring or tile-order variant of gram_sym_acc at the streamed fit's
+    tile (F 32,768 x 16,384 float32, a random G0, into a new buffer), held
+    against the plain version (relative to the sums' scale, upper tiles) and
+    the as-built variant's bits."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, d = STREAM_TILE, D_FEAT
+    F = torch.randn((n, d), generator=gen, device=dev)
+    G0 = torch.randn((d, d), generator=gen, device=dev)
+    upper = _upper(d, dev)
+    want = cuda_ops.gram_sym_acc_ref(G0, F)
+    scale = torch.addmm(G0.abs(), F.abs().T, F.abs())
+    flops = n * d * (d + 1)
+    rows, built = {}, None
+    for (kernel, name), lib in libs.items():
+        if kernel != "gram_sym_acc":
+            continue
+        out = torch.empty((d, d), device=dev)
+
+        def call():
+            err = lib.kt_gram_sym_acc(F.data_ptr(), G0.data_ptr(), out.data_ptr(), n, d,
+                                      F.stride(0), d, d, 0, stream)
+            if err:
+                raise RuntimeError(f"gram_sym_acc {name}: launch failed ({err})")
+
+        call()
+        torch.cuda.synchronize()
+        got = out[upper]
+        if name == "as built":
+            built = got
+        cfg = (ctypes.c_int * 6)()
+        lib.kt_gram_sym_acc_config(F.data_ptr(), d, F.stride(0), 0, cfg)
+        blocks, vec, bps, regs, local, sms = cfg
+        rows[name] = dict(rel_err=((out - want).abs() / scale)[upper].max().item(),
+                          bits_of_as_built=bool(torch.equal(got, built)), blocks=blocks,
+                          vec=bool(vec), blocks_per_sm=bps, waves=blocks / (sms * bps),
+                          registers=regs, local_bytes=local, ms=time_ms(call, 3))
+        del out, got
+    rows["library: addmm(G0, F.T, F)"] = dict(ms=time_ms(lambda: torch.addmm(G0, F.T, F), 3))
+    for r in rows.values():
+        r["tflops"] = flops / r["ms"] / 1e9
+    del F, G0, upper, want, scale, built
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gram_corr_sym_acc_rows(cuda_ops, libs, stream):
+    """Each ring or tile-order variant of the float32 gram_corr_sym_acc at the
+    Amazon chunk (F 65,536 x 16,385 at the fold's row stride of 16,388, R
+    65,536 x 2, a random G0 and C0, into new buffers), held against the
+    plain version and the as-built variant's bits; as built also at row
+    stride 16,385 (element-wise copies), and gram_sym_acc's Gramian alone
+    on the same F (the correlation blocks' cost is the difference)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    c, d1, k = AMAZON_CHUNK, AMAZON_D + 1, AMAZON_K
+    F = f32_slab(torch.randn((c, d1), generator=gen, device=dev))
+    R = torch.randn((c, k), generator=gen, device=dev)
+    G0 = torch.randn((d1, d1), generator=gen, device=dev)
+    C0 = torch.randn((d1, k), generator=gen, device=dev)
+    upper = _upper(d1, dev)
+    want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G0, C0, F, R)
+    g_scale = torch.addmm(G0.abs(), F.abs().T, F.abs())
+    c_scale = torch.addmm(C0.abs(), F.abs().T, R.abs())
+    flops = c * d1 * (d1 + 1) + 2 * c * d1 * k
+    rows, built = {}, None
+    gout = torch.empty((d1, d1), device=dev)
+    cout = torch.empty((d1, k), device=dev)
+
+    def run(lib, name, Fk):
+        nonlocal built
+
+        def call():
+            err = lib.kt_gram_corr_sym_acc(
+                Fk.data_ptr(), R.data_ptr(), G0.data_ptr(), C0.data_ptr(), gout.data_ptr(),
+                cout.data_ptr(), c, d1, k, Fk.stride(0), R.stride(0), d1, k, d1, k, 0, stream)
+            if err:
+                raise RuntimeError(f"gram_corr_sym_acc {name}: launch failed ({err})")
+
+        call()
+        torch.cuda.synchronize()
+        got = torch.cat([gout[upper], cout.flatten()])
+        built = got if built is None else built
+        cfg = (ctypes.c_int * 9)()
+        lib.kt_gram_corr_sym_acc_config(Fk.data_ptr(), d1, k, Fk.stride(0), cfg)
+        gram, corr, ktile, bps, regs, local, sms, corr_cols, vec = cfg
+        rows[name] = dict(
+            gram_rel_err=((gout - want_g).abs() / g_scale)[upper].max().item(),
+            corr_rel_err=((cout - want_c).abs() / c_scale).max().item(),
+            bits_of_as_built=bool(torch.equal(got, built)), gram_blocks=gram, corr_blocks=corr,
+            ktile=ktile, vec=bool(vec), blocks_per_sm=bps, waves=(gram + corr) / (sms * bps),
+            registers=regs, local_bytes=local, ms=time_ms(call, 3))
+
+    for (kernel, name), lib in libs.items():
+        if kernel != "gram_corr_sym_acc":
+            continue
+        run(lib, name, F)
+        if name == "as built":
+            Fu = F.contiguous()
+            run(lib, "as built, row stride 16,385 (element-wise copies)", Fu)
+            del Fu
+    out = torch.empty((d1, d1), device=dev)
+    rows["gram_sym_acc on the same F (no correlation)"] = dict(
+        ms=time_ms(lambda: cuda_ops.gram_sym_acc(G0, F, out=out), 3))
+    rows["library: two addmm"] = dict(
+        ms=time_ms(lambda: (torch.addmm(G0, F.T, F), torch.addmm(C0, F.T, R)), 3))
+    for r in rows.values():
+        r["tflops"] = flops / r["ms"] / 1e9
+    del F, R, G0, C0, upper, want_g, want_c, g_scale, c_scale, gout, cout, out, built
     torch.cuda.empty_cache()
     return rows
 
@@ -522,6 +720,92 @@ def block_gram_sym_wrapper_rows(cuda_ops):
     return rows, outs
 
 
+def gram_sym_acc_wrapper_rows(cuda_ops):
+    """gram_sym_acc through its wrapper at the streamed fit's tile (F 32,768
+    x 16,384, a random G0), f32 and bf16 F, in place (the fold's call),
+    checked against a new buffer's bits and for untouched lower tiles;
+    returns the rows and the upper tiles by row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, d = STREAM_TILE, D_FEAT
+    F = torch.randn((n, d), generator=gen, device=dev)
+    G0 = torch.randn((d, d), generator=gen, device=dev)
+    upper = _upper(d, dev)
+    rows, outs = {}, {}
+    for label, dtype in (("f32 F", torch.float32), ("bf16 F", torch.bfloat16)):
+        Fk = F.to(dtype)
+        fresh = cuda_ops.gram_sym_acc(G0, Fk)
+        G = G0.clone()
+        cuda_ops.gram_sym_acc(G, Fk, out=G)
+        torch.cuda.synchronize()
+        Ff = Fk.float()
+        scale = torch.addmm(G0.abs(), Ff.abs().T, Ff.abs())
+        del Ff
+        want = cuda_ops.gram_sym_acc_ref(G0, Fk)
+        outs[label] = G[upper]
+        rows[label] = dict(
+            rel_err=((G - want).abs() / scale)[upper].max().item(),
+            in_place_bits_of_new_buffer=bool(torch.equal(outs[label], fresh[upper])),
+            lower_tiles_untouched=bool(torch.equal(G[~upper], G0[~upper])),
+            ms=time_ms(lambda: cuda_ops.gram_sym_acc(G, Fk, out=G), 3))
+        del Fk, fresh, G, scale, want
+    rows["library: addmm(G0, F.T, F)"] = dict(ms=time_ms(lambda: torch.addmm(G0, F.T, F), 3))
+    del F, G0, upper
+    torch.cuda.empty_cache()
+    return rows, outs
+
+
+def gram_corr_sym_acc_wrapper_rows(cuda_ops):
+    """gram_corr_sym_acc through its wrapper at the Amazon chunk (F 65,536 x
+    16,385, R 65,536 x 2, a random G0 and C0): f32 F at the fold's row
+    stride of 16,388 and at 16,385, f32 F's ragged last chunk of 41,248
+    rows, and bf16 F at the fold's row stride of 16,448; in place (the
+    fold's call), checked against a new buffer's bits and for untouched
+    lower tiles; returns the rows and (G's upper tiles, C) by row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    c, d1, k = AMAZON_CHUNK, AMAZON_D + 1, AMAZON_K
+    F = torch.randn((c, d1), generator=gen, device=dev)
+    R = torch.randn((c, k), generator=gen, device=dev)
+    G0 = torch.randn((d1, d1), generator=gen, device=dev)
+    C0 = torch.randn((d1, k), generator=gen, device=dev)
+    upper = _upper(d1, dev)
+    rows, outs = {}, {}
+    cases = {
+        "f32 F at the fold's row stride": lambda: f32_slab(F),
+        "f32 F at row stride 16,385": lambda: F,
+        "f32 F ragged chunk": lambda: f32_slab(F[:AMAZON_RAGGED]),
+        "bf16 F at the fold's row stride": lambda: tma_slab(F),
+    }
+    for label, make in cases.items():
+        Fk = make()
+        Rk = R[:Fk.shape[0]]
+        fresh = cuda_ops.gram_corr_sym_acc(G0, C0, Fk, Rk)
+        G, C = G0.clone(), C0.clone()
+        cuda_ops.gram_corr_sym_acc(G, C, Fk, Rk, out=(G, C))
+        torch.cuda.synchronize()
+        want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G0, C0, Fk, Rk)
+        Ff = Fk.float()
+        Rq = Rk.to(torch.bfloat16).float() if Fk.dtype == torch.bfloat16 else Rk
+        g_scale = torch.addmm(G0.abs(), Ff.abs().T, Ff.abs())
+        c_scale = torch.addmm(C0.abs(), Ff.abs().T, Rq.abs())
+        del Ff
+        outs[label] = torch.cat([G[upper], C.flatten()])
+        rows[label] = dict(
+            gram_rel_err=((G - want_g).abs() / g_scale)[upper].max().item(),
+            corr_rel_err=((C - want_c).abs() / c_scale).max().item(),
+            in_place_bits_of_new_buffer=bool(torch.equal(G[upper], fresh[0][upper])
+                                             and torch.equal(C, fresh[1])),
+            lower_tiles_untouched=bool(torch.equal(G[~upper], G0[~upper])),
+            ms=time_ms(lambda: cuda_ops.gram_corr_sym_acc(G, C, Fk, Rk, out=(G, C)), 3))
+        del Fk, fresh, G, C, want_g, want_c, g_scale, c_scale
+    rows["library: two float32 addmm"] = dict(
+        ms=time_ms(lambda: (torch.addmm(G0, F.T, F), torch.addmm(C0, F.T, R)), 3))
+    del F, R, G0, C0, upper
+    torch.cuda.empty_cache()
+    return rows, outs
+
+
 def residual_wrapper_rows(cuda_ops):
     """block_residual_update through its wrapper at the TIMIT window, f32
     and bf16 F; returns the rows and the outputs by row."""
@@ -661,6 +945,8 @@ def cosine_wrapper_rows(cuda_ops):
 
 # The wrappers timed in --root mode: kernel -> rows function.
 WRAPPER_ROWS = {
+    "gram_sym_acc": gram_sym_acc_wrapper_rows,
+    "gram_corr_sym_acc": gram_corr_sym_acc_wrapper_rows,
     "gram_corr_sym": gram_corr_sym_wrapper_rows,
     "block_gram_sym": block_gram_sym_wrapper_rows,
     "block_residual_update": residual_wrapper_rows,
@@ -681,20 +967,20 @@ def load_cuda_ops(root, index):
     return module
 
 
-def compare_roots(roots):
-    """Each checkout's wrappers (WRAPPER_ROWS) in turns, first to last and
-    back (parent, change, change, parent for two), in one process on one
-    card; every output held against the first checkout's first turn: the
-    same bits, or the largest difference."""
+def compare_roots(roots, kernels):
+    """Each checkout's wrappers (WRAPPER_ROWS, those of ``kernels``) in turns,
+    first to last and back (parent, change, change, parent for two), in one
+    process on one card; every output held against the first checkout's
+    first turn: the same bits, or the largest difference."""
     modules = [load_cuda_ops(root, i) for i, root in enumerate(roots)]
     for module in modules:
-        module.build(list(WRAPPER_ROWS))
+        module.build(kernels)
     order = list(range(len(roots))) + list(reversed(range(len(roots))))
     first, turns = {}, []
     for i in order:
         turn = dict(root=roots[i])
-        for kernel, rows_of in WRAPPER_ROWS.items():
-            rows, outs = rows_of(modules[i])
+        for kernel in kernels:
+            rows, outs = WRAPPER_ROWS[kernel](modules[i])
             for label, out in outs.items():
                 if (kernel, label) not in first:
                     first[kernel, label] = out
@@ -828,14 +1114,18 @@ ROWS = {
     "gaussian_kernel_block": gaussian_rows,
     "gaussian_resid_block": resid_rows,
     "cosine_features": cosine_rows,
+    "gram_sym_acc": lambda cuda_ops, libs, stream, sms: gram_sym_acc_rows(cuda_ops, libs, stream),
+    "gram_corr_sym_acc": lambda cuda_ops, libs, stream, sms: gram_corr_sym_acc_rows(
+        cuda_ops, libs, stream),
 }
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="build/torch_fma_variants.json")
-    parser.add_argument("--kernels", nargs="+", default=list(ROWS),
-                        help="the kernels to build and time (default: all seven)")
+    parser.add_argument("--kernels", nargs="+",
+                        help="the kernels to build and time (default: all nine; with --root, "
+                        "all eight wrappers of WRAPPER_ROWS)")
     parser.add_argument("--root", nargs="+",
                         help="time the wrappers of the checkouts at these directories in turns "
                         "(first to last and back) instead of building variants")
@@ -846,11 +1136,13 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     if args.root:
-        turns = compare_roots([os.path.abspath(root) for root in args.root])
+        turns = compare_roots([os.path.abspath(root) for root in args.root],
+                              args.kernels or list(WRAPPER_ROWS))
         result = dict(card=card, turns=turns)
     else:
         from keystone_tpu_torch.ops import cuda_ops
 
+        args.kernels = args.kernels or list(ROWS)
         libs = build(cuda_ops, args.kernels)
         stream = torch.cuda.current_stream().cuda_stream
         sms = torch.cuda.get_device_properties(0).multi_processor_count

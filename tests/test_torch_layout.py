@@ -86,14 +86,14 @@ def test_module_names_its_counterpart(path):
 
 
 def test_kernel_sources_sit_beside_the_package():
-    # gram_corr.cu holds the kernels of three TPU kernels (gram_corr_sym,
-    # gram_corr and block_gram_sym).
+    # gram_corr.cu holds the kernels of four TPU kernels (gram_corr_sym,
+    # gram_corr, block_gram_sym and gram_sym_acc).
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
     assert sources == [
         "block_corr.cu", "block_residual_update.cu",
         "conv_featurize.cu", "cosine_features.cu", "countsketch_scatter.cu",
         "gaussian_kernel_block.cu", "gaussian_resid_block.cu", "gram_corr.cu",
-        "gram_corr_sym_acc.cu", "gram_sym_acc.cu",
+        "gram_corr_sym_acc.cu",
     ]
     for src in sources:
         text = (PORT / "csrc" / src).read_text()

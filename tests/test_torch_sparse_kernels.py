@@ -163,7 +163,25 @@ class TestContract:
             want = sparse._dense_rows(chunk_idx, chunk_vals, d, dtype)
             assert F.shape == (c, d) and torch.equal(F, want)
             assert cuda_ops.gram_corr_acc_ok(F)
-            assert F.stride(0) == (192 if dtype == torch.bfloat16 else d)
+            assert F.stride(0) == (192 if dtype == torch.bfloat16 else 132)
+
+    def test_padded_float32_fold_has_the_bits_of_the_unpadded_one(self, monkeypatch):
+        # The float32 slab's rows are padded to 4 elements (16 bytes) so the
+        # kernel copies them in 16-byte chunks; the pad is never read, so the
+        # fold's sums are those of contiguous slabs.
+        n, d, w, k, c = 600, 131, 9, 2, 256
+        idx, vals, Y = _coo(n, d, w, k, seed=9)
+        ops = raw_chunk_tiles(_t(idx), _t(vals), _t(Y), c)
+
+        def fold():
+            return sparse.sparse_gram_stream(lambda cid: _resident_chunk_fn(cid, *ops),
+                                             ops[0].shape[0], d, k, val_dtype=torch.float32)
+
+        padded = fold()
+        monkeypatch.setattr(sparse, "_SLAB_ROW_ALIGN", {})
+        plain = fold()
+        for a, b in zip(padded, plain, strict=True):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +199,8 @@ def cuda_device():
 # (n, d, k): aligned, ragged rows and columns, one-column last tile (the
 # Amazon d₁ = 16,385 in small), and label widths across the 8-wide passes.
 SHAPES = [(512, 256, 2), (1000, 300, 2), (333, 129, 1), (64, 385, 8), (200, 140, 9),
-          (150, 257, 17), (96, 130, 130), (1, 1, 1), (0, 130, 2), (4096, 1025, 2)]
+          (150, 257, 17), (96, 130, 130), (1, 1, 1), (0, 130, 2), (4096, 1025, 2),
+          (300, 257, 33), (128, 129, 200)]
 
 
 def _check(got, want, G, C, F, R, upper):
@@ -262,6 +281,57 @@ class TestKernelOnCard:
             again = cuda_ops.gram_corr_sym_acc(G, C, F, R)
             assert torch.equal(again[0][upper], first[0][upper])
             assert torch.equal(again[1], first[1])
+
+    @pytest.mark.parametrize("n,d,k", [(700, 129, 2), (333, 257, 33), (90, 300, 170)])
+    def test_f32_row_strides_give_the_same_bits(self, cuda_device, n, d, k):
+        # float32 F at a row stride of d (element-wise copies where d is not
+        # a multiple of 4), of d rounded up to 4 (16-byte copies, the last
+        # chunk in part: the fold's layout), wider, and at a base 4 bytes
+        # off: every layout gives the same bits, in place those of a new
+        # buffer, the strictly-lower tiles untouched.
+        G, C, F, R = _operands(n, d, k, seed=5, device=cuda_device)
+        upper = _upper(d, cuda_device)
+        first = None
+        for ld, off in ((d, 0), (-(-d // 4) * 4, 0), (d + 7, 0), (d + 4, 1)):
+            wide = torch.full((n, ld + off), float("nan"), device=cuda_device)
+            Fk = wide[:, off:off + d]
+            Fk.copy_(F)
+            fresh = cuda_ops.gram_corr_sym_acc(G, C, Fk, R)
+            Gi, Ci = G.clone(), C.clone()
+            cuda_ops.gram_corr_sym_acc(Gi, Ci, Fk, R, out=(Gi, Ci))
+            torch.cuda.synchronize()
+            assert torch.equal(Gi[upper], fresh[0][upper]) and torch.equal(Ci, fresh[1])
+            assert torch.equal(Gi[~upper], G[~upper])
+            if first is None:
+                first = fresh
+                _check(fresh, cuda_ops.gram_corr_sym_acc_ref(G, C, F, R), G, C, F, R, upper)
+            assert torch.equal(fresh[0][upper], first[0][upper])
+            assert torch.equal(fresh[1], first[1])
+
+    @pytest.mark.parametrize("n,d,k", [(1000, 300, 2), (257, 129, 147)])
+    def test_f32_has_the_bits_of_gram_sym_acc_and_gram_corr_sym(self, cuda_device, n, d, k):
+        # One Gramian kernel: G + FᵀF is gram_sym_acc's, bit for bit, and
+        # C + FᵀR is C plus gram_corr_sym's correlation (one fmaf chain an
+        # entry over the rows in order, then one add).
+        G, C, F, R = _operands(n, d, k, seed=6, device=cuda_device)
+        gram, corr = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+        upper = _upper(d, cuda_device)
+        assert torch.equal(gram[upper], cuda_ops.gram_sym_acc(G, F)[upper])
+        assert torch.equal(corr, C + cuda_ops.gram_corr_sym(F, R)[1])
+
+    @pytest.mark.parametrize("ld,vec", [(16385, False), (16388, True)])
+    def test_f32_grid_at_the_amazon_chunk(self, cuda_device, ld, vec):
+        # d₁ = 16,385, k = 2: 257 correlation blocks of 64 columns with the
+        # 32-wide label tile, then 129 · 130 / 2 = 8,385 upper tiles; the
+        # fold's padded layout (16,388) takes the 16-byte copies.
+        F = torch.empty((2, ld), device=cuda_device)[:, :16385]
+        grid = cuda_ops.gram_corr_sym_acc_grid(F, 2)
+        assert grid["gram_blocks"] == 8385 and grid["corr_blocks"] == 257
+        assert grid["ktile"] == 32 and grid["corr_cols"] == 64 and grid["vec"] == vec
+        assert grid["local_bytes"] == 0
+        assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
+        with pytest.raises(TypeError):
+            cuda_ops.gram_corr_sym_acc_grid(F.to(torch.bfloat16), 2)
 
     def test_misaligned_bf16_f_raises_and_is_not_copied(self, cuda_device):
         G, C, F, R = _operands(64, 20, 2, device=cuda_device)

@@ -23,6 +23,7 @@ different orders; over at most 1024 terms that differs by ~1e-7 of the
 scale.
 """
 
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -184,17 +185,18 @@ class TestWrappersOnTheCpu:
             (tmp_path / src.name).write_bytes(src.read_bytes())
         monkeypatch.setattr(cuda_ops, "_CSRC", tmp_path)
         before = {name: cuda_ops._library_path(name) for name in cuda_ops._ENTRY_POINTS}
-        header = tmp_path / "fma_tile.cuh"
+        header = tmp_path / "gram_tile.cuh"
         header.write_text(header.read_text() + "\n// edited\n")
         after = {name: cuda_ops._library_path(name) for name in cuda_ops._ENTRY_POINTS}
         assert all(before[name] != after[name] for name in before)
 
     def test_library_name_hashes_the_pipelined_header(self, tmp_path, monkeypatch):
-        # Six kernels include fma_pipe.cuh: an edit rebuilds them.
+        # Seven sources include fma_pipe.cuh, the two Gramian ones through
+        # gram_tile.cuh: an edit rebuilds them.
         users = ("block_corr", "gram_corr", "block_residual_update", "gaussian_kernel_block",
-                 "gaussian_resid_block", "cosine_features")
+                 "gaussian_resid_block", "cosine_features", "gram_corr_sym_acc")
         for name in users:
-            assert '#include "fma_pipe.cuh"' in (cuda_ops._CSRC / f"{name}.cu").read_text()
+            assert _includes_pipelined_tile((cuda_ops._CSRC / f"{name}.cu").read_text())
         for src in (cuda_ops._CSRC).iterdir():
             (tmp_path / src.name).write_bytes(src.read_bytes())
         monkeypatch.setattr(cuda_ops, "_CSRC", tmp_path)
@@ -213,28 +215,56 @@ class TestWrappersOnTheCpu:
             assert '#include "gaussian.cuh"' in (cuda_ops._CSRC / f"{name}.cu").read_text()
 
     def test_fma_tile_users(self):
-        # The cosine and resid kernels keep no FP32-FMA tile of their own and
-        # do not include the first-slice one; the first slice's Gramian
-        # sources are gone (their wrappers launch gram_corr.cu's kernels),
-        # so the first-slice tile has two users left.
-        for name in ("cosine_features", "gaussian_resid_block"):
-            text = (cuda_ops._CSRC / f"{name}.cu").read_text()
-            assert "fma_tile.cuh" not in text and "mainloop<" in text
-        for name in ("gram_corr_sym.cu", "block_gram_sym.cu"):
+        # The first slice's FP32-FMA tile and its last users' sources are
+        # gone: every GEMM source is on the pipelined tile, and the Gramian
+        # tile loop (mainloop over A's columns against themselves) is
+        # written once, in gram_tile.cuh.
+        for name in ("fma_tile.cuh", "gram_corr_sym.cu", "block_gram_sym.cu",
+                     "gram_sym_acc.cu"):
             assert not (cuda_ops._CSRC / name).exists()
-        users = [p.name for p in sorted(cuda_ops._CSRC.glob("*.cu"))
-                 if '#include "fma_tile.cuh"' in p.read_text()]
-        assert users == ["gram_corr_sym_acc.cu", "gram_sym_acc.cu"]
+        sources = sorted(cuda_ops._CSRC.glob("*.cu*"))
+        assert not [p.name for p in sources if "fma_tile" in p.read_text()]
+        own_tiles = ("conv_featurize.cu", "countsketch_scatter.cu")
+        for p in sources:
+            if p.suffix == ".cu" and p.name not in own_tiles:
+                assert _includes_pipelined_tile(p.read_text()), p.name
+        gram_loops = [p.name for p in sources
+                      if "(smem, A, lda, i0, d, A, lda, j0, d," in p.read_text()]
+        assert gram_loops == ["gram_tile.cuh"]
 
     def test_shared_source_builds_one_library(self):
-        # gram_corr_sym and block_gram_sym launch the kernels of gram_corr.cu:
-        # one library, with every wrapper's entry points bound.
+        # gram_corr_sym, block_gram_sym and gram_sym_acc launch the kernels of
+        # gram_corr.cu: one library, with every wrapper's entry points bound.
         path = cuda_ops._library_path("gram_corr")
         assert cuda_ops._library_path("gram_corr_sym") == path
         assert cuda_ops._library_path("block_gram_sym") == path
+        assert cuda_ops._library_path("gram_sym_acc") == path
         assert set(cuda_ops._symbols("gram_corr")) == {
             "kt_gram_corr", "kt_gram_corr_config", "kt_block_gram_sym",
-            "kt_block_gram_sym_config"}
+            "kt_block_gram_sym_config", "kt_gram_sym_acc", "kt_gram_sym_acc_config"}
+        # gram_corr_sym_acc keeps its source (its bf16 kernel) and gains the
+        # float32 form's grid.
+        assert cuda_ops._source("gram_corr_sym_acc") == "gram_corr_sym_acc"
+        assert set(cuda_ops._symbols("gram_corr_sym_acc")) == {
+            "kt_gram_corr_sym_acc", "kt_gram_corr_sym_acc_config"}
+
+    @pytest.mark.parametrize("symbol", sorted(
+        {sym for name in cuda_ops._ENTRY_POINTS
+         for sym in cuda_ops._symbols(cuda_ops._source(name))}))
+    def test_argtypes_match_the_c_declaration(self, symbol):
+        # ctypes passes each argument as its argtype says: a pointer as a
+        # 64-bit address, long long as 64 bits, int and float as 32. A
+        # mismatch with the C declaration cuts pointers or shifts arguments.
+        source = next(cuda_ops._source(name) for name in cuda_ops._ENTRY_POINTS
+                      if symbol in cuda_ops._symbols(cuda_ops._source(name)))
+        argtypes = cuda_ops._symbols(source)[symbol]
+        text = (cuda_ops._CSRC / f"{source}.cu").read_text()
+        params = text.split(f'extern "C" int {symbol}(', 1)[1].split(")", 1)[0]
+        kinds = {"*": ctypes.c_void_p, "long long": ctypes.c_longlong, "int": ctypes.c_int,
+                 "float": ctypes.c_float}
+        declared = [next(t for key, t in kinds.items() if key in param)
+                    for param in " ".join(params.split()).split(",")]
+        assert declared == argtypes
 
     @pytest.mark.parametrize("name", sorted(cuda_ops.launches))
     def test_every_wrapper_has_an_entry_point_its_library_binds(self, name):
@@ -272,13 +302,20 @@ class TestWrappersOnTheCpu:
 
     @pytest.mark.parametrize("constant", ["KT_NARROW", "KT_WIDE"])
     def test_label_tiles_are_defined_once(self, constant):
-        # block_corr, gram_corr and block_residual_update share the header's
-        # label tiles and the function that picks one (with_label_tile).
+        # block_corr, the Gramian kernels (gram_tile.cuh) and
+        # block_residual_update share the header's label tiles and the
+        # function that picks one (with_label_tile).
         where = [p.name for p in sorted(cuda_ops._CSRC.iterdir())
                  if f"constexpr int {constant} =" in p.read_text()]
         assert where == ["fma_pipe.cuh"]
-        for name in ("block_corr", "gram_corr", "block_residual_update"):
-            assert "with_label_tile(k," in (cuda_ops._CSRC / f"{name}.cu").read_text()
+        for name in ("block_corr.cu", "gram_tile.cuh", "block_residual_update.cu"):
+            assert "with_label_tile(k," in (cuda_ops._CSRC / name).read_text()
+
+
+def _includes_pipelined_tile(text):
+    """Whether a source includes fma_pipe.cuh, itself or through the
+    Gramian header gram_tile.cuh (which includes it)."""
+    return '#include "fma_pipe.cuh"' in text or '#include "gram_tile.cuh"' in text
 
 
 def _fill(blocks, resident):
@@ -566,8 +603,9 @@ def _upper_tiles(d):
 
 @pytest.mark.cuda
 class TestGramSymAccOnCard:
-    # (n, d): ragged rows and width, aligned, one row.
-    @pytest.mark.parametrize("n,d", [(1000, 300), (4096, 512), (1, 130)])
+    # (n, d): ragged rows and width, aligned, one row, one-column last tiles.
+    @pytest.mark.parametrize("n,d", [(1000, 300), (4096, 512), (1, 130), (777, 129),
+                                     (300, 257)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("in_place", [False, True])
     def test_against_plain_version(self, cuda_device, n, d, dtype, in_place):
@@ -587,6 +625,56 @@ class TestGramSymAccOnCard:
         assert float(((got - want).abs() / scale)[upper].max()) <= 1e-5
         if in_place:  # the lower tiles keep G's values
             assert torch.equal(got[~upper], G0[~upper])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [129, 257, 300])
+    def test_row_strides_and_in_place_give_the_same_bits(self, cuda_device, dtype, d):
+        # F at a row stride of d, of d rounded up to 16 bytes (the 16-byte
+        # copies, the last chunk in part), wider, and at a base one element
+        # off (element-wise): the same bits in every layout; in place those
+        # of a new buffer, the strictly-lower tiles untouched.
+        rng = np.random.default_rng(3)
+        n = 555
+        F = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda_device)
+        G0 = torch.from_numpy(rng.normal(size=(d, d)).astype(np.float32)).to(cuda_device)
+        upper = _upper_tiles(d).to(cuda_device)
+        chunk = 4 if dtype == torch.float32 else 8
+        first = None
+        for ld, off in ((d, 0), (-(-d // chunk) * chunk, 0), (d + 9, 0), (d + 8, 1)):
+            wide = torch.full((n, ld + off), float("nan"), device=cuda_device, dtype=dtype)
+            Fk = wide[:, off:off + d]
+            Fk.copy_(F)
+            fresh = cuda_ops.gram_sym_acc(G0, Fk)
+            G = G0.clone()
+            cuda_ops.gram_sym_acc(G, Fk, out=G)
+            torch.cuda.synchronize()
+            assert torch.equal(G[upper], fresh[upper]) and torch.equal(G[~upper], G0[~upper])
+            first = fresh if first is None else first
+            assert torch.equal(fresh[upper], first[upper])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_has_the_bits_of_gram_corr_sym(self, cuda_device, dtype):
+        # The same Gramian tiles as gram_corr_sym's: G0 + FᵀF is G0 plus its
+        # Gramian, bit for bit (one fmaf chain an entry, then one add).
+        rng = np.random.default_rng(4)
+        F = torch.from_numpy(rng.normal(size=(1200, 259)).astype(np.float32)).to(cuda_device)
+        F = F.to(dtype)
+        G0 = torch.from_numpy(rng.normal(size=(259, 259)).astype(np.float32)).to(cuda_device)
+        R = torch.zeros((1200, 1), device=cuda_device)
+        upper = _upper_tiles(259).to(cuda_device)
+        want = G0 + cuda_ops.gram_corr_sym(F, R)[0]
+        assert torch.equal(cuda_ops.gram_sym_acc(G0, F)[upper], want[upper])
+
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_streamed_tile_grid(self, cuda_device, bf16):
+        # d = 16,384: 128 · 129 / 2 = 8,256 upper tiles, 16-byte copies, no
+        # spills, 2 blocks an SM at <= 128 registers.
+        F = torch.empty((2, 16384), device=cuda_device)
+        grid = cuda_ops.gram_sym_acc_grid(F.to(torch.bfloat16) if bf16 else F)
+        assert grid["blocks"] == 8256 and grid["vec"]
+        assert grid["local_bytes"] == 0
+        assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
+        assert not cuda_ops.gram_sym_acc_grid(F[:, 1:])["vec"]
 
     def test_same_bits_every_run(self, cuda_device):
         rng = np.random.default_rng(1)
