@@ -24,9 +24,14 @@ per source, all started together), then:
      upper tiles), ``gram_sym_acc`` (the streamed tile's 8,256),
      ``gram_corr_sym_acc`` with f32 F, ``block_residual_update``,
      ``gaussian_kernel_block``, ``gaussian_resid_block``,
-     ``cosine_features``) also each grid: label tile and masked share,
-     blocks (and ``block_corr``'s row chunks, ``gaussian_kernel_block``'s
-     feature chunks), resident blocks an SM, waves, registers and spills;
+     ``cosine_features``, ``conv_featurize``) also each grid: label (filter)
+     tile and masked share, blocks (and ``block_corr``'s row chunks,
+     ``gaussian_kernel_block``'s feature chunks, ``conv_featurize``'s
+     pixel tiles on its persistent grid), resident blocks an SM, waves,
+     registers and spills; ``conv_featurize`` on one row chunk of CIFAR
+     images, also timed on the device alone and beside the product alone
+     on cuBLAS (``torch.matmul`` of the normalised patch matrix, made
+     before timing, by the filters);
      ``gaussian_kernel_block`` at each shape of the CIFAR route (train
      apply, test apply, diagonal block, ragged last diagonal block), each
      with its bound and its ``exp(addmm)`` yardstick;
@@ -1327,19 +1332,35 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
           err <= 1e-4 * scale and lib_err <= 1e-4 * scale,
           f"max_abs_err {err:.3e} ({err / scale:.2e} of scale), tol 1e-4 of scale; "
           f"the library yardstick's {lib_err:.3e}")
-    del got, want, patches
+    del got, want
     npix = c * 27 * 27
     r = results["conv_featurize"] = dict(max_abs_err=err)
     r["ms"] = time_ms(conv, 10)
+    r["device_ms"] = device_ms(conv, 10)
     r["plain_ms"] = time_ms(plain, 5)
     r["library_ms"] = time_ms(library, 5)
+    # The product alone on cuBLAS FP32: the normalised patch matrix made
+    # before timing, times the filters.
+    patches = patches.view(npix, dp)
+    r["gemm_ms"] = time_ms(lambda: torch.matmul(patches, filters.T), 10)
+    del patches
     r["bound_ms"], r["bound_by"] = bound_ms(
         4 * (c * 32 * 32 * 3 + f * dp + dp + npix * f),
         2 * npix * dp * f + 5 * npix * dp,  # filter product + patch mean, variance, scaling
         PEAK_F32_FLOPS,
     )
-    log(f"  conv_featurize f32 ({c} images): {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
-        f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']})")
+    grid = r["grid"] = cuda_images.conv_featurize_grid(c, 32, 32, 3, p, f, dev)
+    log(f"  conv_featurize f32 ({c} images): {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms "
+        f"on the device (plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, the product "
+        f"alone on cuBLAS {r['gemm_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
+        f"grid {grid['tiles']} pixel tiles, {grid['ktile']}-wide filter tile "
+        f"({100 * grid['masked']:.1f}% masked), {grid['smem_bytes']} bytes of shared memory, "
+        f"{'16-byte' if grid['vec_stores'] else 'element'} stores, {grid['fill']:.3f} of the "
+        f"blocks' rounds filled, {grid_line(grid)}")
+    check("conv_featurize spills nothing and fills its last round of tiles",
+          grid["local_bytes"] == 0 and grid["fill"] >= 0.95 and grid["waves"] >= 0.95,
+          f"{grid['local_bytes']} local bytes a thread, {grid['fill']:.3f} of the rounds, "
+          f"{grid['waves']:.3f} waves")
     del images, filters, means
     torch.cuda.empty_cache()
     return results

@@ -1,13 +1,14 @@
 // The pipelined FP32-FMA tile of block_corr.cu, the Gramians of
 // gram_tile.cuh (gram_corr.cu, gram_corr_sym_acc.cu's float32 form),
-// block_residual_update.cu, gaussian_kernel_block.cu, gaussian_resid_block.cu
-// and cosine_features.cu: the port's one FP32-FMA tile.
+// block_residual_update.cu, gaussian_kernel_block.cu, gaussian_resid_block.cu,
+// cosine_features.cu and conv_featurize.cu: the port's one FP32-FMA tile.
 //
 // One block of 256 threads (16 x 16) owns an output tile of 16 MI rows x
 // 16 NJ columns: out[i][j] = sum over the reduction index r of
 // P[i0 + i, r] * Q[j0 + j, r]. Each thread keeps MI x NJ outputs in
 // registers (8 x 8 for a 128 x 128 tile, 8 x 10 for 128 rows x 160 label
-// columns, 8 x 1 for gaussian_resid_block's 16-wide label pass). Each
+// columns, 8 x 7 for conv_featurize's 112 filters, 8 x 1 for
+// gaussian_resid_block's 16-wide label pass). Each
 // operand is one of two kinds:
 //   - row-major (the reduction runs along its rows): P[i, r] is M[r][i],
 //     as the window in F_w^T R and A in A^T A;
@@ -339,7 +340,8 @@ using Operand = std::conditional_t<K, KStager<TE, BK, W, VEC>, Stager<TE, BK, W,
 // Tile-local row of a thread's i-th output row (MI a thread: 2 neighbours,
 // or groups of four, 64 apart) and column of its j-th output column (NJ a
 // thread: groups of four, 64 apart, then NJ % 4 = 1 or 2 more past the
-// last group).
+// last group; NJ % 4 = 3 as a pair, then one more 32 columns on, so a
+// thread reads them as one 8-byte and one 4-byte word).
 template <int MI>
 __device__ __forceinline__ int out_row(int i) {
   const int ty = threadIdx.x / 16;
@@ -350,7 +352,9 @@ __device__ __forceinline__ int out_col(int j) {
   constexpr int Q4 = NJ / 4;
   constexpr int REM = NJ % 4;
   const int tx = threadIdx.x % 16;
-  return j < 4 * Q4 ? (j / 4) * 64 + tx * 4 + j % 4 : Q4 * 64 + tx * REM + (j - 4 * Q4);
+  if (j < 4 * Q4) return (j / 4) * 64 + tx * 4 + j % 4;
+  if (REM == 3 && j == 4 * Q4 + 2) return Q4 * 64 + 32 + tx;
+  return Q4 * 64 + tx * (REM == 3 ? 2 : REM) + (j - 4 * Q4);
 }
 
 // acc[i][j] += sum over the BK rows kk of X[kk][out_row<MI>(i)] * Y[kk][out_col<NJ>(j)].
@@ -361,7 +365,7 @@ __device__ __forceinline__ void fma_stage(const TP* X, const TQ* Y, float (&acc)
   constexpr int KT = 16 * NJ;
   constexpr int Q4 = NJ / 4;
   constexpr int REM = NJ % 4;
-  static_assert(REM == 0 || REM == 1 || REM == 2, "NJ % 4 must be 0, 1 or 2");
+  static_assert(NJ > 0, "NJ must be positive");
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
@@ -390,11 +394,12 @@ __device__ __forceinline__ void fma_stage(const TP* X, const TQ* Y, float (&acc)
       b[4 * q + 3] = v.w;
     }
     if constexpr (REM == 1) b[4 * Q4] = ld1(Y + kk * KT + Q4 * 64 + tx);
-    if constexpr (REM == 2) {
+    if constexpr (REM >= 2) {
       const float2 v = ld2(Y + kk * KT + Q4 * 64 + tx * 2);
       b[4 * Q4] = v.x;
       b[4 * Q4 + 1] = v.y;
     }
+    if constexpr (REM == 3) b[4 * Q4 + 2] = ld1(Y + kk * KT + Q4 * 64 + 32 + tx);
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll

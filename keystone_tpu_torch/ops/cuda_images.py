@@ -5,8 +5,9 @@ Port of ``keystone_tpu/ops/pallas_images.py``: :func:`conv_featurize` ↔
 ``pallas_images.conv_featurize`` (``csrc/conv_featurize.cu``), the whole
 CIFAR featurization of ``Convolver`` in one kernel — im2col, per-patch
 mean/variance normalisation, whitening-mean subtraction and the filter
-product, with the patch matrix kept in shared memory and never written to
-device memory. Patch columns are row-major over ``(px, py, c)``, the
+product, with the patch matrix built tile by tile in shared memory and
+never written to device memory; the product runs on the port's FP32 tile
+(``csrc/fma_pipe.cuh``). Patch columns are row-major over ``(px, py, c)``, the
 contract of ``ops/images/conv.py``'s ``im2col`` and
 ``Convolver.pack_filters``.
 
@@ -16,12 +17,14 @@ XLA branch of ``Convolver._convolve``); for CUDA tensors it launches the
 kernel or raises, and counts the launch in ``cuda_ops.launches
 ["conv_featurize"]``. The kernel is built and loaded by ``cuda_ops`` with
 the others. :func:`conv_featurize_ok` is its guard, sized for the 227 KB
-of shared memory one H100 block may use.
+of shared memory one H100 block may use; :func:`conv_featurize_grid`
+reports a launch's grid.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -29,9 +32,16 @@ from keystone_tpu_torch.ops import cuda_ops
 
 # Shared memory one block of an H100 may use (232,448 bytes of the SM's 256 KB).
 _SMEM_LIMIT_BYTES = 227 * 1024
-# Tile constants of csrc/conv_featurize.cu: output pixels per tile, filters
-# per register pass.
-_PIXEL_TILE, _FILTER_PASS = 64, 128
+# Tile constants of csrc/conv_featurize.cu: patch rows (output pixels) a
+# tile; the filter tile's width, sized from k: one 32-wide tile up to 32
+# filters, one 112-wide tile up to 112, 128-wide tiles above.
+_PIXEL_TILE = 128
+_FILTER_TILES = (32, 112, 128)
+
+
+def _filter_tile(k: int) -> int:
+    """The width of the kernel's filter tiles for k filters."""
+    return next((width for width in _FILTER_TILES[:-1] if k <= width), _FILTER_TILES[-1])
 
 
 def im2col(images, patch_size: int):
@@ -68,14 +78,14 @@ def conv_featurize_ref(images, filters, means=None, *, patch_size: int,
     return patches @ filters.to(torch.float32).T
 
 
-def _smem_bytes(X: int, Y: int, C: int, p: int, k: int) -> int:
-    """Shared memory one block of the kernel needs (csrc/conv_featurize.cu's
-    ``smem_bytes``): the pixel tile's patch rows, the filters transposed and
-    padded to a whole register pass, the image, the means and the tile's
-    per-pixel mean and deviation."""
-    d = p * p * C
-    kp = -(-k // _FILTER_PASS) * _FILTER_PASS
-    return 4 * (d * _PIXEL_TILE + d * kp + X * Y * C + d + 2 * _PIXEL_TILE)
+def _smem_bytes(d: int, k: int) -> int:
+    """Shared memory one block of the kernel needs for patches of d values
+    and k filters (csrc/conv_featurize.cu's ``smem_of``): the pixel tile's
+    patch rows, the filters transposed in whole filter tiles, the means, the
+    tile's per-pixel mean and deviation, and the d-long offset table. The
+    images are read from device memory, so their size does not count."""
+    kt = _filter_tile(k)
+    return 4 * (d * _PIXEL_TILE + -(-k // kt) * kt * d + 2 * d + 2 * _PIXEL_TILE)
 
 
 def conv_featurize_ok(images, filters) -> bool:
@@ -91,7 +101,42 @@ def conv_featurize_ok(images, filters) -> bool:
     p = int(round((d / max(C, 1)) ** 0.5))
     if C < 1 or p < 1 or p * p * C != d or X < p or Y < p:
         return False
-    return _smem_bytes(X, Y, C, p, k) <= _SMEM_LIMIT_BYTES
+    return _smem_bytes(d, k) <= _SMEM_LIMIT_BYTES
+
+
+# conv_featurize_grid's answers by (device index, n, X, Y, C, p, k): fixed
+# for a card and a build, so worked out once.
+_CONV_GRIDS: Dict[tuple, Dict[str, float]] = {}
+
+
+def conv_featurize_grid(n: int, X: int, Y: int, C: int, p: int, k: int,
+                        device) -> Dict[str, float]:
+    """The grid :func:`conv_featurize` launches for n images (X, Y, C) and k
+    filters of p x p x C on ``device`` (a card): its 128-row pixel tiles,
+    blocks (a persistent grid: the resident blocks, or fewer where there
+    are fewer tiles), the kernel's resident blocks an SM, registers and
+    local (spilled) bytes a thread, the filter tile's width and its share
+    of masked FMAs, the block's shared memory, whether it stores 16 bytes
+    at a time, the waves (blocks over resident blocks) and ``fill``, the
+    share of the blocks' rounds of tiles that hold a tile."""
+    device = torch.device(device)
+    key = (device.index, n, X, Y, C, p, k)
+    grid = _CONV_GRIDS.get(key)
+    if grid is None:
+        out = (ctypes.c_int * 7)()
+        with torch.cuda.device(device):
+            err = cuda_ops._lib("conv_featurize").kt_conv_featurize_config(
+                n, X, Y, C, p, k, out)
+        cuda_ops._check_launch("conv_featurize", err)
+        blocks, bps, regs, local, ktile, smem, vec = out
+        tiles = -(-n * (X - p + 1) * (Y - p + 1) // _PIXEL_TILE)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = cuda_ops._grid(dict(
+            tiles=tiles, blocks=blocks, blocks_per_sm=bps, registers=regs, local_bytes=local,
+            ktile=ktile, masked=1 - k / (-(-k // ktile) * ktile), smem_bytes=smem,
+            vec_stores=bool(vec), fill=tiles / (-(-tiles // blocks) * blocks)), sms)
+        _CONV_GRIDS[key] = grid
+    return grid
 
 
 def conv_featurize(images, filters, means: Optional[torch.Tensor] = None, *,

@@ -46,9 +46,9 @@ run:
     step; each warp owns one bucket's output row, so the adds land in a
     fixed order without atomics.
 
-All but the CountSketch kernel, the image featurizer's and
-``gram_corr_sym_acc`` with bf16 F (TMA loads into ``wgmma`` on the tensor
-cores) run on one FP32-FMA register tile, the pipelined one of
+All but the CountSketch kernel and ``gram_corr_sym_acc`` with bf16 F (TMA
+loads into ``wgmma`` on the tensor cores) run on one FP32-FMA register
+tile, the pipelined one of
 ``csrc/fma_pipe.cuh`` (a ring of stages, operands row-major or K-major,
 label tiles sized to k; chunks of the reduction that fill whole waves for
 ``block_corr``, :func:`corr_splits`, ``gaussian_kernel_block``,
@@ -57,9 +57,10 @@ label tiles sized to k; chunks of the reduction that fill whole waves for
 ``block_residual_update``, the two Gaussian kernels, and the Gramian
 kernels of ``csrc/gram_tile.cuh`` — ``gram_corr.cu``'s four wrappers
 (``gram_corr_sym``, ``gram_corr``, ``block_gram_sym``, ``gram_sym_acc``)
-and ``gram_corr_sym_acc`` with float32 F. The image featurizer's kernel
-(``csrc/conv_featurize.cu``) has its wrapper in ``ops/cuda_images.py``;
-it is built, loaded and counted here with the others.
+and ``gram_corr_sym_acc`` with float32 F; and the image featurizer
+(``csrc/conv_featurize.cu``, its patch tiles built in shared memory),
+whose wrapper is in ``ops/cuda_images.py`` and whose kernel is built,
+loaded and counted here with the others.
 
 Each wrapper keeps its Pallas twin's name and operand contract. For a
 tensor on the CPU it computes the plain PyTorch version (``*_ref``); for a
@@ -164,6 +165,7 @@ _EXTRA_SYMBOLS = {
     "block_gram_sym": [("kt_block_gram_sym_config", [_P, _I, _I, _L, _I, _P])],
     "gram_sym_acc": [("kt_gram_sym_acc_config", [_P, _I, _L, _I, _P])],
     "gram_corr_sym_acc": [("kt_gram_corr_sym_acc_config", [_P, _I, _I, _L, _P])],
+    "conv_featurize": [("kt_conv_featurize_config", [_I, _I, _I, _I, _I, _I, _P])],
 }
 # Wrappers whose kernel lives in another wrapper's source: name -> source.
 _SOURCES = {"gram_corr_sym": "gram_corr", "block_gram_sym": "gram_corr",

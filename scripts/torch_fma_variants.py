@@ -10,7 +10,8 @@ Gramian-only launch and ``gram_sym_acc``'s accumulating one,
 ``gram_corr_sym_acc.cu``'s float32 form, both on the Gramian kernel of
 ``gram_tile.cuh``, ``block_residual_update.cu``,
 ``gaussian_kernel_block.cu``, ``gaussian_resid_block.cu``,
-``cosine_features.cu``) that differ from them in one constant (or two) each,
+``cosine_features.cu``, ``conv_featurize.cu``) that differ from them in one
+constant (or two) each,
 of the kernel's source or of a header: ``STAGES``, the ring's depth;
 ``BK``, the reduction steps a stage (of the Gramian in ``gram_corr``,
 ``block_gram_sym``, ``gram_sym_acc`` and ``gram_corr_sym_acc``); the
@@ -26,7 +27,11 @@ wider tile's block counts are printed as if it were 128 wide); the order of
 ``gaussian_resid_block`` keeps a row chunk's partial in registers across
 its row tiles at k <= 16 or adds each tile's share into it in device
 memory (its k > 16 form), ``KT``, the label columns of its contraction
-pass, and the width of its row-tile counters. Each variant is built in a directory of its own under
+pass, and the width of its row-tile counters; ``conv_featurize``'s filter
+tile at k = 100 (112 or 128 wide), its patch stages (one, relying on two
+resident blocks to overlap the gather with the product, or two, the next
+tile's gather in flight during the product at one block an SM) and its
+stores (16-byte or element by element). Each variant is built in a directory of its own under
 ``build/keystone_tpu_torch/variants/`` (beside copies of the headers, edited
 where the variant edits them), one ``nvcc`` each, all started together. Then, at the
 main path's shapes (``chip_smoke.py``'s: ``block_corr``,
@@ -41,7 +46,9 @@ route's four shapes, ``chip_smoke.cifar_gaussian_shapes``;
 ``gaussian_resid_block`` at the CIFAR sweep, X 50,000 x 1,800, a 512-row
 block and the ragged 336-row one, W 50,000 x 10; ``cosine_features`` at
 one TIMIT branch, X 65,536 x 440, W 4,096 x 440, into its column window of
-the 16,384-wide fused feature matrix), it holds each variant against the
+the 16,384-wide fused feature matrix; ``conv_featurize`` at one row chunk of
+the CIFAR featurization, 2,382 images of 32 x 32 x 3, 100 filters of
+6 x 6 x 3 and whitening means), it holds each variant against the
 plain version (the error relative to the sums' scale, as ``chip_smoke.py``
 does; absolute for the Gaussian and cosine kernels, whose entries lie in
 [0, 1] and [-1, 1]; a ``gram_corr`` variant's outputs also against
@@ -50,7 +57,9 @@ or ``cosine_features`` variant's against the as-built variant's) and times
 it with CUDA events, beside the library yardstick (``Fw.T @ R``; ``A.T @
 A`` and ``A.T @ R``; ``Fw.T @ Fw``; ``addmm(R, Fw, dW, alpha=-1)``;
 ``exp(addmm(...))``
-and its product with W; ``cos(addmm(b, X, W.T))``). ``block_corr`` is also
+and its product with W; ``cos(addmm(b, X, W.T))``; for the convolution the
+product alone on cuBLAS, ``matmul`` of the normalised patch matrix made
+before timing by the filters). ``block_corr`` is also
 timed as built at other row-chunk counts than the one
 ``cuda_ops.corr_splits`` picks, and ``gaussian_kernel_block`` at other
 feature-chunk counts than ``cuda_ops.gaussian_splits`` picks.
@@ -63,8 +72,10 @@ their ``gram_sym_acc`` (the streamed tile, f32 and bf16 F, in place),
 65,536 x 4,096, R 65,536 x 147, f32 and bf16 A), ``block_gram_sym`` (the
 TIMIT window, f32 and bf16 F), ``block_residual_update`` (f32 and bf16
 F), ``gaussian_kernel_block`` (each CIFAR shape), ``gaussian_resid_block``
-(both sweep blocks, f32 and bf16 operands) and ``cosine_features`` (f32, bf16 operands, bf16 output,
-and f32 into the fused matrix's window) through their wrappers, in turns
+(both sweep blocks, f32 and bf16 operands), ``cosine_features`` (f32, bf16 operands, bf16 output,
+and f32 into the fused matrix's window) and ``conv_featurize`` (the CIFAR
+row chunk and the one-image first chunk, each checkout's
+``cuda_images`` bound to its own ``cuda_ops``) through their wrappers, in turns
 in one process on one card (first to last checkout and back: parent,
 change, change, parent for two), a call with CUDA events (``ms``: the
 host's time to launch included, which decides a short call) and the
@@ -96,7 +107,8 @@ sys.path.insert(0, _REPO)
 from chip_smoke import (  # noqa: E402  (the shapes and timers chip_smoke.py uses)
     AMAZON_CHUNK, AMAZON_D, AMAZON_K, AMAZON_RAGGED, BLOCK, CIFAR_BLOCK, CIFAR_BLOCKS, CIFAR_D,
     CIFAR_GAMMA, CIFAR_K, CIFAR_N, CIFAR_TEST, COL_START, D_FEAT, D_IN, K, N_TRAIN as N,
-    STREAM_TILE, cifar_gaussian_shapes, device_ms, f32_slab, time_ms, tma_slab)
+    CIFAR_FILTERS, STREAM_TILE, _conv_chunk_rows, cifar_gaussian_shapes, device_ms, f32_slab,
+    time_ms, tma_slab)
 
 
 HEADER = "fma_pipe.cuh"
@@ -262,6 +274,34 @@ VARIANTS = [
      (("", "constexpr int MINB = 2;", "constexpr int MINB = 1;"),)),
     *[("gram_sym_acc", name, edits) for name, edits in ACC_VARIANTS],
     *[("gram_corr_sym_acc", name, edits) for name, edits in ACC_VARIANTS],
+    ("conv_featurize", "as built", ()),
+    ("conv_featurize", "filter tile 128",
+     (("", "constexpr int FT_MID = 112;", "constexpr int FT_MID = 128;"),)),
+    ("conv_featurize", "two patch stages",
+     (("", "constexpr int BUFS = 1;", "constexpr int BUFS = 2;"),)),
+    ("conv_featurize", "element stores",
+     (("", "constexpr bool VEC_STORES = true;", "constexpr bool VEC_STORES = false;"),)),
+    ("conv_featurize", "filter tile 128, element stores",
+     (("", "constexpr int FT_MID = 112;", "constexpr int FT_MID = 128;"),
+      ("", "constexpr bool VEC_STORES = true;", "constexpr bool VEC_STORES = false;"))),
+    *[("conv_featurize", f"KSTEP {step}",
+       (("", "constexpr int KSTEP = 36;", f"constexpr int KSTEP = {step};"),))
+      for step in (4, 12, 18, 54, 108)],
+    ("conv_featurize", "gather by plain loads",
+     (("", "cp_async4(S + e * TM + pix, src + off[e], live);",
+       "S[e * TM + pix] = live ? __ldg(src + off[e]) : 0.f;"),)),
+    ("conv_featurize", "reciprocal scaling (other bits)",
+     (("", "const float sd = sd_s[pix];", "const float sd = 1.0f / sd_s[pix];"),
+      ("", "(S[e * TM + pix] - mean) / sd - mu[e]", "(S[e * TM + pix] - mean) * sd - mu[e]"))),
+    # What the product and the stores alone take: no gather, statistics or
+    # normalisation (the stage keeps whatever it holds; wrong outputs).
+    ("conv_featurize", "product and stores alone (diagnostic)",
+     (("", "    for (int e = e0; e < d; e += EPT) cp_async4(S + e * TM + pix, src + off[e], live);\n",
+       ""),
+      ("", "if (normalize && threadIdx.x < TM) {", "if (false) {"),
+      ("", "    if (normalize) {\n      const float mean", "    if (false) {\n      const float mean"),
+      ("", "      for (int e = e0; e < d; e += EPT) S[e * TM + pix] = S[e * TM + pix] - mu[e];\n",
+       ""))),
 ]
 
 
@@ -943,6 +983,130 @@ def cosine_wrapper_rows(cuda_ops):
     return rows, outs
 
 
+def conv_inputs(count):
+    """``count`` CIFAR images (pixels in [0, 255]), 100 unit filters of
+    6 x 6 x 3 and whitening means, as phase 1 of chip_smoke.py makes them."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    images = torch.rand((count, 32, 32, 3), generator=gen, device=dev) * 255
+    filters = torch.randn((CIFAR_FILTERS, 108), generator=gen, device=dev)
+    filters /= filters.norm(dim=1, keepdim=True)
+    means = torch.randn((108,), generator=gen, device=dev) * 0.1
+    return images, filters, means
+
+
+def conv_chunk():
+    """Images in one row chunk of the fused CIFAR featurizer."""
+    from keystone_tpu_torch.workflow import fusion
+
+    return _conv_chunk_rows(fusion)
+
+
+def conv_rows(cuda_ops, libs, stream, sms):
+    """Each conv_featurize variant at one row chunk of the CIFAR
+    featurization; held against the plain version (relative to the sums'
+    scale, max over entries of |P~| |F|ᵀ, as chip_smoke.py) and the
+    as-built variant's bits (every variant keeps each output's fmaf
+    chain); beside the product alone on cuBLAS."""
+    from keystone_tpu_torch.ops import cuda_images
+
+    c = conv_chunk()
+    images, filters, means = conv_inputs(c)
+    npix = c * 27 * 27
+    out = torch.empty((c, 27, 27, CIFAR_FILTERS), device=images.device)
+    want = cuda_images.conv_featurize_ref(images, filters, means, patch_size=6)
+    patches = (cuda_images.normalize_patch_rows(cuda_images.im2col(images, 6), 10.0)
+               - means).view(npix, 108)
+    scale = (patches.abs() @ filters.abs().T).max().item()
+    flops = 2 * npix * 108 * CIFAR_FILTERS + 5 * npix * 108
+    rows, built = {}, None
+    for (kernel, name), lib in libs.items():
+        if kernel != "conv_featurize":
+            continue
+        cfg = (ctypes.c_int * 7)()
+        lib.kt_conv_featurize_config(c, 32, 32, 3, 6, CIFAR_FILTERS, cfg)
+        blocks, bps, regs, local, ktile, smem, vec = cfg
+
+        def call():
+            err = lib.kt_conv_featurize(images.data_ptr(), filters.data_ptr(), means.data_ptr(),
+                                        out.data_ptr(), c, 32, 32, 3, 6, CIFAR_FILTERS, 1, 10.0,
+                                        stream)
+            if err:
+                raise RuntimeError(f"conv_featurize {name}: launch failed ({err})")
+
+        call()
+        torch.cuda.synchronize()
+        if name == "as built":
+            built = out.clone()
+        ms = time_ms(call, 10)
+        rows[name] = dict(rel_err=(out - want).abs().max().item() / scale,
+                          bits_of_as_built=bool(torch.equal(out, built)), blocks=blocks,
+                          blocks_per_sm=bps, registers=regs, local_bytes=local, ktile=ktile,
+                          smem_bytes=smem, vec_stores=bool(vec), ms=ms,
+                          device_ms=device_ms(call, 10), tflops=flops / ms / 1e9)
+        if name == "as built":
+            # The same kernel with the normalisation switched off (no
+            # statistics, no division): what they cost.
+            def plain_call():
+                err = lib.kt_conv_featurize(
+                    images.data_ptr(), filters.data_ptr(), means.data_ptr(), out.data_ptr(), c,
+                    32, 32, 3, 6, CIFAR_FILTERS, 0, 10.0, stream)
+                if err:
+                    raise RuntimeError(f"conv_featurize {name}: launch failed ({err})")
+
+            plain_call()
+            torch.cuda.synchronize()
+            off = cuda_images.conv_featurize_ref(images, filters, means, patch_size=6,
+                                                 normalize_patches=False)
+            ms = time_ms(plain_call, 10)
+            rows["as built, normalisation off"] = dict(
+                rel_err=(out - off).abs().max().item() / off.abs().max().item(), ms=ms,
+                device_ms=device_ms(plain_call, 10), tflops=flops / ms / 1e9)
+            del off
+    ms = time_ms(lambda: torch.matmul(patches, filters.T), 10)
+    rows["library: matmul(P~, F.T), the product alone"] = dict(
+        ms=ms, tflops=2 * npix * 108 * CIFAR_FILTERS / ms / 1e9)
+    del images, filters, means, out, want, patches, built
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Each checkout's cuda_images, bound to that checkout's cuda_ops, by the
+# cuda_ops module's name.
+_CUDA_IMAGES = {}
+
+
+def conv_wrapper_rows(cuda_ops):
+    """conv_featurize through the wrapper of the checkout that ``cuda_ops``
+    belongs to, at one row chunk of the CIFAR featurization and at the
+    one-image first chunk; returns the rows and the outputs by row."""
+    images_mod = _CUDA_IMAGES.get(cuda_ops.__name__)
+    if images_mod is None:
+        path = os.path.join(os.path.dirname(cuda_ops.__file__), "cuda_images.py")
+        spec = importlib.util.spec_from_file_location(f"cuda_images_{cuda_ops.__name__}", path)
+        images_mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(images_mod)
+        images_mod.cuda_ops = cuda_ops
+        _CUDA_IMAGES[cuda_ops.__name__] = images_mod
+    c = conv_chunk()
+    images, filters, means = conv_inputs(c)
+    rows, outs = {}, {}
+    for label, count in ((f"row chunk of {c} images", c), ("one image", 1)):
+        batch = images[:count]
+        want = images_mod.conv_featurize_ref(batch, filters, means, patch_size=6)
+
+        def call():
+            return images_mod.conv_featurize(batch, filters, means, patch_size=6)
+
+        got = outs[label] = call()
+        rows[label] = dict(abs_err=(got - want).abs().max().item(), ms=time_ms(call, 10),
+                           device_ms=device_ms(call, 10))
+        del want
+    del images, filters, means
+    torch.cuda.empty_cache()
+    return rows, outs
+
+
 # The wrappers timed in --root mode: kernel -> rows function.
 WRAPPER_ROWS = {
     "gram_sym_acc": gram_sym_acc_wrapper_rows,
@@ -953,6 +1117,7 @@ WRAPPER_ROWS = {
     "gaussian_kernel_block": gaussian_wrapper_rows,
     "gaussian_resid_block": resid_wrapper_rows,
     "cosine_features": cosine_wrapper_rows,
+    "conv_featurize": conv_wrapper_rows,
 }
 
 
@@ -1117,6 +1282,7 @@ ROWS = {
     "gram_sym_acc": lambda cuda_ops, libs, stream, sms: gram_sym_acc_rows(cuda_ops, libs, stream),
     "gram_corr_sym_acc": lambda cuda_ops, libs, stream, sms: gram_corr_sym_acc_rows(
         cuda_ops, libs, stream),
+    "conv_featurize": conv_rows,
 }
 
 
@@ -1124,8 +1290,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="build/torch_fma_variants.json")
     parser.add_argument("--kernels", nargs="+",
-                        help="the kernels to build and time (default: all nine; with --root, "
-                        "all eight wrappers of WRAPPER_ROWS)")
+                        help="the kernels to build and time (default: all ten; with --root, "
+                        "all nine wrappers of WRAPPER_ROWS)")
     parser.add_argument("--root", nargs="+",
                         help="time the wrappers of the checkouts at these directories in turns "
                         "(first to last and back) instead of building variants")

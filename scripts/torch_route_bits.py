@@ -1,7 +1,8 @@
-"""Three routes' fits on one GPU, for each of several checkouts: their times,
+"""Four routes' fits on one GPU, for each of several checkouts: their times,
 errors and the bits of their weights.
 
-    python3 scripts/torch_route_bits.py --root DIR [DIR ...] [--out FILE]
+    python3 scripts/torch_route_bits.py --root DIR [DIR ...] [--routes NAME ...]
+                                        [--out FILE]
 
 The routes are ``chip_smoke.py``'s, at its sizes: the streamed TIMIT fit
 (``--solver streaming`` through ``timit.run``, 275,000 rows, 4 x 4,096
@@ -10,7 +11,12 @@ cosine features, 147 classes, 3 epochs), the optimizer-bound streamed fit
 65,536 rows, which ``StreamedFitFusionRule`` binds into the fit) and the
 sparse ridge fit with the gram engine on float32 slabs at the Amazon
 geometry (n = 500,000, d = 16,384, 82 active a row, k = 2, 20 L-BFGS
-iterations, through a ``Sparsify`` pipeline). Each checkout runs in a
+iterations, through a ``Sparsify`` pipeline), and the CIFAR
+RandomPatchCifarKernel fit and apply (``chip_smoke.cifar_config``: 50,000
+training and 12,500 test images, 100 filters, KRR block 512, 1 epoch,
+through ``run_random_patch_cifar_kernel``; its fitted pipeline holds the
+convolution's training features). ``--routes`` picks some of them
+(default: all). Each checkout runs in a
 process of its own (this script with ``--child DIR``, that checkout's
 package and ``chip_smoke.py`` first on the path, its kernels built into its
 own ``build/``), in turns from the first checkout to the last and back
@@ -132,8 +138,24 @@ def sparse_f32_fit(cs, cuda_ops, rows):
                 weights=weights_digest(fitted))
 
 
-def child(root):
-    """Both fits of each route with ``root``'s package; one JSON line."""
+def cifar_fit(cs):
+    from keystone_tpu_torch.pipelines import cifar
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    PipelineEnv.get_or_create().reset()
+    result = cifar.run_random_patch_cifar_kernel(cs.cifar_config(cifar), device="cuda")
+    PipelineEnv.get_or_create().reset()
+    return dict(fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
+                train_error=result.train_eval.total_error,
+                test_error=result.test_eval.total_error, weights=weights_digest(result.fitted))
+
+
+ROUTES = ("streamed TIMIT", "optimizer-bound streamed", "sparse gram f32", "CIFAR")
+
+
+def child(root, routes):
+    """Both fits of each of ``routes`` with ``root``'s package; one JSON
+    line."""
     sys.path.insert(0, root)
     import chip_smoke as cs
     from keystone_tpu_torch.ops import cuda_ops
@@ -142,22 +164,25 @@ def child(root):
 
     cuda_ops.build()
     dev = torch.device("cuda")
-    w_true = cs.planted_model(cs.AMAZON_D, 2)
-    rows = [[torch.from_numpy(a).to(dev) for a in cs.amazon_rows(
-        m, cs.AMAZON_D, cs.AMAZON_NNZ, cs.AMAZON_K, seed, w_true)]
-        for m, seed in ((cs.AMAZON_N, 1), (cs.AMAZON_N // 4, 3))]
-    out = {}
-    for name, fit in (("streamed TIMIT", lambda: streamed_fit(cs, timit, TimitConfig)),
-                      ("optimizer-bound streamed", lambda: optimizer_bound_fit(
-                          cs, timit, TimitConfig)),
-                      ("sparse gram f32", lambda: sparse_f32_fit(cs, cuda_ops, rows))):
-        out[name] = [fit() for _ in range(2)]
+    rows = None
+    if "sparse gram f32" in routes:
+        w_true = cs.planted_model(cs.AMAZON_D, 2)
+        rows = [[torch.from_numpy(a).to(dev) for a in cs.amazon_rows(
+            m, cs.AMAZON_D, cs.AMAZON_NNZ, cs.AMAZON_K, seed, w_true)]
+            for m, seed in ((cs.AMAZON_N, 1), (cs.AMAZON_N // 4, 3))]
+    fits = {"streamed TIMIT": lambda: streamed_fit(cs, timit, TimitConfig),
+            "optimizer-bound streamed": lambda: optimizer_bound_fit(cs, timit, TimitConfig),
+            "sparse gram f32": lambda: sparse_f32_fit(cs, cuda_ops, rows),
+            "CIFAR": lambda: cifar_fit(cs)}
+    out = {name: [fits[name]() for _ in range(2)] for name in routes}
     print(json.dumps(out))
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", nargs="+", help="the checkouts to run, in turns")
+    parser.add_argument("--routes", nargs="+", choices=ROUTES, default=list(ROUTES),
+                        help="the routes to fit (default: all)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     parser.add_argument("--out", default="build/torch_route_bits.json")
     args = parser.parse_args()
@@ -165,15 +190,15 @@ def main():
         print("torch_route_bits: no CUDA device is available", file=sys.stderr)
         return 2
     if args.child:
-        return child(os.path.abspath(args.child))
+        return child(os.path.abspath(args.child), args.routes)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     roots = [os.path.abspath(root) for root in args.root]
     order = list(range(len(roots))) + list(reversed(range(len(roots))))
     turns, first = [], {}
     for i in order:
-        proc = subprocess.run([sys.executable, _SCRIPT, "--child", roots[i]], cwd=roots[i],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, _SCRIPT, "--child", roots[i], "--routes",
+                               *args.routes], cwd=roots[i], capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise RuntimeError(f"the child for {roots[i]} failed ({proc.returncode})")

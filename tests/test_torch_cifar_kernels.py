@@ -17,6 +17,8 @@ Tolerances (kernel against plain version, same inputs on the card):
     products summed in different orders).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -75,16 +77,50 @@ class TestContract:
                                        torch.empty((4, 27), device="meta"), patch_size=3)
 
     def test_guard_is_sized_for_shared_memory(self):
+        # The block holds a 128-pixel patch tile and the filters in whole
+        # filter tiles; the images stay in device memory.
         images = torch.empty((2, 32, 32, 3))
-        assert cuda_images._smem_bytes(32, 32, 3, 6, 100) == 96176  # CIFAR: two blocks an SM
+        cifar = cuda_images._smem_bytes(108, 100)
+        assert cifar == 4 * (108 * 128 + 112 * 108 + 2 * 108 + 2 * 128) == 105568
+        assert 2 * (cifar + 1024) <= 228 * 1024  # two blocks an SM (1 KB reserved each)
         assert cuda_images.conv_featurize_ok(images, torch.empty((100, 108)))
         assert cuda_images.conv_featurize_ok(images, torch.empty((256, 108)))
-        assert not cuda_images.conv_featurize_ok(images, torch.empty((512, 108)))  # 304 KB
+        assert not cuda_images.conv_featurize_ok(images, torch.empty((512, 108)))  # 272 KB
+        # Large images no longer count; large patches with a wide filter
+        # tile do (d = 243, 112-wide tile: 231 KB).
+        assert cuda_images.conv_featurize_ok(torch.empty((1, 256, 256, 3)),
+                                             torch.empty((100, 108)))
+        assert not cuda_images.conv_featurize_ok(torch.empty((1, 32, 32, 3)),
+                                                 torch.empty((100, 243)))
+        assert cuda_images.conv_featurize_ok(torch.empty((1, 32, 32, 3)),
+                                             torch.empty((32, 243)))
         assert not cuda_images.conv_featurize_ok(images, torch.empty((8, 100)))  # not p*p*C
         assert not cuda_images.conv_featurize_ok(torch.empty((2, 4, 4, 3)),
                                                  torch.empty((8, 108)))  # image < patch
         assert not cuda_images.conv_featurize_ok(torch.empty((32, 32, 3)),
                                                  torch.empty((8, 108)))  # not a batch
+
+    @pytest.mark.parametrize("k,width", [(1, 32), (32, 32), (33, 112), (100, 112), (112, 112),
+                                         (113, 128), (128, 128), (256, 128)])
+    def test_filter_tile_is_sized_from_k(self, k, width):
+        assert cuda_images._filter_tile(k) == width
+
+    def test_tile_constants_match_the_kernel_source(self):
+        # _smem_bytes and _filter_tile model csrc/conv_featurize.cu: its
+        # constants must be the ones the Python side assumes.
+        text = (cuda_ops._CSRC / "conv_featurize.cu").read_text()
+        for line in ("constexpr int FT_NARROW = 32;", "constexpr int FT_MID = 112;",
+                     "constexpr int FT_WIDE = 128;", "constexpr int BUFS = 1;",
+                     '#include "fma_pipe.cuh"'):
+            assert line in text
+        assert "constexpr int TM = 128;" in (cuda_ops._CSRC / "fma_pipe.cuh").read_text()
+        assert cuda_images._PIXEL_TILE == 128
+        assert cuda_images._FILTER_TILES == (32, 112, 128)
+
+    def test_conv_config_entry_point_is_bound(self):
+        assert cuda_ops._symbols("conv_featurize") == {
+            "kt_conv_featurize": cuda_ops._ENTRY_POINTS["conv_featurize"][1],
+            "kt_conv_featurize_config": [ctypes.c_int] * 6 + [ctypes.c_void_p]}
 
     def test_wrappers_take_plain_versions_on_cpu(self):
         X, Y, xn, yn, W = _gauss(30, 20, 7, k=3)
@@ -251,8 +287,15 @@ GAUSS_SHAPES = [(37, 45, 23), (200, 130, 70), (129, 257, 9), (1, 1, 1), (1030, 5
 RESID_SHAPES = [(300, 40, 30, 5), (130, 129, 17, 1), (517, 200, 12, 35), (5000, 512, 300, 10),
                 (100, 60, 1801, 33), (1000, 130, 64, 147), (700, 336, 1800, 10),
                 (260, 33, 8, 170), (3000, 512, 1801, 1), (390, 70, 20, 16), (390, 70, 20, 17)]
+# (n, X, Y, C, p, k). Pixel tiles of 128 rows run across image
+# boundaries wherever x'y' is not a multiple of 128 (all of these), and the
+# last tile is ragged; k = 1, 100, 112, 113 and 256 sit at the filter
+# tiles' edges (32, 112, 2 x 128); X != Y, C = 1 and p = 1 move the
+# offset table.
 CONV_SHAPES = [(3, 12, 10, 3, 5, 5), (2, 9, 9, 2, 3, 4), (2, 12, 11, 3, 6, 130),
-               (37, 32, 32, 3, 6, 100)]
+               (37, 32, 32, 3, 6, 100), (5, 32, 32, 3, 6, 1), (5, 32, 32, 3, 6, 112),
+               (5, 32, 32, 3, 6, 113), (5, 32, 32, 3, 6, 256), (3, 14, 9, 3, 4, 20),
+               (4, 12, 12, 1, 5, 40), (3, 10, 7, 3, 1, 64)]
 
 
 def _gauss_check(X, Y, xn, yn, dtype, runs=3):
@@ -399,6 +442,37 @@ class TestKernelsOnCard:
                                               normalize_patches=normalize)
         assert got.shape == (n, X - p + 1, Y - p + 1, k)
         assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+    def test_conv_tiles_across_images_give_each_image_its_bits(self, cuda_device):
+        # Every output is one fmaf chain over its own patch, wherever its
+        # row falls in a tile: a batch whose tiles straddle image boundaries
+        # (729 rows an image) gives each image's bits from a call of its
+        # own, and the same bits on a second call.
+        images, filters, means = _conv_inputs(7, 32, 32, 3, 6, 100, seed=5, device=cuda_device)
+        batch = cuda_images.conv_featurize(images, filters, means, patch_size=6)
+        again = cuda_images.conv_featurize(images, filters, means, patch_size=6)
+        alone = torch.cat([cuda_images.conv_featurize(images[i:i + 1], filters, means,
+                                                      patch_size=6) for i in range(7)])
+        assert torch.equal(batch, again) and torch.equal(batch, alone)
+
+    @pytest.mark.parametrize("n,k", [(2382, 100), (1, 100), (50, 32), (50, 256)])
+    def test_conv_grid(self, cuda_device, n, k):
+        # A persistent grid of the resident blocks (fewer where there are
+        # fewer tiles), no spills, at most 128 registers; two blocks an SM
+        # at CIFAR's k = 100 (105.6 KB of shared memory), and the row
+        # chunk's 13,567 tiles fill at least 0.95 of the blocks' rounds.
+        grid = cuda_images.conv_featurize_grid(n, 32, 32, 3, 6, k, cuda_device)
+        resident = grid["sms"] * grid["blocks_per_sm"]
+        assert grid["tiles"] == -(-n * 729 // 128)
+        assert grid["blocks"] == min(grid["tiles"], resident)
+        assert grid["local_bytes"] == 0 and grid["registers"] <= 128
+        assert grid["smem_bytes"] == cuda_images._smem_bytes(108, k)
+        assert grid["ktile"] == cuda_images._filter_tile(k)
+        assert grid["vec_stores"] == (k % 4 == 0)
+        if k <= 112:
+            assert grid["blocks_per_sm"] >= 2
+        if n == 2382:
+            assert grid["tiles"] == 13567 and grid["fill"] >= 0.95 and grid["waves"] == 1.0
 
     def test_conv_narrows_float64_and_refuses_what_the_guard_refuses(self, cuda_device):
         images, filters, means = _conv_inputs(3, 12, 10, 3, 5, 5, device=cuda_device)

@@ -224,7 +224,7 @@ class TestWrappersOnTheCpu:
             assert not (cuda_ops._CSRC / name).exists()
         sources = sorted(cuda_ops._CSRC.glob("*.cu*"))
         assert not [p.name for p in sources if "fma_tile" in p.read_text()]
-        own_tiles = ("conv_featurize.cu", "countsketch_scatter.cu")
+        own_tiles = ("countsketch_scatter.cu",)
         for p in sources:
             if p.suffix == ".cu" and p.name not in own_tiles:
                 assert _includes_pipelined_tile(p.read_text()), p.name
