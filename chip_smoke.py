@@ -111,6 +111,22 @@ per source, all started together), then:
  10. runs one stacked block update at TIMIT width (A 65,536 x 4,096, R
      65,536 x 147) with ``sym=False`` (one ``gram_corr`` launch, counted
      from 0) and with ``sym=True``: the same weights and residual.
+ 11. drives TIMIT ``--solver auto`` (the default: the cost-model selector,
+     ``cost.LeastSquaresEstimator``) at the same width, λ 0, through
+     ``timit.run`` on the card's own memory budget, launches counted from
+     0, logging the selector's budget and each candidate's cost, resident
+     GiB and feasibility, and timing the selector (sampling and pricing),
+     the fit and the applies:
+       - (a) resident, 65,536 rows: the winner must be the ``Densify`` ->
+         ``BlockLeastSquaresEstimator`` chain, its weights those of phase
+         2's ``--solver block`` apply-first route on the same rows (1e-5
+         relative), through ``cosine_features`` and ``gram_corr_sym``;
+       - (b) past the memory wall, 1,310,720 rows (40 tiles of 32,768):
+         every resident candidate must be over the budget by more than 5%,
+         the winner the streaming choice, which the optimizer binds to the
+         cosine bank, with ``gram_sym_acc`` launched once a tile (40), and
+         its model (``W_stack``, ``fmean``, ``ymean``) that of
+         ``--solver streaming`` on the same rows and draws (1e-5 relative).
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -145,8 +161,18 @@ QS_WIDTH, QS_BLOCK = 4096, 1024
 D_FEAT, COL_START = NUM_COSINES * BLOCK, 2 * BLOCK
 
 # The streamed route: 275,000 training rows, tiles of 32,768 rows
-# (pick_tile_rows(16384)): 8 full tiles and a ragged 12,856-row one.
+# (pick_tile_rows(16384, 4)): 8 full tiles and a ragged 12,856-row one.
 STREAM_N, STREAM_TILE = 275000, 32768
+
+# --solver auto past the memory wall: 1,310,720 training rows, 40 tiles of
+# 32,768 (pick_tile_rows(16384, 4) at the 2 GiB slab the card's budget
+# gives). The fit makes one cosine bank launch a tile and folds each tile
+# once; the train apply featurizes 40 tiles, the test apply of 327,680 rows
+# 10; the selector's sample collector featurizes 3 rows through each of the
+# four branches before the featurizer is fused.
+AUTO_WALL_N = 1310720
+AUTO_WALL_TILES = AUTO_WALL_N // STREAM_TILE
+AUTO_WALL_COSINES = NUM_COSINES + 2 * AUTO_WALL_TILES + (AUTO_WALL_N // 4) // STREAM_TILE
 
 # The CIFAR slice at its own width (keystone_tpu/pipelines/cifar.py): 50,000
 # training and 12,500 test images of 32 x 32 x 3, 100 filters of 6 x 6 x 3
@@ -187,6 +213,8 @@ CIFAR = "cifar RandomPatchCifarKernel (fit, then train and test apply)"
 SPARSE = "amazon sparse ridge, SparseLBFGSwithL2 gram engine with bf16 slabs (fit, then apply)"
 SKETCH = "amazon sketched tier, IterativeHessianSketch m = 65,540, 3 outer (fit, then apply)"
 SYM_FALSE = "stacked BCD block update with sym=False at TIMIT width"
+AUTO_RESIDENT = "timit --solver auto, resident: the block chain (fit first)"
+AUTO_WALL = "timit --solver auto, past the memory wall: the streamed fit (fit first)"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -998,8 +1026,8 @@ def phase_timit_route(cuda_ops, timit, TimitConfig, fit_first):
 
     route = FLAT if fit_first else STACKED
     PipelineEnv.get_or_create().reset()
-    config = TimitConfig(num_cosines=NUM_COSINES, block_size=BLOCK, synthetic_n=N_TRAIN,
-                         num_epochs=EPOCHS)
+    config = TimitConfig(solver="block", num_cosines=NUM_COSINES, block_size=BLOCK,
+                         synthetic_n=N_TRAIN, num_epochs=EPOCHS)
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1026,7 +1054,17 @@ def phase_timit_route(cuda_ops, timit, TimitConfig, fit_first):
     check_metrics(route, result.train_eval, result.test_eval, N_TRAIN)
     return counts, dict(fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
                         peak_allocated_bytes=peak, train_error=train_err,
-                        test_error=test_err)
+                        test_error=test_err), block_weights(result.fitted)
+
+
+def block_weights(fitted):
+    """The (d, k) weights of a fitted pipeline's one BlockLinearMapper,
+    stand-alone or inside the solver selector's chain."""
+    from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+
+    (mapper,) = [getattr(op, "model", op) for op in fitted.transformer_graph.operators.values()
+                 if isinstance(getattr(op, "model", op), BlockLinearMapper)]
+    return torch.cat(mapper.xs)
 
 
 def phase_quickstart(cuda_ops):
@@ -1181,6 +1219,149 @@ def phase_optimizer_bound(cuda_ops, timit, TimitConfig):
     check("optimizer-bound model matches --solver streaming",
           all(v <= 1e-4 for v in rel.values()), f"{rel} (each within 1e-4)")
     check_metrics("optimizer-bound streamed fit", train_eval, test_eval, N_TRAIN)
+
+
+def log_decision(decision):
+    """The selector's budget and every candidate it priced."""
+    ctx = decision["context"]
+    log(f"  selector: n={ctx['n']}, d={ctx['d']}, k={ctx['k']}, sparsity {ctx['sparsity']}, "
+        f"device budget {ctx['hbm_budget_bytes'] / 2**30:.3f} GiB, host budget "
+        f"{ctx['host_budget_bytes'] / 2**30:.3f} GiB, weights {ctx['weights']}")
+    for c in decision["candidates"]:
+        cost = "inf" if c["cost_s"] is None else f"{c['cost_s']:.6g}"
+        log(f"    {c['label']}: cost {cost}, resident {c['resident_bytes'] / 2**30:.3f} GiB "
+            f"({c['resident_bytes'] / ctx['hbm_budget_bytes']:.3f} of the budget), "
+            f"feasible {c['feasible']}")
+    log(f"  selector winner {decision['winner']} ({decision['reason']})")
+
+
+def run_auto(cuda_ops, timit, TimitConfig, n):
+    """TIMIT --solver auto at full width on n training rows through its entry
+    point, on the card's own budget; launches counted from 0. The
+    selector's wall is the NodeOptimizationRule's: sampling the featurized
+    rows and pricing the candidates."""
+    from keystone_tpu_torch.workflow import PipelineEnv, rules
+
+    PipelineEnv.get_or_create().reset()
+    config = TimitConfig(solver="auto", num_cosines=NUM_COSINES, block_size=BLOCK,
+                         synthetic_n=n, num_epochs=EPOCHS, lam=0.0)
+    walls = []
+    select = rules.NodeOptimizationRule.apply
+
+    def timed_select(self, plan, prefixes):
+        t0 = time.perf_counter()
+        out = select(self, plan, prefixes)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    rules.NodeOptimizationRule.apply = timed_select
+    try:
+        t0 = time.perf_counter()
+        result = timit.run(config, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        rules.NodeOptimizationRule.apply = select
+    counts = dict(cuda_ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    PipelineEnv.get_or_create().reset()
+    decision = result.selector.last_decision
+    log_decision(decision)
+    stats = dict(n=n, winner=decision["winner"], reason=decision["reason"],
+                 fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
+                 selector_seconds=sum(walls), peak_allocated_bytes=peak,
+                 train_error=result.train_eval.total_error,
+                 test_error=result.test_eval.total_error, launches=counts)
+    log(f"  n={n}: train error {100 * stats['train_error']:.3f}%, test error "
+        f"{100 * stats['test_error']:.3f}%, fit {result.fit_seconds:.3f} s, apply (train + "
+        f"test) {result.apply_seconds:.3f} s, selector (sampling and pricing) "
+        f"{stats['selector_seconds']:.3f} s in {len(walls)} call(s), run {wall:.3f} s (data "
+        f"generation included), peak allocated {peak / 2**30:.2f} GiB, launches {counts}")
+    return result, stats
+
+
+def phase_auto(cuda_ops, timit, TimitConfig, stacked_W):
+    """--solver auto on both sides of the memory wall: the block chain at
+    N_TRAIN rows (held against --solver block's apply-first weights on the
+    same rows and draws), the streamed fit at AUTO_WALL_N rows (every
+    resident candidate over the budget by more than 5%)."""
+    from keystone_tpu_torch.ops.learning.streaming_ls import StreamingFeaturizedLinearModel
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    log(f"  (a) resident, n={N_TRAIN}")
+    result, resident = run_auto(cuda_ops, timit, TimitConfig, N_TRAIN)
+    res_counts = resident["launches"]
+    ops = list(result.fitted.transformer_graph.operators.values())
+    check(f"{AUTO_RESIDENT}: the selector picks the block chain",
+          resident["winner"] == "BlockLeastSquaresEstimator"
+          and any(type(op).__name__ == "Chained" for op in ops),
+          f"winner {resident['winner']}, fitted {[type(op).__name__ for op in ops]}")
+    W = block_weights(result.fitted)
+    rel = float((W - stacked_W).norm() / stacked_W.norm())
+    resident["weights_rel_to_block_stacked"] = rel
+    check(f"{AUTO_RESIDENT}: weights match --solver block apply-first", rel <= 1e-5,
+          f"relative Frobenius {rel:.3g} (within 1e-5: the same stacked solver on the "
+          f"same features)")
+    check(f"{AUTO_RESIDENT} launches",
+          res_counts["gram_corr_sym"] > 0 and res_counts["cosine_features"] > 0
+          and all(res_counts[name] == 0 for name in ("block_gram_sym", "block_corr",
+                                                     "block_residual_update", "gram_sym_acc")),
+          f"gram_corr_sym and cosine_features > 0, the flat and streamed kernels 0")
+    check_metrics(AUTO_RESIDENT, result.train_eval, result.test_eval, N_TRAIN)
+    del result
+    torch.cuda.empty_cache()
+
+    log(f"  (b) past the wall, n={AUTO_WALL_N}")
+    result, walled = run_auto(cuda_ops, timit, TimitConfig, AUTO_WALL_N)
+    wall_counts = walled["launches"]
+    models = [op for op in result.fitted.transformer_graph.operators.values()
+              if isinstance(op, StreamingFeaturizedLinearModel)]
+    check(f"{AUTO_WALL}: the selector picks the streaming choice and the fit is streamed",
+          walled["winner"] == "StreamingLeastSquaresChoice" and len(models) == 1,
+          f"winner {walled['winner']}, streamed models {len(models)}")
+    decision = result.selector.last_decision
+    budget = decision["context"]["hbm_budget_bytes"]
+    over = {c["label"]: c["resident_bytes"] / budget for c in decision["candidates"]
+            if c["label"] != "StreamingLeastSquaresChoice"}
+    walled["resident_over_budget"] = over
+    check(f"{AUTO_WALL}: every resident candidate over the budget by more than 5%",
+          all(v > 1.05 for v in over.values()), f"resident / budget {over}")
+    check(f"{AUTO_WALL} launches",
+          wall_counts["gram_sym_acc"] == AUTO_WALL_TILES
+          and wall_counts["cosine_features"] == AUTO_WALL_COSINES
+          and all(wall_counts[name] == 0 for name in ("gram_corr_sym", "block_gram_sym",
+                                                      "block_corr", "block_residual_update")),
+          f"gram_sym_acc {wall_counts['gram_sym_acc']} (expected {AUTO_WALL_TILES}, one a "
+          f"tile, all in the fit), cosine_features {wall_counts['cosine_features']} (expected "
+          f"{AUTO_WALL_COSINES}), the resident solvers' kernels 0")
+    check_metrics(AUTO_WALL, result.train_eval, result.test_eval, AUTO_WALL_N)
+    # The synthetic rows are separable at this n, so the errors alone would
+    # pass a wrong fit: hold the model against --solver streaming's on the
+    # same rows and draws. Both fold the same bank over the same 32,768-row
+    # tiles, so they agree to rounding.
+    names = ("W_stack", "fmean", "ymean")
+    got = {name: getattr(models[0], name).clone() for name in names}
+    del result, models
+    torch.cuda.empty_cache()
+    PipelineEnv.get_or_create().reset()
+    flag = timit.run(TimitConfig(solver="streaming", num_cosines=NUM_COSINES, block_size=BLOCK,
+                                 synthetic_n=AUTO_WALL_N, num_epochs=EPOCHS, lam=0.0),
+                     device="cuda")
+    PipelineEnv.get_or_create().reset()
+    (want,) = [op for op in flag.fitted.transformer_graph.operators.values()
+               if isinstance(op, StreamingFeaturizedLinearModel)]
+    rel = {name: float((got[name] - getattr(want, name)).norm() / getattr(want, name).norm())
+           for name in names}
+    walled["model_rel_to_solver_streaming"] = rel
+    log(f"  auto's streamed model against --solver streaming at n={AUTO_WALL_N} (fit "
+        f"{flag.fit_seconds:.3f} s), relative Frobenius: {rel}")
+    check(f"{AUTO_WALL}: model matches --solver streaming", all(v <= 1e-5 for v in rel.values()),
+          f"{rel} (each within 1e-5: the same streamed solver, tiles and draws)")
+    del flag, want
+    torch.cuda.empty_cache()
+    return resident, walled
 
 
 def _conv_chunk_rows(fusion):
@@ -2177,8 +2358,9 @@ def main():
     log(f"  phase 1 launches (checks and timing, not the main path): {cuda_ops.launches}")
     log("[phase 2] TIMIT slice: three routes small against the CPU; --solver block at full width")
     phase_small_reference(timit, TimitConfig)
-    stacked_counts, stacked = phase_timit_route(cuda_ops, timit, TimitConfig, fit_first=False)
-    flat_counts, flat = phase_timit_route(cuda_ops, timit, TimitConfig, fit_first=True)
+    stacked_counts, stacked, stacked_W = phase_timit_route(cuda_ops, timit, TimitConfig,
+                                                           fit_first=False)
+    flat_counts, flat, _ = phase_timit_route(cuda_ops, timit, TimitConfig, fit_first=True)
     log("[phase 3] README quick-start composition")
     phase_quickstart(cuda_ops)
     log("[phase 4] TIMIT --solver streaming at full width")
@@ -2200,6 +2382,8 @@ def main():
     torch.cuda.empty_cache()
     log("[phase 10] the block update's sym=False route at TIMIT width")
     sym_counts, sym_run = phase_sym_false(cuda_ops)
+    log("[phase 11] TIMIT --solver auto on both sides of the memory wall")
+    auto_res, auto_wall = phase_auto(cuda_ops, timit, TimitConfig, stacked_W)
 
     route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
                     CIFAR: cifar_counts, SPARSE: sparse_counts, SKETCH: sketch_counts,
@@ -2210,7 +2394,8 @@ def main():
         for name, meta in KERNELS.items()
     ]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
-                 SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run}
+                 SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
+                 AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall}
     log(f"main path: {json.dumps(main_path)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

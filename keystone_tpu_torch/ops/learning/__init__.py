@@ -2,6 +2,7 @@
 ``keystone_tpu/ops/learning/__init__.py``)."""
 
 from .block import BlockLeastSquaresEstimator, BlockLinearMapper
+from .cost import LeastSquaresEstimator, TransformerLabelEstimatorChain
 from .kernel import (
     GaussianKernelGenerator,
     GaussianKernelTransformer,
@@ -22,7 +23,8 @@ from .sketch import IterativeHessianSketch, SketchedLeastSquares
 __all__ = [
     "BlockLeastSquaresEstimator", "BlockLinearMapper", "DenseLBFGSwithL2",
     "GaussianKernelGenerator", "GaussianKernelTransformer", "IterativeHessianSketch",
-    "KernelBlockLinearMapper", "KernelRidgeRegression", "LinearMapEstimator", "LinearMapper",
-    "LocalLeastSquaresEstimator", "SketchedLeastSquares", "SketchedLeastSquaresEstimator",
-    "SparseLBFGSwithL2", "SparseLinearMapper", "ZCAWhitener", "ZCAWhitenerEstimator",
+    "KernelBlockLinearMapper", "KernelRidgeRegression", "LeastSquaresEstimator",
+    "LinearMapEstimator", "LinearMapper", "LocalLeastSquaresEstimator", "SketchedLeastSquares",
+    "SketchedLeastSquaresEstimator", "SparseLBFGSwithL2", "SparseLinearMapper",
+    "TransformerLabelEstimatorChain", "ZCAWhitener", "ZCAWhitenerEstimator",
 ]

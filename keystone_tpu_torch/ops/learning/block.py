@@ -7,18 +7,20 @@ products plus an intercept; fitting runs block coordinate descent with L2
 through :mod:`keystone_tpu_torch.parallel.linalg`: the stacked solver for
 materialized feature blocks (``fit``), and the flat solver when the
 optimizer fuses the fit with its featurizer (``device_fit_fn``).
-
-Not ported yet: the analytic cost model of the solver selector.
+``cost`` and ``resident_bytes`` are the estimator's analytic cost and
+capacity models, which the solver selector (``cost.py``) prices it by.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
 
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops.learning.cost import CostModel
 from keystone_tpu_torch.ops.stats import StandardScaler, StandardScalerModel
 from keystone_tpu_torch.ops.util import VectorSplitter
 from keystone_tpu_torch.parallel import linalg
@@ -116,7 +118,7 @@ def _stack_fits_memory(A_blocks, num_iter: int) -> bool:
     return 3 * total + stash < 0.6 * limit
 
 
-class BlockLeastSquaresEstimator(LabelEstimator):
+class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
     """Block coordinate descent ridge regression
     (reference: BlockLinearMapper.scala:199-283).
 
@@ -204,4 +206,26 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             )
         return BlockLinearMapper(
             Ws, self.block_size, b_opt=label_scaler.mean, feature_scalers=feature_scalers
+        )
+
+    def cost(
+        self, n, d, k, sparsity, num_machines, cpu_weight, mem_weight, network_weight
+    ) -> float:
+        """Analytic cost model (BlockLinearMapper.scala:268-282)."""
+        flops = n * d * (self.block_size + k) / num_machines
+        bytes_scanned = n * d / num_machines + d * k
+        network = 2.0 * (d * (self.block_size + k)) * math.log2(max(num_machines, 2))
+        return self.num_iter * (
+            max(cpu_weight * flops, mem_weight * bytes_scanned)
+            + network_weight * network
+        )
+
+    def resident_bytes(self, n, d, k, sparsity, num_machines) -> float:
+        """Capacity model for the selector's device-memory cut: the fit
+        holds the feature blocks plus a scaled/stacked second copy (f32),
+        labels twice (raw + centered), and the multi-epoch Gramian stash."""
+        return (
+            8.0 * n * d / num_machines
+            + 8.0 * n * k / num_machines
+            + 4.0 * d * self.block_size
         )

@@ -1,0 +1,400 @@
+"""Cost-model-driven solver selection.
+
+Port of ``keystone_tpu/ops/learning/cost.py`` (reference:
+nodes/learning/CostModel.scala:6-16, LeastSquaresEstimator.scala:26-87,
+ChainUtils.scala for TransformerLabelEstimatorChain), one device.
+
+:class:`LeastSquaresEstimator` offers the reference's candidates in the
+reference's order, prices each with its analytic
+``cost(n, d, k, sparsity, numMachines, cpuW, memW, netW)`` model, cuts the
+ones whose resident operands pass the device-memory budget (or whose
+dataset passes the host budget), and hands the optimizer the first minimum
+of what is left; when nothing fits, the least-resident candidate.
+
+Differences from the reference:
+
+  - the weights are the reference's EC2 cluster family (cpu 3.8e-4, mem
+    2.9e-1, network 1.32, and the engines' random-access overheads), the
+    reference's ``KEYSTONE_COST_WEIGHTS=ec2``. Its default ``TPU_*``
+    constants are rates measured on a TPU and are not carried over; an
+    H100 refit comes with the calibration plane (``obs/calibrate.py``,
+    ROADMAP A.17), and with it a weight-family switch;
+  - ``num_machines`` defaults to 1 (the port runs on one device; the mesh
+    is ROADMAP A.15), and the device budget is the CUDA device's total
+    memory (the counterpart of the reference's ``bytes_limit``);
+  - the decision is recorded on the estimator as ``last_decision`` and
+    logged, where the reference emits it through ``obs`` and the
+    ``PlacementEngine`` stream (A.17); the disk tier (shard-backed inputs)
+    is not priced (A.13);
+  - ``choose_mesh_layout`` (A.15) and ``choose_image_tier`` (A.10) are not
+    ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from keystone_tpu_torch.data import Dataset
+from keystone_tpu_torch.data.dataset import tree_leaves
+from keystone_tpu_torch.ops.sparse import Densify, Sparsify, is_sparse_dataset
+from keystone_tpu_torch.workflow import LabelEstimator, Transformer
+from keystone_tpu_torch.workflow.optimizable import OptimizableLabelEstimator
+
+logger = logging.getLogger("keystone_tpu_torch.cost")
+
+# Reference cluster cost weights (LeastSquaresEstimator.scala:28-31; fit on
+# a 2015 16-node r3.4xlarge cluster), with the reference's EC2 random-access
+# multipliers of the sparse gather pass and the two sketch passes on the
+# sequential mem rate.
+EC2_CPU_WEIGHT = 3.8e-4
+EC2_MEM_WEIGHT = 2.9e-1
+EC2_NETWORK_WEIGHT = 1.32
+EC2_SPARSE_GATHER_OVERHEAD = 8.0
+EC2_SRHT_SKETCH_OVERHEAD = 10.0
+EC2_COUNTSKETCH_OVERHEAD = 6.0
+
+# Device-memory budget where the device reports none (the CPU).
+DEFAULT_HBM_BYTES = 16 << 30
+# Fraction of device memory a solver's resident operands may claim: the
+# rest covers scratch, temporaries and transfer buffers.
+DEFAULT_HBM_UTILIZATION = 0.85
+# Host-memory budget where the OS reports nothing, and the fraction of host
+# RAM the dataset may claim.
+DEFAULT_HOST_BYTES = 64 << 30
+DEFAULT_HOST_UTILIZATION = 0.8
+
+
+def device_memory_bytes(device=None) -> int:
+    """Device-memory budget of ``device``: a CUDA device's total memory,
+    else the conservative default."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return DEFAULT_HBM_BYTES
+
+
+def host_memory_bytes() -> int:
+    """Host-RAM budget for resident datasets: the
+    ``KEYSTONE_HOST_BUDGET_BYTES`` override, else the OS-reported physical
+    memory, else the conservative default."""
+    env = os.environ.get("KEYSTONE_HOST_BUDGET_BYTES")
+    if env:
+        return int(float(env))
+    try:
+        pages = os.sysconf("SC_PHYS_PAGES")
+        page = os.sysconf("SC_PAGE_SIZE")
+        if pages > 0 and page > 0:
+            return int(pages * page)
+    except (ValueError, OSError, AttributeError):
+        pass
+    return DEFAULT_HOST_BYTES
+
+
+def candidate_label(est) -> str:
+    """Stable human-readable label of one solver candidate, disambiguating
+    the engine and storage-class variants of one estimator type
+    (``solver=`` / ``compress=``)."""
+    name = type(est).__name__
+    qual = [
+        str(v) for v in (getattr(est, "solver", None), getattr(est, "compress", None)) if v
+    ]
+    return name + (f"[{','.join(qual)}]" if qual else "")
+
+
+def _decide(costs: Sequence[float], resident: Sequence[float]) -> Tuple[int, str]:
+    """The reference's ``PlacementEngine.decide`` with the least-resident
+    fallback: the first minimum of the costs (``int(np.argmin)``), or, when
+    every cost is infinite, the first candidate of least resident bytes."""
+    if all(c == float("inf") for c in costs):
+        return min(range(len(resident)), key=resident.__getitem__), "least_resident_fallback"
+    return min(range(len(costs)), key=costs.__getitem__), "argmin"
+
+
+class CostModel:
+    """Analytic per-solver performance model (CostModel.scala:6-16): the
+    interface every :class:`LeastSquaresEstimator` candidate implements,
+    beside ``resident_bytes(n, d, k, sparsity, num_machines)``."""
+
+    def cost(
+        self,
+        n: int,
+        d: int,
+        k: int,
+        sparsity: float,
+        num_machines: int,
+        cpu_weight: float,
+        mem_weight: float,
+        network_weight: float,
+    ) -> float:
+        raise NotImplementedError
+
+
+class Chained(Transformer):
+    """The fitted form of :class:`TransformerLabelEstimatorChain`: the
+    chain's transformer, then the fitted model. Module-level (the
+    reference's is a local class) so that a fitted pipeline pickles."""
+
+    def __init__(self, transformer: Transformer, model: Transformer):
+        self.transformer = transformer
+        self.model = model
+
+    def apply(self, x):
+        return self.model.apply(self.transformer.apply(x))
+
+    def batch_apply(self, ds: Dataset) -> Dataset:
+        return self.model.batch_apply(self.transformer.batch_apply(ds))
+
+
+class TransformerLabelEstimatorChain(LabelEstimator):
+    """Fuse a Transformer with a LabelEstimator into one LabelEstimator
+    (reference: ChainUtils.scala)."""
+
+    def __init__(self, transformer: Transformer, estimator: LabelEstimator):
+        self.transformer = transformer
+        self.estimator = estimator
+
+    def fit(self, data: Dataset, labels: Dataset) -> Chained:
+        transformed = self.transformer.batch_apply(data)
+        return Chained(self.transformer, self.estimator.fit(transformed, labels))
+
+    @property
+    def weight(self) -> int:
+        return getattr(self.estimator, "weight", 1)
+
+
+def _sample_device(sample: Dataset) -> torch.device:
+    """The device of a sample's tensors (the CPU for host or numpy data)."""
+    if sample.is_host:
+        return torch.device("cpu")
+    leaf = tree_leaves(sample.data)[0]
+    return leaf.device if isinstance(leaf, torch.Tensor) else torch.device("cpu")
+
+
+def _host(x) -> np.ndarray:
+    """``x`` as a host numpy array with its zeros where they were (bf16,
+    which numpy lacks, widened to float32)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+class LeastSquaresEstimator(OptimizableLabelEstimator):
+    """Auto-selecting least-squares solver (LeastSquaresEstimator.scala:26-87).
+
+    Candidates, in the reference's order: DenseLBFGS, Sparsify->SparseLBFGS
+    (gather, gram, and compressed-resident gram: the int16 + bf16 4 B/nnz
+    storage class of ``data/resident.py``), Densify->BlockLS(block_size,
+    block_iters), Densify->exact normal equations, the streaming tier
+    (StreamingLeastSquaresChoice: featurize inside the fit, bound to the
+    upstream featurizer by the optimizer's StreamedFitFusionRule), and, only
+    when ``allow_approximate``, the randomized tier:
+    Densify->SketchedLeastSquaresEstimator, Sparsify->SketchedLeastSquares
+    (SRHT) and Sparsify->IterativeHessianSketch. ``optimize`` measures
+    (n, d, k, sparsity) from the sample and picks the cost-model argmin
+    among candidates whose resident operands fit the device-memory budget
+    and whose dataset fits the host budget: past the device wall, the
+    streaming tier is the only candidate that can run at all. The decision
+    (candidates with cost, feasibility and resident bytes; winner; reason;
+    context) is kept as ``last_decision`` and logged.
+    """
+
+    def __init__(
+        self,
+        lam: float = 0.0,
+        num_machines: int = 1,
+        allow_approximate: bool = False,
+        hbm_bytes: Optional[float] = None,
+        host_budget_bytes: Optional[float] = None,
+        block_size: int = 1000,
+        block_iters: int = 3,
+    ):
+        from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+        from keystone_tpu_torch.ops.learning.lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
+        from keystone_tpu_torch.ops.learning.linear import (
+            LinearMapEstimator,
+            SketchedLeastSquaresEstimator,
+        )
+        from keystone_tpu_torch.ops.learning.streaming_ls import StreamingLeastSquaresChoice
+
+        self.lam = lam
+        self.num_machines = num_machines
+        self.hbm_bytes = hbm_bytes
+        self.host_budget_bytes = host_budget_bytes
+        self.last_decision: Optional[dict] = None
+
+        dense_lbfgs = DenseLBFGSwithL2(lam=lam, num_iterations=20)
+        sparse_lbfgs = SparseLBFGSwithL2(lam=lam, num_iterations=20)
+        # The gram engine: fold G once, iterate data-free.
+        sparse_gram = SparseLBFGSwithL2(lam=lam, num_iterations=20, solver="gram")
+        # The compressed-resident storage class: the same gram iterates over
+        # int16 + bf16 operands at 4 B/nnz, priced with the same cost model,
+        # so the capacity cut decides between it and the raw engine.
+        sparse_gram_compressed = SparseLBFGSwithL2(
+            lam=lam, num_iterations=20, solver="gram", compress="int16_bf16",
+        )
+        block = BlockLeastSquaresEstimator(block_size, block_iters, lam=lam)
+        exact = LinearMapEstimator(lam)
+        streaming = StreamingLeastSquaresChoice(
+            num_iter=block_iters, lam=lam, block_size_hint=max(block_size, 1024),
+        )
+        self._streaming_choice = streaming
+
+        self.options: Sequence[Tuple[object, LabelEstimator]] = [
+            (dense_lbfgs, dense_lbfgs),
+            (sparse_lbfgs, TransformerLabelEstimatorChain(Sparsify(), sparse_lbfgs)),
+            (sparse_gram, TransformerLabelEstimatorChain(Sparsify(), sparse_gram)),
+            # After the raw gram engine: equal cost when both fit (the first
+            # minimum wins), so compression engages only when raw residency
+            # is the binding constraint.
+            (sparse_gram_compressed,
+             TransformerLabelEstimatorChain(Sparsify(), sparse_gram_compressed)),
+            (block, TransformerLabelEstimatorChain(Densify(), block)),
+            (exact, TransformerLabelEstimatorChain(Densify(), exact)),
+            # Its own graph operator (no Densify chain): StreamedFitFusionRule
+            # must see it directly to bind the upstream featurizer; its fit
+            # densifies sparse input itself.
+            (streaming, streaming),
+        ]
+        if allow_approximate:
+            from keystone_tpu_torch.ops.learning.sketch import (
+                IterativeHessianSketch,
+                SketchedLeastSquares,
+            )
+
+            sketched = SketchedLeastSquaresEstimator(lam=lam)
+            srht = SketchedLeastSquares(lam=lam)
+            ihs = IterativeHessianSketch(lam=lam)
+            self.options = list(self.options) + [
+                (sketched, TransformerLabelEstimatorChain(Densify(), sketched)),
+                (srht, TransformerLabelEstimatorChain(Sparsify(), srht)),
+                (ihs, TransformerLabelEstimatorChain(Sparsify(), ihs)),
+            ]
+        self._default = dense_lbfgs
+
+    @property
+    def default(self) -> LabelEstimator:
+        return self._default
+
+    @property
+    def weight(self) -> int:
+        return self._default.weight
+
+    def _measure(self, sample: Dataset) -> Tuple[int, float]:
+        """(d, sparsity) of the sample, on the host. Sparsity is an exact
+        ratio of counts, as numpy's mean of a boolean array gives it: cost
+        ties are decided by first-minimum order, so it must not round
+        differently from the reference's."""
+        if is_sparse_dataset(sample):
+            indices = _host(sample.data["indices"])
+            # Prefer the true width threaded through by the sample
+            # collector (``total_d``): ``indices.max()+1`` over a few
+            # sampled rows undershoots whenever they miss the top ids.
+            measured_d = int(indices.max()) + 1
+            d = max(int(getattr(sample, "total_d", 0) or 0), measured_d)
+            # Active fraction over the sample's rows (padded-COO lanes of
+            # -1 are excluded by the mask).
+            return d, float((indices >= 0).sum() / (max(sample.n, 1) * d))
+        if sample.is_host:
+            X = np.stack([_host(x) for x in sample.to_list()])
+            return int(X.shape[-1]), float((X != 0).mean())
+        X = _host(sample.array)
+        # The sample's valid rows: n here is the full dataset's size.
+        return int(X.shape[-1]), float(np.mean(X[: sample.n] != 0))
+
+    def optimize(self, sample: Dataset, labels_sample: Dataset):
+        # total_n: the full dataset size attached by the sample collector;
+        # sample.n is just the handful of sampled rows.
+        n = getattr(sample, "total_n", sample.n)
+        d, sparsity = self._measure(sample)
+        k = int(labels_sample.array.shape[-1])
+        machines = self.num_machines
+
+        # The streaming tier keeps raw rows resident, not features; the
+        # density flag lets its capacity model default an unset raw width.
+        raw_row_bytes = getattr(sample, "source_row_bytes", None)
+        self._streaming_choice.raw_row_bytes = raw_row_bytes
+        self._streaming_choice.input_is_sparse = is_sparse_dataset(sample)
+
+        budget = (
+            self.hbm_bytes if self.hbm_bytes is not None
+            else device_memory_bytes(_sample_device(sample))
+        ) * DEFAULT_HBM_UTILIZATION
+        # An explicit host budget (constructor or env) is honored as it is;
+        # the utilization derate applies only to autodetected physical RAM.
+        env_budget = os.environ.get("KEYSTONE_HOST_BUDGET_BYTES")
+        if self.host_budget_bytes is not None:
+            host_budget = float(self.host_budget_bytes)
+        elif env_budget:
+            host_budget = float(env_budget)
+        else:
+            host_budget = host_memory_bytes() * DEFAULT_HOST_UTILIZATION
+        # The streaming tier's feature slab scales down with the budget so
+        # its capacity model and its actual tile sizing agree; the budget
+        # itself drives its gram-vs-block tier decision.
+        self._streaming_choice.slab_bytes = int(min(2 << 30, budget // 4))
+        self._streaming_choice.budget_bytes = budget
+
+        # What every candidate needs host-side before any device placement:
+        # the raw dataset plus labels, resident once.
+        host_resident = n * (raw_row_bytes if raw_row_bytes else 4.0 * d) + 4.0 * n * k
+        host_ok = host_resident <= host_budget
+
+        def resident(opt) -> float:
+            rb = getattr(opt[0], "resident_bytes", None)
+            return 0.0 if rb is None else rb(n, d, k, sparsity, machines)
+
+        def total_cost(opt) -> float:
+            # Resident operands past the device budget, or a dataset past
+            # the host budget, cost infinity: they would run out of memory.
+            if not host_ok or resident(opt) > budget:
+                return float("inf")
+            return opt[0].cost(
+                n, d, k, sparsity, machines,
+                EC2_CPU_WEIGHT, EC2_MEM_WEIGHT, EC2_NETWORK_WEIGHT,
+            )
+
+        costs = [total_cost(opt) for opt in self.options]
+        candidates = [
+            {
+                "label": candidate_label(o[0]),
+                "cost_s": None if c == float("inf") else float(c),
+                "feasible": c != float("inf"),
+                "resident_bytes": float(resident(o)),
+                "host_ok": host_ok,
+            }
+            for o, c in zip(self.options, costs)
+        ]
+        index, reason = _decide(costs, [c["resident_bytes"] for c in candidates])
+        chosen = self.options[index]
+        self.last_decision = {
+            "decision": "least_squares_solver",
+            "winner": candidate_label(chosen[0]),
+            "candidates": candidates,
+            "reason": reason,
+            "context": {
+                "n": int(n), "d": int(d), "k": int(k),
+                "sparsity": float(sparsity), "machines": int(machines),
+                "hbm_budget_bytes": float(budget),
+                "host_budget_bytes": float(host_budget),
+                "weights": {
+                    "cpu": EC2_CPU_WEIGHT, "mem": EC2_MEM_WEIGHT,
+                    "network": EC2_NETWORK_WEIGHT, "family": "ec2",
+                },
+            },
+        }
+        if reason == "least_resident_fallback":
+            # Nothing fits the budget model: the least-resident candidate
+            # (in practice the streaming tier) beats a guaranteed OOM.
+            logger.warning(
+                "no solver candidate fits the %.2f GB budget at n=%d d=%d; "
+                "selecting least-resident %s",
+                budget / 2**30, n, d, type(chosen[0]).__name__,
+            )
+        logger.info("LeastSquaresEstimator decision: %s", self.last_decision)
+        return chosen[1]

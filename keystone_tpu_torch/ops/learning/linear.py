@@ -8,7 +8,9 @@ LocalLeastSquaresEstimator.scala): :class:`LinearMapper` and
 L-BFGS and sketched fits return; :class:`LocalLeastSquaresEstimator`
 (numpy ``lstsq`` in float64 on the host) and
 :class:`SketchedLeastSquaresEstimator` (dense CountSketch sketch-and-solve
-plus guarded refinement).
+plus guarded refinement). The exact and sketched estimators carry the
+analytic ``cost`` and ``resident_bytes`` models the solver selector
+(``cost.py``) prices them by.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops.learning.cost import CostModel
 from keystone_tpu_torch.ops.stats import StandardScaler, StandardScalerModel
 from keystone_tpu_torch.parallel import linalg
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
@@ -84,7 +87,7 @@ class SparseLinearMapper(Transformer):
         return data.map_batch(self.apply)
 
 
-class LinearMapEstimator(LabelEstimator):
+class LinearMapEstimator(LabelEstimator, CostModel):
     """Exact OLS/ridge via the normal equations
     (reference: LinearMapper.scala:64-98): mean-center features and labels,
     solve (AᵀA + λI) X = AᵀB, keep the label mean as intercept."""
@@ -118,6 +121,24 @@ class LinearMapEstimator(LabelEstimator):
         x = linalg.normal_equations_solve(A, B, self.lam or 0.0)
         return LinearMapper(x, b_opt=label_scaler.mean, feature_scaler=feature_scaler)
 
+    def cost(
+        self, n, d, k, sparsity, num_machines, cpu_weight, mem_weight, network_weight
+    ) -> float:
+        """Analytic cost model (LinearMapper.scala:100-115)."""
+        flops = n * d * (d + k) / num_machines
+        bytes_scanned = n * d / num_machines + d * d
+        network = d * (d + k)
+        return max(cpu_weight * flops, mem_weight * bytes_scanned) + network_weight * network
+
+    def resident_bytes(self, n, d, k, sparsity, num_machines) -> float:
+        """Capacity model: the matrix plus its centered copy (f32), labels,
+        and the Gramian with its Cholesky factor."""
+        return (
+            8.0 * n * d / num_machines
+            + 8.0 * n * k / num_machines
+            + 8.0 * d * d
+        )
+
 
 class LocalLeastSquaresEstimator(LabelEstimator):
     """Collect-to-host exact least squares via LAPACK ``lstsq``
@@ -150,7 +171,7 @@ class LocalLeastSquaresEstimator(LabelEstimator):
                             feature_scaler=StandardScalerModel(back(a_mean)))
 
 
-class SketchedLeastSquaresEstimator(LabelEstimator):
+class SketchedLeastSquaresEstimator(LabelEstimator, CostModel):
     """Randomized (sketch-and-solve) least squares with optional iterative
     Hessian-sketch refinement (Drineas et al., "Faster Least Squares
     Approximation"; Pilanci & Wainwright).

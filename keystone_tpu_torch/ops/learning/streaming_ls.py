@@ -17,19 +17,24 @@ Default semantics match ``BlockLeastSquaresEstimator``
 correction, not a second data pass) and the model carries the intercept.
 ``center=False`` gives the raw-BCD semantics instead.
 
-Not ported yet: the cost-model side of the choice (``cost``,
-``resident_bytes`` and the budget fields the ``cost.py`` selector sets,
-which pick between the gram tier and the block-streamed tier) comes with
-that selector (ROADMAP A.5b); until then
-``build_estimator`` always builds the gram tier. The block-streamed tier
-itself (``BlockStreamedLeastSquares``, a mesh program) waits for A.15, the
-shard-backed disk tier (``fit_source``, which raises
-``NotImplementedError``) for A.13, and the cost-decision audit
+``StreamingLeastSquaresChoice`` carries the reference's cost side: the
+analytic ``cost``, the capacity model ``resident_bytes`` and the budget
+fields that the ``cost.py`` selector sets before pricing it, which also
+decide its tier (``_gram_tier_ok``): the gram tier whenever the (d, d)
+Gramian and one feature slab fit the device budget.
+
+Not ported yet: the block-streamed tier that ``build_estimator`` picks for
+a cosine bank whose Gramian does not fit (``BlockStreamedLeastSquares``, a
+mesh program; it raises ``NotImplementedError`` naming ROADMAP A.15, its
+capacity model is priced all the same), the shard-backed disk tier
+(``fit_source``, which raises ``NotImplementedError``, and the disk branch
+of ``resident_bytes``) for A.13, and the cost-decision audit
 (``obs.record_cost_decision``) for the control plane (A.17).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Optional
 
 import torch
@@ -37,9 +42,13 @@ import torch
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
+from keystone_tpu_torch.ops.learning.cost import CostModel
+from keystone_tpu_torch.ops.sparse import Densify, is_sparse_dataset
 from keystone_tpu_torch.parallel import streaming
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 from keystone_tpu_torch.workflow.fusion import DeviceFit
+
+logger = logging.getLogger("keystone_tpu_torch.streaming")
 
 
 class StreamingFeaturizedLinearModel(Transformer):
@@ -128,7 +137,7 @@ class StreamingFeaturizedLeastSquares(LabelEstimator):
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
-        self.tile_rows = tile_rows or streaming.pick_tile_rows(d_feat)
+        self.tile_rows = tile_rows or streaming.pick_tile_rows(d_feat, 4)
         self.center = center
 
     @property
@@ -269,8 +278,9 @@ def _extract_bank(members) -> Optional[CosineBankFeaturize]:
     return None
 
 
-class StreamingLeastSquaresChoice(LabelEstimator):
-    """The cost model's streaming-tier selection.
+class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
+    """The cost model's streaming-tier selection for
+    :class:`~keystone_tpu_torch.ops.learning.cost.LeastSquaresEstimator`.
 
     When the resident solvers' operands exceed device memory, the cost
     model returns this choice; the optimizer's StreamedFitFusionRule then
@@ -279,9 +289,18 @@ class StreamingLeastSquaresChoice(LabelEstimator):
     centered BCD (BlockLeastSquaresEstimator semantics). Fitting it
     directly (no fusable upstream) tile-streams the already-resident
     features through the same solver: correct, but without the memory win.
+
+    Cost model: one streamed data pass building the normal equations (the
+    exact solver's n·d·(d+k) flops, LinearMapper.scala:100-115) plus
+    ``num_iter`` Gramian-space epochs, at a streaming overhead factor, so
+    resident solvers win whenever they fit.
     """
 
     streamed_fit_fusable = True
+    # Streamed fits pay the full normal-equations product plus per-tile
+    # featurize regeneration: the reference's bias toward resident solvers
+    # whenever the analytic models land close.
+    _STREAM_OVERHEAD = 2.0
 
     def __init__(
         self,
@@ -294,6 +313,22 @@ class StreamingLeastSquaresChoice(LabelEstimator):
         self.lam = lam
         self.block_size_hint = block_size_hint
         self.center = center
+        # Set by the owning LeastSquaresEstimator before cost evaluation:
+        # bytes per raw input row (the streamed fit keeps raw rows, not
+        # features, resident).
+        self.raw_row_bytes: Optional[float] = None
+        # Density of the raw input (set by the owner): decides how an unset
+        # raw_row_bytes defaults in resident_bytes. None (no owner) is
+        # treated as dense, the conservative direction for a feasibility cut.
+        self.input_is_sparse: Optional[bool] = None
+        # Feature-slab budget for the tile scan; the owner shrinks it when
+        # the device budget is small so that the capacity model and the
+        # actual fit agree on the working set.
+        self.slab_bytes: int = 2 << 30
+        # Device-memory budget (set by the owner): decides the tier, gram
+        # (one data pass, needs an 8d² Gramian + factor stash) or block
+        # streamed (per-block Gramians only) where 8d² itself exceeds it.
+        self.budget_bytes: Optional[float] = None
 
     @property
     def label(self) -> str:
@@ -303,13 +338,58 @@ class StreamingLeastSquaresChoice(LabelEstimator):
     def weight(self) -> int:
         return self.num_iter + 1
 
+    def _slab(self, d_feat: int) -> float:
+        """Bytes of one float32 feature slab of the tile scan."""
+        return min(
+            streaming.pick_tile_rows(d_feat, 4, slab_bytes=self.slab_bytes) * d_feat * 4.0,
+            float(self.slab_bytes),
+        )
+
+    def _gram_tier_ok(self, d_feat: int) -> bool:
+        """The d-only discriminator shared by the capacity model and
+        build_estimator: the gram tier needs its (d, d) Gramian + factor
+        stash resident."""
+        if self.budget_bytes is None:
+            return True
+        return 8.0 * d_feat * d_feat + self._slab(d_feat) <= self.budget_bytes
+
+    def _block_tier_bs(self, d_feat: int) -> int:
+        """Block size for the block-streamed tier: the hint, shrunk until
+        the per-block Gramian/factor stash (8·d·bs bytes) fits a quarter of
+        the budget."""
+        hint = self.block_size_hint
+        if self.budget_bytes is not None:
+            cap = max(int(self.budget_bytes / (32.0 * d_feat)), 1)
+            hint = min(hint, cap)
+        return pick_block_size(d_feat, hint)
+
     def build_estimator(self, featurize, d_feat: int) -> StreamingFeaturizedLeastSquares:
-        """The gram tier, with float32 feature tiles of a 2 GiB slab. (The
-        reference audits this decision, ``obs.record_cost_decision``; the
-        obs plane comes with the control plane, ROADMAP A.17.)"""
+        """The gram tier, with float32 feature tiles sized to ``slab_bytes``,
+        where its Gramian fits the budget. (The reference audits this
+        decision, ``obs.record_cost_decision``; the obs plane comes with the
+        control plane, ROADMAP A.17.)"""
+        if not self._gram_tier_ok(d_feat):
+            if isinstance(featurize, CosineBankFeaturize):
+                raise NotImplementedError(
+                    f"d_feat={d_feat}: the (d, d) Gramian exceeds the device budget "
+                    f"({self.budget_bytes:.3g} B), which selects the block-streamed "
+                    "tier (BlockStreamedLeastSquares); it is not ported yet: it comes "
+                    "with the mesh programs, ROADMAP A.15"
+                )
+            # The capacity model assumed the block tier (no d² term), but
+            # only bank featurizers can drive per-block slices. Best effort,
+            # as the reference: run the gram tier anyway (it may exceed the
+            # budget) rather than fail a fit the selector already committed to.
+            logger.warning(
+                "d_feat=%d: (d, d) Gramian exceeds the device budget and the "
+                "block-streamed tier needs a cosine bank featurizer (got %s); "
+                "falling back to the gram tier: the fit may not fit device memory",
+                d_feat, type(featurize).__name__,
+            )
         return StreamingFeaturizedLeastSquares(
             featurize, d_feat=d_feat, block_size=pick_block_size(d_feat, self.block_size_hint),
             num_iter=self.num_iter, lam=self.lam, center=self.center,
+            tile_rows=streaming.pick_tile_rows(d_feat, 4, slab_bytes=self.slab_bytes),
         )
 
     def fuse_with_members(self, members) -> "StreamedFitEstimator":
@@ -323,8 +403,53 @@ class StreamingLeastSquaresChoice(LabelEstimator):
         )
 
     def fit(self, data: Dataset, labels: Dataset):
+        if is_sparse_dataset(data):
+            data = Densify().batch_apply(data)
         d_feat = int(as_tensor(data.array).shape[-1])
         return self.build_estimator(_identity_featurize, d_feat).fit(data, labels)
+
+    def cost(
+        self, n, d, k, sparsity, num_machines, cpu_weight, mem_weight, network_weight,
+    ) -> float:
+        flops = (n * d * (d + k) + self.num_iter * d * d * k) / num_machines
+        bytes_scanned = n * d / num_machines + 2.0 * d * d
+        network = d * (d + k)  # the single (G, FY) reduction
+        return (
+            self._STREAM_OVERHEAD
+            * max(cpu_weight * flops, mem_weight * bytes_scanned)
+            + network_weight * network
+        )
+
+    def resident_bytes(self, n, d, k, sparsity, num_machines) -> float:
+        """Capacity model of whichever tier ``build_estimator`` would pick at
+        this d (the shared ``_gram_tier_ok`` discriminator keeps the two
+        consistent). Gram tier: raw rows + labels + the (d, d)
+        Gramian/factor stash + one feature slab. Block tier: raw rows +
+        labels + residual + per-block Gramian/factor stash + one block slab
+        + the bank, no d² term."""
+        raw = self.raw_row_bytes
+        if self.input_is_sparse or not raw:
+            # Sparse input is densified before the tile scan, so its
+            # resident operand is 4d bytes a row whatever the COO width; an
+            # unknown raw width on dense input is the full float32 row.
+            raw = 4.0 * d
+        common = n * raw / num_machines + 4.0 * n * k / num_machines
+        if self._gram_tier_ok(d):
+            bs = min(self.block_size_hint, d)
+            return (
+                common
+                + 8.0 * d * d      # G + diagonal-block Cholesky stash
+                + 8.0 * d * bs     # diag/chol block stacks in the solve
+                + self._slab(d)
+            )
+        bs_b = self._block_tier_bs(d)
+        return (
+            common
+            + 4.0 * n * k / num_machines       # residual R alongside Y
+            + 8.0 * d * bs_b                   # per-block Gramian + factor stash
+            + 4.0 * (n / num_machines) * bs_b  # one block slab
+            + d * raw                          # bank rows ~ raw row width
+        )
 
 
 class StreamedFitEstimator(LabelEstimator):

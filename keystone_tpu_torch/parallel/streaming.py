@@ -69,10 +69,12 @@ _SLAB_BYTES = 2 << 30
 _ROW_ALIGN = 512
 
 
-def pick_tile_rows(d_feat: int) -> int:
-    """Largest _ROW_ALIGN-multiple tile whose float32 feature slab fits the
-    budget (the reference's ``pick_tile_rows(d_feat, 4)``)."""
-    rows = max(_SLAB_BYTES // max(d_feat * 4, 1), _ROW_ALIGN)
+def pick_tile_rows(d_feat: int, feat_itemsize: int = 2, slab_bytes: int = _SLAB_BYTES) -> int:
+    """Largest _ROW_ALIGN-multiple tile whose feature slab (``feat_itemsize``
+    bytes an element) fits ``slab_bytes``. The default itemsize is the
+    reference's (bf16 tiles); the port's streamed tier makes float32 tiles,
+    so its callers pass 4."""
+    rows = max(slab_bytes // max(d_feat * feat_itemsize, 1), _ROW_ALIGN)
     return max((rows // _ROW_ALIGN) * _ROW_ALIGN, _ROW_ALIGN)
 
 

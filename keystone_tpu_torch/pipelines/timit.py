@@ -1,9 +1,20 @@
 """TimitPipeline: cosine random features + block least squares on TIMIT
 (reference: pipelines/speech/TimitPipeline.scala:37-130).
 
-Port of ``keystone_tpu/pipelines/timit.py``, ``--solver block`` and
-``--solver streaming``:
+Port of ``keystone_tpu/pipelines/timit.py``, with its three solvers:
 
+  - ``auto`` (the default, as in the reference): gather(numCosines ×
+    CosineRandomFeatures) → VectorCombiner →
+    ``cost.LeastSquaresEstimator(λ, blockSize, numEpochs)`` →
+    MaxClassifier. The optimizer's NodeOptimizationRule measures a few
+    featurized rows and the full row count, and swaps in the cheapest
+    candidate whose resident operands fit the device's memory: at
+    resident sizes ``Densify`` → BlockLeastSquares (the block chain, fitted
+    on the materialized features by the stacked BCD), past the memory wall
+    the streaming choice, which StreamedFitFusionRule then binds to the
+    cosine featurizer, so the fit makes its features one row tile at a
+    time, with no flag (LeastSquaresEstimator.scala:59-84). The selector's
+    decision is in ``TimitRun.selector.last_decision``;
   - ``block``: gather(numCosines × CosineRandomFeatures(440→blockSize, γ,
     gaussian|cauchy)) → VectorCombiner → BlockLeastSquares(blockSize,
     numEpochs, λ) → MaxClassifier;
@@ -14,12 +25,9 @@ Port of ``keystone_tpu/pipelines/timit.py``, ``--solver block`` and
     normal equations through the ``gram_sym_acc`` kernel; the applies
     featurize tile-wise too, so the (n, d) feature matrix never exists.
 
-Differences from the reference: the default solver is ``block``, because
-``auto`` (the cost-model selector, ``cost.py::LeastSquaresEstimator``)
-raises NotImplementedError until the slice that brings it, and :func:`run`
-fits the pipeline explicitly before applying it, so that it can report
-fit and apply wall times apart (``fit_first=False`` keeps the reference's
-order).
+Difference from the reference: :func:`run` fits the pipeline explicitly
+before applying it, so that it can report fit and apply wall times apart
+(``fit_first=False`` keeps the reference's order).
 
 ``--solver streaming`` takes the same route in either call order: its
 pipeline has no featurizer node for CSE to merge. For ``--solver block``
@@ -62,6 +70,7 @@ from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data.loaders import TimitFeaturesDataLoader, synthetic_timit
 from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator, MulticlassMetrics
 from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+from keystone_tpu_torch.ops.learning.cost import LeastSquaresEstimator
 from keystone_tpu_torch.ops.learning.streaming_ls import (
     CosineBankFeaturize,
     StreamingFeaturizedLeastSquares,
@@ -95,7 +104,7 @@ class TimitConfig:
     lam: float = 0.0
     seed: int = 123
     synthetic_n: int = 4096
-    solver: str = "block"
+    solver: str = "auto"
     # Back-compat alias: streaming=True == solver="streaming".
     streaming: bool = False
 
@@ -103,8 +112,9 @@ class TimitConfig:
 @dataclass
 class TimitRun:
     """What :func:`run` returns: the pipeline, its fitted form, the train and
-    test metrics, and the fit and apply wall seconds (each ending in a
-    device synchronize)."""
+    test metrics, the fit and apply wall seconds (each ending in a device
+    synchronize) and, for ``--solver auto``, the solver selector (its
+    ``last_decision`` holds the candidates it priced and its choice)."""
 
     pipeline: Pipeline
     fitted: FittedPipeline
@@ -112,6 +122,7 @@ class TimitRun:
     test_eval: MulticlassMetrics
     fit_seconds: float
     apply_seconds: float
+    selector: Optional[LeastSquaresEstimator] = None
 
 
 def _cosine_models(config: TimitConfig, device) -> List[CosineRandomFeaturesModel]:
@@ -157,19 +168,15 @@ def run(
     replaces the featurizer's seeded draws.
 
     ``fit_first`` (the default) fits with ``pipeline.fit()`` and then applies
-    the fitted pipeline: the fused flat route. ``fit_first=False`` applies
-    the unfitted pipeline to the training rows, which fits it on first use,
-    as the reference's ``run`` does: the stacked route. Its ``fit_seconds``
-    then covers the fit and the training rows' apply, and ``apply_seconds``
-    the test rows' apply. ``--solver streaming`` takes the same route in
-    either order."""
+    the fitted pipeline: for ``--solver block`` the fused flat route.
+    ``fit_first=False`` applies the unfitted pipeline to the training rows,
+    which fits it on first use, as the reference's ``run`` does: the stacked
+    route. Its ``fit_seconds`` then covers the fit and the training rows'
+    apply, and ``apply_seconds`` the test rows' apply. ``--solver
+    streaming`` takes the same route in either order, and so does each of
+    ``--solver auto``'s choices (the block chain is never fused; the
+    streaming choice is bound to the featurizer either way)."""
     solver = "streaming" if config.streaming else config.solver
-    if solver == "auto":
-        raise NotImplementedError(
-            "--solver auto (the cost-model selector) is not ported yet: it "
-            "comes with the cost model, ROADMAP A.5b. Use --solver block or "
-            "streaming."
-        )
     device = resolve_device(device)
     start = time.perf_counter()
     if config.train_data_location:
@@ -199,6 +206,7 @@ def run(
                 cosine_models = cosine_models[:max_branches]
 
     labels = ClassLabelIndicatorsFromIntLabels(NUM_CLASSES)(train.labels)
+    selector = None
     if solver == "streaming":
         rfs = cosine_models if cosine_models is not None else _cosine_models(config, device)
         bank = CosineBankFeaturize(
@@ -209,6 +217,16 @@ def run(
             block_size=config.block_size, num_iter=config.num_epochs, lam=config.lam,
         )
         pipeline = est.with_data(train.data, labels).and_then(MaxClassifier())
+    elif solver == "auto":
+        # The cost model picks the solver: at resident sizes the block
+        # chain, past the device-memory wall the streaming choice, which the
+        # optimizer fuses with the cosine featurizer (no flag).
+        selector = LeastSquaresEstimator(
+            lam=config.lam, block_size=config.block_size, block_iters=config.num_epochs,
+        )
+        pipeline = build_featurizer(config, device, cosine_models).and_then(
+            selector, train.data, labels,
+        ).and_then(MaxClassifier())
     else:
         pipeline = build_featurizer(config, device, cosine_models).and_then(
             BlockLeastSquaresEstimator(config.block_size, config.num_epochs, config.lam),
@@ -255,7 +273,8 @@ def run(
             "Peak allocated device memory %.2f GiB (since the process started or "
             "its last reset)", torch.cuda.max_memory_allocated(device) / 2**30,
         )
-    return TimitRun(pipeline, fitted, train_eval, test_eval, fit_seconds, apply_seconds)
+    return TimitRun(pipeline, fitted, train_eval, test_eval, fit_seconds, apply_seconds,
+                    selector)
 
 
 def main(argv=None):
@@ -279,10 +298,10 @@ def main(argv=None):
         help="force the out-of-core fit (equivalent to --solver streaming)",
     )
     parser.add_argument(
-        "--solver", default="block", choices=["auto", "block", "streaming"],
-        help="block = reference-literal BlockLeastSquares; streaming = the "
-        "out-of-core tile-streamed fit; auto (the cost-model selector) is not "
-        "ported yet",
+        "--solver", default="auto", choices=["auto", "block", "streaming"],
+        help="auto = cost-model selection with a device-memory feasibility cut "
+        "(default); block = reference-literal BlockLeastSquares; streaming = the "
+        "out-of-core tile-streamed fit",
     )
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device; pass cpu explicitly)")

@@ -2,9 +2,10 @@
 
 Port of ``keystone_tpu/run.py``. Ported so far:
 
-  - TimitPipeline, with ``--solver block`` (the resident block solver, the
-    default) and ``--solver streaming`` (the out-of-core tile-streamed
-    fit); ``--solver auto`` is not ported yet;
+  - TimitPipeline, with ``--solver auto`` (the cost-model selector, the
+    default: the block chain at resident sizes, the streamed fit past the
+    device's memory), ``--solver block`` (the resident block solver) and
+    ``--solver streaming`` (the out-of-core tile-streamed fit);
   - RandomPatchCifarKernel (the CIFAR random-patch featurizer and Gaussian
     kernel ridge regression), with the reference's flags plus
     ``--syntheticN`` (training images of the synthetic data), e.g.

@@ -8,15 +8,21 @@ counterpart:
   - EquivalentNodeMergeRule  (reference: workflow/EquivalentNodeMergeRule.scala:13-47)
   - NodeOptimizationRule     (reference: workflow/NodeOptimizationRule.scala:143-198)
 
-The sample collector keeps the reference's row sampling and its
-``total_n`` annotation (the full row count the cost models price); the
-raw-row-size, sparse-width and disk-shard annotations arrive with the
-slices that port the estimators that read them.
+The sample collector keeps the reference's row sampling and its capacity
+annotations, carried through derived datasets: ``total_n`` (the full row
+count the cost models price), ``source_row_bytes`` (bytes a raw source row,
+which the streaming tier keeps resident) and ``total_d`` (a sparse sample's
+true feature width). The port has no shard-backed sources, so the
+reference's disk-tier facts (``shard_backed``, ``shard_segment_bytes``)
+are not collected; they come with the data plane (ROADMAP A.13).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Set
+
+import numpy as np
+import torch
 
 from . import analysis
 from .env import PipelineEnv, Prefix
@@ -182,13 +188,61 @@ class NodeOptimizationRule(Rule):
         return graph, prefixes
 
 
+def _leaf_row_bytes(x) -> int:
+    """Bytes a row of one array leaf (numpy or torch)."""
+    itemsize = x.element_size() if isinstance(x, torch.Tensor) else x.dtype.itemsize
+    return int(np.prod(x.shape[1:])) * itemsize
+
+
+def _attach_sparse_width(op, value, dep_values) -> None:
+    """Thread the true feature width onto a derived sparse sample.
+
+    ``optimize()`` measures d as ``indices.max()+1`` over the sampled rows,
+    which undershoots whenever the handful of samples misses the top
+    feature ids. The width is knowable without sampling in every real
+    producer: a vectorizer declares it (``sparse_output_dim``), whether
+    chained directly or applied as a fitted transformer riding in the dep
+    values; a Sparsify-style node's dense input carries it as the dense
+    shape; and a width-preserving transform inherits its sparse input's.
+    Attach it as ``total_d`` so the cost model prices resident_bytes at the
+    true width.
+    """
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.data.dataset import tree_leaves
+    from keystone_tpu_torch.ops.sparse import is_sparse_dataset
+
+    if not is_sparse_dataset(value):
+        return
+    # The declaring operator is the node's own op, or (the fit-then-apply
+    # route) a fitted transformer among the dep values.
+    for declarer in [op] + [v for v in dep_values if not isinstance(v, Dataset)]:
+        declared = getattr(declarer, "sparse_output_dim", None)
+        if callable(declared):
+            declared = declared()
+        if declared:
+            value.total_d = int(declared)
+            return
+    for v in (v for v in dep_values if isinstance(v, Dataset)):
+        if is_sparse_dataset(v):
+            inherited = getattr(v, "total_d", None)
+            if inherited:
+                value.total_d = int(inherited)
+                return
+        elif not v.is_host:
+            leaves = tree_leaves(v.data)
+            if len(leaves) == 1 and getattr(leaves[0], "ndim", 0) >= 2:
+                value.total_d = int(leaves[0].shape[-1])
+                return
+
+
 def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
     """Execute ancestor chains of the target nodes with row-sampled datasets.
 
     Returns {node: tuple(sampled dep values)}.
     """
     from keystone_tpu_torch.data import Dataset
-    from keystone_tpu_torch.data.dataset import tree_map
+    from keystone_tpu_torch.data.dataset import as_tensor, tree_leaves, tree_map
+    from keystone_tpu_torch.ops.sparse import is_sparse_dataset
 
     from .operators import (
         DatasetExpression,
@@ -197,6 +251,19 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
         TransformerExpression,
         TransformerOperator,
     )
+
+    def row_bytes(ds: Dataset):
+        """Bytes a row of the raw source (the streaming tier's capacity
+        model keeps raw rows resident, not features)."""
+        if ds.is_host:
+            items = ds.to_list()
+            if not items:
+                return None
+            item = items[0]
+            if isinstance(item, torch.Tensor):
+                return float(item.numel() * item.element_size())
+            return float(np.asarray(item).nbytes)
+        return float(sum(_leaf_row_bytes(x) for x in tree_leaves(ds.data)))
 
     def sample_dataset(ds: Dataset) -> Dataset:
         k = min(ds.n, samples_per_shard)
@@ -208,6 +275,15 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
         # numPerPartition, LeastSquaresEstimator.scala:60-64); the sample only
         # supplies d, k, and sparsity.
         out.total_n = ds.n
+        out.source_row_bytes = row_bytes(ds)
+        if is_sparse_dataset(ds):
+            # The true feature width, measured over the full index array:
+            # ``indices.max()+1`` over a handful of sampled rows can
+            # undershoot it by orders of magnitude, mis-pricing every
+            # sparse candidate's resident_bytes downstream (cost.py).
+            indices = as_tensor(ds.data["indices"])
+            if indices.numel():
+                out.total_d = int(indices.max()) + 1
         return out
 
     memo: Dict[NodeId, object] = {}
@@ -222,7 +298,8 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
         else:
             value = op.execute([_wrap(d) for d in deps]).get()
             # Operators derive NEW Datasets, losing the sample metadata:
-            # re-attach it so a chained optimizable node sees the full n.
+            # re-attach it so a chained optimizable node sees the full n
+            # and the raw source's row width.
             if isinstance(value, Dataset):
                 dep_ds = [v for v in deps if isinstance(v, Dataset)]
                 totals = [
@@ -231,6 +308,13 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
                 ]
                 if totals:
                     value.total_n = max(totals)
+                raws = [
+                    v.source_row_bytes for v in dep_ds
+                    if getattr(v, "source_row_bytes", None) is not None
+                ]
+                if raws:
+                    value.source_row_bytes = max(raws)
+                _attach_sparse_width(op, value, deps)
         memo[gid] = value
         return value
 

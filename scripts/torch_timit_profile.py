@@ -48,8 +48,8 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    config = timit.TimitConfig(num_cosines=4, block_size=4096, synthetic_n=65536,
-                               num_epochs=3)
+    config = timit.TimitConfig(solver="block", num_cosines=4, block_size=4096,
+                               synthetic_n=65536, num_epochs=3)
 
     def one_run():
         PipelineEnv.get_or_create().reset()

@@ -370,8 +370,8 @@ class TestFusedFitContract:
         assert torch.equal(mixed.device_fn()(X), torch.cat([want[:, :32], X], dim=1))
 
     def test_fitted_timit_pipeline_save_load(self, tmp_path):
-        config = t_timit.TimitConfig(num_cosines=2, block_size=64, synthetic_n=256,
-                                     num_epochs=2)
+        config = t_timit.TimitConfig(solver="block", num_cosines=2, block_size=64,
+                                     synthetic_n=256, num_epochs=2)
         result = t_timit.run(config, device="cpu")
         ops = result.fitted.transformer_graph.operators.values()
         assert any(isinstance(op, tfusion.FusedGatherTransformer) for op in ops)

@@ -336,6 +336,9 @@ class TestContract:
     def test_gather_overhead_is_the_reference_ec2_value_never_the_tpu_one(self, monkeypatch):
         from keystone_tpu.ops.learning import cost as jcost
 
+        from keystone_tpu_torch.ops.learning import cost as tcost
+
         monkeypatch.delenv("KEYSTONE_COST_WEIGHTS", raising=False)
-        assert tl._sparse_gather_overhead() == jcost.EC2_SPARSE_GATHER_OVERHEAD
-        assert tl._sparse_gather_overhead() != jcost.TPU_SPARSE_GATHER_OVERHEAD
+        overhead = tl.SparseLBFGSwithL2()._sparse_overhead
+        assert overhead == tcost.EC2_SPARSE_GATHER_OVERHEAD == jcost.EC2_SPARSE_GATHER_OVERHEAD
+        assert overhead != jcost.TPU_SPARSE_GATHER_OVERHEAD

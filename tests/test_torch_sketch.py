@@ -604,9 +604,10 @@ class TestCostModel:
     def test_private_overheads_are_the_ec2_constants(self):
         from keystone_tpu.ops.learning import cost as jcost
 
-        assert tsk._EC2_SRHT_SKETCH_OVERHEAD == jcost.EC2_SRHT_SKETCH_OVERHEAD
-        assert tsk._EC2_COUNTSKETCH_OVERHEAD == jcost.EC2_COUNTSKETCH_OVERHEAD
+        assert tsk.SketchedLeastSquares()._sketch_overhead == jcost.EC2_SRHT_SKETCH_OVERHEAD
+        assert tsk.IterativeHessianSketch()._cs_overhead == jcost.EC2_COUNTSKETCH_OVERHEAD
         assert tsk.SketchedLeastSquares()._gather_overhead == jcost.EC2_SPARSE_GATHER_OVERHEAD
+        assert tsk.IterativeHessianSketch()._gather_overhead == jcost.EC2_SPARSE_GATHER_OVERHEAD
         assert tsk.IterativeHessianSketch().weight == jsk.IterativeHessianSketch().weight
 
 

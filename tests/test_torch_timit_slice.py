@@ -104,7 +104,8 @@ def _run_both(rf_type):
     JPipelineEnv.get_or_create().reset()
 
     TPipelineEnv.get_or_create().reset()
-    result = t_timit.run(t_timit.TimitConfig(**config), device="cpu", cosine_models=models)
+    result = t_timit.run(t_timit.TimitConfig(solver="block", **config), device="cpu",
+                         cosine_models=models)
     t_mapper = _mapper(result.fitted, TBlockLinearMapper)
     t_test_data = t_synthetic_timit(max(j_cfg.synthetic_n // 4, 256), seed=j_cfg.seed + 1,
                                     device="cpu")
@@ -355,9 +356,19 @@ class TestPortPipelineBehaviour:
         assert not torch.equal(a.W, c.W)
 
     @pytest.mark.parametrize("solver", ["auto"])
-    def test_unported_solvers_name_their_slice(self, solver):
-        with pytest.raises(NotImplementedError, match="A.5b"):
-            t_timit.run(t_timit.TimitConfig(solver=solver, **SLICE), device="cpu")
+    def test_unported_solvers_name_their_slice(self, solver, monkeypatch):
+        # --solver auto, once unported, is now held against the reference at
+        # the slice's size on the CPU's default 16 GiB budget (EC2 weights,
+        # one machine): the same chain, weights within the module's 1e-4.
+        from tests.test_torch_cost import run_auto_both, weights_of
+
+        monkeypatch.setenv("KEYSTONE_COST_WEIGHTS", "ec2")
+        monkeypatch.delenv("KEYSTONE_HOST_BUDGET_BYTES", raising=False)
+        run = run_auto_both(monkeypatch, 16 << 30, config=dict(SLICE, lam=1e-3))
+        route, t_W, j_W = weights_of(run)
+        assert solver == "auto" and route.endswith("chain"), run["decision"]
+        assert np.linalg.norm(t_W - j_W) / np.linalg.norm(j_W) <= 1e-4
+        assert np.mean(run["t_pred"] == run["j_pred"]) >= 0.995
 
     def test_interop_builds_the_block_mapper(self):
         rng = np.random.default_rng(8)
