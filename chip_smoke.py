@@ -127,6 +127,34 @@ per source, all started together), then:
          cosine bank, with ``gram_sym_acc`` launched once a tile (40), and
          its model (``W_stack``, ``fmean``, ``ymean``) that of
          ``--solver streaming`` on the same rows and draws (1e-5 relative).
+ 12. drives TIMIT ``--solver auto`` at the reference's default width (50
+     cosine branches: d = 204,800), past both walls, where the selector
+     takes the block-streamed tier (``BlockStreamedLeastSquares`` on
+     ``streaming_block_bcd_mesh``, one device):
+       - (a) the block program and the estimator small on the card against
+         their plain runs on the CPU: float32 and bf16 features, centred
+         and raw, ragged rows (weights within 1e-4, bf16 5e-3);
+       - (b) ``BlockStreamedLeastSquares`` on phase 2's rows and draws
+         (65,536 rows, d = 16,384, block 4,096, 3 epochs, λ 0) held
+         against phase 2's ``--solver block`` apply-first model (weights
+         and affine offset within 1e-4 relative: the same centred BCD
+         iterates, centred by a rank-1 correction instead of explicitly);
+         then the bf16 bank on the same rows, its weights' gap and errors
+         logged beside float32's;
+       - (c) ``timit.run(TimitConfig(solver="auto", num_cosines=50, ...,
+         synthetic_n=131072))`` (n cut from 2.2e6 to stay inside the
+         script's time limit): the winner the streaming choice, one
+         streamed model fitted by ``BlockStreamedLeastSquares`` at block
+         4,096, every resident candidate over the budget by more than 5%,
+         launches counted from 0 and exact (``cosine_features`` 265,
+         ``gram_corr_sym`` 50, ``block_corr`` 100,
+         ``block_residual_update`` 150, every other kernel 0), the peak
+         under the budget, logged beside the priced resident bytes;
+       - (d) ``cosine_features``, ``gram_corr_sym``, ``block_corr`` and
+         ``block_residual_update`` on one float32 block slab of 589,824 x
+         4,096 = 2.42e9 elements (past 2^31, the north-star n's slab): the
+         row-local outputs of the last 4,096 rows and the reductions over
+         the whole slab against their plain versions.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -174,6 +202,38 @@ AUTO_WALL_N = 1310720
 AUTO_WALL_TILES = AUTO_WALL_N // STREAM_TILE
 AUTO_WALL_COSINES = NUM_COSINES + 2 * AUTO_WALL_TILES + (AUTO_WALL_N // 4) // STREAM_TILE
 
+# --solver auto at the reference's default width (TimitPipeline.scala's
+# numCosines = 50: d = 204,800) on 131,072 training rows, past both walls:
+# the block-streamed tier with block 4,096 (50 blocks), 3 epochs. The
+# selector's sample featurizes 3 rows through each of the 50 branches; the
+# fit makes one cosine slab a block step (150), epoch 1 one gram_corr_sym a
+# block, later epochs one block_corr a block, every step one residual
+# update; the fitted model applies in tiles of pick_tile_rows(204800, 4) =
+# 2,560 rows: 52 train tiles and 13 of the 32,768 test rows.
+WIDE_COSINES, WIDE_N, WIDE_TILE = 50, 131072, 2560
+WIDE_D, WIDE_BLOCKS = WIDE_COSINES * BLOCK, WIDE_COSINES
+WIDE_LAUNCHES = {
+    "cosine_features": WIDE_COSINES + EPOCHS * WIDE_BLOCKS + -(-WIDE_N // WIDE_TILE)
+    + -(-(WIDE_N // 4) // WIDE_TILE),
+    "gram_corr_sym": WIDE_BLOCKS, "block_gram_sym": 0, "block_corr": (EPOCHS - 1) * WIDE_BLOCKS,
+    "block_residual_update": EPOCHS * WIDE_BLOCKS, "gram_sym_acc": 0,
+    "gaussian_kernel_block": 0, "gaussian_resid_block": 0, "conv_featurize": 0,
+    "gram_corr_sym_acc": 0, "gram_corr": 0, "countsketch_scatter": 0,
+}
+# The reference's formula prices the block tier under what the run
+# allocates: the run's peak less what was allocated before it read 9.832
+# GiB, 1.099x the priced 8.944 GiB (H100 80GB HBM3, 700 W). A run that
+# holds a second slab (2.0 GiB) or a second stash (6.3 GiB) goes past this.
+WIDE_PEAK_OVER_PRICED = 0.20
+# One float32 block slab at the north-star n (2.2e6 rows, a 589,824-row
+# shard of them): 589,824 x 4,096 = 2.42e9 elements, past 2^31.
+BIG_N = 589824
+# gram_corr_sym's float32 sums of BIG_N cosine products against float64
+# ones on the card, as max |err| / max |f64|, twice the readings (H100
+# 80GB HBM3, 700 W): Gramian 2.853e-4 (cuBLAS's 1.033e-4), correlation
+# 3.255e-5 (cuBLAS's 4.409e-6).
+GRAM_F64_TOL, CORR_F64_TOL = 6e-4, 7e-5
+
 # The CIFAR slice at its own width (keystone_tpu/pipelines/cifar.py): 50,000
 # training and 12,500 test images of 32 x 32 x 3, 100 filters of 6 x 6 x 3
 # (d = 108), 27 x 27 outputs, 2 x 100 rectified channels pooled 3 x 3:
@@ -215,6 +275,8 @@ SKETCH = "amazon sketched tier, IterativeHessianSketch m = 65,540, 3 outer (fit,
 SYM_FALSE = "stacked BCD block update with sym=False at TIMIT width"
 AUTO_RESIDENT = "timit --solver auto, resident: the block chain (fit first)"
 AUTO_WALL = "timit --solver auto, past the memory wall: the streamed fit (fit first)"
+WIDE_AUTO = "timit --solver auto at d = 204,800: the block-streamed tier (fit first)"
+BLOCK_RESIDENT = "BlockStreamedLeastSquares on phase 2's rows against --solver block"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -1054,17 +1116,32 @@ def phase_timit_route(cuda_ops, timit, TimitConfig, fit_first):
     check_metrics(route, result.train_eval, result.test_eval, N_TRAIN)
     return counts, dict(fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
                         peak_allocated_bytes=peak, train_error=train_err,
-                        test_error=test_err), block_weights(result.fitted)
+                        test_error=test_err), block_model(result.fitted)
 
 
-def block_weights(fitted):
-    """The (d, k) weights of a fitted pipeline's one BlockLinearMapper,
-    stand-alone or inside the solver selector's chain."""
+def block_mapper(fitted):
+    """A fitted pipeline's one BlockLinearMapper, stand-alone or inside the
+    solver selector's chain."""
     from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
 
     (mapper,) = [getattr(op, "model", op) for op in fitted.transformer_graph.operators.values()
                  if isinstance(getattr(op, "model", op), BlockLinearMapper)]
-    return torch.cat(mapper.xs)
+    return mapper
+
+
+def block_weights(fitted):
+    """The (d, k) weights of a fitted pipeline's one BlockLinearMapper."""
+    return torch.cat(block_mapper(fitted).xs)
+
+
+def block_model(fitted):
+    """(weights (d, k), affine offset (k,)) of a fitted pipeline's one
+    centred BlockLinearMapper: predictions are F W + offset, offset =
+    b_opt − mean W."""
+    mapper = block_mapper(fitted)
+    W = torch.cat(mapper.xs)
+    mean = torch.cat([s.mean for s in mapper.feature_scalers])
+    return W, mapper.b_opt - mean @ W
 
 
 def phase_quickstart(cuda_ops):
@@ -1235,15 +1312,15 @@ def log_decision(decision):
     log(f"  selector winner {decision['winner']} ({decision['reason']})")
 
 
-def run_auto(cuda_ops, timit, TimitConfig, n):
-    """TIMIT --solver auto at full width on n training rows through its entry
-    point, on the card's own budget; launches counted from 0. The
-    selector's wall is the NodeOptimizationRule's: sampling the featurized
-    rows and pricing the candidates."""
+def run_auto(cuda_ops, timit, TimitConfig, n, num_cosines=NUM_COSINES):
+    """TIMIT --solver auto on n training rows and num_cosines branches
+    through its entry point, on the card's own budget; launches counted
+    from 0. The selector's wall is the NodeOptimizationRule's: sampling the
+    featurized rows and pricing the candidates."""
     from keystone_tpu_torch.workflow import PipelineEnv, rules
 
     PipelineEnv.get_or_create().reset()
-    config = TimitConfig(solver="auto", num_cosines=NUM_COSINES, block_size=BLOCK,
+    config = TimitConfig(solver="auto", num_cosines=num_cosines, block_size=BLOCK,
                          synthetic_n=n, num_epochs=EPOCHS, lam=0.0)
     walls = []
     select = rules.NodeOptimizationRule.apply
@@ -1256,6 +1333,7 @@ def run_auto(cuda_ops, timit, TimitConfig, n):
         return out
 
     torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
     cuda_ops.reset_launch_counts()
     rules.NodeOptimizationRule.apply = timed_select
     try:
@@ -1272,6 +1350,7 @@ def run_auto(cuda_ops, timit, TimitConfig, n):
     stats = dict(n=n, winner=decision["winner"], reason=decision["reason"],
                  fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
                  selector_seconds=sum(walls), peak_allocated_bytes=peak,
+                 baseline_allocated_bytes=baseline,
                  train_error=result.train_eval.total_error,
                  test_error=result.test_eval.total_error, launches=counts)
     log(f"  n={n}: train error {100 * stats['train_error']:.3f}%, test error "
@@ -1362,6 +1441,332 @@ def phase_auto(cuda_ops, timit, TimitConfig, stacked_W):
     del flag, want
     torch.cuda.empty_cache()
     return resident, walled
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def phase_block_small(cuda_ops):
+    """Phase 12(a): the block-streamed program and its estimator small on the
+    card against their plain runs on the CPU, on the same inputs: float32
+    and bf16 features, centred and raw, ragged rows. Weights within 1e-4
+    relative in float32 (reordered float32 sums); 5e-3 in bf16, where
+    features that agree to float32 rounding round to bf16 values one step
+    apart in ~0.02% of the entries and the program's weights move by about
+    1e-3 from that alone, so bf16 weights cannot tell a program that
+    makes float32 slabs (3.5e-3 to 4.0e-3 from bf16's): the CPU tests hold
+    the slabs themselves (tests/test_torch_block_streamed.py)."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.streaming_ls import (
+        BlockStreamedLeastSquares,
+        cosine_bank_featurize,
+    )
+    from keystone_tpu_torch.parallel import streaming
+
+    rng = np.random.default_rng(12)
+    n, n_true, d_in, d, bs = 4000, 3990, D_IN, 1024, 256
+    X = torch.from_numpy((0.6 * rng.normal(size=(n, d_in))).astype(np.float32))
+    labels = np.argmax(X.numpy() @ rng.normal(size=(d_in, K)), axis=1)
+    Y = torch.from_numpy((2.0 * np.eye(K)[labels] - 1.0).astype(np.float32))
+    Wrf = torch.from_numpy((np.sqrt(2 * 0.05555) * rng.normal(size=(d, d_in))).astype(np.float32))
+    brf = torch.from_numpy(rng.uniform(0, 2 * np.pi, d).astype(np.float32))
+    card = [t.to("cuda") for t in (X, Y, Wrf, brf)]
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-3)):
+        for center in (False, True):
+            kw = dict(block_size=bs, lam=1e-3, num_iter=EPOCHS, n_true=n_true,
+                      feat_dtype=dtype, center=center)
+            want = streaming.streaming_block_bcd_mesh(X, Y, Wrf, brf, **kw)
+            got = streaming.streaming_block_bcd_mesh(*card, **kw)
+            want, got = (want, got) if center else ((want,), (got,))
+            rels = [_rel(g.cpu(), w) for g, w in zip(got, want)]
+            check(f"block program small, {str(dtype)[6:]} features, "
+                  f"{'centred' if center else 'raw'}, card against CPU",
+                  all(r <= tol for r in rels),
+                  f"relative Frobenius {', '.join(f'{r:.2e}' for r in rels)} (W"
+                  f"{', fmean, ymean' if center else ''}; tol {tol:.0e}), n {n_true} of {n}")
+    est = lambda dev: BlockStreamedLeastSquares(  # noqa: E731
+        cosine_bank_featurize(Wrf.to(dev), brf.to(dev)), d, bs, num_iter=EPOCHS, lam=1e-3)
+    models = {dev: est(dev).fit(Dataset(X.to(dev), n=n_true), Dataset(Y.to(dev), n=n_true))
+              for dev in ("cuda", "cpu")}
+    preds = {dev: m.batch_apply(Dataset(X.to(dev))).array.cpu() for dev, m in models.items()}
+    rels = [_rel(getattr(models["cuda"], name).cpu(), getattr(models["cpu"], name))
+            for name in ("W_stack", "fmean", "ymean")] + [_rel(preds["cuda"], preds["cpu"])]
+    check("BlockStreamedLeastSquares small, card against CPU", all(r <= 1e-4 for r in rels),
+          f"W, fmean, ymean, predictions: {', '.join(f'{r:.2e}' for r in rels)} (tol 1e-4)")
+
+
+def _errors(model, train, test):
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.ops.util import MaxClassifier
+
+    evaluator = MulticlassClassifierEvaluator(K)
+    return tuple(
+        evaluator.evaluate(MaxClassifier().batch_apply(model.batch_apply(rows.data)),
+                           rows.labels).total_error
+        for rows in (train, test))
+
+
+def phase_block_resident(cuda_ops, timit, TimitConfig, stacked):
+    """Phase 12(b): BlockStreamedLeastSquares on phase 2's rows and draws,
+    held against phase 2's --solver block apply-first model (weights and
+    affine offset within 1e-4 relative: the same centred Gauss-Seidel
+    iterates at the same block size; only the centring's rounding differs,
+    a rank-1 correction of the Gramian against explicitly centred
+    features; the reference's own pair differs by 5.9e-7 on the CPU at
+    8,192 rows and blocks of 512). Then the bf16 bank on the same rows."""
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+    from keystone_tpu_torch.ops.learning.streaming_ls import (
+        BlockStreamedLeastSquares,
+        cosine_bank_featurize,
+    )
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+
+    config = TimitConfig(solver="block", num_cosines=NUM_COSINES, block_size=BLOCK,
+                         synthetic_n=N_TRAIN, num_epochs=EPOCHS)
+    train = synthetic_timit(N_TRAIN, seed=config.seed, device="cuda")
+    test = synthetic_timit(N_TRAIN // 4, seed=config.seed + 1, device="cuda")
+    labels = ClassLabelIndicatorsFromIntLabels(K)(train.labels)
+    rfs = timit._cosine_models(config, "cuda")
+    Wrf, brf = torch.cat([rf.W for rf in rfs]), torch.cat([rf.b for rf in rfs])
+    del rfs
+    report = {}
+    fitted = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        est = BlockStreamedLeastSquares(cosine_bank_featurize(Wrf, brf, dtype), D_FEAT, BLOCK,
+                                        num_iter=EPOCHS, lam=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(train.data, labels)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        errs = _errors(model, train, test)
+        fitted[label] = model
+        report[label] = dict(fit_seconds=fit_s, train_error=errs[0], test_error=errs[1])
+        log(f"  (b) {label} bank, n={N_TRAIN}, d={D_FEAT}, block {BLOCK}, {EPOCHS} epochs, "
+            f"λ 0: fit {fit_s:.3f} s, train error {100 * errs[0]:.3f}%, test error "
+            f"{100 * errs[1]:.3f}%")
+    W_block, offset_block = stacked
+    model = fitted["f32"]
+    rel_W = _rel(model.W_stack.reshape(D_FEAT, K), W_block)
+    rel_off = _rel(model.offset, offset_block)
+    report["f32"].update(weights_rel_to_block=rel_W, offset_rel_to_block=rel_off)
+    check(f"{BLOCK_RESIDENT}: model matches", rel_W <= 1e-4 and rel_off <= 1e-4,
+          f"weights {rel_W:.2e}, affine offset {rel_off:.2e} relative Frobenius (tol 1e-4)")
+    rel_bf16 = _rel(fitted["bf16"].W_stack, model.W_stack)
+    report["bf16"]["weights_rel_to_f32"] = rel_bf16
+    log(f"  (b) bf16 bank's weights against the f32 bank's: {rel_bf16:.3e} relative; errors "
+        f"train {100 * report['bf16']['train_error']:.3f}% / test "
+        f"{100 * report['bf16']['test_error']:.3f}% against f32's "
+        f"{100 * report['f32']['train_error']:.3f}% / {100 * report['f32']['test_error']:.3f}%")
+    check(f"{BLOCK_RESIDENT}: the bf16 bank's fit is finite",
+          bool(torch.isfinite(fitted["bf16"].W_stack).all()), f"weights gap {rel_bf16:.3e}")
+    del fitted, model, train, test, labels, Wrf, brf
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_wide_auto(cuda_ops, timit, TimitConfig):
+    """Phase 12(c): TIMIT --solver auto at d = 204,800 on WIDE_N rows, on the
+    card's own budget: the block-streamed tier."""
+    from keystone_tpu_torch.ops.learning import streaming_ls
+
+    fits = []
+    fit = streaming_ls.BlockStreamedLeastSquares.fit
+
+    def recorded(self, data, labels):
+        fits.append(self.block_size)
+        return fit(self, data, labels)
+
+    streaming_ls.BlockStreamedLeastSquares.fit = recorded
+    try:
+        result, stats = run_auto(cuda_ops, timit, TimitConfig, WIDE_N, WIDE_COSINES)
+    finally:
+        streaming_ls.BlockStreamedLeastSquares.fit = fit
+    counts = stats["launches"]
+    models = [op for op in result.fitted.transformer_graph.operators.values()
+              if isinstance(op, streaming_ls.StreamingFeaturizedLinearModel)]
+    check(f"{WIDE_AUTO}: the selector picks the streaming choice, fitted by "
+          f"BlockStreamedLeastSquares at block {BLOCK}",
+          stats["winner"] == "StreamingLeastSquaresChoice" and len(models) == 1
+          and fits == [BLOCK] and tuple(models[0].W_stack.shape) == (WIDE_BLOCKS, BLOCK, K),
+          f"winner {stats['winner']}, streamed models {len(models)}, block-streamed fits "
+          f"{fits}")
+    decision = result.selector.last_decision
+    budget = decision["context"]["hbm_budget_bytes"]
+    over = {c["label"]: c["resident_bytes"] / budget for c in decision["candidates"]
+            if c["label"] != "StreamingLeastSquaresChoice"}
+    (priced,) = [c["resident_bytes"] for c in decision["candidates"]
+                 if c["label"] == "StreamingLeastSquaresChoice"]
+    # The compressed gram engine's int16 indices cannot hold d > 32,767: it
+    # is priced infinite, which JSON spells as a string here.
+    stats.update(resident_over_budget={name: v if v != float("inf") else "inf"
+                                       for name, v in over.items()},
+                 priced_resident_bytes=priced, budget_bytes=budget)
+    check(f"{WIDE_AUTO}: every resident candidate over the budget by more than 5%",
+          all(v > 1.05 for v in over.values()), f"resident / budget {over}")
+    check(f"{WIDE_AUTO} launches", counts == WIDE_LAUNCHES,
+          f"{counts}, expected {WIDE_LAUNCHES}")
+    check_metrics(WIDE_AUTO, result.train_eval, result.test_eval, WIDE_N)
+    peak = stats["peak_allocated_bytes"]
+    grown = peak - stats["baseline_allocated_bytes"]
+    stats.update(run_peak_bytes=grown, run_peak_over_priced=grown / priced)
+    log(f"  (c) d={WIDE_D}: peak allocated {peak / 2**30:.3f} GiB, {grown / 2**30:.3f} GiB of "
+        f"it allocated by the run ({grown / priced:.4f} of the priced {priced / 2**30:.3f} GiB, "
+        f"{priced:.4g} B), against the {budget / 2**30:.3f} GiB budget")
+    check(f"{WIDE_AUTO}: peak under the budget", peak <= budget,
+          f"{peak / 2**30:.3f} GiB <= {budget / 2**30:.3f} GiB")
+    check(f"{WIDE_AUTO}: the run's peak within {WIDE_PEAK_OVER_PRICED:.0%} over the priced "
+          "resident bytes", grown <= (1 + WIDE_PEAK_OVER_PRICED) * priced,
+          f"{grown / 2**30:.3f} GiB <= {(1 + WIDE_PEAK_OVER_PRICED) * priced / 2**30:.3f} GiB")
+    del result, models
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_wide_breakdown(cuda_ops):
+    """Phase 12(c), where the fit's and the apply's time goes: each call of
+    one block step at the route's shapes (WIDE_N rows, a 4,096-wide slice
+    of a bank, k = 147), and of one apply tile (WIDE_TILE rows against the
+    whole 204,800-wide bank), timed alone (``time_ms``: CUDA events, median
+    of 5 after a warm-up), times its count in the run."""
+    from keystone_tpu_torch.parallel.linalg import _psd_factor, _solve_psd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    X = torch.randn((WIDE_N, D_IN), generator=gen, device=dev) * 0.6
+    W = torch.randn((WIDE_D, D_IN), generator=gen, device=dev) * 0.05555
+    b = torch.rand((WIDE_D,), generator=gen, device=dev) * 6.283185307179586
+    Wb, bb = W[:BLOCK], b[:BLOCK]
+    R = torch.randn((WIDE_N, K), generator=gen, device=dev)
+    F = cuda_ops.cosine_features(X, Wb, bb)
+    gram, corr = cuda_ops.gram_corr_sym(F, R)
+    chol = _psd_factor(gram, 0.0)
+    dW = torch.randn((BLOCK, K), generator=gen, device=dev) * 0.01
+    Wf = torch.randn((WIDE_D, K), generator=gen, device=dev) * 0.01
+    Xt = X[:WIDE_TILE]
+    Ft = cuda_ops.cosine_features(Xt, W, b)
+    calls = {
+        # name: (call, count in the fit or the apply)
+        "fit: cosine_features": (lambda: cuda_ops.cosine_features(X, Wb, bb),
+                                 EPOCHS * WIDE_BLOCKS),
+        "fit: gram_corr_sym": (lambda: cuda_ops.gram_corr_sym(F, R), WIDE_BLOCKS),
+        "fit: column sums": (lambda: F.sum(dim=0, dtype=torch.float32), WIDE_BLOCKS),
+        "fit: Cholesky": (lambda: _psd_factor(gram, 0.0), WIDE_BLOCKS),
+        "fit: solve and its check": (lambda: _solve_psd(gram, corr, 0.0, chol=chol),
+                                     EPOCHS * WIDE_BLOCKS),
+        "fit: block_corr": (lambda: cuda_ops.block_corr(F, 0, BLOCK, R),
+                            (EPOCHS - 1) * WIDE_BLOCKS),
+        "fit: block_residual_update": (
+            lambda: cuda_ops.block_residual_update(F, 0, BLOCK, dW, R), EPOCHS * WIDE_BLOCKS),
+        "apply: cosine_features": (lambda: cuda_ops.cosine_features(Xt, W, b),
+                                   WIDE_LAUNCHES["cosine_features"] - WIDE_COSINES
+                                   - EPOCHS * WIDE_BLOCKS),
+        "apply: F W": (lambda: Ft @ Wf, WIDE_LAUNCHES["cosine_features"] - WIDE_COSINES
+                       - EPOCHS * WIDE_BLOCKS),
+    }
+    report = {}
+    for name, (fn, count) in calls.items():
+        ms = time_ms(fn, 5)
+        report[name] = dict(ms=ms, count=count, total_s=ms * count / 1e3)
+    for part in ("fit", "apply"):
+        total = sum(r["total_s"] for name, r in report.items() if name.startswith(part))
+        log(f"  (c) {part} by its calls, each timed alone: {total:.3f} s = " + ", ".join(
+            f"{name.split(': ')[1]} {r['count']} x {r['ms']:.3f} ms"
+            for name, r in report.items() if name.startswith(part)))
+        report[f"{part} total_s"] = total
+    del X, W, b, R, F, gram, corr, chol, dW, Wf, Ft
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_past_2_31(cuda_ops):
+    """Phase 12(d): the block tier's four kernels on one float32 block slab
+    of BIG_N x 4,096 (2.42e9 elements, past 2^31). ``cosine_features``
+    writes the slab, its last 4,096 rows held against the plain version
+    (1e-5, phase 1's tolerance), and ``gram_corr_sym``'s sums of it are
+    held against float64 ones (``cosine_gram_f64``). The slab is then
+    refilled with integers in {-1, 0, 1} (R and dW too), so that every sum
+    the other three kernels make is an integer below 2^24, exact in
+    float32 in any order: their outputs must be the plain versions' bits,
+    the reductions over the whole slab and the residual update on every
+    row. A row read from a wrong offset moves an entry by at least 1."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n, b, k = BIG_N, BLOCK, K
+    X = torch.randn((n, D_IN), generator=gen, device=dev) * 0.6
+    W = torch.randn((b, D_IN), generator=gen, device=dev) * 0.05555
+    bias = torch.rand((b,), generator=gen, device=dev) * 6.283185307179586
+    tail = slice(n - 4096, n)
+    F = cuda_ops.cosine_features(X, W, bias)
+    want = cuda_ops.cosine_features_ref(X[tail], W, bias)
+    err = (F[tail] - want).abs().max().item()
+    check(f"cosine_features past 2^31: F {n}x{b} ({n * b:.3g} elements), the last 4,096 rows",
+          F.numel() > 2**31 and err <= 1e-5, f"max_abs_err {err:.3e} (tol 1e-5)")
+    del X, W, bias, want
+    f64 = cosine_gram_f64(cuda_ops, F, gen)
+    F.random_(-1, 2, generator=gen)
+    R = torch.empty((n, k), device=dev).random_(-1, 2, generator=gen)
+    dW = torch.empty((b, k), device=dev).random_(-1, 2, generator=gen)
+    gram, corr = cuda_ops.gram_corr_sym(F, R)
+    gram_r, corr_r = cuda_ops.gram_corr_sym_ref(F, R)
+    gram_ok = torch.equal(gram, gram_r) and torch.equal(corr, corr_r)
+    check(f"gram_corr_sym past 2^31: A {n}x{b}, R {n}x{k}, integer entries", gram_ok,
+          f"the plain version's bits (max diagonal {gram_r.diagonal().max().item():.0f}, "
+          f"exact below 2^24)")
+    del gram, gram_r, corr
+    got = cuda_ops.block_corr(F, 0, b, R)
+    check(f"block_corr past 2^31: F {n}x{b}, R {n}x{k}, integer entries",
+          torch.equal(got, cuda_ops.block_corr_ref(F, 0, b, R)) and torch.equal(got, corr_r),
+          "the plain version's bits, and gram_corr_sym's correlation")
+    del got, corr_r
+    out = cuda_ops.block_residual_update(F, 0, b, dW, R)
+    want = cuda_ops.block_residual_update_ref(F, 0, b, dW, R)
+    check(f"block_residual_update past 2^31: F {n}x{b}, integer entries",
+          torch.equal(out, want) and bool((out[tail] != R[tail]).any()),
+          "the plain version's bits on every row, the last rows updated")
+    torch.cuda.synchronize()
+    del F, R, dW, out, want
+    torch.cuda.empty_cache()
+    return dict(rows=n, elements=n * b, cosine_max_abs_err=err, reductions_exact=True,
+                cosine_gram_vs_f64=f64)
+
+
+def cosine_gram_f64(cuda_ops, F, gen):
+    """Phase 12(d)'s precision reading on the cosine slab: the kernel's
+    Gramian and correlation (``gram_corr_sym``) and cuBLAS's (the plain
+    version, FP32 without TF32) each held against float64 sums made on the
+    card in 65,536-row chunks, as max |got - f64| / max |f64|. Integer
+    operands show the addressing; this shows how far each float32 sum of
+    BIG_N terms is from the true one."""
+    n, b = F.shape
+    R = torch.randn((n, K), generator=gen, device=F.device)
+    gram64 = torch.zeros((b, b), dtype=torch.float64, device=F.device)
+    corr64 = torch.zeros((b, K), dtype=torch.float64, device=F.device)
+    for start in range(0, n, 65536):
+        Fc = F[start:start + 65536].double()
+        gram64.addmm_(Fc.T, Fc)
+        corr64.addmm_(Fc.T, R[start:start + 65536].double())
+    del Fc
+
+    def rel(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    gram, corr = cuda_ops.gram_corr_sym(F, R)
+    out = dict(kernel_gram=rel(gram, gram64), kernel_corr=rel(corr, corr64))
+    del gram, corr
+    gram, corr = cuda_ops.gram_corr_sym_ref(F, R)
+    out.update(cublas_gram=rel(gram, gram64), cublas_corr=rel(corr, corr64))
+    del gram, corr, gram64, corr64, R
+    log(f"  (d) cosine-valued Gramian and correlation of the {n}x{b} slab against float64 "
+        f"sums (max |err| / max |f64|): gram_corr_sym {out['kernel_gram']:.3e} and "
+        f"{out['kernel_corr']:.3e}, cuBLAS {out['cublas_gram']:.3e} and "
+        f"{out['cublas_corr']:.3e}")
+    check(f"gram_corr_sym past 2^31, cosine values: within {GRAM_F64_TOL:.0e} (Gramian) and "
+          f"{CORR_F64_TOL:.0e} (correlation) of float64 sums",
+          out["kernel_gram"] <= GRAM_F64_TOL and out["kernel_corr"] <= CORR_F64_TOL,
+          f"Gramian {out['kernel_gram']:.3e}, correlation {out['kernel_corr']:.3e}")
+    return out
 
 
 def _conv_chunk_rows(fusion):
@@ -2358,7 +2763,7 @@ def main():
     log(f"  phase 1 launches (checks and timing, not the main path): {cuda_ops.launches}")
     log("[phase 2] TIMIT slice: three routes small against the CPU; --solver block at full width")
     phase_small_reference(timit, TimitConfig)
-    stacked_counts, stacked, stacked_W = phase_timit_route(cuda_ops, timit, TimitConfig,
+    stacked_counts, stacked, stacked_model = phase_timit_route(cuda_ops, timit, TimitConfig,
                                                            fit_first=False)
     flat_counts, flat, _ = phase_timit_route(cuda_ops, timit, TimitConfig, fit_first=True)
     log("[phase 3] README quick-start composition")
@@ -2383,7 +2788,17 @@ def main():
     log("[phase 10] the block update's sym=False route at TIMIT width")
     sym_counts, sym_run = phase_sym_false(cuda_ops)
     log("[phase 11] TIMIT --solver auto on both sides of the memory wall")
-    auto_res, auto_wall = phase_auto(cuda_ops, timit, TimitConfig, stacked_W)
+    auto_res, auto_wall = phase_auto(cuda_ops, timit, TimitConfig, stacked_model[0])
+    log("[phase 12] TIMIT --solver auto at the reference's default width: the block-streamed "
+        "tier")
+    phase_block_small(cuda_ops)
+    block_resident = phase_block_resident(cuda_ops, timit, TimitConfig, stacked_model)
+    del stacked_model
+    log(f"  (c) d={WIDE_D}, n={WIDE_N}")
+    wide_auto = phase_wide_auto(cuda_ops, timit, TimitConfig)
+    wide_auto["breakdown"] = phase_wide_breakdown(cuda_ops)
+    log(f"  (d) past 2^31 elements: one f32 block slab of {BIG_N} x {BLOCK}")
+    wide_auto["past_2_31"] = phase_past_2_31(cuda_ops)
 
     route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
                     CIFAR: cifar_counts, SPARSE: sparse_counts, SKETCH: sketch_counts,
@@ -2395,7 +2810,8 @@ def main():
     ]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
-                 AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall}
+                 AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
+                 WIDE_AUTO: wide_auto}
     log(f"main path: {json.dumps(main_path)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

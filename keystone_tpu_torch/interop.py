@@ -19,7 +19,9 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
     "feature_scaler": {"mean", "std"} or None}``
   - ``StreamingFeaturizedLinearModel`` over a ``CosineBankFeaturize``:
     ``{"W_stack": (nb, block, k), "fmean": (d,) or None, "ymean": (k,) or
-    None, "Wrf": (d, d_in), "brf": (d,), "tile_rows": int}``
+    None, "Wrf": (d, d_in), "brf": (d,), "tile_rows": int, "feat_dtype":
+    the bank's feature dtype (optional, float32 by default; "bfloat16", a
+    numpy dtype of that name or a torch dtype)}``
   - ``ZCAWhitener``: ``{"whitener": (d, d), "means": (d,)}``
   - ``Convolver``: ``{"filters": (k, p²·c), "img_channels": int,
     "whitener": {"whitener", "means"} or None, "normalize_patches": bool,
@@ -121,14 +123,26 @@ def linear_mapper(
     )
 
 
+def _feat_dtype(dtype) -> torch.dtype:
+    """A feature dtype given as a torch dtype, a numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = getattr(dtype, "name", str(dtype))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if name not in dtypes:
+        raise ValueError(f"feature dtype {dtype!r}: the bank takes float32 or bfloat16")
+    return dtypes[name]
+
+
 def streaming_linear_model(
-    W_stack, fmean, ymean, Wrf, brf, tile_rows: int, device=None
+    W_stack, fmean, ymean, Wrf, brf, tile_rows: int, device=None, feat_dtype=torch.float32,
 ) -> StreamingFeaturizedLinearModel:
     """The reference's fitted streamed model (a ``StreamingFeaturizedLinearModel``
-    over a ``CosineBankFeaturize``), rebuilt in the port."""
+    over a ``CosineBankFeaturize`` of ``feat_dtype`` features), rebuilt in
+    the port."""
     device = resolve_device(device)
     return StreamingFeaturizedLinearModel(
-        CosineBankFeaturize(_f32(Wrf, device), _f32(brf, device)),
+        CosineBankFeaturize(_f32(Wrf, device), _f32(brf, device), _feat_dtype(feat_dtype)),
         _f32(W_stack, device),
         int(tile_rows),
         fmean=None if fmean is None else _f32(fmean, device),
@@ -225,6 +239,7 @@ def params_from_jax(params: Mapping[str, Any], device=None):
         return streaming_linear_model(
             params["W_stack"], params.get("fmean"), params.get("ymean"), params["Wrf"],
             params["brf"], params["tile_rows"], device,
+            params.get("feat_dtype", torch.float32),
         )
     if {"W", "b"} <= keys:
         return cosine_features_model(params["W"], params["b"], device)

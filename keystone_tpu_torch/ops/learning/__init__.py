@@ -19,12 +19,23 @@ from .linear import (
 )
 from .pca import ZCAWhitener, ZCAWhitenerEstimator
 from .sketch import IterativeHessianSketch, SketchedLeastSquares
+from .streaming_ls import (
+    BlockStreamedLeastSquares,
+    CosineBankFeaturize,
+    StreamingFeaturizedLeastSquares,
+    StreamingFeaturizedLinearModel,
+    StreamingLeastSquaresChoice,
+    cosine_bank_featurize,
+)
 
 __all__ = [
-    "BlockLeastSquaresEstimator", "BlockLinearMapper", "DenseLBFGSwithL2",
-    "GaussianKernelGenerator", "GaussianKernelTransformer", "IterativeHessianSketch",
-    "KernelBlockLinearMapper", "KernelRidgeRegression", "LeastSquaresEstimator",
-    "LinearMapEstimator", "LinearMapper", "LocalLeastSquaresEstimator", "SketchedLeastSquares",
-    "SketchedLeastSquaresEstimator", "SparseLBFGSwithL2", "SparseLinearMapper",
+    "BlockLeastSquaresEstimator", "BlockLinearMapper", "BlockStreamedLeastSquares",
+    "CosineBankFeaturize", "DenseLBFGSwithL2", "GaussianKernelGenerator",
+    "GaussianKernelTransformer", "IterativeHessianSketch", "KernelBlockLinearMapper",
+    "KernelRidgeRegression", "LeastSquaresEstimator", "LinearMapEstimator", "LinearMapper",
+    "LocalLeastSquaresEstimator", "SketchedLeastSquares", "SketchedLeastSquaresEstimator",
+    "SparseLBFGSwithL2", "SparseLinearMapper", "StreamingFeaturizedLeastSquares",
+    "StreamingFeaturizedLinearModel", "StreamingLeastSquaresChoice",
     "TransformerLabelEstimatorChain", "ZCAWhitener", "ZCAWhitenerEstimator",
+    "cosine_bank_featurize",
 ]

@@ -21,7 +21,9 @@ Differences from the reference:
     ROADMAP A.17), and with it a weight-family switch;
   - ``num_machines`` defaults to 1 (the port runs on one device; the mesh
     is ROADMAP A.15), and the device budget is the CUDA device's total
-    memory (the counterpart of the reference's ``bytes_limit``);
+    memory (the counterpart of the reference's ``bytes_limit``). Every
+    tier the streaming choice prices runs: past the gram tier's wall a
+    cosine bank's fit takes the block-streamed tier, on one device;
   - the decision is recorded on the estimator as ``last_decision`` and
     logged, where the reference emits it through ``obs`` and the
     ``PlacementEngine`` stream (A.17); the disk tier (shard-backed inputs)

@@ -21,15 +21,16 @@ correction, not a second data pass) and the model carries the intercept.
 analytic ``cost``, the capacity model ``resident_bytes`` and the budget
 fields that the ``cost.py`` selector sets before pricing it, which also
 decide its tier (``_gram_tier_ok``): the gram tier whenever the (d, d)
-Gramian and one feature slab fit the device budget.
+Gramian and one feature slab fit the device budget, else, for a cosine
+bank, the block-streamed tier (``BlockStreamedLeastSquares`` on
+``streaming.streaming_block_bcd_mesh``, one device), whose working set
+holds one (n, block) slab and the per-block Gramian stash, no d² term.
 
-Not ported yet: the block-streamed tier that ``build_estimator`` picks for
-a cosine bank whose Gramian does not fit (``BlockStreamedLeastSquares``, a
-mesh program; it raises ``NotImplementedError`` naming ROADMAP A.15, its
-capacity model is priced all the same), the shard-backed disk tier
-(``fit_source``, which raises ``NotImplementedError``, and the disk branch
-of ``resident_bytes``) for A.13, and the cost-decision audit
-(``obs.record_cost_decision``) for the control plane (A.17).
+Not ported yet: the shard-backed disk tier (``fit_source``, which raises
+``NotImplementedError``, and the disk branch of ``resident_bytes``) for
+A.13, the mesh form of the block-streamed tier for A.15, and the
+cost-decision audit (``obs.record_cost_decision``; the tier decision is
+logged instead) for the control plane (A.17).
 """
 
 from __future__ import annotations
@@ -119,7 +120,9 @@ class StreamingFeaturizedLeastSquares(LabelEstimator):
     ``featurize``: ``(rows, d_in) -> (rows, d_feat)`` tensor function (e.g.
     a cosine random-feature bank). The fit folds the tiles into the normal
     equations (``gram_sym_acc``) and runs the BCD epochs on them;
-    ``tile_rows=None`` sizes tiles to a 2 GiB feature slab.
+    ``tile_rows=None`` sizes tiles to a 2 GiB feature slab at the
+    featurizer's element size: a :class:`CosineBankFeaturize`'s
+    ``feat_dtype`` (2 bytes for a bf16 bank), else float32.
     """
 
     def __init__(
@@ -137,7 +140,9 @@ class StreamingFeaturizedLeastSquares(LabelEstimator):
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
-        self.tile_rows = tile_rows or streaming.pick_tile_rows(d_feat, 4)
+        bank = isinstance(featurize, CosineBankFeaturize)
+        itemsize = featurize.feat_dtype.itemsize if bank else 4
+        self.tile_rows = tile_rows or streaming.pick_tile_rows(d_feat, itemsize)
         self.center = center
 
     @property
@@ -189,17 +194,29 @@ class StreamingFeaturizedLeastSquares(LabelEstimator):
 
 class CosineBankFeaturize:
     """Cosine random-feature bank as a featurize callable: ``cos(X Wrfᵀ +
-    brf)`` in float32 through the ``cosine_features`` CUDA kernel (its
-    plain version on the CPU), one launch per row tile."""
+    brf)`` through the ``cosine_features`` CUDA kernel (its plain version on
+    the CPU), one launch per row tile. ``feat_dtype=torch.bfloat16`` rounds
+    the operands to bf16 (products still accumulate in float32) and writes
+    bf16 features, the reference's Pallas form; its XLA form, the
+    reference's CPU default, computes in float32 and rounds only the
+    output."""
 
-    def __init__(self, Wrf_flat, brf_flat):
+    def __init__(self, Wrf_flat, brf_flat, feat_dtype: torch.dtype = torch.float32):
         self.Wrf = as_tensor(Wrf_flat)
         self.brf = as_tensor(brf_flat, self.Wrf.device)
+        self.feat_dtype = feat_dtype
 
     def __call__(self, X_t):
         return cuda_ops.cosine_features(
             as_tensor(X_t, self.Wrf.device).contiguous(), self.Wrf, self.brf,
+            compute_dtype=self.feat_dtype, out_dtype=self.feat_dtype,
         )
+
+
+def cosine_bank_featurize(Wrf_flat, brf_flat,
+                          feat_dtype: torch.dtype = torch.float32) -> CosineBankFeaturize:
+    """Build a :class:`CosineBankFeaturize` (the public factory)."""
+    return CosineBankFeaturize(Wrf_flat, brf_flat, feat_dtype)
 
 
 def _identity_featurize(X_t):
@@ -276,6 +293,66 @@ def _extract_bank(members) -> Optional[CosineBankFeaturize]:
             torch.cat([rf.W for rf in rfs]), torch.cat([rf.b for rf in rfs])
         )
     return None
+
+
+class BlockStreamedLeastSquares(LabelEstimator):
+    """The block-streamed tier as a pipeline estimator: per-block featurize
+    → block Gramian and correlation → solve → residual update
+    (``streaming.streaming_block_bcd_mesh``, one device), for geometries
+    where even the (d, d) Gramian of the gram tier exceeds device memory
+    (d ≳ 90,000 on an 80 GB card). Needs a :class:`CosineBankFeaturize`:
+    the residual sweep featurizes each block from its slice of the bank.
+    Centred by default, BlockLeastSquares semantics as the other tiers.
+    """
+
+    def __init__(
+        self,
+        bank: CosineBankFeaturize,
+        d_feat: int,
+        block_size: int,
+        num_iter: int = 3,
+        lam: float = 0.0,
+        center: bool = True,
+    ):
+        if not isinstance(bank, CosineBankFeaturize):
+            raise TypeError(
+                "BlockStreamedLeastSquares needs a CosineBankFeaturize "
+                "(per-block bank slices drive the residual sweep)"
+            )
+        if bank.Wrf.shape[0] != d_feat:
+            raise ValueError(f"bank rows {bank.Wrf.shape[0]} != d_feat {d_feat}")
+        self.bank = bank
+        self.d_feat = d_feat
+        self.block_size = block_size
+        self.num_iter = num_iter
+        self.lam = lam
+        self.center = center
+
+    @property
+    def label(self) -> str:
+        return f"BlockStreamedLeastSquares({self.d_feat},{self.block_size})"
+
+    @property
+    def weight(self) -> int:
+        return self.num_iter + 1
+
+    def fit(self, data: Dataset, labels: Dataset) -> StreamingFeaturizedLinearModel:
+        if getattr(data, "is_shard_backed", False) or getattr(labels, "is_shard_backed", False):
+            raise NotImplementedError(
+                "a shard-backed dataset (materialized before the block sweep in the "
+                "reference) is not ported yet: it comes with the data plane, ROADMAP A.13"
+            )
+        X = as_tensor(data.array, self.bank.Wrf.device)
+        Y = as_tensor(labels.array, X.device)
+        out = streaming.streaming_block_bcd_mesh(
+            X, Y, self.bank.Wrf, self.bank.brf, block_size=self.block_size, lam=self.lam,
+            num_iter=self.num_iter, n_true=int(data.n) if data.n != X.shape[0] else None,
+            feat_dtype=self.bank.feat_dtype, center=self.center,
+        )
+        W, fmean, ymean = out if self.center else (out, None, None)
+        return StreamingFeaturizedLinearModel(
+            self.bank, W, streaming.pick_tile_rows(self.d_feat, 4), fmean=fmean, ymean=ymean,
+        )
 
 
 class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
@@ -363,19 +440,29 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
             hint = min(hint, cap)
         return pick_block_size(d_feat, hint)
 
-    def build_estimator(self, featurize, d_feat: int) -> StreamingFeaturizedLeastSquares:
+    def build_estimator(self, featurize, d_feat: int):
         """The gram tier, with float32 feature tiles sized to ``slab_bytes``,
-        where its Gramian fits the budget. (The reference audits this
-        decision, ``obs.record_cost_decision``; the obs plane comes with the
-        control plane, ROADMAP A.17.)"""
-        if not self._gram_tier_ok(d_feat):
-            if isinstance(featurize, CosineBankFeaturize):
-                raise NotImplementedError(
-                    f"d_feat={d_feat}: the (d, d) Gramian exceeds the device budget "
-                    f"({self.budget_bytes:.3g} B), which selects the block-streamed "
-                    "tier (BlockStreamedLeastSquares); it is not ported yet: it comes "
-                    "with the mesh programs, ROADMAP A.15"
-                )
+        where its Gramian fits the budget; else, for a cosine bank, the
+        block-streamed tier. The decision is logged (the reference audits
+        it, ``obs.record_cost_decision``; the obs plane comes with the
+        control plane, ROADMAP A.17)."""
+        gram_ok = self._gram_tier_ok(d_feat)
+        bank = isinstance(featurize, CosineBankFeaturize)
+        winner, reason = (
+            ("gram", "gramian_fits_budget") if gram_ok
+            else ("block", "gramian_exceeds_budget") if bank
+            else ("gram", "block_needs_bank_featurizer")
+        )
+        logger.info(
+            "streaming tier: %s (%s), d_feat=%d, budget %s B, featurize %s",
+            winner, reason, d_feat, self.budget_bytes, type(featurize).__name__,
+        )
+        if winner == "block":
+            return BlockStreamedLeastSquares(
+                featurize, d_feat=d_feat, block_size=self._block_tier_bs(d_feat),
+                num_iter=self.num_iter, lam=self.lam, center=self.center,
+            )
+        if not gram_ok:
             # The capacity model assumed the block tier (no d² term), but
             # only bank featurizers can drive per-block slices. Best effort,
             # as the reference: run the gram tier anyway (it may exceed the

@@ -44,10 +44,16 @@ Differences from the reference:
     so they collapse to plain calls of ``_fit_core`` and
     ``_solve_from_stats_core``, and only a static ``valid`` is taken.
 
+The block-streamed program, ``streaming_block_bcd_mesh``, is ported for one
+device (``mesh=None``): the reference runs it on a 1-device mesh, where
+every ``psum`` is the identity. Its features are made one (n, block) slab
+a block step and freed, so the (d, d) Gramian never exists either; that is
+the tier past the gram tier's wall (TIMIT at d = 204,800).
+
 Not ported yet: the segment / disk fold (``streaming_bcd_fit_segments``,
-``BoundedInflight``; ROADMAP A.13) and the mesh and block-streamed forms
-(``gram_stats_mesh``, ``streaming_bcd_fit_mesh[_centered]``,
-``streaming_block_bcd_mesh[_2d]``; A.15).
+``BoundedInflight``; ROADMAP A.13) and the mesh forms (``gram_stats_mesh``,
+``streaming_bcd_fit_mesh[_centered]``, ``streaming_block_bcd_mesh`` over a
+mesh and ``streaming_block_bcd_mesh_2d``; A.15).
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ import torch
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
 
-from .linalg import _corr, _solve_psd
+from .linalg import _acc_dtype, _corr, _psd_factor, _solve_psd
 
 # Device-memory budget for one feature slab (the streamed working set).
 _SLAB_BYTES = 2 << 30
@@ -363,3 +369,124 @@ def streaming_predict(X, W, featurize: Callable, tile_rows: int) -> torch.Tensor
         # two slabs (4 GiB at the TIMIT geometry) for the next featurize.
         del F_t
     return out
+
+
+def streaming_block_bcd_mesh(
+    X,
+    Y,
+    Wrf,
+    brf,
+    *,
+    block_size: int,
+    lam: float,
+    num_iter: int,
+    mesh=None,
+    n_true: Optional[int] = None,
+    feat_dtype: torch.dtype = torch.float32,
+    center: bool = False,
+):
+    """The block-streamed program: cosine-featurize + block coordinate
+    descent where each feature block is made for its step and freed.
+
+    X (n, d_in) and Y (n, k) rows; the bank Wrf (d_feat, d_in), brf
+    (d_feat,). Each block step b:
+
+        F_b = cos(X Wrf_bᵀ + brf_b)        (n, block) slab, freed after
+        W_b ← (F_bᵀF_b + λI)⁻¹ (F_bᵀR + F_bᵀF_b W_b)
+        R   ← R − F_b ΔW_b
+
+    so neither the (n, d_feat) features nor the (d_feat, d_feat) Gramian
+    ever exist; what stays resident is X, Y, R, one slab and the
+    epoch-invariant (nb, block, block) Gramian and Cholesky stash. Epoch 1
+    makes each block's Gramian (``first_step``), later epochs reuse the
+    stash (``later_step``). The features are computed in float32 and
+    rounded to ``feat_dtype`` (float32 or bfloat16; float64 takes plain
+    contractions, as ``linalg._bcd_block_update`` does).
+
+    Kernels on CUDA tensors: ``cosine_features`` on the bank's row slice (a
+    view) for every slab, ``gram_corr_sym`` for epoch 1's Gramian and
+    correlation in one launch, ``block_corr`` for later epochs'
+    correlations and ``block_residual_update`` for every step's residual.
+
+    ``center=True`` gives BlockLeastSquares semantics: the block's column
+    sum rides epoch 1's pass (in float32, from bf16 slabs too), its Gramian
+    is centred (G − fsum μᵀ) before it is factored, each correlation is
+    FᵀR − μ(ΣR)ᵀ on the R the step reads, and the residual update adds
+    back μᵀΔW. Returns W (nb, block, k), or (W, fmean, ymean) when centred:
+    predictions are (F − fmean) @ W_flat + ymean.
+
+    ``n_true`` drops the padding rows past it. The reference zeroes their
+    features and residual rows; a view of the first ``n_true`` rows gives
+    the same function. ``mesh`` must be None: the mesh form (rows sharded,
+    one ``psum`` a block step) comes with ``torch.distributed``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "streaming_block_bcd_mesh over a device mesh (rows sharded, one psum a "
+            "block step) is not ported yet: it comes with torch.distributed, ROADMAP "
+            "A.15; mesh=None runs the one-device form"
+        )
+    X = as_tensor(X)
+    dev = X.device
+    Y, Wrf, brf = (as_tensor(t, dev) for t in (Y, Wrf, brf))
+    d_feat = int(Wrf.shape[0])
+    if d_feat % block_size:
+        raise ValueError(f"d_feat {d_feat} not divisible by {block_size}")
+    nb, bs = d_feat // block_size, block_size
+    n = int(X.shape[0]) if n_true is None else int(n_true)
+    X = X[:n].to(torch.float32).contiguous()
+    acc = _acc_dtype(feat_dtype)
+    kernels = acc == torch.float32  # float32 and bf16 slabs; float64 takes plain contractions
+    lam = float(lam)
+
+    R = Y[:n].to(acc, copy=True)
+    ymean = None
+    if center:
+        ymean = R.sum(dim=0) / n
+        R -= ymean
+    W = torch.zeros((nb, bs, R.shape[1]), dtype=acc, device=dev)
+    M = torch.zeros((nb, bs), dtype=acc, device=dev) if center else None
+    # The Gramian and Cholesky stash, allocated once, only where a later
+    # epoch reads it.
+    stash = None
+    if num_iter > 1:
+        stash = [torch.empty((nb, bs, bs), dtype=acc, device=dev) for _ in range(2)]
+
+    for epoch in range(max(int(num_iter), 1)):
+        for b in range(nb):
+            rows = slice(b * bs, (b + 1) * bs)
+            F = cuda_ops.cosine_features(X, Wrf[rows], brf[rows],
+                                         compute_dtype=torch.float32, out_dtype=feat_dtype)
+            if epoch == 0:
+                if kernels:
+                    # R rounded to F's dtype, as the reference's correlation reads it.
+                    gram, corr = cuda_ops.gram_corr_sym(F, R.to(F.dtype))
+                else:
+                    gram, corr = F.T.to(acc) @ F.to(acc), _corr(F, R)
+                if center:
+                    fsum = F.sum(dim=0, dtype=torch.float32).to(acc)
+                    M[b] = fsum / n
+                    gram.addr_(fsum, M[b], alpha=-1)
+                chol = _psd_factor(gram, lam)
+                if stash is not None:
+                    stash[0][b], stash[1][b] = gram, chol
+            else:
+                gram, chol = stash[0][b], stash[1][b]
+                corr = cuda_ops.block_corr(F, 0, bs, R) if kernels else _corr(F, R)
+            if center:
+                corr.addr_(M[b], R.sum(dim=0), alpha=-1)
+            w_new = _solve_psd(gram, corr + gram @ W[b], lam, chol=chol)
+            dw = w_new - W[b]
+            if kernels:
+                R = cuda_ops.block_residual_update(F, 0, bs, dw.to(F.dtype), R)
+            else:
+                R = R - F.to(acc) @ dw.to(F.dtype).to(acc)
+            if center:
+                R += M[b] @ dw
+            W[b] = w_new
+            # Free this slab before the next is made: rebinding F would
+            # hold two (2.1 GB each at 131,072 rows of a 4,096 block).
+            del F
+    if center:
+        return W, M.reshape(d_feat), ymean
+    return W

@@ -85,6 +85,27 @@ def test_module_names_its_counterpart(path):
     )
 
 
+def _reference_exports(rel: str, module: str):
+    """The names a reference package ``__init__`` imports from one of its
+    modules (parsed, not imported)."""
+    tree = ast.parse((ROOT / "keystone_tpu" / rel).read_text())
+    return sorted(alias.name for node in ast.walk(tree)
+                  if isinstance(node, ast.ImportFrom) and node.level == 1 and node.module == module
+                  for alias in node.names)
+
+
+def test_learning_package_exports_the_streaming_tiers():
+    # The streamed tiers' public names, the block-streamed one and the
+    # cosine bank's factory among them, as the reference's learning
+    # package exports them.
+    from keystone_tpu_torch.ops import learning
+
+    names = _reference_exports("ops/learning/__init__.py", "streaming_ls")
+    assert "BlockStreamedLeastSquares" in names and "cosine_bank_featurize" in names
+    for name in names:
+        assert name in learning.__all__ and hasattr(learning, name), name
+
+
 def test_kernel_sources_sit_beside_the_package():
     # gram_corr.cu holds the kernels of four TPU kernels (gram_corr_sym,
     # gram_corr, block_gram_sym and gram_sym_acc).

@@ -723,3 +723,42 @@ class TestGramSymAccOnCard:
         with pytest.raises(TypeError):
             streaming.gram_stats(X.to(cuda_device), Y.to(cuda_device),
                                  lambda X_t: column_major(X_t).double(), 300, 512)
+
+
+@pytest.mark.cuda
+class TestBlockStreamedOnCard:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("center", [False, True])
+    def test_against_the_plain_run(self, cuda_device, dtype, center):
+        # The block-streamed program on the card (cosine_features,
+        # gram_corr_sym, block_corr, block_residual_update) against the same
+        # program through the plain versions on the CPU, ragged rows: the
+        # weights within 1e-4 relative in float32 (reordered float32 sums)
+        # and 5e-3 in bf16 (one-step bf16 rounding flips of features that
+        # agree to float32 rounding; tests/test_torch_block_streamed.py,
+        # whose slab test holds that the program honours feat_dtype, since
+        # the weights alone cannot).
+        from keystone_tpu_torch.parallel import streaming
+
+        rng = np.random.default_rng(5)
+        X = torch.from_numpy(rng.normal(size=(3000, 40)).astype(np.float32))
+        Y = torch.from_numpy((np.cos(X.numpy() @ rng.normal(size=(40, 7)) * 0.2)
+                              + 0.5).astype(np.float32))
+        Wrf = torch.from_numpy((0.2 * rng.normal(size=(512, 40))).astype(np.float32))
+        brf = torch.from_numpy(rng.uniform(0, 2 * np.pi, 512).astype(np.float32))
+        kw = dict(block_size=128, lam=1e-2, num_iter=3, n_true=2987, feat_dtype=dtype,
+                  center=center)
+        want = streaming.streaming_block_bcd_mesh(X, Y, Wrf, brf, **kw)
+        before = dict(cuda_ops.launches)
+        got = streaming.streaming_block_bcd_mesh(
+            *(t.to(cuda_device) for t in (X, Y, Wrf, brf)), **kw)
+        torch.cuda.synchronize()
+        launched = {name: cuda_ops.launches[name] - before[name]
+                    for name in ("cosine_features", "gram_corr_sym", "block_corr",
+                                 "block_residual_update")}
+        assert launched == {"cosine_features": 12, "gram_corr_sym": 4, "block_corr": 8,
+                            "block_residual_update": 12}
+        got, want = (got, want) if center else ((got,), (want,))
+        tol = 1e-4 if dtype == torch.float32 else 5e-3
+        for g, w in zip(got, want, strict=True):
+            assert float((g.cpu() - w).norm() / w.norm()) <= tol
