@@ -154,7 +154,34 @@ per source, all started together), then:
          ``block_residual_update`` on one float32 block slab of 589,824 x
          4,096 = 2.42e9 elements (past 2^31, the north-star n's slab): the
          row-local outputs of the last 4,096 rows and the reductions over
-         the whole slab against their plain versions.
+         the whole slab against their plain versions; before that, and on
+         a slab of the north star's 2,200,000 rows (36 GB), the cosine
+         Gramian and correlation of ``gram_corr_sym`` against float64 sums
+         made on the card, each at most 1.25 times as far from them as
+         cuBLAS's float32 ones in the same run.
+ 13. runs MnistRandomFFT: small on the card against its plain run on the
+     CPU, then through ``keystone_tpu_torch.pipelines.mnist_random_fft.run``
+     at its own width (784 inputs, 4 random-sign padded FFTs of 1,024, 2,048
+     features, block 2,048, 1 epoch, λ 0; 60,000 training and 10,000 test
+     rows of ``synthetic_mnist``), apply first (the reference's order: one
+     ``gram_corr_sym`` launch at A 60,000 x 2,048, k = 10) and fit first
+     (one launch each of ``block_gram_sym``, ``block_corr`` and
+     ``block_residual_update``), launches counted from 0, the gather's
+     packed FFT checked, the weights held against the same route with its
+     kernels swapped for their plain versions on the card, errors, fit and
+     apply seconds and peak memory logged; then ``gram_corr_sym`` alone at
+     that shape against its plain version, library call and bound.
+ 14. runs AmazonReviewsPipeline: its L-BFGS on the card against the CPU on
+     2,000 documents (the loss after every step within 1e-5 relative), then
+     through ``keystone_tpu_torch.pipelines.amazon_reviews.run`` on 200,000
+     training and 50,000 test ``synthetic_documents`` (2-grams, 1,000
+     common features, 20 iterations), host seconds by stage apart from the
+     L-BFGS's device seconds, its steps, final loss and accuracy; no kernel
+     is launched.
+
+Phase 1 also times each bf16 form beside its library call (bf16 operands
+through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
+bf16 and float32 forms against float64 sums on one Amazon chunk.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -229,10 +256,14 @@ WIDE_PEAK_OVER_PRICED = 0.20
 # shard of them): 589,824 x 4,096 = 2.42e9 elements, past 2^31.
 BIG_N = 589824
 # gram_corr_sym's float32 sums of BIG_N cosine products against float64
-# ones on the card, as max |err| / max |f64|, twice the readings (H100
-# 80GB HBM3, 700 W): Gramian 2.853e-4 (cuBLAS's 1.033e-4), correlation
-# 3.255e-5 (cuBLAS's 4.409e-6).
+# ones on the card, as max |err| / max |f64|: at most F64_OVER_CUBLAS times
+# cuBLAS's float32 reading in the same run, and under these limits (twice
+# the readings of one fmaf chain an entry, H100 80GB HBM3, 700 W: Gramian
+# 2.853e-4, correlation 3.255e-5; cuBLAS's 1.033e-4 and 4.409e-6). Also at
+# the north star's NORTH_N rows: a 36 GB float32 slab of BLOCK columns.
 GRAM_F64_TOL, CORR_F64_TOL = 6e-4, 7e-5
+F64_OVER_CUBLAS = 1.25
+NORTH_N = 2200000
 
 # The CIFAR slice at its own width (keystone_tpu/pipelines/cifar.py): 50,000
 # training and 12,500 test images of 32 x 32 x 3, 100 filters of 6 x 6 x 3
@@ -266,6 +297,28 @@ SKETCH_M, SKETCH_OUTER, SKETCH_PCG, SKETCH_SEED = 2 * (AMAZON_D + 1), 3, 12, 7
 # The CountSketch kernel's small check geometry (bench.py:1445-1481).
 CS_SMALL = (2048, 16, 512, 256)
 
+# MnistRandomFFT at its own width (keystone_tpu/pipelines/mnist_random_fft.py):
+# 784 inputs, 4 random-sign padded FFTs of width 1,024 (512 real bins each:
+# 2,048 features), one block of 2,048, 1 epoch, λ 0, 10 classes; 60,000
+# training and 10,000 test rows of synthetic_mnist. Apply first (the
+# reference's run) the fit is one gram_corr_sym launch; fit first it is one
+# launch of each window kernel (the reference's Pallas kernels traced on the
+# CPU: the same).
+MNIST_N, MNIST_TEST, MNIST_FFTS, MNIST_BLOCK, MNIST_K = 60000, 10000, 4, 2048, 10
+MNIST_LAUNCHES = {
+    False: {"gram_corr_sym": 1},
+    True: {"block_gram_sym": 1, "block_corr": 1, "block_residual_update": 1},
+}
+# AmazonReviewsPipeline on synthetic_documents: 200,000 training and 50,000
+# test documents, 2-grams, 1,000 common features, 20 L-BFGS iterations; its
+# L-BFGS held card against CPU on the first 2,000 documents.
+AMAZON_DOCS, AMAZON_FEATURES, AMAZON_LR_ITERS, AMAZON_SMALL = 200000, 1000, 20, 2000
+# Per-step loss of the card's L-BFGS against the CPU's: the tolerance the CPU
+# tests hold the port to the reference with on the pipeline's own features
+# (tests/test_torch_amazon_slice.py, 2,000 documents: 9.96e-5 measured at
+# the last step; the documents are separable and the loss falls 5,000x).
+LBFGS_TOL = 2e-4
+
 # Each kernel, and the main-path route whose launches the JSON line reports.
 FLAT, STACKED = "timit fused flat fit (fit first)", "timit stacked fit (apply first)"
 STREAMED = "timit streamed fit (--solver streaming)"
@@ -277,6 +330,9 @@ AUTO_RESIDENT = "timit --solver auto, resident: the block chain (fit first)"
 AUTO_WALL = "timit --solver auto, past the memory wall: the streamed fit (fit first)"
 WIDE_AUTO = "timit --solver auto at d = 204,800: the block-streamed tier (fit first)"
 BLOCK_RESIDENT = "BlockStreamedLeastSquares on phase 2's rows against --solver block"
+MNIST_APPLY_FIRST = "mnist MnistRandomFFT (apply first, the reference's run)"
+MNIST_FIT_FIRST = "mnist MnistRandomFFT (fit first)"
+AMAZON_TEXT = "amazon AmazonReviewsPipeline (text front end, logistic L-BFGS)"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -415,6 +471,17 @@ def bound_ms(nbytes, flops, peak_flops):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def bf16_mm(a, b, c=None, **kw):
+    """The library yardstick of a bf16-operand form: ``c + a @ b`` (``c``
+    None: zeros, not added) on the tensor cores, bf16 operands (a float32
+    one rounded to bf16) accumulating into and returning float32."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if c is None:
+        c = torch.zeros((a.shape[0], b.shape[1]), device=a.device)
+        kw["beta"] = 0
+    return torch.addmm(c, a, b, out_dtype=torch.float32, **kw)
+
+
 def sass_count(cuda_ops, name, opcode):
     """The number of SASS instructions naming ``opcode`` in a built kernel
     library (``cuobjdump -sass``), or None where the toolkit lacks it."""
@@ -502,7 +569,8 @@ def phase_kernels(cuda_ops):
     r["library_ms"] = time_ms(lambda: torch.cos(torch.addmm(b, X, W.T)), 10)
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
     X16, W16 = X.to(torch.bfloat16), W.to(torch.bfloat16)
-    bf16_ms = time_ms(lambda: cuda_ops.cosine_features(X16, W16, b), 5)
+    bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.cosine_features(X16, W16, b), 5)
+    r["bf16_library_ms"] = time_ms(lambda: torch.cos(bf16_mm(X16, W16.T, b)), 5)
     bf16_bound, _ = bound_ms(2 * (m * d + n * d) + 4 * (n + m * n), flops, PEAK_BF16_FLOPS)
     # The flat route's call: the branch written into its column window of
     # the (m, 4 n) fused feature matrix.
@@ -517,8 +585,8 @@ def phase_kernels(cuda_ops):
     log(f"  cosine_features f32: {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms on the device "
         f"(into the fused matrix's window {r['window_ms']:.3f}; plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"bf16 operands: {bf16_ms:.3f} ms (bound {bf16_bound:.3f}); grid {grid['tiles']} "
-        f"tiles, {grid_line(grid)}")
+        f"bf16 operands: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f}, bound "
+        f"{bf16_bound:.3f}); grid {grid['tiles']} tiles, {grid_line(grid)}")
     check("cosine_features spills nothing", grid["local_bytes"] == 0,
           f"{grid['local_bytes']} local bytes a thread, {grid['registers']} registers")
 
@@ -559,11 +627,13 @@ def phase_kernels(cuda_ops):
     r["library_ms"] = time_ms(lambda: (A.T @ A, A.T @ R), 5)
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
     A16 = A.to(torch.bfloat16)
-    bf16_ms = time_ms(lambda: cuda_ops.gram_corr_sym(A16, R), 3)
+    bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.gram_corr_sym(A16, R), 3)
+    r["bf16_library_ms"] = time_ms(lambda: (bf16_mm(A16.T, A16), bf16_mm(A16.T, R)), 3)
     bf16_bound, _ = bound_ms(2 * m * d + 4 * (m * k + d * d + d * k), flops, PEAK_BF16_FLOPS)
     log(f"  gram_corr_sym f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"bf16 operands: {bf16_ms:.3f} ms (bound {bf16_bound:.3f})")
+        f"bf16 operands: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f}, bound "
+        f"{bf16_bound:.3f})")
     results["gram_corr"] = phase_gram_corr(cuda_ops, A, R)
     del A, A16, R
     torch.cuda.empty_cache()
@@ -608,10 +678,11 @@ def phase_gram_corr(cuda_ops, A, R):
     r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * d + m * k + d * d + d * k),
                                             m * d * (d + 1) + 2 * m * d * k, PEAK_F32_FLOPS)
     A16 = A.to(torch.bfloat16)
-    bf16_ms = time_ms(lambda: cuda_ops.gram_corr(A16, R), 3)
+    bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.gram_corr(A16, R), 3)
+    r["bf16_library_ms"] = time_ms(lambda: (bf16_mm(A16.T, A16), bf16_mm(A16.T, R)), 3)
     log(f"  gram_corr f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
         f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); bf16 "
-        f"operands: {bf16_ms:.3f} ms")
+        f"operands: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f})")
     r["grid"] = {}
     for label, Ak in (("f32", A), ("bf16", A16)):
         grid = cuda_ops.gram_corr_grid(Ak, k)
@@ -805,10 +876,14 @@ def phase_window_kernels(cuda_ops, gen):
               and grid["registers"] <= 128,
               f"{grid['blocks']} blocks, {grid['local_bytes']} local bytes, "
               f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
+    Fw16 = F16[:, s:s + b]
     bf16_calls = {
-        "block_gram_sym": lambda: cuda_ops.block_gram_sym(F16, s, b),
-        "block_corr": lambda: cuda_ops.block_corr(F16, s, b, R),
-        "block_residual_update": lambda: cuda_ops.block_residual_update(F16, s, b, dW, R),
+        # (kernel, library call)
+        "block_gram_sym": (lambda: cuda_ops.block_gram_sym(F16, s, b),
+                           lambda: bf16_mm(Fw16.T, Fw16)),
+        "block_corr": (lambda: cuda_ops.block_corr(F16, s, b, R), lambda: bf16_mm(Fw16.T, R)),
+        "block_residual_update": (lambda: cuda_ops.block_residual_update(F16, s, b, dW, R),
+                                  lambda: bf16_mm(Fw16, dW, R, alpha=-1)),
     }
     for name, (kernel, plain, library, nbytes, flops) in yardsticks.items():
         r = results[name]
@@ -816,10 +891,11 @@ def phase_window_kernels(cuda_ops, gen):
         r["plain_ms"] = time_ms(plain, 5)
         r["library_ms"] = time_ms(library, 5)
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
-        bf16_ms = time_ms(bf16_calls[name], 3)
+        r["bf16_ms"] = time_ms(bf16_calls[name][0], 3)
+        r["bf16_library_ms"] = time_ms(bf16_calls[name][1], 3)
         log(f"  {name} f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
             f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-            f"bf16 F: {bf16_ms:.3f} ms")
+            f"bf16 F: {r['bf16_ms']:.3f} ms (library {r['bf16_library_ms']:.3f})")
     r = results["block_corr"]
     r["grid"] = {}
     for label, bf16 in (("f32", False), ("bf16", True)):
@@ -842,7 +918,7 @@ def phase_window_kernels(cuda_ops, gen):
     check("block_residual_update stages each window tile once and masks at most 10% of its "
           "label FMAs", grid["label_tiles"] == 1 and grid["masked"] <= 0.10,
           f"{grid['label_tiles']} label tile, {grid['masked']:.1%} masked at k = {k}")
-    del F, F16, Fw, R, dW
+    del F, F16, Fw, Fw16, R, dW
     torch.cuda.empty_cache()
     return results
 
@@ -890,10 +966,12 @@ def phase_gram_sym_acc(cuda_ops, gen):
     r["bound_ms"], r["bound_by"] = bound_ms(4 * (n * d + 2 * d * d), flops, PEAK_F32_FLOPS)
     F16 = F.to(torch.bfloat16)
     bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.gram_sym_acc(G, F16, out=G), 3)
+    r["bf16_library_ms"] = time_ms(lambda: bf16_mm(F16.T, F16, G0), 3)
     bf16_bound, _ = bound_ms(2 * n * d + 8 * d * d, flops, PEAK_BF16_FLOPS)
     log(f"  gram_sym_acc f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"bf16 F: {bf16_ms:.3f} ms (bound {bf16_bound:.3f})")
+        f"bf16 F: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f}, bound "
+        f"{bf16_bound:.3f})")
     r["grid"] = {}
     for label, Fk in (("f32", F), ("bf16", F16)):
         grid = r["grid"][label] = cuda_ops.gram_sym_acc_grid(Fk)
@@ -925,6 +1003,46 @@ def f32_slab(F):
     fold's float32 slabs, which the kernel copies in 16-byte chunks."""
     n, d = F.shape
     return torch.zeros((n, -(-d // 4) * 4), device=F.device)[:, :d].copy_(F)
+
+
+def acc_f64_reading(cuda_ops, F16, F32, R, G0, C0, upper):
+    """How far the sparse fold's step is from float64 sums on one Amazon
+    chunk, as max |got - f64| / max |f64| over the upper tiles (G) and
+    over C: the bf16 form (TMA + ``wgmma``, the tensor cores' adds) against
+    ``G0 + F16ᵀF16`` with R rounded to bf16, beside the same products by
+    ``addmm`` with bf16 operands and float32 output; the float32 form
+    (``gram_tile.cuh``'s row chunks) against ``G0 + FᵀF`` beside two float32
+    ``addmm``. The float64 sums are made on the card in 8,192-row chunks."""
+    R16 = R.to(torch.bfloat16)
+    out = {}
+    for label, Fs, Rs in (("bf16", F16, R16), ("f32", F32, R)):
+        g64, c64 = G0.double(), C0.double()
+        for start in range(0, Fs.shape[0], 8192):
+            Fc = Fs[start:start + 8192].double()
+            g64.addmm_(Fc.T, Fc)
+            c64.addmm_(Fc.T, Rs[start:start + 8192].double())
+        del Fc
+        g_max, c_max = g64[upper].abs().max(), c64.abs().max()
+
+        def rel(got, want_max=g_max, g64=g64, c64=c64):
+            g, c = got
+            return ((g.double() - g64)[upper].abs().max() / want_max).item(), (
+                (c.double() - c64).abs().max() / c_max).item()
+
+        kernel = rel(cuda_ops.gram_corr_sym_acc(G0, C0, Fs, R))
+        if label == "bf16":
+            library = rel((bf16_mm(F16.T, F16, G0), bf16_mm(F16.T, R16, C0)))
+        else:
+            library = rel((torch.addmm(G0, F32.T, F32), torch.addmm(C0, F32.T, R)))
+        out[label] = dict(kernel_gram=kernel[0], kernel_corr=kernel[1],
+                          library_gram=library[0], library_corr=library[1])
+        log(f"  gram_corr_sym_acc {label} F against float64 sums (max |err| / max |f64|): "
+            f"kernel G {kernel[0]:.3e}, C {kernel[1]:.3e}; library (addmm) G "
+            f"{library[0]:.3e}, C {library[1]:.3e}")
+        del g64, c64
+    check("gram_corr_sym_acc is finite against float64 sums",
+          all(np.isfinite(v) for row in out.values() for v in row.values()), f"{out}")
+    return out
 
 
 def phase_gram_corr_sym_acc(cuda_ops, gen):
@@ -992,6 +1110,7 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
         if label.startswith("f32 at the fold"):
             f32_err = max(g_err, c_err)
         del Fk, want_g, want_c, g_scale, c_scale, fresh, G, C, g_diff, c_diff
+    f64 = acc_f64_reading(cuda_ops, F16, F32, R, G0, C0, upper)
     del upper, f32_first
     torch.cuda.empty_cache()
     flops = c * d1 * (d1 + 1) + 2 * c * d1 * k  # upper triangle (syrk) + correlation
@@ -1018,7 +1137,7 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
                                        PEAK_F32_FLOPS)
     r.update(f32_ms=f32_ms, f32_unaligned_ms=f32_unaligned_ms, f32_plain_ms=f32_plain_ms,
              f32_library_ms=f32_library_ms, f32_bound_ms=f32_bound, f32_bound_by=f32_bound_by,
-             f32_max_abs_err=f32_err, f32_grid={})
+             f32_max_abs_err=f32_err, f32_grid={}, vs_f64=f64)
     log(f"  gram_corr_sym_acc bf16 F {c}x{d1} (row stride {F16.stride(0)}), R {c}x{k}: "
         f"{r['ms']:.3f} ms, {flops / r['ms'] / 1e9:.1f} TFLOP/s (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
@@ -1733,12 +1852,13 @@ def phase_past_2_31(cuda_ops):
 
 
 def cosine_gram_f64(cuda_ops, F, gen):
-    """Phase 12(d)'s precision reading on the cosine slab: the kernel's
+    """Phase 12(d)'s precision reading on a cosine slab: the kernel's
     Gramian and correlation (``gram_corr_sym``) and cuBLAS's (the plain
     version, FP32 without TF32) each held against float64 sums made on the
     card in 65,536-row chunks, as max |got - f64| / max |f64|. Integer
     operands show the addressing; this shows how far each float32 sum of
-    BIG_N terms is from the true one."""
+    n terms is from the true one. The kernel's must be at most
+    F64_OVER_CUBLAS times cuBLAS's, and under the absolute limits."""
     n, b = F.shape
     R = torch.randn((n, K), generator=gen, device=F.device)
     gram64 = torch.zeros((b, b), dtype=torch.float64, device=F.device)
@@ -1753,20 +1873,321 @@ def cosine_gram_f64(cuda_ops, F, gen):
         return ((got.double() - want).abs().max() / want.abs().max()).item()
 
     gram, corr = cuda_ops.gram_corr_sym(F, R)
-    out = dict(kernel_gram=rel(gram, gram64), kernel_corr=rel(corr, corr64))
+    out = dict(rows=n, kernel_gram=rel(gram, gram64), kernel_corr=rel(corr, corr64))
     del gram, corr
     gram, corr = cuda_ops.gram_corr_sym_ref(F, R)
     out.update(cublas_gram=rel(gram, gram64), cublas_corr=rel(corr, corr64))
     del gram, corr, gram64, corr64, R
+    out.update(gram_over_cublas=out["kernel_gram"] / out["cublas_gram"],
+               corr_over_cublas=out["kernel_corr"] / out["cublas_corr"])
     log(f"  (d) cosine-valued Gramian and correlation of the {n}x{b} slab against float64 "
         f"sums (max |err| / max |f64|): gram_corr_sym {out['kernel_gram']:.3e} and "
         f"{out['kernel_corr']:.3e}, cuBLAS {out['cublas_gram']:.3e} and "
-        f"{out['cublas_corr']:.3e}")
-    check(f"gram_corr_sym past 2^31, cosine values: within {GRAM_F64_TOL:.0e} (Gramian) and "
-          f"{CORR_F64_TOL:.0e} (correlation) of float64 sums",
-          out["kernel_gram"] <= GRAM_F64_TOL and out["kernel_corr"] <= CORR_F64_TOL,
-          f"Gramian {out['kernel_gram']:.3e}, correlation {out['kernel_corr']:.3e}")
+        f"{out['cublas_corr']:.3e} (kernel over cuBLAS {out['gram_over_cublas']:.3f} and "
+        f"{out['corr_over_cublas']:.3f})")
+    check(f"gram_corr_sym on {n} rows of cosine values: within {F64_OVER_CUBLAS}x cuBLAS's "
+          f"distance from float64 sums, and within {GRAM_F64_TOL:.0e} (Gramian) and "
+          f"{CORR_F64_TOL:.0e} (correlation)",
+          out["gram_over_cublas"] <= F64_OVER_CUBLAS and out["corr_over_cublas"]
+          <= F64_OVER_CUBLAS and out["kernel_gram"] <= GRAM_F64_TOL
+          and out["kernel_corr"] <= CORR_F64_TOL,
+          f"Gramian {out['kernel_gram']:.3e} ({out['gram_over_cublas']:.3f}x cuBLAS), "
+          f"correlation {out['kernel_corr']:.3e} ({out['corr_over_cublas']:.3f}x cuBLAS)")
     return out
+
+
+def phase_north_star_f64(cuda_ops):
+    """Phase 12(d) at the north star's n: ``cosine_features`` writes one
+    float32 block slab of NORTH_N x BLOCK (36 GB) and ``gram_corr_sym``'s
+    sums of it are held against float64 ones (``cosine_gram_f64``)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    X = torch.randn((NORTH_N, D_IN), generator=gen, device=dev) * 0.6
+    W = torch.randn((BLOCK, D_IN), generator=gen, device=dev) * 0.05555
+    bias = torch.rand((BLOCK,), generator=gen, device=dev) * 6.283185307179586
+    F = cuda_ops.cosine_features(X, W, bias)
+    del X
+    out = cosine_gram_f64(cuda_ops, F, gen)
+    del F
+    torch.cuda.empty_cache()
+    return out
+
+
+def plain_kernels(cuda_ops, names):
+    """A context in which each wrapper of ``names`` is its plain version
+    (``*_ref``, cuBLAS on the card): a route run inside it is the same
+    program with those kernels swapped out, and counts no launch."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = {name: getattr(cuda_ops, name) for name in names}
+        try:
+            for name in names:
+                setattr(cuda_ops, name, getattr(cuda_ops, f"{name}_ref"))
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(cuda_ops, name, fn)
+
+    return swapped()
+
+
+def _mnist_weights(result):
+    from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+
+    (m,) = [o for o in result.fitted.transformer_graph.operators.values()
+            if isinstance(o, BlockLinearMapper)]
+    return torch.cat([x.float() for x in m.xs])
+
+
+def _uses_packed_fft(result):
+    from keystone_tpu_torch.workflow.fusion import FusedGatherTransformer
+
+    ops = list(result.fitted.transformer_graph.operators.values())
+    fused = [o for o in ops if isinstance(o, FusedGatherTransformer)]
+    for o in ops:  # a gather fused into the fit (fit first)
+        fused += [m for m in getattr(o, "members", []) if isinstance(m, FusedGatherTransformer)]
+    return bool(fused) and all(f.uses_packed_fft for f in fused)
+
+
+def phase_mnist(cuda_ops):
+    """Phase 13: MnistRandomFFT. Small on the card against its plain run on
+    the CPU (the same errors), then at its own width through ``run``: apply
+    first (the reference's order: one ``gram_corr_sym`` launch at A 60,000 x
+    2,048, k = 10) and fit first (one launch of each window kernel),
+    launches counted from 0. One block and one epoch make the fit an exact
+    least-squares solve, so each route's weights are held against float64:
+    the solve of the float64 normal equations of the route's own float32
+    features (``mnist_f64``), at most F64_OVER_CUBLAS times as far from it
+    as the same route with its kernels swapped for their plain versions
+    (cuBLAS) on the card. Then ``gram_corr_sym`` alone at that shape."""
+    from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    env = PipelineEnv.get_or_create()
+    # Two blocks, one epoch: not an exact solve, and the card's float32 and
+    # the CPU's round differently, so the small runs are held by their errors.
+    small = mnist.MnistRandomFFTConfig(num_ffts=2, block_size=512, synthetic_n=2048)
+    card, cpu = [], []
+    for dev, into in (("cuda", card), ("cpu", cpu)):
+        env.reset()
+        r = mnist.run(small, device=dev)
+        into += [_mnist_weights(r).cpu(), (r.train_eval.total_error, r.test_eval.total_error)]
+    check("MnistRandomFFT small (2 FFTs, 2,048 rows), card against CPU", card[1] == cpu[1],
+          f"train and test errors {card[1]} and {cpu[1]} equal; weights "
+          f"{_rel(card[0], cpu[0]):.2e} apart")
+
+    config = mnist.MnistRandomFFTConfig(num_ffts=MNIST_FFTS, block_size=MNIST_BLOCK,
+                                        synthetic_n=MNIST_N, synthetic_test_n=MNIST_TEST)
+    shape = mnist_f64(cuda_ops, config)
+    W64 = shape.pop("W64")
+    routes = {}
+    for fit_first in (False, True):
+        label = MNIST_FIT_FIRST if fit_first else MNIST_APPLY_FIRST
+        env.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cuda_ops.reset_launch_counts()
+        result = mnist.run(config, device="cuda", fit_first=fit_first)
+        counts = dict(cuda_ops.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+        want = {name: MNIST_LAUNCHES[fit_first].get(name, 0) for name in counts}
+        W = _mnist_weights(result)
+        env.reset()
+        with plain_kernels(cuda_ops, list(MNIST_LAUNCHES[fit_first])):
+            W_plain = _mnist_weights(mnist.run(config, device="cuda", fit_first=fit_first))
+        env.reset()
+        err, err_plain = _rel(W, W64), _rel(W_plain, W64)
+        errs = (result.train_eval.total_error, result.test_eval.total_error)
+        log(f"  {label}: n={MNIST_N}, d={W.shape[0]}, k={MNIST_K}, block {MNIST_BLOCK}: train "
+            f"error {100 * errs[0]:.3f}%, test error {100 * errs[1]:.3f}%, "
+            f"{'fit' if fit_first else 'fit + train apply'} {result.fit_seconds:.3f} s, "
+            f"{'apply (train + test)' if fit_first else 'test apply'} "
+            f"{result.apply_seconds:.3f} s, peak allocated by the run {peak / 2**30:.2f} GiB, "
+            f"launches {counts}; weights from float64's {err:.3e} (the plain versions' "
+            f"{err_plain:.3e})")
+        check(f"{label} launches", counts == want, f"{counts}, expected {want}")
+        check(f"{label}: the gather lowers to the packed FFT", _uses_packed_fft(result),
+              "uses_packed_fft on every fused gather")
+        check(f"{label}: weights within {F64_OVER_CUBLAS}x the plain versions' distance from "
+              f"float64", bool(torch.isfinite(W).all()) and err <= F64_OVER_CUBLAS * err_plain,
+              f"{err:.3e} against {err_plain:.3e} relative Frobenius")
+        check(f"{label} metrics", result.train_eval.total == MNIST_N
+              and result.test_eval.total == MNIST_TEST and errs[1] < 0.5,
+              f"every row scored, test error {100 * errs[1]:.3f}% below 50%")
+        routes[label] = dict(fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
+                             peak_allocated_bytes=peak, train_error=errs[0], test_error=errs[1],
+                             weights_from_f64=err, plain_weights_from_f64=err_plain,
+                             launches=counts)
+        del result, W, W_plain
+    routes["gram_corr_sym"] = shape
+    torch.cuda.empty_cache()
+    return routes
+
+
+def mnist_f64(cuda_ops, config):
+    """``gram_corr_sym`` at the MNIST fit's shape: the centred 60,000 x 2,048
+    features of the packed gather and the centred ±1 labels (k = 10). Its
+    Gramian and correlation and cuBLAS's against float64 sums of the same
+    float32 operands (max |err| / max |f64|; the kernel's at most
+    F64_OVER_CUBLAS times cuBLAS's), its time against its plain version,
+    library call and bound, and its grid. Returns those, and W64: the
+    float64 solve of the centred normal equations, the weights an exact
+    fit of these features gives."""
+    from keystone_tpu_torch.data.loaders import synthetic_mnist
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+    from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
+
+    train = synthetic_mnist(MNIST_N, seed=config.seed, device="cuda")
+    A = mnist.build_featurizer(config, "cuda").apply(train.data).get().array
+    A = A - A.mean(dim=0)
+    R = ClassLabelIndicatorsFromIntLabels(MNIST_K)(train.labels).array
+    R = R - R.mean(dim=0)
+    m, d = A.shape
+    k = R.shape[1]
+    G64, C64 = A.double().T @ A.double(), A.double().T @ R.double()
+
+    def rel(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    gram, corr = cuda_ops.gram_corr_sym(A, R)
+    r = dict(rows=m, d=d, k=k, kernel_gram=rel(gram, G64), kernel_corr=rel(corr, C64))
+    gram, corr = cuda_ops.gram_corr_sym_ref(A, R)
+    r.update(cublas_gram=rel(gram, G64), cublas_corr=rel(corr, C64))
+    log(f"  gram_corr_sym at the MNIST shape, A {m}x{d}, R {m}x{k}, against float64 sums "
+        f"(max |err| / max |f64|): Gramian {r['kernel_gram']:.3e}, correlation "
+        f"{r['kernel_corr']:.3e}; cuBLAS {r['cublas_gram']:.3e} and {r['cublas_corr']:.3e}")
+    check(f"gram_corr_sym at the MNIST fit's shape: within {F64_OVER_CUBLAS}x cuBLAS's distance "
+          f"from float64 sums", r["kernel_gram"] <= F64_OVER_CUBLAS * r["cublas_gram"]
+          and r["kernel_corr"] <= F64_OVER_CUBLAS * r["cublas_corr"],
+          f"Gramian {r['kernel_gram'] / r['cublas_gram']:.3f}x, correlation "
+          f"{r['kernel_corr'] / r['cublas_corr']:.3f}x cuBLAS's")
+    W64 = torch.linalg.solve(G64, C64)
+    del gram, corr, G64, C64
+    r["ms"] = time_ms(lambda: cuda_ops.gram_corr_sym(A, R), 10)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.gram_corr_sym_ref(A, R), 10)
+    r["library_ms"] = time_ms(lambda: (A.T @ A, A.T @ R), 10)
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * d + m * k + d * d + d * k),
+                                            m * d * (d + 1) + 2 * m * d * k, PEAK_F32_FLOPS)
+    grid = r["grid"] = cuda_ops.gram_corr_grid(A, k)
+    log(f"  gram_corr_sym at the MNIST shape: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+        f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}, "
+        f"{r['bound_ms'] / r['ms']:.0%} of it); grid {grid['corr_blocks']} correlation blocks "
+        f"({grid['ktile']}-wide label tile, {grid['masked']:.1%} masked) and "
+        f"{grid['gram_blocks']} Gramian tiles: {grid_line(grid)}")
+    del A, R, train
+    r["W64"] = W64
+    return r
+
+
+class _StageClock:
+    """Wall seconds by stage of the Amazon pipeline: each wrapped method's
+    calls summed under its stage (host stages end where their output is a
+    host object; the L-BFGS ends in a device synchronize)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._saved = []
+
+    def wrap(self, owner, attr, stage, sync=False):
+        fn = getattr(owner, attr)
+        clock = self
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            clock.seconds[stage] = clock.seconds.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+
+        self._saved.append((owner, attr, owner.__dict__.get(attr)))
+        setattr(owner, attr, timed)
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._saved):
+            if fn is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, fn)
+
+
+def phase_amazon():
+    """Phase 14: AmazonReviewsPipeline. Its L-BFGS on the card against the
+    port's CPU run on the first AMAZON_SMALL documents (the loss after
+    every step within LBFGS_TOL), then the pipeline through ``run`` on
+    AMAZON_DOCS training and a quarter as many test documents: host seconds
+    by stage (text nodes, term counts, feature selection, vectorizing,
+    densifying) apart from the L-BFGS's device seconds, its steps, final
+    loss and the accuracy. No hand-written kernel is on this path: every
+    launch count stays 0."""
+    from keystone_tpu_torch.ops import nlp, sparse
+    from keystone_tpu_torch.ops.learning import classifiers
+    from keystone_tpu_torch.ops.stats import TermFrequency
+    from keystone_tpu_torch.pipelines import amazon_reviews as amazon
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.ops import cuda_ops
+
+    env = PipelineEnv.get_or_create()
+    small = amazon.AmazonReviewsConfig(synthetic_n=AMAZON_SMALL,
+                                       common_features=AMAZON_FEATURES,
+                                       num_iters=AMAZON_LR_ITERS)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        env.reset()
+        fits[dev] = amazon.run(small, device=dev).estimator.last_fit
+    card, cpu = fits["cuda"], fits["cpu"]
+    worst = max((abs(a - b) / abs(b) for a, b in zip(card.losses, cpu.losses)), default=0.0)
+    check(f"AmazonReviewsPipeline small ({AMAZON_SMALL} documents): the card's L-BFGS losses "
+          f"against the CPU's", card.iterations == cpu.iterations and worst <= LBFGS_TOL,
+          f"{card.iterations} and {cpu.iterations} steps, largest relative gap of the loss "
+          f"after a step {worst:.2e} (tol {LBFGS_TOL:.0e})")
+
+    clock = _StageClock()
+    for owner, attr, stage in (
+        (nlp.Trim, "batch_apply", "text nodes"), (nlp.LowerCase, "batch_apply", "text nodes"),
+        (nlp.Tokenizer, "batch_apply", "text nodes"),
+        (nlp.NGramsFeaturizer, "batch_apply", "text nodes"),
+        (TermFrequency, "batch_apply", "term counts"),
+        (sparse.CommonSparseFeatures, "fit", "feature selection"),
+        (sparse.SparseFeatureVectorizer, "batch_apply", "vectorize"),
+    ):
+        clock.wrap(owner, attr, stage)
+    clock.wrap(classifiers, "_dense_on", "densify", sync=True)
+    clock.wrap(classifiers, "logistic_lbfgs", "L-BFGS (device)", sync=True)
+    config = amazon.AmazonReviewsConfig(synthetic_n=AMAZON_DOCS, common_features=AMAZON_FEATURES,
+                                        num_iters=AMAZON_LR_ITERS)
+    env.reset()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = amazon.run(config, device="cuda")
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    env.reset()
+    fit = result.estimator.last_fit
+    stages = {k: round(v, 3) for k, v in clock.seconds.items()}
+    log(f"  {AMAZON_TEXT}: {AMAZON_DOCS} training and {AMAZON_DOCS // 4} test documents, "
+        f"{AMAZON_FEATURES} features, {AMAZON_LR_ITERS} iterations: run {wall:.3f} s (data "
+        f"generation included; fit + train apply {result.fit_seconds:.3f} s, test apply "
+        f"{result.apply_seconds:.3f} s); by stage {stages}; L-BFGS {fit.iterations} steps, "
+        f"final loss {fit.loss:.6g}, trial steps {fit.linesearch_steps}; accuracy train "
+        f"{100 * result.train_eval.accuracy:.3f}%, test {100 * result.test_eval.accuracy:.3f}%")
+    check(f"{AMAZON_TEXT} launches no kernel", not any(counts.values()), f"{counts}")
+    check(f"{AMAZON_TEXT} metrics", np.isfinite(fit.loss) and fit.iterations >= 1
+          and result.test_eval.tp + result.test_eval.fp + result.test_eval.tn
+          + result.test_eval.fn == AMAZON_DOCS // 4 and result.test_eval.accuracy > 0.5,
+          f"finite loss, {fit.iterations} steps, every test document scored, test accuracy "
+          f"{100 * result.test_eval.accuracy:.3f}% above 50%")
+    return dict(documents=AMAZON_DOCS, test_documents=AMAZON_DOCS // 4, run_seconds=wall,
+                fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
+                stage_seconds=stages, iterations=fit.iterations, final_loss=fit.loss,
+                losses=fit.losses, train_accuracy=result.train_eval.accuracy,
+                test_accuracy=result.test_eval.accuracy, small_loss_gap=worst)
 
 
 def _conv_chunk_rows(fusion):
@@ -1872,11 +2293,15 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
         PEAK_F32_FLOPS)
     r["device_ms"] = device_ms(lambda: cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g), 10)
     X16, Y16 = X.to(torch.bfloat16), Y.to(torch.bfloat16)
-    bf16_ms = time_ms(lambda: cuda_ops.gaussian_resid_block(X16, Y16, xn, yn, W, g), 5)
+    bf16_ms = r["bf16_ms"] = time_ms(
+        lambda: cuda_ops.gaussian_resid_block(X16, Y16, xn, yn, W, g), 5)
+    r["bf16_library_ms"] = time_ms(
+        lambda: bf16_mm(X16, Y16.T, xyn, beta=-g, alpha=2 * g).exp_().T @ W, 5)
     grid = r["grid"] = cuda_ops.gaussian_resid_block_grid(m, n, d, k, False, dev)
     log(f"  gaussian_resid_block f32: {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms on the "
         f"device (plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
-        f"{r['bound_ms']:.3f} by {r['bound_by']}); bf16 operands: {bf16_ms:.3f} ms; grid "
+        f"{r['bound_ms']:.3f} by {r['bound_by']}); bf16 operands: {bf16_ms:.3f} ms (library "
+        f"{r['bf16_library_ms']:.3f}); grid "
         f"{grid['tiles']} column tiles x {grid['splits']} row chunks of "
         f"{grid['chunk_tiles'][0]}-{grid['chunk_tiles'][1]} row tiles, {grid['label_tiles']} "
         f"{grid['ktile']}-wide label pass, {grid['smem_bytes']} bytes of shared memory, "
@@ -2799,6 +3224,13 @@ def main():
     wide_auto["breakdown"] = phase_wide_breakdown(cuda_ops)
     log(f"  (d) past 2^31 elements: one f32 block slab of {BIG_N} x {BLOCK}")
     wide_auto["past_2_31"] = phase_past_2_31(cuda_ops)
+    log(f"  (d) the north star's n: one f32 block slab of {NORTH_N} x {BLOCK}")
+    wide_auto["north_star_f64"] = phase_north_star_f64(cuda_ops)
+    log("[phase 13] MnistRandomFFT: small against the CPU; at its own width, apply first and "
+        "fit first")
+    mnist_run = phase_mnist(cuda_ops)
+    log("[phase 14] AmazonReviewsPipeline: the L-BFGS small against the CPU; 200,000 documents")
+    amazon_run = phase_amazon()
 
     route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
                     CIFAR: cifar_counts, SPARSE: sparse_counts, SKETCH: sketch_counts,
@@ -2811,7 +3243,7 @@ def main():
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
-                 WIDE_AUTO: wide_auto}
+                 WIDE_AUTO: wide_auto, "mnist MnistRandomFFT": mnist_run, AMAZON_TEXT: amazon_run}
     log(f"main path: {json.dumps(main_path)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -51,7 +51,10 @@
 // order, whatever BK, STAGES, the operand kinds or the thread map:
 // acc = fmaf(p, q, acc) for r = rbeg, rbeg + 1, ... (the zero entries past
 // rend leave it as it is). So a Gramian computed here has the bits of one
-// summed row by row, from zero, in any other tiling.
+// summed row by row, from zero, in any other tiling. With FLUSH > 0 the
+// chain restarts every FLUSH stages: the loop hands acc to a flush functor
+// after each such chunk of stages (and after the last stage) and zeroes it,
+// with the ring's copies still in flight (gram_tile.cuh's row chunks).
 
 #pragma once
 
@@ -407,6 +410,12 @@ __device__ __forceinline__ void fma_stage(const TP* X, const TQ* Y, float (&acc)
   }
 }
 
+// mainloop's flush functor when no chain restarts.
+struct NoFlush {
+  template <typename Acc>
+  __device__ __forceinline__ void operator()(const Acc&) const {}
+};
+
 // Shared memory of one block: STAGES stages of a BK x 16 MI P tile and a
 // BK x 16 NJ Q tile.
 template <typename TP, typename TQ, int BK, int STAGES, int MI, int NJ>
@@ -420,16 +429,21 @@ __host__ __device__ constexpr int smem_bytes() {
 // for a K-major one (KP, KQ) M[i][r]; indices i past pcols (j past qcols)
 // read as zero. round_q rounds Q's values to bf16 as they arrive (float32
 // row-major Q staged element-wise only). PP, PQ: a row-major VEC operand's
-// last 16-byte chunk copied in part (Stager's PART).
+// last 16-byte chunk copied in part (Stager's PART). FLUSH (a power of two,
+// or 0 for none): after every FLUSH stages and after the last, flush(acc)
+// is called with the chunk's sums and acc is zeroed; with no stage at all it
+// is not called.
 template <int BK, int STAGES, int MI, int NJ, bool VP, bool VQ, bool KP = false,
-          bool KQ = false, bool PP = false, bool PQ = false, typename TP, typename TQ>
+          bool KQ = false, bool PP = false, bool PQ = false, int FLUSH = 0, typename TP,
+          typename TQ, typename Flush = NoFlush>
 __device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restrict__ P,
                                          long long ldp, long long i0, long long pcols,
                                          const TQ* __restrict__ Q, long long ldq,
                                          long long j0, long long qcols, long long rbeg,
                                          long long rend, bool round_q,
-                                         float (&acc)[MI][NJ]) {
+                                         float (&acc)[MI][NJ], Flush flush = Flush{}) {
   static_assert(STAGES >= 2, "the ring needs two stages at least");
+  static_assert((FLUSH & (FLUSH - 1)) == 0, "FLUSH must be a power of two");
   constexpr int XT = 16 * MI;
   constexpr int KT = 16 * NJ;
   TP* Xs = reinterpret_cast<TP*>(smem);
@@ -467,6 +481,15 @@ __device__ __forceinline__ void mainloop(unsigned char* smem, const TP* __restri
     }
     cp_async_commit();
     fma_stage<BK, MI, NJ>(Xs + slot * BK * XT, Ys + slot * BK * KT, acc);
+    if constexpr (FLUSH > 0) {
+      if (((s + 1) & (FLUSH - 1)) == 0 || s + 1 == nst) {
+        flush(acc);
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+      }
+    }
     slot = slot + 1 == STAGES ? 0 : slot + 1;
     fill = fill + 1 == STAGES ? 0 : fill + 1;
   }

@@ -27,8 +27,9 @@
 // never exists as a (d, d) buffer of its own. The TPU kernel copies G's
 // tile into the output at its first row tile and adds each row tile's
 // product along its sequential grid axis; here a block sums its tile over
-// all rows in registers and adds G's tile once, and the fold mirrors once
-// at its end.
+// each chunk of 8,192 rows in registers and adds each chunk's sums into its
+// output tile, the first to G's tile (gram_tile.cuh), and the fold mirrors
+// once at its end.
 //
 // Bound on an H100 SXM at the TIMIT slice's shapes (one 4096-wide block,
 // n = 65536 rows, k = 147 label columns): the function needs the upper

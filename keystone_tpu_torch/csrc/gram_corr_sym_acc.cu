@@ -75,8 +75,9 @@
 // correlation's blocks first (64 columns of F x a label tile sized to k:
 // 32 wide at the Amazon fit's k = 2, 257 blocks, each about an eighth of a
 // Gramian block's work), then one block an upper Gramian tile (8,385 at
-// d1 = 16385, 31.8 waves of 264), each entry one fmaf chain over the rows
-// in order, to which G's (C's) entry is added once. It copies F in 16-byte
+// d1 = 16385, 31.8 waves of 264), each entry G's (C's) entry plus fmaf
+// chains over row chunks of 8,192 (C's of 1,024), the chunks' sums added in
+// order (gram_tile.cuh). It copies F in 16-byte
 // chunks when F's base and row stride are 16-byte aligned (the sparse fold
 // pads its float32 slab's rows to 4 elements for that; the chunk at the
 // ragged right edge is copied in part), else element by element. R is not

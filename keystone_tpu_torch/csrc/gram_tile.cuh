@@ -12,13 +12,29 @@
 //
 // Every output tile is one block of one launch that loops over all n rows
 // itself, so nothing carries between blocks and no atomics are needed; the
-// TPU kernels' sequential row-tile grid axis becomes that loop, and every
-// output entry is one fmaf chain over rows 0 ... n-1 in order, from zero
-// (fma_pipe.cuh), to which ACC adds in's entry once. So the Gramian is
-// exactly symmetric, all these forms give each other's bits, in place gives
-// the bits of a new buffer (each entry of out is read, then written, by the
-// thread that computed it), and a window read in place gives the bits of
-// its copy.
+// TPU kernels' sequential row-tile grid axis becomes that loop. The rows go
+// in chunks, CHUNK (8,192) for the Gramian and CORR_CHUNK (1,024) for the
+// correlation: each chunk's sums are one fmaf chain over its rows in order,
+// from zero (fma_pipe.cuh), and the block adds them, in chunk order, to a
+// running total that it keeps in its own output tile in device memory: the
+// total starts as 0 (STORE) or in (ACC; nothing to do in place)
+// and each chunk adds its sums, out = out + s_c (0 + s_0 = s_0 exactly).
+// Each entry of the total is read and written by the thread that owns it,
+// and STORE writes the mirror tile once, after the last chunk. The ring runs
+// on across chunks: fma_pipe.cuh's mainloop hands each chunk's sums to the
+// epilogue (its FLUSH) with the next stages' copies in flight, so a chunk
+// costs one pass over the tile in device memory. A Gramian entry is then a
+// chain of at most 8,192 products and one of ceil(n / 8,192) chunk sums (72
+// at 589,824 rows, 269 at 2.2e6): one chain over all n rows was 2.8x
+// (Gramian) and 7.4x (correlation) further from float64 sums than cuBLAS's
+// at 589,824 rows on an H100, and the bits differ from that form's wherever
+// n > 8,192 (1,024 for the correlation). The correlation's chunks are
+// shorter because its entries cancel (centred features against centred
+// labels: MNIST's fit), so a chain's rounding is a larger share of them;
+// its tile is small (4 x NJ a thread), so a flush costs little.
+// Still the Gramian is exactly symmetric, all these forms give each other's
+// bits (ACC on in = 0 gives STORE's), in place gives the bits of a new
+// buffer, and a window read in place gives the bits of its copy.
 //   - Blocks [0, ncorr): the correlation, 64 columns of A (4 a thread) x a
 //     label tile that holds all of R's columns up to 160 (k = 147: 8%
 //     masked; k <= 32: 32 wide; k > 160: further 160-wide tiles),
@@ -49,6 +65,9 @@ constexpr int STAGES = 3;    // stages in the cp.async ring
 constexpr int MINB = 2;      // blocks an SM the registers are capped for (128 a thread)
 constexpr int CORR_BK = 16;  // rows a stage of the correlation (block_corr.cu's)
 constexpr int CORR_MI = 4;   // columns of A a thread of a correlation block (x 16 a block)
+constexpr int CHUNK = 8192;       // Gramian rows summed from zero before they join the total
+constexpr int CORR_CHUNK = 1024;  // the correlation's
+static_assert(CHUNK % BK == 0 && CORR_CHUNK % CORR_BK == 0, "a chunk must be whole stages");
 
 template <typename TA>
 constexpr int gram_smem() {
@@ -71,25 +90,45 @@ struct Out {
   long long ldo;
 };
 
-// Write a thread's outputs of the tile at (i0, j0) inside (rows, cols):
-// out = acc (fma_pipe.cuh's store_tile), or for ACC out = in + acc, each
-// entry read and then written by this thread.
+// The running total of a thread's outputs of the tile at (i0, j0) inside
+// (rows, cols), before the first chunk: out = 0, or for ACC out = in (nothing
+// to do in place).
 template <bool ACC, int MI, int NJ>
-__device__ __forceinline__ void put_tile(const Out& o, long long rows, long long cols,
+__device__ __forceinline__ void init_tile(const Out& o, long long rows, long long cols,
+                                          long long i0, long long j0) {
+  if (ACC && o.in == o.out && o.ldi == o.ldo) return;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const long long r = i0 + out_row<MI>(i);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const long long c = j0 + out_col<NJ>(j);
+      if (c < cols) o.out[r * o.ldo + c] = ACC ? o.in[r * o.ldi + c] : 0.f;
+    }
+  }
+}
+
+// Add one chunk's sums into the running total: out += acc, each entry read
+// and then written by this thread. mainloop calls this from inside its row
+// loop, so the operands pass through an empty asm first: addresses the
+// compiler hoisted out of that loop would hold registers across it (they
+// spilled 48-536 bytes a thread at the 128-register cap).
+template <int MI, int NJ>
+__device__ __forceinline__ void add_tile(const Out& o, long long rows, long long cols,
                                          long long i0, long long j0,
                                          const float (&acc)[MI][NJ]) {
-  if constexpr (!ACC) {
-    store_tile<MI, NJ>(o.out, rows, cols, i0, j0, acc);
-  } else {
+  float* out = o.out;
+  long long ldo = o.ldo;
+  asm volatile("" : "+l"(out), "+l"(ldo), "+l"(i0), "+l"(j0));
 #pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const long long r = i0 + out_row<MI>(i);
-      if (r >= rows) continue;
+  for (int i = 0; i < MI; ++i) {
+    const long long r = i0 + out_row<MI>(i);
+    if (r >= rows) continue;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const long long c = j0 + out_col<NJ>(j);
-        if (c < cols) o.out[r * o.ldo + c] = o.in[r * o.ldi + c] + acc[i][j];
-      }
+    for (int j = 0; j < NJ; ++j) {
+      const long long c = j0 + out_col<NJ>(j);
+      if (c < cols) out[r * ldo + c] += acc[i][j];
     }
   }
 }
@@ -110,12 +149,15 @@ __device__ __forceinline__ void gram_tile(unsigned char* smem, const TA* __restr
   const int tj = ti + rem;
   const long long i0 = (long long)ti * TM;
   const long long j0 = (long long)tj * TM;
+  constexpr int FLUSH = CHUNK / BK;  // stages a chunk
   float acc[8][8];
-  mainloop<BK, STAGES, 8, 8, VA, VA, false, false, PA, PA>(smem, A, lda, i0, d, A, lda, j0, d,
-                                                          0, n, false, acc);
-  put_tile<ACC>(g, d, d, i0, j0, acc);
+  init_tile<ACC, 8, 8>(g, d, d, i0, j0);
+  mainloop<BK, STAGES, 8, 8, VA, VA, false, false, PA, PA, FLUSH>
+      (smem, A, lda, i0, d, A, lda, j0, d, 0, n, false, acc,
+       [&](const float(&sums)[8][8]) { add_tile(g, d, d, i0, j0, sums); });
   if constexpr (!ACC) {
     if (ti == tj) return;  // a diagonal tile is computed whole
+    // The mirror tile, from the totals this thread wrote.
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const long long r = i0 + out_row<8>(i);
@@ -123,7 +165,7 @@ __device__ __forceinline__ void gram_tile(unsigned char* smem, const TA* __restr
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const long long c = j0 + out_col<8>(j);
-        if (c < d) g.out[c * d + r] = acc[i][j];  // the mirror tile
+        if (c < d) g.out[c * d + r] = g.out[r * d + c];
       }
     }
   }
@@ -140,9 +182,11 @@ gram_corr_kernel(const TA* __restrict__ A, const float* __restrict__ R, Out g, O
     const long long i0 = (long long)(blockIdx.x / nkt) * 16 * CORR_MI;
     const long long j0 = (long long)(blockIdx.x % nkt) * 16 * NJ;
     float acc[CORR_MI][NJ];
-    mainloop<CORR_BK, STAGES, CORR_MI, NJ, VA, false, false, false, PA>(
-        smem, A, lda, i0, d, R, ldr, j0, k, 0, n, false, acc);
-    put_tile<ACC>(c, d, k, i0, j0, acc);
+    init_tile<ACC, CORR_MI, NJ>(c, d, k, i0, j0);
+    mainloop<CORR_BK, STAGES, CORR_MI, NJ, VA, false, false, false, PA, false,
+             CORR_CHUNK / CORR_BK>(
+        smem, A, lda, i0, d, R, ldr, j0, k, 0, n, false, acc,
+        [&](const float(&sums)[CORR_MI][NJ]) { add_tile(c, d, k, i0, j0, sums); });
     return;
   }
   gram_tile<TA, VA, PA, ACC>(smem, A, g, n, d, lda, nt, blockIdx.x - ncorr);

@@ -1,22 +1,27 @@
-"""Data loaders for the TIMIT and CIFAR slices.
+"""Data loaders for the TIMIT, CIFAR, MNIST and Amazon slices.
 
-Port of ``keystone_tpu/data/loaders.py`` (the TIMIT and CIFAR-10 binary
-loaders and the synthetic generators). The synthetic draws are numpy's and
-are copied bit for bit, so the port and the reference see the same rows
-from the same seed. CSV files are parsed with numpy instead of the
-reference's native parser, and CIFAR records are split with numpy (the
-reference's numpy path; its native record splitter is not ported). Every
-loader takes an explicit ``device``; None means the CUDA device (raising
-without one). Features and images arrive as float32, labels as int64.
+Port of ``keystone_tpu/data/loaders.py`` (the CSV, TIMIT, CIFAR-10 binary
+and Amazon reviews loaders, scikit-learn's bundled digits, and the
+synthetic generators). The synthetic draws are numpy's and are copied bit
+for bit, so the port and the reference see the same rows from the same
+seed. CSV files are parsed with numpy instead of the reference's native
+parser, and CIFAR records are split with numpy (the reference's numpy path;
+its native record splitter is not ported). Every loader takes an explicit
+``device``; None means the CUDA device (raising without one). Features and
+images arrive as float32, labels as int64; documents stay host strings.
 """
 
 from __future__ import annotations
+
+import json
+import os
+from typing import List
 
 import numpy as np
 
 from keystone_tpu_torch import resolve_device
 
-from .dataset import LabeledData, as_tensor
+from .dataset import Dataset, LabeledData, as_tensor
 
 
 def _labeled(X: np.ndarray, labels: np.ndarray, device) -> LabeledData:
@@ -33,6 +38,42 @@ def read_csv_matrix(path: str) -> np.ndarray:
     if mat.size == 0:
         raise ValueError(f"{path}: no data rows")
     return mat
+
+
+def _files_of(path: str) -> List[str]:
+    """``path``, or the regular files of the directory ``path`` in sorted
+    order (skipping hidden ones), as the reference reads ``sc.textFile``."""
+    if not os.path.isdir(path):
+        return [path]
+    files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                   if os.path.isfile(os.path.join(path, f)) and not f.startswith("."))
+    if not files:
+        raise ValueError(f"{path}: directory contains no files")
+    return files
+
+
+def csv_data_loader(path: str, device=None) -> Dataset:
+    """CSV of comma-separated numbers -> Dataset of rows
+    (reference: loaders/CsvDataLoader.scala:10-31). ``path`` may be a
+    directory: its files' rows are concatenated in sorted-filename order;
+    empty files add none."""
+    mats = []
+    for f in _files_of(path):
+        if os.path.getsize(f):
+            mats.append(read_csv_matrix(f))
+    if not mats:
+        raise ValueError(f"{path}: no data rows in any file")
+    if len({m.shape[1] for m in mats}) != 1:
+        raise ValueError(f"{path}: files disagree on column count")
+    return Dataset(as_tensor(np.concatenate(mats).astype(np.float32), resolve_device(device)))
+
+
+def load_labeled_csv(path: str, label_offset: int = 0, device=None) -> LabeledData:
+    """CSV rows of [label, features...] -> LabeledData. ``label_offset``
+    shifts the labels (the MNIST files are 1-indexed; the pipeline passes
+    -1, reference: pipelines/images/mnist/MnistRandomFFT.scala:34-37)."""
+    rows = read_csv_matrix(path)
+    return _labeled(rows[:, 1:], rows[:, 0].astype(np.int64) + label_offset, device)
 
 
 CIFAR_LABEL_SIZE = 1
@@ -133,3 +174,70 @@ def synthetic_cifar(n: int = 256, seed: int = 0, num_classes: int = 10,
         images[labels == c] = 127.5 + 90.0 * base
     images += rng.normal(scale=25.0, size=images.shape)
     return _labeled(np.clip(images, 0, 255), labels, device)
+
+
+def synthetic_mnist(n: int = 4096, seed: int = 0, device=None) -> LabeledData:
+    """MNIST-shaped synthetic data: 784-dim, 10 classes."""
+    return synthetic_classification(n, 784, 10, seed=seed, class_sep=0.5, device=device)
+
+
+def load_digits_real(train_fraction: float = 0.8, seed: int = 0, device=None):
+    """Real handwritten digits (UCI optical digits, 1,797 8×8 images, bundled
+    with scikit-learn): (train, test) LabeledData with pixels scaled to
+    [0, 1], split after a seeded shuffle. scikit-learn is imported here,
+    only when this loader is called."""
+    from sklearn.datasets import load_digits
+
+    bunch = load_digits()
+    X = bunch.data.astype(np.float64) / 16.0
+    y = bunch.target.astype(np.int64)
+    order = np.random.default_rng(seed).permutation(len(y))
+    X, y = X[order], y[order]
+    n_train = int(len(y) * train_fraction)
+    return (_labeled(X[:n_train], y[:n_train], device),
+            _labeled(X[n_train:], y[n_train:], device))
+
+
+def _documents(texts: List[str], labels, device) -> LabeledData:
+    return LabeledData(Dataset(list(texts)),
+                       as_tensor(np.asarray(labels, dtype=np.int64), resolve_device(device)))
+
+
+def load_amazon_reviews(path: str, threshold: float = 3.5, device=None) -> LabeledData:
+    """Amazon product reviews: JSON lines with "overall" and "reviewText";
+    a rating >= threshold is label 1, else 0
+    (reference: loaders/AmazonReviewsDataLoader.scala:7-28). ``path`` may
+    be a directory of such files. The texts stay host strings; the labels
+    go to ``device``."""
+    texts: List[str] = []
+    labels: List[int] = []
+    for f in _files_of(path):
+        with open(f, errors="replace") as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                rec = json.loads(line)
+                texts.append(rec.get("reviewText", ""))
+                labels.append(1 if float(rec.get("overall", 0.0)) >= threshold else 0)
+    return _documents(texts, labels, device)
+
+
+def synthetic_documents(n: int, num_classes: int, seed: int = 0, doc_len: int = 40,
+                        vocab_per_class: int = 30, shared_vocab: int = 60,
+                        device=None) -> LabeledData:
+    """Synthetic text classification corpus: each class has a private
+    vocabulary mixed with a shared one; documents are whitespace-joined word
+    samples (host strings, the reference's draws); labels on ``device``."""
+    rng = np.random.default_rng(seed)
+    shared = [f"word{i}" for i in range(shared_vocab)]
+    private = [[f"c{c}term{i}" for i in range(vocab_per_class)] for c in range(num_classes)]
+    labels = rng.integers(0, num_classes, size=n)
+    docs = []
+    for lab in labels:
+        k_private = rng.binomial(doc_len, 0.5)
+        words = list(rng.choice(private[lab], size=k_private)) + list(
+            rng.choice(shared, size=doc_len - k_private))
+        rng.shuffle(words)
+        docs.append(" ".join(words))
+    return _documents(docs, labels, device)

@@ -2,11 +2,15 @@
 MulticlassClassifierEvaluator.scala:23-161).
 
 Port of ``keystone_tpu/evaluation/metrics.py`` (the multiclass evaluator
-of the TIMIT slice). The confusion matrix is one device pass (a bincount
-over ``label * C + prediction``), read back to the host as numpy.
+of the TIMIT, CIFAR and MNIST slices; the binary one of the Amazon
+slice, reference: BinaryClassifierEvaluator.scala:17-79). The confusion
+matrix is one device pass (a bincount over ``label * C + prediction``), read
+back to the host as numpy; the binary counts are four device sums.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 from typing import Any, Generic, TypeVar
 
@@ -152,3 +156,53 @@ class MulticlassClassifierEvaluator(Evaluator):
         C = self.num_classes
         conf = torch.bincount(labs * C + preds, minlength=C * C).reshape(C, C)
         return MulticlassMetrics(conf.cpu().numpy())
+
+
+@dataclass
+class BinaryClassificationMetrics:
+    """Contingency counts (reference: BinaryClassifierEvaluator.scala:17-79)."""
+
+    tp: float
+    fp: float
+    tn: float
+    fn: float
+
+    @property
+    def accuracy(self) -> float:
+        total = self.tp + self.fp + self.tn + self.fn
+        return (self.tp + self.tn) / total if total > 0 else 0.0
+
+    @property
+    def error(self) -> float:
+        return 1.0 - self.accuracy
+
+    @property
+    def precision(self) -> float:
+        denom = self.tp + self.fp
+        return self.tp / denom if denom > 0 else 0.0
+
+    @property
+    def recall(self) -> float:
+        denom = self.tp + self.fn
+        return self.tp / denom if denom > 0 else 0.0
+
+    @property
+    def specificity(self) -> float:
+        denom = self.tn + self.fp
+        return self.tn / denom if denom > 0 else 0.0
+
+    @property
+    def f1(self) -> float:
+        p, r = self.precision, self.recall
+        return 2 * p * r / (p + r) if (p + r) > 0 else 0.0
+
+
+class BinaryClassifierEvaluator(Evaluator):
+    """Predictions and labels are booleans (or {0, 1} ints)."""
+
+    def _evaluate(self, predictions: Dataset, labels: Dataset) -> BinaryClassificationMetrics:
+        preds = as_tensor(predictions.array).reshape(-1).bool()[: predictions.n]
+        labs = as_tensor(labels.array, preds.device).reshape(-1).bool()[: labels.n]
+        counts = torch.stack([(preds & labs).sum(), (preds & ~labs).sum(),
+                              (~preds & ~labs).sum(), (~preds & labs).sum()])
+        return BinaryClassificationMetrics(*(float(c) for c in counts.cpu().tolist()))

@@ -32,6 +32,10 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
     carry padding rows past ``n_train``; pass the first ``n_train``)
   - ``SparseLinearMapper`` (a sparse L-BFGS fit): :func:`sparse_linear_mapper`
     with ``x (d, k)`` and ``b_opt (k,)``;
+  - ``RandomSignNode``: ``{"signs": (d,)}`` (the reference draws them with
+    ``jax.random.rademacher``), :func:`random_sign_node`;
+  - ``LogisticRegressionModel``: ``{"weights": (d, k)}``,
+    :func:`logistic_regression_model`;
   - ``CompressedCOOChunks``: :func:`coo_chunks` takes the reference object
     itself and reads its int16 indices, its bf16 values as their 16-bit
     patterns (so no ``ml_dtypes`` import is needed), its labels, ``n_true``
@@ -60,6 +64,7 @@ from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.data.resident import CompressedCOOChunks
 from keystone_tpu_torch.ops.images.conv import Convolver
 from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+from keystone_tpu_torch.ops.learning.classifiers import LogisticRegressionModel
 from keystone_tpu_torch.ops.learning.kernel import (
     GaussianKernelTransformer,
     KernelBlockLinearMapper,
@@ -70,11 +75,15 @@ from keystone_tpu_torch.ops.learning.streaming_ls import (
     CosineBankFeaturize,
     StreamingFeaturizedLinearModel,
 )
-from keystone_tpu_torch.ops.stats import CosineRandomFeaturesModel, StandardScalerModel
+from keystone_tpu_torch.ops.stats import (
+    CosineRandomFeaturesModel,
+    RandomSignNode,
+    StandardScalerModel,
+)
 
 
 def _f32(x, device) -> torch.Tensor:
-    return as_tensor(np.asarray(x, dtype=np.float32), device)
+    return as_tensor(np.array(x, dtype=np.float32), device)  # a writable copy
 
 
 def cosine_features_model(W, b, device=None) -> CosineRandomFeaturesModel:
@@ -188,6 +197,17 @@ def sparse_linear_mapper(x, b_opt=None, device=None) -> SparseLinearMapper:
     return SparseLinearMapper(_f32(x, device), None if b_opt is None else _f32(b_opt, device))
 
 
+def random_sign_node(signs, device=None) -> RandomSignNode:
+    """The reference's ``RandomSignNode`` (its ±1 ``signs``)."""
+    return RandomSignNode(_f32(signs, resolve_device(device)))
+
+
+def logistic_regression_model(weights, device=None) -> LogisticRegressionModel:
+    """The reference's fitted ``LogisticRegressionModel`` (its (d, k)
+    ``weights``)."""
+    return LogisticRegressionModel(_f32(weights, resolve_device(device)))
+
+
 def coo_chunks(ref, device=None) -> CompressedCOOChunks:
     """A reference ``CompressedCOOChunks`` as the port's: the same int16
     indices, bf16 values (the same bits, read through a 16-bit view of the
@@ -254,4 +274,8 @@ def params_from_jax(params: Mapping[str, Any], device=None):
         )
     if "mean" in keys:
         return standard_scaler_model(params["mean"], params.get("std"), device)
+    if keys == {"signs"}:
+        return random_sign_node(params["signs"], device)
+    if keys == {"weights"}:
+        return logistic_regression_model(params["weights"], device)
     raise ValueError(f"no port module takes the parameters {sorted(keys)}")

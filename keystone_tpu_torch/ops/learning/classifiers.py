@@ -1,0 +1,320 @@
+"""Probabilistic classifiers: softmax (logistic) regression by L-BFGS.
+
+Port of ``keystone_tpu/ops/learning/classifiers.py`` (reference:
+nodes/learning/LogisticRegressionModel.scala:42-94, which wraps MLlib's
+LogisticRegressionWithLBFGS; the JAX package runs ``optax.lbfgs()`` with
+its zoom line search under a ``while_loop``). :func:`logistic_lbfgs` is that
+algorithm step for step in plain PyTorch, with optax 0.2.6's defaults:
+memory 10, the initial inverse Hessian scaled by the last secant pair (on
+the first step the reciprocal of the gradient's norm, capped at 1), and
+the zoom line search (Nocedal & Wright, Algorithms 3.5 and 3.6) with at
+most 20 steps, a first guess of 1, slope_rtol 1e-4, curv_rtol 0.9,
+approx_dec_rtol 1e-6, increase factor 2 and an interval threshold of
+1e-5. The products, sums and the loss run on the operands' device; the line
+search's scalar decisions are read on the host, one read a trial step.
+
+``NaiveBayesEstimator`` and ``LinearDiscriminantAnalysis`` wait for their
+slice.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+from keystone_tpu_torch.data import Dataset
+from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops.sparse import _coo, _dense_rows, is_sparse_dataset
+from keystone_tpu_torch.workflow import LabelEstimator, Transformer
+
+logger = logging.getLogger("keystone_tpu_torch.classifiers")
+
+MEMORY = 10
+MAX_LINESEARCH_STEPS = 20
+SLOPE_RTOL, CURV_RTOL, APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
+INCREASE_FACTOR, INTERVAL_THRESHOLD = 2.0, 1e-5
+
+
+def _dense_on(data: Dataset, d: Optional[int], device) -> torch.Tensor:
+    """A dense or padded-COO batch as a dense (n, d) float32 tensor on
+    ``device`` (the COO is moved first and densified there; d None: the
+    largest index + 1)."""
+    if not is_sparse_dataset(data):
+        return as_tensor(data.array, device).float()
+    indices, values = (t.to(device) for t in _coo(data))
+    if d is None:
+        d = int(indices.max()) + 1
+    return _dense_rows(indices, values, d, torch.float32)
+
+
+class LogisticRegressionModel(Transformer):
+    """x -> argmax class under softmax weights
+    (reference: LogisticRegressionModel.scala:27-40)."""
+
+    def __init__(self, weights):
+        self.weights = as_tensor(weights)  # (d, k)
+
+    def apply(self, x):
+        return torch.argmax(as_tensor(x, self.weights.device) @ self.weights, dim=-1)
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        X = _dense_on(data, self.weights.shape[0], self.weights.device)
+        return Dataset(torch.argmax(X @ self.weights, dim=-1), n=data.n)
+
+
+def logistic_loss_and_grad(X, onehot, mask, W, n, lam):
+    """The masked multinomial negative log-likelihood over n rows plus
+    λ/2 ‖W‖², and its gradient: padding rows (mask 0) leave the
+    log-sum-exp out (the reference's ``loss_fn``)."""
+    logits = X @ W
+    lse = torch.logsumexp(logits, dim=1)
+    ll = (logits * onehot).sum(dim=1) - lse * mask
+    value = -ll.sum() / n + 0.5 * lam * (W * W).sum()
+    probs = torch.softmax(logits, dim=1) * mask[:, None]
+    grad = X.T @ ((probs - onehot) / n) + lam * W
+    return value, grad
+
+
+def _vdot(a, b):
+    return (a * b).sum()
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """Minimizer of the cubic through (a, fa) with slope fpa at a, (b, fb)
+    and (c, fc) (optax's ``_cubicmin``)."""
+    C = fpa
+    db, dc = b - a, c - a
+    denom = (db * dc) ** 2 * (db - dc)
+    d1 = torch.stack([torch.stack([dc ** 2, -(db ** 2)]), torch.stack([-(dc ** 3), db ** 3])])
+    A, B = (d1 @ torch.stack([fb - fa - C * db, fc - fa - C * dc])) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + torch.sqrt(radical)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """Minimizer of the quadratic through (a, fa) with slope fpa at a, and
+    (b, fb) (optax's ``_quadmin``)."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db ** 2)
+    return a - fpa / (2.0 * B)
+
+
+def _decrease_error(stepsize, value, slope, value_init, slope_init):
+    err = value - value_init - SLOPE_RTOL * stepsize * slope_init
+    approx = torch.maximum(slope - (2 * SLOPE_RTOL - 1.0) * slope_init,
+                           value - value_init - APPROX_DEC_RTOL * torch.abs(value_init))
+    err = torch.clamp_min(torch.minimum(approx, err), 0.0)
+    return torch.where(torch.isnan(err), torch.full_like(err, math.inf), err)
+
+
+def _curvature_error(slope, slope_init):
+    err = torch.clamp_min(torch.abs(slope) - CURV_RTOL * torch.abs(slope_init), 0.0)
+    return torch.where(torch.isnan(err), torch.full_like(err, math.inf), err)
+
+
+def zoom_linesearch(value_and_grad, W, updates, value, grad):
+    """A stepsize along ``updates`` from W that meets the strong Wolfe
+    conditions, and the value and gradient there: optax's
+    ``scale_by_zoom_linesearch`` with ``initial_guess_strategy='one'``,
+    ``tol`` 0 and no largest stepsize. Returns (stepsize, value, grad,
+    trial steps)."""
+    zero = torch.zeros((), dtype=value.dtype, device=value.device)
+
+    def on_line(step):
+        v, g = value_and_grad(W + step * updates)
+        return v, g, _vdot(g, updates)
+
+    slope = _vdot(updates, grad)
+    value_init, slope_init = value, slope
+    stepsize, cur_value, cur_grad, cur_slope = zero, value, grad, slope
+    low, value_low, slope_low = zero, value, slope
+    high, value_high, slope_high = zero, value, slope
+    cubic_ref, value_cubic_ref = zero, value
+    safe_stepsize, safe_value, safe_grad = zero, value, grad
+    decrease_error = torch.full_like(value, math.inf)
+    interval_found = done = failed = False
+    count = 0
+    while not (done or failed):
+        if not interval_found:
+            # Search for an interval that holds a point meeting both conditions.
+            new = torch.ones_like(value) if count == 0 else INCREASE_FACTOR * stepsize
+            v, g, s = on_line(new)
+            decrease_error = _decrease_error(new, v, s, value_init, slope_init)
+            new_error = torch.maximum(decrease_error, _curvature_error(s, slope_init))
+            if bool(decrease_error <= 0.0):
+                safe_stepsize, safe_value, safe_grad = new, v, g
+            set_high = bool(decrease_error > 0.0) or (bool(v >= cur_value) and count > 0)
+            set_low = bool(s >= 0.0) and not set_high
+            if set_low:
+                low, value_low, slope_low, high, value_high, slope_high = (
+                    new, v, s, stepsize, cur_value, cur_slope)
+            else:
+                low, value_low, slope_low, high, value_high, slope_high = (
+                    stepsize, cur_value, cur_slope, new, v, s)
+            done = bool(new_error <= 0.0)
+            interval_found = set_high or set_low or done
+            failed = count + 1 >= MAX_LINESEARCH_STEPS and not done
+            cubic_ref, value_cubic_ref = low, value_low
+            stepsize, cur_value, cur_grad, cur_slope = new, v, g, s
+        else:
+            # Zoom into [low, high] by cubic, quadratic or bisection steps.
+            delta = torch.abs(high - low)
+            left, right = torch.minimum(high, low), torch.maximum(high, low)
+            too_small = bool(delta <= INTERVAL_THRESHOLD)
+            cubic = _cubicmin(low, value_low, slope_low, high, value_high, cubic_ref,
+                              value_cubic_ref)
+            quad = _quadmin(low, value_low, slope_low, high, value_high)
+            if bool((cubic > left + 0.2 * delta) & (cubic < right - 0.2 * delta)):
+                middle = cubic
+            elif bool((quad > left + 0.1 * delta) & (quad < right - 0.1 * delta)):
+                middle = quad
+            else:
+                middle = (low + high) / 2.0
+            v, g, s = on_line(middle)
+            decrease_error = _decrease_error(middle, v, s, value_init, slope_init)
+            new_error = torch.maximum(decrease_error, _curvature_error(s, slope_init))
+            if bool(decrease_error <= 0.0) and bool(v < safe_value):
+                safe_stepsize, safe_value, safe_grad = middle, v, g
+            done = bool(new_error <= 0.0)
+            set_high_to_middle = bool(decrease_error > 0.0) or bool(v >= value_low)
+            set_high_to_low = bool(s * (high - low) >= 0.0) and not set_high_to_middle
+            old_low = (low, value_low, slope_low)
+            old_high = (high, value_high)
+            if set_high_to_middle:
+                high, value_high, slope_high = middle, v, s
+            if set_high_to_low:
+                high, value_high, slope_high = old_low
+            if not set_high_to_middle:
+                low, value_low, slope_low = middle, v, s
+            cubic_ref, value_cubic_ref = (
+                old_high if set_high_to_middle or set_high_to_low else old_low[:2])
+            failed = (count + 1 >= MAX_LINESEARCH_STEPS
+                      or (too_small and bool(safe_stepsize > 0.0))) and not done
+            stepsize, cur_value, cur_grad, cur_slope = middle, v, g, s
+        count += 1
+        if failed and (bool(safe_stepsize > 0.0) or bool(torch.isinf(decrease_error))):
+            # No point met both conditions: take the safe step (or stay put,
+            # its stepsize 0, where no trial point was finite).
+            stepsize, cur_value, cur_grad = safe_stepsize, safe_value, safe_grad
+    return stepsize, cur_value, cur_grad, count
+
+
+def _precondition(grad, dW, dG, rho, scale, idx):
+    """The L-BFGS two-loop product of the inverse Hessian estimate with
+    ``grad``, over the memory slots from the oldest (idx) round to the
+    newest (optax's ``_precondition_by_lbfgs``)."""
+    m = rho.shape[0]
+    order = [(idx + j) % m for j in range(m)]
+    vec, alphas = grad, {}
+    for j in reversed(order):
+        alphas[j] = rho[j] * _vdot(dW[j], vec)
+        vec = vec - alphas[j] * dG[j]
+    vec = scale * vec
+    for j in order:
+        beta = rho[j] * _vdot(dG[j], vec)
+        vec = vec + (alphas[j] - beta) * dW[j]
+    return vec
+
+
+@dataclass
+class LBFGSResult:
+    """What :func:`logistic_lbfgs` returns: the weights, the final loss (at
+    the weights, recomputed), the steps taken, the loss after each step and
+    the line search's trial steps each step took."""
+
+    W: torch.Tensor
+    loss: float
+    iterations: int
+    losses: List[float] = field(default_factory=list)
+    linesearch_steps: List[int] = field(default_factory=list)
+
+
+def logistic_lbfgs(X, onehot, mask, W0, n, lam: float, num_iters: int,
+                   tol: float) -> LBFGSResult:
+    """Minimize :func:`logistic_loss_and_grad` from W0 by optax's L-BFGS as
+    the reference's ``_logistic_lbfgs`` drives it: before each step the
+    loop stops once ``num_iters`` steps are taken or the norm of the
+    gradient it carries — the one the last step started from, the
+    gradient at W0 before the first — is at most ``tol``."""
+
+    def value_and_grad(W):
+        return logistic_loss_and_grad(X, onehot, mask, W, n, lam)
+
+    m = MEMORY
+    W = W0
+    dW = torch.zeros((m,) + W0.shape, dtype=W0.dtype, device=W0.device)
+    dG = torch.zeros_like(dW)
+    rho = torch.zeros((m,), dtype=W0.dtype, device=W0.device)
+    prev_W, prev_g = torch.zeros_like(W0), torch.zeros_like(W0)
+    carried = value_and_grad(W0)[1]
+    value = grad = None  # the line search's last point: where the next step starts
+    out = LBFGSResult(W0, 0.0, 0)
+    count = 0
+    while count < num_iters and bool(torch.linalg.vector_norm(carried) > tol):
+        if value is None or not bool(torch.isfinite(value)):
+            value, grad = value_and_grad(W)
+        # The secant pair of the last step, into the slot before this one.
+        idx, prev = count % m, (count - 1) % m
+        if count > 0:
+            s, y = W - prev_W, grad - prev_g
+            sy = _vdot(y, s)
+            dW[prev], dG[prev] = s, y
+            rho[prev] = torch.where(sy == 0.0, torch.zeros_like(sy), 1.0 / sy)
+            yy = _vdot(y, y)
+            scale = torch.where(yy > 0.0, sy / yy, torch.ones_like(sy))
+        else:
+            dW[prev], dG[prev], rho[prev] = 0.0, 0.0, 0.0
+            scale = torch.clamp_max(1.0 / torch.linalg.vector_norm(grad), 1.0)
+        direction = -_precondition(grad, dW, dG, rho, scale, idx)
+        prev_W, prev_g = W, grad
+        step, new_value, new_grad, trials = zoom_linesearch(
+            value_and_grad, W, direction, value, grad)
+        W = W + step * direction
+        carried = grad
+        value, grad = new_value, new_grad
+        count += 1
+        out.losses.append(float(new_value))
+        out.linesearch_steps.append(trials)
+    out.W, out.iterations = W, count
+    out.loss = float(value_and_grad(W)[0])
+    return out
+
+
+class LogisticRegressionEstimator(LabelEstimator):
+    """Softmax regression by L-BFGS over the whole batch, the in-tree
+    replacement for MLlib's LogisticRegressionWithLBFGS
+    (reference: LogisticRegressionModel.scala:42-94). The fit runs on the
+    labels' device (the loaders put them on the pipeline's); sparse
+    (padded-COO) rows are densified there to ``num_features`` columns
+    (default: the largest index + 1). ``last_fit`` holds the last run."""
+
+    def __init__(self, num_classes: int, reg_param: float = 0.0, num_iters: int = 100,
+                 convergence_tol: float = 1e-4, num_features: Optional[int] = None):
+        self.num_classes = num_classes
+        self.reg_param = reg_param
+        self.num_iters = num_iters
+        self.convergence_tol = convergence_tol
+        self.num_features = num_features
+        self.last_fit: Optional[LBFGSResult] = None
+
+    @property
+    def weight(self) -> int:
+        return self.num_iters + 1
+
+    def fit(self, data: Dataset, labels: Dataset) -> LogisticRegressionModel:
+        y = as_tensor(labels.array).reshape(-1).long()
+        device = y.device
+        X = _dense_on(data, self.num_features, device)
+        n = data.n
+        mask = (torch.arange(X.shape[0], device=device) < n).to(X.dtype)
+        onehot = torch.nn.functional.one_hot(y, self.num_classes).to(X.dtype) * mask[:, None]
+        W0 = torch.zeros((X.shape[1], self.num_classes), dtype=X.dtype, device=device)
+        result = logistic_lbfgs(X, onehot, mask, W0, float(n), self.reg_param, self.num_iters,
+                                self.convergence_tol)
+        self.last_fit = result
+        logger.info("logistic final loss: %s (%d L-BFGS steps)", result.loss, result.iterations)
+        return LogisticRegressionModel(result.W)

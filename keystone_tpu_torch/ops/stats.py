@@ -2,9 +2,14 @@
 
 Port of ``keystone_tpu/ops/stats.py`` (the nodes the TIMIT slice runs:
 StandardScaler and the cosine random features, with the latter's
-stage-fusion function; and the padded real-FFT helpers of the block-SRHT
+stage-fusion function; the padded real-FFT helpers of the block-SRHT
 sketch, :func:`padded_pow2`, :func:`rfft_real_half` and
-:func:`srht_chunk_sketch`, on ``torch.fft.rfft``). Dense nodes operate
+:func:`srht_chunk_sketch`, on ``torch.fft.rfft``; MnistRandomFFT's nodes,
+RandomSignNode, PaddedFFT and LinearRectifier, with the packed-pair FFT
+lowering of their gather, :func:`packed_fft_gather_fn`; and the text
+pipelines' host-side TermFrequency). The FFTs are cuFFT through
+``torch.fft`` on the card, as the reference's are XLA's: no Pallas kernel
+stands behind them there, and no hand-written one here. Dense nodes operate
 whole-batch on (n, d) tensors. Randomized nodes take explicit integer
 seeds and draw from a ``torch.Generator`` seeded with them on the CPU, so
 a seed gives the same draws on every device. (They are not the
@@ -15,6 +20,7 @@ across through :mod:`keystone_tpu_torch.interop`.)
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -176,3 +182,154 @@ def srht_chunk_sketch(dense_rows: torch.Tensor, signs: torch.Tensor,
         Z = torch.cat([Z, Z.new_zeros((p - c, Z.shape[1]))])
     H = rfft_real_half(Z, p, dim=0)  # (p // 2, d)
     return scale * H[sample_bins.to(device=H.device, dtype=torch.int64)]
+
+
+class PaddedFFT(Transformer):
+    """Zero-pad to the next power of two, FFT, keep the real parts of the
+    first half (reference: nodes/stats/PaddedFFT.scala:13-21): the input is
+    real, and only Re(bins 0..p/2) survive (:func:`rfft_real_half`)."""
+
+    def _padded_size(self, n: int) -> int:
+        return padded_pow2(n)
+
+    def apply(self, x):
+        return self._batch_fn(as_tensor(x))
+
+    def _batch_fn(self, X):
+        p = self._padded_size(X.shape[-1])
+        return rfft_real_half(torch.nn.functional.pad(X, (0, p - X.shape[-1])), p)
+
+    def device_fn(self):
+        return self._batch_fn
+
+
+class RandomSignNode(Transformer):
+    """Elementwise multiply by a fixed random ±1 vector
+    (reference: nodes/stats/RandomSignNode.scala:11-24)."""
+
+    def __init__(self, signs):
+        self.signs = as_tensor(signs)
+
+    @staticmethod
+    def create(num_features: int, seed: int = 0, device=None) -> "RandomSignNode":
+        """±1 signs drawn from a CPU ``torch.Generator`` seeded with
+        ``seed``, on ``device`` (not the reference's ``jax.random``
+        draws: :func:`keystone_tpu_torch.interop.random_sign_node` carries
+        those across)."""
+        gen = torch.Generator().manual_seed(seed)
+        signs = 2.0 * torch.randint(0, 2, (num_features,), generator=gen).float() - 1.0
+        return RandomSignNode(signs.to(resolve_device(device)))
+
+    def apply(self, x):
+        return as_tensor(x, self.signs.device) * self.signs
+
+    def _batch_fn(self, X):
+        return X * self.signs
+
+    def device_fn(self):
+        return self._batch_fn
+
+
+class LinearRectifier(Transformer):
+    """max(maxVal, x - alpha) (reference: nodes/stats/LinearRectifier.scala:12-17)."""
+
+    def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
+        self.max_val = max_val
+        self.alpha = alpha
+
+    def apply(self, x):
+        return self._batch_fn(as_tensor(x))
+
+    def _batch_fn(self, X):
+        return torch.clamp_min(X - self.alpha, self.max_val)
+
+    def device_fn(self):
+        return self._batch_fn
+
+
+def packed_fft_gather_fn(branches, combiner):
+    """The MnistRandomFFT gather — every branch [RandomSignNode → PaddedFFT
+    → LinearRectifier] over one input, merged by a VectorCombiner — as one
+    batch function, or None when the gather has another shape (the caller
+    then composes branch by branch).
+
+    Composed branch by branch, the gather reads X once a branch and runs
+    one real FFT of width p each. This function reads X once, flips every
+    branch's signs in one broadcast multiply, and packs branch pairs as the
+    real and imaginary parts of one width-p complex FFT, unpacking
+    Re(bins 0..p/2) by conjugate symmetry:
+
+        Re A(k) = (Re Z(k) + Re Z((p−k) mod p)) / 2
+        Re B(k) = (Im Z(k) + Im Z((p−k) mod p)) / 2
+
+    An odd branch count leaves one real FFT. Then each branch's rectifier,
+    and the branches' outputs in the combiner's order. Branch members may
+    arrive wrapped in a FusedBatchTransformer (stage fusion runs before
+    gather fusion); their ``members`` are read.
+    """
+    from keystone_tpu_torch.ops.util import VectorCombiner
+
+    if not isinstance(combiner, VectorCombiner) or len(branches) < 2:
+        return None
+    flat = []
+    for br in branches:
+        members = []
+        for m in br:
+            sub = getattr(m, "members", None)
+            members.extend(sub if sub is not None else [m])
+        if len(members) != 3 or not (
+            isinstance(members[0], RandomSignNode)
+            and isinstance(members[1], PaddedFFT)
+            and isinstance(members[2], LinearRectifier)
+        ):
+            return None
+        flat.append(members)
+    if len({int(m[0].signs.shape[0]) for m in flat}) != 1:
+        return None
+    d_in = int(flat[0][0].signs.shape[0])
+    nb = len(flat)
+    p = flat[0][1]._padded_size(d_in)
+    h = p // 2
+    signs = torch.stack([m[0].signs for m in flat])  # (nb, d_in)
+    alphas = torch.tensor([float(m[2].alpha) for m in flat], device=signs.device)
+    maxvals = torch.tensor([float(m[2].max_val) for m in flat], device=signs.device)
+    npairs = nb // 2
+    # Bin (p - k) mod p of each kept bin k.
+    mirror = (-torch.arange(h, device=signs.device)) % p
+
+    def fused(X):
+        n = X.shape[0]
+        Z = torch.nn.functional.pad(X[:, None, :] * signs, (0, p - d_in))  # (n, nb, p)
+        outs = []
+        if npairs:
+            pairs = Z[:, :2 * npairs].reshape(n, npairs, 2, p)
+            F = torch.fft.fft(torch.complex(pairs[:, :, 0], pairs[:, :, 1]), dim=-1)
+            re, im = F.real, F.imag
+            reA = 0.5 * (re[..., :h] + re[..., mirror])
+            reB = 0.5 * (im[..., :h] + im[..., mirror])
+            del F, re, im
+            outs.append(torch.stack([reA, reB], dim=2).reshape(n, 2 * npairs, h))
+        if nb % 2:
+            outs.append(rfft_real_half(Z[:, -1], p)[:, None, :])
+        halves = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        out = torch.maximum(halves - alphas[None, :, None], maxvals[None, :, None])
+        return out.reshape(n, nb * h)
+
+    return fused
+
+
+class TermFrequency(Transformer):
+    """Seq of items -> {item: weighting(count)} (host-side;
+    reference: nodes/stats/TermFrequency.scala:18-20)."""
+
+    def __init__(self, weighting: Callable = lambda x: x):
+        self.weighting = weighting
+
+    def apply(self, items):
+        counts = {}
+        for item in items:
+            counts[item] = counts.get(item, 0) + 1
+        return {k: self.weighting(v) for k, v in counts.items()}
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        return Dataset.of([self.apply(x) for x in data.to_list()])

@@ -9,7 +9,12 @@ Port of ``keystone_tpu/run.py``. Ported so far:
   - RandomPatchCifarKernel (the CIFAR random-patch featurizer and Gaussian
     kernel ridge regression), with the reference's flags plus
     ``--syntheticN`` (training images of the synthetic data), e.g.
-    ``python -m keystone_tpu_torch.run RandomPatchCifarKernel --syntheticN 50000``.
+    ``python -m keystone_tpu_torch.run RandomPatchCifarKernel --syntheticN 50000``;
+  - MnistRandomFFT (random-sign padded FFTs and block least squares), with
+    the reference's flags plus ``--syntheticN``, e.g.
+    ``python -m keystone_tpu_torch.run MnistRandomFFT --syntheticN 60000``;
+  - AmazonReviewsPipeline (n-gram term frequencies and logistic regression
+    by L-BFGS), with the reference's flags plus ``--syntheticN``.
 
 Pipelines run on the CUDA device unless given ``--device cpu``.
 """
@@ -18,6 +23,12 @@ from __future__ import annotations
 
 import sys
 from typing import Callable, Dict
+
+
+def _mnist(argv):
+    from keystone_tpu_torch.pipelines import mnist_random_fft
+
+    mnist_random_fft.main(argv)
 
 
 def _timit(argv):
@@ -32,10 +43,18 @@ def _cifar_kernel(argv):
     cifar.main(argv)
 
 
+def _amazon(argv):
+    from keystone_tpu_torch.pipelines import amazon_reviews
+
+    amazon_reviews.main(argv)
+
+
 PIPELINES: Dict[str, Callable] = {
+    "MnistRandomFFT": _mnist,
     "TimitPipeline": _timit,
     "Timit": _timit,
     "RandomPatchCifarKernel": _cifar_kernel,
+    "AmazonReviewsPipeline": _amazon,
 }
 
 

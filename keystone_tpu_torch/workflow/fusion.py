@@ -35,9 +35,12 @@ Row-local contract for ``device_fn``: output row i depends only on input row
 i, so zero padding rows cannot leak into valid rows and a single trailing
 re-zeroing is equivalent to per-stage re-zeroing.
 
+A gather of MnistRandomFFT's [RandomSignNode → PaddedFFT → LinearRectifier]
+branches lowers, as in the reference, to the packed-pair FFT function
+(``ops/stats.py::packed_fft_gather_fn``); ``uses_packed_fft`` says so.
+
 Not ported yet: ``cache_would_split_fusion`` / ``fusion_splitting_nodes``
-(the autocache optimizer) and the packed-FFT lowering of gathers in
-``FusedGatherTransformer._build_composed`` (the MNIST slice).
+(the autocache optimizer).
 """
 
 from __future__ import annotations
@@ -279,6 +282,17 @@ class FusedGatherTransformer(Transformer):
         self._build_composed()
 
     def _build_composed(self) -> None:
+        # Shape-specialized lowering first: a gather of [RandomSign →
+        # PaddedFFT → LinearRectifier] branches packs branch pairs into
+        # complex FFTs and reads X once for all branches. Tests pin that the
+        # MNIST gather takes it (uses_packed_fft).
+        from keystone_tpu_torch.ops.stats import packed_fft_gather_fn
+
+        packed = packed_fft_gather_fn(self.branches, self.combiner)
+        self.uses_packed_fft = packed is not None
+        if packed is not None:
+            self._composed = packed
+            return
         branch_fns = [[m.device_fn() for m in br] for br in self.branches]
         combine = self.combiner.device_combine_fn()
         writers = _column_writers(self.branches, self.combiner)

@@ -1,0 +1,167 @@
+"""The Gramian kernels' row chunks (``csrc/gram_tile.cuh``) measured on one GPU.
+
+    python3 scripts/torch_gram_chunks.py [--parent DIR] [--out FILE]
+
+Builds variants of ``gram_tile.cuh`` that differ from it in the length of
+its row chunks (``CHUNK``, the Gramian's; ``CORR_CHUNK``, the
+correlation's) or in how a chunk's sums join the output tile (``red``:
+``atomicAdd`` instead of a read and a write), beside the as-built header;
+with ``--parent DIR`` also the header and ``fma_pipe.cuh`` of another
+checkout (its Gramian kernels, e.g. the parent commit's, unpacked with
+``git archive <commit> keystone_tpu_torch | tar -x -C DIR``). Each variant
+is built by ``scripts/torch_fma_variants.py``'s ``build`` (one ``nvcc`` a
+variant, all started together) and timed by its rows at the main path's
+shapes (``gram_corr``: A 65,536 x 4,096, R 65,536 x 147;
+``gram_corr_sym_acc``: one Amazon chunk; ``block_gram_sym`` and
+``gram_sym_acc`` where ``--kernels`` names them). Then each ``gram_corr``
+variant's Gramian and correlation are read against float64 sums made on
+the card, as max |err| / max |f64|, beside cuBLAS's FP32 ones, on two
+operands: a 589,824 x 4,096 slab of cosine features (``chip_smoke.py``
+12(d)'s) and MNIST's fit (the centred 60,000 x 2,048 packed-FFT features
+of ``synthetic_mnist`` against the centred labels, k = 10), where the
+weights each variant's sums give (a float64 solve of them) are read
+against the float64 sums' weights too. Prints a line a reading and writes
+them all to ``--out``.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+sys.path.insert(0, os.path.join(_REPO, "scripts"))
+
+import torch_fma_variants as tv  # noqa: E402
+
+from keystone_tpu_torch.ops import cuda_ops  # noqa: E402
+
+G, P = "gram_tile.cuh", "fma_pipe.cuh"
+CHUNK, CORR = "constexpr int CHUNK = 8192;", "constexpr int CORR_CHUNK = 1024;"
+ADD = "if (c < cols) out[r * ldo + c] += acc[i][j];"
+VARIANTS = [
+    ("as built", ()),
+    ("Gramian chunk 4096", ((G, CHUNK, CHUNK.replace("8192", "4096")),)),
+    ("Gramian chunk 16384", ((G, CHUNK, CHUNK.replace("8192", "16384")),)),
+    ("correlation chunk 256", ((G, CORR, CORR.replace("1024", "256")),)),
+    ("correlation chunk 8192", ((G, CORR, CORR.replace("1024", "8192")),)),
+    ("red", ((G, ADD, "if (c < cols) atomicAdd(out + r * ldo + c, acc[i][j]);"),)),
+]
+
+
+def rel(got, want):
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def cosine_slab(n=589824, b=4096, k=147):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    X = torch.randn((n, 440), generator=gen, device=dev) * 0.6
+    W = torch.randn((b, 440), generator=gen, device=dev) * 0.05555
+    bias = torch.rand((b,), generator=gen, device=dev) * 6.283185307179586
+    F = cuda_ops.cosine_features(X, W, bias)
+    del X
+    return F, torch.randn((n, k), generator=gen, device=dev)
+
+
+def mnist_fit_operands():
+    from keystone_tpu_torch.data.loaders import synthetic_mnist
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+    from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
+
+    config = mnist.MnistRandomFFTConfig(synthetic_n=60000)
+    train = synthetic_mnist(60000, seed=0, device="cuda")
+    A = mnist.build_featurizer(config, "cuda").apply(train.data).get().array
+    R = ClassLabelIndicatorsFromIntLabels(10)(train.labels).array
+    return A - A.mean(dim=0), R - R.mean(dim=0)
+
+
+def f64_readings(libs, stream, A, R, weights):
+    """Each gram_corr variant's and cuBLAS's sums of (A, R) against float64."""
+    n, b = A.shape
+    k = R.shape[1]
+    g64 = torch.zeros((b, b), dtype=torch.float64, device=A.device)
+    c64 = torch.zeros((b, k), dtype=torch.float64, device=A.device)
+    for s in range(0, n, 65536):
+        Ac = A[s:s + 65536].double()
+        g64.addmm_(Ac.T, Ac)
+        c64.addmm_(Ac.T, R[s:s + 65536].double())
+    del Ac
+    W64 = torch.linalg.solve(g64, c64) if weights else None
+    sums = {"cuBLAS": (A.T @ A, A.T @ R)}
+    for (kernel, name), lib in libs.items():
+        if kernel == "gram_corr":
+            G = torch.empty((b, b), device=A.device)
+            C = torch.empty((b, k), device=A.device)
+            err = lib.kt_gram_corr(A.data_ptr(), R.data_ptr(), G.data_ptr(), C.data_ptr(), n,
+                                   b, k, A.stride(0), R.stride(0), 0, stream)
+            if err:
+                raise RuntimeError(f"gram_corr {name}: launch failed ({err})")
+            sums[name] = (G, C)
+    torch.cuda.synchronize()
+    out = {}
+    for name, (G, C) in sums.items():
+        r = dict(gram=rel(G, g64), corr=rel(C, c64))
+        if weights:
+            W = torch.linalg.solve(G.double(), C.double())
+            r["weights"] = ((W - W64).norm() / W64.norm()).item()
+        out[name] = r
+    for name, r in out.items():
+        r["gram_over_cublas"] = r["gram"] / out["cuBLAS"]["gram"]
+        r["corr_over_cublas"] = r["corr"] / out["cuBLAS"]["corr"]
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="a checkout whose Gramian headers to build beside")
+    parser.add_argument("--out", default="build/torch_gram_chunks.json")
+    parser.add_argument("--kernels", nargs="+", default=["gram_corr", "gram_corr_sym_acc"])
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_gram_chunks: no CUDA device is available", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    variants = list(VARIANTS)
+    if args.parent:
+        here = {h: (cuda_ops._CSRC / h).read_text() for h in (G, P)}
+        there = os.path.join(args.parent, "keystone_tpu_torch", "csrc")
+        variants.append(("parent", tuple(
+            (h, here[h], open(os.path.join(there, h)).read()) for h in (G, P))))
+    tv.VARIANTS = [(k, name, edits) for k in args.kernels for name, edits in variants]
+    libs = tv.build(cuda_ops, args.kernels)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result = dict(card=card, time={})
+    for kernel in args.kernels:
+        rows = result["time"][kernel] = tv.ROWS[kernel](cuda_ops, libs, stream, sms)
+        for name, r in rows.items():
+            extra = {key: r[key] for key in ("registers", "local_bytes") if key in r}
+            print(f"{kernel} {name}: {r['ms']:.3f} ms {extra}", flush=True)
+    if "gram_corr" in args.kernels:
+        for label, make, weights in (("cosine 589,824 x 4,096", cosine_slab, False),
+                                     ("MNIST fit 60,000 x 2,048, k = 10", mnist_fit_operands,
+                                      True)):
+            A, R = make()
+            readings = result[label] = f64_readings(libs, stream, A, R, weights)
+            del A, R
+            torch.cuda.empty_cache()
+            for name, r in readings.items():
+                print(f"float64, {label}: {name}: Gramian {r['gram']:.3e} "
+                      f"({r['gram_over_cublas']:.3f}x cuBLAS), correlation {r['corr']:.3e} "
+                      f"({r['corr_over_cublas']:.3f}x cuBLAS)"
+                      + (f", weights {r['weights']:.3e}" if weights else ""), flush=True)
+    print(card)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

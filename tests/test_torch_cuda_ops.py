@@ -318,3 +318,50 @@ class TestKernelsOnCard:
         A = torch.zeros((8, 4), dtype=torch.float16, device=cuda_device)
         with pytest.raises(TypeError):
             cuda_ops.gram_corr_sym(A, torch.zeros((8, 2), device=cuda_device))
+
+    def test_row_chunks_keep_every_form_bit_equal(self, cuda_device):
+        # Three whole 8,192-row chunks and a ragged one (csrc/gram_tile.cuh):
+        # integer entries make every sum exact, so the kernel gives the plain
+        # version's bits in any order; the accumulating form on a zero G
+        # gives the storing form's, in place or into a new buffer.
+        rng = _rng(21)
+        n, d, k = 3 * 8192 + 100, 260, 5
+        A = _t(rng.integers(-1, 2, size=(n, d)).astype(np.float32)).to(cuda_device)
+        R = _t(rng.integers(-1, 2, size=(n, k)).astype(np.float32)).to(cuda_device)
+        gram, corr = cuda_ops.gram_corr_sym(A, R)
+        gram_r, corr_r = cuda_ops.gram_corr_sym_ref(A, R)
+        assert torch.equal(gram, gram_r) and torch.equal(corr, corr_r)
+        G = torch.zeros((d, d), device=cuda_device)
+        fresh = cuda_ops.gram_sym_acc(G, A)
+        cuda_ops.gram_sym_acc(G, A, out=G)
+        upper = torch.triu(torch.ones((d, d), dtype=torch.bool, device=cuda_device))
+        assert torch.equal(fresh[upper], gram[upper]) and torch.equal(G[upper], gram[upper])
+
+    def test_cosine_sums_within_cublas_error_of_float64(self, cuda_device):
+        # ROADMAP C.4: over 262,144 rows of cosine features the kernel's
+        # float32 Gramian and correlation must be at most 1.25x as far from
+        # float64 sums as cuBLAS's float32 ones (max |err| / max |f64|). One
+        # fmaf chain over all rows was 2.8x (Gramian) and 7.4x (correlation)
+        # as far at 589,824 rows on an H100; row chunks of 8,192 cut it.
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        n, d_in, d, k = 262144, 440, 1024, 147
+        X = torch.randn((n, d_in), generator=gen, device=cuda_device) * 0.6
+        W = torch.randn((d, d_in), generator=gen, device=cuda_device) * 0.05555
+        b = torch.rand((d,), generator=gen, device=cuda_device) * 6.283185307179586
+        F = cuda_ops.cosine_features(X, W, b)
+        R = torch.randn((n, k), generator=gen, device=cuda_device)
+        del X
+        gram64 = torch.zeros((d, d), dtype=torch.float64, device=cuda_device)
+        corr64 = torch.zeros((d, k), dtype=torch.float64, device=cuda_device)
+        for start in range(0, n, 65536):
+            Fc = F[start:start + 65536].double()
+            gram64.addmm_(Fc.T, Fc)
+            corr64.addmm_(Fc.T, R[start:start + 65536].double())
+
+        def err(got, want):
+            return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+        gram, corr = cuda_ops.gram_corr_sym(F, R)
+        gram_r, corr_r = cuda_ops.gram_corr_sym_ref(F, R)
+        assert err(gram, gram64) <= 1.25 * err(gram_r, gram64)
+        assert err(corr, corr64) <= 1.25 * err(corr_r, corr64)
