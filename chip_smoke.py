@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port (all twelve wrappers': the TIMIT,
-CIFAR, sparse and sketched paths and the block update's ``sym=False``
-route) from the nine sources of ``keystone_tpu_torch/csrc/`` (one ``nvcc``
+CIFAR, MNIST, VOC, sparse and sketched paths and the block update's
+``sym=False`` route) from the nine sources of ``keystone_tpu_torch/csrc/`` (one ``nvcc``
 per source, all started together), then:
 
   1. holds each kernel against its plain PyTorch version on the card, at the
@@ -18,7 +18,9 @@ per source, all started together), then:
      the same bits, beside two float32 ``addmm``) and on the ragged last
      chunk of 41,248 rows, in place and into a new buffer; ``gram_corr``
      at the Gramian shape beside ``gram_corr_sym`` (one kernel of
-     ``csrc/gram_corr.cu``, both outputs the same bits);
+     ``csrc/gram_corr.cu``, both outputs the same bits); ``gram_corr_sym``
+     also at the VOC fit's shape (5,011 x 4,096, k = 20: one ragged row
+     chunk);
      for the kernels on the pipelined tile of ``csrc/fma_pipe.cuh``
      (``block_corr``, ``gram_corr``, ``block_gram_sym`` (the window's 528
      upper tiles), ``gram_sym_acc`` (the streamed tile's 8,256),
@@ -178,6 +180,23 @@ per source, all started together), then:
      common features, 20 iterations), host seconds by stage apart from the
      L-BFGS's device seconds, its steps, final loss and accuracy; no kernel
      is launched.
+ 15. runs the image featurizer's modules small on the card against the
+     CPU (SIFT, LCS, the GMM fit, Fisher vectors, BWLS), then
+     VOCSIFTFisher through ``keystone_tpu_torch.pipelines.voc_sift_fisher.run``
+     at KeystoneML's VOC width (descDim 80, vocab 256: d = 40,960, block
+     4,096, lambda 0.5, one epoch) on VOC 2007's 5,011 training and 4,952
+     test images (synthetic, 64 x 64), launches counted from 0: exactly ten
+     ``gram_corr_sym`` launches and no other kernel; host seconds by stage
+     (SIFT, column PCA, k-means++, EM, Fisher vectors, solve), fit, apply,
+     peak memory, MAP; the fit's weights against the same fit with
+     ``gram_corr_sym`` swapped for its plain version (1e-4 relative) and
+     against the same fit in float64 (at most 1.25 times as far from it as
+     the plain version's).
+ 16. runs ImageNetSiftLcsFV through
+     ``keystone_tpu_torch.pipelines.imagenet_sift_lcs_fv.run`` at the
+     reference config's widths (d = 4,096) and 1,000 classes on 16,000
+     training and 5,000 test images of 64 x 64: no kernel launched; host
+     seconds by stage, fit, apply, peak memory, top-1 and top-5 errors.
 
 Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -319,6 +338,25 @@ AMAZON_DOCS, AMAZON_FEATURES, AMAZON_LR_ITERS, AMAZON_SMALL = 200000, 1000, 20, 
 # the last step; the documents are separable and the loss falls 5,000x).
 LBFGS_TOL = 2e-4
 
+# VOCSIFTFisher at VOC 2007's sizes (5,011 train and 4,952 test images, 20
+# classes) and KeystoneML's width: descDim 80, vocab 256, so d = 2 * 80 *
+# 256 = 40,960 in ten blocks of 4,096, lambda 0.5, one epoch; SIFT step 3,
+# bin 4, 4 scales, scale step 1. Cut: 64 x 64 synthetic images (VOC's are
+# about 500 x 375), 499 descriptors an image. The stacked block fit is one
+# gram_corr_sym launch a block at 5,011 x 4,096, k = 20.
+VOC_N, VOC_TEST, VOC_SIZE, VOC_DESC, VOC_VOCAB, VOC_BLOCK, VOC_LAM = (
+    5011, 4952, 64, 80, 256, 4096, 0.5)
+VOC_K, VOC_D = 20, 2 * 80 * 256
+VOC_BLOCKS = VOC_D // VOC_BLOCK
+# ImageNetSiftLcsFV at the reference config's widths (SIFT and LCS PCA 64,
+# vocab 16: d = 2 * (2 * 64 * 16) = 4,096, one block; lambda 6e-5, mixture
+# weight 0.25, one iteration) and all 1,000 classes. Cut: 16 training and 5
+# test images a class (16,000 and 5,000) of 64 x 64.
+INET_N, INET_TEST, INET_CLASSES, INET_SIZE = 16000, 5000, 1000, 64
+# The fit's weights on the main path's features against the same fit with
+# its kernels swapped for their plain versions (cuBLAS) on the card.
+VOC_PLAIN_TOL = 1e-4
+
 # Each kernel, and the main-path route whose launches the JSON line reports.
 FLAT, STACKED = "timit fused flat fit (fit first)", "timit stacked fit (apply first)"
 STREAMED = "timit streamed fit (--solver streaming)"
@@ -333,6 +371,8 @@ BLOCK_RESIDENT = "BlockStreamedLeastSquares on phase 2's rows against --solver b
 MNIST_APPLY_FIRST = "mnist MnistRandomFFT (apply first, the reference's run)"
 MNIST_FIT_FIRST = "mnist MnistRandomFFT (fit first)"
 AMAZON_TEXT = "amazon AmazonReviewsPipeline (text front end, logistic L-BFGS)"
+VOC = "voc VOCSIFTFisher (d = 40,960, stacked block fit)"
+IMAGENET = "imagenet ImageNetSiftLcsFV (1,000 classes, BWLS)"
 KERNELS = {
     "cosine_features": dict(
         source="keystone_tpu_torch/csrc/cosine_features.cu",
@@ -637,11 +677,54 @@ def phase_kernels(cuda_ops):
     results["gram_corr"] = phase_gram_corr(cuda_ops, A, R)
     del A, A16, R
     torch.cuda.empty_cache()
+    r["voc_shape"] = phase_voc_gram(cuda_ops, gen)
     results.update(phase_window_kernels(cuda_ops, gen))
     results.update(phase_gram_sym_acc(cuda_ops, gen))
     results.update(phase_gram_corr_sym_acc(cuda_ops, gen))
     results["countsketch_scatter"] = phase_countsketch(cuda_ops)
     return results
+
+
+def phase_voc_gram(cuda_ops, gen):
+    """``gram_corr_sym`` at the VOC fit's shape (one centred 5,011 x 4,096
+    feature block, k = 20 centred ±1 labels: ten launches in phase 15)
+    against its plain version, timed beside it and ``A.T@A``, ``A.T@R``,
+    with its bound and grid. n is not a multiple of the 2,048-row Gramian
+    chunk: two whole chunks and a ragged one."""
+    dev = torch.device("cuda")
+    m, d, k = VOC_N, VOC_BLOCK, VOC_K
+    A = torch.randn((m, d), generator=gen, device=dev) / 64.0
+    A -= A.mean(dim=0)
+    labels = torch.randint(0, k, (m,), generator=gen, device=dev)
+    R = 2.0 * torch.nn.functional.one_hot(labels, k).float() - 1.0
+    R -= R.mean(dim=0)
+    gram, corr = cuda_ops.gram_corr_sym(A, R)
+    gram_r, corr_r = cuda_ops.gram_corr_sym_ref(A, R)
+    torch.cuda.synchronize()
+    g_err = (gram - gram_r).abs().max().item()
+    c_err = (corr - corr_r).abs().max().item()
+    g_rel = g_err / gram_r.diagonal().max().item()
+    c_rel = c_err / (A.abs().T @ R.abs()).max().item()
+    check(f"gram_corr_sym at the VOC shape, A {m}x{d}, R {m}x{k}",
+          g_rel <= 1e-4 and c_rel <= 1e-4 and torch.equal(gram, gram.T),
+          f"gram max_abs_err {g_err:.3e} ({g_rel:.2e} of scale), corr max_abs_err {c_err:.3e} "
+          f"({c_rel:.2e} of scale), tol 1e-4 of scale, symmetric")
+    del gram, corr, gram_r, corr_r
+    r = dict(rows=m, d=d, k=k, max_abs_err=max(g_err, c_err))
+    r["ms"] = time_ms(lambda: cuda_ops.gram_corr_sym(A, R), 10)
+    r["plain_ms"] = time_ms(lambda: cuda_ops.gram_corr_sym_ref(A, R), 10)
+    r["library_ms"] = time_ms(lambda: (A.T @ A, A.T @ R), 10)
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * (m * d + m * k + d * d + d * k),
+                                            m * d * (d + 1) + 2 * m * d * k, PEAK_F32_FLOPS)
+    grid = r["grid"] = cuda_ops.gram_corr_grid(A, k)
+    log(f"  gram_corr_sym at the VOC shape: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+        f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}, "
+        f"{r['bound_ms'] / r['ms']:.0%} of it); grid {grid['corr_blocks']} correlation blocks "
+        f"({grid['ktile']}-wide label tile, {grid['masked']:.1%} masked) and "
+        f"{grid['gram_blocks']} Gramian tiles: {grid_line(grid)}")
+    del A, R
+    torch.cuda.empty_cache()
+    return r
 
 
 def phase_gram_corr(cuda_ops, A, R):
@@ -2083,12 +2166,14 @@ def mnist_f64(cuda_ops, config):
 
 
 class _StageClock:
-    """Wall seconds by stage of the Amazon pipeline: each wrapped method's
-    calls summed under its stage (host stages end where their output is a
-    host object; the L-BFGS ends in a device synchronize)."""
+    """Wall seconds by stage of a pipeline: each wrapped method's calls
+    summed under its stage (host stages end where their output is a host
+    object; device stages end in a device synchronize). ``calls`` lists each
+    call's stage and receiver."""
 
     def __init__(self):
         self.seconds = {}
+        self.calls = []
         self._saved = []
 
     def wrap(self, owner, attr, stage, sync=False):
@@ -2101,6 +2186,7 @@ class _StageClock:
             if sync:
                 torch.cuda.synchronize()
             clock.seconds[stage] = clock.seconds.get(stage, 0.0) + time.perf_counter() - t0
+            clock.calls.append((stage, args[0] if args else None))
             return out
 
         self._saved.append((owner, attr, owner.__dict__.get(attr)))
@@ -2188,6 +2274,259 @@ def phase_amazon():
                 stage_seconds=stages, iterations=fit.iterations, final_loss=fit.loss,
                 losses=fit.losses, train_accuracy=result.train_eval.accuracy,
                 test_accuracy=result.test_eval.accuracy, small_loss_gap=worst)
+
+
+def _textures(n, size, seed):
+    """Smooth oriented textures plus noise in [0, 1], as (n, size, size, 3)
+    float32: images with real gradients for SIFT."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    out = []
+    for _ in range(n):
+        f = rng.uniform(0.2, 1.5, size=2)
+        img = 0.5 + 0.35 * np.sin(f[0] * xx + f[1] * yy) + 0.08 * rng.normal(size=(size, size))
+        out.append(np.clip(img, 0, 1))
+    return torch.from_numpy(np.stack(out).astype(np.float32)[..., None].repeat(3, axis=-1))
+
+
+def phase_images_small(device="cuda"):
+    """The image featurizer's modules small on the card against the CPU:
+    SIFT (quantized: no entry more than one step off, at most 0.1% of the
+    entries off), LCS and Fisher vectors (1e-5), the GMM's fit (the same
+    k-means++ picks, parameters within 1e-6 relative, the same EM steps,
+    no restart) and BWLS in float64 (1e-6 relative)."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.images.fisher import FisherVector
+    from keystone_tpu_torch.ops.images.lcs import LCSExtractor
+    from keystone_tpu_torch.ops.images.sift import SIFTExtractor
+    from keystone_tpu_torch.ops.learning.bwls import BlockWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.clustering import (
+        GaussianMixtureModelEstimator,
+        KMeansPlusPlusEstimator,
+    )
+
+    imgs = _textures(32, VOC_SIZE, 3)
+    on = {where: imgs.to(where) for where in (device, "cpu")}
+    sift = {w: SIFTExtractor().batch_apply(Dataset(x)).array.cpu() for w, x in on.items()}
+    diff = (sift[device] - sift["cpu"]).abs()
+    share = float((diff > 0).float().mean())
+    check(f"SIFT on 32 images of {VOC_SIZE} x {VOC_SIZE}, card against CPU",
+          float(diff.max()) <= 1.0 and share <= 1e-3,
+          f"largest difference {float(diff.max()):.0f} step, {share:.2e} of the entries differ "
+          f"(tol 1 step, 1e-3)")
+    lcs = {w: LCSExtractor(4, 16, 6).batch_apply(Dataset(x)).array.cpu() for w, x in on.items()}
+    err = float((lcs[device] - lcs["cpu"]).abs().max())
+    check("LCS, card against CPU", err <= 1e-5, f"max_abs_err {err:.2e} (tol 1e-5)")
+
+    rng = np.random.default_rng(5)
+    centres = rng.normal(scale=4.0, size=(8, 16))
+    X = torch.from_numpy(centres[rng.integers(0, 8, 20000)] + rng.normal(size=(20000, 16)))
+    fits = {}
+    for where in (device, "cpu"):
+        est = GaussianMixtureModelEstimator(8, seed=2)
+        centers = KMeansPlusPlusEstimator(8, 10, seed=2).seed_centers(X.to(where))
+        gmm = est.fit_array(X.to(where))
+        fits[where] = (centers, gmm, est.iterations, est.restarts)
+    (c_g, g_g, it_g, rs_g), (c_c, g_c, it_c, rs_c) = fits[device], fits["cpu"]
+    rel = max(float((getattr(g_g, a).cpu() - getattr(g_c, a)).abs().max()
+                    / getattr(g_c, a).abs().max()) for a in ("means", "variances", "weights"))
+    check("GMM fit on 20,000 x 16 (k = 8), card against CPU",
+          (c_g == c_c).all() and rel <= 1e-6 and it_g == it_c and rs_g == rs_c == 0,
+          f"the same k-means++ picks, parameters within {rel:.2e} relative (tol 1e-6), "
+          f"{it_g} and {it_c} EM steps, restarts {rs_g} and {rs_c}")
+    desc = torch.from_numpy(rng.normal(size=(12, 16, 60)).astype(np.float32))
+    fv = {w: FisherVector(g).batch_apply(Dataset(desc.to(w))).array.cpu()
+          for w, g in ((device, g_g), ("cpu", g_c))}
+    err = float((fv[device] - fv["cpu"]).abs().max())
+    check("Fisher vectors, card against CPU", err <= 1e-5, f"max_abs_err {err:.2e} (tol 1e-5)")
+
+    labels = rng.integers(0, 30, 600)
+    F = torch.from_numpy(rng.normal(size=(30, 256))[labels] + rng.normal(size=(600, 256)))
+    Y = torch.from_numpy(2.0 * np.eye(30)[labels] - 1.0)
+    W = {}
+    for where in (device, "cpu"):
+        m = BlockWeightedLeastSquaresEstimator(128, 1, 6e-5, 0.25).fit(
+            Dataset(F.to(where)), Dataset(Y.to(where)))
+        W[where] = torch.cat([x.cpu() for x in m.xs])
+    rel = float((W[device] - W["cpu"]).norm() / W["cpu"].norm())
+    check("BWLS float64 (600 x 256, 30 classes), card against CPU", rel <= 1e-6,
+          f"weights {rel:.2e} relative Frobenius (tol 1e-6)")
+
+
+def _image_stage_clock(device):
+    """A stage clock over the image pipelines' stages (each call ending in
+    a device synchronize)."""
+    from keystone_tpu_torch.ops.images.fisher import FisherVector
+    from keystone_tpu_torch.ops.images.lcs import LCSExtractor
+    from keystone_tpu_torch.ops.images.sift import SIFTExtractor
+    from keystone_tpu_torch.ops.learning import block, bwls, clustering, pca
+
+    clock = _StageClock()
+    sync = torch.device(device).type == "cuda"
+    for owner, attr, stage in (
+        (SIFTExtractor, "batch_apply", "SIFT"), (LCSExtractor, "batch_apply", "LCS"),
+        (pca.DistributedColumnPCAEstimator, "fit", "column PCA fit"),
+        (pca.LocalColumnPCAEstimator, "fit", "column PCA fit"),
+        (clustering.KMeansPlusPlusEstimator, "fit_array", "k-means++ and Lloyd"),
+        (clustering.GaussianMixtureModelEstimator, "fit_array", "GMM fit"),
+        (FisherVector, "batch_apply", "Fisher vectors"),
+        (block.BlockLeastSquaresEstimator, "fit", "solve"),
+        (bwls.BlockWeightedLeastSquaresEstimator, "fit", "solve"),
+    ):
+        clock.wrap(owner, attr, stage, sync=sync)
+    return clock
+
+
+def _stage_seconds(clock):
+    """Seconds by stage, the GMM's EM apart from its k-means++ init; and
+    each GMM fit's EM steps and restarts."""
+    stages = dict(clock.seconds)
+    if "GMM fit" in stages:
+        stages["GMM EM"] = stages.pop("GMM fit") - stages.get("k-means++ and Lloyd", 0.0)
+    gmms = [(est.iterations, est.restarts) for stage, est in clock.calls if stage == "GMM fit"]
+    return {k: round(v, 3) for k, v in stages.items()}, gmms
+
+
+def phase_voc(cuda_ops, device="cuda"):
+    """Phase 15: VOCSIFTFisher through ``voc_sift_fisher.run`` at d = 40,960
+    on VOC 2007's 5,011 + 4,952 images (64 x 64 synthetic), launches
+    counted from 0: exactly VOC_BLOCKS ``gram_corr_sym`` launches and no
+    other kernel. Host seconds by stage, fit, apply, peak memory, MAP; the
+    fit's weights against the same fit on the same features with
+    ``gram_corr_sym`` swapped for its plain version, and both against that
+    fit in float64 (the kernel's at most F64_OVER_CUBLAS times as far)."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.pipelines import voc_sift_fisher as voc
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    env = PipelineEnv.get_or_create()
+    config = voc.VOCConfig(lam=VOC_LAM, descriptor_dim=VOC_DESC, vocab_size=VOC_VOCAB,
+                           block_size=VOC_BLOCK, synthetic_n=VOC_N, synthetic_test_n=VOC_TEST,
+                           synthetic_image_size=VOC_SIZE)
+    seen = []
+    fit = BlockLeastSquaresEstimator.fit
+
+    def keeping_fit(self, data, labels):
+        seen.append((data, labels))
+        return fit(self, data, labels)
+
+    BlockLeastSquaresEstimator.fit = keeping_fit
+    clock = _image_stage_clock(device)
+    env.reset()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = voc.run(config, device=device)
+    finally:
+        clock.restore()
+        BlockLeastSquaresEstimator.fit = fit
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    peak = (torch.cuda.max_memory_allocated() - base) if cuda else 0
+    env.reset()
+    stages, gmms = _stage_seconds(clock)
+    (mapper,) = [o for o in result.fitted.transformer_graph.operators.values()
+                 if type(o).__name__ == "BlockLinearMapper"]
+    W = torch.cat([x.float() for x in mapper.xs])
+    (data, labels), = seen
+    with plain_kernels(cuda_ops, ["gram_corr_sym"]):
+        plain = BlockLeastSquaresEstimator(VOC_BLOCK, 1, VOC_LAM).fit(data, labels)
+    W_plain = torch.cat([x.float() for x in plain.xs])
+    rel = _rel(W, W_plain)
+    # The same fit in float64 on the same float32 features (plain
+    # contractions): the sums the kernel and cuBLAS both approximate.
+    fit64 = BlockLeastSquaresEstimator(VOC_BLOCK, 1, VOC_LAM).fit(
+        Dataset(data.array.double(), n=data.n), Dataset(labels.array.double(), n=labels.n))
+    W64 = torch.cat(list(fit64.xs))
+    err, err_plain = _rel(W, W64), _rel(W_plain, W64)
+    del seen, data, labels, plain, fit64
+    log(f"  {VOC}: {VOC_N} training and {VOC_TEST} test images of {VOC_SIZE} x {VOC_SIZE}, "
+        f"d = {W.shape[0]}, k = {W.shape[1]}: run {wall:.3f} s (data generation included; fit "
+        f"{result.fit_seconds:.3f} s, test apply {result.apply_seconds:.3f} s), peak allocated "
+        f"by the run {peak / 2**30:.2f} GiB; by stage {stages}; GMM (EM steps, restarts) "
+        f"{gmms}; MAP {result.mean_ap:.4f}; "
+        f"launches {counts}; weights {rel:.2e} from the fit with gram_corr_sym's plain version; "
+        f"from the float64 fit {err:.3e} (the plain version's {err_plain:.3e})")
+    expected = {name: 0 for name in counts}
+    expected["gram_corr_sym"] = VOC_BLOCKS
+    check(f"{VOC} launches", counts == expected, f"{counts}, expected {expected}")
+    check(f"{VOC} width", W.shape == (VOC_D, VOC_K) and len(mapper.xs) == VOC_BLOCKS,
+          f"weights {tuple(W.shape)} in {len(mapper.xs)} blocks")
+    check(f"{VOC} weights against the plain versions'", bool(torch.isfinite(W).all())
+          and rel <= VOC_PLAIN_TOL, f"{rel:.2e} relative Frobenius (tol {VOC_PLAIN_TOL:.0e})")
+    check(f"{VOC} weights within {F64_OVER_CUBLAS}x the plain versions' distance from float64",
+          err <= F64_OVER_CUBLAS * err_plain, f"{err:.3e} against {err_plain:.3e}")
+    aps = np.asarray(result.aps)
+    check(f"{VOC} metrics", aps.shape == (VOC_K,) and np.isfinite(aps).all()
+          and result.mean_ap > 0.5, f"20 finite APs, MAP {result.mean_ap:.4f} above 0.5 "
+          f"(chance is about 0.1)")
+    return dict(train_images=VOC_N, test_images=VOC_TEST, image_size=VOC_SIZE, d=VOC_D,
+                run_seconds=wall, fit_seconds=result.fit_seconds,
+                apply_seconds=result.apply_seconds, peak_allocated_bytes=peak,
+                stage_seconds=stages, gmm_steps_restarts=gmms, mean_ap=result.mean_ap,
+                aps=aps.tolist(), weights_vs_plain=rel, weights_from_f64=err,
+                plain_weights_from_f64=err_plain, launches=counts)
+
+
+def phase_imagenet(cuda_ops, device="cuda"):
+    """Phase 16: ImageNetSiftLcsFV through ``imagenet_sift_lcs_fv.run`` at
+    the reference config's widths (d = 4,096) and 1,000 classes, 16,000 +
+    5,000 images of 64 x 64, launches counted from 0 (no kernel is on this
+    route). Host seconds by stage, fit, apply, peak memory, top-1 and top-5
+    errors."""
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as inet
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    env = PipelineEnv.get_or_create()
+    config = inet.ImageNetConfig(synthetic_n=INET_N, synthetic_test_n=INET_TEST,
+                                 synthetic_classes=INET_CLASSES, synthetic_image_size=INET_SIZE)
+    clock = _image_stage_clock(device)
+    env.reset()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = inet.run(config, device=device)
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    peak = (torch.cuda.max_memory_allocated() - base) if cuda else 0
+    env.reset()
+    stages, gmms = _stage_seconds(clock)
+    (mapper,) = [o for o in result.fitted.transformer_graph.operators.values()
+                 if type(o).__name__ == "BlockLinearMapper"]
+    W = torch.cat([x.float() for x in mapper.xs])
+    top1 = result.top1_eval.total_error
+    log(f"  {IMAGENET}: {INET_N} training and {INET_TEST} test images of {INET_SIZE} x "
+        f"{INET_SIZE}, {INET_CLASSES} classes, d = {W.shape[0]}: run {wall:.3f} s (data "
+        f"generation included; fit {result.fit_seconds:.3f} s, test apply "
+        f"{result.apply_seconds:.3f} s), peak allocated by the run {peak / 2**30:.2f} GiB; by "
+        f"stage {stages}; GMM (EM steps, restarts) {gmms}; top-1 error {100 * top1:.2f}%, "
+        f"top-5 error {100 * result.top5_error:.2f}%; launches {counts}")
+    check(f"{IMAGENET} launches no kernel", not any(counts.values()), f"{counts}")
+    check(f"{IMAGENET} width", W.shape == (4096, INET_CLASSES) and bool(torch.isfinite(W).all()),
+          f"finite weights {tuple(W.shape)}")
+    check(f"{IMAGENET} metrics", result.top5.shape == (INET_TEST, 5)
+          and result.top1_eval.total == INET_TEST and result.top5_error < 0.9,
+          f"every test image scored, top-5 error {100 * result.top5_error:.2f}% below 90% "
+          f"(chance is 99.5%)")
+    return dict(train_images=INET_N, test_images=INET_TEST, classes=INET_CLASSES, d=4096,
+                run_seconds=wall, fit_seconds=result.fit_seconds,
+                apply_seconds=result.apply_seconds, peak_allocated_bytes=peak,
+                stage_seconds=stages, gmm_steps_restarts=gmms, top1_error=top1,
+                top5_error=result.top5_error,
+                launches=counts)
 
 
 def _conv_chunk_rows(fusion):
@@ -3231,6 +3570,20 @@ def main():
     mnist_run = phase_mnist(cuda_ops)
     log("[phase 14] AmazonReviewsPipeline: the L-BFGS small against the CPU; 200,000 documents")
     amazon_run = phase_amazon()
+    log("[phase 15] VOCSIFTFisher: the image modules small against the CPU; d = 40,960 on "
+        "5,011 + 4,952 images")
+    t0 = time.perf_counter()
+    phase_images_small()
+    voc_run = phase_voc(cuda_ops)
+    voc_run["phase_seconds"] = time.perf_counter() - t0
+    # The VOC shape's launches are those counted on phase 15's run.
+    results["gram_corr_sym"]["voc_shape"]["launches"] = voc_run["launches"]["gram_corr_sym"]
+    log(f"  phase 15: {voc_run['phase_seconds']:.1f} s")
+    log("[phase 16] ImageNetSiftLcsFV: 1,000 classes, 16,000 + 5,000 images")
+    t0 = time.perf_counter()
+    imagenet_run = phase_imagenet(cuda_ops)
+    imagenet_run["phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase 16: {imagenet_run['phase_seconds']:.1f} s")
 
     route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
                     CIFAR: cifar_counts, SPARSE: sparse_counts, SKETCH: sketch_counts,
@@ -3243,7 +3596,8 @@ def main():
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
-                 WIDE_AUTO: wide_auto, "mnist MnistRandomFFT": mnist_run, AMAZON_TEXT: amazon_run}
+                 WIDE_AUTO: wide_auto, "mnist MnistRandomFFT": mnist_run, AMAZON_TEXT: amazon_run,
+                 VOC: voc_run, IMAGENET: imagenet_run}
     log(f"main path: {json.dumps(main_path)}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,7 @@
 // never exists as a (d, d) buffer of its own. The TPU kernel copies G's
 // tile into the output at its first row tile and adds each row tile's
 // product along its sequential grid axis; here a block sums its tile over
-// each chunk of 8,192 rows in registers and adds each chunk's sums into its
+// each chunk of 2,048 rows in registers and adds each chunk's sums into its
 // output tile, the first to G's tile (gram_tile.cuh), and the fold mirrors
 // once at its end.
 //

@@ -76,7 +76,7 @@
 // 32 wide at the Amazon fit's k = 2, 257 blocks, each about an eighth of a
 // Gramian block's work), then one block an upper Gramian tile (8,385 at
 // d1 = 16385, 31.8 waves of 264), each entry G's (C's) entry plus fmaf
-// chains over row chunks of 8,192 (C's of 1,024), the chunks' sums added in
+// chains over row chunks of 2,048 (C's of 256), the chunks' sums added in
 // order (gram_tile.cuh). It copies F in 16-byte
 // chunks when F's base and row stride are 16-byte aligned (the sparse fold
 // pads its float32 slab's rows to 4 elements for that; the chunk at the

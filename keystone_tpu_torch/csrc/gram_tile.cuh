@@ -13,7 +13,7 @@
 // Every output tile is one block of one launch that loops over all n rows
 // itself, so nothing carries between blocks and no atomics are needed; the
 // TPU kernels' sequential row-tile grid axis becomes that loop. The rows go
-// in chunks, CHUNK (8,192) for the Gramian and CORR_CHUNK (1,024) for the
+// in chunks, CHUNK (2,048) for the Gramian and CORR_CHUNK (256) for the
 // correlation: each chunk's sums are one fmaf chain over its rows in order,
 // from zero (fma_pipe.cuh), and the block adds them, in chunk order, to a
 // running total that it keeps in its own output tile in device memory: the
@@ -24,14 +24,19 @@
 // on across chunks: fma_pipe.cuh's mainloop hands each chunk's sums to the
 // epilogue (its FLUSH) with the next stages' copies in flight, so a chunk
 // costs one pass over the tile in device memory. A Gramian entry is then a
-// chain of at most 8,192 products and one of ceil(n / 8,192) chunk sums (72
-// at 589,824 rows, 269 at 2.2e6): one chain over all n rows was 2.8x
+// chain of at most 2,048 products and one of ceil(n / 2,048) chunk sums (288
+// at 589,824 rows, 1,075 at 2.2e6): one chain over all n rows was 2.8x
 // (Gramian) and 7.4x (correlation) further from float64 sums than cuBLAS's
-// at 589,824 rows on an H100, and the bits differ from that form's wherever
-// n > 8,192 (1,024 for the correlation). The correlation's chunks are
-// shorter because its entries cancel (centred features against centred
-// labels: MNIST's fit), so a chain's rounding is a larger share of them;
-// its tile is small (4 x NJ a thread), so a flush costs little.
+// at 589,824 rows on an H100, and chunks of 8,192 / 1,024 were still 3.1x
+// and 2.1x as far on VOCSIFTFisher's centred Fisher-vector blocks (5,011
+// rows, one chunk: a chain of 5,011); at 2,048 / 256 they are 0.87x and
+// 0.52x, the ridge weights of each block 0.60x cuBLAS's distance
+// (scripts/torch_gram_chunks.py; 1,024 / 256 read 0.54x and 0.41x but
+// cost 6% on gram_sym_acc, 2,048 / 256 1%). The bits differ from a single
+// chain's wherever n > 2,048 (256 for the correlation). The
+// correlation's chunks are shorter because its entries cancel (centred
+// features against centred labels), so a chain's rounding is a larger share
+// of them; its tile is small (4 x NJ a thread), so a flush costs little.
 // Still the Gramian is exactly symmetric, all these forms give each other's
 // bits (ACC on in = 0 gives STORE's), in place gives the bits of a new
 // buffer, and a window read in place gives the bits of its copy.
@@ -65,8 +70,8 @@ constexpr int STAGES = 3;    // stages in the cp.async ring
 constexpr int MINB = 2;      // blocks an SM the registers are capped for (128 a thread)
 constexpr int CORR_BK = 16;  // rows a stage of the correlation (block_corr.cu's)
 constexpr int CORR_MI = 4;   // columns of A a thread of a correlation block (x 16 a block)
-constexpr int CHUNK = 8192;       // Gramian rows summed from zero before they join the total
-constexpr int CORR_CHUNK = 1024;  // the correlation's
+constexpr int CHUNK = 2048;      // Gramian rows summed from zero before they join the total
+constexpr int CORR_CHUNK = 256;  // the correlation's
 static_assert(CHUNK % BK == 0 && CORR_CHUNK % CORR_BK == 0, "a chunk must be whole stages");
 
 template <typename TA>

@@ -9,12 +9,15 @@ parser, and CIFAR records are split with numpy (the reference's numpy path;
 its native record splitter is not ported). Every loader takes an explicit
 ``device``; None means the CUDA device (raising without one). Features and
 images arrive as float32, labels as int64; documents stay host strings.
+Of the image archives' loaders only the VOC record, ``MultiLabeledImage``,
+is ported (``load_voc`` and ``load_imagenet`` come with the data plane).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
@@ -22,6 +25,15 @@ import numpy as np
 from keystone_tpu_torch import resolve_device
 
 from .dataset import Dataset, LabeledData, as_tensor
+
+
+@dataclass
+class MultiLabeledImage:
+    """(image, multi-label array, filename) (reference: utils/MultiLabeledImage)."""
+
+    image: np.ndarray
+    labels: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.int64))
+    filename: str = ""
 
 
 def _labeled(X: np.ndarray, labels: np.ndarray, device) -> LabeledData:

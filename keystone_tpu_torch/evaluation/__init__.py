@@ -5,6 +5,7 @@ from .metrics import (
     BinaryClassificationMetrics,
     BinaryClassifierEvaluator,
     Evaluator,
+    MeanAveragePrecisionEvaluator,
     MulticlassClassifierEvaluator,
     MulticlassMetrics,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "BinaryClassificationMetrics",
     "BinaryClassifierEvaluator",
     "Evaluator",
+    "MeanAveragePrecisionEvaluator",
     "MulticlassClassifierEvaluator",
     "MulticlassMetrics",
 ]

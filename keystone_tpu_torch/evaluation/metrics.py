@@ -3,9 +3,11 @@ MulticlassClassifierEvaluator.scala:23-161).
 
 Port of ``keystone_tpu/evaluation/metrics.py`` (the multiclass evaluator
 of the TIMIT, CIFAR and MNIST slices; the binary one of the Amazon
-slice, reference: BinaryClassifierEvaluator.scala:17-79). The confusion
-matrix is one device pass (a bincount over ``label * C + prediction``), read
-back to the host as numpy; the binary counts are four device sums.
+slice, reference: BinaryClassifierEvaluator.scala:17-79; the VOC slice's
+mean average precision, MeanAveragePrecisionEvaluator.scala:13-87). The
+confusion matrix is one device pass (a bincount over ``label * C +
+prediction``), read back to the host as numpy; the binary counts are four
+device sums; the average precisions are host numpy, as in the reference.
 """
 
 from __future__ import annotations
@@ -206,3 +208,46 @@ class BinaryClassifierEvaluator(Evaluator):
         counts = torch.stack([(preds & labs).sum(), (preds & ~labs).sum(),
                               (~preds & ~labs).sum(), (~preds & labs).sum()])
         return BinaryClassificationMetrics(*(float(c) for c in counts.cpu().tolist()))
+
+
+class MeanAveragePrecisionEvaluator(Evaluator):
+    """VOC-style per-class average precision (reference:
+    evaluation/MeanAveragePrecisionEvaluator.scala:13-87, after the enceval
+    toolkit MATLAB code).
+
+    predictions: per-example class-score vectors (n, numClasses);
+    labels: per-example arrays of valid class ids (host list or (n, k) array).
+    Returns a (numClasses,) float64 numpy array of 11-point interpolated APs.
+    """
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+
+    def _evaluate(self, predictions: Dataset, labels: Dataset) -> np.ndarray:
+        scores = np.asarray(predictions.to_numpy(), dtype=np.float64)  # (n, C)
+        n = scores.shape[0]
+        gt = np.zeros((n, self.num_classes), dtype=np.float64)
+        for i, labs in enumerate(labels.to_list()):
+            for lab in np.atleast_1d(np.asarray(labs, dtype=np.int64)):
+                if 0 <= lab < self.num_classes:
+                    gt[i, lab] = 1.0
+
+        # Per class: sort by descending score (stable, the reference's
+        # sortBy(..).reverse tie order), accumulate true and false positives.
+        order = np.argsort(-scores, axis=0, kind="stable")
+        gt_sorted = np.take_along_axis(gt, order, axis=0)
+        tps = np.cumsum(gt_sorted, axis=0)
+        fps = np.cumsum(1.0 - gt_sorted, axis=0)
+        totals = gt.sum(axis=0)
+
+        aps = np.zeros(self.num_classes)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            recalls = tps / totals[None, :]
+            precisions = tps / (tps + fps)
+        for c in range(self.num_classes):
+            ap = 0.0
+            for t in np.linspace(0.0, 1.0, 11):
+                px = precisions[recalls[:, c] >= t, c]
+                ap += (px.max() if px.size else 0.0) / 11.0
+            aps[c] = ap
+        return aps

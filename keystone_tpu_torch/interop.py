@@ -36,6 +36,15 @@ Parameters by module (numpy arrays, or anything ``np.asarray`` takes):
     ``jax.random.rademacher``), :func:`random_sign_node`;
   - ``LogisticRegressionModel``: ``{"weights": (d, k)}``,
     :func:`logistic_regression_model`;
+  - ``PCATransformer``: ``{"pca_mat": (d, dims)}``, :func:`pca_transformer`;
+    ``BatchPCATransformer``: ``{"pca_mat": (d, dims), "batch": True}``,
+    :func:`batch_pca_transformer` (float32);
+  - ``KMeansModel``: ``{"means": (k, d)}``, :func:`kmeans_model`;
+  - ``GaussianMixtureModel``: ``{"means": (d, k), "variances": (d, k),
+    "weights": (k,), "weight_threshold": float (optional, 1e-4)}``,
+    :func:`gaussian_mixture_model` (float64, the dtype the estimator fits
+    in);
+  - ``FisherVector``: ``{"gmm": {the GMM's keys}}``, :func:`fisher_vector`;
   - ``CompressedCOOChunks``: :func:`coo_chunks` takes the reference object
     itself and reads its int16 indices, its bf16 values as their 16-bit
     patterns (so no ``ml_dtypes`` import is needed), its labels, ``n_true``
@@ -63,6 +72,7 @@ from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.data.resident import CompressedCOOChunks
 from keystone_tpu_torch.ops.images.conv import Convolver
+from keystone_tpu_torch.ops.images.fisher import FisherVector
 from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
 from keystone_tpu_torch.ops.learning.classifiers import LogisticRegressionModel
 from keystone_tpu_torch.ops.learning.kernel import (
@@ -70,7 +80,8 @@ from keystone_tpu_torch.ops.learning.kernel import (
     KernelBlockLinearMapper,
 )
 from keystone_tpu_torch.ops.learning.linear import LinearMapper, SparseLinearMapper
-from keystone_tpu_torch.ops.learning.pca import ZCAWhitener
+from keystone_tpu_torch.ops.learning.clustering import GaussianMixtureModel, KMeansModel
+from keystone_tpu_torch.ops.learning.pca import BatchPCATransformer, PCATransformer, ZCAWhitener
 from keystone_tpu_torch.ops.learning.streaming_ls import (
     CosineBankFeaturize,
     StreamingFeaturizedLinearModel,
@@ -222,6 +233,35 @@ def coo_chunks(ref, device=None) -> CompressedCOOChunks:
     )
 
 
+def pca_transformer(pca_mat, device=None) -> PCATransformer:
+    return PCATransformer(_f32(pca_mat, resolve_device(device)))
+
+
+def batch_pca_transformer(pca_mat, device=None) -> BatchPCATransformer:
+    return BatchPCATransformer(_f32(pca_mat, resolve_device(device)))
+
+
+def _f64(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float64)).to(device)
+
+
+def kmeans_model(means, device=None) -> KMeansModel:
+    return KMeansModel(_f64(means, resolve_device(device)))
+
+
+def gaussian_mixture_model(means, variances, weights, weight_threshold: float = 1e-4,
+                           device=None) -> GaussianMixtureModel:
+    device = resolve_device(device)
+    return GaussianMixtureModel(_f64(means, device), _f64(variances, device),
+                                _f64(weights, device), weight_threshold)
+
+
+def fisher_vector(gmm: Mapping[str, Any], device=None) -> FisherVector:
+    return FisherVector(gaussian_mixture_model(
+        gmm["means"], gmm["variances"], gmm["weights"], gmm.get("weight_threshold", 1e-4),
+        device))
+
+
 def numpy_draws(fn: Callable) -> Callable:
     """``fn(*step)`` returns a tuple of numpy arrays (the reference's draws
     at one step: SRHT signs and bins, or CountSketch buckets and signs);
@@ -253,6 +293,15 @@ def params_from_jax(params: Mapping[str, Any], device=None):
             params["filters"], params["img_channels"], params.get("whitener"),
             params.get("normalize_patches", True), params.get("var_constant", 10.0), device,
         )
+    if "gmm" in keys:
+        return fisher_vector(params["gmm"], device)
+    if {"means", "variances", "weights"} <= keys:
+        return gaussian_mixture_model(params["means"], params["variances"], params["weights"],
+                                      params.get("weight_threshold", 1e-4), device)
+    if "pca_mat" in keys:
+        if params.get("batch", False):
+            return batch_pca_transformer(params["pca_mat"], device)
+        return pca_transformer(params["pca_mat"], device)
     if {"whitener", "means"} <= keys:
         return zca_whitener(params["whitener"], params["means"], device)
     if "W_stack" in keys:
@@ -274,6 +323,8 @@ def params_from_jax(params: Mapping[str, Any], device=None):
         )
     if "mean" in keys:
         return standard_scaler_model(params["mean"], params.get("std"), device)
+    if keys == {"means"}:
+        return kmeans_model(params["means"], device)
     if keys == {"signs"}:
         return random_sign_node(params["signs"], device)
     if keys == {"weights"}:

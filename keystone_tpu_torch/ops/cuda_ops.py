@@ -477,7 +477,7 @@ def gram_corr(A, R):
     """(AᵀA, AᵀR), the whole (d, d) Gramian returned (the dense form the
     block update takes with ``sym=False``): its upper tiles computed and
     mirrored, each entry of both outputs float32 FMA chains over row
-    chunks in order (8,192 rows for the Gramian, 1,024 for the
+    chunks in order (2,048 rows for the Gramian, 256 for the
     correlation), the chunks' sums added in order (``csrc/gram_tile.cuh``),
     so the Gramian is exactly symmetric and both outputs have the bits of
     :func:`gram_corr_sym`'s (:func:`gram_corr_grid` gives the launch's
@@ -620,7 +620,7 @@ def block_gram_sym(F, col_start: int, block: int):
     """Symmetric Gramian of the column window ``F[:, col_start:col_start+block]``,
     read in place (no window copy), upper-triangle tiles only (the Gramian
     tiles of ``csrc/gram_corr.cu``, no correlation; every entry float32
-    FMA chains over row chunks of 8,192 in order, the chunks' sums added in
+    FMA chains over row chunks of 2,048 in order, the chunks' sums added in
     order, so the bits of :func:`gram_corr_sym`
     on a copy of the window). F: (n, d) float32 or bfloat16 with contiguous
     rows. Returns (block, block) float32 (:func:`block_gram_sym_grid` gives
@@ -914,7 +914,7 @@ def gram_sym_acc(G, F, out=None):
 
     On the card it launches the Gramian tiles of ``csrc/gram_corr.cu``
     (:func:`block_gram_sym`'s) with an accumulating epilogue: each entry is
-    G's entry plus float32 FMA chains over row chunks of 8,192, the chunks'
+    G's entry plus float32 FMA chains over row chunks of 2,048, the chunks'
     sums added in order, so
     in place gives the bits of a new buffer (:func:`gram_sym_acc_grid`
     gives the launch's grid).

@@ -1,6 +1,6 @@
-"""Image nodes (port of ``keystone_tpu/ops/images/__init__.py``; the
-convolutional featurizer and the image plumbing so far — the SIFT, HOG,
-DAISY, LCS and Fisher-vector nodes wait for their slice)."""
+"""Image nodes (port of ``keystone_tpu/ops/images/__init__.py``: the
+convolutional featurizer, the image plumbing, dense SIFT, LCS and the
+Fisher-vector nodes; HOG and DAISY are not ported yet)."""
 
 from .conv import Convolver, Pooler, SymmetricRectifier, Windower
 from .core import (
@@ -14,19 +14,27 @@ from .core import (
     PixelScaler,
     RandomPatcher,
 )
+from .fisher import FisherVector, GMMFisherVectorEstimator, ScalaGMMFisherVectorEstimator
+from .lcs import LCSExtractor
+from .sift import SIFTExtractor
 
 __all__ = [
     "CenterCornerPatcher",
     "Convolver",
     "Cropper",
+    "FisherVector",
+    "GMMFisherVectorEstimator",
     "GrayScaler",
     "ImageExtractor",
     "ImageVectorizer",
+    "LCSExtractor",
     "LabeledImage",
     "LabelExtractor",
     "PixelScaler",
     "Pooler",
     "RandomPatcher",
+    "SIFTExtractor",
+    "ScalaGMMFisherVectorEstimator",
     "SymmetricRectifier",
     "Windower",
 ]

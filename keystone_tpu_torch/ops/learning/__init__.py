@@ -2,6 +2,13 @@
 ``keystone_tpu/ops/learning/__init__.py``)."""
 
 from .block import BlockLeastSquaresEstimator, BlockLinearMapper
+from .bwls import BlockWeightedLeastSquaresEstimator
+from .clustering import (
+    GaussianMixtureModel,
+    GaussianMixtureModelEstimator,
+    KMeansModel,
+    KMeansPlusPlusEstimator,
+)
 from .cost import LeastSquaresEstimator, TransformerLabelEstimatorChain
 from .kernel import (
     GaussianKernelGenerator,
@@ -17,7 +24,18 @@ from .linear import (
     SketchedLeastSquaresEstimator,
     SparseLinearMapper,
 )
-from .pca import ZCAWhitener, ZCAWhitenerEstimator
+from .pca import (
+    ApproximatePCAEstimator,
+    BatchPCATransformer,
+    ColumnPCAEstimator,
+    DistributedColumnPCAEstimator,
+    DistributedPCAEstimator,
+    LocalColumnPCAEstimator,
+    PCAEstimator,
+    PCATransformer,
+    ZCAWhitener,
+    ZCAWhitenerEstimator,
+)
 from .sketch import IterativeHessianSketch, SketchedLeastSquares
 from .streaming_ls import (
     BlockStreamedLeastSquares,
@@ -29,7 +47,11 @@ from .streaming_ls import (
 )
 
 __all__ = [
-    "BlockLeastSquaresEstimator", "BlockLinearMapper", "BlockStreamedLeastSquares",
+    "ApproximatePCAEstimator", "BatchPCATransformer", "BlockLeastSquaresEstimator",
+    "BlockLinearMapper", "BlockStreamedLeastSquares", "BlockWeightedLeastSquaresEstimator",
+    "ColumnPCAEstimator", "DistributedColumnPCAEstimator", "DistributedPCAEstimator",
+    "GaussianMixtureModel", "GaussianMixtureModelEstimator", "KMeansModel",
+    "KMeansPlusPlusEstimator", "LocalColumnPCAEstimator", "PCAEstimator", "PCATransformer",
     "CosineBankFeaturize", "DenseLBFGSwithL2", "GaussianKernelGenerator",
     "GaussianKernelTransformer", "IterativeHessianSketch", "KernelBlockLinearMapper",
     "KernelRidgeRegression", "LeastSquaresEstimator", "LinearMapEstimator", "LinearMapper",

@@ -6,7 +6,8 @@ stage-fusion function; the padded real-FFT helpers of the block-SRHT
 sketch, :func:`padded_pow2`, :func:`rfft_real_half` and
 :func:`srht_chunk_sketch`, on ``torch.fft.rfft``; MnistRandomFFT's nodes,
 RandomSignNode, PaddedFFT and LinearRectifier, with the packed-pair FFT
-lowering of their gather, :func:`packed_fft_gather_fn`; and the text
+lowering of their gather, :func:`packed_fft_gather_fn`; the Fisher-vector
+pipelines' SignedHellingerMapper and NormalizeRows; and the text
 pipelines' host-side TermFrequency). The FFTs are cuFFT through
 ``torch.fft`` on the card, as the reference's are XLA's: no Pallas kernel
 stands behind them there, and no hand-written one here. Dense nodes operate
@@ -245,6 +246,34 @@ class LinearRectifier(Transformer):
 
     def device_fn(self):
         return self._batch_fn
+
+
+class SignedHellingerMapper(Transformer):
+    """sign(x)·√|x| (reference: nodes/stats/SignedHellingerMapper.scala:11-22)."""
+
+    def apply(self, x):
+        return self._batch_fn(as_tensor(x))
+
+    def _batch_fn(self, X):
+        return torch.sign(X) * torch.sqrt(torch.abs(X))
+
+    def device_fn(self):
+        return self._batch_fn
+
+
+class NormalizeRows(Transformer):
+    """Divide by the L2 norm of the last axis, eps-floored
+    (reference: nodes/stats/NormalizeRows.scala:10-14)."""
+
+    def __init__(self, eps: float = 2.2e-16):
+        self.eps = eps
+
+    def apply(self, x):
+        x = as_tensor(x)
+        return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), self.eps)
+
+    def device_fn(self):
+        return self.apply
 
 
 def packed_fft_gather_fn(branches, combiner):

@@ -1,8 +1,9 @@
 """Plumbing nodes (reference: nodes/util/ — Cacher, VectorSplitter, label
 indicators, classifiers, combiners).
 
-Port of ``keystone_tpu/ops/util.py`` (the nodes the TIMIT slice runs).
-Dense nodes are whole-batch tensor ops on the dataset's device.
+Port of ``keystone_tpu/ops/util.py`` (the nodes the TIMIT, VOC and
+ImageNet slices run). Dense nodes are whole-batch tensor ops on the
+dataset's device.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.data import Dataset
@@ -72,6 +74,31 @@ class ClassLabelIndicatorsFromIntLabels(Transformer):
 
 
 @dataclass(frozen=True)
+class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
+    """Multi-label int array -> ±1 indicator vector
+    (reference: nodes/util/ClassLabelIndicators.scala:40-55). Host labels
+    in, a float32 tensor on the CPU out."""
+
+    num_classes: int
+    valid_check: bool = True
+
+    def __post_init__(self):
+        if self.num_classes < 2:
+            raise ValueError("Must have at least two classes for ClassLabelIndicators")
+
+    def apply(self, labels):
+        labels = np.atleast_1d(np.asarray(labels))
+        if self.valid_check and (labels.min() < 0 or labels.max() >= self.num_classes):
+            raise ValueError("Class labels out of range")
+        out = -np.ones(self.num_classes, dtype=np.float32)
+        out[labels] = 1.0
+        return torch.from_numpy(out)
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        return Dataset.of([self.apply(x) for x in data.to_list()])
+
+
+@dataclass(frozen=True)
 class MaxClassifier(Transformer):
     """argmax over scores -> int label (reference: nodes/util/MaxClassifier.scala:9-11)."""
 
@@ -83,6 +110,21 @@ class MaxClassifier(Transformer):
 
     def device_fn(self):
         return self._batch_fn
+
+
+@dataclass(frozen=True)
+class TopKClassifier(Transformer):
+    """Top-k score indices, descending; k clamps at the vector size
+    (reference: nodes/util/TopKClassifier.scala:9-14 takes min(k, length))."""
+
+    k: int
+
+    def apply(self, x):
+        x = as_tensor(x)
+        return torch.topk(x, min(self.k, x.shape[-1]), dim=-1).indices
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        return Dataset(self.apply(data.array), n=data.n)
 
 
 @dataclass(frozen=True)
@@ -107,6 +149,45 @@ class VectorCombiner(Transformer):
         function (workflow/fusion.py::GatherFusionRule). A fused gather whose
         branches can write into column windows skips this concatenation."""
         return lambda arrays: torch.cat([as_tensor(a) for a in arrays], dim=-1)
+
+
+@dataclass(frozen=True)
+class MatrixVectorizer(Transformer):
+    """Flatten a matrix to a vector, column-major to match Breeze's
+    ``DenseMatrix.toDenseVector`` (reference: nodes/util/MatrixVectorizer.scala:9-11)."""
+
+    def apply(self, x):
+        return as_tensor(x).T.reshape(-1)
+
+    def _batch_fn(self, X):
+        return X.transpose(1, 2).reshape(X.shape[0], -1)
+
+    def device_fn(self):
+        return self._batch_fn
+
+
+@dataclass(frozen=True)
+class FloatToDouble(Transformer):
+    """float32 -> float64 cast (reference: nodes/util/FloatToDouble.scala:9-11).
+
+    As in the reference, the default widens to the accumulation dtype
+    (float32) and the node stands for API parity; ``strict=True`` casts to
+    float64.
+    """
+
+    strict: bool = False
+
+    def _dtype(self):
+        return torch.float64 if self.strict else torch.float32
+
+    def apply(self, x):
+        return as_tensor(x).to(self._dtype())
+
+    def _batch_fn(self, X):
+        return X.to(self._dtype())
+
+    def device_fn(self):
+        return self._batch_fn
 
 
 class VectorSplitter(FunctionNode):

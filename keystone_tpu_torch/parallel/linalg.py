@@ -9,6 +9,8 @@ read each column window of one (n, d) feature matrix in place through the
 The shared block update keeps the reference's ``sym`` switch: ``False``
 takes the dense form's ``gram_corr`` wrapper instead of ``gram_corr_sym``
 (in the port both launch the one kernel of ``csrc/gram_corr.cu``).
+``tsqr_r`` is the tall-skinny QR's R factor in its one-device form (the
+mesh form comes with the multi-GPU slice).
 
 Conventions (matching the reference solvers):
   - ridge solve is ``(AᵀA + λI) x = AᵀB`` with *raw* λ (not scaled by n)
@@ -326,3 +328,19 @@ def bcd_least_squares_fused_flat(
                 stash[bi] = (gram, chol)
     W_stack = torch.stack(W)
     return (W_stack, R) if return_residual else W_stack
+
+
+# ---------------------------------------------------------------------------
+# TSQR
+# ---------------------------------------------------------------------------
+
+
+def tsqr_r(A) -> torch.Tensor:
+    """R factor of a tall-skinny QR (the analog of mlmatrix ``TSQR().qrR``),
+    one device: a direct QR, as the reference takes when its rows are not
+    sharded. Sign convention: R has a non-negative diagonal."""
+    A = as_tensor(A)
+    r = torch.linalg.qr(A, mode="r")[1]
+    signs = torch.sign(torch.diagonal(r))
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return r * signs[:, None]

@@ -14,7 +14,14 @@ Port of ``keystone_tpu/run.py``. Ported so far:
     the reference's flags plus ``--syntheticN``, e.g.
     ``python -m keystone_tpu_torch.run MnistRandomFFT --syntheticN 60000``;
   - AmazonReviewsPipeline (n-gram term frequencies and logistic regression
-    by L-BFGS), with the reference's flags plus ``--syntheticN``.
+    by L-BFGS), with the reference's flags plus ``--syntheticN``;
+  - VOCSIFTFisher (dense SIFT, column PCA, GMM Fisher vectors, block least
+    squares, mean average precision) and ImageNetSiftLcsFV (SIFT and LCS
+    Fisher-vector branches, block weighted least squares, top-5 error), on
+    synthetic images, with the reference's model flags plus
+    ``--syntheticN`` and ``--imageSize`` (and ``--syntheticClasses`` for
+    ImageNet), e.g. ``python -m keystone_tpu_torch.run VOCSIFTFisher
+    --vocabSize 256 --syntheticN 5011 --imageSize 64``.
 
 Pipelines run on the CUDA device unless given ``--device cpu``.
 """
@@ -49,12 +56,26 @@ def _amazon(argv):
     amazon_reviews.main(argv)
 
 
+def _voc(argv):
+    from keystone_tpu_torch.pipelines import voc_sift_fisher
+
+    voc_sift_fisher.main(argv)
+
+
+def _imagenet(argv):
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv
+
+    imagenet_sift_lcs_fv.main(argv)
+
+
 PIPELINES: Dict[str, Callable] = {
     "MnistRandomFFT": _mnist,
     "TimitPipeline": _timit,
     "Timit": _timit,
     "RandomPatchCifarKernel": _cifar_kernel,
     "AmazonReviewsPipeline": _amazon,
+    "VOCSIFTFisher": _voc,
+    "ImageNetSiftLcsFV": _imagenet,
 }
 
 

@@ -1,20 +1,24 @@
 """Image representation and utilities.
 
 Port of ``keystone_tpu/utils/images.py``, the part that the image nodes of
-``ops/images/conv.py`` and ``ops/images/core.py`` call. An image is a dense
-``(x, y, channel)`` float tensor and a batch is ``(n, x, y, channel)``, the
-reference's layout: axis 0 is the reference's ``x`` index and axis 1 its
-``y``, so ``img[x, y, c]`` matches ``Image.get(x, y, c)``
-(reference: utils/images/Image.scala, utils/ImageUtils.scala).
+``ops/images/`` call. An image is a dense ``(x, y, channel)`` float tensor
+and a batch is ``(n, x, y, channel)``, the reference's layout: axis 0 is
+the reference's ``x`` index and axis 1 its ``y``, so ``img[x, y, c]``
+matches ``Image.get(x, y, c)`` (reference: utils/images/Image.scala,
+utils/ImageUtils.scala). The filters take one image or a batch: every
+axis before the last three is a batch axis.
 
-Not ported yet (they wait for the SIFT/HOG slice): ``ImageMetadata``,
-``load_image``, ``conv2d_valid``, ``separable_conv2d_same``,
-``gaussian_blur`` and ``crop_to_multiple``.
+Not ported yet: ``ImageMetadata`` and ``load_image`` (they come with the
+image loaders).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from keystone_tpu_torch.data.dataset import as_tensor
 
@@ -59,3 +63,92 @@ def flip_image(img) -> torch.Tensor:
     y and c, MATLAB convnd-style, ImageUtils.scala:376-389; used to flip
     convolution filters)."""
     return torch.flip(as_tensor(img), dims=[0, 1, 2])
+
+
+def stack_images(data, device) -> torch.Tensor:
+    """The (n, x, y, c) float32 tensor on ``device`` of a host dataset of
+    labeled images (items with an ``image``)."""
+    stack = np.stack([np.asarray(item.image, dtype=np.float32) for item in data.to_list()])
+    return torch.from_numpy(stack).to(device)
+
+
+def _planes(img: torch.Tensor) -> torch.Tensor:
+    """(..., x, y, c) -> (B·c, 1, x, y): one single-channel plane a row."""
+    x, y, c = img.shape[-3:]
+    return img.reshape(-1, x, y, c).permute(0, 3, 1, 2).reshape(-1, 1, x, y)
+
+
+def _unplanes(planes: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_planes` for output planes of a new spatial size."""
+    c = like.shape[-1]
+    x, y = planes.shape[-2:]
+    out = planes.reshape(-1, c, x, y).permute(0, 2, 3, 1)
+    return out.reshape(like.shape[:-3] + (x, y, c))
+
+
+def conv2d_valid(img, kernel) -> torch.Tensor:
+    """Per-channel 2-D valid cross-correlation of (..., x, y, c) images with
+    one (kx, ky) kernel (ImageUtils.conv2D)."""
+    img = as_float(img)
+    kernel = as_tensor(kernel, img.device).to(img.dtype)
+    out = F.conv2d(_planes(img), kernel[None, None])
+    return _unplanes(out, img)
+
+
+def separable_conv2d_same(img, x_filter, y_filter) -> torch.Tensor:
+    """Separable same-size true convolution with zero padding, matching the
+    reference's ImageUtils.conv2D (utils/images/ImageUtils.scala:226-320):
+    the kernels are flipped (convolution, not correlation) and the output
+    has the input's spatial size."""
+    img = as_float(img)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    kx = torch.flip(as_tensor(x_filter, img.device).to(img.dtype), dims=[0])
+    ky = torch.flip(as_tensor(y_filter, img.device).to(img.dtype), dims=[0])
+    lx, ly = kx.shape[0], ky.shape[0]
+    planes = _planes(img)
+    planes = F.pad(planes, (0, 0, (lx - 1) // 2, lx - 1 - (lx - 1) // 2))
+    planes = F.conv2d(planes, kx[None, None, :, None])
+    planes = F.pad(planes, ((ly - 1) // 2, ly - 1 - (ly - 1) // 2, 0, 0))
+    return _unplanes(F.conv2d(planes, ky[None, None, None, :]), img)
+
+
+def gaussian_kernel_1d(sigma: float, radius: Optional[int] = None) -> np.ndarray:
+    if radius is None:
+        radius = max(1, int(np.ceil(3.0 * sigma)))
+    xs = np.arange(-radius, radius + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (xs / sigma) ** 2)
+    return k / k.sum()
+
+
+def gaussian_blur(img, sigma: float) -> torch.Tensor:
+    """Separable Gaussian smoothing with edge replication (the role of
+    vl_imsmooth_f in the reference's native SIFT path,
+    src/main/cpp/VLFeat.cxx:38-180), in float32."""
+    img = as_tensor(img)
+    if sigma <= 0:
+        return img
+    img = img.to(torch.float32)
+    k = torch.from_numpy(gaussian_kernel_1d(sigma)).to(img.device)
+    r = (k.shape[0] - 1) // 2
+    planes = F.pad(_planes(img), (0, 0, r, r), mode="replicate")
+    planes = F.conv2d(planes, k[None, None, :, None])
+    planes = F.pad(planes, (r, r, 0, 0), mode="replicate")
+    return _unplanes(F.conv2d(planes, k[None, None, None, :]), img)
+
+
+def crop_to_multiple(img, multiple: int = 8):
+    """Center-crop the spatial dims down to multiples of ``multiple``; an
+    axis shorter than one multiple stays as it is. The reference buckets
+    real-image archives this way so that images of similar size share
+    compiled programs; here it keeps the same crops, so both packages see
+    the same pixels. Numpy in, numpy out (a loader-side step)."""
+    img = np.asarray(img)
+    h, w = img.shape[0], img.shape[1]
+    nh = (h // multiple) * multiple or h
+    nw = (w // multiple) * multiple or w
+    if nh == h and nw == w:
+        return img
+    top = (h - nh) // 2
+    left = (w - nw) // 2
+    return img[top:top + nh, left:left + nw]

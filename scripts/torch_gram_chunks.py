@@ -17,9 +17,12 @@ shapes (``gram_corr``: A 65,536 x 4,096, R 65,536 x 147;
 variant's Gramian and correlation are read against float64 sums made on
 the card, as max |err| / max |f64|, beside cuBLAS's FP32 ones, on two
 operands: a 589,824 x 4,096 slab of cosine features (``chip_smoke.py``
-12(d)'s) and MNIST's fit (the centred 60,000 x 2,048 packed-FFT features
-of ``synthetic_mnist`` against the centred labels, k = 10), where the
-weights each variant's sums give (a float64 solve of them) are read
+12(d)'s), MNIST's fit (the centred 60,000 x 2,048 packed-FFT features
+of ``synthetic_mnist`` against the centred labels, k = 10) and, with
+``--voc``, the blocks of VOCSIFTFisher's fit (``chip_smoke.py`` phase 15:
+the centred 5,011 x 4,096 blocks of its 40,960 Fisher-vector features
+against the centred labels, k = 20); there the weights each variant's
+sums give (a float64 solve of them, with VOC's λ = 0.5 for VOC) are read
 against the float64 sums' weights too. Prints a line a reading and writes
 them all to ``--out``.
 """
@@ -41,14 +44,28 @@ import torch_fma_variants as tv  # noqa: E402
 from keystone_tpu_torch.ops import cuda_ops  # noqa: E402
 
 G, P = "gram_tile.cuh", "fma_pipe.cuh"
-CHUNK, CORR = "constexpr int CHUNK = 8192;", "constexpr int CORR_CHUNK = 1024;"
+CHUNK, CORR = "constexpr int CHUNK = 2048;", "constexpr int CORR_CHUNK = 256;"
 ADD = "if (c < cols) out[r * ldo + c] += acc[i][j];"
+
+
+def chunks(gram=None, corr=None):
+    """Edits of gram_tile.cuh to other chunk lengths."""
+    edits = []
+    if gram:
+        edits.append((G, CHUNK, f"constexpr int CHUNK = {gram};"))
+    if corr:
+        edits.append((G, CORR, f"constexpr int CORR_CHUNK = {corr};"))
+    return tuple(edits)
+
+
 VARIANTS = [
     ("as built", ()),
-    ("Gramian chunk 4096", ((G, CHUNK, CHUNK.replace("8192", "4096")),)),
-    ("Gramian chunk 16384", ((G, CHUNK, CHUNK.replace("8192", "16384")),)),
-    ("correlation chunk 256", ((G, CORR, CORR.replace("1024", "256")),)),
-    ("correlation chunk 8192", ((G, CORR, CORR.replace("1024", "8192")),)),
+    ("Gramian 8192, correlation 1024", chunks(8192, 1024)),
+    ("Gramian 1024, correlation 256", chunks(1024)),
+    ("Gramian 4096, correlation 256", chunks(4096)),
+    ("Gramian 2048, correlation 512", chunks(corr=512)),
+    ("Gramian 2048, correlation 1024", chunks(corr=1024)),
+    ("Gramian 8192, correlation 256", chunks(8192)),
     ("red", ((G, ADD, "if (c < cols) atomicAdd(out + r * ldo + c, acc[i][j]);"),)),
 ]
 
@@ -80,8 +97,62 @@ def mnist_fit_operands():
     return A - A.mean(dim=0), R - R.mean(dim=0)
 
 
-def f64_readings(libs, stream, A, R, weights):
-    """Each gram_corr variant's and cuBLAS's sums of (A, R) against float64."""
+def voc_fit_operands():
+    """The centred blocks of VOCSIFTFisher's features at chip_smoke.py
+    phase 15's size, and the centred labels."""
+    import chip_smoke
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.pipelines import voc_sift_fisher as voc
+
+    seen = []
+    fit = BlockLeastSquaresEstimator.fit
+    BlockLeastSquaresEstimator.fit = lambda self, data, labels: seen.append(
+        (data.array, labels.array)) or fit(self, data, labels)
+    try:
+        voc.run(voc.VOCConfig(lam=chip_smoke.VOC_LAM, descriptor_dim=chip_smoke.VOC_DESC,
+                              vocab_size=chip_smoke.VOC_VOCAB, block_size=chip_smoke.VOC_BLOCK,
+                              synthetic_n=chip_smoke.VOC_N, synthetic_test_n=chip_smoke.VOC_TEST,
+                              synthetic_image_size=chip_smoke.VOC_SIZE))
+    finally:
+        BlockLeastSquaresEstimator.fit = fit
+    (F, Y), = seen
+    b = chip_smoke.VOC_BLOCK
+    blocks = [(F[:, s:s + b] - F[:, s:s + b].mean(dim=0)).contiguous()
+              for s in range(0, F.shape[1], b)]
+    return blocks, Y - Y.mean(dim=0)
+
+
+def voc_times(libs, stream, A, R):
+    """Median ms of each gram_corr variant's launch, and of cuBLAS's
+    ``A.T @ A``, ``A.T @ R``, on one VOC block (10 launches after one)."""
+    n, b = A.shape
+    k = R.shape[1]
+    G = torch.empty((b, b), device=A.device)
+    C = torch.empty((b, k), device=A.device)
+    runs = {"cuBLAS": lambda: (A.T @ A, A.T @ R)}
+    for (kernel, name), lib in libs.items():
+        if kernel == "gram_corr":
+            runs[name] = (lambda lib=lib: lib.kt_gram_corr(
+                A.data_ptr(), R.data_ptr(), G.data_ptr(), C.data_ptr(), n, b, k, A.stride(0),
+                R.stride(0), 0, stream))
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        times = []
+        for _ in range(10):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = sorted(times)[5]
+    return out
+
+
+def f64_readings(libs, stream, A, R, weights, lam=0.0):
+    """Each gram_corr variant's and cuBLAS's sums of (A, R) against float64;
+    with ``weights`` also the weights of (G + λI) W = C."""
     n, b = A.shape
     k = R.shape[1]
     g64 = torch.zeros((b, b), dtype=torch.float64, device=A.device)
@@ -91,7 +162,8 @@ def f64_readings(libs, stream, A, R, weights):
         g64.addmm_(Ac.T, Ac)
         c64.addmm_(Ac.T, R[s:s + 65536].double())
     del Ac
-    W64 = torch.linalg.solve(g64, c64) if weights else None
+    eye = lam * torch.eye(b, dtype=torch.float64, device=A.device)
+    W64 = torch.linalg.solve(g64 + eye, c64) if weights else None
     sums = {"cuBLAS": (A.T @ A, A.T @ R)}
     for (kernel, name), lib in libs.items():
         if kernel == "gram_corr":
@@ -107,7 +179,7 @@ def f64_readings(libs, stream, A, R, weights):
     for name, (G, C) in sums.items():
         r = dict(gram=rel(G, g64), corr=rel(C, c64))
         if weights:
-            W = torch.linalg.solve(G.double(), C.double())
+            W = torch.linalg.solve(G.double() + eye, C.double())
             r["weights"] = ((W - W64).norm() / W64.norm()).item()
         out[name] = r
     for name, r in out.items():
@@ -121,13 +193,16 @@ def main():
     parser.add_argument("--parent", help="a checkout whose Gramian headers to build beside")
     parser.add_argument("--out", default="build/torch_gram_chunks.json")
     parser.add_argument("--kernels", nargs="+", default=["gram_corr", "gram_corr_sym_acc"])
+    parser.add_argument("--variants", nargs="+", help="build only these (default: all)")
+    parser.add_argument("--voc", action="store_true",
+                        help="also read VOCSIFTFisher's fit blocks against float64")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_gram_chunks: no CUDA device is available", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    variants = list(VARIANTS)
+    variants = [v for v in VARIANTS if not args.variants or v[0] in args.variants]
     if args.parent:
         here = {h: (cuda_ops._CSRC / h).read_text() for h in (G, P)}
         there = os.path.join(args.parent, "keystone_tpu_torch", "csrc")
@@ -156,6 +231,24 @@ def main():
                       f"({r['gram_over_cublas']:.3f}x cuBLAS), correlation {r['corr']:.3e} "
                       f"({r['corr_over_cublas']:.3f}x cuBLAS)"
                       + (f", weights {r['weights']:.3e}" if weights else ""), flush=True)
+    if "gram_corr" in args.kernels and args.voc:
+        import chip_smoke
+
+        blocks, R = voc_fit_operands()
+        per_block = [f64_readings(libs, stream, A, R, True, chip_smoke.VOC_LAM) for A in blocks]
+        result["VOC fit blocks"] = per_block
+        times = result["VOC block ms"] = voc_times(libs, stream, blocks[0], R)
+        for name, ms in times.items():
+            print(f"VOC block 5,011 x 4,096, k = 20: {name}: {ms:.3f} ms", flush=True)
+        for name in per_block[0]:
+            worst = {key: max(r[name][key] for r in per_block)
+                     for key in ("gram", "corr", "weights", "gram_over_cublas",
+                                 "corr_over_cublas")}
+            w_ratio = max(r[name]["weights"] / r["cuBLAS"]["weights"] for r in per_block)
+            print(f"float64, VOC's 10 blocks of 5,011 x 4,096, k = 20 (worst block): {name}: "
+                  f"Gramian {worst['gram']:.3e} ({worst['gram_over_cublas']:.3f}x cuBLAS), "
+                  f"correlation {worst['corr']:.3e} ({worst['corr_over_cublas']:.3f}x cuBLAS), "
+                  f"ridge weights {worst['weights']:.3e} ({w_ratio:.3f}x cuBLAS's)", flush=True)
     print(card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -290,7 +290,8 @@ class TestKernelsOnCard:
         assert grid["local_bytes"] == 0
         assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
 
-    @pytest.mark.parametrize("n,d,k", GRAM_SHAPES + [(1000, 520, 147)])
+    # (5011, 4096, 20): a block of VOCSIFTFisher's fit, one ragged row chunk.
+    @pytest.mark.parametrize("n,d,k", GRAM_SHAPES + [(1000, 520, 147), (5011, 4096, 20)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_gram_corr_sym(self, cuda_device, n, d, k, dtype):
         A, R = (_t(a).to(cuda_device) for a in _gram_inputs(n, d, k))
@@ -320,7 +321,7 @@ class TestKernelsOnCard:
             cuda_ops.gram_corr_sym(A, torch.zeros((8, 2), device=cuda_device))
 
     def test_row_chunks_keep_every_form_bit_equal(self, cuda_device):
-        # Three whole 8,192-row chunks and a ragged one (csrc/gram_tile.cuh):
+        # 12 whole 2,048-row Gramian chunks and a ragged one (csrc/gram_tile.cuh):
         # integer entries make every sum exact, so the kernel gives the plain
         # version's bits in any order; the accumulating form on a zero G
         # gives the storing form's, in place or into a new buffer.
@@ -342,7 +343,7 @@ class TestKernelsOnCard:
         # float32 Gramian and correlation must be at most 1.25x as far from
         # float64 sums as cuBLAS's float32 ones (max |err| / max |f64|). One
         # fmaf chain over all rows was 2.8x (Gramian) and 7.4x (correlation)
-        # as far at 589,824 rows on an H100; row chunks of 8,192 cut it.
+        # as far at 589,824 rows on an H100; row chunks (gram_tile.cuh) cut it.
         gen = torch.Generator(device=cuda_device).manual_seed(5)
         n, d_in, d, k = 262144, 440, 1024, 147
         X = torch.randn((n, d_in), generator=gen, device=cuda_device) * 0.6

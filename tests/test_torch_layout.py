@@ -61,7 +61,10 @@ def test_port_has_modules():
                 "pipelines/cifar.py", "data/resident.py", "ops/sparse.py",
                 "ops/learning/lbfgs.py", "ops/learning/sketch.py", "ops/learning/cost.py",
                 "ops/nlp.py", "ops/learning/classifiers.py", "pipelines/mnist_random_fft.py",
-                "pipelines/amazon_reviews.py"):
+                "pipelines/amazon_reviews.py", "ops/images/sift.py", "ops/images/lcs.py",
+                "ops/images/fisher.py", "ops/learning/clustering.py", "ops/learning/bwls.py",
+                "ops/learning/classstats.py", "pipelines/voc_sift_fisher.py",
+                "pipelines/imagenet_sift_lcs_fv.py"):
         assert rel in rels
 
 

@@ -37,6 +37,9 @@ from keystone_tpu_torch.ops.learning.lbfgs import (
 )
 
 
+CORR_CHUNK = 256  # the correlation's row chunk (csrc/gram_tile.cuh)
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
@@ -311,13 +314,18 @@ class TestKernelOnCard:
     @pytest.mark.parametrize("n,d,k", [(1000, 300, 2), (257, 129, 147)])
     def test_f32_has_the_bits_of_gram_sym_acc_and_gram_corr_sym(self, cuda_device, n, d, k):
         # One Gramian kernel: G + FᵀF is gram_sym_acc's, bit for bit, and
-        # C + FᵀR is C plus gram_corr_sym's correlation (one fmaf chain an
-        # entry over the rows in order, then one add).
+        # C + FᵀR is C plus gram_corr_sym's correlation of each chunk of
+        # CORR_CHUNK rows, added in row order (gram_tile.cuh: one fmaf chain
+        # an entry over a chunk's rows, from zero, then one add to the
+        # running total, which starts at C).
         G, C, F, R = _operands(n, d, k, seed=6, device=cuda_device)
         gram, corr = cuda_ops.gram_corr_sym_acc(G, C, F, R)
         upper = _upper(d, cuda_device)
         assert torch.equal(gram[upper], cuda_ops.gram_sym_acc(G, F)[upper])
-        assert torch.equal(corr, C + cuda_ops.gram_corr_sym(F, R)[1])
+        want = C
+        for i in range(0, n, CORR_CHUNK):
+            want = want + cuda_ops.gram_corr_sym(F[i:i + CORR_CHUNK], R[i:i + CORR_CHUNK])[1]
+        assert n > CORR_CHUNK and torch.equal(corr, want)
 
     @pytest.mark.parametrize("ld,vec", [(16385, False), (16388, True)])
     def test_f32_grid_at_the_amazon_chunk(self, cuda_device, ld, vec):
