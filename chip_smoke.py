@@ -197,8 +197,32 @@ per source, all started together), then:
      reference config's widths (d = 4,096) and 1,000 classes on 16,000
      training and 5,000 test images of 64 x 64: no kernel launched; host
      seconds by stage, fit, apply, peak memory, top-1 and top-5 errors.
+ 17. runs the CLI's last six pipelines and Nyström KRR at full width:
+       - (a) in phase 1: ``conv_featurize`` without a whitener (RandomCifar's
+         Gaussian filters) on a 32 x 32 row chunk and with one on a chunk
+         of 24 x 24 crops, and ``gaussian_kernel_block`` at Nyström's
+         K(X, L) (50,000 x 2,048) and K(L, L) (2,048 x 2,048, its clamp
+         checked), each against its plain version and timed;
+       - (b) LinearPixels, RandomCifar, RandomPatchCifar and
+         RandomPatchCifarAugmented through ``cifar.RUNNERS`` at phase 6's
+         geometry (blocks of 512, lambda 10; the augmented runner on 8
+         training crops of 24 x 24 an image and the 5 centre and corner
+         crops of each test image, voted), apply first, launches counted
+         from 0: ``conv_featurize`` once a row chunk of the fused
+         featurizer's byte budget, ``gram_corr_sym`` 0 (the block fits are
+         stepwise at 1,800 and 800 features), every other kernel 0;
+       - (c) ``NystromKernelRidge`` (gamma 5e-4, lambda 10, 2,048
+         landmarks) on RandomPatchCifar's standardised training features,
+         k-means++ and uniform landmarks: ``gaussian_kernel_block`` 2 a fit
+         and 1 an apply, by shape; alpha within 1e-3 of a float64 solve of
+         the same normal equations made on the card from the same K_nm;
+       - (d) NewsgroupsPipeline on 11,314 + 7,532 synthetic documents, 20
+         classes, bigrams: n, d, the dense bytes, seconds and errors;
+       - (e) StupidBackoffPipeline on 100,000 synthetic sentences, n = 3:
+         every score in (0, 1], the vectorised scorer equal to the dict
+         loop on 10,000 sampled n-grams.
 
-Phase 1 also times each bf16 form beside its library call (bf16 operands
+Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
 bf16 and float32 forms against float64 sums on one Amazon chunk.
 
@@ -284,16 +308,36 @@ GRAM_F64_TOL, CORR_F64_TOL = 6e-4, 7e-5
 F64_OVER_CUBLAS = 1.25
 NORTH_N = 2200000
 
-# The CIFAR slice at its own width (keystone_tpu/pipelines/cifar.py): 50,000
-# training and 12,500 test images of 32 x 32 x 3, 100 filters of 6 x 6 x 3
-# (d = 108), 27 x 27 outputs, 2 x 100 rectified channels pooled 3 x 3:
-# 1,800 features; 10 classes; KRR block 512, 1 epoch.
+# The CIFAR runners at their own width (keystone_tpu/pipelines/cifar.py):
+# 50,000 training and 12,500 test images of 32 x 32 x 3, 100 filters of
+# 6 x 6 x 3 (d = 108), 27 x 27 outputs, 2 x 100 rectified channels pooled
+# 3 x 3: 1,800 features; 10 classes; blocks of 512 (KRR's and the block
+# solver's), 1 epoch. RandomPatchCifarKernel is phases 6-7, the other four
+# runners phase 17.
 CIFAR_N, CIFAR_TEST, CIFAR_FILTERS, CIFAR_D, CIFAR_K = 50000, 12500, 100, 1800, 10
 CIFAR_BLOCK, CIFAR_GAMMA = 512, 5e-4
 CIFAR_BLOCKS = -(-CIFAR_N // CIFAR_BLOCK)  # 98: 97 full and one of 336 rows
 # Bytes per image of the fused featurizer's input and intermediates
 # (images, convolution, rectifier, pool, vector), which size its row chunks.
 CONV_ROW_BYTES = 4 * (32 * 32 * 3 + 27 * 27 * 100 + 27 * 27 * 200 + 2 * 3 * 3 * 200)
+# RandomPatchCifarAugmented (cifar.py:265-345) at the same width: 8 random
+# 24 x 24 training crops an image (400,000), the 5 centre and corner crops
+# of each test image (62,500; synthetic data: no flips), 19 x 19 outputs
+# pooled 2 x 2: 800 features, blocks of 512 and 288 (the stepwise fit).
+AUG_SIZE, AUG_PATCHES, AUG_TEST_PATCHES, AUG_OUT, AUG_D = 24, 8, 5, 19, 800
+AUG_ROW_BYTES = 4 * (AUG_SIZE * AUG_SIZE * 3 + AUG_OUT * AUG_OUT * 100
+                     + AUG_OUT * AUG_OUT * 200 + 2 * AUG_D)
+# Nyström KRR on RandomPatchCifar's standardised 50,000 x 1,800 training
+# features: NystromKernelRidge(GaussianKernelGenerator(5e-4), lam=10,
+# num_landmarks=2048), k-means++ and uniform landmarks. Its alpha against
+# a float64 solve of the same normal equations from the same K_nm.
+NYS_M, NYS_LAM, NYS_F64_TOL = 2048, 10.0, 1e-3
+# NewsgroupsPipeline at 20 Newsgroups' split sizes (bydate: 11,314 training
+# and 7,532 test documents, 20 classes), bigrams, on synthetic_documents;
+# StupidBackoffPipeline on synthetic_sentences(100,000), n = 3, alpha 0.4,
+# its vectorised scorer held to the dict loop on 10,000 sampled n-grams.
+NEWS_N, NEWS_TEST, NEWS_CLASSES = 11314, 7532, 20
+SB_SENTENCES, SB_ORDER, SB_ALPHA, SB_SAMPLE = 100000, 3, 0.4, 10000
 
 # The sparse slice at the Amazon geometry of the reference's bench row
 # (bench.py:1212-1300): d = 16,384 features and the intercept lane, 82
@@ -2529,14 +2573,317 @@ def phase_imagenet(cuda_ops, device="cuda"):
                 launches=counts)
 
 
-def _conv_chunk_rows(fusion):
+def _peak_window(device):
+    """Start a peak-memory window; returns a function that reads the peak
+    allocated by what ran since, and a function that synchronizes."""
+    cuda = torch.device(device).type == "cuda"
+    if not cuda:
+        return (lambda: 0), (lambda: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    return (lambda: torch.cuda.max_memory_allocated() - base), torch.cuda.synchronize
+
+
+def cifar_runner_config(cifar):
+    """Phase 6's geometry for the block runners: 50,000 training and 12,500
+    test images, 100 filters, blocks of 512, lambda 10, 1 epoch."""
+    return cifar.CifarConfig(synthetic_n=CIFAR_N, num_filters=CIFAR_FILTERS,
+                             block_size=CIFAR_BLOCK, lam=10.0, num_epochs=1)
+
+
+def cifar_runner_launches(cuda_ops, fusion, name):
+    """A runner's predicted launches in one apply-first run: the fused
+    featurizer's row chunks of the training and test images (crops for the
+    augmented runner) from the chunk budget, once each; no other kernel
+    (the block fits are stepwise at 1,800 and 800 features in blocks of
+    512, as the reference's are)."""
+    expected = {k: 0 for k in cuda_ops.launches}
+    if name in ("RandomCifar", "RandomPatchCifar"):
+        expected["conv_featurize"] = (_conv_launches(fusion, CIFAR_N)
+                                      + _conv_launches(fusion, CIFAR_TEST))
+    elif name == "RandomPatchCifarAugmented":
+        expected["conv_featurize"] = (
+            _conv_launches(fusion, CIFAR_N * AUG_PATCHES, AUG_ROW_BYTES)
+            + _conv_launches(fusion, CIFAR_TEST * AUG_TEST_PATCHES, AUG_ROW_BYTES))
+    return expected
+
+
+def phase_cifar_runners(cuda_ops, fusion, device="cuda"):
+    """Phase 17(b): the four CIFAR runners through ``cifar.RUNNERS`` at
+    phase 6's geometry, each with the launch counts set to 0 just before
+    and read just after, and held to the prediction: ``conv_featurize``
+    once a row chunk of the budget, ``gram_corr_sym`` (and every other
+    kernel) 0. Fit and apply seconds, errors, peak allocated by the run."""
+    from keystone_tpu_torch.pipelines import cifar
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    env = PipelineEnv.get_or_create()
+    config = cifar_runner_config(cifar)
+    report = {}
+    for name in ("LinearPixels", "RandomCifar", "RandomPatchCifar",
+                 "RandomPatchCifarAugmented"):
+        env.reset()
+        expected = cifar_runner_launches(cuda_ops, fusion, name)
+        peak, _ = _peak_window(device)
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = cifar.RUNNERS[name](config, device=device)
+        wall = time.perf_counter() - t0
+        counts = dict(cuda_ops.launches)
+        peak_bytes = peak()
+        env.reset()
+        aug = name == "RandomPatchCifarAugmented"
+        train_total = CIFAR_N * (AUG_PATCHES if aug else 1)
+        train_err, test_err = result.train_eval.total_error, result.test_eval.total_error
+        log(f"  {name}: {train_total} training {'crops' if aug else 'images'}, {CIFAR_TEST} "
+            f"test images{' (5 crops each, voted)' if aug else ''}: train error "
+            f"{100 * train_err:.3f}%, test error {100 * test_err:.3f}%, fit (and train apply) "
+            f"{result.fit_seconds:.3f} s, test apply {result.apply_seconds:.3f} s, run "
+            f"{wall:.3f} s (data generation included), peak allocated by the run "
+            f"{peak_bytes / 2**30:.2f} GiB, conv_featurize launches {counts['conv_featurize']} "
+            f"(predicted {expected['conv_featurize']}), gram_corr_sym "
+            f"{counts['gram_corr_sym']}")
+        check(f"cifar {name} launches", counts == expected, f"{counts}, expected {expected}")
+        check(f"cifar {name} metrics",
+              0.0 <= train_err <= 1.0 and 0.0 <= test_err < 0.9
+              and result.train_eval.total == train_total
+              and result.test_eval.total == CIFAR_TEST,
+              "errors in [0, 1], test error below chance (90%), every image scored")
+        report[name] = dict(fit_seconds=result.fit_seconds, apply_seconds=result.apply_seconds,
+                            run_seconds=wall, peak_allocated_bytes=peak_bytes,
+                            train_error=train_err, test_error=test_err, launches=counts)
+        del result
+    return report
+
+
+class _ShapeLog:
+    """Wraps ``cuda_ops.gaussian_kernel_block`` to log each call's (m, n)
+    while it runs (the wrapper's own counter still counts)."""
+
+    def __init__(self, cuda_ops):
+        self.cuda_ops, self.fn, self.shapes = cuda_ops, cuda_ops.gaussian_kernel_block, []
+
+    def __enter__(self):
+        def logged(X, Y, *args, **kwargs):
+            self.shapes.append((int(X.shape[0]), int(Y.shape[0])))
+            return self.fn(X, Y, *args, **kwargs)
+
+        self.cuda_ops.gaussian_kernel_block = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_ops.gaussian_kernel_block = self.fn
+
+
+def nystrom_features(device):
+    """RandomPatchCifar's standardised training and test features (phase
+    17(b)'s filters and whitener) and its ±1 training labels."""
+    from keystone_tpu_torch.ops.stats import StandardScaler
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+    from keystone_tpu_torch.pipelines import cifar
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    config = cifar_runner_config(cifar)
+    dev = torch.device(device)
+    train, test, _ = cifar._load(config, dev)
+    filters, whitener = cifar._sample_whitened_filters(train, config)
+    featurizer = cifar._conv_featurizer(filters, whitener, config).and_then(
+        StandardScaler(), train.data)
+    F = featurizer.apply(train.data).get().array
+    Ft = featurizer.apply(test.data).get().array
+    PipelineEnv.get_or_create().reset()
+    Y = ClassLabelIndicatorsFromIntLabels(10)(train.labels).array
+    return F, Ft, Y, train.labels.array, test.labels.array
+
+
+def phase_nystrom(cuda_ops, device="cuda"):
+    """Phase 17(c): ``NystromKernelRidge(GaussianKernelGenerator(5e-4),
+    lam=10, num_landmarks=2048)`` on RandomPatchCifar's standardised
+    training features, with k-means++ and with uniform landmarks, applied
+    to the training and test features. Launches counted from 0 for the fit
+    and the applies: ``gaussian_kernel_block`` 2 a fit (K(X, L), K(L, L))
+    and 1 an apply, logged by shape. Fit seconds (the landmarks' apart),
+    errors, and alpha against a float64 solve of the same normal equations
+    made on the card from the same K_nm (NYS_F64_TOL relative Frobenius)."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.ops.learning.kernel import (
+        GaussianKernelGenerator,
+        NystromKernelRidge,
+    )
+
+    F, Ft, Y, train_labels, test_labels = nystrom_features(device)
+    n, m = F.shape[0], min(NYS_M, F.shape[0])
+    evaluator = MulticlassClassifierEvaluator(10)
+    report = {}
+    for kind, kmeans in (("k-means++", True), ("uniform", False)):
+        est = NystromKernelRidge(GaussianKernelGenerator(CIFAR_GAMMA), NYS_LAM, NYS_M,
+                                 kmeans_landmarks=kmeans, seed=0)
+        peak, sync = _peak_window(device)
+        landmarks, clock = est.landmarks, {}
+
+        def timed(data, landmarks=landmarks, clock=clock):
+            t0 = time.perf_counter()
+            L = landmarks(data)
+            sync()
+            clock["landmarks"] = time.perf_counter() - t0
+            return L
+
+        est.landmarks = timed
+        cuda_ops.reset_launch_counts()
+        with _ShapeLog(cuda_ops) as shapes:
+            t0 = time.perf_counter()
+            mapper = est.fit(Dataset(F), Dataset(Y))
+            sync()
+            fit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            train_pred = mapper.batch_apply(Dataset(F)).array
+            test_pred = mapper.batch_apply(Dataset(Ft)).array
+            sync()
+            apply_s = time.perf_counter() - t0
+        counts = dict(cuda_ops.launches)
+        peak_bytes = peak()
+        train_eval = evaluator.evaluate(torch.argmax(train_pred, 1), train_labels)
+        test_eval = evaluator.evaluate(torch.argmax(test_pred, 1), test_labels)
+        # The same normal equations in float64 from the same K_nm and K_mm,
+        # and (for the record, ROADMAP C.7) the reference's float32 ones.
+        L = mapper.landmarks
+        fn, ln = (F * F).sum(1), (L * L).sum(1)
+        K = cuda_ops.gaussian_kernel_block(F, L, fn, ln, CIFAR_GAMMA)
+        Kmm = cuda_ops.gaussian_kernel_block(L, L, ln, ln, CIFAR_GAMMA)
+        solved = {}
+        for dtype in (torch.float64, torch.float32):
+            Kd, Kmmd = K.to(dtype), Kmm.to(dtype)
+            lhs = Kd.T @ Kd + NYS_LAM * Kmmd
+            lhs += 1e-6 * (torch.trace(lhs) / m + 1.0) * torch.eye(m, dtype=dtype,
+                                                                    device=lhs.device)
+            solved[dtype] = torch.linalg.solve(lhs, Kd.T @ Y.to(dtype))
+            del Kd, Kmmd, lhs
+        alpha64 = solved[torch.float64]
+        rel, rel32 = _rel(mapper.alpha, alpha64), _rel(solved[torch.float32], alpha64)
+        pred_rel32 = _rel(K.double() @ solved[torch.float32].double(), K.double() @ alpha64)
+        del K, Kmm, solved
+        by_shape = {f"{a}x{b}": shapes.shapes.count((a, b)) for a, b in sorted(set(shapes.shapes))}
+        log(f"  Nystrom KRR, {kind} landmarks (m = {m}, n = {n}, d = {F.shape[1]}): landmarks "
+            f"{clock['landmarks']:.3f} s, fit {fit_s:.3f} s (landmarks included), train and "
+            f"test apply {apply_s:.3f} s, peak allocated {peak_bytes / 2**30:.2f} GiB; train "
+            f"error {100 * train_eval.total_error:.3f}%, test error "
+            f"{100 * test_eval.total_error:.3f}%; gaussian_kernel_block launches by shape "
+            f"{by_shape}; alpha {rel:.3e} from the float64 solve (tol {NYS_F64_TOL:.0e}); the "
+            f"reference's float32 normal equations {rel32:.3e} (their training predictions "
+            f"{pred_rel32:.3e})")
+        expected = {k: 0 for k in counts}
+        expected["gaussian_kernel_block"] = 4
+        check(f"nystrom {kind} launches: 2 a fit, 1 an apply", counts == expected
+              and sorted(shapes.shapes) == sorted([(n, m), (m, m), (n, m), (Ft.shape[0], m)]),
+              f"{counts}, shapes {shapes.shapes}")
+        check(f"nystrom {kind} alpha against the float64 solve",
+              bool(torch.isfinite(mapper.alpha).all()) and rel <= NYS_F64_TOL,
+              f"{rel:.3e} relative Frobenius (tol {NYS_F64_TOL:.0e})")
+        check(f"nystrom {kind} metrics", train_eval.total == n and test_eval.total == Ft.shape[0]
+              and test_eval.total_error < 0.9, "every row scored, test error below chance")
+        report[kind] = dict(landmark_seconds=clock["landmarks"], fit_seconds=fit_s,
+                            apply_seconds=apply_s, peak_allocated_bytes=peak_bytes,
+                            train_error=train_eval.total_error,
+                            test_error=test_eval.total_error, alpha_vs_f64=rel,
+                            f32_alpha_vs_f64=rel32, f32_predictions_vs_f64=pred_rel32,
+                            launches=counts, launches_by_shape=by_shape)
+        del mapper, train_pred, test_pred
+    return report
+
+
+def phase_newsgroups(cuda_ops, device="cuda"):
+    """Phase 17(d): NewsgroupsPipeline through ``newsgroups.run`` on
+    synthetic_documents at 20 Newsgroups' split sizes, bigrams: n, d and
+    the dense bytes the naive Bayes fit densifies, fit and apply seconds,
+    errors, peak; no kernel is on this route."""
+    from keystone_tpu_torch.ops.learning.classifiers import NaiveBayesModel
+    from keystone_tpu_torch.pipelines import newsgroups
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    env = PipelineEnv.get_or_create()
+    env.reset()
+    config = newsgroups.NewsgroupsConfig(synthetic_n=NEWS_N, synthetic_test_n=NEWS_TEST,
+                                         synthetic_classes=NEWS_CLASSES, n_grams=2)
+    peak, _ = _peak_window(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = newsgroups.run(config, device=device)
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    peak_bytes = peak()
+    (model,) = [op for op in result.pipeline.fit().transformer_graph.operators.values()
+                if isinstance(op, NaiveBayesModel)]
+    env.reset()
+    d = int(model.theta.shape[1])
+    dense = NEWS_N * d * model.theta.element_size()
+    log(f"  NewsgroupsPipeline: n = {NEWS_N} training and {NEWS_TEST} test documents, "
+        f"{NEWS_CLASSES} classes, bigrams: d = {d}, dense training matrix {NEWS_N} x {d} = "
+        f"{dense / 2**30:.3f} GiB ({model.theta.dtype}); fit (and train apply) "
+        f"{result.fit_seconds:.3f} s, test apply {result.apply_seconds:.3f} s, run {wall:.3f} s, "
+        f"peak allocated {peak_bytes / 2**30:.2f} GiB; train error "
+        f"{100 * result.train_eval.total_error:.3f}%, test error "
+        f"{100 * result.test_eval.total_error:.3f}%")
+    check("newsgroups launches no kernel", not any(counts.values()), f"{counts}")
+    check("newsgroups metrics", result.train_eval.total == NEWS_N
+          and result.test_eval.total == NEWS_TEST and result.test_eval.total_error < 0.95
+          and bool(torch.isfinite(model.theta).all()),
+          "every document scored, test error below chance (95%), finite model")
+    return dict(n=NEWS_N, d=d, dense_bytes=dense, fit_seconds=result.fit_seconds,
+                apply_seconds=result.apply_seconds, run_seconds=wall,
+                peak_allocated_bytes=peak_bytes, train_error=result.train_eval.total_error,
+                test_error=result.test_eval.total_error)
+
+
+def phase_stupid_backoff():
+    """Phase 17(e): StupidBackoffPipeline through ``stupid_backoff.run`` on
+    synthetic_sentences(SB_SENTENCES), n = 3, alpha 0.4: the n-gram count
+    and seconds, every score in (0, 1], and the vectorised packed scorer
+    equal to the dict loop (``_score_locally``) on SB_SAMPLE n-grams, half
+    observed and half random word-id tuples (most of them backing off)."""
+    from keystone_tpu_torch.ops.nlp import NGram
+    from keystone_tpu_torch.pipelines import stupid_backoff
+
+    t0 = time.perf_counter()
+    model, encoder = stupid_backoff.run(stupid_backoff.StupidBackoffConfig(
+        n=SB_ORDER, alpha=SB_ALPHA, synthetic_n=SB_SENTENCES))
+    fit_s = time.perf_counter() - t0
+    scores = np.fromiter(model.scores.values(), dtype=np.float64, count=len(model.scores))
+    rng = np.random.default_rng(0)
+    observed = list(model.ngram_counts)
+    half = SB_SAMPLE // 2
+    sample = [observed[i] for i in rng.choice(len(observed), half, replace=False)]
+    vocab = len(encoder.word_index)
+    orders = rng.integers(2, SB_ORDER + 1, size=SB_SAMPLE - half)
+    sample += [NGram(tuple(int(w) for w in rng.integers(0, vocab, size=o))) for o in orders]
+    t0 = time.perf_counter()
+    batch = model.batch_score(sample)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = np.array([model.score(g) for g in sample])
+    loop_s = time.perf_counter() - t0
+    log(f"  StupidBackoffPipeline: {SB_SENTENCES} sentences, n = {SB_ORDER}, alpha "
+        f"{SB_ALPHA}: {len(model.scores)} n-grams scored in {fit_s:.3f} s (host); scores in "
+        f"[{scores.min():.3e}, {scores.max():.3e}]; {len(sample)} sampled n-grams scored "
+        f"vectorised in {1e3 * batch_s:.2f} ms, by the dict loop in {1e3 * loop_s:.2f} ms")
+    check("stupid backoff scores in (0, 1]", bool(((scores > 0) & (scores <= 1)).all()),
+          f"{len(scores)} scores in [{scores.min():.3e}, {scores.max():.3e}]")
+    check("stupid backoff vectorised scorer equals the dict loop", np.array_equal(batch, loop),
+          f"{len(sample)} n-grams, {int((batch != loop).sum())} differ")
+    return dict(sentences=SB_SENTENCES, ngrams=len(model.scores), fit_seconds=fit_s,
+                batch_score_ms=1e3 * batch_s, loop_score_ms=1e3 * loop_s)
+
+
+def _conv_chunk_rows(fusion, row_bytes=CONV_ROW_BYTES):
     """Images per row chunk of the fused CIFAR featurizer (after its first,
-    one-image chunk): the chunk budget over the bytes per image."""
-    return fusion.CHUNK_BUDGET_BYTES // CONV_ROW_BYTES
+    one-image chunk): the chunk budget over the bytes per image
+    (``AUG_ROW_BYTES`` for the augmented runner's 24 x 24 crops)."""
+    return fusion.CHUNK_BUDGET_BYTES // row_bytes
 
 
-def _conv_launches(fusion, n):
-    return 1 + -(-(n - 1) // _conv_chunk_rows(fusion))
+def _conv_launches(fusion, n, row_bytes=CONV_ROW_BYTES):
+    return 1 + -(-(n - 1) // _conv_chunk_rows(fusion, row_bytes))
 
 
 def gaussian_shape(cuda_ops, label, X, Y, xn, yn, diagonal):
@@ -2654,11 +3001,35 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
     # conv_featurize: one row chunk of the featurization, CIFAR images
     # (pixels in [0, 255]), 100 unit filters of 6 x 6 x 3, whitening means.
     c = _conv_chunk_rows(fusion)
-    p, f, dp = 6, CIFAR_FILTERS, 108
-    images = torch.rand((c, 32, 32, 3), generator=gen, device=dev) * 255
-    filters = torch.randn((f, dp), generator=gen, device=dev)
+    images, filters, means = conv_operands(c, 32, gen, whitened=True)
+    results["conv_featurize"] = conv_shape(cuda_images, "whitened 32 x 32", images, filters,
+                                           means, main_form=True)
+    del images, filters, means
+    torch.cuda.empty_cache()
+    return results
+
+
+def conv_operands(c, size, gen, whitened):
+    """``c`` images of ``size`` x ``size`` x 3 (pixels in [0, 255]), 100
+    unit filters of 6 x 6 x 3 and, when ``whitened``, whitening means."""
+    dev = torch.device("cuda")
+    images = torch.rand((c, size, size, 3), generator=gen, device=dev) * 255
+    filters = torch.randn((CIFAR_FILTERS, 108), generator=gen, device=dev)
     filters /= filters.norm(dim=1, keepdim=True)
-    means = torch.randn((dp,), generator=gen, device=dev) * 0.1
+    means = torch.randn((108,), generator=gen, device=dev) * 0.1 if whitened else None
+    return images, filters, means
+
+
+def conv_shape(cuda_images, label, images, filters, means, main_form=False):
+    """conv_featurize at one operand form against its plain version (1e-4
+    of the scale of the sums), the guard's verdict, its grid, and the
+    kernel, plain version, library yardstick (``F.unfold`` + normalise +
+    ``matmul``), the product alone on cuBLAS and the bound in ms. The main
+    form (the RandomPatchCifarKernel chunk) must also fill its last round
+    of tiles; every form must spill nothing."""
+    c, size, _, _ = images.shape
+    p, (f, dp) = 6, filters.shape
+    out = size - p + 1
 
     def conv():
         return cuda_images.conv_featurize(images, filters, means, patch_size=p)
@@ -2666,25 +3037,31 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
     def plain():
         return cuda_images.conv_featurize_ref(images, filters, means, patch_size=p)
 
-    def library():  # F.unfold (NCHW im2col) + normalise + matmul
-        cols = torch.nn.functional.unfold(images.permute(0, 3, 1, 2), p)  # (c, 3*36, 729)
-        cols = cols.view(c, 3, p, p, -1).permute(0, 4, 2, 3, 1).reshape(c, -1, dp)
-        cols = cuda_images.normalize_patch_rows(cols, 10.0) - means
-        return (cols @ filters.T).view(c, 27, 27, f)
+    def centred(cols):
+        cols = cuda_images.normalize_patch_rows(cols, 10.0)
+        return cols if means is None else cols - means
 
+    def library():  # F.unfold (NCHW im2col) + normalise + matmul
+        cols = torch.nn.functional.unfold(images.permute(0, 3, 1, 2), p)  # (c, 3*36, out^2)
+        cols = cols.view(c, 3, p, p, -1).permute(0, 4, 2, 3, 1).reshape(c, -1, dp)
+        return (centred(cols) @ filters.T).view(c, out, out, f)
+
+    name = f"conv_featurize {label} ({c} images of {size} x {size} x 3, filters {f}x{dp}, " \
+           f"{'whitening means' if means is not None else 'no whitener'})"
+    check(f"{name}: the guard takes it", cuda_images.conv_featurize_ok(images, filters),
+          "conv_featurize_ok")
     got, want = conv(), plain()
-    patches = cuda_images.normalize_patch_rows(cuda_images.im2col(images, p), 10.0) - means
+    patches = centred(cuda_images.im2col(images, p))
     scale = (patches.abs() @ filters.abs().T).max().item()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     lib_err = (library() - want).abs().max().item()
-    check(f"conv_featurize f32 images {c}x32x32x3, filters {f}x{dp}",
-          err <= 1e-4 * scale and lib_err <= 1e-4 * scale,
+    check(name, err <= 1e-4 * scale and lib_err <= 1e-4 * scale,
           f"max_abs_err {err:.3e} ({err / scale:.2e} of scale), tol 1e-4 of scale; "
           f"the library yardstick's {lib_err:.3e}")
     del got, want
-    npix = c * 27 * 27
-    r = results["conv_featurize"] = dict(max_abs_err=err)
+    npix = c * out * out
+    r = dict(max_abs_err=err, images=c, image_size=size, whitened=means is not None)
     r["ms"] = time_ms(conv, 10)
     r["device_ms"] = device_ms(conv, 10)
     r["plain_ms"] = time_ms(plain, 5)
@@ -2695,25 +3072,56 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
     r["gemm_ms"] = time_ms(lambda: torch.matmul(patches, filters.T), 10)
     del patches
     r["bound_ms"], r["bound_by"] = bound_ms(
-        4 * (c * 32 * 32 * 3 + f * dp + dp + npix * f),
+        4 * (c * size * size * 3 + f * dp + (0 if means is None else dp) + npix * f),
         2 * npix * dp * f + 5 * npix * dp,  # filter product + patch mean, variance, scaling
         PEAK_F32_FLOPS,
     )
-    grid = r["grid"] = cuda_images.conv_featurize_grid(c, 32, 32, 3, p, f, dev)
-    log(f"  conv_featurize f32 ({c} images): {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms "
-        f"on the device (plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, the product "
-        f"alone on cuBLAS {r['gemm_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"grid {grid['tiles']} pixel tiles, {grid['ktile']}-wide filter tile "
-        f"({100 * grid['masked']:.1f}% masked), {grid['smem_bytes']} bytes of shared memory, "
+    grid = r["grid"] = cuda_images.conv_featurize_grid(c, size, size, 3, p, f, images.device)
+    log(f"  conv_featurize {label} f32 ({c} images): {r['ms']:.3f} ms a call, "
+        f"{r['device_ms']:.3f} ms on the device (plain {r['plain_ms']:.3f}, library "
+        f"{r['library_ms']:.3f}, the product alone on cuBLAS {r['gemm_ms']:.3f}, bound "
+        f"{r['bound_ms']:.3f} by {r['bound_by']}); grid {grid['tiles']} pixel tiles, "
+        f"{grid['ktile']}-wide filter tile ({100 * grid['masked']:.1f}% masked), "
+        f"{grid['smem_bytes']} bytes of shared memory, "
         f"{'16-byte' if grid['vec_stores'] else 'element'} stores, {grid['fill']:.3f} of the "
         f"blocks' rounds filled, {grid_line(grid)}")
-    check("conv_featurize spills nothing and fills its last round of tiles",
-          grid["local_bytes"] == 0 and grid["fill"] >= 0.95 and grid["waves"] >= 0.95,
-          f"{grid['local_bytes']} local bytes a thread, {grid['fill']:.3f} of the rounds, "
-          f"{grid['waves']:.3f} waves")
-    del images, filters, means
+    if main_form:
+        check("conv_featurize spills nothing and fills its last round of tiles",
+              grid["local_bytes"] == 0 and grid["fill"] >= 0.95 and grid["waves"] >= 0.95,
+              f"{grid['local_bytes']} local bytes a thread, {grid['fill']:.3f} of the rounds, "
+              f"{grid['waves']:.3f} waves")
+    else:
+        check(f"conv_featurize {label} spills nothing", grid["local_bytes"] == 0,
+              f"{grid['local_bytes']} local bytes a thread")
+    return r
+
+
+def phase_new_forms(cuda_ops, cuda_images, fusion, gen, results):
+    """Phase 1's kernel forms of phase 17's routes: ``conv_featurize``
+    without a whitener (RandomCifar's Gaussian filters) on a 32 x 32 row
+    chunk and with one on a 24 x 24 chunk of augmented crops (each chunk as
+    the fused featurizer cuts it), and ``gaussian_kernel_block`` at
+    Nyström's shapes, K(X, L) for 50,000 x 2,048 and the square K(L, L) for
+    2,048 x 2,048 (its clamp checked), on standard normal rows (the
+    standardised features' scale). Adds them under each row's ``shapes``."""
+    conv = results["conv_featurize"].setdefault("shapes", {})
+    for label, size, row_bytes, whitened in (
+            ("no whitener 32 x 32", 32, CONV_ROW_BYTES, False),
+            ("whitened 24 x 24", AUG_SIZE, AUG_ROW_BYTES, True)):
+        images, filters, means = conv_operands(_conv_chunk_rows(fusion, row_bytes), size, gen,
+                                               whitened)
+        conv[label] = conv_shape(cuda_images, label, images, filters, means)
+        del images, filters, means
+        torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    X = torch.randn((CIFAR_N, CIFAR_D), generator=gen, device=dev)
+    xn = (X * X).sum(1)
+    L, ln = X[:NYS_M], xn[:NYS_M]
+    shapes = results["gaussian_kernel_block"]["shapes"]
+    shapes["nystrom K(X, L)"] = gaussian_shape(cuda_ops, "nystrom K(X, L)", X, L, xn, ln, False)
+    shapes["nystrom K(L, L)"] = gaussian_shape(cuda_ops, "nystrom K(L, L)", L, L, ln, ln, True)
+    del X, xn, L, ln
     torch.cuda.empty_cache()
-    return results
 
 
 def cifar_config(cifar):
@@ -3500,6 +3908,7 @@ def main():
     from keystone_tpu_torch.pipelines.timit import TimitConfig
     from keystone_tpu_torch.workflow import fusion
 
+    script_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3519,42 +3928,57 @@ def main():
         check("gram_corr_sym_acc runs on the tensor cores", hgmma > 0,
               f"{hgmma} HGMMA instructions in its SASS (cuobjdump -sass)")
 
-    log("[phase 1] kernels against their plain versions")
+    phase_seconds = {}
+    clock = [None, time.perf_counter()]
+
+    def phase(label, title):
+        """Log the phase's title; the previous phase's seconds go to
+        ``phase_seconds``."""
+        now = time.perf_counter()
+        if clock[0] is not None:
+            phase_seconds[clock[0]] = round(now - clock[1], 3)
+            log(f"  phase {clock[0]}: {phase_seconds[clock[0]]:.1f} s")
+        clock[:] = [label, now]
+        if title:
+            log(f"[phase {label}] {title}")
+
+    phase("1", "kernels against their plain versions")
     cuda_ops.reset_launch_counts()
     results = phase_kernels(cuda_ops)
-    results.update(phase_cifar_kernels(
-        cuda_ops, cuda_images, fusion, torch.Generator(device="cuda").manual_seed(1)))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results.update(phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen))
+    phase_new_forms(cuda_ops, cuda_images, fusion, gen, results)
     log(f"  phase 1 launches (checks and timing, not the main path): {cuda_ops.launches}")
-    log("[phase 2] TIMIT slice: three routes small against the CPU; --solver block at full width")
+    phase("2", "TIMIT slice: three routes small against the CPU; --solver block at full width")
     phase_small_reference(timit, TimitConfig)
     stacked_counts, stacked, stacked_model = phase_timit_route(cuda_ops, timit, TimitConfig,
                                                            fit_first=False)
     flat_counts, flat, _ = phase_timit_route(cuda_ops, timit, TimitConfig, fit_first=True)
-    log("[phase 3] README quick-start composition")
+    phase("3", "README quick-start composition")
     phase_quickstart(cuda_ops)
-    log("[phase 4] TIMIT --solver streaming at full width")
+    phase("4", "TIMIT --solver streaming at full width")
     streamed_counts, streamed = phase_streamed(cuda_ops, timit, TimitConfig)
-    log("[phase 5] optimizer-bound streamed fit")
+    phase("5", "optimizer-bound streamed fit")
     phase_optimizer_bound(cuda_ops, timit, TimitConfig)
-    log("[phase 6] RandomPatchCifarKernel: small against the CPU; full width")
+    phase("6", "RandomPatchCifarKernel: small against the CPU; full width")
     cifar_counts, cifar_run, cifar_result, cifar_config = phase_cifar(cuda_ops, fusion)
-    log("[phase 7] where the full-width CIFAR fit's time goes")
+    phase("7", "where the full-width CIFAR fit's time goes")
     cifar_run["time"] = phase_cifar_time(cuda_ops, fusion, cifar_result, cifar_config)
-    log("[phase 8] sparse ridge slice: small against the CPU; Amazon geometry by four engines")
+    phase("8", "sparse ridge slice: small against the CPU; Amazon geometry by four engines")
     phase_sparse_small(cuda_ops)
     sparse_counts, sparse_run, amazon = phase_sparse(cuda_ops)
-    log("[phase 9] sketched tier: small against the CPU; the frontier sweep at the Amazon "
-        "geometry")
+    phase("9", "sketched tier: small against the CPU; the frontier sweep at the Amazon "
+          "geometry")
     phase_sketch_small(cuda_ops)
     sketch_counts, sketch_run = phase_sketch(cuda_ops, amazon)
     del amazon
     torch.cuda.empty_cache()
-    log("[phase 10] the block update's sym=False route at TIMIT width")
+    phase("10", "the block update's sym=False route at TIMIT width")
     sym_counts, sym_run = phase_sym_false(cuda_ops)
-    log("[phase 11] TIMIT --solver auto on both sides of the memory wall")
+    phase("11", "TIMIT --solver auto on both sides of the memory wall")
     auto_res, auto_wall = phase_auto(cuda_ops, timit, TimitConfig, stacked_model[0])
-    log("[phase 12] TIMIT --solver auto at the reference's default width: the block-streamed "
-        "tier")
+    phase("12", "TIMIT --solver auto at the reference's default width: the block-streamed "
+          "tier")
     phase_block_small(cuda_ops)
     block_resident = phase_block_resident(cuda_ops, timit, TimitConfig, stacked_model)
     del stacked_model
@@ -3565,25 +3989,39 @@ def main():
     wide_auto["past_2_31"] = phase_past_2_31(cuda_ops)
     log(f"  (d) the north star's n: one f32 block slab of {NORTH_N} x {BLOCK}")
     wide_auto["north_star_f64"] = phase_north_star_f64(cuda_ops)
-    log("[phase 13] MnistRandomFFT: small against the CPU; at its own width, apply first and "
-        "fit first")
+    phase("13", "MnistRandomFFT: small against the CPU; at its own width, apply first and "
+          "fit first")
     mnist_run = phase_mnist(cuda_ops)
-    log("[phase 14] AmazonReviewsPipeline: the L-BFGS small against the CPU; 200,000 documents")
+    phase("14", "AmazonReviewsPipeline: the L-BFGS small against the CPU; 200,000 documents")
     amazon_run = phase_amazon()
-    log("[phase 15] VOCSIFTFisher: the image modules small against the CPU; d = 40,960 on "
-        "5,011 + 4,952 images")
-    t0 = time.perf_counter()
+    phase("15", "VOCSIFTFisher: the image modules small against the CPU; d = 40,960 on "
+          "5,011 + 4,952 images")
     phase_images_small()
     voc_run = phase_voc(cuda_ops)
-    voc_run["phase_seconds"] = time.perf_counter() - t0
     # The VOC shape's launches are those counted on phase 15's run.
     results["gram_corr_sym"]["voc_shape"]["launches"] = voc_run["launches"]["gram_corr_sym"]
-    log(f"  phase 15: {voc_run['phase_seconds']:.1f} s")
-    log("[phase 16] ImageNetSiftLcsFV: 1,000 classes, 16,000 + 5,000 images")
-    t0 = time.perf_counter()
+    phase("16", "ImageNetSiftLcsFV: 1,000 classes, 16,000 + 5,000 images")
     imagenet_run = phase_imagenet(cuda_ops)
-    imagenet_run["phase_seconds"] = time.perf_counter() - t0
-    log(f"  phase 16: {imagenet_run['phase_seconds']:.1f} s")
+    phase("17", "the CLI's last six pipelines and Nystrom KRR at full width")
+    log("  (b) the four CIFAR runners")
+    runners = phase_cifar_runners(cuda_ops, fusion)
+    log("  (c) Nystrom KRR on RandomPatchCifar's training features")
+    nystrom = phase_nystrom(cuda_ops)
+    log("  (d) NewsgroupsPipeline")
+    news = phase_newsgroups(cuda_ops)
+    log("  (e) StupidBackoffPipeline")
+    backoff = phase_stupid_backoff()
+    phase(None, None)
+    # The new forms' launches are those counted on phase 17's routes.
+    conv_shapes = results["conv_featurize"]["shapes"]
+    conv_shapes["no whitener 32 x 32"]["launches"] = \
+        runners["RandomCifar"]["launches"]["conv_featurize"]
+    conv_shapes["whitened 24 x 24"]["launches"] = \
+        runners["RandomPatchCifarAugmented"]["launches"]["conv_featurize"]
+    for label, key in (("nystrom K(X, L)", f"{CIFAR_N}x{NYS_M}"),
+                       ("nystrom K(L, L)", f"{NYS_M}x{NYS_M}")):
+        results["gaussian_kernel_block"]["shapes"][label]["launches"] = sum(
+            run["launches_by_shape"].get(key, 0) for run in nystrom.values())
 
     route_counts = {FLAT: flat_counts, STACKED: stacked_counts, STREAMED: streamed_counts,
                     CIFAR: cifar_counts, SPARSE: sparse_counts, SKETCH: sketch_counts,
@@ -3597,8 +4035,11 @@ def main():
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
                  WIDE_AUTO: wide_auto, "mnist MnistRandomFFT": mnist_run, AMAZON_TEXT: amazon_run,
-                 VOC: voc_run, IMAGENET: imagenet_run}
+                 VOC: voc_run, IMAGENET: imagenet_run, "cifar runners (apply first)": runners,
+                 "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
+                 "stupid backoff StupidBackoffPipeline": backoff, "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
+    log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

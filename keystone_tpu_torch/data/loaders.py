@@ -1,10 +1,10 @@
-"""Data loaders for the TIMIT, CIFAR, MNIST and Amazon slices.
+"""Data loaders for the TIMIT, CIFAR, MNIST and text slices.
 
-Port of ``keystone_tpu/data/loaders.py`` (the CSV, TIMIT, CIFAR-10 binary
-and Amazon reviews loaders, scikit-learn's bundled digits, and the
-synthetic generators). The synthetic draws are numpy's and are copied bit
-for bit, so the port and the reference see the same rows from the same
-seed. CSV files are parsed with numpy instead of the reference's native
+Port of ``keystone_tpu/data/loaders.py`` (the CSV, TIMIT, CIFAR-10 binary,
+Amazon reviews and 20 Newsgroups loaders, scikit-learn's bundled digits,
+and the synthetic generators, ``synthetic_sentences`` among them). The
+synthetic draws are numpy's and are copied bit for bit, so the port and
+the reference see the same rows from the same seed. CSV files are parsed with numpy instead of the reference's native
 parser, and CIFAR records are split with numpy (the reference's numpy path;
 its native record splitter is not ported). Every loader takes an explicit
 ``device``; None means the CUDA device (raising without one). Features and
@@ -18,7 +18,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -215,6 +215,24 @@ def _documents(texts: List[str], labels, device) -> LabeledData:
                        as_tensor(np.asarray(labels, dtype=np.int64), resolve_device(device)))
 
 
+def load_newsgroups(path: str, class_dirs: Optional[List[str]] = None,
+                    device=None) -> LabeledData:
+    """20 Newsgroups layout: one directory per class of text files, the
+    classes in sorted order unless ``class_dirs`` names them
+    (reference: loaders/NewsgroupsDataLoader.scala:9-57). The texts stay
+    host strings; the labels go to ``device``."""
+    class_dirs = class_dirs or sorted(
+        d for d in os.listdir(path) if os.path.isdir(os.path.join(path, d)))
+    texts, labels = [], []
+    for label, cls in enumerate(class_dirs):
+        cls_path = os.path.join(path, cls)
+        for fname in sorted(os.listdir(cls_path)):
+            with open(os.path.join(cls_path, fname), errors="replace") as f:
+                texts.append(f.read())
+            labels.append(label)
+    return _documents(texts, labels, device)
+
+
 def load_amazon_reviews(path: str, threshold: float = 3.5, device=None) -> LabeledData:
     """Amazon product reviews: JSON lines with "overall" and "reviewText";
     a rating >= threshold is label 1, else 0
@@ -253,3 +271,15 @@ def synthetic_documents(n: int, num_classes: int, seed: int = 0, doc_len: int = 
         rng.shuffle(words)
         docs.append(" ".join(words))
     return _documents(docs, labels, device)
+
+
+def synthetic_sentences(n: int = 200, seed: int = 0, sentence_len: int = 12) -> Dataset:
+    """Synthetic corpus of sentences over a 50-word vocabulary drawn with
+    probabilities 1/rank (for the Stupid Backoff language model): the
+    reference's numpy draws, a host list of strings."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(50)]
+    probs = 1.0 / np.arange(1, len(vocab) + 1)
+    probs /= probs.sum()
+    return Dataset.of([" ".join(rng.choice(vocab, size=sentence_len, p=probs))
+                       for _ in range(n)])

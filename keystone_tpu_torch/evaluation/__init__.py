@@ -2,6 +2,8 @@
 ``keystone_tpu/evaluation/__init__.py``)."""
 
 from .metrics import (
+    AggregationPolicy,
+    AugmentedExamplesEvaluator,
     BinaryClassificationMetrics,
     BinaryClassifierEvaluator,
     Evaluator,
@@ -11,6 +13,8 @@ from .metrics import (
 )
 
 __all__ = [
+    "AggregationPolicy",
+    "AugmentedExamplesEvaluator",
     "BinaryClassificationMetrics",
     "BinaryClassifierEvaluator",
     "Evaluator",

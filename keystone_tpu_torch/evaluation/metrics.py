@@ -4,17 +4,19 @@ MulticlassClassifierEvaluator.scala:23-161).
 Port of ``keystone_tpu/evaluation/metrics.py`` (the multiclass evaluator
 of the TIMIT, CIFAR and MNIST slices; the binary one of the Amazon
 slice, reference: BinaryClassifierEvaluator.scala:17-79; the VOC slice's
-mean average precision, MeanAveragePrecisionEvaluator.scala:13-87). The
+mean average precision, MeanAveragePrecisionEvaluator.scala:13-87; the
+augmented CIFAR runner's vote, AugmentedExamplesEvaluator.scala:9-76). The
 confusion matrix is one device pass (a bincount over ``label * C +
 prediction``), read back to the host as numpy; the binary counts are four
-device sums; the average precisions are host numpy, as in the reference.
+device sums; the average precisions and the augmented copies' vote are
+host numpy in float64, as in the reference.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from typing import Any, Generic, TypeVar
+from typing import Any, Dict, Generic, TypeVar
 
 import numpy as np
 import torch
@@ -251,3 +253,58 @@ class MeanAveragePrecisionEvaluator(Evaluator):
                 ap += (px.max() if px.size else 0.0) / 11.0
             aps[c] = ap
         return aps
+
+
+class AggregationPolicy:
+    """Vote-aggregation policies for augmented test copies
+    (reference: AugmentedExamplesEvaluator.scala:9-13)."""
+
+    AVERAGE = "average"
+    BORDA = "borda"
+
+
+class AugmentedExamplesEvaluator(Evaluator):
+    """Aggregate the predictions of the augmented copies of each underlying
+    example (grouped by name) before the multiclass evaluation
+    (reference: evaluation/AugmentedExamplesEvaluator.scala:15-76). The
+    scores come to the host as float64 and each group is voted there, in
+    the reference's order of operations (a group's mean score, or its
+    summed Borda ranks, then the argmax)."""
+
+    def __init__(self, names, num_classes: int, policy: str = AggregationPolicy.AVERAGE):
+        self.names = names if isinstance(names, list) else list(names)
+        self.num_classes = num_classes
+        if policy not in (AggregationPolicy.AVERAGE, AggregationPolicy.BORDA):
+            raise ValueError(f"unknown aggregation policy {policy}")
+        self.policy = policy
+
+    @staticmethod
+    def _borda(preds: np.ndarray) -> np.ndarray:
+        # The rank of each class in each augmented copy, summed
+        # (AugmentedExamplesEvaluator.scala:31-39).
+        ranks = np.argsort(np.argsort(preds, axis=1, kind="stable"), axis=1)
+        return ranks.sum(axis=0).astype(np.float64)
+
+    def _evaluate(self, predictions: Dataset, labels: Dataset) -> MulticlassMetrics:
+        scores = np.asarray(predictions.to_numpy(), dtype=np.float64)
+        labs = np.asarray(labels.to_numpy()).reshape(-1).astype(np.int64)
+        if len(self.names) != scores.shape[0]:
+            raise ValueError("names must align with predictions")
+
+        groups: Dict[Any, list] = {}
+        for i, name in enumerate(self.names):
+            groups.setdefault(name, []).append(i)
+
+        agg_preds, agg_labels = [], []
+        for name, idxs in groups.items():
+            group_labels = labs[idxs]
+            if len(set(group_labels.tolist())) != 1:
+                raise AssertionError(f"conflicting labels for group {name}")
+            p = scores[idxs]
+            agg = self._borda(p) if self.policy == AggregationPolicy.BORDA else p.mean(axis=0)
+            agg_preds.append(int(np.argmax(agg)))
+            agg_labels.append(int(group_labels[0]))
+
+        return MulticlassClassifierEvaluator(self.num_classes).evaluate(
+            Dataset.of(np.asarray(agg_preds)), Dataset.of(np.asarray(agg_labels))
+        )

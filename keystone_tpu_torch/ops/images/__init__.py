@@ -12,6 +12,7 @@ from .core import (
     LabeledImage,
     LabelExtractor,
     PixelScaler,
+    RandomImageTransformer,
     RandomPatcher,
 )
 from .fisher import FisherVector, GMMFisherVectorEstimator, ScalaGMMFisherVectorEstimator
@@ -32,6 +33,7 @@ __all__ = [
     "LabelExtractor",
     "PixelScaler",
     "Pooler",
+    "RandomImageTransformer",
     "RandomPatcher",
     "SIFTExtractor",
     "ScalaGMMFisherVectorEstimator",

@@ -1,19 +1,20 @@
 """Image plumbing nodes: scalers, croppers, patchers, vectorizer
 (reference: nodes/images/{GrayScaler,PixelScaler,Cropper,ImageVectorizer,
-CenterCornerPatcher,RandomPatcher,LabeledImageExtractors}.scala).
+RandomImageTransformer,CenterCornerPatcher,RandomPatcher,
+LabeledImageExtractors}.scala).
 
 Port of ``keystone_tpu/ops/images/core.py``. Batches are ``(n, x, y, c)``
 tensors. :class:`RandomPatcher` draws its patch corners with numpy's
 ``default_rng(seed)`` on the host, as the reference does, and gathers the
 patches on the images' device: one seed gives the same patches in both
-packages. ``RandomImageTransformer`` is not ported yet (the augmented CIFAR
-runner's node).
+packages. :class:`RandomImageTransformer` likewise draws its coin flips
+with numpy on the host, one a row, from its seed's ``default_rng``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -101,6 +102,33 @@ class ImageVectorizer(Transformer):
 
     def device_fn(self):
         return self._batch_fn
+
+
+class RandomImageTransformer(Transformer):
+    """Apply a transform to each image with probability ``chance``
+    (reference: nodes/images/RandomImageTransformer.scala). The default
+    transform is a horizontal flip. The coin flips are numpy draws from
+    ``default_rng(seed)``, the reference's: one ``random()`` a call of
+    :meth:`apply`, one ``random(n)`` a batch, so one seed flips the same
+    images in both packages."""
+
+    def __init__(self, chance: float = 0.5, transform: Optional[Callable] = None,
+                 seed: int = 0):
+        self.chance = chance
+        self.transform = transform or image_utils.flip_horizontal
+        self._rng = np.random.default_rng(seed)
+
+    def apply(self, img):
+        if self._rng.random() < self.chance:
+            return self.transform(img)
+        return as_tensor(img)
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        X = as_tensor(data.array).to(torch.float32)
+        mask = torch.from_numpy(self._rng.random(X.shape[0]) < self.chance).to(X.device)
+        transformed = torch.vmap(self.transform)(X)
+        out = torch.where(mask[:, None, None, None], transformed, X)
+        return Dataset(out, n=data.n)
 
 
 class CenterCornerPatcher(Transformer):

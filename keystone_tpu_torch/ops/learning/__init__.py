@@ -15,6 +15,8 @@ from .kernel import (
     GaussianKernelTransformer,
     KernelBlockLinearMapper,
     KernelRidgeRegression,
+    NystromKernelMapper,
+    NystromKernelRidge,
 )
 from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
 from .linear import (
@@ -55,7 +57,8 @@ __all__ = [
     "CosineBankFeaturize", "DenseLBFGSwithL2", "GaussianKernelGenerator",
     "GaussianKernelTransformer", "IterativeHessianSketch", "KernelBlockLinearMapper",
     "KernelRidgeRegression", "LeastSquaresEstimator", "LinearMapEstimator", "LinearMapper",
-    "LocalLeastSquaresEstimator", "SketchedLeastSquares", "SketchedLeastSquaresEstimator",
+    "LocalLeastSquaresEstimator", "NystromKernelMapper", "NystromKernelRidge",
+    "SketchedLeastSquares", "SketchedLeastSquaresEstimator",
     "SparseLBFGSwithL2", "SparseLinearMapper", "StreamingFeaturizedLeastSquares",
     "StreamingFeaturizedLinearModel", "StreamingLeastSquaresChoice",
     "TransformerLabelEstimatorChain", "ZCAWhitener", "ZCAWhitenerEstimator",

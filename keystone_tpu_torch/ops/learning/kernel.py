@@ -21,9 +21,23 @@ the kernels mask ragged edges, a ragged last block's diagonal is
 identity-ghosted to (bs, bs) as in the reference, and its ghost rows solve
 to exactly zero, so the (blocks, bs, k) weight stack is the reference's.
 
+Nyström KRR (:class:`NystromKernelRidge`, :class:`NystromKernelMapper`)
+takes its landmark kernel blocks K(X, L) and K(L, L) from the same
+``gaussian_kernel_block`` kernel, the padding rows masked out, and solves
+the m × m normal equations with the reference's scale-relative jitter.
+Its landmarks are k-means++ centres (the port's
+``KMeansPlusPlusEstimator``, numpy's seeding draws) or a uniform row
+sample drawn by numpy's ``default_rng(seed).choice``, so both packages
+pick the same landmarks. float64 rows (the CPU tests) take a plain float64
+kernel block: the CUDA kernel is float32 or bf16, as the port's block
+solvers send float64 operands to plain contractions. The normal equations
+are assembled and solved in float64 whatever the rows' dtype (ROADMAP C.7:
+on CIFAR's features float32 ones miss α by 2e-2 of its norm at 600 rows
+and 64 landmarks, and by 75 to 110 times it at 50,000 and 2,048).
+
 Not ported yet (ROADMAP A.8): the ``"bf16x3"`` kernel dtype (XLA-only in
 the reference), the stepwise ``profile=True`` path, the mesh sweep
-(``_krr_mesh_program``), the ring apply and ``NystromKernelRidge``.
+(``_krr_mesh_program``) and the ring apply.
 """
 
 from __future__ import annotations
@@ -342,3 +356,117 @@ class KernelRidgeRegression(LabelEstimator):
     @property
     def weight(self) -> int:
         return self.num_epochs + 1
+
+
+# ---------------------------------------------------------------------------
+# Nyström-approximated KRR (reference: kernel.py's NystromKernelRidge)
+# ---------------------------------------------------------------------------
+
+
+def _landmark_block(X, L, x_norms, l_norms, gamma: float) -> torch.Tensor:
+    """K(X, L) in the rows' dtype: the ``gaussian_kernel_block`` kernel for
+    float32 rows (its plain version on CPU tensors), the same formula in
+    float64 for float64 rows."""
+    if X.dtype == torch.float64:
+        sq = x_norms[:, None] + l_norms[None, :] - 2.0 * (X @ L.T)
+        return torch.exp(-float(gamma) * torch.clamp_min(sq, 0.0))
+    return cuda_ops.gaussian_kernel_block(X, L, x_norms, l_norms, gamma)
+
+
+class NystromKernelMapper(Transformer):
+    """Predict with a landmark model: f(x) = K(x, L) α."""
+
+    def __init__(self, landmarks, alpha, gamma: float):
+        self.landmarks = as_tensor(landmarks)
+        self.alpha = as_tensor(alpha, self.landmarks.device)
+        self.gamma = float(gamma)
+        self._lm_norms = (self.landmarks * self.landmarks).sum(dim=1)
+
+    def apply(self, x):
+        return self.batch_apply(Dataset(as_tensor(x)[None])).to_numpy()[0]
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        X = as_tensor(data.array, self.landmarks.device).to(self.landmarks.dtype)
+        K = _landmark_block(X, self.landmarks, (X * X).sum(dim=1), self._lm_norms, self.gamma)
+        return Dataset(K @ self.alpha.to(K.dtype), n=data.n)._rezero_padding()
+
+
+def _nystrom_fit_kernel(X, Y, L, gamma: float, lam: float, n_valid: int) -> torch.Tensor:
+    """Nyström KRR normal equations: (K_nmᵀ K_nm + λ K_mm) α = K_nmᵀ Y.
+
+    The landmark kernel blocks come from :func:`_landmark_block` in the
+    rows' dtype; padding rows of X and Y are zero, but their kernel values
+    exp(−γ‖0 − l‖²) are not, so K_nm's rows past ``n_valid`` are masked
+    out. The jitter is the reference's, relative to the system's scale:
+    duplicate landmarks make the left side exactly singular, and an
+    absolute 1e-8 would vanish below one ulp at float32 magnitudes of
+    order n.
+
+    The m × m system is assembled and solved in float64 and α returned in
+    the kernel blocks' and labels' dtype (ROADMAP C.7). The reference does
+    both in that dtype, but on standardised CIFAR features the system is
+    ill-conditioned (1.4e6 at 600 rows and 64 landmarks), and float32 sums
+    of K_nmᵀ K_nm alone move α by 2e-2 of its norm there (the predictions
+    K α by 4e-6); at 50,000 rows and 2,048 landmarks float32 misses α
+    entirely."""
+    x_norms = (X * X).sum(dim=1)
+    l_norms = (L * L).sum(dim=1)
+    K_nm = _landmark_block(X, L, x_norms, l_norms, gamma)
+    dtype = torch.promote_types(K_nm.dtype, Y.dtype)
+    mask = (torch.arange(X.shape[0], device=X.device) < n_valid).to(torch.float64)
+    K_nm = K_nm.to(torch.float64) * mask[:, None]
+    K_mm = _landmark_block(L, L, l_norms, l_norms, gamma).to(torch.float64)
+    m = L.shape[0]
+    lhs = K_nm.T @ K_nm + lam * K_mm
+    jitter = 1e-6 * (torch.trace(lhs) / m + 1.0)
+    lhs = lhs + jitter * torch.eye(m, dtype=torch.float64, device=Y.device)
+    return torch.linalg.solve(lhs, K_nm.T @ Y.to(torch.float64)).to(dtype)
+
+
+class NystromKernelRidge(LabelEstimator):
+    """Kernel ridge regression by the Nyström landmark approximation
+    (Williams & Seeger, NIPS 2000): m landmarks reduce the n × n dual
+    problem to an m × m solve after one K(X, L) pass, O(n·m) kernel work
+    instead of O(n²).
+
+    Landmarks are k-means++ centres (``KMeansPlusPlusEstimator(m, 10,
+    seed)``, cast back to the data's dtype) or, with
+    ``kmeans_landmarks=False``, m distinct rows drawn by numpy's
+    ``default_rng(seed).choice``; either way the reference's landmarks. The
+    fit runs on the data's device."""
+
+    def __init__(self, kernel_generator: GaussianKernelGenerator, lam: float,
+                 num_landmarks: int, kmeans_landmarks: bool = True, seed: int = 0):
+        self.kernel_generator = kernel_generator
+        self.lam = lam
+        self.num_landmarks = num_landmarks
+        self.kmeans_landmarks = kmeans_landmarks
+        self.seed = seed
+
+    def landmarks(self, data: Dataset) -> torch.Tensor:
+        """The m landmark rows the fit uses (m = min(num_landmarks, n))."""
+        from keystone_tpu_torch.ops.learning.clustering import KMeansPlusPlusEstimator
+
+        X = as_tensor(data.array)
+        m = min(self.num_landmarks, data.n)
+        if self.kmeans_landmarks:
+            km = KMeansPlusPlusEstimator(m, 10, seed=self.seed).fit(data)
+            return km.means.to(X.device, X.dtype)
+        idx = np.random.default_rng(self.seed).choice(data.n, m, replace=False)
+        return X[torch.from_numpy(idx).to(X.device)]
+
+    def fit(self, data: Dataset, labels: Dataset) -> NystromKernelMapper:
+        L = self.landmarks(data)
+        X = as_tensor(data.array)
+        Y = as_tensor(labels.array, X.device)
+        # Align the row counts: data and labels may carry different padding.
+        n_pad = max(X.shape[0], Y.shape[0])
+        X = torch.nn.functional.pad(X, (0, 0, 0, n_pad - X.shape[0]))
+        Y = torch.nn.functional.pad(Y, (0, 0, 0, n_pad - Y.shape[0]))
+        alpha = _nystrom_fit_kernel(X, Y, L, float(self.kernel_generator.gamma),
+                                    float(self.lam), data.n)
+        return NystromKernelMapper(L, alpha, self.kernel_generator.gamma)
+
+    @property
+    def weight(self) -> int:
+        return 2

@@ -7,15 +7,18 @@ sketch, :func:`padded_pow2`, :func:`rfft_real_half` and
 :func:`srht_chunk_sketch`, on ``torch.fft.rfft``; MnistRandomFFT's nodes,
 RandomSignNode, PaddedFFT and LinearRectifier, with the packed-pair FFT
 lowering of their gather, :func:`packed_fft_gather_fn`; the Fisher-vector
-pipelines' SignedHellingerMapper and NormalizeRows; and the text
-pipelines' host-side TermFrequency). The FFTs are cuFFT through
+pipelines' SignedHellingerMapper and NormalizeRows; the text
+pipelines' host-side TermFrequency; and the samplers, ColumnSampler,
+:func:`sample_dataset` and Sampler). The FFTs are cuFFT through
 ``torch.fft`` on the card, as the reference's are XLA's: no Pallas kernel
 stands behind them there, and no hand-written one here. Dense nodes operate
 whole-batch on (n, d) tensors. Randomized nodes take explicit integer
 seeds and draw from a ``torch.Generator`` seeded with them on the CPU, so
 a seed gives the same draws on every device. (They are not the
 reference's ``jax.random`` draws; tests carry the reference's weights
-across through :mod:`keystone_tpu_torch.interop`.)
+across through :mod:`keystone_tpu_torch.interop`.) A host-list dataset's
+row sample is the reference's numpy ``default_rng(seed)`` draw, the same
+rows in both packages.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch import resolve_device
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
+from keystone_tpu_torch.ops.util import FunctionNode
 from keystone_tpu_torch.workflow import Estimator, Transformer
 
 
@@ -362,3 +367,58 @@ class TermFrequency(Transformer):
 
     def batch_apply(self, data: Dataset) -> Dataset:
         return Dataset.of([self.apply(x) for x in data.to_list()])
+
+
+# ---------------------------------------------------------------------------
+# Sampling (reference: nodes/stats/Sampling.scala:12-32)
+# ---------------------------------------------------------------------------
+
+
+def _generator(seed: int) -> torch.Generator:
+    return torch.Generator(device="cpu").manual_seed(int(seed))
+
+
+class ColumnSampler(Transformer):
+    """Sample columns of per-item (d, cols) matrices, with replacement
+    (reference: nodes/stats/Sampling.scala:12-25). The column indices are
+    drawn on the CPU from a generator seeded with ``seed``, then gathered
+    on the item's device."""
+
+    def __init__(self, num_samples: int, seed: int = 0):
+        self.num_samples = num_samples
+        self.seed = seed
+
+    def apply(self, x):
+        x = as_tensor(x)
+        idx = torch.randint(0, x.shape[1], (self.num_samples,), generator=_generator(self.seed))
+        return x[:, idx.to(x.device)]
+
+
+def sample_dataset(data: Dataset, num_items: int, seed: int = 0) -> Dataset:
+    """Random row sample without replacement, ``min(num_items, n)`` rows
+    (the RDD.takeSample FunctionNode, reference:
+    nodes/stats/Sampling.scala:27-32). A host-list dataset draws the
+    reference's numpy ``default_rng(seed).choice``; an array dataset a
+    permutation from a generator seeded with ``seed``, gathered on its
+    device."""
+    k = min(num_items, data.n)
+    if data.is_host:
+        rng = np.random.default_rng(seed)
+        items = data.to_list()
+        idx = rng.choice(len(items), size=k, replace=False)
+        return Dataset.of([items[i] for i in idx])
+    X = as_tensor(data.array)[: data.n]
+    idx = torch.randperm(data.n, generator=_generator(seed))[:k]
+    return Dataset(X[idx.to(X.device)], n=k)
+
+
+class Sampler(FunctionNode):
+    """Dataset-level row sampler, outside graph tracking as the reference's
+    is (reference: nodes/stats/Sampling.scala:27-32)."""
+
+    def __init__(self, size: int, seed: int = 0):
+        self.size = size
+        self.seed = seed
+
+    def apply(self, data: Dataset) -> Dataset:
+        return sample_dataset(data, self.size, self.seed)

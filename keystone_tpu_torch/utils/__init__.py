@@ -1,2 +1,2 @@
-"""Utilities (port of ``keystone_tpu/utils/__init__.py``; only the image
-helpers the CIFAR slice needs so far)."""
+"""Utilities (port of ``keystone_tpu/utils/__init__.py``): the image
+helpers of ``images.py`` and ``stats.about_eq``."""

@@ -455,6 +455,31 @@ class TestKernelsOnCard:
                                                       patch_size=6) for i in range(7)])
         assert torch.equal(batch, again) and torch.equal(batch, alone)
 
+    @pytest.mark.parametrize("n,size,use_means", [(2382, 32, False), (4809, 24, True),
+                                                  (7, 24, True), (7, 24, False)])
+    def test_conv_featurize_at_the_runners_forms(self, cuda_device, n, size, use_means):
+        # The forms the CIFAR runners add: RandomCifar's filters without a
+        # whitener on a 32 x 32 row chunk (2,382 images), and the augmented
+        # runner's 24 x 24 crops (19 x 19 = 361 outputs an image, so pixel
+        # tiles cross image boundaries at other places than at 729) on its
+        # row chunk of 4,809 crops: within 1e-5 of the plain version's
+        # scale, and each image's bits whatever tile it falls in.
+        images, filters, means = _conv_inputs(n, size, size, 3, 6, 100, seed=n,
+                                              device=cuda_device)
+        means = means if use_means else None
+        assert cuda_images.conv_featurize_ok(images, filters)
+        got = cuda_images.conv_featurize(images, filters, means, patch_size=6)
+        want = cuda_images.conv_featurize_ref(images, filters, means, patch_size=6)
+        torch.cuda.synchronize()
+        assert got.shape == (n, size - 5, size - 5, 100)
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        some = [0, n // 2, n - 1]
+        alone = torch.cat([cuda_images.conv_featurize(images[i:i + 1], filters, means,
+                                                      patch_size=6) for i in some])
+        assert torch.equal(got[some], alone)
+        grid = cuda_images.conv_featurize_grid(n, size, size, 3, 6, 100, cuda_device)
+        assert grid["tiles"] == -(-n * (size - 5) ** 2 // 128) and grid["local_bytes"] == 0
+
     @pytest.mark.parametrize("n,k", [(2382, 100), (1, 100), (50, 32), (50, 256)])
     def test_conv_grid(self, cuda_device, n, k):
         # A persistent grid of the resident blocks (fewer where there are

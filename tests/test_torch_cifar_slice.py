@@ -271,4 +271,4 @@ class TestEntryPoint:
         assert trun.resolve("RandomPatchCifarKernel") is trun.resolve(
             "keystone_tpu.pipelines.RandomPatchCifarKernel")
         with pytest.raises(SystemExit, match="Known pipelines"):
-            trun.resolve("RandomPatchCifar")  # the other CIFAR runners wait (ROADMAP A.10)
+            trun.resolve("RandomPatchCifarWide")  # no such pipeline

@@ -320,6 +320,56 @@ class TestKernelsOnCard:
         with pytest.raises(TypeError):
             cuda_ops.gram_corr_sym(A, torch.zeros((8, 2), device=cuda_device))
 
+    @pytest.mark.parametrize("m", [50000, 2048])
+    def test_gaussian_kernel_block_at_nystrom_shapes(self, cuda_device, m):
+        # Nystrom KRR's landmark blocks at the CIFAR geometry (d = 1,800,
+        # 2,048 landmarks, gamma 5e-4): K(X, L) for 50,000 rows and the
+        # square K(L, L), whose clamp keeps the diagonal at 1; within 1e-5
+        # of the plain version, one launch a call.
+        gen = torch.Generator(device=cuda_device).manual_seed(m)
+        X = torch.randn((m, 1800), generator=gen, device=cuda_device)
+        xn = (X * X).sum(1)
+        L, ln = X[:2048], xn[:2048]
+        before = cuda_ops.launches["gaussian_kernel_block"]
+        got = cuda_ops.gaussian_kernel_block(X, L, xn, ln, 5e-4)
+        want = cuda_ops.gaussian_kernel_block_ref(X, L, xn, ln, 5e-4)
+        torch.cuda.synchronize()
+        assert cuda_ops.launches["gaussian_kernel_block"] == before + 1
+        assert got.shape == (m, 2048) and (got - want).abs().max().item() <= 1e-5
+        assert float(got.max()) <= 1.0
+        if m == 2048:
+            assert float(got.diagonal().min()) >= 1.0 - 1e-5
+
+    @pytest.mark.parametrize("kmeans", [True, False])
+    def test_nystrom_fit_on_the_card_is_the_cpu_fit(self, cuda_device, kmeans):
+        # NystromKernelRidge on the card (two gaussian_kernel_block launches a
+        # fit, one an apply) against its plain run on the CPU: the same
+        # landmarks (numpy's draws; k-means++ centres to rounding) and alpha
+        # within 1e-4 relative.
+        from keystone_tpu_torch.data import Dataset
+        from keystone_tpu_torch.ops.learning.kernel import (
+            GaussianKernelGenerator,
+            NystromKernelRidge,
+        )
+
+        rng = _rng(3)
+        X = rng.normal(size=(3000, 64)).astype(np.float32)
+        Y = (2.0 * np.eye(4)[rng.integers(0, 4, 3000)] - 1.0).astype(np.float32)
+        fits = {}
+        for device in ("cpu", cuda_device):
+            est = NystromKernelRidge(GaussianKernelGenerator(0.01), 1.0, 256,
+                                     kmeans_landmarks=kmeans, seed=5)
+            before = cuda_ops.launches["gaussian_kernel_block"]
+            mapper = est.fit(Dataset(_t(X).to(device)), Dataset(_t(Y).to(device)))
+            out = mapper.batch_apply(Dataset(_t(X[:100]).to(device))).array
+            launched = cuda_ops.launches["gaussian_kernel_block"] - before
+            fits[str(device)] = (mapper.landmarks.cpu().numpy(), mapper.alpha.cpu().numpy(),
+                                 out.cpu().numpy(), launched)
+        cpu, card = fits["cpu"], fits[str(cuda_device)]
+        assert card[3] == 3
+        for got, want, tol in zip(card[:3], cpu[:3], (1e-5, 1e-4, 1e-4)):
+            assert _rel(got, want) <= tol
+
     def test_row_chunks_keep_every_form_bit_equal(self, cuda_device):
         # 12 whole 2,048-row Gramian chunks and a ragged one (csrc/gram_tile.cuh):
         # integer entries make every sum exact, so the kernel gives the plain

@@ -64,7 +64,8 @@ def test_port_has_modules():
                 "pipelines/amazon_reviews.py", "ops/images/sift.py", "ops/images/lcs.py",
                 "ops/images/fisher.py", "ops/learning/clustering.py", "ops/learning/bwls.py",
                 "ops/learning/classstats.py", "pipelines/voc_sift_fisher.py",
-                "pipelines/imagenet_sift_lcs_fv.py"):
+                "pipelines/imagenet_sift_lcs_fv.py", "pipelines/newsgroups.py",
+                "pipelines/stupid_backoff.py", "ops/lemmatizer.py", "utils/stats.py"):
         assert rel in rels
 
 
@@ -183,6 +184,18 @@ class TestDeviceRules:
                 cifar.CifarConfig(synthetic_n=16, num_filters=2, whitener_size=20))
         with pytest.raises(RuntimeError):
             interop.sparse_linear_mapper(np.zeros((4, 2)), np.zeros(2))
+
+    @pytest.mark.parametrize("runner", ["LinearPixels", "RandomCifar", "RandomPatchCifar",
+                                        "RandomPatchCifarAugmented"])
+    def test_cifar_runners_raise_without_cuda(self, no_cuda, runner):
+        with pytest.raises(RuntimeError):
+            cifar.RUNNERS[runner](cifar.CifarConfig(synthetic_n=16, num_filters=2,
+                                                    whitener_size=20))
+
+    def test_newsgroups_raises_without_cuda(self, no_cuda):
+        from keystone_tpu_torch.pipelines import newsgroups
+        with pytest.raises(RuntimeError):
+            newsgroups.run(newsgroups.NewsgroupsConfig(synthetic_n=16))
 
     def test_cpu_must_be_asked_for(self):
         data = synthetic_timit(16, seed=0, device="cpu")
