@@ -222,6 +222,39 @@ per source, all started together), then:
          every score in (0, 1], the vectorised scorer equal to the dict
          loop on 10,000 sampled n-grams.
 
+ 18. drives the workflow layer on the card:
+       - (a) the plan verifier on the north star's fit graph (TIMIT
+         ``--solver auto``, 50 cosine branches: d = 204,800) with 2,200,000
+         real source rows on the card, in strict mode: no finding, every
+         launch counter unchanged, 0 bytes allocated (the peak equal to what
+         was allocated at the start), its milliseconds; then the dry run's
+         five pipelines (``keystone_tpu_torch.tools.dryrun``) on the card,
+         clean; and in a fresh process (``python3 chip_smoke.py
+         --first-verify``) the first and second verification of the dry
+         run's TIMIT graph, beside the seconds of importing
+         ``torch._dynamo``, which PyTorch's Python meta kernels import at
+         their first call;
+       - (b) bench.py's ``autocache_host_boundary`` sweep (65,536 rows of
+         512 inputs, a host decode stage, 4,096 cosine features,
+         ``BlockLeastSquaresEstimator(512, 1, λ)``, a cold 3-fit λ-sweep and
+         3 warm ones, a 256-row probe apply after each fit) under
+         ``DefaultOptimizer`` and ``AutoCachingOptimizer(GreedyCache(3
+         GiB))``: walls, cache insertions, full-size decode calls and
+         launches a fit; greedy must place a Cacher, decode the full rows
+         fewer times, give each λ's weights bit for bit, and no profiled
+         node may fall back to an empty profile;
+       - (c) the plan of ``autocache_on_chip``'s fully fusable chain (512 ->
+         8,192 cosine -> rectify -> 2,048 cosine, 131,072 rows): no Cacher
+         inside the fused program under post-fusion greedy, the pre-fusion
+         order's insertions beside it;
+       - (d) phase 2's fitted TIMIT pipeline (fit first), its scores for
+         1,000 single rows through the captured CUDA-graph program and for
+         100 through the per-node walk (a host stage appended, so the
+         composition refuses): each within 1e-6 relative of the batch
+         apply's row, one capture for the one shape, ``cosine_features``
+         counted 4 a datum, replays included; median and p99 microseconds
+         a datum on each path.
+
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
 bf16 and float32 forms against float64 sums on one Amazon chunk.
@@ -232,6 +265,7 @@ raises and the script exits non-zero without that line. It needs one CUDA
 device and exits non-zero without one.
 """
 
+import importlib
 import json
 import os
 import statistics
@@ -3896,6 +3930,405 @@ def phase_sym_false(cuda_ops):
                         weights_rel_diff=rel_W, residual_rel_diff=rel_R, same_bits=same)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the workflow layer (plan verifier, auto-caching optimizer,
+# single-datum programs)
+# ---------------------------------------------------------------------------
+
+# (b) bench.py's autocache_host_boundary geometry: n rows of 512 inputs, a
+# host decode stage, 4,096 cosine features, 10 classes, data seed 6;
+# BlockLeastSquares(512, 1, λ) over a cold 3-fit sweep and 3 warm ones, λ
+# from logspace(-5, -2, 12), a 3 GiB budget, a 256-row probe after each fit.
+CACHE_N, CACHE_D_IN, CACHE_D, CACHE_K, CACHE_SEED = 65536, 512, 4096, 10, 6
+CACHE_SWEEPS, CACHE_FITS, CACHE_BUDGET, CACHE_PROBE = 4, 3, 3 << 30, 256
+# (c) bench.py's autocache_on_chip chain: 512 -> 8,192 cosine -> rectify ->
+# 8,192 -> 2,048 cosine on 131,072 rows (a plan probe, no fit).
+CHAIN_N, CHAIN_DIMS = 131072, (512, 8192, 2048)
+# (d) datum programs on phase 2's fitted TIMIT pipeline.
+DATUM_GRAPH_N, DATUM_WALK_N, DATUM_TOL = 1000, 100, 1e-6
+WORKFLOW = "workflow layer: verifier, auto-caching optimizer, datum programs"
+
+
+class HostDecode:
+    """bench.py's host decode stage, made a port Transformer at first use
+    (the port is imported only once a card is found): device -> host,
+    sign(x)·sqrt|x| in numpy, host -> device. Not device-fusable, so fusion
+    cannot absorb it; it counts its full-size calls."""
+
+    _cls = None
+
+    @classmethod
+    def make(cls, full_n):
+        if cls._cls is None:
+            from keystone_tpu_torch.data import Dataset
+            from keystone_tpu_torch.workflow import Transformer
+
+            class _HostDecode(Transformer):
+                def __init__(self, full_n):
+                    self.full_n = full_n
+                    self.full_calls = 0
+
+                def apply(self, x):
+                    v = x.cpu().numpy()
+                    return torch.from_numpy(np.sign(v) * np.sqrt(np.abs(v))).to(x.device)
+
+                def batch_apply(self, ds):
+                    if ds.n == self.full_n:
+                        self.full_calls += 1
+                    V = ds.array.cpu().numpy()
+                    out = (np.sign(V) * np.sqrt(np.abs(V))).astype(np.float32)
+                    return Dataset(torch.from_numpy(out).to(ds.array.device), n=ds.n)
+
+            cls._cls = _HostDecode
+        return cls._cls(full_n)
+
+
+class HostPassthrough:
+    """A host stage without a device function (identity): appended to a
+    fitted graph, it makes the composition refuse, so datums walk the graph
+    node by node."""
+
+    _cls = None
+
+    @classmethod
+    def make(cls):
+        if cls._cls is None:
+            from keystone_tpu_torch.workflow import Transformer
+
+            class _HostPassthrough(Transformer):
+                def apply(self, x):
+                    return x
+
+            cls._cls = _HostPassthrough
+        return cls._cls()
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def first_verify():
+    """The one-time cost of plan verification in a fresh process (``python3
+    chip_smoke.py --first-verify``): the dry run's TIMIT fit graph built on
+    the card, ``torch._dynamo`` imported (what PyTorch's Python meta
+    kernels import at their first call; timed), then the graph verified
+    twice. Prints one JSON line."""
+    from keystone_tpu_torch.tools import dryrun
+    from keystone_tpu_torch.workflow import verify
+
+    graph = dryrun.BUILDERS["timit"](torch.device("cuda")).executor.graph
+    loaded = "torch._dynamo" in sys.modules
+    t0 = time.perf_counter()
+    importlib.import_module("torch._dynamo")  # what the first meta kernel call imports
+    import_s = time.perf_counter() - t0
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        verify.verify_graph(graph, strict=True)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps(dict(dynamo_loaded_before=loaded, dynamo_import_s=import_s,
+                          first_verify_ms=times[0], second_verify_ms=times[1])))
+    return 0
+
+
+def phase_verify(cuda_ops, timit, n=NORTH_N, cosines=WIDE_COSINES, device="cuda"):
+    """18(a): the north star's fit graph (TIMIT --solver auto, d = 204,800)
+    with n real source rows on the card, verified in strict mode: no
+    finding, no launch, no byte allocated; then the dry run's five
+    pipelines on the card."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.cost import LeastSquaresEstimator
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+    from keystone_tpu_torch.tools import dryrun
+    from keystone_tpu_torch.workflow import verify
+
+    gen = torch.Generator(device=device).manual_seed(18)
+    X = torch.randn(n, D_IN, generator=gen, device=device)
+    y = torch.randint(0, K, (n,), generator=gen, device=device)
+    labels = ClassLabelIndicatorsFromIntLabels(K)(Dataset(y))
+    del y
+    config = timit.TimitConfig(solver="auto", num_cosines=cosines, block_size=BLOCK,
+                               num_epochs=EPOCHS)
+    pipe = timit.build_featurizer(config, device=device).and_then(
+        LeastSquaresEstimator(lam=0.0, block_size=BLOCK, block_iters=EPOCHS),
+        Dataset(X), labels).and_then(MaxClassifier())
+    graph = pipe.executor.graph
+    _sync(device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated() if cuda else 0
+    before = dict(cuda_ops.launches)
+    t0 = time.perf_counter()
+    verify.verify_graph(graph, strict=True)
+    cold_ms = (time.perf_counter() - t0) * 1e3  # with the process's first dispatch mode
+    t0 = time.perf_counter()
+    report = verify.verify_graph(graph, strict=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    mode = os.environ.get("KEYSTONE_VERIFY")
+    os.environ["KEYSTONE_VERIFY"] = "strict"
+    try:
+        verify.verify_fit_graph(graph, context="phase 18(a)")
+    finally:
+        if mode is None:
+            del os.environ["KEYSTONE_VERIFY"]
+        else:
+            os.environ["KEYSTONE_VERIFY"] = mode
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    feat = [s.describe() for s in report.sigs.values() if "204800" in s.describe()]
+    log(f"  (a) n={n}, d={cosines * BLOCK}: {len(graph.operators)} nodes, "
+        f"{sum(s.describe() != '?' for s in report.sigs.values())} of {len(report.sigs)} "
+        f"signatures known, the combined features {feat[:1]}, verify_graph (strict) "
+        f"{ms:.1f} ms ({cold_ms:.1f} ms the first time in the process), findings "
+        f"{len(report.findings)}, allocated at the start "
+        f"{start_bytes / 2**30:.3f} GiB, peak during {peak / 2**30:.3f} GiB")
+    check("18(a) the north star's fit graph verifies clean in strict mode",
+          not report.findings, "; ".join(map(str, report.findings)) or "no findings")
+    check("18(a) the verifier launched nothing", dict(cuda_ops.launches) == before,
+          f"{dict(cuda_ops.launches)} against {before}")
+    check("18(a) the verifier allocated 0 bytes", peak == start_bytes,
+          f"max_memory_allocated {peak} B, memory_allocated at the start {start_bytes} B")
+    check("18(a) the combined features' signature is known",
+          bool(feat) and f"f[{n},{cosines * BLOCK}]:float32" in feat[0], f"{feat[:1]}")
+    del pipe, graph, labels, X
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = dryrun.dryrun(strict=True, device=device)
+    dry_s = time.perf_counter() - t0
+    lines = {name: len(r.findings) for name, r in reports.items()}
+    log(f"  (a) the dry run's five pipelines on the card: findings {lines}, "
+        f"{dry_s:.2f} s (building included)")
+    check("18(a) the dry run is clean", len(reports) == 5 and not any(lines.values()), f"{lines}")
+    once = {}
+    if cuda:
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-verify"],
+                               capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            raise RuntimeError(f"the first-verify process failed (rc {child.returncode}):\n"
+                               f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+        once = json.loads(child.stdout.strip().splitlines()[-1])
+        log(f"  (a) a fresh process: importing torch._dynamo {once['dynamo_import_s']:.2f} s "
+            f"(loaded before: {once['dynamo_loaded_before']}), then the first verify_graph "
+            f"of the dry run's TIMIT graph {once['first_verify_ms']:.1f} ms, the second "
+            f"{once['second_verify_ms']:.1f} ms")
+    return dict(first_process=once, verify_ms=ms, verify_first_ms=cold_ms, findings=len(report.findings),
+                peak_bytes=peak,
+                start_bytes=start_bytes, dryrun_findings=lines, dryrun_seconds=dry_s)
+
+
+def _block_weights(fitted):
+    from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+
+    (mapper,) = [op for op in fitted.transformer_graph.operators.values()
+                 if isinstance(op, BlockLinearMapper)]
+    return [x.clone() for x in mapper.xs]
+
+
+def _cache_sweep(cuda_ops, make_optimizer, data, labels, crf, probe, lams, n, device):
+    """bench.py's _run_cache_sweeps on the port: CACHE_SWEEPS sweeps of
+    CACHE_FITS fits (the first cold), the env kept between sweeps, then a
+    plan probe read off the rule. Returns walls, insertions, full-size
+    decode calls, launches a fit and each λ's weights."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.workflow import PipelineEnv, autocache
+
+    env = PipelineEnv.get_or_create()
+    env.reset()
+    optimizer = make_optimizer()
+    env.set_optimizer(optimizer)
+    host = HostDecode.make(n)
+    sweeps, fit_launches, weights = [], [], []
+    for s in range(CACHE_SWEEPS):
+        t0 = time.perf_counter()
+        for lam in lams[CACHE_FITS * s: CACHE_FITS * (s + 1)]:
+            cuda_ops.reset_launch_counts()
+            fitted = host.to_pipeline().and_then(crf).and_then(
+                BlockLeastSquaresEstimator(512, 1, float(lam)), data, labels).fit()
+            fit_launches.append({k: v for k, v in cuda_ops.launches.items() if v})
+            out = fitted.apply(Dataset(probe)).array
+            float(out.abs().sum())  # a host read: the probe has run
+            weights.append(_block_weights(fitted))
+        sweeps.append(time.perf_counter() - t0)
+    host.to_pipeline().and_then(crf).and_then(
+        BlockLeastSquaresEstimator(512, 1, 3e-3), data, labels).executor.optimized_graph
+    inserted = sum(len(getattr(r, "last_selection", ())) for b in optimizer.batches
+                   for r in b.rules)
+    env.reset()
+    return dict(cold_sweep_s=sweeps[0], warm_sweeps_s=sweeps[1:], cache_insertions=inserted,
+                full_size_decodes=host.full_calls, fit_launches=fit_launches), weights
+
+
+def phase_autocache(cuda_ops, n=CACHE_N, device="cuda"):
+    """18(b): DefaultOptimizer against AutoCachingOptimizer(GreedyCache(3
+    GiB)) on the host-boundary λ-sweep."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.stats import CosineRandomFeatures
+    from keystone_tpu_torch.workflow import autocache
+    from keystone_tpu_torch.workflow.optimizer import AutoCachingOptimizer, DefaultOptimizer
+
+    rng = np.random.default_rng(CACHE_SEED)
+    X = torch.from_numpy(rng.normal(size=(n, CACHE_D_IN)).astype(np.float32)).to(device)
+    y = rng.integers(0, CACHE_K, size=n)
+    Y = torch.from_numpy(2.0 * np.eye(CACHE_K, dtype=np.float32)[y] - 1.0).to(device)
+    data, labels = Dataset(X), Dataset(Y)
+    crf = CosineRandomFeatures(CACHE_D_IN, CACHE_D, 1e-2, seed=2, device=device)
+    lams = np.logspace(-5, -2, CACHE_FITS * CACHE_SWEEPS)
+    autocache.profile_fallbacks.clear()
+    runs = {}
+    for name, make in (("no_cache", DefaultOptimizer),
+                       ("greedy_postfusion",
+                        lambda: AutoCachingOptimizer(autocache.GreedyCache(CACHE_BUDGET)))):
+        runs[name], w = _cache_sweep(cuda_ops, make, data, labels, crf, X[:CACHE_PROBE], lams,
+                                     n, device)
+        runs[name]["weights"] = w
+        r = runs[name]
+        log(f"  (b) {name}: cold sweep {r['cold_sweep_s']:.3f} s, warm sweeps "
+            f"{[round(s, 3) for s in r['warm_sweeps_s']]} s, cache insertions "
+            f"{r['cache_insertions']}, full-size host decodes {r['full_size_decodes']}, "
+            f"launches a fit {r['fit_launches'][0]} (first), {r['fit_launches'][-1]} (last)")
+    base, greedy = runs["no_cache"], runs["greedy_postfusion"]
+    equal = [all(torch.equal(a, b) for a, b in zip(wa, wb))
+             for wa, wb in zip(base.pop("weights"), greedy.pop("weights"))]
+    fallbacks = list(autocache.profile_fallbacks)
+    check("18(b) greedy places at least one Cacher", greedy["cache_insertions"] >= 1,
+          f"{greedy['cache_insertions']} insertions")
+    check("18(b) greedy decodes the full rows fewer times than the default optimizer",
+          greedy["full_size_decodes"] < base["full_size_decodes"],
+          f"{greedy['full_size_decodes']} against {base['full_size_decodes']}")
+    check("18(b) each λ's weights bit-equal under both optimizers", all(equal),
+          f"{sum(equal)} of {len(equal)} equal")
+    check("18(b) no profiled node fell back to an empty profile", not fallbacks, f"{fallbacks}")
+    return dict(n=n, dims=[CACHE_D_IN, CACHE_D], budget_bytes=CACHE_BUDGET, configs=runs,
+                weights_bit_equal=all(equal), profile_fallbacks=len(fallbacks))
+
+
+def phase_chain_plan(n=CHAIN_N, dims=CHAIN_DIMS, device="cuda"):
+    """18(c): the fully fusable chain's plan under post-fusion greedy (no
+    Cacher inside the fused program) beside the pre-fusion order's."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.stats import CosineRandomFeatures, LinearRectifier
+    from keystone_tpu_torch.ops.util import Cacher
+    from keystone_tpu_torch.workflow import PipelineEnv, autocache, fusion
+    from keystone_tpu_torch.workflow.optimizer import AutoCachingOptimizer
+
+    d_in, d_mid, d_out = dims
+    gen = torch.Generator(device=device).manual_seed(5)
+    X = torch.randn(n, d_in, generator=gen, device=device)
+    Y = torch.randn(n, 10, generator=gen, device=device)
+    data, labels = Dataset(X), Dataset(Y)
+    crf1 = CosineRandomFeatures(d_in, d_mid, 1e-2, seed=0, device=device)
+    rect = LinearRectifier(0.0)
+    crf2 = CosineRandomFeatures(d_mid, d_out, 1e-2, seed=1, device=device)
+    out = {}
+    for name, before in (("greedy_postfusion", False), ("greedy_prefusion", True)):
+        env = PipelineEnv.get_or_create()
+        env.reset()
+        opt = AutoCachingOptimizer(autocache.GreedyCache(CACHE_BUDGET), cache_before_fusion=before)
+        env.set_optimizer(opt)
+        pipe = crf1.to_pipeline().and_then(rect).and_then(crf2).and_then(
+            BlockLeastSquaresEstimator(512, 1, 3e-3), data, labels)
+        g = pipe.executor.optimized_graph
+        inserted = sum(len(getattr(r, "last_selection", ())) for b in opt.batches
+                       for r in b.rules)
+        cachers = [c for c in g.nodes if isinstance(g.get_operator(c), Cacher)]
+        inside = [c for c in cachers
+                  if fusion.cache_would_split_fusion(g, g.get_dependencies(c)[0], {})]
+        fused = max((len(fusion.fused_members(g.get_operator(m))) for m in g.nodes), default=0)
+        out[name] = dict(insertions=inserted, cachers=len(cachers), inside_fused=len(inside),
+                         largest_fused_members=fused)
+        env.reset()
+    log(f"  (c) n={n}, {d_in} -> {d_mid} cosine -> rectify -> {d_out} cosine: {out}")
+    post = out["greedy_postfusion"]
+    check("18(c) post-fusion greedy places no Cacher inside the fused program",
+          post["inside_fused"] == 0 and post["largest_fused_members"] >= 4,
+          f"{post}")
+    return out
+
+
+def _strip_sink_node(fitted, extra=None):
+    """The fitted graph without its last node (MaxClassifier: the scores
+    are compared, not their argmax), with ``extra`` appended after."""
+    from keystone_tpu_torch.workflow import FittedPipeline, TransformerGraph
+
+    g = fitted.transformer_graph
+    last = g.get_sink_dependency(fitted.sink)
+    (dep,) = g.get_dependencies(last)
+    g = g.set_sink_dependency(fitted.sink, dep).remove_node(last)
+    if extra is not None:
+        g, node = g.add_node(extra, [dep])
+        g = g.set_sink_dependency(fitted.sink, node)
+    return FittedPipeline(TransformerGraph.from_graph(g), fitted.source, fitted.sink)
+
+
+def _datum_times(fitted, rows, device):
+    outs, times = [], []
+    for x in rows:
+        t0 = time.perf_counter()
+        y = fitted.apply(x)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e6)
+        outs.append(y)
+    times.sort()
+    return torch.stack(outs), dict(median_us=statistics.median(times),
+                                   p99_us=times[int(0.99 * (len(times) - 1))])
+
+
+def phase_datum(cuda_ops, timit, n=N_TRAIN, cosines=NUM_COSINES, block=BLOCK,
+                graph_n=DATUM_GRAPH_N, walk_n=DATUM_WALK_N, device="cuda"):
+    """18(d): phase 2's fitted TIMIT pipeline (fit first) applied to single
+    rows through the captured program and through the per-node walk."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    PipelineEnv.get_or_create().reset()
+    config = timit.TimitConfig(solver="block", num_cosines=cosines, block_size=block,
+                               synthetic_n=n, num_epochs=EPOCHS)
+    result = timit.run(config, device=device, fit_first=True)
+    rows = synthetic_timit(n, seed=config.seed, device=device).data.array
+    scores = _strip_sink_node(result.fitted)
+    walk = _strip_sink_node(result.fitted, HostPassthrough.make())
+    batch = scores.apply(Dataset(rows[:graph_n])).array
+    cuda_ops.reset_launch_counts()
+    graph_out, graph_t = _datum_times(scores, [rows[i] for i in range(graph_n)], device)
+    graph_launches = {k: v for k, v in cuda_ops.launches.items() if v}
+    programs = list(scores._datum_programs.values())
+    cuda_ops.reset_launch_counts()
+    walk_out, walk_t = _datum_times(walk, [rows[i] for i in range(walk_n)], device)
+    walk_launches = {k: v for k, v in cuda_ops.launches.items() if v}
+    rel = lambda a, b: ((a.float() - b.float()).norm(dim=-1) / b.float().norm(dim=-1)).max()
+    graph_rel, walk_rel = float(rel(graph_out, batch)), float(rel(walk_out, batch[:walk_n]))
+    per = programs[0].launches_per_replay if programs else {}
+    log(f"  (d) n={n}, d={cosines * block}: captured program {graph_n} datums, median "
+        f"{graph_t['median_us']:.1f} us, p99 {graph_t['p99_us']:.1f} us, max relative "
+        f"{graph_rel:.3e} from the batch apply's rows, programs {len(programs)} "
+        f"(captures {[p.captures for p in programs]}, replays {[p.replays for p in programs]}, "
+        f"mode {[p.mode for p in programs]}), launches a replay {per}, launches {graph_launches}; "
+        f"per-node walk {walk_n} datums, median {walk_t['median_us']:.1f} us, p99 "
+        f"{walk_t['p99_us']:.1f} us, max relative {walk_rel:.3e}, launches {walk_launches}")
+    cuda = torch.device(device).type == "cuda"
+    want = {"cosine_features": cosines * graph_n} if cuda else {}
+    check("18(d) one program for the one input shape, captured once" if cuda else
+          "18(d) one program for the one input shape",
+          len(programs) == 1 and programs[0].captures == int(cuda)
+          and programs[0].mode == ("graph" if cuda else "direct"),
+          f"{len(programs)} programs")
+    check("18(d) the captured program's launches counted replays included",
+          graph_launches == want, f"{graph_launches}, expected {want}")
+    check(f"18(d) the captured program within {DATUM_TOL} relative of the batch apply",
+          graph_rel <= DATUM_TOL, f"{graph_rel:.3e}")
+    check(f"18(d) the per-node walk within {DATUM_TOL} relative of the batch apply",
+          walk_rel <= DATUM_TOL, f"{walk_rel:.3e}")
+    PipelineEnv.get_or_create().reset()
+    return dict(graph=dict(graph_t, datums=graph_n, max_rel=graph_rel, launches=graph_launches,
+                           launches_per_replay=per),
+                walk=dict(walk_t, datums=walk_n, max_rel=walk_rel, launches=walk_launches))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3903,6 +4336,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:] == ["--cifar-profile"]:
         return cifar_profile()
+    if sys.argv[1:] == ["--first-verify"]:
+        return first_verify()
     from keystone_tpu_torch.ops import cuda_images, cuda_ops
     from keystone_tpu_torch.pipelines import timit
     from keystone_tpu_torch.pipelines.timit import TimitConfig
@@ -4011,6 +4446,11 @@ def main():
     news = phase_newsgroups(cuda_ops)
     log("  (e) StupidBackoffPipeline")
     backoff = phase_stupid_backoff()
+    phase("18", "the workflow layer: plan verifier, auto-caching optimizer, datum programs")
+    workflow = dict(verify=phase_verify(cuda_ops, timit))
+    workflow["autocache"] = phase_autocache(cuda_ops)
+    workflow["chain_plan"] = phase_chain_plan()
+    workflow["datum"] = phase_datum(cuda_ops, timit)
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -4037,7 +4477,8 @@ def main():
                  WIDE_AUTO: wide_auto, "mnist MnistRandomFFT": mnist_run, AMAZON_TEXT: amazon_run,
                  VOC: voc_run, IMAGENET: imagenet_run, "cifar runners (apply first)": runners,
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
-                 "stupid backoff StupidBackoffPipeline": backoff, "phase_seconds": phase_seconds}
+                 "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
+                 "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")
     log(smi)

@@ -15,7 +15,8 @@ The wrapper follows ``ops/cuda_ops.py``'s contract: for tensors on the CPU
 it computes the plain version (:func:`conv_featurize_ref`, the reference's
 XLA branch of ``Convolver._convolve``); for CUDA tensors it launches the
 kernel or raises, and counts the launch in ``cuda_ops.launches
-["conv_featurize"]``. The kernel is built and loaded by ``cuda_ops`` with
+["conv_featurize"]``; for a meta operand (shape inference) it runs the
+same checks and returns an empty meta output, launching nothing. The kernel is built and loaded by ``cuda_ops`` with
 the others. :func:`conv_featurize_ok` is its guard, sized for the 227 KB
 of shared memory one H100 block may use; :func:`conv_featurize_grid`
 reports a launch's grid.
@@ -151,12 +152,13 @@ def conv_featurize(images, filters, means: Optional[torch.Tensor] = None, *,
     a shape the guard :func:`conv_featurize_ok` refuses raises.
     """
     operands = [images, filters] + ([] if means is None else [means])
-    if all(t.device.type == "cpu" for t in operands):
+    name = "conv_featurize"
+    meta = cuda_ops._meta_operands(name, operands)
+    if not meta and all(t.device.type == "cpu" for t in operands):
         return conv_featurize_ref(images, filters, means, patch_size=patch_size,
                                   normalize_patches=normalize_patches,
                                   var_constant=var_constant)
-    name = "conv_featurize"
-    device = cuda_ops._cuda_operands(name, operands)
+    device = cuda_ops._META if meta else cuda_ops._cuda_operands(name, operands)
     if not conv_featurize_ok(images, filters):
         raise ValueError(
             f"{name}: images {tuple(images.shape)} and filters {tuple(filters.shape)} "
@@ -168,14 +170,14 @@ def conv_featurize(images, filters, means: Optional[torch.Tensor] = None, *,
     p = int(patch_size)
     if p * p * C != d:
         raise ValueError(f"{name}: patch_size {p} does not match filters of width {d}")
+    if means is not None and tuple(means.shape) != (d,):
+        raise ValueError(f"{name}: means {tuple(means.shape)} must be ({d},)")
+    out = torch.empty((n, X - p + 1, Y - p + 1, k), dtype=torch.float32, device=device)
+    if meta:
+        return out
     img = images.to(torch.float32).contiguous()
     flt = filters.to(torch.float32).contiguous()
-    mn = None
-    if means is not None:
-        mn = means.to(torch.float32).contiguous()
-        if mn.shape != (d,):
-            raise ValueError(f"{name}: means {tuple(means.shape)} must be ({d},)")
-    out = torch.empty((n, X - p + 1, Y - p + 1, k), dtype=torch.float32, device=device)
+    mn = None if means is None else means.to(torch.float32).contiguous()
     if out.numel() == 0:
         return out
     fn = cuda_ops._lib(name).kt_conv_featurize

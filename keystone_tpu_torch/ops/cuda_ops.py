@@ -65,7 +65,11 @@ loaded and counted here with the others.
 Each wrapper keeps its Pallas twin's name and operand contract. For a
 tensor on the CPU it computes the plain PyTorch version (``*_ref``); for a
 CUDA tensor it launches its kernel or raises — it checks device, dtype,
-shape and layout, and never falls back. ``launches[name]`` counts the
+shape and layout, and never falls back. Given a meta tensor (the plan
+verifier's shape inference) ``cosine_features`` and ``conv_featurize``, the
+two kernels a transformer's ``device_fn`` reaches, run the same checks and
+return an empty meta output of the kernel's shape and dtype, launching
+nothing. ``launches[name]`` counts the
 wrapper's kernel launches (and nothing else), so a run can show that its
 main path went through the kernels.
 
@@ -281,6 +285,24 @@ def _cuda_operands(name: str, tensors) -> torch.device:
     return next(iter(devices))
 
 
+_META = torch.device("meta")
+
+
+def _meta_operands(name: str, tensors) -> bool:
+    """True when an operand is a meta tensor: the call is shape inference
+    (the plan verifier's, ``workflow/verify.py``), and the wrapper runs its
+    shape and dtype checks and returns an empty meta output of the kernel's
+    shape and dtype: it builds nothing, launches nothing and counts
+    nothing. The operands that are not meta must lie on one device, as
+    the kernel's would."""
+    if not any(t.device.type == "meta" for t in tensors):
+        return False
+    devices = {t.device for t in tensors if t.device.type != "meta"}
+    if len(devices) > 1:
+        raise ValueError(f"{name}: operands must all lie on one device, got {devices}")
+    return True
+
+
 def _check_rows(name: str, t: torch.Tensor, what: str) -> None:
     if t.dim() != 2:
         raise ValueError(f"{name}: {what} must be 2-D, got shape {tuple(t.shape)}")
@@ -398,11 +420,12 @@ def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=No
         out_dtype = out.dtype
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     operands = (X, W, b) if out is None else (X, W, b, out)
-    if all(t.device.type == "cpu" for t in operands):
+    name = "cosine_features"
+    meta = _meta_operands(name, operands)
+    if not meta and all(t.device.type == "cpu" for t in operands):
         ref = cosine_features_ref(X, W, b, compute_dtype, out_dtype)
         return ref if out is None else out.copy_(ref)
-    name = "cosine_features"
-    device = _cuda_operands(name, operands)
+    device = _META if meta else _cuda_operands(name, operands)
     _check_rows(name, X, "X")
     _check_rows(name, W, "W")
     if X.shape[1] != W.shape[1] or b.shape != (W.shape[0],):
@@ -414,6 +437,16 @@ def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=No
         raise TypeError(f"{name}: operands must be floating, got {X.dtype}, {W.dtype}")
     if out_dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if out is not None:
+        _check_rows(name, out, "out")
+        if out.shape != (X.shape[0], W.shape[0]):
+            raise ValueError(
+                f"{name}: out is {tuple(out.shape)}, expected {(X.shape[0], W.shape[0])}"
+            )
+    if meta:
+        return out if out is not None else torch.empty(
+            (X.shape[0], W.shape[0]), dtype=out_dtype, device=_META
+        )
     op = _cosine_operands(X, W, compute_dtype)
     Xk = X if X.dtype == op else X.to(op)
     Wk = W if W.dtype == op else W.to(op)
@@ -422,10 +455,6 @@ def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=No
     n = Wk.shape[0]
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=device)
-    else:
-        _check_rows(name, out, "out")
-        if out.shape != (m, n):
-            raise ValueError(f"{name}: out is {tuple(out.shape)}, expected {(m, n)}")
     if out.numel() == 0:
         return out
     fn = _lib(name).kt_cosine_features

@@ -129,6 +129,11 @@ class Convolver(Transformer):
         out = self._convolve(batch)
         return out[0] if single else out
 
+    # The convolution computes in float32 BY DESIGN: float64 image input
+    # narrowing to f32 here is the declared compute dtype, not silent
+    # drift — tell the plan verifier so (workflow/verify.py).
+    declares_dtype_change = True
+
     def device_fn(self):
         return self._convolve
 

@@ -10,8 +10,8 @@ begins once the text becomes feature vectors. Hashes are deterministic
 FNV-1a, the reference's (Python's builtin ``hash`` is salted per process).
 The vectorised backoff scorer (:func:`_batch_score_packed`) is numpy over
 the packed int64 n-gram ids, and the scalar :func:`_score_locally` stays
-its oracle, as in the reference. The plan verifier's ``output_signature``
-hooks wait for ``workflow/verify.py`` (ROADMAP A.14).
+its oracle, as in the reference. Each host-side node declares its static
+output signature for the plan verifier (``workflow/verify.py``).
 """
 
 from __future__ import annotations
@@ -24,11 +24,19 @@ import numpy as np
 
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.workflow import Estimator, Transformer
+from keystone_tpu_torch.workflow.verify import HostSig, expect_host
 
 
 # ---------------------------------------------------------------------------
 # String transformers (reference: StringUtils.scala:13-29)
 # ---------------------------------------------------------------------------
+#
+# These run host-side (meta-tensor interpretation cannot run them), so each
+# one DECLARES its static output signature for the plan verifier
+# (workflow/verify.py): what host kind it consumes and what it emits. A
+# text pipeline wired out of order (e.g. n-grams before tokenization) then
+# fails verification with node coordinates instead of raising a confusing
+# AttributeError mid-fit.
 
 
 class Tokenizer(Transformer):
@@ -45,15 +53,25 @@ class Tokenizer(Transformer):
             tokens.pop()
         return tokens
 
+    def output_signature(self, sig):
+        sig = expect_host(sig, ("str",), self)
+        return HostSig("tokens", n=sig.n, datum=sig.datum)
+
 
 class Trim(Transformer):
     def apply(self, s: str) -> str:
         return s.strip()
 
+    def output_signature(self, sig):
+        return expect_host(sig, ("str",), self)
+
 
 class LowerCase(Transformer):
     def apply(self, s: str) -> str:
         return s.lower()
+
+    def output_signature(self, sig):
+        return expect_host(sig, ("str",), self)
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +125,10 @@ class NGramsFeaturizer(Transformer):
                 out.append(tuple(tokens[i:i + order]))
         return out
 
+    def output_signature(self, sig):
+        sig = expect_host(sig, ("tokens", "int_tokens"), self)
+        return HostSig("ngrams", n=sig.n, datum=sig.datum)
+
 
 class NGramsCounts(Transformer):
     """Count n-gram occurrences over the whole dataset, returning a Dataset of
@@ -132,6 +154,13 @@ class NGramsCounts(Transformer):
             counts.update(NGram(g) for g in item)
         ordered = sorted(counts.items(), key=lambda kv: -kv[1])
         return Dataset.of(ordered)
+
+    def output_signature(self, sig):
+        sig = expect_host(sig, ("ngrams", "tokens"), self)
+        # The default mode aggregates ACROSS examples — the output count
+        # is the number of distinct n-grams, not the input n.
+        n = sig.n if self.mode == "no_add" else None
+        return HostSig("ngram_counts", n=n, datum=sig.datum)
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +213,10 @@ class HashingTF(Transformer):
             tf[i] = tf.get(i, 0.0) + 1.0
         return tf
 
+    def output_signature(self, sig):
+        sig = expect_host(sig, ("tokens", "ngrams", "int_tokens"), self)
+        return HostSig("tf_dict", n=sig.n, datum=sig.datum)
+
 
 class NGramsHashingTF(Transformer):
     """Fused n-gram extraction + hashing TF, computing each n-gram's hash by
@@ -215,6 +248,10 @@ class NGramsHashingTF(Transformer):
                     tf[idx] = tf.get(idx, 0.0) + 1.0
         return tf
 
+    def output_signature(self, sig):
+        sig = expect_host(sig, ("tokens", "int_tokens"), self)
+        return HostSig("tf_dict", n=sig.n, datum=sig.datum)
+
 
 # ---------------------------------------------------------------------------
 # Word frequency encoding (reference: WordFrequencyEncoder.scala:7-62)
@@ -233,6 +270,10 @@ class WordFrequencyTransformer(Transformer):
     def apply(self, words: Sequence[str]) -> List[int]:
         return [self.word_index.get(w, self.OOV_INDEX) for w in words]
 
+    def output_signature(self, sig):
+        sig = expect_host(sig, ("tokens",), self)
+        return HostSig("int_tokens", n=sig.n, datum=sig.datum)
+
 
 class WordFrequencyEncoder(Estimator):
     """Fit the vocabulary sorted by descending frequency
@@ -246,6 +287,14 @@ class WordFrequencyEncoder(Estimator):
         word_index = {w: i for i, (w, _) in enumerate(ordered)}
         unigram_counts = {word_index[w]: c for w, c in ordered}
         return WordFrequencyTransformer(word_index, unigram_counts)
+
+    def fitted_signature(self, input_sigs):
+        """Static signature of the fitted transformer's output at the
+        delegating apply site (verifier contract)."""
+        sig = input_sigs[0] if input_sigs else None
+        if isinstance(sig, HostSig):
+            return HostSig("int_tokens", n=sig.n, datum=sig.datum)
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +326,10 @@ class CoreNLPFeatureExtractor(Transformer):
     def apply(self, sentence: str) -> List[Tuple]:
         lemmas = [self.lemmatizer(t) for t in self.tokenizer.apply(sentence) if t]
         return self.featurizer.apply(lemmas)
+
+    def output_signature(self, sig):
+        sig = expect_host(sig, ("str",), self)
+        return HostSig("ngrams", n=sig.n, datum=sig.datum)
 
 
 # ---------------------------------------------------------------------------

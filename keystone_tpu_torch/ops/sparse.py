@@ -36,8 +36,9 @@ the same function; at the Amazon geometry (d₁ = 16,385 against a bf16 pad
 of 17,408) the fold does 11% fewer FLOPs. :func:`gram_pad_dim` is still
 ported for callers that ask for it.
 
-The verifier hooks (``output_signature``, ``check_fit_signature``,
-``fitted_signature``) wait for ``workflow/verify.py`` (ROADMAP A.14).
+The sparse feature-space nodes declare their signatures to the plan
+verifier (``workflow/verify.py``): ``output_signature``,
+``check_fit_signature`` and ``fitted_signature``.
 """
 
 from __future__ import annotations
@@ -399,6 +400,32 @@ class SparseFeatureVectorizer(Transformer):
     def batch_apply(self, data: Dataset) -> Dataset:
         return sparse_batch_from_items(data.to_list(), self.feature_space, self.max_nnz)
 
+    def output_signature(self, sig):
+        """Verifier declaration: weighted host items in, padded-COO
+        sparse batch out (`sparse` kind — the dict batch the sparse
+        solvers consume)."""
+        from keystone_tpu_torch.workflow.verify import HostSig, expect_host
+
+        sig = expect_host(sig, ("tf_dict", "ngram_counts"), self)
+        return HostSig("sparse", n=sig.n, datum=sig.datum)
+
+
+def _check_sparse_fit_input(est, input_sigs):
+    """Shared fit-input contract for the sparse feature-space estimators:
+    the DATA input must be weighted host items (a raw token stream here
+    means the TermFrequency/weighting stage was dropped)."""
+    from keystone_tpu_torch.workflow.verify import HostSig, expect_host
+
+    if input_sigs and isinstance(input_sigs[0], HostSig):
+        expect_host(input_sigs[0], ("tf_dict", "ngram_counts"), est)
+
+
+def _sparse_fitted_signature(input_sigs):
+    from keystone_tpu_torch.workflow.verify import HostSig
+
+    sig = input_sigs[0] if input_sigs else None
+    return HostSig("sparse", n=getattr(sig, "n", None), datum=getattr(sig, "datum", False))
+
 
 class CommonSparseFeatures(Estimator):
     """Keep the top-K features by document frequency, deterministic tie-break
@@ -420,6 +447,12 @@ class CommonSparseFeatures(Estimator):
         )
         return SparseFeatureVectorizer({f: i for i, (f, _) in enumerate(top)}, self.max_nnz)
 
+    def check_fit_signature(self, input_sigs):
+        _check_sparse_fit_input(self, input_sigs)
+
+    def fitted_signature(self, input_sigs):
+        return _sparse_fitted_signature(input_sigs)
+
 
 class AllSparseFeatures(Estimator):
     """Use every observed feature (reference: AllSparseFeatures.scala:15-27)."""
@@ -434,3 +467,9 @@ class AllSparseFeatures(Estimator):
                 if f not in seen:
                     seen[f] = len(seen)
         return SparseFeatureVectorizer(seen, self.max_nnz)
+
+    def check_fit_signature(self, input_sigs):
+        _check_sparse_fit_input(self, input_sigs)
+
+    def fitted_signature(self, input_sigs):
+        return _sparse_fitted_signature(input_sigs)

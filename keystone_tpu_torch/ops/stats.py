@@ -368,6 +368,15 @@ class TermFrequency(Transformer):
     def batch_apply(self, data: Dataset) -> Dataset:
         return Dataset.of([self.apply(x) for x in data.to_list()])
 
+    def output_signature(self, sig):
+        """Verifier declaration (host op): item sequences in, feature→
+        weight dicts out. A bare string input is rejected — counting its
+        CHARACTERS as terms is virtually always a missing-Tokenizer bug."""
+        from keystone_tpu_torch.workflow.verify import HostSig, expect_host
+
+        sig = expect_host(sig, ("tokens", "ngrams", "int_tokens"), self)
+        return HostSig("tf_dict", n=sig.n, datum=sig.datum)
+
 
 # ---------------------------------------------------------------------------
 # Sampling (reference: nodes/stats/Sampling.scala:12-32)

@@ -1,9 +1,9 @@
 """Plumbing nodes (reference: nodes/util/ — Cacher, VectorSplitter, label
 indicators, classifiers, combiners).
 
-Port of ``keystone_tpu/ops/util.py`` (the nodes the TIMIT, VOC and
-ImageNet slices run). Dense nodes are whole-batch tensor ops on the
-dataset's device.
+Port of ``keystone_tpu/ops/util.py``, with the plan verifier's declared
+signatures (``output_signature``). Dense nodes are whole-batch tensor ops
+on the dataset's device.
 """
 
 from __future__ import annotations
@@ -41,11 +41,20 @@ class Cacher(Transformer):
 
     name: Optional[str] = None
 
+    # Verifier contract (workflow/verify.py): a cache marker is a
+    # signature passthrough, and its PLACEMENT is checked — a cut that
+    # severs an edge the fusion rules would compose into one function is
+    # reported as `cache-splits-fusion`.
+    is_cache = True
+
     def apply(self, x):
         return x
 
     def batch_apply(self, data: Dataset) -> Dataset:
         return data.cache()
+
+    def output_signature(self, sig):
+        return sig
 
 
 @dataclass(frozen=True)
@@ -72,6 +81,24 @@ class ClassLabelIndicatorsFromIntLabels(Transformer):
         # ±1 encoding is non-zero-preserving: re-zero padding rows.
         return out._rezero_padding()
 
+    def output_signature(self, sig):
+        """Verifier declaration: int labels (lead,) -> ±1 indicators
+        (lead, num_classes) float32."""
+        from keystone_tpu_torch.workflow.verify import ArraySig, SignatureError
+
+        if not isinstance(sig, ArraySig):
+            return None
+        if len(sig.shape) > (0 if sig.datum else 1):
+            raise SignatureError(
+                f"{self.label} expects scalar int labels per example, got "
+                f"{sig.describe()}"
+            )
+        shape = (self.num_classes,) if sig.datum else (
+            sig.shape[0], self.num_classes
+        )
+        return ArraySig(shape, "float32", n=sig.n, mesh=sig.mesh,
+                        datum=sig.datum)
+
 
 @dataclass(frozen=True)
 class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
@@ -96,6 +123,14 @@ class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
 
     def batch_apply(self, data: Dataset) -> Dataset:
         return Dataset.of([self.apply(x) for x in data.to_list()])
+
+    def output_signature(self, sig):
+        from keystone_tpu_torch.workflow.verify import ArraySig
+
+        datum = getattr(sig, "datum", False)
+        n = getattr(sig, "n", None)
+        shape = (self.num_classes,) if datum else (n, self.num_classes)
+        return ArraySig(shape, "float32", n=n, datum=datum)
 
 
 @dataclass(frozen=True)
@@ -125,6 +160,20 @@ class TopKClassifier(Transformer):
 
     def batch_apply(self, data: Dataset) -> Dataset:
         return Dataset(self.apply(data.array), n=data.n)
+
+    def output_signature(self, sig):
+        from keystone_tpu_torch.workflow.verify import ArraySig, SignatureError
+
+        if not isinstance(sig, ArraySig):
+            return None
+        if not sig.shape:
+            raise SignatureError(
+                f"{self.label} needs a score vector, got {sig.describe()}"
+            )
+        d = sig.shape[-1]
+        k = min(self.k, d) if d is not None else self.k
+        return ArraySig(sig.shape[:-1] + (k,), "int64", n=sig.n,
+                        mesh=sig.mesh, datum=sig.datum)
 
 
 @dataclass(frozen=True)
@@ -177,6 +226,10 @@ class FloatToDouble(Transformer):
 
     strict: bool = False
 
+    # The whole point of this node is a dtype change — tell the plan
+    # verifier's drift check it is declared, not silent.
+    declares_dtype_change = True
+
     def _dtype(self):
         return torch.float64 if self.strict else torch.float32
 
@@ -188,6 +241,30 @@ class FloatToDouble(Transformer):
 
     def device_fn(self):
         return self._batch_fn
+
+
+@dataclass(frozen=True)
+class Shuffler(Transformer):
+    """Random row permutation (the repartition/shuffle analog;
+    reference: nodes/util/Shuffler.scala:14-22). The permutation is numpy's
+    ``default_rng(seed)`` draw for both dataset forms: the reference's
+    host-list draw, not its ``jax.random`` one for arrays."""
+
+    seed: int = 0
+
+    def apply(self, x):
+        return x
+
+    def output_signature(self, sig):
+        return sig  # a permutation is a signature passthrough
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        perm = np.random.default_rng(self.seed).permutation(data.n)
+        if data.is_host:
+            items = data.to_list()
+            return Dataset.of([items[i] for i in perm])
+        arr = as_tensor(data.array)
+        return Dataset(arr[: data.n][torch.from_numpy(perm).to(arr.device)], n=data.n)
 
 
 class VectorSplitter(FunctionNode):

@@ -25,6 +25,7 @@ from .optimizable import (
     OptimizableTransformer,
 )
 from .optimizer import (
+    AutoCachingOptimizer,
     Batch,
     DefaultOptimizer,
     FixedPoint,
@@ -37,6 +38,7 @@ from .pipeline import (
     Chainable,
     Estimator,
     FittedPipeline,
+    Identity,
     LabelEstimator,
     LambdaTransformer,
     Pipeline,
@@ -46,4 +48,19 @@ from .pipeline import (
     Transformer,
     TransformerGraph,
     transformer,
+)
+from .verify import (
+    UNKNOWN,
+    ArraySig,
+    Finding,
+    HostSig,
+    PlanVerificationError,
+    SignatureError,
+    TransformerSig,
+    TupleSig,
+    VerifyReport,
+    expect_host,
+    verify_apply_graph,
+    verify_fit_graph,
+    verify_graph,
 )

@@ -7,8 +7,7 @@ dependencies, recursively) to an already-computed Expression, so fitted
 estimators and cached datasets are reused across pipeline applications; plus
 the currently installed whole-pipeline optimizer.
 
-Port of ``keystone_tpu/workflow/env.py``. ``reset`` has no autocache
-profile table to clear: the port has no AutoCacheRule yet.
+Port of ``keystone_tpu/workflow/env.py``.
 """
 
 from __future__ import annotations
@@ -99,6 +98,14 @@ class PipelineEnv:
         self._optimizer = optimizer
 
     def reset(self) -> None:
-        """Clear prefix state and optimizer (test fixture hook, PipelineContext.scala:9-42)."""
+        """Clear prefix state and optimizer (test fixture hook, PipelineContext.scala:9-42).
+
+        Also clears the autocache observed-profile table: its keys hash
+        DatasetOperators by dataset id(), and letting entries outlive the
+        env generation would widen the window for a recycled id to alias a
+        stale profile onto different data."""
         self.state.clear()
         self._optimizer = None
+        from . import autocache
+
+        autocache.clear_observed_profiles()

@@ -39,8 +39,10 @@ A gather of MnistRandomFFT's [RandomSignNode → PaddedFFT → LinearRectifier]
 branches lowers, as in the reference, to the packed-pair FFT function
 (``ops/stats.py::packed_fft_gather_fn``); ``uses_packed_fft`` says so.
 
-Not ported yet: ``cache_would_split_fusion`` / ``fusion_splitting_nodes``
-(the autocache optimizer).
+Cache placement asks this module where a region boundary lies:
+:func:`cache_would_split_fusion` and :func:`fusion_splitting_nodes` are
+the predicates ``workflow/autocache.py`` and the plan verifier's
+cache-cut check share, so the two can never disagree about what fuses.
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ __all__ = [
     "fusable",
     "fused_members",
     "masked_center",
+    "cache_would_split_fusion",
+    "fusion_splitting_nodes",
 ]
 
 
@@ -82,14 +86,93 @@ def fusable(op) -> bool:
 
 def fused_members(op) -> list:
     """Fused-stage membership query: the original operators a fused wrapper
-    absorbed, or ``[op]`` for an unfused node."""
+    absorbed, or ``[op]`` for an unfused node. Lets graph-level passes
+    (cache placement) reason about what a post-fusion node *contains*
+    without knowing each fused wrapper class."""
     if isinstance(op, FusedBatchTransformer):
         return list(op.members)
     if isinstance(op, FusedGatherTransformer):
         return [m for br in op.branches for m in br] + [op.combiner]
     if isinstance(op, FusedFitEstimator):
         return list(op.members) + [op.est]
+    # StreamedFitEstimator shares the duck shape: a ``members`` list plus
+    # the operator the members feed.
+    members = getattr(op, "members", None)
+    if isinstance(members, list) and members:
+        tail = getattr(op, "est", None) or getattr(op, "choice", None)
+        return list(members) + ([tail] if tail is not None else [])
     return [op]
+
+
+def _device_fit_capable(op) -> bool:
+    """True when an estimator operator would be absorbed by
+    EstimatorFusionRule / StreamedFitFusionRule (a fusable fit)."""
+    if getattr(op, "streamed_fit_fusable", False):
+        return True
+    if getattr(op, "device_fit_fn", None) is None:
+        return False
+    try:
+        return op.device_fit_fn() is not None
+    except Exception:
+        return False
+
+
+def cache_would_split_fusion(plan, node, prefixes, consumers=None) -> bool:
+    """Boundary query for cache placement: True when splicing a ``Cacher``
+    after ``node`` would sever an edge the fusion rules would otherwise
+    compose into one function (a chain link, an estimator's featurize
+    input, or a gather branch feeding a device combiner).
+
+    A node for which this returns False sits on a fused-stage *boundary*:
+    a Cacher there materializes a result the fused plan had to materialize
+    anyway (host stages, multi-consumer intermediates, inputs of
+    non-fusable fits), so insertion never splits a fusable region.
+    """
+    if consumers is None:
+        consumers = _consumers(plan)
+    op = plan.get_operator(node)
+    if not fusable(op) or node in prefixes:
+        return False
+    outs = consumers.get(node, [])
+    if len(outs) != 1 or not isinstance(outs[0], NodeId):
+        # Multi-consumer nodes and sink feeds are materialization points
+        # in the fused plan already.
+        return False
+    consumer = outs[0]
+    if consumer in prefixes:
+        return False
+    cop = plan.get_operator(consumer)
+    cdeps = plan.get_dependencies(consumer)
+    single_dep = len(plan.get_dependencies(node)) == 1
+    # StageFusionRule chain edge: node -> consumer fuse into one function.
+    if single_dep and fusable(cop) and len(cdeps) == 1:
+        return True
+    # Estimator / streamed-fit fusion: the fit absorbs its DATA input.
+    if len(cdeps) == 2 and cdeps[0] == node and _device_fit_capable(cop):
+        return True
+    # Gather branch: node feeds a gather whose output a device combiner
+    # consumes (GatherFusionRule would inline the branch).
+    if single_dep and isinstance(cop, GatherTransformerOperator):
+        gouts = consumers.get(consumer, [])
+        if len(gouts) == 1 and isinstance(gouts[0], NodeId):
+            comb = plan.get_operator(gouts[0])
+            if (
+                getattr(comb, "device_combine_fn", None) is not None
+                and comb.device_combine_fn() is not None
+            ):
+                return True
+    return False
+
+
+def fusion_splitting_nodes(plan, prefixes) -> set:
+    """All nodes where a spliced Cacher would break a fusable region —
+    the exclusion set AutoCacheRule applies before selecting candidates."""
+    consumers = _consumers(plan)
+    return {
+        n
+        for n in plan.nodes
+        if cache_would_split_fusion(plan, n, prefixes, consumers)
+    }
 
 
 def _compose(fns, X):

@@ -6,11 +6,13 @@ sequence of named batches of rules; each batch runs serially with a
 strategy (Once or FixedPoint) until convergence or iteration cap; rule
 applications that change the plan are trace-logged as DOT diffs.
 
-``DefaultOptimizer`` carries the saved-state, CSE and node-optimization
-batches, then the Stage Fusion and Tree & Fit Fusion batches of
-``workflow/fusion.py``, in the reference's order. The Tree & Fit batch has
-the gather, estimator and streamed-fit fusion rules. The reference's static
-plan verifier pre-pass and autocache optimizer are not ported yet.
+Every optimizer run starts with the static plan verifier
+(``workflow/verify.py``). ``DefaultOptimizer`` carries the saved-state, CSE
+and node-optimization batches, then the Stage Fusion and Tree & Fit Fusion
+batches of ``workflow/fusion.py``, in the reference's order. The Tree & Fit
+batch has the gather, estimator and streamed-fit fusion rules.
+``AutoCachingOptimizer`` adds cache placement (``workflow/autocache.py``)
+after the fusion batches.
 """
 
 from __future__ import annotations
@@ -106,48 +108,119 @@ class RuleExecutor:
 
 
 class Optimizer(RuleExecutor):
-    """Base class for whole-pipeline optimizers (DefaultOptimizer.scala)."""
+    """Base class for whole-pipeline optimizers (DefaultOptimizer.scala).
+
+    Every optimizer run starts with the static plan verifier
+    (workflow/verify.py): an invalid candidate plan — shape mismatch,
+    estimator state consumed as data — is rejected with a structured
+    :class:`~keystone_tpu_torch.workflow.verify.PlanVerificationError`
+    BEFORE any rule, cost model, or kernel touches it.
+    ``KEYSTONE_VERIFY=off`` disables the pre-pass.
+    """
+
+    def execute(self, plan: Graph, prefixes: Dict[NodeId, Prefix]) -> Plan:
+        from .verify import verify_fit_graph
+
+        verify_fit_graph(plan, context="optimizer input plan")
+        return super().execute(plan, prefixes)
+
+
+def _load_batch() -> Batch:
+    from .rules import ExtractSaveablePrefixes, SavedStateLoadRule, UnusedBranchRemovalRule
+
+    return Batch(
+        "Load Saved State",
+        Once(),
+        [ExtractSaveablePrefixes(), SavedStateLoadRule(), UnusedBranchRemovalRule()],
+    )
+
+
+def _front_batches() -> List[Batch]:
+    """Saved-state load, CSE to fixpoint, node-level optimization."""
+    from .rules import EquivalentNodeMergeRule, NodeOptimizationRule
+
+    return [
+        _load_batch(),
+        Batch("Common Sub-expression Elimination", FixedPoint(), [EquivalentNodeMergeRule()]),
+        Batch("Node Level Optimization", Once(), [NodeOptimizationRule()]),
+    ]
+
+
+def _fusion_batches() -> List[Batch]:
+    """Fuse chains of row-local device transformers, then gather trees and
+    trailing estimator fits (workflow/fusion.py)."""
+    from .fusion import (
+        EstimatorFusionRule,
+        GatherFusionRule,
+        StageFusionRule,
+        StreamedFitFusionRule,
+    )
+
+    return [
+        Batch("Stage Fusion", Once(), [StageFusionRule()]),
+        Batch(
+            "Tree & Fit Fusion",
+            Once(),
+            [GatherFusionRule(), EstimatorFusionRule(), StreamedFitFusionRule()],
+        ),
+    ]
 
 
 class DefaultOptimizer(Optimizer):
     """Standard batches: saved-state load, CSE to fixpoint, node-level
     optimization (reference: workflow/DefaultOptimizer.scala:8-14), then
-    stage fusion and gather/fit fusion."""
+    stage fusion and gather/fit fusion — last, so CSE and prefix
+    extraction see the original node granularity."""
 
     def __init__(self) -> None:
-        from .fusion import (
-            EstimatorFusionRule,
-            GatherFusionRule,
-            StageFusionRule,
-            StreamedFitFusionRule,
-        )
-        from .rules import (
-            EquivalentNodeMergeRule,
-            ExtractSaveablePrefixes,
-            NodeOptimizationRule,
-            SavedStateLoadRule,
-            UnusedBranchRemovalRule,
-        )
+        self.batches = _front_batches() + _fusion_batches()
 
-        self.batches = [
-            Batch(
-                "Load Saved State",
-                Once(),
-                [ExtractSaveablePrefixes(), SavedStateLoadRule(), UnusedBranchRemovalRule()],
-            ),
-            Batch(
-                "Common Sub-expression Elimination",
-                FixedPoint(),
-                [EquivalentNodeMergeRule()],
-            ),
-            Batch("Node Level Optimization", Once(), [NodeOptimizationRule()]),
-            # Fuse chains of row-local device transformers, then gather trees
-            # and trailing estimator fits (workflow/fusion.py). Last, so CSE
-            # and prefix extraction see the original node granularity.
-            Batch("Stage Fusion", Once(), [StageFusionRule()]),
-            Batch(
-                "Tree & Fit Fusion",
-                Once(),
-                [GatherFusionRule(), EstimatorFusionRule(), StreamedFitFusionRule()],
-            ),
-        ]
+
+class AutoCachingOptimizer(Optimizer):
+    """DefaultOptimizer plus cache placement (reference:
+    DefaultOptimizer.scala:19-26).
+
+    Cache placement runs on the POST-fusion plan — the plan that will
+    actually run (the reference's defining property): the fusion batches
+    collapse device-pure regions first; AutoCacheRule then profiles the
+    surviving nodes — host stages, multi-consumer intermediates, fused
+    outputs — and every insertion lands on a fused-stage boundary by
+    construction. The batch closes with a prefix re-extraction and a
+    saved-state load, so the Cachers it just placed take part in cross-fit
+    reuse through the PipelineEnv state table (a λ-sweep's later fits load
+    the cached boundary result instead of recomputing the stage).
+
+    ``cache_before_fusion=True`` keeps the pre-fusion order (cache first,
+    fuse around the materialization points), for A/B measurement.
+    """
+
+    def __init__(self, strategy=None, cache_before_fusion: bool = False) -> None:
+        from .autocache import AutoCacheRule, GreedyCache
+        from .rules import ExtractSaveablePrefixes, SavedStateLoadRule, UnusedBranchRemovalRule
+
+        cache_rule = AutoCacheRule(strategy or GreedyCache())
+        if cache_before_fusion:
+            # Cached / prefix nodes are excluded from chains, so fusion
+            # never hides a materialization point.
+            self.batches = (
+                _front_batches()
+                + [Batch("Auto Cache", Once(), [cache_rule])]
+                + _fusion_batches()
+            )
+        else:
+            self.batches = _front_batches() + _fusion_batches() + [
+                Batch(
+                    "Auto Cache (post-fusion)",
+                    Once(),
+                    [
+                        cache_rule,
+                        # The Cachers just placed are saveable materialization
+                        # points: mark them (merge — earlier marks win), load
+                        # any boundary result a previous fit already
+                        # published, and drop branches the loads made dead.
+                        ExtractSaveablePrefixes(),
+                        SavedStateLoadRule(),
+                        UnusedBranchRemovalRule(),
+                    ],
+                ),
+            ]

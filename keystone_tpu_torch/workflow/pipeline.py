@@ -8,20 +8,30 @@ PipelineResult.scala:14-21): composition is pure graph surgery; applying a
 pipeline returns lazy handles; estimator insertion adds the estimator node
 plus a delegating node that applies the *fitted* transformer to the
 pipeline's source; ``fit()`` executes all estimators and yields a
-serializable transformer-only pipeline.
+serializable transformer-only pipeline. ``fit()`` runs the static plan
+verifier first (``workflow/verify.py``).
 
-Not in this slice: the static plan verifier pre-pass of ``fit()``, the
-per-shape compiled single-datum program cache of ``FittedPipeline`` (here
-a datum walks the graph node by node), and the cost-decision stamping of
-estimator fits.
+``FittedPipeline.apply(datum)`` composes the graph into one batched
+function (:func:`compose_apply_fn`) and keeps one program per input
+(shape, dtype), at most 16. On the card a program is a CUDA graph,
+captured once from the composed function at batch 1 and replayed after
+that (the counterpart of the reference's ``jax.jit``); on the CPU the
+composed function runs directly. A graph that does not compose (host or
+multi-input nodes) walks the graph node by node, as in the reference.
+Not in this slice: the cost-decision stamping of estimator fits (the
+``obs`` plane, ROADMAP A.17).
 """
 
 from __future__ import annotations
 
 import pickle
+import threading
 from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, TypeVar, Union
 
+import torch
+
 from keystone_tpu_torch.data import Dataset
+from keystone_tpu_torch.data.dataset import as_tensor
 
 from .executor import GraphExecutor
 from .graph import Graph, GraphId, NodeId, SinkId, SourceId
@@ -177,10 +187,18 @@ class Pipeline(Chainable[A, B]):
 
     def fit(self) -> "FittedPipeline[A, B]":
         """Fit all estimators, returning a transformer-only serializable pipeline
-        (Pipeline.scala:38-65)."""
+        (Pipeline.scala:38-65).
+
+        Runs the static plan verifier first (workflow/verify.py): a
+        malformed plan — the compile-time error KeystoneML's typed Scala
+        API would have raised — fails HERE with node-level coordinates,
+        not deep inside an estimator fit. ``KEYSTONE_VERIFY=off``
+        disables the pre-pass."""
         from .env import PipelineEnv
         from .rules import UnusedBranchRemovalRule
+        from .verify import verify_fit_graph
 
+        verify_fit_graph(self.executor.graph, context="Pipeline.fit plan")
         optimized, prefixes = PipelineEnv.get_or_create().optimizer.execute(
             self.executor.graph, {}
         )
@@ -232,6 +250,166 @@ class Pipeline(Chainable[A, B]):
 # ---------------------------------------------------------------------------
 
 
+def compose_apply_fn(
+    graph: Graph, source: SourceId, sink: SinkId
+) -> Optional[Callable]:
+    """Compose a transformer graph into ONE pure batched tensor function
+    ``X -> Y``, or None when the graph is not expressible as one.
+
+    Requirements: every node on the sink's ancestry declares a
+    ``device_fn`` and takes exactly one input, and ``source`` is the only
+    unbound source. After the fusion rules have run, linear pipelines —
+    including gather trees, which GatherFusionRule collapses to a single
+    node — satisfy this; anything host-side or multi-input does not and
+    the caller keeps the per-node execution path. A node's failure inside
+    the composed function carries its coordinates
+    (``verify.annotate_node_error``).
+    """
+    from . import analysis
+    from .verify import annotate_node_error
+
+    steps = []
+    for gid in analysis.linearize(graph, sink):
+        if gid == source or isinstance(gid, SinkId):
+            continue
+        if isinstance(gid, SourceId):
+            return None  # a second unbound source — not a pure X -> Y map
+        op = graph.get_operator(gid)
+        fn_getter = getattr(op, "device_fn", None)
+        fn = fn_getter() if callable(fn_getter) else None
+        deps = graph.get_dependencies(gid)
+        if fn is None or len(deps) != 1:
+            return None
+        steps.append((gid, op, fn, deps[0]))
+    final = graph.get_sink_dependency(sink)
+
+    def composed(X):
+        values = {source: X}
+        for gid, op, fn, dep in steps:
+            try:
+                values[gid] = fn(values[dep])
+            except Exception as e:
+                annotate_node_error(e, gid, op, [values[dep]])
+                raise
+        return values[final]
+
+    return composed
+
+
+def _batch_of_one(x) -> torch.Tensor:
+    """A datum as a batch of one row: a tensor where it lies (host arrays
+    on the CPU, float64 narrowed to float32 as every node does)."""
+    return as_tensor(x)[None]
+
+
+class _DatumProgram:
+    """The single-datum program of one input (shape, dtype): the composed
+    batched function at batch 1.
+
+    The first call runs the function eagerly on a side stream (where the
+    card is present) and returns its row. If the result lies on the card,
+    it then captures the function into a CUDA graph from a static input on
+    that device, and every later call copies the datum into the static
+    input, replays the graph and returns a clone of the static output. The
+    capture launches nothing, so the launches it counted in
+    ``cuda_ops.launches`` are taken back, and each replay adds them again:
+    the counters keep counting kernel launches. Copy-in, replay and
+    copy-out hold the pipeline's lock (the static buffers are shared). A
+    capture that fails raises (its message names the failing node); there
+    is no fallback. If the result lies on the CPU, later calls run the
+    function directly, without the lock.
+    """
+
+    def __init__(self, batched: Callable):
+        self._batched = batched
+        self.mode: Optional[str] = None  # None until the first call; "direct" | "graph"
+        self.captures = 0
+        self.replays = 0
+        self.launches_per_replay: Dict[str, int] = {}
+        self._graph = self._static_in = self._static_out = self._done = None
+
+    def __call__(self, x, lock) -> Any:
+        if self.mode != "direct":
+            with lock:
+                if self.mode is None:
+                    return self._first_call(x)
+                if self.mode == "graph":
+                    return self._replay(x)
+        return self._batched(_batch_of_one(x))[0]
+
+    def _first_call(self, x) -> Any:
+        X1 = _batch_of_one(x)
+        if not torch.cuda.is_available():
+            self.mode = "direct"
+            return self._batched(X1)[0]
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            Y = self._batched(X1)
+        current.wait_stream(side)
+        if not (isinstance(Y, torch.Tensor) and Y.is_cuda):
+            self.mode = "direct"
+            return Y[0]
+        Y.record_stream(current)
+        self._capture(X1, Y.device)
+        return Y[0]
+
+    def _capture(self, X1: torch.Tensor, device: torch.device) -> None:
+        from keystone_tpu_torch.ops import cuda_ops
+
+        self._static_in = torch.empty(X1.shape, dtype=X1.dtype, device=device)
+        self._static_in.copy_(X1)
+        before = dict(cuda_ops.launches)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.current_stream(device)
+        rng = torch.cuda.default_generators[device.index or 0]
+        rng_state = rng.clone_state()
+        failed = []  # the node's own error: ending a broken capture raises another
+        try:
+            with torch.cuda.graph(graph):
+                try:
+                    self._static_out = self._batched(self._static_in)
+                except Exception as e:
+                    failed.append(e)
+                    raise
+        except Exception as e:
+            # A capture that fails to end leaves the card's random generator
+            # marked as capturing and the capture's stream current: put both
+            # back, or every later random draw on the card raises.
+            rng.graphsafe_set_state(rng_state)
+            torch.cuda.set_stream(stream)
+            cause = failed[0] if failed else e
+            raise RuntimeError(
+                f"datum program: CUDA graph capture failed for input {tuple(X1.shape[1:])} "
+                f"{X1.dtype}: {cause}"
+            ) from cause
+        finally:
+            counted = {name: cuda_ops.launches[name] - before.get(name, 0)
+                       for name in cuda_ops.launches}
+            for name, n in counted.items():
+                cuda_ops.launches[name] -= n  # the capture ran nothing
+        self.launches_per_replay = {name: n for name, n in counted.items() if n}
+        self._graph = graph
+        self._done = torch.cuda.Event()
+        self.captures += 1
+        self.mode = "graph"
+
+    def _replay(self, x) -> Any:
+        from keystone_tpu_torch.ops import cuda_ops
+
+        stream = torch.cuda.current_stream(self._static_in.device)
+        stream.wait_event(self._done)  # the previous replay's copy-out
+        self._static_in.copy_(_batch_of_one(x), non_blocking=True)
+        self._graph.replay()
+        out = self._static_out[0].clone()
+        self._done.record(stream)
+        for name, n in self.launches_per_replay.items():
+            cuda_ops.launches[name] += n
+        self.replays += 1
+        return out
+
+
 class TransformerGraph(Graph):
     """A Graph whose every operator is a TransformerOperator — the
     serializable transformer-only restriction backing FittedPipeline
@@ -257,17 +435,76 @@ class FittedPipeline(Generic[A, B]):
     Java-serializable FittedPipeline (FittedPipeline.scala:12-48).
     """
 
+    # Per-process cap on cached per-shape datum programs: a client
+    # sweeping many input shapes must not retain one program per shape.
+    _DATUM_PROGRAM_CACHE_MAX = 16
+
     def __init__(self, graph: Graph, source: SourceId, sink: SinkId):
         self.transformer_graph = graph
         self.source = source
         self.sink = sink
+        self._init_datum_cache()
+
+    def _init_datum_cache(self) -> None:
+        # (shape, dtype) -> _DatumProgram; _batched_fn is the graph's
+        # composed batch function (False = "checked, not composable" so the
+        # composition is only ever tried once). The lock makes concurrent
+        # apply(datum) callers safe: cache insertion and eviction, and a
+        # CUDA graph's shared static buffers.
+        self._datum_programs: Dict[tuple, _DatumProgram] = {}
+        self._batched_fn: Any = None
+        self._datum_lock = threading.Lock()
+
+    # CUDA graphs, locks and composed closures are not picklable;
+    # FittedPipeline.save() pickles the whole object, so the caches rebuild
+    # lazily after load (the fused transformers' __getstate__ contract).
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_datum_programs", None)
+        state.pop("_batched_fn", None)
+        state.pop("_datum_lock", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._init_datum_cache()
+
+    def _datum_program(self, x) -> Optional[_DatumProgram]:
+        """The program for the datum's (shape, dtype), made on first use,
+        or None (the caller keeps the per-node walk) for pipelines that do
+        not compose to a pure tensor function. Evicts the oldest program
+        past the cap."""
+        if not hasattr(x, "shape") or not hasattr(x, "dtype"):
+            return None
+        with self._datum_lock:
+            if self._batched_fn is None:
+                self._batched_fn = (
+                    compose_apply_fn(self.transformer_graph, self.source, self.sink)
+                    or False
+                )
+            if self._batched_fn is False:
+                return None
+            key = (tuple(x.shape), str(x.dtype))
+            program = self._datum_programs.get(key)
+            if program is None:
+                program = _DatumProgram(self._batched_fn)
+                if len(self._datum_programs) >= self._DATUM_PROGRAM_CACHE_MAX:
+                    self._datum_programs.pop(next(iter(self._datum_programs)))
+                self._datum_programs[key] = program
+            return program
 
     def apply(self, data: Any) -> Any:
         from . import analysis
+        from .verify import annotate_node_error
 
         is_dataset = isinstance(data, (Dataset, PipelineDataset))
         if isinstance(data, (PipelineDataset, PipelineDatum)):
             data = data.get()
+
+        if not is_dataset and not isinstance(data, Dataset):
+            program = self._datum_program(data)
+            if program is not None:
+                return program(data, self._datum_lock)
 
         values: Dict[GraphId, Any] = {self.source: data}
         for gid in analysis.linearize(self.transformer_graph, self.sink):
@@ -278,10 +515,18 @@ class FittedPipeline(Generic[A, B]):
             elif isinstance(gid, NodeId):
                 op = self.transformer_graph.get_operator(gid)
                 inputs = [values[d] for d in self.transformer_graph.get_dependencies(gid)]
-                if is_dataset:
-                    values[gid] = op.batch_transform(inputs)
-                else:
-                    values[gid] = op.single_transform(inputs)
+                try:
+                    if is_dataset:
+                        values[gid] = op.batch_transform(inputs)
+                    else:
+                        values[gid] = op.single_transform(inputs)
+                except Exception as e:
+                    # Runtime failures cite the same coordinates as
+                    # static-verifier reports (NodeId + operator + input
+                    # signatures), appended in place so the exception
+                    # type survives.
+                    annotate_node_error(e, gid, op, inputs)
+                    raise
             else:
                 raise ValueError(f"Unbound source {gid} in FittedPipeline")
         return values[self.sink]
@@ -380,6 +625,22 @@ class LambdaTransformer(Transformer):
 def transformer(f: Callable[[A], B]) -> Transformer[A, B]:
     """Decorator/factory: lift a plain function to a Transformer."""
     return LambdaTransformer(f)
+
+
+class Identity(Transformer[A, A]):
+    """Passes input through unchanged (workflow/Identity.scala:12)."""
+
+    def apply(self, x: A) -> A:
+        return x
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        return data
+
+    def __eq__(self, other: object) -> bool:
+        return type(other) is Identity
+
+    def __hash__(self) -> int:
+        return hash(Identity)
 
 
 # ---------------------------------------------------------------------------
