@@ -254,6 +254,35 @@ per source, all started together), then:
          apply's row, one capture for the one shape, ``cosine_features``
          counted 4 a datum, replays included; median and p99 microseconds
          a datum on each path.
+ 19. drives the online serving path on the card:
+       - (a) phase 2's fitted TIMIT pipeline (fit first, its scores) exported
+         at ``max_batch`` 256: every one of the 8 padding buckets captured
+         into a CUDA graph at export, ``trace_count`` unchanged by serving;
+         40 staggered requests through ``MicroBatchServer``: the served rows
+         bit for bit against the plan's batch apply of the 40 rows, and
+         within 1e-6 relative of the fitted pipeline's own apply (its block
+         mapper sums block by block); where the bits of 2 rows part from
+         those of 40 and of 256, stage by stage (ROADMAP C.8);
+         ``cosine_features`` counted 4 a replay times the batches served;
+         each bucket program against the same composed function with
+         ``cosine_features`` swapped for its plain version (1e-5
+         relative); ``single_request_s``; export seconds;
+       - (b) ``python -m keystone_tpu_torch.run serve`` at the
+         MnistRandomFFT defaults (784 inputs, 4 FFTs, block 2,048, 4,096
+         fit rows), rate 200, with one replica and then two, run in this
+         process: the books of its summary line balance (offered = completed
+         + rejected + failed, none failed), the plan composed, and the
+         quick fit launched ``block_gram_sym``, ``block_corr`` and
+         ``block_residual_update`` once each;
+       - (c) a hot swap under Poisson load: two TIMIT plans (seeds 0 and
+         1), two replicas sharing one plan, ``swap_plan`` midway: every
+         response carries one of the two fingerprints, each within 1e-6
+         relative of its plan's batch apply of the 256 request rows (the
+         bit-identical ones counted), no request dropped; the swap's
+         seconds;
+       - (d) open-loop latency at 200 Hz, 2,000 Hz and 0.8 x the
+         batch-size-1 closed-loop rate, each beside the same scores plan
+         exported at ``max_batch`` 1: p50, p99 and throughput.
 
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -2910,14 +2939,15 @@ def phase_stupid_backoff():
 
 
 def _conv_chunk_rows(fusion, row_bytes=CONV_ROW_BYTES):
-    """Images per row chunk of the fused CIFAR featurizer (after its first,
-    one-image chunk): the chunk budget over the bytes per image
+    """Images per row chunk of the fused CIFAR featurizer (after its
+    one-image probe): the chunk budget over the bytes per image
     (``AUG_ROW_BYTES`` for the augmented runner's 24 x 24 crops)."""
     return fusion.CHUNK_BUDGET_BYTES // row_bytes
 
 
 def _conv_launches(fusion, n, row_bytes=CONV_ROW_BYTES):
-    return 1 + -(-(n - 1) // _conv_chunk_rows(fusion, row_bytes))
+    """The probe, then every image in chunks."""
+    return 1 + -(-n // _conv_chunk_rows(fusion, row_bytes))
 
 
 def gaussian_shape(cuda_ops, label, X, Y, xn, yn, diagonal):
@@ -4329,6 +4359,318 @@ def phase_datum(cuda_ops, timit, n=N_TRAIN, cosines=NUM_COSINES, block=BLOCK,
                 walk=dict(walk_t, datums=walk_n, max_rel=walk_rel, launches=walk_launches))
 
 
+SERVE_MAX_BATCH, SERVE_REQUESTS, SERVE_POOL = 256, 40, 256
+SERVE_TOL, SERVE_PLAIN_TOL = 1e-6, 1e-5
+SERVE_CLI_S, SERVE_SWAP_RATE, SERVE_SWAP_S = 2.0, 400.0, 2.0
+SERVE_RATES, SERVE_LATENCY_S = (200.0, 2000.0), 1.5
+SERVING = "serving: exported bucketed plans, micro-batcher, replicated plane"
+
+
+def _row_rel(a, b):
+    """Largest row-wise relative distance of two numpy score matrices."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)).max())
+
+
+def serve_pool():
+    """SERVE_POOL host rows of TIMIT's 440 inputs, the requests."""
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+
+    return synthetic_timit(SERVE_POOL, seed=100, device="cpu").data.array.numpy()
+
+
+def serve_scores(timit, seed, pool, device):
+    """A fitted TIMIT scores pipeline (phase 2's width, fit first, the
+    rows and features of ``seed``) and its offline batch apply of ``pool``."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    PipelineEnv.get_or_create().reset()
+    config = timit.TimitConfig(solver="block", num_cosines=NUM_COSINES, block_size=BLOCK,
+                               synthetic_n=N_TRAIN, num_epochs=EPOCHS, seed=seed)
+    scores = _strip_sink_node(timit.run(config, device=device, fit_first=True).fitted)
+    PipelineEnv.get_or_create().reset()
+    offline = scores.apply(Dataset(torch.from_numpy(pool).to(device))).array.cpu().numpy()
+    return scores, offline
+
+
+def _bits_by_stage(plan, pool, device, batch, offline_plan=None, served=None, rows=2):
+    """Where a served row's bits part from a batch apply's: each stage of
+    the plan's one fused node run on ``batch`` rows and on their first
+    ``rows`` (each fed the batch run's previous output), the composed
+    function eager at ``rows`` against its first rows at ``batch``, and a
+    bucket's replay against the eager function at the bucket; given them,
+    the eager function at ``batch`` against the plan's batch apply and the
+    served rows against the eager function at ``batch``; and the composed
+    function on the first row alone against that row at ``batch``. Bit
+    for bit, with the largest difference and the first rows that differ."""
+    from keystone_tpu_torch.workflow.fusion import fused_members
+
+    def cmp(a, b):
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        rows_off = torch.nonzero((a != b).reshape(a.shape[0], -1).any(1)).flatten()
+        return dict(bits=bool(torch.equal(a, b)), max_abs_diff=float((a - b).abs().max()),
+                    rows_differing=rows_off.tolist()[:8])
+
+    (node,) = plan.graph.nodes
+    op = plan.graph.get_operator(node)
+    X = torch.from_numpy(pool[:batch]).to(device)
+    stages, Y = [], X
+    for member in fused_members(op) or [op]:
+        fn = member.device_fn()
+        Z = fn(Y)
+        stages.append(dict(stage=type(member).__name__, **cmp(Z[:rows], fn(Y[:rows].clone()))))
+        Y = Z
+    eager = plan._composed(X)
+    few = plan._composed(X[:rows].clone())
+    # A one-row call (the chunked batch apply's probe, ROADMAP C.8) against
+    # the same row computed with the batch.
+    one = plan._composed(X[:1].clone())
+    out = dict(batch=batch, stages=stages, eager_rows_vs_batch=cmp(few, eager[:rows]),
+               eager_one_row_vs_batch=cmp(one, eager[:1]),
+               replay_vs_eager=cmp(plan.apply_padded(pool[:rows]), few))
+    if offline_plan is not None:
+        out["eager_batch_vs_batch_apply"] = cmp(eager, offline_plan)
+    if served is not None:
+        out["served_vs_eager_batch"] = cmp(served, eager)
+    return out
+
+
+def phase_serve_plan(cuda_ops, timit, device="cuda"):
+    """19(a): the TIMIT scores plan, its buckets, launches and bits."""
+    from keystone_tpu_torch.serving import MicroBatchServer, export_plan
+
+    cuda = torch.device(device).type == "cuda"
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.workflow import FittedPipeline
+
+    pool = serve_pool()
+    scores, offline = serve_scores(timit, 0, pool, device)
+    t0 = time.perf_counter()
+    plan = export_plan(scores, np.zeros(D_IN, np.float32), max_batch=SERVE_MAX_BATCH)
+    export_s = time.perf_counter() - t0
+    # Offline apply of the exported plan's (fused) graph: the same function
+    # as a bucket program, at the whole batch of rows. The fitted
+    # pipeline's own apply sums the block mapper's products block by block,
+    # the fused plan in one product, so it is held within a tolerance.
+    offline_plan = FittedPipeline(plan.graph, plan.source, plan.sink).apply(
+        Dataset(torch.from_numpy(pool[:SERVE_REQUESTS]).to(device))).array.cpu().numpy()
+    built = plan.trace_count
+    per = plan.launches_per_replay
+    check("19(a) every bucket built once at export" + (", captured" if cuda else ""),
+          plan.compiled and built == len(plan.buckets)
+          and sorted(per) == (plan.buckets if cuda else []),
+          f"buckets {plan.buckets}, built {built}, captured {len(per)}, "
+          f"export {export_s:.3f} s, pinned {plan.pinned_bytes} bytes")
+    want_per = {"cosine_features": NUM_COSINES}
+    check("19(a) each replay launches cosine_features once a branch",
+          all(v == want_per for v in per.values()), f"{per}")
+    replays0 = plan.replays
+    cuda_ops.reset_launch_counts()
+    server = MicroBatchServer(plan, max_batch=SERVE_MAX_BATCH, max_wait_ms=2.0)
+    rng = np.random.default_rng(19)
+    try:
+        futures = []
+        for i in range(SERVE_REQUESTS):
+            futures.append(server.submit(pool[i]))
+            time.sleep(float(rng.uniform(0.0, 0.004)))
+        served = np.stack([f.result(timeout=120) for f in futures])
+        stats = server.stats()
+    finally:
+        server.close()
+    launches = {k: v for k, v in cuda_ops.launches.items() if v}
+    replays = {b: n - replays0.get(b, 0) for b, n in plan.replays.items()}
+    batches = sum(replays.values())
+    want = {"cosine_features": NUM_COSINES * batches} if cuda else {}
+    bits = bool(np.array_equal(served, offline_plan))
+    max_abs = float(np.abs(served - offline_plan).max())
+    rel = _row_rel(served, offline[:SERVE_REQUESTS])
+    log(f"  (a) {SERVE_REQUESTS} staggered requests: {batches} batches ({stats['completed']} "
+        f"completed), replays a bucket {replays}, launches {launches}; served against the "
+        f"plan's offline apply: bit_identical {bits}, max_abs_diff {max_abs:.3e}; against the "
+        f"fitted pipeline's apply: max relative {rel:.3e}")
+    stages = [_bits_by_stage(plan, pool, device, SERVE_REQUESTS, offline_plan, served),
+              _bits_by_stage(plan, pool, device, SERVE_POOL)]
+    for reading in stages:
+        log(f"  (a) where the bits part, 2 rows against {reading['batch']}: {reading}")
+    check("19(a) cosine_features launches = launches a replay x batches served",
+          launches == want and (batches > 1 or not cuda), f"{launches}, expected {want}")
+    check("19(a) served rows bit-identical to the plan's offline apply" if cuda else
+          "19(a) served rows near the plan's offline apply (MKL sums by the batch's size)",
+          bits if cuda else _row_rel(served, offline_plan) <= SERVE_TOL,
+          f"bit identical {bits}, max_abs_diff {max_abs:.3e}")
+    check(f"19(a) served rows within {SERVE_TOL} relative of the fitted pipeline's apply "
+          "(its block mapper sums block by block)", rel <= SERVE_TOL, f"{rel:.3e}")
+    plain = {}
+    kernel = cuda_ops.cosine_features
+
+    def plain_cosine(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=None):
+        Y = cuda_ops.cosine_features_ref(X, W, b, compute_dtype, out_dtype)
+        return Y if out is None else out.copy_(Y)
+
+    for b in plan.buckets:
+        X = pool[:b]
+        got = plan.apply_padded(X)
+        cuda_ops.cosine_features = plain_cosine  # the gather writes into columns (out=)
+        try:
+            want_b = plan._composed(torch.from_numpy(X).to(device)).cpu().numpy()
+        finally:
+            cuda_ops.cosine_features = kernel
+        plain[b] = _row_rel(got, want_b)
+    worst = max(plain.values())
+    check(f"19(a) each bucket program within {SERVE_PLAIN_TOL} relative of its plain-kernel twin",
+          worst <= SERVE_PLAIN_TOL, f"{ {b: f'{v:.2e}' for b, v in plain.items()} }")
+    single_s = plan.measure_single_request_s()
+    check("19(a) serving captured nothing", plan.trace_count == built,
+          f"trace_count {plan.trace_count} after serving, {built} at export")
+    log(f"  (a) single_request_s {single_s:.6f}, export {export_s:.3f} s")
+    return plan, scores, pool, offline, dict(
+        buckets=plan.buckets, export_s=export_s, trace_count=built, launches=launches,
+        launches_per_replay={str(b): v for b, v in per.items()}, batches=batches,
+        bit_identical=bits, max_abs_diff=max_abs, max_rel=rel, single_request_s=single_s,
+        bits_by_stage=stages,
+        plain_rel=max(plain.values()))
+
+
+def phase_serve_cli(cuda_ops, device="cuda"):
+    """19(b): ``run.py serve`` at the MnistRandomFFT defaults, one replica
+    and then two, in this process."""
+    import contextlib
+    import io
+
+    from keystone_tpu_torch import run as cli
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for replicas in (1, 2):
+        PipelineEnv.get_or_create().reset()
+        cuda_ops.reset_launch_counts()
+        argv = ["serve", "--rate", "200", "--duration-s", str(SERVE_CLI_S),
+                "--replicas", str(replicas)] + ([] if cuda else ["--device", "cpu"])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        launches = {k: v for k, v in cuda_ops.launches.items() if v}
+        PipelineEnv.get_or_create().reset()
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        books = summary["num_offered"] == (summary["num_samples"] + summary["rejected"]
+                                           + summary["failed"])
+        log(f"  (b) --replicas {replicas}: {json.dumps(summary)}; launches {launches}")
+        check(f"19(b) serve --replicas {replicas}: exit 0, books balance, none failed, "
+              "the plan composed",
+              rc == 0 and books and summary["failed"] == 0 and summary["plan_compiled"],
+              f"rc {rc}, offered {summary['num_offered']}, completed {summary['num_samples']}, "
+              f"rejected {summary['rejected']}, failed {summary['failed']}")
+        want = MNIST_LAUNCHES[True] if cuda else {}
+        check(f"19(b) serve --replicas {replicas}: the quick fit's launches", launches == want,
+              f"{launches}, expected {want}")
+        out[f"replicas_{replicas}"] = dict(summary=summary, launches=launches)
+    return out
+
+
+def phase_serve_swap(cuda_ops, timit, plan, pool, device="cuda"):
+    """19(c): a hot swap between two TIMIT plans under Poisson load."""
+    import threading
+
+    from keystone_tpu_torch.serving import ReplicatedServer, export_plan, poisson_arrivals
+
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.workflow import FittedPipeline
+
+    scores2, _ = serve_scores(timit, 1, pool, device)
+    plan2 = export_plan(scores2, np.zeros(D_IN, np.float32), max_batch=SERVE_MAX_BATCH)
+    X = torch.from_numpy(pool).to(device)
+    want = {p.fingerprint: FittedPipeline(p.graph, p.source, p.sink).apply(
+        Dataset(X)).array.cpu().numpy() for p in (plan, plan2)}
+    arrivals = poisson_arrivals(SERVE_SWAP_RATE, SERVE_SWAP_S, seed=3)
+    server = ReplicatedServer(plan, num_replicas=2, max_batch=SERVE_MAX_BATCH, max_wait_ms=2.0)
+    swap = {}
+
+    def do_swap():
+        time.sleep(SERVE_SWAP_S / 2)
+        t0 = time.perf_counter()
+        swap["report"] = server.swap_plan(plan2, drain_timeout_s=60)
+        swap["seconds"] = time.perf_counter() - t0
+
+    futures, refused = [], []
+    swapper = threading.Thread(target=do_swap)
+    try:
+        swapper.start()
+        start = time.perf_counter()
+        for i, t in enumerate(arrivals):
+            delay = start + t - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                futures.append((i, server.submit(pool[i % SERVE_POOL])))
+            except Exception as e:
+                refused.append(repr(e))
+        swapper.join(timeout=120)
+        results = [(i, getattr(f, "plan_fingerprint", None), f.result(timeout=120))
+                   for i, f in futures]
+    finally:
+        server.close()
+    by_fp = {}
+    worst, same_bits = 0.0, 0
+    for i, fp, y in results:
+        by_fp[fp] = by_fp.get(fp, 0) + 1
+        if fp in want:
+            worst = max(worst, _row_rel(y[None], want[fp][i % SERVE_POOL][None]))
+            same_bits += bool(np.array_equal(y, want[fp][i % SERVE_POOL]))
+    log(f"  (c) {len(arrivals)} arrivals at {SERVE_SWAP_RATE:.0f} Hz, swap at "
+        f"{SERVE_SWAP_S / 2:.1f} s took {swap.get('seconds', float('nan')):.3f} s, responses by "
+        f"fingerprint {by_fp}, refused {len(refused)}, worst relative {worst:.3e}, "
+        f"{same_bits} of {len(results)} bit-identical to their plan's batch apply of "
+        f"{SERVE_POOL} rows")
+    check("19(c) the swap finished", not swapper.is_alive() and "report" in swap,
+          f"{swap.get('report')}")
+    check("19(c) every response carries one of the two fingerprints, both served",
+          set(by_fp) == set(want), f"{by_fp}, plans {list(want)}")
+    check("19(c) no request dropped", not refused and len(results) == len(arrivals),
+          f"{len(results)} of {len(arrivals)} answered, refused {refused[:3]}")
+    check(f"19(c) each response within {SERVE_TOL} relative of its plan's offline rows",
+          worst <= SERVE_TOL, f"{worst:.3e}")
+    return dict(arrivals=len(arrivals), by_fingerprint=by_fp, swap_s=swap["seconds"],
+                max_rel=worst, bit_identical=same_bits, answered=len(results))
+
+
+def phase_serve_latency(plan, scores, pool, smi, device="cuda"):
+    """19(d): open-loop latency at three rates, beside the same plan at
+    max_batch 1."""
+    from keystone_tpu_torch.serving import (
+        MicroBatchServer,
+        closed_loop_qps,
+        export_plan,
+        run_open_loop,
+    )
+
+    plan1 = export_plan(scores, np.zeros(D_IN, np.float32), max_batch=1)
+    base = closed_loop_qps(lambda x: plan1.apply_batch([x]), lambda i: pool[i % SERVE_POOL],
+                           num_requests=200)
+    rates = list(SERVE_RATES) + [0.8 * base["qps"]]
+    log(f"  (d) batch-size-1 closed loop: {base['qps']:.1f} qps, p50 "
+        f"{1e3 * base['p50_latency_s']:.3f} ms, p99 {1e3 * base['p99_latency_s']:.3f} ms ({smi})")
+    rows = []
+    for rate in rates:
+        for label, p, mb in (("micro-batched", plan, SERVE_MAX_BATCH), ("batch size 1", plan1, 1)):
+            server = MicroBatchServer(p, max_batch=mb, max_wait_ms=2.0)
+            try:
+                report = run_open_loop(server.submit, lambda i: pool[i % SERVE_POOL],
+                                       rate_hz=rate, duration_s=SERVE_LATENCY_S, seed=5)
+            finally:
+                server.close()
+            row = report.to_row_dict()
+            row.update(server=label, rate_hz=rate)
+            rows.append(row)
+            log(f"  (d) {rate:8.1f} Hz {label:>13}: p50 {row['p50_latency_ms']} ms, p99 "
+                f"{row['p99_latency_ms']} ms, {row['achieved_qps']} qps, offered "
+                f"{row['num_offered']}, rejected {row['rejected']}, failed {row['failed']}")
+            check(f"19(d) {label} at {rate:.0f} Hz: none failed", row["failed"] == 0,
+                  f"{row['failed']} failed")
+    return dict(closed_loop_bs1=base, rows=rows, card=smi)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4451,6 +4793,13 @@ def main():
     workflow["autocache"] = phase_autocache(cuda_ops)
     workflow["chain_plan"] = phase_chain_plan()
     workflow["datum"] = phase_datum(cuda_ops, timit)
+    phase("19", "the serving path: bucketed CUDA-graph plans, micro-batcher, replicated "
+          "plane, hot swap, open-loop latency")
+    plan, scores, pool, offline, serve_plan = phase_serve_plan(cuda_ops, timit)
+    serving = dict(plan=serve_plan, cli=phase_serve_cli(cuda_ops))
+    serving["swap"] = phase_serve_swap(cuda_ops, timit, plan, pool)
+    serving["latency"] = phase_serve_latency(plan, scores, pool, smi)
+    del plan, scores, pool, offline
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -4471,6 +4820,9 @@ def main():
              launches=route_counts[meta["path"]][name], path=meta["path"], **results[name])
         for name, meta in KERNELS.items()
     ]
+    # The serving path's launches (phase 19(a)), beside the fit route's.
+    (cosine,) = [k for k in kernels if k["name"] == "cosine_features"]
+    cosine["serving_launches"] = serve_plan["launches"].get("cosine_features", 0)
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -4478,6 +4830,7 @@ def main():
                  VOC: voc_run, IMAGENET: imagenet_run, "cifar runners (apply first)": runners,
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
+                 SERVING: serving,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

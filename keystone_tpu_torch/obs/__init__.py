@@ -1,0 +1,97 @@
+"""The run-trace + metrics plane (port of ``keystone_tpu/obs/__init__.py``).
+
+  - :mod:`~keystone_tpu_torch.obs.tracer` — a process-wide :class:`Tracer`
+    with nested, thread-safe spans carrying one ``run_id`` and parent
+    links; the serving plane's requests, batches, sheds and swaps report
+    into it. The plane is a **no-op guarded by one branch** when tracing
+    is off.
+  - :mod:`~keystone_tpu_torch.obs.metrics` — :class:`MetricsRegistry`
+    (counters / gauges / histograms with a flat ``snapshot()``) and the
+    ``METRIC_*`` name catalogue; the serving counters and latency
+    histograms live there.
+  - :mod:`~keystone_tpu_torch.obs.slo` — :class:`SLOTracker`: multi-window
+    burn rates, the error-budget ledger and the OK / WARN / BREACH state.
+  - :mod:`~keystone_tpu_torch.obs.export` — Chrome-trace/Perfetto JSON
+    exporter plus a compact JSONL event log (``write_trace_dir``).
+  - :mod:`~keystone_tpu_torch.obs.flight` — the flight recorder: a bounded
+    ring of recent events that fault paths (worker death, breaker opens,
+    watchdog evictions) dump alongside the exception.
+
+The reference's cost-model calibration plane (``obs/calibrate.py``) and
+its live Prometheus exporter (``obs/live.py``) are not ported yet.
+
+Activation: ``KEYSTONE_TRACE=dir`` env knob, ``run.py --trace=dir``, or
+``with obs.tracing(dir):`` in code. This package imports no torch: the
+serving plane's submitter threads report into it.
+"""
+
+from keystone_tpu_torch.obs.export import (
+    load_events,
+    to_chrome_trace,
+    validate_chrome_trace,
+    write_trace_dir,
+)
+from keystone_tpu_torch.obs.flight import (
+    FlightRecorder,
+    flight_note,
+    flight_snapshot,
+    render_flight_record,
+)
+from keystone_tpu_torch.obs.metrics import (  # noqa: F401 — METRIC_* re-exported
+    BucketedHistogram,
+    MetricsRegistry,
+)
+from keystone_tpu_torch.obs.metrics import __all__ as _metrics_all
+from keystone_tpu_torch.obs.metrics import *  # noqa: F401,F403 — the catalogue
+from keystone_tpu_torch.obs.slo import (
+    STATE_BREACH,
+    STATE_OK,
+    STATE_WARN,
+    SLOObjective,
+    SLOTracker,
+)
+from keystone_tpu_torch.obs.tracer import (
+    CostDecision,
+    CostOutcomeRef,
+    Span,
+    TailSampler,
+    Tracer,
+    active_tracer,
+    counter_track,
+    enabled,
+    event,
+    record_cost_decision,
+    span,
+    tracing,
+    tracing_from_env,
+)
+
+__all__ = [
+    "CostDecision",
+    "CostOutcomeRef",
+    "FlightRecorder",
+    "MetricsRegistry",
+    "STATE_BREACH",
+    "STATE_OK",
+    "STATE_WARN",
+    "SLOObjective",
+    "SLOTracker",
+    "Span",
+    "TailSampler",
+    "Tracer",
+    "active_tracer",
+    "counter_track",
+    "enabled",
+    "event",
+    "flight_note",
+    "flight_snapshot",
+    "load_events",
+    "record_cost_decision",
+    "render_flight_record",
+    "span",
+    "to_chrome_trace",
+    "tracing",
+    "tracing_from_env",
+    "validate_chrome_trace",
+    "write_trace_dir",
+] + list(_metrics_all)

@@ -183,7 +183,7 @@ def conv_featurize(images, filters, means: Optional[torch.Tensor] = None, *,
     fn = cuda_ops._lib(name).kt_conv_featurize
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        cuda_ops.launches[name] += 1
+        cuda_ops.count_launches(name)
         err = fn(
             img.data_ptr(), flt.data_ptr(), None if mn is None else mn.data_ptr(),
             out.data_ptr(), n, X, Y, C, p, k, int(bool(normalize_patches)),

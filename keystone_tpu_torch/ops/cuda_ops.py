@@ -91,6 +91,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -178,9 +180,43 @@ _SOURCES = {"gram_corr_sym": "gram_corr", "block_gram_sym": "gram_corr",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+# Serialises every write to ``launches``: replicas replay captured
+# programs on their own threads.
+_launch_lock = threading.Lock()
+# The calling thread's capture record, while it captures a CUDA graph.
+_capturing = threading.local()
+
+
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def count_launches(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``name``'s kernel: into the calling thread's
+    capture record while it captures (a capture launches nothing), else
+    into ``launches``."""
+    record = getattr(_capturing, "record", None)
+    if record is not None:
+        record[name] = record.get(name, 0) + n
+        return
+    with _launch_lock:
+        launches[name] += n
+
+
+@contextmanager
+def recording_launches():
+    """Within the block, the calling thread's launches go into the yielded
+    dict instead of ``launches`` (the launches a captured graph replays);
+    other threads keep counting into ``launches``."""
+    prev = getattr(_capturing, "record", None)
+    record: Dict[str, int] = {}
+    _capturing.record = record
+    try:
+        yield record
+    finally:
+        _capturing.record = prev
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +496,7 @@ def cosine_features(X, W, b, compute_dtype=torch.float32, out_dtype=None, out=No
     fn = _lib(name).kt_cosine_features
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             Xk.data_ptr(), Wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
             m, n, d, Xk.stride(0), Wk.stride(0), out.stride(0),
@@ -572,7 +608,7 @@ def _gram_corr_launch(name: str, A, R):
     fn = getattr(_lib(name), _ENTRY_POINTS[name][0])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             A.data_ptr(), Rk.data_ptr(), gram.data_ptr(), corr.data_ptr(),
             n, d, k, A.stride(0), Rk.stride(0), int(A.dtype == torch.bfloat16),
@@ -666,7 +702,7 @@ def block_gram_sym(F, col_start: int, block: int):
     fn = _lib(name).kt_block_gram_sym
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             F.data_ptr(), gram.data_ptr(), F.shape[0], col_start, block, F.stride(0),
             int(F.dtype == torch.bfloat16), stream,
@@ -797,7 +833,7 @@ def block_corr(F, col_start: int, block: int, R):
     fn = _lib(name).kt_block_corr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             F.data_ptr(), Rk.data_ptr(), None if partials is None else partials.data_ptr(),
             corr.data_ptr(), n, col_start, block, k, F.stride(0), Rk.stride(0), splits,
@@ -873,7 +909,7 @@ def block_residual_update(F, col_start: int, block: int, dW, R):
     fn = _lib(name).kt_block_residual_update
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             F.data_ptr(), dWk.data_ptr(), Rk.data_ptr(), out.data_ptr(), n, col_start,
             block, k, F.stride(0), dWk.stride(0), Rk.stride(0), out.stride(0),
@@ -974,7 +1010,7 @@ def gram_sym_acc(G, F, out=None):
     fn = _lib(name).kt_gram_sym_acc
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             F.data_ptr(), G.data_ptr(), out.data_ptr(), n, d, F.stride(0), G.stride(0),
             out.stride(0), int(F.dtype == torch.bfloat16), stream,
@@ -1108,7 +1144,7 @@ def gram_corr_sym_acc(G, C, F, R, out=None):
     fn = _lib(name).kt_gram_corr_sym_acc
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             F.data_ptr(), Rk.data_ptr(), G.data_ptr(), C.data_ptr(), gout.data_ptr(),
             cout.data_ptr(), n, d, k, F.stride(0), Rk.stride(0), G.stride(0), C.stride(0),
@@ -1250,7 +1286,7 @@ def gaussian_kernel_block(X, Y, x_norms, y_norms, gamma: float,
     fn = _lib(name).kt_gaussian_kernel_block
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             Xk.data_ptr(), Yk.data_ptr(), xn.data_ptr(), yn.data_ptr(), out.data_ptr(),
             None if partials is None else partials.data_ptr(), m, n, d, Xk.stride(0),
@@ -1365,7 +1401,7 @@ def gaussian_resid_block(X, Y, x_norms, y_norms, W, gamma: float,
     fn = _lib(name).kt_gaussian_resid_block
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             Xk.data_ptr(), Yk.data_ptr(), xn.data_ptr(), yn.data_ptr(), Wk.data_ptr(),
             None if partials is None else partials.data_ptr(), out.data_ptr(),
@@ -1526,7 +1562,7 @@ def countsketch_rows(idx, val, sign, order, starts, out):
     device = out.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launches[name] += 1
+        count_launches(name)
         err = fn(
             idx.data_ptr(), val.data_ptr(), signk.data_ptr(), order.data_ptr(),
             starts.data_ptr(), out.data_ptr(), m, idx.shape[1], d1, idx.stride(0),

@@ -197,10 +197,16 @@ def _compose_in_chunks(fns, X):
     Eager PyTorch materialises every member's output, and a chain can widen
     its rows many times over (the CIFAR featurizer's convolution and
     rectifier make 0.9 MB per image before the pool shrinks it to 7 KB),
-    so the whole batch at once may not fit the device. The first row runs
-    alone and measures the bytes per row of every intermediate; the rest
-    run in chunks of ``CHUNK_BUDGET_BYTES // that`` rows. The members are
-    row-local by contract, so the result equals the unchunked composition."""
+    so the whole batch at once may not fit the device. A probe of the first
+    row measures the bytes per row of every intermediate; then every row,
+    the first again, runs in chunks of ``CHUNK_BUDGET_BYTES // that`` rows
+    (the whole batch as one chunk when it fits). The probe's result is
+    dropped: a library may compute one row by another path than many (a
+    product of one row is a matrix-vector product), and a row must have
+    the same bits whichever call computes it, so a served request (a
+    bucket of two or more rows) gives offline apply's bits. The members
+    are row-local by contract, so the result equals the unchunked
+    composition."""
     X = as_tensor(X)
     n = X.shape[0]
     if n <= 1:
@@ -209,10 +215,11 @@ def _compose_in_chunks(fns, X):
     for f in fns:
         Z = f(Z)
         per_row += _row_bytes(Z)
-    out = torch.empty((n,) + tuple(Z.shape[1:]), dtype=Z.dtype, device=Z.device)
-    out[:1] = Z
     rows = max(1, CHUNK_BUDGET_BYTES // max(per_row, 1))
-    for s in range(1, n, rows):
+    if rows >= n:
+        return _compose(fns, X)
+    out = torch.empty((n,) + tuple(Z.shape[1:]), dtype=Z.dtype, device=Z.device)
+    for s in range(0, n, rows):
         out[s:s + rows] = _compose(fns, X[s:s + rows])
     return out
 

@@ -302,31 +302,116 @@ def _batch_of_one(x) -> torch.Tensor:
     return as_tensor(x)[None]
 
 
+def run_on_side_stream(fn: Callable, X: torch.Tensor) -> Any:
+    """``fn(X)`` on a fresh side stream ordered after the current one,
+    the current stream then waiting for it: the eager run before a CUDA
+    graph capture, which builds kernels, plans (cuFFT's among them) and
+    workspaces outside the capture. A CUDA result is marked as used on
+    the current stream."""
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        Y = fn(X)
+    current.wait_stream(side)
+    if isinstance(Y, torch.Tensor) and Y.is_cuda:
+        Y.record_stream(current)
+    return Y
+
+
+class CapturedProgram:
+    """``fn`` captured into a CUDA graph at one input (shape, dtype,
+    device): the routine shared by the datum programs below and the
+    serving plan's bucket programs (``serving/export.py``).
+
+    The capture copies ``example`` into a static input, records ``fn`` on
+    it, and keeps its static output. The capture launches nothing, so the
+    wrappers it calls count into a record of the capturing thread
+    (``cuda_ops.recording_launches``), never into ``cuda_ops.launches``,
+    and each :meth:`run` adds the record there: the counters keep counting
+    kernel launches, whatever other threads launch or replay meanwhile. A capture that fails raises a RuntimeError naming ``what``
+    and the failing node (the composed function's own error); the card's
+    random generator and the current stream are restored first, since a
+    capture that fails to end leaves both in the capture's state. There
+    is no fallback.
+
+    :meth:`run` copies an input into the static input, replays the graph
+    and returns ``take(static_output)``, which must copy what it keeps
+    (the next run overwrites the static output). It holds no lock of its
+    own (the launch counters take theirs): a caller that shares the
+    program across threads serialises copy-in, replay and copy-out itself.
+    """
+
+    def __init__(self, fn: Callable, example: torch.Tensor, what: str):
+        from keystone_tpu_torch.ops import cuda_ops
+
+        device = example.device
+        self.static_in = torch.empty(example.shape, dtype=example.dtype, device=device)
+        self.static_in.copy_(example)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.current_stream(device)
+        rng = torch.cuda.default_generators[device.index or 0]
+        rng_state = rng.clone_state()
+        failed = []  # the node's own error: ending a broken capture raises another
+        try:
+            with cuda_ops.recording_launches() as counted, torch.cuda.graph(graph):
+                try:
+                    self.static_out = fn(self.static_in)
+                except Exception as e:
+                    failed.append(e)
+                    raise
+        except Exception as e:
+            rng.graphsafe_set_state(rng_state)
+            torch.cuda.set_stream(stream)
+            cause = failed[0] if failed else e
+            raise RuntimeError(f"{what}: CUDA graph capture failed: {cause}") from cause
+        self.launches_per_replay = {name: n for name, n in counted.items() if n}
+        self.replays = 0
+        self._graph = graph
+        self._done = torch.cuda.Event()
+
+    def run(self, X: torch.Tensor, take: Callable[[torch.Tensor], Any]) -> Any:
+        from keystone_tpu_torch.ops import cuda_ops
+
+        stream = torch.cuda.current_stream(self.static_in.device)
+        stream.wait_event(self._done)  # the previous run's copy-out
+        self.static_in.copy_(X, non_blocking=True)
+        self._graph.replay()
+        out = take(self.static_out)
+        self._done.record(stream)
+        for name, n in self.launches_per_replay.items():
+            cuda_ops.count_launches(name, n)
+        self.replays += 1
+        return out
+
+
 class _DatumProgram:
     """The single-datum program of one input (shape, dtype): the composed
     batched function at batch 1.
 
     The first call runs the function eagerly on a side stream (where the
     card is present) and returns its row. If the result lies on the card,
-    it then captures the function into a CUDA graph from a static input on
-    that device, and every later call copies the datum into the static
-    input, replays the graph and returns a clone of the static output. The
-    capture launches nothing, so the launches it counted in
-    ``cuda_ops.launches`` are taken back, and each replay adds them again:
-    the counters keep counting kernel launches. Copy-in, replay and
-    copy-out hold the pipeline's lock (the static buffers are shared). A
-    capture that fails raises (its message names the failing node); there
-    is no fallback. If the result lies on the CPU, later calls run the
-    function directly, without the lock.
+    it then captures the function into a CUDA graph
+    (:class:`CapturedProgram`), and every later call replays it on the
+    datum and returns a clone of the output row. Copy-in, replay and
+    copy-out hold the pipeline's lock (the static buffers are shared). If
+    the result lies on the CPU, later calls run the function directly,
+    without the lock.
     """
 
     def __init__(self, batched: Callable):
         self._batched = batched
         self.mode: Optional[str] = None  # None until the first call; "direct" | "graph"
         self.captures = 0
-        self.replays = 0
-        self.launches_per_replay: Dict[str, int] = {}
-        self._graph = self._static_in = self._static_out = self._done = None
+        self._program: Optional[CapturedProgram] = None
+
+    @property
+    def replays(self) -> int:
+        return self._program.replays if self._program is not None else 0
+
+    @property
+    def launches_per_replay(self) -> Dict[str, int]:
+        return self._program.launches_per_replay if self._program is not None else {}
 
     def __call__(self, x, lock) -> Any:
         if self.mode != "direct":
@@ -334,7 +419,7 @@ class _DatumProgram:
                 if self.mode is None:
                     return self._first_call(x)
                 if self.mode == "graph":
-                    return self._replay(x)
+                    return self._program.run(_batch_of_one(x), lambda Y: Y[0].clone())
         return self._batched(_batch_of_one(x))[0]
 
     def _first_call(self, x) -> Any:
@@ -342,72 +427,16 @@ class _DatumProgram:
         if not torch.cuda.is_available():
             self.mode = "direct"
             return self._batched(X1)[0]
-        current = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            Y = self._batched(X1)
-        current.wait_stream(side)
+        Y = run_on_side_stream(self._batched, X1)
         if not (isinstance(Y, torch.Tensor) and Y.is_cuda):
             self.mode = "direct"
             return Y[0]
-        Y.record_stream(current)
-        self._capture(X1, Y.device)
-        return Y[0]
-
-    def _capture(self, X1: torch.Tensor, device: torch.device) -> None:
-        from keystone_tpu_torch.ops import cuda_ops
-
-        self._static_in = torch.empty(X1.shape, dtype=X1.dtype, device=device)
-        self._static_in.copy_(X1)
-        before = dict(cuda_ops.launches)
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.current_stream(device)
-        rng = torch.cuda.default_generators[device.index or 0]
-        rng_state = rng.clone_state()
-        failed = []  # the node's own error: ending a broken capture raises another
-        try:
-            with torch.cuda.graph(graph):
-                try:
-                    self._static_out = self._batched(self._static_in)
-                except Exception as e:
-                    failed.append(e)
-                    raise
-        except Exception as e:
-            # A capture that fails to end leaves the card's random generator
-            # marked as capturing and the capture's stream current: put both
-            # back, or every later random draw on the card raises.
-            rng.graphsafe_set_state(rng_state)
-            torch.cuda.set_stream(stream)
-            cause = failed[0] if failed else e
-            raise RuntimeError(
-                f"datum program: CUDA graph capture failed for input {tuple(X1.shape[1:])} "
-                f"{X1.dtype}: {cause}"
-            ) from cause
-        finally:
-            counted = {name: cuda_ops.launches[name] - before.get(name, 0)
-                       for name in cuda_ops.launches}
-            for name, n in counted.items():
-                cuda_ops.launches[name] -= n  # the capture ran nothing
-        self.launches_per_replay = {name: n for name, n in counted.items() if n}
-        self._graph = graph
-        self._done = torch.cuda.Event()
+        self._program = CapturedProgram(
+            self._batched, X1.to(Y.device),
+            f"datum program for input {tuple(X1.shape[1:])} {X1.dtype}")
         self.captures += 1
         self.mode = "graph"
-
-    def _replay(self, x) -> Any:
-        from keystone_tpu_torch.ops import cuda_ops
-
-        stream = torch.cuda.current_stream(self._static_in.device)
-        stream.wait_event(self._done)  # the previous replay's copy-out
-        self._static_in.copy_(_batch_of_one(x), non_blocking=True)
-        self._graph.replay()
-        out = self._static_out[0].clone()
-        self._done.record(stream)
-        for name, n in self.launches_per_replay.items():
-            cuda_ops.launches[name] += n
-        self.replays += 1
-        return out
+        return Y[0]
 
 
 class TransformerGraph(Graph):

@@ -246,7 +246,8 @@ class TestChunkedFeaturizer:
         monkeypatch.setattr(fused.members[0], "device_fn",
                             lambda: lambda X: calls.append(X.shape[0]) or conv(X))
         out = fused.batch_apply(data)
-        assert calls == [1] + [min(rows, 39 - s) for s in range(0, 39, rows)]
+        # A one-row probe, then every row (the first again) in chunks.
+        assert calls == [1] + [min(rows, 40 - s) for s in range(0, 40, rows)]
         assert out.array.shape == whole.shape == (40, 3 * 3 * 48)
         np.testing.assert_allclose(_np(out.array), _np(whole), rtol=1e-6, atol=1e-5)
 

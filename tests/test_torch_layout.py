@@ -67,7 +67,11 @@ def test_port_has_modules():
                 "pipelines/imagenet_sift_lcs_fv.py", "pipelines/newsgroups.py",
                 "pipelines/stupid_backoff.py", "ops/lemmatizer.py", "utils/stats.py",
                 "workflow/verify.py", "workflow/autocache.py", "tools/__init__.py",
-                "tools/dryrun.py"):
+                "tools/dryrun.py", "utils/faults.py", "utils/profiling.py",
+                "obs/__init__.py", "obs/metrics.py", "obs/flight.py", "obs/tracer.py",
+                "obs/slo.py", "obs/export.py", "data/durable.py", "serving/__init__.py",
+                "serving/export.py", "serving/batcher.py", "serving/loadgen.py",
+                "serving/replicas.py"):
         assert rel in rels
 
 
