@@ -46,9 +46,15 @@ run:
     step; each warp owns one bucket's output row, so the adds land in a
     fixed order without atomics.
 
+Beside them one kernel with no TPU twin: :func:`row_stable_matmul`
+(``csrc/row_stable_matmul.cu``), ``X @ W`` whose rows keep their bits
+whatever the row count, the linear models' product in every exported
+plan's buckets and every fused batch apply (ROADMAP C.8: the reference
+leaves that product to XLA, and cuBLAS sums by the batch's shape).
+
 All but the CountSketch kernel and ``gram_corr_sym_acc`` with bf16 F (TMA
 loads into ``wgmma`` on the tensor cores) run on one FP32-FMA register
-tile, the pipelined one of
+tile, ``row_stable_matmul`` among them, the pipelined one of
 ``csrc/fma_pipe.cuh`` (a ring of stages, operands row-major or K-major,
 label tiles sized to k; chunks of the reduction that fill whole waves for
 ``block_corr``, :func:`corr_splits`, ``gaussian_kernel_block``,
@@ -66,8 +72,9 @@ Each wrapper keeps its Pallas twin's name and operand contract. For a
 tensor on the CPU it computes the plain PyTorch version (``*_ref``); for a
 CUDA tensor it launches its kernel or raises — it checks device, dtype,
 shape and layout, and never falls back. Given a meta tensor (the plan
-verifier's shape inference) ``cosine_features`` and ``conv_featurize``, the
-two kernels a transformer's ``device_fn`` reaches, run the same checks and
+verifier's shape inference) ``cosine_features``, ``conv_featurize`` and
+``row_stable_matmul``, the kernels a transformer's ``device_fn`` reaches,
+run the same checks and
 return an empty meta output of the kernel's shape and dtype, launching
 nothing. ``launches[name]`` counts the
 wrapper's kernel launches (and nothing else), so a run can show that its
@@ -104,7 +111,7 @@ launches: Dict[str, int] = {
     "block_gram_sym": 0, "block_corr": 0, "block_residual_update": 0,
     "gram_sym_acc": 0, "gaussian_kernel_block": 0, "gaussian_resid_block": 0,
     "conv_featurize": 0, "gram_corr_sym_acc": 0, "gram_corr": 0,
-    "countsketch_scatter": 0,
+    "countsketch_scatter": 0, "row_stable_matmul": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -158,6 +165,9 @@ _ENTRY_POINTS = {
         "kt_countsketch_scatter",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     ),
+    "row_stable_matmul": (
+        "kt_row_stable_matmul", [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _P]
+    ),
 }
 # Further C entry points of a source, beside its launching one.
 _EXTRA_SYMBOLS = {
@@ -172,6 +182,7 @@ _EXTRA_SYMBOLS = {
     "gram_sym_acc": [("kt_gram_sym_acc_config", [_P, _I, _L, _I, _P])],
     "gram_corr_sym_acc": [("kt_gram_corr_sym_acc_config", [_P, _I, _I, _L, _P])],
     "conv_featurize": [("kt_conv_featurize_config", [_I, _I, _I, _I, _I, _I, _P])],
+    "row_stable_matmul": [("kt_row_stable_matmul_config", [_I, _I, _P])],
 }
 # Wrappers whose kernel lives in another wrapper's source: name -> source.
 _SOURCES = {"gram_corr_sym": "gram_corr", "block_gram_sym": "gram_corr",
@@ -1567,6 +1578,139 @@ def countsketch_rows(idx, val, sign, order, starts, out):
             idx.data_ptr(), val.data_ptr(), signk.data_ptr(), order.data_ptr(),
             starts.data_ptr(), out.data_ptr(), m, idx.shape[1], d1, idx.stride(0),
             val.stride(0), out.stride(0), stream,
+        )
+    _check_launch(name, err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Row-stable product: X @ W with each row's bits independent of the row count
+# ---------------------------------------------------------------------------
+
+# The reduction chunk of row_stable_matmul (csrc/row_stable_matmul.cu's KC):
+# fixed, so a sum's order depends on k alone.
+ROW_STABLE_CHUNK = 256
+# Scratch the kernel's chunk sums may take (floats): rows run in panels
+# whose chunk sums fit in it (a schedule; it moves no bit).
+_ROW_STABLE_SCRATCH = 1 << 25
+# Elements of the plain version's per-chunk running sums at a time.
+_ROW_STABLE_REF_BLOCK = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+
+def row_stable_matmul_ref(X, W):
+    """Plain PyTorch version of :func:`row_stable_matmul`: the kernel's
+    chunks of :data:`ROW_STABLE_CHUNK` reduction indices (one chunk of k
+    when k is smaller), each chunk's products summed by a fixed pairwise
+    tree (the chunk padded with zeros to a power of two), then the chunk
+    sums added in chunk order. Elementwise operations only, each rounded on
+    its own, so a row's bits depend on that row and W alone, whatever the
+    row count, the row's position or the number of threads (an MKL or
+    cuBLAS product sums in an order it picks by the shape). The kernel sums
+    each chunk as one ``fmaf`` chain, so the two part by rounding: about
+    1e-7 of the sums' scale."""
+    m, k = X.shape
+    n = W.shape[1]
+    if W.shape[0] != k:
+        raise ValueError(f"row_stable_matmul: X {tuple(X.shape)} and W {tuple(W.shape)} "
+                         "do not match X @ W")
+    if X.dtype != W.dtype or not X.dtype.is_floating_point:
+        raise TypeError(f"row_stable_matmul: operands must share one floating dtype, "
+                        f"got {X.dtype} and {W.dtype}")
+    out = torch.zeros((m, n), dtype=X.dtype, device=X.device)
+    if m == 0 or n == 0 or k == 0:
+        return out
+    kc = min(ROW_STABLE_CHUNK, k)
+    chunks = -(-k // kc)
+    width = 1 << (kc - 1).bit_length()
+    Wp = W.new_zeros((chunks, width, n))
+    Wp[:, :kc].view(chunks * kc, n)[:k] = W
+    rows = max(1, _ROW_STABLE_REF_BLOCK.get(X.device.type, 1 << 22) // (chunks * width * n))
+    for r0 in range(0, m, rows):
+        Xb = X[r0:r0 + rows]
+        Xp = Xb.new_zeros((Xb.shape[0], chunks, width))
+        Xp[:, :, :kc].reshape(Xb.shape[0], chunks * kc)[:, :k] = Xb
+        P = Xp[:, :, :, None] * Wp[None]
+        while P.shape[2] > 1:
+            half = P.shape[2] // 2
+            P = P[:, :, :half] + P[:, :, half:]
+        s = P[:, 0, 0]
+        for c in range(1, chunks):
+            s = s + P[:, c, 0]
+        out[r0:r0 + rows] = s
+    return out
+
+
+def _row_stable_panel_rows(m: int, n: int, k: int) -> int:
+    """Rows a panel of :func:`row_stable_matmul`: all of them, or as many
+    whole 128-row tiles as keep the chunk sums inside the scratch."""
+    chunks = -(-k // ROW_STABLE_CHUNK)
+    if chunks == 1:
+        return m
+    return min(m, max(128, _ROW_STABLE_SCRATCH // (chunks * n) // 128 * 128))
+
+
+def row_stable_matmul_grid(m: int, n: int, k: int, device) -> Dict[str, float]:
+    """The grid :func:`row_stable_matmul` launches for an (m, k) @ (k, n)
+    product on ``device`` (a card): its tile rows and columns, chunks,
+    panels, blocks a panel, the kernel's resident blocks an SM, registers
+    and local (spilled) bytes a thread, and a panel's waves."""
+    device = torch.device(device)
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = _lib("row_stable_matmul").kt_row_stable_matmul_config(m, n, out)
+    _check_launch("row_stable_matmul", err)
+    tm, tn, bps, regs, local = tuple(out)
+    panel = _row_stable_panel_rows(m, n, k)
+    chunks = -(-k // ROW_STABLE_CHUNK)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _grid(dict(tile_rows=tm, tile_cols=tn, chunks=chunks, panel_rows=panel,
+                      panels=-(-m // panel), blocks=-(-panel // tm) * -(-n // tn) * chunks,
+                      blocks_per_sm=bps, registers=regs, local_bytes=local), sms)
+
+
+def row_stable_matmul(X, W):
+    """``X @ W`` whose row i has the same bits however many rows share the
+    call (``csrc/row_stable_matmul.cu``; no TPU twin: ROADMAP C.8's
+    repair). X: (m, k), W: (k, n), both float32 on the card (any one
+    floating dtype on the CPU, through :func:`row_stable_matmul_ref`); X
+    with non-contiguous rows is copied. Returns a new (m, n) tensor. A
+    meta operand (the plan verifier's shape inference) gets an empty meta
+    output, and nothing is launched or counted. Counts one launch a call
+    (its chunk-sum pass included)."""
+    name = "row_stable_matmul"
+    meta = _meta_operands(name, (X, W))
+    if not meta and X.device.type == "cpu" and W.device.type == "cpu":
+        return row_stable_matmul_ref(X, W)
+    device = _META if meta else _cuda_operands(name, (X, W))
+    if X.dim() != 2 or W.dim() != 2 or X.shape[1] != W.shape[0]:
+        raise ValueError(f"{name}: X {tuple(X.shape)} and W {tuple(W.shape)} do not "
+                         "match X @ W")
+    if X.dtype != torch.float32 or W.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32 operands, got {X.dtype} and "
+                        f"{W.dtype}")
+    m, k = X.shape
+    n = W.shape[1]
+    if meta:
+        return torch.empty((m, n), dtype=torch.float32, device=_META)
+    Xk = X if X.stride(1) == 1 or k <= 1 else X.contiguous()
+    Wk = W if W.stride(1) == 1 or n <= 1 else W.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    panel = _row_stable_panel_rows(m, n, k)
+    chunks = -(-k // ROW_STABLE_CHUNK)
+    P = torch.empty(chunks * panel * n if chunks > 1 else 0, dtype=torch.float32,
+                    device=device)
+    fn = _lib(name).kt_row_stable_matmul
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        count_launches(name)
+        err = fn(
+            Xk.data_ptr(), Wk.data_ptr(), P.data_ptr() if chunks > 1 else None,
+            out.data_ptr(), m, n, k, Xk.stride(0), Wk.stride(0), out.stride(0), panel,
+            stream,
         )
     _check_launch(name, err)
     return out

@@ -21,6 +21,7 @@ import torch
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops.learning.cost import CostModel
+from keystone_tpu_torch.ops.learning.linear import mapper_product
 from keystone_tpu_torch.ops.stats import StandardScaler, StandardScalerModel
 from keystone_tpu_torch.ops.util import VectorSplitter
 from keystone_tpu_torch.parallel import linalg
@@ -61,8 +62,9 @@ class BlockLinearMapper(Transformer):
 
     def device_fn(self):
         """Stage-fusion contract: the whole blockwise model as one row-local
-        tensor function — center by the concatenated means, one flat GEMM,
-        add the intercept."""
+        tensor function — center by the concatenated means, one flat
+        product (:func:`~keystone_tpu_torch.ops.learning.linear.mapper_product`,
+        row-stable), add the intercept."""
         W_flat = torch.cat(list(self.xs), dim=0)
         mean = std = None
         if self.feature_scalers is not None:
@@ -83,12 +85,21 @@ class BlockLinearMapper(Transformer):
                 X = X - mean
             if std is not None:
                 X = X / std
-            out = X @ W_flat
+            out = mapper_product(X, W_flat)
             return out if b is None else out + b
 
         return fn
 
     def batch_apply(self, data: Dataset) -> Dataset:
+        """A tensor dataset runs :meth:`device_fn` (its flat row-stable
+        product) in row chunks, so an offline apply gives each row the bits
+        an exported plan's buckets serve (ROADMAP C.8); other forms, or a
+        model :meth:`device_fn` cannot express, take the blockwise path."""
+        fn = self.device_fn()
+        if fn is not None and isinstance(data.data, torch.Tensor):
+            from keystone_tpu_torch.workflow.fusion import _compose_in_chunks
+
+            return data.map_batch(lambda X: _compose_in_chunks([fn], X))
         return self.apply_blocks(self.splitter.apply(data))
 
     def apply_blocks(self, blocks: List[Dataset]) -> Dataset:

@@ -60,6 +60,33 @@ EC2_SPARSE_GATHER_OVERHEAD = 8.0
 EC2_SRHT_SKETCH_OVERHEAD = 10.0
 EC2_COUNTSKETCH_OVERHEAD = 6.0
 
+# The reference's EC2 random-access multiplier of the zoo's tenant page-in
+# pass (spill decode + CRC + rebuild), which the placement engine prices.
+EC2_ZOO_PAGE_OVERHEAD = 2.0
+# The name of the one weight family above, as decisions record it.
+WEIGHTS_FAMILY = "ec2"
+
+
+def weights_family_name() -> str:
+    """The weight family the port prices with: ``ec2`` (the reference's
+    ``KEYSTONE_COST_WEIGHTS=ec2``; its TPU and calibrated families are not
+    carried over)."""
+    return WEIGHTS_FAMILY
+
+
+def active_weights() -> Tuple[float, float, float]:
+    """The selector's (cpu, mem, network) weights: the reference's EC2
+    cluster constants (reference ``cost.py:239`` under
+    ``KEYSTONE_COST_WEIGHTS=ec2``)."""
+    return EC2_CPU_WEIGHT, EC2_MEM_WEIGHT, EC2_NETWORK_WEIGHT
+
+
+def zoo_page_overhead() -> float:
+    """Random-access multiplier of the zoo's tenant page-in pass under the
+    EC2 family (reference ``cost.py:312``)."""
+    return EC2_ZOO_PAGE_OVERHEAD
+
+
 # Device-memory budget where the device reports none (the CPU).
 DEFAULT_HBM_BYTES = 16 << 30
 # Fraction of device memory a solver's resident operands may claim: the

@@ -334,7 +334,8 @@ def run_lbfgs_gram_streamed(
     compiled programs this way). ``chunk_fn`` must accept those ids.
 
     ``segment_source`` and ``checkpoint`` (the disk tier, ROADMAP A.13) and
-    ``mesh`` (the multi-GPU fold, A.15) raise.
+    ``mesh`` (the multi-GPU fold, A.15) raise, and so does a segmented fold
+    while ``KEYSTONE_CHECKPOINT_DIR`` is set (the reference checkpoints it).
     """
     if n is None:
         raise ValueError("streamed fit needs the true row count n")
@@ -345,6 +346,15 @@ def run_lbfgs_gram_streamed(
     if checkpoint is not None:
         _raise_waits("checkpointing (checkpoint=)", "A.13")
     num_chunks, seg = int(num_chunks), max_chunks_per_dispatch
+    if seg is not None and seg < num_chunks:
+        from keystone_tpu_torch.data.durable import resolve_checkpoint
+
+        # The reference snapshots a segmented fold wherever
+        # KEYSTONE_CHECKPOINT_DIR (run.py --checkpoint-dir) names a
+        # directory: skipping that silently would leave the fit uninsured.
+        if resolve_checkpoint(None) is not None:
+            _raise_waits("checkpointing a segmented fold under KEYSTONE_CHECKPOINT_DIR "
+                         "(--checkpoint-dir)", "A.13")
 
     def live_chunk(cid):
         indices, values, Yc = chunk_fn(cid, *operands)

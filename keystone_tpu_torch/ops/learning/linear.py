@@ -22,6 +22,7 @@ import torch
 
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
+from keystone_tpu_torch.ops.cuda_ops import row_stable_matmul
 from keystone_tpu_torch.ops.learning.cost import CostModel
 from keystone_tpu_torch.ops.stats import StandardScaler, StandardScalerModel
 from keystone_tpu_torch.parallel import linalg
@@ -29,10 +30,24 @@ from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 from keystone_tpu_torch.workflow.fusion import DeviceFit, masked_center
 
 
+def mapper_product(X, W):
+    """A linear model's batched product ``X @ W``, the one the mappers'
+    ``device_fn`` computes. Float32 operands go through
+    :func:`~keystone_tpu_torch.ops.cuda_ops.row_stable_matmul`, whose rows
+    do not depend on how many rows share the call, so every padding bucket
+    of an exported plan, and a batch apply of the same plan, give a row the
+    same bits (ROADMAP C.8). The kernel is float32; other dtypes keep
+    torch's product, as the reference leaves the product to XLA."""
+    if X.dtype == torch.float32 and W.dtype == torch.float32 and X.dim() == 2:
+        return row_stable_matmul(X, W)
+    return X @ W
+
+
 class LinearMapper(Transformer):
     """x -> xᵀX + b, with optional feature scaling
     (reference: LinearMapper.scala:45-62). Its ``device_fn`` (center-scale
-    + GEMM + intercept) lets apply chains fuse through the model."""
+    + :func:`mapper_product` + intercept) lets apply chains fuse through
+    the model."""
 
     def __init__(self, x, b_opt=None, feature_scaler: Optional[StandardScalerModel] = None):
         self.x = as_tensor(x)
@@ -49,7 +64,14 @@ class LinearMapper(Transformer):
         return out
 
     def device_fn(self):
-        return self.apply
+        def fn(v):
+            v = as_tensor(v, self.x.device)
+            if self.feature_scaler is not None:
+                v = self.feature_scaler.apply(v)
+            out = mapper_product(v, self.x)
+            return out if self.b_opt is None else out + self.b_opt
+
+        return fn
 
 
 class SparseLinearMapper(Transformer):

@@ -43,14 +43,25 @@ replicated plane (least-loaded routing, per-replica breakers, watchdog
 restarts, hot swap). Serve runs on the CUDA device unless given
 ``--device cpu``, and raises without one. The reference's ``--autoscale``,
 ``--tenants`` / ``--tenant-spec`` / ``--zoo-budget-mb``, ``--fleet``,
-``--from-plan`` and ``--metrics-port`` / ``--metrics-dir``, and its
-``learn`` command, are not ported yet.
+``--from-plan`` and ``--metrics-port`` / ``--metrics-dir`` are not ported
+yet.
 
-Global flags (any pipeline, and serve), popped before the pipeline's own
-parser: ``--trace=DIR`` runs the invocation under the obs tracer and
-writes ``DIR/trace.json`` (Perfetto-loadable), ``DIR/events.jsonl`` and
-``DIR/meta.json``; ``--fault-plan=JSON|@file.json`` installs a
-deterministic fault-injection plan (``utils/faults.py``).
+``python -m keystone_tpu_torch.run learn [--input-dim 16 --out-dim 4
+--segments 24 --rate 200 --duration-s 8]`` runs the continuous-learning
+loop: a trainer re-fits a linear model over arriving synthetic segments
+while two replicas serve Poisson load, and every candidate publishes
+through the lifecycle gate (finite weights, bucket bit identity, held-out
+quality), a canary and promotion; one summary line reports the books,
+the publications and the measured model staleness. On the CUDA device
+unless given ``--device cpu``.
+
+Global flags (any pipeline, serve and learn), popped before the
+pipeline's own parser: ``--trace=DIR`` runs the invocation under the obs
+tracer and writes ``DIR/trace.json`` (Perfetto-loadable),
+``DIR/events.jsonl`` and ``DIR/meta.json``; ``--fault-plan=JSON|@file.json``
+installs a deterministic fault-injection plan (``utils/faults.py``);
+``--checkpoint-dir=DIR`` sets ``KEYSTONE_CHECKPOINT_DIR``: the trainer of
+``learn`` snapshots its carry there and a restarted one resumes from it.
 """
 
 from __future__ import annotations
@@ -264,6 +275,219 @@ def _serve(argv):
     return 0
 
 
+def _learn(argv):
+    """``learn`` mode: the continuous-learning closed loop — a
+    ContinuousTrainer re-fitting over arriving synthetic segments while
+    the replicated plane serves live Poisson traffic, every candidate
+    publishing through the lifecycle gate → canary → promote/rollback
+    path. Prints one summary line with the publication counters and
+    measured model staleness; exits non-zero with a one-line diagnostic
+    on failure (the serve contract). Runs on the CUDA device unless
+    given ``--device cpu``. The reference's ``--metrics-port`` /
+    ``--metrics-dir`` / ``--metrics-interval-s`` (its live metrics
+    endpoint, ROADMAP A.17) are not ported: argparse refuses them."""
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser("keystone-learn")
+    parser.add_argument("--input-dim", type=int, default=16)
+    parser.add_argument("--out-dim", type=int, default=4)
+    parser.add_argument("--segments", type=int, default=24,
+                        help="how many shard segments arrive over the run")
+    parser.add_argument("--segment-rows", type=int, default=256)
+    parser.add_argument("--arrival-spread-s", type=float, default=-1.0,
+                        help="segments arrive uniformly over this window "
+                        "(default: 60%% of --duration-s)")
+    parser.add_argument("--publish-every-k", type=int, default=4,
+                        help="trainer publishes a candidate every K "
+                        "segments (the final segment always publishes)")
+    parser.add_argument("--quality-bound", type=float, default=0.05,
+                        help="max held-out score regression a candidate "
+                        "may show vs the incumbent before the gate "
+                        "rejects it")
+    parser.add_argument("--canary-sustain-s", type=float, default=1.0,
+                        help="canary window before full promotion "
+                        "(0 disables the canary)")
+    parser.add_argument("--canary-latency-factor", type=float, default=3.0)
+    parser.add_argument("--max-batch", type=int, default=64)
+    parser.add_argument("--max-wait-ms", type=float, default=2.0)
+    parser.add_argument("--queue-depth", type=int, default=1024)
+    parser.add_argument("--replicas", type=int, default=2,
+                        help="replicated-plane size (>= 2 so the canary "
+                        "has incumbents to compare against)")
+    parser.add_argument("--restart-budget", type=int, default=3)
+    parser.add_argument("--rate", type=float, default=200.0)
+    parser.add_argument("--duration-s", type=float, default=8.0)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--slo-p99-ms", type=float, default=0.0)
+    parser.add_argument("--slo-target", type=float, default=0.99)
+    parser.add_argument("--device", default=None,
+                        help="serving device (default: the CUDA device; "
+                        "'cpu' runs the kernels' plain versions)")
+    args = parser.parse_args(argv)
+
+    import numpy as np
+
+    from keystone_tpu_torch import obs, resolve_device
+    from keystone_tpu_torch.learning import ContinuousTrainer, TimedSegmentFeed
+    from keystone_tpu_torch.serving import (
+        LifecycleController,
+        ReplicatedServer,
+        export_plan,
+        run_open_loop,
+    )
+
+    if args.replicas < 1:
+        print("learn: --replicas must be >= 1", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+
+    # Synthesize / fit / export fail as a ONE-LINE diagnostic + non-zero
+    # exit (the serve contract — learn is operator-facing too).
+    phase = "synthesize"
+    try:
+        d, k = args.input_dim, args.out_dim
+        rng = np.random.default_rng(args.seed)
+        W_true = rng.normal(size=(d, k)).astype(np.float32)
+        def segment(n):
+            X = rng.normal(size=(n, d)).astype(np.float32)
+            y = (X @ W_true
+                 + 0.01 * rng.normal(size=(n, k))).astype(np.float32)
+            return X, y
+        segments = [segment(args.segment_rows)
+                    for _ in range(args.segments)]
+        holdout = segment(4 * args.segment_rows)
+        phase = "quick-fit"
+        from keystone_tpu_torch.ops.learning.linear import LinearMapper
+        from keystone_tpu_torch.workflow.pipeline import (
+            FittedPipeline,
+            TransformerGraph,
+        )
+
+        X0, y0 = segments[0]
+        X64 = X0.astype(np.float64)
+        W0 = np.linalg.solve(
+            X64.T @ X64 + 1e-3 * np.eye(d), X64.T @ y0.astype(np.float64)
+        ).astype(np.float32)
+        pipe0 = LinearMapper(W0).to_pipeline()
+        fitted0 = FittedPipeline(
+            TransformerGraph.from_graph(pipe0.executor.graph),
+            pipe0.source, pipe0.sink,
+        )
+        phase = "export"
+        plan0 = export_plan(
+            fitted0, np.zeros(d, np.float32), max_batch=args.max_batch,
+            device=device,
+        )
+    except SystemExit:
+        raise
+    except Exception as e:
+        print(f"learn: {phase} failed: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        return 1
+
+    slo_tracker = None
+    slo_registry = None
+    if args.slo_p99_ms > 0:
+        slo_registry = obs.MetricsRegistry()
+        slo_tracker = obs.SLOTracker([
+            obs.SLOObjective(
+                "latency", kind="latency",
+                threshold_s=args.slo_p99_ms / 1e3, target=args.slo_target,
+            ),
+            obs.SLOObjective(
+                "availability", kind="availability", target=0.999,
+            ),
+        ], metrics=slo_registry)
+
+    spread = (args.arrival_spread_s if args.arrival_spread_s >= 0
+              else 0.6 * args.duration_s)
+    offsets = [spread * i / max(args.segments - 1, 1)
+               for i in range(args.segments)]
+    server = ReplicatedServer(
+        plan0, num_replicas=args.replicas, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, max_queue_depth=args.queue_depth,
+        restart_budget=args.restart_budget, slo=slo_tracker,
+    )
+    controller = None
+    trainer = None
+    try:
+        controller = LifecycleController(
+            server, plan0, holdout=holdout,
+            quality_bound=args.quality_bound,
+            canary_sustain_s=args.canary_sustain_s,
+            canary_latency_factor=args.canary_latency_factor,
+            slo=slo_tracker,
+        ).start()
+        feed = TimedSegmentFeed(segments, arrival_offsets=offsets)
+        # --checkpoint-dir (KEYSTONE_CHECKPOINT_DIR) flows through
+        # checkpoint=None exactly like the streamed solvers.
+        trainer = ContinuousTrainer(
+            feed, controller, publish_every_k=args.publish_every_k,
+        )
+        trainer.start()
+        rng_req = np.random.default_rng(args.seed + 1)
+        pool = rng_req.normal(size=(256, d)).astype(np.float32)
+        report = run_open_loop(
+            server.submit, lambda i: pool[i % len(pool)],
+            rate_hz=args.rate, duration_s=args.duration_s,
+            seed=args.seed, slo=slo_tracker,
+        )
+        trainer.join(timeout=60.0)
+        controller.poll()  # settle the last staleness clock
+        lc_stats = controller.stats()
+        tr_stats = trainer.stats()
+        stats = server.stats()
+    finally:
+        if trainer is not None:
+            trainer.stop()
+        if controller is not None:
+            controller.close()
+        server.close()
+    if trainer.error is not None:
+        print(
+            f"learn: trainer died mid-fit: "
+            f"{type(trainer.error).__name__}: {trainer.error} — "
+            "re-run with the same --checkpoint-dir to resume",
+            file=sys.stderr,
+        )
+        return 1
+    summary = report.to_row_dict()
+    # The lifecycle claims (staleness*/rollbacks) ride in the SAME dict
+    # as num_published and the offered rate — the make_row audit shape.
+    summary.update({
+        "published": lc_stats["published"],
+        "num_published": lc_stats["num_published"],
+        # NOT "rejected": that key is the LOAD accounting (sheds) from
+        # the report above; gate rejections are a different book.
+        "gate_rejected": lc_stats["rejected"],
+        "rollbacks": lc_stats["rollbacks"],
+        "canary_promotions": lc_stats["canary_promotions"],
+        "staleness_s": lc_stats["staleness_s"],
+        "staleness_median_s": lc_stats["staleness_median_s"],
+        "trainer_segments_fit": tr_stats["segments_fit"],
+        "trainer_resumes": tr_stats["resumes"],
+        "incumbent_fingerprint": lc_stats["incumbent_fingerprint"],
+        "replicas": stats.get("num_replicas"),
+        "healthy_replicas": stats.get("healthy_replicas"),
+        "accounting_ok": (
+            report.num_offered
+            == report.completed + report.rejected + report.failed
+        ),
+    })
+    if slo_tracker is not None:
+        verdict = report.slo or slo_tracker.verdict()
+        summary.update({
+            "slo_state": verdict["state"],
+            "slo_budget_spent_fraction": max(
+                o["budget_spent_fraction"]
+                for o in verdict["objectives"].values()
+            ),
+        })
+    print(json.dumps(summary))
+    return 0
+
+
 def _serve_build_fitted(args, device):
     """(fitted, d_in) for serve mode: load a saved FittedPipeline or
     quick-fit the named pipeline on synthetic data on ``device`` (the
@@ -332,11 +556,15 @@ def resolve(name: str) -> Callable:
 
 # Global flags popped before any per-pipeline parser sees them; each
 # becomes the env knob the library layer reads:
+#   --checkpoint-dir=DIR   -> KEYSTONE_CHECKPOINT_DIR (data/durable.py:
+#       the continuous trainer snapshots + resumes its fold carry; a
+#       segmented streamed fit that would snapshot raises, ROADMAP A.13)
 #   --fault-plan=JSON|@f   -> KEYSTONE_FAULT_PLAN (utils/faults.py: install
 #       a deterministic fault-injection plan for manual chaos drills)
 #   --trace=DIR            -> KEYSTONE_TRACE (obs: run under the tracer,
 #       write the Perfetto trace + event log to DIR)
 _GLOBAL_FLAGS = {
+    "--checkpoint-dir=": "KEYSTONE_CHECKPOINT_DIR",
     "--fault-plan=": "KEYSTONE_FAULT_PLAN",
     "--trace=": "KEYSTONE_TRACE",
 }
@@ -377,6 +605,8 @@ def main(argv=None):
     with obs.tracing_from_env():
         if argv[0] in ("serve", "--serve"):
             return _serve(argv[1:])
+        if argv[0] in ("learn", "--learn"):
+            return _learn(argv[1:])
         resolve(argv[0])(argv[1:])
     return 0
 

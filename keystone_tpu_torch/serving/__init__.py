@@ -21,10 +21,14 @@ into something that serves streams of single-datum requests:
     zero-drop add / remove and brownout-ladder primitives.
   - :func:`run_open_loop` / :func:`closed_loop_qps` — Poisson load
     generation and the batch-size-1 baseline.
+  - :class:`LifecycleController` — validation-gated publication of new
+    plan versions (finite weights, bucket bit identity, held-out
+    quality), canary rollout with rollback, the post-promotion
+    attribution window and the model-staleness clock.
 
-The reference's autoscaler (``serving/autoscale.py``), model lifecycle
-(``serving/lifecycle.py``), multi-tenant zoo (``serving/zoo.py``) and
-process fleet (``serving/fleet*.py``) are not ported yet.
+The reference's autoscaler (``serving/autoscale.py``), multi-tenant zoo
+(``serving/zoo.py``) and process fleet (``serving/fleet*.py``) are not
+ported yet.
 """
 
 from .batcher import (
@@ -34,6 +38,7 @@ from .batcher import (
     ServerOverloaded,
 )
 from .export import BatchInfo, ExportedPlan, export_plan, plan_fingerprint
+from .lifecycle import LifecycleController, LifecycleDecision
 from .loadgen import (
     LoadReport,
     closed_loop_qps,
@@ -46,6 +51,8 @@ __all__ = [
     "BROWNOUT_STEPS",
     "BatchInfo",
     "ExportedPlan",
+    "LifecycleController",
+    "LifecycleDecision",
     "LoadReport",
     "MicroBatchServer",
     "ReplicatedServer",

@@ -329,7 +329,13 @@ class CapturedProgram:
     wrappers it calls count into a record of the capturing thread
     (``cuda_ops.recording_launches``), never into ``cuda_ops.launches``,
     and each :meth:`run` adds the record there: the counters keep counting
-    kernel launches, whatever other threads launch or replay meanwhile. A capture that fails raises a RuntimeError naming ``what``
+    kernel launches, whatever other threads launch or replay meanwhile. The
+    capture forbids unsafe CUDA calls (an allocation, a synchronizing copy)
+    on its own thread only (``thread_local``): a plan exported while the
+    plane serves, as the lifecycle gate exports a trainer's candidate, must
+    not fail the replicas' copies, nor they its capture (the default,
+    global mode did both on the card). A capture that fails raises a
+    RuntimeError naming ``what``
     and the failing node (the composed function's own error); the card's
     random generator and the current stream are restored first, since a
     capture that fails to end leaves both in the capture's state. There
@@ -354,7 +360,8 @@ class CapturedProgram:
         rng_state = rng.clone_state()
         failed = []  # the node's own error: ending a broken capture raises another
         try:
-            with cuda_ops.recording_launches() as counted, torch.cuda.graph(graph):
+            with cuda_ops.recording_launches() as counted, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 try:
                     self.static_out = fn(self.static_in)
                 except Exception as e:

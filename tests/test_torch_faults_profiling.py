@@ -276,7 +276,15 @@ class TestServeCLI:
             run.main(["serve", "--input-dim", "8"])
 
     def test_learn_is_not_a_command(self):
+        """``learn`` is a mode of the CLI, not a pipeline name: ``resolve``
+        refuses it, and ``main`` routes it to the continuous-learning loop,
+        which (like serve) raises without a CUDA device unless given
+        ``--device cpu``."""
         from keystone_tpu_torch import run
 
         with pytest.raises(SystemExit, match="Unknown pipeline"):
-            run.main(["learn"])
+            run.resolve("learn")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: False)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                run.main(["learn"])

@@ -71,7 +71,9 @@ def test_port_has_modules():
                 "obs/__init__.py", "obs/metrics.py", "obs/flight.py", "obs/tracer.py",
                 "obs/slo.py", "obs/export.py", "data/durable.py", "serving/__init__.py",
                 "serving/export.py", "serving/batcher.py", "serving/loadgen.py",
-                "serving/replicas.py"):
+                "serving/replicas.py", "serving/lifecycle.py", "placement/__init__.py",
+                "placement/engine.py", "data/runtime.py", "learning/__init__.py",
+                "learning/continuous.py"):
         assert rel in rels
 
 
@@ -126,14 +128,18 @@ def test_kernel_sources_sit_beside_the_package():
         "block_corr.cu", "block_residual_update.cu",
         "conv_featurize.cu", "cosine_features.cu", "countsketch_scatter.cu",
         "gaussian_kernel_block.cu", "gaussian_resid_block.cu", "gram_corr.cu",
-        "gram_corr_sym_acc.cu",
+        "gram_corr_sym_acc.cu", "row_stable_matmul.cu",
     ]
     for src in sources:
         text = (PORT / "csrc" / src).read_text()
-        assert any(
-            f"Replaces the TPU kernel keystone_tpu/ops/{ref}" in text
-            for ref in ("pallas_ops.py", "pallas_images.py")
-        )
+        if src == "row_stable_matmul.cu":
+            # The one kernel with no TPU twin: C.8's repair.
+            assert "Replaces no TPU kernel" in text and "C.8" in text
+        else:
+            assert any(
+                f"Replaces the TPU kernel keystone_tpu/ops/{ref}" in text
+                for ref in ("pallas_ops.py", "pallas_images.py")
+            )
         assert "Bound on an H100" in text
 
 

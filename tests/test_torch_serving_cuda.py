@@ -9,10 +9,11 @@ the machine with the card: ``python -m pytest
 tests/test_torch_serving_cuda.py -m cuda --noconftest``.
 
 Tolerances: a replayed bucket equals its eager first run bit for bit (the
-same kernels on the same inputs); served rows against the walked
-pipeline's batch apply 1e-6 relative (the MNIST plan) and 1e-5 (the small
-cosine plan, 1.05e-6 read): a few-row and a many-row product may sum in
-different orders.
+same kernels on the same inputs); served rows of the small cosine plan
+equal the walked pipeline's batch apply bit for bit (its products are
+row-stable: ``cuda_ops.row_stable_matmul``, ROADMAP C.8); the MNIST plan's
+against its walked pipeline 1e-6 relative (the fused plan and the walked
+nodes compose the FFT featurizer differently).
 """
 
 import sys
@@ -84,11 +85,13 @@ class TestBucketGraphs:
 
     def test_launches_counted_a_replay(self, cuda_device):
         _, plan, X = _cosine_plan(cuda_device)
-        assert plan.launches_per_replay == {b: {"cosine_features": 1} for b in plan.buckets}
+        assert plan.launches_per_replay == {
+            b: {"cosine_features": 1, "row_stable_matmul": 1} for b in plan.buckets}
         cuda_ops.reset_launch_counts()
         for m in (1, 5, 16):
             plan.apply_batch(list(X[:m]))
         assert cuda_ops.launches["cosine_features"] == 3
+        assert cuda_ops.launches["row_stable_matmul"] == 3
 
     def test_replay_equals_eager_bits(self, cuda_device):
         _, plan, X = _cosine_plan(cuda_device)
@@ -155,8 +158,8 @@ class TestSharedPlanOnCard:
         assert not any(t.is_alive() for t in threads)
         assert {o[0] for o in out} == {0, 1}
         got = np.stack([o[1] for o in out])
-        rel = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
-        assert rel.max() <= 1e-5  # the walked pipeline's products (1.05e-6 read)
+        # The walked pipeline's 96-row batch apply, bit for bit (C.8).
+        np.testing.assert_array_equal(got, want)
         # Each row equals its own bucket-2 replay alone: no row took
         # another request's bits through the shared static buffers.
         for i in range(0, 96, 7):
@@ -195,6 +198,28 @@ class TestSharedPlanOnCard:
             got = np.stack([f.result(timeout=60) for f in futs])
         assert got.shape == (40, 3) and np.isfinite(got).all()
         assert plan.trace_count == len(plan.buckets)
+
+
+    def test_export_while_serving_fails_nothing(self, cuda_device):
+        """A plan exported (its buckets captured) while two replicas serve
+        another, as the lifecycle gate exports a trainer's candidate:
+        neither the capture nor any replica's request fails."""
+        from keystone_tpu_torch.serving import run_open_loop
+
+        fitted, plan, X = _cosine_plan(cuda_device, max_batch=16, seed=0)
+        other, _, _ = _cosine_plan(cuda_device, max_batch=16, seed=1)
+        holder = {}
+        with ReplicatedServer(plan, num_replicas=2, max_wait_ms=1.0) as srv:
+            storm = threading.Thread(target=lambda: holder.update(report=run_open_loop(
+                srv.submit, lambda i: X[i % len(X)], rate_hz=1000.0, duration_s=1.5, seed=1)))
+            storm.start()
+            plans = [export_plan(other, np.zeros(24, np.float32), max_batch=16)
+                     for _ in range(3)]
+            storm.join(timeout=60)
+        report = holder["report"]
+        assert report.failed == 0 and report.completed > 0
+        assert report.num_offered == report.completed + report.rejected
+        assert all(p.trace_count == len(p.buckets) for p in plans)
 
 
 @pytest.mark.cuda

@@ -58,7 +58,7 @@ class TestDatumProgramsOnCard:
         outs = [fitted.apply(X[i]) for i in range(8)]
         (program,) = fitted._datum_programs.values()
         assert program.mode == "graph" and program.captures == 1 and program.replays == 7
-        assert program.launches_per_replay == {"cosine_features": 1}
+        assert program.launches_per_replay == {"cosine_features": 1, "row_stable_matmul": 1}
         for i, y in enumerate(outs):
             assert y.is_cuda and y.shape == batch[i].shape
             assert _rel(y, batch[i]) <= 1e-6
@@ -72,7 +72,8 @@ class TestDatumProgramsOnCard:
         for i in range(10):
             fitted.apply(X[i])
         assert cuda_ops.launches["cosine_features"] == 10
-        assert sum(cuda_ops.launches.values()) == 10
+        assert cuda_ops.launches["row_stable_matmul"] == 10
+        assert sum(cuda_ops.launches.values()) == 20
 
     def test_first_call_counts_its_eager_launches_only(self, cuda_device):
         fitted, X = _fitted_cosine_ridge(cuda_device)
