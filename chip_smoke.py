@@ -307,6 +307,31 @@ started together), then:
          uninterrupted run;
        launches counted from 0 over (c)-(e): ``row_stable_matmul`` and
        ``cosine_features`` must both launch.
+ 21. drives the out-of-core data plane (disk shards, the prefetcher, the
+     disk tier of the fits) on the card, each part's launches counted from
+     0, the shards in a directory under ``build/`` removed at the end:
+       - (a) TIMIT from disk at the north star's n: 2,200,000 x 440 rows
+         (147 classes) written with ``DiskDenseShardWriter`` in tiles of
+         8,192, 2 a segment; a ``Pipeline`` of 4 x 4,096 cosines ->
+         ``LeastSquaresEstimator(host_budget_bytes=1 GiB)`` on the
+         shard-backed data: the selector must pick the disk tier and the
+         fit fold prefetched segments through ``cosine_features`` and
+         ``gram_sym_acc`` (one launch a tile); fit seconds at prefetch depth
+         2 and 0 (bit-equal weights), the overlap fraction, the peak
+         allocated bytes against the priced ones (at most 1.2 x), and
+         predictions on 65,536 held-out rows within 5e-4 of a resident
+         streamed fit of the same rows on the card;
+       - (b) the disk fold killed by an injected read fault after 100
+         segments resumes from its checkpoint to (a)'s bits;
+       - (c) the sparse disk tier at the Amazon geometry: the rows of phase
+         8 written with ``DiskCOOShards`` and folded by
+         ``run_lbfgs_gram_streamed(segment_source=)`` at depth 2 and 0 (bit
+         equal, and the bits of phase 8's bf16 gram engine); a segmented
+         fold under ``KEYSTONE_CHECKPOINT_DIR`` killed and resumed;
+       - (d) ``csv_to_disk_shards`` on a 65,536-row TIMIT-width CSV the
+         phase writes (rows within 1e-5, labels exact), and ``load_images``
+         of 5,011 64 x 64 synthetic images under a budget that forces the
+         spill, prefetched onto the card: the bytes of the resident decode.
 
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -321,6 +346,7 @@ device and exits non-zero without one.
 import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3648,7 +3674,8 @@ def phase_sparse(cuda_ops):
     report["engines_max_abs_model_delta"] = deltas
     amazon = dict(rows=rows, train=train, test=test, labels=labels, gather=base,
                   gather_accuracy=(report["gather"]["train_accuracy"],
-                                   report["gather"]["test_accuracy"]))
+                                   report["gather"]["test_accuracy"]),
+                  gram_bf16=_w1(models["gram bf16"]), w_true=w_true)
     del models, comp, b16
     torch.cuda.empty_cache()
     report["streamed"] = phase_sparse_streamed(cuda_ops, w_true)
@@ -4990,6 +5017,412 @@ def phase_learn_resume(device="cuda"):
                 resumed_segments=resumed.segments_fit, fingerprint=incumbent, expected=ref_fp)
 
 
+DISK = "disk tier: TIMIT and Amazon folded from disk shards"
+# Phase 21(a): the north star's n from disk, TIMIT-shaped (440 inputs, 147
+# classes, 4 x 4,096 cosines), tiles of 8,192 rows and 2 tiles a segment as
+# the reference's out-of-core bench leg (bench.py:3222): 269 tiles (268
+# full and one of 4,544 rows), 135 segments (the last holds one tile). The
+# host budget sits below the raw rows' 3.9 GB, so every resident candidate
+# is infeasible.
+DISK_N, DISK_TILE, DISK_TPS, DISK_TEST = 2200000, 8192, 2, 65536
+DISK_TILES = -(-DISK_N // DISK_TILE)
+DISK_RAGGED = DISK_N - (DISK_TILES - 1) * DISK_TILE
+DISK_SEGMENTS = -(-DISK_TILES // DISK_TPS)
+DISK_LAM, DISK_HOST_BUDGET, DISK_BLOCK_ROWS = 1e-4, 1 << 30, 65536
+DISK_PEAK_OVER_PRICED = 0.20
+# Phase 21(b): snapshots every 48 segments (after 48 and 96); the read of
+# segment 100 fails its three attempts, so the rerun resumes at 96.
+DISK_CKPT_EVERY, DISK_KILL_SEGMENT = 48, 100
+# Phase 21(c): phase 8's Amazon rows in chunks of 65,536, 2 a segment.
+DISK_COO_CPS = 2
+# Phase 21(d): the CSV and image spill paths.
+DISK_CSV_N, DISK_IMAGES, DISK_IMAGE_SIZE, DISK_IMAGE_SEGMENT = 65536, 5011, 64, 64
+
+
+def disk_row_blocks(n, seed, device="cuda", block=DISK_BLOCK_ROWS):
+    """TIMIT-shaped rows made on ``device`` a block at a time: class means
+    0.6 x N(0, 1) drawn from a fixed seed (shared by every row set), then
+    per row a uniform class, its mean plus N(0, 1) noise, and the ±1
+    one-hot target; the same ``seed`` gives the same rows. Yields (X, Y,
+    class labels) blocks."""
+    means = 0.6 * torch.randn((K, D_IN), generator=torch.Generator(device=device).manual_seed(1234),
+                              device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for lo in range(0, n, block):
+        m = min(block, n - lo)
+        labels = torch.randint(0, K, (m,), generator=gen, device=device)
+        X = means[labels] + torch.randn((m, D_IN), generator=gen, device=device)
+        Y = 2.0 * torch.nn.functional.one_hot(labels, K).to(torch.float32) - 1.0
+        yield X, Y, labels
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _streamed_model(fitted):
+    from keystone_tpu_torch.ops.learning.streaming_ls import StreamingFeaturizedLinearModel
+
+    (model,) = [op for op in fitted.transformer_graph.operators.values()
+                if isinstance(op, StreamingFeaturizedLinearModel)]
+    return model
+
+
+def _disk_fit(cuda_ops, timit, TimitConfig, sld, depth, device, stats=None):
+    """One Pipeline fit of the cosine featurizer -> LeastSquaresEstimator
+    on the shard-backed rows at prefetch ``depth``, launches counted from
+    0. Returns (fitted, selector, seconds, launches, run peak bytes)."""
+    from keystone_tpu_torch.ops.learning.cost import LeastSquaresEstimator
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    PipelineEnv.get_or_create().reset()
+    config = TimitConfig(num_cosines=NUM_COSINES, block_size=BLOCK, num_epochs=EPOCHS,
+                         lam=DISK_LAM)
+    auto = LeastSquaresEstimator(lam=DISK_LAM, block_size=BLOCK, block_iters=EPOCHS,
+                                 host_budget_bytes=DISK_HOST_BUDGET)
+    auto._streaming_choice.prefetch_depth = depth
+    auto._streaming_choice.prefetch_stats = stats
+    pipe = timit.build_featurizer(config, device).and_then(auto, sld.data, sld.labels)
+    _sync(device)
+    baseline = torch.cuda.memory_allocated() if device == "cuda" else 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fitted = pipe.fit()
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    grown = (torch.cuda.max_memory_allocated() - baseline) if device == "cuda" else 0
+    PipelineEnv.get_or_create().reset()
+    return fitted, auto, seconds, counts, grown
+
+
+def phase_disk_timit(cuda_ops, timit, TimitConfig, root, smi, device="cuda"):
+    """Phase 21(a): TIMIT written to disk shards and fitted from them
+    through the Pipeline API at depth 2 and 0."""
+    from keystone_tpu_torch.data.prefetch import PrefetchStats
+    from keystone_tpu_torch.data.shards import DiskDenseShardWriter
+    from keystone_tpu_torch.ops.learning.streaming_ls import CosineBankFeaturize
+    from keystone_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    writer = DiskDenseShardWriter(os.path.join(root, "timit"), capacity_rows=DISK_N, d_in=D_IN,
+                                  k=K, tile_rows=DISK_TILE, tiles_per_segment=DISK_TPS)
+    for X, Y, _ in disk_row_blocks(DISK_N, 1, device):
+        writer.append(X.cpu().numpy(), Y.cpu().numpy())
+    shards = writer.close()
+    sld = shards.as_labeled_data()
+    write_s = time.perf_counter() - t0
+    disk_bytes = sum(os.path.getsize(os.path.join(shards.directory, f))
+                     for f in os.listdir(shards.directory))
+    log(f"  (a) {DISK_N} x {D_IN} rows, {K} classes: {shards.num_tiles} tiles of {DISK_TILE} "
+        f"({DISK_RAGGED} rows in the last), {shards.num_segments} segments, {disk_bytes} bytes "
+        f"of shards written and checksummed in {write_s:.3f} s")
+    check("21(a) the shard geometry", shards.num_tiles == DISK_TILES
+          and shards.num_segments == DISK_SEGMENTS and shards.n_true == DISK_N,
+          f"{shards.num_tiles} tiles, {shards.num_segments} segments, {shards.n_true} rows")
+    runs = {}
+    for depth in (2, 0):
+        stats = PrefetchStats()
+        fitted, auto, seconds, counts, grown = _disk_fit(cuda_ops, timit, TimitConfig, sld, depth,
+                                                         device, stats)
+        decision = auto.last_decision
+        (priced,) = [c["resident_bytes"] for c in decision["candidates"]
+                     if c["label"] == "StreamingLeastSquaresChoice"]
+        model = _streamed_model(fitted)
+        overlap = profiling.prefetch_overlap_fraction(stats)
+        runs[depth] = dict(fitted=fitted, model=model, seconds=seconds, launches=counts,
+                           grown=grown, priced=priced, overlap=overlap, decision=decision,
+                           report=profiling.overlap_report(stats),
+                           load_s=stats.load_s, wait_s=stats.wait_s,
+                           retries=profiling.prefetch_retry_counters(stats))
+        log(f"  (a) depth {depth}: fit {seconds:.3f} s, winner {decision['winner']} "
+            f"(shard_backed {decision['context']['shard_backed']}), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, overlap {overlap}, load "
+            f"{stats.load_s:.3f} s, wait {stats.wait_s:.3f} s, sites {runs[depth]['report']}, "
+            f"run peak {grown} B against the priced {priced:.6g} B ({smi})")
+        check(f"21(a) depth {depth}: the selector picks the disk tier",
+              decision["winner"] == "StreamingLeastSquaresChoice"
+              and decision["context"]["shard_backed"] is True
+              and all(not c["feasible"] for c in decision["candidates"]
+                      if c["label"] != "StreamingLeastSquaresChoice"),
+              f"winner {decision['winner']}, candidates {decision['candidates']}")
+        check(f"21(a) depth {depth}: gram_sym_acc once a tile, cosine_features every tile",
+              counts["gram_sym_acc"] == DISK_TILES and counts["cosine_features"] >= DISK_TILES,
+              f"{counts['gram_sym_acc']} and {counts['cosine_features']} launches, "
+              f"{DISK_TILES} tiles")
+        if device == "cuda":
+            check(f"21(a) depth {depth}: the run's peak within "
+                  f"{DISK_PEAK_OVER_PRICED:.0%} over the priced resident bytes",
+                  grown <= (1 + DISK_PEAK_OVER_PRICED) * priced,
+                  f"{grown / 2**30:.3f} GiB <= {(1 + DISK_PEAK_OVER_PRICED) * priced / 2**30:.3f} GiB")
+    on, off = runs[2]["model"], runs[0]["model"]
+    check("21(a) depth 0 and depth 2 give bit-equal weights",
+          torch.equal(on.W_stack, off.W_stack) and torch.equal(on.fmean, off.fmean)
+          and torch.equal(on.ymean, off.ymean), "W, fmean, ymean bitwise equal")
+    # A resident streamed fit of the same rows (the fit's own cosine bank),
+    # and held-out predictions.
+    bank = on.featurize
+    check("21(a) the fit folded through the cosine bank", isinstance(bank, CosineBankFeaturize),
+          f"featurize {type(bank).__name__}")
+    X_all, Y_all = [], []
+    for X, Y, _ in disk_row_blocks(DISK_N, 1, device):
+        X_all.append(X)
+        Y_all.append(Y)
+    X_all, Y_all = torch.cat(X_all), torch.cat(Y_all)
+    from keystone_tpu_torch.data import Dataset
+
+    t0 = time.perf_counter()
+    resident = timit_streaming_estimator(bank).fit(Dataset(X_all), Dataset(Y_all))
+    _sync(device)
+    resident_s = time.perf_counter() - t0
+    del X_all, Y_all
+    X_test = torch.cat([X for X, _, _ in disk_row_blocks(DISK_TEST, 2, device)])
+    cuda_ops.reset_launch_counts()
+    got = runs[2]["fitted"].apply(Dataset(X_test)).to_numpy()
+    apply_counts = dict(cuda_ops.launches)
+    want = resident.batch_apply(Dataset(X_test)).to_numpy()
+    gap = float(np.max(np.abs(got - want) / (1.0 + np.abs(want))))
+    same_bits = bool(np.array_equal(got, want))
+    log(f"  (a) resident streamed fit of the same rows {resident_s:.3f} s; held-out "
+        f"{DISK_TEST} rows: max |disk - resident| / (1 + |resident|) = {gap:.3e} (bit-equal "
+        f"{same_bits}), apply launches { {k: v for k, v in apply_counts.items() if v} }")
+    check("21(a) held-out predictions within 5e-4 of the resident streamed fit", gap <= 5e-4,
+          f"{gap:.3e}")
+    check("21(a) the fitted model predicts through cosine_features and row_stable_matmul",
+          apply_counts["cosine_features"] > 0 and apply_counts["row_stable_matmul"] > 0,
+          f"{apply_counts}")
+    summary = {
+        "rows": DISK_N, "tiles": DISK_TILES, "segments": DISK_SEGMENTS,
+        "shard_bytes": disk_bytes, "write_seconds": write_s,
+        "resident_fit_seconds": resident_s, "heldout_gap": gap, "heldout_bit_equal": same_bits,
+        "apply_launches": {k: v for k, v in apply_counts.items() if v},
+    }
+    for depth, r in runs.items():
+        summary[f"depth_{depth}"] = dict(
+            fit_seconds=r["seconds"], overlap_fraction=r["overlap"], load_seconds=r["load_s"],
+            wait_seconds=r["wait_s"], sites=r["report"], retries=r["retries"],
+            launches={k: v for k, v in r["launches"].items() if v},
+            run_peak_bytes=r["grown"], priced_resident_bytes=r["priced"],
+            run_peak_over_priced=(r["grown"] / r["priced"]) if r["priced"] else None)
+    return summary, runs[2]["launches"], sld, bank, on
+
+
+def timit_streaming_estimator(bank):
+    """--solver streaming's estimator at phase 21's geometry, folding tiles
+    of the shards' 8,192 rows: the resident fold then sums the rows in the
+    disk fold's order (with its default 32,768-row tiles the two part by
+    float32 rounding, which the centred solve amplifies)."""
+    from keystone_tpu_torch.ops.learning.streaming_ls import StreamingFeaturizedLeastSquares
+
+    return StreamingFeaturizedLeastSquares(bank, d_feat=NUM_COSINES * BLOCK, block_size=BLOCK,
+                                           num_iter=EPOCHS, lam=DISK_LAM, tile_rows=DISK_TILE)
+
+
+def phase_disk_resume(cuda_ops, sld, bank, want, root, smi, device="cuda"):
+    """Phase 21(b): the disk fold killed by a read fault, resumed from its
+    checkpoint to the uninterrupted fit's bits."""
+    from keystone_tpu_torch.data.durable import CheckpointSpec
+    from keystone_tpu_torch.ops.learning import streaming_ls
+    from keystone_tpu_torch.parallel import streaming
+    from keystone_tpu_torch.utils.faults import FaultPlan, FaultRule
+
+    ck = CheckpointSpec(os.path.join(root, "ck"), every_segments=DISK_CKPT_EVERY)
+
+    def fit():
+        return streaming.streaming_bcd_fit_segments(
+            streaming_ls._paired_source(sld.data, sld.labels), bank=bank,
+            d_feat=NUM_COSINES * BLOCK, block_size=BLOCK, lam=DISK_LAM, num_iter=EPOCHS,
+            prefetch_depth=2, checkpoint=ck)
+
+    kill = FaultPlan([FaultRule("prefetch.read", "error",
+                                calls=[DISK_KILL_SEGMENT, DISK_KILL_SEGMENT + 1,
+                                       DISK_KILL_SEGMENT + 2])])
+    t0 = time.perf_counter()
+    try:
+        with kill:
+            fit()
+        killed = False
+    except OSError:
+        killed = True
+    killed_s = time.perf_counter() - t0
+    snapshot = ck.has_snapshot()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    W, fmean, ymean, _ = fit()
+    _sync(device)
+    resumed_s = time.perf_counter() - t0
+    counts = dict(cuda_ops.launches)
+    resumed_tiles = DISK_TILES - (DISK_KILL_SEGMENT // DISK_CKPT_EVERY) * DISK_CKPT_EVERY * DISK_TPS
+    log(f"  (b) killed at segment {DISK_KILL_SEGMENT} after {killed_s:.3f} s (snapshots every "
+        f"{DISK_CKPT_EVERY} segments); resumed in {resumed_s:.3f} s, gram_sym_acc "
+        f"{counts['gram_sym_acc']} launches ({smi})")
+    check("21(b) the killed fit left a snapshot and the resumed fit has the uninterrupted bits",
+          killed and snapshot and torch.equal(W, want.W_stack) and torch.equal(fmean, want.fmean)
+          and torch.equal(ymean, want.ymean) and not ck.has_snapshot(),
+          f"killed {killed}, snapshot {snapshot}, W / fmean / ymean bitwise equal to (a)")
+    check("21(b) the resumed fold folded only the segments after its snapshot",
+          counts["gram_sym_acc"] == resumed_tiles,
+          f"{counts['gram_sym_acc']} launches, {resumed_tiles} tiles after the snapshot")
+    return dict(killed_seconds=killed_s, resumed_seconds=resumed_s,
+                resumed_launches={k: v for k, v in counts.items() if v})
+
+
+def phase_disk_sparse(cuda_ops, w_true, bf16_w1, root, smi, device="cuda"):
+    """Phase 21(c): phase 8's Amazon rows from DiskCOOShards through the
+    segment-source fold at depth 2 and 0, then a killed and resumed
+    segmented fold under KEYSTONE_CHECKPOINT_DIR."""
+    from keystone_tpu_torch.data.prefetch import PrefetchStats
+    from keystone_tpu_torch.data.shards import DiskCOOShards
+    from keystone_tpu_torch.ops.learning.lbfgs import _resident_chunk_fn, run_lbfgs_gram_streamed
+    from keystone_tpu_torch.utils import profiling
+    from keystone_tpu_torch.utils.faults import FaultPlan, FaultRule
+
+    n, d, nnz, k = AMAZON_N, AMAZON_D, AMAZON_NNZ, AMAZON_K
+    t0 = time.perf_counter()
+    idx, vals, _, Y = amazon_rows(n, d, nnz, k, 1, w_true)
+    # The gram engine's intercept lane: column d, value 1.
+    idx1 = np.concatenate([idx, np.full((n, 1), d, np.int32)], axis=1)
+    val1 = np.concatenate([vals, np.ones((n, 1), np.float32)], axis=1)
+    shards = DiskCOOShards.write(os.path.join(root, "amazon"), idx1, val1, Y,
+                                 chunk_rows=AMAZON_CHUNK, n_true=n, d=d + 1)
+    write_s = time.perf_counter() - t0
+    runs = {}
+    for depth in (2, 0):
+        stats = PrefetchStats()
+        cuda_ops.reset_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        W, loss = run_lbfgs_gram_streamed(
+            _resident_chunk_fn, shards.num_chunks, d + 1, k, lam=AMAZON_LAM,
+            num_iterations=AMAZON_ITERS, n=n, val_dtype=torch.bfloat16,
+            segment_source=shards.as_source(DISK_COO_CPS), prefetch_depth=depth,
+            prefetch_stats=stats, device=device)
+        _sync(device)
+        runs[depth] = dict(W=W, loss=loss, seconds=time.perf_counter() - t0,
+                           launches=dict(cuda_ops.launches),
+                           overlap=profiling.prefetch_overlap_fraction(stats))
+        log(f"  (c) depth {depth}: fit {runs[depth]['seconds']:.3f} s, loss {float(loss):.7f}, "
+            f"overlap {runs[depth]['overlap']}, gram_corr_sym_acc "
+            f"{runs[depth]['launches']['gram_corr_sym_acc']} launches ({smi})")
+    a, b = runs[2], runs[0]
+    check("21(c) depth 0 and depth 2 give bit-equal weights",
+          torch.equal(a["W"], b["W"]) and torch.equal(a["loss"], b["loss"]), "bitwise equal")
+    check("21(c) gram_corr_sym_acc once a chunk",
+          a["launches"]["gram_corr_sym_acc"] == AMAZON_CHUNKS
+          and b["launches"]["gram_corr_sym_acc"] == AMAZON_CHUNKS,
+          f"{a['launches']['gram_corr_sym_acc']} and {b['launches']['gram_corr_sym_acc']}, "
+          f"{AMAZON_CHUNKS} chunks")
+    resident_equal = bf16_w1 is not None and torch.equal(a["W"], bf16_w1)
+    rel = (float((a["W"] - bf16_w1).norm() / bf16_w1.norm()) if bf16_w1 is not None
+           else float("nan"))
+    log(f"  (c) against phase 8's resident bf16 gram engine: bitwise equal {resident_equal}, "
+        f"relative difference {rel:.3e}")
+    check("21(c) the disk fold has the bits of phase 8's resident gram engine (same chunk ids)",
+          resident_equal, f"relative difference {rel:.3e}")
+    # A segmented fold under KEYSTONE_CHECKPOINT_DIR, killed and resumed.
+    saved = {key: os.environ.get(key) for key in
+             ("KEYSTONE_CHECKPOINT_DIR", "KEYSTONE_CHECKPOINT_EVERY", "KEYSTONE_CHECKPOINT_SYNC")}
+    os.environ.update(KEYSTONE_CHECKPOINT_DIR=os.path.join(root, "ck-coo"),
+                      KEYSTONE_CHECKPOINT_EVERY="2", KEYSTONE_CHECKPOINT_SYNC="1")
+    try:
+        def fit():
+            return run_lbfgs_gram_streamed(
+                _resident_chunk_fn, shards.num_chunks, d + 1, k, lam=AMAZON_LAM,
+                num_iterations=AMAZON_ITERS, n=n, val_dtype=torch.bfloat16,
+                segment_source=shards.as_source(DISK_COO_CPS), device=device)
+
+        try:
+            with FaultPlan([FaultRule("prefetch.read", "error", calls=[3, 4, 5])]):
+                fit()
+            killed = False
+        except OSError:
+            killed = True
+        cuda_ops.reset_launch_counts()
+        W_r, loss_r = fit()
+        resumed_launches = cuda_ops.launches["gram_corr_sym_acc"]
+        left = os.listdir(os.environ["KEYSTONE_CHECKPOINT_DIR"])
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    check("21(c) the segmented fold under KEYSTONE_CHECKPOINT_DIR resumes to the same bits",
+          killed and torch.equal(W_r, a["W"]) and torch.equal(loss_r, a["loss"])
+          and resumed_launches == AMAZON_CHUNKS - 2 * DISK_COO_CPS and left == [],
+          f"killed {killed}, resumed with {resumed_launches} launches, bitwise equal, "
+          f"directory left {left}")
+    return dict(write_seconds=write_s, resident_bits_equal=resident_equal,
+                resident_relative_difference=rel,
+                **{f"depth_{dd}": dict(fit_seconds=r["seconds"], overlap_fraction=r["overlap"],
+                                       final_loss=float(r["loss"]))
+                   for dd, r in runs.items()}), a["launches"]
+
+
+def phase_disk_spill(root, smi, device="cuda"):
+    """Phase 21(d): the CSV spill path and the image loader's spill tier."""
+    from keystone_tpu_torch.data.images import SyntheticEncodedImages, load_images
+    from keystone_tpu_torch.data.loaders import csv_to_disk_shards
+    from keystone_tpu_torch.data.prefetch import iter_segments, stage_segment, to_device_segment
+
+    # CSV: values on a 1/1024 grid (exact in float32), written fast by table.
+    rng = np.random.default_rng(21)
+    codes = rng.integers(-8192, 8192, size=(DISK_CSV_N, D_IN))
+    labels = rng.integers(0, K, size=DISK_CSV_N)
+    table = np.array([repr(v / 1024) for v in range(-8192, 8192)], dtype=object)
+    t0 = time.perf_counter()
+    path = os.path.join(root, "timit.csv")
+    with open(path, "w") as f:
+        for lab, row in zip(labels, table[codes + 8192]):
+            f.write(str(lab) + "," + ",".join(row) + "\n")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sld = csv_to_disk_shards(path, os.path.join(root, "csv"), shard_rows=DISK_TILE,
+                             tiles_per_segment=DISK_TPS, num_classes=K)
+    spill_s = time.perf_counter() - t0
+    X = sld.data.to_numpy()
+    Y = sld.labels.to_numpy()
+    err = float(np.abs(X - codes / 1024.0).max())
+    check("21(d) the CSV spill round-trips rows within 1e-5 and labels exactly",
+          sld.data.n == DISK_CSV_N and err <= 1e-5
+          and np.array_equal(Y, 2.0 * np.eye(K, dtype=np.float32)[labels] - 1.0),
+          f"{sld.data.n} rows, max row error {err:.3e}")
+    # Images: VOC's count at phase 15's size, a budget that forces the spill.
+    provider = SyntheticEncodedImages(DISK_IMAGES, x=DISK_IMAGE_SIZE, y=DISK_IMAGE_SIZE,
+                                      channels=3, num_classes=20, seed=7)
+    d = DISK_IMAGE_SIZE * DISK_IMAGE_SIZE * 3
+    # Three staged segments fit the budget; the uint8 resident rows do not.
+    budget = 3 * DISK_IMAGE_SEGMENT * (4.0 * d + 80) + 1.0
+    t0 = time.perf_counter()
+    spilled, tier, _ = load_images(provider, images_per_segment=DISK_IMAGE_SEGMENT,
+                                   spill_dir=os.path.join(root, "images"),
+                                   host_budget_bytes=budget, tile_rows=256)
+    image_spill_s = time.perf_counter() - t0
+    resident, rtier, _ = load_images(provider, host_budget_bytes=1e12)
+    want = torch.from_numpy(resident.data.to_numpy()).to(device)
+    side = torch.cuda.Stream() if device == "cuda" else None
+    got = []
+    t0 = time.perf_counter()
+    for _, staged in iter_segments(spilled.data.shard_source, prefetch_depth=2,
+                                   stage=lambda p: stage_segment(p, device)):
+        got.append(to_device_segment(staged, device, side))
+    _sync(device)
+    prefetch_s = time.perf_counter() - t0
+    got = torch.cat(got)[:DISK_IMAGES]
+    check("21(d) the image set spills (uint8 on disk) and its prefetched rows on the card equal "
+          "the resident decode", tier == "disk_shards" and rtier == "resident"
+          and got.dtype == torch.uint8 and torch.equal(got.to(torch.float32), want),
+          f"tiers {tier} and {rtier}, {tuple(got.shape)} {got.dtype}")
+    log(f"  (d) CSV {DISK_CSV_N} x {D_IN} written {write_s:.3f} s, spilled to shards "
+        f"{spill_s:.3f} s (native parse); {DISK_IMAGES} images spilled in {image_spill_s:.3f} s, "
+        f"prefetched onto the card in {prefetch_s:.3f} s ({smi})")
+    return dict(csv_write_seconds=write_s, csv_spill_seconds=spill_s,
+                image_spill_seconds=image_spill_s, image_prefetch_seconds=prefetch_s)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5067,6 +5500,8 @@ def main():
           "geometry")
     phase_sketch_small(cuda_ops)
     sketch_counts, sketch_run = phase_sketch(cuda_ops, amazon)
+    # Phase 21(c) holds the sparse disk fold to the bf16 gram engine's bits.
+    amazon_gram_bf16, amazon_w_true = amazon["gram_bf16"], amazon["w_true"]
     del amazon
     torch.cuda.empty_cache()
     phase("10", "the block update's sym=False route at TIMIT width")
@@ -5133,6 +5568,24 @@ def main():
           learn_counts["row_stable_matmul"] > 0 and learn_counts["cosine_features"] > 0,
           f"{learn['launches']}")
     del plan, scores, pool, offline
+    torch.cuda.empty_cache()
+    phase("21", "the out-of-core data plane: TIMIT fitted from disk at n = 2,200,000, a killed "
+          "disk fold resumed, the sparse disk tier, the CSV and image spill paths")
+    disk_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             f"phase21-{os.getpid()}")
+    os.makedirs(disk_root, exist_ok=True)
+    try:
+        disk = dict(timit=None)
+        disk["timit"], disk_counts, sld, bank, model = phase_disk_timit(
+            cuda_ops, timit, TimitConfig, disk_root, smi)
+        disk["resume"] = phase_disk_resume(cuda_ops, sld, bank, model, disk_root, smi)
+        del sld, bank, model
+        torch.cuda.empty_cache()
+        disk["sparse"], disk_sparse_counts = phase_disk_sparse(
+            cuda_ops, amazon_w_true, amazon_gram_bf16, disk_root, smi)
+        disk["spill"] = phase_disk_spill(disk_root, smi)
+    finally:
+        shutil.rmtree(disk_root, ignore_errors=True)
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -5156,6 +5609,12 @@ def main():
     # The serving path's launches (phase 19(a)), beside the fit route's.
     (cosine,) = [k for k in kernels if k["name"] == "cosine_features"]
     cosine["serving_launches"] = serve_plan["launches"].get("cosine_features", 0)
+    # The disk tier's launches (phase 21(a) at depth 2, 21(c) at depth 2).
+    for entry in kernels:
+        if entry["name"] in ("cosine_features", "gram_sym_acc"):
+            entry["disk_launches"] = disk_counts[entry["name"]]
+        elif entry["name"] == "gram_corr_sym_acc":
+            entry["disk_launches"] = disk_sparse_counts[entry["name"]]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -5163,7 +5622,7 @@ def main():
                  VOC: voc_run, IMAGENET: imagenet_run, "cifar runners (apply first)": runners,
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
-                 SERVING: serving, LEARN: learn,
+                 SERVING: serving, LEARN: learn, DISK: disk,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

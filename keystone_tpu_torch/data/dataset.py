@@ -10,11 +10,17 @@ Port of ``keystone_tpu/data/dataset.py``, single device:
     Gramians and moment sums are unaffected.
   - **Host form**: a Python list of arbitrary objects for stages that must
     run host-side.
+  - **Shard form**: ``data`` is a :class:`~keystone_tpu_torch.data.prefetch.
+    ShardSource`, ordered disk or host segments delivered one at a time,
+    for datasets whose resident size exceeds the host-RAM budget. Streamed
+    solvers consume the source directly (prefetched, never resident);
+    anything else calls ``materialize()``, which only small sources
+    should ever reach.
 
-The reference's shard form (out-of-core disk segments) and mesh sharding
-come with later slices; here there is one device and no mesh. Numpy
-arrays handed to ``Dataset.of`` stay numpy until a node moves them to its
-device, exactly as the reference leaves host arrays to ``jnp.asarray``.
+Mesh sharding comes with a later slice (ROADMAP A.15); here there is one
+device. Numpy arrays handed to ``Dataset.of`` stay numpy until a node
+moves them to its device, exactly as the reference leaves host arrays to
+``jnp.asarray``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from .prefetch import ShardSource
 
 def _is_arraylike(x: Any) -> bool:
     return isinstance(x, (np.ndarray, torch.Tensor)) or (
@@ -75,6 +82,8 @@ class Dataset:
         self.data = data
         if isinstance(data, list):
             self.n = len(data) if n is None else n
+        elif isinstance(data, ShardSource):
+            self.n = data.n_true if n is None else n
         else:
             leaves = tree_leaves(data)
             if not leaves:
@@ -112,6 +121,11 @@ class Dataset:
         items = [b.to_list() for b in branches]
         return Dataset([tuple(vals) for vals in zip(*items)])
 
+    @staticmethod
+    def from_shards(source: ShardSource, n: Optional[int] = None) -> "Dataset":
+        """A Dataset backed by an out-of-core :class:`ShardSource`."""
+        return Dataset(source, n=n)
+
     # -- properties ---------------------------------------------------------
 
     @property
@@ -119,8 +133,31 @@ class Dataset:
         return isinstance(self.data, list)
 
     @property
+    def is_shard_backed(self) -> bool:
+        return isinstance(self.data, ShardSource)
+
+    @property
+    def shard_source(self) -> ShardSource:
+        if not self.is_shard_backed:
+            raise ValueError("Dataset is not shard-backed")
+        return self.data
+
+    def materialize(self) -> "Dataset":
+        """Shard form -> array form (concatenates every segment on the
+        host; only sources that fit host RAM should ever reach this: the
+        streamed solvers consume the source directly instead)."""
+        if not self.is_shard_backed:
+            return self
+        mat = self.data.materialize()
+        if isinstance(mat, tuple):
+            mat = mat[0]  # a paired (X, Y) source read as a data Dataset
+        return Dataset(np.asarray(mat), n=self.n)
+
+    @property
     def array(self):
         """The single underlying array (errors for tuple datasets)."""
+        if self.is_shard_backed:
+            return self.materialize().array
         if self.is_host:
             return np.stack([np.asarray(x) for x in self.data])
         if isinstance(self.data, (tuple, dict)):
@@ -131,6 +168,8 @@ class Dataset:
     def num_padded(self) -> int:
         if self.is_host:
             return len(self.data)
+        if self.is_shard_backed:
+            return self.n
         return int(tree_leaves(self.data)[0].shape[0])
 
     def __len__(self) -> int:
@@ -162,6 +201,8 @@ class Dataset:
 
     def to_list(self) -> List[Any]:
         """Materialize as a host list of per-example values (padding dropped)."""
+        if self.is_shard_backed:
+            return self.materialize().to_list()
         if self.is_host:
             return list(self.data)
         if isinstance(self.data, tuple):
@@ -176,7 +217,7 @@ class Dataset:
     def cache(self) -> "Dataset":
         """Force materialization now (the Cacher analog): wait for the
         device work that produced this dataset."""
-        if not self.is_host:
+        if not self.is_host and not self.is_shard_backed:
             for leaf in tree_leaves(self.data):
                 if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
                     torch.cuda.synchronize(leaf.device)
@@ -184,6 +225,8 @@ class Dataset:
         return self
 
     def __repr__(self) -> str:
+        if self.is_shard_backed:
+            return f"Dataset(shards, n={self.n}, segments={self.data.num_segments})"
         if self.is_host:
             return f"Dataset(host, n={self.n})"
         shapes = tree_map(lambda x: tuple(x.shape), self.data)
@@ -219,3 +262,30 @@ class LabeledData:
             raise ValueError(
                 f"data ({self.data.n}) and labels ({self.labels.n}) must align"
             )
+
+    def to_disk_shards(
+        self,
+        path: str,
+        shard_rows: int,
+        tiles_per_segment: int = 4,
+        num_classes: Optional[int] = None,
+    ) -> "LabeledData":
+        """Spill this (data, labels) pair to pre-tiled disk shards and
+        return a shard-backed LabeledData over the files: the loaders'
+        materialize-to-disk-instead-of-RAM path. Integer class labels
+        become ±1 one-hot regression targets when ``num_classes`` is given
+        (the convention every LS pipeline here uses); otherwise labels are
+        stored as they are, reshaped to (n, k)."""
+        from .shards import DiskDenseShards
+
+        X = _to_numpy(self.data.array)[: self.data.n]
+        Y = _to_numpy(self.labels.array)[: self.labels.n]
+        if num_classes is not None:
+            Y = one_hot_pm1(Y, num_classes)
+        elif Y.ndim == 1:
+            Y = Y[:, None]
+        shards = DiskDenseShards.write(
+            path, X, Y.astype(np.float32, copy=False),
+            tile_rows=int(shard_rows), tiles_per_segment=tiles_per_segment,
+        )
+        return shards.as_labeled_data()

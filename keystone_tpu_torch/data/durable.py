@@ -1,8 +1,5 @@
 """Durable on-disk state: checksummed atomic writes and fit checkpoints
-(port of ``keystone_tpu/data/durable.py``: the checkpoint half, and the
-content identity the serving plan's fingerprint needs; the shard
-directories' ``source_fingerprint`` comes with the disk tier, ROADMAP
-A.13).
+(port of ``keystone_tpu/data/durable.py``, whole).
 
   - **Atomic metadata**: :func:`atomic_write_json` writes to a temp name
     in the same directory, fsyncs, then ``os.replace``\\ s — a reader
@@ -25,7 +22,9 @@ A.13).
     and would degrade it to its type name, so two plans differing only
     in weights would share a fingerprint). bfloat16, which numpy lacks,
     is hashed through its 16-bit pattern and named ``bfloat16``, as the
-    reference names an ``ml_dtypes`` array.
+    reference names an ``ml_dtypes`` array. :func:`source_fingerprint`
+    names a segment source's shard directory and digests its recorded
+    per-tile checksums, the identity a resumable disk fit keys on.
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ __all__ = [
     "fingerprint_token",
     "fsync_file",
     "resolve_checkpoint",
+    "source_fingerprint",
     "verify_array",
 ]
 
@@ -634,6 +634,43 @@ def fingerprint_token(x: Any) -> Any:
         }
     except Exception:
         return type(x).__name__
+
+
+def _shards_behind(obj: Any, depth: int = 0):
+    """The Disk*Shards object a segment source is a view over, through
+    any of the documented source forms: the shards object itself, a
+    ShardSource wrapper (``.shards``), a field view (``.paired``), or a
+    bound method like ``shards.segment_source`` (``__self__``, the
+    callable form the solvers also accept)."""
+    if obj is None or depth > 4:
+        return None
+    if hasattr(obj, "_checksums") and hasattr(obj, "directory"):
+        return obj
+    for attr in ("shards", "paired", "__self__"):
+        found = _shards_behind(getattr(obj, attr, None), depth + 1)
+        if found is not None:
+            return found
+    return None
+
+
+def source_fingerprint(source: Any) -> Optional[Dict[str, Any]]:
+    """Identity of a segment source's backing data, for checkpoint
+    fingerprints: the shard directory plus a digest of its recorded
+    per-tile checksums. The CRCs were computed at write time, so the
+    content identity costs nothing, and a re-ingested directory with
+    different rows of the same geometry never matches a stale snapshot.
+    None for sources with no disk shards behind them."""
+    shards = _shards_behind(source)
+    if shards is None:
+        return None
+    sums = getattr(shards, "_checksums", None)
+    return {
+        "directory": getattr(shards, "directory", None),
+        "checksums_crc": (
+            None if sums is None
+            else int(_crc(repr(sorted(sums.items())).encode()))
+        ),
+    }
 
 
 def resolve_checkpoint(checkpoint) -> Optional[CheckpointSpec]:

@@ -4,27 +4,42 @@ Port of ``keystone_tpu/data/loaders.py`` (the CSV, TIMIT, CIFAR-10 binary,
 Amazon reviews and 20 Newsgroups loaders, scikit-learn's bundled digits,
 and the synthetic generators, ``synthetic_sentences`` among them). The
 synthetic draws are numpy's and are copied bit for bit, so the port and
-the reference see the same rows from the same seed. CSV files are parsed with numpy instead of the reference's native
-parser, and CIFAR records are split with numpy (the reference's numpy path;
-its native record splitter is not ported). Every loader takes an explicit
+the reference see the same rows from the same seed. CSV files are parsed
+and CIFAR records split by the native data plane
+(:mod:`keystone_tpu_torch.native`), PNM images decoded by it and other
+formats through PIL. Every loader that returns tensors takes an explicit
 ``device``; None means the CUDA device (raising without one). Features and
 images arrive as float32, labels as int64; documents stay host strings.
-Of the image archives' loaders only the VOC record, ``MultiLabeledImage``,
-is ported (``load_voc`` and ``load_imagenet`` come with the data plane).
+The image archives' loaders (``load_voc``, ``load_imagenet``) return host
+datasets of numpy images, as the reference's do.
+
+``csv_to_disk_shards`` is the out-of-core spill path: CSV files go to
+pre-tiled disk shards one file at a time, and the result is a
+shard-backed :class:`LabeledData` (no device; its fit streams from disk).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tarfile
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from keystone_tpu_torch import resolve_device
+from keystone_tpu_torch import native, resolve_device
 
-from .dataset import Dataset, LabeledData, as_tensor
+from .dataset import Dataset, LabeledData, as_tensor, one_hot_pm1
+
+
+@dataclass
+class LabeledImage:
+    """(image, int label, filename) (reference: utils/LabeledImage)."""
+
+    image: np.ndarray
+    label: int
+    filename: str = ""
 
 
 @dataclass
@@ -44,12 +59,39 @@ def _labeled(X: np.ndarray, labels: np.ndarray, device) -> LabeledData:
     )
 
 
+def _check_rect(vals, ncols: int, nrows: int, where: str) -> np.ndarray:
+    if ncols <= 0 or vals.size != ncols * nrows:
+        raise ValueError(
+            f"{where}: ragged CSV — {vals.size} values over {nrows} rows "
+            f"do not form a rectangular {nrows}x{ncols} matrix"
+        )
+    return vals.reshape(nrows, ncols)
+
+
 def read_csv_matrix(path: str) -> np.ndarray:
-    """CSV of comma-separated numbers -> (rows, cols) float64 matrix."""
-    mat = np.loadtxt(path, delimiter=",", dtype=np.float64, ndmin=2)
-    if mat.size == 0:
+    """CSV of comma-separated numbers -> (rows, cols) float64 matrix,
+    parsed by the native data plane."""
+    with open(path, "rb") as f:
+        text = f.read()
+    vals, ncols, nrows = native.parse_csv_floats(text)
+    if nrows == 0:
         raise ValueError(f"{path}: no data rows")
-    return mat
+    return _check_rect(vals, ncols, nrows, path)
+
+
+def _read_csv_matrices(paths: List[str]) -> List[np.ndarray]:
+    """Parse many CSV files in the native thread pool (one task a file).
+    Empty files contribute no rows (sc.textFile semantics, e.g. Spark
+    _SUCCESS markers)."""
+    texts = []
+    for p in paths:
+        with open(p, "rb") as f:
+            texts.append(f.read())
+    return [
+        _check_rect(vals, ncols, nrows, path)
+        for path, (vals, ncols, nrows) in zip(paths, native.parse_csv_floats_many(texts))
+        if nrows > 0
+    ]
 
 
 def _files_of(path: str) -> List[str]:
@@ -68,11 +110,8 @@ def csv_data_loader(path: str, device=None) -> Dataset:
     """CSV of comma-separated numbers -> Dataset of rows
     (reference: loaders/CsvDataLoader.scala:10-31). ``path`` may be a
     directory: its files' rows are concatenated in sorted-filename order;
-    empty files add none."""
-    mats = []
-    for f in _files_of(path):
-        if os.path.getsize(f):
-            mats.append(read_csv_matrix(f))
+    empty files add none. The files are parsed concurrently."""
+    mats = _read_csv_matrices(_files_of(path))
     if not mats:
         raise ValueError(f"{path}: no data rows in any file")
     if len({m.shape[1] for m in mats}) != 1:
@@ -97,15 +136,89 @@ def load_cifar_binary(path: str, device=None) -> LabeledData:
     """CIFAR-10 binary format: 3073-byte records of [label, 3072 pixel bytes]
     (reference: loaders/CifarLoader.scala:14-53). Images come out as
     (n, 32, 32, 3) float32 in [0, 255] (pixel bytes are exact in float32),
-    converted from CIFAR's channel-planar records to HWC."""
+    converted from CIFAR's channel-planar records to HWC by the native
+    data plane's threaded record splitter."""
     with open(path, "rb") as f:
         raw_bytes = f.read()
     if len(raw_bytes) % CIFAR_RECORD_BYTES != 0:
         raise ValueError(f"{path}: not a multiple of {CIFAR_RECORD_BYTES} bytes")
-    records = np.frombuffer(raw_bytes, dtype=np.uint8).reshape(-1, CIFAR_RECORD_BYTES)
-    labels = records[:, 0].astype(np.int64)
-    images = records[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    labels, images = native.split_records(raw_bytes, CIFAR_LABEL_SIZE, 3, 32, 32)
     return _labeled(images, labels, device)
+
+
+def csv_to_disk_shards(
+    path: str,
+    out_dir: str,
+    shard_rows: int,
+    tiles_per_segment: int = 4,
+    label_col: Optional[int] = 0,
+    label_offset: int = 0,
+    num_classes: Optional[int] = None,
+) -> LabeledData:
+    """The loaders' out-of-core spill path: CSV file(s) -> pre-tiled disk
+    shards, one file resident at a time, returning a shard-backed
+    LabeledData (reference analog: CsvDataLoader's lazy ``textFile`` never
+    collects either: the dataset goes storage to storage).
+
+    ``path`` may be a directory (files parsed in sorted order, as
+    ``csv_data_loader`` reads them); host residency is bounded by the
+    largest single file plus the shard pages being filled. ``label_col``
+    selects the label column; integer class labels become ±1 one-hot
+    targets when ``num_classes`` is given, else a (n, 1) float column.
+    ``shard_rows`` need not divide the row count: the ragged final shard is
+    zero-padded and masked by ``n_true`` at fold time.
+    """
+    if label_col is None:
+        raise ValueError("csv_to_disk_shards needs a label column")
+    from .shards import DiskDenseShardWriter
+
+    files = _files_of(path)
+    # Capacity pass: a newline count bounds the row count of a file from
+    # above (blank lines overcount; the +1 covers a missing trailing
+    # newline). The writer tolerates overshoot. Counted in fixed-size
+    # chunks, so the counting pass is never the residency peak.
+    capacity = 0
+    for p in files:
+        last = b""
+        with open(p, "rb") as f:
+            while True:
+                buf = f.read(16 << 20)
+                if not buf:
+                    break
+                capacity += buf.count(b"\n")
+                last = buf[-1:]
+        if last and last != b"\n":
+            capacity += 1
+    if capacity == 0:
+        raise ValueError(f"{path}: no data rows in any file")
+
+    writer = None
+    width = None
+    for p in files:
+        if os.path.getsize(p) == 0:
+            continue  # sc.textFile semantics: empty files contribute nothing
+        rows = read_csv_matrix(p)
+        if width is None:
+            width = rows.shape[1]
+        elif rows.shape[1] != width:
+            raise ValueError(
+                f"{path}: files disagree on column count {{{width}, {rows.shape[1]}}}"
+            )
+        feats = np.delete(rows, label_col, axis=1).astype(np.float32, copy=False)
+        if num_classes is not None:
+            Y = one_hot_pm1(rows[:, label_col].astype(np.int64) + label_offset, num_classes)
+        else:
+            # Continuous targets keep the float column as read.
+            Y = (rows[:, label_col] + label_offset).astype(np.float32)[:, None]
+        if writer is None:
+            writer = DiskDenseShardWriter(
+                out_dir, capacity, feats.shape[1], Y.shape[1],
+                tile_rows=int(shard_rows), tiles_per_segment=tiles_per_segment,
+            )
+        writer.append(feats, Y)
+    if writer is None:
+        raise ValueError(f"{path}: no data rows in any file")
+    return writer.close().as_labeled_data()
 
 
 class TimitFeaturesDataLoader:
@@ -283,3 +396,126 @@ def synthetic_sentences(n: int = 200, seed: int = 0, sentence_len: int = 12) -> 
     probs /= probs.sum()
     return Dataset.of([" ".join(rng.choice(vocab, size=sentence_len, p=probs))
                        for _ in range(n)])
+
+
+# ---------------------------------------------------------------------------
+# Image archive loading (reference: loaders/ImageLoaderUtils.scala:21-94,
+# VOCLoader.scala:16-53, ImageNetLoader.scala:12-39)
+# ---------------------------------------------------------------------------
+
+
+def decode_image_bytes(data: bytes) -> Optional[np.ndarray]:
+    """Decode image bytes to a float32 (x, y, c) numpy array: PNM through
+    the native decoder, other formats through PIL (the role javax.imageio
+    plays in the reference, ImageLoaderUtils.scala:60-84). None when the
+    bytes do not decode."""
+    if data[:2] in (b"P5", b"P6"):
+        arr = native.decode_pnm(data)
+        if arr is not None:
+            return arr
+    try:
+        from keystone_tpu_torch.utils.images import load_image
+
+        return np.asarray(load_image(data))
+    except Exception:
+        return None
+
+
+def iter_tar_images(tar_path: str):
+    """Yield (member_name, decoded image) from a tar of image files
+    (reference: ImageLoaderUtils.loadTarFiles). PNM members are decoded in
+    batches through the native thread pool; other formats one at a time
+    through PIL. Members that do not decode are skipped."""
+    CHUNK = 64  # bounds peak memory: the raw bytes and decodes of one chunk
+
+    def flush(names, raws):
+        pnm_idx = [i for i, d in enumerate(raws) if d[:2] in (b"P5", b"P6")]
+        decoded: Dict[int, Optional[np.ndarray]] = {}
+        if pnm_idx:
+            decoded = dict(zip(pnm_idx, native.decode_pnm_many([raws[i] for i in pnm_idx])))
+        for i, (name, data) in enumerate(zip(names, raws)):
+            img = decoded.get(i)
+            if img is None:
+                img = decode_image_bytes(data)
+            if img is not None:
+                yield name, img
+
+    names: List[str] = []
+    raws: List[bytes] = []
+    with tarfile.open(tar_path) as tf:
+        for member in tf.getmembers():
+            if not member.isfile():
+                continue
+            f = tf.extractfile(member)
+            if f is None:
+                continue
+            names.append(member.name)
+            raws.append(f.read())
+            if len(raws) >= CHUNK:
+                yield from flush(names, raws)
+                names, raws = [], []
+    yield from flush(names, raws)
+
+
+def _tar_paths(data_path: str) -> List[str]:
+    if os.path.isdir(data_path):
+        return [
+            os.path.join(data_path, f)
+            for f in sorted(os.listdir(data_path))
+            if f.endswith(".tar")
+        ]
+    return [data_path]
+
+
+def load_imagenet(data_path: str, labels_path: str) -> Dataset:
+    """Tars of images under class-name directories + a "classname label"
+    map file -> host Dataset of LabeledImage (reference:
+    ImageNetLoader.scala:12-39). Images are center-cropped to multiples
+    of 8, as the reference buckets them."""
+    from keystone_tpu_torch.utils.images import crop_to_multiple
+
+    labels_map: Dict[str, int] = {}
+    with open(labels_path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                labels_map[parts[0]] = int(parts[1])
+    out: List[LabeledImage] = []
+    for tar_path in _tar_paths(data_path):
+        for name, img in iter_tar_images(tar_path):
+            cls = name.split("/")[0]
+            if cls in labels_map:
+                out.append(LabeledImage(crop_to_multiple(img), labels_map[cls], name))
+    return Dataset(out)
+
+
+VOC_NUM_CLASSES = 20
+
+
+def load_voc(data_path: str, labels_path: str, name_prefix: str = "") -> Dataset:
+    """VOC2007 tar + CSV multi-labels -> host Dataset of MultiLabeledImage
+    (reference: VOCLoader.scala:29-50, ImageLoaderUtils.scala:72-92). The
+    CSV has a header; column 4 is the quoted filename (the full tar entry
+    path, also the label-map key and the stored filename) and column 1 the
+    1-based class id. ``name_prefix`` filters full entry names (the
+    reference's namePrefix, e.g. "VOCdevkit/VOC2007/JPEGImages/")."""
+    from keystone_tpu_torch.utils.images import crop_to_multiple
+
+    labels_map: Dict[str, List[int]] = {}
+    with open(labels_path) as f:
+        next(f)  # header
+        for line in f:
+            parts = line.strip().split(",")
+            if len(parts) >= 5:
+                fname = parts[4].replace('"', "")
+                labels_map.setdefault(fname, []).append(int(parts[1]) - 1)
+    out: List[MultiLabeledImage] = []
+    for tar_path in _tar_paths(data_path):
+        for name, img in iter_tar_images(tar_path):
+            if name_prefix and not name.startswith(name_prefix):
+                continue
+            if name in labels_map:
+                out.append(MultiLabeledImage(
+                    crop_to_multiple(img), np.asarray(sorted(labels_map[name])), name,
+                ))
+    return Dataset(out)

@@ -23,9 +23,9 @@
 The runtime's :meth:`DataPlaneRuntime.stats` reports per-lane lifetime
 totals (tasks, busy seconds, errors, queue depth), held in a
 :class:`~keystone_tpu_torch.obs.metrics.MetricsRegistry`, and every task
-runs under a ``runtime.task`` span when the obs plane is tracing. In the
-port the checkpoint write-behind lane (``data/durable.py``) is its user;
-the reference's prefetcher (``data/prefetch.py``) is not ported yet.
+runs under a ``runtime.task`` span when the obs plane is tracing. Its
+users: the checkpoint write-behind lane (``data/durable.py``) and the
+prefetcher's read lane (``data/prefetch.py``).
 """
 
 from __future__ import annotations

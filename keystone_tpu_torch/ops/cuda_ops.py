@@ -405,14 +405,32 @@ def fast_cos(x):
     return acc
 
 
+def _cosine_preactivation(Xf, Wf):
+    """X Wᵀ for the cosine plain version. On the CPU each output is one
+    fused multiply-add chain over the inputs in index order, in C++
+    (``native.matmul_fma_chain_f32``), as the kernel sums it: a row's bits
+    depend on that row and W alone, whatever the row count (an MKL product
+    sums in an order it picks by the batch's shape, and a plan's padding
+    buckets would part). Elsewhere torch's float32 product."""
+    if Xf.device.type == "cpu" and Xf.shape[1] == Wf.shape[1]:
+        from keystone_tpu_torch import native
+
+        rows = lambda t: t if t.stride(-1) == 1 else t.contiguous()  # noqa: E731
+        return native.matmul_fma_chain_f32(rows(Xf), rows(Wf.T), torch.get_num_threads())
+    return Xf @ Wf.T
+
+
 def cosine_features_ref(X, W, b, compute_dtype=torch.float32, out_dtype=None):
     """Plain PyTorch version of :func:`cosine_features`:
-    ``fast_cos(X Wᵀ + b)`` from the same operand rounding, in float32."""
+    ``fast_cos(X Wᵀ + b)`` from the same operand rounding, in float32 (on
+    the CPU a row's bits follow that row, W and b alone:
+    :func:`_cosine_preactivation`; the kernel sums each output in a fixed k
+    order, so its rows keep their bits too)."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     op = _cosine_operands(X, W, compute_dtype)
     Xf = X.to(op).to(torch.float32)
     Wf = W.to(op).to(torch.float32)
-    return fast_cos(Xf @ Wf.T + b.to(torch.float32)).to(out_dtype)
+    return fast_cos(_cosine_preactivation(Xf, Wf) + b.to(torch.float32)).to(out_dtype)
 
 
 # cosine_features_grid's answers by (device index, m, n, d, bf16 operands,
@@ -1622,6 +1640,15 @@ def row_stable_matmul_ref(X, W):
     kc = min(ROW_STABLE_CHUNK, k)
     chunks = -(-k // kc)
     width = 1 << (kc - 1).bit_length()
+    if X.device.type == "cpu" and X.dtype == torch.float32 and not _meta_operands(
+            "row_stable_matmul_ref", (X, W)):
+        # The same sums in C++ on the host (native/row_stable.cpp): the
+        # elementwise form below is memory-bound on a CPU.
+        from keystone_tpu_torch import native
+
+        rows = lambda t: t if t.stride(-1) == 1 else t.contiguous()  # noqa: E731
+        return native.row_stable_matmul_f32(rows(X), rows(W), kc, width,
+                                            torch.get_num_threads())
     Wp = W.new_zeros((chunks, width, n))
     Wp[:, :kc].view(chunks * kc, n)[:k] = W
     rows = max(1, _ROW_STABLE_REF_BLOCK.get(X.device.type, 1 << 22) // (chunks * width * n))

@@ -26,10 +26,15 @@ Differences from the reference:
     cosine bank's fit takes the block-streamed tier, on one device;
   - the decision is recorded on the estimator as ``last_decision`` and
     logged, where the reference emits it through ``obs`` and the
-    ``PlacementEngine`` stream (A.17); the disk tier (shard-backed inputs)
-    is not priced (A.13);
-  - ``choose_mesh_layout`` (A.15) and ``choose_image_tier`` (A.10) are not
-    ported.
+    ``PlacementEngine`` stream (A.17); ``choose_image_tier`` returns its
+    decision the same way;
+  - ``choose_mesh_layout`` (A.15) is not ported.
+
+A shard-backed input (the sample collector's ``shard_backed`` fact) prices
+the disk tier: the streaming choice then stages segments from disk, its
+resident bytes stop scaling with n, and it is the one candidate exempt
+from the host budget, which every other candidate must meet with the
+whole dataset resident.
 """
 
 from __future__ import annotations
@@ -63,6 +68,9 @@ EC2_COUNTSKETCH_OVERHEAD = 6.0
 # The reference's EC2 random-access multiplier of the zoo's tenant page-in
 # pass (spill decode + CRC + rebuild), which the placement engine prices.
 EC2_ZOO_PAGE_OVERHEAD = 2.0
+# The reference's EC2 random-access multiplier of the image tier's host
+# decode pass, which ``choose_image_tier`` prices.
+EC2_IMAGE_DECODE_OVERHEAD = 4.0
 # The name of the one weight family above, as decisions record it.
 WEIGHTS_FAMILY = "ec2"
 
@@ -85,6 +93,12 @@ def zoo_page_overhead() -> float:
     """Random-access multiplier of the zoo's tenant page-in pass under the
     EC2 family (reference ``cost.py:312``)."""
     return EC2_ZOO_PAGE_OVERHEAD
+
+
+def image_decode_overhead() -> float:
+    """Random-access multiplier of the image tier's host decode pass under
+    the EC2 family (reference ``cost.py:299``)."""
+    return EC2_IMAGE_DECODE_OVERHEAD
 
 
 # Device-memory budget where the device reports none (the CPU).
@@ -142,6 +156,98 @@ def _decide(costs: Sequence[float], resident: Sequence[float]) -> Tuple[int, str
     if all(c == float("inf") for c in costs):
         return min(range(len(resident)), key=resident.__getitem__), "least_resident_fallback"
     return min(range(len(costs)), key=costs.__getitem__), "argmin"
+
+
+IMAGE_TIERS = ("resident", "resident_u8", "disk_shards")
+
+
+def choose_image_tier(
+    n_images: int, d: int, k: int,
+    *,
+    images_per_segment: int = 256,
+    prefetch_depth: int = 2,
+    host_budget_bytes: Optional[float] = None,
+    host_utilization: float = DEFAULT_HOST_UTILIZATION,
+):
+    """Select the storage tier for a decoded image set (reference
+    ``cost.py:525``): this is what lets ``data.images.load_images`` route a
+    past-host-RAM image set through disk shards with no flag. ``d`` is
+    decoded floats an image (x·y·c after augmentation), ``k`` the label
+    width. Candidates, each infeasible (cost infinity) past the host
+    budget:
+
+      - ``resident``: decoded float32 rows in host RAM: one decode pass,
+        the cheapest reads;
+      - ``resident_u8``: uint8 pixel rows (exact for 8-bit sources), 4×
+        smaller, a widening cast an epoch;
+      - ``disk_shards``: spilled through ``DiskDenseShardWriter``; host
+        residency is ``prefetch_depth + 1`` staged segments; pays the spill
+        write and the re-read.
+
+    Returns ``(tier_name, decision)``, the decision a dict of the priced
+    candidates (the reference returns a tracer outcome reference; the
+    port's decisions are dicts, as ``LeastSquaresEstimator.last_decision``).
+    Raises when no tier fits.
+    """
+    cpu_w, mem_w, net_w = active_weights()
+    if host_budget_bytes is not None:
+        budget = float(host_budget_bytes)
+    else:
+        budget = host_memory_bytes() * host_utilization
+    n = int(n_images)
+    cells = float(n) * (d + k)
+    decode_s = mem_w * image_decode_overhead() * float(n) * d
+    seg_bytes = float(images_per_segment) * (4.0 * d + 4.0 * k)
+    resident_bytes = {
+        "resident": cells * 4.0,
+        "resident_u8": float(n) * (d + 4.0 * k),
+        "disk_shards": (prefetch_depth + 1) * seg_bytes,
+    }
+    tier_cost = {
+        # One decode pass each; reads price the per-epoch traffic.
+        "resident": decode_s + mem_w * cells,
+        # uint8 rows pay a widening cast an epoch.
+        "resident_u8": decode_s + mem_w * cells * 1.25,
+        # The spill write and the checksummed re-read, both full passes.
+        "disk_shards": decode_s + mem_w * cells * 3.0,
+    }
+    costs = [
+        tier_cost[t] if resident_bytes[t] <= budget else float("inf") for t in IMAGE_TIERS
+    ]
+    if all(c == float("inf") for c in costs):
+        raise ValueError(
+            f"no image tier fits the host budget {budget:.3g} B "
+            f"(even {prefetch_depth + 1} staged segments of "
+            f"{seg_bytes:.3g} B); shrink images_per_segment"
+        )
+    index, reason = _decide(costs, [resident_bytes[t] for t in IMAGE_TIERS])
+    winner = IMAGE_TIERS[index]
+    decision = {
+        "decision": "image_tier",
+        "winner": winner,
+        "candidates": [
+            {
+                "label": t,
+                "cost_s": None if c == float("inf") else float(c),
+                "feasible": c != float("inf"),
+                "resident_bytes": float(resident_bytes[t]),
+                "chip_resident": False,  # the image tier is host-side
+                "host_ok": resident_bytes[t] <= budget,
+            }
+            for t, c in zip(IMAGE_TIERS, costs)
+        ],
+        "reason": reason,
+        "context": {
+            "n": n, "d": int(d), "k": int(k),
+            "images_per_segment": int(images_per_segment),
+            "prefetch_depth": int(prefetch_depth),
+            "host_budget_bytes": float(budget),
+            "weights": {"cpu": cpu_w, "mem": mem_w, "network": net_w,
+                        "family": weights_family_name()},
+        },
+    }
+    logger.info("image tier decision: %s", decision)
+    return winner, decision
 
 
 class CostModel:
@@ -349,6 +455,14 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         raw_row_bytes = getattr(sample, "source_row_bytes", None)
         self._streaming_choice.raw_row_bytes = raw_row_bytes
         self._streaming_choice.input_is_sparse = is_sparse_dataset(sample)
+        # The disk tier: a shard-backed source streams raw rows from disk
+        # segments, so the streaming choice's resident operand stops
+        # scaling with n, and host feasibility is priced per candidate.
+        shard_backed = bool(getattr(sample, "shard_backed", False))
+        self._streaming_choice.data_is_shard_backed = shard_backed
+        self._streaming_choice.shard_segment_bytes = getattr(
+            sample, "shard_segment_bytes", None
+        )
 
         budget = (
             self.hbm_bytes if self.hbm_bytes is not None
@@ -369,10 +483,16 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         self._streaming_choice.slab_bytes = int(min(2 << 30, budget // 4))
         self._streaming_choice.budget_bytes = budget
 
-        # What every candidate needs host-side before any device placement:
-        # the raw dataset plus labels, resident once.
+        # What every candidate but the disk tier needs host-side before
+        # any device placement: the raw dataset plus labels, resident once.
         host_resident = n * (raw_row_bytes if raw_row_bytes else 4.0 * d) + 4.0 * n * k
-        host_ok = host_resident <= host_budget
+
+        def host_ok(opt) -> bool:
+            # The disk tier (the shard-backed streaming choice) stages only
+            # prefetch-depth segments host-side.
+            if shard_backed and opt[0] is self._streaming_choice:
+                return True
+            return host_resident <= host_budget
 
         def resident(opt) -> float:
             rb = getattr(opt[0], "resident_bytes", None)
@@ -380,8 +500,9 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
 
         def total_cost(opt) -> float:
             # Resident operands past the device budget, or a dataset past
-            # the host budget, cost infinity: they would run out of memory.
-            if not host_ok or resident(opt) > budget:
+            # the host budget with no disk path, cost infinity: they would
+            # run out of memory.
+            if not host_ok(opt) or resident(opt) > budget:
                 return float("inf")
             return opt[0].cost(
                 n, d, k, sparsity, machines,
@@ -395,7 +516,7 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
                 "cost_s": None if c == float("inf") else float(c),
                 "feasible": c != float("inf"),
                 "resident_bytes": float(resident(o)),
-                "host_ok": host_ok,
+                "host_ok": host_ok(o),
             }
             for o, c in zip(self.options, costs)
         ]
@@ -411,6 +532,7 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
                 "sparsity": float(sparsity), "machines": int(machines),
                 "hbm_budget_bytes": float(budget),
                 "host_budget_bytes": float(host_budget),
+                "shard_backed": shard_backed,
                 "weights": {
                     "cpu": EC2_CPU_WEIGHT, "mem": EC2_MEM_WEIGHT,
                     "network": EC2_NETWORK_WEIGHT, "family": "ec2",

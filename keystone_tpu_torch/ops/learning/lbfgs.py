@@ -23,10 +23,16 @@ gradient norm once an iteration. The masked circular history and the
 ``ys > 0`` guard are kept as written, so the iterates match the
 reference's to rounding.
 
+``run_lbfgs_gram_streamed`` also folds from disk: a ``segment_source``
+(``DiskCOOShards``, its prefetchable ``COOShardSource`` form, or a
+callable) delivers one segment of chunks at a time, prefetched on the
+data-plane runtime's read lane and copied to the card from page-locked
+memory on a side stream, and a segmented fold snapshots its carry under a
+``CheckpointSpec`` (or ``KEYSTONE_CHECKPOINT_DIR``) and resumes with the
+uninterrupted fold's bits.
+
 Waiting in ROADMAP: the hybrid resident + streamed tail
-(``run_lbfgs_gram_hybrid``), the disk ``segment_source`` tier and
-checkpoints (A.13), the mesh folds (A.15), the obs spans and the
-``BoundedInflight`` throttle. ``cost`` and ``resident_bytes`` price with
+(``run_lbfgs_gram_hybrid``, item 7) and the mesh folds (A.15). ``cost`` and ``resident_bytes`` price with
 ``cost.py``'s EC2 weights (the gather engine's overhead 8.0); the H100
 refit of those weights comes with the calibration plane (A.17).
 """
@@ -35,10 +41,14 @@ from __future__ import annotations
 
 import logging
 import math
+import time
+from collections import deque
 from typing import Optional
 
+import numpy as np
 import torch
 
+from keystone_tpu_torch import obs, resolve_device
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops.learning.cost import EC2_SPARSE_GATHER_OVERHEAD, CostModel
@@ -312,15 +322,19 @@ def run_lbfgs_gram_streamed(
     operands=(),
     max_chunks_per_dispatch: Optional[int] = None,
     segment_source=None,
+    inflight: int = 2,
+    prefetch_depth: int = 2,
     pipeline: bool = True,
+    prefetch_stats=None,
     checkpoint=None,
     mesh=None,
+    device=None,
 ):
     """Streamed sparse ridge fit: fold G = AᵀA over COO chunks once
-    (``sparse.sparse_gram_fold``; chunks may be sliced from resident tiles
-    or regenerated per call, so the full dataset need never exist on the
-    device), then run the same L-BFGS iterates as the gather engine against
-    G. Returns (W (d, k), final_loss).
+    (``sparse.sparse_gram_fold``; chunks may be sliced from resident tiles,
+    regenerated or loaded from disk, so the full dataset need never exist on
+    the device), then run the same L-BFGS iterates as the gather engine
+    against G. Returns (W (d, k), final_loss).
 
     ``chunk_fn(cid, *operands)`` returns ``(indices, values, Y)`` of chunk
     ``cid``. ``val_dtype`` is the densified slab's dtype (float32 or
@@ -330,46 +344,177 @@ def run_lbfgs_gram_streamed(
     ``max_chunks_per_dispatch``: fold in segments of that many chunk ids;
     ids past ``num_chunks`` in the last, ragged segment are folded with
     zero values and labels and so contribute exactly zero: the segmented
-    result has the bits of the single one (the reference bounds its
-    compiled programs this way). ``chunk_fn`` must accept those ids.
+    result has the bits of the single one. ``chunk_fn`` must accept those
+    ids.
 
-    ``segment_source`` and ``checkpoint`` (the disk tier, ROADMAP A.13) and
-    ``mesh`` (the multi-GPU fold, A.15) raise, and so does a segmented fold
-    while ``KEYSTONE_CHECKPOINT_DIR`` is set (the reference checkpoints it).
+    ``segment_source``: the disk tier, where neither the device nor host
+    RAM holds the dataset, only a segment of chunks at a time. Accepts a
+    :class:`~keystone_tpu_torch.data.shards.DiskCOOShards` or its
+    prefetchable ``as_source(chunks_per_segment)`` form (segment k+1 is
+    read on a background thread while segment k is copied and folded;
+    ``prefetch_depth`` bounds the staged host buffers, 0 reads serially
+    with the same bits), or a callable ``segment_source(cid0, seg) ->
+    (idx_t, val_t, Y_t)`` (loaded serially). ``chunk_fn`` then receives
+    segment-relative ids, and liveness is decided by the absolute id.
+    ``max_chunks_per_dispatch`` defaults from a source's
+    ``chunks_per_segment``. ``device``: where a segment source's chunks
+    are folded (None: the default device); ``inflight``: segments the host
+    may run ahead of the card; ``prefetch_stats``: a
+    :class:`~keystone_tpu_torch.data.prefetch.PrefetchStats` to fill.
+
+    ``checkpoint``: a :class:`~keystone_tpu_torch.data.durable.
+    CheckpointSpec` (or directory; None consults
+    ``KEYSTONE_CHECKPOINT_DIR``) snapshotting the (G, AtY, yty) carry and
+    the segment cursor every ``every_segments`` segments. A fit killed
+    mid-stream and re-run with the same spec resumes with the
+    uninterrupted fit's bits. It needs a segmented fit: an explicit
+    checkpoint with the whole fold in one pass raises; the variable is
+    ignored there, as in the reference.
+
+    ``mesh`` (the multi-GPU fold, A.15) raises.
     """
+    from keystone_tpu_torch.data.durable import (
+        fingerprint_token,
+        resolve_checkpoint,
+        source_fingerprint,
+    )
+    from keystone_tpu_torch.data.prefetch import (
+        COOShardSource,
+        is_shard_source,
+        iter_segments,
+        stage_segment,
+        to_device_segment,
+    )
+
     if n is None:
         raise ValueError("streamed fit needs the true row count n")
     if mesh is not None:
         _raise_waits("the mesh-sharded fold (mesh=)", "A.15")
-    if segment_source is not None:
-        _raise_waits("the disk segment tier (segment_source=)", "A.13")
-    if checkpoint is not None:
-        _raise_waits("checkpointing (checkpoint=)", "A.13")
+    explicit_checkpoint = checkpoint is not None
+    checkpoint = resolve_checkpoint(checkpoint)
     num_chunks, seg = int(num_chunks), max_chunks_per_dispatch
-    if seg is not None and seg < num_chunks:
-        from keystone_tpu_torch.data.durable import resolve_checkpoint
+    source = None
+    if segment_source is not None and not callable(segment_source):
+        if is_shard_source(segment_source):
+            source = segment_source
+        elif hasattr(segment_source, "segment_source"):
+            # A DiskCOOShards-like object: group its chunks into segments.
+            source = COOShardSource(segment_source, seg if seg else min(num_chunks, 8))
+        else:
+            raise TypeError(
+                "segment_source must be callable, a ShardSource, or have "
+                f".segment_source; got {type(segment_source).__name__}"
+            )
+        if seg is None:
+            seg = source.chunks_per_segment
+        elif seg != source.chunks_per_segment:
+            raise ValueError(
+                f"max_chunks_per_dispatch {seg} != the source's chunks_per_segment "
+                f"{source.chunks_per_segment}"
+            )
+    if segment_source is None and (seg is None or seg >= num_chunks):
+        if explicit_checkpoint:
+            raise ValueError(
+                "checkpointing needs a segmented fit: pass max_chunks_per_dispatch "
+                "(or a segment_source) so there are fold boundaries to snapshot at"
+            )
 
-        # The reference snapshots a segmented fold wherever
-        # KEYSTONE_CHECKPOINT_DIR (run.py --checkpoint-dir) names a
-        # directory: skipping that silently would leave the fit uninsured.
-        if resolve_checkpoint(None) is not None:
-            _raise_waits("checkpointing a segmented fold under KEYSTONE_CHECKPOINT_DIR "
-                         "(--checkpoint-dir)", "A.13")
+        def live_chunk(cid):
+            return chunk_fn(cid, *operands)
 
-    def live_chunk(cid):
-        indices, values, Yc = chunk_fn(cid, *operands)
-        if cid >= num_chunks:
-            return indices, torch.zeros_like(values), torch.zeros_like(Yc)
-        return indices, values, Yc
-
-    if seg is None or seg >= num_chunks:
         carry = sparse_gram_fold(None, range(num_chunks), live_chunk, d, k,
                                  val_dtype=val_dtype, pipeline=pipeline)
-    else:
-        carry = None
-        for cid0 in range(0, num_chunks, int(seg)):
-            carry = sparse_gram_fold(carry, range(cid0, cid0 + int(seg)), live_chunk, d, k,
+        return _gram_solve(carry, d, k, lam, num_iterations, convergence_tol, n)
+    if seg is None:
+        raise ValueError("segment_source requires max_chunks_per_dispatch")
+    seg = int(seg)
+    num_segs = -(-num_chunks // seg)
+
+    if segment_source is not None:
+        device = resolve_device(device)
+        copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    carry = None
+    start_seg = 0
+    fingerprint = None
+    if checkpoint is not None:
+        # Geometry, fold identity (chunk_fn, dtype and engine flags,
+        # operand shapes) and source identity: a stale snapshot from a
+        # different chunk source never seeds this fold. Resident operands
+        # are fingerprinted by shape and dtype only; disk sources carry a
+        # free content digest through their recorded checksums.
+        fingerprint = {
+            "kind": "coo_gram_segments", "num_chunks": num_chunks,
+            "d": int(d), "k": int(k), "seg": seg, "n": int(n),
+            "val_dtype": str(val_dtype).replace("torch.", ""),
+            "pipeline": bool(pipeline),
+            "chunk_fn": fingerprint_token(chunk_fn),
+            "operands": [
+                {"shape": [int(v) for v in getattr(o, "shape", ())],
+                 "dtype": str(getattr(o, "dtype", "?")).replace("torch.", "")}
+                for o in operands
+            ],
+            "source": source_fingerprint(source if source is not None else segment_source),
+        }
+        arrays, start_seg = checkpoint.restore(fingerprint)
+        if arrays is not None:
+            if segment_source is None:
+                # Where the resident chunks lie: the operands', or else
+                # (chunks made by chunk_fn) the first chunk's.
+                tensors = [o for o in operands if isinstance(o, torch.Tensor)]
+                device = tensors[0].device if tensors else chunk_fn(0, *operands)[1].device
+            carry = tuple(torch.from_numpy(np.array(a)).to(device) for a in arrays)
+    in_flight: deque = deque()
+
+    def fold_segment(s, cid0, chunk_at):
+        """Fold chunk ids [cid0, cid0 + seg); ``chunk_at(rel)`` gives chunk
+        cid0 + rel, and ids past the end fold zeros."""
+        nonlocal carry
+        t0 = time.perf_counter()
+        with obs.span("fold.segment", segment=int(s)):
+            def chunk(rel):
+                indices, values, Yc = chunk_at(rel)
+                if cid0 + rel >= num_chunks:
+                    return indices, torch.zeros_like(values), torch.zeros_like(Yc)
+                return indices, values, Yc
+
+            carry = sparse_gram_fold(carry, range(seg), chunk, d, k,
                                      val_dtype=val_dtype, pipeline=pipeline)
+            if segment_source is not None and carry[0].is_cuda:
+                # At most `inflight` segments queued ahead of the card.
+                done = torch.cuda.Event()
+                done.record()
+                in_flight.append(done)
+                if len(in_flight) > max(int(inflight), 1):
+                    in_flight.popleft().synchronize()
+        if prefetch_stats is not None:
+            prefetch_stats.add_busy("compute", time.perf_counter() - t0)
+        if checkpoint is not None:
+            checkpoint.maybe_save(carry, s, num_segs, fingerprint, stats=prefetch_stats)
+
+    def stage(payload):
+        return stage_segment(payload, device)
+
+    if source is not None:
+        for s, staged in iter_segments(source, prefetch_depth=prefetch_depth,
+                                       stats=prefetch_stats, start=start_seg, stage=stage):
+            ops = to_device_segment(staged, device, copy_stream)
+            fold_segment(s, s * seg, lambda rel, ops=ops: chunk_fn(rel, *ops))
+    else:
+        for s in range(start_seg, num_segs):
+            cid0 = s * seg
+            if segment_source is not None:
+                ops = to_device_segment(stage(segment_source(cid0, seg)), device, copy_stream)
+                fold_segment(s, cid0, lambda rel, ops=ops: chunk_fn(rel, *ops))
+            else:
+                fold_segment(s, cid0, lambda rel, c0=cid0: chunk_fn(c0 + rel, *operands))
+    result = _gram_solve(carry, d, k, lam, num_iterations, convergence_tol, n)
+    if checkpoint is not None:
+        checkpoint.clear(fingerprint)  # this fit's snapshot only
+    return result
+
+
+def _gram_solve(carry, d: int, k: int, lam, num_iterations, convergence_tol, n):
+    """L-BFGS on the folded (G_raw, AtY, yty) carry: (W, final loss)."""
     G, AtY, yty = carry
     W0 = torch.zeros((d, k), dtype=torch.float32, device=G.device)
     return _lbfgs_gram_core(gram_finalize(G), AtY, yty, W0, lam, num_iterations,

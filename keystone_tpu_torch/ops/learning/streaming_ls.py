@@ -26,9 +26,15 @@ bank, the block-streamed tier (``BlockStreamedLeastSquares`` on
 ``streaming.streaming_block_bcd_mesh``, one device), whose working set
 holds one (n, block) slab and the per-block Gramian stash, no d² term.
 
-Not ported yet: the shard-backed disk tier (``fit_source``, which raises
-``NotImplementedError``, and the disk branch of ``resident_bytes``) for
-A.13, the mesh form of the block-streamed tier for A.15, and the
+A shard-backed input takes the disk tier: ``StreamingLeastSquaresChoice.
+fit_source`` (and ``StreamedFitEstimator`` on shard-backed data) folds
+prefetched disk segments through
+``streaming.streaming_bcd_fit_segments``, and ``resident_bytes`` prices it
+with no term in n. ``BlockStreamedLeastSquares`` materializes a
+shard-backed input, as the reference's does: its residual sweep
+re-featurizes the raw rows every block step.
+
+Not ported yet: the mesh form of the block-streamed tier for A.15, and the
 cost-decision audit (``obs.record_cost_decision``; the tier decision is
 logged instead) for the control plane (A.17).
 """
@@ -38,6 +44,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.data import Dataset
@@ -337,11 +344,14 @@ class BlockStreamedLeastSquares(LabelEstimator):
         return self.num_iter + 1
 
     def fit(self, data: Dataset, labels: Dataset) -> StreamingFeaturizedLinearModel:
-        if getattr(data, "is_shard_backed", False) or getattr(labels, "is_shard_backed", False):
-            raise NotImplementedError(
-                "a shard-backed dataset (materialized before the block sweep in the "
-                "reference) is not ported yet: it comes with the data plane, ROADMAP A.13"
-            )
+        if data.is_shard_backed:
+            # The residual sweep re-featurizes X every block step, so it
+            # needs the raw rows on the device: a shard source materializes
+            # here (genuinely over-RAM sets belong to the disk tier, where
+            # the capacity selector routes them).
+            data = data.materialize()
+        if labels.is_shard_backed:
+            labels = labels.materialize()
         X = as_tensor(data.array, self.bank.Wrf.device)
         Y = as_tensor(labels.array, X.device)
         out = streaming.streaming_block_bcd_mesh(
@@ -385,11 +395,15 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
         lam: float = 0.0,
         block_size_hint: int = 4096,
         center: bool = True,
+        device=None,
     ):
         self.num_iter = num_iter
         self.lam = lam
         self.block_size_hint = block_size_hint
         self.center = center
+        # Where a disk-tier fit folds: None means the featurizer's device,
+        # or the default device for the identity featurizer.
+        self.device = device
         # Set by the owning LeastSquaresEstimator before cost evaluation:
         # bytes per raw input row (the streamed fit keeps raw rows, not
         # features, resident).
@@ -406,6 +420,20 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
         # (one data pass, needs an 8d² Gramian + factor stash) or block
         # streamed (per-block Gramians only) where 8d² itself exceeds it.
         self.budget_bytes: Optional[float] = None
+        # Disk-tier facts (set by the owner when the sampled input is
+        # shard-backed): raw rows then stream from disk segments, so the
+        # capacity model prices staged buffers instead of n·raw resident,
+        # and the fit folds over a prefetched ShardSource.
+        self.data_is_shard_backed: bool = False
+        self.shard_segment_bytes: Optional[float] = None
+        self.prefetch_depth: int = 2
+        # The CheckpointSpec (or directory) the disk fold snapshots and
+        # resumes through; None defers to KEYSTONE_CHECKPOINT_DIR (run.py
+        # --checkpoint-dir).
+        self.checkpoint = None
+        # A PrefetchStats the disk fold fills (overlap, load and wait
+        # seconds by site), or None.
+        self.prefetch_stats = None
 
     @property
     def label(self) -> str:
@@ -483,13 +511,22 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
         return StreamedFitEstimator(members, self)
 
     def fit_source(self, data: Dataset, labels: Dataset, featurize, d_feat: int):
-        """The disk tier (segment folds over prefetched shards)."""
-        raise NotImplementedError(
-            "the shard-backed disk tier (streaming_bcd_fit_segments) is not "
-            "ported yet: it comes with the data plane, ROADMAP A.13"
+        """The disk tier: fold the normal equations over prefetched shard
+        segments (featurize applied a tile at a time inside the fold), so
+        neither host RAM nor device memory holds the raw rows: the
+        capacity-selected path for datasets past the host budget."""
+        return _fit_paired_source(
+            _paired_source(data, labels), featurize, d_feat,
+            block_size=pick_block_size(d_feat, self.block_size_hint),
+            lam=self.lam, num_iter=self.num_iter, center=self.center,
+            prefetch_depth=self.prefetch_depth, checkpoint=self.checkpoint,
+            device=self.device, prefetch_stats=self.prefetch_stats,
         )
 
     def fit(self, data: Dataset, labels: Dataset):
+        if data.is_shard_backed:
+            return self.fit_source(data, labels, _identity_featurize,
+                                   _source_d_in(data.shard_source))
         if is_sparse_dataset(data):
             data = Densify().batch_apply(data)
         d_feat = int(as_tensor(data.array).shape[-1])
@@ -513,16 +550,29 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
         consistent). Gram tier: raw rows + labels + the (d, d)
         Gramian/factor stash + one feature slab. Block tier: raw rows +
         labels + residual + per-block Gramian/factor stash + one block slab
-        + the bank, no d² term."""
+        + the bank, no d² term. Disk tier (shard-backed input): the
+        ``prefetch_depth + 1`` staged segments in place of the raw rows and
+        labels, and the gram tier's stash whatever d (the disk fit always
+        folds the Gramian), so no term scales with n."""
         raw = self.raw_row_bytes
         if self.input_is_sparse or not raw:
             # Sparse input is densified before the tile scan, so its
             # resident operand is 4d bytes a row whatever the COO width; an
             # unknown raw width on dense input is the full float32 row.
             raw = 4.0 * d
+        bs = min(self.block_size_hint, d)
+        if self.data_is_shard_backed:
+            # If its 8d² Gramian passes the device budget, the disk tier
+            # reports infeasible rather than running out of memory mid-fold.
+            seg = self.shard_segment_bytes or (8192.0 * (raw + 4.0 * k))
+            return (
+                (self.prefetch_depth + 1) * seg
+                + 8.0 * d * d
+                + 8.0 * d * bs
+                + self._slab(d)
+            )
         common = n * raw / num_machines + 4.0 * n * k / num_machines
         if self._gram_tier_ok(d):
-            bs = min(self.block_size_hint, d)
             return (
                 common
                 + 8.0 * d * d      # G + diagonal-block Cholesky stash
@@ -601,6 +651,8 @@ class StreamedFitEstimator(LabelEstimator):
     def fit(self, data: Dataset, labels: Dataset):
         if data.is_host or labels.is_host:
             return self._fallback(data, labels)
+        if data.is_shard_backed:
+            return self._fit_shard_backed(data, labels)
         X = as_tensor(data.array)
         # The feature width: the bank's rows, or else one featurized row
         # (the reference asks jax.eval_shape; a shape-only meta tensor
@@ -622,3 +674,125 @@ class StreamedFitEstimator(LabelEstimator):
             # nodes feeds featurized rows.
             model.d_in = d_in
         return model
+
+    def _fit_shard_backed(self, data: Dataset, labels: Dataset):
+        """The out-of-core pipeline fit: raw rows stream from disk shards
+        through the prefetcher, the bound featurizer runs a tile at a time
+        inside the fold, and the feature matrix never exists at any tier,
+        disk, host or device. The feature width is the bank's rows, or else
+        the featurizer's output width on one meta row
+        (``verify.MetaInterpretation``, the port's ``jax.eval_shape``)."""
+        d_in = _source_d_in(data.shard_source)
+        d_feat = _featurized_width(self._featurize, d_in)
+        model = self.choice.fit_source(data, labels, self._featurize, d_feat)
+        if d_in == d_feat:
+            model.featurize = _identity_featurize
+            model.d_in = None
+        else:
+            model.d_in = d_in
+        return model
+
+
+def _featurized_width(featurize, d_in: int) -> int:
+    Wrf = getattr(featurize, "Wrf", None)
+    if Wrf is not None:
+        return int(Wrf.shape[0])
+    from keystone_tpu_torch.workflow.verify import MetaInterpretation
+
+    with torch.no_grad(), MetaInterpretation():
+        out = featurize(torch.empty((1, d_in), dtype=torch.float32))
+    return int(out.shape[-1])
+
+
+def _source_d_in(src) -> int:
+    """Row width of a shard source's data field (view or paired form):
+    metadata, no segment load. Raises the same TypeError as
+    ``_paired_source`` for sources that are not dense (a COOShardSource)."""
+    width = getattr(src, "width", None)
+    if width is None:
+        width = getattr(src, "d_in", None)
+    if width is None:
+        raise TypeError(f"cannot stream a dense fit from shard source {type(src).__name__}")
+    return int(width)
+
+
+def _same_provider(a, b) -> bool:
+    """Same segment provider: one object, or disk-shard sources over the
+    same directory (two DiskDenseShards handles on one shard set are
+    equivalent)."""
+    if a is b:
+        return True
+    sa, sb = getattr(a, "shards", None), getattr(b, "shards", None)
+    if sa is None or sb is None:
+        return False
+    if sa is sb:
+        return True
+    da, db = getattr(sa, "directory", None), getattr(sb, "directory", None)
+    return da is not None and da == db
+
+
+def _paired_source(data: Dataset, labels: Dataset):
+    """The (X_seg, Y_seg, valid_rows) segment source a shard-backed fit
+    folds over. Data and labels that view one set of disk shards (the
+    spill path) cost no extra reads; resident labels are sliced a segment
+    at a time."""
+    from keystone_tpu_torch.data.prefetch import (
+        DenseShardSource,
+        DenseShardView,
+        PairedDenseSource,
+        ResidentDenseSource,
+    )
+
+    src = data.shard_source
+    lsrc = labels.shard_source if labels is not None and labels.is_shard_backed else None
+    if isinstance(src, DenseShardView):
+        if isinstance(lsrc, DenseShardView):
+            if lsrc.field == "x":
+                raise ValueError(
+                    "labels is a rows ('x') shard view — pass the labels ('y') view "
+                    "(a duplicated or swapped pair would silently fit rows against rows)"
+                )
+            if _same_provider(lsrc.paired, src.paired):
+                # The field check rides in PairedDenseSource too: a swapped
+                # (data, labels) pair raises there.
+                return PairedDenseSource(src)
+        if labels is None:
+            raise ValueError("shard-backed fit needs labels")
+        return PairedDenseSource(src, np.asarray(labels.to_numpy()))
+    if isinstance(src, (DenseShardSource, PairedDenseSource, ResidentDenseSource)):
+        # The source delivers (X_seg, Y_seg, valid) triples with its own
+        # labels: fitting against those while the caller passed different
+        # labels would train the wrong model with no error, so only labels
+        # that view the same source are accepted.
+        if labels is not None:
+            lbase = lsrc.paired if isinstance(lsrc, DenseShardView) else lsrc
+            base = getattr(src, "paired", src)
+            same = lsrc is src or (lbase is not None and _same_provider(lbase, base))
+            if not same:
+                raise ValueError(
+                    "data's shard source embeds its own labels; pass the matching "
+                    "labels view of the same shards (unrelated labels would be "
+                    "silently ignored)"
+                )
+        return src
+    raise TypeError(f"cannot stream a fit from shard source {type(src).__name__}")
+
+
+def _fit_paired_source(source, featurize, d_feat: int, block_size: int, lam,
+                       num_iter: int, center: bool, prefetch_depth: int = 2,
+                       checkpoint=None, device=None,
+                       prefetch_stats=None) -> StreamingFeaturizedLinearModel:
+    """The disk tier's fit: prefetched segment folds -> (centred) BCD on the
+    normal equations -> the affine model every streaming tier returns.
+    ``checkpoint`` (a CheckpointSpec or directory; None consults
+    ``KEYSTONE_CHECKPOINT_DIR``) makes the fold resumable: a killed fit
+    re-run with the same spec continues from its last snapshot, with the
+    uninterrupted fit's bits."""
+    W, fmean, ymean, _ = streaming.streaming_bcd_fit_segments(
+        source, bank=featurize, d_feat=d_feat, block_size=block_size, lam=lam,
+        num_iter=num_iter, center=center, prefetch_depth=prefetch_depth,
+        checkpoint=checkpoint, device=device, prefetch_stats=prefetch_stats,
+    )
+    return StreamingFeaturizedLinearModel(
+        featurize, W, streaming.pick_tile_rows(d_feat, 4), fmean=fmean, ymean=ymean,
+    )

@@ -50,17 +50,30 @@ every ``psum`` is the identity. Its features are made one (n, block) slab
 a block step and freed, so the (d, d) Gramian never exists either; that is
 the tier past the gram tier's wall (TIMIT at d = 204,800).
 
-Not ported yet: the segment / disk fold (``streaming_bcd_fit_segments``,
-``BoundedInflight``; ROADMAP A.13) and the mesh forms (``gram_stats_mesh``,
+``streaming_bcd_fit_segments`` is the disk tier's fold: pre-tiled
+segments delivered one at a time by a ``ShardSource`` (memory-mapped disk
+shards, prefetched) or a callable, each tile folded as above, with
+resumable checkpoints of the carry. On the card each segment is staged in
+page-locked memory on the reader thread and copied on a side stream while
+the previous segment folds; the reference's ``BoundedInflight`` becomes a
+queue of CUDA events that keeps at most ``inflight`` segments ahead of the
+card.
+
+Not ported yet: the mesh forms (``gram_stats_mesh``,
 ``streaming_bcd_fit_mesh[_centered]``, ``streaming_block_bcd_mesh`` over a
 mesh and ``streaming_block_bcd_mesh_2d``; A.15).
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from keystone_tpu_torch import obs, resolve_device
 
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
@@ -167,14 +180,7 @@ def gram_stats(
     k = int(labelize(tiles[0][1][:1]).shape[-1]) if tiles else int(Y.shape[-1])
     valid = n if valid is None else int(valid)
 
-    dev = X.device
-    carry = (
-        torch.zeros((d_feat, d_feat), dtype=torch.float32, device=dev),
-        torch.zeros((d_feat, k), dtype=torch.float32, device=dev),
-        torch.zeros((), dtype=torch.float32, device=dev),
-        torch.zeros((d_feat,), dtype=torch.float32, device=dev),
-        torch.zeros((k,), dtype=torch.float32, device=dev),
-    )
+    carry = _new_carry(d_feat, k, X.device)
     for X_t, y_t, start in tiles:
         rows = int(X_t.shape[0])
         if start >= valid:
@@ -183,15 +189,31 @@ def gram_stats(
         carry = _tile_update(*carry, X_t, labelize(y_t), featurize, tile_valid)
 
     G, FY, yty, fsum, ysum = carry
-    # The kernel writes upper-triangle tiles only; mirroring from triu is
-    # also exact for the plain path (G symmetric). In place but for one
-    # (d, d) temporary: the strict upper triangle.
-    upper = torch.triu(G, 1)
-    G.triu_().add_(upper.T)
-    del upper
+    _mirror_upper(G)
     if moments:
         return G, FY, yty, fsum, ysum
     return G, FY, yty
+
+
+def _mirror_upper(G: torch.Tensor) -> None:
+    """Make G symmetric from its upper triangle, in place. The kernel writes
+    upper-triangle tiles only; mirroring from triu is also exact for the
+    plain path (G symmetric). One (d, d) temporary: the strict upper
+    triangle."""
+    upper = torch.triu(G, 1)
+    G.triu_().add_(upper.T)
+    del upper
+
+
+def _new_carry(d_feat: int, k: int, device) -> Tuple[torch.Tensor, ...]:
+    """Zero (G, FY, yty, fsum, ysum)."""
+    return (
+        torch.zeros((d_feat, d_feat), dtype=torch.float32, device=device),
+        torch.zeros((d_feat, k), dtype=torch.float32, device=device),
+        torch.zeros((), dtype=torch.float32, device=device),
+        torch.zeros((d_feat,), dtype=torch.float32, device=device),
+        torch.zeros((k,), dtype=torch.float32, device=device),
+    )
 
 
 def bcd_from_gram(G, FY, block_size: int, lam: float, num_iter: int) -> torch.Tensor:
@@ -349,13 +371,200 @@ def streaming_bcd_fit_centered(
     return W, fmean, ymean, loss
 
 
+def _fold_device(bank, device) -> torch.device:
+    """Where a segment fold runs: ``device`` when given, else where the
+    featurizer's parameters lie (a cosine bank's ``Wrf``, or the first
+    tensor of a composed featurizer's members), else the default device."""
+    if device is not None:
+        return resolve_device(device)
+    for t in _bank_tensors(bank):
+        return t.device
+    return resolve_device(None)
+
+
+def _bank_tensors(bank):
+    """The tensors a featurizer holds (its own attributes, and its
+    members' for a composed one): its identity in a checkpoint's
+    fingerprint, and the device it runs on."""
+    owners = [bank] + list(getattr(bank, "members", []) or [])
+    out = []
+    for owner in owners:
+        for value in getattr(owner, "__dict__", {}).values():
+            if isinstance(value, torch.Tensor):
+                out.append(value)
+    return out
+
+
+def _dense_segment_fold(carry, X_seg, Y_seg, valid_rows: int, featurize, tile_rows: int):
+    """Fold one segment of pre-tiled rows (T, tile_rows, d_in) into the
+    (G, FY, yty, fsum, ysum) carry, tile by tile in order. ``valid_rows``
+    counts the segment's true rows: the boundary tile drops its rows past
+    it, and tiles past it (phantom tiles of the last segment) are skipped,
+    which contributes exactly what the reference's masked scan does.
+    Integer rows (uint8 image shards) are widened to float32."""
+    for t in range(int(X_seg.shape[0])):
+        tile_valid = min(max(valid_rows - t * tile_rows, 0), tile_rows)
+        if tile_valid == 0:
+            break
+        X_t, Y_t = X_seg[t], Y_seg[t]
+        if not X_t.is_floating_point():
+            X_t = X_t.to(torch.float32)
+        carry = _tile_update(*carry, X_t, Y_t.to(torch.float32), featurize,
+                             None if tile_valid == tile_rows else tile_valid)
+    return carry
+
+
+def streaming_bcd_fit_segments(
+    segment_source,
+    num_segments: Optional[int] = None,
+    n_true: Optional[int] = None,
+    bank=None,
+    d_feat: Optional[int] = None,
+    tile_rows: Optional[int] = None,
+    block_size: Optional[int] = None,
+    lam=0.0,
+    num_iter: int = 1,
+    center: bool = True,
+    inflight: int = 2,
+    prefetch_depth: int = 2,
+    prefetch_stats=None,
+    checkpoint=None,
+    device=None,
+):
+    """Disk-bounded dense streamed fit: fold (G, FY, moments) over segments
+    delivered one at a time (e.g. :class:`~keystone_tpu_torch.data.shards.
+    DiskDenseShards` over memory-mapped tiles), then solve with
+    (optionally centred) BCD on the normal equations. n is bounded by disk,
+    not by host RAM or device memory.
+
+    ``segment_source``: a :class:`~keystone_tpu_torch.data.prefetch.
+    ShardSource` (``num_segments``, ``n_true`` and ``tile_rows`` then
+    default from it, and a background reader prefetches segment k+1 while
+    segment k is copied and folded; ``prefetch_depth`` bounds the staged
+    host buffers, 0 loads serially with the same bits), or a callable
+    ``segment_source(s) -> (X_seg (T, tile_rows, d_in), Y_seg
+    (T, tile_rows, k), valid_rows)``, loaded serially (a callable makes no
+    thread-safety promise). ``bank`` is the featurize callable applied to
+    each tile (on the card a cosine bank launches ``cosine_features``, and
+    every tile ``gram_sym_acc``). ``device``: where the fold runs; None
+    means the featurizer's device (see :func:`_fold_device`). ``inflight``:
+    segments the host may run ahead of the card. Returns (W, fmean, ymean,
+    loss) when centred, else (W, None, None, loss).
+
+    ``checkpoint``: a :class:`~keystone_tpu_torch.data.durable.
+    CheckpointSpec` (or directory; None consults ``KEYSTONE_CHECKPOINT_DIR``)
+    that snapshots the carry (G, FY, yty, fsum, ysum) and the segment
+    cursor every ``every_segments`` segments. A fit killed mid-stream and
+    re-run with the same spec resumes at the last snapshot with the
+    uninterrupted run's bits (the carry round-trips as raw float32 bytes
+    and the remaining segments fold in the same order); the snapshot is
+    cleared on success.
+    """
+    from keystone_tpu_torch.data.durable import (
+        fingerprint_token,
+        resolve_checkpoint,
+        source_fingerprint,
+    )
+    from keystone_tpu_torch.data.prefetch import (
+        is_shard_source,
+        iter_segments,
+        stage_segment,
+        to_device_segment,
+    )
+
+    checkpoint = resolve_checkpoint(checkpoint)
+    if is_shard_source(segment_source):
+        if num_segments is None:
+            num_segments = segment_source.num_segments
+        if n_true is None:
+            n_true = segment_source.n_true
+        if tile_rows is None:
+            tile_rows = getattr(segment_source, "tile_rows", None)
+    else:
+        prefetch_depth = 0  # plain callables make no thread-safety promise
+    if num_segments is None or n_true is None:
+        raise ValueError("callable segment sources need explicit num_segments and n_true")
+    if bank is None or d_feat is None or tile_rows is None or block_size is None:
+        raise ValueError(
+            "streamed segment fit needs bank, d_feat, block_size, and tile_rows "
+            "(tile_rows defaults only from a ShardSource)"
+        )
+    device = _fold_device(bank, device)
+    carry = None
+    start = 0
+    fingerprint = None
+    if checkpoint is not None:
+        # Geometry, featurizer identity (type and parameter digests) and
+        # source identity: a stale snapshot from a different bank or a
+        # re-ingested shard directory never seeds this fold.
+        fingerprint = {
+            "kind": "dense_bcd_segments",
+            "num_segments": int(num_segments), "n_true": int(n_true),
+            "d_feat": int(d_feat), "tile_rows": int(tile_rows),
+            "bank": {
+                "type": fingerprint_token(type(bank)),
+                "params": fingerprint_token(_bank_tensors(bank)),
+            },
+            "source": source_fingerprint(segment_source),
+        }
+        arrays, start = checkpoint.restore(fingerprint)
+        if arrays is not None:
+            carry = tuple(torch.from_numpy(np.array(a)).to(device) for a in arrays)
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    in_flight: deque = deque()
+    for s, staged in iter_segments(
+        segment_source, num_segments=num_segments, prefetch_depth=prefetch_depth,
+        stats=prefetch_stats, start=start,
+        stage=lambda payload: stage_segment(payload, device),
+    ):
+        t0 = time.perf_counter()
+        # The span covers the same region as the `compute` busy counter.
+        with obs.span("fold.segment", segment=int(s)):
+            X_seg, Y_seg, valid_rows = to_device_segment(staged, device, copy_stream)
+            del staged
+            if carry is None:
+                carry = _new_carry(d_feat, int(Y_seg.shape[-1]), device)
+            carry = _dense_segment_fold(carry, X_seg, Y_seg, int(valid_rows), bank,
+                                        int(tile_rows))
+            del X_seg, Y_seg
+            if copy_stream is not None:
+                done = torch.cuda.Event()
+                done.record()
+                in_flight.append(done)
+                if len(in_flight) > max(int(inflight), 1):
+                    in_flight.popleft().synchronize()
+        if prefetch_stats is not None:
+            # The `compute` site: copy, fold dispatch and the inflight
+            # bound's blocking.
+            prefetch_stats.add_busy("compute", time.perf_counter() - t0)
+        if checkpoint is not None:
+            checkpoint.maybe_save(carry, s, num_segments, fingerprint, stats=prefetch_stats)
+    if carry is None:
+        raise ValueError("the segment source delivered no segments")
+    G, FY, yty, fsum, ysum = carry
+    _mirror_upper(G)
+    W, loss, fmean, ymean = _solve_from_stats_core(
+        G, FY, yty, fsum, ysum, int(n_true), lam, block_size, num_iter, center,
+    )
+    if checkpoint is not None:
+        # The fit completed: a later fit with this fingerprint starts
+        # fresh. Only this fit's snapshot goes.
+        checkpoint.clear(fingerprint)
+    return W, fmean, ymean, loss
+
+
 def streaming_predict(X, W, featurize: Callable, tile_rows: int) -> torch.Tensor:
     """Predictions F @ W_flat computed tile-wise (F never materialized).
 
     W: (nb, block, k) from the fit. X may be (n, d_in) or pre-tiled
     (T, tile_rows, d_in); predictions come back as (n, k) float32 either
-    way, each tile's written into its rows of one output buffer.
+    way, each tile's written into its rows of one output buffer. The
+    product is the mappers' (``linear.mapper_product``: float32 through
+    ``row_stable_matmul``), so a row's prediction has the same bits in a
+    full tile and in the ragged last one.
     """
+    from keystone_tpu_torch.ops.learning.linear import mapper_product
+
     X = as_tensor(X)
     Wf = W.reshape(-1, W.shape[2])
     if X.dim() == 3:
@@ -364,7 +573,7 @@ def streaming_predict(X, W, featurize: Callable, tile_rows: int) -> torch.Tensor
     out = torch.empty((n, Wf.shape[1]), dtype=torch.float32, device=X.device)
     for s in range(0, n, tile_rows):
         F_t = featurize(X[s:s + tile_rows])
-        out[s:s + tile_rows] = F_t @ Wf.to(F_t.dtype)
+        out[s:s + tile_rows] = mapper_product(F_t, Wf.to(F_t.dtype))
         # Free this slab before the next is made: rebinding F_t would hold
         # two slabs (4 GiB at the TIMIT geometry) for the next featurize.
         del F_t

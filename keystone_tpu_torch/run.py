@@ -61,7 +61,11 @@ tracer and writes ``DIR/trace.json`` (Perfetto-loadable),
 ``DIR/events.jsonl`` and ``DIR/meta.json``; ``--fault-plan=JSON|@file.json``
 installs a deterministic fault-injection plan (``utils/faults.py``);
 ``--checkpoint-dir=DIR`` sets ``KEYSTONE_CHECKPOINT_DIR``: the trainer of
-``learn`` snapshots its carry there and a restarted one resumes from it.
+``learn`` and every segmented streamed fit (the disk tier's folds)
+snapshot their carry there, and a restarted one resumes from it;
+``--host-budget-bytes=N`` sets ``KEYSTONE_HOST_BUDGET_BYTES``, the host
+RAM a dataset may claim before the cost model routes it through disk
+shards.
 """
 
 from __future__ import annotations
@@ -556,14 +560,18 @@ def resolve(name: str) -> Callable:
 
 # Global flags popped before any per-pipeline parser sees them; each
 # becomes the env knob the library layer reads:
+#   --host-budget-bytes=N  -> KEYSTONE_HOST_BUDGET_BYTES (ops/learning/
+#       cost.py: caps the host RAM a dataset claims before routing through
+#       disk shards)
 #   --checkpoint-dir=DIR   -> KEYSTONE_CHECKPOINT_DIR (data/durable.py:
-#       the continuous trainer snapshots + resumes its fold carry; a
-#       segmented streamed fit that would snapshot raises, ROADMAP A.13)
+#       the continuous trainer and the segmented streamed fits snapshot +
+#       resume their fold carry)
 #   --fault-plan=JSON|@f   -> KEYSTONE_FAULT_PLAN (utils/faults.py: install
 #       a deterministic fault-injection plan for manual chaos drills)
 #   --trace=DIR            -> KEYSTONE_TRACE (obs: run under the tracer,
 #       write the Perfetto trace + event log to DIR)
 _GLOBAL_FLAGS = {
+    "--host-budget-bytes=": "KEYSTONE_HOST_BUDGET_BYTES",
     "--checkpoint-dir=": "KEYSTONE_CHECKPOINT_DIR",
     "--fault-plan=": "KEYSTONE_FAULT_PLAN",
     "--trace=": "KEYSTONE_TRACE",

@@ -8,19 +8,36 @@ matches ``Image.get(x, y, c)`` (reference: utils/images/Image.scala,
 utils/ImageUtils.scala). The filters take one image or a batch: every
 axis before the last three is a batch axis.
 
-Not ported yet: ``ImageMetadata`` and ``load_image`` (they come with the
-image loaders).
+``load_image`` decodes a file or byte buffer through PIL for the image
+loaders (numpy out, a loader-side step). Not ported yet:
+``ImageMetadata``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import io
+from typing import Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from keystone_tpu_torch.data.dataset import as_tensor
+
+def load_image(source: Union[str, bytes]) -> np.ndarray:
+    """Decode an image file or byte buffer to an (x, y, c) float32 numpy
+    array (the reference's javax.imageio path, utils/ImageUtils.scala)."""
+    from PIL import Image as PILImage
+
+    if isinstance(source, (bytes, bytearray)):
+        pil = PILImage.open(io.BytesIO(source))
+    else:
+        pil = PILImage.open(source)
+    arr = np.asarray(pil, dtype=np.float32)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
+
 
 # MATLAB rgb2gray / NTSC weights, exactly as the reference spells them
 # (ImageUtils.toGrayScale: 0.2989 R + 0.5870 G + 0.1140 B on BGR data; these

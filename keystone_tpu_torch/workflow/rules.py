@@ -11,10 +11,11 @@ counterpart:
 The sample collector keeps the reference's row sampling and its capacity
 annotations, carried through derived datasets: ``total_n`` (the full row
 count the cost models price), ``source_row_bytes`` (bytes a raw source row,
-which the streaming tier keeps resident) and ``total_d`` (a sparse sample's
-true feature width). The port has no shard-backed sources, so the
-reference's disk-tier facts (``shard_backed``, ``shard_segment_bytes``)
-are not collected; they come with the data plane (ROADMAP A.13).
+which the streaming tier keeps resident), ``total_d`` (a sparse sample's
+true feature width) and, for a shard-backed source, the disk-tier facts
+``shard_backed`` and ``shard_segment_bytes`` (the sample is then the first
+rows of the source's first segment: the dataset is never materialized to
+be priced).
 """
 
 from __future__ import annotations
@@ -267,6 +268,20 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
 
     def sample_dataset(ds: Dataset) -> Dataset:
         k = min(ds.n, samples_per_shard)
+        if ds.is_shard_backed:
+            # Out-of-core source: sample the first segment only and carry
+            # the disk-tier capacity facts the selector prices on.
+            src = ds.shard_source
+            first = src.load(0)
+            arr = np.asarray(first if isinstance(first, np.ndarray) else first[0])
+            arr = arr.reshape(-1, arr.shape[-1])
+            rows = min(k, arr.shape[0], ds.n)
+            out = Dataset(np.array(arr[:rows]), n=rows)
+            out.total_n = ds.n
+            out.source_row_bytes = src.row_bytes or float(arr.shape[-1] * arr.dtype.itemsize)
+            out.shard_backed = True
+            out.shard_segment_bytes = src.segment_bytes
+            return out
         if ds.is_host:
             out = Dataset.of(ds.to_list()[:k])
         else:
@@ -314,6 +329,33 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
                 ]
                 if raws:
                     value.source_row_bytes = max(raws)
+                # Disk-tier provenance: a derived sample whose source is
+                # shard-backed keeps the flag only through device-fusable
+                # operators, the chains StreamedFitFusionRule can rewire to
+                # consume the raw shard source. Through any other operator
+                # the fit would receive a materialized intermediate. A
+                # gather, and the combiner after it, keep it when every
+                # input does: GatherFusionRule fuses a gather of fusable
+                # branches and its combiner (the TIMIT featurizer) into one
+                # fusable transformer. The reference passes the flag through
+                # fusable operators alone, so its TIMIT gather loses the
+                # disk tier.
+                from .fusion import fusable
+                from .operators import GatherTransformerOperator
+
+                flags = [getattr(v, "shard_backed", False) for v in dep_ds]
+                combine = getattr(op, "device_combine_fn", None)
+                gathers = isinstance(op, GatherTransformerOperator) or (
+                    callable(combine) and combine() is not None
+                )
+                if (fusable(op) and any(flags)) or (gathers and flags and all(flags)):
+                    value.shard_backed = True
+                    segs = [
+                        v.shard_segment_bytes for v in dep_ds
+                        if getattr(v, "shard_segment_bytes", None) is not None
+                    ]
+                    if segs:
+                        value.shard_segment_bytes = max(segs)
                 _attach_sparse_width(op, value, deps)
         memo[gid] = value
         return value

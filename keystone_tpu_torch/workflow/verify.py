@@ -280,6 +280,8 @@ def signature_of_value(value: Any) -> Sig:
             items = value.data
             kind = _infer_host_kind(items[0]) if items else "any"
             return HostSig(kind, n=value.n)
+        if value.is_shard_backed:
+            return UNKNOWN
         data = value.data
         if isinstance(data, dict) and set(data.keys()) == {
             "indices", "values",

@@ -5,8 +5,7 @@ notes and counters), the data-plane runtime (``data/runtime.py``: the
 reference's ``TestRuntimeCore`` cases), and the checkpoint half of
 ``data/durable.py`` (``atomic_write_json``, ``CheckpointSpec``,
 ``resolve_checkpoint``: each package reads what the other writes), with
-the ``--checkpoint-dir`` flag and the streamed fit that refuses to run
-uninsured under it (ROADMAP A.13).
+the ``--checkpoint-dir`` flag and the segmented streamed fit it insures.
 
 The reference resolves its weight family from ``KEYSTONE_COST_WEIGHTS``
 (``tpu`` by default); the port has one, ``ec2``, so the comparisons set
@@ -362,13 +361,16 @@ class TestCheckpoints:
             return idx, val, torch.ones(2, 1)
 
         monkeypatch.setenv("KEYSTONE_CHECKPOINT_DIR", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="KEYSTONE_CHECKPOINT_DIR.*A.13"):
-            run_lbfgs_gram_streamed(chunk, 4, 3, 1, lam=1e-2, num_iterations=3, n=8,
-                                    max_chunks_per_dispatch=2)
+        monkeypatch.setenv("KEYSTONE_CHECKPOINT_EVERY", "1")
+        # The variable is honoured now: the segmented fold snapshots its
+        # carry there (a killed one resumes: tests/test_torch_outofcore.py)
+        # and clears the snapshot when it completes.
+        W1, _ = run_lbfgs_gram_streamed(chunk, 4, 3, 1, lam=1e-2, num_iterations=3, n=8,
+                                        max_chunks_per_dispatch=2)
         # Unsegmented, the reference does not checkpoint either: it runs.
         W, _ = run_lbfgs_gram_streamed(chunk, 4, 3, 1, lam=1e-2, num_iterations=3, n=8)
         monkeypatch.delenv("KEYSTONE_CHECKPOINT_DIR")
         W2, _ = run_lbfgs_gram_streamed(chunk, 4, 3, 1, lam=1e-2, num_iterations=3, n=8,
                                         max_chunks_per_dispatch=2)
-        assert torch.equal(W, W2)
+        assert torch.equal(W, W2) and torch.equal(W1, W2)
         assert json.dumps(os.listdir(tmp_path)) == "[]"

@@ -436,10 +436,15 @@ class TestEstimators:
         assert _rel(fused, want) <= 1e-5
 
     def test_unported_tiers_name_their_roadmap_item(self):
-        choice = tsls.StreamingLeastSquaresChoice()
+        # The disk tier is ported (tests/test_torch_outofcore.py); the mesh
+        # form of the block-streamed program is not.
         _, bank = _banks()
-        with pytest.raises(NotImplementedError, match="A.13"):
-            choice.fit_source(None, None, bank, D_FEAT)
+        with pytest.raises(NotImplementedError, match="A.15"):
+            tstream.streaming_block_bcd_mesh(torch.zeros(4, D_IN), torch.zeros(4, K), bank.Wrf,
+                                             bank.brf, block_size=128, lam=0.0, num_iter=1,
+                                             mesh=object())
+        with pytest.raises(TypeError, match="cannot stream a dense fit"):
+            tsls._source_d_in(object())
 
     def test_streamed_fit_estimator_equals_the_bank_fit(self):
         train = t_synthetic_timit(700, seed=4, device="cpu")
