@@ -5069,7 +5069,7 @@ def _streamed_model(fitted):
     return model
 
 
-def _disk_fit(cuda_ops, timit, TimitConfig, sld, depth, device, stats=None):
+def _disk_fit(cuda_ops, timit, TimitConfig, sld, depth, device):
     """One Pipeline fit of the cosine featurizer -> LeastSquaresEstimator
     on the shard-backed rows at prefetch ``depth``, launches counted from
     0. Returns (fitted, selector, seconds, launches, run peak bytes)."""
@@ -5082,7 +5082,6 @@ def _disk_fit(cuda_ops, timit, TimitConfig, sld, depth, device, stats=None):
     auto = LeastSquaresEstimator(lam=DISK_LAM, block_size=BLOCK, block_iters=EPOCHS,
                                  host_budget_bytes=DISK_HOST_BUDGET)
     auto._streaming_choice.prefetch_depth = depth
-    auto._streaming_choice.prefetch_stats = stats
     pipe = timit.build_featurizer(config, device).and_then(auto, sld.data, sld.labels)
     _sync(device)
     baseline = torch.cuda.memory_allocated() if device == "cuda" else 0
@@ -5099,12 +5098,62 @@ def _disk_fit(cuda_ops, timit, TimitConfig, sld, depth, device, stats=None):
     return fitted, auto, seconds, counts, grown
 
 
+def _disk_tile_kernels(cuda_ops, shards, bank, device):
+    """Phase 21(a)'s kernels against their plain versions at the shapes the
+    disk fold gives them, phase 1's tolerances: ``cosine_features`` on a
+    full tile and on the last segment's tile (8,192 rows each, the last
+    zero-padded past its 4,544 true rows), ``gram_sym_acc`` in place on
+    each tile's true rows of those features (8,192 and 4,544 x 16,384).
+    Returns the errors by tile."""
+    d = bank.Wrf.shape[0]
+    gen = torch.Generator(device=device).manual_seed(21)
+    G0 = torch.randn((d, d), generator=gen, device=device)
+    tiles = torch.arange(d, device=device) // 128
+    upper = tiles[:, None] <= tiles[None, :]
+    errs = {}
+    last = DISK_TILES - 1
+    for label, tile in (("full", 0), ("ragged", last)):
+        X_seg, valid = shards.segment_source_x(tile // DISK_TPS)
+        t = tile % DISK_TPS
+        rows = min(int(valid) - t * DISK_TILE, DISK_TILE)
+        X_t = torch.from_numpy(np.array(X_seg[t])).to(device)
+        F = cuda_ops.cosine_features(X_t, bank.Wrf, bank.brf)
+        want = cuda_ops.cosine_features_ref(X_t, bank.Wrf, bank.brf)
+        _sync(device)
+        cos_err = (F - want).abs().max().item()
+        check(f"21(a) cosine_features on the {label} tile, {X_t.shape[0]}x{X_t.shape[1]} @ "
+              f"{d}x{bank.Wrf.shape[1]}", cos_err <= 1e-5,
+              f"max_abs_err {cos_err:.3e} (tol 1e-5)")
+        del want
+        Fv = F[:rows]
+        want = cuda_ops.gram_sym_acc_ref(G0, Fv)
+        G = G0.clone()
+        cuda_ops.gram_sym_acc(G, Fv, out=G)
+        _sync(device)
+        # Relative to the scale of the sums, as phase 1.
+        scale = torch.addmm(G0.abs(), Fv.abs().T, Fv.abs())
+        diff = (G - want).abs()
+        gram_err = diff[upper].max().item()
+        rel = (diff / scale)[upper].max().item()
+        check(f"21(a) gram_sym_acc in place on the {label} tile, G0 {d}x{d}, F {rows}x{d}",
+              rel <= 1e-4 and (torch.device(device).type != "cuda"
+                               or torch.equal(G[~upper], G0[~upper])),
+              f"upper tiles max_abs_err {gram_err:.3e} ({rel:.2e} of scale), tol 1e-4 of "
+              "scale, lower tiles untouched")
+        errs[label] = dict(rows=rows, cosine_max_abs_err=cos_err, gram_max_abs_err=gram_err,
+                           gram_rel_err=rel)
+        del F, Fv, want, G, scale, diff
+    del G0, upper
+    return errs
+
+
 def phase_disk_timit(cuda_ops, timit, TimitConfig, root, smi, device="cuda"):
     """Phase 21(a): TIMIT written to disk shards and fitted from them
     through the Pipeline API at depth 2 and 0."""
     from keystone_tpu_torch.data.prefetch import PrefetchStats
     from keystone_tpu_torch.data.shards import DiskDenseShardWriter
     from keystone_tpu_torch.ops.learning.streaming_ls import CosineBankFeaturize
+    from keystone_tpu_torch.parallel import streaming
     from keystone_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
@@ -5125,23 +5174,18 @@ def phase_disk_timit(cuda_ops, timit, TimitConfig, root, smi, device="cuda"):
           f"{shards.num_tiles} tiles, {shards.num_segments} segments, {shards.n_true} rows")
     runs = {}
     for depth in (2, 0):
-        stats = PrefetchStats()
         fitted, auto, seconds, counts, grown = _disk_fit(cuda_ops, timit, TimitConfig, sld, depth,
-                                                         device, stats)
+                                                         device)
         decision = auto.last_decision
         (priced,) = [c["resident_bytes"] for c in decision["candidates"]
                      if c["label"] == "StreamingLeastSquaresChoice"]
         model = _streamed_model(fitted)
-        overlap = profiling.prefetch_overlap_fraction(stats)
         runs[depth] = dict(fitted=fitted, model=model, seconds=seconds, launches=counts,
-                           grown=grown, priced=priced, overlap=overlap, decision=decision,
-                           report=profiling.overlap_report(stats),
-                           load_s=stats.load_s, wait_s=stats.wait_s,
-                           retries=profiling.prefetch_retry_counters(stats))
+                           grown=grown, priced=priced, decision=decision,
+                           center=auto._streaming_choice.center)
         log(f"  (a) depth {depth}: fit {seconds:.3f} s, winner {decision['winner']} "
             f"(shard_backed {decision['context']['shard_backed']}), launches "
-            f"{ {k: v for k, v in counts.items() if v} }, overlap {overlap}, load "
-            f"{stats.load_s:.3f} s, wait {stats.wait_s:.3f} s, sites {runs[depth]['report']}, "
+            f"{ {k: v for k, v in counts.items() if v} }, "
             f"run peak {grown} B against the priced {priced:.6g} B ({smi})")
         check(f"21(a) depth {depth}: the selector picks the disk tier",
               decision["winner"] == "StreamingLeastSquaresChoice"
@@ -5167,6 +5211,31 @@ def phase_disk_timit(cuda_ops, timit, TimitConfig, root, smi, device="cuda"):
     bank = on.featurize
     check("21(a) the fit folded through the cosine bank", isinstance(bank, CosineBankFeaturize),
           f"featurize {type(bank).__name__}")
+    # The overlap reading: the same fold over the shards, called with a
+    # PrefetchStats at depth 2, after the Pipeline's fits.
+    for depth in (2, 0):
+        stats = PrefetchStats()
+        _sync(device)
+        t0 = time.perf_counter()
+        W, fmean, ymean, _ = streaming.streaming_bcd_fit_segments(
+            shards.as_source(), bank=bank, d_feat=NUM_COSINES * BLOCK,
+            block_size=int(on.W_stack.shape[1]), lam=DISK_LAM, num_iter=EPOCHS,
+            center=runs[depth]["center"], prefetch_depth=depth, prefetch_stats=stats,
+            device=device)
+        _sync(device)
+        r = runs[depth]
+        r.update(fold_seconds=time.perf_counter() - t0,
+                 overlap=profiling.prefetch_overlap_fraction(stats),
+                 report=profiling.overlap_report(stats), load_s=stats.load_s,
+                 wait_s=stats.wait_s, retries=profiling.prefetch_retry_counters(stats))
+        log(f"  (a) depth {depth}, the fold called directly: {r['fold_seconds']:.3f} s, overlap "
+            f"{r['overlap']}, load {stats.load_s:.3f} s, wait {stats.wait_s:.3f} s, sites "
+            f"{r['report']} ({smi})")
+        check(f"21(a) depth {depth}: the fold called directly gives the Pipeline fit's bits",
+              torch.equal(W, r["model"].W_stack) and torch.equal(fmean, r["model"].fmean)
+              and torch.equal(ymean, r["model"].ymean), "W, fmean, ymean bitwise equal")
+        del W, fmean, ymean
+    tile_errs = _disk_tile_kernels(cuda_ops, shards, bank, device)
     X_all, Y_all = [], []
     for X, Y, _ in disk_row_blocks(DISK_N, 1, device):
         X_all.append(X)
@@ -5174,35 +5243,52 @@ def phase_disk_timit(cuda_ops, timit, TimitConfig, root, smi, device="cuda"):
     X_all, Y_all = torch.cat(X_all), torch.cat(Y_all)
     from keystone_tpu_torch.data import Dataset
 
-    t0 = time.perf_counter()
-    resident = timit_streaming_estimator(bank).fit(Dataset(X_all), Dataset(Y_all))
-    _sync(device)
-    resident_s = time.perf_counter() - t0
+    # Resident --solver streaming fits of the same rows: at its default
+    # tiles (32,768 rows), and at the shards' 8,192-row tiles, where it sums
+    # the rows in the disk fold's order.
+    residents = {}
+    for tile in (None, DISK_TILE):
+        t0 = time.perf_counter()
+        est = timit_streaming_estimator(bank, tile)
+        fit = est.fit(Dataset(X_all), Dataset(Y_all))
+        _sync(device)
+        residents[tile] = (fit, est.tile_rows, time.perf_counter() - t0)
     del X_all, Y_all
     X_test = torch.cat([X for X, _, _ in disk_row_blocks(DISK_TEST, 2, device)])
     cuda_ops.reset_launch_counts()
     got = runs[2]["fitted"].apply(Dataset(X_test)).to_numpy()
     apply_counts = dict(cuda_ops.launches)
-    want = resident.batch_apply(Dataset(X_test)).to_numpy()
-    gap = float(np.max(np.abs(got - want) / (1.0 + np.abs(want))))
-    same_bits = bool(np.array_equal(got, want))
-    log(f"  (a) resident streamed fit of the same rows {resident_s:.3f} s; held-out "
-        f"{DISK_TEST} rows: max |disk - resident| / (1 + |resident|) = {gap:.3e} (bit-equal "
-        f"{same_bits}), apply launches { {k: v for k, v in apply_counts.items() if v} }")
-    check("21(a) held-out predictions within 5e-4 of the resident streamed fit", gap <= 5e-4,
-          f"{gap:.3e}")
+    gaps = {}
+    for tile, (fit, tile_rows, resident_s) in residents.items():
+        want = fit.batch_apply(Dataset(X_test)).to_numpy()
+        gap = float(np.max(np.abs(got - want) / (1.0 + np.abs(want))))
+        same_bits = bool(np.array_equal(got, want))
+        gaps[tile] = dict(tile_rows=tile_rows, resident_fit_seconds=resident_s,
+                          heldout_gap=gap, heldout_bit_equal=same_bits)
+        log(f"  (a) resident streamed fit of the same rows at {tile_rows}-row tiles "
+            f"{resident_s:.3f} s; held-out {DISK_TEST} rows: max |disk - resident| / "
+            f"(1 + |resident|) = {gap:.3e} (bit-equal {same_bits}) ({smi})")
+    log(f"  (a) held-out apply launches { {k: v for k, v in apply_counts.items() if v} }")
+    check("21(a) held-out predictions within 5e-4 of the resident --solver streaming fit",
+          gaps[None]["heldout_gap"] <= 5e-4,
+          f"{gaps[None]['heldout_gap']:.3e} at {gaps[None]['tile_rows']}-row tiles")
+    check("21(a) held-out predictions bit-equal to a resident fit folding the disk's tiles",
+          gaps[DISK_TILE]["heldout_bit_equal"],
+          f"{gaps[DISK_TILE]['heldout_gap']:.3e} at {DISK_TILE}-row tiles")
     check("21(a) the fitted model predicts through cosine_features and row_stable_matmul",
           apply_counts["cosine_features"] > 0 and apply_counts["row_stable_matmul"] > 0,
           f"{apply_counts}")
     summary = {
         "rows": DISK_N, "tiles": DISK_TILES, "segments": DISK_SEGMENTS,
         "shard_bytes": disk_bytes, "write_seconds": write_s,
-        "resident_fit_seconds": resident_s, "heldout_gap": gap, "heldout_bit_equal": same_bits,
+        "resident": {str(tile or "default"): g for tile, g in gaps.items()},
+        "tile_kernels": tile_errs,
         "apply_launches": {k: v for k, v in apply_counts.items() if v},
     }
     for depth, r in runs.items():
         summary[f"depth_{depth}"] = dict(
-            fit_seconds=r["seconds"], overlap_fraction=r["overlap"], load_seconds=r["load_s"],
+            fit_seconds=r["seconds"], fold_seconds=r["fold_seconds"],
+            overlap_fraction=r["overlap"], load_seconds=r["load_s"],
             wait_seconds=r["wait_s"], sites=r["report"], retries=r["retries"],
             launches={k: v for k, v in r["launches"].items() if v},
             run_peak_bytes=r["grown"], priced_resident_bytes=r["priced"],
@@ -5210,15 +5296,15 @@ def phase_disk_timit(cuda_ops, timit, TimitConfig, root, smi, device="cuda"):
     return summary, runs[2]["launches"], sld, bank, on
 
 
-def timit_streaming_estimator(bank):
+def timit_streaming_estimator(bank, tile_rows=DISK_TILE):
     """--solver streaming's estimator at phase 21's geometry, folding tiles
-    of the shards' 8,192 rows: the resident fold then sums the rows in the
-    disk fold's order (with its default 32,768-row tiles the two part by
-    float32 rounding, which the centred solve amplifies)."""
+    of ``tile_rows`` rows (None: its default). At the shards' 8,192 rows it
+    sums the rows in the disk fold's order and gives the disk fit's bits;
+    at other tiles the two part by float32 rounding."""
     from keystone_tpu_torch.ops.learning.streaming_ls import StreamingFeaturizedLeastSquares
 
     return StreamingFeaturizedLeastSquares(bank, d_feat=NUM_COSINES * BLOCK, block_size=BLOCK,
-                                           num_iter=EPOCHS, lam=DISK_LAM, tile_rows=DISK_TILE)
+                                           num_iter=EPOCHS, lam=DISK_LAM, tile_rows=tile_rows)
 
 
 def phase_disk_resume(cuda_ops, sld, bank, want, root, smi, device="cuda"):

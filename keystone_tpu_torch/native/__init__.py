@@ -1,12 +1,12 @@
 """Native host-side data plane: CSV parsing, PNM decoding and record
 splitting in C++ (port of ``keystone_tpu/native/__init__.py``; the
 analog of the reference's src/main/cpp tier, loaded there through
-System.loadLibrary, utils/external/VLFeat.scala:4), and two row-stable
-float32 products on the host (``row_stable.cpp``, which the port adds):
-the host form of ``cuda_ops.row_stable_matmul_ref`` (taken for CPU
-tensors, with the bits of its elementwise PyTorch form) and the cosine
-plain version's pre-activation (a fused multiply-add chain in index
-order).
+System.loadLibrary, utils/external/VLFeat.scala:4), and a row-stable
+float32 product on the host (``row_stable.cpp``, which the port adds):
+fused multiply-add chains in fixed chunks of the reduction index, the
+order the card's kernels sum in, which the CPU forms of
+``cuda_ops.row_stable_matmul_ref`` and of the cosine plain version's
+pre-activation take.
 
 The C++ sources beside this file are compiled with ``g++`` at first use
 into ``build/keystone_tpu_torch/libkeystone_native-<digest>.so`` (the
@@ -101,17 +101,11 @@ def get_lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.POINTER(ctypes.c_float)), _c_long_p,
             _c_long_p, _c_long_p, _c_long_p, _c_long_p,
         ]
-        lib.ks_row_stable_matmul_f32.restype = None
-        lib.ks_row_stable_matmul_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_void_p,
-            ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-        ]
         lib.ks_matmul_fma_chain_f32.restype = None
         lib.ks_matmul_fma_chain_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
             ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_void_p,
-            ctypes.c_long, ctypes.c_long,
+            ctypes.c_long, ctypes.c_long, ctypes.c_long,
         ]
         lib.ks_decode_pnm.restype = ctypes.c_int
         lib.ks_decode_pnm.argtypes = [
@@ -312,27 +306,12 @@ def _threads_for(macs: int, threads: int) -> int:
     return max(1, min(int(threads), macs >> 20))
 
 
-def row_stable_matmul_f32(X, W, chunk: int, width: int, threads: int):
+def matmul_fma_chain_f32(X, W, chunk: int, threads: int):
     """out = X @ W for float32 CPU tensors X (m, k) and W (k, n) with rows
-    of unit stride, by the row-stable chunked pairwise sums of
-    ``cuda_ops.row_stable_matmul_ref`` (``chunk`` reduction indices a
-    chunk, each chunk padded to ``width``), on ``threads`` threads."""
-    import torch
-
-    m, k = X.shape
-    n = W.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32)
-    get_lib().ks_row_stable_matmul_f32(
-        X.data_ptr(), m, k, X.stride(0), W.data_ptr(), n, W.stride(0), out.data_ptr(),
-        out.stride(0), chunk, width, _threads_for(m * k * n, threads),
-    )
-    return out
-
-
-def matmul_fma_chain_f32(X, W, threads: int):
-    """out = X @ W for float32 CPU tensors X (m, k) and W (k, n) with rows
-    of unit stride: each output one fused multiply-add chain over k in
-    index order, so a row's bits depend on that row and W alone."""
+    of unit stride: each output one fused multiply-add chain in index order
+    over each ``chunk`` reduction indices, the chunk sums added in order
+    (one chain when ``chunk >= k``), on up to ``threads`` threads; a row's
+    bits depend on that row and W alone."""
     import torch
 
     m, k = X.shape
@@ -340,6 +319,6 @@ def matmul_fma_chain_f32(X, W, threads: int):
     out = torch.empty((m, n), dtype=torch.float32)
     get_lib().ks_matmul_fma_chain_f32(
         X.data_ptr(), m, k, X.stride(0), W.data_ptr(), n, W.stride(0), out.data_ptr(),
-        out.stride(0), _threads_for(m * k * n, threads),
+        out.stride(0), chunk, _threads_for(m * k * n, threads),
     )
     return out

@@ -1,23 +1,16 @@
 // Row-stable float32 products on the host.
 //
-// ks_row_stable_matmul_f32 is the CPU form of
-// cuda_ops.row_stable_matmul_ref, with its bits:
-// out = X @ W, X (m, k) and W (k, n) float32. The reduction indices go in
-// chunks of kc (the last chunk, or the only one, padded with zeros to
-// `width`, a power of two); in each chunk the products x_i * w_i (each
-// rounded) are summed by a pairwise tree, p_i + p_{i + width/2} first, down
-// to one value; the chunk sums are added in chunk order. Every operation is
-// a float32 multiply or add rounded on its own (built with
-// -ffp-contract=off, so no fused multiply-add), so a row's bits depend on
-// that row and W alone: not on the row count, the row's position or the
-// number of threads. Rows are split over threads; a block of kCols output
-// columns and one chunk of W stay in cache while every row of the thread
-// passes through them.
-//
-// ks_matmul_fma_chain_f32 sums each output as one fused multiply-add chain
-// over k in index order (std::fma rounds once a step, whatever the
-// contraction flag): row-stable too; the cosine plain version's
-// pre-activation.
+// ks_matmul_fma_chain_f32: out = X @ W, X (m, k) and W (k, n) float32. The
+// reduction indices go in chunks of kc; each chunk's products are summed as
+// one fused multiply-add chain in index order from 0 (std::fma rounds once
+// a step, whatever the contraction flag), and the chunk sums are added in
+// chunk order, each add rounded on its own (built with -ffp-contract=off).
+// That is csrc/row_stable_matmul.cu's order (chunks of 256, an fmaf chain
+// each, then sum_chunks_kernel); with kc >= k it is one chain, the order of
+// csrc/cosine_features.cu. A row's bits depend on that row and W alone: not
+// on the row count, the row's position or the number of threads. Rows are
+// split over threads; a block of kCols output columns of W stays in cache
+// while every row of the thread passes through it.
 
 #include <algorithm>
 #include <cmath>
@@ -30,75 +23,17 @@ namespace {
 constexpr long kCols = 32;
 
 #if defined(__x86_64__) && defined(__GNUC__)
-#define KS_CLONES __attribute__((target_clones("avx512f", "avx2", "default")))
 // Clones whose ISA has FMA, so std::fma vectorizes (the default clone calls
 // libm's fmaf: the same result, slower).
 #define KS_FMA_CLONES __attribute__((target_clones("avx512f", "arch=haswell", "default")))
 #else
-#define KS_CLONES
 #define KS_FMA_CLONES
 #endif
 
-// Rows [r0, r1) of the product.
-KS_CLONES
-void rows_kernel(const float* X, long k, long ldx, const float* W, long n,
-                 long ldw, float* out, long ldo, long kc, long width,
-                 long r0, long r1) {
-  const long chunks = (k + kc - 1) / kc;
-  std::vector<float> wt(width * kCols);
-  std::vector<float> buf(width * kCols);
-  std::vector<float> xs(width);
-  for (long c0 = 0; c0 < n; c0 += kCols) {
-    const long nc = std::min(kCols, n - c0);
-    for (long c = 0; c < chunks; ++c) {
-      const long lo = c * kc;
-      const long valid = std::min(kc, k - lo);
-      // This chunk's tile of W, zero-padded to `width` rows and kCols columns.
-      std::fill(wt.begin(), wt.end(), 0.0f);
-      for (long i = 0; i < valid; ++i)
-        for (long j = 0; j < nc; ++j) wt[i * kCols + j] = W[(lo + i) * ldw + c0 + j];
-      for (long r = r0; r < r1; ++r) {
-        const float* x = X + r * ldx + lo;
-        float* b = buf.data();
-        // The row's chunk, zero-padded to `width` (the padding's products
-        // are 0 * 0, as the plain version's).
-        for (long i = 0; i < width; ++i) xs[i] = i < valid ? x[i] : 0.0f;
-        // The products and the tree's first level in one pass:
-        // b_i = x_i w_i + x_{i+h} w_{i+h}, each product rounded first.
-        const long h0 = width / 2;
-        if (h0 == 0) {
-          for (long j = 0; j < kCols; ++j) b[j] = xs[0] * wt[j];
-        }
-        for (long i = 0; i < h0; ++i) {
-          const float xa = xs[i], xb = xs[i + h0];
-          const float* wa = wt.data() + i * kCols;
-          const float* wb = wt.data() + (i + h0) * kCols;
-          for (long j = 0; j < kCols; ++j) {
-            const float pa = xa * wa[j];
-            const float pb = xb * wb[j];
-            b[i * kCols + j] = pa + pb;
-          }
-        }
-        for (long h = h0 / 2; h >= 1; h /= 2)
-          for (long i = 0; i < h; ++i)
-            for (long j = 0; j < kCols; ++j)
-              b[i * kCols + j] = b[i * kCols + j] + b[(i + h) * kCols + j];
-        float* o = out + r * ldo + c0;
-        if (c == 0) {
-          for (long j = 0; j < nc; ++j) o[j] = b[j];
-        } else {
-          for (long j = 0; j < nc; ++j) o[j] = o[j] + b[j];
-        }
-      }
-    }
-  }
-}
-
-// Rows [r0, r1) of out = X @ W, each output one fused multiply-add chain
-// over the reduction index in order, in float32.
+// Rows [r0, r1) of out = X @ W.
 KS_FMA_CLONES
 void rows_fma_chain(const float* X, long k, long ldx, const float* W, long n,
-                    long ldw, float* out, long ldo, long r0, long r1) {
+                    long ldw, float* out, long ldo, long kc, long r0, long r1) {
   std::vector<float> wt(k * kCols);
   for (long c0 = 0; c0 < n; c0 += kCols) {
     const long nc = std::min(kCols, n - c0);
@@ -107,55 +42,53 @@ void rows_fma_chain(const float* X, long k, long ldx, const float* W, long n,
       for (long j = 0; j < nc; ++j) wt[i * kCols + j] = W[i * ldw + c0 + j];
     for (long r = r0; r < r1; ++r) {
       const float* x = X + r * ldx;
-      float acc[kCols] = {0.0f};
-      for (long i = 0; i < k; ++i) {
-        const float xi = x[i];
-        const float* w = wt.data() + i * kCols;
-        for (long j = 0; j < kCols; ++j) acc[j] = std::fma(xi, w[j], acc[j]);
+      float s[kCols];
+      for (long lo = 0; lo < k; lo += kc) {
+        const long hi = std::min(k, lo + kc);
+        float acc[kCols] = {0.0f};
+        for (long i = lo; i < hi; ++i) {
+          const float xi = x[i];
+          const float* w = wt.data() + i * kCols;
+          for (long j = 0; j < kCols; ++j) acc[j] = std::fma(xi, w[j], acc[j]);
+        }
+        if (lo == 0) {
+          for (long j = 0; j < kCols; ++j) s[j] = acc[j];
+        } else {
+          for (long j = 0; j < kCols; ++j) s[j] = s[j] + acc[j];
+        }
       }
       float* o = out + r * ldo + c0;
-      for (long j = 0; j < nc; ++j) o[j] = acc[j];
+      for (long j = 0; j < nc; ++j) o[j] = s[j];
     }
   }
-}
-
-template <typename F, typename... A>
-void over_rows(long m, long threads, F fn, A... args) {
-  long t = std::max(1L, std::min(threads, m));
-  std::vector<std::thread> workers;
-  const long per = (m + t - 1) / t;
-  for (long i = 0; i < t; ++i) {
-    const long r0 = i * per, r1 = std::min(m, r0 + per);
-    if (r0 >= r1) break;
-    workers.emplace_back(fn, args..., r0, r1);
-  }
-  for (auto& w : workers) w.join();
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (m, n) = X (m, k) @ W (k, n), row strides ldx, ldw, ldo (elements).
-void ks_row_stable_matmul_f32(const float* X, long m, long k, long ldx,
-                              const float* W, long n, long ldw, float* out,
-                              long ldo, long kc, long width, long threads) {
+// out (m, n) = X (m, k) @ W (k, n), row strides ldx, ldw, ldo (elements),
+// in chunks of kc reduction indices, rows split over `threads` threads.
+void ks_matmul_fma_chain_f32(const float* X, long m, long k, long ldx,
+                             const float* W, long n, long ldw, float* out,
+                             long ldo, long kc, long threads) {
   if (m <= 0 || n <= 0) return;
   if (k <= 0) {
     for (long r = 0; r < m; ++r) std::memset(out + r * ldo, 0, n * sizeof(float));
     return;
   }
-  over_rows(m, threads, rows_kernel, X, k, ldx, W, n, ldw, out, ldo, kc, width);
-}
-
-// out (m, n) = X (m, k) @ W (k, n), each output one fused multiply-add chain
-// over k in index order (acc = fma(x_i, w_i, acc) from 0): a row's bits
-// depend on that row and W alone.
-void ks_matmul_fma_chain_f32(const float* X, long m, long k, long ldx,
-                             const float* W, long n, long ldw, float* out,
-                             long ldo, long threads) {
-  if (m <= 0 || n <= 0) return;
-  over_rows(m, threads, rows_fma_chain, X, k, ldx, W, n, ldw, out, ldo);
+  kc = std::max(1L, std::min(kc, k));
+  const long t = std::max(1L, std::min(threads, m));
+  const long per = (m + t - 1) / t;
+  std::vector<std::thread> workers;
+  for (long i = 1; i < t; ++i) {
+    const long r0 = i * per, r1 = std::min(m, r0 + per);
+    if (r0 >= r1) break;
+    workers.emplace_back(rows_fma_chain, X, k, ldx, W, n, ldw, out, ldo, kc, r0, r1);
+  }
+  // The first share on the calling thread.
+  rows_fma_chain(X, k, ldx, W, n, ldw, out, ldo, kc, 0, std::min(m, per));
+  for (auto& w : workers) w.join();
 }
 
 }  // extern "C"

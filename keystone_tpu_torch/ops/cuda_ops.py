@@ -405,6 +405,10 @@ def fast_cos(x):
     return acc
 
 
+def _unit_rows(t):
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
 def _cosine_preactivation(Xf, Wf):
     """X Wᵀ for the cosine plain version. On the CPU each output is one
     fused multiply-add chain over the inputs in index order, in C++
@@ -415,8 +419,9 @@ def _cosine_preactivation(Xf, Wf):
     if Xf.device.type == "cpu" and Xf.shape[1] == Wf.shape[1]:
         from keystone_tpu_torch import native
 
-        rows = lambda t: t if t.stride(-1) == 1 else t.contiguous()  # noqa: E731
-        return native.matmul_fma_chain_f32(rows(Xf), rows(Wf.T), torch.get_num_threads())
+        k = Xf.shape[1]
+        return native.matmul_fma_chain_f32(_unit_rows(Xf), _unit_rows(Wf.T), max(k, 1),
+                                           torch.get_num_threads())
     return Xf @ Wf.T
 
 
@@ -1616,15 +1621,16 @@ _ROW_STABLE_REF_BLOCK = {"cpu": 1 << 22, "cuda": 1 << 26}
 
 
 def row_stable_matmul_ref(X, W):
-    """Plain PyTorch version of :func:`row_stable_matmul`: the kernel's
+    """Plain version of :func:`row_stable_matmul`, summed in the kernel's
     chunks of :data:`ROW_STABLE_CHUNK` reduction indices (one chunk of k
-    when k is smaller), each chunk's products summed by a fixed pairwise
-    tree (the chunk padded with zeros to a power of two), then the chunk
-    sums added in chunk order. Elementwise operations only, each rounded on
-    its own, so a row's bits depend on that row and W alone, whatever the
-    row count, the row's position or the number of threads (an MKL or
-    cuBLAS product sums in an order it picks by the shape). The kernel sums
-    each chunk as one ``fmaf`` chain, so the two part by rounding: about
+    when k is smaller), the chunk sums added in chunk order, so a row's
+    bits depend on that row and W alone, whatever the row count, the row's
+    position or the number of threads (an MKL or cuBLAS product sums in an
+    order it picks by the shape). For float32 CPU tensors each chunk is one
+    fused multiply-add chain in index order, as the kernel sums it, in C++
+    (``native.matmul_fma_chain_f32``: the elementwise form is memory-bound
+    on a CPU); elsewhere (the card, float64) :func:`_row_stable_matmul_elementwise`,
+    whose pairwise trees part from the kernel's chains by rounding: about
     1e-7 of the sums' scale."""
     m, k = X.shape
     n = W.shape[1]
@@ -1634,21 +1640,31 @@ def row_stable_matmul_ref(X, W):
     if X.dtype != W.dtype or not X.dtype.is_floating_point:
         raise TypeError(f"row_stable_matmul: operands must share one floating dtype, "
                         f"got {X.dtype} and {W.dtype}")
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=X.dtype, device=X.device)
+    if X.device.type == "cpu" and X.dtype == torch.float32 and not _meta_operands(
+            "row_stable_matmul_ref", (X, W)):
+        from keystone_tpu_torch import native
+
+        return native.matmul_fma_chain_f32(_unit_rows(X), _unit_rows(W), ROW_STABLE_CHUNK,
+                                           torch.get_num_threads())
+    return _row_stable_matmul_elementwise(X, W)
+
+
+def _row_stable_matmul_elementwise(X, W):
+    """The elementwise form of :func:`row_stable_matmul_ref`: in each chunk
+    the products (the chunk padded with zeros to a power of two) are summed
+    by a fixed pairwise tree, then the chunk sums are added in chunk order.
+    Every operation is elementwise and rounded on its own, so a row's bits
+    depend on that row and W alone on any device."""
+    m, k = X.shape
+    n = W.shape[1]
     out = torch.zeros((m, n), dtype=X.dtype, device=X.device)
     if m == 0 or n == 0 or k == 0:
         return out
     kc = min(ROW_STABLE_CHUNK, k)
     chunks = -(-k // kc)
     width = 1 << (kc - 1).bit_length()
-    if X.device.type == "cpu" and X.dtype == torch.float32 and not _meta_operands(
-            "row_stable_matmul_ref", (X, W)):
-        # The same sums in C++ on the host (native/row_stable.cpp): the
-        # elementwise form below is memory-bound on a CPU.
-        from keystone_tpu_torch import native
-
-        rows = lambda t: t if t.stride(-1) == 1 else t.contiguous()  # noqa: E731
-        return native.row_stable_matmul_f32(rows(X), rows(W), kc, width,
-                                            torch.get_num_threads())
     Wp = W.new_zeros((chunks, width, n))
     Wp[:, :kc].view(chunks * kc, n)[:k] = W
     rows = max(1, _ROW_STABLE_REF_BLOCK.get(X.device.type, 1 << 22) // (chunks * width * n))

@@ -431,9 +431,6 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
         # resumes through; None defers to KEYSTONE_CHECKPOINT_DIR (run.py
         # --checkpoint-dir).
         self.checkpoint = None
-        # A PrefetchStats the disk fold fills (overlap, load and wait
-        # seconds by site), or None.
-        self.prefetch_stats = None
 
     @property
     def label(self) -> str:
@@ -520,7 +517,7 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
             block_size=pick_block_size(d_feat, self.block_size_hint),
             lam=self.lam, num_iter=self.num_iter, center=self.center,
             prefetch_depth=self.prefetch_depth, checkpoint=self.checkpoint,
-            device=self.device, prefetch_stats=self.prefetch_stats,
+            device=self.device,
         )
 
     def fit(self, data: Dataset, labels: Dataset):
@@ -780,8 +777,7 @@ def _paired_source(data: Dataset, labels: Dataset):
 
 def _fit_paired_source(source, featurize, d_feat: int, block_size: int, lam,
                        num_iter: int, center: bool, prefetch_depth: int = 2,
-                       checkpoint=None, device=None,
-                       prefetch_stats=None) -> StreamingFeaturizedLinearModel:
+                       checkpoint=None, device=None) -> StreamingFeaturizedLinearModel:
     """The disk tier's fit: prefetched segment folds -> (centred) BCD on the
     normal equations -> the affine model every streaming tier returns.
     ``checkpoint`` (a CheckpointSpec or directory; None consults
@@ -791,7 +787,7 @@ def _fit_paired_source(source, featurize, d_feat: int, block_size: int, lam,
     W, fmean, ymean, _ = streaming.streaming_bcd_fit_segments(
         source, bank=featurize, d_feat=d_feat, block_size=block_size, lam=lam,
         num_iter=num_iter, center=center, prefetch_depth=prefetch_depth,
-        checkpoint=checkpoint, device=device, prefetch_stats=prefetch_stats,
+        checkpoint=checkpoint, device=device,
     )
     return StreamingFeaturizedLinearModel(
         featurize, W, streaming.pick_tile_rows(d_feat, 4), fmean=fmean, ymean=ymean,

@@ -5,10 +5,13 @@ row the same bits.
 
 The CPU cases hold the plain version (``row_stable_matmul_ref``) to that
 property at every row count from 1 to 300 and under zero padding, with
-more than one torch thread, and to float64: each output's error stays
+its rows split over 4 host threads and over 1, and to float64: each output's error stays
 inside the bound of its summation, ``(min(k, 256) + ceil(k / 256)) * u *
 (|X| @ |W|)`` with u = 2^-24 (every product and every add is rounded
-once). The ``cuda`` cases run the kernel on the card against the same
+once). They hold both of its forms so: the host form float32 CPU tensors
+take (the native library's chunked fused multiply-add chains, also held
+bit for bit to a float64 emulation of each ``fmaf`` step) and the
+elementwise form the card and float64 take. The ``cuda`` cases run the kernel on the card against the same
 bound and the plain version, and hold its rows bit-equal across row
 counts, tile shapes (32- and 128-row tiles) and row panels; they skip
 without a card. The file imports neither JAX nor the JAX package, so it
@@ -16,6 +19,7 @@ runs on the card's machine: ``python -m pytest tests/test_torch_row_stable.py
 -m cuda --noconftest``.
 """
 
+import subprocess
 import sys
 from contextlib import contextmanager
 from pathlib import Path
@@ -26,9 +30,11 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from keystone_tpu_torch import native
 from keystone_tpu_torch.ops import cuda_ops
 from keystone_tpu_torch.ops.cuda_ops import (
     ROW_STABLE_CHUNK,
+    _row_stable_matmul_elementwise,
     row_stable_matmul,
     row_stable_matmul_ref,
 )
@@ -59,12 +65,31 @@ def _bound(X, W):
 
 @contextmanager
 def torch_threads(n):
-    before = torch.get_num_threads()
-    torch.set_num_threads(n)
+    """The float32 CPU plain version splits its rows over
+    ``torch.get_num_threads()`` C++ threads: this sets that count to n.
+    ``torch.set_num_threads`` is not called: in the CPU build of torch
+    these tests run on, any call to it makes a later batched float32 LU in
+    the same process (``torch.linalg.solve`` of (3, 256, 256), as BWLS's
+    class solve) spin forever inside MKL, and pytest runs other files in
+    this process afterwards."""
+    real = torch.get_num_threads
+    torch.get_num_threads = lambda: n
     try:
         yield
     finally:
-        torch.set_num_threads(before)
+        torch.get_num_threads = real
+
+
+_ELEMENTWISE_AT_ONE_THREAD = """
+import sys
+import numpy as np
+import torch
+from keystone_tpu_torch.ops.cuda_ops import _row_stable_matmul_elementwise
+torch.set_num_threads(1)
+X, W = np.load(sys.argv[1]), np.load(sys.argv[2])
+out = _row_stable_matmul_elementwise(torch.from_numpy(X), torch.from_numpy(W))
+np.save(sys.argv[3], out.numpy())
+"""
 
 
 class TestPlainVersion:
@@ -123,6 +148,70 @@ class TestPlainVersion:
         with pytest.raises(TypeError, match="float32"):
             row_stable_matmul(torch.empty(6, 4, device="meta", dtype=torch.float64),
                               torch.empty(4, 3, device="meta", dtype=torch.float64))
+
+
+def _fma_chains(X, W, chunk):
+    """The host form's sums, emulated: each fmaf step as the float64 sum of
+    the exact product and the accumulator, rounded to float32 (a float64
+    add rounds only when the operands' exponents lie far apart, and then
+    the float32 rounding agrees but for a tie this data does not hit),
+    chunks of ``chunk`` indices, their sums added in float32 in order."""
+    X64, W64 = X.astype(np.float64), W.astype(np.float64)
+    out = None
+    for lo in range(0, X.shape[1], chunk):
+        acc = np.zeros((X.shape[0], W.shape[1]), np.float32)
+        for i in range(lo, min(lo + chunk, X.shape[1])):
+            acc = (X64[:, i:i + 1] * W64[i] + acc).astype(np.float32)
+        out = acc if out is None else out + acc
+    return out
+
+
+class TestPlainForms:
+    @pytest.mark.parametrize("k,n", [(1, 3), (7, 33), (255, 5), (256, 32), (257, 1),
+                                     (600, 40), (1024, 2)])
+    @pytest.mark.parametrize("chunk", [ROW_STABLE_CHUNK, 1 << 20])
+    def test_host_chains_equal_an_emulation_of_fmaf(self, k, n, chunk):
+        X, W = _operands(5, k, n, k + n)
+        got = native.matmul_fma_chain_f32(torch.from_numpy(X), torch.from_numpy(W), chunk, 4)
+        np.testing.assert_array_equal(got.numpy(), _fma_chains(X, W, chunk))
+
+    def test_float32_cpu_plain_version_is_the_host_form(self):
+        X, W = _operands(9, 700, 6, 2)
+        Xt, Wt = torch.from_numpy(X), torch.from_numpy(W)
+        assert torch.equal(row_stable_matmul_ref(Xt, Wt),
+                           native.matmul_fma_chain_f32(Xt, Wt, ROW_STABLE_CHUNK, 1))
+
+    @settings(max_examples=4, deadline=None)
+    @given(k=st.integers(1, 600), n=st.integers(1, 12), seed=st.integers(0, 2**16))
+    def test_elementwise_form_rows_bit_equal_at_every_row_count_and_padding(self, k, n, seed):
+        X, W = _operands(300, k, n, seed)
+        Xt, Wt = torch.from_numpy(X), torch.from_numpy(W)
+        full = _row_stable_matmul_elementwise(Xt, Wt)
+        for m in (1, 2, 3, 17, 64, 255, 299):
+            assert torch.equal(_row_stable_matmul_elementwise(Xt[:m], Wt), full[:m]), m
+        padded = torch.cat([Xt[:5], torch.zeros(295, k)])
+        assert torch.equal(_row_stable_matmul_elementwise(padded, Wt)[:5], full[:5])
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(300))
+        assert torch.equal(_row_stable_matmul_elementwise(Xt[perm], Wt), full[perm])
+
+    def test_elementwise_form_bits_at_one_torch_thread(self, tmp_path):
+        # torch's thread count set in a process of its own (see torch_threads).
+        X, W = _operands(300, 600, 7, 11)
+        for name, a in (("X", X), ("W", W)):
+            np.save(tmp_path / f"{name}.npy", a)
+        subprocess.run([sys.executable, "-c", _ELEMENTWISE_AT_ONE_THREAD,
+                        str(tmp_path / "X.npy"), str(tmp_path / "W.npy"),
+                        str(tmp_path / "out.npy")],
+                       check=True, cwd=Path(__file__).resolve().parent.parent, timeout=300)
+        full = _row_stable_matmul_elementwise(torch.from_numpy(X), torch.from_numpy(W))
+        np.testing.assert_array_equal(np.load(tmp_path / "out.npy"), full.numpy())
+
+    @pytest.mark.parametrize("k", [1, 7, 256, 257, 700, 2048])
+    def test_elementwise_form_within_the_summation_bound_of_float64(self, k):
+        X, W = _operands(37, k, 19, k)
+        got = _row_stable_matmul_elementwise(torch.from_numpy(X), torch.from_numpy(W)).numpy()
+        exact = X.astype(np.float64) @ W.astype(np.float64)
+        assert np.all(np.abs(got - exact) <= _bound(X, W))
 
 
 class TestMappers:
