@@ -332,6 +332,36 @@ started together), then:
          phase writes (rows within 1e-5, labels exact), and ``load_images``
          of 5,011 64 x 64 synthetic images under a budget that forces the
          spill, prefetched onto the card: the bytes of the resident decode.
+ 22. drives the model zoo and the autoscaler on the card, with TIMIT plans
+     (pickle clones of phase 19's seed-0 and seed-1 fits, 440 -> 4 x 4,096
+     cosines -> 147):
+       - (a) 6 tenants (seeds 0 and 1 in turn, max_batch 256) under a budget
+         of 3 tenants' charge, 40 staggered requests a tenant in turn, two
+         rounds: every response bit-equal to its tenant's plan applied
+         offline to the 40 rows, every fingerprint held across page round
+         trips, the launches (counted from 0 over the rounds) those of the
+         replays and of the page-ins' rebuilt buckets, allocated memory flat
+         across rounds, each page-out freeing at least the tenant's charge;
+         page-in and page-out walls, the compression, allocated / charged
+         bytes of a resident tenant, and the stall 3 page-ins put on a
+         resident tenant's closed loop;
+       - (b) the reference's isolation drill: 8 tenants at max_batch 8, one
+         hot at 80 x a 25 Hz base, availability objective 0.95: only the hot
+         tenant leaves OK, the others 0 rejected and 0 failed, the books
+         balanced;
+       - (c) a deadline of half the page-in estimate fast-fails with
+         ``TenantColdStart``;
+       - (d) ``run.py serve --tenants 4 --zoo-budget-mb`` (2.5 tenants'
+         charge) and ``serve --autoscale`` at MnistRandomFFT's defaults:
+         exit 0, books balanced, pages where the budget binds, the quick
+         fit's launches;
+       - (e) a ``ReplicatedServer`` of the seed-0 plan at batch size 1 under
+         an ``Autoscaler`` (1 to 3 replicas, a latency SLO at 20 x the
+         single-request time): each replica count's capacity, then a load
+         step at 1.5 x one replica's capacity and legs at 0.1 x until the
+         plane is back at 1 replica: scale-up to 3, brownout rungs entered
+         and left LIFO, scale-down to 1, no two actions inside the cooldown,
+         none failed.
 
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -346,6 +376,7 @@ device and exits non-zero without one.
 import importlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -4645,8 +4676,9 @@ def phase_serve_cli(cuda_ops, device="cuda"):
     return out
 
 
-def phase_serve_swap(cuda_ops, timit, plan, pool, device="cuda"):
-    """19(c): a hot swap between two TIMIT plans under Poisson load."""
+def phase_serve_swap(cuda_ops, timit, plan, pool, device="cuda", fits=None):
+    """19(c): a hot swap between two TIMIT plans under Poisson load. The
+    seed-1 fit is appended to ``fits`` when given (phase 22's tenants)."""
     import threading
 
     from keystone_tpu_torch.serving import ReplicatedServer, export_plan, poisson_arrivals
@@ -4655,6 +4687,8 @@ def phase_serve_swap(cuda_ops, timit, plan, pool, device="cuda"):
     from keystone_tpu_torch.workflow import FittedPipeline
 
     scores2, _ = serve_scores(timit, 1, pool, device)
+    if fits is not None:
+        fits.append(scores2)
     plan2 = export_plan(scores2, np.zeros(D_IN, np.float32), max_batch=SERVE_MAX_BATCH)
     X = torch.from_numpy(pool).to(device)
     want = {p.fingerprint: FittedPipeline(p.graph, p.source, p.sink).apply(
@@ -5509,6 +5543,420 @@ def phase_disk_spill(root, smi, device="cuda"):
                 image_spill_seconds=image_spill_s, image_prefetch_seconds=prefetch_s)
 
 
+ZOO = "zoo and autoscaler: weight paging under a device budget, fair admission, the SLO loop"
+# 22(a): 6 tenants (pickle clones of phase 19's fits, seeds 0 and 1 in
+# turn) under a budget of 3 tenants' charge, 40 requests a tenant in turn,
+# two rounds; 3 page-ins timed against another tenant's closed loop.
+ZOO_TENANTS, ZOO_FIT, ZOO_REQUESTS, ZOO_ROUNDS, ZOO_STALLS = 6, 3, 40, 2, 3
+# 22(b): the reference's isolation drill with TIMIT plans.
+ZOO_ISO_TENANTS, ZOO_ISO_BASE_HZ, ZOO_ISO_HOT_X, ZOO_ISO_S = 8, 25.0, 80, 2.5
+# 22(d): run.py serve at MnistRandomFFT's defaults, 4 tenants at 10 Hz each.
+ZOO_CLI_RATE, ZOO_CLI_S = 40.0, 2.0
+# 22(e): the autoscaler on one plan at batch size 1 (a replica's capacity
+# is then one replay a request), between 1 and 3 replicas.
+AUTO_MAX_REPLICAS, AUTO_CAP_BURST, AUTO_HIGH_S, AUTO_LOW_LEG_S, AUTO_LOW_MAX_S = 3, 3000, 3.0, 1.0, 20.0
+AUTO_COOLDOWN_S = 0.3
+
+
+def _zoo_sync(device):
+    """Allocated device bytes after a synchronize (0 on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+    return 0
+
+
+def _zoo_plan(blob, max_batch, device):
+    import pickle
+
+    from keystone_tpu_torch.serving import export_plan
+
+    return export_plan(pickle.loads(blob), np.zeros(D_IN, np.float32), max_batch=max_batch,
+                       device=device)
+
+
+def _plan_offline(plan, rows, device):
+    """The plan's fused graph applied to ``rows`` as one batch (19(a)'s
+    reference for served rows)."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.workflow import FittedPipeline
+
+    return FittedPipeline(plan.graph, plan.source, plan.sink).apply(
+        Dataset(torch.from_numpy(rows).to(device))).array.cpu().numpy()
+
+
+def _closed_loop(submit, x, stop, out):
+    """Submit ``x`` and wait, again and again, until ``stop`` is set;
+    ``out`` gets (start, end) of each request."""
+    while not stop.is_set():
+        t0 = time.perf_counter()
+        submit(x).result(timeout=120)
+        out.append((t0, time.perf_counter()))
+
+
+def phase_zoo_paging(cuda_ops, blobs, pool, smi, device="cuda"):
+    """22(a): paging under a budget of 3 of 6 TIMIT tenants."""
+    import gc
+    import threading
+
+    from keystone_tpu_torch.serving import ModelZoo
+
+    cuda = torch.device(device).type == "cuda"
+    rows = pool[:ZOO_REQUESTS]
+    # What one pickle clone holds on the card once exported (its tensors as
+    # unpickled, its bucket programs); a resident tenant's own footprint is
+    # read below from what a page-out frees once the tenant has been paged
+    # in (its weights then as the zoo uploads them).
+    gc.collect()
+    m0 = _zoo_sync(device)
+    plans = {"z0": _zoo_plan(blobs[0], SERVE_MAX_BATCH, device)}
+    m1 = _zoo_sync(device)
+    charge = plans["z0"].pinned_bytes
+    for i in range(1, ZOO_TENANTS):
+        plans[f"z{i}"] = _zoo_plan(blobs[i % 2], SERVE_MAX_BATCH, device)
+    buckets = len(plans["z0"].buckets)
+    offline = [_plan_offline(plans[f"z{s}"], rows, device) for s in (0, 1)]
+    fps = [plans["z0"].fingerprint, plans["z1"].fingerprint]
+    check("22(a) the two seeds' plans differ (fingerprints and rows)",
+          fps[0] != fps[1] and not np.array_equal(offline[0], offline[1]),
+          f"fingerprints {fps}")
+    zoo = ModelZoo(budget_bytes=ZOO_FIT * charge + ZOO_FIT, max_batch=SERVE_MAX_BATCH,
+                   max_wait_ms=2.0)
+    page_out = dict(s=[], freed=[])
+    inner = zoo._page_out_locked
+
+    def timed_page_out(entry, reason):
+        mb = _zoo_sync(device)
+        t0 = time.perf_counter()
+        inner(entry, reason)
+        page_out["s"].append(time.perf_counter() - t0)
+        page_out["freed"].append((entry.page_ins, mb - _zoo_sync(device)))
+
+    zoo._page_out_locked = timed_page_out
+    rng = np.random.default_rng(22)
+    names = sorted(plans)
+    try:
+        for name in names:
+            zoo.add_tenant(name, plans.pop(name))
+        cuda_ops.reset_launch_counts()
+        replays, mem, worst, bits = 0, [], 0.0, True
+        for r in range(ZOO_ROUNDS):
+            for i, name in enumerate(names):
+                entry = zoo._tenants[name]
+                before = entry.plan
+                start = sum(before.replays.values()) if before is not None else 0
+                futures = []
+                for k in range(ZOO_REQUESTS):
+                    futures.append(zoo.submit(name, rows[k]))
+                    time.sleep(float(rng.uniform(0.0, 0.004)))
+                served = np.stack([f.result(timeout=120) for f in futures])
+                if entry.plan is not before:
+                    start = 0
+                replays += sum(entry.plan.replays.values()) - start
+                want = offline[i % 2]
+                bits = bits and bool(np.array_equal(served, want))
+                worst = max(worst, _row_rel(served, want))
+            gc.collect()
+            mem.append(_zoo_sync(device))
+        stats = zoo.stats()
+        launches = {k: v for k, v in cuda_ops.launches.items() if v}
+        # The page-in stall: one resident tenant in a closed loop while 3
+        # others page in (each recaptures its buckets).
+        stall = []
+        for k in range(ZOO_STALLS):
+            hot = names[-1]
+            cold = [n for n in names if not zoo._tenants[n].resident and n != hot][0]
+            done, stop = [], threading.Event()
+            th = threading.Thread(target=_closed_loop,
+                                  args=(lambda x: zoo.submit(hot, x), rows[0], stop, done))
+            th.start()
+            time.sleep(0.3)
+            t0 = time.perf_counter()
+            zoo.page_in(cold)
+            t1 = time.perf_counter()
+            time.sleep(0.3)
+            stop.set()
+            th.join(timeout=120)
+            inside = [e - s for s, e in done if s < t1 and e > t0]
+            outside = [e - s for s, e in done if e <= t0 or s >= t1]
+            stall.append(dict(page_in_s=t1 - t0, max_inside_ms=1e3 * max(inside, default=0.0),
+                              median_outside_ms=1e3 * statistics.median(outside or [0.0]),
+                              requests_inside=len(inside), requests=len(done)))
+            zoo.page_in(hot)  # hot may have been the victim
+        decisions = zoo.decision_log()
+    finally:
+        zoo.close()
+    page_ins = [d["inputs"]["page_in_s"] for d in decisions if d["action"] == "page_in"]
+    compression = sorted({d["inputs"]["compression"] for d in decisions
+                          if d["action"] == "page_out" and d["ok"]})
+    # A tenant paged in at least once holds its weights as uploaded; one
+    # still on its pickle clone's tensors may hold more (a pickled view
+    # carries its whole storage).
+    freed = [b for n, b in page_out["freed"] if n > 0]
+    per = {"cosine_features": NUM_COSINES, ROW_STABLE: 1} if cuda else {}
+    rebuilt = stats["page_ins"] * buckets
+    want = {k: v * (replays + rebuilt) for k, v in per.items()}
+    out = dict(
+        tenants=ZOO_TENANTS, budget_tenants=ZOO_FIT, charge_bytes=charge,
+        clone_allocated_bytes=m1 - m0, resident_allocated_bytes=min(freed),
+        allocated_over_charged=min(freed) / charge,
+        page_ins=stats["page_ins"], page_outs=stats["page_outs"], replays=replays,
+        page_in_s=dict(median=statistics.median(page_ins), max=max(page_ins)),
+        page_out_s=dict(median=statistics.median(page_out["s"]), max=max(page_out["s"])),
+        page_out_freed_bytes=[b for _, b in page_out["freed"]],
+        compression=compression, mem_after_rounds=mem, stall=stall, launches=launches,
+        bit_identical=bits, max_rel=worst, card=smi)
+    log(f"  (a) {ZOO_TENANTS} tenants, budget {ZOO_FIT} x {charge} B: {json.dumps(out)}")
+    check("22(a) the books balance, nothing quarantined, every fingerprint held",
+          stats["accounting_ok"] and stats["quarantined"] == 0
+          and all(t["fingerprint"] == fps[int(n[1:]) % 2] for n, t in stats["tenants"].items())
+          and all(t["failed"] == 0 and t["rejected"] == 0 for t in stats["tenants"].values()),
+          f"accounting_ok {stats['accounting_ok']}, quarantined {stats['quarantined']}")
+    check("22(a) the budget binds: tenants paged in and out, at most 3 resident",
+          stats["page_ins"] >= ZOO_TENANTS and stats["residents"] <= ZOO_FIT,
+          f"page_ins {stats['page_ins']}, page_outs {stats['page_outs']}, "
+          f"residents {stats['residents']}")
+    check("22(a) served rows bit-identical to each tenant's offline apply across page round "
+          "trips" if cuda else "22(a) served rows near each tenant's offline apply",
+          bits if cuda else worst <= SERVE_TOL, f"bit identical {bits}, max relative {worst:.3e}")
+    check("22(a) launches = launches a replay x (replays + page-ins x buckets rebuilt)",
+          launches == want, f"{launches}, expected {want} ({replays} replays, {rebuilt} "
+          "bucket programs rebuilt)")
+    check("22(a) allocated memory does not grow across paging rounds",
+          abs(mem[-1] - mem[0]) <= charge, f"{mem} (charge {charge})")
+    check("22(a) a page-out frees at least the tenant's charge" if cuda else
+          "22(a) page-outs timed",
+          (min(b for _, b in page_out["freed"]) >= charge) if cuda else True,
+          f"freed {page_out['freed']} (page-ins before each, bytes)")
+    return out
+
+
+def phase_zoo_isolation(blobs, pool, device="cuda"):
+    """22(b): the reference chaos drill's shape with TIMIT plans: 8
+    tenants, one hot at 80 x the base rate."""
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.serving import ModelZoo, run_multi_tenant_open_loop
+
+    names = [f"t{i}" for i in range(ZOO_ISO_TENANTS - 1)] + ["hot"]
+    plans = {n: _zoo_plan(blobs[i % 2], 8, device) for i, n in enumerate(names)}
+    charge = plans["hot"].pinned_bytes
+    slos = {n: obs.SLOTracker([obs.SLOObjective("availability", kind="availability",
+                                                target=0.95)]) for n in names}
+    zoo = ModelZoo(budget_bytes=ZOO_ISO_TENANTS * charge + ZOO_ISO_TENANTS, max_batch=8,
+                   max_wait_ms=10.0, tenant_queue_cap=8, max_outstanding_total=64)
+    try:
+        for n in names:
+            zoo.add_tenant(n, plans.pop(n), slo=slos[n])
+        rates = {n: ZOO_ISO_BASE_HZ for n in names}
+        rates["hot"] = ZOO_ISO_BASE_HZ * ZOO_ISO_HOT_X
+        report = run_multi_tenant_open_loop(
+            zoo.submit, lambda tenant, i: pool[i % len(pool)], rates_hz=rates,
+            duration_s=ZOO_ISO_S, seed=0, slos=slos)
+        stats = zoo.stats()
+    finally:
+        zoo.close()
+    states = report.tenant_states()
+    row = report.to_row_dict()
+    log(f"  (b) states {states}; hot {row['tenants']['hot']}; totals offered "
+        f"{row['offered_total']}, rejected {row['rejected_total']}, failed {row['failed_total']}")
+    others = [n for n in names if n != "hot"]
+    check("22(b) the hot tenant leaves OK, rejected at its own door",
+          states["hot"] in ("WARN", "BREACH") and report.tenants["hot"].rejected > 0,
+          f"hot {states['hot']}, rejected {report.tenants['hot'].rejected}")
+    check("22(b) every other tenant stays OK with 0 rejected and 0 failed",
+          all(states[n] == "OK" and stats["tenants"][n]["rejected"] == 0
+              and stats["tenants"][n]["failed"] == 0 for n in others),
+          f"{ {n: (states[n], stats['tenants'][n]['rejected'], stats['tenants'][n]['failed']) for n in others} }")
+    check("22(b) the books balance on the loadgen's side and the zoo's",
+          report.accounting_ok() and stats["accounting_ok"], f"{row['accounting_ok']}")
+    return dict(states=states, row=row)
+
+
+def phase_zoo_cold_start(blobs, pool, device="cuda"):
+    """22(c): a deadline below the page-in estimate fast-fails."""
+    from keystone_tpu_torch.serving import ModelZoo, TenantColdStart
+
+    plan = _zoo_plan(blobs[0], SERVE_MAX_BATCH, device)
+    zoo = ModelZoo(budget_bytes=2 * plan.pinned_bytes, max_batch=SERVE_MAX_BATCH,
+                   cold_start_estimate_s=0.0)
+    try:
+        zoo.add_tenant("cold", plan)
+        zoo.page_out("cold")
+        zoo.page_in("cold")  # measures the estimate
+        zoo.page_out("cold")
+        est = zoo.page_in_estimate_s()
+        try:
+            zoo.submit("cold", pool[0], deadline_ms=0.5 * est * 1e3)
+            raised = None
+        except TenantColdStart as e:
+            raised = str(e)
+        stats = zoo.stats()
+    finally:
+        zoo.close()
+    log(f"  (c) page-in estimate {est:.4f} s; {raised}")
+    check("22(c) a deadline of half the page-in estimate fast-fails with TenantColdStart",
+          raised is not None and stats["coldstart_failfast"] == 1
+          and not stats["tenants"]["cold"]["resident"] and stats["accounting_ok"],
+          f"estimate {est:.4f} s, coldstart_failfast {stats['coldstart_failfast']}")
+    return dict(page_in_estimate_s=est, coldstart_failfast=stats["coldstart_failfast"])
+
+
+def phase_zoo_cli(cuda_ops, device="cuda"):
+    """22(d): ``run.py serve --tenants 4`` under a budget of 2 tenants and
+    ``serve --autoscale``, at MnistRandomFFT's defaults, in this process."""
+    import contextlib
+    import io
+
+    from keystone_tpu_torch import run as cli
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    cuda = torch.device(device).type == "cuda"
+    # One tenant's charge at the defaults: the block weights of 4 padded
+    # FFT branches (4 x 512 features x 10 classes, plus 10 biases) and the
+    # 4 branches' signs (784 each), float32.
+    tenant_bytes = (4 * 512 * 10 + 10 + 4 * 784) * 4
+    out = {}
+    for label, extra in (
+            ("tenants", ["--tenants", "4", "--zoo-budget-mb",
+                         str(2.5 * tenant_bytes / (1 << 20)), "--rate", str(ZOO_CLI_RATE)]),
+            ("autoscale", ["--autoscale", "--slo-p99-ms", "50", "--max-replicas", "3",
+                           "--rate", "200"])):
+        PipelineEnv.get_or_create().reset()
+        cuda_ops.reset_launch_counts()
+        argv = ["serve", "--duration-s", str(ZOO_CLI_S)] + extra + (
+            [] if cuda else ["--device", "cpu"])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        launches = {k: v for k, v in cuda_ops.launches.items() if v}
+        PipelineEnv.get_or_create().reset()
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"  (d) serve {' '.join(extra)}: {json.dumps(summary)}; launches {launches}")
+        if label == "tenants":
+            books = summary["accounting_ok"] and all(
+                t["num_offered"] == t["num_samples"] + t["rejected"] + t["failed"]
+                for t in summary["per_tenant"].values())
+            check("22(d) serve --tenants 4 under 2 tenants' budget: exit 0, per-tenant books "
+                  "balance, the budget binds and pages",
+                  rc == 0 and books and summary["page_ins"] > 0 and summary["residents"] <= 2
+                  and set(summary["tenant_resident_bytes"].values()) == {tenant_bytes}
+                  and summary["failed_total"] == 0 and summary["quarantined"] == 0,
+                  f"rc {rc}, page_ins {summary['page_ins']}, residents {summary['residents']}, "
+                  f"charges {summary['tenant_resident_bytes']}")
+        else:
+            books = summary["num_offered"] == (summary["num_samples"] + summary["rejected"]
+                                               + summary["failed"])
+            check("22(d) serve --autoscale: exit 0, books balance, none failed, inside the "
+                  "replica bounds",
+                  rc == 0 and books and summary["failed"] == 0
+                  and 1 <= summary["replicas_low"] <= summary["replicas_high"] <= 3,
+                  f"rc {rc}, replicas {summary['replicas_low']}..{summary['replicas_high']}")
+        want = MNIST_LAUNCHES[True] if cuda else {}
+        check(f"22(d) serve --{label}: the quick fit's launches",
+              same_launches(launches, want), f"{launches}, expected {want}")
+        out[label] = dict(summary=summary, launches=launches)
+    return out
+
+
+def _capacity(server, x, n):
+    """Completions a second of ``n`` requests submitted back to back."""
+    t0 = time.perf_counter()
+    futures = [server.submit(x) for _ in range(n)]
+    for f in futures:
+        f.result(timeout=300)
+    return n / (time.perf_counter() - t0)
+
+
+def _lifo_ok(log_):
+    stack = []
+    for d in log_:
+        if d["action"] == "brownout_enter":
+            stack.append(d["step"])
+        elif d["action"] == "brownout_exit":
+            if not stack or stack.pop() != d["step"]:
+                return False
+    return not stack
+
+
+def phase_autoscale(blobs, pool, smi, device="cuda"):
+    """22(e): the autoscaler on a ReplicatedServer of phase 19's plan at
+    batch size 1, a load step above one replica's capacity then well
+    under it."""
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.serving import Autoscaler, ReplicatedServer, run_open_loop
+
+    plan = _zoo_plan(blobs[0], SERVE_MAX_BATCH, device)
+    kw = dict(max_batch=1, max_wait_ms=0.5, max_queue_depth=1 << 16, watchdog_interval_s=0.01)
+    capacity = {}
+    for n in range(1, AUTO_MAX_REPLICAS + 1):
+        server = ReplicatedServer(plan, num_replicas=n, **kw)
+        try:
+            _capacity(server, pool[0], 200)
+            capacity[n] = _capacity(server, pool[0], AUTO_CAP_BURST)
+        finally:
+            server.close()
+    single_s = plan.measure_single_request_s()
+    # The bound: well above the unloaded tail, far below a saturated queue.
+    bound_s = max(20.0 * single_s, 0.005)
+    slo = obs.SLOTracker([obs.SLOObjective(
+        "latency", kind="latency", threshold_s=bound_s, target=0.9, fast_window_s=0.5,
+        slow_window_s=2.0, breach_burn=4.0)])
+    server = ReplicatedServer(plan, num_replicas=1, slo=slo, **kw)
+    scaler = Autoscaler(server, slo, min_replicas=1, max_replicas=AUTO_MAX_REPLICAS,
+                        tick_interval_s=0.02, scale_up_sustain_s=0.2, scale_down_sustain_s=0.5,
+                        cooldown_s=AUTO_COOLDOWN_S, idle_queue_depth=2,
+                        idle_outstanding_per_replica=1.0).start()
+    legs = []
+    try:
+        high = 1.5 * capacity[1]
+        legs.append(("high", run_open_loop(server.submit, lambda i: pool[i % len(pool)],
+                                           rate_hz=high, duration_s=AUTO_HIGH_S, seed=31,
+                                           slo=slo)))
+        low = 0.1 * capacity[1]
+        t_end = time.perf_counter() + AUTO_LOW_MAX_S
+        seed = 32
+        while True:
+            legs.append(("low", run_open_loop(server.submit, lambda i: pool[i % len(pool)],
+                                              rate_hz=low, duration_s=AUTO_LOW_LEG_S, seed=seed,
+                                              slo=slo)))
+            seed += 1
+            sig = server.autoscale_signals()
+            if (sig["replicas"] == 1 and sig["brownout_level"] == 0
+                    and scaler.scale_downs > 0) or time.perf_counter() > t_end:
+                break
+    finally:
+        scaler.close()
+        server.close()
+    decisions = scaler.decision_log()
+    actions = [(d["action"], d.get("step"), d["t_s"]) for d in decisions]
+    rows = [dict(leg=leg, **r.to_row_dict()) for leg, r in legs]
+    st = scaler.stats()
+    out = dict(capacity_qps=capacity, single_request_s=single_s, bound_s=bound_s,
+               high_rate_hz=high, low_rate_hz=low, legs=rows, actions=actions,
+               stats={k: v for k, v in st.items() if k != "decisions"}, card=smi)
+    log(f"  (e) capacity by replicas {capacity} qps at batch size 1 ({smi}); actions {actions}")
+    for r in rows:
+        log(f"  (e) {r['leg']} {r['offered_rate_hz']} Hz: p50 {r['p50_latency_ms']} ms, p99 "
+            f"{r['p99_latency_ms']} ms, offered {r['num_offered']}, completed "
+            f"{r['num_samples']}, rejected {r['rejected']}, failed {r['failed']}")
+    ups = [a for a in actions if a[0] == "scale_up"]
+    first_down = next((i for i, a in enumerate(actions) if a[0] == "scale_down"), None)
+    gaps = [b[2] - a[2] for a, b in zip(actions, actions[1:])]
+    check("22(e) scale-up to max_replicas, brownout rungs entered and left LIFO, then "
+          "scale-down to min_replicas",
+          st["replicas_high"] == AUTO_MAX_REPLICAS and st["brownout_steps_entered"] >= 1
+          and _lifo_ok(decisions) and first_down is not None
+          and all(a[0] != "scale_up" for a in actions[first_down:])
+          and st["replicas"] == 1 and st["brownout_level"] == 0
+          and all(d["ok"] for d in decisions), f"{actions}")
+    check(f"22(e) no two actions inside the {AUTO_COOLDOWN_S} s cooldown",
+          all(g >= AUTO_COOLDOWN_S - 1e-6 for g in gaps), f"gaps {gaps}")
+    check("22(e) every leg's books balance, none failed",
+          all(r.num_offered == r.completed + r.rejected + r.failed and r.failed == 0
+              for _, r in legs), f"{[(r['leg'], r['failed']) for r in rows]}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5637,7 +6085,11 @@ def main():
           "plane, hot swap, open-loop latency")
     plan, scores, pool, offline, serve_plan = phase_serve_plan(cuda_ops, timit)
     serving = dict(plan=serve_plan, cli=phase_serve_cli(cuda_ops))
-    serving["swap"] = phase_serve_swap(cuda_ops, timit, plan, pool)
+    swap_fits = [scores]
+    serving["swap"] = phase_serve_swap(cuda_ops, timit, plan, pool, fits=swap_fits)
+    # Phase 22's tenants are pickle clones of the two seeds' fits.
+    zoo_blobs = [pickle.dumps(f) for f in swap_fits]
+    del swap_fits
     serving["latency"] = phase_serve_latency(plan, scores, pool, smi)
     phase("20", "continuous learning: the row-stable product, the lifecycle gate, run.py "
           "learn, a killed trainer's resume")
@@ -5672,6 +6124,15 @@ def main():
         disk["spill"] = phase_disk_spill(disk_root, smi)
     finally:
         shutil.rmtree(disk_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase("22", "the model zoo and the autoscaler: paging TIMIT tenants under a device budget, "
+          "isolation, cold start, run.py serve --tenants / --autoscale, the SLO loop")
+    pool = serve_pool()
+    zoo = dict(paging=phase_zoo_paging(cuda_ops, zoo_blobs, pool, smi))
+    zoo["isolation"] = phase_zoo_isolation(zoo_blobs, pool)
+    zoo["cold_start"] = phase_zoo_cold_start(zoo_blobs, pool)
+    zoo["cli"] = phase_zoo_cli(cuda_ops)
+    zoo["autoscale"] = phase_autoscale(zoo_blobs, pool, smi)
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -5701,6 +6162,10 @@ def main():
             entry["disk_launches"] = disk_counts[entry["name"]]
         elif entry["name"] == "gram_corr_sym_acc":
             entry["disk_launches"] = disk_sparse_counts[entry["name"]]
+    # The zoo's launches (phase 22(a): replays and page-ins' rebuilt buckets).
+    for entry in kernels:
+        if entry["name"] in ("cosine_features", ROW_STABLE):
+            entry["zoo_launches"] = zoo["paging"]["launches"][entry["name"]]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -5708,7 +6173,7 @@ def main():
                  VOC: voc_run, IMAGENET: imagenet_run, "cifar runners (apply first)": runners,
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
-                 SERVING: serving, LEARN: learn, DISK: disk,
+                 SERVING: serving, LEARN: learn, DISK: disk, ZOO: zoo,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

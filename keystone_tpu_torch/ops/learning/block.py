@@ -46,6 +46,18 @@ class BlockLinearMapper(Transformer):
         self.feature_scalers = feature_scalers
         self.splitter = VectorSplitter(block_size)
 
+    def __getstate__(self):
+        # A fit's blocks are views of one stacked solution, and pickle
+        # writes a view's whole storage: each block on its own, or a saved
+        # (or pickle-cloned) mapper of b blocks holds b copies of every
+        # block's weights when loaded.
+        state = self.__dict__.copy()
+        state["xs"] = [
+            x.clone() if x.untyped_storage().nbytes() > x.numel() * x.element_size() else x
+            for x in self.xs
+        ]
+        return state
+
     def _scaled_block(self, block, i: int):
         if self.feature_scalers is None:
             return block

@@ -40,11 +40,16 @@ Poisson load, and print the p50/p99 latency + throughput summary line
 with the reference's keys (plus ``export_s``, the export's seconds, kept
 out of ``single_request_s``). ``--replicas N`` serves through the
 replicated plane (least-loaded routing, per-replica breakers, watchdog
-restarts, hot swap). Serve runs on the CUDA device unless given
-``--device cpu``, and raises without one. The reference's ``--autoscale``,
-``--tenants`` / ``--tenant-spec`` / ``--zoo-budget-mb``, ``--fleet``,
+restarts, hot swap). ``--autoscale --slo-p99-ms MS`` closes the SLO loop
+on the replicated plane (replicas between ``--min-replicas`` and
+``--max-replicas``, the brownout ladder past the top, ``--scale-cooldown-s``
+between actions). ``--tenants N`` or ``--tenant-spec FILE`` serves N
+tenants through the model zoo, one exported plan each, under a device
+budget of ``--zoo-budget-mb`` (0: every tenant fits; a budget that binds
+pages weights in and out). Serve runs on the CUDA device unless given
+``--device cpu``, and raises without one. The reference's ``--fleet``,
 ``--from-plan`` and ``--metrics-port`` / ``--metrics-dir`` are not ported
-yet.
+yet: argparse refuses them.
 
 ``python -m keystone_tpu_torch.run learn [--input-dim 16 --out-dim 4
 --segments 24 --rate 200 --duration-s 8]`` runs the continuous-learning
@@ -157,6 +162,36 @@ def _serve(argv):
     parser.add_argument("--restart-budget", type=int, default=3,
                         help="replica respawn attempts before permanent "
                         "eviction (with --replicas > 1)")
+    parser.add_argument("--autoscale", action="store_true",
+                        help="close the SLO loop: an Autoscaler thread "
+                        "drives replica add/remove (and the brownout "
+                        "ladder past --max-replicas) from the declared "
+                        "SLO's burn-rate state machine; requires "
+                        "--slo-p99-ms > 0")
+    parser.add_argument("--min-replicas", type=int, default=1,
+                        help="autoscaler floor (with --autoscale)")
+    parser.add_argument("--max-replicas", type=int, default=8,
+                        help="autoscaler ceiling; past it admission "
+                        "degrades down the brownout ladder "
+                        "(with --autoscale)")
+    parser.add_argument("--scale-cooldown-s", type=float, default=2.0,
+                        help="minimum spacing between any two autoscale "
+                        "actions — the no-flapping window "
+                        "(with --autoscale)")
+    parser.add_argument("--tenants", type=int, default=1,
+                        help="serve N tenants through the multi-tenant "
+                        "model zoo (each tenant gets its own exported "
+                        "plan, SLO tracker, and fair admission share; "
+                        "--rate is split uniformly across tenants)")
+    parser.add_argument("--tenant-spec", default="",
+                        help="JSON tenant spec file: {\"tenants\": "
+                        "[{\"id\": \"a\", \"weight\": 1.0, \"rate_hz\": "
+                        "100}, ...]} — overrides --tenants/--rate with "
+                        "a skewed per-tenant mix")
+    parser.add_argument("--zoo-budget-mb", type=float, default=0.0,
+                        help="device-memory budget for the zoo's "
+                        "resident weights (0 = size to fit every "
+                        "tenant; a binding budget exercises paging)")
     parser.add_argument("--rate", type=float, default=200.0,
                         help="offered Poisson rate (requests/s)")
     parser.add_argument("--duration-s", type=float, default=5.0)
@@ -178,17 +213,59 @@ def _serve(argv):
 
     from keystone_tpu_torch import obs, resolve_device
     from keystone_tpu_torch.serving import (
+        Autoscaler,
         MicroBatchServer,
         ReplicatedServer,
         export_plan,
         run_open_loop,
     )
 
+    if args.autoscale and args.slo_p99_ms <= 0:
+        print(
+            "serve: --autoscale needs a declared SLO objective "
+            "(--slo-p99-ms > 0) — the control loop consumes the "
+            "burn-rate state machine",
+            file=sys.stderr,
+        )
+        return 2
+    if args.autoscale and not 1 <= args.min_replicas <= args.max_replicas:
+        # Validate BEFORE any server threads start: a ValueError out of
+        # Autoscaler.__init__ after ReplicatedServer construction would
+        # leak running workers and break the one-line-diagnostic
+        # contract below.
+        print(
+            f"serve: need 1 <= --min-replicas ({args.min_replicas}) <= "
+            f"--max-replicas ({args.max_replicas})",
+            file=sys.stderr,
+        )
+        return 2
+    tenant_specs = _serve_tenant_specs(args)
+    if tenant_specs is not None and args.autoscale:
+        print(
+            "serve: --tenants/--tenant-spec and --autoscale are "
+            "mutually exclusive (the zoo's admission plane does its own "
+            "per-tenant degradation)",
+            file=sys.stderr,
+        )
+        return 2
+
     device = resolve_device(args.device)
     # Load/fit and export fail as a ONE-LINE diagnostic + non-zero exit,
     # not a bare traceback: serve is the operator-facing entry point, and
     # a supervisor restarting it needs the exit code, not a stack.
     phase = "load" if args.model else "quick-fit"
+    if tenant_specs is not None:
+        try:
+            fitted, d_in = _serve_build_fitted(args, device)
+        except SystemExit:
+            raise
+        except Exception as e:
+            print(
+                f"serve: {phase} failed: {type(e).__name__}: {e}",
+                file=sys.stderr,
+            )
+            return 1
+        return _serve_zoo(args, fitted, d_in, tenant_specs, device)
     try:
         fitted, d_in = _serve_build_fitted(args, device)
         phase = "export"
@@ -223,9 +300,15 @@ def _serve(argv):
                 "availability", kind="availability", target=0.999,
             ),
         ], metrics=obs.MetricsRegistry())
-    if args.replicas > 1:
+    replicated = args.replicas > 1 or args.autoscale
+    if replicated:
+        # Autoscale always rides the replicated plane (the elasticity
+        # primitives live there), starting inside the configured bounds.
+        n0 = args.replicas
+        if args.autoscale:
+            n0 = min(max(n0, args.min_replicas), args.max_replicas)
         server = ReplicatedServer(
-            plan, num_replicas=args.replicas, max_batch=args.max_batch,
+            plan, num_replicas=n0, max_batch=args.max_batch,
             max_wait_ms=args.max_wait_ms, max_queue_depth=args.queue_depth,
             restart_budget=args.restart_budget, slo=slo_tracker,
         )
@@ -234,7 +317,18 @@ def _serve(argv):
             plan, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
             max_queue_depth=args.queue_depth, slo=slo_tracker,
         )
+    autoscaler = None
     try:
+        # Inside the try: from here on, any construction failure must
+        # still close() the already-running server threads.
+        if args.autoscale:
+            autoscaler = Autoscaler(
+                server, slo_tracker,
+                min_replicas=args.min_replicas,
+                max_replicas=args.max_replicas,
+                cooldown_s=args.scale_cooldown_s,
+                metrics=server.metrics,
+            ).start()
         report = run_open_loop(
             server.submit, lambda i: pool[i % len(pool)],
             rate_hz=args.rate, duration_s=args.duration_s, seed=args.seed,
@@ -242,6 +336,8 @@ def _serve(argv):
         )
         stats = server.stats()
     finally:
+        if autoscaler is not None:
+            autoscaler.close()
         server.close()
     summary = report.to_row_dict()
     summary.update({
@@ -262,7 +358,20 @@ def _serve(argv):
                 for o in verdict["objectives"].values()
             ),
         })
-    if args.replicas > 1:
+    if autoscaler is not None:
+        a_stats = autoscaler.stats()
+        summary.update({
+            "replicas_low": a_stats["replicas_low"],
+            "replicas_high": a_stats["replicas_high"],
+            "scale_ups": a_stats["scale_ups"],
+            "scale_downs": a_stats["scale_downs"],
+            "brownout_steps_entered": a_stats["brownout_steps_entered"],
+            # The audit companions of any scale_ups/scale_downs claim.
+            "num_decisions": a_stats["num_decisions"],
+            "min_replicas": a_stats["min_replicas"],
+            "max_replicas": a_stats["max_replicas"],
+        })
+    if replicated:
         summary.update({
             "replicas": stats.get("num_replicas"),
             "healthy_replicas": stats.get("healthy_replicas"),
@@ -530,6 +639,160 @@ def _serve_build_fitted(args, device):
         f"serve quick-fit supports MnistRandomFFT (got "
         f"{args.pipeline!r}); pass --model for anything else"
     )
+
+
+def _serve_tenant_specs(args):
+    """``[{"id", "weight", "rate_hz"}, ...]`` from --tenant-spec (the
+    skewed-mix form) or --tenants N (uniform — --rate split evenly);
+    None when serve should run the single-tenant path."""
+    import json
+
+    if args.tenant_spec:
+        with open(args.tenant_spec) as f:
+            doc = json.load(f)
+        specs = doc.get("tenants") if isinstance(doc, dict) else doc
+        if not isinstance(specs, list) or not specs:
+            raise SystemExit(
+                f"--tenant-spec {args.tenant_spec!r}: expected "
+                '{"tenants": [{"id": ..., "weight": ..., "rate_hz": '
+                "...}, ...]}"
+            )
+        return [
+            {
+                "id": str(s["id"]),
+                "weight": float(s.get("weight", 1.0)),
+                "rate_hz": float(s.get("rate_hz", args.rate / len(specs))),
+            }
+            for s in specs
+        ]
+    if args.tenants > 1:
+        return [
+            {
+                "id": f"t{i}",
+                "weight": 1.0,
+                "rate_hz": args.rate / args.tenants,
+            }
+            for i in range(args.tenants)
+        ]
+    return None
+
+
+def _serve_zoo(args, fitted, d_in, tenant_specs, device):
+    """Multi-tenant serve: one zoo, one exported plan per tenant (the
+    fitted pipeline is cloned per tenant — paging mutates operator
+    state in place, so tenants must never share operator objects), a
+    per-tenant SLO tracker when an SLO is declared, skewed open-loop
+    Poisson load, and a summary line with the per-tenant verdicts plus
+    the zoo's paging/quarantine/cold-start counters."""
+    import json
+    import pickle
+
+    import numpy as np
+
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.serving import (
+        ModelZoo,
+        export_plan,
+        run_multi_tenant_open_loop,
+    )
+
+    names = [s["id"] for s in tenant_specs]
+    if len(set(names)) != len(names):
+        print(f"serve: duplicate tenant ids: {names}", file=sys.stderr)
+        return 2
+
+    slos = {}
+    if args.slo_p99_ms > 0:
+        # No shared registry across trackers: every tracker would
+        # register the SAME (slo.*, objective=) gauge keys and stomp
+        # each other last-writer-wins. The per-tenant verdicts ride the
+        # zoo's stats block.
+        for name in names:
+            slos[name] = obs.SLOTracker([
+                obs.SLOObjective(
+                    "latency", kind="latency",
+                    threshold_s=args.slo_p99_ms / 1e3,
+                    target=args.slo_target,
+                ),
+                obs.SLOObjective(
+                    "availability", kind="availability", target=0.999,
+                ),
+            ])
+
+    plans = {}
+    try:
+        for spec in tenant_specs:
+            # Clone per tenant: a pickle round trip (the FittedPipeline
+            # copy path; tensors on the card come back on it).
+            clone = pickle.loads(pickle.dumps(fitted))
+            plans[spec["id"]] = export_plan(
+                clone, np.zeros(d_in, np.float32), max_batch=args.max_batch,
+                device=device,
+            )
+    except Exception as e:
+        print(
+            f"serve: tenant export failed: {type(e).__name__}: {e}",
+            file=sys.stderr,
+        )
+        return 1
+
+    per_tenant_bytes = {
+        name: max(p.pinned_bytes, 1) for name, p in plans.items()
+    }
+    budget = (
+        int(args.zoo_budget_mb * (1 << 20)) if args.zoo_budget_mb > 0
+        else sum(per_tenant_bytes.values()) + len(plans)
+    )
+    zoo = ModelZoo(
+        budget_bytes=budget,
+        max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        max_queue_depth=args.queue_depth,
+    )
+    try:
+        for spec in tenant_specs:
+            zoo.add_tenant(
+                spec["id"], plans.pop(spec["id"]), weight=spec["weight"],
+                slo=slos.get(spec["id"]),
+            )
+        rng = np.random.default_rng(args.seed + 1)
+        pool = rng.normal(size=(256, d_in)).astype(np.float32)
+        report = run_multi_tenant_open_loop(
+            zoo.submit,
+            lambda tenant, i: pool[i % len(pool)],
+            rates_hz={s["id"]: s["rate_hz"] for s in tenant_specs},
+            duration_s=args.duration_s, seed=args.seed,
+            slos=slos or None,
+        )
+        stats = zoo.stats()
+    except ValueError as e:
+        # A tenant larger than the whole budget (add_tenant's refusal).
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
+    finally:
+        zoo.close()
+    summary = report.to_row_dict()
+    # The summary line keeps the per-tenant report blocks under
+    # ``per_tenant``; ``tenants`` is the headline COUNT.
+    summary["per_tenant"] = summary.pop("tenants")
+    summary.update({
+        "tenants": stats["num_tenants"],
+        "residents": stats["residents"],
+        "quarantined": stats["quarantined"],
+        "coldstart_failfast": stats["coldstart_failfast"],
+        "page_ins": stats["page_ins"],
+        "page_outs": stats["page_outs"],
+        "zoo_budget_bytes": stats["budget_bytes"],
+        "tenant_resident_bytes": {
+            name: t["resident_bytes"] for name, t in stats["tenants"].items()
+        },
+        "accounting_ok": stats["accounting_ok"]
+        and report.accounting_ok(),
+    })
+    if slos:
+        summary["tenant_slo_states"] = report.tenant_states()
+    print(json.dumps(summary))
+    return 0
 
 
 PIPELINES: Dict[str, Callable] = {

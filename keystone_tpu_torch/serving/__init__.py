@@ -21,16 +21,24 @@ into something that serves streams of single-datum requests:
     zero-drop add / remove and brownout-ladder primitives.
   - :func:`run_open_loop` / :func:`closed_loop_qps` — Poisson load
     generation and the batch-size-1 baseline.
+  - :class:`Autoscaler` — the SLO-closed control loop: replica count
+    driven by the burn-rate state machine, with hysteresis, cooldowns and
+    the LIFO brownout ladder past ``max_replicas``.
+  - :class:`ModelZoo` — many tenants' plans on one device budget: weight
+    paging (bit-exact int16 + bf16 planes with CRCs), LRU-by-cost
+    eviction, per-tenant SLOs, deficit-weighted fair admission,
+    deadline-aware cold starts and quarantine;
+    :func:`run_multi_tenant_open_loop` drives it with per-tenant Poisson
+    arrivals.
   - :class:`LifecycleController` — validation-gated publication of new
     plan versions (finite weights, bucket bit identity, held-out
     quality), canary rollout with rollback, the post-promotion
     attribution window and the model-staleness clock.
 
-The reference's autoscaler (``serving/autoscale.py``), multi-tenant zoo
-(``serving/zoo.py``) and process fleet (``serving/fleet*.py``) are not
-ported yet.
+The reference's process fleet (``serving/fleet*.py``) is not ported yet.
 """
 
+from .autoscale import AutoscaleDecision, Autoscaler
 from .batcher import (
     MicroBatchServer,
     ServerClosed,
@@ -41,27 +49,45 @@ from .export import BatchInfo, ExportedPlan, export_plan, plan_fingerprint
 from .lifecycle import LifecycleController, LifecycleDecision
 from .loadgen import (
     LoadReport,
+    MultiTenantLoadReport,
     closed_loop_qps,
     poisson_arrivals,
+    run_multi_tenant_open_loop,
     run_open_loop,
 )
 from .replicas import BROWNOUT_STEPS, ReplicatedServer
+from .zoo import (
+    ModelZoo,
+    PagedWeights,
+    TenantColdStart,
+    TenantQuarantined,
+    ZooDecision,
+)
 
 __all__ = [
     "BROWNOUT_STEPS",
+    "AutoscaleDecision",
+    "Autoscaler",
     "BatchInfo",
     "ExportedPlan",
     "LifecycleController",
     "LifecycleDecision",
     "LoadReport",
     "MicroBatchServer",
+    "ModelZoo",
+    "MultiTenantLoadReport",
+    "PagedWeights",
     "ReplicatedServer",
     "ServerClosed",
     "ServerDegraded",
     "ServerOverloaded",
+    "TenantColdStart",
+    "TenantQuarantined",
+    "ZooDecision",
     "closed_loop_qps",
     "export_plan",
     "plan_fingerprint",
     "poisson_arrivals",
+    "run_multi_tenant_open_loop",
     "run_open_loop",
 ]

@@ -84,7 +84,6 @@ def plan_fingerprint(graph: Graph, item_shape, dtype,
     import zlib
 
     from keystone_tpu_torch.data.durable import fingerprint_token
-    from keystone_tpu_torch.workflow.fusion import fused_members
 
     def state_token(v):
         # Recurse into plain containers BEFORE delegating to
@@ -107,7 +106,7 @@ def plan_fingerprint(graph: Graph, item_shape, dtype,
     for node in sorted(graph.nodes, key=repr):
         op = graph.get_operator(node)
         members = []
-        for member in fused_members(op) + [op]:
+        for member in _members(op, set()):
             state = {
                 k: state_token(v)
                 for k, v in sorted(getattr(member, "__dict__", {}).items())
@@ -160,18 +159,29 @@ def _default_buckets(max_batch: int) -> List[int]:
     return buckets
 
 
-def _operators(graph: Graph):
-    """Every operator of the graph once, fused members included."""
+def _members(op, seen: set):
+    """``op``'s fused members, at every depth, then ``op`` itself, each
+    once (``seen`` holds the ids already walked). A gather fused inside a
+    fused batch keeps its branches' operators one level further down
+    (the TIMIT plan's cosine weights): the reference walks one level and
+    leaves them out of pinning, paging and the fingerprint."""
     from keystone_tpu_torch.workflow.fusion import fused_members
 
-    seen = set()
+    if id(op) in seen or not hasattr(op, "__dict__"):
+        return
+    seen.add(id(op))
+    for member in fused_members(op):
+        if member is not op:
+            yield from _members(member, seen)
+    yield op
+
+
+def _operators(graph: Graph):
+    """Every operator of the graph once, fused members (at every depth)
+    included."""
+    seen: set = set()
     for node in graph.nodes:
-        op = graph.get_operator(node)
-        for member in fused_members(op) + [op]:
-            if id(member) in seen or not hasattr(member, "__dict__"):
-                continue
-            seen.add(id(member))
-            yield member
+        yield from _members(graph.get_operator(node), seen)
 
 
 def _tensor_attrs(op):
@@ -312,6 +322,7 @@ class ExportedPlan:
         )
 
         self._trace_count = 0
+        self._released = False
         self._build_lock = threading.Lock()
         self._composed = compose_apply_fn(graph, source, sink)
         self.compiled = self._composed is not None
@@ -324,11 +335,25 @@ class ExportedPlan:
         else:
             self._fallback = FittedPipeline(graph, source, sink)
 
+    def release(self) -> None:
+        """Drop the bucket programs (their CUDA graphs, static buffers and
+        graph pools) and the composed function (whose closures may hold
+        the weights), so the device memory they hold is freed as soon as
+        the operators' tensors are: the model zoo's page-out. The caller
+        guarantees nothing replays the plan meanwhile (its servers are
+        closed); the plan cannot serve afterwards."""
+        with self._build_lock:
+            self._programs = {}
+            self._composed = None
+            self._released = True
+
     def _program(self, bucket: int) -> _BucketProgram:
         """The bucket's program: built at export for the ladder's buckets,
         on first use (counted) for a shape off the ladder."""
         program = self._programs.get(bucket)
         if program is None:
+            if self._released:
+                raise RuntimeError("this plan was released (its tenant was paged out)")
             with self._build_lock:
                 program = self._programs.get(bucket)
                 if program is None:

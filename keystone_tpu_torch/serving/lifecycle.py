@@ -563,13 +563,16 @@ class LifecycleController:
         and the SLO state against the incumbents. On regression the
         canary replica swaps straight back — zero-drop both ways.
 
-        Window caveat (stated, accepted): the canary's exec p99 covers
-        only its fresh generation's sustain window while the incumbents'
-        covers their span ring (bounded — recent spans, not lifetime),
-        so the comparison is not perfectly matched; the
-        ``canary_latency_factor`` margin absorbs the skew and the
-        post-promotion attribution window is the backstop for anything
-        it lets through."""
+        The canary's exec p99 covers its fresh generation, the sustain
+        window; the incumbents' covers the requests they served in the
+        same window (their whole span ring only where they served none
+        in it). The reference compares against the ring: there a canary
+        window that met a loaded host (its p99 over a few dozen batches
+        is about the slowest one) read as a regression against a ring
+        that diluted the same stalls, and a ring holding an old slow
+        period hid a real one. The ``canary_latency_factor`` margin and
+        the post-promotion attribution window stay the backstops."""
+        marks = self.plane.exec_marks()
         self.plane.swap_replica_plan(canary_index, plan)
         deadline = self._clock() + self.canary_sustain_s
         canary_p99 = incumbent_p99 = None
@@ -582,11 +585,12 @@ class LifecycleController:
             c = per_rep.get(canary_index) or {}
             canary_p99 = c.get("p99_exec_s")
             canary_completed = int(c.get("completed") or 0)
-            others = [
-                r.get("p99_exec_s")
-                for idx, r in per_rep.items()
-                if idx != canary_index and r.get("in_rotation")
-                and r.get("p99_exec_s") is not None
+            incumbents = [idx for idx, r in per_rep.items()
+                          if idx != canary_index and r.get("in_rotation")]
+            windowed = self.plane.exec_p99_since(marks)
+            others = [windowed[idx] for idx in incumbents if idx in windowed] or [
+                per_rep[idx]["p99_exec_s"] for idx in incumbents
+                if per_rep[idx].get("p99_exec_s") is not None
             ]
             incumbent_p99 = (
                 float(np.median(others)) if others else None

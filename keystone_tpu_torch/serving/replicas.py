@@ -97,7 +97,7 @@ import numpy as np
 
 from keystone_tpu_torch import obs
 from keystone_tpu_torch.obs.metrics import METRIC_SERVING_LATENCY_S
-from keystone_tpu_torch.utils import faults
+from keystone_tpu_torch.utils import faults, profiling
 
 from .batcher import (
     MicroBatchServer,
@@ -1087,6 +1087,30 @@ class ReplicatedServer:
         }
 
     # -- observability -----------------------------------------------------
+
+    def exec_marks(self) -> Dict[int, Any]:
+        """Each replica's current server generation and its span count:
+        the start of a window :meth:`exec_p99_since` reads."""
+        with self._lock:
+            return {r.index: (r.server, r.server.span_log.recorded)
+                    for r in self._replicas}
+
+    def exec_p99_since(self, marks: Dict[int, Any]) -> Dict[int, float]:
+        """Each replica's exec-latency p99 over the requests its server
+        generation served since ``marks`` (a replica swapped or restarted
+        since has no entry, nor one that served nothing)."""
+        with self._lock:
+            reps = list(self._replicas)
+        out: Dict[int, float] = {}
+        for r in reps:
+            server, mark = marks.get(r.index, (None, 0))
+            if server is not r.server:
+                continue
+            pct = profiling.latency_percentiles(
+                [s.exec_s for s in server.span_log.since(mark)])
+            if pct:
+                out[r.index] = pct["p99"]
+        return out
 
     def live_replica_indices(self) -> List[int]:
         """Sorted indices of live, in-rotation replicas — the canary

@@ -275,14 +275,22 @@ class SpanLog:
     def __init__(self, maxlen: int = 4096):
         self._spans: "deque[RequestSpan]" = deque(maxlen=maxlen)
         self._lock = threading.Lock()
+        self.recorded = 0  # spans ever recorded: a mark for since()
 
     def record(self, span: RequestSpan) -> None:
         with self._lock:
             self._spans.append(span)
+            self.recorded += 1
 
     def snapshot(self) -> List[RequestSpan]:
         with self._lock:
             return list(self._spans)
+
+    def since(self, mark: int) -> List[RequestSpan]:
+        """The retained spans recorded after ``recorded`` read ``mark``."""
+        with self._lock:
+            n = min(self.recorded - mark, len(self._spans))
+            return list(self._spans)[len(self._spans) - n:] if n > 0 else []
 
     def __len__(self) -> int:
         with self._lock:

@@ -24,6 +24,7 @@ Not in this slice: the cost-decision stamping of estimator fits (the
 
 from __future__ import annotations
 
+import gc
 import pickle
 import threading
 from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, TypeVar, Union
@@ -359,6 +360,12 @@ class CapturedProgram:
         rng = torch.cuda.default_generators[device.index or 0]
         rng_state = rng.clone_state()
         failed = []  # the node's own error: ending a broken capture raises another
+        # No automatic garbage collection inside the capture: a collection
+        # on this thread could free another program's CUDA graph, which the
+        # capture forbids, and the capture fails (``torch.cuda.graph``
+        # collects once itself, before it begins).
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with cuda_ops.recording_launches() as counted, torch.cuda.graph(
                     graph, capture_error_mode="thread_local"):
@@ -372,6 +379,9 @@ class CapturedProgram:
             torch.cuda.set_stream(stream)
             cause = failed[0] if failed else e
             raise RuntimeError(f"{what}: CUDA graph capture failed: {cause}") from cause
+        finally:
+            if collecting:
+                gc.enable()
         self.launches_per_replay = {name: n for name, n in counted.items() if n}
         self.replays = 0
         self._graph = graph

@@ -259,3 +259,37 @@ class TestCanaryRegressionUnderLoad:
             assert _accounting_ok(report)
         finally:
             plane.close()
+
+    def test_slow_canary_caught_after_a_slow_past(self):
+        """The incumbents' span rings carry an old slow period (a second a
+        batch): judged against the rings, a 30 ms canary would read as
+        fast and promote. The port judges it against what the incumbents
+        served in the same window, and rolls it back."""
+        from keystone_tpu_torch.utils.profiling import RequestSpan
+        from tests._torch_serving_util import fitted_from_transformer
+
+        w_true = make_w_true()
+        plan0 = export_small(fitted_linear(w_true))
+        plane = small_plane(plan0)
+        try:
+            for rep in plane._replicas:
+                for _ in range(200):
+                    rep.server.span_log.record(RequestSpan(
+                        queue_wait_s=0.0, exec_s=1.0, batch_size=1, bucket=2,
+                        pad_fraction=0.5, replica=rep.index))
+            ring = [r["p99_exec_s"] for r in plane.stats()["per_replica"].values()]
+            assert min(ring) >= 1.0
+            ctl = LifecycleController(plane, plan0, canary_sustain_s=0.6,
+                                      canary_min_samples=5)
+            t, holder = _storm_thread(plane, duration_s=2.5)
+            t.start()
+            time.sleep(0.4)
+            result = ctl.offer(fitted_from_transformer(_SlowSameModel(w_true, delay_s=0.03)))
+            t.join()
+            assert result["reason"] == "canary_latency_regression"
+            canary = result["canary"]
+            assert canary["canary_p99_exec_s"] >= 0.03
+            assert canary["incumbent_p99_exec_s"] < 1.0
+            assert ctl.rollbacks == 1 and _accounting_ok(holder["report"])
+        finally:
+            plane.close()

@@ -74,7 +74,8 @@ def test_port_has_modules():
                 "serving/replicas.py", "serving/lifecycle.py", "placement/__init__.py",
                 "placement/engine.py", "data/runtime.py", "learning/__init__.py",
                 "learning/continuous.py", "data/prefetch.py", "data/shards.py",
-                "data/images.py", "native/__init__.py"):
+                "data/images.py", "native/__init__.py", "serving/zoo.py",
+                "serving/autoscale.py"):
         assert rel in rels
 
 
@@ -119,6 +120,20 @@ def test_learning_package_exports_the_streaming_tiers():
     assert "BlockStreamedLeastSquares" in names and "cosine_bank_featurize" in names
     for name in names:
         assert name in learning.__all__ and hasattr(learning, name), name
+
+
+@pytest.mark.parametrize("module", ["autoscale", "zoo", "loadgen", "replicas", "batcher",
+                                    "export", "lifecycle"])
+def test_serving_package_exports_the_references(module):
+    # Every name the reference's serving package takes from each of its
+    # ported modules (the zoo, the autoscaler, the multi-tenant loadgen
+    # among them); the process fleet is not ported.
+    from keystone_tpu_torch import serving
+
+    names = _reference_exports("serving/__init__.py", module)
+    assert names
+    for name in names:
+        assert name in serving.__all__ and hasattr(serving, name), name
 
 
 def test_kernel_sources_sit_beside_the_package():

@@ -1,7 +1,10 @@
 """Card-only cases of the port's serving path: bucket programs captured as
 CUDA graphs at export, the warm path never capturing, launch counts across
 replays, two replicas hammering one captured bucket, a failed capture,
-and the fingerprints of CUDA tensors.
+the fingerprints of CUDA tensors, captures that garbage collection cannot
+break, and the model zoo's page round trip
+(memory freed, bits and launches kept) and a page-in captured while another
+tenant replays.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports neither JAX nor the JAX package, so that it runs on
@@ -133,6 +136,54 @@ class TestBucketGraphs:
 
 
 @pytest.mark.cuda
+class TestCaptureAndGarbage:
+    def test_capture_runs_with_automatic_collection_off(self, cuda_device):
+        import gc
+
+        from keystone_tpu_torch.workflow.pipeline import CapturedProgram
+
+        seen = []
+
+        def fn(X):
+            seen.append(gc.isenabled())
+            return X * 2.0
+
+        assert gc.isenabled()
+        CapturedProgram(fn, torch.zeros(4, device=cuda_device), "collection probe")
+        assert seen == [False] and gc.isenabled()
+
+    def test_garbage_freed_mid_capture_cannot_break_it(self, cuda_device):
+        """Cyclic garbage that owns another captured program becomes
+        collectable inside a capture (a page-in while an older plan awaits
+        collection): a collection there would free that program's graph
+        on the capturing thread, which the capture forbids. The capture
+        holds and the victim goes at the next collection."""
+        import gc
+
+        from keystone_tpu_torch.workflow.pipeline import CapturedProgram
+
+        victim = [CapturedProgram(lambda X: X + 1.0, torch.zeros(4, device=cuda_device),
+                                  "victim")]
+
+        def fn(X):
+            holder = {"program": victim.pop()}
+            holder["self"] = holder  # a cycle: only a collection frees it
+            del holder
+            kept = [[] for _ in range(2000)]  # live containers: collections would run
+            return X * 2.0 + len(kept) * 0.0
+
+        threshold = gc.get_threshold()
+        gc.set_threshold(10)
+        try:
+            program = CapturedProgram(fn, torch.zeros(4, device=cuda_device), "survivor")
+        finally:
+            gc.set_threshold(*threshold)
+        gc.collect()
+        out = program.run(torch.ones(4, device=cuda_device), lambda t: t.clone())
+        assert torch.equal(out, torch.full((4,), 2.0, device=cuda_device))
+
+
+@pytest.mark.cuda
 class TestSharedPlanOnCard:
     def test_two_replicas_hammer_one_bucket(self, cuda_device):
         fitted, plan, X = _cosine_plan(cuda_device, max_batch=2)
@@ -261,3 +312,77 @@ class TestFingerprintsOnCard:
         mapper.x[0, 0] += 1.0  # the fitted pipeline shares the operator
         again = export_plan(fitted, np.zeros(24, np.float32), max_batch=16)
         assert again.fingerprint != before
+
+
+@pytest.mark.cuda
+class TestZooOnCard:
+    def test_page_round_trip_frees_the_weights_and_keeps_the_bits(self, cuda_device):
+        """A page-out frees at least the tenant's charge on the card (the
+        weights and the bucket programs go); the page-in recaptures every
+        bucket, serves the same bits and counts its replays' launches."""
+        from keystone_tpu_torch.serving import ModelZoo
+
+        _, plan, X = _cosine_plan(cuda_device, seed=3)
+        charge = plan.pinned_bytes
+        zoo = ModelZoo(budget_bytes=10 * charge, max_batch=16, max_wait_ms=1.0)
+        try:
+            zoo.add_tenant("a", plan)
+            before = np.stack([zoo.submit("a", X[i]).result(timeout=60) for i in range(8)])
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            zoo.page_out("a")
+            torch.cuda.synchronize()
+            assert resident - torch.cuda.memory_allocated() >= charge
+            cuda_ops.reset_launch_counts()
+            zoo.page_in("a")
+            rebuilt = {k: v for k, v in cuda_ops.launches.items() if v}
+            after = np.stack([zoo.submit("a", X[i]).result(timeout=60) for i in range(8)])
+            assert np.array_equal(before, after)
+            entry = zoo._tenants["a"]
+            replays = sum(entry.plan.replays.values())
+            per = entry.plan.launches_per_replay[2]
+            assert per == {"cosine_features": 1, "row_stable_matmul": 1}
+            # Each bucket's eager run before its capture, then the replays.
+            want = {k: v * (len(entry.plan.buckets) + replays) for k, v in per.items()}
+            assert {k: v for k, v in cuda_ops.launches.items() if v} == want
+            assert rebuilt == {k: v * len(entry.plan.buckets) for k, v in per.items()}
+            assert zoo.stats()["tenants"]["a"]["fingerprint"] == plan.fingerprint
+        finally:
+            zoo.close()
+
+    def test_page_in_while_another_tenant_serves(self, cuda_device):
+        """A page-in captures (thread-local mode) while another tenant's
+        bucket graphs replay on its server's thread: nothing fails and
+        every response keeps its bits."""
+        from keystone_tpu_torch.serving import ModelZoo
+
+        _, plan_a, X = _cosine_plan(cuda_device, seed=4)
+        _, plan_b, _ = _cosine_plan(cuda_device, seed=5)
+        zoo = ModelZoo(budget_bytes=10 * plan_a.pinned_bytes, max_batch=16, max_wait_ms=1.0)
+        try:
+            zoo.add_tenant("a", plan_a)
+            zoo.add_tenant("b", plan_b, resident=False)
+            want = zoo.submit("a", X[0]).result(timeout=60)
+            stop, got, errors = threading.Event(), [], []
+
+            def loop():
+                while not stop.is_set():
+                    try:
+                        got.append(zoo.submit("a", X[0]).result(timeout=60))
+                    except Exception as e:  # noqa: BLE001 — the test reads them
+                        errors.append(e)
+
+            t = threading.Thread(target=loop)
+            t.start()
+            try:
+                for _ in range(3):
+                    zoo.page_in("b")
+                    zoo.page_out("b")
+            finally:
+                stop.set()
+                t.join(timeout=60)
+            assert not errors and got
+            assert all(np.array_equal(g, want) for g in got)
+            assert zoo.stats()["accounting_ok"] and zoo.stats()["quarantined"] == 0
+        finally:
+            zoo.close()

@@ -520,6 +520,33 @@ class TestElasticity:
             srv.close()
 
 
+class TestExecWindow:
+    def test_exec_p99_since_reads_only_the_window(self):
+        """``exec_marks`` / ``exec_p99_since``: the p99 over what each
+        replica's server generation served after the mark, an injected
+        slow past left out; a replica swapped since has no entry."""
+        from keystone_tpu_torch.utils.profiling import RequestSpan
+
+        _, plan, X, srv = _plane(num_replicas=2)
+        try:
+            for rep in srv._replicas:
+                rep.server.span_log.record(RequestSpan(
+                    queue_wait_s=0.0, exec_s=5.0, batch_size=1, bucket=2, pad_fraction=0.5,
+                    replica=rep.index))
+            marks = srv.exec_marks()
+            assert srv.exec_p99_since(marks) == {}
+            for f in [srv.submit(X[i % len(X)]) for i in range(40)]:
+                f.result(timeout=30)
+            window = srv.exec_p99_since(marks)
+            assert window and all(v < 5.0 for v in window.values())
+            assert all(max(s.exec_s for s in rep.server.span_log.snapshot()) == 5.0
+                       for rep in srv._replicas)  # the rings still hold the slow past
+            srv.swap_replica_plan(0, plan)
+            assert 0 not in srv.exec_p99_since(marks)
+        finally:
+            srv.close()
+
+
 class TestLifecycle:
     def test_submit_after_close_raises_and_close_is_idempotent(self):
         _, plans = _gated_plans(2)
