@@ -907,7 +907,7 @@ def phase_voc_gram(cuda_ops, gen):
     R -= R.mean(dim=0)
     gram, corr = cuda_ops.gram_corr_sym(A, R)
     gram_r, corr_r = cuda_ops.gram_corr_sym_ref(A, R)
-    torch.cuda.synchronize()
+    _sync(A.device)
     g_err = (gram - gram_r).abs().max().item()
     c_err = (corr - corr_r).abs().max().item()
     g_rel = g_err / gram_r.diagonal().max().item()
@@ -3706,7 +3706,9 @@ def phase_sparse(cuda_ops):
     amazon = dict(rows=rows, train=train, test=test, labels=labels, gather=base,
                   gather_accuracy=(report["gather"]["train_accuracy"],
                                    report["gather"]["test_accuracy"]),
-                  gram_bf16=_w1(models["gram bf16"]), w_true=w_true)
+                  gram_bf16=_w1(models["gram bf16"]), w_true=w_true,
+                  # Phase 23(c) holds the selector's fits to these.
+                  by_engine={name: _w1(m) for name, m in models.items()})
     del models, comp, b16
     torch.cuda.empty_cache()
     report["streamed"] = phase_sparse_streamed(cuda_ops, w_true)
@@ -5090,11 +5092,6 @@ def disk_row_blocks(n, seed, device="cuda", block=DISK_BLOCK_ROWS):
         yield X, Y, labels
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def _streamed_model(fitted):
     from keystone_tpu_torch.ops.learning.streaming_ls import StreamingFeaturizedLinearModel
 
@@ -5957,6 +5954,747 @@ def phase_autoscale(blobs, pool, smi, device="cuda"):
     return out
 
 
+CONTROL = ("control plane: the cost-weight sweep and refit, the selector on the card, the live "
+           "exporter, the capacity planner")
+# Phase 23. (a) the sweep: scripts/torch_fit_cost_weights.py's grid (None:
+# the harness's own). (c) the selector at TIMIT's phase-11 rows and at phase
+# 8's Amazon rows, and one streamed fit from disk shards: 32 tiles of 8,192
+# rows, 2 a segment, under a 64 MiB host budget (every resident candidate
+# infeasible). (d) serve runs of seconds at one rate, exporter on and off.
+CONTROL_SWEEP = dict(dense_shapes=None, sparse_shapes=None)
+CONTROL_STREAM_N, CONTROL_HOST_BUDGET = 262144, 64 << 20
+CONTROL_SERVE_RATE, CONTROL_SERVE_S, CONTROL_SERVE_BATCH = 400.0, 3.0, 64
+
+
+def _sweep_module():
+    """scripts/torch_fit_cost_weights.py, the measurement harness."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_fit_cost_weights.py")
+    spec = importlib.util.spec_from_file_location("torch_fit_cost_weights", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _CostFamily:
+    """``KEYSTONE_COST_WEIGHTS`` set for a block, restored after."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+    def __enter__(self):
+        self.old = os.environ.get("KEYSTONE_COST_WEIGHTS")
+        os.environ["KEYSTONE_COST_WEIGHTS"] = self.spec
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("KEYSTONE_COST_WEIGHTS", None)
+        else:
+            os.environ["KEYSTONE_COST_WEIGHTS"] = self.old
+
+
+def _tool(main_fn, argv):
+    """A tool's ``main`` run in this process: (exit code, its stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue()
+
+
+def _launch_delta(cuda_ops, before):
+    return {k: v - before.get(k, 0) for k, v in cuda_ops.launches.items()
+            if v - before.get(k, 0)}
+
+
+def _solver_decisions(records):
+    return [e for e in records if e.get("type") == "event" and e.get("name") == "cost.decision"
+            and (e.get("args") or {}).get("decision") == "least_squares_solver"]
+
+
+# Launches that phase 23 makes to hold a kernel against its plain version,
+# taken out of the phase's main-path counts.
+CONTROL_CHECK_LAUNCHES = {}
+
+
+class _GramShapeLog:
+    """Records the distinct operand shapes that ``gram_corr_sym`` and
+    ``gram_corr_sym_acc`` receive while the block is open (the callers look
+    the wrappers up on the module at each call)."""
+
+    def __init__(self, cuda_ops):
+        self.cuda_ops = cuda_ops
+        self.shapes = {"gram_corr_sym": set(), "gram_corr_sym_acc": set()}
+
+    def __enter__(self):
+        self.orig = {name: getattr(self.cuda_ops, name) for name in self.shapes}
+        sym, acc = self.orig["gram_corr_sym"], self.orig["gram_corr_sym_acc"]
+
+        def gram_corr_sym(A, R):
+            self.shapes["gram_corr_sym"].add((A.shape[0], A.shape[1], R.shape[1], A.dtype))
+            return sym(A, R)
+
+        def gram_corr_sym_acc(G, C, F, R, out=None):
+            self.shapes["gram_corr_sym_acc"].add(
+                (F.shape[0], F.shape[1], R.shape[1], F.dtype, F.stride(0)))
+            return acc(G, C, F, R, out=out)
+
+        self.cuda_ops.gram_corr_sym = gram_corr_sym
+        self.cuda_ops.gram_corr_sym_acc = gram_corr_sym_acc
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cuda_ops, name, fn)
+
+
+class _CheckLaunches:
+    """Adds the launches made inside the block to CONTROL_CHECK_LAUNCHES."""
+
+    def __init__(self, cuda_ops):
+        self.cuda_ops = cuda_ops
+
+    def __enter__(self):
+        self.before = dict(self.cuda_ops.launches)
+
+    def __exit__(self, *exc):
+        for k, v in _launch_delta(self.cuda_ops, self.before).items():
+            CONTROL_CHECK_LAUNCHES[k] = CONTROL_CHECK_LAUNCHES.get(k, 0) + v
+
+
+def _hold_gram_corr_sym(cuda_ops, A, R, label):
+    """``gram_corr_sym`` against its plain version at phase 1's tolerance:
+    1e-4 of the sums' scale (the Gramian's largest diagonal entry; max over
+    the correlation of sum |a||r|), and a symmetric Gramian."""
+    with _CheckLaunches(cuda_ops):
+        gram, corr = cuda_ops.gram_corr_sym(A, R)
+    gram_r, corr_r = cuda_ops.gram_corr_sym_ref(A, R)
+    _sync(A.device)
+    g_err = (gram - gram_r).abs().max().item()
+    c_err = (corr - corr_r).abs().max().item()
+    g_rel = g_err / gram_r.diagonal().max().item()
+    c_rel = c_err / (A.float().abs().T @ R.abs().to(torch.float32)).max().item()
+    check(f"23 gram_corr_sym {label}", g_rel <= 1e-4 and c_rel <= 1e-4
+          and torch.equal(gram, gram.T),
+          f"gram max_abs_err {g_err:.3e} ({g_rel:.2e} of scale), corr max_abs_err "
+          f"{c_err:.3e} ({c_rel:.2e} of scale), tol 1e-4 of scale, symmetric")
+    return max(g_err, c_err)
+
+
+def _hold_gram_corr_sym_acc(cuda_ops, G0, C0, F, R, label):
+    """``gram_corr_sym_acc`` against its plain version at phase 1's and 8's
+    tolerance, 1e-4 of the sums' scale (|G0| + sum |f_i||f_j| over the upper
+    tiles, |C0| + sum |f||r|); in place it gives a new buffer's bits and
+    leaves the lower tiles alone."""
+    d1 = F.shape[1]
+    tiles = torch.arange(d1, device=F.device) // 128
+    upper = tiles[:, None] <= tiles[None, :]
+    want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G0, C0, F, R)
+    Ff = F.float()
+    Rq = R.to(torch.bfloat16).float() if F.dtype == torch.bfloat16 else R.float()
+    g_scale = torch.addmm(G0.abs(), Ff.abs().T, Ff.abs())
+    c_scale = torch.addmm(C0.abs(), Ff.abs().T, Rq.abs())
+    del Ff, Rq
+    G, C = G0.clone(), C0.clone()
+    with _CheckLaunches(cuda_ops):
+        fresh = cuda_ops.gram_corr_sym_acc(G0, C0, F, R)
+        cuda_ops.gram_corr_sym_acc(G, C, F, R, out=(G, C))
+    _sync(F.device)
+    g_diff = (fresh[0] - want_g).abs()
+    g_err = g_diff[upper].max().item()
+    g_rel = g_diff.div_(g_scale)[upper].max().item()
+    c_diff = (fresh[1] - want_c).abs()
+    c_err, c_rel = c_diff.max().item(), (c_diff / c_scale).max().item()
+    # (The plain version, which a CPU tensor takes, writes every tile.)
+    same = F.device.type != "cuda" or (
+        torch.equal(G[upper], fresh[0][upper]) and torch.equal(C, fresh[1])
+        and torch.equal(G[~upper], G0[~upper]))
+    check(f"23 gram_corr_sym_acc {label}", g_rel <= 1e-4 and c_rel <= 1e-4 and same,
+          f"upper tiles max_abs_err {g_err:.3e} ({g_rel:.2e} of scale), corr max_abs_err "
+          f"{c_err:.3e} ({c_rel:.2e} of scale), tol 1e-4 of scale; in place the bits of a "
+          "new buffer, lower tiles untouched")
+    return max(g_err, c_err)
+
+
+def _sweep_shape_kernels(cuda_ops, shapes, device="cuda"):
+    """23(a): each kernel against its plain version at every shape the sweep
+    gave it, on seeded standard normal operands (the Gramian's columns
+    centered, as a fit's are; a slab at the fold's row stride)."""
+    gen = torch.Generator(device=device).manual_seed(23)
+    errs = {}
+    for n, d, k, dtype in sorted(shapes["gram_corr_sym"], key=str):
+        A = torch.randn((n, d), generator=gen, device=device)
+        A -= A.mean(dim=0)
+        A = A.to(dtype)
+        R = torch.randn((n, k), generator=gen, device=device)
+        label = f"{str(dtype)[6:]} A {n}x{d}, R {n}x{k} (a sweep shape)"
+        errs[label] = _hold_gram_corr_sym(cuda_ops, A, R, label)
+        del A, R
+    for rows, d1, k, dtype, stride in sorted(shapes["gram_corr_sym_acc"], key=str):
+        F = torch.zeros((rows, stride), dtype=dtype, device=device)[:, :d1]
+        F.copy_(torch.randn((rows, d1), generator=gen, device=device))
+        R = torch.randn((rows, k), generator=gen, device=device)
+        G0 = torch.randn((d1, d1), generator=gen, device=device)
+        C0 = torch.randn((d1, k), generator=gen, device=device)
+        label = (f"{str(dtype)[6:]} F {rows}x{d1} at row stride {stride}, R {rows}x{k} "
+                 "(a sweep shape)")
+        errs[label] = _hold_gram_corr_sym_acc(cuda_ops, G0, C0, F, R, label)
+        del F, R, G0, C0
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _host_coo_rows(X, width):
+    """The reference's per-row conversion (numpy): each row's nonzero
+    columns in ascending order, then -1 lanes with zero values."""
+    indices = np.full((X.shape[0], width), -1, dtype=np.int32)
+    values = np.zeros((X.shape[0], width), dtype=np.float32)
+    for i in range(X.shape[0]):
+        nz = np.nonzero(X[i])[0]
+        indices[i, :len(nz)] = nz
+        values[i, :len(nz)] = X[i][nz]
+    return indices, values
+
+
+def _control_chunk_kernels(cuda_ops, timit, TimitConfig, root, device="cuda"):
+    """23(c): what the selector's gram candidate runs on TIMIT's dense
+    features (65,536 x 16,384, phase 11's rows and draws), checked at the
+    fit's own shapes: ``Sparsify``'s conversion on the card (bit for bit
+    against the reference's per-row numpy loop on the rows of the first
+    and the last fold chunk), then ``gram_corr_sym_acc`` on the first chunk
+    and on the last, padded one (float32 slabs of 16,385 columns, the
+    intercept lane included, chunks of the lane cap's rows) against its
+    plain version. Also prices the selector on these features, unfitted,
+    into a trace of its own (23(e)'s planner input)."""
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+    from keystone_tpu_torch.data.resident import raw_chunk_tiles
+    from keystone_tpu_torch.ops import sparse
+    from keystone_tpu_torch.ops.learning import lbfgs
+    from keystone_tpu_torch.ops.learning.cost import LeastSquaresEstimator
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    t0 = time.perf_counter()
+    config = TimitConfig(num_cosines=NUM_COSINES, block_size=BLOCK, synthetic_n=N_TRAIN)
+    train = synthetic_timit(N_TRAIN, seed=config.seed, device=device)
+    F = timit.build_featurizer(config, device).apply(train.data).get().array
+    Y = ClassLabelIndicatorsFromIntLabels(K)(train.labels).array
+    PipelineEnv.get_or_create().reset()
+    n, d = F.shape
+    out = {}
+    decisions_dir = os.path.join(root, "selector-priced")
+    with _CostFamily("ec2"), obs.tracing(decisions_dir):
+        LeastSquaresEstimator(lam=0.0, block_size=BLOCK, block_iters=EPOCHS).optimize(
+            Dataset(F), Dataset(Y))
+    out["decisions_dir"] = decisions_dir
+
+    idx, val = sparse.padded_coo_rows(F)
+    width = int((F != 0).sum(dim=1).max())
+    d1 = d + 1
+    c = min(lbfgs.SparseLBFGSwithL2().gram_chunk_rows, n,
+            max(lbfgs._GRAM_CHUNK_LANES // (idx.shape[1] + 1), 1))
+    nchunks = -(-n // c)
+    last = n - (nchunks - 1) * c
+    same = idx.shape[1] == width
+    for lo, hi in ((0, c), (n - last, n)):
+        want_i, want_v = _host_coo_rows(F[lo:hi].cpu().numpy(), width)
+        same = (same and np.array_equal(idx[lo:hi].cpu().numpy(), want_i)
+                and np.array_equal(val[lo:hi].cpu().numpy(), want_v))
+    check(f"23(c) Sparsify on the card: padded_coo_rows of TIMIT's {n} x {d} features",
+          same, f"width {idx.shape[1]} (densest row {width}); rows 0-{c - 1} and "
+          f"{n - last}-{n - 1} bit for bit the reference's per-row loop")
+    # The gram fit's operands (SparseLBFGSwithL2.fit, _fit_gram): the
+    # intercept lane at column d, chunks of c rows, the tail padded.
+    idx1 = torch.cat([idx, torch.full((n, 1), d, dtype=idx.dtype, device=device)], dim=1)
+    val1 = torch.cat([val, torch.ones((n, 1), dtype=val.dtype, device=device)], dim=1)
+    del idx, val
+    idx_t, val_t, y_t = raw_chunk_tiles(idx1, val1, Y, c)
+    del idx1, val1
+    gen = torch.Generator(device=device).manual_seed(231)
+    G0 = torch.randn((d1, d1), generator=gen, device=device)
+    C0 = torch.randn((d1, K), generator=gen, device=device)
+    align = sparse._SLAB_ROW_ALIGN[torch.float32]
+    for label, cid, rows in (("first", 0, c), ("last, padded", nchunks - 1, last)):
+        slab = sparse._dense_rows(idx_t[cid], val_t[cid], d1, torch.float32, align)
+        out[label] = _hold_gram_corr_sym_acc(
+            cuda_ops, G0, C0, slab, y_t[cid],
+            f"f32 on the {label} fold chunk of TIMIT's dense rows: F {c}x{d1} ({rows} true "
+            f"rows) at row stride {slab.stride(0)}, R {c}x{K}")
+        del slab
+    del F, Y, idx_t, val_t, y_t, G0, C0, train
+    torch.cuda.empty_cache()
+    out.update(chunk_rows=c, chunks=nchunks, seconds=time.perf_counter() - t0)
+    log(f"  (c) TIMIT's dense rows in the gram fit's chunks: {nchunks} chunks of {c} rows "
+        f"({last} true rows in the last), checked in {out['seconds']:.3f} s")
+    return out
+
+
+def phase_control_sweep(cuda_ops, root, device="cuda"):
+    """23(a): the harness's sweep under obs.tracing, priced under ec2; then
+    each kernel against its plain version at every shape the sweep gave
+    it."""
+    from keystone_tpu_torch import obs
+
+    sw = _sweep_module()
+    kw = {k: v for k, v in CONTROL_SWEEP.items() if v is not None}
+    sweep_dir = os.path.join(root, "sweep")
+    before = dict(cuda_ops.launches)
+    t0 = time.perf_counter()
+    with _CostFamily("ec2"), obs.tracing(sweep_dir), _GramShapeLog(cuda_ops) as shape_log:
+        points = sw.run_sweep(device, log=lambda line: log(f"  (a) {line.strip()}"), **kw)
+    launches = _launch_delta(cuda_ops, before)
+    log(f"  (a) {len(points)} points in {time.perf_counter() - t0:.3f} s, launches {launches}")
+    check("23(a) every sweep point measured after a synchronize",
+          all(p["measured_s"] > 0 for p in points) and len(points) > 0,
+          f"{len(points)} points")
+    iters = {(p["engine"], p["n"]): p.get("iterations") for p in points
+             if p["engine"].startswith("sparse")}
+    log(f"  (a) L-BFGS iterations run (20 allowed): {iters}")
+    check("23(a) every sparse point recorded its iterations",
+          all(v is not None for v in iters.values()), f"{iters}")
+    shapes = shape_log.shapes
+    log(f"  (a) shapes given to gram_corr_sym {sorted(shapes['gram_corr_sym'], key=str)}, "
+        f"gram_corr_sym_acc {sorted(shapes['gram_corr_sym_acc'], key=str)}")
+    check("23(a) the block and gram points reached gram_corr_sym and bf16 and f32 "
+          "gram_corr_sym_acc", launches.get("gram_corr_sym", 0) > 0
+          and {s[3] for s in shapes["gram_corr_sym_acc"]} == {torch.float32, torch.bfloat16},
+          f"{launches}")
+    kernel_errs = _sweep_shape_kernels(cuda_ops, shapes, device)
+    return dict(points=points, launches=launches, dir=sweep_dir, kernel_errs=kernel_errs)
+
+
+def phase_control_calibrate(sweep, root):
+    """23(b): tools.calibrate on the sweep's trace under ec2, --refit, then
+    under the refit artifact."""
+    from keystone_tpu_torch.tools import calibrate as cal_cli
+
+    t0 = time.perf_counter()
+    art = os.path.join(root, "art.json")
+    runs = {}
+    with _CostFamily("ec2"):
+        for name, extra in (
+                ("ec2", []),
+                ("refit", ["--refit", art]),
+                ("calibrated", ["--weights", f"calibrated:{art}"])):
+            rc, out = _tool(cal_cli.main, [sweep["dir"], "--json"] + extra)
+            doc = json.loads(out)
+            runs[name] = dict(rc=rc, report=doc["report"], verdict=doc["verdict"],
+                              refit=doc.get("refit"))
+            v = doc["verdict"]
+            log(f"  (b) tools.calibrate {' '.join(extra) or '(ec2)'}: rc {rc}, "
+                f"{'DRIFT' if v['drifted'] else 'OK'}, median |log error| "
+                f"{v['median_abs_log_error']}, worst {v['worst_engine']} "
+                f"{v['worst_engine_median_abs_log_error']}")
+    ec2 = runs["ec2"]["report"]
+    for label, eng in sorted(ec2["per_engine"].items()):
+        log(f"  (b) ec2 {label}: n {eng['count']}, median predicted "
+            f"{eng['median_predicted_s']:.6g} s, measured {eng['median_measured_s']:.6g} s, "
+            f"median log error {eng['median_log_error']:.4f}")
+    weights = runs["refit"]["refit"]["weights"]
+    log(f"  (b) refit weights: {json.dumps(weights)}")
+    cal_report = runs["calibrated"]["report"]
+    for label, eng in sorted(cal_report["per_engine"].items()):
+        log(f"  (b) calibrated {label}: median log error {eng['median_log_error']:.4f}")
+    check("23(b) calibration found data and joined every sweep point",
+          all(r["rc"] != 3 for r in runs.values())
+          and ec2["num_decisions"] == ec2["num_measured"] == len(sweep["points"]),
+          f"rcs {[r['rc'] for r in runs.values()]}, {ec2['num_measured']} of "
+          f"{ec2['num_decisions']} decisions measured, {len(sweep['points'])} points")
+    before = ec2["median_abs_log_error"]
+    after = cal_report["median_abs_log_error"]
+    check("23(b) the refit's median |log error| on the sweep is below ec2's",
+          after is not None and after < before, f"{after} < {before}")
+    log(f"  (b) {time.perf_counter() - t0:.3f} s")
+    return dict(runs=runs, weights=weights, artifact=art)
+
+
+def _amazon_data(device):
+    from keystone_tpu_torch.data import Dataset
+
+    w_true = planted_model(AMAZON_D, 2)
+    idx, vals, _, Y = amazon_rows(AMAZON_N, AMAZON_D, AMAZON_NNZ, AMAZON_K, 1, w_true)
+    dev = torch.device(device)
+    train = Dataset({"indices": torch.from_numpy(idx).to(dev),
+                     "values": torch.from_numpy(vals).to(dev)}, n=AMAZON_N)
+    return train, Dataset(torch.from_numpy(Y).to(dev))
+
+
+# 23(c)'s tolerances: TIMIT's test error under either family within half a
+# point of phase 11's (the card's fit against the CPU's in phase 2 is held
+# there too); the Amazon weights within phase 8's bound of phase 8's fit by
+# the same engine, 5e-3 of its gather model's largest weight.
+CONTROL_TIMIT_ERR_TOL, CONTROL_AMAZON_W_TOL = 0.005, 5e-3
+# Phase 8's engines by the selector's candidate labels.
+CONTROL_AMAZON_ENGINES = {"SparseLBFGSwithL2[gather]": "gather",
+                          "SparseLBFGSwithL2[gram]": "gram f32",
+                          "SparseLBFGSwithL2[gram,int16_bf16]": "gram compressed int16+bf16"}
+
+
+def phase_control_selector(cuda_ops, timit, TimitConfig, sweep, cal, refs, root,
+                           device="cuda"):
+    """23(c): the selector on the card under ec2 and under the refit: TIMIT
+    at phase 11's rows (its test error held to phase 11's, ``refs
+    ["timit_test_error"]``), the kernels at the shapes its gram candidate
+    gives them there, the Amazon rows (the fitted weights held to phase 8's
+    by the winning engine, ``refs["amazon"]``), and a streamed disk fit's
+    span window beside its stamped outcome."""
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.data.shards import DiskDenseShardWriter
+    from keystone_tpu_torch.obs import calibrate as calmod
+    from keystone_tpu_torch.ops.learning.cost import LeastSquaresEstimator
+    from keystone_tpu_torch.ops.sparse import Sparsify
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    families = {"ec2": "ec2", "calibrated": f"calibrated:{cal['artifact']}"}
+    out = dict(timit={}, amazon={}, dirs={})
+    before = dict(cuda_ops.launches)
+    checks_before = dict(CONTROL_CHECK_LAUNCHES)
+    for name, spec in families.items():
+        PipelineEnv.get_or_create().reset()
+        trace_dir = os.path.join(root, f"selector-timit-{name}")
+        config = TimitConfig(solver="auto", num_cosines=NUM_COSINES, block_size=BLOCK,
+                             synthetic_n=N_TRAIN, num_epochs=EPOCHS, lam=0.0)
+        t0 = time.perf_counter()
+        with _CostFamily(spec), obs.tracing(trace_dir) as tracer:
+            result = timit.run(config, device=device)
+            records = list(tracer.events)
+        run_s = time.perf_counter() - t0
+        PipelineEnv.get_or_create().reset()
+        test_error = result.test_eval.total_error
+        del result
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        (decision,) = _solver_decisions(records)
+        args = decision["args"]
+        outcome = args.get("outcome") or {}
+        (priced,) = [c["cost_s"] for c in args["candidates"] if c["label"] == args["winner"]]
+        fits = [r for r in records if r.get("type") == "span" and r["name"] == "estimator.fit"
+                and r["span_id"] == outcome.get("span_id")]
+        out["timit"][name] = dict(winner=args["winner"], predicted_s=priced,
+                                  measured_s=outcome.get("measured_s"),
+                                  timing=outcome.get("timing"), test_error=test_error)
+        out["dirs"][f"timit-{name}"] = trace_dir
+        log(f"  (c) TIMIT {N_TRAIN} x {D_IN} -> {NUM_COSINES} x {BLOCK} -> {K} under {name}: "
+            f"winner {args['winner']}, predicted {priced} s, stamped {outcome.get('measured_s')} s "
+            f"({outcome.get('timing')}), test error {100 * test_error:.3f}%, "
+            f"run {run_s:.3f} s (data, fit, apply)")
+        check(f"23(c) TIMIT under {name}: the decision carries its fit's stamped outcome",
+              outcome.get("measured_s", 0) > 0 and outcome.get("timing") == "single_run_cold"
+              and len(fits) == 1, f"outcome {outcome}, {len(fits)} linked estimator.fit span")
+        check(f"23(c) TIMIT under {name}: test error within {CONTROL_TIMIT_ERR_TOL} of phase "
+              "11's", abs(test_error - refs["timit_test_error"]) <= CONTROL_TIMIT_ERR_TOL,
+              f"{100 * test_error:.3f}% against {100 * refs['timit_test_error']:.3f}%")
+    out["chunks"] = _control_chunk_kernels(cuda_ops, timit, TimitConfig, root, device)
+    t0 = time.perf_counter()
+    train, labels = _amazon_data(device)
+    log(f"  (c) Amazon rows made in {time.perf_counter() - t0:.3f} s")
+    # The sweep's times of the selector's own engines (the bf16 gram point
+    # is not one) at these rows.
+    sparse_sweep = {p["label"]: p["measured_s"] for p in sweep["points"]
+                    if p["engine"] in ("sparse-gather", "sparse-gram") and p["n"] == AMAZON_N}
+    faster = min(sparse_sweep, key=sparse_sweep.get) if sparse_sweep else None
+    for name, spec in families.items():
+        PipelineEnv.get_or_create().reset()
+        trace_dir = os.path.join(root, f"selector-amazon-{name}")
+        t0 = time.perf_counter()
+        with _CostFamily(spec), obs.tracing(trace_dir) as tracer:
+            fitted = Sparsify().and_then(LeastSquaresEstimator(lam=AMAZON_LAM), train,
+                                         labels).fit()
+            records = list(tracer.events)
+        run_s = time.perf_counter() - t0
+        PipelineEnv.get_or_create().reset()
+        # The selector's chain fits to Chained(Sparsify, model).
+        (mapper,) = [getattr(op, "model", op) for op in
+                     fitted.transformer_graph.operators.values()
+                     if getattr(getattr(op, "model", op), "b_opt", None) is not None]
+        W = _w1(mapper)
+        del fitted, mapper
+        (decision,) = _solver_decisions(records)
+        args = decision["args"]
+        outcome = args.get("outcome") or {}
+        # A winner that phase 8 did not fit is held to its gather model.
+        engine = CONTROL_AMAZON_ENGINES.get(args["winner"], "gather")
+        want = refs["amazon"].get(engine)
+        delta = float((W - want).abs().max()) if want is not None else None
+        bound = CONTROL_AMAZON_W_TOL * refs["amazon_gather_scale"]
+        out["amazon"][name] = dict(winner=args["winner"], measured_s=outcome.get("measured_s"),
+                                   d=args["d"], sparsity=args["sparsity"],
+                                   costs={c["label"]: c["cost_s"] for c in args["candidates"]},
+                                   max_abs_delta_to_phase_8=delta,
+                                   bits_of_phase_8=want is not None and torch.equal(W, want))
+        out["dirs"][f"amazon-{name}"] = trace_dir
+        log(f"  (c) Amazon {AMAZON_N} x {AMAZON_D} under {name}: winner {args['winner']}, "
+            f"stamped {outcome.get('measured_s')} s (pipeline fit {run_s:.3f} s); the sweep "
+            f"measured faster: {faster} ({sparse_sweep})")
+        check(f"23(c) Amazon under {name}: the decision carries a stamped outcome",
+              outcome.get("measured_s", 0) > 0, f"{outcome}")
+        check(f"23(c) Amazon under {name}: the weights are phase 8's {engine} fit's",
+              delta is not None and delta <= bound,
+              f"max |delta| {delta} (tol {CONTROL_AMAZON_W_TOL} of phase 8's largest gather "
+              f"weight, {bound:.3e}); bit for bit {out['amazon'][name]['bits_of_phase_8']}")
+        del W
+    del train, labels
+    # The mis-route table over the sweep and the selector's traces, every
+    # row re-priced under the refit (the traces mix two families).
+    records = obs.load_events(sweep["dir"])
+    for d in out["dirs"].values():
+        records += obs.load_events(d)
+    report = calmod.calibration_report(
+        records, weights=calmod.family_weights(families["calibrated"]))
+    out["misroutes"] = report["misroutes"]
+    for m in report["misroutes"]:
+        log(f"  (c) mis-route: {m['winner']} measured {m['winner_measured_s']} s, "
+            f"{m['faster_candidate']} {m['faster_estimate_s']} s ({m['evidence']}), "
+            f"regret {m['regret_s']} s")
+    cal_winner = out["amazon"]["calibrated"]["winner"]
+    if faster is not None and cal_winner != faster and cal_winner in sparse_sweep:
+        check("23(c) the calibrated Amazon winner is the slower engine: the mis-route table "
+              "names it", any(m["winner"] == cal_winner for m in report["misroutes"]),
+              f"{cal_winner} against {faster}")
+    # One streamed fit from disk shards: the span window against the stamp.
+    PipelineEnv.get_or_create().reset()
+    t0 = time.perf_counter()
+    writer = DiskDenseShardWriter(os.path.join(root, "stream"), capacity_rows=CONTROL_STREAM_N,
+                                  d_in=D_IN, k=K, tile_rows=DISK_TILE, tiles_per_segment=DISK_TPS)
+    for X, Y, _ in disk_row_blocks(CONTROL_STREAM_N, 5, device):
+        writer.append(X.cpu().numpy(), Y.cpu().numpy())
+    sld = writer.close().as_labeled_data()
+    log(f"  (c) {CONTROL_STREAM_N} rows written to shards in {time.perf_counter() - t0:.3f} s")
+    trace_dir = os.path.join(root, "selector-stream")
+    config = TimitConfig(num_cosines=NUM_COSINES, block_size=BLOCK, num_epochs=EPOCHS,
+                         lam=DISK_LAM)
+    auto = LeastSquaresEstimator(lam=DISK_LAM, block_size=BLOCK, block_iters=EPOCHS,
+                                 host_budget_bytes=CONTROL_HOST_BUDGET)
+    with _CostFamily("ec2"), obs.tracing(trace_dir) as tracer:
+        timit.build_featurizer(config, device).and_then(auto, sld.data, sld.labels).fit()
+        records = list(tracer.events)
+    PipelineEnv.get_or_create().reset()
+    (decision,) = _solver_decisions(records)
+    stamped = (decision["args"].get("outcome") or {}).get("measured_s")
+    unstamped = [dict(r, args={k: v for k, v in r["args"].items() if k != "outcome"})
+                 if r is decision else r for r in records]
+    (joined,) = calmod.join_decisions(
+        [r for r in unstamped if r.get("name") != "estimator.fit"], kinds=("least_squares_solver",))
+    folds = [r for r in records if r.get("type") == "span" and r["name"] == "fold.segment"]
+    out["stream"] = dict(winner=decision["args"]["winner"], stamped_s=stamped,
+                         span_window_s=joined.measured_s, timing=joined.timing,
+                         fold_spans=len(folds))
+    log(f"  (c) streamed disk fit ({CONTROL_STREAM_N} rows, {len(folds)} fold.segment spans): "
+        f"stamped {stamped} s (synchronized) against the span window {joined.measured_s} s "
+        f"({joined.timing})")
+    check("23(c) the streamed fit: a stamped outcome and a span-window reading",
+          decision["args"]["winner"] == "StreamingLeastSquaresChoice"
+          and stamped is not None and stamped > 0 and joined.measured_s is not None
+          and (joined.timing == calmod.QUEUED_TIMING) == (torch.device(device).type == "cuda"),
+          f"{out['stream']}")
+    out["dirs"]["stream"] = trace_dir
+    checks = {k: v - checks_before.get(k, 0) for k, v in CONTROL_CHECK_LAUNCHES.items()
+              if v - checks_before.get(k, 0)}
+    out["launches"] = {k: v - checks.get(k, 0)
+                       for k, v in _launch_delta(cuda_ops, before).items()
+                       if v - checks.get(k, 0)}
+    log(f"  (c) launches {out['launches']} (and {checks} holding kernels to their plain "
+        "versions)")
+    return out
+
+
+class _Exporters:
+    """Records every LiveExporter the CLI makes, to scrape it while it runs."""
+
+    def __init__(self):
+        from keystone_tpu_torch import obs
+
+        self.obs = obs
+        self.made = []
+        self.cls = obs.LiveExporter
+        made = self.made
+
+        class Recording(self.cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        self.recording = Recording
+
+    def __enter__(self):
+        self.obs.LiveExporter = self.recording
+        return self
+
+    def __exit__(self, *exc):
+        self.obs.LiveExporter = self.cls
+
+
+def _serve_in_thread(argv):
+    """``run.main(argv)`` on a thread, its stdout kept: (thread, result)."""
+    import contextlib
+    import io
+    import threading
+
+    from keystone_tpu_torch import run as cli
+
+    result = {}
+
+    def body():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result["rc"] = cli.main(argv)
+        result["out"] = buf.getvalue()
+
+    thread = threading.Thread(target=body, name="phase23-serve")
+    thread.start()
+    return thread, result
+
+
+def phase_control_live(cuda_ops, blob, root, device="cuda"):
+    """23(d): run.py serve on the TIMIT plan with the live exporter, scraped
+    while it serves; then the same rate with the exporter off."""
+    import urllib.request
+
+    from keystone_tpu_torch.tools import slo as slo_cli
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    model = os.path.join(root, "timit.pkl")
+    with open(model, "wb") as f:
+        f.write(blob)
+    base = ["serve", "--model", model, "--input-dim", str(D_IN), "--max-batch",
+            str(CONTROL_SERVE_BATCH), "--rate", str(CONTROL_SERVE_RATE), "--duration-s",
+            str(CONTROL_SERVE_S)] + ([] if torch.device(device).type == "cuda"
+                                     else ["--device", "cpu"])
+    metrics_dir, trace_dir = os.path.join(root, "metrics"), os.path.join(root, "serve-trace")
+    out = {}
+    before = dict(cuda_ops.launches)
+    for name, extra in (("on", ["--metrics-port", "0", "--metrics-dir", metrics_dir,
+                                "--metrics-interval-s", "0.25", f"--trace={trace_dir}"]),
+                        ("off", [f"--trace={trace_dir}-off"])):
+        PipelineEnv.get_or_create().reset()
+        scraped = {}
+        t0 = time.perf_counter()
+        with _Exporters() as exporters:
+            thread, result = _serve_in_thread(base + extra)
+            deadline = time.time() + CONTROL_SERVE_S + 120
+            while name == "on" and thread.is_alive() and time.time() < deadline:
+                ex = exporters.made[0] if exporters.made else None
+                if ex is not None and ex.metrics.snapshot().get("exporter.publishes", 0) >= 2:
+                    url = f"http://127.0.0.1:{ex.port}"
+                    for path in ("/metrics", "/healthz", "/snapshot.json"):
+                        with urllib.request.urlopen(url + path, timeout=10) as resp:
+                            scraped[path] = (resp.status, resp.read().decode())
+                    break
+                time.sleep(0.05)
+            thread.join()
+        run_s = time.perf_counter() - t0
+        os.environ.pop("KEYSTONE_TRACE", None)
+        PipelineEnv.get_or_create().reset()
+        summary = json.loads(result["out"].strip().splitlines()[-1])
+        out[name] = dict(rc=result["rc"], p50_ms=summary["p50_latency_ms"],
+                         p99_ms=summary["p99_latency_ms"], qps=summary["achieved_qps"],
+                         num_samples=summary["num_samples"], failed=summary["failed"])
+        log(f"  (d) exporter {name}: rc {result['rc']}, p50 {summary['p50_latency_ms']} ms, "
+            f"p99 {summary['p99_latency_ms']} ms, {summary['achieved_qps']} qps at "
+            f"{CONTROL_SERVE_RATE} Hz offered, {summary['num_samples']} served, "
+            f"{summary['failed']} failed; the command {run_s:.3f} s")
+        check(f"23(d) serve with the exporter {name}: exit 0, books balance",
+              result["rc"] == 0 and summary["num_offered"] == summary["num_samples"]
+              + summary["rejected"] + summary["failed"], f"{summary}")
+        if name == "on":
+            with open(os.path.join(metrics_dir, "live_metrics.json")) as f:
+                snap = json.load(f)
+            publishes = snap["exporter"]["exporter.publishes"]
+            metrics = scraped.get("/metrics", (None, ""))
+            snap_live = json.loads(scraped["/snapshot.json"][1]) if "/snapshot.json" in \
+                scraped else {}
+            rc_slo, slo_out = _tool(slo_cli.main, [metrics_dir])
+            out[name].update(publishes=publishes, metrics_port=summary.get("metrics_port"),
+                             metrics_lines=len(metrics[1].splitlines()), slo_rc=rc_slo)
+            log(f"  (d) scraped /metrics ({len(metrics[1].splitlines())} lines, status "
+                f"{metrics[0]}), /healthz {scraped.get('/healthz')}, /snapshot.json seq "
+                f"{snap_live.get('seq')}; {publishes} publishes; tools.slo rc {rc_slo}:")
+            for line in slo_out.splitlines():
+                log(f"      {line}")
+            check("23(d) the live endpoint answered while serving, and published twice",
+                  metrics[0] == 200 and "keystone_serving_completed" in metrics[1]
+                  and scraped.get("/healthz") == (200, "ok\n") and publishes >= 2
+                  and rc_slo == 0, f"{publishes} publishes, scraped {sorted(scraped)}")
+    out["trace_dir"] = trace_dir
+    out["model"] = model
+    out["launches"] = _launch_delta(cuda_ops, before)
+    log(f"  (d) launches {out['launches']}")
+    return out
+
+
+def phase_control_plan(cuda_ops, live, selector, root, device="cuda"):
+    """23(e): tools.plan --apply on the serve trace joined with the
+    selector's decisions priced on TIMIT's features (the gate replays
+    them), and refused on the serve trace joined with a fitted selector
+    trace whose stamped outcome drifts past the bound; serve --from-plan,
+    tools.trace and its decision view; the selector traces replayed."""
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.placement.planner import CapacityPlanner
+    from keystone_tpu_torch.tools import plan as plan_cli
+    from keystone_tpu_torch.tools import trace as trace_cli
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    plan_path = os.path.join(root, "plan.json")
+    priced = selector["chunks"]["decisions_dir"]
+    rc, text = _tool(plan_cli.main, [live["trace_dir"], priced, "--apply", plan_path,
+                                     "--whatif", "traffic=2x", "--whatif", "hbm=0.5x"])
+    for line in text.splitlines():
+        log(f"      {line}")
+    fidelity = {}
+    if os.path.exists(plan_path):
+        with open(plan_path) as f:
+            fidelity = json.load(f)["fidelity"]
+    check("23(e) tools.plan --apply: the 1x fidelity gate replays the priced decisions, "
+          "passes, and the artifact is written",
+          rc == 0 and fidelity.get("num_replayed", 0) > 0
+          and fidelity["num_reproduced"] == fidelity["num_replayed"], f"rc {rc}, {fidelity}")
+    refused_path = os.path.join(root, "plan-refused.json")
+    drifted = selector["dirs"]["amazon-ec2"]
+    rc_refused, _ = _tool(plan_cli.main, [live["trace_dir"], drifted, "--apply",
+                                          refused_path])
+    check("23(e) tools.plan --apply refuses a trace whose stamped outcome drifts (the Amazon "
+          "fit priced under ec2)", rc_refused == 2 and not os.path.exists(refused_path),
+          f"rc {rc_refused}, artifact written {os.path.exists(refused_path)}")
+    before = dict(cuda_ops.launches)
+    PipelineEnv.get_or_create().reset()
+    argv = ["serve", "--model", live["model"], "--input-dim", str(D_IN), "--duration-s", "1.0",
+            "--rate", str(CONTROL_SERVE_RATE), "--from-plan", plan_path] + (
+        [] if torch.device(device).type == "cuda" else ["--device", "cpu"])
+    from keystone_tpu_torch import run as cli
+
+    rc_serve, serve_out = _tool(cli.main, argv)
+    PipelineEnv.get_or_create().reset()
+    summary = json.loads(serve_out.strip().splitlines()[-1])
+    stamp = summary.get("plan_artifact") or {}
+    log(f"  (e) serve --from-plan: rc {rc_serve}, applied {stamp.get('applied')}, p99 "
+        f"{summary['p99_latency_ms']} ms")
+    check("23(e) serve --from-plan runs and stamps the artifact's provenance",
+          rc_serve == 0 and stamp.get("path") == plan_path and stamp.get("source_traces"),
+          f"{stamp}")
+    rc_t, t_out = _tool(trace_cli.main, [live["trace_dir"]])
+    rc_d, d_out = _tool(trace_cli.main, [selector["dirs"]["timit-ec2"], "--decisions"])
+    for line in (t_out.splitlines()[:8] + d_out.splitlines()):
+        log(f"      {line}")
+    check("23(e) tools.trace and tools.trace --decisions render", rc_t == 0 and rc_d == 0,
+          f"rc {rc_t}, {rc_d}")
+    replays = {}
+    for name, d in selector["dirs"].items():
+        fid = CapacityPlanner(obs.load_events(d)).fidelity()
+        replays[name] = (fid["num_reproduced"], fid["num_replayed"], fid["max_abs_log_error"])
+    log(f"  (e) selector traces replayed at 1x (reproduced, replayed, worst |log error|): "
+        f"{replays}")
+    check("23(e) every recorded selector decision replays to its winner",
+          all(r[0] == r[1] > 0 for r in replays.values()), f"{replays}")
+    return dict(plan_rc=rc, fidelity=fidelity, refused_rc=rc_refused, serve_summary=summary,
+                replays=replays, launches=_launch_delta(cuda_ops, before))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6036,12 +6774,15 @@ def main():
     sketch_counts, sketch_run = phase_sketch(cuda_ops, amazon)
     # Phase 21(c) holds the sparse disk fold to the bf16 gram engine's bits.
     amazon_gram_bf16, amazon_w_true = amazon["gram_bf16"], amazon["w_true"]
+    control_refs = dict(amazon=amazon["by_engine"],
+                        amazon_gather_scale=float(amazon["gather"].x.abs().max()))
     del amazon
     torch.cuda.empty_cache()
     phase("10", "the block update's sym=False route at TIMIT width")
     sym_counts, sym_run = phase_sym_false(cuda_ops)
     phase("11", "TIMIT --solver auto on both sides of the memory wall")
     auto_res, auto_wall = phase_auto(cuda_ops, timit, TimitConfig, stacked_model[0])
+    control_refs["timit_test_error"] = auto_res["test_error"]
     phase("12", "TIMIT --solver auto at the reference's default width: the block-streamed "
           "tier")
     phase_block_small(cuda_ops)
@@ -6133,6 +6874,32 @@ def main():
     zoo["cold_start"] = phase_zoo_cold_start(zoo_blobs, pool)
     zoo["cli"] = phase_zoo_cli(cuda_ops)
     zoo["autoscale"] = phase_autoscale(zoo_blobs, pool, smi)
+    phase("23", "the control plane: the cost-weight sweep, calibration and the H100 refit, the "
+          "selector on the card, the live exporter, the capacity planner")
+    control_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                f"phase23-{os.getpid()}")
+    os.makedirs(control_root, exist_ok=True)
+    cuda_ops.reset_launch_counts()
+    try:
+        control = dict(sweep=phase_control_sweep(cuda_ops, control_root))
+        control["calibrate"] = phase_control_calibrate(control["sweep"], control_root)
+        control["selector"] = phase_control_selector(cuda_ops, timit, TimitConfig,
+                                                     control["sweep"], control["calibrate"],
+                                                     control_refs, control_root)
+        control["live"] = phase_control_live(cuda_ops, zoo_blobs[0], control_root)
+        control["plan"] = phase_control_plan(cuda_ops, control["live"], control["selector"],
+                                             control_root)
+    finally:
+        shutil.rmtree(control_root, ignore_errors=True)
+    # The launches that held kernels to their plain versions are not the
+    # control plane's.
+    control_counts = {k: v - CONTROL_CHECK_LAUNCHES.get(k, 0)
+                      for k, v in cuda_ops.launches.items()}
+    control["launches"] = {k: v for k, v in control_counts.items() if v}
+    control["check_launches"] = dict(CONTROL_CHECK_LAUNCHES)
+    control["sweep"].pop("dir")
+    log(f"  phase 23 launches: {control['launches']}, and {CONTROL_CHECK_LAUNCHES} holding "
+        f"kernels to their plain versions ({smi})")
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -6166,6 +6933,9 @@ def main():
     for entry in kernels:
         if entry["name"] in ("cosine_features", ROW_STABLE):
             entry["zoo_launches"] = zoo["paging"]["launches"][entry["name"]]
+    # The control plane's launches (the whole of phase 23).
+    for entry in kernels:
+        entry["control_launches"] = control_counts[entry["name"]]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -6173,7 +6943,7 @@ def main():
                  VOC: voc_run, IMAGENET: imagenet_run, "cifar runners (apply first)": runners,
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
-                 SERVING: serving, LEARN: learn, DISK: disk, ZOO: zoo,
+                 SERVING: serving, LEARN: learn, DISK: disk, ZOO: zoo, CONTROL: control,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

@@ -16,15 +16,28 @@
   - :mod:`~keystone_tpu_torch.obs.flight` — the flight recorder: a bounded
     ring of recent events that fault paths (worker death, breaker opens,
     watchdog evictions) dump alongside the exception.
-
-The reference's cost-model calibration plane (``obs/calibrate.py``) and
-its live Prometheus exporter (``obs/live.py``) are not ported yet.
+  - :mod:`~keystone_tpu_torch.obs.calibrate` — the cost-model calibration
+    plane: joins every ``cost.decision`` with the measured seconds of the
+    work it priced, reports prediction error by engine and weight family,
+    flags mis-routes with their regret, refits the weight family
+    (``KEYSTONE_COST_WEIGHTS=calibrated:<artifact>``) and gates on drift
+    (``python -m keystone_tpu_torch.tools.calibrate``).
+  - :mod:`~keystone_tpu_torch.obs.live` — the live exporter: Prometheus
+    text over HTTP and atomic JSON snapshots while a server runs.
 
 Activation: ``KEYSTONE_TRACE=dir`` env knob, ``run.py --trace=dir``, or
 ``with obs.tracing(dir):`` in code. This package imports no torch: the
 serving plane's submitter threads report into it.
 """
 
+from keystone_tpu_torch.obs.calibrate import (
+    calibration_report,
+    drift_gate,
+    join_decisions,
+    load_calibration_artifact,
+    refit,
+    write_calibration_artifact,
+)
 from keystone_tpu_torch.obs.export import (
     load_events,
     to_chrome_trace,
@@ -37,6 +50,7 @@ from keystone_tpu_torch.obs.flight import (
     flight_snapshot,
     render_flight_record,
 )
+from keystone_tpu_torch.obs.live import LiveExporter, render_prometheus
 from keystone_tpu_torch.obs.metrics import (  # noqa: F401 — METRIC_* re-exported
     BucketedHistogram,
     MetricsRegistry,
@@ -70,6 +84,7 @@ __all__ = [
     "CostDecision",
     "CostOutcomeRef",
     "FlightRecorder",
+    "LiveExporter",
     "MetricsRegistry",
     "STATE_BREACH",
     "STATE_OK",
@@ -80,14 +95,21 @@ __all__ = [
     "TailSampler",
     "Tracer",
     "active_tracer",
+    "calibration_report",
     "counter_track",
+    "drift_gate",
     "enabled",
     "event",
     "flight_note",
     "flight_snapshot",
+    "join_decisions",
+    "load_calibration_artifact",
     "load_events",
     "record_cost_decision",
+    "refit",
+    "write_calibration_artifact",
     "render_flight_record",
+    "render_prometheus",
     "span",
     "to_chrome_trace",
     "tracing",

@@ -13,21 +13,26 @@ of what is left; when nothing fits, the least-resident candidate.
 
 Differences from the reference:
 
-  - the weights are the reference's EC2 cluster family (cpu 3.8e-4, mem
-    2.9e-1, network 1.32, and the engines' random-access overheads), the
-    reference's ``KEYSTONE_COST_WEIGHTS=ec2``. Its default ``TPU_*``
-    constants are rates measured on a TPU and are not carried over; an
-    H100 refit comes with the calibration plane (``obs/calibrate.py``,
-    ROADMAP A.17), and with it a weight-family switch;
+  - the default weight family is the reference's EC2 cluster family (cpu
+    3.8e-4, mem 2.9e-1, network 1.32, and the engines' random-access
+    overheads), the reference's ``KEYSTONE_COST_WEIGHTS=ec2``; the
+    reference's default is its TPU family. ``KEYSTONE_COST_WEIGHTS``
+    selects as in the reference: ``ec2``, ``tpu`` (the reference's TPU
+    constants, carried only so that traces priced under them read the same
+    in the port: they are rates of a TPU, not of the card) or
+    ``calibrated:<artifact.json>``, a refit written by the calibration
+    plane (``obs/calibrate.py``; ``scripts/torch_fit_cost_weights.py`` fits
+    one from fits timed on the card). An artifact's null overhead falls
+    back to the EC2 constant (the reference's, to its TPU one);
   - ``num_machines`` defaults to 1 (the port runs on one device; the mesh
     is ROADMAP A.15), and the device budget is the CUDA device's total
     memory (the counterpart of the reference's ``bytes_limit``). Every
     tier the streaming choice prices runs: past the gram tier's wall a
     cosine bank's fit takes the block-streamed tier, on one device;
-  - the decision is recorded on the estimator as ``last_decision`` and
-    logged, where the reference emits it through ``obs`` and the
-    ``PlacementEngine`` stream (A.17); ``choose_image_tier`` returns its
-    decision the same way;
+  - beside the reference's ``cost.decision`` event and ``PlacementEngine``
+    mirror, the decision is also kept on the estimator as
+    ``last_decision``; ``choose_image_tier`` returns its decision as a dict
+    (the reference returns the event's outcome reference);
   - ``choose_mesh_layout`` (A.15) is not ported.
 
 A shard-backed input (the sample collector's ``shard_backed`` fact) prices
@@ -46,9 +51,11 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from keystone_tpu_torch import obs
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import tree_leaves
 from keystone_tpu_torch.ops.sparse import Densify, Sparsify, is_sparse_dataset
+from keystone_tpu_torch.placement.engine import KIND_IMAGE_TIER, KIND_SOLVER, PlacementEngine
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 from keystone_tpu_torch.workflow.optimizable import OptimizableLabelEstimator
 
@@ -56,49 +63,162 @@ logger = logging.getLogger("keystone_tpu_torch.cost")
 
 # Reference cluster cost weights (LeastSquaresEstimator.scala:28-31; fit on
 # a 2015 16-node r3.4xlarge cluster), with the reference's EC2 random-access
-# multipliers of the sparse gather pass and the two sketch passes on the
-# sequential mem rate.
+# multipliers of the sparse gather pass, the two sketch passes, the image
+# tier's host decode and the zoo's tenant page-in on the sequential mem
+# rate. The port's default family.
 EC2_CPU_WEIGHT = 3.8e-4
 EC2_MEM_WEIGHT = 2.9e-1
 EC2_NETWORK_WEIGHT = 1.32
 EC2_SPARSE_GATHER_OVERHEAD = 8.0
 EC2_SRHT_SKETCH_OVERHEAD = 10.0
 EC2_COUNTSKETCH_OVERHEAD = 6.0
-
-# The reference's EC2 random-access multiplier of the zoo's tenant page-in
-# pass (spill decode + CRC + rebuild), which the placement engine prices.
-EC2_ZOO_PAGE_OVERHEAD = 2.0
-# The reference's EC2 random-access multiplier of the image tier's host
-# decode pass, which ``choose_image_tier`` prices.
 EC2_IMAGE_DECODE_OVERHEAD = 4.0
-# The name of the one weight family above, as decisions record it.
-WEIGHTS_FAMILY = "ec2"
+EC2_ZOO_PAGE_OVERHEAD = 2.0
+
+# The reference's TPU family (its ``cost.py:126-171``), fit there from a
+# TPU's device time. Carried only so that a trace priced under
+# ``KEYSTONE_COST_WEIGHTS=tpu`` (the reference's default) re-prices the
+# same in the port; these are not rates of the card.
+TPU_CPU_WEIGHT = 3.8e-15
+TPU_MEM_WEIGHT = 1.9e-11
+TPU_NETWORK_WEIGHT = 1.0e-11
+TPU_SPARSE_GATHER_OVERHEAD = 500.0
+TPU_SRHT_SKETCH_OVERHEAD = 650.0
+TPU_COUNTSKETCH_OVERHEAD = 250.0
+TPU_IMAGE_DECODE_OVERHEAD = 200.0
+TPU_ZOO_PAGE_OVERHEAD = 50.0
+
+# Weight-family spec for trace-calibrated constants:
+# KEYSTONE_COST_WEIGHTS=calibrated:<path> points at a refit artifact written
+# by the calibration plane (obs/calibrate.py).
+CALIBRATED_PREFIX = "calibrated:"
+
+# Loaded artifacts by path -> (mtime, weights dict): a selector reading the
+# env at each construction must not re-read and re-validate the JSON every
+# time, but an artifact refit in place must be picked up.
+_CALIBRATED_CACHE: dict = {}
+
+_FAMILIES = {
+    "ec2": {
+        "cpu": EC2_CPU_WEIGHT, "mem": EC2_MEM_WEIGHT, "network": EC2_NETWORK_WEIGHT,
+        "sparse_gather_overhead": EC2_SPARSE_GATHER_OVERHEAD,
+        "srht_sketch_overhead": EC2_SRHT_SKETCH_OVERHEAD,
+        "countsketch_overhead": EC2_COUNTSKETCH_OVERHEAD,
+        "image_decode_overhead": EC2_IMAGE_DECODE_OVERHEAD,
+        "zoo_page_overhead": EC2_ZOO_PAGE_OVERHEAD,
+    },
+    "tpu": {
+        "cpu": TPU_CPU_WEIGHT, "mem": TPU_MEM_WEIGHT, "network": TPU_NETWORK_WEIGHT,
+        "sparse_gather_overhead": TPU_SPARSE_GATHER_OVERHEAD,
+        "srht_sketch_overhead": TPU_SRHT_SKETCH_OVERHEAD,
+        "countsketch_overhead": TPU_COUNTSKETCH_OVERHEAD,
+        "image_decode_overhead": TPU_IMAGE_DECODE_OVERHEAD,
+        "zoo_page_overhead": TPU_ZOO_PAGE_OVERHEAD,
+    },
+}
+# The family an artifact's null overhead falls back to: the port's default.
+_DEFAULT_FAMILY = "ec2"
+
+
+def _calibrated_weights(path: str) -> dict:
+    try:
+        mtime = os.stat(path).st_mtime_ns
+    except OSError as e:
+        raise ValueError(
+            f"KEYSTONE_COST_WEIGHTS={CALIBRATED_PREFIX}{path}: artifact "
+            f"is unreadable: {e}"
+        ) from e
+    cached = _CALIBRATED_CACHE.get(path)
+    if cached is not None and cached[0] == mtime:
+        return cached[1]
+    from keystone_tpu_torch.obs.calibrate import load_calibration_artifact
+
+    weights = dict(load_calibration_artifact(path)["weights"])
+    _CALIBRATED_CACHE[path] = (mtime, weights)
+    return weights
+
+
+def _parse_weights_env() -> Tuple[str, Optional[str]]:
+    """Parse ``KEYSTONE_COST_WEIGHTS`` into (family, artifact_path).
+
+    Accepted (the family part case-insensitive, an artifact path keeping
+    its case): unset or empty or ``ec2`` -> the EC2 constants, ``tpu`` ->
+    the reference's TPU constants, ``calibrated:<path>`` -> a refit
+    artifact. Anything else raises naming the variable: a mistyped family
+    must not silently select the default and mis-price every decision."""
+    raw = os.environ.get("KEYSTONE_COST_WEIGHTS", "").strip()
+    low = raw.lower()
+    if not raw or low == "ec2":
+        return "ec2", None
+    if low == "tpu":
+        return "tpu", None
+    if low.startswith(CALIBRATED_PREFIX):
+        return "calibrated", raw[len(CALIBRATED_PREFIX):]
+    raise ValueError(
+        f"KEYSTONE_COST_WEIGHTS={raw!r}: expected 'ec2', 'tpu' or "
+        f"'calibrated:<artifact.json>'"
+    )
 
 
 def weights_family_name() -> str:
-    """The weight family the port prices with: ``ec2`` (the reference's
-    ``KEYSTONE_COST_WEIGHTS=ec2``; its TPU and calibrated families are not
-    carried over)."""
-    return WEIGHTS_FAMILY
+    """The active weight family's name: ``ec2`` (the default), ``tpu`` or
+    ``calibrated``, what decision audits and calibration reports record as
+    provenance."""
+    return _parse_weights_env()[0]
+
+
+def _active(key: str) -> float:
+    family, path = _parse_weights_env()
+    if family == "calibrated":
+        v = _calibrated_weights(path).get(key)
+        return float(v) if v is not None else _FAMILIES[_DEFAULT_FAMILY][key]
+    return _FAMILIES[family][key]
 
 
 def active_weights() -> Tuple[float, float, float]:
-    """The selector's (cpu, mem, network) weights: the reference's EC2
-    cluster constants (reference ``cost.py:239`` under
-    ``KEYSTONE_COST_WEIGHTS=ec2``)."""
-    return EC2_CPU_WEIGHT, EC2_MEM_WEIGHT, EC2_NETWORK_WEIGHT
+    """The selector's (cpu, mem, network) weights under the family
+    ``KEYSTONE_COST_WEIGHTS`` selects (the EC2 constants by default); a
+    malformed or missing artifact, or an unknown family, raises naming the
+    variable rather than mis-pricing silently."""
+    return _active("cpu"), _active("mem"), _active("network")
 
 
-def zoo_page_overhead() -> float:
-    """Random-access multiplier of the zoo's tenant page-in pass under the
-    EC2 family (reference ``cost.py:312``)."""
-    return EC2_ZOO_PAGE_OVERHEAD
+def sparse_gather_overhead() -> float:
+    """Random-access multiplier of the sparse gather engine's mem term under
+    the active family (an artifact's null falls back to the EC2 constant)."""
+    return _active("sparse_gather_overhead")
+
+
+def srht_sketch_overhead() -> float:
+    """Random-access multiplier of the SRHT engine's densify-scatter pass
+    under the active family."""
+    return _active("srht_sketch_overhead")
+
+
+def countsketch_overhead() -> float:
+    """Random-access multiplier of the IHS engine's CountSketch scatter-add
+    pass under the active family."""
+    return _active("countsketch_overhead")
 
 
 def image_decode_overhead() -> float:
     """Random-access multiplier of the image tier's host decode pass under
-    the EC2 family (reference ``cost.py:299``)."""
-    return EC2_IMAGE_DECODE_OVERHEAD
+    the active family (reference ``cost.py:299``)."""
+    return _active("image_decode_overhead")
+
+
+def zoo_page_overhead() -> float:
+    """Random-access multiplier of the zoo's tenant page-in pass (spill
+    decode + CRC + rebuild) under the active family (reference
+    ``cost.py:312``)."""
+    return _active("zoo_page_overhead")
+
+
+def _family_or_custom() -> str:
+    try:
+        return weights_family_name()
+    except ValueError:
+        return "custom"
 
 
 # Device-memory budget where the device reports none (the CPU).
@@ -141,21 +261,17 @@ def host_memory_bytes() -> int:
 def candidate_label(est) -> str:
     """Stable human-readable label of one solver candidate, disambiguating
     the engine and storage-class variants of one estimator type
-    (``solver=`` / ``compress=``)."""
+    (``solver=`` / ``compress=``, and the port's ``gram_dtype=`` where it
+    is set: the bf16 and f32 gram engines are priced alike but do not run
+    alike, so a measured row must say which one ran). The
+    selector's candidates set no ``gram_dtype``: their labels are the
+    reference's."""
     name = type(est).__name__
     qual = [
-        str(v) for v in (getattr(est, "solver", None), getattr(est, "compress", None)) if v
+        str(v) for v in (getattr(est, "solver", None), getattr(est, "compress", None),
+                         getattr(est, "gram_dtype", None)) if v
     ]
     return name + (f"[{','.join(qual)}]" if qual else "")
-
-
-def _decide(costs: Sequence[float], resident: Sequence[float]) -> Tuple[int, str]:
-    """The reference's ``PlacementEngine.decide`` with the least-resident
-    fallback: the first minimum of the costs (``int(np.argmin)``), or, when
-    every cost is infinite, the first candidate of least resident bytes."""
-    if all(c == float("inf") for c in costs):
-        return min(range(len(resident)), key=resident.__getitem__), "least_resident_fallback"
-    return min(range(len(costs)), key=costs.__getitem__), "argmin"
 
 
 IMAGE_TIERS = ("resident", "resident_u8", "disk_shards")
@@ -185,11 +301,13 @@ def choose_image_tier(
         write and the re-read.
 
     Returns ``(tier_name, decision)``, the decision a dict of the priced
-    candidates (the reference returns a tracer outcome reference; the
-    port's decisions are dicts, as ``LeastSquaresEstimator.last_decision``).
-    Raises when no tier fits.
+    candidates; the same decision is emitted as a ``cost.decision`` event
+    (``decision="image_tier"``) and its ``placement.decision`` mirror (the
+    reference returns the event's outcome reference). Raises when no tier
+    fits.
     """
     cpu_w, mem_w, net_w = active_weights()
+    family = _family_or_custom()
     if host_budget_bytes is not None:
         budget = float(host_budget_bytes)
     else:
@@ -220,32 +338,40 @@ def choose_image_tier(
             f"(even {prefetch_depth + 1} staged segments of "
             f"{seg_bytes:.3g} B); shrink images_per_segment"
         )
-    index, reason = _decide(costs, [resident_bytes[t] for t in IMAGE_TIERS])
-    winner = IMAGE_TIERS[index]
+    candidates = [
+        {
+            "label": t,
+            "cost_s": None if c == float("inf") else float(c),
+            "feasible": c != float("inf"),
+            "resident_bytes": float(resident_bytes[t]),
+            "chip_resident": False,  # the image tier is host-side
+            "host_ok": resident_bytes[t] <= budget,
+        }
+        for t, c in zip(IMAGE_TIERS, costs)
+    ]
+    context = {
+        "n": n, "d": int(d), "k": int(k),
+        "images_per_segment": int(images_per_segment),
+        "prefetch_depth": int(prefetch_depth),
+        "host_budget_bytes": float(budget),
+    }
+    # The placement mirror: its first minimum is the first minimum of the
+    # tiers in order.
+    choice = PlacementEngine(weights_family=family).decide(
+        KIND_IMAGE_TIER, candidates, context=context,
+    )
+    winner = IMAGE_TIERS[choice.index]
     decision = {
         "decision": "image_tier",
         "winner": winner,
-        "candidates": [
-            {
-                "label": t,
-                "cost_s": None if c == float("inf") else float(c),
-                "feasible": c != float("inf"),
-                "resident_bytes": float(resident_bytes[t]),
-                "chip_resident": False,  # the image tier is host-side
-                "host_ok": resident_bytes[t] <= budget,
-            }
-            for t, c in zip(IMAGE_TIERS, costs)
-        ],
-        "reason": reason,
+        "candidates": candidates,
+        "reason": "argmin",
         "context": {
-            "n": n, "d": int(d), "k": int(k),
-            "images_per_segment": int(images_per_segment),
-            "prefetch_depth": int(prefetch_depth),
-            "host_budget_bytes": float(budget),
-            "weights": {"cpu": cpu_w, "mem": mem_w, "network": net_w,
-                        "family": weights_family_name()},
+            **context,
+            "weights": {"cpu": cpu_w, "mem": mem_w, "network": net_w, "family": family},
         },
     }
+    obs.record_cost_decision(obs.CostDecision(**decision))
     logger.info("image tier decision: %s", decision)
     return winner, decision
 
@@ -334,9 +460,13 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
     (n, d, k, sparsity) from the sample and picks the cost-model argmin
     among candidates whose resident operands fit the device-memory budget
     and whose dataset fits the host budget: past the device wall, the
-    streaming tier is the only candidate that can run at all. The decision
-    (candidates with cost, feasibility and resident bytes; winner; reason;
-    context) is kept as ``last_decision`` and logged.
+    streaming tier is the only candidate that can run at all. The weights
+    are the active family's (``KEYSTONE_COST_WEIGHTS``) unless passed. The
+    decision (candidates with cost, feasibility and resident bytes; winner;
+    reason; context) is emitted as a ``cost.decision`` event with its
+    ``placement.decision`` mirror, kept as ``last_decision`` and logged; the
+    chosen estimator carries the event's ``_pending_cost_outcome``, which
+    its fit stamps with the measured seconds (``workflow/pipeline.py``).
     """
 
     def __init__(
@@ -348,6 +478,9 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         host_budget_bytes: Optional[float] = None,
         block_size: int = 1000,
         block_iters: int = 3,
+        cpu_weight: Optional[float] = None,
+        mem_weight: Optional[float] = None,
+        network_weight: Optional[float] = None,
     ):
         from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
         from keystone_tpu_torch.ops.learning.lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
@@ -361,6 +494,12 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         self.num_machines = num_machines
         self.hbm_bytes = hbm_bytes
         self.host_budget_bytes = host_budget_bytes
+        # None -> the active weight family, resolved at construction so one
+        # estimator's ranking is stable if the env changes mid-process.
+        a_cpu, a_mem, a_net = active_weights()
+        self.cpu_weight = a_cpu if cpu_weight is None else cpu_weight
+        self.mem_weight = a_mem if mem_weight is None else mem_weight
+        self.network_weight = a_net if network_weight is None else network_weight
         self.last_decision: Optional[dict] = None
 
         dense_lbfgs = DenseLBFGSwithL2(lam=lam, num_iterations=20)
@@ -506,10 +645,15 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
                 return float("inf")
             return opt[0].cost(
                 n, d, k, sparsity, machines,
-                EC2_CPU_WEIGHT, EC2_MEM_WEIGHT, EC2_NETWORK_WEIGHT,
+                self.cpu_weight, self.mem_weight, self.network_weight,
             )
 
         costs = [total_cost(opt) for opt in self.options]
+        my_weights = (self.cpu_weight, self.mem_weight, self.network_weight)
+        try:
+            family = weights_family_name() if my_weights == active_weights() else "custom"
+        except ValueError:  # an artifact broken mid-process
+            family = "custom"
         candidates = [
             {
                 "label": candidate_label(o[0]),
@@ -520,26 +664,34 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
             }
             for o, c in zip(self.options, costs)
         ]
-        index, reason = _decide(costs, [c["resident_bytes"] for c in candidates])
-        chosen = self.options[index]
+        context = {
+            "n": int(n), "d": int(d), "k": int(k),
+            "sparsity": float(sparsity), "machines": int(machines),
+            "hbm_budget_bytes": float(budget),
+            "host_budget_bytes": float(host_budget),
+            "shard_backed": shard_backed,
+        }
+        # The placement engine resolves the first minimum (int(np.argmin))
+        # and, when every candidate is infeasible, the first of least
+        # resident bytes; it also writes the placement.decision mirror.
+        choice = PlacementEngine(weights_family=family).decide(
+            KIND_SOLVER, candidates, context=context, fallback="least_resident",
+        )
+        chosen = self.options[choice.index]
         self.last_decision = {
             "decision": "least_squares_solver",
             "winner": candidate_label(chosen[0]),
             "candidates": candidates,
-            "reason": reason,
+            "reason": choice.reason,
             "context": {
-                "n": int(n), "d": int(d), "k": int(k),
-                "sparsity": float(sparsity), "machines": int(machines),
-                "hbm_budget_bytes": float(budget),
-                "host_budget_bytes": float(host_budget),
-                "shard_backed": shard_backed,
+                **context,
                 "weights": {
-                    "cpu": EC2_CPU_WEIGHT, "mem": EC2_MEM_WEIGHT,
-                    "network": EC2_NETWORK_WEIGHT, "family": "ec2",
+                    "cpu": self.cpu_weight, "mem": self.mem_weight,
+                    "network": self.network_weight, "family": family,
                 },
             },
         }
-        if reason == "least_resident_fallback":
+        if choice.reason == "least_resident_fallback":
             # Nothing fits the budget model: the least-resident candidate
             # (in practice the streaming tier) beats a guaranteed OOM.
             logger.warning(
@@ -548,4 +700,10 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
                 budget / 2**30, n, d, type(chosen[0]).__name__,
             )
         logger.info("LeastSquaresEstimator decision: %s", self.last_decision)
+        # The audit event, and the pending back-annotation: whoever fits the
+        # winner (the executor's fit_datasets, or a fused streamed fit that
+        # inherits the reference) stamps the measured seconds onto it.
+        chosen[1]._pending_cost_outcome = obs.record_cost_decision(
+            obs.CostDecision(**self.last_decision)
+        )
         return chosen[1]

@@ -33,8 +33,9 @@ uninterrupted fold's bits.
 
 Waiting in ROADMAP: the hybrid resident + streamed tail
 (``run_lbfgs_gram_hybrid``, item 7) and the mesh folds (A.15). ``cost`` and ``resident_bytes`` price with
-``cost.py``'s EC2 weights (the gather engine's overhead 8.0); the H100
-refit of those weights comes with the calibration plane (A.17).
+the gather overhead of the weight family active at construction
+(``cost.py``; EC2 by default, 8.0); the calibration plane refits it from
+fits timed on the card (``scripts/torch_fit_cost_weights.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ import torch
 from keystone_tpu_torch import obs, resolve_device
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
-from keystone_tpu_torch.ops.learning.cost import EC2_SPARSE_GATHER_OVERHEAD, CostModel
+from keystone_tpu_torch.ops.learning.cost import CostModel, sparse_gather_overhead
 from keystone_tpu_torch.ops.learning.linear import LinearMapper, SparseLinearMapper
 from keystone_tpu_torch.ops.sparse import (
     _coo,
@@ -189,22 +190,26 @@ def _lbfgs_quad_loop(hvp, AtB, W0, num_iterations: int, tol: float):
     rho = torch.zeros((history,), dtype=dtype, device=device)
     count = 0
     gnorm = torch.linalg.norm(grad)
-    while count < num_iterations and float(gnorm) > tol:
-        p = direction(grad, S, Yh, rho, count)
-        Hp = hvp(p)
-        denom = vdot(p, Hp)
-        alpha = torch.where(denom > 0, -vdot(grad, p) / denom, zero)
-        s = alpha * p
-        y = alpha * Hp  # grad(W + s) − grad(W) for the quadratic
-        W = W + s
-        grad = grad + y
-        slot = count % history
-        sy = vdot(s, y)
-        S[slot] = s
-        Yh[slot] = y
-        rho[slot] = torch.where(sy > 0, 1.0 / sy, zero)
-        count += 1
-        gnorm = torch.linalg.norm(grad)
+    # The span records the iterations the stop test let run (the loop reads
+    # the gradient norm each iteration, so its wall is the device's too).
+    with obs.span("lbfgs.solve", d=int(d), k=int(k)) as span:
+        while count < num_iterations and float(gnorm) > tol:
+            p = direction(grad, S, Yh, rho, count)
+            Hp = hvp(p)
+            denom = vdot(p, Hp)
+            alpha = torch.where(denom > 0, -vdot(grad, p) / denom, zero)
+            s = alpha * p
+            y = alpha * Hp  # grad(W + s) − grad(W) for the quadratic
+            W = W + s
+            grad = grad + y
+            slot = count % history
+            sy = vdot(s, y)
+            S[slot] = s
+            Yh[slot] = y
+            rho[slot] = torch.where(sy > 0, 1.0 / sy, zero)
+            count += 1
+            gnorm = torch.linalg.norm(grad)
+        span.set(iterations=count)
     return W
 
 
@@ -470,7 +475,7 @@ def run_lbfgs_gram_streamed(
         cid0 + rel, and ids past the end fold zeros."""
         nonlocal carry
         t0 = time.perf_counter()
-        with obs.span("fold.segment", segment=int(s)):
+        with obs.span("fold.segment", segment=int(s)) as span:
             def chunk(rel):
                 indices, values, Yc = chunk_at(rel)
                 if cid0 + rel >= num_chunks:
@@ -479,6 +484,10 @@ def run_lbfgs_gram_streamed(
 
             carry = sparse_gram_fold(carry, range(seg), chunk, d, k,
                                      val_dtype=val_dtype, pipeline=pipeline)
+            if carry[0].is_cuda:
+                # The span closes when the launches are queued, not done
+                # (obs/calibrate.py keeps such rows out of the refit).
+                span.set(queued=True)
             if segment_source is not None and carry[0].is_cuda:
                 # At most `inflight` segments queued ahead of the card.
                 done = torch.cuda.Event()
@@ -521,6 +530,12 @@ def _gram_solve(carry, d: int, k: int, lam, num_iterations, convergence_tol, n):
                             convergence_tol, n)
 
 
+# The most padded-COO lanes (rows x width) a gram-fit chunk holds: 2^28,
+# about 3 GB of densify-sort temporaries. Rows up to 4,096 lanes wide keep
+# the full gram_chunk_rows.
+_GRAM_CHUNK_LANES = 1 << 28
+
+
 class SparseLBFGSwithL2(LabelEstimator, CostModel):
     """Sparse-input L-BFGS ridge solver (reference: LBFGS.scala:208-281).
 
@@ -550,8 +565,8 @@ class SparseLBFGSwithL2(LabelEstimator, CostModel):
 
     # The reference's calibration of the gram engine against the gather
     # engine (fold + 20 iterations ≈ 4.5 gather iterations), kept so the
-    # port's cost matches the reference's; the H100 value comes with the
-    # refit of the cost weights (ROADMAP A.17).
+    # port's cost matches the reference's; the calibration plane's refit
+    # does not fit it (ROADMAP A.17b).
     _GRAM_FOLD_ITER_EQUIV = 4.5
 
     def __init__(
@@ -590,7 +605,7 @@ class SparseLBFGSwithL2(LabelEstimator, CostModel):
         self.compress = compress
         self.gram_chunk_rows = gram_chunk_rows
         self.gram_dtype = gram_dtype
-        self._sparse_overhead = EC2_SPARSE_GATHER_OVERHEAD
+        self._sparse_overhead = sparse_gather_overhead()
 
     @property
     def weight(self) -> int:
@@ -635,7 +650,11 @@ class SparseLBFGSwithL2(LabelEstimator, CostModel):
         compressed-resident tier's."""
         from keystone_tpu_torch.data.resident import CompressedCOOChunks, raw_chunk_tiles
 
-        c = min(self.gram_chunk_rows, idx1.shape[0])
+        # Wide rows (a dense matrix in padded-COO form: the selector's
+        # Sparsify chains on dense features) take shorter chunks, so that a
+        # chunk's densify sort stays near _GRAM_CHUNK_LANES lanes.
+        c = min(self.gram_chunk_rows, idx1.shape[0],
+                max(_GRAM_CHUNK_LANES // max(int(idx1.shape[1]), 1), 1))
         if self.compress == "int16_bf16":
             chunks = CompressedCOOChunks.encode(idx1, val1, B, chunk_rows=c, d=d1, n_true=n)
             operands = chunks.operands()

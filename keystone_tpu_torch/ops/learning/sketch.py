@@ -49,9 +49,9 @@ scatter, the dense IHS's segment sum) adds in atomic order, so two card
 fits of one seed agree to float reassociation, not bit for bit; the
 CountSketch kernel and everything on the CPU are reproducible bit for bit.
 
-``cost`` and ``resident_bytes`` price with the reference's EC2 weight
-family as ``cost.py`` holds it (SRHT 10.0, CountSketch 6.0, gather 8.0),
-never its TPU constants; ``cost.LeastSquaresEstimator`` offers these
+``cost`` and ``resident_bytes`` price with the overheads of the weight
+family active at construction (``cost.py``; EC2 by default: SRHT 10.0,
+CountSketch 6.0, gather 8.0); ``cost.LeastSquaresEstimator`` offers these
 engines under ``allow_approximate``.
 """
 
@@ -68,10 +68,10 @@ from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
 from keystone_tpu_torch.ops.learning.cost import (
-    EC2_COUNTSKETCH_OVERHEAD,
-    EC2_SPARSE_GATHER_OVERHEAD,
-    EC2_SRHT_SKETCH_OVERHEAD,
     CostModel,
+    countsketch_overhead,
+    sparse_gather_overhead,
+    srht_sketch_overhead,
 )
 from keystone_tpu_torch.ops.learning.linear import LinearMapper, SparseLinearMapper
 from keystone_tpu_torch.ops.sparse import (
@@ -231,8 +231,8 @@ class SketchedLeastSquares(LabelEstimator, CostModel):
         self.chunk_rows = chunk_rows
         self.num_features = num_features
         self.draws = draws
-        self._sketch_overhead = EC2_SRHT_SKETCH_OVERHEAD
-        self._gather_overhead = EC2_SPARSE_GATHER_OVERHEAD
+        self._sketch_overhead = srht_sketch_overhead()
+        self._gather_overhead = sparse_gather_overhead()
 
     @property
     def weight(self) -> int:
@@ -422,8 +422,8 @@ class IterativeHessianSketch(LabelEstimator, CostModel):
         self.draws = draws
         self.passes = 0
         self.steps = 0
-        self._cs_overhead = EC2_COUNTSKETCH_OVERHEAD
-        self._gather_overhead = EC2_SPARSE_GATHER_OVERHEAD
+        self._cs_overhead = countsketch_overhead()
+        self._gather_overhead = sparse_gather_overhead()
 
     @property
     def weight(self) -> int:

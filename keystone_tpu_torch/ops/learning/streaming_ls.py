@@ -34,9 +34,9 @@ with no term in n. ``BlockStreamedLeastSquares`` materializes a
 shard-backed input, as the reference's does: its residual sweep
 re-featurizes the raw rows every block step.
 
-Not ported yet: the mesh form of the block-streamed tier for A.15, and the
-cost-decision audit (``obs.record_cost_decision``; the tier decision is
-logged instead) for the control plane (A.17).
+The tier decision is audited as a ``cost.decision`` event
+(``decision="streaming_tier"``), as in the reference. Not ported yet: the
+mesh form of the block-streamed tier (A.15).
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from keystone_tpu_torch import obs
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
@@ -468,9 +469,8 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
     def build_estimator(self, featurize, d_feat: int):
         """The gram tier, with float32 feature tiles sized to ``slab_bytes``,
         where its Gramian fits the budget; else, for a cosine bank, the
-        block-streamed tier. The decision is logged (the reference audits
-        it, ``obs.record_cost_decision``; the obs plane comes with the
-        control plane, ROADMAP A.17)."""
+        block-streamed tier. The decision is emitted as a
+        ``cost.decision`` event and logged."""
         gram_ok = self._gram_tier_ok(d_feat)
         bank = isinstance(featurize, CosineBankFeaturize)
         winner, reason = (
@@ -482,6 +482,20 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
             "streaming tier: %s (%s), d_feat=%d, budget %s B, featurize %s",
             winner, reason, d_feat, self.budget_bytes, type(featurize).__name__,
         )
+        obs.record_cost_decision(obs.CostDecision(
+            decision="streaming_tier",
+            winner=winner,
+            candidates=[
+                {"label": "gram", "feasible": gram_ok},
+                {"label": "block", "feasible": bank},
+            ],
+            reason=reason,
+            context={
+                "d_feat": int(d_feat),
+                "budget_bytes": self.budget_bytes,
+                "featurize": type(featurize).__name__,
+            },
+        ))
         if winner == "block":
             return BlockStreamedLeastSquares(
                 featurize, d_feat=d_feat, block_size=self._block_tier_bs(d_feat),
@@ -505,7 +519,15 @@ class StreamingLeastSquaresChoice(LabelEstimator, CostModel):
         )
 
     def fuse_with_members(self, members) -> "StreamedFitEstimator":
-        return StreamedFitEstimator(members, self)
+        fused = StreamedFitEstimator(members, self)
+        # A pending cost-decision back-annotation (cost.py's optimize)
+        # follows the fit to where it runs: the fused estimator replaces this
+        # choice in the graph, so its fit stamps the measured seconds.
+        ref = getattr(self, "_pending_cost_outcome", None)
+        if ref is not None:
+            fused._pending_cost_outcome = ref
+            self._pending_cost_outcome = None
+        return fused
 
     def fit_source(self, data: Dataset, labels: Dataset, featurize, d_feat: int):
         """The disk tier: fold the normal equations over prefetched shard

@@ -344,8 +344,34 @@ class Densify(Transformer):
         return densify_dataset(data, self.num_features)
 
 
+def padded_coo_rows(X: torch.Tensor, chunk_elements: int = 1 << 27):
+    """(indices, values) of the padded-COO form of the dense rows ``X`` on
+    ``X``'s device: each row's nonzero columns in ascending order, then -1
+    lanes with zero values, as wide as the densest row (at least 1) — the
+    reference's padded-COO layout. Rows are converted in chunks of about
+    ``chunk_elements`` elements."""
+    X = X.float()
+    n, d = X.shape
+    counts = (X != 0).sum(dim=1)
+    width = max(int(counts.max()) if n else 0, 1)
+    indices = torch.full((n, width), -1, dtype=torch.int32, device=X.device)
+    values = torch.zeros((n, width), dtype=torch.float32, device=X.device)
+    rows = max(1, chunk_elements // max(d, 1))
+    for lo in range(0, n, rows):
+        block = X[lo:lo + rows]
+        mask = block != 0
+        rank = torch.cumsum(mask, dim=1, dtype=torch.int32) - 1
+        r, c = torch.nonzero(mask, as_tuple=True)
+        slot = rank[r, c].long()
+        indices[lo + r, slot] = c.to(torch.int32)
+        values[lo + r, slot] = block[r, c]
+    return indices, values
+
+
 class Sparsify(Transformer):
-    """Dense batch -> padded-COO sparse batch (reference: Sparsify.scala:10-20)."""
+    """Dense batch -> padded-COO sparse batch (reference: Sparsify.scala:10-20).
+
+    Rows are converted on their own device by :func:`padded_coo_rows`."""
 
     def apply(self, x):
         if isinstance(x, dict) and "indices" in x and "values" in x:
@@ -359,16 +385,12 @@ class Sparsify(Transformer):
             # Already padded-COO (a Sparsify -> SparseLBFGS chain fitted on
             # sparse input): sparsifying is the identity.
             return data
-        X = np.asarray(as_tensor(data.array).float().cpu())
-        nnz_per_row = (X != 0).sum(axis=1)
-        width = max(int(nnz_per_row.max(initial=0)), 1)
-        n = X.shape[0]
-        indices = np.full((n, width), -1, dtype=np.int32)
-        values = np.zeros((n, width), dtype=np.float32)
-        for i in range(n):
-            idx = np.nonzero(X[i])[0][:width]
-            indices[i, : len(idx)] = idx
-            values[i, : len(idx)] = X[i][idx]
+        X = as_tensor(data.array)
+        indices, values = padded_coo_rows(X)
+        if not X.is_cuda:
+            # Host rows give host arrays, as the reference's loop does; rows
+            # on the card stay there for the fit.
+            indices, values = indices.numpy(), values.numpy()
         return Dataset({"indices": indices, "values": values}, n=data.n)
 
 

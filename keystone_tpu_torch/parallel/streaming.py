@@ -518,8 +518,11 @@ def streaming_bcd_fit_segments(
         stage=lambda payload: stage_segment(payload, device),
     ):
         t0 = time.perf_counter()
-        # The span covers the same region as the `compute` busy counter.
-        with obs.span("fold.segment", segment=int(s)):
+        # The span covers the same region as the `compute` busy counter; on
+        # the card it closes when the segment's launches are queued, not
+        # done (obs/calibrate.py keeps such rows out of the refit).
+        with obs.span("fold.segment", segment=int(s),
+                      **({"queued": True} if device.type == "cuda" else {})):
             X_seg, Y_seg, valid_rows = to_device_segment(staged, device, copy_stream)
             del staged
             if carry is None:

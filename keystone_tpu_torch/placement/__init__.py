@@ -3,8 +3,10 @@
 
 :mod:`keystone_tpu_torch.placement.engine` prices resource decisions
 from the cost model's weight family and emits the unified
-``placement.decision`` audit stream. The reference's capacity planner
-(``placement/planner.py``, ``bin/plan``) is not ported.
+``placement.decision`` audit stream;
+:mod:`keystone_tpu_torch.placement.planner` replays a recorded trace's
+decision streams and answers what-if questions
+(``python -m keystone_tpu_torch.tools.plan``).
 """
 
 from keystone_tpu_torch.placement.engine import (
@@ -22,6 +24,7 @@ from keystone_tpu_torch.placement.engine import (
     PlacementEngine,
     active_family,
 )
+from keystone_tpu_torch.placement.planner import CapacityPlanner, decision_rows
 
 __all__ = [
     "ALL_KINDS",
@@ -37,4 +40,6 @@ __all__ = [
     "PlacementChoice",
     "PlacementEngine",
     "active_family",
+    "CapacityPlanner",
+    "decision_rows",
 ]

@@ -46,10 +46,17 @@ on the replicated plane (replicas between ``--min-replicas`` and
 between actions). ``--tenants N`` or ``--tenant-spec FILE`` serves N
 tenants through the model zoo, one exported plan each, under a device
 budget of ``--zoo-budget-mb`` (0: every tenant fits; a budget that binds
-pages weights in and out). Serve runs on the CUDA device unless given
-``--device cpu``, and raises without one. The reference's ``--fleet``,
-``--from-plan`` and ``--metrics-port`` / ``--metrics-dir`` are not ported
-yet: argparse refuses them.
+pages weights in and out). ``--metrics-port P`` (0: an ephemeral port)
+serves Prometheus text (``/metrics``), ``/healthz`` and ``/snapshot.json``
+while the server runs, and ``--metrics-dir D`` writes atomic
+``live_metrics.json`` snapshots there every ``--metrics-interval-s``
+(``python -m keystone_tpu_torch.tools.slo D`` renders them).
+``--from-plan P.json`` consumes a ``python -m keystone_tpu_torch.tools.plan
+--apply`` artifact: serve flags left at their defaults are filled from its
+measured baseline, and the summary line stamps its provenance. Serve runs
+on the CUDA device unless given ``--device cpu``, and raises without one.
+The reference's ``--fleet`` (the process fleet, ROADMAP A.16d) is not
+ported yet: argparse refuses it.
 
 ``python -m keystone_tpu_torch.run learn [--input-dim 16 --out-dim 4
 --segments 24 --rate 200 --duration-s 8]`` runs the continuous-learning
@@ -57,8 +64,9 @@ loop: a trainer re-fits a linear model over arriving synthetic segments
 while two replicas serve Poisson load, and every candidate publishes
 through the lifecycle gate (finite weights, bucket bit identity, held-out
 quality), a canary and promotion; one summary line reports the books,
-the publications and the measured model staleness. On the CUDA device
-unless given ``--device cpu``.
+the publications and the measured model staleness. ``--metrics-port`` /
+``--metrics-dir`` / ``--metrics-interval-s`` publish the live plane as in
+``serve``. On the CUDA device unless given ``--device cpu``.
 
 Global flags (any pipeline, serve and learn), popped before the
 pipeline's own parser: ``--trace=DIR`` runs the invocation under the obs
@@ -204,6 +212,13 @@ def _serve(argv):
     parser.add_argument("--slo-target", type=float, default=0.99,
                         help="good-fraction target of the latency "
                         "objective (error budget = 1 - target)")
+    _add_metrics_flags(parser)
+    parser.add_argument("--from-plan", default="", metavar="PATH",
+                        help="consume a tools.plan --apply defaults "
+                        "artifact: its measured-baseline knobs "
+                        "(replicas, queue depth, SLO bound) fill in "
+                        "any flag left at its default, and the summary "
+                        "line stamps the artifact's provenance")
     parser.add_argument("--device", default=None,
                         help="serving device (default: the CUDA device; "
                         "'cpu' runs the kernels' plain versions)")
@@ -219,6 +234,17 @@ def _serve(argv):
         export_plan,
         run_open_loop,
     )
+
+    plan_stamp = None
+    if args.from_plan:
+        try:
+            plan_stamp = _serve_apply_plan_defaults(args, parser)
+        except (OSError, ValueError, KeyError) as e:
+            print(
+                f"serve: --from-plan failed: {type(e).__name__}: {e}",
+                file=sys.stderr,
+            )
+            return 2
 
     if args.autoscale and args.slo_p99_ms <= 0:
         print(
@@ -265,7 +291,8 @@ def _serve(argv):
                 file=sys.stderr,
             )
             return 1
-        return _serve_zoo(args, fitted, d_in, tenant_specs, device)
+        return _serve_zoo(args, fitted, d_in, tenant_specs, device,
+                          plan_stamp=plan_stamp)
     try:
         fitted, d_in = _serve_build_fitted(args, device)
         phase = "export"
@@ -288,9 +315,12 @@ def _serve(argv):
     pool = rng.normal(size=(256, d_in)).astype(np.float32)
 
     # Live SLO objectives: a p99 latency bound plus availability,
-    # publishing slo.state/burn gauges into their own registry.
+    # publishing slo.state/burn gauges into their own registry, which the
+    # live exporter renders beside the serving counters.
     slo_tracker = None
+    slo_registry = None
     if args.slo_p99_ms > 0:
+        slo_registry = obs.MetricsRegistry()
         slo_tracker = obs.SLOTracker([
             obs.SLOObjective(
                 "latency", kind="latency",
@@ -299,7 +329,7 @@ def _serve(argv):
             obs.SLOObjective(
                 "availability", kind="availability", target=0.999,
             ),
-        ], metrics=obs.MetricsRegistry())
+        ], metrics=slo_registry)
     replicated = args.replicas > 1 or args.autoscale
     if replicated:
         # Autoscale always rides the replicated plane (the elasticity
@@ -318,6 +348,7 @@ def _serve(argv):
             max_queue_depth=args.queue_depth, slo=slo_tracker,
         )
     autoscaler = None
+    exporter = None
     try:
         # Inside the try: from here on, any construction failure must
         # still close() the already-running server threads.
@@ -329,6 +360,14 @@ def _serve(argv):
                 cooldown_s=args.scale_cooldown_s,
                 metrics=server.metrics,
             ).start()
+        sources = {"metrics": server.metrics, "serving": server.stats}
+        if slo_registry is not None:
+            sources["slo_metrics"] = slo_registry
+        if autoscaler is not None:
+            # tools.slo renders this block (decision log and scale
+            # counters) beside the SLO verdict table.
+            sources["autoscale"] = autoscaler.stats
+        exporter = _live_exporter(args, sources, slo_tracker)
         report = run_open_loop(
             server.submit, lambda i: pool[i % len(pool)],
             rate_hz=args.rate, duration_s=args.duration_s, seed=args.seed,
@@ -338,6 +377,8 @@ def _serve(argv):
     finally:
         if autoscaler is not None:
             autoscaler.close()
+        if exporter is not None:
+            exporter.close()
         server.close()
     summary = report.to_row_dict()
     summary.update({
@@ -348,6 +389,10 @@ def _serve(argv):
         "max_wait_ms": args.max_wait_ms,
         "plan_fingerprint": plan.fingerprint,
     })
+    if plan_stamp is not None:
+        summary["plan_artifact"] = plan_stamp
+    if exporter is not None and exporter.port is not None:
+        summary["metrics_port"] = exporter.port
     if slo_tracker is not None:
         # The verdict and the budget, on the one line an operator reads.
         verdict = report.slo or slo_tracker.verdict()
@@ -396,9 +441,8 @@ def _learn(argv):
     path. Prints one summary line with the publication counters and
     measured model staleness; exits non-zero with a one-line diagnostic
     on failure (the serve contract). Runs on the CUDA device unless
-    given ``--device cpu``. The reference's ``--metrics-port`` /
-    ``--metrics-dir`` / ``--metrics-interval-s`` (its live metrics
-    endpoint, ROADMAP A.17) are not ported: argparse refuses them."""
+    given ``--device cpu``; ``--metrics-port`` / ``--metrics-dir`` publish
+    the live plane (serving, lifecycle and trainer sections)."""
     import argparse
     import json
 
@@ -434,6 +478,7 @@ def _learn(argv):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--slo-p99-ms", type=float, default=0.0)
     parser.add_argument("--slo-target", type=float, default=0.99)
+    _add_metrics_flags(parser)
     parser.add_argument("--device", default=None,
                         help="serving device (default: the CUDA device; "
                         "'cpu' runs the kernels' plain versions)")
@@ -524,6 +569,7 @@ def _learn(argv):
     )
     controller = None
     trainer = None
+    exporter = None
     try:
         controller = LifecycleController(
             server, plan0, holdout=holdout,
@@ -538,6 +584,15 @@ def _learn(argv):
         trainer = ContinuousTrainer(
             feed, controller, publish_every_k=args.publish_every_k,
         )
+        sources = {
+            "metrics": server.metrics,
+            "serving": server.stats,
+            "lifecycle": controller.stats,
+            "trainer": trainer.stats,
+        }
+        if slo_registry is not None:
+            sources["slo_metrics"] = slo_registry
+        exporter = _live_exporter(args, sources, slo_tracker)
         trainer.start()
         rng_req = np.random.default_rng(args.seed + 1)
         pool = rng_req.normal(size=(256, d)).astype(np.float32)
@@ -556,6 +611,8 @@ def _learn(argv):
             trainer.stop()
         if controller is not None:
             controller.close()
+        if exporter is not None:
+            exporter.close()
         server.close()
     if trainer.error is not None:
         print(
@@ -597,8 +654,77 @@ def _learn(argv):
                 for o in verdict["objectives"].values()
             ),
         })
+    if exporter is not None and exporter.port is not None:
+        summary["metrics_port"] = exporter.port
     print(json.dumps(summary))
     return 0
+
+
+def _add_metrics_flags(parser) -> None:
+    """The live plane's flags, shared by serve and learn."""
+    parser.add_argument("--metrics-port", type=int, default=-1,
+                        help="serve Prometheus text-format + JSON "
+                        "snapshots over HTTP on this port (0 = ephemeral, "
+                        "-1 = off)")
+    parser.add_argument("--metrics-dir", default="",
+                        help="write atomic live_metrics.json snapshots "
+                        "here every --metrics-interval-s (scrape-less "
+                        "environments; tools.slo reads them)")
+    parser.add_argument("--metrics-interval-s", type=float, default=1.0)
+
+
+def _live_exporter(args, sources, slo_tracker):
+    """The live exporter over ``sources`` plus the data-plane runtime's
+    lanes when ``--metrics-port`` or ``--metrics-dir`` asks for one, else
+    None. Its collectors read host-side ``stats()`` only: the publisher
+    thread makes no CUDA call."""
+    if args.metrics_port < 0 and not args.metrics_dir:
+        return None
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.data.runtime import default_runtime
+
+    return obs.LiveExporter(
+        sources={**sources, "runtime": default_runtime().stats},
+        slo=slo_tracker,
+        snapshot_dir=args.metrics_dir or None,
+        port=args.metrics_port if args.metrics_port >= 0 else None,
+        interval_s=args.metrics_interval_s,
+    )
+
+
+def _serve_apply_plan_defaults(args, parser):
+    """Consume a ``tools.plan --apply`` artifact: every serve flag left at
+    its parser default is filled from the artifact's measured-baseline
+    ``serve_defaults`` block (an explicit flag always wins). Returns the
+    provenance stamp the serve summary line carries, so the plane's
+    configuration is auditable back to the trace it was sized from."""
+    import json
+
+    from keystone_tpu_torch.tools.plan import PLAN_ARTIFACT_KIND
+
+    with open(args.from_plan) as f:
+        doc = json.load(f)
+    if doc.get("artifact") != PLAN_ARTIFACT_KIND:
+        raise ValueError(
+            f"{args.from_plan!r} is not a tools.plan --apply artifact "
+            f"(artifact={doc.get('artifact')!r})"
+        )
+    applied = {}
+    for key, value in sorted(doc["serve_defaults"].items()):
+        if not hasattr(args, key):
+            continue
+        if getattr(args, key) == parser.get_default(key):
+            setattr(args, key, value)
+            applied[key] = value
+    return {
+        "path": args.from_plan,
+        "applied": applied,
+        "source_traces": doc.get("source_traces", []),
+        "fidelity_max_abs_log_error": doc.get("fidelity", {}).get(
+            "max_abs_log_error"
+        ),
+        "written_at_unix_s": doc.get("written_at_unix_s"),
+    }
 
 
 def _serve_build_fitted(args, device):
@@ -677,7 +803,7 @@ def _serve_tenant_specs(args):
     return None
 
 
-def _serve_zoo(args, fitted, d_in, tenant_specs, device):
+def _serve_zoo(args, fitted, d_in, tenant_specs, device, plan_stamp=None):
     """Multi-tenant serve: one zoo, one exported plan per tenant (the
     fitted pipeline is cloned per tenant — paging mutates operator
     state in place, so tenants must never share operator objects), a
@@ -749,12 +875,16 @@ def _serve_zoo(args, fitted, d_in, tenant_specs, device):
         max_wait_ms=args.max_wait_ms,
         max_queue_depth=args.queue_depth,
     )
+    exporter = None
     try:
         for spec in tenant_specs:
             zoo.add_tenant(
                 spec["id"], plans.pop(spec["id"]), weight=spec["weight"],
                 slo=slos.get(spec["id"]),
             )
+        exporter = _live_exporter(
+            args, {"metrics": zoo.metrics, "zoo": zoo.stats}, None,
+        )
         rng = np.random.default_rng(args.seed + 1)
         pool = rng.normal(size=(256, d_in)).astype(np.float32)
         report = run_multi_tenant_open_loop(
@@ -770,6 +900,8 @@ def _serve_zoo(args, fitted, d_in, tenant_specs, device):
         print(f"serve: {e}", file=sys.stderr)
         return 2
     finally:
+        if exporter is not None:
+            exporter.close()
         zoo.close()
     summary = report.to_row_dict()
     # The summary line keeps the per-tenant report blocks under
@@ -791,6 +923,10 @@ def _serve_zoo(args, fitted, d_in, tenant_specs, device):
     })
     if slos:
         summary["tenant_slo_states"] = report.tenant_states()
+    if exporter is not None and exporter.port is not None:
+        summary["metrics_port"] = exporter.port
+    if plan_stamp is not None:
+        summary["plan_artifact"] = plan_stamp
     print(json.dumps(summary))
     return 0
 

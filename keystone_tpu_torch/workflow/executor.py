@@ -12,8 +12,9 @@ executor runs the OPTIMIZED graph, so what gets measured is the cost of the
 post-fusion nodes themselves — the full-scale ground truth AutoCacheRule
 prefers over its sampled extrapolations when placing caches. A runtime
 failure carries the plan verifier's coordinates (node, operator, input
-signatures). The reference's tracing spans come with the port's ``obs``
-plane (ROADMAP A.17).
+signatures). Under the obs tracer the lazy path's optimization is one
+``executor.optimize`` span and each node's first force an
+``executor.node`` span, as in the reference.
 """
 
 from __future__ import annotations
@@ -62,9 +63,16 @@ class GraphExecutor:
 
     def _ensure_optimized(self) -> Graph:
         if self._optimized_graph is None:
-            graph, prefixes = PipelineEnv.get_or_create().optimizer.execute(
-                self.graph, {}
-            )
+            from keystone_tpu_torch import obs
+
+            # The lazy path's counterpart of Pipeline.fit's fit.optimize
+            # span: pipelines driven through .get()/apply() optimize here,
+            # and the optimizer.rule.* spans need this parent to read as
+            # one phase in the trace.
+            with obs.span("executor.optimize", nodes=len(self.graph.operators)):
+                graph, prefixes = PipelineEnv.get_or_create().optimizer.execute(
+                    self.graph, {}
+                )
             self._optimized_graph = graph
             self._prefixes = prefixes
         return self._optimized_graph
@@ -100,12 +108,36 @@ class GraphExecutor:
             expression = operator.execute(dep_exprs)
             self._observe(graph, graph_id, operator, dep_exprs, expression)
             self._annotate_failures(graph_id, operator, dep_exprs, expression)
+            self._trace_node(graph_id, operator, expression)
             # Publish results the optimizer marked for prefix-state reuse.
             if self._prefixes and graph_id in self._prefixes:
                 PipelineEnv.get_or_create().state[self._prefixes[graph_id]] = expression
 
         self._execution_state[graph_id] = expression
         return expression
+
+    def _trace_node(self, graph_id, operator, expression) -> None:
+        """Wrap the node's thunk in an ``executor.node`` span: lazy
+        pipelines do their work at first force, on whatever thread demands
+        the value, and deps force inside the thunk, so spans nest into the
+        causal tree the executor ran. Wrapped outside ``_observe`` and
+        ``_annotate_failures`` so the span covers the node's whole forced
+        wall; one no-op branch a force when tracing is off.
+        ExpressionOperator splices are skipped (their value was computed
+        elsewhere)."""
+        if isinstance(operator, ExpressionOperator):
+            return
+        orig = getattr(expression, "_thunk", None)
+        if orig is None:  # already computed (shared expression)
+            return
+        from keystone_tpu_torch import obs
+
+        def traced():
+            with obs.span("executor.node", node=graph_id.id,
+                          operator=type(operator).__name__):
+                return orig()
+
+        expression._thunk = traced
 
     def _annotate_failures(self, graph_id, operator, dep_exprs, expression) -> None:
         """Wrap the node's thunk so a runtime failure carries the same

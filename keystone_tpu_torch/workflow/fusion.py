@@ -760,6 +760,13 @@ class EstimatorFusionRule(Rule):
                 continue
             members = dop.members if isinstance(dop, FusedBatchTransformer) else [dop]
             fused = self._fused(members, op)
+            # A pending cost-decision outcome follows the fit to the fused
+            # estimator, whose fit now runs the priced work (the reference
+            # drops it here, so its fused fits go unstamped).
+            ref = getattr(op, "_pending_cost_outcome", None)
+            if ref is not None:
+                fused._pending_cost_outcome = ref
+                op._pending_cost_outcome = None
             plan = plan.set_operator(node, fused)
             plan = plan.set_dependencies(
                 node, [plan.get_dependencies(dnode)[0], deps[1]]

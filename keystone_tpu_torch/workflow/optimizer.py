@@ -4,7 +4,8 @@ Port of ``keystone_tpu/workflow/optimizer.py``. Mirrors reference
 workflow/Rule.scala:12-20 and RuleExecutor.scala:5-87: an optimizer is a
 sequence of named batches of rules; each batch runs serially with a
 strategy (Once or FixedPoint) until convergence or iteration cap; rule
-applications that change the plan are trace-logged as DOT diffs.
+applications that change the plan are trace-logged as DOT diffs, and each
+application is an ``optimizer.rule.<name>`` span under the obs tracer.
 
 Every optimizer run starts with the static plan verifier
 (``workflow/verify.py``). ``DefaultOptimizer`` carries the saved-state, CSE
@@ -68,14 +69,30 @@ class RuleExecutor:
 
     def execute(self, plan: Graph, prefixes: Dict[NodeId, Prefix]) -> Plan:
         cur: Plan = (plan, dict(prefixes))
+        from keystone_tpu_torch import obs
+
         for batch in self.batches:
             batch_start = cur
             iteration = 1
             last = cur
             while True:
                 for rule in batch.rules:
-                    result = rule.apply(cur[0], cur[1])
-                    if not _plans_equal(result, cur):
+                    # One span a rule application: the trace shows where
+                    # optimization time went and which rules changed the
+                    # plan. The name and attributes are built only when
+                    # tracing is on.
+                    if obs.enabled():
+                        with obs.span(
+                            f"optimizer.rule.{rule.rule_name}",
+                            batch=batch.name, iteration=iteration,
+                        ) as sp:
+                            result = rule.apply(cur[0], cur[1])
+                            changed = not _plans_equal(result, cur)
+                            sp.set(changed=changed)
+                    else:
+                        result = rule.apply(cur[0], cur[1])
+                        changed = not _plans_equal(result, cur)
+                    if changed:
                         logger.debug(
                             "=== Applying Rule %s ===\n%s\n%s",
                             rule.rule_name,

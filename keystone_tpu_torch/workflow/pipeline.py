@@ -18,8 +18,13 @@ captured once from the composed function at batch 1 and replayed after
 that (the counterpart of the reference's ``jax.jit``); on the CPU the
 composed function runs directly. A graph that does not compose (host or
 multi-input nodes) walks the graph node by node, as in the reference.
-Not in this slice: the cost-decision stamping of estimator fits (the
-``obs`` plane, ROADMAP A.17).
+
+Under the obs tracer ``fit()`` is a ``pipeline.fit`` span over
+``fit.verify``, ``fit.optimize`` and one ``fit.estimator`` a delegating
+node. An estimator that the cost model selected carries the decision's
+outcome reference, and its fit (:func:`_stamped_fit`) stamps the measured
+seconds onto the ``cost.decision`` record, read after a synchronize of
+the fitted model's CUDA device (:func:`_sync_fitted`).
 """
 
 from __future__ import annotations
@@ -195,32 +200,40 @@ class Pipeline(Chainable[A, B]):
         API would have raised — fails HERE with node-level coordinates,
         not deep inside an estimator fit. ``KEYSTONE_VERIFY=off``
         disables the pre-pass."""
+        from keystone_tpu_torch import obs
+
         from .env import PipelineEnv
         from .rules import UnusedBranchRemovalRule
         from .verify import verify_fit_graph
 
-        verify_fit_graph(self.executor.graph, context="Pipeline.fit plan")
-        optimized, prefixes = PipelineEnv.get_or_create().optimizer.execute(
-            self.executor.graph, {}
-        )
-        # Publish fitted state into the prefix table so later pipelines
-        # reuse it.
-        fitting_executor = GraphExecutor(optimized, optimize=False, prefixes=prefixes)
-        delegating_nodes = [
-            n for n, op in optimized.operators.items()
-            if isinstance(op, DelegatingOperator)
-        ]
+        with obs.span("pipeline.fit", nodes=len(self.executor.graph.operators)):
+            with obs.span("fit.verify"):
+                verify_fit_graph(self.executor.graph, context="Pipeline.fit plan")
+            with obs.span("fit.optimize"):
+                optimized, prefixes = PipelineEnv.get_or_create().optimizer.execute(
+                    self.executor.graph, {}
+                )
+            # Publish fitted state into the prefix table so later pipelines
+            # reuse it.
+            fitting_executor = GraphExecutor(optimized, optimize=False, prefixes=prefixes)
+            delegating_nodes = [
+                n for n, op in optimized.operators.items()
+                if isinstance(op, DelegatingOperator)
+            ]
 
-        graph = optimized
-        for node in delegating_nodes:
-            deps = optimized.get_dependencies(node)
-            transformer = fitting_executor.execute(deps[0]).get()
-            if not isinstance(transformer, TransformerOperator):
-                raise TypeError("Estimator fit did not produce a TransformerOperator")
-            graph = graph.set_operator(node, transformer).set_dependencies(node, deps[1:])
+            graph = optimized
+            for node in delegating_nodes:
+                deps = optimized.get_dependencies(node)
+                est_op = optimized.get_operator(deps[0])
+                with obs.span("fit.estimator", node=deps[0].id,
+                              operator=type(est_op).__name__):
+                    transformer = fitting_executor.execute(deps[0]).get()
+                if not isinstance(transformer, TransformerOperator):
+                    raise TypeError("Estimator fit did not produce a TransformerOperator")
+                graph = graph.set_operator(node, transformer).set_dependencies(node, deps[1:])
 
-        graph, _ = UnusedBranchRemovalRule().apply(graph, {})
-        return FittedPipeline(TransformerGraph.from_graph(graph), self.source, self.sink)
+            graph, _ = UnusedBranchRemovalRule().apply(graph, {})
+            return FittedPipeline(TransformerGraph.from_graph(graph), self.source, self.sink)
 
     @staticmethod
     def gather(branches: Sequence["Pipeline[A, B]"]) -> "Pipeline[A, List[B]]":
@@ -694,6 +707,74 @@ class Identity(Transformer[A, A]):
 # ---------------------------------------------------------------------------
 
 
+def _cuda_device_of(obj, depth: int = 3) -> Optional[torch.device]:
+    """The device of the first CUDA tensor in ``obj``'s state, searched
+    through attributes, lists, tuples and dicts ``depth`` levels down (a
+    chained model holds its weights one object in), or None."""
+    if isinstance(obj, torch.Tensor):
+        return obj.device if obj.is_cuda else None
+    if depth == 0:
+        return None
+    if isinstance(obj, dict):
+        values = obj.values()
+    elif isinstance(obj, (list, tuple)):
+        values = obj
+    else:
+        values = (getattr(obj, "__dict__", None) or {}).values()
+    for v in values:
+        device = _cuda_device_of(v, depth - 1)
+        if device is not None:
+            return device
+    return None
+
+
+def _sync_fitted(fitted) -> None:
+    """The barrier before the measured-outcome stamp reads the clock: a fit
+    on the card returns with its kernels still queued, so wait for the
+    fitted model's CUDA device (``torch.cuda.synchronize``). A model whose
+    weights the search does not reach syncs the current device when CUDA
+    is in use; a CPU fit returns at once."""
+    device = _cuda_device_of(fitted)
+    if device is not None:
+        torch.cuda.synchronize(device)
+    elif torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _stamped_fit(est, thunk):
+    """Run one estimator fit, back-annotating a pending cost decision.
+
+    When the cost model selected ``est`` (``LeastSquaresEstimator.optimize``
+    left a ``CostOutcomeRef`` on it), the fit is where the priced work runs,
+    so it stamps the winner's measured seconds and ``estimator.fit`` span id
+    onto the decision record (``obs/calibrate.py`` joins predicted against
+    measured from it). The reference is consumed before the fit, so a
+    failed fit never stamps and a re-fit never stamps twice. Estimators with
+    no pending decision take the bare path: no span, no clock."""
+    ref = getattr(est, "_pending_cost_outcome", None)
+    if ref is None:
+        return thunk()
+    est._pending_cost_outcome = None
+    import time as _time
+
+    from keystone_tpu_torch import obs
+
+    t0 = _time.perf_counter()
+    with obs.span("estimator.fit", estimator=type(est).__name__) as sp:
+        fitted = thunk()
+        _sync_fitted(fitted)
+    # "single_run_cold": a pipeline fits each estimator once, so this wall
+    # includes the first call's one-time costs (kernel loads, allocator
+    # growth); the calibration report states the mix, and the sweep harness
+    # stamps "min_of_N_warm" on its warm points.
+    ref.stamp(
+        _time.perf_counter() - t0,
+        span_id=getattr(sp, "span_id", None),
+        timing="single_run_cold",
+    )
+    return fitted
+
+
 class Estimator(EstimatorOperator, Generic[A, B]):
     """Fits a Transformer from a dataset (Estimator.scala:10-62)."""
 
@@ -701,7 +782,7 @@ class Estimator(EstimatorOperator, Generic[A, B]):
         raise NotImplementedError
 
     def fit_datasets(self, inputs: Sequence[Any]) -> TransformerOperator:
-        return self.fit(inputs[0])
+        return _stamped_fit(self, lambda: self.fit(inputs[0]))
 
     def with_data(self, data: Any) -> Pipeline[A, B]:
         """Pipeline that fits this estimator on `data`, then applies the fitted
@@ -722,7 +803,7 @@ class LabelEstimator(EstimatorOperator, Generic[A, B, L]):
         raise NotImplementedError
 
     def fit_datasets(self, inputs: Sequence[Any]) -> TransformerOperator:
-        return self.fit(inputs[0], inputs[1])
+        return _stamped_fit(self, lambda: self.fit(inputs[0], inputs[1]))
 
     def with_data(self, data: Any, labels: Any) -> Pipeline[A, B]:
         data = _as_pipeline_dataset(data)

@@ -869,8 +869,13 @@ def verify_fit_graph(graph: Graph, context: str = "pipeline plan") -> None:
         return
     if _recently_verified(graph):
         return
-    report = verify_graph(graph, strict=(mode == "strict"))
-    report.raise_if_errors(context)
+    from keystone_tpu_torch import obs
+
+    with obs.span("verify.pre_pass", context=context, mode=mode,
+                  nodes=len(graph.operators)) as sp:
+        report = verify_graph(graph, strict=(mode == "strict"))
+        sp.set(warnings=len(report.warnings), errors=len(report.errors))
+        report.raise_if_errors(context)
     # Memoize only CLEAN graphs (fit hands the same object straight to
     # the optimizer pre-pass): a failed verification must re-run if the
     # caller retries.

@@ -258,13 +258,34 @@ class TestServeCLI:
 
     @pytest.mark.parametrize("flag", ["--fleet", "--from-plan", "--metrics-port",
                                       "--metrics-dir"])
-    def test_unported_flags_are_refused(self, flag):
+    def test_unported_flags_are_refused(self, flag, tmp_path, capsys):
+        """The name is kept from when all four flags were refused. ``--fleet``
+        (the process fleet) still is; the live plane's flags and
+        ``--from-plan`` are ported and work."""
         from keystone_tpu_torch import run
 
-        argv = ["serve", "--device", "cpu", flag, "1"]
-        with pytest.raises(SystemExit) as exc:
-            run.main(argv)
-        assert exc.value.code == 2
+        if flag == "--fleet":
+            with pytest.raises(SystemExit) as exc:
+                run.main(["serve", "--device", "cpu", flag, "1"])
+            assert exc.value.code == 2
+            return
+        if flag == "--from-plan":
+            from keystone_tpu_torch.placement.planner import CapacityPlanner
+            from keystone_tpu_torch.tools.plan import write_apply_artifact
+
+            value = str(tmp_path / "plan.json")
+            write_apply_artifact(value, CapacityPlanner([]).plan(), [str(tmp_path)], 0.7)
+        else:
+            value = "0" if flag == "--metrics-port" else str(tmp_path / "m")
+        rc = run.main(SERVE_TINY + [flag, value])
+        summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0 and summary["num_offered"] > 0
+        if flag == "--from-plan":
+            assert summary["plan_artifact"]["path"] == value
+        elif flag == "--metrics-port":
+            assert summary["metrics_port"] > 0
+        else:
+            assert os.path.exists(os.path.join(value, "live_metrics.json"))
 
     def test_default_device_raises_without_a_card(self):
         if torch.cuda.is_available():

@@ -75,7 +75,9 @@ def test_port_has_modules():
                 "placement/engine.py", "data/runtime.py", "learning/__init__.py",
                 "learning/continuous.py", "data/prefetch.py", "data/shards.py",
                 "data/images.py", "native/__init__.py", "serving/zoo.py",
-                "serving/autoscale.py"):
+                "serving/autoscale.py", "obs/calibrate.py", "obs/live.py",
+                "placement/planner.py", "tools/calibrate.py", "tools/trace.py",
+                "tools/slo.py", "tools/plan.py"):
         assert rel in rels
 
 
@@ -86,6 +88,18 @@ def test_port_has_modules():
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py")),
+    ids=lambda p: p.relative_to(ROOT).as_posix(),
+)
+def test_top_level_names_are_defined_once(path):
+    """A second top-level function or class of one name silently replaces
+    the first for every phase that calls it."""
+    names = [node.name for node in ast.parse(path.read_text()).body
+             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))]
+    assert not {n for n in names if names.count(n) > 1}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(PORT).as_posix())

@@ -409,11 +409,20 @@ class TestLearnCLI:
         assert summary["num_published"] >= 1
         assert summary["num_published"] + summary["rollbacks"] == 2
 
-    def test_metrics_flags_are_refused(self, capsys):
-        from keystone_tpu_torch import run
-
-        with pytest.raises(SystemExit):
-            run.main(["learn", "--device", "cpu", "--metrics-port", "0"])
+    def test_metrics_flags_are_refused(self, capsys, tmp_path):
+        """The name is kept from when the live plane's flags were refused:
+        ``learn --metrics-dir`` now writes a snapshot with the lifecycle and
+        trainer sections."""
+        d = tmp_path / "m"
+        rc, summary, _ = self._learn(capsys, "--segments", "8", "--metrics-dir", str(d),
+                                     "--metrics-interval-s", "0.2")
+        assert rc == 0 and summary["accounting_ok"]
+        with open(d / "live_metrics.json") as f:
+            doc = json.load(f)
+        assert doc["exporter"]["exporter.publishes"] >= 1
+        assert doc["trainer"]["segments_fit"] == 8
+        assert doc["lifecycle"]["published"] == summary["published"]
+        assert doc["serving"]["completed"] == summary["num_samples"]
 
     def test_killed_trainer_resumes_through_checkpoint_dir(self, capsys, tmp_path,
                                                             monkeypatch):

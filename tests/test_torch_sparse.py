@@ -422,3 +422,22 @@ class TestNodes:
         assert leaves[0].dtype == torch.int32 and leaves[1].dtype == torch.float32
         with pytest.raises(ValueError, match="dict"):
             ds.array
+
+
+class TestSparsifyOnTheDevicesLayout:
+    """``padded_coo_rows`` (what ``Sparsify`` runs on rows on any device)
+    gives the reference's padded-COO layout, chunked or not."""
+
+    @pytest.mark.parametrize("shape, density, chunk", [
+        ((300, 50), 0.3, 777), ((64, 16), 0.0, 1 << 27), ((257, 33), 1.0, 100),
+        ((1, 5), 0.5, 1)])
+    def test_equals_sparsify_and_the_reference(self, shape, density, chunk):
+        rng = np.random.default_rng(3)
+        X = rng.normal(size=shape).astype(np.float32)
+        X[rng.random(shape) >= density] = 0
+        i, v = tsp.padded_coo_rows(torch.from_numpy(X), chunk_elements=chunk)
+        host = tsp.Sparsify().batch_apply(TDataset.of(torch.from_numpy(X)))
+        ref = jsp.Sparsify().batch_apply(JDataset.of(X))
+        for got, key in ((i, "indices"), (v, "values")):
+            assert np.array_equal(got.numpy(), np.asarray(host.data[key]))
+            assert np.array_equal(got.numpy(), np.asarray(ref.data[key]))
