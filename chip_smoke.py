@@ -362,6 +362,34 @@ started together), then:
          plane is back at 1 replica: scale-up to 3, brownout rungs entered
          and left LIFO, scale-down to 1, no two actions inside the cooldown,
          none failed.
+ 23. drives the control plane on the card (the cost-weight sweep, the
+     calibration report and the H100 refit, the selector under both
+     families, the live exporter, the capacity planner).
+ 24. drives the process fleet on the card: TIMIT's plan (phase 19's seed-0
+     fit, 8 buckets) shipped to 2 plane processes (``FleetRouter``, 1
+     replica a plane), each its own CUDA context:
+       - (a) every bucket's rows served through the fleet bit-equal to the
+         parent's batch apply of the plan, the ship's skeleton pickled from
+         the host, each plane launching ``cosine_features`` and
+         ``row_stable_matmul`` (its own counters, summed over the planes as
+         the kernels line's ``fleet_launches``); boot seconds by stage and
+         the card's memory a plane;
+       - (b) plane0 SIGKILLed halfway through a 200 Hz open-loop storm of
+         3 s: the books exact, every failure ``FleetPlaneDied``, a respawn
+         with a new pid, the card's free memory back; respawn seconds and
+         the merged p99;
+       - (e) the seed-1 fit offered as a canary to both planes (published,
+         fingerprints switched, rows bit-equal to its plan), then a ship
+         corrupted by a ``fleet.rpc.send`` corrupt rule quarantines its
+         plane;
+       - (c) ``run.py serve --fleet 2`` at MnistRandomFFT's defaults at
+         200 Hz (exit 0, the fleet's books, none failed), beside
+         ``--replicas 2``;
+       - (d) ``python -m keystone_tpu_torch.tools.fleet_chaos`` at its
+         defaults: ``books_balance`` and ``respawn_fired``.
+     The planes are spawned (a forked child cannot use CUDA once the parent
+     has), so they re-import this script as ``__mp_main__``: it does no
+     work at module level.
 
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -5733,6 +5761,7 @@ def phase_zoo_isolation(blobs, pool, device="cuda"):
     tenants, one hot at 80 x the base rate."""
     from keystone_tpu_torch import obs
     from keystone_tpu_torch.serving import ModelZoo, run_multi_tenant_open_loop
+    from keystone_tpu_torch.serving.batcher import frozen_heap
 
     names = [f"t{i}" for i in range(ZOO_ISO_TENANTS - 1)] + ["hot"]
     plans = {n: _zoo_plan(blobs[i % 2], 8, device) for i, n in enumerate(names)}
@@ -5746,9 +5775,10 @@ def phase_zoo_isolation(blobs, pool, device="cuda"):
             zoo.add_tenant(n, plans.pop(n), slo=slos[n])
         rates = {n: ZOO_ISO_BASE_HZ for n in names}
         rates["hot"] = ZOO_ISO_BASE_HZ * ZOO_ISO_HOT_X
-        report = run_multi_tenant_open_loop(
-            zoo.submit, lambda tenant, i: pool[i % len(pool)], rates_hz=rates,
-            duration_s=ZOO_ISO_S, seed=0, slos=slos)
+        with frozen_heap():  # this script owns the process's heap (C.14)
+            report = run_multi_tenant_open_loop(
+                zoo.submit, lambda tenant, i: pool[i % len(pool)], rates_hz=rates,
+                duration_s=ZOO_ISO_S, seed=0, slos=slos)
         stats = zoo.stats()
     finally:
         zoo.close()
@@ -6695,6 +6725,359 @@ def phase_control_plan(cuda_ops, live, selector, root, device="cuda"):
                 replays=replays, launches=_launch_delta(cuda_ops, before))
 
 
+FLEET = ("process fleet: TIMIT's plan shipped to plane processes, a SIGKILL under load, run.py "
+         "serve --fleet, the chaos tool, quarantine and a canary")
+# 24(a)/(b): TIMIT's full-width plan (phase 19's seed-0 fit, max_batch 256)
+# on 2 planes of 1 replica; a 200 Hz storm of 3 s with plane0 SIGKILLed
+# halfway.
+FLEET_PLANES, FLEET_STORM_HZ, FLEET_STORM_S = 2, 200.0, 3.0
+# 24(c): run.py serve --fleet 2 at MnistRandomFFT's defaults, beside
+# --replicas 2 at the same rate.
+FLEET_CLI_RATE, FLEET_CLI_S = 200.0, 2.0
+# 24(b): the card's free memory after the respawn against before the kill.
+FLEET_MEM_TOL = 0.05
+
+
+def _free_bytes(device):
+    """The card's free memory (``cudaMemGetInfo``, every process's use
+    counted), 0 on the CPU."""
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _tensor_devices(obj):
+    """The device types of every tensor ``obj`` pickles."""
+    import io
+
+    found = set()
+
+    class Walk(pickle.Pickler):
+        def reducer_override(self, o):
+            if isinstance(o, torch.Tensor):
+                found.add(o.device.type)
+            return NotImplemented
+
+    Walk(io.BytesIO(), protocol=4).dump(obj)
+    return found
+
+
+def _fleet_router(ship, device, num_planes=FLEET_PLANES):
+    from keystone_tpu_torch.serving.fleet import FleetRouter
+
+    return FleetRouter(ship, num_planes=num_planes, replicas_per_plane=1,
+                       heartbeat_interval_s=0.1, heartbeat_timeout_s=5.0, restart_budget=2,
+                       spawn_retry_delay_s=0.05, startup_timeout_s=180.0,
+                       plane_cfg={"device": str(device), "max_wait_ms": 2.0})
+
+
+def phase_fleet_serve(blob, pool, device="cuda"):
+    """24(a): TIMIT's plan shipped to two plane processes; every bucket's
+    rows served through the fleet against the parent's batch apply. Returns
+    the live fleet (the caller closes it), the ship and the readings."""
+    from keystone_tpu_torch.serving import export_plan
+    from keystone_tpu_torch.serving.fleet_plane import encode_plan_ship
+
+    cuda = torch.device(device).type == "cuda"
+    fitted = pickle.loads(blob)
+    plan = export_plan(fitted, np.zeros(D_IN, np.float32), max_batch=SERVE_MAX_BATCH,
+                       device=device)
+    t0 = time.perf_counter()
+    ship = encode_plan_ship(fitted, plan)
+    encode_s = time.perf_counter() - t0
+    skeleton = _tensor_devices(pickle.loads(ship.skeleton))  # where plain unpickling puts them
+    check("24(a) the ship's skeleton pickles every tensor from the host",
+          skeleton == {"cpu"}, f"skeleton tensors on {skeleton}, {len(ship.skeleton)} bytes, "
+          f"{len(ship.tensors)} split-plane tensors, encoded in {encode_s:.3f} s")
+    free0 = _free_bytes(device)
+    fleet = _fleet_router(ship, device)
+    try:
+        boot = fleet.boot_seconds()
+        pids = fleet.plane_pids()
+        footprint = (free0 - _free_bytes(device)) / FLEET_PLANES
+        bits = {}
+        for b in plan.buckets:
+            rows = pool[:b]
+            want = plan.apply_batch(list(rows))
+            futures = [fleet.submit(r) for r in rows]
+            served = np.stack([f.result(timeout=120) for f in futures])
+            bits[b] = served.tobytes() == np.ascontiguousarray(want).tobytes()
+        replies = fleet.plane_stats()
+        # Each plane's own process's counters, from its spawn.
+        launches = {n: {k: v for k, v in r["launches"].items() if v}
+                    for n, r in replies.items() if r}
+        stats = fleet.stats()
+        _fleet_serve_checks(cuda, boot, pids, footprint, bits, replies, launches, stats)
+    except BaseException:
+        fleet.close()
+        raise
+    fleet_launches = {k: sum(l.get(k, 0) for l in launches.values())
+                      for k in ("cosine_features", ROW_STABLE)}
+    return fleet, ship, dict(boot_s=boot, boot_stages={n: r["boot"] for n, r in replies.items()
+                                                        if r},
+                             card_mib_a_plane=footprint / 2**20, bits=bits, launches=launches,
+                             fleet_launches=fleet_launches, footprint=footprint)
+
+
+def _fleet_serve_checks(cuda, boot, pids, footprint, bits, replies, launches, stats):
+    log(f"  (a) {FLEET_PLANES} planes booted in {boot} s (spawn to bootstrap reply), pids "
+        f"{pids}; card memory {footprint / 2**20:.1f} MiB a plane (free before and after "
+        f"boot); a plane's allocator "
+        f"{ {n: r['device_memory'] for n, r in replies.items() if r} }; boot stages (s) "
+        f"{ {n: {k: round(v, 3) for k, v in r['boot'].items()} for n, r in replies.items() if r} }")
+    log(f"  (a) bit-equal rows by bucket {bits}; served by plane "
+        f"{ {n: p['completed'] for n, p in stats['planes'].items()} }; plane launches {launches}")
+    check("24(a) rows served through the fleet equal the parent's plan batch apply bit for bit, "
+          "every bucket", all(bits.values()), f"{bits}")
+    check("24(a) both planes served and quarantined nothing",
+          stats["healthy_planes"] == FLEET_PLANES and stats["quarantined_planes"] == []
+          and all(p["completed"] > 0 for p in stats["planes"].values()),
+          f"{stats['planes']}")
+    check("24(a) each plane launched cosine_features and row_stable_matmul" if cuda else
+          "24(a) plane launch counters read",
+          all(l.get("cosine_features", 0) > 0 and l.get(ROW_STABLE, 0) > 0
+              for l in launches.values()) if cuda else len(launches) == FLEET_PLANES,
+          f"{launches}")
+
+
+def phase_fleet_kill(fleet, pool, footprint, device="cuda"):
+    """24(b): plane0 SIGKILLed halfway through a 200 Hz open-loop storm."""
+    import signal
+    import threading
+
+    from keystone_tpu_torch.serving import run_open_loop
+
+    cuda = torch.device(device).type == "cuda"
+    free_before = _free_bytes(device)
+    victim = fleet.plane_pids()["plane0"]
+    books = ("aggregate_offered", "completed", "rejected", "failed")
+    s0 = fleet.stats()
+    futures = []
+    killed = {}
+
+    def submit(x, deadline_ms=None):
+        fut = fleet.submit(x, deadline_ms)
+        futures.append(fut)
+        return fut
+
+    def kill():
+        killed["t"] = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+
+    timer = threading.Timer(FLEET_STORM_S / 2, kill)
+    timer.start()
+    try:
+        report = run_open_loop(submit, lambda i: pool[i % len(pool)], rate_hz=FLEET_STORM_HZ,
+                               duration_s=FLEET_STORM_S, seed=24)
+    finally:
+        timer.cancel()
+        timer.join()
+    deadline = time.monotonic() + 180.0
+    respawn_s = None
+    while time.monotonic() < deadline:
+        s = fleet.stats()
+        if s["restarts_total"] >= 1 and s["healthy_planes"] == FLEET_PLANES:
+            respawn_s = time.perf_counter() - killed["t"]
+            break
+        time.sleep(0.05)
+    while not fleet.accounting_ok() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    free_after = _free_bytes(device)
+    s = fleet.stats()
+    reborn = (fleet.plane_stats().get("plane0") or {}).get("boot")
+    storm = {k: s[k] - s0[k] for k in books}  # the storm's share of the router's books
+    names = [type(f.exception(timeout=60)).__name__ for f in futures
+             if f.exception(timeout=60) is not None]
+    log(f"  (b) {report.num_offered} offered at {FLEET_STORM_HZ:.0f} Hz for {FLEET_STORM_S} s, "
+        f"plane0 (pid {victim}) killed at {FLEET_STORM_S / 2} s: the router's books for the "
+        f"storm {storm} ({ {n: names.count(n) for n in set(names)} }); respawned as pid "
+        f"{fleet.plane_pids()['plane0']} {respawn_s} s after the kill (boot "
+        f"{fleet.boot_seconds()['plane0']} s, by stage {reborn}); merged p50 "
+        f"{s['fleet_p50_latency_s']} s, p99 {s['fleet_p99_latency_s']} s over "
+        f"{s['fleet_latency_count']}; loadgen p99 "
+        f"{report.p99_latency_s}; free memory {free_before} before the kill, {free_after} after "
+        f"the respawn")
+    check("24(b) the books balance exactly across the kill, on the router's side and the "
+          "loadgen's",
+          fleet.accounting_ok() and storm["aggregate_offered"] == report.num_offered
+          == report.completed + report.rejected + report.failed
+          and storm["aggregate_offered"] == storm["completed"] + storm["rejected"]
+          + storm["failed"] and storm["failed"] == report.failed,
+          f"router {storm}, inflight {s['inflight']}; loadgen offered {report.num_offered}, "
+          f"completed {report.completed}, rejected {report.rejected}, failed {report.failed}")
+    check("24(b) every failure is the dead plane's FleetPlaneDied",
+          storm["failed"] == names.count("FleetPlaneDied")
+          and set(names) <= {"FleetPlaneDied", "FleetSaturated"},
+          f"failed {storm['failed']}, future errors { {n: names.count(n) for n in set(names)} }")
+    check("24(b) plane0 respawned with a new pid inside its budget",
+          respawn_s is not None and s["restarts_total"] == 1 and s["evicted_planes"] == []
+          and fleet.plane_pids()["plane0"] not in (None, victim),
+          f"restarts {s['restarts_total']}, evicted {s['evicted_planes']}, pids "
+          f"{fleet.plane_pids()} (victim {victim})")
+    gap = free_before - free_after
+    check("24(b) the card's free memory returns after the respawn (within 5% of before the "
+          "kill, and less than half a plane's footprint gone)" if cuda else
+          "24(b) memory readings taken",
+          (abs(gap) <= FLEET_MEM_TOL * free_before and gap < footprint / 2) if cuda else True,
+          f"free {free_before} -> {free_after} bytes (gap {gap}, a plane {footprint:.0f})")
+    return dict(storm=storm, respawn_s=respawn_s,
+                respawn_boot_s=fleet.boot_seconds()["plane0"], respawn_boot_stages=reborn,
+                p50_s=s["fleet_p50_latency_s"], p99_s=s["fleet_p99_latency_s"],
+                free_before=free_before, free_after=free_after)
+
+
+def phase_fleet_cli(cuda_ops, device="cuda"):
+    """24(c): run.py serve --fleet 2 at MnistRandomFFT's defaults, then
+    --replicas 2 at the same rate (a reading, in this process), each with
+    this process's full (generation 2) garbage collections logged: serve
+    runs its storm with the heap frozen (C.14), and its first collection
+    is the one that freezes it."""
+    import contextlib
+    import gc
+    import io
+
+    from keystone_tpu_torch import run as cli
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for flag in ("--fleet", "--replicas"):
+        PipelineEnv.get_or_create().reset()
+        argv = ["serve", "--rate", str(FLEET_CLI_RATE), "--duration-s", str(FLEET_CLI_S),
+                flag, "2"] + ([] if cuda else ["--device", "cpu"])
+        buf = io.StringIO()
+        full, started = [], []  # (start s into the run, pause s); a start's time
+
+        def on_gc(stage, info):
+            if info["generation"] == 2 and stage == "start":
+                started.append(time.perf_counter())
+            elif info["generation"] == 2 and started:
+                t = started.pop()
+                full.append((round(t - t0, 3), round(time.perf_counter() - t, 4)))
+
+        t0 = time.perf_counter()
+        gc.callbacks.append(on_gc)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+        finally:
+            gc.callbacks.remove(on_gc)
+        seconds = time.perf_counter() - t0
+        PipelineEnv.get_or_create().reset()
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        out[flag.strip("-")] = dict(rc=rc, seconds=seconds, summary=summary, full_gc=full)
+    fleet, rep = out["fleet"]["summary"], out["replicas"]["summary"]
+    log(f"  (c) serve --fleet 2: {json.dumps(fleet)}")
+    log(f"  (c) full collections (s into the run, pause s): --fleet 2 {out['fleet']['full_gc']}; "
+        f"--replicas 2 {out['replicas']['full_gc']}")
+    log(f"  (c) at {FLEET_CLI_RATE:.0f} Hz: --fleet 2 p50 {fleet['p50_latency_ms']} ms, p99 "
+        f"{fleet['p99_latency_ms']} ms ({out['fleet']['seconds']:.1f} s with the fit and the "
+        f"planes' boot); --replicas 2 p50 {rep['p50_latency_ms']} ms, p99 "
+        f"{rep['p99_latency_ms']} ms ({out['replicas']['seconds']:.1f} s)")
+    check("24(c) serve --fleet 2: exit 0, the fleet's books balance, none failed",
+          out["fleet"]["rc"] == 0 and fleet["fleet_accounting_ok"] is True
+          and fleet["fleet_failed"] == 0 and fleet["num_planes"] == 2
+          and fleet["healthy_planes"] == 2,
+          f"rc {out['fleet']['rc']}, offered {fleet['aggregate_offered']}, completed "
+          f"{fleet['fleet_completed']}, rejected {fleet['fleet_rejected']}, failed "
+          f"{fleet['fleet_failed']}")
+    check("24(c) serve --replicas 2 at the same rate: exit 0", out["replicas"]["rc"] == 0,
+          f"rc {out['replicas']['rc']}")
+    return dict(fleet=dict(p50_ms=fleet["p50_latency_ms"], p99_ms=fleet["p99_latency_ms"],
+                           seconds=out["fleet"]["seconds"], full_gc=out["fleet"]["full_gc"]),
+                replicas=dict(p50_ms=rep["p50_latency_ms"], p99_ms=rep["p99_latency_ms"],
+                              seconds=out["replicas"]["seconds"],
+                              full_gc=out["replicas"]["full_gc"]))
+
+
+def phase_fleet_chaos(device="cuda"):
+    """24(d): ``python -m keystone_tpu_torch.tools.fleet_chaos`` at its
+    defaults, in this process."""
+    import contextlib
+    import io
+
+    from keystone_tpu_torch.tools import fleet_chaos
+
+    cuda = torch.device(device).type == "cuda"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fleet_chaos.main([] if cuda else ["--device", "cpu"])
+    seconds = time.perf_counter() - t0
+    verdict = json.loads(buf.getvalue())
+    keys = ("books_balance", "respawn_fired", "offered", "completed", "rejected", "failed",
+            "offered_rate_hz", "victim_pid", "respawned_pid", "fleet_p99_latency_s")
+    log(f"  (d) fleet_chaos in {seconds:.1f} s: rc {rc}, { {k: verdict[k] for k in keys} }")
+    check("24(d) tools.fleet_chaos at its defaults exits 0 with books_balance and respawn_fired",
+          rc == 0 and verdict["books_balance"] is True and verdict["respawn_fired"] is True,
+          f"rc {rc}, books_balance {verdict['books_balance']}, respawn_fired "
+          f"{verdict['respawn_fired']}")
+    return {k: verdict[k] for k in keys} | dict(seconds=seconds)
+
+
+def phase_fleet_integrity(fleet, blob, ship, pool, device="cuda"):
+    """24(e): a canary (the seed-1 TIMIT fit) rolled across both planes of
+    ``fleet``; then a ship corrupted through a ``fleet.rpc.send`` corrupt
+    rule quarantines the plane it boots."""
+    from keystone_tpu_torch.serving import export_plan
+    from keystone_tpu_torch.serving.fleet import FleetPlaneDied
+    from keystone_tpu_torch.serving.fleet_plane import encode_plan_ship
+
+    fitted2 = pickle.loads(blob)
+    plan2 = export_plan(fitted2, np.zeros(D_IN, np.float32), max_batch=SERVE_MAX_BATCH,
+                        device=device)
+    t0 = time.perf_counter()
+    results = fleet.offer_canary(encode_plan_ship(fitted2, plan2), timeout_s=300.0)
+    canary_s = time.perf_counter() - t0
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and any(
+            p["fingerprint"] != plan2.fingerprint for p in fleet.stats()["planes"].values()):
+        time.sleep(0.05)
+    fps = {n: p["fingerprint"] for n, p in fleet.stats()["planes"].items()}
+    rows = pool[:16]
+    served = np.stack([f.result(timeout=120) for f in [fleet.submit(r) for r in rows]])
+    bits = served.tobytes() == np.ascontiguousarray(plan2.apply_batch(list(rows))).tobytes()
+    outcome = {n: r.get("result", r) for n, r in results.items()}
+    log(f"  (e) canary in {canary_s:.1f} s: {outcome}; planes' fingerprints {fps}; rows after "
+        f"the roll bit-equal to the seed-1 plan: {bits}")
+    check("24(e) offer_canary publishes the seed-1 plan on both planes and switches their "
+          "fingerprints",
+          all(r.get("ok") and r["result"]["published"]
+              and r["result"]["fingerprint"] == plan2.fingerprint for r in results.values())
+          and set(fps.values()) == {plan2.fingerprint} and bits,
+          f"{results}, fingerprints {fps}, bits {bits}")
+    spec = json.dumps({"rules": [{"site": "fleet.rpc.send", "kind": "corrupt", "p": 1.0}],
+                       "seed": 0})
+    os.environ["KEYSTONE_FAULT_PLAN"] = spec
+    try:
+        qfleet = _fleet_router(ship, device, num_planes=1)
+    finally:
+        os.environ.pop("KEYSTONE_FAULT_PLAN", None)
+    try:
+        s = qfleet.stats()
+        reply = qfleet.plane_stats()["plane0"]
+        try:
+            qfleet.submit(pool[0]).result(timeout=60)
+            refused = None
+        except FleetPlaneDied as e:
+            refused = str(e)
+        s = qfleet.stats()
+    finally:
+        qfleet.close()
+    log(f"  (e) corrupted ship: quarantined {s['quarantined_planes']}, the plane says "
+        f"{reply and reply['quarantined']!r}; a request refused: {refused!r}")
+    check("24(e) a ship corrupted in transit quarantines its plane, which refuses by name and "
+          "serves nothing",
+          s["quarantined_planes"] == ["plane0"] and s["healthy_planes"] == 0
+          and reply is not None and "CRC" in (reply["quarantined"] or "")
+          and refused is not None and "quarantined" in refused
+          and s["completed"] == 0 and s["failed"] == 1 and qfleet.accounting_ok(),
+          f"{s['quarantined_planes']}, completed {s['completed']}, failed {s['failed']}, "
+          f"refused {refused!r}")
+    return dict(canary_s=canary_s, fingerprints=fps, quarantine=reply and reply["quarantined"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6900,6 +7283,19 @@ def main():
     control["sweep"].pop("dir")
     log(f"  phase 23 launches: {control['launches']}, and {CONTROL_CHECK_LAUNCHES} holding "
         f"kernels to their plain versions ({smi})")
+    phase("24", "the process fleet: TIMIT's plan on 2 plane processes, a SIGKILL under a "
+          "200 Hz storm, run.py serve --fleet, the chaos tool, quarantine and a canary")
+    torch.cuda.empty_cache()
+    fleet, fleet_ship, fleet_run = phase_fleet_serve(zoo_blobs[0], pool)
+    try:
+        fleet_run["kill"] = phase_fleet_kill(fleet, pool, fleet_run.pop("footprint"))
+        fleet_run["integrity"] = phase_fleet_integrity(fleet, zoo_blobs[1], fleet_ship, pool)
+    finally:
+        fleet.close()
+    del fleet, fleet_ship
+    fleet_run["cli"] = phase_fleet_cli(cuda_ops)
+    fleet_run["chaos"] = phase_fleet_chaos()
+    log(f"  phase 24 launches in the planes of (a): {fleet_run['launches']} ({smi})")
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -6936,6 +7332,11 @@ def main():
     # The control plane's launches (the whole of phase 23).
     for entry in kernels:
         entry["control_launches"] = control_counts[entry["name"]]
+    # The fleet's launches (phase 24(a): counted in each plane process from
+    # its spawn, summed over the planes).
+    for entry in kernels:
+        if entry["name"] in ("cosine_features", ROW_STABLE):
+            entry["fleet_launches"] = fleet_run["fleet_launches"][entry["name"]]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -6944,6 +7345,7 @@ def main():
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
                  SERVING: serving, LEARN: learn, DISK: disk, ZOO: zoo, CONTROL: control,
+                 FLEET: fleet_run,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

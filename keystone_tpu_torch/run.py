@@ -55,8 +55,14 @@ while the server runs, and ``--metrics-dir D`` writes atomic
 --apply`` artifact: serve flags left at their defaults are filled from its
 measured baseline, and the summary line stamps its provenance. Serve runs
 on the CUDA device unless given ``--device cpu``, and raises without one.
-The reference's ``--fleet`` (the process fleet, ROADMAP A.16d) is not
-ported yet: argparse refuses it.
+``--fleet N`` (default 1) ships the exported plan (split-plane encoded,
+fingerprint-verified on arrival) to N crash-contained plane processes,
+each a ``ReplicatedServer`` of ``--replicas`` replicas on the device serve
+runs on, behind the ``FleetRouter``'s admission door, and prints the
+fleet's exact books (``num_planes``, ``fleet_completed``, ...,
+``fleet_accounting_ok``); it exits 1 when the books do not balance, and
+refuses ``--autoscale`` and ``--tenants`` / ``--tenant-spec``, as the
+reference does.
 
 ``python -m keystone_tpu_torch.run learn [--input-dim 16 --out-dim 4
 --segments 24 --rate 200 --duration-s 8]`` runs the continuous-learning
@@ -219,6 +225,12 @@ def _serve(argv):
                         "(replicas, queue depth, SLO bound) fill in "
                         "any flag left at its default, and the summary "
                         "line stamps the artifact's provenance")
+    parser.add_argument("--fleet", type=int, default=1,
+                        help="serve through a FleetRouter fronting N "
+                        "crash-contained plane PROCESSES (each plane = "
+                        "a full ReplicatedServer with --replicas "
+                        "replicas, on the serving device); process "
+                        "kills are survived with exact books")
     parser.add_argument("--device", default=None,
                         help="serving device (default: the CUDA device; "
                         "'cpu' runs the kernels' plain versions)")
@@ -234,6 +246,7 @@ def _serve(argv):
         export_plan,
         run_open_loop,
     )
+    from keystone_tpu_torch.serving.batcher import frozen_heap
 
     plan_stamp = None
     if args.from_plan:
@@ -265,7 +278,27 @@ def _serve(argv):
             file=sys.stderr,
         )
         return 2
+    if args.fleet < 1:
+        print(f"serve: need --fleet >= 1 (got {args.fleet})",
+              file=sys.stderr)
+        return 2
+    if args.fleet > 1 and args.autoscale:
+        print(
+            "serve: --fleet and --autoscale are mutually exclusive "
+            "(the fleet's planes do their own admission; router-level "
+            "elasticity is ROADMAP work)",
+            file=sys.stderr,
+        )
+        return 2
+
     tenant_specs = _serve_tenant_specs(args)
+    if tenant_specs is not None and args.fleet > 1:
+        print(
+            "serve: --fleet and --tenants/--tenant-spec are mutually "
+            "exclusive (the zoo's multi-tenant plane is in-process)",
+            file=sys.stderr,
+        )
+        return 2
     if tenant_specs is not None and args.autoscale:
         print(
             "serve: --tenants/--tenant-spec and --autoscale are "
@@ -313,6 +346,10 @@ def _serve(argv):
     single_s = plan.measure_single_request_s()
     rng = np.random.default_rng(args.seed + 1)
     pool = rng.normal(size=(256, d_in)).astype(np.float32)
+
+    if args.fleet > 1:
+        return _serve_fleet(args, fitted, plan, single_s, export_s, pool,
+                            plan_stamp, device)
 
     # Live SLO objectives: a p99 latency bound plus availability,
     # publishing slo.state/burn gauges into their own registry, which the
@@ -368,11 +405,12 @@ def _serve(argv):
             # counters) beside the SLO verdict table.
             sources["autoscale"] = autoscaler.stats
         exporter = _live_exporter(args, sources, slo_tracker)
-        report = run_open_loop(
-            server.submit, lambda i: pool[i % len(pool)],
-            rate_hz=args.rate, duration_s=args.duration_s, seed=args.seed,
-            slo=slo_tracker,
-        )
+        with frozen_heap():
+            report = run_open_loop(
+                server.submit, lambda i: pool[i % len(pool)],
+                rate_hz=args.rate, duration_s=args.duration_s,
+                seed=args.seed, slo=slo_tracker,
+            )
         stats = server.stats()
     finally:
         if autoscaler is not None:
@@ -430,6 +468,89 @@ def _serve(argv):
             "breaker_state": stats.get("breaker_state"),
         })
     print(json.dumps(summary))
+    return 0
+
+
+def _serve_fleet(args, fitted, plan, single_s, export_s, pool, plan_stamp,
+                 device):
+    """``serve --fleet N``: the exported plan shipped (split-plane
+    encoded, fingerprint-verified on arrival) to N crash-contained plane
+    PROCESSES on ``device`` behind the FleetRouter's admission door,
+    driven with the same open-loop Poisson storm, summarized with the
+    fleet's exact books."""
+    import json
+
+    from keystone_tpu_torch.serving import run_open_loop
+    from keystone_tpu_torch.serving.batcher import frozen_heap
+    from keystone_tpu_torch.serving.fleet import FleetRouter
+    from keystone_tpu_torch.serving.fleet_plane import encode_plan_ship
+
+    try:
+        ship = encode_plan_ship(fitted, plan)
+    except Exception as e:  # noqa: BLE001 — one-line serve contract
+        print(
+            f"serve: plan ship encode failed: {type(e).__name__}: {e}",
+            file=sys.stderr,
+        )
+        return 1
+    fleet = FleetRouter(
+        ship,
+        num_planes=args.fleet,
+        replicas_per_plane=max(1, args.replicas),
+        max_outstanding=args.queue_depth,
+        restart_budget=args.restart_budget,
+        plane_cfg={
+            "max_wait_ms": args.max_wait_ms,
+            "max_queue_depth": args.queue_depth,
+            "device": str(device),
+        },
+    )
+    try:
+        with frozen_heap():
+            report = run_open_loop(
+                fleet.submit, lambda i: pool[i % len(pool)],
+                rate_hz=args.rate, duration_s=args.duration_s,
+                seed=args.seed,
+            )
+        stats = fleet.stats()
+        books_ok = fleet.accounting_ok()
+    finally:
+        fleet.close()
+    summary = report.to_row_dict()
+    summary.update({
+        "single_request_s": round(single_s, 6),
+        "export_s": round(export_s, 6),
+        "buckets": plan.buckets,
+        "plan_fingerprint": plan.fingerprint,
+        "max_wait_ms": args.max_wait_ms,
+        "num_planes": stats["num_planes"],
+        "replicas_per_plane": max(1, args.replicas),
+        "healthy_planes": stats["healthy_planes"],
+        "evicted_planes": stats["evicted_planes"],
+        "quarantined_planes": stats["quarantined_planes"],
+        "restarts_total": stats["restarts_total"],
+        "aggregate_offered": stats["aggregate_offered"],
+        "fleet_completed": stats["completed"],
+        "fleet_rejected": stats["rejected"],
+        "fleet_failed": stats["failed"],
+        "fleet_p99_latency_s": stats["fleet_p99_latency_s"],
+        "planes": stats["planes"],
+        "fleet_accounting_ok": books_ok,
+    })
+    if plan_stamp is not None:
+        summary["plan_artifact"] = plan_stamp
+    print(json.dumps(summary))
+    if not books_ok:
+        # The fleet invariant is the contract this mode exists for — a
+        # summary with unbalanced books must not exit 0.
+        print(
+            "serve: fleet books do NOT balance (offered "
+            f"{stats['aggregate_offered']} != completed "
+            f"{stats['completed']} + rejected {stats['rejected']} + "
+            f"failed {stats['failed']})",
+            file=sys.stderr,
+        )
+        return 1
     return 0
 
 
@@ -821,6 +942,7 @@ def _serve_zoo(args, fitted, d_in, tenant_specs, device, plan_stamp=None):
         export_plan,
         run_multi_tenant_open_loop,
     )
+    from keystone_tpu_torch.serving.batcher import frozen_heap
 
     names = [s["id"] for s in tenant_specs]
     if len(set(names)) != len(names):
@@ -887,13 +1009,14 @@ def _serve_zoo(args, fitted, d_in, tenant_specs, device, plan_stamp=None):
         )
         rng = np.random.default_rng(args.seed + 1)
         pool = rng.normal(size=(256, d_in)).astype(np.float32)
-        report = run_multi_tenant_open_loop(
-            zoo.submit,
-            lambda tenant, i: pool[i % len(pool)],
-            rates_hz={s["id"]: s["rate_hz"] for s in tenant_specs},
-            duration_s=args.duration_s, seed=args.seed,
-            slos=slos or None,
-        )
+        with frozen_heap():
+            report = run_multi_tenant_open_loop(
+                zoo.submit,
+                lambda tenant, i: pool[i % len(pool)],
+                rates_hz={s["id"]: s["rate_hz"] for s in tenant_specs},
+                duration_s=args.duration_s, seed=args.seed,
+                slos=slos or None,
+            )
         stats = zoo.stats()
     except ValueError as e:
         # A tenant larger than the whole budget (add_tenant's refusal).

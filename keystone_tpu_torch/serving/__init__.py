@@ -35,7 +35,13 @@ into something that serves streams of single-datum requests:
     quality), canary rollout with rollback, the post-promotion
     attribution window and the model-staleness clock.
 
-The reference's process fleet (``serving/fleet*.py``) is not ported yet.
+  - the process fleet (imported by module path, as in the reference):
+    :class:`~keystone_tpu_torch.serving.fleet.FleetRouter` fronts N
+    crash-contained plane processes (``fleet_plane.plane_main``, each a
+    full :class:`ReplicatedServer`) over the CRC-framed socket RPC of
+    ``fleet_rpc``: plans ship split-plane encoded and fingerprint-verified,
+    a dead plane's in-flight requests fail by name and it is respawned
+    within a budget, and the books balance exactly across a kill.
 """
 
 from .autoscale import AutoscaleDecision, Autoscaler

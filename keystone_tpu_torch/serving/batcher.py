@@ -62,6 +62,8 @@ offending traces.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import threading
 import time
@@ -89,6 +91,46 @@ __all__ = [
     "ServerDegraded",
     "ServerOverloaded",
 ]
+
+
+_HEAP_LOCK = threading.Lock()
+_HEAP_DEPTH = 0
+
+
+@contextlib.contextmanager
+def frozen_heap():
+    """Serve with the heap built so far out of the garbage collector's
+    reach (port only; ROADMAP C.14).
+
+    A full (generation 2) collection walks every tracked object of the
+    process, torch's module state and the fitted pipelines most of it,
+    and stops every serving thread and submitter while it runs. On an
+    H100's host such a pass paused the eight-tenant isolation drill for
+    0.18-0.31 s; the open-loop arrivals of the paused window then landed
+    as one burst past a base-rate tenant's queue cap of 8. The outermost
+    such block collects once and freezes what survives (``gc.freeze()``),
+    so collections inside it walk only what was made since; its exit
+    hands the heap back (``gc.unfreeze()``), even if the block raised.
+    Nested blocks do nothing.
+
+    CPython unfreezes its whole permanent generation at once, whoever
+    froze it, so this belongs to the code that owns the process's heap
+    (``run.py serve``, a fleet plane's ``plane_main``), not to a server
+    class.
+    """
+    global _HEAP_DEPTH
+    with _HEAP_LOCK:
+        _HEAP_DEPTH += 1
+        if _HEAP_DEPTH == 1:
+            gc.collect()
+            gc.freeze()
+    try:
+        yield
+    finally:
+        with _HEAP_LOCK:
+            _HEAP_DEPTH -= 1
+            if _HEAP_DEPTH == 0:
+                gc.unfreeze()
 
 
 class ServerOverloaded(RuntimeError):

@@ -71,6 +71,10 @@ out.
 Per-tenant servers are :class:`~keystone_tpu_torch.serving.batcher
 .MicroBatchServer`\\ s; ``replicas_per_tenant > 1`` fronts each tenant
 with a :class:`~keystone_tpu_torch.serving.replicas.ReplicatedServer`.
+
+Isolation against the collector (ROADMAP C.14): a zoo freezes nothing
+itself; the process that owns the heap serves its storm inside
+:func:`~keystone_tpu_torch.serving.batcher.frozen_heap`.
 """
 
 from __future__ import annotations

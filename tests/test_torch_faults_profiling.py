@@ -259,15 +259,27 @@ class TestServeCLI:
     @pytest.mark.parametrize("flag", ["--fleet", "--from-plan", "--metrics-port",
                                       "--metrics-dir"])
     def test_unported_flags_are_refused(self, flag, tmp_path, capsys):
-        """The name is kept from when all four flags were refused. ``--fleet``
-        (the process fleet) still is; the live plane's flags and
-        ``--from-plan`` are ported and work."""
+        """The name is kept from when all four flags were refused. All four
+        are ported now: ``--fleet 2`` serves through two CPU plane
+        processes with balanced fleet books, and refuses ``--fleet 0`` and
+        ``--fleet 2 --autoscale`` as the reference does; the live plane's
+        flags and ``--from-plan`` work."""
         from keystone_tpu_torch import run
 
         if flag == "--fleet":
-            with pytest.raises(SystemExit) as exc:
-                run.main(["serve", "--device", "cpu", flag, "1"])
-            assert exc.value.code == 2
+            rc = run.main(SERVE_TINY + [flag, "2"])
+            summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            assert rc == 0 and summary["fleet_accounting_ok"] is True
+            assert summary["num_planes"] == 2 and summary["healthy_planes"] == 2
+            assert summary["aggregate_offered"] == summary["num_offered"] > 0
+            assert summary["fleet_completed"] + summary["fleet_rejected"] + \
+                summary["fleet_failed"] == summary["aggregate_offered"]
+            assert summary["export_s"] > 0
+            assert run.main(SERVE_TINY + [flag, "0"]) == 2
+            assert "need --fleet >= 1" in capsys.readouterr().err
+            assert run.main(SERVE_TINY + [flag, "2", "--autoscale",
+                                          "--slo-p99-ms", "50"]) == 2
+            assert "--fleet and --autoscale are mutually exclusive" in capsys.readouterr().err
             return
         if flag == "--from-plan":
             from keystone_tpu_torch.placement.planner import CapacityPlanner

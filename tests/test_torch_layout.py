@@ -77,7 +77,8 @@ def test_port_has_modules():
                 "data/images.py", "native/__init__.py", "serving/zoo.py",
                 "serving/autoscale.py", "obs/calibrate.py", "obs/live.py",
                 "placement/planner.py", "tools/calibrate.py", "tools/trace.py",
-                "tools/slo.py", "tools/plan.py"):
+                "tools/slo.py", "tools/plan.py", "serving/fleet_rpc.py",
+                "serving/fleet_plane.py", "serving/fleet.py", "tools/fleet_chaos.py"):
         assert rel in rels
 
 
@@ -140,8 +141,9 @@ def test_learning_package_exports_the_streaming_tiers():
                                     "export", "lifecycle"])
 def test_serving_package_exports_the_references(module):
     # Every name the reference's serving package takes from each of its
-    # ported modules (the zoo, the autoscaler, the multi-tenant loadgen
-    # among them); the process fleet is not ported.
+    # modules (the zoo, the autoscaler, the multi-tenant loadgen among
+    # them); the process fleet's modules (serving/fleet*.py) are imported
+    # by module path in both packages, not re-exported.
     from keystone_tpu_torch import serving
 
     names = _reference_exports("serving/__init__.py", module)

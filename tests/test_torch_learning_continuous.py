@@ -409,6 +409,16 @@ class TestLearnCLI:
         assert summary["num_published"] >= 1
         assert summary["num_published"] + summary["rollbacks"] == 2
 
+    def test_fleet_is_refused(self, capsys):
+        """``--fleet`` is serve's; ``learn`` has no such flag, as in the
+        reference, and argparse refuses it."""
+        from keystone_tpu_torch import run
+
+        with pytest.raises(SystemExit) as e:
+            run.main(["learn", "--device", "cpu", "--fleet", "2"])
+        assert e.value.code == 2
+        assert "--fleet" in capsys.readouterr().err
+
     def test_metrics_flags_are_refused(self, capsys, tmp_path):
         """The name is kept from when the live plane's flags were refused:
         ``learn --metrics-dir`` now writes a snapshot with the lifecycle and

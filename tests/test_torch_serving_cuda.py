@@ -2,9 +2,11 @@
 CUDA graphs at export, the warm path never capturing, launch counts across
 replays, two replicas hammering one captured bucket, a failed capture,
 the fingerprints of CUDA tensors, captures that garbage collection cannot
-break, and the model zoo's page round trip
+break, the model zoo's page round trip
 (memory freed, bits and launches kept) and a page-in captured while another
-tenant replays.
+tenant replays, and the process fleet on the card (two plane processes
+serving every bucket bit-equal to the parent's plan, each launching the
+kernels; a SIGKILLed plane's device memory returned after the respawn).
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports neither JAX nor the JAX package, so that it runs on
@@ -386,3 +388,77 @@ class TestZooOnCard:
             assert zoo.stats()["accounting_ok"] and zoo.stats()["quarantined"] == 0
         finally:
             zoo.close()
+
+
+def _fleet_on_card(ship, num_planes=2):
+    from keystone_tpu_torch.serving.fleet import FleetRouter
+
+    return FleetRouter(ship, num_planes=num_planes, replicas_per_plane=1,
+                       heartbeat_interval_s=0.1, heartbeat_timeout_s=5.0,
+                       restart_budget=2, startup_timeout_s=180.0,
+                       plane_cfg={"device": "cuda"})
+
+
+def _free_bytes():
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+@pytest.mark.cuda
+class TestFleetOnCard:
+    """The process fleet with its planes on the card: each plane is its own
+    process with its own CUDA context, bucket captures and launch
+    counters."""
+
+    def test_two_planes_serve_every_bucket_bit_equal(self, cuda_device):
+        from keystone_tpu_torch.serving.fleet_plane import encode_plan_ship
+
+        fitted, plan, X = _cosine_plan(cuda_device, max_batch=16, seed=6)
+        fleet = _fleet_on_card(encode_plan_ship(fitted, plan))
+        try:
+            for b in plan.buckets:
+                want = plan.apply_batch(list(X[:b]))
+                got = np.stack([f.result(timeout=120) for f in
+                                [fleet.submit(x) for x in X[:b]]])
+                assert got.tobytes() == np.ascontiguousarray(want).tobytes(), b
+            launches = {n: r["launches"] for n, r in fleet.plane_stats().items()}
+            stats = fleet.stats()
+        finally:
+            fleet.close()
+        assert all(p["completed"] > 0 for p in stats["planes"].values())
+        for name, counts in launches.items():
+            assert counts["cosine_features"] > 0 and counts["row_stable_matmul"] > 0, name
+        assert fleet.accounting_ok()
+
+    def test_a_killed_planes_memory_is_returned(self, cuda_device):
+        import os
+        import signal
+        import time
+
+        from keystone_tpu_torch.serving.fleet_plane import encode_plan_ship
+
+        fitted, plan, X = _cosine_plan(cuda_device, max_batch=16, seed=7)
+        ship = encode_plan_ship(fitted, plan)
+        free0 = _free_bytes()
+        fleet = _fleet_on_card(ship)
+        try:
+            footprint = (free0 - _free_bytes()) / 2
+            fleet.submit(X[0]).result(timeout=120)
+            free_before = _free_bytes()
+            victim = fleet.plane_pids()["plane0"]
+            os.kill(victim, signal.SIGKILL)
+            deadline = time.monotonic() + 180.0
+            while time.monotonic() < deadline:
+                s = fleet.stats()
+                if s["restarts_total"] >= 1 and s["healthy_planes"] == 2:
+                    break
+                time.sleep(0.05)
+            assert fleet.plane_pids()["plane0"] not in (None, victim)
+            free_after = _free_bytes()
+            fleet.submit(X[0]).result(timeout=120)
+        finally:
+            fleet.close()
+        assert footprint > 0
+        # A context left behind by the dead plane would take a whole
+        # plane's footprint.
+        assert free_before - free_after < footprint / 2, (free_before, free_after, footprint)
