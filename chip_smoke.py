@@ -382,14 +382,24 @@ started together), then:
          fingerprints switched, rows bit-equal to its plan), then a ship
          corrupted by a ``fleet.rpc.send`` corrupt rule quarantines its
          plane;
+       - (d) ``tools.fleet_chaos``'s drill on (a)'s fleet (4 tenants at
+         200 Hz, the first plane SIGKILLed halfway): ``books_balance`` and
+         ``respawn_fired``;
        - (c) ``run.py serve --fleet 2`` at MnistRandomFFT's defaults at
-         200 Hz (exit 0, the fleet's books, none failed), beside
-         ``--replicas 2``;
-       - (d) ``python -m keystone_tpu_torch.tools.fleet_chaos`` at its
-         defaults: ``books_balance`` and ``respawn_fired``.
+         200 Hz (exit 0, the fleet's books, none failed).
      The planes are spawned (a forked child cannot use CUDA once the parent
      has), so they re-import this script as ``__mp_main__``: it does no
      work at module level.
+ 25. The one-host mesh (``parallel/mesh.py``) with 8 shards on the card:
+     each kernel of the mesh path held to its plain version at the shard
+     shapes; (a) TIMIT ``--solver block`` on rows sharded over the mesh
+     (``Dataset.shard``), its weights held to phase 2's apply-first fit;
+     (b) ``streaming_bcd_fit_mesh_centered`` on the cosine bank against
+     ``streaming_bcd_fit_centered``; (c) the block-streamed tier's mesh
+     form against its one-device form on 32,668 rows padded to 32,768;
+     (d) ``tools.multichip``'s leg, parity within 5e-5. Each part's
+     launches are counted from 0 and checked; the kernels line carries
+     them as ``mesh_launches``.
 
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -6731,8 +6741,7 @@ FLEET = ("process fleet: TIMIT's plan shipped to plane processes, a SIGKILL unde
 # on 2 planes of 1 replica; a 200 Hz storm of 3 s with plane0 SIGKILLed
 # halfway.
 FLEET_PLANES, FLEET_STORM_HZ, FLEET_STORM_S = 2, 200.0, 3.0
-# 24(c): run.py serve --fleet 2 at MnistRandomFFT's defaults, beside
-# --replicas 2 at the same rate.
+# 24(c): run.py serve --fleet 2 at MnistRandomFFT's defaults.
 FLEET_CLI_RATE, FLEET_CLI_S = 200.0, 2.0
 # 24(b): the card's free memory after the respawn against before the kill.
 FLEET_MEM_TOL = 0.05
@@ -6928,11 +6937,12 @@ def phase_fleet_kill(fleet, pool, footprint, device="cuda"):
 
 
 def phase_fleet_cli(cuda_ops, device="cuda"):
-    """24(c): run.py serve --fleet 2 at MnistRandomFFT's defaults, then
-    --replicas 2 at the same rate (a reading, in this process), each with
-    this process's full (generation 2) garbage collections logged: serve
-    runs its storm with the heap frozen (C.14), and its first collection
-    is the one that freezes it."""
+    """24(c): run.py serve --fleet 2 at MnistRandomFFT's defaults, with this
+    process's full (generation 2) garbage collections logged: serve runs
+    its storm with the heap frozen (C.14), and its first collection is the
+    one that freezes it. (The in-process --replicas 2 reading beside it
+    went in PR 26: phase 19(b) runs that mode, and
+    scripts/torch_fleet_tail.py compares the two tails.)"""
     import contextlib
     import gc
     import io
@@ -6941,78 +6951,67 @@ def phase_fleet_cli(cuda_ops, device="cuda"):
     from keystone_tpu_torch.workflow import PipelineEnv
 
     cuda = torch.device(device).type == "cuda"
-    out = {}
-    for flag in ("--fleet", "--replicas"):
-        PipelineEnv.get_or_create().reset()
-        argv = ["serve", "--rate", str(FLEET_CLI_RATE), "--duration-s", str(FLEET_CLI_S),
-                flag, "2"] + ([] if cuda else ["--device", "cpu"])
-        buf = io.StringIO()
-        full, started = [], []  # (start s into the run, pause s); a start's time
+    PipelineEnv.get_or_create().reset()
+    argv = ["serve", "--rate", str(FLEET_CLI_RATE), "--duration-s", str(FLEET_CLI_S),
+            "--fleet", "2"] + ([] if cuda else ["--device", "cpu"])
+    buf = io.StringIO()
+    full, started = [], []  # (start s into the run, pause s); a start's time
 
-        def on_gc(stage, info):
-            if info["generation"] == 2 and stage == "start":
-                started.append(time.perf_counter())
-            elif info["generation"] == 2 and started:
-                t = started.pop()
-                full.append((round(t - t0, 3), round(time.perf_counter() - t, 4)))
+    def on_gc(stage, info):
+        if info["generation"] == 2 and stage == "start":
+            started.append(time.perf_counter())
+        elif info["generation"] == 2 and started:
+            t = started.pop()
+            full.append((round(t - t0, 3), round(time.perf_counter() - t, 4)))
 
-        t0 = time.perf_counter()
-        gc.callbacks.append(on_gc)
-        try:
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main(argv)
-        finally:
-            gc.callbacks.remove(on_gc)
-        seconds = time.perf_counter() - t0
-        PipelineEnv.get_or_create().reset()
-        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
-        out[flag.strip("-")] = dict(rc=rc, seconds=seconds, summary=summary, full_gc=full)
-    fleet, rep = out["fleet"]["summary"], out["replicas"]["summary"]
+    t0 = time.perf_counter()
+    gc.callbacks.append(on_gc)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        gc.callbacks.remove(on_gc)
+    seconds = time.perf_counter() - t0
+    PipelineEnv.get_or_create().reset()
+    fleet = json.loads(buf.getvalue().strip().splitlines()[-1])
     log(f"  (c) serve --fleet 2: {json.dumps(fleet)}")
-    log(f"  (c) full collections (s into the run, pause s): --fleet 2 {out['fleet']['full_gc']}; "
-        f"--replicas 2 {out['replicas']['full_gc']}")
+    log(f"  (c) full collections (s into the run, pause s): {full}")
     log(f"  (c) at {FLEET_CLI_RATE:.0f} Hz: --fleet 2 p50 {fleet['p50_latency_ms']} ms, p99 "
-        f"{fleet['p99_latency_ms']} ms ({out['fleet']['seconds']:.1f} s with the fit and the "
-        f"planes' boot); --replicas 2 p50 {rep['p50_latency_ms']} ms, p99 "
-        f"{rep['p99_latency_ms']} ms ({out['replicas']['seconds']:.1f} s)")
+        f"{fleet['p99_latency_ms']} ms ({seconds:.1f} s with the fit and the planes' boot)")
     check("24(c) serve --fleet 2: exit 0, the fleet's books balance, none failed",
-          out["fleet"]["rc"] == 0 and fleet["fleet_accounting_ok"] is True
+          rc == 0 and fleet["fleet_accounting_ok"] is True
           and fleet["fleet_failed"] == 0 and fleet["num_planes"] == 2
           and fleet["healthy_planes"] == 2,
-          f"rc {out['fleet']['rc']}, offered {fleet['aggregate_offered']}, completed "
+          f"rc {rc}, offered {fleet['aggregate_offered']}, completed "
           f"{fleet['fleet_completed']}, rejected {fleet['fleet_rejected']}, failed "
           f"{fleet['fleet_failed']}")
-    check("24(c) serve --replicas 2 at the same rate: exit 0", out["replicas"]["rc"] == 0,
-          f"rc {out['replicas']['rc']}")
     return dict(fleet=dict(p50_ms=fleet["p50_latency_ms"], p99_ms=fleet["p99_latency_ms"],
-                           seconds=out["fleet"]["seconds"], full_gc=out["fleet"]["full_gc"]),
-                replicas=dict(p50_ms=rep["p50_latency_ms"], p99_ms=rep["p99_latency_ms"],
-                              seconds=out["replicas"]["seconds"],
-                              full_gc=out["replicas"]["full_gc"]))
+                           seconds=seconds, full_gc=full))
 
 
-def phase_fleet_chaos(device="cuda"):
-    """24(d): ``python -m keystone_tpu_torch.tools.fleet_chaos`` at its
-    defaults, in this process."""
-    import contextlib
-    import io
-
+def phase_fleet_chaos(fleet, pool, device="cuda"):
+    """24(d): ``tools.fleet_chaos``'s drill (``fleet_chaos.drill``: a
+    4-tenant open-loop storm, the first plane SIGKILLed halfway, the
+    respawn, the books) on (a)'s fleet, which (e) has rolled to the seed-1
+    plan: the tool's own run fits and boots a fleet of its own
+    (tests/test_torch_storm_heap.py runs it whole on the CPU)."""
     from keystone_tpu_torch.tools import fleet_chaos
 
-    cuda = torch.device(device).type == "cuda"
-    buf = io.StringIO()
+    rates = {f"t{i}": FLEET_STORM_HZ / 4 for i in range(4)}
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = fleet_chaos.main([] if cuda else ["--device", "cpu"])
+    verdict = fleet_chaos.drill(fleet, pool, rates, duration_s=FLEET_STORM_S, seed=25,
+                                respawn_timeout_s=180.0)
     seconds = time.perf_counter() - t0
-    verdict = json.loads(buf.getvalue())
-    keys = ("books_balance", "respawn_fired", "offered", "completed", "rejected", "failed",
-            "offered_rate_hz", "victim_pid", "respawned_pid", "fleet_p99_latency_s")
-    log(f"  (d) fleet_chaos in {seconds:.1f} s: rc {rc}, { {k: verdict[k] for k in keys} }")
-    check("24(d) tools.fleet_chaos at its defaults exits 0 with books_balance and respawn_fired",
-          rc == 0 and verdict["books_balance"] is True and verdict["respawn_fired"] is True,
-          f"rc {rc}, books_balance {verdict['books_balance']}, respawn_fired "
-          f"{verdict['respawn_fired']}")
+    keys = ("books_balance", "respawn_fired", "loadgen_books_balance", "offered", "completed",
+            "rejected", "failed", "victim_pid", "respawned_pid", "restarts_total",
+            "fleet_p99_latency_s")
+    log(f"  (d) fleet_chaos.drill on (a)'s fleet in {seconds:.1f} s: "
+        f"{ {k: verdict[k] for k in keys} }")
+    check("24(d) the chaos drill on (a)'s fleet: books balance, the killed plane respawned",
+          fleet_chaos.verdict_ok(verdict),
+          f"books_balance {verdict['books_balance']}, respawn_fired {verdict['respawn_fired']}, "
+          f"loadgen books {verdict['loadgen_books_balance']}, pids {verdict['victim_pid']} -> "
+          f"{verdict['respawned_pid']}")
     return {k: verdict[k] for k in keys} | dict(seconds=seconds)
 
 
@@ -7076,6 +7075,400 @@ def phase_fleet_integrity(fleet, blob, ship, pool, device="cuda"):
           f"{s['quarantined_planes']}, completed {s['completed']}, failed {s['failed']}, "
           f"refused {refused!r}")
     return dict(canary_s=canary_s, fingerprints=fps, quarantine=reply and reply["quarantined"])
+
+
+MESH = ("one-host mesh: 8 shards on one card, TIMIT --solver block on sharded rows, the "
+        "streamed and block-streamed mesh folds, tools.multichip")
+MESH_SHARDS = 8
+# 25(b): the streamed mesh fold on 131,072 rows, 16,384 a shard: one tile a
+# shard (the tile of phase 4, 32,768 rows, cut to the shard), four tiles on
+# one device.
+MESH_STREAM_N = 131072
+# 25(c): the block-streamed tier's mesh form on 32,768 rows, the last 100
+# padding (the last shard holds 3,996 valid rows of 4,096).
+MESH_BLOCK_N, MESH_BLOCK_PAD = 32768, 100
+# 25(d): tools.multichip at the reference's chip leg (tests/test_multichip.py
+# TestMultichipOnChips): n = 2,000,000 padded-COO rows of 64 lanes, d =
+# 4,096, 31 chunks of 65,536 rows (4 a shard, the last shard's 3), where
+# the EC2 prices pick 8 x 1 (at n = 500,000 the one psum of the 4,096²
+# Gramian outprices the fold, and 1 x 1 wins).
+MESH_MC_ARGV = ["--n", "2000000", "--d", "4096", "--nnz", "64", "--chunk", "65536",
+                "--seg", "4", "--iters", "30"]
+# The CPU tests' tolerances (tests/test_torch_mesh_solvers.py): the mesh
+# BCD's weights and the folded statistics 1e-5 relative Frobenius of the
+# one-device form's (the psum reassociates the shards' sums); the streamed
+# fits' models 1e-4 (held on predictions: see phase_mesh_streamed).
+MESH_BCD_TOL, MESH_STREAM_TOL = 1e-5, 1e-4
+
+
+def _mesh(device):
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+    return mesh_lib.make_mesh((MESH_SHARDS,), devices=[device] * MESH_SHARDS)
+
+
+def _hold(cuda_ops, label, got_fn, want, scale, tol, mask=None):
+    """One kernel call at a mesh shard's shape against its plain version:
+    the largest error relative to the sums' scale (over ``mask``)."""
+    got = got_fn()
+    if isinstance(got, tuple):
+        got = torch.cat([g.reshape(-1) for g in got])
+        want = torch.cat([w.reshape(-1) for w in want])
+        scale = torch.cat([c.reshape(-1) for c in scale])
+    diff = (got.float() - want.float()).abs()
+    if mask is not None:
+        diff, scale = diff[mask], scale[mask]
+    err = diff.max().item()
+    rel = (diff / scale).max().item()
+    check(f"25 {label}", rel <= tol, f"max_abs_err {err:.3e} ({rel:.2e} of scale, tol {tol:.0e})")
+    return err
+
+
+def phase_mesh_shapes(cuda_ops, device="cuda"):
+    """25: each kernel of the mesh path against its plain version at the
+    shard shapes phase 25 gives it (launches not counted as the path's):
+    a cosine branch and a centred block of 25(a)'s 8,192-row shard, a
+    16,384-row tile of 25(b), a 4,096-row block slab of 25(c), a 65,536-row
+    chunk of 25(d). Tolerances of phase 1: the cosine 1e-5 absolute, the
+    sums 1e-4 of their scale (|terms| summed)."""
+    gen = torch.Generator(device=device).manual_seed(25)
+    errs = {}
+    rows = N_TRAIN // MESH_SHARDS
+    X = torch.randn((rows, D_IN), generator=gen, device=device) * 0.6
+    W = torch.randn((BLOCK, D_IN), generator=gen, device=device) * 0.05555
+    b = torch.rand((BLOCK,), generator=gen, device=device) * 6.283185307179586
+    errs["cosine_features"] = _hold(
+        cuda_ops, f"cosine_features X {rows}x{D_IN} @ {BLOCK}x{D_IN} (a 25(a) shard)",
+        lambda: cuda_ops.cosine_features(X, W, b), cuda_ops.cosine_features_ref(X, W, b),
+        torch.ones(rows, BLOCK, device=device), 1e-5)
+    A = cuda_ops.cosine_features(X, W, b)
+    A -= A.mean(dim=0)
+    R = torch.randn((rows, K), generator=gen, device=device)
+    scale = (A.abs().T @ A.abs(), A.abs().T @ R.abs())
+    errs["gram_corr_sym"] = _hold(
+        cuda_ops, f"gram_corr_sym A {rows}x{BLOCK}, R {rows}x{K} (a 25(a) shard)",
+        lambda: cuda_ops.gram_corr_sym(A, R), cuda_ops.gram_corr_sym_ref(A, R), scale, 1e-4)
+    del X, W, b, A, R, scale
+    tile = MESH_STREAM_N // MESH_SHARDS
+    F = torch.randn((tile, D_FEAT), generator=gen, device=device)
+    G0 = torch.randn((D_FEAT, D_FEAT), generator=gen, device=device)
+    tiles = torch.arange(D_FEAT, device=device) // 128
+    upper = tiles[:, None] <= tiles[None, :]
+    errs["gram_sym_acc"] = _hold(
+        cuda_ops, f"gram_sym_acc F {tile}x{D_FEAT} (a 25(b) shard's tile), upper tiles",
+        lambda: cuda_ops.gram_sym_acc(G0, F), cuda_ops.gram_sym_acc_ref(G0, F),
+        torch.addmm(G0.abs(), F.abs().T, F.abs()), 1e-4, mask=upper)
+    del F, G0, tiles, upper
+    torch.cuda.empty_cache() if torch.device(device).type == "cuda" else None
+    rows = MESH_BLOCK_N // MESH_SHARDS
+    F = torch.randn((rows, BLOCK), generator=gen, device=device)
+    R = torch.randn((rows, K), generator=gen, device=device)
+    dW = torch.randn((BLOCK, K), generator=gen, device=device) * 1e-2
+    errs["block_corr"] = _hold(
+        cuda_ops, f"block_corr F {rows}x{BLOCK}, R {rows}x{K} (a 25(c) shard's slab)",
+        lambda: cuda_ops.block_corr(F, 0, BLOCK, R), cuda_ops.block_corr_ref(F, 0, BLOCK, R),
+        F.abs().T @ R.abs(), 1e-4)
+    errs["block_residual_update"] = _hold(
+        cuda_ops, f"block_residual_update F {rows}x{BLOCK}, dW {BLOCK}x{K} (a 25(c) shard)",
+        lambda: cuda_ops.block_residual_update(F, 0, BLOCK, dW, R),
+        cuda_ops.block_residual_update_ref(F, 0, BLOCK, dW, R),
+        R.abs() + F.abs() @ dW.abs(), 1e-4)
+    del F, R, dW
+    chunk, d = int(MESH_MC_ARGV[7]), int(MESH_MC_ARGV[3])
+    F = torch.randn((chunk, d), generator=gen, device=device)
+    Yc = torch.randn((chunk, 2), generator=gen, device=device)
+    G0 = torch.zeros((d, d), device=device)
+    C0 = torch.zeros((d, 2), device=device)
+    tiles = torch.arange(d, device=device) // 128
+    upper = torch.cat([(tiles[:, None] <= tiles[None, :]).reshape(-1),
+                       torch.ones(d * 2, dtype=torch.bool, device=device)])
+    errs["gram_corr_sym_acc"] = _hold(
+        cuda_ops, f"gram_corr_sym_acc F {chunk}x{d}, R {chunk}x2 (a 25(d) chunk), upper tiles",
+        lambda: cuda_ops.gram_corr_sym_acc(G0, C0, F, Yc),
+        cuda_ops.gram_corr_sym_acc_ref(G0, C0, F, Yc),
+        (F.abs().T @ F.abs(), F.abs().T @ Yc.abs()), 1e-4, mask=upper)
+    del F, Yc, G0, C0
+    return errs
+
+
+def _launches_since(cuda_ops):
+    return {k: v for k, v in cuda_ops.launches.items() if v}
+
+
+def phase_mesh_timit(cuda_ops, timit, TimitConfig, stacked, smi, device="cuda"):
+    """25(a): TIMIT --solver block (timit.run's pipeline: the featurizer,
+    BlockLeastSquares, MaxClassifier) on phase 2's rows and draws, sharded
+    over 8 shards: the fit falls back from the fused flat fit, as the
+    reference's does on a mesh; each shard's cosine branches, then the
+    mesh BCD (each shard's gram_corr_sym in epoch 1, one psum a block
+    step). Weights and affine offset held against phase 2's apply-first
+    (stacked) fit, the one-device fit of the same iterates."""
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    mesh = _mesh(device)
+    PipelineEnv.get_or_create().reset()
+    config = TimitConfig(solver="block", num_cosines=NUM_COSINES, block_size=BLOCK,
+                         synthetic_n=N_TRAIN, num_epochs=EPOCHS)
+    train = synthetic_timit(N_TRAIN, seed=config.seed, device=device)
+    test = synthetic_timit(N_TRAIN // 4, seed=config.seed + 1, device=device)
+    labels = ClassLabelIndicatorsFromIntLabels(K)(train.labels)
+    data, sharded_labels = train.data.shard(mesh), labels.shard(mesh)
+    pipeline = timit.build_featurizer(config, device).and_then(
+        BlockLeastSquaresEstimator(BLOCK, EPOCHS, config.lam), data, sharded_labels,
+    ).and_then(MaxClassifier())
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fitted = pipeline.fit()
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    fit_counts = _launches_since(cuda_ops)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_pred = fitted.apply(data)
+    test_pred = fitted.apply(test.data.shard(mesh))
+    _sync(device)
+    apply_s = time.perf_counter() - t0
+    apply_counts = _launches_since(cuda_ops)
+    PipelineEnv.get_or_create().reset()
+    evaluator = MulticlassClassifierEvaluator(K)
+    train_eval = evaluator.evaluate(train_pred, train.labels)
+    test_eval = evaluator.evaluate(test_pred, test.labels)
+    W, offset = block_model(fitted)
+    rel_W, rel_off = _rel(W, stacked[0]), _rel(offset, stacked[1])
+    log(f"  (a) {MESH_SHARDS} shards of {N_TRAIN // MESH_SHARDS} rows, d={D_FEAT}, k={K}, block "
+        f"{BLOCK}, {EPOCHS} epochs: fit {fit_s:.3f} s, apply (train + test) {apply_s:.3f} s, "
+        f"train error {100 * train_eval.total_error:.3f}%, test error "
+        f"{100 * test_eval.total_error:.3f}%; weights {rel_W:.3e}, offset {rel_off:.3e} "
+        f"relative to phase 2's one-device fit; launches fit {fit_counts}, apply "
+        f"{apply_counts} ({smi})")
+    want = {"cosine_features": NUM_COSINES * MESH_SHARDS,
+            "gram_corr_sym": NUM_COSINES * MESH_SHARDS}
+    check("25(a) the fit's launches: each shard's cosine branches and its gram_corr_sym a "
+          "block in epoch 1, nothing of the fused flat fit",
+          same_launches(fit_counts, want), f"{fit_counts}, expected {want}")
+    check("25(a) the mesh fit's weights and offset match the one-device fit's",
+          rel_W <= MESH_BCD_TOL and rel_off <= MESH_BCD_TOL,
+          f"weights {rel_W:.2e}, affine offset {rel_off:.2e} relative Frobenius "
+          f"(tol {MESH_BCD_TOL:.0e})")
+    check_metrics("25(a)", train_eval, test_eval, N_TRAIN)
+    del fitted, train, test, data, sharded_labels, labels, train_pred, test_pred
+    return dict(fit_seconds=fit_s, apply_seconds=apply_s, fit_launches=fit_counts,
+                apply_launches=apply_counts, weights_rel=rel_W, offset_rel=rel_off,
+                train_error=train_eval.total_error, test_error=test_eval.total_error)
+
+
+def _timit_rows(n, seed, device):
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+
+    rows = synthetic_timit(n, seed=seed, device=device)
+    Y = ClassLabelIndicatorsFromIntLabels(K)(rows.labels).array
+    return rows.data.array, Y
+
+
+def _centred_predictions(cuda_ops, X, W, fmean, ymean, Wrf, brf):
+    """A centred streamed model's predictions (F − fmean) W + ymean on the
+    rows X, F = cos(X Wrfᵀ + brf)."""
+    F = cuda_ops.cosine_features(X.contiguous(), Wrf, brf)
+    return (F - fmean) @ W.reshape(F.shape[1], -1) + ymean
+
+
+# 25(b)/(c): rows of the training set whose predictions the mesh and the
+# one-device models are compared on.
+MESH_PRED_ROWS = 16384
+
+
+def phase_mesh_streamed(cuda_ops, timit, TimitConfig, smi, device="cuda"):
+    """25(b): streaming_bcd_fit_mesh_centered on phase 4's cosine bank
+    (each shard's tile through the bank and gram_sym_acc, one psum of the
+    stats) against streaming_bcd_fit_centered on the same rows. Held: the
+    folded statistics (gram_stats_mesh against gram_stats, 1e-5 relative:
+    the psum reassociates the shards' sums) and the fitted models'
+    predictions on the first rows (1e-4 relative). The weights are a
+    reading: at λ = 0 the centred normal equations amplify the sums'
+    rounding (call 1: 4.5e-4 between the mesh and one-device weights),
+    as the one-device fit's own retiling shows beside them."""
+    from keystone_tpu_torch.ops.learning.streaming_ls import CosineBankFeaturize
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+    from keystone_tpu_torch.parallel import streaming
+
+    mesh = _mesh(device)
+    config = TimitConfig(num_cosines=NUM_COSINES, block_size=BLOCK)
+    rfs = timit._cosine_models(config, device)
+    Wrf, brf = torch.cat([rf.W for rf in rfs]), torch.cat([rf.b for rf in rfs])
+    bank = CosineBankFeaturize(Wrf, brf)
+    del rfs
+    X, Y = _timit_rows(MESH_STREAM_N, 4, device)
+    kw = dict(featurize=bank, d_feat=D_FEAT, tile_rows=STREAM_TILE, block_size=BLOCK, lam=0.0,
+              num_iter=EPOCHS)
+    Xs, Ys = mesh_lib.shard_rows(X, mesh), mesh_lib.shard_rows(Y, mesh)
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = streaming.streaming_bcd_fit_mesh_centered(Xs, Ys, mesh=mesh, n_true=MESH_STREAM_N, **kw)
+    _sync(device)
+    mesh_s = time.perf_counter() - t0
+    counts = _launches_since(cuda_ops)
+    t0 = time.perf_counter()
+    want = streaming.streaming_bcd_fit_centered(X, Y, **kw)[:3]
+    _sync(device)
+    one_s = time.perf_counter() - t0
+    shard_rows = MESH_STREAM_N // MESH_SHARDS
+    retiled = streaming.streaming_bcd_fit_centered(X, Y, **(kw | dict(tile_rows=shard_rows)))[0]
+    stats = streaming.gram_stats_mesh(Xs, Ys, bank, D_FEAT, STREAM_TILE, mesh, moments=True)
+    stats_rels = [_rel(g.reshape(-1), w.reshape(-1)) for g, w in zip(
+        stats, streaming.gram_stats(X, Y, bank, D_FEAT, STREAM_TILE, moments=True))]
+    del stats
+    rows = X[:MESH_PRED_ROWS]
+    pred_rel = _rel(_centred_predictions(cuda_ops, rows, got[0], got[1], got[2], Wrf, brf),
+                    _centred_predictions(cuda_ops, rows, want[0], want[1], want[2], Wrf, brf))
+    rels = [_rel(g, w) for g, w in zip(got, want)]
+    retile_rel = _rel(retiled, want[0])
+    log(f"  (b) n={MESH_STREAM_N} on {MESH_SHARDS} shards: mesh fit {mesh_s:.3f} s, one device "
+        f"{one_s:.3f} s; stats G, FY, yty, fsum, ysum "
+        f"{', '.join(f'{r:.3e}' for r in stats_rels)} relative; predictions on "
+        f"{MESH_PRED_ROWS} rows {pred_rel:.3e}; W, fmean, ymean "
+        f"{', '.join(f'{r:.3e}' for r in rels)} (the one-device fit in {shard_rows}-row tiles: "
+        f"W {retile_rel:.3e}); launches {counts} ({smi})")
+    shard_tiles = MESH_SHARDS * -(-shard_rows // STREAM_TILE)
+    want_counts = {"cosine_features": shard_tiles, "gram_sym_acc": shard_tiles}
+    check("25(b) the mesh fold's launches: one cosine slab and one gram_sym_acc a shard's tile",
+          same_launches(counts, want_counts), f"{counts}, expected {want_counts}")
+    check("25(b) gram_stats_mesh's statistics match gram_stats'",
+          all(r <= MESH_BCD_TOL for r in stats_rels),
+          f"G, FY, yty, fsum, ysum {', '.join(f'{r:.2e}' for r in stats_rels)} "
+          f"(tol {MESH_BCD_TOL:.0e})")
+    check("25(b) streaming_bcd_fit_mesh_centered's model predicts as streaming_bcd_fit_centered's",
+          pred_rel <= MESH_STREAM_TOL and rels[1] <= MESH_BCD_TOL and rels[2] <= MESH_BCD_TOL,
+          f"predictions {pred_rel:.2e} (tol {MESH_STREAM_TOL:.0e}), fmean {rels[1]:.2e}, ymean "
+          f"{rels[2]:.2e} (tol {MESH_BCD_TOL:.0e}); weights {rels[0]:.2e} (a reading)")
+    del X, Y, Xs, Ys, got, want, bank, retiled, rows
+    return dict(mesh_seconds=mesh_s, one_device_seconds=one_s, launches=counts, rels=rels,
+                stats_rels=stats_rels, predictions_rel=pred_rel, retiled_weights_rel=retile_rel)
+
+
+def phase_mesh_block_streamed(cuda_ops, timit, TimitConfig, smi, device="cuda"):
+    """25(c): the block-streamed tier over the mesh (every kernel on each
+    shard's rows, one psum a block step) against its one-device form on
+    the same rows, centred, the last 100 rows padding. Held: the means
+    (1e-5) and the predictions on the first rows (1e-4); the weights are
+    a reading, as in (b)."""
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+    from keystone_tpu_torch.parallel import streaming
+
+    mesh = _mesh(device)
+    config = TimitConfig(num_cosines=NUM_COSINES, block_size=BLOCK)
+    rfs = timit._cosine_models(config, device)
+    Wrf, brf = torch.cat([rf.W for rf in rfs]), torch.cat([rf.b for rf in rfs])
+    del rfs
+    n_true = MESH_BLOCK_N - MESH_BLOCK_PAD
+    X, Y = _timit_rows(n_true, 5, device)
+    pad = MESH_BLOCK_PAD
+    Xp = torch.cat([X, torch.zeros((pad, X.shape[1]), device=device)])
+    Yp = torch.cat([Y, torch.zeros((pad, Y.shape[1]), device=device)])
+    kw = dict(block_size=BLOCK, lam=0.0, num_iter=EPOCHS, center=True)
+    Xs, Ys = mesh_lib.shard_rows(Xp, mesh), mesh_lib.shard_rows(Yp, mesh)
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = streaming.streaming_block_bcd_mesh(Xs, Ys, Wrf, brf, mesh=mesh, n_true=n_true, **kw)
+    _sync(device)
+    mesh_s = time.perf_counter() - t0
+    counts = _launches_since(cuda_ops)
+    t0 = time.perf_counter()
+    want = streaming.streaming_block_bcd_mesh(X, Y, Wrf, brf, **kw)
+    _sync(device)
+    one_s = time.perf_counter() - t0
+    rows = X[:MESH_PRED_ROWS]
+    pred_rel = _rel(_centred_predictions(cuda_ops, rows, *got, Wrf, brf),
+                    _centred_predictions(cuda_ops, rows, *want, Wrf, brf))
+    rels = [_rel(g, w) for g, w in zip(got, want)]
+    log(f"  (c) n={n_true} (padded to {MESH_BLOCK_N}) on {MESH_SHARDS} shards: mesh fit "
+        f"{mesh_s:.3f} s, one device {one_s:.3f} s; predictions on {MESH_PRED_ROWS} rows "
+        f"{pred_rel:.3e}; W, fmean, ymean {', '.join(f'{r:.3e}' for r in rels)} relative; "
+        f"launches {counts} ({smi})")
+    steps = NUM_COSINES * MESH_SHARDS
+    want_counts = {"cosine_features": EPOCHS * steps, "gram_corr_sym": steps,
+                   "block_corr": (EPOCHS - 1) * steps, "block_residual_update": EPOCHS * steps}
+    check("25(c) the block-streamed mesh launches: every kernel once a shard a block step",
+          same_launches(counts, want_counts), f"{counts}, expected {want_counts}")
+    check("25(c) streaming_block_bcd_mesh over the mesh predicts as its one-device form",
+          pred_rel <= MESH_STREAM_TOL and rels[1] <= MESH_BCD_TOL and rels[2] <= MESH_BCD_TOL,
+          f"predictions {pred_rel:.2e} (tol {MESH_STREAM_TOL:.0e}), fmean {rels[1]:.2e}, ymean "
+          f"{rels[2]:.2e} (tol {MESH_BCD_TOL:.0e}); weights {rels[0]:.2e} (a reading)")
+    del X, Y, Xp, Yp, Xs, Ys, got, want, Wrf, brf, rows
+    return dict(mesh_seconds=mesh_s, one_device_seconds=one_s, launches=counts, rels=rels,
+                predictions_rel=pred_rel)
+
+
+def phase_mesh_multichip(cuda_ops, smi, device="cuda"):
+    """25(d): ``python -m keystone_tpu_torch.tools.multichip``'s leg on
+    the card: the padded-COO gram fit on one device and on 8 shards,
+    parity within DEFAULT_TOL, the layout a recorded mesh_layout decision
+    left unstamped (8 shards share one card: its wall is no outcome of
+    the layout), the walls no evidence of scaling. Each leg's launches
+    are counted alone: the counts are zeroed just before each fit and
+    read just after it, so the mesh path's are the mesh leg's only."""
+    import contextlib
+    import io
+
+    from keystone_tpu_torch import obs
+    from keystone_tpu_torch.obs import tracer as tracer_mod
+    from keystone_tpu_torch.ops.learning import lbfgs
+    from keystone_tpu_torch.tools import multichip
+
+    legs = {}
+    fit = lbfgs.run_lbfgs_gram_streamed
+
+    def counted_fit(*args, **kwargs):
+        cuda_ops.reset_launch_counts()
+        try:
+            return fit(*args, **kwargs)
+        finally:
+            leg = "mesh" if kwargs.get("mesh") is not None else "one_device"
+            legs[leg] = _launches_since(cuda_ops)
+
+    buf = io.StringIO()
+    argv = MESH_MC_ARGV + ["--device", str(torch.device(device))]
+    lbfgs.run_lbfgs_gram_streamed = counted_fit
+    try:
+        with obs.tracing() as t, contextlib.redirect_stdout(buf):
+            rc = multichip.main(argv)
+    finally:
+        lbfgs.run_lbfgs_gram_streamed = fit
+        tracer_mod._ACTIVE = None
+    out = buf.getvalue()
+    decisions = [e["args"] for e in t.events if e.get("type") == "event"
+                 and e["name"] == "cost.decision" and e["args"]["decision"] == "mesh_layout"]
+    parity = [line for line in out.splitlines() if line.startswith("parity")]
+    walls = [line for line in out.splitlines() if "wall" in line]
+    log(f"  (d) tools.multichip {' '.join(argv)}: rc {rc}; {'; '.join(walls + parity)}; "
+        f"launches: mesh leg {legs.get('mesh')}, one-device leg {legs.get('one_device')} "
+        f"({smi})")
+    check("25(d) tools.multichip: parity within its tolerance, a mesh_layout decision left "
+          "unstamped, no speedup claim for shards on one card",
+          rc == 0 and "OK" in out and "not device evidence" in out and "speedup" not in out
+          and len(decisions) == 1 and decisions[0]["winner"] == "mesh[data=8,model=1]"
+          and "outcome" not in decisions[0],
+          f"rc {rc}, {parity}, decisions {decisions}")
+    # A segment folds seg chunk ids, those past the data with zero values:
+    # the one-device fit whole segments of the chunks, each shard whole
+    # segments of its ceil(chunks / 8).
+    chunks, seg = -(-int(MESH_MC_ARGV[1]) // int(MESH_MC_ARGV[7])), int(MESH_MC_ARGV[9])
+    cpd = -(-chunks // MESH_SHARDS)
+    local = -(-cpd // min(seg, cpd)) * min(seg, cpd)
+    want = {"one_device": -(-chunks // seg) * seg, "mesh": MESH_SHARDS * local}
+    got = {leg: legs.get(leg, {}).get("gram_corr_sym_acc") for leg in want}
+    check("25(d) gram_corr_sym_acc once a chunk id in each fit, counted leg by leg",
+          got == want, f"{legs}, expected {want}")
+    return dict(rc=rc, parity=parity, walls=walls, launches=legs.get("mesh", {}),
+                one_device_launches=legs.get("one_device", {}),
+                decision=decisions[0]["winner"] if decisions else None)
 
 
 def main():
@@ -7170,6 +7563,8 @@ def main():
           "tier")
     phase_block_small(cuda_ops)
     block_resident = phase_block_resident(cuda_ops, timit, TimitConfig, stacked_model)
+    # Phase 25(a) holds the mesh fit to this one-device fit (9.6 MB).
+    mesh_reference = stacked_model
     del stacked_model
     log(f"  (c) d={WIDE_D}, n={WIDE_N}")
     wide_auto = phase_wide_auto(cuda_ops, timit, TimitConfig)
@@ -7290,12 +7685,31 @@ def main():
     try:
         fleet_run["kill"] = phase_fleet_kill(fleet, pool, fleet_run.pop("footprint"))
         fleet_run["integrity"] = phase_fleet_integrity(fleet, zoo_blobs[1], fleet_ship, pool)
+        fleet_run["chaos"] = phase_fleet_chaos(fleet, pool)
     finally:
         fleet.close()
     del fleet, fleet_ship
     fleet_run["cli"] = phase_fleet_cli(cuda_ops)
-    fleet_run["chaos"] = phase_fleet_chaos()
     log(f"  phase 24 launches in the planes of (a): {fleet_run['launches']} ({smi})")
+    del pool
+    torch.cuda.empty_cache()
+    phase("25", "the one-host mesh: 8 shards on the card; TIMIT --solver block on sharded rows, "
+          "the streamed and block-streamed mesh folds, tools.multichip")
+    mesh_run = dict(shape_errors=phase_mesh_shapes(cuda_ops))
+    mesh_run["timit"] = phase_mesh_timit(cuda_ops, timit, TimitConfig, mesh_reference, smi)
+    del mesh_reference
+    torch.cuda.empty_cache()
+    mesh_run["streamed"] = phase_mesh_streamed(cuda_ops, timit, TimitConfig, smi)
+    torch.cuda.empty_cache()
+    mesh_run["block_streamed"] = phase_mesh_block_streamed(cuda_ops, timit, TimitConfig, smi)
+    torch.cuda.empty_cache()
+    mesh_run["multichip"] = phase_mesh_multichip(cuda_ops, smi)
+    mesh_parts = {"a_fit": mesh_run["timit"]["fit_launches"],
+                  "a_apply": mesh_run["timit"]["apply_launches"],
+                  "b": mesh_run["streamed"]["launches"],
+                  "c": mesh_run["block_streamed"]["launches"],
+                  "d": mesh_run["multichip"]["launches"]}
+    log(f"  phase 25 launches by part: {mesh_parts} ({smi})")
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -7337,6 +7751,14 @@ def main():
     for entry in kernels:
         if entry["name"] in ("cosine_features", ROW_STABLE):
             entry["fleet_launches"] = fleet_run["fleet_launches"][entry["name"]]
+    # The mesh path's launches (phase 25: each kernel once a shard), by part.
+    for entry in kernels:
+        by_part = {part: c[entry["name"]] for part, c in mesh_parts.items()
+                   if c.get(entry["name"])}
+        entry["mesh_launches"] = sum(by_part.values())
+        entry["mesh_launches_by_part"] = by_part
+        if entry["name"] in mesh_run["shape_errors"]:
+            entry["mesh_shape_max_abs_err"] = mesh_run["shape_errors"][entry["name"]]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -7345,7 +7767,7 @@ def main():
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
                  SERVING: serving, LEARN: learn, DISK: disk, ZOO: zoo, CONTROL: control,
-                 FLEET: fleet_run,
+                 FLEET: fleet_run, MESH: mesh_run,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

@@ -17,10 +17,16 @@ Port of ``keystone_tpu/data/dataset.py``, single device:
     anything else calls ``materialize()``, which only small sources
     should ever reach.
 
-Mesh sharding comes with a later slice (ROADMAP A.15); here there is one
-device. Numpy arrays handed to ``Dataset.of`` stay numpy until a node
-moves them to its device, exactly as the reference leaves host arrays to
-``jnp.asarray``.
+An array-form dataset may be sharded over a one-host device mesh
+(``shard()``, ``parallel/mesh.py``): each array is then a
+:class:`~keystone_tpu_torch.parallel.mesh.ShardedRows`, zero-padded to a
+multiple of the mesh's ``data`` axis, and ``mesh`` names the mesh.
+``map_batch`` runs a (row-local) batched function on each shard and
+zeroes the padding rows again; code that is not mesh-aware reads a
+sharded array through ``as_tensor``, which gathers it, as the reference
+reads a sharded ``jax.Array``. Numpy arrays handed to ``Dataset.of`` stay
+numpy until a node moves them to its device, exactly as the reference
+leaves host arrays to ``jnp.asarray``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+
+from keystone_tpu_torch.parallel import mesh as mesh_lib
+from keystone_tpu_torch.parallel.mesh import ShardedRows
 
 from .prefetch import ShardSource
 
@@ -60,14 +69,11 @@ def tree_map(fn: Callable[[Any], Any], data: Any) -> Any:
 def as_tensor(x: Any, device=None) -> torch.Tensor:
     """``x`` as a tensor on ``device`` (default: where it already lives,
     or the CPU for host arrays). float64 host arrays become float32: the
-    port computes in float32, as the reference does outside its x64 tests."""
-    if isinstance(x, torch.Tensor):
-        t = x
-    else:
-        arr = np.asarray(x)
-        if arr.dtype == np.float64:
-            arr = arr.astype(np.float32)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+    port computes in float32, as the reference does outside its x64 tests.
+    A row-sharded array is gathered onto its first shard's device."""
+    if isinstance(x, ShardedRows):
+        x = x.gather()
+    t = mesh_lib.host_tensor(x)
     if device is not None and t.device != torch.device(device):
         t = t.to(device)
     return t
@@ -76,10 +82,11 @@ def as_tensor(x: Any, device=None) -> torch.Tensor:
 class Dataset:
     """A batch of n examples, in tensor or host-list form."""
 
-    def __init__(self, data: Any, n: Optional[int] = None):
+    def __init__(self, data: Any, n: Optional[int] = None, mesh=None):
         if isinstance(data, Dataset):
             raise TypeError("Dataset(data) may not wrap another Dataset")
         self.data = data
+        self.mesh = mesh
         if isinstance(data, list):
             self.n = len(data) if n is None else n
         elif isinstance(data, ShardSource):
@@ -93,8 +100,9 @@ class Dataset:
     # -- constructors -------------------------------------------------------
 
     @staticmethod
-    def of(data: Any) -> "Dataset":
-        """Wrap a list (host form) or array / tuple of arrays (array form)."""
+    def of(data: Any, mesh=None) -> "Dataset":
+        """Wrap a list (host form) or array / tuple of arrays (array form).
+        ``mesh`` records the mesh an already-sharded array lies on."""
         if isinstance(data, Dataset):
             return data
         if isinstance(data, list) and not (data and _is_arraylike(data[0])):
@@ -105,10 +113,10 @@ class Dataset:
             shapes = {tuple(np.shape(x)) for x in data}
             if len(shapes) == 1:
                 if isinstance(data[0], torch.Tensor):
-                    return Dataset(torch.stack(data))
-                return Dataset(np.stack([np.asarray(x) for x in data]))
+                    return Dataset(torch.stack(data), mesh=mesh)
+                return Dataset(np.stack([np.asarray(x) for x in data]), mesh=mesh)
             return Dataset(list(data))
-        return Dataset(data)
+        return Dataset(data, mesh=mesh)
 
     @staticmethod
     def gather(branches: List["Dataset"]) -> "Dataset":
@@ -117,7 +125,8 @@ class Dataset:
         if len(ns) != 1:
             raise ValueError(f"Gathered branches must have equal sizes, got {ns}")
         if all(not b.is_host for b in branches):
-            return Dataset(tuple(b.data for b in branches), n=branches[0].n)
+            return Dataset(tuple(b.data for b in branches), n=branches[0].n,
+                           mesh=branches[0].mesh)
         items = [b.to_list() for b in branches]
         return Dataset([tuple(vals) for vals in zip(*items)])
 
@@ -151,11 +160,13 @@ class Dataset:
         mat = self.data.materialize()
         if isinstance(mat, tuple):
             mat = mat[0]  # a paired (X, Y) source read as a data Dataset
-        return Dataset(np.asarray(mat), n=self.n)
+        return Dataset(np.asarray(mat), n=self.n, mesh=self.mesh)
 
     @property
     def array(self):
-        """The single underlying array (errors for tuple datasets)."""
+        """The single underlying array (errors for tuple datasets): a
+        :class:`~keystone_tpu_torch.parallel.mesh.ShardedRows` when
+        sharded."""
         if self.is_shard_backed:
             return self.materialize().array
         if self.is_host:
@@ -182,22 +193,44 @@ class Dataset:
         slice's path, and every node there declares a batched form)."""
         return Dataset.of([fn(x) for x in self.to_list()])
 
+    @property
+    def is_sharded(self) -> bool:
+        return not self.is_host and not self.is_shard_backed and any(
+            isinstance(leaf, ShardedRows) for leaf in tree_leaves(self.data))
+
     def map_batch(self, fn: Callable[[Any], Any]) -> "Dataset":
-        """Apply a whole-batch (vectorized) function to the array form."""
-        return Dataset(fn(self.data), n=self.n)._rezero_padding()
+        """Apply a whole-batch (vectorized) function to the array form; a
+        sharded dataset runs it on each shard (it must be row-local, the
+        ``device_fn`` contract), as the reference's sharded programs
+        partition."""
+        if self.is_sharded:
+            return Dataset(_map_shards(fn, self.data), n=self.n,
+                           mesh=self.mesh)._rezero_padding()
+        return Dataset(fn(self.data), n=self.n, mesh=self.mesh)._rezero_padding()
 
     def _rezero_padding(self) -> "Dataset":
         """Restore the all-zero-padding invariant after a non-zero-preserving
         transform (padding rows must not pollute Gramians/moment sums)."""
         if self.is_host or self.num_padded == self.n:
             return self
+        n = self.n
 
         def zero(leaf):
+            if isinstance(leaf, ShardedRows):
+                rows = leaf.shard_rows
+                shards = []
+                for i, s in enumerate(leaf.shards):
+                    keep = n - i * rows
+                    if keep < rows:
+                        s = s.clone()
+                        s[max(keep, 0):] = 0
+                    shards.append(s)
+                return ShardedRows(shards, leaf.mesh, leaf.axis)
             leaf = as_tensor(leaf).clone()
-            leaf[self.n:] = 0
+            leaf[n:] = 0
             return leaf
 
-        return Dataset(tree_map(zero, self.data), n=self.n)
+        return Dataset(tree_map(zero, self.data), n=n, mesh=self.mesh)
 
     def to_list(self) -> List[Any]:
         """Materialize as a host list of per-example values (padding dropped)."""
@@ -214,11 +247,37 @@ class Dataset:
         """The underlying array with padding rows dropped, as numpy."""
         return _to_numpy(self.array)[: self.n]
 
+    # -- distribution -------------------------------------------------------
+
+    def shard(self, mesh=None, axis: str = mesh_lib.DATA_AXIS) -> "Dataset":
+        """Pad to divisibility and shard the leading axis over the mesh."""
+        if self.is_shard_backed:
+            return self.materialize().shard(mesh, axis)
+        if self.is_host:
+            raise ValueError("Host datasets cannot be device-sharded; vectorize first")
+        mesh = mesh or mesh_lib.default_mesh()
+        size = mesh_lib.axis_size(mesh, axis)
+
+        def place(leaf):
+            if isinstance(leaf, ShardedRows):
+                leaf = leaf.gather()
+            padded, _ = mesh_lib.pad_rows(leaf if isinstance(leaf, torch.Tensor)
+                                          else np.asarray(leaf), size)
+            return mesh_lib.shard_rows(padded, mesh, axis)
+
+        return Dataset(tree_map(place, self.data), n=self.n, mesh=mesh)
+
+    def valid_mask(self) -> torch.Tensor:
+        """(num_padded,) float mask: 1 for real rows, 0 for padding."""
+        return (torch.arange(self.num_padded) < self.n).to(torch.float32)
+
     def cache(self) -> "Dataset":
         """Force materialization now (the Cacher analog): wait for the
         device work that produced this dataset."""
         if not self.is_host and not self.is_shard_backed:
             for leaf in tree_leaves(self.data):
+                if isinstance(leaf, ShardedRows):
+                    leaf = leaf.shards[-1]
                 if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
                     torch.cuda.synchronize(leaf.device)
                     break
@@ -230,10 +289,36 @@ class Dataset:
         if self.is_host:
             return f"Dataset(host, n={self.n})"
         shapes = tree_map(lambda x: tuple(x.shape), self.data)
-        return f"Dataset(array, n={self.n}, shapes={shapes})"
+        sharded = f", mesh={self.mesh}" if self.mesh is not None else ""
+        return f"Dataset(array, n={self.n}, shapes={shapes}{sharded})"
+
+
+def _map_shards(fn: Callable[[Any], Any], data: Any) -> Any:
+    """``fn`` run on each shard of a sharded payload (each leaf a
+    :class:`ShardedRows` with the same shard count); its outputs, one a
+    shard, collected leaf by leaf into :class:`ShardedRows`."""
+    leaves = [leaf for leaf in tree_leaves(data) if isinstance(leaf, ShardedRows)]
+    first = leaves[0]
+    outs = [
+        fn(tree_map(lambda leaf, i=i: leaf.shards[i] if isinstance(leaf, ShardedRows) else leaf,
+                    data))
+        for i in range(first.num_shards)
+    ]
+    return _collect_shards(outs, first.mesh, first.axis)
+
+
+def _collect_shards(outs: List[Any], mesh, axis) -> Any:
+    head = outs[0]
+    if isinstance(head, tuple):
+        return tuple(_collect_shards([o[j] for o in outs], mesh, axis) for j in range(len(head)))
+    if isinstance(head, dict):
+        return {key: _collect_shards([o[key] for o in outs], mesh, axis) for key in head}
+    return ShardedRows(outs, mesh, axis)
 
 
 def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, ShardedRows):
+        x = x.gather()
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             x = x.float()

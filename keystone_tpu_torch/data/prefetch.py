@@ -21,10 +21,8 @@ Differences from the reference:
     non-blocking one on a side stream (:func:`to_device_segment`) and
     overlaps the fold of the previous segment. On the CPU it copies them
     into owned tensors: a memory-mapped shard tile is read-only and is
-    never handed to torch as it is;
-  - the reference's mesh ingestion (``iter_mesh_segments``,
-    ``mesh_read_lane``) is not ported yet: it comes with the multi-GPU
-    tier (ROADMAP A.15).
+    never handed to torch as it is; the mesh ingestion
+    (``iter_mesh_segments``) takes the same ``stage=``, one a device.
 """
 
 from __future__ import annotations
@@ -32,7 +30,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Iterator, Optional, Tuple
+from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -746,3 +744,69 @@ def to_device_segment(staged, device, copy_stream=None):
             # the compute stream is done with it.
             a.record_stream(compute)
     return out
+
+
+# -- mesh ingestion: one read lane a device -----------------------------------
+
+
+def mesh_read_lane(device: int) -> str:
+    """The per-device read lane name (``read.d<k>``) that mesh ingestion
+    submits device ``k``'s loads on: the data-plane runtime makes the lane
+    (its own pooled worker and bounded queue) on first submit."""
+    return f"{runtime_mod.LANE_READ}.d{int(device)}"
+
+
+def iter_mesh_segments(
+    sources,
+    prefetch_depth: int = 2,
+    stats: Optional[PrefetchStats] = None,
+    stage: Optional[Sequence[Callable[[Any], Any]]] = None,
+) -> Iterator[Tuple[int, list]]:
+    """Lock-step iteration over per-device segment sources.
+
+    ``sources[k]`` is device k's :class:`ShardSource` (or a
+    ``(load_fn, num_segments)`` pair); segment ``s`` of every device loads
+    concurrently, each on its own runtime lane (``read.d<k>``:
+    :func:`mesh_read_lane`), each lane's outstanding loads bounded by
+    ``prefetch_depth``. Yields ``(s, [payload_0, ..., payload_{m-1}])`` in
+    strict segment order. All sources must agree on ``num_segments`` (pad
+    ragged device tails source-side: the mesh fold masks phantom chunks
+    dead). ``prefetch_depth=0`` loads serially in device order, the same
+    payloads. ``stage[k]``, when given, runs on device k's payload after
+    its load (on its lane, or inline).
+    """
+    boxed = []
+    for src in sources:
+        if not is_shard_source(src):
+            load_fn, num = src
+            src = FunctionSource(load_fn, num)
+        boxed.append(src)
+    if not boxed:
+        raise ValueError("iter_mesh_segments needs at least one source")
+    nums = {s.num_segments for s in boxed}
+    if len(nums) != 1:
+        raise ValueError(
+            f"per-device sources disagree on num_segments: {sorted(nums)} "
+            f"— pad ragged device tails source-side"
+        )
+    num = nums.pop()
+    stages = list(stage) if stage is not None else [None] * len(boxed)
+    if prefetch_depth and num > 0:
+        readers = [
+            Prefetcher(src, depth=prefetch_depth, stats=stats,
+                       lane=mesh_read_lane(k), stage=stages[k])
+            for k, src in enumerate(boxed)
+        ]
+        try:
+            for rows in zip(*readers):
+                yield rows[0][0], [payload for _, payload in rows]
+        finally:
+            for r in readers:
+                r.close()
+        return
+    for s in range(num):
+        payloads = []
+        for src, st in zip(boxed, stages):
+            payload = src.load(s)
+            payloads.append(st(payload) if st is not None else payload)
+        yield s, payloads

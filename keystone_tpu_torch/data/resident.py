@@ -21,7 +21,7 @@ port keeps them as tensors on the device they were encoded on and rounds
 to bf16 with ``Tensor.to(torch.bfloat16)``, which is round-to-nearest-even
 as ``ml_dtypes`` is (tests/test_torch_sparse.py holds the bits equal).
 The mesh partitioning of the reference (``partition``, ``index_base``)
-waits for the multi-GPU slice (ROADMAP A.15) and raises here.
+waits for ROADMAP A.15b and raises here.
 
 **Value-drift policy**: indices round-trip exactly or :meth:`encode`
 raises. Values quantize f32 -> bf16 with round-to-nearest-even:
@@ -59,7 +59,7 @@ INT16_MAX_INDEX = int(np.iinfo(np.int16).max)  # 32767
 
 _MESH_WAITS = (
     "mesh partitioning of the compressed tier is not ported yet "
-    "(ROADMAP A.15, the multi-GPU slice)"
+    "(ROADMAP A.15b)"
 )
 
 
@@ -68,7 +68,7 @@ def compressible_dim(d: int, index_base: int = 0) -> bool:
     0..d-1; callers appending an intercept lane at index d pass d+1). Past
     it the compressed tier is infeasible: ``resident_bytes`` prices it at
     infinity rather than wrapping indices. ``index_base`` (the mesh
-    partition's rebase) raises: ROADMAP A.15."""
+    partition's rebase) raises: ROADMAP A.15b."""
     if index_base:
         raise NotImplementedError(_MESH_WAITS)
     return int(d) - 1 <= INT16_MAX_INDEX
@@ -139,7 +139,7 @@ class CompressedCOOChunks:
         a value into the wrong Gramian row and corrupt the fit without a
         single NaN. Values quantize f32 -> bf16 per the module's drift
         policy. The ragged tail pads with inactive (−1) lanes and zero
-        labels to whole chunks. ``index_base`` raises (ROADMAP A.15).
+        labels to whole chunks. ``index_base`` raises (ROADMAP A.15b).
         """
         if index_base:
             raise NotImplementedError(_MESH_WAITS)
@@ -190,7 +190,7 @@ class CompressedCOOChunks:
                 y[:keep].cpu().numpy())
 
     def partition(self, num_partitions: int):
-        """The reference's per-device partitioning: ROADMAP A.15."""
+        """The reference's per-device partitioning: ROADMAP A.15b."""
         raise NotImplementedError(_MESH_WAITS)
 
     @property

@@ -108,7 +108,8 @@ DEFAULT_DRIFT_THRESHOLD = 0.7
 # harness (scripts/torch_fit_cost_weights.py), which records one
 # single-candidate decision a timed (engine, geometry) point so that the
 # refit path is the same for sweeps and production runs; ``mesh_layout``
-# is the reference's mesh-shape selector (not ported: ROADMAP A.15);
+# is the mesh-shape selector (cost.choose_mesh_layout, stamped with the
+# measured mesh wall by tools/multichip.py);
 # ``placement.zoo_page_in`` is the zoo's priced page fault
 # (placement/engine.py price_page_in), stamped with the measured restore
 # wall so refit can recover the paging overhead.

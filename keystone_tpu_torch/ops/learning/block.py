@@ -25,6 +25,7 @@ from keystone_tpu_torch.ops.learning.linear import mapper_product
 from keystone_tpu_torch.ops.stats import StandardScaler, StandardScalerModel
 from keystone_tpu_torch.ops.util import VectorSplitter
 from keystone_tpu_torch.parallel import linalg
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 from keystone_tpu_torch.workflow.fusion import DeviceFit, masked_center
 
@@ -108,9 +109,10 @@ class BlockLinearMapper(Transformer):
         an exported plan's buckets serve (ROADMAP C.8); other forms, or a
         model :meth:`device_fn` cannot express, take the blockwise path."""
         fn = self.device_fn()
-        if fn is not None and isinstance(data.data, torch.Tensor):
+        if fn is not None and (isinstance(data.data, torch.Tensor) or data.is_sharded):
             from keystone_tpu_torch.workflow.fusion import _compose_in_chunks
 
+            # A sharded dataset runs it on each shard (map_batch).
             return data.map_batch(lambda X: _compose_in_chunks([fn], X))
         return self.apply_blocks(self.splitter.apply(data))
 
@@ -201,17 +203,31 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         return self.fit_blocks(splitter.apply(data), labels)
 
     def fit_blocks(self, blocks: List[Dataset], labels: Dataset) -> BlockLinearMapper:
+        """Center, then solve: the stacked sweep for equal blocks on one
+        device, else the stepwise one; rows sharded over a multi-device
+        mesh take the stepwise sweep's mesh form (reference
+        ``block.py:241-268``: the fused flat and stacked sweeps are
+        one-device programs), the centred blocks and labels staying
+        sharded."""
+        multi_device = any(mesh_lib.is_multi_device(d.mesh) for d in [labels, *blocks])
+
+        def centred(ds, scaler):
+            out = scaler.batch_apply(ds).array
+            return out if multi_device and ds.is_sharded else as_tensor(out)
+
         label_scaler = StandardScaler(normalize_std_dev=False).fit(labels)
-        B = as_tensor(label_scaler.batch_apply(labels).array)
+        B = centred(labels, label_scaler)
 
         feature_scalers = [
             StandardScaler(normalize_std_dev=False).fit(block) for block in blocks
         ]
-        A_blocks = [
-            as_tensor(scaler.batch_apply(block).array)
-            for block, scaler in zip(blocks, feature_scalers)
-        ]
-        if len({a.shape for a in A_blocks}) == 1 and _stack_fits_memory(
+        A_blocks = [centred(block, scaler) for block, scaler in zip(blocks, feature_scalers)]
+        if multi_device:
+            mesh = next(d.mesh for d in [labels, *blocks] if mesh_lib.is_multi_device(d.mesh))
+            Ws = linalg.bcd_least_squares(
+                A_blocks, B, lam=self.lam, num_iter=self.num_iter, mesh=mesh
+            )
+        elif len({a.shape for a in A_blocks}) == 1 and _stack_fits_memory(
             A_blocks, self.num_iter
         ):
             # Equal-size blocks (the common case): the stacked sweep with

@@ -24,16 +24,19 @@ Differences from the reference:
     plane (``obs/calibrate.py``; ``scripts/torch_fit_cost_weights.py`` fits
     one from fits timed on the card). An artifact's null overhead falls
     back to the EC2 constant (the reference's, to its TPU one);
-  - ``num_machines`` defaults to 1 (the port runs on one device; the mesh
-    is ROADMAP A.15), and the device budget is the CUDA device's total
-    memory (the counterpart of the reference's ``bytes_limit``). Every
+  - ``num_machines`` defaults to 1 (the solver selector prices one
+    device; a mesh's layout is priced by ``choose_mesh_layout``), and the
+    device budget is the CUDA device's total memory (the counterpart of
+    the reference's ``bytes_limit``), per device on a mesh. Every
     tier the streaming choice prices runs: past the gram tier's wall a
     cosine bank's fit takes the block-streamed tier, on one device;
   - beside the reference's ``cost.decision`` event and ``PlacementEngine``
     mirror, the decision is also kept on the estimator as
     ``last_decision``; ``choose_image_tier`` returns its decision as a dict
     (the reference returns the event's outcome reference);
-  - ``choose_mesh_layout`` (A.15) is not ported.
+  - ``choose_mesh_layout`` counts the devices a one-host mesh can name:
+    the CUDA devices, or the CPU; shards may share a device, so a caller
+    that builds more shards than devices passes ``num_devices``.
 
 A shard-backed input (the sample collector's ``shard_backed`` fact) prices
 the disk tier: the streaming choice then stages segments from disk, its
@@ -55,7 +58,12 @@ from keystone_tpu_torch import obs
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import tree_leaves
 from keystone_tpu_torch.ops.sparse import Densify, Sparsify, is_sparse_dataset
-from keystone_tpu_torch.placement.engine import KIND_IMAGE_TIER, KIND_SOLVER, PlacementEngine
+from keystone_tpu_torch.placement.engine import (
+    KIND_IMAGE_TIER,
+    KIND_MESH,
+    KIND_SOLVER,
+    PlacementEngine,
+)
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 from keystone_tpu_torch.workflow.optimizable import OptimizableLabelEstimator
 
@@ -272,6 +280,148 @@ def candidate_label(est) -> str:
                          getattr(est, "gram_dtype", None)) if v
     ]
     return name + (f"[{','.join(qual)}]" if qual else "")
+
+
+# ---------------------------------------------------------------------------
+# Mesh-layout pricing: layouts are first-class candidates
+# ---------------------------------------------------------------------------
+
+# Candidate (data, model) mesh shapes the layout selector prices for a
+# data-parallel streamed gram fold. 1x1 is the single-device baseline; 8x1
+# puts every device on the fold's row axis; 4x2 spends half the devices
+# replicating along the model axis (which the gram fold cannot use: it
+# prices as a 4-way fold plus the replica broadcast).
+MESH_LAYOUTS: Tuple[Tuple[int, int], ...] = ((1, 1), (4, 1), (4, 2), (8, 1))
+
+# The compressed-COO lane's bytes an nnz (int16 index + bf16 value), kept
+# here as in the reference so that pricing imports no data-plane module.
+COMPRESSED_BYTES_PER_NNZ_DEFAULT = 4.0
+
+
+def mesh_layout_label(data: int, model: int) -> str:
+    """Stable candidate label of one mesh layout: what the ``mesh_layout``
+    decision records."""
+    return f"mesh[data={int(data)},model={int(model)}]"
+
+
+def price_mesh_layout(
+    n: int, d: int, k: int, data: int, model: int,
+    *,
+    nnz_per_row: Optional[int] = None,
+    cpu_weight: Optional[float] = None,
+    mem_weight: Optional[float] = None,
+    network_weight: Optional[float] = None,
+) -> float:
+    """Predicted seconds for one streamed gram fit on a (data × model)
+    mesh (reference ``cost.py:365``), mirroring the fold's program
+    (``lbfgs._run_lbfgs_gram_streamed_mesh``):
+
+    - each of the ``data`` devices folds its contiguous row shard (compute
+      and scan terms divide by ``data`` alone: the gram fold has no
+      model-axis parallelism);
+    - one ring all-reduce of (G upper-tri, AtY, yty) a fit: ``2·(p-1)/p``
+      of the reduced floats move a device;
+    - model-axis replicas fold identical shards, so ``model > 1`` buys
+      nothing and pays the operands' broadcast to each extra replica.
+    """
+    if cpu_weight is None or mem_weight is None or network_weight is None:
+        aw = active_weights()
+        cpu_weight = cpu_weight if cpu_weight is not None else aw[0]
+        mem_weight = mem_weight if mem_weight is not None else aw[1]
+        network_weight = network_weight if network_weight is not None else aw[2]
+    p, q = int(data), int(model)
+    active = float(nnz_per_row) if nnz_per_row else float(d)
+    # Per-fit work: gram outer products (active² MACs a row) + AtY + labels.
+    flops = 2.0 * n * active * (active + k)
+    cells = float(n) * (2.0 * active + k)  # idx+val lanes and the labels
+    fold_s = max(cpu_weight * flops, mem_weight * cells) / p
+    # The one psum a fit (upper-tri G + AtY + yty).
+    reduce_floats = d * (d + 1) / 2.0 + d * k + 1.0
+    net_s = network_weight * reduce_floats * 2.0 * (p - 1) / p if p > 1 else 0.0
+    # Replica tax: the fold operands reach each model-axis replica.
+    net_s += network_weight * (cells / p) * (q - 1)
+    return fold_s + net_s
+
+
+def mesh_layout_resident_bytes(n: int, d: int, k: int, data: int,
+                               nnz_per_row: Optional[int] = None) -> float:
+    """Per-device memory claim of a device-resident row shard under a
+    layout: compressed-COO lanes (4 B an nnz) for sparse input, float32
+    rows otherwise, plus the float32 label shard."""
+    row = COMPRESSED_BYTES_PER_NNZ_DEFAULT * float(nnz_per_row) if nnz_per_row else 4.0 * d
+    return (n / max(int(data), 1)) * (row + 4.0 * k)
+
+
+def choose_mesh_layout(
+    n: int, d: int, k: int,
+    *,
+    nnz_per_row: Optional[int] = None,
+    layouts: Sequence[Tuple[int, int]] = MESH_LAYOUTS,
+    num_devices: Optional[int] = None,
+    hbm_bytes: Optional[int] = None,
+    hbm_utilization: float = DEFAULT_HBM_UTILIZATION,
+):
+    """Select a mesh layout for a streamed gram fit (reference
+    ``cost.py:421``), the decision recorded as a ``cost.decision`` event
+    (``decision="mesh_layout"``) and its ``placement.decision`` mirror.
+
+    Prices every layout in ``layouts``, marks infeasible those needing
+    more devices than ``num_devices`` (default: the CUDA devices, or one
+    CPU), and reports each layout's per-device resident bytes against the
+    device budget (``hbm_bytes``, default the first device's memory, times
+    ``hbm_utilization``). Returns ``((data, model), outcome_ref)``; the
+    reference is None without an active tracer, else the caller stamps it
+    with the measured fit wall (``tools/multichip.py``)."""
+    from keystone_tpu_torch.parallel.mesh import available_devices
+
+    devices = int(num_devices) if num_devices else len(available_devices())
+    first = available_devices()[0]
+    budget = (hbm_bytes if hbm_bytes is not None else device_memory_bytes(first)) * hbm_utilization
+    cpu_w, mem_w, net_w = active_weights()
+    family = _family_or_custom()
+    costs = [
+        price_mesh_layout(n, d, k, p, q, nnz_per_row=nnz_per_row, cpu_weight=cpu_w,
+                          mem_weight=mem_w, network_weight=net_w)
+        if p * q <= devices else float("inf")
+        for p, q in layouts
+    ]
+    if all(c == float("inf") for c in costs):
+        raise ValueError(
+            f"no candidate mesh layout fits {devices} device(s): "
+            f"{[mesh_layout_label(p, q) for p, q in layouts]}"
+        )
+    candidates = []
+    for (p, q), c in zip(layouts, costs):
+        resident = float(mesh_layout_resident_bytes(n, d, k, p, nnz_per_row))
+        candidates.append({
+            "label": mesh_layout_label(p, q),
+            "cost_s": None if c == float("inf") else float(c),
+            "feasible": c != float("inf"),
+            "resident_bytes": resident,
+            "chip_resident": resident <= budget,
+            "host_ok": True,
+        })
+    choice = PlacementEngine(weights_family=family).decide(
+        KIND_MESH, candidates,
+        context={"n": int(n), "d": int(d), "k": int(k), "machines": devices,
+                 "hbm_budget_bytes": float(budget)},
+    )
+    winner = tuple(layouts[choice.index])
+    ref = obs.record_cost_decision(obs.CostDecision(
+        decision="mesh_layout",
+        winner=mesh_layout_label(*winner),
+        candidates=candidates,
+        reason="argmin",
+        context={
+            "n": int(n), "d": int(d), "k": int(k),
+            "sparsity": float(nnz_per_row) / d if nnz_per_row else 1.0,
+            "machines": devices,
+            "hbm_budget_bytes": float(budget),
+            "nnz_per_row": int(nnz_per_row) if nnz_per_row else None,
+            "weights": {"cpu": cpu_w, "mem": mem_w, "network": net_w, "family": family},
+        },
+    ))
+    return winner, ref
 
 
 IMAGE_TIERS = ("resident", "resident_u8", "disk_shards")

@@ -31,8 +31,13 @@ memory on a side stream, and a segmented fold snapshots its carry under a
 ``CheckpointSpec`` (or ``KEYSTONE_CHECKPOINT_DIR``) and resumes with the
 uninterrupted fold's bits.
 
+``run_lbfgs_gram_streamed(mesh=)`` partitions the chunk stream over a
+one-host mesh's axis (``parallel/mesh.py``): each device folds its own
+contiguous chunks into its own carry through ``gram_corr_sym_acc``, and one
+``psum`` of the carries a fit, in shard order, precedes the solve.
+
 Waiting in ROADMAP: the hybrid resident + streamed tail
-(``run_lbfgs_gram_hybrid``, item 7) and the mesh folds (A.15). ``cost`` and ``resident_bytes`` price with
+(``run_lbfgs_gram_hybrid``, A.7). ``cost`` and ``resident_bytes`` price with
 the gather overhead of the weight family active at construction
 (``cost.py``; EC2 by default, 8.0); the calibration plane refits it from
 fits timed on the card (``scripts/torch_fit_cost_weights.py``).
@@ -59,6 +64,7 @@ from keystone_tpu_torch.ops.sparse import (
     gram_finalize,
     is_sparse_dataset,
     sparse_gram_fold,
+    sparse_gram_init,
     sparse_matmul,
     sparse_matmul_t,
 )
@@ -308,12 +314,6 @@ def _resident_chunk_fn(cid, idx_t, val_t, Y_t):
     return idx_t[cid], val_t[cid], Y_t[cid]
 
 
-def _raise_waits(what: str, item: str):
-    raise NotImplementedError(
-        f"run_lbfgs_gram_streamed: {what} is not ported yet (ROADMAP {item})"
-    )
-
-
 def run_lbfgs_gram_streamed(
     chunk_fn,
     num_chunks: int,
@@ -333,6 +333,7 @@ def run_lbfgs_gram_streamed(
     prefetch_stats=None,
     checkpoint=None,
     mesh=None,
+    mesh_axis: Optional[str] = None,
     device=None,
 ):
     """Streamed sparse ridge fit: fold G = AᵀA over COO chunks once
@@ -376,7 +377,19 @@ def run_lbfgs_gram_streamed(
     checkpoint with the whole fold in one pass raises; the variable is
     ignored there, as in the reference.
 
-    ``mesh`` (the multi-GPU fold, A.15) raises.
+    ``mesh``: a :class:`~keystone_tpu_torch.parallel.mesh.Mesh`. The chunk
+    stream partitions contiguously over ``mesh_axis`` (default ``data``):
+    device j folds chunks ``[j·cpd, (j+1)·cpd)`` (``cpd = ceil(num_chunks
+    / m)``) into its own (G, AtY, yty) carry with no collective, and one
+    ``psum`` of the carries a fit, in device order on the axis's first
+    device, precedes the solve. Resident ``operands`` are split over
+    their leading chunk axis, each device's part on its device; a
+    ``segment_source`` must then be a sequence of per-device sources whose
+    segment ``s`` carries device j's segment-relative chunks, read on
+    per-device ``read.d<j>`` lanes (``data/prefetch.py::
+    iter_mesh_segments``). ``chunk_fn`` receives device-local (resident)
+    or segment-relative (streamed) ids. ``checkpoint=`` raises on the mesh
+    path, as in the reference.
     """
     from keystone_tpu_torch.data.durable import (
         fingerprint_token,
@@ -394,7 +407,20 @@ def run_lbfgs_gram_streamed(
     if n is None:
         raise ValueError("streamed fit needs the true row count n")
     if mesh is not None:
-        _raise_waits("the mesh-sharded fold (mesh=)", "A.15")
+        if checkpoint is not None:
+            raise ValueError(
+                "mesh-sharded streamed fits do not checkpoint yet: the carry is a "
+                "per-device partial on every device (a snapshot would need a "
+                "gather); drop checkpoint= or mesh="
+            )
+        return _run_lbfgs_gram_streamed_mesh(
+            chunk_fn, int(num_chunks), int(d), int(k), mesh, mesh_axis=mesh_axis, lam=lam,
+            num_iterations=num_iterations, convergence_tol=convergence_tol, n=n,
+            val_dtype=val_dtype, operands=operands,
+            max_chunks_per_dispatch=max_chunks_per_dispatch,
+            segment_sources=segment_source, inflight=inflight,
+            prefetch_depth=prefetch_depth, prefetch_stats=prefetch_stats,
+        )
     explicit_checkpoint = checkpoint is not None
     checkpoint = resolve_checkpoint(checkpoint)
     num_chunks, seg = int(num_chunks), max_chunks_per_dispatch
@@ -520,6 +546,161 @@ def run_lbfgs_gram_streamed(
     if checkpoint is not None:
         checkpoint.clear(fingerprint)  # this fit's snapshot only
     return result
+
+
+def _mesh_fold_axis(mesh, mesh_axis: Optional[str]) -> str:
+    """Resolve (and validate) the fold's data-parallel mesh axis."""
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+    axis = mesh_axis or mesh_lib.DATA_AXIS
+    if axis not in mesh.shape:
+        raise ValueError(
+            f"mesh {dict(mesh.shape)} has no {axis!r} axis to shard the chunk stream over"
+        )
+    return axis
+
+
+def _mesh_gram_init(d: int, k: int, mesh, axis: str):
+    """Zero (G_raw, AtY, yty) carries, one on each device of ``axis``."""
+    return [sparse_gram_init(d, k, device=dev) for dev in mesh.axis_devices(axis)]
+
+
+def _gram_fold_program_mesh(chunk_fn, num_chunks: int, d: int, k: int, seg: int,
+                            val_dtype, pipeline: bool, mesh, axis: str,
+                            segment_relative: bool):
+    """Mesh segment fold: each device folds ``seg`` chunk ids of its
+    contiguous shard (local ids ``[cid0, cid0 + seg)``, global chunk
+    ``j·cpd + local``) into its own carry, through ``gram_corr_sym_acc``.
+    No collective runs here: the one psum a fit is
+    :func:`_gram_mesh_solve_program`'s. Ids past a device's shard, or past
+    ``num_chunks``, fold zero values and labels, so no chunk is folded
+    twice or skipped. ``segment_relative``: each device's operands hold
+    only this segment's chunks (the streamed path); else its whole
+    resident part, sliced by the local id."""
+    m = int(mesh.shape[axis])
+    cpd = -(-int(num_chunks) // m)
+
+    def fold(carries, cid0: int, device_operands):
+        out = []
+        for j, (carry, ops) in enumerate(zip(carries, device_operands)):
+            base = j * cpd
+
+            def cf(loc, ops=ops, base=base):
+                indices, values, Yc = chunk_fn(loc - cid0 if segment_relative else loc, *ops)
+                if loc < cpd and base + loc < num_chunks:
+                    return indices, values, Yc
+                return indices, torch.zeros_like(values), torch.zeros_like(Yc)
+
+            out.append(sparse_gram_fold(carry, range(cid0, cid0 + seg), cf, d, k,
+                                        val_dtype=val_dtype, pipeline=pipeline))
+        return out
+
+    return fold
+
+
+def _gram_mesh_solve_program(d: int, k: int, lam, num_iterations, convergence_tol, n,
+                             mesh, axis: str):
+    """The fit's one cross-device collective: a psum of the carries in
+    device order on the axis's first device, then the solve: the
+    one-device fold's iterates up to the reduction's reassociation."""
+    from keystone_tpu_torch.parallel.mesh import psum
+
+    dev = mesh.axis_devices(axis)[0]
+
+    def run(carries):
+        reduced = tuple(psum([c[i] for c in carries], dev) for i in range(3))
+        return _gram_solve(reduced, d, k, lam, num_iterations, convergence_tol, n)
+
+    return run
+
+
+def _run_lbfgs_gram_streamed_mesh(
+    chunk_fn, num_chunks, d, k, mesh, *, mesh_axis, lam, num_iterations,
+    convergence_tol, n, val_dtype, operands, max_chunks_per_dispatch,
+    segment_sources, inflight, prefetch_depth, prefetch_stats,
+):
+    """Mesh driver for :func:`run_lbfgs_gram_streamed`: one fold a local
+    segment over every device's shard, at most ``inflight`` segments
+    queued ahead of the cards, then one psum and the solve."""
+    from keystone_tpu_torch.data.prefetch import (
+        iter_mesh_segments,
+        stage_segment,
+        to_device_segment,
+    )
+
+    axis = _mesh_fold_axis(mesh, mesh_axis)
+    m = int(mesh.shape[axis])
+    devices = mesh.axis_devices(axis)
+    cpd = -(-int(num_chunks) // m)
+    dev_tag = f"{axis}[0-{m - 1}]"
+    in_flight: deque = deque()
+
+    def step(fold, carries, cid0, device_operands):
+        t0 = time.perf_counter()
+        # One fold covers every device's shard: the span carries the device
+        # group's tag, as the reference's.
+        with obs.span("fold.segment", chunk0=int(cid0), device=dev_tag,
+                      num_devices=m) as span:
+            carries = fold(carries, cid0, device_operands)
+            if carries[0][0].is_cuda:
+                span.set(queued=True)
+                done = torch.cuda.Event()
+                done.record()
+                in_flight.append(done)
+                if len(in_flight) > max(int(inflight), 1):
+                    in_flight.popleft().synchronize()
+        if prefetch_stats is not None:
+            prefetch_stats.add_busy("compute", time.perf_counter() - t0)
+        return carries
+
+    carries = _mesh_gram_init(d, k, mesh, axis)
+    solve = _gram_mesh_solve_program(d, k, lam, num_iterations, convergence_tol, n, mesh, axis)
+
+    if segment_sources is not None:
+        seg = max_chunks_per_dispatch
+        sources = list(segment_sources)
+        if len(sources) != m:
+            raise ValueError(
+                f"mesh fold over {axis}={m} needs {m} per-device segment sources, "
+                f"got {len(sources)}"
+            )
+        if seg is None:
+            raise ValueError(
+                "mesh segment sources need max_chunks_per_dispatch (the per-device "
+                "chunks carried by one segment)"
+            )
+        fold = _gram_fold_program_mesh(chunk_fn, num_chunks, d, k, int(seg), val_dtype,
+                                       int(seg) > 1, mesh, axis, True)
+        stages = [lambda p, dev=dev: stage_segment(p, dev) for dev in devices]
+        for s, payloads in iter_mesh_segments(sources, prefetch_depth=prefetch_depth,
+                                              stats=prefetch_stats, stage=stages):
+            ops = [to_device_segment(p, dev) for p, dev in zip(payloads, devices)]
+            carries = step(fold, carries, s * int(seg), ops)
+        return solve(carries)
+
+    # Resident path: device j's part holds its contiguous chunks, padded
+    # (indices -1, values and labels 0) to whole segments, on its device.
+    seg = int(max_chunks_per_dispatch) if max_chunks_per_dispatch else cpd
+    seg = max(min(seg, cpd), 1)
+    local = -(-cpd // seg) * seg
+    device_operands = []
+    for j, dev in enumerate(devices):
+        part = []
+        for o in operands:
+            o = as_tensor(o)
+            piece = o[j * cpd:min((j + 1) * cpd, int(o.shape[0]))]
+            pad = local - int(piece.shape[0])
+            if pad:
+                fill = -1 if not (piece.is_floating_point() or piece.is_complex()) else 0
+                piece = torch.cat([piece, torch.full((pad,) + tuple(piece.shape[1:]), fill,
+                                                     dtype=piece.dtype, device=piece.device)])
+            part.append(piece.to(dev))
+        device_operands.append(tuple(part))
+    fold = _gram_fold_program_mesh(chunk_fn, num_chunks, d, k, seg, val_dtype, False,
+                                   mesh, axis, False)
+    for cid0 in range(0, cpd, seg):
+        carries = step(fold, carries, cid0, device_operands)
+    return solve(carries)
 
 
 def _gram_solve(carry, d: int, k: int, lam, num_iterations, convergence_tol, n):

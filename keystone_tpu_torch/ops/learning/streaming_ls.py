@@ -1,6 +1,6 @@
 """Estimator API over the out-of-core streaming least-squares tier.
 
-Port of ``keystone_tpu/ops/learning/streaming_ls.py``, single device.
+Port of ``keystone_tpu/ops/learning/streaming_ls.py``.
 ``StreamingFeaturizedLeastSquares`` is the pipeline-facing form of
 :mod:`keystone_tpu_torch.parallel.streaming`: the featurizer lives inside
 the estimator, so the fit makes features one row tile at a time and folds
@@ -23,7 +23,7 @@ fields that the ``cost.py`` selector sets before pricing it, which also
 decide its tier (``_gram_tier_ok``): the gram tier whenever the (d, d)
 Gramian and one feature slab fit the device budget, else, for a cosine
 bank, the block-streamed tier (``BlockStreamedLeastSquares`` on
-``streaming.streaming_block_bcd_mesh``, one device), whose working set
+``streaming.streaming_block_bcd_mesh``), whose working set
 holds one (n, block) slab and the per-block Gramian stash, no d² term.
 
 A shard-backed input takes the disk tier: ``StreamingLeastSquaresChoice.
@@ -35,8 +35,11 @@ shard-backed input, as the reference's does: its residual sweep
 re-featurizes the raw rows every block step.
 
 The tier decision is audited as a ``cost.decision`` event
-(``decision="streaming_tier"``), as in the reference. Not ported yet: the
-mesh form of the block-streamed tier (A.15).
+(``decision="streaming_tier"``), as in the reference. Rows sharded over a
+multi-device mesh (``Dataset.shard``) take the mesh forms:
+``StreamingFeaturizedLeastSquares`` the mesh fold
+(``streaming_bcd_fit_mesh[_centered]``), ``BlockStreamedLeastSquares`` the
+block-streamed program over the mesh.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
 from keystone_tpu_torch.ops.learning.cost import CostModel
 from keystone_tpu_torch.ops.sparse import Densify, is_sparse_dataset
+from keystone_tpu_torch.parallel import mesh as mesh_lib
 from keystone_tpu_torch.parallel import streaming
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 from keystone_tpu_torch.workflow.fusion import DeviceFit
@@ -182,6 +186,23 @@ class StreamingFeaturizedLeastSquares(LabelEstimator):
         return DeviceFit(fit_fn, build)
 
     def fit(self, data: Dataset, labels: Dataset) -> StreamingFeaturizedLinearModel:
+        if mesh_lib.is_multi_device(data.mesh):
+            # Each shard folds its own tiles; one psum of the stats a fit.
+            X = data.array
+            Y = labels.array if labels.is_sharded else labels.shard(data.mesh).array
+            rows = X.shape[0] // mesh_lib.axis_size(data.mesh, mesh_lib.DATA_AXIS)
+            kw = dict(featurize=self.featurize, d_feat=self.d_feat,
+                      tile_rows=min(self.tile_rows, max(rows, 1)),
+                      block_size=self.block_size, lam=self.lam, num_iter=self.num_iter,
+                      mesh=data.mesh, n_true=data.n)
+            fmean = ymean = None
+            if self.center:
+                W, fmean, ymean = streaming.streaming_bcd_fit_mesh_centered(X, Y, **kw)
+            else:
+                W = streaming.streaming_bcd_fit_mesh(X, Y, **kw)
+            return StreamingFeaturizedLinearModel(
+                self.featurize, W, self.tile_rows, fmean=fmean, ymean=ymean,
+            )
         X = as_tensor(data.array)
         Y = as_tensor(labels.array, X.device)
         kw = dict(
@@ -306,7 +327,7 @@ def _extract_bank(members) -> Optional[CosineBankFeaturize]:
 class BlockStreamedLeastSquares(LabelEstimator):
     """The block-streamed tier as a pipeline estimator: per-block featurize
     → block Gramian and correlation → solve → residual update
-    (``streaming.streaming_block_bcd_mesh``, one device), for geometries
+    (``streaming.streaming_block_bcd_mesh``), for geometries
     where even the (d, d) Gramian of the gram tier exceeds device memory
     (d ≳ 90,000 on an 80 GB card). Needs a :class:`CosineBankFeaturize`:
     the residual sweep featurizes each block from its slice of the bank.
@@ -353,11 +374,19 @@ class BlockStreamedLeastSquares(LabelEstimator):
             data = data.materialize()
         if labels.is_shard_backed:
             labels = labels.materialize()
-        X = as_tensor(data.array, self.bank.Wrf.device)
-        Y = as_tensor(labels.array, X.device)
+        mesh = data.mesh if mesh_lib.is_multi_device(data.mesh) else None
+        if mesh is not None:
+            # Rows stay sharded: every kernel runs on each shard's rows and
+            # each block step psums its Gramian and correlation once.
+            X = data.array
+            Y = labels.array if labels.is_sharded else labels.shard(mesh).array
+        else:
+            X = as_tensor(data.array, self.bank.Wrf.device)
+            Y = as_tensor(labels.array, X.device)
         out = streaming.streaming_block_bcd_mesh(
             X, Y, self.bank.Wrf, self.bank.brf, block_size=self.block_size, lam=self.lam,
-            num_iter=self.num_iter, n_true=int(data.n) if data.n != X.shape[0] else None,
+            num_iter=self.num_iter, mesh=mesh,
+            n_true=int(data.n) if data.n != X.shape[0] else None,
             feat_dtype=self.bank.feat_dtype, center=self.center,
         )
         W, fmean, ymean = out if self.center else (out, None, None)

@@ -57,6 +57,13 @@ class StandardScalerModel(Transformer):
         return out
 
     def batch_apply(self, data: Dataset) -> Dataset:
+        if data.is_sharded:
+            # Each shard on its own device, the statistics copied there.
+            def shard_fn(X):
+                out = X - self.mean.to(X.device)
+                return out if self.std is None else out / self.std.to(X.device)
+
+            return data.map_batch(shard_fn)
         return data.map_batch(self.apply)
 
 
@@ -69,15 +76,28 @@ class StandardScaler(Estimator):
         self.eps = eps
 
     def fit(self, data: Dataset) -> StandardScalerModel:
-        X = as_tensor(data.array)
         n = data.n
+        if data.is_sharded:
+            # Each shard's column sums, psum'd in shard order (the
+            # reference's sharded reduction).
+            from keystone_tpu_torch.parallel.mesh import psum
+
+            shards = data.array.shards
+
+            def colsum(fn):
+                return psum([fn(X).sum(dim=0) for X in shards])
+        else:
+            X = as_tensor(data.array)
+
+            def colsum(fn):
+                return fn(X).sum(dim=0)
         # Padding rows are zero: sums are exact; divide by the true count.
-        mean = X.sum(dim=0) / n
+        mean = colsum(lambda A: A) / n
         if not self.normalize_std_dev:
             return StandardScalerModel(mean)
         # Sample variance with the zero-padding correction:
         # sum((x - mean)^2) over real rows = sum(x^2) - n*mean^2.
-        sumsq = (X * X).sum(dim=0)
+        sumsq = colsum(lambda A: A * A)
         var = (sumsq - n * mean * mean) / max(n - 1, 1)
         std = torch.sqrt(torch.clamp(var, min=0.0))
         bad = torch.isnan(std) | torch.isinf(std) | (torch.abs(std) < self.eps)
@@ -120,6 +140,15 @@ class CosineRandomFeaturesModel(Transformer):
     def device_fn(self):
         """Stage-fusion contract (workflow/fusion.py): row-local cos-GEMM."""
         return self._batch_fn
+
+    def batch_apply(self, data: Dataset) -> Dataset:
+        """Row-sharded input runs the kernel on each shard, with W and b on
+        the shard's device and no collective: the featurization is row
+        parallel (reference ``ops/stats.py:112-130``)."""
+        if data.is_sharded:
+            return data.map_batch(lambda X: cuda_ops.cosine_features(
+                X.contiguous(), self.W.to(X.device), self.b.to(X.device)))
+        return super().batch_apply(data)
 
     def device_fn_into(self):
         """Gather-fusion contract for column-concatenated branches: the

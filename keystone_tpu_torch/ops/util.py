@@ -76,6 +76,8 @@ class ClassLabelIndicatorsFromIntLabels(Transformer):
         return 2.0 * one_hot.to(torch.float32) - 1.0
 
     def batch_apply(self, data: Dataset) -> Dataset:
+        if data.is_sharded:
+            return data.map_batch(lambda L: self._encode(L.long()))
         labels = as_tensor(data.array).long()
         out = Dataset(self._encode(labels), n=data.n)
         # ±1 encoding is non-zero-preserving: re-zero padding rows.
@@ -188,6 +190,9 @@ class VectorCombiner(Transformer):
         return torch.cat([as_tensor(v) for v in x], dim=-1)
 
     def batch_apply(self, data: Dataset) -> Dataset:
+        if isinstance(data.data, tuple) and data.is_sharded:
+            # Each shard's branches concatenated on the shard's device.
+            return data.map_batch(lambda parts: torch.cat(list(parts), dim=-1))
         if isinstance(data.data, tuple):
             out = torch.cat([as_tensor(a) for a in data.data], dim=-1)
             return Dataset(out, n=data.n)
@@ -264,7 +269,8 @@ class Shuffler(Transformer):
             items = data.to_list()
             return Dataset.of([items[i] for i in perm])
         arr = as_tensor(data.array)
-        return Dataset(arr[: data.n][torch.from_numpy(perm).to(arr.device)], n=data.n)
+        out = Dataset(arr[: data.n][torch.from_numpy(perm).to(arr.device)], n=data.n)
+        return out.shard(data.mesh) if data.mesh is not None else out
 
 
 class VectorSplitter(FunctionNode):
@@ -280,12 +286,18 @@ class VectorSplitter(FunctionNode):
         self.num_features = num_features
 
     def apply(self, data: Dataset) -> List[Dataset]:
-        arr = as_tensor(data.array)
+        arr = data.array
+        if not data.is_sharded:
+            arr = as_tensor(arr)
         d = self.num_features if self.num_features is not None else int(arr.shape[-1])
-        return [
-            Dataset(arr[:, start:min(start + self.block_size, d)], n=data.n)
-            for start in range(0, d, self.block_size)
-        ]
+        blocks = []
+        for start in range(0, d, self.block_size):
+            cols = slice(start, min(start + self.block_size, d))
+            # A sharded array's blocks are column views of each shard, rows
+            # still sharded over ``data``.
+            block = arr.map(lambda X: X[:, cols]) if data.is_sharded else arr[:, cols]
+            blocks.append(Dataset(block, n=data.n, mesh=data.mesh))
+        return blocks
 
     def split_vector(self, vec):
         """Split a single vector into per-block vectors."""

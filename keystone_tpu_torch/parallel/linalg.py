@@ -9,8 +9,15 @@ read each column window of one (n, d) feature matrix in place through the
 The shared block update keeps the reference's ``sym`` switch: ``False``
 takes the dense form's ``gram_corr`` wrapper instead of ``gram_corr_sym``
 (in the port both launch the one kernel of ``csrc/gram_corr.cu``).
-``tsqr_r`` is the tall-skinny QR's R factor in its one-device form (the
-mesh form comes with the multi-GPU slice).
+``tsqr_r`` is the tall-skinny QR's R factor.
+
+On a multi-device mesh (``parallel/mesh.py``, rows sharded over ``data``)
+``bcd_least_squares(mesh=)`` runs each block step as the reference's
+``_mesh_bcd_step``: each shard's Gramian and correlation through
+``gram_corr_sym`` (its plain version on the CPU), one ``psum`` of the two,
+the solve on the axis's first device, and each shard's residual update on
+its own rows; ``tsqr_r`` takes each shard's local R and factors their
+stack.
 
 Conventions (matching the reference solvers):
   - ridge solve is ``(AᵀA + λI) x = AᵀB`` with *raw* λ (not scaled by n)
@@ -36,6 +43,8 @@ import torch
 
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
+
+from . import mesh as mesh_lib
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -118,11 +127,58 @@ def _gram_cache_ok(num_iter: int, gram_bytes: int) -> bool:
     return num_iter > 1 and gram_bytes <= (1 << 30)
 
 
+def _mesh_bcd_step(mesh, lam: float):
+    """Per-block BCD step for a row-sharded design matrix: (step,
+    step_cached).
+
+    Each shard's Gramian and correlation go through ``gram_corr_sym`` (one
+    launch a shard; float64 blocks keep plain contractions), then one
+    ``psum`` of both over the ``data`` axis: the explicit-collective form
+    of the reference's per-partition Gramians + treeReduce (mlmatrix
+    NormalEquations). The solve runs on the axis's first device; each
+    shard's residual update is its own rows' product. Later epochs pass
+    the stashed Gramian to ``step_cached``, which psums the correlation
+    alone."""
+    axis = mesh_lib.DATA_AXIS
+
+    def gram_corr_body(a, r):
+        if _acc_dtype(a.dtype) == torch.float32:
+            return cuda_ops.gram_corr_sym(a, r.to(torch.float32))
+        acc = _acc_dtype(a.dtype)
+        return a.T.to(acc) @ a.to(acc), _corr(a, r)
+
+    sharded_gram_corr = mesh_lib.shard_map(
+        gram_corr_body, mesh, in_specs=(axis, axis), out_specs=(None, None))
+    sharded_corr = mesh_lib.shard_map(
+        lambda a, r: _corr(a, r), mesh, in_specs=(axis, axis), out_specs=None)
+    residual_update = mesh_lib.shard_map(
+        lambda a, r, dw: r - (a @ dw.to(a.dtype)).to(r.dtype), mesh,
+        in_specs=(axis, axis, None), out_specs=axis)
+
+    def finish(Ab, Wb, R, gram, corr):
+        Wb = Wb.to(gram.dtype)
+        Wb_new = _solve_psd(gram, corr + gram @ Wb, lam)
+        return Wb_new, residual_update(Ab, R, Wb_new - Wb)
+
+    def step(Ab, Wb, R):
+        gram, corr = sharded_gram_corr(Ab, R)
+        Wb_new, R_new = finish(Ab, Wb, R, gram, corr)
+        return Wb_new, R_new, gram
+
+    def step_cached(Ab, Wb, R, gram):
+        """Later epochs: the Gramian is loop-invariant; only the
+        correlation re-reads the sharded rows."""
+        return finish(Ab, Wb, R, gram, sharded_corr(Ab, R))
+
+    return step, step_cached
+
+
 def bcd_least_squares(
     A_blocks: Sequence,
     B,
     lam: float = 0.0,
     num_iter: int = 1,
+    mesh=None,
 ) -> List:
     """Block coordinate descent ridge regression over feature blocks.
 
@@ -134,7 +190,16 @@ def bcd_least_squares(
     runs it as one jitted XLA step, not through a Pallas kernel, on one
     device). Loop-invariant per-block Gramians are stashed across epochs
     when the stash is small.
+
+    ``mesh`` (more than one shard on ``data``): the blocks and B are rows
+    sharded over the axis (:class:`~keystone_tpu_torch.parallel.mesh.
+    ShardedRows`, zero-padded; plain tensors are sharded first), and each
+    step is :func:`_mesh_bcd_step`'s. The weights come back on the axis's
+    first device. The psum reassociates the one-device sums, so the
+    weights are not bit-equal to the one-device fit's.
     """
+    if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS) > 1:
+        return _bcd_least_squares_mesh(A_blocks, B, float(lam), num_iter, mesh)
     B = as_tensor(B)
     k = B.shape[1]
     Ws = [torch.zeros((Ab.shape[1], k), dtype=B.dtype, device=B.device) for Ab in A_blocks]
@@ -157,6 +222,32 @@ def bcd_least_squares(
             Ws[b] = Wb_new
             if cache_grams:
                 grams[b] = gram
+    return Ws
+
+
+def _bcd_least_squares_mesh(A_blocks, B, lam: float, num_iter: int, mesh) -> List:
+    """:func:`bcd_least_squares` on a multi-device mesh."""
+    def sharded(x):
+        return x if isinstance(x, mesh_lib.ShardedRows) else mesh_lib.shard_rows(
+            as_tensor(x), mesh)
+
+    A_blocks = [sharded(a) for a in A_blocks]
+    R = sharded(B).map(lambda r: r.clone())
+    k = R.shape[1]
+    dev = mesh.axis_devices(mesh_lib.DATA_AXIS)[0]
+    Ws = [torch.zeros((Ab.shape[1], k), dtype=R.dtype, device=dev) for Ab in A_blocks]
+    step, step_cached = _mesh_bcd_step(mesh, lam)
+    gram_bytes = sum(int(a.shape[1]) ** 2 * _acc_dtype(a.dtype).itemsize for a in A_blocks)
+    cache_grams = _gram_cache_ok(max(num_iter, 1), gram_bytes)
+    grams: List = [None] * len(A_blocks)
+    for _ in range(max(num_iter, 1)):
+        for b, Ab in enumerate(A_blocks):
+            if grams[b] is not None:
+                Ws[b], R = step_cached(Ab, Ws[b], R, grams[b])
+            else:
+                Ws[b], R, gram = step(Ab, Ws[b], R)
+                if cache_grams:
+                    grams[b] = gram
     return Ws
 
 
@@ -335,12 +426,22 @@ def bcd_least_squares_fused_flat(
 # ---------------------------------------------------------------------------
 
 
-def tsqr_r(A) -> torch.Tensor:
+def tsqr_r(A, mesh=None) -> torch.Tensor:
     """R factor of a tall-skinny QR (the analog of mlmatrix ``TSQR().qrR``),
-    one device: a direct QR, as the reference takes when its rows are not
-    sharded. Sign convention: R has a non-negative diagonal."""
-    A = as_tensor(A)
-    r = torch.linalg.qr(A, mode="r")[1]
+    computed shard-locally then combined: each data shard's local R, then
+    a QR of their stack on the axis's first device. A direct QR when the
+    rows are not sharded (``A`` a plain tensor and no ``mesh``). Sign
+    convention: R has a non-negative diagonal."""
+    if isinstance(A, mesh_lib.ShardedRows):
+        mesh = mesh or A.mesh
+    if mesh is None or mesh_lib.DATA_AXIS not in mesh.shape:
+        r = torch.linalg.qr(as_tensor(A), mode="r")[1]
+    else:
+        locals_ = mesh_lib.shard_map(
+            lambda a: torch.linalg.qr(a, mode="r")[1], mesh,
+            in_specs=mesh_lib.DATA_AXIS, out_specs=mesh_lib.DATA_AXIS,
+        )(A if isinstance(A, mesh_lib.ShardedRows) else mesh_lib.shard_rows(as_tensor(A), mesh))
+        r = torch.linalg.qr(locals_.gather(), mode="r")[1]
     signs = torch.sign(torch.diagonal(r))
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
     return r * signs[:, None]

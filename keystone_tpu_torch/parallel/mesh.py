@@ -1,0 +1,429 @@
+"""Device mesh management: the substrate that replaces the Spark cluster.
+
+Port of ``keystone_tpu/parallel/mesh.py``, one host. The reference's
+substrate is a ``jax.sharding.Mesh`` over TPU chips (or forced-CPU devices
+in tests) driven by one Python program; here a :class:`Mesh` names its
+axes over a grid of ``torch.device`` objects, and the one program drives
+every shard in turn (a single controller, as JAX is on one host). Axis
+conventions:
+
+  - ``data``  — examples (rows). The analog of RDD row-partitioning.
+  - ``model`` — features/columns. The analog of VectorSplitter feature blocks
+    (reference: nodes/util/VectorSplitter.scala:10-36).
+
+A device may appear more than once, the way XLA's
+``--xla_force_host_platform_device_count`` splits one CPU into devices:
+tests build 8 shards on the CPU, and one card holds 8 shards on
+``cuda:0``.
+
+A row-sharded tensor (:class:`ShardedRows`) is one tensor a shard, in shard
+order, each on its device, zero-padded past the true row count to a
+multiple of the axis (:func:`pad_rows`). :func:`shard_map` runs a body once
+a shard. Every collective on this slice's paths is one ``psum`` at a
+body's end: the port adds the shards' partials in shard order on the
+axis's first device (:func:`psum`), so a mesh fit gives the same bits from
+run to run. Partials of other devices reach it by peer copies
+(``Tensor.to``), not ``torch.cuda.comm.reduce_add``, whose summation order
+is NCCL's and not fixed.
+
+The multi-process form (one process a host over ``torch.distributed``,
+NCCL on cards, gloo for CPU tests; the reference's ``init_distributed`` and
+``make_hybrid_mesh``'s DCN axes) composes on top of this one and is not
+ported yet (ROADMAP A.15b).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+_default_mesh: Optional["Mesh"] = None
+
+
+class Mesh:
+    """A grid of devices with named axes (``jax.sharding.Mesh``'s role).
+
+    ``devices``: an array of ``torch.device`` whose shape is the mesh's;
+    ``shape`` maps each axis name to its size, in order."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        grid = np.empty(np.shape(devices), dtype=object)
+        for idx in np.ndindex(grid.shape):
+            grid[idx] = torch.device(np.asarray(devices, dtype=object)[idx])
+        if grid.ndim != len(axis_names):
+            raise ValueError(
+                f"mesh of shape {grid.shape} needs {grid.ndim} axis names, got "
+                f"{tuple(axis_names)}"
+            )
+        self.devices = grid
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, grid.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis`` at index 0 of every other axis: where
+        that axis's shards live."""
+        if axis not in self.shape:
+            return [self.devices.flat[0]]
+        pos = self.axis_names.index(axis)
+        index = [0] * self.devices.ndim
+        out = []
+        for i in range(self.shape[axis]):
+            index[pos] = i
+            out.append(self.devices[tuple(index)])
+        return out
+
+    def flat_devices(self, axes: Sequence[str]) -> List[torch.device]:
+        """The devices of the row shards over ``axes`` flattened, the first
+        axis major (the reference's ``P((data, model))`` row split); axes
+        not named keep index 0."""
+        pos = [self.axis_names.index(a) for a in axes]
+        sizes = [self.shape[a] for a in axes]
+        out = []
+        for flat in np.ndindex(*sizes):
+            index = [0] * self.devices.ndim
+            for p, i in zip(pos, flat):
+                index[p] = i
+            out.append(self.devices[tuple(index)])
+        return out
+
+    def __repr__(self) -> str:
+        devs = sorted({str(d) for d in self.devices.flat})
+        return f"Mesh({self.shape}, devices={devs})"
+
+
+def available_devices() -> List[torch.device]:
+    """Every CUDA device, or the CPU where there is none."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def make_mesh(
+    shape: Optional[Tuple[int, ...]] = None,
+    axis_names: Sequence[str] = (DATA_AXIS,),
+    devices: Optional[Sequence] = None,
+) -> Mesh:
+    """Build a mesh.
+
+    Default: a 1-D ``data`` mesh over the available devices. Pass ``shape``
+    and ``axis_names`` for 2-D data × model meshes. ``devices`` must hold
+    one device a mesh position (a device may repeat); left out, the
+    available devices fill ``shape`` in turn, repeating as needed, so
+    ``make_mesh((8,))`` on one card gives 8 shards on it."""
+    if devices is None:
+        avail = available_devices()
+        size = len(avail) if shape is None else int(np.prod(shape))
+        devs = [avail[i % len(avail)] for i in range(size)]
+    else:
+        devs = [torch.device(d) for d in devices]
+    if shape is None:
+        shape = (len(devs),)
+    if int(np.prod(shape)) != len(devs):
+        raise ValueError(f"{len(devs)} devices do not fill a mesh of shape {tuple(shape)}")
+    grid = np.empty(len(devs), dtype=object)
+    grid[:] = devs
+    return Mesh(grid.reshape(tuple(shape)), axis_names)
+
+
+def default_mesh() -> Mesh:
+    """Process-wide default mesh (1-D over the available devices), created
+    on demand."""
+    global _default_mesh
+    if _default_mesh is None:
+        _default_mesh = make_mesh()
+    return _default_mesh
+
+
+def set_default_mesh(mesh: Optional[Mesh]) -> None:
+    global _default_mesh
+    _default_mesh = mesh
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh):
+    """Temporarily install `mesh` as the process default."""
+    global _default_mesh
+    prev = _default_mesh
+    _default_mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _default_mesh = prev
+
+
+def axis_size(mesh: Mesh, axis: str) -> int:
+    return mesh.shape[axis] if axis in mesh.shape else 1
+
+
+def is_multi_device(mesh: Optional[Mesh]) -> bool:
+    """True for a mesh with an axis of more than one shard (the reference's
+    estimators' ``any(s > 1 for s in mesh.shape.values())``)."""
+    return mesh is not None and any(s > 1 for s in mesh.shape.values())
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> None:
+    """The multi-process runtime (one process a host): not ported yet."""
+    if coordinator_address is None and num_processes in (None, 1):
+        return  # single-process run, as the reference's no-op
+    raise NotImplementedError(
+        "init_distributed: the multi-process mesh (one process a host over "
+        "torch.distributed) is not ported yet (ROADMAP A.15b); one process "
+        "drives every shard of a one-host mesh"
+    )
+
+
+def make_hybrid_mesh(
+    ici_shape: Tuple[int, ...],
+    dcn_shape: Tuple[int, ...],
+    axis_names: Sequence[str],
+) -> Mesh:
+    """Mesh over a multi-host topology: ``ici_shape`` axes within a host,
+    ``dcn_shape`` axes across hosts. One host only: every DCN axis must be
+    1, and the mesh is then a plain one, as the reference's single slice
+    degenerates (reference ``mesh.py:118-120``)."""
+    if int(np.prod(dcn_shape)) != 1:
+        raise NotImplementedError(
+            f"make_hybrid_mesh: DCN axes {tuple(dcn_shape)} span hosts; the "
+            "multi-host mesh is not ported yet (ROADMAP A.15b)"
+        )
+    full = tuple(d * i for d, i in zip(dcn_shape, ici_shape))
+    return make_mesh(full, axis_names)
+
+
+def pad_rows(x: np.ndarray, multiple: int):
+    """Zero-pad the leading axis up to a multiple; returns (padded, n_valid).
+
+    Zero padding is the invariant the solvers rely on: padded rows contribute
+    nothing to Gramians (AtA), moment sums, or gradient accumulations, so only
+    divisions by n need the true count.
+    """
+    n = x.shape[0]
+    rem = (-n) % multiple
+    if rem == 0:
+        return x, n
+    if isinstance(x, torch.Tensor):
+        pad = torch.zeros((rem,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        return torch.cat([x, pad]), n
+    pad_width = [(0, rem)] + [(0, 0)] * (x.ndim - 1)
+    return np.pad(x, pad_width), n
+
+
+class ShardedRows:
+    """A row-sharded tensor: ``shards[i]`` holds rows ``[i·r, (i+1)·r)`` of
+    the global (padded) array on the mesh's ``i``-th device along
+    ``axis`` (``r`` rows a shard). Shape and dtype are the global array's.
+    Code that is not mesh-aware reads it through
+    :func:`~keystone_tpu_torch.data.dataset.as_tensor`, which gathers the
+    shards onto the first one's device, as a sharded ``jax.Array`` reads
+    as one array."""
+
+    def __init__(self, shards: Sequence[torch.Tensor], mesh: Mesh, axis=DATA_AXIS):
+        self.shards = tuple(shards)
+        self.mesh = mesh
+        self.axis = axis
+        rows = {int(s.shape[0]) for s in self.shards}
+        if len(rows) != 1:
+            raise ValueError(f"shards must hold equal row counts, got {sorted(rows)}")
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def shard_rows(self) -> int:
+        return int(self.shards[0].shape[0])
+
+    @property
+    def shape(self) -> torch.Size:
+        first = self.shards[0].shape
+        return torch.Size((self.num_shards * first[0],) + tuple(first[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def ndim(self) -> int:
+        return self.shards[0].dim()
+
+    def dim(self) -> int:
+        return self.ndim
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def gather(self) -> torch.Tensor:
+        """The global array on the first shard's device."""
+        dev = self.shards[0].device
+        return torch.cat([s.to(dev) for s in self.shards])
+
+    def head(self, k: int) -> torch.Tensor:
+        """The first ``k`` global rows, on the first shard's device."""
+        dev, parts, left = self.shards[0].device, [], int(k)
+        for s in self.shards:
+            if left <= 0:
+                break
+            parts.append(s[:left].to(dev))
+            left -= int(s.shape[0])
+        return torch.cat(parts) if parts else self.shards[0][:0]
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "ShardedRows":
+        """``fn`` applied to each shard (a row-local function)."""
+        return ShardedRows([fn(s) for s in self.shards], self.mesh, self.axis)
+
+    def __repr__(self) -> str:
+        return (f"ShardedRows(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"shards={self.num_shards} over {self.axis!r})")
+
+
+def _axis_devices(mesh: Mesh, axis) -> List[torch.device]:
+    if isinstance(axis, (tuple, list)):
+        return mesh.flat_devices(axis)
+    return mesh.axis_devices(axis)
+
+
+def host_tensor(x) -> torch.Tensor:
+    """A host array as a CPU tensor; float64 becomes float32, since the
+    port computes in float32, as the reference does outside its x64 tests.
+    A tensor is returned as it is."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def shard_rows(x, mesh: Optional[Mesh] = None, axis=DATA_AXIS) -> ShardedRows:
+    """Place an array on the mesh, sharded along its leading (example)
+    axis. Its row count must divide by the axis's shards (pad first, with
+    :func:`pad_rows`); ``axis`` may be a tuple of axes, flattened first
+    major. Host arrays convert as :func:`host_tensor` converts them, so
+    sharded float64 rows fit in float32 as unsharded ones do."""
+    mesh = mesh or default_mesh()
+    if isinstance(x, ShardedRows):
+        x = x.gather()
+    x = host_tensor(x)
+    devices = _axis_devices(mesh, axis)
+    num = len(devices)
+    if x.shape[0] % num:
+        raise ValueError(
+            f"{x.shape[0]} rows do not divide over {num} shards; pad them first (pad_rows)"
+        )
+    rows = x.shape[0] // num
+    return ShardedRows(
+        [x[i * rows:(i + 1) * rows].to(dev) for i, dev in enumerate(devices)], mesh, axis
+    )
+
+
+def replicate(x, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, ...]:
+    """The array on every data shard's device (the ``broadcast`` analog):
+    one tensor a shard, the same storage where devices coincide."""
+    mesh = mesh or default_mesh()
+    x = host_tensor(x)
+    return tuple(x.to(dev) for dev in mesh.axis_devices(DATA_AXIS))
+
+
+def psum(parts: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """The sum of the shards' partials, added in shard order on ``device``
+    (default: the first partial's), a fresh tensor: the fixed-order form
+    of the reference's ``lax.psum`` over an axis."""
+    dev = parts[0].device if device is None else torch.device(device)
+    acc = parts[0].to(dev, copy=True)
+    for p in parts[1:]:
+        acc += p.to(dev)
+    return acc
+
+
+_local = threading.local()
+
+
+def axis_index(axis: str) -> int:
+    """Inside a :func:`shard_map` body: the index of the shard it runs on
+    along ``axis`` (``jax.lax.axis_index``)."""
+    stack = getattr(_local, "index", None)
+    if not stack or axis not in stack[-1]:
+        raise RuntimeError(f"axis_index({axis!r}) outside a shard_map body over it")
+    return stack[-1][axis]
+
+
+def shard_map(f: Callable, mesh: Mesh, in_specs, out_specs, axis: str = DATA_AXIS) -> Callable:
+    """Run ``f`` once a shard of ``axis`` (``jax.shard_map``'s role).
+
+    ``in_specs`` / ``out_specs``: one entry an argument / output, the axis
+    name for a row-sharded value, ``None`` for a replicated one. A
+    sharded input is a :class:`ShardedRows` over the axis (a plain tensor
+    is sharded first); a replicated input reaches each body on its
+    shard's device. A sharded output is collected into a
+    :class:`ShardedRows`; a replicated output is the :func:`psum` of the
+    bodies' outputs on the axis's first device: on this slice every
+    collective is one ``psum`` at a body's end. ``axis_index`` inside the
+    body reads the shard's index. A single spec (not a tuple) stands for
+    a single argument or output."""
+    single_out = not isinstance(out_specs, (tuple, list))
+    outs_spec = (out_specs,) if single_out else tuple(out_specs)
+    ins_spec = tuple(in_specs) if isinstance(in_specs, (tuple, list)) else (in_specs,)
+    devices = mesh.axis_devices(axis)
+
+    def run(*args):
+        if len(args) != len(ins_spec):
+            raise TypeError(f"shard_map body takes {len(ins_spec)} arguments, got {len(args)}")
+        placed = []
+        for a, spec in zip(args, ins_spec):
+            if spec is None:
+                placed.append([_to(a, dev) for dev in devices])
+            else:
+                sh = a if isinstance(a, ShardedRows) else shard_rows(a, mesh, axis)
+                if sh.num_shards != len(devices):
+                    raise ValueError(
+                        f"argument holds {sh.num_shards} shards, the axis {len(devices)}"
+                    )
+                placed.append(list(sh.shards))
+        stack = getattr(_local, "index", None)
+        if stack is None:
+            stack = _local.index = []
+        per_shard = []
+        for i in range(len(devices)):
+            stack.append({axis: i})
+            try:
+                out = f(*[p[i] for p in placed])
+            finally:
+                stack.pop()
+            per_shard.append((out,) if single_out else tuple(out))
+        results = []
+        for j, spec in enumerate(outs_spec):
+            parts = [o[j] for o in per_shard]
+            results.append(psum(parts, devices[0]) if spec is None
+                           else ShardedRows(parts, mesh, axis))
+        return results[0] if single_out else tuple(results)
+
+    return run
+
+
+def _to(a, device):
+    return a.to(device) if isinstance(a, torch.Tensor) else a
+
+
+def sync_if_cpu(x) -> None:
+    """The reference's barrier after a dispatched step on its CPU backend,
+    whose forced-host devices deadlock when many collective programs queue
+    asynchronously. The single controller queues no collective program:
+    a no-op kept for the call sites' shape."""
+    return None

@@ -44,11 +44,24 @@ Differences from the reference:
     so they collapse to plain calls of ``_fit_core`` and
     ``_solve_from_stats_core``, and only a static ``valid`` is taken.
 
-The block-streamed program, ``streaming_block_bcd_mesh``, is ported for one
-device (``mesh=None``): the reference runs it on a 1-device mesh, where
-every ``psum`` is the identity. Its features are made one (n, block) slab
-a block step and freed, so the (d, d) Gramian never exists either; that is
-the tier past the gram tier's wall (TIMIT at d = 204,800).
+The block-streamed program, ``streaming_block_bcd_mesh``, makes its
+features one (n, block) slab a block step and frees them, so the (d, d)
+Gramian never exists either; that is the tier past the gram tier's wall
+(TIMIT at d = 204,800). Without a mesh (or on one shard) it is the
+reference's program on a 1-device mesh, where every ``psum`` is the
+identity.
+
+The mesh forms (``parallel/mesh.py``: rows sharded over ``data``, zero
+padding past ``n_true``): ``gram_stats_mesh`` folds each shard's tiles
+through ``gram_sym_acc`` and psums (G, FY, yty) once a fit (the column
+sums too for the centred fits); ``streaming_bcd_fit_mesh[_centered]``
+solve on the psum'd stats; ``streaming_block_bcd_mesh(mesh=)`` runs each
+block step's kernels on every shard and psums the block's Gramian and
+correlation once a step; ``streaming_block_bcd_mesh_2d`` shards the rows
+over data × model and solves each block on its owner along ``model``.
+Padding rows are dropped per shard (a view of each shard's valid rows),
+which contributes what the reference's masked rows do; a shard past
+``n_true`` folds nothing.
 
 ``streaming_bcd_fit_segments`` is the disk tier's fold: pre-tiled
 segments delivered one at a time by a ``ShardSource`` (memory-mapped disk
@@ -58,10 +71,6 @@ page-locked memory on the reader thread and copied on a side stream while
 the previous segment folds; the reference's ``BoundedInflight`` becomes a
 queue of CUDA events that keeps at most ``inflight`` segments ahead of the
 card.
-
-Not ported yet: the mesh forms (``gram_stats_mesh``,
-``streaming_bcd_fit_mesh[_centered]``, ``streaming_block_bcd_mesh`` over a
-mesh and ``streaming_block_bcd_mesh_2d``; A.15).
 """
 
 from __future__ import annotations
@@ -78,6 +87,7 @@ from keystone_tpu_torch import obs, resolve_device
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
 
+from . import mesh as mesh_lib
 from .linalg import _acc_dtype, _corr, _psd_factor, _solve_psd
 
 # Device-memory budget for one feature slab (the streamed working set).
@@ -289,6 +299,7 @@ def streaming_bcd_fit(
     num_iter: int,
     valid: Optional[int] = None,
     labelize: Optional[Callable] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Streamed fit: tiles → (G, FY, yty) → BCD epochs.
 
@@ -297,7 +308,24 @@ def streaming_bcd_fit(
     (W, train_loss, yty) with W: (nb, block_size, k). The train loss
     ||Y − FW||²/n comes algebraically from the accumulated stats,
     (yty − 2·tr(Wᵀ FY) + tr(Wᵀ G W))/n: two small products, no data pass.
+
+    ``mesh``: fold each shard's rows over the mesh's data axis and psum the
+    stats once (:func:`gram_stats_mesh`), then solve; X (n, d_in) rows
+    must divide over the axis (pad and pass ``valid``); ``labelize`` is
+    not taken on this path (pre-apply it to Y).
     """
+    if mesh is not None:
+        if labelize is not None:
+            raise ValueError(
+                "labelize is not supported with mesh=; pre-apply it to Y "
+                "(the mesh fold shards Y rows alongside X)"
+            )
+        n_true = valid if valid is not None else int(X.shape[0])
+        G, FY, yty = gram_stats_mesh(X, Y, featurize, d_feat, tile_rows, mesh,
+                                     n_true=valid)
+        W, loss, _, _ = _solve_from_stats_core(G, FY, yty, None, None, n_true, lam,
+                                               block_size, num_iter, False)
+        return W, loss, yty
     W, loss, yty, _, _ = _fit_core(X, Y, featurize, d_feat, tile_rows, block_size, lam,
                                    num_iter, valid, labelize, False)
     return W, loss, yty
@@ -583,6 +611,190 @@ def streaming_predict(X, W, featurize: Callable, tile_rows: int) -> torch.Tensor
     return out
 
 
+def _sharded(x, mesh, axis) -> mesh_lib.ShardedRows:
+    if isinstance(x, mesh_lib.ShardedRows):
+        return x
+    return mesh_lib.shard_rows(as_tensor(x), mesh, axis)
+
+
+def _valid_views(Xs: mesh_lib.ShardedRows, n_true: Optional[int]):
+    """Each shard's rows before the global row ``n_true`` (a view), and
+    their counts: padding rows never reach a kernel."""
+    rows = Xs.shard_rows
+    n = Xs.shape[0] if n_true is None else int(n_true)
+    counts = [min(max(n - i * rows, 0), rows) for i in range(Xs.num_shards)]
+    return [s[:c] for s, c in zip(Xs.shards, counts)], counts
+
+
+def gram_stats_mesh(
+    X,
+    Y,
+    featurize: Callable,
+    d_feat: int,
+    tile_rows: int,
+    mesh,
+    n_true: Optional[int] = None,
+    moments: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Mesh-parallel :func:`gram_stats`: rows sharded over ``data``; each
+    shard folds its own tiles (``gram_sym_acc`` on the card), then one
+    ``psum`` of (G, FY, yty) (and the column sums with ``moments``) in
+    shard order on the axis's first device: the treeReduce analog, one
+    collective a fit.
+
+    X (n_pad, d_in) and Y (n_pad, k): :class:`~keystone_tpu_torch.parallel.
+    mesh.ShardedRows` or tensors whose rows divide over the axis.
+    ``n_true``: the true global row count when X was padded to shard
+    evenly; each shard's rows past it are dropped after featurizing (a
+    zero row featurizes to cos(b) ≠ 0), and a shard entirely past it
+    folds nothing.
+    """
+    axis = mesh_lib.DATA_AXIS
+    Xs, Ys = _sharded(X, mesh, axis), _sharded(Y, mesh, axis)
+    local_rows, n_padded = Xs.shard_rows, Xs.shape[0]
+
+    def local(xs, ys):
+        valid = None
+        if n_true is not None and n_true != n_padded:
+            start = mesh_lib.axis_index(axis) * local_rows
+            valid = min(max(int(n_true) - start, 0), local_rows)
+        return gram_stats(xs, ys, featurize, d_feat, min(tile_rows, local_rows),
+                          valid=valid, moments=moments)
+
+    n_out = 5 if moments else 3
+    return mesh_lib.shard_map(local, mesh, in_specs=(axis, axis),
+                              out_specs=(None,) * n_out)(Xs, Ys)
+
+
+def streaming_bcd_fit_mesh(
+    X,
+    Y,
+    *,
+    featurize: Callable,
+    d_feat: int,
+    tile_rows: int,
+    block_size: int,
+    lam: float,
+    num_iter: int,
+    mesh,
+    n_true: Optional[int] = None,
+) -> torch.Tensor:
+    """Mesh streamed fit: sharded tile folds + one psum + the solve.
+    Pass the true global row count as ``n_true`` when the rows were padded
+    to shard evenly. Returns W (nb, block_size, k)."""
+    G, FY, _ = gram_stats_mesh(X, Y, featurize, d_feat, tile_rows, mesh, n_true=n_true)
+    return bcd_from_gram(G, FY, block_size, lam, num_iter)
+
+
+def streaming_bcd_fit_mesh_centered(
+    X,
+    Y,
+    *,
+    featurize: Callable,
+    d_feat: int,
+    tile_rows: int,
+    block_size: int,
+    lam,
+    num_iter: int,
+    mesh,
+    n_true: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mesh form of :func:`streaming_bcd_fit_centered`: sharded tile folds
+    (column sums psum'd beside G/FY, still one collective a fit), rank-1
+    centering corrections, the solve. Returns (W, fmean, ymean)."""
+    G, FY, yty, fsum, ysum = gram_stats_mesh(X, Y, featurize, d_feat, tile_rows, mesh,
+                                             n_true=n_true, moments=True)
+    n = n_true if n_true is not None else int(X.shape[0])
+    Gc, FYc, _, fmean, ymean = center_gram_stats(G, FY, yty, fsum, ysum, n)
+    return bcd_from_gram(Gc, FYc, block_size, lam, num_iter), fmean, ymean
+
+
+def _block_bcd_sweep(xs, ys, Wrf, brf, *, n: int, block_size: int, lam: float,
+                     num_iter: int, feat_dtype: torch.dtype, center: bool, solve_device):
+    """The block-streamed sweep over row shards: ``xs`` / ``ys`` are each
+    shard's valid rows, on its device (one shard without a mesh), ``n``
+    their total. Every block step makes each shard's slab, sums the
+    shards' partials in shard order (``psum``) on ``solve_device(b)``,
+    solves there, and updates each shard's residual rows. On one shard
+    the psums are copies, and the sweep is the reference's 1-device mesh
+    program. Returns (W, M, ymean) on the first shard's device; M and
+    ymean are None unless centred."""
+    psum = mesh_lib.psum
+    d_feat = int(Wrf.shape[0])
+    if d_feat % block_size:
+        raise ValueError(f"d_feat {d_feat} not divisible by {block_size}")
+    nb, bs = d_feat // block_size, block_size
+    acc = _acc_dtype(feat_dtype)
+    kernels = acc == torch.float32  # float32 and bf16 slabs; float64 takes plain contractions
+    xs = [x.to(torch.float32).contiguous() for x in xs]
+    dev0 = xs[0].device
+    # The bank on each shard's device (the reference replicates it).
+    banks = {}
+    for x in xs:
+        if x.device not in banks:
+            banks[x.device] = (Wrf.to(x.device), brf.to(x.device))
+    R = [y.to(acc, copy=True) for y in ys]
+    ymean = None
+    if center:
+        ymean = psum([r.sum(dim=0) for r in R], dev0) / n
+        for r in R:
+            r -= ymean.to(r.device)
+    W = torch.zeros((nb, bs, R[0].shape[1]), dtype=acc, device=dev0)
+    M = torch.zeros((nb, bs), dtype=acc, device=dev0) if center else None
+    # The Gramian and Cholesky stash, kept only where a later epoch reads it.
+    stash = [None] * nb
+
+    for epoch in range(max(int(num_iter), 1)):
+        for b in range(nb):
+            rows = slice(b * bs, (b + 1) * bs)
+            sd = solve_device(b)
+            F = [cuda_ops.cosine_features(x, banks[x.device][0][rows], banks[x.device][1][rows],
+                                          compute_dtype=torch.float32, out_dtype=feat_dtype)
+                 for x in xs]
+            mu = None
+            if epoch == 0:
+                if kernels:
+                    # R rounded to F's dtype, as the reference's correlation reads it.
+                    parts = [cuda_ops.gram_corr_sym(f, r.to(f.dtype)) for f, r in zip(F, R)]
+                else:
+                    parts = [(f.T.to(acc) @ f.to(acc), _corr(f, r)) for f, r in zip(F, R)]
+                gram = psum([g for g, _ in parts], sd)
+                corr = psum([c for _, c in parts], sd)
+                del parts
+                if center:
+                    fsum = psum([f.sum(dim=0, dtype=torch.float32).to(acc) for f in F], sd)
+                    mu = fsum / n
+                    gram.addr_(fsum, mu, alpha=-1)
+                    M[b] = mu
+                chol = _psd_factor(gram, lam)
+                if num_iter > 1:
+                    stash[b] = (gram, chol)
+            else:
+                gram, chol = stash[b]
+                corr = psum([cuda_ops.block_corr(f, 0, bs, r) if kernels else _corr(f, r)
+                             for f, r in zip(F, R)], sd)
+                if center:
+                    mu = M[b].to(sd)
+            if center:
+                corr.addr_(mu, psum([r.sum(dim=0) for r in R], sd), alpha=-1)
+            w_old = W[b].to(sd)
+            w_new = _solve_psd(gram, corr + gram @ w_old, lam, chol=chol)
+            dw = w_new - w_old
+            for i, f in enumerate(F):
+                dwi = dw.to(f.device)
+                if kernels:
+                    R[i] = cuda_ops.block_residual_update(f, 0, bs, dwi.to(f.dtype), R[i])
+                else:
+                    R[i] = R[i] - f.to(acc) @ dwi.to(f.dtype).to(acc)
+                if center:
+                    R[i] += mu.to(f.device) @ dwi
+            W[b] = w_new
+            # Free this step's slabs before the next are made: rebinding F
+            # would hold two (2.1 GB each at 131,072 rows of a 4,096 block).
+            del F
+    return W, M, ymean
+
+
 def streaming_block_bcd_mesh(
     X,
     Y,
@@ -610,10 +822,10 @@ def streaming_block_bcd_mesh(
     so neither the (n, d_feat) features nor the (d_feat, d_feat) Gramian
     ever exist; what stays resident is X, Y, R, one slab and the
     epoch-invariant (nb, block, block) Gramian and Cholesky stash. Epoch 1
-    makes each block's Gramian (``first_step``), later epochs reuse the
-    stash (``later_step``). The features are computed in float32 and
-    rounded to ``feat_dtype`` (float32 or bfloat16; float64 takes plain
-    contractions, as ``linalg._bcd_block_update`` does).
+    makes each block's Gramian, later epochs reuse the stash. The features
+    are computed in float32 and rounded to ``feat_dtype`` (float32 or
+    bfloat16; float64 takes plain contractions, as
+    ``linalg._bcd_block_update`` does).
 
     Kernels on CUDA tensors: ``cosine_features`` on the bank's row slice (a
     view) for every slab, ``gram_corr_sym`` for epoch 1's Gramian and
@@ -628,77 +840,88 @@ def streaming_block_bcd_mesh(
     predictions are (F − fmean) @ W_flat + ymean.
 
     ``n_true`` drops the padding rows past it. The reference zeroes their
-    features and residual rows; a view of the first ``n_true`` rows gives
-    the same function. ``mesh`` must be None: the mesh form (rows sharded,
-    one ``psum`` a block step) comes with ``torch.distributed``.
+    features and residual rows; a view of the rows before ``n_true`` gives
+    the same function.
+
+    ``mesh`` (more than one shard on ``data``): X and Y rows sharded over
+    the axis (:class:`~keystone_tpu_torch.parallel.mesh.ShardedRows`, or
+    tensors whose rows divide over it); every kernel launches once a shard
+    on the shard's rows, and the block's Gramian and correlation (with the
+    column and residual sums when centred) are psum'd once a step onto
+    the axis's first device, where the block solves. The weights come
+    back there.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "streaming_block_bcd_mesh over a device mesh (rows sharded, one psum a "
-            "block step) is not ported yet: it comes with torch.distributed, ROADMAP "
-            "A.15; mesh=None runs the one-device form"
-        )
-    X = as_tensor(X)
-    dev = X.device
-    Y, Wrf, brf = (as_tensor(t, dev) for t in (Y, Wrf, brf))
-    d_feat = int(Wrf.shape[0])
+    if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS) > 1:
+        axis = mesh_lib.DATA_AXIS
+        Xs, Ys = _sharded(X, mesh, axis), _sharded(Y, mesh, axis)
+        xs, counts = _valid_views(Xs, n_true)
+        live = [i for i, c in enumerate(counts) if c]
+        xs = [xs[i] for i in live]
+        ys = [Ys.shards[i][:counts[i]] for i in live]
+        solve_dev = mesh.axis_devices(axis)[0]
+        n = sum(counts)
+    else:
+        X = as_tensor(X)
+        n = int(X.shape[0]) if n_true is None else int(n_true)
+        xs, ys = [X[:n]], [as_tensor(Y, X.device)[:n]]
+        solve_dev = X.device
+    dev = xs[0].device
+    Wrf, brf = as_tensor(Wrf, dev), as_tensor(brf, dev)
+    W, M, ymean = _block_bcd_sweep(
+        xs, ys, Wrf, brf, n=n, block_size=block_size, lam=float(lam), num_iter=num_iter,
+        feat_dtype=feat_dtype, center=center, solve_device=lambda b: solve_dev)
+    W = W.to(solve_dev)
+    if center:
+        return W, M.reshape(-1).to(solve_dev), ymean.to(solve_dev)
+    return W
+
+
+def streaming_block_bcd_mesh_2d(
+    X,
+    Y,
+    Wrf,
+    brf,
+    *,
+    block_size: int,
+    lam: float,
+    num_iter: int,
+    mesh,
+    n_true: Optional[int] = None,
+    feat_dtype: torch.dtype = torch.float32,
+    center: bool = False,
+):
+    """2-D (data × model) form of :func:`streaming_block_bcd_mesh`: rows
+    shard over both axes flattened, data major (the reference's
+    ``P((data, model))``), so every shard computes on every block step;
+    block b's owner along ``model`` is ``b // (nb / model_size)``
+    (contiguous, as the bank's natural sharding), and its Gramian and
+    factor stash and its solves live on the owner's device (row 0 of the
+    ``data`` axis), so a device holds nb / model_size blocks' stash.
+
+    Returns the (nb, bs, k) block weights on the first device (the
+    reference returns them sharded over ``model``); with ``center=True``
+    (W, fmean (nb, bs), ymean), as the reference's 2-D form does.
+    """
+    data_ax, model_ax = mesh_lib.DATA_AXIS, mesh_lib.MODEL_AXIS
+    d_feat = int(as_tensor(Wrf).shape[0])
     if d_feat % block_size:
         raise ValueError(f"d_feat {d_feat} not divisible by {block_size}")
-    nb, bs = d_feat // block_size, block_size
-    n = int(X.shape[0]) if n_true is None else int(n_true)
-    X = X[:n].to(torch.float32).contiguous()
-    acc = _acc_dtype(feat_dtype)
-    kernels = acc == torch.float32  # float32 and bf16 slabs; float64 takes plain contractions
-    lam = float(lam)
-
-    R = Y[:n].to(acc, copy=True)
-    ymean = None
+    nb = d_feat // block_size
+    mc = mesh_lib.axis_size(mesh, model_ax)
+    if nb % mc:
+        raise ValueError(f"nb {nb} not divisible by model axis {mc}")
+    nb_local = nb // mc
+    axes = tuple(a for a in (data_ax, model_ax) if a in mesh.shape)
+    Xs, Ys = _sharded(X, mesh, axes), _sharded(Y, mesh, axes)
+    xs, counts = _valid_views(Xs, n_true)
+    live = [i for i, c in enumerate(counts) if c]
+    owners = mesh.axis_devices(model_ax) if model_ax in mesh.shape else [Xs.device]
+    dev = Xs.device
+    W, M, ymean = _block_bcd_sweep(
+        [xs[i] for i in live], [Ys.shards[i][:counts[i]] for i in live],
+        as_tensor(Wrf, dev), as_tensor(brf, dev), n=sum(counts), block_size=block_size,
+        lam=float(lam), num_iter=num_iter, feat_dtype=feat_dtype, center=center,
+        solve_device=lambda b: owners[b // nb_local])
     if center:
-        ymean = R.sum(dim=0) / n
-        R -= ymean
-    W = torch.zeros((nb, bs, R.shape[1]), dtype=acc, device=dev)
-    M = torch.zeros((nb, bs), dtype=acc, device=dev) if center else None
-    # The Gramian and Cholesky stash, allocated once, only where a later
-    # epoch reads it.
-    stash = None
-    if num_iter > 1:
-        stash = [torch.empty((nb, bs, bs), dtype=acc, device=dev) for _ in range(2)]
-
-    for epoch in range(max(int(num_iter), 1)):
-        for b in range(nb):
-            rows = slice(b * bs, (b + 1) * bs)
-            F = cuda_ops.cosine_features(X, Wrf[rows], brf[rows],
-                                         compute_dtype=torch.float32, out_dtype=feat_dtype)
-            if epoch == 0:
-                if kernels:
-                    # R rounded to F's dtype, as the reference's correlation reads it.
-                    gram, corr = cuda_ops.gram_corr_sym(F, R.to(F.dtype))
-                else:
-                    gram, corr = F.T.to(acc) @ F.to(acc), _corr(F, R)
-                if center:
-                    fsum = F.sum(dim=0, dtype=torch.float32).to(acc)
-                    M[b] = fsum / n
-                    gram.addr_(fsum, M[b], alpha=-1)
-                chol = _psd_factor(gram, lam)
-                if stash is not None:
-                    stash[0][b], stash[1][b] = gram, chol
-            else:
-                gram, chol = stash[0][b], stash[1][b]
-                corr = cuda_ops.block_corr(F, 0, bs, R) if kernels else _corr(F, R)
-            if center:
-                corr.addr_(M[b], R.sum(dim=0), alpha=-1)
-            w_new = _solve_psd(gram, corr + gram @ W[b], lam, chol=chol)
-            dw = w_new - W[b]
-            if kernels:
-                R = cuda_ops.block_residual_update(F, 0, bs, dw.to(F.dtype), R)
-            else:
-                R = R - F.to(acc) @ dw.to(F.dtype).to(acc)
-            if center:
-                R += M[b] @ dw
-            W[b] = w_new
-            # Free this slab before the next is made: rebinding F would
-            # hold two (2.1 GB each at 131,072 rows of a 4,096 block).
-            del F
-    if center:
-        return W, M.reshape(d_feat), ymean
+        return W, M, ymean
     return W

@@ -615,6 +615,7 @@ def _learn(argv):
         export_plan,
         run_open_loop,
     )
+    from keystone_tpu_torch.serving.batcher import frozen_heap
 
     if args.replicas < 1:
         print("learn: --replicas must be >= 1", file=sys.stderr)
@@ -714,15 +715,19 @@ def _learn(argv):
         if slo_registry is not None:
             sources["slo_metrics"] = slo_registry
         exporter = _live_exporter(args, sources, slo_tracker)
-        trainer.start()
         rng_req = np.random.default_rng(args.seed + 1)
         pool = rng_req.normal(size=(256, d)).astype(np.float32)
-        report = run_open_loop(
-            server.submit, lambda i: pool[i % len(pool)],
-            rate_hz=args.rate, duration_s=args.duration_s,
-            seed=args.seed, slo=slo_tracker,
-        )
-        trainer.join(timeout=60.0)
+        # The trainer refits beside the two replicas: both serve, and it
+        # publishes, with the heap built so far out of the collector's
+        # reach (ROADMAP C.14).
+        with frozen_heap():
+            trainer.start()
+            report = run_open_loop(
+                server.submit, lambda i: pool[i % len(pool)],
+                rate_hz=args.rate, duration_s=args.duration_s,
+                seed=args.seed, slo=slo_tracker,
+            )
+            trainer.join(timeout=60.0)
         controller.poll()  # settle the last staleness clock
         lc_stats = controller.stats()
         tr_stats = trainer.stats()

@@ -26,7 +26,8 @@ rotation:
      zero-drop drain protocol, scoped to the lowest live index), and
      the controller compares the canary's exec-latency percentile and
      the plane's SLO state against the incumbent replicas over a
-     ``canary_sustain_s`` window. A canary whose exec p99 exceeds
+     ``canary_sustain_s`` window. A canary whose exec tail (at the
+     percentile its batch count supports, p99 at most) exceeds
      ``canary_latency_factor``× the incumbents' (at
      ``canary_min_samples`` or more completions), or under which the
      SLO state DEGRADES, is swapped straight back — the regression
@@ -100,6 +101,18 @@ __all__ = ["LifecycleController", "LifecycleDecision"]
 logger = logging.getLogger("keystone_tpu_torch.serving")
 
 _STATE_RANK = {STATE_OK: 0, STATE_WARN: 1, STATE_BREACH: 2}
+
+# The canary's latency verdict reads the quantile below which all but
+# this many of its batches fall (p99 once it has served 500 batches).
+# A quantile its sample cannot support would be its slowest batch: one
+# batch that met a loaded host (a thread waiting whole GIL switch
+# intervals) then reads as a regression. Port only (ROADMAP C.15).
+CANARY_TAIL_BATCHES = 5
+
+
+def _judged_quantile(num_batches: int) -> float:
+    """The percentile a canary of ``num_batches`` batches is judged at."""
+    return 100.0 * min(0.99, max(0.0, 1.0 - CANARY_TAIL_BATCHES / max(num_batches, 1)))
 
 
 @dataclass(frozen=True)
@@ -175,7 +188,7 @@ class LifecycleController:
       - ``score_fn(plan, X, y) -> float``: higher-is-better scorer
         (default: negative mean squared error over batched applies).
       - ``canary_sustain_s`` / ``canary_latency_factor`` /
-        ``canary_min_samples``: the canary window, the exec-p99
+        ``canary_min_samples``: the canary window, the exec-tail
         regression multiple that fails it, and the minimum canary
         completions a latency verdict needs (0 sustain disables the
         canary — candidates promote directly; a single-replica plane
@@ -570,12 +583,19 @@ class LifecycleController:
         window that met a loaded host (its p99 over a few dozen batches
         is about the slowest one) read as a regression against a ring
         that diluted the same stalls, and a ring holding an old slow
-        period hid a real one. The ``canary_latency_factor`` margin and
-        the post-promotion attribution window stay the backstops."""
+        period hid a real one. The verdict compares the canary's batch
+        walls and the incumbents' at one percentile, the highest that
+        leaves ``CANARY_TAIL_BATCHES`` of the canary's batches above it
+        (p99 from 500 batches on): a regression must show in several
+        batches, not in the one that met a stall. The p99s are still
+        reported. The ``canary_latency_factor`` margin and the
+        post-promotion attribution window stay the backstops."""
         marks = self.plane.exec_marks()
         self.plane.swap_replica_plan(canary_index, plan)
         deadline = self._clock() + self.canary_sustain_s
-        canary_p99 = incumbent_p99 = None
+        canary_p99 = incumbent_p99 = canary_tail = incumbent_tail = None
+        canary_walls: List[float] = []
+        quantile = None
         canary_completed = 0
         try:
             while self._clock() < deadline:
@@ -595,6 +615,14 @@ class LifecycleController:
             incumbent_p99 = (
                 float(np.median(others)) if others else None
             )
+            batches = self.plane.exec_batches_since(marks)
+            canary_walls = batches.get(canary_index, [])
+            quantile = _judged_quantile(len(canary_walls))
+            if canary_walls:
+                canary_tail = float(np.percentile(canary_walls, quantile))
+                tails = [float(np.percentile(batches[idx], quantile))
+                         for idx in incumbents if idx in batches]
+                incumbent_tail = float(np.median(tails)) if tails else incumbent_p99
         except Exception:
             # Judging failed — the canary must not stay in rotation on
             # an unjudged candidate.
@@ -609,15 +637,19 @@ class LifecycleController:
             "canary_p99_exec_s": canary_p99,
             "incumbent_p99_exec_s": incumbent_p99,
             "canary_completed": canary_completed,
+            "canary_batches": len(canary_walls),
+            "judged_percentile": quantile,
+            "canary_tail_exec_s": canary_tail,
+            "incumbent_tail_exec_s": incumbent_tail,
             "slo_state_before": state_before,
             "slo_state_after": state_now,
             "regressed": False,
             "reason": "canary_held",
         }
         latency_regressed = (
-            canary_p99 is not None and incumbent_p99 is not None
+            canary_tail is not None and incumbent_tail is not None
             and canary_completed >= self.canary_min_samples
-            and canary_p99 > self.canary_latency_factor * incumbent_p99
+            and canary_tail > self.canary_latency_factor * incumbent_tail
         )
         slo_regressed = (
             state_now is not None and state_before is not None

@@ -1112,6 +1112,26 @@ class ReplicatedServer:
                 out[r.index] = pct["p99"]
         return out
 
+    def exec_batches_since(self, marks: Dict[int, Any]) -> Dict[int, List[float]]:
+        """Each replica's batch execution walls, one a batch, since
+        ``marks``: what its server generation served after the mark, or,
+        for a replica whose server was swapped since, everything its new
+        generation served. A batch records one span a request, all with
+        its wall, so each run of ``batch_size`` spans counts once."""
+        with self._lock:
+            reps = list(self._replicas)
+        out: Dict[int, List[float]] = {}
+        for r in reps:
+            server, mark = marks.get(r.index, (None, 0))
+            spans = r.server.span_log.since(mark if server is r.server else 0)
+            walls, i = [], 0
+            while i < len(spans):
+                walls.append(spans[i].exec_s)
+                i += max(int(spans[i].batch_size), 1)
+            if walls:
+                out[r.index] = walls
+        return out
+
     def live_replica_indices(self) -> List[int]:
         """Sorted indices of live, in-rotation replicas — the canary
         picker's view (the lifecycle controller swaps the lowest live

@@ -36,7 +36,7 @@ import threading
 import time
 from typing import Any, Dict, Optional, Sequence
 
-__all__ = ["main"]
+__all__ = ["drill", "main", "verdict_ok"]
 
 
 def _fit_and_ship(d_in: int, num_ffts: int, block_size: int, n: int,
@@ -105,7 +105,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from keystone_tpu_torch import resolve_device
     from keystone_tpu_torch.serving.fleet import FleetRouter
-    from keystone_tpu_torch.serving.loadgen import run_multi_tenant_open_loop
 
     device = resolve_device(args.device)
     plan, ship = _fit_and_ship(
@@ -123,14 +122,42 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     rng = np.random.default_rng(args.seed + 1)
     pool = rng.normal(size=(128, args.input_dim)).astype(np.float32)
 
-    victim: Dict[str, Any] = {}
-
     fleet = FleetRouter(
         ship, num_planes=args.planes,
         replicas_per_plane=max(1, args.replicas),
         heartbeat_interval_s=0.1, heartbeat_timeout_s=3.0,
         restart_budget=2, plane_cfg={"device": str(device)},
     )
+    try:
+        verdict = drill(fleet, pool, rates, duration_s=args.duration_s, seed=args.seed)
+    finally:
+        fleet.close()
+    verdict.update(offered_rate_hz=round(rate_hz, 2), num_tenants=args.tenants)
+    print(json.dumps(verdict, indent=2, sort_keys=True))
+    if not verdict_ok(verdict):
+        print("fleet-chaos: VERDICT FAILED (books_balance="
+              f"{verdict['books_balance']}, respawn_fired={verdict['respawn_fired']}, "
+              f"loadgen_books={verdict['loadgen_books_balance']})",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def drill(fleet, pool, rates: Dict[str, float], duration_s: float, seed: int = 0,
+          respawn_timeout_s: float = 30.0) -> Dict[str, Any]:
+    """The drill on a running fleet: a multi-tenant open-loop storm of
+    ``duration_s`` over ``pool``'s rows, the first plane (by name)
+    SIGKILLed halfway, a bounded wait for the watchdog's respawn and for
+    the books to settle. Returns the verdict; its request counts are the
+    storm's own (the router's books since the drill began), so a fleet
+    that served before still reads one storm."""
+    from keystone_tpu_torch.serving.batcher import frozen_heap
+    from keystone_tpu_torch.serving.loadgen import run_multi_tenant_open_loop
+
+    victim: Dict[str, Any] = {}
+    books = ("aggregate_offered", "completed", "rejected", "failed")
+    s0 = fleet.stats()
+    num_planes = s0["num_planes"]
 
     def kill_one_plane() -> None:
         pids = fleet.plane_pids()
@@ -138,72 +165,65 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         victim["name"], victim["pid"] = name, pids[name]
         os.kill(pids[name], signal.SIGKILL)
 
+    timer = threading.Timer(duration_s / 2.0, kill_one_plane)
+    timer.start()
     try:
-        timer = threading.Timer(args.duration_s / 2.0, kill_one_plane)
-        timer.start()
-        try:
+        # The router owns this process's heap: it routes the storm with
+        # that heap out of the collector's reach, as its planes serve
+        # theirs (ROADMAP C.14).
+        with frozen_heap():
             report = run_multi_tenant_open_loop(
                 fleet.submit_tenant,
                 lambda tenant, i: pool[i % len(pool)],
-                rates, duration_s=args.duration_s, seed=args.seed,
+                rates, duration_s=duration_s, seed=seed,
             )
-        finally:
-            timer.cancel()
-            timer.join()
-        # The respawn races the storm's tail — give the watchdog a
-        # bounded window to finish its work before reading the books.
-        deadline = time.monotonic() + 30.0
-        respawn_fired = False
-        while time.monotonic() < deadline:
-            s = fleet.stats()
-            if (s["restarts_total"] >= 1
-                    and s["healthy_planes"] == args.planes):
-                respawn_fired = True
-                break
-            time.sleep(0.05)
-        drain_deadline = time.monotonic() + 15.0
-        while (not fleet.accounting_ok()
-               and time.monotonic() < drain_deadline):
-            time.sleep(0.05)
-        stats = fleet.stats()
-        books_balance = fleet.accounting_ok()
-        respawned_pid = fleet.plane_pids().get(victim.get("name"))
     finally:
-        fleet.close()
-
-    verdict = {
-        "books_balance": books_balance,
+        timer.cancel()
+        timer.join()
+    # The respawn races the storm's tail: give the watchdog a bounded
+    # window to finish its work before reading the books.
+    deadline = time.monotonic() + respawn_timeout_s
+    respawn_fired = False
+    while time.monotonic() < deadline:
+        s = fleet.stats()
+        if (s["restarts_total"] >= s0["restarts_total"] + 1
+                and s["healthy_planes"] == num_planes):
+            respawn_fired = True
+            break
+        time.sleep(0.05)
+    drain_deadline = time.monotonic() + 15.0
+    while not fleet.accounting_ok() and time.monotonic() < drain_deadline:
+        time.sleep(0.05)
+    stats = fleet.stats()
+    storm = {k: stats[k] - s0[k] for k in books}
+    return {
+        "books_balance": fleet.accounting_ok(),
         "respawn_fired": respawn_fired,
         "loadgen_books_balance": report.accounting_ok(),
         "victim": victim.get("name"),
         "victim_pid": victim.get("pid"),
-        "respawned_pid": respawned_pid,
-        "offered": stats["aggregate_offered"],
-        "completed": stats["completed"],
-        "rejected": stats["rejected"],
-        "failed": stats["failed"],
+        "respawned_pid": fleet.plane_pids().get(victim.get("name")),
+        "offered": storm["aggregate_offered"],
+        "completed": storm["completed"],
+        "rejected": storm["rejected"],
+        "failed": storm["failed"],
         "inflight": stats["inflight"],
         "num_planes": stats["num_planes"],
         "healthy_planes": stats["healthy_planes"],
         "restarts_total": stats["restarts_total"],
-        "offered_rate_hz": round(rate_hz, 2),
-        "num_tenants": args.tenants,
         "fleet_p50_latency_s": stats["fleet_p50_latency_s"],
         "fleet_p99_latency_s": stats["fleet_p99_latency_s"],
         "planes": stats["planes"],
     }
-    print(json.dumps(verdict, indent=2, sort_keys=True))
-    ok = (books_balance and respawn_fired
-          and report.accounting_ok()
-          and victim.get("pid") is not None
-          and respawned_pid != victim.get("pid"))
-    if not ok:
-        print("fleet-chaos: VERDICT FAILED (books_balance="
-              f"{books_balance}, respawn_fired={respawn_fired}, "
-              f"loadgen_books={report.accounting_ok()})",
-              file=sys.stderr)
-        return 1
-    return 0
+
+
+def verdict_ok(verdict: Dict[str, Any]) -> bool:
+    """The drill passed: the books balance on both sides and the killed
+    plane came back under a new pid."""
+    return bool(verdict["books_balance"] and verdict["respawn_fired"]
+                and verdict["loadgen_books_balance"]
+                and verdict["victim_pid"] is not None
+                and verdict["respawned_pid"] != verdict["victim_pid"])
 
 
 if __name__ == "__main__":

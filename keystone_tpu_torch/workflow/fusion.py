@@ -459,7 +459,8 @@ class FusedFitEstimator(LabelEstimator):
     feeding it. ``fit`` featurizes once, straight into the estimator's
     traceable fit, which owns the feature matrix (the flat solver centres
     it in place and reads its column windows where they lie). Falls back
-    to the sequential path for host datasets, and to the estimator's own
+    to the sequential path for host datasets and rows sharded over a
+    multi-device mesh, and to the estimator's own
     fit, on the features already made, for unsupported geometry.
 
     The reference also caches one compiled program per input geometry
@@ -486,8 +487,13 @@ class FusedFitEstimator(LabelEstimator):
         return self.est.fit(data, labels)
 
     def fit(self, data, labels):
+        from keystone_tpu_torch.parallel.mesh import is_multi_device
+
         dev = self.est.device_fit_fn()
-        if dev is None or data.is_host or labels.is_host:
+        # Rows sharded over a multi-device mesh take the sequential path
+        # too, as in the reference: the featurizer runs on each shard and
+        # the estimator's own fit dispatches on the mesh.
+        if dev is None or data.is_host or labels.is_host or is_multi_device(data.mesh):
             return self._fallback(data, labels)
         X = as_tensor(data.array)
         # Featurize first and size the fit from the result: there is no

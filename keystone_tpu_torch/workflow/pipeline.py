@@ -34,6 +34,7 @@ import pickle
 import threading
 from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, TypeVar, Union
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.data import Dataset
@@ -308,6 +309,25 @@ def compose_apply_fn(
         return values[final]
 
     return composed
+
+
+def _stack_items(items: Sequence[Any]) -> torch.Tensor:
+    """A host collection of equal-shape arrays or tensors as one batch
+    tensor; ``ValueError`` for ragged items, ``TypeError`` for items that
+    are not arrays (the two errors that send a batch down the per-item
+    path)."""
+    if not items:
+        raise ValueError("an empty host collection has no batch shape")
+    if not all(isinstance(x, (torch.Tensor, np.ndarray)) for x in items):
+        raise TypeError("only arrays and tensors stack into a batch")
+    if len({tuple(x.shape) for x in items}) != 1:
+        raise ValueError("ragged items do not stack")
+    if all(isinstance(x, np.ndarray) for x in items):
+        return as_tensor(np.stack(items))
+    tensors = [as_tensor(x) for x in items]
+    if len({t.device for t in tensors}) != 1:
+        raise TypeError("items on different devices do not stack")
+    return torch.stack(tensors)
 
 
 def _batch_of_one(x) -> torch.Tensor:
@@ -611,20 +631,37 @@ class Transformer(TransformerOperator, Chainable[A, B]):
     """A function on single items, batchable over datasets.
 
     Subclasses implement ``apply`` (single item). ``batch_apply`` defaults to
-    the node's ``device_fn`` via ``map_batch`` when one is declared and the
-    dataset is in array form, else to mapping ``apply`` over the dataset;
-    override it only for batch semantics neither default expresses
-    (Transformer.scala:18-70).
+    the node's ``device_fn`` via ``map_batch`` when one is declared, else to
+    mapping ``apply`` over the dataset; override it only for batch
+    semantics neither default expresses (Transformer.scala:18-70).
     """
 
     def apply(self, x: A) -> B:
         raise NotImplementedError
 
     def batch_apply(self, data: Dataset) -> Dataset:
+        """A rectangular host collection stacks into one batch and takes
+        ``device_fn`` in one call, as an array-form dataset does, and as
+        the reference's ``batch_apply`` does (no bundled pipeline of the
+        port hands a node such a collection: its image nodes declare
+        batch applies of their own, and text items do not stack;
+        ``scripts/torch_host_batch_spy.py`` counts them); ragged items, which
+        cannot stack, map ``apply`` one at a time, as does a node without
+        a ``device_fn``. Only the stacking's errors (``ValueError``,
+        ``TypeError``) choose the per-item path. Unlike the reference, a
+        ``device_fn`` that fails on items that did stack raises: the
+        reference logs a warning and falls back to per-item apply, which
+        would hide a kernel's failure on the card."""
         fn = self.device_fn()
-        if fn is not None and not data.is_host:
+        if fn is None:
+            return data.map(self.apply)
+        if not data.is_host:
             return data.map_batch(fn)
-        return data.map(self.apply)
+        try:
+            batch = _stack_items(data.to_list())
+        except (ValueError, TypeError):
+            return data.map(self.apply)
+        return Dataset(fn(batch), n=data.n)
 
     def device_fn(self) -> Optional[Callable]:
         """Pure batched tensor function equivalent to ``batch_apply`` on

@@ -147,8 +147,8 @@ class NodeOptimizationRule(Rule):
     The reference executes the graph with a sampling executor
     (NodeOptimizationRule.scala:14-136) to obtain per-node input samples. Here
     the sample collector executes the graph with datasets truncated to
-    ``samples_per_shard`` rows (one shard: the port runs on one device)
-    before each optimizable node.
+    ``samples_per_shard`` rows a shard of the ``data`` axis (one shard on
+    an unsharded dataset) before each optimizable node.
     """
 
     def __init__(self, samples_per_shard: int = 3):
@@ -244,6 +244,7 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
     from keystone_tpu_torch.data import Dataset
     from keystone_tpu_torch.data.dataset import as_tensor, tree_leaves, tree_map
     from keystone_tpu_torch.ops.sparse import is_sparse_dataset
+    from keystone_tpu_torch.parallel.mesh import ShardedRows
 
     from .operators import (
         DatasetExpression,
@@ -267,7 +268,12 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
         return float(sum(_leaf_row_bytes(x) for x in tree_leaves(ds.data)))
 
     def sample_dataset(ds: Dataset) -> Dataset:
-        k = min(ds.n, samples_per_shard)
+        num_shards = 1
+        if ds.mesh is not None:
+            from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+            num_shards = mesh_lib.axis_size(ds.mesh, mesh_lib.DATA_AXIS)
+        k = min(ds.n, samples_per_shard * max(num_shards, 1))
         if ds.is_shard_backed:
             # Out-of-core source: sample the first segment only and carry
             # the disk-tier capacity facts the selector prices on.
@@ -285,7 +291,8 @@ def _collect_samples(plan: Graph, nodes, samples_per_shard: int):
         if ds.is_host:
             out = Dataset.of(ds.to_list()[:k])
         else:
-            out = Dataset(tree_map(lambda x: x[:k], ds.data), n=k)
+            out = Dataset(tree_map(
+                lambda x: x.head(k) if isinstance(x, ShardedRows) else x[:k], ds.data), n=k)
         # Cost models need the FULL dataset size (the reference passes it via
         # numPerPartition, LeastSquaresEstimator.scala:60-64); the sample only
         # supplies d, k, and sparsity.

@@ -226,11 +226,19 @@ class TestBlockProgram:
             assert torch.equal(a, b)
 
     def test_mesh_form_raises(self):
+        # The mesh form runs (tests/test_torch_mesh_solvers.py holds it
+        # against the reference's on its 8-device mesh); rows that do not
+        # divide over the mesh's shards still raise, as a block that does
+        # not divide d does.
+        from keystone_tpu_torch.parallel import mesh as mesh_lib
+
         Wrf, brf = _bank()
+        X, Y = _rows(63)
+        with pytest.raises(ValueError, match="pad them first"):
+            tstream.streaming_block_bcd_mesh(
+                _t(X), _t(Y), _t(Wrf), _t(brf), block_size=BS, lam=LAM, num_iter=1,
+                mesh=mesh_lib.make_mesh((8,), devices=["cpu"] * 8))
         X, Y = _rows(64)
-        with pytest.raises(NotImplementedError, match="A.15"):
-            tstream.streaming_block_bcd_mesh(_t(X), _t(Y), _t(Wrf), _t(brf), block_size=BS,
-                                             lam=LAM, num_iter=1, mesh=object())
         with pytest.raises(ValueError, match="not divisible"):
             tstream.streaming_block_bcd_mesh(_t(X), _t(Y), _t(Wrf), _t(brf), block_size=100,
                                              lam=LAM, num_iter=1)

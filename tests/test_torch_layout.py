@@ -78,7 +78,8 @@ def test_port_has_modules():
                 "serving/autoscale.py", "obs/calibrate.py", "obs/live.py",
                 "placement/planner.py", "tools/calibrate.py", "tools/trace.py",
                 "tools/slo.py", "tools/plan.py", "serving/fleet_rpc.py",
-                "serving/fleet_plane.py", "serving/fleet.py", "tools/fleet_chaos.py"):
+                "serving/fleet_plane.py", "serving/fleet.py", "tools/fleet_chaos.py",
+                "parallel/mesh.py", "tools/multichip.py"):
         assert rel in rels
 
 

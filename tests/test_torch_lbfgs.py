@@ -291,8 +291,13 @@ class TestStreamed:
         kw = dict(n=3000, operands=tt)
         with pytest.raises(ValueError, match="n"):
             tl.run_lbfgs_gram_streamed(self._chunk, 6, D, K, operands=tt)
-        with pytest.raises(NotImplementedError, match="A.15"):
-            tl.run_lbfgs_gram_streamed(self._chunk, 6, D, K, mesh=object(), **kw)
+        # The mesh fold is ported (tests/test_torch_multichip.py); with a
+        # checkpoint it raises, as the reference's does.
+        from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+        with pytest.raises(ValueError, match="checkpoint"):
+            tl.run_lbfgs_gram_streamed(self._chunk, 6, D, K, checkpoint="/nonexistent",
+                                       mesh=mesh_lib.make_mesh((2,), devices=["cpu"] * 2), **kw)
         # The disk tier's options are ported (tests/test_torch_outofcore.py);
         # misused, they raise the reference's contract errors.
         for option, match in ((dict(segment_source=lambda c, s: None), "max_chunks"),

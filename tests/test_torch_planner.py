@@ -96,8 +96,7 @@ def golden_dir(tmp_path, monkeypatch):
 
 @pytest.fixture()
 def port_dir(tmp_path):
-    """Recorded by the port's tracer and decision sites (the port has no
-    mesh layouts: ROADMAP A.15)."""
+    """Recorded by the port's tracer and decision sites."""
     from keystone_tpu_torch.ops.learning import cost as tcost
     from keystone_tpu_torch.placement import engine as tengine
 
@@ -106,6 +105,7 @@ def port_dir(tmp_path):
     with tobs.tracing(td) as tracer:
         tcost.LeastSquaresEstimator(lam=1e-4, hbm_bytes=48 << 30).optimize(s, ls)
         tcost.choose_image_tier(50_000, 3072, 10, host_budget_bytes=6e8)
+        tcost.choose_mesh_layout(65_000_000, 16_385, 2, nnz_per_row=83, num_devices=8)
         _storm(tracer, tobs, tengine)
     return td
 
@@ -129,8 +129,8 @@ class TestReplay:
         got, want = _plans(port_dir)
         assert got == want
         fid = got["fidelity"]
-        # The solver and image-tier decisions on both streams.
-        assert fid["num_replayed"] == 4 and fid["num_reproduced"] == 4
+        # The solver, image-tier and mesh-layout decisions on both streams.
+        assert fid["num_replayed"] == 6 and fid["num_reproduced"] == 6
         assert got["baseline"]["replicas_peak"] == 4
 
     @pytest.mark.parametrize("whatif", WHATIFS)

@@ -436,13 +436,16 @@ class TestEstimators:
         assert _rel(fused, want) <= 1e-5
 
     def test_unported_tiers_name_their_roadmap_item(self):
-        # The disk tier is ported (tests/test_torch_outofcore.py); the mesh
-        # form of the block-streamed program is not.
-        _, bank = _banks()
-        with pytest.raises(NotImplementedError, match="A.15"):
-            tstream.streaming_block_bcd_mesh(torch.zeros(4, D_IN), torch.zeros(4, K), bank.Wrf,
-                                             bank.brf, block_size=128, lam=0.0, num_iter=1,
-                                             mesh=object())
+        # The disk tier (tests/test_torch_outofcore.py) and the one-host
+        # mesh forms (tests/test_torch_mesh_solvers.py) are ported; a mesh
+        # whose axes span hosts, and the multi-process runtime under it,
+        # are not.
+        from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+        with pytest.raises(NotImplementedError, match="A.15b"):
+            mesh_lib.make_hybrid_mesh((4, 1), (2, 1), ("data", "model"))
+        with pytest.raises(NotImplementedError, match="A.15b"):
+            mesh_lib.init_distributed("localhost:1234", num_processes=2, process_id=0)
         with pytest.raises(TypeError, match="cannot stream a dense fit"):
             tsls._source_d_in(object())
 

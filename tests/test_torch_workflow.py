@@ -682,3 +682,71 @@ class TestDatumPrograms:
         for i in range(16):
             np.testing.assert_allclose(np.asarray(fitted.apply(train.data.array[i])),
                                        batch[i], rtol=1e-6, atol=1e-6)
+
+
+class _FailingBatchFn(_PortTransformer):
+    """A node whose batched function fails on any batch (a stand-in for a
+    kernel that fails on the card)."""
+
+    def apply(self, x):
+        return x
+
+    def device_fn(self):
+        def fn(X):
+            raise RuntimeError("the batched function failed")
+        return fn
+
+
+class TestHostStacking:
+    """ROADMAP A.14: a rectangular host collection stacks into one
+    ``device_fn`` call (the reference's ``workflow/pipeline.py:475-500``),
+    with each row's bits those of the per-item path; ragged items map
+    ``apply``; a ``device_fn`` that fails on items that stacked raises."""
+
+    @staticmethod
+    def _chain():
+        from keystone_tpu_torch.ops.learning.linear import LinearMapper
+        from keystone_tpu_torch.ops.stats import NormalizeRows, SignedHellingerMapper
+        from keystone_tpu_torch.ops.util import FloatToDouble, MatrixVectorizer
+
+        rng = np.random.default_rng(3)
+        W = rng.normal(size=(2 * 6 * 5, 7)).astype(np.float32)
+        # The VOC / ImageNet Fisher-vector tail, then a linear model.
+        return [FloatToDouble(), MatrixVectorizer(), NormalizeRows(), SignedHellingerMapper(),
+                NormalizeRows(), LinearMapper(W)]
+
+    def test_stacked_bits_equal_per_item(self, port):
+        rng = np.random.default_rng(0)
+        items = [rng.normal(size=(6, 10)).astype(np.float32) for _ in range(33)]
+        stacked = per_item = port.Dataset(list(items))
+        assert stacked.is_host
+        for node in self._chain():
+            stacked = node.batch_apply(stacked)
+            assert not stacked.is_host  # the first node stacked the batch
+            per_item = per_item.map(node.apply)
+        got, want = stacked.to_numpy(), per_item.to_numpy()
+        assert got.dtype == want.dtype and got.shape == (33, 7)
+        np.testing.assert_array_equal(got, want)
+
+    def test_tensor_items_stack(self, port):
+        from keystone_tpu_torch.ops.stats import SignedHellingerMapper
+
+        items = [torch.full((3,), float(i) - 2.0) for i in range(5)]
+        node = SignedHellingerMapper()
+        out = node.batch_apply(port.Dataset(items))
+        assert isinstance(out.data, torch.Tensor) and out.data.shape == (5, 3)
+        np.testing.assert_array_equal(out.to_numpy(),
+                                      port.Dataset(items).map(node.apply).to_numpy())
+
+    def test_ragged_items_map_apply(self, port):
+        from keystone_tpu_torch.ops.stats import NormalizeRows
+
+        rng = np.random.default_rng(1)
+        items = [rng.normal(size=(4 + i,)).astype(np.float32) for i in range(3)]
+        out = NormalizeRows().batch_apply(port.Dataset(list(items)))
+        assert out.is_host and [np.shape(v) for v in out.to_list()] == [(4,), (5,), (6,)]
+
+    def test_failing_batched_function_raises(self, port):
+        items = [np.zeros(3, np.float32) for _ in range(4)]
+        with pytest.raises(RuntimeError, match="batched function failed"):
+            _FailingBatchFn().batch_apply(port.Dataset(list(items)))
