@@ -400,6 +400,29 @@ started together), then:
      (d) ``tools.multichip``'s leg, parity within 5e-5. Each part's
      launches are counted from 0 and checked; the kernels line carries
      them as ``mesh_launches``.
+ 26. The ring tier (``parallel/ring.py``) with 8 shards on the card, the
+     two Gaussian kernels held to their plain versions and timed at the
+     shard shapes: (a) ``KernelRidgeRegression`` at RandomPatchCifarKernel's
+     KRR width (n = 50,000, d = 1,800, k = 10, 98 blocks of 512, gamma
+     5e-4, lambda 10, 1 epoch) on sharded rows, the mesh sweep
+     (``gaussian_resid_block`` once a shard a step: 784; the pre-pass's
+     ``gaussian_kernel_block`` once a block on the first device: 98), its
+     weights against the one-device fit's; (b) the ring apply of that model
+     on 12,500 test rows (64 launches) against its one-device apply; (c)
+     ``ring_pairwise_gaussian`` on 16,384 rows (64 launches, a 1.07 GB
+     output) against one launch over all rows; (d) ``ring_gram`` on
+     50,000 x 1,800 against float64 sums and ``ring_attention`` at n =
+     16,384, d = 128 (causal, ``n_valid``, bf16 operands) against float64
+     attention; (e) one ``profile=True`` epoch (its phases and a line a
+     block logged) and a ``kernel_dtype="bf16x3"`` fit against the f32
+     fit; (f) HOG and DAISY on 1,000 CIFAR-sized images,
+     ``PerClassWeightedLeastSquaresEstimator`` at VOC's 5,011 x 4,096 with
+     20 classes and ``StreamedZCAWhitenerEstimator`` on 500,000 CIFAR
+     patches from disk shards (under ``build/``, removed at the end), each
+     against the same call on the CPU. (a)-(c)'s launches join the kernels
+     line's ``mesh_launches``. As
+     in phase 25, shards on one card run in turn: their walls are no
+     evidence of scaling.
 
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -3547,6 +3570,7 @@ def phase_cifar_time(cuda_ops, fusion, result, config):
     Y = 2.0 * torch.nn.functional.one_hot(labels, CIFAR_K).float() - 1.0
     grams, chols = kernel._diag_factor_prepass(kt, lam, bs, nb)
     order = np.arange(nb)
+    sweep = kernel._Sweep(kt, Y, bs)
     with_sync = kernel._solve_psd
 
     def without_sync(gram, rhs, lam, chol=None):
@@ -3559,7 +3583,7 @@ def phase_cifar_time(cuda_ops, fusion, result, config):
             stack = torch.zeros((nb, bs, CIFAR_K), device=dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            stacks[label] = kernel._krr_sweep(kt, Y, order, grams, chols, lam, bs, stack)
+            stacks[label] = sweep.run(order, grams, chols, lam, stack)
             torch.cuda.synchronize()
             times[label].append(time.perf_counter() - t0)
         finally:
@@ -3569,7 +3593,7 @@ def phase_cifar_time(cuda_ops, fusion, result, config):
         f"without (runs {times}); the syncs cost {1e3 * (sync_s - free_s) / nb:.3f} ms a step")
     check("sweep without the host sync gives the same weights",
           torch.equal(stacks["with sync"], stacks["without"]), "bitwise equal")
-    del grams, chols, stacks, Y
+    del grams, chols, stacks, sweep, Y
     torch.cuda.empty_cache()
 
     child = subprocess.run([sys.executable, os.path.abspath(__file__), "--cifar-profile"],
@@ -7471,6 +7495,500 @@ def phase_mesh_multichip(cuda_ops, smi, device="cuda"):
                 decision=decisions[0]["winner"] if decisions else None)
 
 
+
+RING = ("ring tier: the mesh KRR sweep and the ring apply at RandomPatchCifarKernel's KRR "
+        "width, ring_pairwise_gaussian, ring_gram, ring_attention, profile=True, bf16x3; "
+        "HOG, DAISY, RWLS, the streamed ZCA")
+# 26(a), (b), (e): RandomPatchCifarKernel's KRR at its own width (phase 6):
+# n = 50,000 seeded standard normal rows (the scale of its standardised
+# features) of d = 1,800, k = 10 classes as +-1 indicators, blocks of 512
+# (98), gamma 5e-4, lambda 10, 1 epoch; 12,500 test rows. 8 shards of 6,250
+# rows (the test rows 1,563 a shard, 4 of them padding).
+RING_LAM = 10.0
+# 26(c): ring_pairwise_gaussian on 16,384 rows (2,048 a shard) of d = 1,800;
+# 26(d): ring_gram on 50,000 x 1,800 (225-row stripes), ring_attention at
+# n = 16,384, d = 128 (its n_valid leg 16,380 true rows).
+RING_PAIRWISE_N, RING_ATTN_N, RING_ATTN_D, RING_ATTN_PAD = 16384, 16384, 128, 4
+# Tolerances, set before the first call: the mesh fit's weights 1e-4
+# relative Frobenius of the one-device fit's and the ring apply's
+# predictions 1e-4 of their scale (the CPU tests'; the psum only
+# reassociates each step's residual); kernel entries 1e-5 absolute (phase
+# 1's); ring_gram 1e-5 of |F|^T|F| against float64 sums; ring_attention
+# 1e-5 absolute against float64 attention; profile=True 2e-4 absolute of
+# the fused sweep's weights (the CPU test's).
+# Two limits must also fail what they guard against. ring_attention's bf16
+# leg: within one bf16 ulp of each float64 output (ulps floored at that of
+# 2^-8 max|out|), where float32 state (m, l, acc) and one cast at the end
+# give at most half an ulp, and a control with its state rounded to bf16
+# after every block must fail it (an H100 read 0.508 and 104.2 ulps).
+# bf16x3: 1e-5 relative Frobenius of f32's weights (an H100 read 1.883e-6),
+# which a one-pass bf16 fit must fail (1.939e-4).
+RING_FIT_TOL, RING_KERNEL_TOL, RING_GRAM_TOL, RING_ATTN_TOL = 1e-4, 1e-5, 1e-5, 1e-5
+RING_ATTN_BF16_ULPS, RING_PROFILE_TOL, RING_BF16X3_TOL = 1.0, 2e-4, 1e-5
+
+
+def _ring_counts(cuda_ops, counts, want, label):
+    check(f"26{label} launches", same_launches(counts, want), f"{counts}, expected {want}")
+
+
+def _gaussian_ring_shape(cuda_ops, label, X, Y, W=None, reps=20):
+    """One Gaussian kernel at a shape the ring tier gives it, on the card:
+    against its plain version (kernel entries RING_KERNEL_TOL absolute, the
+    residual 1e-4 of its scale), its time a call and on the device, the
+    plain version's, the library call's and the bound; launches here are
+    not the path's."""
+    g, dev = CIFAR_GAMMA, X.device
+    m, d = X.shape
+    n = Y.shape[0]
+    xn, yn = (X * X).sum(1), (Y * Y).sum(1)
+    xyn = xn[:, None] + yn[None, :]
+    if W is None:
+        name = "gaussian_kernel_block"
+        run = lambda: cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g)
+        plain = lambda: cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g)
+        library = lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_()
+        nbytes, flops = 4 * (m * d + n * d + m + n + m * n), 2 * m * n * d + 6 * m * n
+        err = (run() - plain()).abs().max().item()
+        ok, detail = err <= RING_KERNEL_TOL, f"max_abs_err {err:.3e} (tol {RING_KERNEL_TOL:.0e})"
+        grid = cuda_ops.gaussian_kernel_block_grid(m, n, d, False, dev)
+    else:
+        k = W.shape[1]
+        name = "gaussian_resid_block"
+        run = lambda: cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g)
+        plain = lambda: cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g)
+        library = lambda: torch.addmm(xyn, X, Y.T, beta=-g, alpha=2 * g).exp_().T @ W
+        nbytes = 4 * (m * d + n * d + m + n + m * k + n * k)
+        flops = 2 * m * n * d + 6 * m * n + 2 * m * n * k
+        scale = (cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g).T @ W.abs()).max().item()
+        err = (run() - plain()).abs().max().item()
+        ok = err <= 1e-4 * scale
+        detail = f"max_abs_err {err:.3e} ({err / scale:.2e} of scale, tol 1e-4 of scale)"
+        grid = cuda_ops.gaussian_resid_block_grid(m, n, d, k, False, dev)
+    check(f"26 {name} {label} X {m}x{d} @ Y {n}x{d}", ok, detail)
+    r = dict(max_abs_err=err, ms=time_ms(run, reps), device_ms=device_ms(run, reps),
+             plain_ms=time_ms(plain, reps), library_ms=time_ms(library, reps), grid=grid)
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+    log(f"  {name} {label} {m}x{n}x{d}: {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms on the "
+        f"device (plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
+        f"{r['bound_ms']:.3f} by {r['bound_by']}); grid {grid_line(grid)}")
+    return name, r
+
+
+def phase_ring_shapes(cuda_ops, device="cuda"):
+    """26: the two Gaussian kernels at the shard shapes the ring tier gives
+    them (8 shards of phase 26's rows): the mesh sweep's residual (a
+    6,250-row shard against a 512-row block), the ring apply's (a train
+    shard against 1,563 test rows), the ring pairwise step (2,048 x 2,048)
+    and the pre-pass's diagonal block (512 x 512, on the first device)."""
+    gen = torch.Generator(device=device).manual_seed(26)
+    rows = CIFAR_N // MESH_SHARDS
+    test_rows = -(-CIFAR_TEST // MESH_SHARDS)
+    pair = RING_PAIRWISE_N // MESH_SHARDS
+    X = torch.randn((rows, CIFAR_D), generator=gen, device=device)
+    B = torch.randn((CIFAR_BLOCK, CIFAR_D), generator=gen, device=device)
+    T = torch.randn((test_rows, CIFAR_D), generator=gen, device=device)
+    P = torch.randn((pair, CIFAR_D), generator=gen, device=device)
+    W = torch.randn((rows, CIFAR_K), generator=gen, device=device) * 0.01
+    out = {"gaussian_resid_block": {}, "gaussian_kernel_block": {}}
+    for label, args in (("mesh sweep shard", (X, B, W)), ("ring apply step", (X, T, W)),
+                        ("ring pairwise step", (P, P)), ("mesh pre-pass diagonal", (B, B))):
+        name, r = _gaussian_ring_shape(cuda_ops, label, *args)
+        out[name][label] = r
+    del X, B, T, P, W
+    return out
+
+
+def _krr_rows(n, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((n, CIFAR_D), generator=gen, device=device)
+    cls = torch.randint(0, CIFAR_K, (n,), generator=gen, device=device)
+    Y = 2.0 * torch.nn.functional.one_hot(cls, CIFAR_K).to(torch.float32) - 1.0
+    return X, Y
+
+
+def _krr_est(kernel, kernel_dtype="f32", **kw):
+    return kernel.KernelRidgeRegression(kernel.GaussianKernelGenerator(CIFAR_GAMMA, kernel_dtype),
+                                        RING_LAM, CIFAR_BLOCK, 1, **kw)
+
+
+def _stack(model):
+    return torch.stack([w.to(torch.float32) for w in model.w_locals])
+
+
+def phase_ring_krr(cuda_ops, smi, device="cuda"):
+    """26(a), (b), (e): KernelRidgeRegression at RandomPatchCifarKernel's KRR
+    width on one device, then on rows sharded over 8 shards of the card
+    (the mesh sweep: gaussian_resid_block once a shard a step, the
+    pre-pass's gaussian_kernel_block once a block on the first device), its
+    weights against the one-device fit's; the ring apply of the mesh model
+    on 12,500 test rows against its one-device apply; one profile=True
+    epoch (phases and a line a block logged) and a bf16x3 fit against the
+    f32 fused fit. Each part's launches counted from 0."""
+    import logging
+
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning import kernel
+
+    mesh = _mesh(device)
+    X, Y = _krr_rows(CIFAR_N, 261, device)
+    Xt, _ = _krr_rows(CIFAR_TEST, 262, device)
+    out = {}
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    one = _krr_est(kernel).fit(Dataset(X), Dataset(Y))
+    _sync(device)
+    out["one_device_fit_seconds"] = time.perf_counter() - t0
+    out["one_device_launches"] = _launches_since(cuda_ops)
+    data, labels = Dataset(X).shard(mesh), Dataset(Y).shard(mesh)
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = _krr_est(kernel).fit(data, labels)
+    _sync(device)
+    out["fit_seconds"] = time.perf_counter() - t0
+    fit_counts = out["fit_launches"] = _launches_since(cuda_ops)
+    rel = out["weights_rel"] = _rel(_stack(model), _stack(one))
+    log(f"  (a) mesh KRR fit, {MESH_SHARDS} shards of {CIFAR_N // MESH_SHARDS} rows, "
+        f"d={CIFAR_D}, k={CIFAR_K}, {CIFAR_BLOCKS} blocks of {CIFAR_BLOCK}, 1 epoch: "
+        f"{out['fit_seconds']:.3f} s (one device {out['one_device_fit_seconds']:.3f} s, "
+        f"launches {out['one_device_launches']}); weights {rel:.3e} relative to the one-device "
+        f"fit's; launches {fit_counts} ({smi})")
+    _ring_counts(cuda_ops, fit_counts, {"gaussian_resid_block": CIFAR_BLOCKS * MESH_SHARDS,
+                                        "gaussian_kernel_block": CIFAR_BLOCKS},
+                 "(a) the mesh sweep: gaussian_resid_block once a shard a step, the pre-pass's "
+                 "gaussian_kernel_block once a block")
+    check("26(a) the mesh fit's weights match the one-device fit's", rel <= RING_FIT_TOL,
+          f"{rel:.2e} relative Frobenius (tol {RING_FIT_TOL:.0e})")
+    del data, labels
+    want = model.batch_apply(Dataset(Xt)).array
+    test = Dataset(Xt).shard(mesh)
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = model.batch_apply(test)
+    _sync(device)
+    out["apply_seconds"] = time.perf_counter() - t0
+    apply_counts = out["apply_launches"] = _launches_since(cuda_ops)
+    got = got.array.gather()[:CIFAR_TEST]
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    out["apply_rel"] = err
+    log(f"  (b) ring apply of the mesh model on {CIFAR_TEST} test rows: "
+        f"{out['apply_seconds']:.3f} s, predictions {err:.3e} of their scale from its "
+        f"one-device apply; launches {apply_counts} ({smi})")
+    _ring_counts(cuda_ops, apply_counts, {"gaussian_resid_block": MESH_SHARDS * MESH_SHARDS},
+                 "(b) the ring apply: gaussian_resid_block once a shard a step")
+    check("26(b) the ring apply matches the one-device apply", err <= RING_FIT_TOL,
+          f"{err:.2e} of the predictions' scale (tol {RING_FIT_TOL:.0e})")
+    del got, want, test, model
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler, root = Keep(), logging.getLogger("keystone_tpu_torch")
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        prof = _krr_est(kernel, profile=True).fit(Dataset(X), Dataset(Y))
+        _sync(device)
+        out["profile_seconds"] = time.perf_counter() - t0
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    prof_counts = out["profile_launches"] = _launches_since(cuda_ops)
+    blocks = [m for m in records if m.startswith("EPOCH_0_BLOCK_")]
+    summary = [m for m in records if m.startswith("krr_fit:")]
+    err = out["profile_abs"] = (_stack(prof) - _stack(one)).abs().max().item()
+    out["profile_summary"] = summary[0] if summary else None
+    log(f"  (e) profile=True, 1 epoch: {out['profile_seconds']:.3f} s, {len(blocks)} block "
+        f"lines (first {blocks[:1]}), {summary}; weights {err:.3e} from the fused sweep's; "
+        f"launches {prof_counts} ({smi})")
+    _ring_counts(cuda_ops, prof_counts, {"gaussian_kernel_block": 2 * CIFAR_BLOCKS},
+                 "(e) profile=True: a column and a diagonal block a step")
+    check("26(e) profile=True logs a line a block and its phases, and matches the fused sweep",
+          len(blocks) == CIFAR_BLOCKS and len(summary) == 1 and "kernel_gen=" in summary[0]
+          and "block_solve=" in summary[0] and err <= RING_PROFILE_TOL,
+          f"{len(blocks)} lines, {summary}, {err:.2e} absolute (tol {RING_PROFILE_TOL:.0e})")
+    del prof
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    b3 = _krr_est(kernel, "bf16x3").fit(Dataset(X), Dataset(Y))
+    _sync(device)
+    out["bf16x3_seconds"] = time.perf_counter() - t0
+    out["bf16x3_launches"] = _launches_since(cuda_ops)
+    rel = out["bf16x3_rel"] = _rel(_stack(b3), _stack(one))
+    _ring_counts(cuda_ops, out["bf16x3_launches"], {}, "(e) bf16x3: no Gaussian kernel")
+    del b3
+    ctl = out["bf16_control_rel"] = _rel(_stack(_krr_est(kernel, "bf16").fit(
+        Dataset(X), Dataset(Y))), _stack(one))
+    log(f"  (e) bf16x3 fit: {out['bf16x3_seconds']:.3f} s, weights {rel:.3e} relative to the "
+        f"f32 fit's (a one-pass bf16 fit's {ctl:.3e}); launches {out['bf16x3_launches']} "
+        f"({smi})")
+    check("26(e) the bf16x3 fit tracks the f32 fit, and a one-pass bf16 fit does not",
+          rel <= RING_BF16X3_TOL < ctl,
+          f"{rel:.2e} relative Frobenius (tol {RING_BF16X3_TOL:.0e}; bf16 control {ctl:.2e})")
+    del one, X, Y, Xt
+    return out
+
+
+def _attention_f64(Q, K, V, causal, n):
+    Q, K, V = (a[:n].to(torch.float64) for a in (Q, K, V))
+    s = (Q @ K.T) / Q.shape[1] ** 0.5
+    if causal:
+        s.masked_fill_(torch.ones_like(s, dtype=torch.bool).triu_(1), float("-inf"))
+    return torch.softmax(s, dim=1) @ V
+
+
+def _bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps of each float64 value, the ulp floored
+    at that of 2^-8 of max|want| (below it float32 sums' own noise would
+    count)."""
+    mag = torch.clamp_min(want.abs(), want.abs().max().item() * 2.0 ** -8)
+    return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+
+
+def _attention_bf16_state(Q, K, V, p):
+    """Softmax attention by the ring's online softmax over p key blocks,
+    its state (m, l, acc) rounded to bf16 after every block: the control
+    the bf16 leg's limit must fail."""
+    ln, sc = Q.shape[0] // p, Q.shape[1] ** -0.5
+    outs = []
+    for me in range(p):
+        q = Q[me * ln:(me + 1) * ln].float()
+        m = torch.full((ln,), -1e30, device=Q.device)
+        l_ = torch.zeros((ln,), device=Q.device)
+        acc = torch.zeros((ln, V.shape[1]), device=Q.device)
+        for src in ((me - step) % p for step in range(p)):
+            s = (q @ K[src * ln:(src + 1) * ln].float().T) * sc
+            m_new = torch.maximum(m, s.max(dim=1).values).bfloat16().float()
+            alpha = torch.exp(m - m_new)
+            p_blk = torch.exp(s - m_new[:, None])
+            l_ = (l_ * alpha + p_blk.sum(dim=1)).bfloat16().float()
+            acc = (acc * alpha[:, None] + p_blk @ V[src * ln:(src + 1) * ln].float()
+                   ).bfloat16().float()
+            m = m_new
+        outs.append((acc / l_[:, None]).bfloat16())
+    return torch.cat(outs)
+
+
+def phase_ring_primitives(cuda_ops, smi, device="cuda"):
+    """26(c), (d): ring_pairwise_gaussian on 16,384 rows against one
+    gaussian_kernel_block over all of them (its launches counted from 0:
+    one a shard a step); ring_gram on 50,000 x 1,800 against float64 sums;
+    ring_attention at n = 16,384, d = 128, causal, with n_valid, and with
+    bf16 operands, against float64 softmax attention (the bf16 leg in bf16
+    ulps, beside a bf16-state control that must fail it)."""
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+    from keystone_tpu_torch.parallel import ring
+
+    mesh = _mesh(device)
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(263)
+    P = torch.randn((RING_PAIRWISE_N, CIFAR_D), generator=gen, device=device)
+    shards = mesh_lib.shard_rows(P, mesh)
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    K = ring.ring_pairwise_gaussian(shards, CIFAR_GAMMA, mesh)
+    _sync(device)
+    out["pairwise_seconds"] = time.perf_counter() - t0
+    counts = out["pairwise_launches"] = _launches_since(cuda_ops)
+    pn = (P * P).sum(1)
+    t0 = time.perf_counter()
+    full = cuda_ops.gaussian_kernel_block(P, P, pn, pn, CIFAR_GAMMA)
+    _sync(device)
+    out["one_launch_seconds"] = time.perf_counter() - t0
+    rows = K.shard_rows
+    err = out["pairwise_max_abs_err"] = max(
+        (s - full[j * rows:(j + 1) * rows]).abs().max().item() for j, s in enumerate(K.shards))
+    nbytes = sum(s.numel() * s.element_size() for s in K.shards)
+    log(f"  (c) ring_pairwise_gaussian {RING_PAIRWISE_N} x {CIFAR_D} over {MESH_SHARDS} shards: "
+        f"{out['pairwise_seconds']:.3f} s (one launch over all rows "
+        f"{out['one_launch_seconds']:.3f} s), output {nbytes / 1e9:.3f} GB, max_abs_err "
+        f"{err:.3e} against the one launch; launches {counts} ({smi})")
+    _ring_counts(cuda_ops, counts, {"gaussian_kernel_block": MESH_SHARDS * MESH_SHARDS},
+                 "(c) ring_pairwise_gaussian: gaussian_kernel_block once a shard a step")
+    check("26(c) the ring's kernel matches one launch over all rows", err <= RING_KERNEL_TOL,
+          f"max_abs_err {err:.2e} (tol {RING_KERNEL_TOL:.0e})")
+    del P, shards, K, full, pn
+    torch.cuda.empty_cache()
+
+    F = torch.randn((CIFAR_N, CIFAR_D), generator=gen, device=device)
+    t0 = time.perf_counter()
+    G = ring.ring_gram(mesh_lib.shard_rows(F, mesh), mesh)
+    _sync(device)
+    out["gram_seconds"] = time.perf_counter() - t0
+    want = F.to(torch.float64).T @ F.to(torch.float64)
+    scale = F.abs().T @ F.abs()
+    stripe = G.shard_rows
+    err = out["gram_rel"] = max(
+        ((s.to(torch.float64) - want[j * stripe:(j + 1) * stripe]).abs()
+         / scale[j * stripe:(j + 1) * stripe]).max().item() for j, s in enumerate(G.shards))
+    log(f"  (d) ring_gram {CIFAR_N} x {CIFAR_D}: {stripe}-row stripes, {out['gram_seconds']:.3f} "
+        f"s, {err:.3e} of |F|^T|F| from float64 sums ({smi})")
+    check("26(d) ring_gram: 225-row stripes within tolerance of float64 sums",
+          stripe == CIFAR_D // MESH_SHARDS and err <= RING_GRAM_TOL,
+          f"{stripe} rows a stripe, {err:.2e} of scale (tol {RING_GRAM_TOL:.0e})")
+    del F, G, want, scale
+    torch.cuda.empty_cache()
+
+    n, d = RING_ATTN_N, RING_ATTN_D
+    Q, Kt, V = (torch.randn((n, d), generator=gen, device=device) for _ in range(3))
+    legs = {}
+    for leg, causal, n_valid, dtype in (("causal", True, None, torch.float32),
+                                        ("n_valid", False, n - RING_ATTN_PAD, torch.float32),
+                                        ("bf16 operands", False, None, torch.bfloat16)):
+        ops = [a.to(dtype, copy=True) for a in (Q, Kt, V)]
+        if n_valid is not None:
+            for a in ops:
+                a[n_valid:] = 0  # the mesh's zero padding
+        t0 = time.perf_counter()
+        got = ring.ring_attention(*(mesh_lib.shard_rows(a, mesh) for a in ops), mesh=mesh,
+                                  causal=causal, n_valid=n_valid)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        got = got.gather().to(torch.float64)
+        nv = n if n_valid is None else n_valid
+        want = _attention_f64(*ops, causal, nv)
+        err = (got[:nv] - want).abs().max().item()
+        pad_zero = bool((got[nv:] == 0).all())
+        legs[leg] = dict(seconds=secs, max_abs_err=err, max_abs_out=want.abs().max().item())
+        if dtype == torch.bfloat16:
+            ulps = legs[leg]["ulps"] = _bf16_ulps(got[:nv], want)
+            ctl = legs[leg]["control_ulps"] = _bf16_ulps(
+                _attention_bf16_state(*ops, MESH_SHARDS).to(torch.float64), want)
+            ok = ulps <= RING_ATTN_BF16_ULPS < ctl
+            detail = (f"{ulps:.3f} bf16 ulps (tol {RING_ATTN_BF16_ULPS:.0f}; bf16-state "
+                      f"control {ctl:.3f})")
+        else:
+            ok, detail = err <= RING_ATTN_TOL, f"max_abs_err {err:.2e} (tol {RING_ATTN_TOL:.0e})"
+        log(f"  (d) ring_attention {leg} n={n}, d={d}: {secs:.3f} s, max_abs_err {err:.3e} "
+            f"(max|out| {legs[leg]['max_abs_out']:.3e}) against float64 attention; {detail}")
+        check(f"26(d) ring_attention {leg}", ok and pad_zero,
+              f"{detail}; padded rows zero: {pad_zero}")
+        del ops, got, want
+    out["attention"] = legs
+    del Q, Kt, V
+    torch.cuda.empty_cache()
+    return out
+
+
+# 26(f): the modules no default route takes, each once on the card against
+# the same call on the CPU: HOG (bins of 4) and DAISY (its defaults but a
+# border of 8 pixels, which leaves 16 keypoints on a 32 x 32 image) on 1,000
+# synthetic CIFAR images; PerClassWeightedLeastSquaresEstimator at VOC's
+# 5,011 x 4,096 with 20 classes (one block of 4,096, 1 pass, lambda 0.5,
+# mixture weight 0.25); StreamedZCAWhitenerEstimator on CIFAR's 6 x 6 x 3
+# patches, 10 of each of 50,000 synthetic images (500,000 rows), from disk
+# shards of 16,384-row tiles, 2 a segment. Tolerances, set before the first
+# call: HOG and DAISY 1e-4 absolute (float32 sums in other orders, the
+# card's scatter-add in atomics); RWLS 1e-4 relative Frobenius of the
+# weights and intercept (lambda 0.5 keeps each class's system well
+# conditioned); the ZCA whitener 1e-3 absolute (float32 eigensolves on two
+# devices) and its means 1e-6 of their scale: the patches are pixels in
+# [0, 255], so float32 sums of 500,000 of them in two orders part by about
+# 1e-7 of the means (an absolute 1e-5, set at first, read 1.53e-5 there).
+OPT_IMAGES, OPT_VOC_N, OPT_VOC_D, OPT_VOC_K = 1000, 5011, 4096, 20
+OPT_ZCA_IMAGES, OPT_ZCA_PER_IMAGE, OPT_ZCA_TILE = 50000, 10, 16384
+OPT_IMAGE_TOL, OPT_RWLS_TOL, OPT_ZCA_MEAN_TOL, OPT_ZCA_TOL = 1e-4, 1e-4, 1e-6, 1e-3
+
+
+def _both_devices(fn, device):
+    """``fn(device)`` on the card (synchronized, timed) and on the CPU."""
+    _sync(device)
+    t0 = time.perf_counter()
+    got = fn(device)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fn("cpu")
+    return got, want, secs, time.perf_counter() - t0
+
+
+def phase_ring_options(root, smi, device="cuda"):
+    """26(f): HOG, DAISY, PerClassWeightedLeastSquaresEstimator and
+    StreamedZCAWhitenerEstimator once on the card at a realistic size, each
+    against the same call on the CPU (see OPT_*)."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.data.loaders import synthetic_cifar
+    from keystone_tpu_torch.data.shards import DiskDenseShards
+    from keystone_tpu_torch.ops.images import DaisyExtractor, HogExtractor
+    from keystone_tpu_torch.ops.learning.pca import StreamedZCAWhitenerEstimator
+    from keystone_tpu_torch.ops.learning.rwls import PerClassWeightedLeastSquaresEstimator
+
+    out = {}
+    images = synthetic_cifar(OPT_IMAGES, seed=264, device="cpu").data.array
+    images = torch.as_tensor(np.asarray(images), dtype=torch.float32) / 255.0
+    for name, node in (("hog", HogExtractor(4)), ("daisy", DaisyExtractor(pixel_border=8))):
+        got, want, secs, cpu_secs = _both_devices(
+            lambda dev: node.batch_apply(Dataset(images.to(dev))).array.cpu(), device)
+        err = (got - want).abs().max().item()
+        out[name] = dict(seconds=secs, cpu_seconds=cpu_secs, max_abs_err=err,
+                         shape=list(got.shape))
+        log(f"  (f) {name} on {OPT_IMAGES} 32 x 32 x 3 images: {tuple(got.shape)}, card "
+            f"{secs:.3f} s, CPU {cpu_secs:.3f} s, max_abs_err {err:.3e} ({smi})")
+        check(f"26(f) {name} on the card against the CPU",
+              err <= OPT_IMAGE_TOL and bool(torch.isfinite(got).all()) and got.abs().sum() > 0,
+              f"max_abs_err {err:.2e} (tol {OPT_IMAGE_TOL:.0e})")
+    del images
+
+    rng = np.random.default_rng(265)
+    X = rng.normal(size=(OPT_VOC_N, OPT_VOC_D)).astype(np.float32)
+    Y = (2.0 * np.eye(OPT_VOC_K)[rng.integers(0, OPT_VOC_K, OPT_VOC_N)] - 1.0).astype(np.float32)
+
+    def rwls(dev):
+        model = PerClassWeightedLeastSquaresEstimator(OPT_VOC_D, 1, 0.5, 0.25).fit(
+            Dataset(torch.from_numpy(X).to(dev)), Dataset(torch.from_numpy(Y).to(dev)))
+        return torch.cat([model.xs[0].reshape(-1), model.b_opt]).cpu()
+
+    got, want, secs, cpu_secs = _both_devices(rwls, device)
+    rel = _rel(got, want)
+    out["rwls"] = dict(seconds=secs, cpu_seconds=cpu_secs, rel=rel)
+    log(f"  (f) PerClassWeightedLeastSquaresEstimator {OPT_VOC_N} x {OPT_VOC_D}, "
+        f"{OPT_VOC_K} classes: card {secs:.3f} s, CPU {cpu_secs:.3f} s, weights and intercept "
+        f"{rel:.3e} relative ({smi})")
+    check("26(f) RWLS on the card against the CPU", rel <= OPT_RWLS_TOL,
+          f"{rel:.2e} relative Frobenius (tol {OPT_RWLS_TOL:.0e})")
+    del X, Y
+
+    cifar = synthetic_cifar(OPT_ZCA_IMAGES, seed=266, device="cpu").data.array
+    cifar = np.asarray(cifar, dtype=np.float32)
+    at = rng.integers(0, 32 - 6 + 1, size=(2, OPT_ZCA_IMAGES, OPT_ZCA_PER_IMAGE))
+    offs = np.arange(6)
+    rows = np.arange(OPT_ZCA_IMAGES)[:, None, None, None]
+    xi = (at[0][..., None, None] + offs[:, None])  # (n, p, 6, 1)
+    yi = (at[1][..., None, None] + offs[None, :])  # (n, p, 1, 6)
+    patches = cifar[rows, xi, yi].reshape(-1, 6 * 6 * 3)
+    del cifar
+    shards = DiskDenseShards.write(os.path.join(root, "zca"), patches,
+                                   np.zeros((patches.shape[0], 1), np.float32),
+                                   tile_rows=OPT_ZCA_TILE, tiles_per_segment=2)
+    del patches
+    got, want, secs, cpu_secs = _both_devices(
+        lambda dev: StreamedZCAWhitenerEstimator(eps=0.1, device=dev).fit_source(
+            shards.as_source()), device)
+    mean_err = ((got.means.cpu() - want.means).abs().max() / want.means.abs().max()).item()
+    err = (got.whitener.cpu() - want.whitener).abs().max().item()
+    out["zca"] = dict(seconds=secs, cpu_seconds=cpu_secs, means_rel=mean_err,
+                      whitener_max_abs_err=err, rows=shards.n_true,
+                      segments=shards.num_segments)
+    log(f"  (f) StreamedZCAWhitenerEstimator on {shards.n_true} 6 x 6 x 3 patches from "
+        f"{shards.num_segments} disk segments: card {secs:.3f} s, CPU {cpu_secs:.3f} s; means "
+        f"{mean_err:.3e} of their scale, whitener {err:.3e} max_abs_err ({smi})")
+    check("26(f) the streamed ZCA on the card against the CPU",
+          mean_err <= OPT_ZCA_MEAN_TOL and err <= OPT_ZCA_TOL,
+          f"means {mean_err:.2e} (tol {OPT_ZCA_MEAN_TOL:.0e}), whitener {err:.2e} "
+          f"(tol {OPT_ZCA_TOL:.0e})")
+    return out
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7710,6 +8228,27 @@ def main():
                   "c": mesh_run["block_streamed"]["launches"],
                   "d": mesh_run["multichip"]["launches"]}
     log(f"  phase 25 launches by part: {mesh_parts} ({smi})")
+    torch.cuda.empty_cache()
+    phase("26", "the ring tier: the mesh KRR sweep and ring apply at RandomPatchCifarKernel's "
+          "KRR width on 8 shards, ring_pairwise_gaussian, ring_gram, ring_attention, "
+          "profile=True, bf16x3; HOG, DAISY, RWLS and the streamed ZCA against the CPU")
+    ring_run = dict(shapes=phase_ring_shapes(cuda_ops))
+    ring_run["krr"] = phase_ring_krr(cuda_ops, smi)
+    torch.cuda.empty_cache()
+    ring_run["primitives"] = phase_ring_primitives(cuda_ops, smi)
+    torch.cuda.empty_cache()
+    ring_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             f"phase26-{os.getpid()}")
+    os.makedirs(ring_root, exist_ok=True)
+    try:
+        ring_run["options"] = phase_ring_options(ring_root, smi)
+    finally:
+        shutil.rmtree(ring_root, ignore_errors=True)
+    ring_parts = {"26a_fit": ring_run["krr"]["fit_launches"],
+                  "26b_apply": ring_run["krr"]["apply_launches"],
+                  "26c_pairwise": ring_run["primitives"]["pairwise_launches"]}
+    log(f"  phase 26 launches by part: {ring_parts} ({smi})")
+    mesh_parts.update(ring_parts)
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -7759,6 +8298,9 @@ def main():
         entry["mesh_launches_by_part"] = by_part
         if entry["name"] in mesh_run["shape_errors"]:
             entry["mesh_shape_max_abs_err"] = mesh_run["shape_errors"][entry["name"]]
+        # The ring tier's shard shapes (phase 26): times beside the bound.
+        if entry["name"] in ring_run["shapes"]:
+            entry["ring_shapes"] = ring_run["shapes"][entry["name"]]
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -7767,7 +8309,7 @@ def main():
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
                  SERVING: serving, LEARN: learn, DISK: disk, ZOO: zoo, CONTROL: control,
-                 FLEET: fleet_run, MESH: mesh_run,
+                 FLEET: fleet_run, MESH: mesh_run, RING: ring_run,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

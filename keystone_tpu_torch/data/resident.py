@@ -20,8 +20,10 @@ The reference keeps its buffers in numpy, bf16 through ``ml_dtypes``; the
 port keeps them as tensors on the device they were encoded on and rounds
 to bf16 with ``Tensor.to(torch.bfloat16)``, which is round-to-nearest-even
 as ``ml_dtypes`` is (tests/test_torch_sparse.py holds the bits equal).
-The mesh partitioning of the reference (``partition``, ``index_base``)
-waits for ROADMAP A.15b and raises here.
+:meth:`CompressedCOOChunks.partition` splits the chunk axis into one
+contiguous partition a device, and ``index_base`` stores a partition's
+lanes rebased to its own column base, each partition re-validating the
+int16 boundary on its own range (the reference's mesh residency layout).
 
 **Value-drift policy**: indices round-trip exactly or :meth:`encode`
 raises. Values quantize f32 -> bf16 with round-to-nearest-even:
@@ -57,21 +59,16 @@ COMPRESSED_BYTES_PER_NNZ = 4.0
 # d <= INT16_MAX_INDEX.
 INT16_MAX_INDEX = int(np.iinfo(np.int16).max)  # 32767
 
-_MESH_WAITS = (
-    "mesh partitioning of the compressed tier is not ported yet "
-    "(ROADMAP A.15b)"
-)
-
-
 def compressible_dim(d: int, index_base: int = 0) -> bool:
     """Whether a feature width fits the int16 index encoding (indices
     0..d-1; callers appending an intercept lane at index d pass d+1). Past
     it the compressed tier is infeasible: ``resident_bytes`` prices it at
-    infinity rather than wrapping indices. ``index_base`` (the mesh
-    partition's rebase) raises: ROADMAP A.15b."""
-    if index_base:
-        raise NotImplementedError(_MESH_WAITS)
-    return int(d) - 1 <= INT16_MAX_INDEX
+    infinity rather than wrapping indices.
+
+    ``index_base`` is a mesh partition's rebase: a partition that stores
+    indices relative to its own column base gates on the rebased width
+    ``d - index_base``, not the global one."""
+    return int(d) - 1 - int(index_base) <= INT16_MAX_INDEX
 
 
 def _tile(t: torch.Tensor, nchunks: int, chunk_rows: int, fill) -> torch.Tensor:
@@ -113,12 +110,15 @@ class CompressedCOOChunks:
     """
 
     def __init__(self, idx_t: torch.Tensor, val_t: torch.Tensor, y_t: torch.Tensor,
-                 n_true: int, d: int):
+                 n_true: int, d: int, index_base: int = 0):
         self.idx_t = idx_t
         self.val_t = val_t
         self.y_t = y_t
         self.n_true = int(n_true)
         self.d = int(d)
+        # A partition's column rebase: stored lanes hold ``index -
+        # index_base`` (0 for the whole-set encoding).
+        self.index_base = int(index_base)
 
     @classmethod
     def encode(
@@ -139,10 +139,15 @@ class CompressedCOOChunks:
         a value into the wrong Gramian row and corrupt the fit without a
         single NaN. Values quantize f32 -> bf16 per the module's drift
         policy. The ragged tail pads with inactive (−1) lanes and zero
-        labels to whole chunks. ``index_base`` raises (ROADMAP A.15b).
+        labels to whole chunks.
+
+        ``index_base``: a mesh partition stores its lanes rebased to its own
+        column base (``stored = index - base``), and the boundary is checked
+        on the rebased, partition-local range: an active index below the
+        base, or at ``base + 32768`` or past it, raises here, since a
+        wrapped rebased index would corrupt that one device's Gramian
+        partial while every other device's stays clean.
         """
-        if index_base:
-            raise NotImplementedError(_MESH_WAITS)
         values = as_tensor(values)
         indices = as_tensor(indices, values.device)
         labels = as_tensor(labels, values.device)
@@ -150,11 +155,23 @@ class CompressedCOOChunks:
             labels = labels[:, None]
         n = int(indices.shape[0])
         n_true = n if n_true is None else int(n_true)
+        index_base = int(index_base)
+        if index_base:
+            # Rebase only active lanes; -1 stays the inactive marker.
+            active = indices >= 0
+            if bool(active.any()) and int(indices[active].min()) < index_base:
+                raise ValueError(
+                    f"active index {int(indices[active].min())} < index_base "
+                    f"{index_base}: this partition does not own that column — "
+                    f"rebasing would wrap negative"
+                )
+            indices = torch.where(active, indices - index_base, indices.new_full((), -1))
         max_idx = int(indices.max()) if indices.numel() else -1
-        d = max_idx + 1 if d is None else int(d)
+        d = max_idx + 1 + index_base if d is None else int(d)
         if max_idx > INT16_MAX_INDEX:
             raise ValueError(
-                f"index {max_idx} does not fit the int16 encoding (max "
+                f"index {max_idx + index_base} (rebased {max_idx} at base "
+                f"{index_base}) does not fit the int16 encoding (max "
                 f"{INT16_MAX_INDEX}); the compressed-resident tier is infeasible "
                 f"at this width — use the raw int32 tier (a wrapped index would "
                 f"silently corrupt the Gramian)"
@@ -173,7 +190,7 @@ class CompressedCOOChunks:
             _tile(idx16, nchunks, c, -1),
             _tile(values.to(torch.bfloat16), nchunks, c, 0),
             _tile(labels.to(torch.float32), nchunks, c, 0),
-            n_true=n_true, d=d,
+            n_true=n_true, d=d, index_base=index_base,
         )
 
     def decode(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -184,14 +201,63 @@ class CompressedCOOChunks:
         rows = self.num_chunks * c
         keep = min(rows, self.n_true) if self.n_true else rows
         idx = self.idx_t.reshape(-1, w).to(torch.int32)
+        if self.index_base:
+            idx = torch.where(idx >= 0, idx + self.index_base, idx)
         val = self.val_t.reshape(-1, w).to(torch.float32)
         y = self.y_t.reshape(rows, -1)
         return (idx[:keep].cpu().numpy(), val[:keep].cpu().numpy(),
                 y[:keep].cpu().numpy())
 
-    def partition(self, num_partitions: int):
-        """The reference's per-device partitioning: ROADMAP A.15b."""
-        raise NotImplementedError(_MESH_WAITS)
+    def _validate_boundary(self) -> None:
+        """The int16 boundary on THIS partition's buffers: gating on the
+        global width is not enough once chunks partition across devices,
+        so each partition re-validates at its own (d, index_base)."""
+        if not compressible_dim(self.d, self.index_base):
+            raise ValueError(
+                f"partition at index_base {self.index_base} cannot represent "
+                f"width {self.d} in int16 (local range {self.d - self.index_base} > "
+                f"{INT16_MAX_INDEX + 1})"
+            )
+        if self.idx_t.numel():
+            lo, hi = int(self.idx_t.min()), int(self.idx_t.max())
+            if lo < -1 or hi + self.index_base >= self.d:
+                raise ValueError(
+                    f"partition holds indices [{lo}, {hi}] at base {self.index_base} "
+                    f"outside width {self.d} — refusing to build a corrupt "
+                    f"per-device Gramian"
+                )
+
+    def partition(self, num_partitions: int) -> "list[CompressedCOOChunks]":
+        """Split the chunk axis into ``num_partitions`` contiguous
+        per-device partitions (partition j feeds device j: chunks
+        ``[j·cpd, (j+1)·cpd)``). Ragged tails pad with dead chunks
+        (inactive lanes, zero labels) so every partition carries exactly
+        ``cpd`` chunks; ``n_true`` splits by true-row ownership. Every
+        partition re-validates the int16 boundary. The partitions lie on
+        this set's device."""
+        m = int(num_partitions)
+        if m < 1:
+            raise ValueError(f"num_partitions must be >= 1, got {m}")
+        cpd = -(-self.num_chunks // m)
+        c, w, k = self.chunk_rows, self.idx_t.shape[2], self.y_t.shape[2]
+        dev = self.idx_t.device
+        parts = []
+        for j in range(m):
+            lo = j * cpd
+            # Wholly dead trailing partitions clamp to an empty [lo, lo).
+            hi = max(min((j + 1) * cpd, self.num_chunks), lo)
+            idx = torch.full((cpd, c, w), -1, dtype=self.idx_t.dtype, device=dev)
+            val = torch.zeros((cpd, c, w), dtype=self.val_t.dtype, device=dev)
+            y = torch.zeros((cpd, c, k), dtype=torch.float32, device=dev)
+            idx[: hi - lo] = self.idx_t[lo:hi]
+            val[: hi - lo] = self.val_t[lo:hi]
+            y[: hi - lo] = self.y_t[lo:hi]
+            n_local = int(np.clip(self.n_true - lo * c, 0, (hi - lo) * c))
+            part = CompressedCOOChunks(idx, val, y, n_true=n_local, d=self.d,
+                                       index_base=self.index_base)
+            part._validate_boundary()
+            parts.append(part)
+        return parts
 
     @property
     def num_chunks(self) -> int:

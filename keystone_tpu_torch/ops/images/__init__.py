@@ -1,6 +1,6 @@
 """Image nodes (port of ``keystone_tpu/ops/images/__init__.py``: the
-convolutional featurizer, the image plumbing, dense SIFT, LCS and the
-Fisher-vector nodes; HOG and DAISY are not ported yet)."""
+convolutional featurizer, the image plumbing, dense SIFT, LCS, HOG, DAISY
+and the Fisher-vector nodes)."""
 
 from .conv import Convolver, Pooler, SymmetricRectifier, Windower
 from .core import (
@@ -16,6 +16,8 @@ from .core import (
     RandomPatcher,
 )
 from .fisher import FisherVector, GMMFisherVectorEstimator, ScalaGMMFisherVectorEstimator
+from .hog import HogExtractor
+from .daisy import DaisyExtractor
 from .lcs import LCSExtractor
 from .sift import SIFTExtractor
 
@@ -23,9 +25,11 @@ __all__ = [
     "CenterCornerPatcher",
     "Convolver",
     "Cropper",
+    "DaisyExtractor",
     "FisherVector",
     "GMMFisherVectorEstimator",
     "GrayScaler",
+    "HogExtractor",
     "ImageExtractor",
     "ImageVectorizer",
     "LCSExtractor",

@@ -3,6 +3,7 @@
 
 from .block import BlockLeastSquaresEstimator, BlockLinearMapper
 from .bwls import BlockWeightedLeastSquaresEstimator
+from .rwls import PerClassWeightedLeastSquaresEstimator, ReWeightedLeastSquaresSolver
 from .clustering import (
     GaussianMixtureModel,
     GaussianMixtureModelEstimator,
@@ -58,6 +59,7 @@ __all__ = [
     "GaussianKernelTransformer", "IterativeHessianSketch", "KernelBlockLinearMapper",
     "KernelRidgeRegression", "LeastSquaresEstimator", "LinearMapEstimator", "LinearMapper",
     "LocalLeastSquaresEstimator", "NystromKernelMapper", "NystromKernelRidge",
+    "PerClassWeightedLeastSquaresEstimator", "ReWeightedLeastSquaresSolver",
     "SketchedLeastSquares", "SketchedLeastSquaresEstimator",
     "SparseLBFGSwithL2", "SparseLinearMapper", "StreamingFeaturizedLeastSquares",
     "StreamingFeaturizedLinearModel", "StreamingLeastSquaresChoice",

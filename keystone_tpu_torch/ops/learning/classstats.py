@@ -2,8 +2,8 @@
 solvers (BWLS mixes class and population moments —
 BlockWeightedLeastSquares.scala:120-150).
 
-Port of ``keystone_tpu/ops/learning/classstats.py``, the two helpers
-``bwls.py`` calls (the per-class weighted solver's helpers come with it).
+Port of ``keystone_tpu/ops/learning/classstats.py``: the two helpers that
+``bwls.py`` and ``rwls.py`` call.
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Kernel ridge regression via blockwise Gauss-Seidel (arXiv:1602.05310),
-on one device.
+"""Kernel ridge regression via blockwise Gauss-Seidel (arXiv:1602.05310).
 
 Port of ``keystone_tpu/ops/learning/kernel.py`` (reference:
 nodes/learning/KernelRidgeRegression.scala:37-275, KernelMatrix.scala:17-90,
@@ -21,6 +20,21 @@ the kernels mask ragged edges, a ragged last block's diagonal is
 identity-ghosted to (bs, bs) as in the reference, and its ghost rows solve
 to exactly zero, so the (blocks, bs, k) weight stack is the reference's.
 
+On a mesh whose ``data`` axis has more than one shard (``Dataset.shard``)
+the fit runs the mesh sweep (the reference's ``_krr_mesh_program``): rows,
+labels and the dual model stay row-sharded, each step's residual is one
+``gaussian_resid_block`` launch a shard on that shard's rows, the partials
+meet in one ``psum`` in shard order, and the (bs, bs) solve runs on the
+axis's first device, where ``parallel/linalg.py``'s mesh BCD solves. The
+mapper then applies by the ring (``parallel/ring.ring_kernel_apply``).
+
+``kernel_dtype="bf16x3"`` is the reference's 3-pass product, which it
+computes outside Pallas on purpose (Mosaic has no 3-pass lowering, and a
+fused hi/lo variant measured slower): three bf16 ``torch`` products with
+float32 accumulation and a float32 epilogue (:func:`gaussian_block_bf16x3`),
+not a port of a kernel. ``profile=True`` runs the reference's stepwise path,
+timing its phases.
+
 Nyström KRR (:class:`NystromKernelRidge`, :class:`NystromKernelMapper`)
 takes its landmark kernel blocks K(X, L) and K(L, L) from the same
 ``gaussian_kernel_block`` kernel, the padding rows masked out, and solves
@@ -34,10 +48,6 @@ solvers send float64 operands to plain contractions. The normal equations
 are assembled and solved in float64 whatever the rows' dtype (ROADMAP C.7:
 on CIFAR's features float32 ones miss α by 2e-2 of its norm at 600 rows
 and 64 landmarks, and by 75 to 110 times it at 50,000 and 2,048).
-
-Not ported yet (ROADMAP A.8): the ``"bf16x3"`` kernel dtype (XLA-only in
-the reference), the stepwise ``profile=True`` path, the mesh sweep
-(``_krr_mesh_program``) and the ring apply.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -53,10 +64,15 @@ import torch
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
 from keystone_tpu_torch.ops import cuda_ops
+from keystone_tpu_torch.parallel import mesh as mesh_lib
+from keystone_tpu_torch.parallel import ring
 from keystone_tpu_torch.parallel.linalg import _psd_factor, _solve_psd
+from keystone_tpu_torch.utils import profiling
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 
 logger = logging.getLogger("keystone_tpu_torch.kernel")
+
+KERNEL_DTYPES = ("f32", "bf16x3", "bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -68,9 +84,37 @@ def _compute_dtype(kernel_dtype: str) -> torch.dtype:
     return torch.bfloat16 if kernel_dtype == "bf16" else torch.float32
 
 
-def _norms(X) -> torch.Tensor:
-    Xf = X.to(torch.float32)
-    return (Xf * Xf).sum(dim=1)
+def _bf16_parts(X: torch.Tensor):
+    """X (float32) as hi + lo, both bf16: hi = X rounded, lo = the rest
+    rounded."""
+    hi = X.to(torch.bfloat16)
+    return hi, (X - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ bᵀ of bf16 operands, accumulated and returned in float32: on the
+    card one bf16 product on the tensor cores with a float32 output; on the
+    CPU, which has no such product, the operands widened to float32 (the
+    products of bf16 values are exact there)."""
+    if a.device.type == "cuda":
+        out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32, device=a.device)
+        return torch.addmm(out, a, b.T, beta=0, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32).T
+
+
+def gaussian_block_bf16x3(X, Y, x_norms, y_norms, gamma: float) -> torch.Tensor:
+    """K(X, Y) with the cross term X·Yᵀ in the 3-pass bf16 decomposition
+    hi·hi + (hi·lo + lo·hi): bf16 parts, float32 accumulation, about 2⁻¹⁶
+    relative operand error (kernel entries within about 1e-5 of float32's).
+    The norms, the exp epilogue and the result stay float32. The reference
+    computes this mode with XLA, not Pallas (Mosaic has no 3-pass lowering,
+    and a fused hi/lo kernel measured slower), so this is three ``torch``
+    products and an epilogue, not a port of a kernel."""
+    xh, xl = _bf16_parts(X.to(torch.float32))
+    yh, yl = _bf16_parts(Y.to(torch.float32))
+    dot = _bf16_product(xh, yh) + (_bf16_product(xh, yl) + _bf16_product(xl, yh))
+    sq = x_norms.to(torch.float32)[:, None] + y_norms.to(torch.float32)[None, :] - 2.0 * dot
+    return torch.exp(-float(gamma) * torch.clamp_min(sq, 0.0))
 
 
 class GaussianKernelTransformer:
@@ -82,7 +126,7 @@ class GaussianKernelTransformer:
         self.n_train = int(n_train)
         self.train_X = as_tensor(train_X).to(torch.float32)[: self.n_train]
         self.kernel_dtype = kernel_dtype
-        self._train_norms = _norms(self.train_X)
+        self._train_norms = ring.row_norms(self.train_X)
         self._compute_dtype = _compute_dtype(kernel_dtype)
         # The kernels' operand: rounded to bf16 once here, not per block.
         self._train_op = self.train_X.to(self._compute_dtype).contiguous()
@@ -91,6 +135,22 @@ class GaussianKernelTransformer:
         """Rows as the kernels read them (float32, or bf16 for "bf16")."""
         return as_tensor(X, self.train_X.device).to(self._compute_dtype).contiguous()
 
+    def kernel(self, X, Y, x_norms, y_norms) -> torch.Tensor:
+        """K(X, Y) of operands as :meth:`operand` makes them, float32."""
+        if self.kernel_dtype == "bf16x3":
+            return gaussian_block_bf16x3(X, Y, x_norms, y_norms, self.gamma)
+        return cuda_ops.gaussian_kernel_block(X, Y, x_norms, y_norms, self.gamma,
+                                              self._compute_dtype)
+
+    def residual(self, X, Y, x_norms, y_norms, W) -> torch.Tensor:
+        """K(X, Y)ᵀ W: the ``gaussian_resid_block`` kernel, which never
+        stores the block; bf16x3 makes the block and contracts it, as the
+        reference's 3-pass engine does."""
+        if self.kernel_dtype == "bf16x3":
+            return self.kernel(X, Y, x_norms, y_norms).T @ W.to(torch.float32)
+        return cuda_ops.gaussian_resid_block(X, Y, x_norms, y_norms, W, self.gamma,
+                                             self._compute_dtype)
+
     def _block(self, start: int, size: int):
         stop = min(start + size, self.n_train)
         return self._train_op[start:stop], self._train_norms[start:stop]
@@ -98,46 +158,42 @@ class GaussianKernelTransformer:
     def column_block(self, start: int, size: int):
         """K(train, train[start:start+size]) — (n_train, valid columns)."""
         Xb, nb = self._block(start, size)
-        return cuda_ops.gaussian_kernel_block(
-            self._train_op, Xb, self._train_norms, nb, self.gamma, self._compute_dtype
-        )
+        return self.kernel(self._train_op, Xb, self._train_norms, nb)
 
     def test_block(self, test_X, start: int, size: int, test_norms=None):
         """K(test, train[start:start+size]). ``test_norms`` (the squared row
         norms of test_X) may be passed to skip recomputing them per block."""
         test_X = as_tensor(test_X, self.train_X.device)
         if test_norms is None:
-            test_norms = _norms(test_X)
+            test_norms = ring.row_norms(test_X, torch.float32)
         Xb, nb = self._block(start, size)
-        return cuda_ops.gaussian_kernel_block(
-            self.operand(test_X), Xb, test_norms, nb, self.gamma, self._compute_dtype
-        )
+        return self.kernel(self.operand(test_X), Xb, test_norms, nb)
 
     def diag_block(self, start: int, size: int):
         """K(train[start:start+size], train[start:start+size])."""
         Xb, nb = self._block(start, size)
-        return cuda_ops.gaussian_kernel_block(Xb, Xb, nb, nb, self.gamma, self._compute_dtype)
+        return self.kernel(Xb, Xb, nb, nb)
 
 
 class GaussianKernelGenerator:
     """Factory binding γ; ``fit(data)`` captures the training rows
     (reference: KernelGenerator.scala:18-60).
 
-    ``kernel_dtype="bf16"`` rounds the kernels' operands to bf16 (products
-    accumulate in f32; the solves stay f32). See the reference's
-    ``_gaussian_block`` for its error model: with a small λ the kernel's
-    error can make K + λI indefinite. ``"bf16x3"`` (the reference's XLA
-    3-pass product) is not ported yet.
+    ``kernel_dtype`` picks the cross term's recipe; the norms, the exp
+    epilogue, the result and the solves stay float32 in every mode:
+      - ``"f32"``: float32 operands, the default;
+      - ``"bf16x3"``: the 3-pass bf16 decomposition
+        (:func:`gaussian_block_bf16x3`), entries within about 1e-5 of f32's;
+      - ``"bf16"``: bf16 operands, f32 accumulation. The entry error (about
+        γ·‖x‖‖y‖·2⁻⁸) can exceed a small λ and make K + λI indefinite, and
+        the block Gauss-Seidel sweep then diverges (the reference's
+        ``_gaussian_block``).
     """
 
     def __init__(self, gamma: float, kernel_dtype: str = "f32"):
-        if kernel_dtype == "bf16x3":
-            raise NotImplementedError(
-                'kernel_dtype="bf16x3" (the reference\'s XLA 3-pass bf16 product) is '
-                'not ported yet (ROADMAP A.8); use "f32" or "bf16"'
-            )
-        if kernel_dtype not in ("f32", "bf16"):
-            raise ValueError(f'kernel_dtype must be "f32" or "bf16", got {kernel_dtype!r}')
+        if kernel_dtype not in KERNEL_DTYPES:
+            raise ValueError(
+                f'kernel_dtype must be "f32", "bf16x3" or "bf16", got {kernel_dtype!r}')
         self.gamma = gamma
         self.kernel_dtype = kernel_dtype
 
@@ -167,39 +223,118 @@ def _diag_factor_prepass(transformer: GaussianKernelTransformer, lam: float, bs:
     return grams, _psd_factor(grams, lam)
 
 
-def _krr_sweep(transformer: GaussianKernelTransformer, Y, order, grams, chols,
-               lam: float, bs: int, w_stack):
-    """Gauss-Seidel steps over ``order`` (block indices), updating the
-    (num_blocks, bs, k) stack ``w_stack`` in place; returns it. The dual
-    model W (n, k) is the stack's first n rows, so a resumed sweep that
-    starts from a saved stack continues exactly where it stopped."""
-    n, k = Y.shape
-    W = w_stack.reshape(-1, k)[:n].clone()
-    X, norms = transformer._train_op, transformer._train_norms
-    for block in (int(b) for b in order):
-        start = block * bs
-        stop = min(start + bs, n)
-        v = stop - start
-        residual = cuda_ops.gaussian_resid_block(
-            X, X[start:stop], norms, norms[start:stop], W, transformer.gamma,
-            transformer._compute_dtype,
-        )
-        gram, w_old = grams[block], w_stack[block]
-        # Ghost rows of the right-hand side stay zero; with gram's identity
-        # ghost diagonal they solve to exactly zero, so W's invariant holds.
-        rhs = torch.zeros((bs, k), dtype=Y.dtype, device=Y.device)
-        rhs[:v] = Y[start:stop] - (residual - (gram.T @ w_old)[:v])
-        w_new = _solve_psd(gram, rhs, lam, chol=chols[block])
-        W[start:stop] = w_new[:v]
-        w_stack[block] = w_new
-    return w_stack
+def _solve_block(Y, start: int, stop: int, residual, gram, chol, w_old, lam: float,
+                 bs: int):
+    """One Gauss-Seidel block update: the new (bs, k) block weights from the
+    block's residual ``K(train, block)ᵀ W`` (its valid rows), with the
+    stashed factor ``chol`` of ``gram`` (or a fresh one where None)."""
+    v = stop - start
+    # Ghost rows of the right-hand side stay zero; with gram's identity
+    # ghost diagonal they solve to exactly zero, so W's invariant holds.
+    rhs = torch.zeros((bs, Y.shape[1]), dtype=Y.dtype, device=Y.device)
+    rhs[:v] = Y[start:stop] - (residual - (gram.T @ w_old)[:v])
+    return _solve_psd(gram, rhs, lam, chol=chol)
+
+
+class _Sweep:
+    """The fit's Gauss-Seidel sweep over row shards: the reference's fused
+    sweep on one device (one shard, the transformer's own rows) and its
+    ``_krr_mesh_program`` over rows sharded on the ``data`` axis.
+
+    Each step's residual ``K(rows, block)ᵀ W`` is one
+    ``gaussian_resid_block`` launch a shard on that shard's rows, the
+    partials meet in one ``psum`` in shard order (of one shard: a copy),
+    and the (bs, bs) solve runs on the first shard's device, where the
+    transformer's rows lie and where the replicated work (the diagonal
+    pre-pass, the solves, the weight stack) runs, as
+    ``parallel/linalg.py``'s mesh BCD places its solve. The dual model W
+    stays row-sharded as the rows are. On a mesh, each distinct device of
+    the shards holds the gathered rows (``mesh.all_gather``, as the
+    reference gathers X) from which a step takes the block's rows."""
+
+    def __init__(self, transformer: GaussianKernelTransformer, Y, bs: int,
+                 xs: Optional[mesh_lib.ShardedRows] = None,
+                 gathered: Optional[List[torch.Tensor]] = None):
+        self.t = transformer
+        self.Y, self.n, self.bs = Y, transformer.n_train, int(bs)
+        own = (transformer._train_op, transformer._train_norms)
+        self.block_rows = {transformer.train_X.device: own}
+        if xs is None:
+            self.devices, self.rows = [transformer.train_X.device], self.n
+            self.x, self.norms = [own[0]], [own[1]]
+            return
+        self.devices = [s.device for s in xs.shards]
+        self.rows = xs.shard_rows
+        cd = transformer._compute_dtype
+        shards = [s.to(torch.float32) for s in xs.shards]
+        self.x = [s.to(cd).contiguous() for s in shards]
+        self.norms = [ring.row_norms(s) for s in shards]
+        for dev, full in zip(self.devices, gathered):
+            if dev not in self.block_rows:
+                rows = full[: self.n].to(torch.float32)
+                self.block_rows[dev] = (rows.to(cd).contiguous(), ring.row_norms(rows))
+
+    def weights_from_stack(self, w_stack) -> List[torch.Tensor]:
+        """Each shard's rows of the dual model W, from the (num_blocks, bs,
+        k) block stack (zeros on a fresh fit; W is the stack's first n
+        rows): the resume hook. Rows past n (the mesh's padding) belong to
+        no block and stay zero."""
+        k = w_stack.shape[2]
+        flat = w_stack.reshape(-1, k)[: self.n]
+        W = []
+        for j, dev in enumerate(self.devices):
+            w = torch.zeros((self.rows, k), dtype=torch.float32, device=dev)
+            lo, hi = j * self.rows, min((j + 1) * self.rows, self.n)
+            if lo < hi:
+                w[: hi - lo] = flat[lo:hi].to(dev)
+            W.append(w)
+        return W
+
+    def run(self, order, grams, chols, lam: float, w_stack):
+        """Gauss-Seidel steps over ``order`` (block indices), updating the
+        stack ``w_stack`` in place; returns it. A sweep that starts from a
+        saved stack continues exactly where it stopped."""
+        W = self.weights_from_stack(w_stack)
+        bs, ln, first = self.bs, self.rows, self.devices[0]
+        for block in (int(b) for b in order):
+            start = block * bs
+            stop = min(start + bs, self.n)
+            parts = []
+            for j, dev in enumerate(self.devices):
+                Xb, nb = self.block_rows[dev]
+                # A shard's padding rows are zero, and K(0, y) = exp(-γ‖y‖²)
+                # is not, but their rows of W are zero too: they add nothing.
+                parts.append(self.t.residual(self.x[j], Xb[start:stop], self.norms[j],
+                                             nb[start:stop], W[j]))
+            residual = mesh_lib.psum(parts, first)
+            w_new = _solve_block(self.Y, start, stop, residual, grams[block], chols[block],
+                                 w_stack[block], lam, bs)
+            # Scatter into every shard owning rows of the block: blocks need
+            # not align with shard boundaries.
+            for j, dev in enumerate(self.devices):
+                lo, hi = max(start, j * ln), min(stop, (j + 1) * ln)
+                if lo < hi:
+                    W[j][lo - j * ln:hi - j * ln] = w_new[lo - start:hi - start].to(dev)
+            w_stack[block] = w_new
+        return w_stack
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class KernelBlockLinearMapper(Transformer):
     """Apply the dual model to test data block by block
     (reference: KernelBlockLinearMapper.scala:28-115). ``w_locals`` are the
     (block_size, k) block weights; a ragged last block's ghost rows are
-    zero and are not read."""
+    zero and are not read.
+
+    On a mesh whose ``data`` axis has more than one shard the apply runs
+    the ring (``parallel/ring.ring_kernel_apply``): the train rows and the
+    flattened W are sharded once for each (model, mesh) pair and cached.
+    The cache is the model's working state only: it is not pickled (so
+    neither saved, exported, paged by the zoo nor shipped to a fleet)."""
 
     def __init__(self, w_locals: List, block_size: int,
                  kernel_transformer: GaussianKernelTransformer, n_train: int):
@@ -208,14 +343,42 @@ class KernelBlockLinearMapper(Transformer):
         self.block_size = block_size
         self.kernel_transformer = kernel_transformer
         self.n_train = n_train
+        self._ring_operands = None  # (mesh, train rows, W), each sharded
+
+    def __getstate__(self):
+        # The blocks are views of one weight stack, and pickle writes a
+        # view's whole storage (ROADMAP C.12): each block on its own.
+        state = self.__dict__.copy()
+        state["_ring_operands"] = None
+        state["w_locals"] = [w.clone() for w in self.w_locals]
+        return state
 
     def apply(self, x):
         return self.batch_apply(Dataset(as_tensor(x)[None])).to_numpy()[0]
 
+    def _ring_apply(self, data: Dataset, mesh) -> Dataset:
+        p = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+        ops = getattr(self, "_ring_operands", None)
+        if ops is None or ops[0] is not mesh:
+            kt = self.kernel_transformer
+            W = torch.cat([w.to(torch.float32) for w in self.w_locals])[: self.n_train]
+            # The padding train rows have nonzero kernel values but zero
+            # model rows, so they add nothing to the product.
+            Xtr, _ = mesh_lib.pad_rows(kt.train_X[: self.n_train], p)
+            W, _ = mesh_lib.pad_rows(W, p)
+            ops = self._ring_operands = (mesh, mesh_lib.shard_rows(Xtr, mesh),
+                                         mesh_lib.shard_rows(W, mesh))
+        X = _on_mesh(data.array, mesh).map(lambda s: s.to(torch.float32))
+        out = ring.ring_kernel_apply(X, ops[1], ops[2], self.kernel_transformer.gamma, mesh=mesh)
+        return Dataset(out, n=data.n, mesh=mesh)._rezero_padding()
+
     def batch_apply(self, data: Dataset) -> Dataset:
+        mesh = data.mesh
+        if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS) > 1:
+            return self._ring_apply(data, mesh)
         kt = self.kernel_transformer
         X = as_tensor(data.array, kt.train_X.device)
-        norms = _norms(X)
+        norms = ring.row_norms(X, torch.float32)
         X_op = kt.operand(X)
         out = None
         for bi, w in enumerate(self.w_locals):
@@ -225,15 +388,38 @@ class KernelBlockLinearMapper(Transformer):
         return Dataset(out, n=data.n)._rezero_padding()
 
 
+def _on_mesh(x, mesh) -> mesh_lib.ShardedRows:
+    """``x`` row-sharded over ``mesh``'s ``data`` axis: a sharded array as
+    it is, anything else zero-padded to the axis and sharded."""
+    if isinstance(x, mesh_lib.ShardedRows):
+        return x
+    p = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+    return mesh_lib.shard_rows(mesh_lib.pad_rows(as_tensor(x), p)[0], mesh)
+
+
 class KernelRidgeRegression(LabelEstimator):
     """Solve (K + λI) W = Y by Gauss-Seidel block coordinate descent
     (reference: KernelRidgeRegression.scala:37-235).
+
+    On a mesh whose ``data`` axis has more than one shard the fit runs
+    the mesh sweep (:class:`_Sweep`) on the sharded rows, which it
+    never gathers into one tensor but through ``mesh.all_gather`` for the
+    blocks' rows, as the reference does.
+
+    ``profile=True`` runs the reference's stepwise path instead of the
+    fused sweep: each block's column and diagonal kernel blocks made
+    afresh (``gaussian_kernel_block``), a synchronize and an
+    ``EPOCH_%d_BLOCK_%d`` log line a block, and the ``kernel_gen`` /
+    ``block_solve`` seconds of ``profiling.PhaseTimer("krr_fit")`` logged
+    at the end. It runs on one device (a sharded fit's rows gathered onto
+    the first).
 
     ``checkpoint_path``: run the sweep in segments of
     ``checkpoint_every_blocks`` block updates and, after each, write the
     (position, weight stack) pair atomically there; a later fit with the
     same geometry, hyperparameters, block order and data resumes from it
-    and deletes it on success (the reference's ``_fit_checkpointed``).
+    and deletes it on success (the reference's ``_fit_checkpointed``), on
+    one device or on a mesh.
     """
 
     def __init__(
@@ -247,28 +433,23 @@ class KernelRidgeRegression(LabelEstimator):
         checkpoint_path: Optional[str] = None,
         checkpoint_every_blocks: int = 25,
     ):
-        if profile:
-            raise NotImplementedError(
-                "profile=True (the reference's stepwise per-phase timing path) is not "
-                "ported yet (ROADMAP A.8)"
+        if profile and checkpoint_path is not None:
+            raise ValueError(
+                "profile=True forces the stepwise path; checkpointing "
+                "segments the fused path — pick one"
             )
         self.kernel_generator = kernel_generator
         self.lam = lam
         self.block_size = block_size
         self.num_epochs = num_epochs
         self.block_permuter = block_permuter
+        self.profile = profile
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every_blocks = int(checkpoint_every_blocks)
 
-    def fit(self, data: Dataset, labels: Dataset) -> KernelBlockLinearMapper:
-        n_train = data.n
-        bs = self.block_size
-        num_blocks = -(-n_train // bs)
-        X = as_tensor(data.array).to(torch.float32)[:n_train]
-        Y = as_tensor(labels.array, X.device).to(torch.float32)[:n_train]
-        k = Y.shape[1]
-        transformer = self.kernel_generator.fit(Dataset(X))
-
+    def _orders(self, num_blocks: int) -> List[List[int]]:
+        """Each epoch's block order (shuffled by ``block_permuter``'s numpy
+        generator, epoch after epoch, as the reference draws them)."""
         rng = (np.random.default_rng(self.block_permuter)
                if self.block_permuter is not None else None)
         orders = []
@@ -276,14 +457,36 @@ class KernelRidgeRegression(LabelEstimator):
             order = list(range(num_blocks))
             if rng is not None:
                 rng.shuffle(order)
-            orders.extend(order)
-        order_arr = np.array(orders, dtype=np.int32)
+            orders.append(order)
+        return orders
 
+    def fit(self, data: Dataset, labels: Dataset) -> KernelBlockLinearMapper:
+        n_train = data.n
+        bs = self.block_size
+        num_blocks = -(-n_train // bs)
         lam = float(self.lam)
+        orders = self._orders(num_blocks)
+        if self.profile:
+            return self._fit_stepwise(data, labels, orders, num_blocks)
+        order_arr = np.array([b for o in orders for b in o], dtype=np.int32)
+        mesh = data.mesh
+        if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS) > 1:
+            xs, ys = _on_mesh(data.array, mesh), _on_mesh(labels.array, mesh)
+            gathered = mesh_lib.all_gather(list(xs.shards))
+            X = gathered[0][:n_train].to(torch.float32)
+            Y = mesh_lib.all_gather(list(ys.shards))[0][:n_train].to(X.device, torch.float32)
+            transformer = self.kernel_generator.fit(Dataset(X))
+            sweep = _Sweep(transformer, Y, bs, xs, gathered)
+        else:
+            X = as_tensor(data.array).to(torch.float32)[:n_train]
+            Y = as_tensor(labels.array, X.device).to(torch.float32)[:n_train]
+            transformer = self.kernel_generator.fit(Dataset(X))
+            sweep = _Sweep(transformer, Y, bs)
+        k = Y.shape[1]
         grams, chols = _diag_factor_prepass(transformer, lam, bs, num_blocks)
 
         def run_segment(seg, stack):
-            return _krr_sweep(transformer, Y, seg, grams, chols, lam, bs, stack)
+            return sweep.run(seg, grams, chols, lam, stack)
 
         stack0 = torch.zeros((num_blocks, bs, k), dtype=torch.float32, device=X.device)
         if self.checkpoint_path is None or order_arr.shape[0] == 0:
@@ -294,6 +497,43 @@ class KernelRidgeRegression(LabelEstimator):
             )
         w_locals = [w_stack[i] for i in range(num_blocks)]
         return KernelBlockLinearMapper(w_locals, bs, transformer, n_train)
+
+    def _fit_stepwise(self, data: Dataset, labels: Dataset, orders, num_blocks: int
+                      ) -> KernelBlockLinearMapper:
+        """The reference's stepwise, per-block path (``profile=True``)."""
+        n, bs, lam = data.n, self.block_size, float(self.lam)
+        X = as_tensor(data.array).to(torch.float32)[:n]
+        Y = as_tensor(labels.array, X.device).to(torch.float32)[:n]
+        transformer = self.kernel_generator.fit(Dataset(X))
+        k = Y.shape[1]
+        W = torch.zeros((n, k), dtype=torch.float32, device=X.device)
+        w_locals = [torch.zeros((bs, k), dtype=torch.float32, device=X.device)
+                    for _ in range(num_blocks)]
+        eye = torch.eye(bs, dtype=torch.float32, device=X.device)
+        timer = profiling.PhaseTimer("krr_fit")
+        for epoch, order in enumerate(orders):
+            for block in order:
+                t0 = time.perf_counter()
+                start = block * bs
+                stop = min(start + bs, n)
+                v = stop - start
+                with timer.phase("kernel_gen"):
+                    K_block = transformer.column_block(start, bs)
+                    K_bb = transformer.diag_block(start, bs)
+                    # Attribute the kernels' time here, not to the solve.
+                    _sync(X.device)
+                with timer.phase("block_solve"):
+                    gram = eye.clone()
+                    gram[:v, :v] = K_bb
+                    w_new = _solve_block(Y, start, stop, K_block.T @ W, gram, None,
+                                         w_locals[block], lam, bs)
+                    W[start:stop] = w_new[:v]
+                    w_locals[block] = w_new
+                    _sync(X.device)
+                logger.info("EPOCH_%d_BLOCK_%d took %.3f seconds", epoch, block,
+                            time.perf_counter() - t0)
+        timer.log_summary()
+        return KernelBlockLinearMapper(w_locals, bs, transformer, n)
 
     # -- mid-solver checkpoint/resume ------------------------------------
 

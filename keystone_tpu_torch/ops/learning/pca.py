@@ -18,8 +18,10 @@ row; ``ColumnPCAEstimator`` picks local or distributed by the reference's
 cost formulas, counting machines as CUDA devices. Signs follow the
 reference's matlab convention (``enforce_matlab_sign_convention``), so both
 packages give the same directions. The whitener
-``V·diag((s²/(n−1)+ε)^−½)·Vᵀ`` does not depend on SVD signs. Not ported
-yet: the streamed ZCA fit (it needs the shard sources).
+``V·diag((s²/(n−1)+ε)^−½)·Vᵀ`` does not depend on SVD signs.
+``StreamedZCAWhitenerEstimator`` fits the same whitener from a covariance
+folded over a ``ShardSource``'s segments (the out-of-core form), its
+products float32 ``torch`` matmuls, as the reference's are XLA's.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import math
 from typing import Optional
 
 import torch
+
+import numpy as np
 
 from keystone_tpu_torch.data import Dataset
 from keystone_tpu_torch.data.dataset import as_tensor
@@ -259,3 +263,120 @@ class ZCAWhitenerEstimator(Estimator):
         s2 = (s * s) / (X.shape[0] - 1.0)
         whitener = vt.T @ torch.diag((s2 + self.eps) ** -0.5) @ vt
         return ZCAWhitener(whitener, means)
+
+
+def _zca_cov_fold(sums, gram, X):
+    """One segment's contribution to (Σx, XᵀX), in place. Exact float32
+    products (the eigendecomposition downstream amplifies covariance error
+    by (λ+ε)^−3/2); zero-padded tail rows add zero to both, so only the
+    true-row count needs them."""
+    sums += X.sum(dim=0)
+    gram.addmm_(X.T, X)
+
+
+class StreamedZCAWhitenerEstimator(Estimator):
+    """ZCA whitening as a streamed covariance fold over a
+    :class:`~keystone_tpu_torch.data.prefetch.ShardSource`: the
+    out-of-core form of :class:`ZCAWhitenerEstimator` for patch sets that
+    never fit in host memory (reference ``pca.py::StreamedZCAWhitenerEstimator``).
+
+    The batch estimator's singular values satisfy s²/(n−1) = the centred
+    covariance's eigenvalues, so folding (Σx, XᵀX, n) and finishing with
+
+        μ = Σx/n,  C = (XᵀX − n·μμᵀ)/(n−1),  C = V·Λ·Vᵀ,
+        whitener = V·diag((Λ+ε)^−½)·Vᵀ
+
+    gives ``fit_single``'s whitener up to eigenbasis roundoff. Segments
+    arrive through ``prefetch.iter_segments`` (``prefetch_depth`` ahead on
+    the read lane) and fold on ``device`` (None: the CUDA device; the CPU
+    only when asked for); the (Σx, XᵀX, n) carry snapshots through a
+    :class:`~keystone_tpu_torch.data.durable.CheckpointSpec`, so a fit
+    killed mid-stream and run again with the same spec resumes to the same
+    bits."""
+
+    def __init__(self, eps: float = 0.1, checkpoint=None, prefetch_depth: int = 2,
+                 device=None):
+        self.eps = eps
+        self.checkpoint = checkpoint
+        self.prefetch_depth = prefetch_depth
+        self.device = device
+
+    def fit(self, data: Dataset) -> ZCAWhitener:
+        if data.is_shard_backed:
+            return self.fit_source(data.shard_source)
+        X = as_tensor(data.to_numpy() if data.is_host else data.array)[: data.n]
+        return ZCAWhitenerEstimator(self.eps).fit_single(X)
+
+    def fit_source(self, source, stats=None) -> ZCAWhitener:
+        """Fold (Σx, XᵀX, n) over the source's segments and finish.
+
+        A payload is an ``(X, Y, valid_rows)`` triple (the dense shard and
+        image-tier contract; X is flattened to rows) or a bare row block,
+        whose rows all count, clamped to the source's ``n_true``: a
+        fixed-shape view zero-pads its last segment, and its pad rows must
+        not count towards n."""
+        from keystone_tpu_torch import resolve_device
+        from keystone_tpu_torch.data.durable import resolve_checkpoint, source_fingerprint
+        from keystone_tpu_torch.data.prefetch import iter_segments
+
+        device = resolve_device(self.device)
+        checkpoint = resolve_checkpoint(self.checkpoint)
+        num_segments = int(source.num_segments)
+        # The row width from the source's shape metadata where it has any:
+        # load(0) would decode a whole extra segment of an image source.
+        d = next((int(v) for attr in ("d", "d_in", "width")
+                  if (v := getattr(source, attr, None)) is not None), None)
+        if d is None:
+            d = int(self._rows(source.load(0))[0].shape[-1])
+        sums = torch.zeros((d,), dtype=torch.float32, device=device)
+        gram = torch.zeros((d, d), dtype=torch.float32, device=device)
+        count, start_seg, fingerprint = 0, 0, None
+        if checkpoint is not None:
+            fingerprint = {"kind": "zca_stream", "eps": float(self.eps), "d": d,
+                           "num_segments": num_segments,
+                           "source": source_fingerprint(source)}
+            arrays, start_seg = checkpoint.restore(fingerprint)
+            if arrays is not None:
+                sums = torch.as_tensor(np.asarray(arrays[0]), device=device).clone()
+                gram = torch.as_tensor(np.asarray(arrays[1]), device=device).clone()
+                count = int(np.asarray(arrays[2])[0])
+        n_true = getattr(source, "n_true", None)
+        for s, payload in iter_segments(source, prefetch_depth=self.prefetch_depth,
+                                        stats=stats, start=start_seg):
+            X, valid = self._rows(payload)
+            _zca_cov_fold(sums, gram, as_tensor(X, device).to(torch.float32))
+            if n_true is not None:
+                valid = min(valid, int(n_true) - count)
+            count += valid
+            if checkpoint is not None:
+                checkpoint.maybe_save([sums, gram, np.asarray([count], np.int64)], s,
+                                      num_segments, fingerprint, stats=stats)
+        if checkpoint is not None:
+            checkpoint.clear(fingerprint)
+        return self._finalize(sums, gram, count)
+
+    @staticmethod
+    def _rows(payload):
+        """A segment payload as (rows (r, d), valid count)."""
+        if isinstance(payload, tuple):
+            X = payload[0]
+            valid = int(payload[2]) if len(payload) > 2 else int(X.shape[0])
+        else:
+            X, valid = payload, int(payload.shape[0])
+        return X.reshape(-1, X.shape[-1]), valid
+
+    def _finalize(self, sums, gram, n: int) -> ZCAWhitener:
+        if n < 2:
+            raise ValueError(f"streamed ZCA needs n >= 2 rows, saw {n}")
+        means = sums / n
+        cov = (gram - n * torch.outer(means, means)) / (n - 1.0)
+        lam, V = torch.linalg.eigh(cov)
+        # eigh of a covariance PSD up to roundoff can return tiny negative
+        # eigenvalues: clamp them before the inverse square root.
+        scaled = (torch.clamp_min(lam, 0.0) + self.eps) ** -0.5
+        return ZCAWhitener((V * scaled[None, :]) @ V.T, means)
+
+    def cost(self, n, d, k, sparsity, num_machines, cpu_w, mem_w, net_w) -> float:
+        flops = n * d * d + d ** 3
+        # Streaming holds one (d, d) Gramian and a segment, not n x d.
+        return max(cpu_w * flops, mem_w * d * d) + net_w * d * d

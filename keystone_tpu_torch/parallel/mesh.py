@@ -19,12 +19,22 @@ tests build 8 shards on the CPU, and one card holds 8 shards on
 A row-sharded tensor (:class:`ShardedRows`) is one tensor a shard, in shard
 order, each on its device, zero-padded past the true row count to a
 multiple of the axis (:func:`pad_rows`). :func:`shard_map` runs a body once
-a shard. Every collective on this slice's paths is one ``psum`` at a
-body's end: the port adds the shards' partials in shard order on the
-axis's first device (:func:`psum`), so a mesh fit gives the same bits from
-run to run. Partials of other devices reach it by peer copies
-(``Tensor.to``), not ``torch.cuda.comm.reduce_add``, whose summation order
-is NCCL's and not fixed.
+a shard; its one collective is a ``psum`` at a body's end: the port adds
+the shards' partials in shard order on the axis's first device
+(:func:`psum`), so a mesh fit gives the same bits from run to run.
+Partials of other devices reach it by peer copies (``Tensor.to``), not
+``torch.cuda.comm.reduce_add``, whose summation order is NCCL's and not
+fixed.
+
+A single controller cannot hand a shard to its neighbour in the middle of
+a body, so the ring tier (``parallel/ring.py``) runs a ring as a loop at
+the controller's level: P steps, each one pass over the shards followed by
+one rotation. Its collectives act on lists of per-shard tensors, each in a
+fixed order: :func:`ppermute` (a rotation, a peer copy to the
+destination's device, no copy where both shards share one),
+:func:`all_gather` (tiled, in shard order, made once a distinct device)
+and :func:`psum_scatter` (the partials summed in shard order, stripe j
+handed to shard j).
 
 The multi-process form (one process a host over ``torch.distributed``,
 NCCL on cards, gloo for CPU tests; the reference's ``init_distributed`` and
@@ -373,8 +383,9 @@ def shard_map(f: Callable, mesh: Mesh, in_specs, out_specs, axis: str = DATA_AXI
     is sharded first); a replicated input reaches each body on its
     shard's device. A sharded output is collected into a
     :class:`ShardedRows`; a replicated output is the :func:`psum` of the
-    bodies' outputs on the axis's first device: on this slice every
-    collective is one ``psum`` at a body's end. ``axis_index`` inside the
+    bodies' outputs on the axis's first device, the one collective a body
+    can end in (a ring's rotations run between bodies: ``parallel/ring.py``).
+    ``axis_index`` inside the
     body reads the shard's index. A single spec (not a tuple) stands for
     a single argument or output."""
     single_out = not isinstance(out_specs, (tuple, list))
@@ -419,6 +430,72 @@ def shard_map(f: Callable, mesh: Mesh, in_specs, out_specs, axis: str = DATA_AXI
 
 def _to(a, device):
     return a.to(device) if isinstance(a, torch.Tensor) else a
+
+
+def _parts_devices(parts, devices) -> List[torch.device]:
+    if devices is None:
+        return [p.device for p in parts]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != len(parts):
+        raise ValueError(f"{len(parts)} shards on {len(devices)} devices")
+    return devices
+
+
+def ring_perm(p: int) -> List[Tuple[int, int]]:
+    """The forward ring over ``p`` shards: shard i sends to shard i + 1."""
+    return [(i, (i + 1) % p) for i in range(p)]
+
+
+def ppermute(parts: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]],
+             devices=None) -> List[torch.Tensor]:
+    """``lax.ppermute`` over a list of shards: for each ``(src, dst)`` of
+    ``perm``, shard ``dst`` receives shard ``src``, copied to ``dst``'s
+    device (``devices``, default each part's own); a shard no pair sends
+    to receives zeros, as in JAX. Where both lie on one device (8 shards
+    on ``cuda:0``) the result is the source tensor itself, not a copy, so
+    a step must not write in place into a shard it was handed."""
+    devices = _parts_devices(parts, devices)
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for src, dst in perm:
+        if out[dst] is not None:
+            raise ValueError(f"ppermute: shard {dst} receives twice in {list(perm)}")
+        out[dst] = parts[src].to(devices[dst])
+    return [o if o is not None else torch.zeros_like(parts[i], device=devices[i])
+            for i, o in enumerate(out)]
+
+
+def all_gather(parts: Sequence[torch.Tensor], devices=None) -> List[torch.Tensor]:
+    """Tiled ``lax.all_gather``: the shards concatenated in shard order,
+    one tensor for each shard. The concatenation is made once for each
+    distinct device and shared by the shards on it (read-only)."""
+    devices = _parts_devices(parts, devices)
+    made = {}
+    out = []
+    for dev in devices:
+        if dev not in made:
+            made[dev] = torch.cat([p.to(dev) for p in parts])
+        out.append(made[dev])
+    return out
+
+
+def psum_scatter(parts: Sequence[torch.Tensor], devices=None) -> List[torch.Tensor]:
+    """Tiled ``lax.psum_scatter`` with ``scatter_dimension=0``: the sum of
+    the partials, stripe j of its leading axis (equal stripes) on shard
+    j's device. Each stripe is summed on its destination in shard order,
+    so its bits are those of :func:`psum` whatever the devices."""
+    devices = _parts_devices(parts, devices)
+    p = len(parts)
+    rows = int(parts[0].shape[0])
+    if rows % p:
+        raise ValueError(f"psum_scatter: {rows} rows do not split into {p} stripes")
+    r = rows // p
+    out = []
+    for j, dev in enumerate(devices):
+        acc = parts[0][j * r:(j + 1) * r].to(dev, copy=True)
+        for part in parts[1:]:
+            acc += part[j * r:(j + 1) * r].to(dev)
+        out.append(acc)
+    return out
 
 
 def sync_if_cpu(x) -> None:

@@ -173,14 +173,18 @@ class TestKernelBlocks:
                                        np.asarray(j.test_block(test, start, v)), atol=1e-5)
 
     def test_bf16x3_waits_and_unknown_dtypes_raise(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tkernel.GaussianKernelGenerator(GAMMA, "bf16x3")
+        # "bf16x3" is ported (tests/test_torch_krr_mesh.py holds it);
+        # unknown dtypes still raise.
+        assert tkernel.GaussianKernelGenerator(GAMMA, "bf16x3").kernel_dtype == "bf16x3"
         with pytest.raises(ValueError):
             tkernel.GaussianKernelGenerator(GAMMA, "f16")
 
     def test_profile_path_waits(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _t_est(profile=True)
+        # The stepwise profile path is ported (tests/test_torch_krr_mesh.py):
+        # it no longer waits, and it refuses checkpointing as the reference.
+        assert _t_est(profile=True).profile is True
+        with pytest.raises(ValueError, match="pick one"):
+            _t_est(profile=True, checkpoint_path="unused.ckpt")
 
 
 class TestFitAgainstReference:

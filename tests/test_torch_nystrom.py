@@ -146,8 +146,11 @@ class TestRoute:
     def test_weight_and_dtype_rules(self):
         est = tkernel.NystromKernelRidge(tkernel.GaussianKernelGenerator(GAMMA), LAM, M)
         assert est.weight == 2
-        with pytest.raises(NotImplementedError, match="A.8"):
-            tkernel.GaussianKernelGenerator(GAMMA, "bf16x3")
+        # "bf16x3" (ROADMAP A.8) is ported; Nyström ignores the kernel
+        # dtype, as the reference's does.
+        assert tkernel.GaussianKernelGenerator(GAMMA, "bf16x3").kernel_dtype == "bf16x3"
+        with pytest.raises(ValueError, match="kernel_dtype"):
+            tkernel.GaussianKernelGenerator(GAMMA, "f16")
 
     def test_in_a_pipeline(self):
         TPipelineEnv.get_or_create().reset()

@@ -260,16 +260,16 @@ class TestResident:
         assert tres.COMPRESSED_BYTES_PER_NNZ == jres.COMPRESSED_BYTES_PER_NNZ
 
     def test_mesh_forms_raise_naming_the_roadmap(self):
+        # The mesh forms (ROADMAP A.15b) are ported and no longer raise:
+        # tests/test_torch_resident_partition.py holds them to the reference.
         chunks = tres.CompressedCOOChunks.encode(np.zeros((4, 2), np.int32),
                                                  np.ones((4, 2), np.float32),
                                                  np.ones((4, 1), np.float32), chunk_rows=2)
-        with pytest.raises(NotImplementedError, match="A.15"):
-            chunks.partition(2)
-        with pytest.raises(NotImplementedError, match="A.15"):
-            tres.CompressedCOOChunks.encode(np.zeros((4, 2), np.int32), np.ones((4, 2)),
-                                            np.ones((4, 1)), chunk_rows=2, index_base=1)
-        with pytest.raises(NotImplementedError, match="A.15"):
-            tres.compressible_dim(100, index_base=4)
+        assert [p.n_true for p in chunks.partition(2)] == [2, 2]
+        rebased = tres.CompressedCOOChunks.encode(np.ones((4, 2), np.int32), np.ones((4, 2)),
+                                                  np.ones((4, 1)), chunk_rows=2, index_base=1)
+        assert rebased.index_base == 1 and not bool(rebased.idx_t.any())
+        assert tres.compressible_dim(100, index_base=4) == jres.compressible_dim(100, 4)
 
 
 # ---------------------------------------------------------------------------
