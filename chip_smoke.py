@@ -423,6 +423,26 @@ started together), then:
      line's ``mesh_launches``. As
      in phase 25, shards on one card run in turn: their walls are no
      evidence of scaling.
+ 27. The multi-process mesh: (a) two fresh interpreters (this script with
+     ``--phase27-worker``, spawned after every kernel is built, so they
+     only load them) join a gloo group through a ``file://`` store under
+     ``build/`` and each drive 4 shards on ``cuda:0`` under
+     ``make_hybrid_mesh((4,), (2,), ("data",))``: phase 26's KRR fit on
+     each process's half of the seeded rows (``gaussian_resid_block`` 392
+     and ``gaussian_kernel_block`` 98 in each process) and the ring apply
+     on 12,500 test rows (32 a process), each bit for bit against this
+     process's 8-shard mesh; a float64 normal-equations solve on the card
+     within 1e-9 of numpy and the Stupid Backoff count exchange
+     (``process_allgather``); each child holds the kernels it launched to
+     their plain versions at its shapes. NCCL refuses two ranks on one
+     device; one rank a card is not run. (b) ``tools.multichip --scaling``
+     at 25(d)'s geometry, ``device_evidence: false``, ``gram_corr_sym_acc``
+     counted a leg; (c) ``run_lbfgs_gram_hybrid`` at the Amazon geometry
+     (64 chunks of 65,536 rows, 27 resident, 37 from disk shards under
+     ``build/``, segments of 16) against ``run_lbfgs_gram_streamed`` over
+     the same chunks, bit for bit, 64 launches each; (d)
+     ``utils.profiling.compiled_cost`` of a 4,096³ product reads 2mnk.
+     The kernels line carries the counts as ``multiprocess_launches``.
 
 Each phase's seconds and the whole script's are logged. Phase 1 also times each bf16 form beside its library call (bf16 operands
 through ``addmm`` with float32 output) and reads ``gram_corr_sym_acc``'s
@@ -7989,11 +8009,491 @@ def phase_ring_options(root, smi, device="cuda"):
 
 
 
+MULTI = ("multi-process mesh: two processes on one card (gloo), the KRR sweep, the ring apply, "
+         "the normal equations and the n-gram exchange; tools.multichip --scaling; the hybrid "
+         "compressed fold; compiled_cost")
+# 27(a): two fresh interpreters (this script with --phase27-worker), each
+# joining a gloo group through a file:// store and driving 4 shards on
+# cuda:0 under make_hybrid_mesh((4,), (2,), ("data",)): phase 26's KRR
+# geometry (n = 50,000, d = 1,800, k = 10, 98 blocks of 512, gamma 5e-4,
+# lambda 10, 1 epoch; 12,500 test rows), each process keeping its half of
+# the seeded rows. Held bit for bit to this process's 8-shard mesh on the
+# same rows. NCCL refuses two ranks on one device, so the group is gloo.
+MULTI_PROCESSES, MULTI_LOCAL_SHARDS = 2, 4
+MULTI_WORKER_TIMEOUT_S = 300
+# The _WORKER solve on the card: float64 rows of A (8,192 x 256) and B
+# (x 8), data across the processes and model within each (a 2 x 2 hybrid
+# mesh), within 1e-9 of float64 numpy (the reference test's tolerance).
+MULTI_SOLVE_N, MULTI_SOLVE_D, MULTI_SOLVE_K, MULTI_SOLVE_TOL = 8192, 256, 8, 1e-9
+# The _LM_WORKER exchange: 2,000 sentences of 12 word ids in 1..999, the
+# bigrams and trigrams split between the processes; scores within 1e-12.
+MULTI_LM_SENTENCES, MULTI_LM_VOCAB, MULTI_LM_TOL = 2000, 1000, 1e-12
+# 27(b): tools.multichip --scaling at phase 25(d)'s geometry, 1 rep a leg.
+MULTI_SCALING_ARGV = MESH_MC_ARGV + ["--scaling", "--reps", "1"]
+# 27(c): the hybrid compressed fold at the reference bench's Amazon
+# geometry (bench.py:2228-2245): d = 16,384 and the intercept lane, 82
+# active lanes a row, k = 2, chunks of 65,536 rows, bf16 values, lambda
+# 1e-3, 20 iterations, segments of 16 chunks. Depth cut: 64 chunks
+# (4,194,304 rows) instead of 992; 27 resident (the reference's 28/65
+# share), 37 streamed from disk shards (3 segments, the last ragged).
+HYBRID_CHUNKS, HYBRID_RESIDENT, HYBRID_SEG = 64, 27, 16
+# 27(d): compiled_cost of a 4,096 x 4,096 x 4,096 product on the card.
+COST_M = COST_N = COST_K = 4096
+
+
+def _multi_rows(n_total, pid, seed, device):
+    """Process ``pid``'s half of phase 27's seeded rows: the whole set made
+    from one generator, as every process makes it, and cut."""
+    X, Y = _krr_rows(n_total, seed, device)
+    half = n_total // MULTI_PROCESSES
+    return X[pid * half:(pid + 1) * half], Y[pid * half:(pid + 1) * half]
+
+
+def _hold_gaussian(cuda_ops, X, Y, W=None):
+    """One Gaussian kernel call at a shape the multi-process path gives it
+    against its plain version: entries 1e-5 absolute (phase 1's), the
+    residual 1e-4 of its scale (phase 26's)."""
+    g = CIFAR_GAMMA
+    xn, yn = (X * X).sum(1), (Y * Y).sum(1)
+    if W is None:
+        err = (cuda_ops.gaussian_kernel_block(X, Y, xn, yn, g)
+               - cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g)).abs().max().item()
+        return dict(max_abs_err=err, ok=err <= RING_KERNEL_TOL)
+    scale = (cuda_ops.gaussian_kernel_block_ref(X, Y, xn, yn, g).T @ W.abs()).max().item()
+    err = (cuda_ops.gaussian_resid_block(X, Y, xn, yn, W, g)
+           - cuda_ops.gaussian_resid_block_ref(X, Y, xn, yn, W, g)).abs().max().item()
+    return dict(max_abs_err=err, ok=err <= 1e-4 * scale, scale=scale)
+
+
+def phase27_worker(store, pid, outdir, device="cuda"):
+    """27(a), one of the two processes: join the group, fit the KRR on its
+    half of the rows over its 4 shards, apply the model to its half of the
+    test rows by the ring, gather the predictions, hold each kernel it
+    launched to its plain version at its shapes, then the _WORKER solve and
+    the _LM_WORKER exchange. Writes its results under ``outdir``."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops import cuda_ops
+    from keystone_tpu_torch.ops.learning import kernel
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.parallel import mesh as mesh_lib
+
+    pid = int(pid)
+    out = {"pid": pid}
+    t0 = time.perf_counter()
+    mesh_lib.init_distributed(f"file://{store}", num_processes=MULTI_PROCESSES, process_id=pid,
+                              backend="gloo", timeout_s=MULTI_WORKER_TIMEOUT_S)
+    out["join_s"] = time.perf_counter() - t0
+    mesh = mesh_lib.make_hybrid_mesh((MULTI_LOCAL_SHARDS,), (MULTI_PROCESSES,),
+                                     (mesh_lib.DATA_AXIS,), devices=[device])
+    assert mesh.local_shards(mesh_lib.DATA_AXIS) == list(
+        range(pid * MULTI_LOCAL_SHARDS, (pid + 1) * MULTI_LOCAL_SHARDS))
+    X, Y = _multi_rows(CIFAR_N, pid, 271, device)
+    data = Dataset(mesh_lib.shard_local_rows(X, mesh), n=CIFAR_N, mesh=mesh)
+    labels = Dataset(mesh_lib.shard_local_rows(Y, mesh), n=CIFAR_N, mesh=mesh)
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = _krr_est(kernel).fit(data, labels)
+    _sync(device)
+    out["fit_s"] = time.perf_counter() - t0
+    out["fit_launches"] = _launches_since(cuda_ops)
+    np.save(os.path.join(outdir, f"stack{pid}.npy"), _stack(model).cpu().numpy())
+    Xt, _ = _krr_rows(CIFAR_TEST, 272, device)
+    Xt, _ = mesh_lib.pad_rows(Xt, MULTI_PROCESSES * MULTI_LOCAL_SHARDS)
+    half = Xt.shape[0] // MULTI_PROCESSES
+    test = Dataset(mesh_lib.shard_local_rows(Xt[pid * half:(pid + 1) * half], mesh),
+                   n=CIFAR_TEST, mesh=mesh)
+    _sync(device)
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = model.batch_apply(test).array
+    _sync(device)
+    out["apply_s"] = time.perf_counter() - t0
+    out["apply_launches"] = _launches_since(cuda_ops)
+    local = torch.cat(pred.shards).cpu().numpy()
+    if pid == 0:
+        np.save(os.path.join(outdir, "pred.npy"),
+                mesh_lib.process_allgather(local).reshape(-1, CIFAR_K))
+    else:
+        mesh_lib.process_allgather(local)
+    try:
+        pred.gather()
+        out["gather_refused"] = False
+    except RuntimeError as e:
+        out["gather_refused"] = "process_allgather" in str(e)
+    # The kernels this process launched, at its shapes (launches here are
+    # checks, not the path's).
+    rows = data.array.shard_rows
+    xs = data.array.shards[0]
+    W = torch.randn((rows, CIFAR_K), device=device) * 0.01
+    out["kernel_checks"] = {
+        "gaussian_resid_block sweep shard": _hold_gaussian(cuda_ops, xs, X[:CIFAR_BLOCK], W),
+        "gaussian_resid_block ring apply step": _hold_gaussian(cuda_ops, xs, test.array.shards[0],
+                                                               W),
+        "gaussian_kernel_block pre-pass diagonal": _hold_gaussian(cuda_ops, X[:CIFAR_BLOCK],
+                                                                  X[:CIFAR_BLOCK]),
+    }
+    del model, data, labels, X, Y, Xt, test, pred, W
+    # The _WORKER solve: data across the processes, model within each.
+    m2 = mesh_lib.make_hybrid_mesh((1, 2), (MULTI_PROCESSES, 1),
+                                   (mesh_lib.DATA_AXIS, mesh_lib.MODEL_AXIS), devices=[device])
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(MULTI_SOLVE_N, MULTI_SOLVE_D))
+    B = rng.normal(size=(MULTI_SOLVE_N, MULTI_SOLVE_K))
+    rows = MULTI_SOLVE_N // MULTI_PROCESSES
+    mine = slice(pid * rows, (pid + 1) * rows)
+    A_sh = mesh_lib.shard_local_rows(torch.from_numpy(A[mine]).to(device), m2)
+    B_sh = mesh_lib.shard_local_rows(torch.from_numpy(B[mine]).to(device), m2)
+    t0 = time.perf_counter()
+    Wsol = linalg.normal_equations_solve(A_sh, B_sh, lam=1e-3)
+    _sync(device)
+    out["solve_s"] = time.perf_counter() - t0
+    want = np.linalg.solve(A.T @ A + 1e-3 * np.eye(MULTI_SOLVE_D), A.T @ B)
+    out["solve_dtype"] = str(Wsol.dtype)
+    out["solve_device"] = str(Wsol.device)
+    out["solve_err"] = float(np.abs(Wsol.cpu().numpy() - want).max())
+    # The _LM_WORKER exchange: counts as one int64 array a process.
+    from keystone_tpu_torch.ops.nlp import (
+        NGram, NGramsFeaturizer, ShardedStupidBackoffModel, StupidBackoffEstimator,
+        pack_ngram_pairs, partition_ngram_pairs, unpack_ngram_pairs)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    sents = [rng.integers(1, MULTI_LM_VOCAB, size=12).tolist()
+             for _ in range(MULTI_LM_SENTENCES)]
+    feats = NGramsFeaturizer([2, 3])
+    all_pairs, unigrams = [], {}
+    for s in sents:
+        for w in s:
+            unigrams[w] = unigrams.get(w, 0) + 1
+        for g in feats.apply(s):
+            all_pairs.append((NGram(g), 1))
+    packed = pack_ngram_pairs(all_pairs[pid::MULTI_PROCESSES])
+    m = -(-len(all_pairs) // MULTI_PROCESSES)
+    packed = np.vstack([packed, np.zeros((m - packed.shape[0], 2), dtype=np.int64)])
+    gathered = mesh_lib.process_allgather(packed)
+    pairs = [p for part in gathered for p in unpack_ngram_pairs(part[part[:, 1] > 0])]
+    parts = partition_ngram_pairs(pairs, MULTI_PROCESSES)
+    est = StupidBackoffEstimator(unigrams)
+    my_model = est.fit(Dataset.of(parts[pid]))
+    full = est.fit(Dataset.of(all_pairs))
+    sizes = mesh_lib.process_allgather(np.array([len(my_model.scores)]))
+    sharded = ShardedStupidBackoffModel([est.fit(Dataset.of(p)) for p in parts])
+    out["lm"] = dict(
+        pairs=len(all_pairs), partition=len(my_model.scores), table=len(full.scores),
+        tiles=int(sizes.sum()) == len(full.scores),
+        worst=max(abs(s - full.scores[g]) for g, s in my_model.scores.items()),
+        serve_worst=max(abs(sharded.score(g) - full.score(g)) for g in list(full.scores)[:200]),
+        seconds=time.perf_counter() - t0)
+    with open(os.path.join(outdir, f"worker{pid}.json"), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multi_krr(cuda_ops, root, smi, device="cuda"):
+    """27(a): the KRR fit and its ring apply at phase 26's geometry on 8
+    shards of this process (the reference), then the same on two processes
+    of 4 shards each (the parent builds every kernel first, so the children
+    only load them), each held bit for bit to the one-process forms; the
+    children's launches counted in each child around its fit and apply."""
+    from keystone_tpu_torch.data import Dataset
+    from keystone_tpu_torch.ops.learning import kernel
+
+    out = {}
+    mesh = _mesh(device)
+    X, Y = _krr_rows(CIFAR_N, 271, device)
+    Xt, _ = _krr_rows(CIFAR_TEST, 272, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    model = _krr_est(kernel).fit(Dataset(X).shard(mesh), Dataset(Y).shard(mesh))
+    _sync(device)
+    out["one_process_fit_s"] = time.perf_counter() - t0
+    want_stack = _stack(model).cpu().numpy()
+    want_pred = model.batch_apply(Dataset(Xt).shard(mesh)).array.gather()[:CIFAR_TEST].cpu()
+    del model, X, Y, Xt
+    torch.cuda.empty_cache()
+    outdir = os.path.join(root, "multi")
+    os.makedirs(outdir, exist_ok=True)
+    store = os.path.join(outdir, "store")
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(key, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase27-worker",
+                               store, str(pid), outdir, str(torch.device(device))], env=env,
+                              cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for pid in range(MULTI_PROCESSES)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=MULTI_WORKER_TIMEOUT_S)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["children_wall_s"] = time.perf_counter() - t0
+    for pid, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            log(text[-4000:])
+        check(f"27(a) process {pid} ran to its end", p.returncode == 0, f"rc {p.returncode}")
+    workers = []
+    for pid in range(MULTI_PROCESSES):
+        with open(os.path.join(outdir, f"worker{pid}.json")) as f:
+            workers.append(json.load(f))
+    stacks = [np.load(os.path.join(outdir, f"stack{pid}.npy")) for pid in range(MULTI_PROCESSES)]
+    pred = np.load(os.path.join(outdir, "pred.npy"))[:CIFAR_TEST]
+    fit_want = {"gaussian_resid_block": CIFAR_BLOCKS * MULTI_LOCAL_SHARDS,
+                "gaussian_kernel_block": CIFAR_BLOCKS}
+    apply_want = {"gaussian_resid_block": MESH_SHARDS * MULTI_LOCAL_SHARDS}
+    for w in workers:
+        log(f"  (a) process {w['pid']}: joined in {w['join_s']:.3f} s; fit {w['fit_s']:.3f} s, "
+            f"launches {w['fit_launches']}; ring apply {w['apply_s']:.3f} s, launches "
+            f"{w['apply_launches']}; solve {w['solve_s']:.3f} s ({w['solve_dtype']} on "
+            f"{w['solve_device']}), max |dW| {w['solve_err']:.3e} against float64 numpy; LM "
+            f"{w['lm']}; kernel checks {w['kernel_checks']} ({smi})")
+        check(f"27(a) process {w['pid']}'s fit launches", same_launches(w["fit_launches"],
+                                                                        fit_want),
+              f"{w['fit_launches']}, expected {fit_want}")
+        check(f"27(a) process {w['pid']}'s ring apply launches",
+              same_launches(w["apply_launches"], apply_want),
+              f"{w['apply_launches']}, expected {apply_want}")
+        for label, r in w["kernel_checks"].items():
+            check(f"27(a) process {w['pid']} {label} against its plain version", r["ok"],
+                  f"max_abs_err {r['max_abs_err']:.3e}")
+        check(f"27(a) process {w['pid']}'s sharded predictions refuse a gather",
+              w["gather_refused"], "RuntimeError naming process_allgather")
+        check(f"27(a) process {w['pid']}'s normal-equations solve",
+              w["solve_dtype"] == "torch.float64"
+              and w["solve_device"].startswith(torch.device(device).type)
+              and w["solve_err"] <= MULTI_SOLVE_TOL,
+              f"{w['solve_err']:.3e} (tol {MULTI_SOLVE_TOL:.0e}), {w['solve_dtype']}")
+        lm = w["lm"]
+        check(f"27(a) process {w['pid']}'s n-gram exchange",
+              lm["tiles"] and lm["worst"] <= MULTI_LM_TOL and lm["serve_worst"] <= MULTI_LM_TOL,
+              f"{lm}")
+    for pid, stack in enumerate(stacks):
+        check(f"27(a) process {pid}'s weight stack has the one-process 8-shard fit's bits",
+              np.array_equal(stack, want_stack),
+              f"max |d| {np.abs(stack - want_stack).max():.3e}")
+    check("27(a) the two-process ring apply has the one-process ring apply's bits",
+          np.array_equal(pred, want_pred.numpy()),
+          f"max |d| {np.abs(pred - want_pred.numpy()).max():.3e}")
+    out["workers"] = workers
+    out["fit_launches"] = {k: sum(w["fit_launches"].get(k, 0) for w in workers)
+                           for k in fit_want}
+    out["apply_launches"] = {k: sum(w["apply_launches"].get(k, 0) for w in workers)
+                             for k in apply_want}
+    log(f"  (a) one process, 8 shards: fit {out['one_process_fit_s']:.3f} s; two processes of "
+        f"4 shards: {out['children_wall_s']:.1f} s from spawn to exit, fits "
+        f"{[round(w['fit_s'], 3) for w in workers]} s (two ranks on one card take turns: no "
+        f"evidence of scaling); launches in all {out['fit_launches']}, {out['apply_launches']}")
+    return out
+
+
+def _hold_gram_acc(cuda_ops, gen, rows, d1, k, dtype, label, device="cuda"):
+    """gram_corr_sym_acc at a shape the fold gives it (a densified chunk in
+    the fold's slab layout) against its plain version, 1e-4 of the sums'
+    scale on the upper tiles and the correlation (phase 1's)."""
+    dev = torch.device(device)
+    F = torch.randn((rows, d1), generator=gen, device=dev)
+    Fs = tma_slab(F) if dtype == torch.bfloat16 else f32_slab(F)
+    del F
+    R = torch.randn((rows, k), generator=gen, device=dev)
+    G0 = torch.randn((d1, d1), generator=gen, device=dev)
+    C0 = torch.randn((d1, k), generator=gen, device=dev)
+    want_g, want_c = cuda_ops.gram_corr_sym_acc_ref(G0, C0, Fs, R)
+    got_g, got_c = cuda_ops.gram_corr_sym_acc(G0, C0, Fs, R)
+    tiles = torch.arange(d1, device=dev) // 128
+    upper = tiles[:, None] <= tiles[None, :]
+    Ff = Fs.float()
+    Rq = R.to(torch.bfloat16).float() if dtype == torch.bfloat16 else R
+    g_scale = torch.addmm(G0.abs(), Ff.abs().T, Ff.abs())
+    c_scale = torch.addmm(C0.abs(), Ff.abs().T, Rq.abs())
+    g_diff = (got_g - want_g).abs()
+    g_rel = (g_diff / g_scale)[upper].max().item()
+    c_diff = (got_c - want_c).abs()
+    c_rel = (c_diff / c_scale).max().item()
+    err = max(g_diff[upper].max().item(), c_diff.max().item())
+    check(f"27 gram_corr_sym_acc {label} F {rows}x{d1}, R {rows}x{k} against its plain version",
+          g_rel <= 1e-4 and c_rel <= 1e-4,
+          f"max_abs_err {err:.3e} ({g_rel:.2e} / {c_rel:.2e} of scale, tol 1e-4)")
+    return err
+
+
+def phase_multi_scaling(cuda_ops, smi, device="cuda"):
+    """27(b): tools.multichip --scaling on the card at phase 25(d)'s
+    geometry: legs of 1, 2, 4 and 8 shards over cuda:0, each leg's
+    gram_corr_sym_acc launches of one rep, its scaling line read back with
+    device_evidence false (8 shards share one card)."""
+    import contextlib
+    import io
+
+    from keystone_tpu_torch.tools import multichip
+
+    gen = torch.Generator(device=device).manual_seed(27)
+    d = int(MULTI_SCALING_ARGV[MULTI_SCALING_ARGV.index("--d") + 1])
+    chunk = int(MULTI_SCALING_ARGV[MULTI_SCALING_ARGV.index("--chunk") + 1])
+    k = 2
+    err = _hold_gram_acc(cuda_ops, gen, chunk, d, k, torch.float32, "f32 (the scaling fold)",
+                         device)
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    argv = MULTI_SCALING_ARGV + ["--device", str(torch.device(device))]
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = multichip.main(argv)
+    seconds = time.perf_counter() - t0
+    counts = _launches_since(cuda_ops)
+    text = buf.getvalue()
+    (line,) = [ln for ln in text.splitlines() if ln.startswith("scaling: ")]
+    scaling = json.loads(line[len("scaling: "):])
+    n = int(MULTI_SCALING_ARGV[MULTI_SCALING_ARGV.index("--n") + 1])
+    seg = int(MULTI_SCALING_ARGV[MULTI_SCALING_ARGV.index("--seg") + 1])
+    chunks = -(-n // chunk)
+    want = {}
+    for leg in scaling["legs"]:
+        m = leg["num_devices"]
+        cpd = -(-chunks // m)
+        s = min(seg, cpd)
+        want[m] = -(-chunks // seg) * seg if m == 1 else m * (-(-cpd // s) * s)
+    got = {leg["num_devices"]: leg["launches"].get("gram_corr_sym_acc", 0)
+           for leg in scaling["legs"]}
+    log(f"  (b) tools.multichip {' '.join(argv)}: rc {rc}, {seconds:.1f} s; legs "
+        + "; ".join(f"m={leg['num_devices']} wall {leg['wall_s']} s (fold {leg.get('fold_s')}, "
+                    f"solve {leg.get('solve_s')}) parity {leg['parity_max_dw']:.3e} "
+                    f"launches {leg['launches']}" for leg in scaling["legs"])
+        + f"; device_evidence {scaling['device_evidence']} ({smi})")
+    check("27(b) --scaling: parity over the legs, device_evidence false on one card",
+          rc == 0 and scaling["device_evidence"] is False
+          and [leg["num_devices"] for leg in scaling["legs"]] == [1, 2, 4, 8]
+          and scaling["parity_worst_max_dw"] <= scaling["parity_tol"],
+          f"rc {rc}, worst {scaling['parity_worst_max_dw']:.3e}")
+    # Each leg runs a warm fit and --reps timed ones.
+    reps = 1 + int(MULTI_SCALING_ARGV[MULTI_SCALING_ARGV.index("--reps") + 1])
+    total = {"gram_corr_sym_acc": reps * sum(want.values())}
+    check("27(b) gram_corr_sym_acc once a chunk id a fit in every leg",
+          got == want and same_launches(counts, total),
+          f"a rep a leg {got}, expected {want}; the run {counts}, expected {total}")
+    return dict(rc=rc, seconds=seconds, scaling=scaling, launches_by_leg=got,
+                launches=counts, check_max_abs_err=err)
+
+
+def phase_multi_hybrid(cuda_ops, root, smi, device="cuda"):
+    """27(c): run_lbfgs_gram_hybrid at the Amazon geometry, 27 of 64 chunks
+    resident (int16 + bf16) and 37 streamed from disk shards in segments
+    of 16, against run_lbfgs_gram_streamed over the same 64 resident
+    chunks, bit for bit; gram_corr_sym_acc once a chunk in each fit."""
+    from keystone_tpu_torch.data.prefetch import PrefetchStats
+    from keystone_tpu_torch.data.resident import CompressedCOOChunks
+    from keystone_tpu_torch.data.shards import DiskCOOShards
+    from keystone_tpu_torch.ops.learning.lbfgs import (
+        _resident_chunk_fn, run_lbfgs_gram_hybrid, run_lbfgs_gram_streamed)
+
+    c, d, nnz, k = AMAZON_CHUNK, AMAZON_D, AMAZON_NNZ, AMAZON_K
+    n = HYBRID_CHUNKS * c
+    gen = torch.Generator(device=device).manual_seed(2727)
+    dev = torch.device(device)
+    out = {}
+    err = _hold_gram_acc(cuda_ops, gen, c, d + 1, k, torch.bfloat16, "bf16 (the hybrid fold)",
+                         device)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    idx = torch.randint(0, d, (n, nnz), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.cat([idx.sort(dim=1).values, torch.full((n, 1), d, dtype=torch.int32,
+                                                        device=dev)], dim=1)
+    val = torch.randn((n, nnz), generator=gen, device=dev)
+    val = torch.cat([val, torch.ones((n, 1), device=dev)], dim=1)
+    Y = torch.randn((n, k), generator=gen, device=dev)
+    every = CompressedCOOChunks.encode(idx, val, Y, chunk_rows=c, d=d + 1, n_true=n)
+    del idx, val, Y
+    resident = tuple(t[:HYBRID_RESIDENT].clone() for t in every.operands())
+    out["resident_gb"] = sum(t.numel() * t.element_size() for t in resident) / 1e9
+    tail = [t[HYBRID_RESIDENT:].cpu() for t in every.operands()]
+    shards = DiskCOOShards.write(
+        os.path.join(root, "hybrid"), tail[0].reshape(-1, nnz + 1).to(torch.int32).numpy(),
+        tail[1].reshape(-1, nnz + 1).to(torch.float32).numpy(), tail[2].reshape(-1, k).numpy(),
+        chunk_rows=c, n_true=(HYBRID_CHUNKS - HYBRID_RESIDENT) * c, d=d + 1)
+    del tail
+    out["setup_s"] = time.perf_counter() - t0
+    kw = dict(lam=AMAZON_LAM, num_iterations=AMAZON_ITERS, n=n, val_dtype=torch.bfloat16)
+    cuda_ops.reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    W_s, loss_s = run_lbfgs_gram_streamed(_resident_chunk_fn, HYBRID_CHUNKS, d + 1, k,
+                                          operands=every.operands(),
+                                          max_chunks_per_dispatch=HYBRID_SEG, pipeline=False,
+                                          **kw)
+    _sync(device)
+    out["streamed_s"] = time.perf_counter() - t0
+    out["streamed_launches"] = _launches_since(cuda_ops)
+    del every
+    torch.cuda.empty_cache()
+    stats = PrefetchStats()
+    cuda_ops.reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    W_h, loss_h = run_lbfgs_gram_hybrid(
+        _resident_chunk_fn, HYBRID_RESIDENT, resident, HYBRID_CHUNKS, d + 1, k,
+        max_chunks_per_dispatch=HYBRID_SEG, segment_source=shards.as_source(HYBRID_SEG),
+        prefetch_stats=stats, device=device, **kw)
+    _sync(device)
+    out["hybrid_s"] = time.perf_counter() - t0
+    out["hybrid_launches"] = _launches_since(cuda_ops)
+    out["tail_segments"] = shards.as_source(HYBRID_SEG).num_segments
+    out["check_max_abs_err"] = err
+    log(f"  (c) hybrid: {HYBRID_RESIDENT} of {HYBRID_CHUNKS} chunks resident "
+        f"({out['resident_gb']:.3f} GB), {HYBRID_CHUNKS - HYBRID_RESIDENT} from disk in "
+        f"{out['tail_segments']} segments of {HYBRID_SEG}; set-up {out['setup_s']:.1f} s; "
+        f"hybrid fit {out['hybrid_s']:.3f} s, launches {out['hybrid_launches']}; the streamed "
+        f"fold over all {HYBRID_CHUNKS} resident chunks {out['streamed_s']:.3f} s, launches "
+        f"{out['streamed_launches']}; loss {float(loss_h):.7f} ({smi})")
+    check("27(c) the hybrid fold has the streamed fold's bits",
+          torch.equal(W_h, W_s) and torch.equal(loss_h, loss_s) and bool(W_h.isfinite().all()),
+          f"max |dW| {(W_h - W_s).abs().max().item():.3e}")
+    want = {"gram_corr_sym_acc": HYBRID_CHUNKS}
+    check("27(c) gram_corr_sym_acc once a chunk in each fit",
+          same_launches(out["hybrid_launches"], want)
+          and same_launches(out["streamed_launches"], want),
+          f"{out['hybrid_launches']}, {out['streamed_launches']}, expected {want}")
+    shutil.rmtree(os.path.join(root, "hybrid"), ignore_errors=True)
+    return out
+
+
+def phase_multi_cost(device="cuda"):
+    """27(d): compiled_cost of a (m, k) x (k, n) product on the card reads
+    2 m n k FLOPs and the operands' and output's bytes."""
+    from keystone_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=device).manual_seed(28)
+    A = torch.randn((COST_M, COST_K), generator=gen, device=device)
+    B = torch.randn((COST_K, COST_N), generator=gen, device=device)
+    cost = profiling.compiled_cost(lambda x, y: x @ y, A, B)
+    want = 2 * COST_M * COST_N * COST_K
+    nbytes = 4 * (COST_M * COST_K + COST_K * COST_N + COST_M * COST_N)
+    log(f"  (d) compiled_cost of a {COST_M}x{COST_K} @ {COST_K}x{COST_N} product on the card: "
+        f"{cost}")
+    check("27(d) compiled_cost counts 2mnk FLOPs and the product's bytes",
+          cost is not None and cost["flops"] == want and cost["bytes accessed"] == nbytes,
+          f"{cost}, expected flops {want}, bytes {nbytes}")
+    return cost
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--phase27-worker"]:
+        return phase27_worker(*sys.argv[2:])
     if sys.argv[1:] == ["--cifar-profile"]:
         return cifar_profile()
     if sys.argv[1:] == ["--first-verify"]:
@@ -8249,6 +8749,31 @@ def main():
                   "26c_pairwise": ring_run["primitives"]["pairwise_launches"]}
     log(f"  phase 26 launches by part: {ring_parts} ({smi})")
     mesh_parts.update(ring_parts)
+    torch.cuda.empty_cache()
+    phase("27", "the multi-process mesh: two processes of 4 shards on the card (gloo), the KRR "
+          "sweep and ring apply bit for bit, the normal equations, the n-gram exchange; "
+          "tools.multichip --scaling; the hybrid compressed fold; compiled_cost")
+    multi_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              f"phase27-{os.getpid()}")
+    os.makedirs(multi_root, exist_ok=True)
+    try:
+        multi_run = dict(krr=phase_multi_krr(cuda_ops, multi_root, smi))
+        torch.cuda.empty_cache()
+        multi_run["scaling"] = phase_multi_scaling(cuda_ops, smi)
+        torch.cuda.empty_cache()
+        multi_run["hybrid"] = phase_multi_hybrid(cuda_ops, multi_root, smi)
+        torch.cuda.empty_cache()
+        multi_run["cost"] = phase_multi_cost()
+    finally:
+        shutil.rmtree(multi_root, ignore_errors=True)
+    multi_parts = {
+        "27a_fit": multi_run["krr"]["fit_launches"],
+        "27a_apply": multi_run["krr"]["apply_launches"],
+        "27b_scaling": multi_run["scaling"]["launches"],
+        "27c_hybrid": multi_run["hybrid"]["hybrid_launches"],
+    }
+    log(f"  phase 27 launches by part (27a summed over the two processes, 27b every leg's "
+        f"warm and timed fits): {multi_parts} ({smi})")
     phase(None, None)
     # The new forms' launches are those counted on phase 17's routes.
     conv_shapes = results["conv_featurize"]["shapes"]
@@ -8301,6 +8826,12 @@ def main():
         # The ring tier's shard shapes (phase 26): times beside the bound.
         if entry["name"] in ring_run["shapes"]:
             entry["ring_shapes"] = ring_run["shapes"][entry["name"]]
+        # Phase 27's launches: the two processes' KRR fit and ring apply,
+        # the scaling legs and the hybrid fold.
+        by_part = {part: c[entry["name"]] for part, c in multi_parts.items()
+                   if c.get(entry["name"])}
+        entry["multiprocess_launches"] = sum(by_part.values())
+        entry["multiprocess_launches_by_part"] = by_part
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
                  AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
@@ -8309,7 +8840,7 @@ def main():
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,
                  "stupid backoff StupidBackoffPipeline": backoff, WORKFLOW: workflow,
                  SERVING: serving, LEARN: learn, DISK: disk, ZOO: zoo, CONTROL: control,
-                 FLEET: fleet_run, MESH: mesh_run, RING: ring_run,
+                 FLEET: fleet_run, MESH: mesh_run, RING: ring_run, MULTI: multi_run,
                  "phase_seconds": phase_seconds}
     log(f"main path: {json.dumps(main_path)}")
     log(f"whole script: {time.perf_counter() - script_start:.1f} s (build included)")

@@ -219,13 +219,13 @@ class Dataset:
             if isinstance(leaf, ShardedRows):
                 rows = leaf.shard_rows
                 shards = []
-                for i, s in enumerate(leaf.shards):
+                for i, s in zip(leaf.indices, leaf.shards):
                     keep = n - i * rows
                     if keep < rows:
                         s = s.clone()
                         s[max(keep, 0):] = 0
                     shards.append(s)
-                return ShardedRows(shards, leaf.mesh, leaf.axis)
+                return ShardedRows(shards, leaf.mesh, leaf.axis, leaf.indices)
             leaf = as_tensor(leaf).clone()
             leaf[n:] = 0
             return leaf
@@ -260,6 +260,8 @@ class Dataset:
 
         def place(leaf):
             if isinstance(leaf, ShardedRows):
+                if leaf.mesh is mesh and leaf.axis == axis:
+                    return leaf
                 leaf = leaf.gather()
             padded, _ = mesh_lib.pad_rows(leaf if isinstance(leaf, torch.Tensor)
                                           else np.asarray(leaf), size)
@@ -302,18 +304,20 @@ def _map_shards(fn: Callable[[Any], Any], data: Any) -> Any:
     outs = [
         fn(tree_map(lambda leaf, i=i: leaf.shards[i] if isinstance(leaf, ShardedRows) else leaf,
                     data))
-        for i in range(first.num_shards)
+        for i in range(len(first.shards))
     ]
-    return _collect_shards(outs, first.mesh, first.axis)
+    return _collect_shards(outs, first.mesh, first.axis, first.indices)
 
 
-def _collect_shards(outs: List[Any], mesh, axis) -> Any:
+def _collect_shards(outs: List[Any], mesh, axis, indices) -> Any:
     head = outs[0]
     if isinstance(head, tuple):
-        return tuple(_collect_shards([o[j] for o in outs], mesh, axis) for j in range(len(head)))
+        return tuple(_collect_shards([o[j] for o in outs], mesh, axis, indices)
+                     for j in range(len(head)))
     if isinstance(head, dict):
-        return {key: _collect_shards([o[key] for o in outs], mesh, axis) for key in head}
-    return ShardedRows(outs, mesh, axis)
+        return {key: _collect_shards([o[key] for o in outs], mesh, axis, indices)
+                for key in head}
+    return ShardedRows(outs, mesh, axis, indices)
 
 
 def _to_numpy(x) -> np.ndarray:

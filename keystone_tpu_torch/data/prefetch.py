@@ -762,7 +762,8 @@ def iter_mesh_segments(
     stats: Optional[PrefetchStats] = None,
     stage: Optional[Sequence[Callable[[Any], Any]]] = None,
 ) -> Iterator[Tuple[int, list]]:
-    """Lock-step iteration over per-device segment sources.
+    """Lock-step iteration over per-device segment sources (on a
+    multi-process mesh, this process's devices' sources: its local shards).
 
     ``sources[k]`` is device k's :class:`ShardSource` (or a
     ``(load_fn, num_segments)`` pair); segment ``s`` of every device loads

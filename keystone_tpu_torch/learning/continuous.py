@@ -230,6 +230,7 @@ class ContinuousTrainer:
             self._thread.start()
         return self
 
+    # lint: device-owner-thread: the trainer offers candidates, whose gate runs on the card
     def _run_guarded(self) -> None:
         try:
             self.run()

@@ -26,7 +26,12 @@ labels and the dual model stay row-sharded, each step's residual is one
 ``gaussian_resid_block`` launch a shard on that shard's rows, the partials
 meet in one ``psum`` in shard order, and the (bs, bs) solve runs on the
 axis's first device, where ``parallel/linalg.py``'s mesh BCD solves. The
-mapper then applies by the ring (``parallel/ring.ring_kernel_apply``).
+mapper then applies by the ring (``parallel/ring.ring_kernel_apply``). On a
+multi-process mesh (``mesh.make_hybrid_mesh``) each process runs its own
+shards' launches, the ``all_gather`` of the rows and each step's ``psum``
+cross the process group in shard order, and every process runs the
+pre-pass and the solves on its first local device and keeps the whole
+weight stack, as every JAX process does.
 
 ``kernel_dtype="bf16x3"`` is the reference's 3-pass product, which it
 computes outside Pallas on purpose (Mosaic has no 3-pass lowering, and a
@@ -259,10 +264,12 @@ class _Sweep:
         self.Y, self.n, self.bs = Y, transformer.n_train, int(bs)
         own = (transformer._train_op, transformer._train_norms)
         self.block_rows = {transformer.train_X.device: own}
+        self.indices, self.group = [0], None
         if xs is None:
             self.devices, self.rows = [transformer.train_X.device], self.n
             self.x, self.norms = [own[0]], [own[1]]
             return
+        self.indices, self.group = list(xs.indices), xs.group
         self.devices = [s.device for s in xs.shards]
         self.rows = xs.shard_rows
         cd = transformer._compute_dtype
@@ -282,7 +289,7 @@ class _Sweep:
         k = w_stack.shape[2]
         flat = w_stack.reshape(-1, k)[: self.n]
         W = []
-        for j, dev in enumerate(self.devices):
+        for j, dev in zip(self.indices, self.devices):
             w = torch.zeros((self.rows, k), dtype=torch.float32, device=dev)
             lo, hi = j * self.rows, min((j + 1) * self.rows, self.n)
             if lo < hi:
@@ -306,15 +313,15 @@ class _Sweep:
                 # is not, but their rows of W are zero too: they add nothing.
                 parts.append(self.t.residual(self.x[j], Xb[start:stop], self.norms[j],
                                              nb[start:stop], W[j]))
-            residual = mesh_lib.psum(parts, first)
+            residual = mesh_lib.psum(parts, first, group=self.group)
             w_new = _solve_block(self.Y, start, stop, residual, grams[block], chols[block],
                                  w_stack[block], lam, bs)
             # Scatter into every shard owning rows of the block: blocks need
             # not align with shard boundaries.
-            for j, dev in enumerate(self.devices):
+            for pos, (j, dev) in enumerate(zip(self.indices, self.devices)):
                 lo, hi = max(start, j * ln), min(stop, (j + 1) * ln)
                 if lo < hi:
-                    W[j][lo - j * ln:hi - j * ln] = w_new[lo - start:hi - start].to(dev)
+                    W[pos][lo - j * ln:hi - j * ln] = w_new[lo - start:hi - start].to(dev)
             w_stack[block] = w_new
         return w_stack
 
@@ -472,9 +479,10 @@ class KernelRidgeRegression(LabelEstimator):
         mesh = data.mesh
         if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS) > 1:
             xs, ys = _on_mesh(data.array, mesh), _on_mesh(labels.array, mesh)
-            gathered = mesh_lib.all_gather(list(xs.shards))
+            gathered = mesh_lib.all_gather(list(xs.shards), group=xs.group)
             X = gathered[0][:n_train].to(torch.float32)
-            Y = mesh_lib.all_gather(list(ys.shards))[0][:n_train].to(X.device, torch.float32)
+            Y = mesh_lib.all_gather(list(ys.shards), group=ys.group)[0][:n_train].to(
+                X.device, torch.float32)
             transformer = self.kernel_generator.fit(Dataset(X))
             sweep = _Sweep(transformer, Y, bs, xs, gathered)
         else:

@@ -34,10 +34,15 @@ uninterrupted fold's bits.
 ``run_lbfgs_gram_streamed(mesh=)`` partitions the chunk stream over a
 one-host mesh's axis (``parallel/mesh.py``): each device folds its own
 contiguous chunks into its own carry through ``gram_corr_sym_acc``, and one
-``psum`` of the carries a fit, in shard order, precedes the solve.
+``psum`` of the carries a fit, in shard order, precedes the solve; on a
+multi-process mesh each process folds its own devices' chunks and the
+``psum`` crosses the process group.
 
-Waiting in ROADMAP: the hybrid resident + streamed tail
-(``run_lbfgs_gram_hybrid``, A.7). ``cost`` and ``resident_bytes`` price with
+``run_lbfgs_gram_hybrid`` folds the compressed tier's whole working set:
+the chunks that fit from device-resident operands, the rest streamed (made
+a chunk at a time or read from disk), into one carry and one solve, with
+the bits of one streamed fold over all chunks. ``cost`` and
+``resident_bytes`` price with
 the gather overhead of the weight family active at construction
 (``cost.py``; EC2 by default, 8.0); the calibration plane refits it from
 fits timed on the card (``scripts/torch_fit_cost_weights.py``).
@@ -541,11 +546,130 @@ def run_lbfgs_gram_streamed(
                 ops = to_device_segment(stage(segment_source(cid0, seg)), device, copy_stream)
                 fold_segment(s, cid0, lambda rel, ops=ops: chunk_fn(rel, *ops))
             else:
-                fold_segment(s, cid0, lambda rel, c0=cid0: chunk_fn(c0 + rel, *operands))
+                # A ragged last segment's ids past the end read the last
+                # chunk, whose values the fold zeroes.
+                fold_segment(s, cid0, lambda rel, c0=cid0: chunk_fn(
+                    min(c0 + rel, num_chunks - 1), *operands))
     result = _gram_solve(carry, d, k, lam, num_iterations, convergence_tol, n)
     if checkpoint is not None:
         checkpoint.clear(fingerprint)  # this fit's snapshot only
     return result
+
+
+def run_lbfgs_gram_hybrid(
+    resident_chunk_fn,
+    num_resident_chunks: int,
+    resident_operands,
+    num_chunks: int,
+    d: int,
+    k: int,
+    *,
+    lam: float = 0.0,
+    num_iterations: int = 100,
+    convergence_tol: float = 1e-4,
+    n: Optional[int] = None,
+    val_dtype=torch.float32,
+    max_chunks_per_dispatch: int = 8,
+    chunk_fn=None,
+    segment_source=None,
+    prefetch_depth: int = 2,
+    prefetch_stats=None,
+    pipeline: bool = True,
+    inflight: int = 2,
+    device=None,
+):
+    """Hybrid resident + streamed sparse gram fit: the compressed tier's
+    whole working set (reference ``lbfgs.py:636-747``). Chunks
+    ``[0, num_resident_chunks)`` fold from device-resident operands (the
+    int16 + bf16 COO of ``data/resident.py``'s ``CompressedCOOChunks``:
+    ``resident_chunk_fn(cid, *resident_operands)`` slices them) with
+    ``pipeline=False``, since there is no regeneration to overlap and no
+    room for a second slab beside the resident buffers; chunks
+    ``[num_resident_chunks, num_chunks)``, the part that does not fit,
+    stream as in :func:`run_lbfgs_gram_streamed`: either ``chunk_fn(cid)``
+    made a chunk at a time, or a
+    :class:`~keystone_tpu_torch.data.prefetch.ShardSource` whose segment
+    ``s`` carries the segment-relative operands of chunks
+    ``num_resident_chunks + [s·seg, (s+1)·seg)``, read ahead on the
+    data-plane runtime's read lane (``prefetch_depth``; ``prefetch_stats``
+    collects the per-site accounting) and copied to ``device`` (default:
+    where the resident operands lie, else the default device) on a side
+    stream, at most ``inflight`` segments ahead of the card. One carry, one
+    solve. Returns (W (d, k), final loss).
+
+    Every chunk goes through ``gram_corr_sym_acc`` on the card
+    (``sparse.sparse_gram_fold``). Bit-identity contract: the same chunk
+    order, the same densify and fold arithmetic and the same carry, so the
+    result equals one :func:`run_lbfgs_gram_streamed` over all
+    ``num_chunks`` chunks with the same ``val_dtype``. A ragged segment's
+    ids past its leg's end are not folded (the streamed fold folds them as
+    zeros, which add nothing), so the kernel launches once a chunk."""
+    from keystone_tpu_torch.data.prefetch import (
+        is_shard_source,
+        iter_segments,
+        stage_segment,
+        to_device_segment,
+    )
+
+    if n is None:
+        raise ValueError("hybrid streamed fit needs the true row count n")
+    if num_resident_chunks > num_chunks:
+        raise ValueError(
+            f"num_resident_chunks {num_resident_chunks} > num_chunks {num_chunks}")
+    res, total, seg = int(num_resident_chunks), int(num_chunks), int(max_chunks_per_dispatch)
+    tail = total - res
+    if tail > 0 and segment_source is not None and not is_shard_source(segment_source):
+        raise TypeError(
+            f"hybrid segment_source must be a ShardSource whose segments carry {seg} "
+            f"segment-relative chunks; got {type(segment_source).__name__}")
+    if tail > 0 and segment_source is None and chunk_fn is None:
+        raise ValueError("a streamed tail needs chunk_fn or segment_source")
+    tensors = [o for o in resident_operands if isinstance(o, torch.Tensor)]
+    if device is None:
+        device = tensors[0].device if tensors else resolve_device(None)
+    device = torch.device(device)
+    carry = None
+    in_flight: deque = deque()
+
+    def fold_segment(cid0, end, chunk_at, pipelined, bound):
+        """Fold the live ids of [cid0, cid0 + seg), those before ``end``;
+        ``chunk_at(cid)`` gives chunk ``cid``."""
+        nonlocal carry
+        t0 = time.perf_counter()
+        with obs.span("fold.segment", chunk0=int(cid0)) as span:
+            carry = sparse_gram_fold(carry, range(min(seg, end - cid0)),
+                                     lambda rel: chunk_at(cid0 + rel), d, k,
+                                     val_dtype=val_dtype, pipeline=pipelined)
+            if carry[0].is_cuda:
+                span.set(queued=True)
+                if bound:
+                    done = torch.cuda.Event()
+                    done.record()
+                    in_flight.append(done)
+                    if len(in_flight) > max(int(inflight), 1):
+                        in_flight.popleft().synchronize()
+        if prefetch_stats is not None:
+            prefetch_stats.add_busy("compute", time.perf_counter() - t0)
+
+    for cid0 in range(0, res, seg):
+        fold_segment(cid0, res, lambda cid: resident_chunk_fn(cid, *resident_operands),
+                     False, False)
+    if tail > 0 and segment_source is not None:
+        tail_fn = chunk_fn if chunk_fn is not None else _resident_chunk_fn
+        copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        for s, staged in iter_segments(segment_source, prefetch_depth=prefetch_depth,
+                                       stats=prefetch_stats,
+                                       stage=lambda p: stage_segment(p, device)):
+            ops = to_device_segment(staged, device, copy_stream)
+            cid0 = res + s * seg
+            fold_segment(cid0, total, lambda cid, ops=ops, c0=cid0: tail_fn(cid - c0, *ops),
+                         pipeline, True)
+    elif tail > 0:
+        for cid0 in range(res, total, seg):
+            fold_segment(cid0, total, chunk_fn, pipeline, True)
+    if carry is None:
+        carry = sparse_gram_init(d, k, device=device)
+    return _gram_solve(carry, d, k, lam, num_iterations, convergence_tol, n)
 
 
 def _mesh_fold_axis(mesh, mesh_axis: Optional[str]) -> str:
@@ -561,8 +685,10 @@ def _mesh_fold_axis(mesh, mesh_axis: Optional[str]) -> str:
 
 
 def _mesh_gram_init(d: int, k: int, mesh, axis: str):
-    """Zero (G_raw, AtY, yty) carries, one on each device of ``axis``."""
-    return [sparse_gram_init(d, k, device=dev) for dev in mesh.axis_devices(axis)]
+    """Zero (G_raw, AtY, yty) carries, one on each of this process's
+    devices of ``axis``."""
+    devices = mesh.axis_devices(axis)
+    return [sparse_gram_init(d, k, device=devices[j]) for j in mesh.local_shards(axis)]
 
 
 def _gram_fold_program_mesh(chunk_fn, num_chunks: int, d: int, k: int, seg: int,
@@ -579,10 +705,11 @@ def _gram_fold_program_mesh(chunk_fn, num_chunks: int, d: int, k: int, seg: int,
     resident part, sliced by the local id."""
     m = int(mesh.shape[axis])
     cpd = -(-int(num_chunks) // m)
+    local = mesh.local_shards(axis)
 
     def fold(carries, cid0: int, device_operands):
         out = []
-        for j, (carry, ops) in enumerate(zip(carries, device_operands)):
+        for j, carry, ops in zip(local, carries, device_operands):
             base = j * cpd
 
             def cf(loc, ops=ops, base=base):
@@ -601,14 +728,16 @@ def _gram_fold_program_mesh(chunk_fn, num_chunks: int, d: int, k: int, seg: int,
 def _gram_mesh_solve_program(d: int, k: int, lam, num_iterations, convergence_tol, n,
                              mesh, axis: str):
     """The fit's one cross-device collective: a psum of the carries in
-    device order on the axis's first device, then the solve: the
-    one-device fold's iterates up to the reduction's reassociation."""
+    device order on the axis's first (local) device, across processes on
+    a multi-process mesh, then the solve: the one-device fold's iterates
+    up to the reduction's reassociation."""
     from keystone_tpu_torch.parallel.mesh import psum
 
-    dev = mesh.axis_devices(axis)[0]
+    dev = mesh.axis_devices(axis)[mesh.local_shards(axis)[0]]
+    group = mesh.group(axis)
 
     def run(carries):
-        reduced = tuple(psum([c[i] for c in carries], dev) for i in range(3))
+        reduced = tuple(psum([c[i] for c in carries], dev, group=group) for i in range(3))
         return _gram_solve(reduced, d, k, lam, num_iterations, convergence_tol, n)
 
     return run
@@ -630,7 +759,8 @@ def _run_lbfgs_gram_streamed_mesh(
 
     axis = _mesh_fold_axis(mesh, mesh_axis)
     m = int(mesh.shape[axis])
-    devices = mesh.axis_devices(axis)
+    mine = mesh.local_shards(axis)
+    devices = [mesh.axis_devices(axis)[j] for j in mine]
     cpd = -(-int(num_chunks) // m)
     dev_tag = f"{axis}[0-{m - 1}]"
     in_flight: deque = deque()
@@ -664,6 +794,7 @@ def _run_lbfgs_gram_streamed_mesh(
                 f"mesh fold over {axis}={m} needs {m} per-device segment sources, "
                 f"got {len(sources)}"
             )
+        sources = [sources[j] for j in mine]  # this process's devices
         if seg is None:
             raise ValueError(
                 "mesh segment sources need max_chunks_per_dispatch (the per-device "
@@ -684,7 +815,7 @@ def _run_lbfgs_gram_streamed_mesh(
     seg = max(min(seg, cpd), 1)
     local = -(-cpd // seg) * seg
     device_operands = []
-    for j, dev in enumerate(devices):
+    for j, dev in zip(mine, devices):
         part = []
         for o in operands:
             o = as_tensor(o)

@@ -82,10 +82,10 @@ class StandardScaler(Estimator):
             # reference's sharded reduction).
             from keystone_tpu_torch.parallel.mesh import psum
 
-            shards = data.array.shards
+            shards, group = data.array.shards, data.array.group
 
             def colsum(fn):
-                return psum([fn(X).sum(dim=0) for X in shards])
+                return psum([fn(X).sum(dim=0) for X in shards], group=group)
         else:
             X = as_tensor(data.array)
 

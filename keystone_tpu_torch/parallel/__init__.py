@@ -1,5 +1,5 @@
 """Parallel substrate: device meshes, sharding helpers, linear algebra
-(port of ``keystone_tpu/parallel/__init__.py``; one host)."""
+(port of ``keystone_tpu/parallel/__init__.py``; one process or several)."""
 
 from . import mesh
 from .mesh import (
@@ -7,10 +7,14 @@ from .mesh import (
     MODEL_AXIS,
     ShardedRows,
     default_mesh,
+    init_distributed,
+    make_hybrid_mesh,
     make_mesh,
     pad_rows,
+    process_allgather,
     replicate,
     set_default_mesh,
+    shard_local_rows,
     shard_rows,
     use_mesh,
 )

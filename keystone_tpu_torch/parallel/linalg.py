@@ -17,7 +17,9 @@ On a multi-device mesh (``parallel/mesh.py``, rows sharded over ``data``)
 ``gram_corr_sym`` (its plain version on the CPU), one ``psum`` of the two,
 the solve on the axis's first device, and each shard's residual update on
 its own rows; ``tsqr_r`` takes each shard's local R and factors their
-stack.
+stack; ``normal_equations_solve`` on sharded rows sums each shard's AᵀA
+and AᵀB in one ``psum``. Every collective crosses processes on a
+multi-process mesh.
 
 Conventions (matching the reference solvers):
   - ridge solve is ``(AᵀA + λI) x = AᵀB`` with *raw* λ (not scaled by n)
@@ -110,7 +112,20 @@ def normal_equations_solve(A, B, lam: float = 0.0):
     """Exact least-squares / ridge solve via normal equations.
 
     A: (n, d) rows (zero-padding rows are harmless). B: (n, k). Returns (d, k).
+    Row-sharded A and B (:class:`~keystone_tpu_torch.parallel.mesh.
+    ShardedRows`, one process's or several's) take each shard's AᵀA and AᵀB,
+    one ``psum`` of the two in shard order, then the solve on the first
+    local shard's device: the per-shard GEMMs plus all-reduce of the
+    reference's docstring. A float64 tensor stays float64.
     """
+    if isinstance(A, mesh_lib.ShardedRows):
+        Bs = B if isinstance(B, mesh_lib.ShardedRows) else mesh_lib.shard_rows(
+            B, A.mesh, A.axis)
+        dev, group = A.shards[0].device, A.group
+        gram = mesh_lib.psum([a.T @ a for a in A.shards], dev, group=group)
+        corr = mesh_lib.psum([a.T @ b.to(a.device) for a, b in zip(A.shards, Bs.shards)],
+                             dev, group=group)
+        return _solve_psd(gram, corr, float(lam))
     A = as_tensor(A)
     B = as_tensor(B, A.device)
     return _solve_psd(A.T @ A, A.T @ B, float(lam))
@@ -441,7 +456,8 @@ def tsqr_r(A, mesh=None) -> torch.Tensor:
             lambda a: torch.linalg.qr(a, mode="r")[1], mesh,
             in_specs=mesh_lib.DATA_AXIS, out_specs=mesh_lib.DATA_AXIS,
         )(A if isinstance(A, mesh_lib.ShardedRows) else mesh_lib.shard_rows(as_tensor(A), mesh))
-        r = torch.linalg.qr(locals_.gather(), mode="r")[1]
+        stacked = mesh_lib.all_gather(list(locals_.shards), group=locals_.group)[0]
+        r = torch.linalg.qr(stacked, mode="r")[1]
     signs = torch.sign(torch.diagonal(r))
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
     return r * signs[:, None]

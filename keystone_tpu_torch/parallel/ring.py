@@ -14,7 +14,9 @@ loop at the controller's level: P steps, each one pass over the shards (one
 kernel launch a shard) followed by one rotation (``mesh.ppermute``: a peer
 copy to the neighbour's device, or the same tensor where the two shards
 share a device). The shards of one step run one after another, so with 8
-shards on one card a ring's wall is no evidence of scaling.
+shards on one card a ring's wall is no evidence of scaling. On a
+multi-process mesh each process runs its own shards and the rotation
+crosses processes point to point (``mesh.ppermute(group=)``).
 
 Primitives:
   - :func:`ring_pairwise_gaussian`: the full row-sharded n×n Gaussian
@@ -100,21 +102,21 @@ def ring_pairwise_gaussian(X, gamma: float, mesh: Optional[mesh_lib.Mesh] = None
     columns of that shard, so the n×n matrix exists only sharded."""
     mesh = _mesh_of(mesh, X)
     xs = _shards(X, mesh)
-    p, ln = xs.num_shards, xs.shard_rows
+    p, ln, group = xs.num_shards, xs.shard_rows, xs.group
     devices = [s.device for s in xs.shards]
     norms = [row_norms(s) for s in xs.shards]
     visiting, vnorms = list(xs.shards), list(norms)
     cols = [torch.empty((ln, ln * p), dtype=s.dtype, device=s.device) for s in xs.shards]
     perm = mesh_lib.ring_perm(p)
     for step in range(p):
-        for me in range(p):
+        for j, me in enumerate(xs.indices):
             src = (me - step) % p
-            cols[me][:, src * ln:(src + 1) * ln] = _gaussian(
-                xs.shards[me], visiting[me], gamma, norms[me], vnorms[me])
+            cols[j][:, src * ln:(src + 1) * ln] = _gaussian(
+                xs.shards[j], visiting[j], gamma, norms[j], vnorms[j])
         if step < p - 1:
-            visiting = mesh_lib.ppermute(visiting, perm, devices)
-            vnorms = mesh_lib.ppermute(vnorms, perm, devices)
-    return mesh_lib.ShardedRows(cols, mesh, xs.axis)
+            visiting = mesh_lib.ppermute(visiting, perm, devices, group=group)
+            vnorms = mesh_lib.ppermute(vnorms, perm, devices, group=group)
+    return mesh_lib.ShardedRows(cols, mesh, xs.axis, xs.indices)
 
 
 def ring_kernel_apply(X_test, X_train, W, gamma: float,
@@ -137,29 +139,29 @@ def ring_kernel_apply(X_test, X_train, W, gamma: float,
     """
     mesh = _mesh_of(mesh, X_test, X_train, W)
     xt, xtr, ws = (_shards(a, mesh) for a in (X_test, X_train, W))
-    p = xt.num_shards
+    p, group = xt.num_shards, xt.group
     devices = [s.device for s in xt.shards]
     tnorms = [row_norms(s) for s in xt.shards]
     visiting = list(xtr.shards)
     vnorms = [row_norms(s) for s in xtr.shards]
     vw = list(ws.shards)
-    acc: List[Optional[torch.Tensor]] = [None] * p
+    acc: List[Optional[torch.Tensor]] = [None] * len(xt.shards)
     perm = mesh_lib.ring_perm(p)
     for step in range(p):
-        for me in range(p):
+        for j in range(len(xt.shards)):
             if xt.dtype == torch.float64:
-                part = _gaussian_plain(xt.shards[me], visiting[me], gamma, tnorms[me],
-                                       vnorms[me]) @ vw[me].to(torch.float64)
+                part = _gaussian_plain(xt.shards[j], visiting[j], gamma, tnorms[j],
+                                       vnorms[j]) @ vw[j].to(torch.float64)
             else:
                 part = cuda_ops.gaussian_resid_block(
-                    visiting[me], xt.shards[me], vnorms[me], tnorms[me], vw[me], gamma)
-            acc[me] = part if acc[me] is None else acc[me].add_(part)
+                    visiting[j], xt.shards[j], vnorms[j], tnorms[j], vw[j], gamma)
+            acc[j] = part if acc[j] is None else acc[j].add_(part)
         if step < p - 1:
-            visiting = mesh_lib.ppermute(visiting, perm, devices)
-            vnorms = mesh_lib.ppermute(vnorms, perm, devices)
-            vw = mesh_lib.ppermute(vw, perm, devices)
+            visiting = mesh_lib.ppermute(visiting, perm, devices, group=group)
+            vnorms = mesh_lib.ppermute(vnorms, perm, devices, group=group)
+            vw = mesh_lib.ppermute(vw, perm, devices, group=group)
     out_dtype = ws.dtype if xt.dtype != torch.float64 else torch.float64
-    return mesh_lib.ShardedRows([a.to(out_dtype) for a in acc], mesh, xt.axis)
+    return mesh_lib.ShardedRows([a.to(out_dtype) for a in acc], mesh, xt.axis, xt.indices)
 
 
 def ring_attention(Q, K, V, mesh: Optional[mesh_lib.Mesh] = None, causal: bool = False,
@@ -191,16 +193,17 @@ def ring_attention(Q, K, V, mesh: Optional[mesh_lib.Mesh] = None, causal: bool =
     out_dtype = torch.promote_types(torch.promote_types(qs.dtype, ks.dtype), vs.dtype)
     acc_dtype = torch.promote_types(out_dtype, torch.float32)
     neg = -1e30
-    devices = [s.device for s in qs.shards]
-    q_pos = [me * n_loc + torch.arange(n_loc, device=devices[me]) for me in range(p)]
+    devices, group = [s.device for s in qs.shards], qs.group
+    q_pos = [me * n_loc + torch.arange(n_loc, device=devices[j])
+             for j, me in enumerate(qs.indices)]
     k_blk, v_blk = list(ks.shards), list(vs.shards)
     m = [torch.full((n_loc,), neg, dtype=acc_dtype, device=dev) for dev in devices]
     l_ = [torch.zeros((n_loc,), dtype=acc_dtype, device=dev) for dev in devices]
     acc = [torch.zeros((n_loc, vs.shape[1]), dtype=acc_dtype, device=dev) for dev in devices]
     perm = mesh_lib.ring_perm(p)
     for step in range(p):
-        for me in range(p):
-            src = (me - step) % p  # origin shard of the visiting block
+        for me, gme in enumerate(qs.indices):
+            src = (gme - step) % p  # origin shard of the visiting block
             q = qs.shards[me].to(acc_dtype)
             scores = (q @ k_blk[me].to(acc_dtype).T) * sc
             k_pos = src * n_loc + torch.arange(n_loc, device=devices[me])
@@ -218,15 +221,15 @@ def ring_attention(Q, K, V, mesh: Optional[mesh_lib.Mesh] = None, causal: bool =
             acc[me] = acc[me] * alpha[:, None] + p_blk @ v_blk[me].to(acc_dtype)
             m[me] = m_new
         if step < p - 1:
-            k_blk = mesh_lib.ppermute(k_blk, perm, devices)
-            v_blk = mesh_lib.ppermute(v_blk, perm, devices)
+            k_blk = mesh_lib.ppermute(k_blk, perm, devices, group=group)
+            v_blk = mesh_lib.ppermute(v_blk, perm, devices, group=group)
     outs = []
-    for me in range(p):
+    for me in range(len(qs.shards)):
         out = acc[me] / torch.clamp_min(l_[me], 1e-30)[:, None]
         if n_valid is not None:
             out = out * (q_pos[me] < n_valid)[:, None].to(out.dtype)
         outs.append(out.to(out_dtype))
-    return mesh_lib.ShardedRows(outs, mesh, qs.axis)
+    return mesh_lib.ShardedRows(outs, mesh, qs.axis, qs.indices)
 
 
 def ring_attention_dataset(q_data, k_data=None, v_data=None,
@@ -266,5 +269,5 @@ def ring_gram(A, mesh: Optional[mesh_lib.Mesh] = None) -> mesh_lib.ShardedRows:
         raise ValueError(f"feature dim {d} not divisible by mesh size {p}")
     acc = torch.promote_types(a.dtype, torch.float32)
     parts = [s.to(acc).T @ s.to(acc) for s in a.shards]
-    stripes = mesh_lib.psum_scatter(parts, [s.device for s in a.shards])
-    return mesh_lib.ShardedRows(stripes, mesh, a.axis)
+    stripes = mesh_lib.psum_scatter(parts, [s.device for s in a.shards], group=a.group)
+    return mesh_lib.ShardedRows(stripes, mesh, a.axis, a.indices)

@@ -618,12 +618,13 @@ def _sharded(x, mesh, axis) -> mesh_lib.ShardedRows:
 
 
 def _valid_views(Xs: mesh_lib.ShardedRows, n_true: Optional[int]):
-    """Each shard's rows before the global row ``n_true`` (a view), and
-    their counts: padding rows never reach a kernel."""
+    """Each (local) shard's rows before the global row ``n_true`` (a
+    view), and their counts: padding rows never reach a kernel. Also the
+    global count of valid rows."""
     rows = Xs.shard_rows
-    n = Xs.shape[0] if n_true is None else int(n_true)
-    counts = [min(max(n - i * rows, 0), rows) for i in range(Xs.num_shards)]
-    return [s[:c] for s, c in zip(Xs.shards, counts)], counts
+    n = Xs.shape[0] if n_true is None else min(int(n_true), Xs.shape[0])
+    counts = [min(max(n - i * rows, 0), rows) for i in Xs.indices]
+    return [s[:c] for s, c in zip(Xs.shards, counts)], counts, n
 
 
 def gram_stats_mesh(
@@ -710,7 +711,8 @@ def streaming_bcd_fit_mesh_centered(
 
 
 def _block_bcd_sweep(xs, ys, Wrf, brf, *, n: int, block_size: int, lam: float,
-                     num_iter: int, feat_dtype: torch.dtype, center: bool, solve_device):
+                     num_iter: int, feat_dtype: torch.dtype, center: bool, solve_device,
+                     group=None, slots=None):
     """The block-streamed sweep over row shards: ``xs`` / ``ys`` are each
     shard's valid rows, on its device (one shard without a mesh), ``n``
     their total. Every block step makes each shard's slab, sums the
@@ -718,8 +720,20 @@ def _block_bcd_sweep(xs, ys, Wrf, brf, *, n: int, block_size: int, lam: float,
     solves there, and updates each shard's residual rows. On one shard
     the psums are copies, and the sweep is the reference's 1-device mesh
     program. Returns (W, M, ymean) on the first shard's device; M and
-    ymean are None unless centred."""
-    psum = mesh_lib.psum
+    ymean are None unless centred. On a multi-process mesh ``group`` is
+    the data axis's process group and ``slots`` the positions of ``xs``
+    among this process's shards (``n_local`` of them): a shard with no
+    valid rows adds a zero partial, so every process sends as many."""
+    if group is None:
+        psum = mesh_lib.psum
+    else:
+        slots, n_local = slots
+
+        def psum(parts, dev):
+            full = [torch.zeros_like(parts[0])] * n_local
+            for pos, part in zip(slots, parts):
+                full[pos] = part
+            return mesh_lib.psum(full, dev, group=group)
     d_feat = int(Wrf.shape[0])
     if d_feat % block_size:
         raise ValueError(f"d_feat {d_feat} not divisible by {block_size}")
@@ -854,22 +868,23 @@ def streaming_block_bcd_mesh(
     if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS) > 1:
         axis = mesh_lib.DATA_AXIS
         Xs, Ys = _sharded(X, mesh, axis), _sharded(Y, mesh, axis)
-        xs, counts = _valid_views(Xs, n_true)
+        xs, counts, n = _valid_views(Xs, n_true)
         live = [i for i, c in enumerate(counts) if c]
         xs = [xs[i] for i in live]
         ys = [Ys.shards[i][:counts[i]] for i in live]
         solve_dev = mesh.axis_devices(axis)[0]
-        n = sum(counts)
+        group, slots = Xs.group, (live, len(counts))
     else:
         X = as_tensor(X)
         n = int(X.shape[0]) if n_true is None else int(n_true)
         xs, ys = [X[:n]], [as_tensor(Y, X.device)[:n]]
-        solve_dev = X.device
+        solve_dev, group, slots = X.device, None, None
     dev = xs[0].device
     Wrf, brf = as_tensor(Wrf, dev), as_tensor(brf, dev)
     W, M, ymean = _block_bcd_sweep(
         xs, ys, Wrf, brf, n=n, block_size=block_size, lam=float(lam), num_iter=num_iter,
-        feat_dtype=feat_dtype, center=center, solve_device=lambda b: solve_dev)
+        feat_dtype=feat_dtype, center=center, solve_device=lambda b: solve_dev,
+        group=group, slots=slots)
     W = W.to(solve_dev)
     if center:
         return W, M.reshape(-1).to(solve_dev), ymean.to(solve_dev)
@@ -913,15 +928,16 @@ def streaming_block_bcd_mesh_2d(
     nb_local = nb // mc
     axes = tuple(a for a in (data_ax, model_ax) if a in mesh.shape)
     Xs, Ys = _sharded(X, mesh, axes), _sharded(Y, mesh, axes)
-    xs, counts = _valid_views(Xs, n_true)
+    xs, counts, n = _valid_views(Xs, n_true)
     live = [i for i, c in enumerate(counts) if c]
     owners = mesh.axis_devices(model_ax) if model_ax in mesh.shape else [Xs.device]
     dev = Xs.device
     W, M, ymean = _block_bcd_sweep(
         [xs[i] for i in live], [Ys.shards[i][:counts[i]] for i in live],
-        as_tensor(Wrf, dev), as_tensor(brf, dev), n=sum(counts), block_size=block_size,
+        as_tensor(Wrf, dev), as_tensor(brf, dev), n=n, block_size=block_size,
         lam=float(lam), num_iter=num_iter, feat_dtype=feat_dtype, center=center,
-        solve_device=lambda b: owners[b // nb_local])
+        solve_device=lambda b: owners[b // nb_local], group=Xs.group,
+        slots=(live, len(counts)))
     if center:
         return W, M, ymean
     return W

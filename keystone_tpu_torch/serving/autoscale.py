@@ -255,6 +255,7 @@ class Autoscaler:
             self._thread.start()
         return self
 
+    # lint: device-owner-thread: scaling out builds a replica, which captures its buckets
     def _loop(self) -> None:
         while not self._stop.wait(self.tick_interval_s):
             try:

@@ -451,6 +451,7 @@ class MicroBatchServer:
 
     # -- worker side -------------------------------------------------------
 
+    # lint: device-owner-thread: the one thread that runs this server's plan on the card
     def _worker(self) -> None:
         batch: Optional[List[_Request]] = None
         try:

@@ -1,3 +1,4 @@
+# lint: torch-clean-module
 """Multi-process serving fleet: crash-contained planes behind one
 admission router (port of ``keystone_tpu/serving/fleet.py``).
 

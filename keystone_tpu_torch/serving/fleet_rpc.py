@@ -1,3 +1,4 @@
+# lint: torch-clean-module
 """Stdlib-socket RPC for the serving fleet: length-prefixed CRC-checked
 frames with deadline propagation (port of ``keystone_tpu/serving/fleet_rpc.py``).
 

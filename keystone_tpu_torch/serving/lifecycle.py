@@ -317,6 +317,7 @@ class LifecycleController:
             self._thread.start()
         return self
 
+    # lint: device-owner-thread: a promotion or rollback swaps plans, capturing buckets
     def _loop(self) -> None:
         while not self._stop.wait(self.poll_interval_s):
             try:

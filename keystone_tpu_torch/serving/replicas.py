@@ -506,6 +506,7 @@ class ReplicatedServer:
 
     # -- watchdog / restart ------------------------------------------------
 
+    # lint: device-owner-thread: a restart builds a replica's server on its plan
     def _watchdog_loop(self) -> None:
         while not self._stop.wait(self.watchdog_interval_s):
             self._sweep_dead_replicas()

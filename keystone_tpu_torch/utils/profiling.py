@@ -17,8 +17,10 @@
     (:mod:`keystone_tpu_torch.serving.batcher`), bounded so a long-lived
     server never grows its profiling state without limit.
 
-The reference's ``compiled_cost`` reads XLA's cost analysis of a compiled
-program; it has no counterpart here yet.
+  - ``compiled_cost`` — the FLOPs and bytes of one run of a function, from
+    ``torch.utils.flop_counter.FlopCounterMode`` and a dispatch-mode count
+    of each aten op's inputs and outputs (the reference reads XLA's cost
+    analysis of the compiled program).
 """
 
 from __future__ import annotations
@@ -414,3 +416,47 @@ def trace(log_dir: str):
             prof.__exit__(None, None, None)
             os.makedirs(log_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def compiled_cost(fn, *args, **kwargs) -> Optional[Dict[str, Any]]:
+    """FLOPs and memory traffic of one run of ``fn(*args, **kwargs)``: the
+    reference's ``compiled_cost`` (reference ``profiling.py:378-393``),
+    which reads XLA's cost analysis. Returns ``{"flops": float, "bytes
+    accessed": float}``, or None where ``fn`` raises.
+
+    ``flops`` is ``FlopCounterMode``'s count (2·m·n·k a product);
+    ``bytes accessed`` sums, over every aten op the run dispatches, the
+    bytes of its tensor inputs and outputs (views move nothing and are
+    left out): an upper bound on traffic where an op's output feeds the
+    next from cache. The port's hand-written kernels load through
+    ``ctypes`` and are not aten ops, so a run on the card counts neither
+    their FLOPs nor their bytes, and no count is made up for them: the
+    reference's cost analysis does not count a Pallas call either (none of
+    its ``pallas_call`` sites passes a ``cost_estimate``). On CPU tensors a
+    wrapper's plain version runs, and its aten ops count."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import FlopCounterMode
+
+    class _Bytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not getattr(func, "is_view", False):
+                self.total += sum(t.numel() * t.element_size()
+                                  for t in tree_leaves((args, kwargs or {}, out))
+                                  if isinstance(t, torch.Tensor))
+            return out
+
+    flops, nbytes = FlopCounterMode(display=False), _Bytes()
+    try:
+        with flops, nbytes:
+            fn(*args, **kwargs)
+    except Exception as e:
+        logger.warning("cost count unavailable: %s", e)
+        return None
+    return {"flops": float(flops.get_total_flops()), "bytes accessed": float(nbytes.total)}

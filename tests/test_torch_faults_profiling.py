@@ -320,3 +320,31 @@ class TestServeCLI:
             mp.setattr(torch.cuda, "is_available", lambda: False)
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 run.main(["learn"])
+
+
+class TestCompiledCost:
+    """``compiled_cost``: twins of tests/test_profiling.py's TestCompiledCost,
+    held to exact counts (the reference's XLA count where it gives one)."""
+
+    def test_matmul_flops_and_bytes(self):
+        from keystone_tpu.utils import profiling as j_prof
+        import jax.numpy as jnp
+
+        m, k, n = 64, 32, 16
+        cost = profiling.compiled_cost(lambda x, y: x @ y, torch.ones(m, k), torch.ones(k, n))
+        assert cost["flops"] == 2 * m * n * k
+        assert cost["bytes accessed"] == 4 * (m * k + k * n + m * n)
+        ref = j_prof.compiled_cost(lambda x, y: x @ y, jnp.ones((m, k)), jnp.ones((k, n)))
+        if ref is not None:
+            assert ref["flops"] == cost["flops"]
+
+    def test_bad_function_returns_none(self):
+        assert profiling.compiled_cost(lambda x, y: x @ y, torch.ones(4, 4),
+                                       torch.ones(3, 3)) is None
+
+    def test_views_move_no_bytes_and_kwargs_pass(self):
+        x = torch.ones(8, 4)
+        # x.T is a view: only the product's operands and output count.
+        cost = profiling.compiled_cost(lambda a, b=None: a.T @ b, x, b=x)
+        assert cost["flops"] == 2 * 4 * 4 * 8
+        assert cost["bytes accessed"] == 4 * (8 * 4 * 2 + 4 * 4)

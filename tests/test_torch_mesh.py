@@ -82,9 +82,12 @@ class TestMesh:
         m = tmesh.make_hybrid_mesh((4, 2), (1, 1), ("data", "model"))
         j = jmesh.make_hybrid_mesh((4, 2), (1, 1), ("data", "model"))
         assert dict(m.shape) == dict(j.shape) == {"data": 4, "model": 2}
-        with pytest.raises(NotImplementedError, match="A.15b"):
+        # DCN axes span processes: without a process group they are refused
+        # by name and number (tests/test_torch_multihost.py runs two).
+        with pytest.raises(ValueError, match=r"DCN axes \(2, 1\) span 2 processes"):
             tmesh.make_hybrid_mesh((4, 1), (2, 1), ("data", "model"))
         tmesh.init_distributed()  # single process: a no-op, as the reference's
+        assert not torch.distributed.is_initialized()
 
     @pytest.mark.parametrize("n", [16, 13, 1])
     def test_pad_rows_matches_the_reference(self, n):

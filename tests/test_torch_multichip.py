@@ -293,3 +293,61 @@ class TestMeshLayoutCost:
 
         with pytest.raises(ValueError, match="no candidate mesh layout"):
             tcost.choose_mesh_layout(100, 8, 1, layouts=((4, 1),), num_devices=2)
+
+
+def _scaling_line(printed: str) -> dict:
+    import json
+
+    (line,) = [ln for ln in printed.splitlines() if ln.startswith("scaling: ")]
+    return json.loads(line[len("scaling: "):])
+
+
+_SCALING_ARGV = ["--scaling", "--n", "1500", "--d", "32", "--nnz", "5", "--chunk", "128",
+                 "--seg", "2", "--iters", "8", "--reps", "2"]
+
+
+class TestScaling:
+    """``tools.multichip --scaling``: the reference's JSON keys, parity over
+    the legs, and ``device_evidence: false`` where shards share a device."""
+
+    def test_scaling_line_has_the_reference_keys(self, capsys):
+        from keystone_tpu.tools import multichip as jmultichip
+        from keystone_tpu_torch.tools import multichip
+
+        assert multichip.main(["--device", "cpu"] + _SCALING_ARGV) == 0
+        ours = _scaling_line(capsys.readouterr().out)
+        assert jmultichip.main(_SCALING_ARGV) == 0
+        ref = _scaling_line(capsys.readouterr().out)
+        assert set(ref) <= set(ours)
+        assert [leg["num_devices"] for leg in ours["legs"]] == [1, 2, 4, 8]
+        assert [leg["num_devices"] for leg in ref["legs"]] == [1, 2, 4, 8]
+        for mine, theirs in zip(ours["legs"], ref["legs"]):
+            assert set(theirs) <= set(mine)
+        assert ours["geometry"] == ref["geometry"]
+        assert ours["bend"]["phase"] == ref["bend"]["phase"] == "gram_solve+psum"
+
+    def test_shared_devices_are_no_device_evidence(self, capsys):
+        from keystone_tpu_torch.tools import multichip
+
+        assert multichip.main(["--device", "cpu"] + _SCALING_ARGV) == 0
+        printed = capsys.readouterr().out
+        got = _scaling_line(printed)
+        assert got["device_evidence"] is False and "not device evidence" in printed
+        assert [leg["shared_device"] for leg in got["legs"]] == [False, True, True, True]
+        for leg in got["legs"]:
+            assert leg["single_device_baseline_s"] == got["legs"][0]["wall_s"]
+            assert leg["fold_s"] + leg["solve_s"] == pytest.approx(leg["wall_s"], abs=2e-4)
+            # The CPU runs the plain versions: no kernel launch is counted.
+            assert leg["launches"] == {}
+
+    def test_parity_over_the_legs_and_fails_closed(self, capsys):
+        from keystone_tpu_torch.tools import multichip
+
+        assert multichip.main(["--device", "cpu"] + _SCALING_ARGV) == 0
+        got = _scaling_line(capsys.readouterr().out)
+        assert got["legs"][0]["parity_max_dw"] == 0.0
+        assert got["parity_worst_max_dw"] <= PARITY_TOL
+        assert got["parity_worst_max_dw"] == max(leg["parity_max_dw"] for leg in got["legs"])
+        # A tolerance below the legs' reassociation noise fails the run.
+        if got["parity_worst_max_dw"] > 0:
+            assert multichip.main(["--device", "cpu", "--tol", "0"] + _SCALING_ARGV) == 1

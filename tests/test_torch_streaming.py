@@ -435,17 +435,25 @@ class TestEstimators:
         want = model.batch_apply(rf.batch_apply(TDataset.of(_t(X)))).to_numpy()
         assert _rel(fused, want) <= 1e-5
 
-    def test_unported_tiers_name_their_roadmap_item(self):
-        # The disk tier (tests/test_torch_outofcore.py) and the one-host
-        # mesh forms (tests/test_torch_mesh_solvers.py) are ported; a mesh
-        # whose axes span hosts, and the multi-process runtime under it,
-        # are not.
+    def test_unported_tiers_name_their_roadmap_item(self, tmp_path):
+        # Every tier is ported now: the disk tier (tests/test_torch_outofcore.py),
+        # the one-host mesh forms (tests/test_torch_mesh_solvers.py) and the
+        # multi-process mesh (tests/test_torch_multihost.py). A mesh whose
+        # DCN axes span processes needs a process group, and a join whose
+        # peer never comes fails within its stated timeout; it connects to
+        # nothing (a file store in tmp_path).
+        import time
+
         from keystone_tpu_torch.parallel import mesh as mesh_lib
 
-        with pytest.raises(NotImplementedError, match="A.15b"):
+        with pytest.raises(ValueError, match="no process group is initialized"):
             mesh_lib.make_hybrid_mesh((4, 1), (2, 1), ("data", "model"))
-        with pytest.raises(NotImplementedError, match="A.15b"):
-            mesh_lib.init_distributed("localhost:1234", num_processes=2, process_id=0)
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError):
+            mesh_lib.init_distributed(f"file://{tmp_path}/store", num_processes=2,
+                                      process_id=0, backend="gloo", timeout_s=1)
+        assert time.perf_counter() - t0 < 30
+        assert not torch.distributed.is_initialized()
         with pytest.raises(TypeError, match="cannot stream a dense fit"):
             tsls._source_d_in(object())
 
