@@ -22,10 +22,21 @@ started together), then:
      ``csrc/gram_corr.cu``, both outputs the same bits); ``gram_corr_sym``
      also at the VOC fit's shape (5,011 x 4,096, k = 20: one ragged row
      chunk);
+     bf16 ``block_gram_sym`` and ``gram_sym_acc`` on the tensor cores
+     (``csrc/gram_wgmma.cuh``, row 8's mainloop): their grids (the window's
+     528 upper tiles, the streamed tile's 8,256, one block an SM, F read in
+     place), their bit links (``block_gram_sym`` = ``gram_sym_acc`` on G =
+     0 mirrored; ``gram_sym_acc`` = ``gram_corr_sym_acc``'s Gramian), each
+     bf16 time beside its bf16 bound and bf16 ``addmm``, bf16
+     ``gram_sym_acc`` at 65,536 x 16,384 against float64 sums (2e-5 of
+     their scale), and bf16 ``gram_corr_sym_acc``'s SHA-256 on a fixed
+     Amazon chunk against its build before the mainloop moved
+     (``row8_bits``);
      for the kernels on the pipelined tile of ``csrc/fma_pipe.cuh``
-     (``block_corr``, ``gram_corr``, ``block_gram_sym`` (the window's 528
-     upper tiles), ``gram_sym_acc`` (the streamed tile's 8,256),
-     ``gram_corr_sym_acc`` with f32 F, ``block_residual_update``,
+     (``block_corr``, ``gram_corr``, ``block_gram_sym`` and
+     ``gram_sym_acc`` with f32 F (the window's 528 upper tiles, the
+     streamed tile's 8,256), ``gram_corr_sym_acc`` with f32 F,
+     ``block_residual_update``,
      ``gaussian_kernel_block``, ``gaussian_resid_block``,
      ``cosine_features``, ``conv_featurize``) also each grid: label (filter)
      tile and masked share, blocks (and ``block_corr``'s row chunks,
@@ -129,7 +140,13 @@ started together), then:
          the winner the streaming choice, which the optimizer binds to the
          cosine bank, with ``gram_sym_acc`` launched once a tile (40), and
          its model (``W_stack``, ``fmean``, ``ymean``) that of
-         ``--solver streaming`` on the same rows and draws (1e-5 relative).
+         ``--solver streaming`` on the same rows and draws (1e-5 relative);
+       - (c) the bf16 Gramians' routes, launches counted from 0: the
+         streamed fit over a bf16 cosine bank on (b)'s rows (20 tiles of
+         65,536: 20 ``gram_sym_acc``), its model within 5e-3 of
+         ``--solver streaming``'s float32 one, and the flat fused fit on a
+         bf16 65,536 x 16,384 slab (4 ``block_gram_sym``), within 5e-3 of
+         the float32 slab's; no operand staged on either.
  12. drives TIMIT ``--solver auto`` at the reference's default width (50
      cosine branches: d = 204,800), past both walls, where the selector
      takes the block-streamed tier (``BlockStreamedLeastSquares`` on
@@ -473,6 +490,17 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
+# bf16 gram_corr_sym_acc's output on row8_bits's fixed Amazon chunk, as the
+# build of its kernel before the tensor-core mainloop moved to
+# csrc/gram_wgmma.cuh gave it (H100 80GB HBM3): the move keeps its bits.
+ROW8_BF16_SHA256 = "5b49275ed2095d38aed26e5d3d88bd8a2e2aa9b272fa6efe6e17b3fb427c3c1a"
+# bf16 gram_sym_acc at 65,536 x 16,384 against float64 sums: at most this
+# share of the sums' scale (gram_corr_sym_acc's bf16 form read 1.4e-5).
+ROW7_F64_TOL = 2e-5
+# The same reading of the FP32-FMA tile that bf16 F took before it moved to
+# the tensor cores (scripts/torch_bf16_gram.py, H100 80GB HBM3).
+ROW7_F64_PARENT = "4.306e-06"
+
 # The TIMIT slice at the bench headline's width.
 N_TRAIN, D_IN, BLOCK, NUM_COSINES, K, EPOCHS = 65536, 440, 4096, 4, 147, 3
 
@@ -496,6 +524,12 @@ STREAM_N, STREAM_TILE = 275000, 32768
 AUTO_WALL_N = 1310720
 AUTO_WALL_TILES = AUTO_WALL_N // STREAM_TILE
 AUTO_WALL_COSINES = NUM_COSINES + 2 * AUTO_WALL_TILES + (AUTO_WALL_N // 4) // STREAM_TILE
+# Phase 11(c): the bf16 routes on the same rows. A bf16 bank's 2 GiB slab
+# holds 65,536 rows of 16,384 features: 20 tiles. Weights within 5e-3
+# relative of the float32 fits (bf16 rounding of the features; the CPU
+# reads 2.4e-3 and 2.6e-3 at a sixteenth of the width).
+BF16_TILE = 65536
+BF16_ROUTE_TOL = 5e-3
 
 # --solver auto at the reference's default width (TimitPipeline.scala's
 # numCosines = 50: d = 204,800) on 131,072 training rows, past both walls:
@@ -636,6 +670,7 @@ SYM_FALSE = "stacked BCD block update with sym=False at TIMIT width"
 LEARN = "learn: run.py learn, the lifecycle gate, the row-stable product"
 AUTO_RESIDENT = "timit --solver auto, resident: the block chain (fit first)"
 AUTO_WALL = "timit --solver auto, past the memory wall: the streamed fit (fit first)"
+BF16_ROUTES = "bf16 Gramians on their routes: the streamed fit's bank and the flat fit's slab"
 WIDE_AUTO = "timit --solver auto at d = 204,800: the block-streamed tier (fit first)"
 BLOCK_RESIDENT = "BlockStreamedLeastSquares on phase 2's rows against --solver block"
 MNIST_APPLY_FIRST = "mnist MnistRandomFFT (apply first, the reference's run)"
@@ -899,7 +934,8 @@ def phase_kernels(cuda_ops):
     X16, W16 = X.to(torch.bfloat16), W.to(torch.bfloat16)
     bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.cosine_features(X16, W16, b), 5)
     r["bf16_library_ms"] = time_ms(lambda: torch.cos(bf16_mm(X16, W16.T, b)), 5)
-    bf16_bound, _ = bound_ms(2 * (m * d + n * d) + 4 * (n + m * n), flops, PEAK_BF16_FLOPS)
+    bf16_bound = r["bf16_bound_ms"] = bound_ms(2 * (m * d + n * d) + 4 * (n + m * n), flops,
+                                               PEAK_BF16_FLOPS)[0]
     # The flat route's call: the branch written into its column window of
     # the (m, 4 n) fused feature matrix.
     fused = torch.empty((m, NUM_COSINES * n), device=dev)
@@ -957,7 +993,8 @@ def phase_kernels(cuda_ops):
     A16 = A.to(torch.bfloat16)
     bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.gram_corr_sym(A16, R), 3)
     r["bf16_library_ms"] = time_ms(lambda: (bf16_mm(A16.T, A16), bf16_mm(A16.T, R)), 3)
-    bf16_bound, _ = bound_ms(2 * m * d + 4 * (m * k + d * d + d * k), flops, PEAK_BF16_FLOPS)
+    bf16_bound = r["bf16_bound_ms"] = bound_ms(2 * m * d + 4 * (m * k + d * d + d * k), flops,
+                                               PEAK_BF16_FLOPS)[0]
     log(f"  gram_corr_sym f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
         f"bf16 operands: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f}, bound "
@@ -1051,9 +1088,12 @@ def phase_gram_corr(cuda_ops, A, R):
     A16 = A.to(torch.bfloat16)
     bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.gram_corr(A16, R), 3)
     r["bf16_library_ms"] = time_ms(lambda: (bf16_mm(A16.T, A16), bf16_mm(A16.T, R)), 3)
+    r["bf16_bound_ms"], _ = bound_ms(2 * m * d + 4 * (m * k + d * d + d * k),
+                                     m * d * (d + 1) + 2 * m * d * k, PEAK_BF16_FLOPS)
     log(f"  gram_corr f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, library "
         f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); bf16 "
-        f"operands: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f})")
+        f"operands: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f}, bf16 bound "
+        f"{r['bf16_bound_ms']:.3f})")
     r["grid"] = {}
     for label, Ak in (("f32", A), ("bf16", A16)):
         grid = cuda_ops.gram_corr_grid(Ak, k)
@@ -1236,18 +1276,31 @@ def phase_window_kernels(cuda_ops, gen):
     F16 = F.to(torch.bfloat16)
     r = results["block_gram_sym"]
     r["grid"] = {}
+    tiles = (b // 128) * (b // 128 + 1) // 2
     for label, Fk in (("f32", F), ("bf16", F16)):
         grid = r["grid"][label] = cuda_ops.block_gram_sym_grid(Fk, s, b)
         log(f"  block_gram_sym {label} F grid: {grid['blocks']} upper tiles "
-            f"({'16-byte' if grid['vec'] else 'element-wise'} copies), {grid_line(grid)}")
-        check(f"block_gram_sym {label} computes the window's upper tiles only, spills nothing "
-              f"and holds 2 blocks an SM at <= 128 registers",
-              grid["blocks"] == (b // 128) * (b // 128 + 1) // 2 and grid["vec"]
-              and grid["local_bytes"] == 0 and grid["blocks_per_sm"] >= 2
-              and grid["registers"] <= 128,
-              f"{grid['blocks']} blocks, {grid['local_bytes']} local bytes, "
-              f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
+            f"({tensor_core_line(grid)}), {grid_line(grid)}")
+    grid = r["grid"]["f32"]
+    check("block_gram_sym f32 computes the window's upper tiles only, spills nothing and holds "
+          "2 blocks an SM at <= 128 registers",
+          grid["blocks"] == tiles and grid["vec"] and not grid["tensor_cores"]
+          and grid["local_bytes"] == 0 and grid["blocks_per_sm"] >= 2
+          and grid["registers"] <= 128,
+          f"{grid['blocks']} blocks, {grid['local_bytes']} local bytes, "
+          f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
+    check_tensor_core_grid("block_gram_sym", r["grid"]["bf16"], tiles)
+    # bf16 F: the window's bits are gram_sym_acc's on G = 0, mirrored (one
+    # tensor-core mainloop; 0 + x = x), and the window is read in place.
     Fw16 = F16[:, s:s + b]
+    staged = dict(cuda_ops.staged)
+    gram = cuda_ops.block_gram_sym(F16, s, b)
+    acc = cuda_ops.gram_sym_acc(torch.zeros((b, b), device=dev), Fw16)
+    link = torch.equal(gram, torch.triu(acc) + torch.triu(acc, 1).T)
+    check(f"block_gram_sym bf16 has the bits of gram_sym_acc(0, F[:, {s}:{s + b}]) mirrored, "
+          f"reading the window in place", link and cuda_ops.staged == staged,
+          f"bitwise equal {link}, staged copies {cuda_ops.staged} (before {staged})")
+    del gram, acc
     bf16_calls = {
         # (kernel, library call)
         "block_gram_sym": (lambda: cuda_ops.block_gram_sym(F16, s, b),
@@ -1264,9 +1317,12 @@ def phase_window_kernels(cuda_ops, gen):
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
         r["bf16_ms"] = time_ms(bf16_calls[name][0], 3)
         r["bf16_library_ms"] = time_ms(bf16_calls[name][1], 3)
+        # bf16 F: the window's bytes halve; the products on the tensor cores.
+        r["bf16_bound_ms"], _ = bound_ms(nbytes - 2 * n * b, flops, PEAK_BF16_FLOPS)
         log(f"  {name} f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
             f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-            f"bf16 F: {r['bf16_ms']:.3f} ms (library {r['bf16_library_ms']:.3f})")
+            f"bf16 F: {r['bf16_ms']:.3f} ms (library {r['bf16_library_ms']:.3f}, bf16 bound "
+            f"{r['bf16_bound_ms']:.3f}, {r['bf16_bound_ms'] / r['bf16_ms']:.1%} of it)")
     r = results["block_corr"]
     r["grid"] = {}
     for label, bf16 in (("f32", False), ("bf16", True)):
@@ -1338,25 +1394,44 @@ def phase_gram_sym_acc(cuda_ops, gen):
     F16 = F.to(torch.bfloat16)
     bf16_ms = r["bf16_ms"] = time_ms(lambda: cuda_ops.gram_sym_acc(G, F16, out=G), 3)
     r["bf16_library_ms"] = time_ms(lambda: bf16_mm(F16.T, F16, G0), 3)
-    bf16_bound, _ = bound_ms(2 * n * d + 8 * d * d, flops, PEAK_BF16_FLOPS)
+    r["bf16_bound_ms"], _ = bound_ms(2 * n * d + 8 * d * d, flops, PEAK_BF16_FLOPS)
     log(f"  gram_sym_acc f32: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
         f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}); "
-        f"bf16 F: {bf16_ms:.3f} ms (library {r['bf16_library_ms']:.3f}, bound "
-        f"{bf16_bound:.3f})")
+        f"bf16 F: {bf16_ms:.3f} ms, {flops / bf16_ms / 1e9:.1f} TFLOP/s (library "
+        f"{r['bf16_library_ms']:.3f}, bf16 bound {r['bf16_bound_ms']:.3f}, "
+        f"{r['bf16_bound_ms'] / bf16_ms:.1%} of it)")
     r["grid"] = {}
+    tiles = -(-d // 128) * (-(-d // 128) + 1) // 2
     for label, Fk in (("f32", F), ("bf16", F16)):
         grid = r["grid"][label] = cuda_ops.gram_sym_acc_grid(Fk)
         log(f"  gram_sym_acc {label} F grid: {grid['blocks']} upper tiles "
-            f"({'16-byte' if grid['vec'] else 'element-wise'} copies), {grid_line(grid)}")
-        check(f"gram_sym_acc {label} computes the upper tiles only, spills nothing and holds "
-              f"2 blocks an SM at <= 128 registers",
-              grid["blocks"] == -(-d // 128) * (-(-d // 128) + 1) // 2 and grid["vec"]
-              and grid["local_bytes"] == 0 and grid["blocks_per_sm"] >= 2
-              and grid["registers"] <= 128,
-              f"{grid['blocks']} blocks, {grid['local_bytes']} local bytes, "
-              f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
-    del F, F16, G, G0, upper
+            f"({tensor_core_line(grid)}), {grid_line(grid)}")
+    grid = r["grid"]["f32"]
+    check("gram_sym_acc f32 computes the upper tiles only, spills nothing and holds 2 blocks an "
+          "SM at <= 128 registers",
+          grid["blocks"] == tiles and grid["vec"] and not grid["tensor_cores"]
+          and grid["local_bytes"] == 0 and grid["blocks_per_sm"] >= 2
+          and grid["registers"] <= 128,
+          f"{grid['blocks']} blocks, {grid['local_bytes']} local bytes, "
+          f"{grid['registers']} registers, {grid['blocks_per_sm']} blocks an SM")
+    check_tensor_core_grid("gram_sym_acc", r["grid"]["bf16"], tiles)
+    # bf16 F: the Gramian of gram_corr_sym_acc's bf16 form, bit for bit (one
+    # tensor-core mainloop), F read in place.
+    staged = dict(cuda_ops.staged)
+    R = torch.randn((n, AMAZON_K), generator=gen, device=dev)
+    C0 = torch.zeros((d, AMAZON_K), device=dev)
+    link = torch.equal(cuda_ops.gram_sym_acc(G0, F16)[upper],
+                       cuda_ops.gram_corr_sym_acc(G0, C0, F16, R)[0][upper])
+    check("gram_sym_acc bf16 has the bits of gram_corr_sym_acc's Gramian, reading F in place",
+          link and cuda_ops.staged == staged,
+          f"bitwise equal {link}, staged copies {cuda_ops.staged} (before {staged})")
+    del F, F16, G, G0, upper, R, C0
     torch.cuda.empty_cache()
+    f64 = r["bf16_vs_f64"] = gram_f64_reading(cuda_ops, gen)
+    check(f"gram_sym_acc bf16 F {N_TRAIN}x{d} within {ROW7_F64_TOL:.0e} of float64 sums",
+          f64["kernel"] <= ROW7_F64_TOL,
+          f"{f64['kernel']:.3e} of the sums' scale (the parent build's FMA kernel read "
+          f"{ROW7_F64_PARENT}; bf16 gram_corr_sym_acc 1.4e-5)")
     return results
 
 
@@ -1414,6 +1489,96 @@ def acc_f64_reading(cuda_ops, F16, F32, R, G0, C0, upper):
     check("gram_corr_sym_acc is finite against float64 sums",
           all(np.isfinite(v) for row in out.values() for v in row.values()), f"{out}")
     return out
+
+
+def tensor_core_line(grid):
+    """How a Gramian-alone grid reads F: on the tensor cores (TMA, in place
+    or staged first) or on the FP32 tile (16-byte or element-wise copies)."""
+    if grid["tensor_cores"]:
+        return "tensor cores, TMA " + ("from a staged copy" if grid["staged"] else "in place")
+    return "FP32 tile, " + ("16-byte" if grid["vec"] else "element-wise") + " copies"
+
+
+def check_tensor_core_grid(name, grid, tiles):
+    """A bf16 Gramian-alone grid: the tensor-core kernel, one block an upper
+    tile, F read in place, no spills, one block an SM."""
+    check(f"{name} bf16 runs on the tensor cores, reads F in place, computes the upper tiles "
+          f"only at one block an SM and spills nothing",
+          grid["tensor_cores"] and not grid["staged"] and grid["blocks"] == tiles
+          and grid["blocks_per_sm"] == 1 and grid["local_bytes"] == 0,
+          f"{grid['blocks']} blocks, {grid['blocks_per_sm']} an SM, {grid['registers']} "
+          f"registers, {grid['local_bytes']} local bytes, staged {grid['staged']}")
+
+
+def gram_f64_reading(cuda_ops, gen):
+    """How far bf16 ``gram_sym_acc`` is from float64 sums at the reference
+    bench's streamed tile, F 65,536 x 16,384 (a random G0), as max |got -
+    f64| / max |f64| over the upper tiles, as ``acc_f64_reading`` reads
+    ``gram_corr_sym_acc``; beside ``addmm`` with bf16 operands and float32
+    output. The float64 sums are made on the card in 8,192-row chunks."""
+    dev = torch.device("cuda")
+    n, d = N_TRAIN, D_FEAT
+    F16 = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+    G0 = torch.randn((d, d), generator=gen, device=dev)
+    tiles = torch.arange(d, device=dev) // 128
+    upper = tiles[:, None] <= tiles[None, :]
+    g64 = G0.double()
+    for start in range(0, n, 8192):
+        Fc = F16[start:start + 8192].double()
+        g64.addmm_(Fc.T, Fc)
+    del Fc
+    g_max = g64[upper].abs().max()
+    out = {}
+    for label, got in (("kernel", lambda: cuda_ops.gram_sym_acc(G0, F16)),
+                       ("library", lambda: bf16_mm(F16.T, F16, G0))):
+        g = got()
+        out[label] = ((g.double() - g64)[upper].abs().max() / g_max).item()
+        del g
+    log(f"  gram_sym_acc bf16 F {n}x{d} against float64 sums (max |err| / max |f64|): kernel "
+        f"{out['kernel']:.3e}, library (addmm) {out['library']:.3e}")
+    del F16, G0, upper, g64
+    torch.cuda.empty_cache()
+    return out
+
+
+def lcg_uniform(rows, cols, salt, device):
+    """A (rows, cols) float32 matrix of values in [-2, 2) from integer
+    arithmetic on each element's index (a Lehmer step, an xor-shift, a
+    second step), so its bits depend on no random number generator of the
+    PyTorch build: a fixed input whose outputs can be compared by hash
+    across builds of a kernel."""
+    p = 2147483647
+    out = torch.empty((rows, cols), device=device)
+    step = max(1, (1 << 26) // cols)
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        h = (torch.arange(r0 * cols, r1 * cols, dtype=torch.int64, device=device) * 48271
+             + salt) % p
+        h = ((h ^ (h >> 13)) * 48271) % p
+        out[r0:r1] = (h.to(torch.float32) * (4.0 / p) - 2.0).view(r1 - r0, cols)
+    return out
+
+
+def row8_bits(cuda_ops):
+    """SHA-256 of bf16 ``gram_corr_sym_acc``'s output, (G's upper tiles, C)
+    in place, on a fixed Amazon chunk (``lcg_uniform`` F 65,536 x 16,385 at
+    the fold's row stride, R 65,536 x 2, G0 and C0): the bits a build of the
+    kernel gives, compared across builds."""
+    import hashlib
+
+    dev = torch.device("cuda")
+    c, d1, k = AMAZON_CHUNK, AMAZON_D + 1, AMAZON_K
+    F = tma_slab(lcg_uniform(c, d1, 1, dev))
+    R = lcg_uniform(c, k, 2, dev)
+    G = lcg_uniform(d1, d1, 3, dev)
+    C = lcg_uniform(d1, k, 4, dev)
+    cuda_ops.gram_corr_sym_acc(G, C, F, R, out=(G, C))
+    tiles = torch.arange(d1, device=dev) // 128
+    digest = hashlib.sha256(G[tiles[:, None] <= tiles[None, :]].cpu().numpy().tobytes())
+    digest.update(C.cpu().numpy().tobytes())
+    del F, R, G, C, tiles
+    torch.cuda.empty_cache()
+    return digest.hexdigest()
 
 
 def phase_gram_corr_sym_acc(cuda_ops, gen):
@@ -1521,6 +1686,11 @@ def phase_gram_corr_sym_acc(cuda_ops, gen):
             f"correlation blocks ({grid['ktile']}-wide label tile), then {grid['gram_blocks']} "
             f"Gramian tiles ({'16-byte' if grid['vec'] else 'element-wise'} copies): "
             f"{grid_line(grid)}")
+    r["bf16_sha256"] = row8_bits(cuda_ops)
+    check("gram_corr_sym_acc bf16 keeps the bits it had before its mainloop moved to "
+          "gram_wgmma.cuh", r["bf16_sha256"] == ROW8_BF16_SHA256,
+          f"SHA-256 of its output on the fixed Amazon chunk {r['bf16_sha256']} (the parent "
+          f"build's {ROW8_BF16_SHA256})")
     grid = r["f32_grid"]["fold's row stride"]
     nt = -(-d1 // 128)
     check("gram_corr_sym_acc f32 computes the upper tiles only, copies the fold's slab in "
@@ -1928,9 +2098,118 @@ def phase_auto(cuda_ops, timit, TimitConfig, stacked_W):
         f"{flag.fit_seconds:.3f} s), relative Frobenius: {rel}")
     check(f"{AUTO_WALL}: model matches --solver streaming", all(v <= 1e-5 for v in rel.values()),
           f"{rel} (each within 1e-5: the same streamed solver, tiles and draws)")
+    walled["solver_streaming_fit_seconds"] = flag.fit_seconds
+    f32_model = {name: getattr(want, name) for name in names}
     del flag, want
     torch.cuda.empty_cache()
-    return resident, walled
+    return resident, walled, f32_model
+
+
+def _rel_to(got, want):
+    """Relative Frobenius distance of each named tensor from ``want``'s."""
+    return {name: _rel(got[name], w) for name, w in want.items()}
+
+
+def bf16_route_fits(cuda_ops):
+    """The bf16 Gramians' two routes at TIMIT's width, launches counted from
+    0 over each fit: (i) the gram-tier streamed fit,
+    ``StreamingFeaturizedLeastSquares`` over a
+    ``CosineBankFeaturize(feat_dtype=torch.bfloat16)`` (440 -> 16,384, 147
+    classes) on AUTO_WALL_N rows in tiles of a 2 GiB bf16 slab, the draws
+    and rows of phase 11(b)'s --solver streaming fit; (ii) the flat fused
+    fit ``bcd_least_squares_fused_flat`` on a bf16 N_TRAIN x D_FEAT slab
+    (phase 2's rows through the same bank, centred, rounded to bf16),
+    blocks of BLOCK, and the same fit on the float32 slab. Returns each
+    fit's seconds, launches, staged copies and weights."""
+    from keystone_tpu_torch.data.loaders import synthetic_timit
+    from keystone_tpu_torch.ops.learning.streaming_ls import (
+        CosineBankFeaturize, StreamingFeaturizedLeastSquares)
+    from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.pipelines import timit
+    from keystone_tpu_torch.workflow.fusion import masked_center
+
+    dev = torch.device("cuda")
+    rfs = timit._cosine_models(timit.TimitConfig(num_cosines=NUM_COSINES, block_size=BLOCK), dev)
+    Wrf, brf = torch.cat([rf.W for rf in rfs]), torch.cat([rf.b for rf in rfs])
+    staged = getattr(cuda_ops, "staged", {})  # a build before the tensor-core form has none
+
+    def timed(fit):
+        torch.cuda.synchronize()
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        return out, dict(fit_seconds=time.perf_counter() - t0, launches=dict(cuda_ops.launches),
+                         staged=dict(staged))
+
+    train = synthetic_timit(AUTO_WALL_N, seed=123, device=dev)
+    labels = ClassLabelIndicatorsFromIntLabels(K)(train.labels)
+    est = StreamingFeaturizedLeastSquares(
+        CosineBankFeaturize(Wrf, brf, torch.bfloat16), d_feat=D_FEAT, block_size=BLOCK,
+        num_iter=EPOCHS, lam=0.0)
+    model, streamed = timed(lambda: est.fit(train.data, labels))
+    streamed.update(n=AUTO_WALL_N, tile_rows=est.tile_rows,
+                    model={name: getattr(model, name) for name in ("W_stack", "fmean", "ymean")})
+    del train, labels, est, model
+    torch.cuda.empty_cache()
+
+    train = synthetic_timit(N_TRAIN, seed=123, device=dev)
+    Y = ClassLabelIndicatorsFromIntLabels(K)(train.labels).array
+    F32 = CosineBankFeaturize(Wrf, brf)(train.data.array)
+    F32, B, _, _ = masked_center(F32, Y, N_TRAIN)
+    F16 = F32.to(torch.bfloat16)
+    del train, Y
+    W16, flat = timed(lambda: linalg.bcd_least_squares_fused_flat(
+        F16, B, BLOCK, lam=0.0, num_iter=EPOCHS))
+    W32, f32 = timed(lambda: linalg.bcd_least_squares_fused_flat(
+        F32, B, BLOCK, lam=0.0, num_iter=EPOCHS))
+    flat.update(n=N_TRAIN, d=D_FEAT, block=BLOCK, f32_fit_seconds=f32["fit_seconds"], W=W16,
+                W32=W32)
+    del F32, F16, B
+    torch.cuda.empty_cache()
+    return dict(streamed=streamed, flat=flat)
+
+
+def phase_bf16_routes(cuda_ops, f32_model, f32_fit_seconds):
+    """Phase 11(c): ``bf16_route_fits`` held to float32 fits on the same
+    rows: the streamed fit to phase 11(b)'s --solver streaming model
+    ``f32_model`` (fitted in ``f32_fit_seconds``), the flat fit to the
+    float32 slab's. bf16 features differ from float32 ones by their
+    rounding, so the weights agree to BF16_ROUTE_TOL, not to the float32
+    routes' 1e-5. Neither route stages a copy of F."""
+    out = bf16_route_fits(cuda_ops)
+    streamed, flat = out["streamed"], out["flat"]
+    rel = streamed["rel_to_f32"] = _rel_to(streamed.pop("model"), f32_model)
+    streamed["f32_fit_seconds"] = f32_fit_seconds
+    counts, staged, tiles = streamed["launches"], streamed["staged"], AUTO_WALL_N // BF16_TILE
+    log(f"  (c) bf16 streamed fit, n={AUTO_WALL_N}, tiles of {streamed['tile_rows']}: fit "
+        f"{streamed['fit_seconds']:.3f} s (float32 --solver streaming on the same rows, tiles "
+        f"of {STREAM_TILE}: {f32_fit_seconds:.3f} s); relative Frobenius to it {rel}; "
+        f"launches {counts}, staged {staged}")
+    check("11(c) bf16 streamed fit: one gram_sym_acc and one cosine bank launch a 65,536-row "
+          "tile, nothing staged",
+          streamed["tile_rows"] == BF16_TILE
+          and same_launches(counts, {"gram_sym_acc": tiles, "cosine_features": tiles})
+          and not any(staged.values()),
+          f"tile {streamed['tile_rows']}, {counts}, staged {staged}")
+    check(f"11(c) bf16 streamed fit within {BF16_ROUTE_TOL} of the float32 fit",
+          all(v <= BF16_ROUTE_TOL for v in rel.values()), f"{rel}")
+    rel = flat["rel_to_f32"] = _rel_to({"W_stack": flat.pop("W")}, {"W_stack": flat.pop("W32")})
+    counts, staged, blocks = flat["launches"], flat["staged"], D_FEAT // BLOCK
+    want = {"block_gram_sym": blocks, "block_corr": EPOCHS * blocks,
+            "block_residual_update": EPOCHS * blocks}
+    log(f"  (c) bf16 flat fit, F {N_TRAIN}x{D_FEAT}, blocks of {BLOCK}: "
+        f"{flat['fit_seconds']:.3f} s (the float32 slab {flat['f32_fit_seconds']:.3f} s); "
+        f"relative Frobenius to it {rel}; launches {counts}, staged {staged}")
+    check("11(c) bf16 flat fit: one block_gram_sym a block (the Gramians stashed after the "
+          "first epoch), nothing staged",
+          same_launches(counts, want) and not any(staged.values()),
+          f"{counts}, expected {want}, staged {staged}")
+    check(f"11(c) bf16 flat fit within {BF16_ROUTE_TOL} of the float32 fit",
+          all(v <= BF16_ROUTE_TOL for v in rel.values()), f"{rel}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def _rel(got, want):
@@ -3170,11 +3449,14 @@ def gaussian_shape(cuda_ops, label, X, Y, xn, yn, diagonal):
                                             2 * m * n * d + 6 * m * n, PEAK_F32_FLOPS)
     X16, Y16 = X.to(torch.bfloat16), Y.to(torch.bfloat16)
     r["bf16_ms"] = time_ms(lambda: cuda_ops.gaussian_kernel_block(X16, Y16, xn, yn, g), reps)
+    r["bf16_bound_ms"], _ = bound_ms(2 * (m * d + n * d) + 4 * (m + n + m * n),
+                                     2 * m * n * d + 6 * m * n, PEAK_BF16_FLOPS)
     grid = r["grid"] = cuda_ops.gaussian_kernel_block_grid(m, n, d, False, X.device)
     log(f"  gaussian_kernel_block {label} f32 {m}x{n}x{d}: {r['ms']:.3f} ms a call, "
         f"{r['device_ms']:.3f} ms on the device (plain "
         f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
-        f"{r['bound_by']}); bf16 operands: {r['bf16_ms']:.3f} ms; grid {grid['tiles']} tiles x "
+        f"{r['bound_by']}); bf16 operands: {r['bf16_ms']:.3f} ms (bf16 bound "
+        f"{r['bf16_bound_ms']:.3f}); grid {grid['tiles']} tiles x "
         f"{grid['splits']} feature chunks, {grid_line(grid)}")
     return r
 
@@ -3232,11 +3514,14 @@ def phase_cifar_kernels(cuda_ops, cuda_images, fusion, gen):
         lambda: cuda_ops.gaussian_resid_block(X16, Y16, xn, yn, W, g), 5)
     r["bf16_library_ms"] = time_ms(
         lambda: bf16_mm(X16, Y16.T, xyn, beta=-g, alpha=2 * g).exp_().T @ W, 5)
+    r["bf16_bound_ms"], _ = bound_ms(
+        2 * (m * d + n * d) + 4 * (m + n + m * k + n * k),
+        2 * m * n * d + 6 * m * n + 2 * m * n * k, PEAK_BF16_FLOPS)
     grid = r["grid"] = cuda_ops.gaussian_resid_block_grid(m, n, d, k, False, dev)
     log(f"  gaussian_resid_block f32: {r['ms']:.3f} ms a call, {r['device_ms']:.3f} ms on the "
         f"device (plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
         f"{r['bound_ms']:.3f} by {r['bound_by']}); bf16 operands: {bf16_ms:.3f} ms (library "
-        f"{r['bf16_library_ms']:.3f}); grid "
+        f"{r['bf16_library_ms']:.3f}, bf16 bound {r['bf16_bound_ms']:.3f}); grid "
         f"{grid['tiles']} column tiles x {grid['splits']} row chunks of "
         f"{grid['chunk_tiles'][0]}-{grid['chunk_tiles'][1]} row tiles, {grid['label_tiles']} "
         f"{grid['ktile']}-wide label pass, {grid['smem_bytes']} bytes of shared memory, "
@@ -8574,9 +8859,12 @@ def main():
     torch.cuda.empty_cache()
     phase("10", "the block update's sym=False route at TIMIT width")
     sym_counts, sym_run = phase_sym_false(cuda_ops)
-    phase("11", "TIMIT --solver auto on both sides of the memory wall")
-    auto_res, auto_wall = phase_auto(cuda_ops, timit, TimitConfig, stacked_model[0])
+    phase("11", "TIMIT --solver auto on both sides of the memory wall; the bf16 routes")
+    auto_res, auto_wall, f32_model = phase_auto(cuda_ops, timit, TimitConfig, stacked_model[0])
     control_refs["timit_test_error"] = auto_res["test_error"]
+    bf16_routes = phase_bf16_routes(cuda_ops, f32_model,
+                                    auto_wall["solver_streaming_fit_seconds"])
+    del f32_model
     phase("12", "TIMIT --solver auto at the reference's default width: the block-streamed "
           "tier")
     phase_block_small(cuda_ops)
@@ -8794,6 +9082,12 @@ def main():
              launches=route_counts[meta["path"]][name], path=meta["path"], **results[name])
         for name, meta in KERNELS.items()
     ]
+    # The bf16 routes' launches (phase 11(c)).
+    for entry in kernels:
+        if entry["name"] == "gram_sym_acc":
+            entry["bf16_launches"] = bf16_routes["streamed"]["launches"]["gram_sym_acc"]
+        elif entry["name"] == "block_gram_sym":
+            entry["bf16_launches"] = bf16_routes["flat"]["launches"]["block_gram_sym"]
     # The serving path's launches (phase 19(a)), beside the fit route's.
     (cosine,) = [k for k in kernels if k["name"] == "cosine_features"]
     cosine["serving_launches"] = serve_plan["launches"].get("cosine_features", 0)
@@ -8834,7 +9128,8 @@ def main():
         entry["multiprocess_launches_by_part"] = by_part
     main_path = {FLAT: flat, STACKED: stacked, STREAMED: streamed, CIFAR: cifar_run,
                  SPARSE: sparse_run, SKETCH: sketch_run, SYM_FALSE: sym_run,
-                 AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BLOCK_RESIDENT: block_resident,
+                 AUTO_RESIDENT: auto_res, AUTO_WALL: auto_wall, BF16_ROUTES: bf16_routes,
+                 BLOCK_RESIDENT: block_resident,
                  WIDE_AUTO: wide_auto, "mnist MnistRandomFFT": mnist_run, AMAZON_TEXT: amazon_run,
                  VOC: voc_run, IMAGENET: imagenet_run, "cifar runners (apply first)": runners,
                  "nystrom KRR": nystrom, "newsgroups NewsgroupsPipeline": news,

@@ -3,12 +3,16 @@
 // without the correlation A^T R, and with one of two epilogues:
 //   - STORE (ACC = false): the sums into out, and off the diagonal into the
 //     mirror tile too, so out is the whole symmetric Gramian (gram_corr.cu's
-//     gram_corr, gram_corr_sym and block_gram_sym);
+//     gram_corr and gram_corr_sym, float32 or bf16 A, and block_gram_sym
+//     with float32 F);
 //   - ACC (ACC = true): out = in + sums on the upper tiles only, nothing
 //     mirrored, the strictly-lower tiles of out never written; in and out
-//     may be the same buffer (gram_corr.cu's gram_sym_acc, the streamed
-//     fold's step, and gram_corr_sym_acc.cu's float32 form, the sparse
-//     fold's step), and so may the correlation's.
+//     may be the same buffer (gram_corr.cu's gram_sym_acc with float32 F,
+//     the streamed fold's step, and gram_corr_sym_acc.cu's float32 form,
+//     the sparse fold's step), and so may the correlation's.
+// A bf16 Gramian alone (block_gram_sym, gram_sym_acc) and gram_corr_sym_acc
+// with bf16 F run on the tensor cores instead (gram_wgmma.cuh): the
+// Gramian-alone kernel here is float32 only.
 //
 // Every output tile is one block of one launch that loops over all n rows
 // itself, so nothing carries between blocks and no atomics are needed; the
@@ -47,7 +51,7 @@
 //     into chunks would fill waves better, but changes its sums' order.
 //   - Blocks [ncorr, ...): one block an upper Gramian tile (ti <= tj),
 //     row-major over the upper triangle, 128 x 128 (8 x 8 outputs a
-//     thread). gram_kernel launches these alone.
+//     thread). gram_kernel launches these alone, for float32 A.
 // Rows stream through a 3-stage cp.async ring of 32-row stages for the
 // Gramian and of 16-row stages for the correlation, in 16-byte chunks when
 // A's base and row stride are 16-byte aligned (VA; PA, the instance that
@@ -197,12 +201,12 @@ gram_corr_kernel(const TA* __restrict__ A, const float* __restrict__ R, Out g, O
   gram_tile<TA, VA, PA, ACC>(smem, A, g, n, d, lda, nt, blockIdx.x - ncorr);
 }
 
-// The Gramian tiles alone: block p is upper tile p.
-template <typename TA, bool VA, bool PA, bool ACC>
+// The Gramian tiles alone, float32 A: block p is upper tile p.
+template <bool VA, bool PA, bool ACC>
 __global__ void __launch_bounds__(THREADS, MINB)
-gram_kernel(const TA* __restrict__ A, Out g, int n, int d, long long lda, int nt) {
+gram_kernel(const float* __restrict__ A, Out g, int n, int d, long long lda, int nt) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gram_tile<TA, VA, PA, ACC>(smem, A, g, n, d, lda, nt, blockIdx.x);
+  gram_tile<float, VA, PA, ACC>(smem, A, g, n, d, lda, nt, blockIdx.x);
 }
 
 // The copy instance for A (base pointer, row stride lda, d columns):
@@ -227,12 +231,12 @@ inline int corr_blocks(int d, int k, int ktile) {
   return (d + 16 * CORR_MI - 1) / (16 * CORR_MI) * ((k + ktile - 1) / ktile);
 }
 
-// A kernel's resources on the current device: out[0] its resident blocks
-// an SM, out[1..2] registers and local (spilled) bytes a thread, out[3] the
-// SM count.
+// A kernel's resources on the current device at `threads` a block: out[0]
+// its resident blocks an SM, out[1..2] registers and local (spilled) bytes
+// a thread, out[3] the SM count.
 template <typename Kernel>
-cudaError_t resources(Kernel kernel, int smem, int* out) {
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, THREADS, smem);
+cudaError_t resources(Kernel kernel, int smem, int* out, int threads = THREADS) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
@@ -298,44 +302,42 @@ int launch(const TA* A, const float* R, const Out& g, const Out& c, int n, int d
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TA>
-using GramKernel = void (*)(const TA*, Out, int, int, long long, int);
+using GramKernel = void (*)(const float*, Out, int, int, long long, int);
 
-// The Gramian-alone kernel for the operand W (base pointer, row stride ldf,
-// b columns): a 16-byte instance where rows_vec_ok (vec), else the
-// element-wise one.
-template <typename TA, bool ACC>
-cudaError_t gram_instance(const TA* W, int b, long long ldf, GramKernel<TA>* kernel,
-                          bool* vec) {
+// The Gramian-alone kernel for the float32 operand W (base pointer, row
+// stride ldf, b columns): a 16-byte instance where rows_vec_ok (vec), else
+// the element-wise one.
+template <bool ACC>
+cudaError_t gram_instance(const float* W, int b, long long ldf, GramKernel* kernel, bool* vec) {
   *vec = rows_vec_ok(W, ldf);
-  *kernel = with_copies(W, ldf, b, [](auto va, auto pa) -> GramKernel<TA> {
-    return gram_kernel<TA, decltype(va)::value, decltype(pa)::value, ACC>;
+  *kernel = with_copies(W, ldf, b, [](auto va, auto pa) -> GramKernel {
+    return gram_kernel<decltype(va)::value, decltype(pa)::value, ACC>;
   });
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              gram_smem<TA>());
+                              gram_smem<float>());
 }
 
 // The Gramian-alone grid: out[0] blocks, out[1] whether the 16-byte path
 // is taken, out[2..5] the kernel's resources.
-template <typename TA, bool ACC>
-cudaError_t gram_plan(const TA* W, int b, long long ldf, int* out) {
-  GramKernel<TA> kernel;
+template <bool ACC>
+cudaError_t gram_plan(const float* W, int b, long long ldf, int* out) {
+  GramKernel kernel;
   bool vec;
-  const cudaError_t err = gram_instance<TA, ACC>(W, b, ldf, &kernel, &vec);
+  const cudaError_t err = gram_instance<ACC>(W, b, ldf, &kernel, &vec);
   if (err != cudaSuccess) return err;
   out[0] = gram_blocks(b);
   out[1] = vec;
-  return resources(kernel, gram_smem<TA>(), out + 2);
+  return resources(kernel, gram_smem<float>(), out + 2);
 }
 
-template <typename TA, bool ACC>
-int launch_gram(const TA* W, const Out& g, int n, int b, long long ldf, cudaStream_t stream) {
-  GramKernel<TA> kernel;
+template <bool ACC>
+int launch_gram(const float* W, const Out& g, int n, int b, long long ldf, cudaStream_t stream) {
+  GramKernel kernel;
   bool vec;
-  const cudaError_t err = gram_instance<TA, ACC>(W, b, ldf, &kernel, &vec);
+  const cudaError_t err = gram_instance<ACC>(W, b, ldf, &kernel, &vec);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<gram_blocks(b), THREADS, gram_smem<TA>(), stream>>>(W, g, n, b, ldf,
-                                                              (b + TM - 1) / TM);
+  kernel<<<gram_blocks(b), THREADS, gram_smem<float>(), stream>>>(W, g, n, b, ldf,
+                                                                 (b + TM - 1) / TM);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,16 +17,17 @@ run:
     tile);
   - :func:`block_gram_sym`, :func:`block_corr`,
     :func:`block_residual_update` ↔ their ``pallas_ops`` namesakes: the
-    flat solver's Gramian (``csrc/gram_corr.cu``'s Gramian tiles alone),
-    correlation and residual update (``csrc/block_corr.cu``,
+    flat solver's Gramian (``csrc/gram_corr.cu``'s Gramian tiles alone;
+    bf16 F on the tensor cores, ``csrc/gram_wgmma.cuh``), correlation and
+    residual update (``csrc/block_corr.cu``,
     ``csrc/block_residual_update.cu``) over the column window
     ``F[:, s:s+b]``, read in place through F's row stride (never copied).
     :func:`strided_gram_ok` is the guard that sends the solver to them;
   - :func:`gram_sym_acc` ↔ ``pallas_ops.gram_sym_acc``
     (``csrc/gram_corr.cu``'s Gramian tiles alone, with an accumulating
-    epilogue): ``G + FᵀF`` on the upper-triangle tiles, the streamed fit's
-    per-tile Gramian fold, accumulating in place. :func:`gram_acc_ok` is
-    its guard;
+    epilogue; bf16 F on the tensor cores, ``csrc/gram_wgmma.cuh``):
+    ``G + FᵀF`` on the upper-triangle tiles, the streamed fit's per-tile
+    Gramian fold, accumulating in place. :func:`gram_acc_ok` is its guard;
   - :func:`gram_corr_sym_acc` ↔ ``pallas_ops.gram_corr_sym_acc``
     (``csrc/gram_corr_sym_acc.cu``): ``(G + FᵀF, C + FᵀR)`` in one pass
     over F, the sparse gram fold's chunk step (``ops/sparse.py``),
@@ -52,9 +53,11 @@ whatever the row count, the linear models' product in every exported
 plan's buckets and every fused batch apply (ROADMAP C.8: the reference
 leaves that product to XLA, and cuBLAS sums by the batch's shape).
 
-All but the CountSketch kernel and ``gram_corr_sym_acc`` with bf16 F (TMA
-loads into ``wgmma`` on the tensor cores) run on one FP32-FMA register
-tile, ``row_stable_matmul`` among them, the pipelined one of
+All but the CountSketch kernel and the bf16 forms of ``gram_corr_sym_acc``,
+``gram_sym_acc`` and ``block_gram_sym`` (one TMA + ``wgmma`` mainloop on
+the tensor cores, ``csrc/gram_wgmma.cuh``, whose operand layout
+:func:`_tma_layout_ok` states) run on one FP32-FMA register tile,
+``row_stable_matmul`` among them, the pipelined one of
 ``csrc/fma_pipe.cuh`` (a ring of stages, operands row-major or K-major,
 label tiles sized to k; chunks of the reduction that fill whole waves for
 ``block_corr``, :func:`corr_splits`, ``gaussian_kernel_block``,
@@ -62,8 +65,9 @@ label tiles sized to k; chunks of the reduction that fill whole waves for
 :func:`gaussian_resid_splits`): ``cosine_features``, ``block_corr``,
 ``block_residual_update``, the two Gaussian kernels, and the Gramian
 kernels of ``csrc/gram_tile.cuh`` — ``gram_corr.cu``'s four wrappers
-(``gram_corr_sym``, ``gram_corr``, ``block_gram_sym``, ``gram_sym_acc``)
-and ``gram_corr_sym_acc`` with float32 F; and the image featurizer
+(``gram_corr_sym`` and ``gram_corr`` in both dtypes, ``block_gram_sym``
+and ``gram_sym_acc`` with float32 F) and ``gram_corr_sym_acc`` with
+float32 F; and the image featurizer
 (``csrc/conv_featurize.cu``, its patch tiles built in shared memory),
 whose wrapper is in ``ops/cuda_images.py`` and whose kernel is built,
 loaded and counted here with the others.
@@ -78,7 +82,9 @@ run the same checks and
 return an empty meta output of the kernel's shape and dtype, launching
 nothing. ``launches[name]`` counts the
 wrapper's kernel launches (and nothing else), so a run can show that its
-main path went through the kernels.
+main path went through the kernels; ``staged[name]`` counts the bf16
+operands ``gram_sym_acc`` and ``block_gram_sym`` copied into TMA-ready
+rows before their launch.
 
 The kernels are built at first use: ``nvcc`` compiles each source under
 ``csrc/`` for ``sm_90a`` into a shared library with a plain C interface
@@ -113,6 +119,10 @@ launches: Dict[str, int] = {
     "conv_featurize": 0, "gram_corr_sym_acc": 0, "gram_corr": 0,
     "countsketch_scatter": 0, "row_stable_matmul": 0,
 }
+# bf16 operands copied into TMA-ready rows (a 16-byte-aligned base, a row
+# stride of a multiple of 8 elements) before the wrapper's launch, since
+# the last reset_launch_counts(): their layout failed _tma_layout_ok.
+staged: Dict[str, int] = {"gram_sym_acc": 0, "block_gram_sym": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent.parent / "build" / "keystone_tpu_torch"
@@ -200,8 +210,9 @@ _capturing = threading.local()
 
 def reset_launch_counts() -> None:
     with _launch_lock:
-        for name in launches:
-            launches[name] = 0
+        for counts in (launches, staged):
+            for name in counts:
+                counts[name] = 0
 
 
 def count_launches(name: str, n: int = 1) -> None:
@@ -358,6 +369,29 @@ def _check_rows(name: str, t: torch.Tensor, what: str) -> None:
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _tma_layout_ok(ptr: int, row_stride: int, col_start: int = 0) -> bool:
+    """Whether the tensor-core Gramian's TMA loads can read bf16 rows in
+    place (``csrc/gram_wgmma.cuh``): the base address ``ptr`` and the first
+    column ``col_start`` of the window on a 16-byte boundary, and a row
+    stride (in elements) that is a multiple of 16 bytes."""
+    return ptr % 16 == 0 and row_stride % 8 == 0 and col_start % 8 == 0
+
+
+def _tma_rows(name: str, F, col_start: int, width: int):
+    """The bf16 columns ``[col_start, col_start + width)`` of F where the
+    tensor-core kernel reads them: F itself (its base moved to the window)
+    when the layout passes :func:`_tma_layout_ok`, else a copy into a new
+    buffer whose row stride is ``width`` rounded up to 8 elements, counted
+    in ``staged[name]``. Returns (operand, its first column)."""
+    if _tma_layout_ok(F.data_ptr(), F.stride(0), col_start):
+        return F, col_start
+    rows = torch.empty((F.shape[0], -(-width // 8) * 8), dtype=F.dtype, device=F.device)
+    rows = rows[:, :width].copy_(F[:, col_start:col_start + width])
+    with _launch_lock:
+        staged[name] += 1
+    return rows, 0
 
 
 # ---------------------------------------------------------------------------
@@ -663,7 +697,13 @@ def strided_gram_ok(F, block: int) -> bool:
     tile-aligned rows and windows; these mask ragged edges, so the guard
     asks only for whole windows (``d % block == 0``), a 2-D F with
     contiguous rows (the window is read through the row stride), and an
-    f32 accumulation dtype (F float32 or bfloat16)."""
+    f32 accumulation dtype (F float32 or bfloat16). For bf16 F,
+    :func:`block_gram_sym` runs on the tensor cores, whose TMA loads read
+    the window in place where :func:`_tma_layout_ok` holds (F's base and
+    row stride, and ``block``, multiples of 16 bytes: the flat fit's slab
+    at TIMIT's d = 16,384 and blocks of 4,096) and a copy of it otherwise;
+    :func:`block_corr` and :func:`block_residual_update` take any bf16
+    window on their FP32-FMA tiles."""
     return (
         F.dim() == 2
         and block > 0
@@ -697,33 +737,64 @@ def block_gram_sym_ref(F, col_start: int, block: int):
     return torch.triu(G) + torch.triu(G, 1).T
 
 
+def _gram_alone_config(out, staged_copy: bool) -> Dict[str, float]:
+    """A Gramian-alone launch's grid from its config entry point's 7 ints
+    (``csrc/gram_corr.cu``'s ``gram_config``)."""
+    blocks, vec, bps, regs, local, sms, tensor_cores = out
+    return _grid(dict(blocks=blocks, vec=bool(vec), tensor_cores=bool(tensor_cores),
+                      staged=staged_copy, blocks_per_sm=bps, registers=regs,
+                      local_bytes=local), sms)
+
+
 def block_gram_sym_grid(F, col_start: int, block: int) -> Dict[str, float]:
     """The grid :func:`block_gram_sym` launches for the window
     ``F[:, col_start:col_start+block]`` of F (on a card): its blocks (the
-    upper 128 x 128 tiles), whether it copies the window in 16-byte chunks
-    (``vec``: the window's base and F's row stride whole chunks), the
-    kernel's resident blocks an SM, registers and local (spilled) bytes a
-    thread, and the waves."""
-    out = (ctypes.c_int * 6)()
+    upper 128 x 128 tiles), whether it runs on the tensor cores
+    (``tensor_cores``: bf16 F) and, if so, whether the window is first
+    copied into TMA-ready rows (``staged``), for float32 F whether it copies
+    the window in 16-byte chunks (``vec``: the window's base and F's row
+    stride whole chunks), the kernel's resident blocks an SM, registers and
+    local (spilled) bytes a thread, and the waves."""
+    col_start, block = int(col_start), int(block)
+    bf16 = F.dtype == torch.bfloat16
+    staged_copy = bf16 and not _tma_layout_ok(F.data_ptr(), F.stride(0), col_start)
+    out = (ctypes.c_int * 7)()
     with torch.cuda.device(F.device):
         err = _lib("block_gram_sym").kt_block_gram_sym_config(
-            F.data_ptr(), int(col_start), int(block), F.stride(0),
-            int(F.dtype == torch.bfloat16), out)
+            F.data_ptr(), col_start, block, F.stride(0), int(bf16), out)
     _check_launch("block_gram_sym", err)
-    blocks, vec, bps, regs, local, sms = out
-    return _grid(dict(blocks=blocks, vec=bool(vec), blocks_per_sm=bps, registers=regs,
-                      local_bytes=local), sms)
+    return _gram_alone_config(out, staged_copy)
+
+
+def _check_tensor_map(name: str, err: int) -> None:
+    if err == -1:
+        raise RuntimeError(f"{name}: the TMA tensor map of F could not be made "
+                           f"(cuTensorMapEncodeTiled failed or is missing)")
+    _check_launch(name, err)
 
 
 def block_gram_sym(F, col_start: int, block: int):
     """Symmetric Gramian of the column window ``F[:, col_start:col_start+block]``,
-    read in place (no window copy), upper-triangle tiles only (the Gramian
-    tiles of ``csrc/gram_corr.cu``, no correlation; every entry float32
-    FMA chains over row chunks of 2,048 in order, the chunks' sums added in
-    order, so the bits of :func:`gram_corr_sym`
-    on a copy of the window). F: (n, d) float32 or bfloat16 with contiguous
-    rows. Returns (block, block) float32 (:func:`block_gram_sym_grid` gives
-    the launch's grid)."""
+    its upper-triangle tiles computed and mirrored, no correlation. F:
+    (n, d) float32 or bfloat16 with contiguous rows. Returns (block, block)
+    float32 (:func:`block_gram_sym_grid` gives the launch's grid).
+
+    float32 F: the Gramian tiles of ``csrc/gram_corr.cu``, the window read
+    in place; every entry float32 FMA chains over row chunks of 2,048 in
+    order, the chunks' sums added in order, so the bits of
+    :func:`gram_corr_sym` on a copy of the window.
+
+    bfloat16 F: the tensor cores (``csrc/gram_wgmma.cuh``, TMA + ``wgmma``,
+    its STORE epilogue), the window read in place where
+    :func:`_tma_layout_ok` holds for it, else copied first into rows of a
+    stride rounded up to 8 elements (counted in ``staged``; the same bits
+    either way). The output has the bits of ``gram_sym_acc(0, window)``
+    with its upper triangle mirrored (``triu(G) + triu(G, 1).T``).
+
+    Bound on an H100 at the TIMIT window (F 65,536 x 16,384, 4,096
+    columns): 16.4 ms for float32 F at the FP32 peak, 1.11 ms for bf16 F at
+    the tensor cores' bf16 peak, both by operations.
+    """
     col_start, block = int(col_start), int(block)
     if F.device.type == "cpu":
         return block_gram_sym_ref(F, col_start, block)
@@ -733,15 +804,16 @@ def block_gram_sym(F, col_start: int, block: int):
     gram = torch.empty((block, block), dtype=torch.float32, device=device)
     if block == 0:
         return gram
+    bf16 = F.dtype == torch.bfloat16
     fn = _lib(name).kt_block_gram_sym
     with torch.cuda.device(device):
+        if bf16:
+            F, col_start = _tma_rows(name, F, col_start, block)
         stream = torch.cuda.current_stream(device).cuda_stream
         count_launches(name)
-        err = fn(
-            F.data_ptr(), gram.data_ptr(), F.shape[0], col_start, block, F.stride(0),
-            int(F.dtype == torch.bfloat16), stream,
-        )
-    _check_launch(name, err)
+        err = fn(F.data_ptr(), gram.data_ptr(), F.shape[0], col_start, block, F.stride(0),
+                 int(bf16), stream)
+    _check_tensor_map(name, err)
     return gram
 
 
@@ -959,14 +1031,16 @@ def block_residual_update(F, col_start: int, block: int, dW, R):
 
 
 def gram_acc_ok(F) -> bool:
-    """Whether :func:`gram_sym_acc`'s kernel can read the feature tile F
-    as it is (counterpart of ``pallas_ops.gram_acc_ok``). The TPU kernel
-    needs rows in whole 512-row tiles and d in whole 512- or 1024-wide
-    column tiles; this one masks ragged edges, so the guard asks only for
-    a 2-D F with contiguous rows and an f32 accumulation dtype (F float32
-    or bfloat16). The streamed fold copies a card tile that fails it to
-    contiguous rows; the fold's carry G is float32 (d, d) with contiguous
-    rows by construction."""
+    """Whether :func:`gram_sym_acc`'s kernels can read the feature tile F
+    (counterpart of ``pallas_ops.gram_acc_ok``). The TPU kernel needs rows
+    in whole 512-row tiles and d in whole 512- or 1024-wide column tiles;
+    these mask ragged edges, so the guard asks only for a 2-D F with
+    contiguous rows and an f32 accumulation dtype: float32 F (the FP32-FMA
+    tile) or bfloat16 F (the tensor cores, which read it in place where
+    :func:`_tma_layout_ok` holds, as the cosine bank's bf16 tiles do when d
+    is a multiple of 8, and a copy of it otherwise). The streamed fold
+    copies a card tile that fails it to contiguous rows; the fold's carry G
+    is float32 (d, d) with contiguous rows by construction."""
     return (
         F.dim() == 2
         and (F.shape[1] <= 1 or F.stride(1) == 1)
@@ -985,18 +1059,17 @@ def gram_sym_acc_ref(G, F):
 
 def gram_sym_acc_grid(F) -> Dict[str, float]:
     """The grid :func:`gram_sym_acc` launches for the feature tile F (on a
-    card): its blocks (the upper 128 x 128 tiles), whether it copies F in
-    16-byte chunks (``vec``: F's base and row stride whole chunks), the
-    kernel's resident blocks an SM, registers and local (spilled) bytes a
-    thread, and the waves."""
-    out = (ctypes.c_int * 6)()
+    card): :func:`block_gram_sym_grid`'s keys for F's d columns (bf16 F on
+    the tensor cores, ``staged`` where F is first copied into TMA-ready
+    rows; float32 F copied in 16-byte chunks where ``vec``)."""
+    bf16 = F.dtype == torch.bfloat16
+    staged_copy = bf16 and not _tma_layout_ok(F.data_ptr(), F.stride(0))
+    out = (ctypes.c_int * 7)()
     with torch.cuda.device(F.device):
         err = _lib("gram_sym_acc").kt_gram_sym_acc_config(
-            F.data_ptr(), F.shape[1], F.stride(0), int(F.dtype == torch.bfloat16), out)
+            F.data_ptr(), F.shape[1], F.stride(0), int(bf16), out)
     _check_launch("gram_sym_acc", err)
-    blocks, vec, bps, regs, local, sms = out
-    return _grid(dict(blocks=blocks, vec=bool(vec), blocks_per_sm=bps, registers=regs,
-                      local_bytes=local), sms)
+    return _gram_alone_config(out, staged_copy)
 
 
 def gram_sym_acc(G, F, out=None):
@@ -1011,12 +1084,22 @@ def gram_sym_acc(G, F, out=None):
     last accumulation (``triu(G) + triu(G, 1).T``), as the reference's
     contract has it.
 
-    On the card it launches the Gramian tiles of ``csrc/gram_corr.cu``
+    On the card float32 F takes the Gramian tiles of ``csrc/gram_corr.cu``
     (:func:`block_gram_sym`'s) with an accumulating epilogue: each entry is
     G's entry plus float32 FMA chains over row chunks of 2,048, the chunks'
-    sums added in order, so
-    in place gives the bits of a new buffer (:func:`gram_sym_acc_grid`
-    gives the launch's grid).
+    sums added in order. bfloat16 F takes the tensor cores
+    (``csrc/gram_wgmma.cuh``, TMA + ``wgmma``), the kernel of
+    :func:`gram_corr_sym_acc`'s bf16 form with no labels, so its output
+    has the bits of that form's Gramian; F is read in place where
+    :func:`_tma_layout_ok` holds, else copied first into rows of a stride
+    rounded up to 8 elements (counted in ``staged``; the same bits either
+    way). In both, each entry is read and written by one thread in one
+    fixed order, so in place gives the bits of a new buffer
+    (:func:`gram_sym_acc_grid` gives the launch's grid).
+
+    Bound on an H100 at the streamed fit's tile (F 32,768 x 16,384): 131.3
+    ms for float32 F at the FP32 peak, 8.89 ms for bf16 F at the tensor
+    cores' bf16 peak, both by operations.
     """
     operands = (G, F) if out is None else (G, F, out)
     if all(t.device.type == "cpu" for t in operands):
@@ -1041,15 +1124,16 @@ def gram_sym_acc(G, F, out=None):
             )
     if d == 0:
         return out
+    bf16 = F.dtype == torch.bfloat16
     fn = _lib(name).kt_gram_sym_acc
     with torch.cuda.device(device):
+        if bf16:
+            F, _ = _tma_rows(name, F, 0, d)
         stream = torch.cuda.current_stream(device).cuda_stream
         count_launches(name)
-        err = fn(
-            F.data_ptr(), G.data_ptr(), out.data_ptr(), n, d, F.stride(0), G.stride(0),
-            out.stride(0), int(F.dtype == torch.bfloat16), stream,
-        )
-    _check_launch(name, err)
+        err = fn(F.data_ptr(), G.data_ptr(), out.data_ptr(), n, d, F.stride(0), G.stride(0),
+                 out.stride(0), int(bf16), stream)
+    _check_tensor_map(name, err)
     return out
 
 
@@ -1070,7 +1154,7 @@ def gram_corr_acc_ok(F) -> bool:
     if F.dim() == 2 and F.numel() == 0 and F.dtype in _KERNEL_DTYPES:
         return True
     return gram_acc_ok(F) and (
-        F.dtype != torch.bfloat16 or (F.data_ptr() % 16 == 0 and F.stride(0) % 8 == 0)
+        F.dtype != torch.bfloat16 or _tma_layout_ok(F.data_ptr(), F.stride(0))
     )
 
 
@@ -1184,10 +1268,7 @@ def gram_corr_sym_acc(G, C, F, R, out=None):
             cout.data_ptr(), n, d, k, F.stride(0), Rk.stride(0), G.stride(0), C.stride(0),
             gout.stride(0), cout.stride(0), int(F.dtype == torch.bfloat16), stream,
         )
-    if err == -1:
-        raise RuntimeError(f"{name}: the TMA tensor map of F could not be made "
-                           f"(cuTensorMapEncodeTiled failed or is missing)")
-    _check_launch(name, err)
+    _check_tensor_map(name, err)
     return out
 
 

@@ -228,7 +228,10 @@ class CosineBankFeaturize:
     the operands to bf16 (products still accumulate in float32) and writes
     bf16 features, the reference's Pallas form; its XLA form, the
     reference's CPU default, computes in float32 and rounds only the
-    output."""
+    output. bf16 tiles are written at a row stride rounded up to 8
+    elements (16 bytes), so the streamed fold's ``gram_sym_acc`` reads them
+    in place on the tensor cores (``cuda_ops._tma_layout_ok``) whatever the
+    bank's width."""
 
     def __init__(self, Wrf_flat, brf_flat, feat_dtype: torch.dtype = torch.float32):
         self.Wrf = as_tensor(Wrf_flat)
@@ -236,9 +239,15 @@ class CosineBankFeaturize:
         self.feat_dtype = feat_dtype
 
     def __call__(self, X_t):
+        X_t = as_tensor(X_t, self.Wrf.device).contiguous()
+        out = None
+        d = self.Wrf.shape[0]
+        if self.feat_dtype == torch.bfloat16 and d % 8:
+            out = torch.empty((X_t.shape[0], -(-d // 8) * 8), dtype=torch.bfloat16,
+                              device=X_t.device)[:, :d]
         return cuda_ops.cosine_features(
-            as_tensor(X_t, self.Wrf.device).contiguous(), self.Wrf, self.brf,
-            compute_dtype=self.feat_dtype, out_dtype=self.feat_dtype,
+            X_t, self.Wrf, self.brf, compute_dtype=self.feat_dtype, out_dtype=self.feat_dtype,
+            out=out,
         )
 
 

@@ -327,6 +327,19 @@ class TestKernelOnCard:
             want = want + cuda_ops.gram_corr_sym(F[i:i + CORR_CHUNK], R[i:i + CORR_CHUNK])[1]
         assert n > CORR_CHUNK and torch.equal(corr, want)
 
+    @pytest.mark.parametrize("n,d,k", [(1000, 300, 2), (257, 129, 147)])
+    def test_bf16_has_the_bits_of_gram_sym_acc_and_block_gram_sym(self, cuda_device, n, d, k):
+        # One tensor-core mainloop (gram_wgmma.cuh): the bf16 Gramian of
+        # gram_corr_sym_acc is gram_sym_acc's, bit for bit, and
+        # block_gram_sym's is gram_sym_acc's on G = 0, mirrored (0 + x = x).
+        G, C, F, R = _operands(n, d, k, seed=7, device=cuda_device, dtype=torch.bfloat16)
+        gram, _ = cuda_ops.gram_corr_sym_acc(G, C, F, R)
+        upper = _upper(d, cuda_device)
+        assert torch.equal(gram[upper], cuda_ops.gram_sym_acc(G, F)[upper])
+        acc = cuda_ops.gram_sym_acc(torch.zeros_like(G), F)
+        assert torch.equal(cuda_ops.block_gram_sym(F, 0, d),
+                           torch.triu(acc) + torch.triu(acc, 1).T)
+
     @pytest.mark.parametrize("ld,vec", [(16385, False), (16388, True)])
     def test_f32_grid_at_the_amazon_chunk(self, cuda_device, ld, vec):
         # d₁ = 16,385, k = 2: 257 correlation blocks of 64 columns with the

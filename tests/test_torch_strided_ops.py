@@ -232,6 +232,21 @@ class TestWrappersOnTheCpu:
                       if "(smem, A, lda, i0, d, A, lda, j0, d," in p.read_text()]
         assert gram_loops == ["gram_tile.cuh"]
 
+    def test_tensor_core_gramian_is_written_once(self):
+        # The TMA + wgmma mainloop lives in gram_wgmma.cuh alone, and both
+        # Gramian sources include it; the FMA Gramian-alone kernel has no
+        # bf16 instance (bf16 block_gram_sym and gram_sym_acc run on the
+        # tensor cores).
+        where = [p.name for p in sorted(cuda_ops._CSRC.iterdir())
+                 if "wgmma.mma_async" in p.read_text()]
+        assert where == ["gram_wgmma.cuh"]
+        for name in ("gram_corr.cu", "gram_corr_sym_acc.cu"):
+            assert '#include "gram_wgmma.cuh"' in (cuda_ops._CSRC / name).read_text()
+        text = (cuda_ops._CSRC / "gram_corr.cu").read_text()
+        assert "launch_gram<__nv_bfloat16" not in text and "gram_plan<__nv_bfloat16" not in text
+        assert "gram_kernel(const float* __restrict__ A" in (
+            cuda_ops._CSRC / "gram_tile.cuh").read_text()
+
     def test_shared_source_builds_one_library(self):
         # gram_corr_sym, block_gram_sym and gram_sym_acc launch the kernels of
         # gram_corr.cu: one library, with every wrapper's entry points bound.
@@ -310,6 +325,104 @@ class TestWrappersOnTheCpu:
         assert where == ["fma_pipe.cuh"]
         for name in ("block_corr.cu", "gram_tile.cuh", "block_residual_update.cu"):
             assert "with_label_tile(k," in (cuda_ops._CSRC / name).read_text()
+
+
+class TestTmaLayout:
+    """The bf16 layout the tensor-core Gramian's TMA loads read in place
+    (``cuda_ops._tma_layout_ok``), the staging copy of any other, and the
+    layouts the bf16 routes hand to ``gram_sym_acc`` and
+    ``block_gram_sym``: all on the CPU, where the wrappers take their plain
+    versions, so the routes' calls are recorded."""
+
+    @pytest.mark.parametrize("ptr,row_stride,col_start,ok", [
+        (0, 8, 0, True), (1024, 16384, 8192, True), (16, 264, 8, True), (48, 16448, 0, True),
+        (8, 8, 0, False), (2, 16384, 0, False), (0, 300, 0, False), (0, 16385, 0, False),
+        (0, 16448, 3, False), (0, 16448, 4, False),
+    ])
+    def test_answers(self, ptr, row_stride, col_start, ok):
+        # A 16-byte-aligned base, a row stride of whole 16 bytes (8 bf16),
+        # and a window start on a 16-byte boundary.
+        assert cuda_ops._tma_layout_ok(ptr, row_stride, col_start) == ok
+
+    def test_gram_corr_acc_ok_states_the_same_layout(self):
+        wide = torch.zeros((4, 40), dtype=torch.bfloat16)
+        for F in (wide, wide[:, 8:20], wide[:, 3:20], wide[:, :36].contiguous()):
+            assert cuda_ops.gram_corr_acc_ok(F) == cuda_ops._tma_layout_ok(F.data_ptr(),
+                                                                           F.stride(0))
+
+    def test_staging_copies_a_misaligned_window_and_counts_it(self):
+        F = torch.arange(10 * 40, dtype=torch.float32).reshape(10, 40).to(torch.bfloat16)
+        cuda_ops.reset_launch_counts()
+        rows, col = cuda_ops._tma_rows("block_gram_sym", F, 3, 20)
+        assert col == 0 and rows.stride(0) == 24 and torch.equal(rows, F[:, 3:23])
+        assert cuda_ops._tma_layout_ok(rows.data_ptr(), rows.stride(0))
+        assert cuda_ops.staged == {"gram_sym_acc": 0, "block_gram_sym": 1}
+        same, col = cuda_ops._tma_rows("gram_sym_acc", F, 8, 16)
+        assert same is F and col == 8 and cuda_ops.staged["gram_sym_acc"] == 0
+        rows, _ = cuda_ops._tma_rows("gram_sym_acc", F[:, 1:], 0, 39)
+        assert rows.stride(0) == 40 and torch.equal(rows, F[:, 1:])
+        assert cuda_ops.staged["gram_sym_acc"] == 1
+        cuda_ops.reset_launch_counts()
+        assert cuda_ops.staged == {"gram_sym_acc": 0, "block_gram_sym": 0}
+
+    @pytest.mark.parametrize("d", [8, 24, 20, 13])
+    def test_bf16_cosine_bank_tiles_are_tma_ready(self, d):
+        # A bf16 bank writes rows of a whole 16 bytes whatever its width (d
+        # = 20, 13 padded to 24, 16), with the values of an unpadded tile.
+        from keystone_tpu_torch.ops.learning.streaming_ls import CosineBankFeaturize
+
+        rng = np.random.default_rng(d)
+        X = torch.from_numpy(rng.normal(size=(30, 7)).astype(np.float32))
+        W = torch.from_numpy(rng.normal(size=(d, 7)).astype(np.float32))
+        b = torch.from_numpy(rng.uniform(0, 6, size=d).astype(np.float32))
+        tile = CosineBankFeaturize(W, b, torch.bfloat16)(X)
+        assert tile.shape == (30, d) and tile.stride(0) == -(-d // 8) * 8
+        assert cuda_ops._tma_layout_ok(tile.data_ptr(), tile.stride(0))
+        want = cuda_ops.cosine_features_ref(X, W, b, torch.bfloat16, torch.bfloat16)
+        assert torch.equal(tile, want)
+        f32 = CosineBankFeaturize(W, b)(X)
+        assert f32.is_contiguous() and torch.equal(f32, cuda_ops.cosine_features_ref(X, W, b))
+
+    @pytest.mark.parametrize("d", [24, 20])
+    def test_streamed_fold_reads_bf16_tiles_in_place(self, monkeypatch, d):
+        # The streamed fit with a bf16 bank: every tile gram_sym_acc folds is
+        # TMA-ready (so the card stages nothing), the ragged last one too.
+        from keystone_tpu_torch.ops.learning.streaming_ls import CosineBankFeaturize
+        from keystone_tpu_torch.parallel import streaming
+
+        rng = np.random.default_rng(1)
+        X = torch.from_numpy(rng.normal(size=(1300, 7)).astype(np.float32))
+        Y = torch.from_numpy(rng.normal(size=(1300, 3)).astype(np.float32))
+        bank = CosineBankFeaturize(torch.from_numpy(rng.normal(size=(d, 7)).astype(np.float32)),
+                                   torch.from_numpy(rng.uniform(0, 6, d).astype(np.float32)),
+                                   torch.bfloat16)
+        layouts, real = [], cuda_ops.gram_sym_acc
+
+        def recording(G, F, out=None):
+            layouts.append((F.dtype, cuda_ops._tma_layout_ok(F.data_ptr(), F.stride(0))))
+            return real(G, F, out=out)
+
+        monkeypatch.setattr(cuda_ops, "gram_sym_acc", recording)
+        streaming.gram_stats(X, Y, bank, d, 512, valid=1250)
+        assert layouts == [(torch.bfloat16, True)] * 3
+
+    def test_flat_fit_windows_are_tma_ready(self, monkeypatch):
+        # The fused flat fit of a bf16 slab (centred in place, windows of 16
+        # columns): every block_gram_sym window is read in place on the card.
+        from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+
+        rng = np.random.default_rng(2)
+        F = torch.from_numpy(rng.normal(size=(300, 48)).astype(np.float32)).to(torch.bfloat16)
+        Y = torch.from_numpy(rng.normal(size=(300, 3)).astype(np.float32))
+        windows, real = [], cuda_ops.block_gram_sym
+
+        def recording(F, col_start, block):
+            windows.append(cuda_ops._tma_layout_ok(F.data_ptr(), F.stride(0), col_start))
+            return real(F, col_start, block)
+
+        monkeypatch.setattr(cuda_ops, "block_gram_sym", recording)
+        BlockLeastSquaresEstimator(16, 2).device_fit_fn().fit(F, Y, 290)
+        assert windows == [True, True, True]
 
 
 def _includes_pipelined_tile(text):
@@ -427,11 +540,19 @@ class TestKernelsOnCard:
             cuda_ops.block_corr(F.double(), 0, 128, R)
 
 
-# block_gram_sym on gram_corr.cu's Gramian tiles: the window read in place
-# through F's row stride gives the bits of gram_corr_sym on a copy of it
-# (each entry one fmaf chain over the rows in order, whichever path copies
-# the window); 16-byte copies where the window's base, F's row stride and
-# the window's width are whole 16-byte chunks.
+def _mirrored(G):
+    """G's upper triangle mirrored: the whole symmetric Gramian."""
+    return torch.triu(G) + torch.triu(G, 1).T
+
+
+# block_gram_sym with float32 F on gram_corr.cu's Gramian tiles: the window
+# read in place through F's row stride gives the bits of gram_corr_sym on a
+# copy of it (each entry one fmaf chain over the rows in order, whichever
+# path copies the window); 16-byte copies where the window's base, F's row
+# stride and the window's width are whole 16-byte chunks. With bf16 F on
+# the tensor cores (gram_wgmma.cuh): the bits of gram_sym_acc on G = 0 and
+# a copy of the window, mirrored; a window whose start is not on a 16-byte
+# boundary is first copied into TMA-ready rows, and counted.
 @pytest.mark.cuda
 class TestBlockGramSymOnCard:
     @pytest.mark.parametrize("s", [0, 3, 201, 256])
@@ -441,27 +562,45 @@ class TestBlockGramSymOnCard:
         F, R, _ = _card_inputs(n, d, 3, cuda_device, seed=s)
         F = F.to(dtype)
         before = dict(cuda_ops.launches)
+        staged = cuda_ops.staged["block_gram_sym"]
         gram = cuda_ops.block_gram_sym(F, s, b)
         torch.cuda.synchronize()
         assert cuda_ops.launches["block_gram_sym"] == before["block_gram_sym"] + 1
         assert cuda_ops.launches["gram_corr_sym"] == before["gram_corr_sym"]
         assert cuda_ops.launches["gram_corr"] == before["gram_corr"]
-        copy, _ = cuda_ops.gram_corr_sym(F[:, s:s + b].contiguous(), R)
-        assert torch.equal(gram, copy)
-        chunk = 4 if dtype == torch.float32 else 8
+        window = F[:, s:s + b].contiguous()
         grid = cuda_ops.block_gram_sym_grid(F, s, b)
-        assert grid["vec"] == (s % chunk == 0 and d % chunk == 0 and b % chunk == 0)
         assert grid["blocks"] == 3 * 4 // 2  # 3 tiles of 128 across 264 columns
+        if dtype == torch.float32:
+            copy, _ = cuda_ops.gram_corr_sym(window, R)
+            assert grid["vec"] == (s % 4 == 0 and d % 4 == 0 and b % 4 == 0)
+            assert not grid["tensor_cores"] and not grid["staged"]
+        else:
+            # d = 704 makes whole 16-byte rows: the window is staged where
+            # its start is not on a 16-byte boundary.
+            assert cuda_ops.staged["block_gram_sym"] == staged + (s % 8 != 0)
+            assert grid["tensor_cores"] and grid["staged"] == (s % 8 != 0)
+            copy = _mirrored(cuda_ops.gram_sym_acc(
+                torch.zeros((b, b), device=cuda_device), window))
+            assert torch.equal(gram, cuda_ops.block_gram_sym(window, 0, b))
+        assert torch.equal(gram, copy)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_timit_grid(self, cuda_device, dtype):
         # F 65,536 x 16,384, the window [8192, 12288): the 528 upper tiles,
-        # 16-byte copies, no spills, at most 128 registers at 2 blocks an SM.
+        # no spills. float32 F: 16-byte copies, at most 128 registers at 2
+        # blocks an SM. bf16 F: the tensor cores, the window read in place,
+        # one block an SM: 4 waves of 132.
         F = torch.empty((65536, 16384), dtype=dtype, device=cuda_device)
         grid = cuda_ops.block_gram_sym_grid(F, 8192, 4096)
-        assert grid["blocks"] == 528 and grid["vec"]
+        assert grid["blocks"] == 528
         assert grid["local_bytes"] == 0
-        assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
+        if dtype == torch.float32:
+            assert grid["vec"] and not grid["tensor_cores"]
+            assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
+        else:
+            assert grid["tensor_cores"] and not grid["staged"]
+            assert grid["blocks_per_sm"] == 1 and grid["waves"] == 528 / grid["sms"]
 
 
 # block_corr's pipelined kernel: label tiles sized to k (32 for k <= 32, else
@@ -644,6 +783,7 @@ class TestGramSymAccOnCard:
             wide = torch.full((n, ld + off), float("nan"), device=cuda_device, dtype=dtype)
             Fk = wide[:, off:off + d]
             Fk.copy_(F)
+            staged = cuda_ops.staged["gram_sym_acc"]
             fresh = cuda_ops.gram_sym_acc(G0, Fk)
             G = G0.clone()
             cuda_ops.gram_sym_acc(G, Fk, out=G)
@@ -651,30 +791,54 @@ class TestGramSymAccOnCard:
             assert torch.equal(G[upper], fresh[upper]) and torch.equal(G[~upper], G0[~upper])
             first = fresh if first is None else first
             assert torch.equal(fresh[upper], first[upper])
+            # bf16 F is read by TMA: a layout whose base or row stride is not
+            # whole 16-byte chunks is copied into TMA-ready rows, each call.
+            misaligned = dtype == torch.bfloat16 and (ld % 8 != 0 or off != 0)
+            assert cuda_ops.staged["gram_sym_acc"] == staged + 2 * misaligned
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_has_the_bits_of_gram_corr_sym(self, cuda_device, dtype):
-        # The same Gramian tiles as gram_corr_sym's: G0 + FᵀF is G0 plus its
-        # Gramian, bit for bit (one fmaf chain an entry, then one add).
+        # float32 F: the same Gramian tiles as gram_corr_sym's: G0 + FᵀF is
+        # G0 plus its Gramian, bit for bit (one fmaf chain an entry, then one
+        # add). bf16 F runs on the tensor cores, gram_corr_sym_acc's bf16
+        # kernel with no labels (bf16 gram_corr_sym stays on the FMA tile):
+        # the Gramian of gram_corr_sym_acc, bit for bit, its labels and
+        # correlation whatever they are.
         rng = np.random.default_rng(4)
         F = torch.from_numpy(rng.normal(size=(1200, 259)).astype(np.float32)).to(cuda_device)
         F = F.to(dtype)
         G0 = torch.from_numpy(rng.normal(size=(259, 259)).astype(np.float32)).to(cuda_device)
-        R = torch.zeros((1200, 1), device=cuda_device)
         upper = _upper_tiles(259).to(cuda_device)
-        want = G0 + cuda_ops.gram_corr_sym(F, R)[0]
+        if dtype == torch.float32:
+            R = torch.zeros((1200, 1), device=cuda_device)
+            want = G0 + cuda_ops.gram_corr_sym(F, R)[0]
+        else:
+            R = torch.from_numpy(rng.normal(size=(1200, 9)).astype(np.float32)).to(cuda_device)
+            C0 = torch.zeros((259, 9), device=cuda_device)
+            # gram_corr_sym_acc reads bf16 F in place only: rows of 264.
+            Fa = torch.empty((1200, 264), dtype=dtype, device=cuda_device)[:, :259].copy_(F)
+            want = cuda_ops.gram_corr_sym_acc(G0, C0, Fa, R)[0]
         assert torch.equal(cuda_ops.gram_sym_acc(G0, F)[upper], want[upper])
 
     @pytest.mark.parametrize("bf16", [False, True])
     def test_streamed_tile_grid(self, cuda_device, bf16):
-        # d = 16,384: 128 · 129 / 2 = 8,256 upper tiles, 16-byte copies, no
-        # spills, 2 blocks an SM at <= 128 registers.
+        # d = 16,384: 128 · 129 / 2 = 8,256 upper tiles, no spills. float32
+        # F: 16-byte copies, 2 blocks an SM at <= 128 registers; a base one
+        # element off copies element by element. bf16 F: the tensor cores,
+        # read in place, one block an SM (62.5 waves of 132); a base one
+        # element off is staged.
         F = torch.empty((2, 16384), device=cuda_device)
-        grid = cuda_ops.gram_sym_acc_grid(F.to(torch.bfloat16) if bf16 else F)
-        assert grid["blocks"] == 8256 and grid["vec"]
+        F = F.to(torch.bfloat16) if bf16 else F
+        grid = cuda_ops.gram_sym_acc_grid(F)
+        assert grid["blocks"] == 8256
         assert grid["local_bytes"] == 0
-        assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
-        assert not cuda_ops.gram_sym_acc_grid(F[:, 1:])["vec"]
+        if bf16:
+            assert grid["tensor_cores"] and not grid["staged"] and grid["blocks_per_sm"] == 1
+            assert cuda_ops.gram_sym_acc_grid(F[:, 1:])["staged"]
+        else:
+            assert grid["vec"] and not grid["tensor_cores"]
+            assert grid["blocks_per_sm"] >= 2 and grid["registers"] <= 128
+            assert not cuda_ops.gram_sym_acc_grid(F[:, 1:])["vec"]
 
     def test_same_bits_every_run(self, cuda_device):
         rng = np.random.default_rng(1)
@@ -684,6 +848,22 @@ class TestGramSymAccOnCard:
         upper = _upper_tiles(384).to(cuda_device)
         assert all(torch.equal(first[upper], cuda_ops.gram_sym_acc(G0, F)[upper])
                    for _ in range(3))
+
+    def test_bf16_same_bits_every_run(self, cuda_device):
+        # The tensor-core Gramian in both epilogues: fixed order, so every
+        # run gives the same bits, and block_gram_sym's are gram_sym_acc's on
+        # G = 0, mirrored.
+        rng = np.random.default_rng(5)
+        F = torch.from_numpy(rng.normal(size=(5000, 384)).astype(np.float32)).to(cuda_device)
+        F = F.to(torch.bfloat16)
+        G0 = torch.zeros((384, 384), device=cuda_device)
+        first = cuda_ops.gram_sym_acc(G0, F)
+        gram = cuda_ops.block_gram_sym(F, 0, 384)
+        upper = _upper_tiles(384).to(cuda_device)
+        for _ in range(3):
+            assert torch.equal(first[upper], cuda_ops.gram_sym_acc(G0, F)[upper])
+            assert torch.equal(gram, cuda_ops.block_gram_sym(F, 0, 384))
+        assert torch.equal(gram, _mirrored(first))
 
     def test_bad_operands_raise(self, cuda_device):
         F = torch.zeros((8, 16), device=cuda_device)
